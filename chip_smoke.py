@@ -8,15 +8,48 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. Device: a CUDA GPU must be present; prints its name and the
    ``nvidia-smi`` name and power limit.
-2. Build: compiles K1 (kernels/csrc/megakernel.cu) for sm_90a with nvcc.
-3. Kernel vs plain: K1 and its plain PyTorch version on the same card and
+2. Build: compiles K1, K2 and K2b (kernels/csrc/megakernel.cu, one nvcc)
+   for sm_90a.
+3. K1 vs plain: K1 and its plain PyTorch version on the same card and
    inputs, on four small presets and at the main path's full size.  Bound:
    ``(|a - b| > 1e-3).mean() < 0.01`` on per-pixel mean radiance, segment
    totals within 0.1%.
-4. Main path: ``render_image_mega`` on the final scene (1200x800 @ 10 spp,
-   depth 50, seed 0), launch counter reset before and read after, radiance
-   sum within 1% of ``bench_golden.json``; median of 3 timed runs after a
-   warm run; the image goes to ``out/final_torch.png``.
+4. The render path: ``render_image_mega`` on the final scene (1200x800 @ 10
+   spp, depth 50, seed 0), launch counter reset before and read after,
+   radiance sum within 1% of ``bench_golden.json``; median of 3 timed runs
+   after a warm run; the image goes to ``out/final_torch.png``.
+5. K2 and K2b vs plain on the four small presets: K2's radiance and
+   segments bit-equal to K1's, K2's and K2b's tapes against the plain
+   versions' (agreement above 0.999, 0.99 on the coplanar triangle mesh),
+   K2b's tape equal to K2's and its per-ray trip counts summing to K1's
+   segments; a 512-ray slice at ray id 9.5 M of the final scene through K2
+   and K2b equal to the same columns of the full-frame K2 tape, and off the
+   plain K2b's in at most one ray; K1, K2 and K2b timed at full frame, in
+   turns.
+6. The differentiable path at full width (bench.py's grad configuration):
+   the final scene, ray ids [0, 2^17), zero target, mean squared radiance,
+   every DIFF_FIELDS leaf.  Counters reset, then one step (record by K2,
+   ``plan_buckets``, ``render_loss_and_grads_bucketed``) and the step's
+   segment count (K2b's per-ray trip counts, bench.py's instrumentation
+   pass), counters read.  Checks at that size: K2's and K2b's tapes equal,
+   each against its plain version (agreement above 0.999), K2's radiance
+   and segments against the plain K2's (the image bound, totals within
+   0.1%), K2b's trips against the plain K2b's (totals within 0.1%) and, per
+   pixel, K2's segments; K2's tape against the plain wavefront
+   ``record_paths`` (above 0.999); the replay's radiance per pixel against
+   K1 over the 13,107 whole pixels (the image bound); finite loss and
+   gradients, a non-zero albedo gradient.  Against the JAX package's golden
+   (``first_raytracer_tpu_torch/data/grad_golden_final_2p17.json``, with
+   JAX's tape beside it): K2's tape agrees with JAX's above 0.999; in
+   float32, on K2's tape and on JAX's, the loss within 1% and the albedo
+   gradient's relative L2 error within 5%; in float64, the port's replay of
+   JAX's tape against JAX's float64 replay: the loss and every gradient
+   within 1e-6, those that rest on near-tangent rays (``TANGENT_FIELDS``)
+   within 1e-2.  Times: K2, K2b and their plain versions at 2^17 rays, the
+   replay's value and gradient, the whole step (median of 3 after the warm
+   step), peak memory.
+7. ``python -m first_raytracer_tpu_torch.cli fit ... --fast`` in a
+   subprocess on the card: exits 0, the loss falls, K2 launched each step.
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements and the result line ``{"ok": true, "device": {...}}``.  This
@@ -24,6 +57,7 @@ script imports no JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -31,21 +65,62 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from first_raytracer_tpu_torch.core import rng
+from first_raytracer_tpu_torch.diff import grad as dg
+from first_raytracer_tpu_torch.diff.replay import (plan_buckets,
+                                                   record_paths,
+                                                   trace_rays_replay)
 from first_raytracer_tpu_torch.kernels import megakernel as mk
+from first_raytracer_tpu_torch.kernels import record_mega as rm
+from first_raytracer_tpu_torch.render.camera import generate_rays
 from first_raytracer_tpu_torch.render.image import write_png
 from first_raytracer_tpu_torch.scene.builders import build_preset
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_KEY = "radiance_sum_mega_1200x800_10spp"
+GRAD_GOLDEN = os.path.join(ROOT, "first_raytracer_tpu_torch", "data",
+                           "grad_golden_final_2p17.json")
+GRAD_GOLDEN_TAPE = GRAD_GOLDEN.replace(".json", "_tape.npz")
 SMALL_CASES = [
     ("three-spheres", dict(nx=64, ny=32, spp=4)),
     ("triangle-mesh", dict(nx=64, ny=32, spp=2)),
     ("camera-effects", dict(nx=64, ny=32, spp=4)),
     ("random-spheres", dict(nx=96, ny=64, spp=2)),
 ]
+GRAD_RAYS = 1 << 17
+SLICE_RAY0, SLICE_RAYS = 9_500_000, 512
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores,
+# and HBM3 bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations per (segment, sphere) and per (segment, triangle) that
+# every sweep step does, counted from kernels/csrc/mega_common.cuh
+# (closest_hit): 5 + 5 + 1 + 3 + 2 for a sphere; 9 + 5 + 1 + 3 + 6 + 9 +
+# 6 + 6 + 1 for a triangle.  Roots, shading and Threefry are left out, so
+# the bound is a lower one.
+SPHERE_OPS, TRIANGLE_OPS = 16, 46
+
+
+# Gradients of the final scene that rest on a few near-tangent rays, where
+# float32 rounding of the sphere discriminant moves them by tens of percent.
+TANGENT_FIELDS = ("sphere_center", "sphere_radius", "fuzz", "ref_idx")
+# The float64 replay against JAX's: the uniforms stay float32 and go through
+# each library's own sine and cosine, and a near-tangent ray magnifies that
+# last-bit difference in the fields above (on the CPU at 4096 rays up to
+# 8.5e-5 of relative L2 error, tests/test_torch_grad.py); the loss and the
+# other gradients agree to about 1e-9 there.
+F64_BOUND, F64_TANGENT_BOUND = 1e-6, 1e-2
+
+
+def to_f64(obj):
+    """A copy of a scene or camera with its float tensors in float64."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).double()
+        for f in dataclasses.fields(obj)
+        if getattr(obj, f.name).is_floating_point()})
 
 
 def log(msg):
@@ -93,29 +168,73 @@ def cuda_ms(fn, repeats):
     return statistics.median(times)
 
 
-def main():
-    # 1. Device.
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
-    dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
-    card = card_line()
-    log(f"device: {name} (torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
-    log(card)
-
-    # 2. Build.
+def host_s(fn):
+    """Seconds of ``fn`` and everything it queued on the card."""
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def bound(pack, segments, out_bytes):
+    """The least time the card could take for a sweep of ``segments``
+    segments over the pack: the larger of its FP32 operations over the FP32
+    peak and its bytes (tables and camera read once, outputs written once)
+    over the memory rate.  Returns (ms, "operations" | "bytes")."""
+    ops = segments * (pack.sphere_rows * SPHERE_OPS
+                      + pack.tri_rows * TRIANGLE_OPS)
+    in_bytes = 4 * (20 + pack.spheres.numel() + pack.sph_mx.numel()
+                    + pack.tris.numel())
+    t_ops, t_bytes = ops / PEAK_FP32, (in_bytes + out_bytes) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_err(g, w):
+    """|g - w| / |w| in float64, or None where ``w`` is zero; and |g|."""
+    g, w = g.double().flatten().cpu(), w.double().flatten().cpu()
+    if float(w.norm()) == 0.0:
+        return None, float(g.norm())
+    return float((g - w).norm() / w.norm()), float(g.norm())
+
+
+def check_grads(what, grads, want, allowed):
+    """Each gradient against ``want``'s (a dict of value lists): zero where
+    it is zero, else a relative L2 error within ``allowed(field)``."""
+    for k, values in want.items():
+        err, norm = rel_err(grads[k], torch.tensor(values,
+                                                   dtype=torch.float64))
+        if err is None:
+            ok = norm == 0.0
+            log(f"      {what} {k}: reference zero, port norm {norm:.3e}")
+        else:
+            ok = err <= allowed(k)
+            log(f"      {what} {k}: relative error {err:.3e} (bound "
+                f"{allowed(k):g})")
+        if not ok:
+            raise AssertionError(f"{what}: gradient {k} off its reference")
+
+
+def reset_counts():
+    mk.render_pixels_mega.launches = 0
+    mk.render_pixels_mega.tape_launches = 0
+    rm.record_paths_mega.legacy_launches = 0
+
+
+def build():
+    """Phase 2: the one library of K1, K2 and K2b."""
     _, info = mk.load_mega_library()
-    log(f"build: K1 {os.path.relpath(info.path, ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc {info.seconds:.2f} s, "
-        f"cached={info.cached})")
+    log(f"build: {os.path.relpath(info.path, ROOT)} (nvcc "
+        f"{info.seconds:.2f} s, cached={info.cached})")
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    # 3. Kernel vs plain on the card.
-    key = rng.base_key(0)
+
+def render_path(dev, key, card):
+    """Phases 3 and 4: K1 against its plain version, then the render path.
+    Returns K1's entry of the kernels line and the final scene."""
     for preset, kw in SMALL_CASES:
         scene, cam, cfg = build_preset(preset, device=dev, **kw)
         pack = mk.pack_scene_mega(scene)
@@ -141,22 +260,22 @@ def main():
     log(f"  plain version at full size: {plain_ms:.1f} ms (one run)")
     del ref, ref_segs, rad, segs
 
-    # 4. The main path at full size, through the user's entry point.
+    # 4. The render path at full size, through the user's entry point.
     with open(os.path.join(ROOT, "bench_golden.json")) as f:
         golden = json.load(f)[GOLDEN_KEY]
-    mk.render_pixels_mega.launches = 0
+    reset_counts()
     img = mk.render_image_mega(scene, cam, cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     launches = mk.render_pixels_mega.launches
     if launches < 1:
-        raise AssertionError("the main path did not launch K1")
+        raise AssertionError("the render path did not launch K1")
     if tuple(img.shape) != (cfg.ny, cfg.nx, 3):
         raise AssertionError(f"image shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
         raise AssertionError("non-finite pixels")
     checksum = float(img.double().sum()) * cfg.spp
     rel = abs(checksum - golden) / golden
-    log(f"main path: radiance sum {checksum:.1f} vs golden {golden:.1f} "
+    log(f"render path: radiance sum {checksum:.1f} vs golden {golden:.1f} "
         f"(rel {rel:.2e}), K1 launches {launches}")
     if not rel < 1e-2:
         raise AssertionError(f"radiance sum off golden by {rel:.3g}")
@@ -178,19 +297,335 @@ def main():
     lane_eff = float(warps.mean(1).sum() / warps.max(1).values.sum())
     kernel_ms = cuda_ms(lambda: mk.render_pixels_mega(pack, cam, cfg, key),
                         3)
+    bound_ms, bound_by = bound(pack, rays, 16 * cfg.num_pixels)
     log(f"final scene {cfg.nx}x{cfg.ny}@{cfg.spp}spp depth "
         f"{cfg.max_depth}: {sec:.4f} s/frame median of 3, "
         f"{cfg.num_rays / sec / 1e6:.3f} Mpaths/s, "
         f"{rays / sec / 1e6:.3f} Mrays/s ({rays} segments); K1 alone "
-        f"{kernel_ms:.3f} ms, warp lane efficiency {lane_eff:.3f}; "
-        f"plain {plain_ms:.1f} ms; on {card}")
+        f"{kernel_ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}), warp "
+        f"lane efficiency {lane_eff:.3f}; plain {plain_ms:.1f} ms; on {card}")
+    k1 = {"name": "K1 megakernel (render_pixels_mega)", "route": "cuda",
+          "source": "first_raytracer_tpu_torch/kernels/csrc/megakernel.cu",
+          "replaces": mk.REPLACES, "launches": launches,
+          "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return k1, scene, cam, cfg, pack
 
-    log(json.dumps({"kernels": [{
-        "name": "K1 megakernel (render_pixels_mega)", "route": "cuda",
-        "source": "first_raytracer_tpu_torch/kernels/csrc/megakernel.cu",
-        "replaces": mk.REPLACES, "launches": launches,
-        "max_abs_err": max_abs_err, "ms": kernel_ms,
-        "plain_ms": plain_ms}]}))
+
+def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack):
+    """Phase 5."""
+    for preset, kw in SMALL_CASES:
+        s, c, cf = build_preset(preset, device=dev, **kw)
+        p = mk.pack_scene_mega(s)
+        rad, segs = mk.render_pixels_mega(p, c, cf, key)
+        before = (mk.render_pixels_mega.tape_launches,
+                  rm.record_paths_mega.legacy_launches)
+        rad2, segs2, tape = mk.render_pixels_mega(p, c, cf, key,
+                                                  emit_tape=True)
+        tape_b, its = rm.record_paths_mega(p, c, cf, key, return_iters=True)
+        torch.cuda.synchronize()
+        if (mk.render_pixels_mega.tape_launches,
+                rm.record_paths_mega.legacy_launches) != (before[0] + 1,
+                                                          before[1] + 1):
+            raise AssertionError("K2 or K2b launch counter did not move")
+        if not (torch.equal(rad2, rad) and torch.equal(segs2, segs)):
+            raise AssertionError(f"{preset}: K2 changed K1's results")
+        if not torch.equal(tape_b, tape):
+            raise AssertionError(f"{preset}: K2b's tape differs from K2's")
+        if not torch.equal(its.reshape(-1, cf.spp).sum(1, dtype=torch.int32),
+                           segs):
+            raise AssertionError(f"{preset}: K2b's trips differ from K1's "
+                                 "segments")
+        ref_rad, _, ref = mk.render_pixels_mega_reference(p, c, cf, key,
+                                                          emit_tape=True)
+        ref_b, ref_its = rm.record_paths_mega_reference(p, c, cf, key)
+        a2 = float((tape == ref).float().mean())
+        ab = float((tape_b == ref_b).float().mean())
+        floor = 0.99 if preset == "triangle-mesh" else 0.999
+        e2 = float(((rad2 - ref_rad) / cf.spp).abs().max())
+        eb = float((its - ref_its).abs().max())
+        log(f"  {preset} {cf.nx}x{cf.ny}@{cf.spp}: K2 = K1 bit for bit; "
+            f"tape agreement K2 {a2:.6f}, K2b {ab:.6f} (floor {floor}); "
+            f"K2 radiance max err {e2:.3e}, K2b trip max err {eb:g}")
+        if not (a2 > floor and ab > floor):
+            raise AssertionError(f"{preset}: tape agreement below {floor}")
+
+    _, _, full = mk.render_pixels_mega(pack, cam, cfg, key, emit_tape=True)
+    want = full[:, SLICE_RAY0:SLICE_RAY0 + SLICE_RAYS]
+    for impl in ("mega", "legacy"):
+        got = rm.record_paths_mega(pack, cam, cfg, key, ray0=SLICE_RAY0,
+                                   num_rays=SLICE_RAYS, impl=impl)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{impl}: slice at ray {SLICE_RAY0} "
+                                 "differs from the full-frame tape")
+    ref, _ = rm.record_paths_mega_reference(pack, cam, cfg, key,
+                                            ray0=SLICE_RAY0,
+                                            num_rays=SLICE_RAYS)
+    rays = int((ref != want).any(dim=0).sum())
+    log(f"  slice against the plain K2b: agreement "
+        f"{float((ref == want).float().mean()):.6f}, {rays} rays differ "
+        "(bound: at most one)")
+    if rays > 1:
+        raise AssertionError("the slice differs from the plain K2b's")
+    log(f"  slice [{SLICE_RAY0}, +{SLICE_RAYS}) through K2 and K2b equals "
+        "the full-frame K2 tape's columns")
+    del full, want
+    torch.cuda.empty_cache()
+    calls = {
+        "K1": lambda: mk.render_pixels_mega(pack, cam, cfg, key),
+        "K2": lambda: mk.render_pixels_mega(pack, cam, cfg, key,
+                                            emit_tape=True),
+        "K2b": lambda: rm.record_paths_mega(pack, cam, cfg, key,
+                                            impl="legacy")}
+    runs = {k: [] for k in calls}
+    for k in ("K1", "K2", "K2b", "K2b", "K2", "K1"):  # in turns
+        runs[k].append(cuda_ms(calls[k], 3))
+        torch.cuda.empty_cache()
+    k1_ms, k2_ms, kb_ms = (statistics.mean(runs[k]) for k in calls)
+    log(f"full frame, in turns K1 K2 K2b K2b K2 K1 (median of 3 each): K1 "
+        f"{runs['K1']} ms, K2 {runs['K2']} ms, K2b {runs['K2b']} ms; tape "
+        f"write +{k2_ms - k1_ms:.3f} ms ({(k2_ms / k1_ms - 1) * 100:.1f}%); "
+        f"K2b/K2 {kb_ms / k2_ms:.3f}; on {card}")
+
+
+def grad_path(dev, key, card, scene, cam, cfg, pack):
+    """Phase 6.  Returns the launches and times for the kernels line."""
+    R = GRAD_RAYS
+    ids = torch.arange(R, device=dev)
+    target = torch.zeros((R, 3), device=dev)
+    params, _ = dg.split_params(scene)
+
+    def record():
+        return rm.record_paths_mega(pack, cam, cfg, key, num_rays=R)
+
+    def step():
+        tape = record()
+        plan = plan_buckets(tape)
+        loss, grads = dg.render_loss_and_grads_bucketed(
+            params, scene, cam, cfg, key, ids, target, tape, plan=plan)
+        return tape, plan, loss, grads
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    tape, plan, loss, grads = step()
+    tape_b, its = rm.record_paths_mega(pack, cam, cfg, key, num_rays=R,
+                                       return_iters=True)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {"K2": mk.render_pixels_mega.tape_launches,
+                "K2b": rm.record_paths_mega.legacy_launches}
+    log(f"grad path: launches {launches}, buckets {plan[1]}, peak memory "
+        f"{peak_gb:.3f} GB")
+    if min(launches.values()) < 1:
+        raise AssertionError("the grad path did not launch K2 and K2b")
+    segments = int(its.sum())
+
+    # (a) K2 and K2b against their plain versions at this size, and K2's
+    # tape against the plain wavefront recorder.
+    pixels_k2 = -(-R // cfg.spp)  # K2 covers the pixels that hold the rays
+    plain2_s, (ref_rad, ref_segs, ref_tape) = host_s(
+        lambda: mk.render_pixels_mega_reference(
+            pack, cam, cfg, key, num_pixels=pixels_k2, emit_tape=True))
+    plain_b_s, (ref_b, ref_its) = host_s(
+        lambda: rm.record_paths_mega_reference(pack, cam, cfg, key,
+                                               num_rays=R))
+    rad2, segs2, tape2 = mk.render_pixels_mega(pack, cam, cfg, key,
+                                               num_pixels=pixels_k2,
+                                               emit_tape=True)
+    err2 = compare(rad2, segs2, ref_rad, ref_segs, cfg.spp,
+                   f"K2 vs plain over {pixels_k2} pixels")
+    if not (torch.equal(tape2[:, :R], tape) and torch.equal(tape_b, tape)):
+        raise AssertionError("K2b's tape, or K2's of the whole pixels, "
+                             "differs from the step's")
+    whole = R // cfg.spp
+    if not torch.equal(its[:whole * cfg.spp].reshape(whole, cfg.spp).sum(
+            1, dtype=torch.int32), segs2[:whole]):
+        raise AssertionError("K2b's trips differ from K2's segments")
+    agree2 = float((tape == ref_tape[:, :R]).float().mean())
+    agree_b = float((tape_b == ref_b).float().mean())
+    err_b = float((its - ref_its).abs().max())
+    trips_rel = abs(segments - int(ref_its.sum())) / int(ref_its.sum())
+    log(f"  (a) K2b = K2 (tapes; trips per pixel = segments); tape agreement "
+        f"with the plain versions: K2 {agree2:.6f}, K2b {agree_b:.6f} (floor "
+        f"0.999), {int((tape != ref_tape[:, :R]).any(dim=0).sum())} and "
+        f"{int((tape_b != ref_b).any(dim=0).sum())} rays differ; K2b trips "
+        f"{segments} vs {int(ref_its.sum())} (rel {trips_rel:.2e}), per ray "
+        f"max err {err_b:g}")
+    if not (agree2 > 0.999 and agree_b > 0.999):
+        raise AssertionError("K2 or K2b tape off its plain version")
+    if not trips_rel <= 1e-3:
+        raise AssertionError(f"K2b trip totals differ ({trips_rel})")
+    del ref_rad, ref_tape, ref_b, tape2
+    o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                         rng.camera_uniforms(key, ids))
+    wave_s, wave = host_s(lambda: record_paths(scene, o, d, ids, key, cfg))
+    agree = float((tape == wave).float().mean())
+    differing = int((tape != wave).any(dim=0).sum())
+    log(f"  (a) K2 tape vs plain record_paths: agreement {agree:.6f}, "
+        f"{differing} rays differ (record_paths {wave_s * 1e3:.1f} ms, one "
+        "run)")
+    if not agree > 0.999:
+        raise AssertionError(f"K2 tape agreement {agree}")
+    del wave
+
+    # (b) The replay's radiance per whole pixel against K1.
+    with torch.no_grad():
+        rad = trace_rays_replay(scene, o, d, ids, key, cfg, tape)
+    rad_px = rad[:whole * cfg.spp].reshape(whole, cfg.spp, 3).sum(1)
+    k1_rad, _ = mk.render_pixels_mega(pack, cam, cfg, key, num_pixels=whole)
+    diff = ((rad_px - k1_rad) / cfg.spp).abs()
+    frac = float((diff > 1e-3).float().mean())
+    log(f"  (b) replay vs K1 over {whole} pixels: frac(|a-b|>1e-3)="
+        f"{frac:.6f} max={float(diff.max()):.3e}")
+    if not frac < 0.01:
+        raise AssertionError(f"replay radiance off K1 ({frac})")
+
+    # (c) Finite loss and gradients; the albedo gradient moves.
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError("non-finite loss")
+    for k, g in grads.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient {k}")
+    if not float(grads["albedo"].abs().max()) > 0.0:
+        raise AssertionError("zero albedo gradient")
+
+    # (d) The JAX package's golden, computed on the CPU, and its tape.
+    with open(GRAD_GOLDEN) as f:
+        golden = json.load(f)
+    with np.load(GRAD_GOLDEN_TAPE) as saved:
+        jax_tape = torch.from_numpy(saved["tape"].astype(np.int32)).to(dev)
+    agree_j = float((tape == jax_tape).float().mean())
+    rays_j = int((tape != jax_tape).any(dim=0).sum())
+    log(f"  (d) K2 tape vs JAX's tape: agreement {agree_j:.6f}, {rays_j} "
+        "rays differ")
+    if not agree_j > 0.999:
+        raise AssertionError(f"K2 tape agreement with JAX's {agree_j}")
+    f64 = golden["f64"]
+    want64 = {k: v["values"] for k, v in f64["fields"].items()}
+    # (d1) float32, on K2's tape (the step as run) and on JAX's: the loss
+    # within 1% and the albedo gradient within 5% of JAX's float32 values.
+    # The fields of TANGENT_FIELDS are only logged here: in float32 they
+    # move by tens of percent between tapes or roundings in either package.
+    loss_j, grads_j = dg.render_loss_and_grads_bucketed(
+        params, scene, cam, cfg, key, ids, target, jax_tape)
+    for what, l32, g32 in (("K2's", loss, grads), ("JAX's", loss_j, grads_j)):
+        rel = abs(float(l32) - golden["loss"]) / golden["loss"]
+        log(f"  (d1) float32 on {what} tape: loss {float(l32):.9g}, rel "
+            f"{rel:.3e} (bound 1e-2)")
+        if not rel < 1e-2:
+            raise AssertionError(f"loss on {what} tape off by {rel:.3g}")
+        check_grads(f"(d1) {what} tape", {"albedo": g32["albedo"]},
+                    {"albedo": golden["fields"]["albedo"]["values"]},
+                    lambda k: 0.05)
+        for k in TANGENT_FIELDS:
+            err = rel_err(g32[k], torch.tensor(want64[k],
+                                               dtype=torch.float64))[0]
+            log(f"      {k}: {err:.4f} from JAX's float64 (JAX's own "
+                f"float32: {f64['fields'][k]['f32']['rel_err']})")
+    # (d2) float64 on JAX's tape: every field against JAX's float64 replay.
+    scene64, cam64 = to_f64(scene), to_f64(cam)
+    params64, _ = dg.split_params(scene64)
+    loss64, grads64 = dg.render_loss_and_grads_bucketed(
+        params64, scene64, cam64, cfg, key, ids, target.double(), jax_tape)
+    rel64 = abs(float(loss64) - f64["loss"]) / f64["loss"]
+    log(f"  (d2) float64 on JAX's tape: loss {float(loss64):.17g}, rel "
+        f"{rel64:.3e} (bound {F64_BOUND:g})")
+    if not (loss64.dtype == torch.float64 and rel64 < F64_BOUND):
+        raise AssertionError(f"float64 loss off JAX's by {rel64:.3g}")
+    check_grads("(d2) float64", grads64, want64,
+                lambda k: F64_TANGENT_BOUND if k in TANGENT_FIELDS
+                else F64_BOUND)
+    del scene64, cam64, params64, grads64
+
+    # Times, median of 3 after the warm step above.
+    k2_ms = cuda_ms(record, 3)
+    kb_ms = cuda_ms(lambda: rm.record_paths_mega(pack, cam, cfg, key,
+                                                 num_rays=R, impl="legacy"), 3)
+    replay_s = statistics.median(host_s(
+        lambda: dg.render_loss_and_grads_bucketed(
+            params, scene, cam, cfg, key, ids, target, tape, plan=plan))[0]
+        for _ in range(3))
+    step_s = statistics.median(host_s(step)[0] for _ in range(3))
+    D = cfg.max_depth + 1
+    k2_bound = bound(pack, int(segs2.sum()),
+                     16 * pixels_k2 + 4 * D * pixels_k2 * cfg.spp)
+    kb_bound = bound(pack, segments, 4 * (D + 1) * R)
+    log(f"  at {R} rays: K2 {k2_ms:.3f} ms (bound {k2_bound[0]:.4f} ms), "
+        f"K2b {kb_ms:.3f} ms (bound {kb_bound[0]:.4f} ms), plain K2 "
+        f"{plain2_s * 1e3:.1f} ms, plain K2b {plain_b_s * 1e3:.1f} ms (one "
+        f"run each); on {card}")
+    log(f"  replay value and gradient {replay_s * 1e3:.1f} ms; whole step "
+        f"(record + plan + value and gradient) {step_s * 1e3:.1f} ms: "
+        f"{R / step_s / 1e6:.4f} gradient Mpaths/s, "
+        f"{segments / step_s / 1e6:.3f} Mrays/s ({segments} segments), "
+        f"replay {replay_s / step_s * 100:.1f}% of the step; peak memory "
+        f"{peak_gb:.3f} GB; on {card}")
+    return dict(launches=launches, k2_ms=k2_ms, kb_ms=kb_ms,
+                plain2_ms=plain2_s * 1e3, plain_b_ms=plain_b_s * 1e3,
+                k2_bound=k2_bound, kb_bound=kb_bound, err2=err2,
+                err_b=err_b, agree2=agree2, agree_b=agree_b)
+
+
+def fit_cli(card):
+    """Phase 7: the fit CLI in a subprocess on the card."""
+    cmd = [sys.executable, "-m", "first_raytracer_tpu_torch.cli", "fit",
+           "--preset", "random-spheres", "--nx", "64", "--ny", "32",
+           "--spp", "2", "--fields", "albedo", "--opt", "adam", "--lr",
+           "0.05", "--fast", "--steps", "5"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"fit CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines()]
+    steps, last = lines[:-1], lines[-1]
+    log(f"fit CLI: {' '.join(cmd[3:])} in {time.perf_counter() - t0:.1f} s: "
+        f"losses {[s['loss'] for s in steps]}, {last}")
+    if not steps[-1]["loss"] < steps[0]["loss"]:
+        raise AssertionError("the fit's loss did not fall")
+    if last["device"] != "cuda" or last["kernel_launches"]["K2"] < 5:
+        raise AssertionError("the fit did not record with K2 on the card")
+
+
+def main():
+    # 1. Device.
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    card = card_line()
+    log(f"device: {name} (torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
+    log(card)
+
+    build()  # 2.
+    key = rng.base_key(0)
+    k1, scene, cam, cfg, pack = render_path(dev, key, card)  # 3, 4.
+    log("K2 and K2b vs plain:")
+    tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack)  # 5.
+    g = grad_path(dev, key, card, scene, cam, cfg, pack)  # 6.
+    fit_cli(card)  # 7.
+
+    src = "first_raytracer_tpu_torch/kernels/csrc/"
+    log(json.dumps({"kernels": [k1, {
+        "name": "K2 megakernel with tape (render_pixels_mega "
+                "emit_tape=True, record_paths_mega)",
+        "route": "cuda", "source": src + "megakernel.cu",
+        "replaces": mk.REPLACES, "launches": g["launches"]["K2"],
+        "max_abs_err": g["err2"], "tape_agreement": g["agree2"],
+        "ms": g["k2_ms"],
+        "plain_ms": g["plain2_ms"], "bound_ms": g["k2_bound"][0],
+        "bound_by": g["k2_bound"][1], "library_ms": None}, {
+        "name": "K2b standalone recorder (record_paths_mega "
+                "impl=legacy / return_iters)",
+        "route": "cuda", "source": src + "megakernel.cu",
+        "replaces": rm.REPLACES, "launches": g["launches"]["K2b"],
+        "max_abs_err": g["err_b"], "tape_agreement": g["agree_b"],
+        "ms": g["kb_ms"],
+        "plain_ms": g["plain_b_ms"], "bound_ms": g["kb_bound"][0],
+        "bound_by": g["kb_bound"][1], "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

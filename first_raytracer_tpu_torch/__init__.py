@@ -3,10 +3,11 @@
 Port of ``first_raytracer_tpu`` (JAX + Pallas for TPU) for one NVIDIA
 Hopper GPU.  Sub-packages and modules keep the JAX package's names, so each
 module's counterpart is found by path.  Plain functions work on tensors;
-entry points take an explicit ``device``.  The forward megakernel render
-runs through a hand-written CUDA kernel (``kernels/csrc/megakernel.cu``) on
-a GPU and through its plain PyTorch version on the CPU.  This package never
-imports JAX.
+entry points take a ``device``, ``"cuda"`` unless the caller asks for
+``"cpu"``.  The forward megakernel render and the differentiable pass's tape
+recorders run through hand-written CUDA kernels (``kernels/csrc/``) on a GPU
+and through their plain PyTorch versions on the CPU; ``diff/`` replays the
+tape under ``torch.autograd``.  This package never imports JAX.
 """
 from .kernels.megakernel import render_image_mega
 from .render.api import render_image, render_ray_batch

@@ -1,9 +1,11 @@
-"""Carry scenes and cameras across from numpy arrays.
+"""Carry scenes, cameras and parameters across from numpy arrays.
 
 ``scene_from_numpy(jax_scene.as_numpy())`` and ``camera_from_numpy(...)``
 turn the JAX package's scene and camera, given as numpy arrays, into the
-port's tensors, so a test can feed both packages the same state.  This
-module imports no JAX: any object with the same field names works.
+port's tensors, and ``params_from_numpy`` does the same for a dict of
+differentiable parameters (``diff.grad.split_params``), so a test can feed
+both packages the same state.  This module imports no JAX: any object with
+the same field names works.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch
 from .render.camera import Camera
 from .scene.soa import Scene
 
-__all__ = ["scene_from_numpy", "camera_from_numpy", "camera_to_numpy"]
+__all__ = ["scene_from_numpy", "camera_from_numpy", "camera_to_numpy",
+           "params_from_numpy", "params_to_numpy"]
 
 _INT_FIELDS = {"sphere_mat", "tri_mat", "mat_type", "tex_type"}
 
@@ -46,3 +49,15 @@ def camera_to_numpy(camera: Camera) -> dict:
     ``as_numpy``)."""
     return {n: getattr(camera, n).detach().cpu().numpy()
             for n in _field_names(Camera)}
+
+
+def params_from_numpy(params: dict, device="cpu") -> dict:
+    """A parameter dict of f32 leaf tensors with ``requires_grad`` from a
+    dict of arrays."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            .requires_grad_(True) for k, v in params.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The parameter (or gradient) dict as numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

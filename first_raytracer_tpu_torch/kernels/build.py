@@ -58,8 +58,12 @@ def build_library(name: str, sources, extra_flags=()):
     """
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
     flags = list(NVCC_FLAGS) + list(extra_flags)
+    # The shared headers count as sources: an edited header rebuilds every
+    # library that may include it.
+    headers = sorted(os.path.join(CSRC_DIR, h) for h in os.listdir(CSRC_DIR)
+                     if h.endswith(".cuh"))
     digest = hashlib.sha256()
-    for p in paths:
+    for p in paths + headers:
         with open(p, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(flags).encode())

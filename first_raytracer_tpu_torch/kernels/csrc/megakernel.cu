@@ -1,382 +1,119 @@
-// K1 on Hopper: the whole forward path tracer in one CUDA kernel.
+// K1, K2 and K2b on Hopper: the whole forward path tracer in one CUDA
+// kernel, the same kernel writing the winner tape of the differentiable
+// pass, and the standalone tape recorder.
 //
-// Replaces first_raytracer_tpu/kernels/megakernel.py::_mega_kernel, the
+// K1 (`mega_kernel<false>`) replaces
+// first_raytracer_tpu/kernels/megakernel.py:306 _mega_kernel, the
 // persistent-lane Pallas megakernel of the JAX package.  It computes the same
 // thing: for every pixel, `spp` camera samples traced to termination through
 // a dense sweep of every sphere and triangle, with the same counter-based
 // Threefry-2x32-20 stream (bit-identical uniforms), exact (min t, lowest
-// sorted index) closest-hit selection, branch-free-equivalent lambertian /
-// metal / dielectric scatter with the checker texture, the sky on a miss,
-// and a per-pixel radiance sum plus a per-pixel segment count.
+// sorted index) closest-hit selection, lambertian / metal / dielectric
+// scatter with the checker texture, the sky on a miss, and a per-pixel
+// radiance sum plus a per-pixel segment count.
 //
-// Mapping: one thread per pixel.  The thread loops over the pixel's samples
+// K2 (`mega_kernel<true>`) replaces the same Pallas kernel with
+// `emit_tape=True`, as first_raytracer_tpu/kernels/record_mega.py:522
+// _record_mega2 launches it.  It is K1 plus an int32 tape (D, num_pixels *
+// spp), D = max_depth + 1: column loc * spp + s belongs to sample s of local
+// pixel loc, and row d holds the original scene id of the primitive that
+// sample's path hit at bounce d (spheres 0..Ns-1, triangles Ns + j, read from
+// payload row 13 / 20), or -1 on a miss, after the path ended, or for a pixel
+// past the image.  Every row of every column is written, so the caller
+// allocates the tape without filling it.  The TPU kernel's id + 1 float
+// encoding and its (s * D + d, lane) block relayout are layout devices of the
+// TPU and have no counterpart here; neither does its VMEM spp batching: one
+// launch covers all samples.
+//
+// K2b (`record_kernel`) replaces first_raytracer_tpu/kernels/record_mega.py:62
+// _record_kernel, the Pallas recorder that the JAX package reaches through
+// record_paths_mega(impl="legacy") or return_iters=True.  For every ray id in
+// [ray0, ray0 + R) it records the path that K1 traces for that id (pixel
+// rid / spp_total, sample rid % spp_total) as a column of the same tape
+// (D, R), and writes the ray's bounce-loop trip count (its segment count).
+// The TPU kernel counts trips per tile of lanes, a number that depends on its
+// schedule; the per-ray count here does not.  One thread per ray id, tracing
+// with the radiance work compiled out, so its tape equals K2's over the same
+// ids.  The pixel comes from integer division: the TPU kernel's
+// float-reciprocal division (_fdiv / _fdiv_exact), grid-stride lanes, rays
+// per lane and one-hot tape accumulation have no counterpart here.
+//
+// Mapping of K1 and K2: one thread per pixel.  The thread loops over the pixel's samples
 // in order, traces each to termination with ordinary per-thread control
-// flow, and writes its pixel once, so there are no atomics and the output
-// does not depend on the schedule.  The TPU kernel's grid-stride lanes,
-// pixels-per-lane, channel-major flush and unrolling are TPU scheduling
-// devices and have no counterpart here.
+// flow (mega_common.cuh::trace_path), and writes its pixel and its own tape
+// columns, so there are no atomics and the output does not depend on the
+// schedule.  The TPU kernel's grid-stride lanes, pixels-per-lane,
+// channel-major flush and unrolling are TPU scheduling devices and have no
+// counterpart here.
 //
 // What bounds it on an H100:
-//  - FP32 ALU work in the dense sweep: about 20 flops per (segment,
-//    primitive).  The final scene has 486 spheres, so each segment costs
-//    ~10^4 flops before any shading.
+//  - FP32 ALU work in the dense sweep: 16 flops per (segment, sphere) and
+//    46 per (segment, triangle), counted from closest_hit.  The final scene
+//    has 486 spheres, so each segment costs ~7.8e3 flops before any shading.
 //  - Divergence across a warp's paths: a warp runs until its longest path
 //    ends (glass paths reach tens of bounces while most end in two or
 //    three), and the material branches split the warp at each hit.
-// This first design does nothing about either beyond one thread per pixel:
+//  - K2's tape adds D * 4 bytes per sample: 51 x 9.6 M x 4 B = 1.96 GB at
+//    full frame, ~0.6 ms at 3.35 TB/s, far below the sweep's time, so K2
+//    stays compute-bound.  K2b has the same sweep and tape per ray; at the
+//    fit step's 2^17 rays its tape is 27 MB, 8 us.
+// This first design does nothing about either beyond one thread per pixel
+// (K2b: per ray, whose neighbouring threads write neighbouring columns):
 // the tables are read from global memory through the read-only cache, and
 // since every thread of a warp reads the same primitive at the same step,
-// each read is a broadcast.  Staging the tables in shared memory, culling,
-// and regrouping paths are left to later work.
-//
-// Scene tables (built on the host by kernels/megakernel.py::pack_scene_mega,
-// primitives sorted into six (material, texture) groups):
-//   sph (16, ns_pad) plane-major: 0-2 center, 3 radius, 4 param (fuzz |
-//       ref_idx), 5-7 albedo, 8-10 albedo2, 11 tex_scale, 12 c0, 13 original
-//       id, 15 1/radius;
-//   mx  (ns_pad, 8): cx cy cz c0 pad, c0 = |C|^2 - r^2 rounded from f64;
-//   tri (24, nt_pad) plane-major: 0-2 v0, 3-5 e1, 6-8 e2, 9-11 unit normal,
-//       12 param, 13-15 albedo, 16-18 albedo2, 19 tex_scale, 20 original id.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// each read is a broadcast.  K2's tape columns sit at stride `spp` between
+// neighbouring threads, so its stores are not coalesced; that too is left
+// to later work, with staging the tables in shared memory, culling, and
+// regrouping paths.
+#include "mega_common.cuh"
 
 namespace {
 
+using frt::CameraRow;
+using frt::PathParams;
+using frt::Tables;
+
 constexpr int kThreads = 128;
-constexpr float kBig = 1e30f;
-constexpr float kTwoPi = 6.283185307179586f;
 
-struct Tables {
-  const float* cam;   // (20,): origin, lower_left, horizontal, vertical,
-                      // lens u, lens v, lens radius, pad
-  const float* sph;   // (16, ns_pad)
-  const float4* mx;   // (ns_pad, 2) float4 = (ns_pad, 8) floats
-  const float* tri;   // (24, nt_pad)
-  int ns, nt, ns_pad, nt_pad;
-  int sph_groups[7];  // cumulative starts of the six groups, then total
-  int tri_groups[7];
-};
-
-struct Config {
-  uint32_t k0, k1;  // Threefry key words
-  int nx, ny, spp;
-  int spp_total;    // samples per pixel of the whole render (ray id space)
-  int spp0;         // first sample of this launch
-  int pix0;         // global id of local pixel 0
-  int num_pixels;   // pixels of this launch
+struct Launch {
+  int spp;
+  int spp_total;   // samples per pixel of the whole render (ray id space)
+  int spp0;        // first sample of this launch
+  int pix0;        // global id of local pixel 0
+  int num_pixels;  // pixels of this launch
   int total_pixels;
-  int max_depth;
-  float t_min;
 };
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32-20, as first_raytracer_tpu/core/rng.py::_threefry2x32.
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t c0, uint32_t c1,
-                                             uint32_t& o0, uint32_t& o1) {
-  constexpr int kRot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  uint32_t x0 = c0 + ks[0];
-  uint32_t x1 = c1 + ks[1];
-#pragma unroll
-  for (int g = 0; g < 5; ++g) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl(x1, kRot[(4 * g + j) % 8]);
-      x1 ^= x0;
-    }
-    x0 += ks[(g + 1) % 3];
-    x1 += ks[(g + 2) % 3] + static_cast<uint32_t>(g + 1);
-  }
-  o0 = x0;
-  o1 = x1;
-}
-
-__device__ __forceinline__ float unit_float(uint32_t bits) {
-  return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
-}
-
-// The four uniforms of RNG domain `dom` for ray `id`: counters (id, 2 dom)
-// and (id, 2 dom + 1).
-__device__ __forceinline__ void draws4(uint32_t k0, uint32_t k1, uint32_t id,
-                                       uint32_t dom, float u[4]) {
-  uint32_t a0, a1, b0, b1;
-  threefry2x32(k0, k1, id, 2u * dom, a0, a1);
-  threefry2x32(k0, k1, id, 2u * dom + 1u, b0, b1);
-  u[0] = unit_float(a0);
-  u[1] = unit_float(a1);
-  u[2] = unit_float(b0);
-  u[3] = unit_float(b1);
-}
-
-// vecmath.normalize: zero where the (floored) squared length is not > 0.
-__device__ __forceinline__ void normalize3(float& x, float& y, float& z,
-                                           float eps) {
-  float n2 = x * x + y * y + z * z;
-  if (eps > 0.0f) n2 = fmaxf(n2, eps);
-  const float inv = n2 > 0.0f ? 1.0f / sqrtf(n2) : 0.0f;
-  x *= inv;
-  y *= inv;
-  z *= inv;
-}
-
-// Material and texture type of sorted primitive `w` from its group ranges
-// (starts g1..g6; g0 = 0).  The bounds come by value: taking the address of
-// a kernel parameter array would copy it to local memory.
-__device__ __forceinline__ void group_types(int w, int g1, int g2, int g3,
-                                            int g4, int g5, int g6,
-                                            bool& metal, bool& diel,
-                                            bool& check) {
-  metal = w >= g2 && w < g4;
-  diel = w >= g4 && w < g6;
-  check = (w >= g1 && w < g2) || (w >= g3 && w < g4) || (w >= g5 && w < g6);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    mega_kernel(const Tables tb, const Config cf, float* __restrict__ rad,
-                int* __restrict__ segs) {
+// At most 64 registers, so that eight blocks fit an SM: left to itself,
+// ptxas gives the shared trace 72 and K1 loses occupancy and time.
+template <bool kTape>
+__global__ void __launch_bounds__(kThreads, 8)
+    mega_kernel(const Tables tb, const PathParams pp, const Launch ln,
+                float* __restrict__ rad, int* __restrict__ segs,
+                int* __restrict__ tape) {
   const int loc = blockIdx.x * blockDim.x + threadIdx.x;
-  if (loc >= cf.num_pixels) return;
-  const int pix = cf.pix0 + loc;
+  if (loc >= ln.num_pixels) return;
+  const int pix = ln.pix0 + loc;
+  // Tape column of sample s: loc * spp + s; rows at stride num_pixels * spp.
+  const size_t stride = static_cast<size_t>(ln.num_pixels) * ln.spp;
+  int* col = kTape ? tape + static_cast<size_t>(loc) * ln.spp : nullptr;
   float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;
   int nseg = 0;
-  if (pix < cf.total_pixels) {
-    const float* __restrict__ cam = tb.cam;
-    const float* __restrict__ sph = tb.sph;
-    const float4* __restrict__ mx = tb.mx;
-    const float* __restrict__ tri = tb.tri;
-    const float co_x = cam[0], co_y = cam[1], co_z = cam[2];
-    const float ll_x = cam[3], ll_y = cam[4], ll_z = cam[5];
-    const float hz_x = cam[6], hz_y = cam[7], hz_z = cam[8];
-    const float vt_x = cam[9], vt_y = cam[10], vt_z = cam[11];
-    const float lu_x = cam[12], lu_y = cam[13], lu_z = cam[14];
-    const float lv_x = cam[15], lv_y = cam[16], lv_z = cam[17];
-    const float lens_r = cam[18];
-    const float fi = static_cast<float>(pix % cf.nx);
-    const float fj = static_cast<float>(pix / cf.nx);  // bottom-up row
-    const float t_min = cf.t_min;
-    const int sp = tb.ns_pad, tp = tb.nt_pad;
-
-    for (int s = 0; s < cf.spp; ++s) {
+  if (pix < ln.total_pixels) {
+    const CameraRow cam = frt::load_camera(tb.cam);
+    const float fi = static_cast<float>(pix % pp.nx);
+    const float fj = static_cast<float>(pix / pp.nx);  // bottom-up row
+    for (int s = 0; s < ln.spp; ++s) {
       const uint32_t rid = static_cast<uint32_t>(pix) *
-                               static_cast<uint32_t>(cf.spp_total) +
-                           static_cast<uint32_t>(cf.spp0 + s);
-      float u[4];
-      draws4(cf.k0, cf.k1, rid, 0u, u);  // camera domain
-
-      // Thin-lens camera ray (render/camera.py::generate_rays).
-      const float fs = (fi + u[0]) / static_cast<float>(cf.nx);
-      const float ft = (fj + u[1]) / static_cast<float>(cf.ny);
-      const float lr = sqrtf(u[2]);
-      const float th = kTwoPi * u[3];
-      const float rd0 = lens_r * (lr * cosf(th));
-      const float rd1 = lens_r * (lr * sinf(th));
-      const float off_x = rd0 * lu_x + rd1 * lv_x;
-      const float off_y = rd0 * lu_y + rd1 * lv_y;
-      const float off_z = rd0 * lu_z + rd1 * lv_z;
-      float ox = co_x + off_x, oy = co_y + off_y, oz = co_z + off_z;
-      float dx = ll_x + fs * hz_x + ft * vt_x - co_x - off_x;
-      float dy = ll_y + fs * hz_y + ft * vt_y - co_y - off_y;
-      float dz = ll_z + fs * hz_z + ft * vt_z - co_z - off_z;
-      normalize3(dx, dy, dz, 0.0f);
-      float tp_r = 1.0f, tp_g = 1.0f, tp_b = 1.0f;
-
-      for (int depth = 0;; ++depth) {
-        ++nseg;
-        // Dense sphere sweep, expanded quadratic:
-        // b = o.d - d.C, c = |o|^2 - 2 o.C + c0.
-        const float od = ox * dx + oy * dy + oz * dz;
-        const float oo = ox * ox + oy * oy + oz * oz;
-        float t_s = kBig;
-        int w_s = 0;
-        for (int i = 0; i < tb.ns; ++i) {
-          const float4 c = __ldg(&mx[2 * i]);
-          const float dc = c.x * dx + c.y * dy + c.z * dz;
-          const float oc = c.x * ox + c.y * oy + c.z * oz;
-          const float bq = od - dc;
-          const float cq = oo - 2.0f * oc + c.w;
-          const float disc = bq * bq - cq;
-          if (!(disc >= 0.0f)) continue;  // no root (or NaN): a miss
-          const float sq = sqrtf(disc);
-          const float tn = -bq - sq;
-          const float tf = sq - bq;
-          const float t = tn > t_min ? tn : (tf > t_min ? tf : kBig);
-          if (t < t_s) {  // strict: the lowest index wins a tie
-            t_s = t;
-            w_s = i;
-          }
-        }
-        // Dense triangle sweep, Moller-Trumbore on prepacked edges.
-        float t_t = kBig;
-        int w_t = 0;
-        for (int i = 0; i < tb.nt; ++i) {
-          const float e2x = __ldg(&tri[6 * tp + i]);
-          const float e2y = __ldg(&tri[7 * tp + i]);
-          const float e2z = __ldg(&tri[8 * tp + i]);
-          const float e1x = __ldg(&tri[3 * tp + i]);
-          const float e1y = __ldg(&tri[4 * tp + i]);
-          const float e1z = __ldg(&tri[5 * tp + i]);
-          const float px = dy * e2z - dz * e2y;
-          const float py = dz * e2x - dx * e2z;
-          const float pz = dx * e2y - dy * e2x;
-          const float det = e1x * px + e1y * py + e1z * pz;
-          if (!(fabsf(det) > 1e-9f)) continue;
-          const float inv = 1.0f / det;
-          const float tvx = ox - __ldg(&tri[0 * tp + i]);
-          const float tvy = oy - __ldg(&tri[1 * tp + i]);
-          const float tvz = oz - __ldg(&tri[2 * tp + i]);
-          const float uu = (tvx * px + tvy * py + tvz * pz) * inv;
-          const float qx = tvy * e1z - tvz * e1y;
-          const float qy = tvz * e1x - tvx * e1z;
-          const float qz = tvx * e1y - tvy * e1x;
-          const float vv = (dx * qx + dy * qy + dz * qz) * inv;
-          const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-          if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && t > t_min &&
-              t < kBig && t < t_t) {
-            t_t = t;
-            w_t = i;
-          }
-        }
-
-        const bool is_tri = t_t < t_s;  // a sphere wins a sphere/tri tie
-        const float t_best = is_tri ? t_t : t_s;
-        if (!(t_best < kBig)) {  // miss: sky, white -> blue by height
-          const float skyt = 0.5f * (dy + 1.0f);
-          sum_r += tp_r * ((1.0f - skyt) + skyt * 0.5f);
-          sum_g += tp_g * ((1.0f - skyt) + skyt * 0.7f);
-          sum_b += tp_b * ((1.0f - skyt) + skyt * 1.0f);
-          break;
-        }
-
-        // Hit record and the winner's material, read from its payload row.
-        const float hx = ox + t_best * dx;
-        const float hy = oy + t_best * dy;
-        const float hz = oz + t_best * dz;
-        float nx, ny, nz, param, a0r, a0g, a0b, a1r, a1g, a1b, tsc;
-        bool metal, diel, check;
-        if (is_tri) {
-          nx = tri[9 * tp + w_t];
-          ny = tri[10 * tp + w_t];
-          nz = tri[11 * tp + w_t];
-          param = tri[12 * tp + w_t];
-          a0r = tri[13 * tp + w_t];
-          a0g = tri[14 * tp + w_t];
-          a0b = tri[15 * tp + w_t];
-          a1r = tri[16 * tp + w_t];
-          a1g = tri[17 * tp + w_t];
-          a1b = tri[18 * tp + w_t];
-          tsc = tri[19 * tp + w_t];
-          group_types(w_t, tb.tri_groups[1], tb.tri_groups[2],
-                      tb.tri_groups[3], tb.tri_groups[4],
-                      tb.tri_groups[5], tb.tri_groups[6], metal, diel,
-                      check);
-        } else {
-          const float inv_r = sph[15 * sp + w_s];
-          nx = (hx - sph[0 * sp + w_s]) * inv_r;
-          ny = (hy - sph[1 * sp + w_s]) * inv_r;
-          nz = (hz - sph[2 * sp + w_s]) * inv_r;
-          param = sph[4 * sp + w_s];
-          a0r = sph[5 * sp + w_s];
-          a0g = sph[6 * sp + w_s];
-          a0b = sph[7 * sp + w_s];
-          a1r = sph[8 * sp + w_s];
-          a1g = sph[9 * sp + w_s];
-          a1b = sph[10 * sp + w_s];
-          tsc = sph[11 * sp + w_s];
-          group_types(w_s, tb.sph_groups[1], tb.sph_groups[2],
-                      tb.sph_groups[3], tb.sph_groups[4],
-                      tb.sph_groups[5], tb.sph_groups[6], metal, diel,
-                      check);
-        }
-
-        // Bounce-domain draws: unit-ball sample and the dielectric coin.
-        draws4(cf.k0, cf.k1, rid, static_cast<uint32_t>(depth + 1), u);
-        const float bz = 1.0f - 2.0f * u[0];
-        const float br = sqrtf(fmaxf(0.0f, 1.0f - bz * bz));
-        const float phi = kTwoPi * u[1];
-        // The cube root in f64, rounded once to f32: the correctly rounded
-        // cbrt, which the plain version computes too (cbrtf is within an
-        // ulp, and one ulp can send a path another way).
-        const float brad = static_cast<float>(cbrt(static_cast<double>(u[2])));
-        const float bx = brad * (br * cosf(phi));
-        const float by = brad * (br * sinf(phi));
-        const float bzz = brad * bz;
-        const float coin = u[3];
-
-        const float ddn = dx * nx + dy * ny + dz * nz;
-        const float refx = dx - 2.0f * ddn * nx;
-        const float refy = dy - 2.0f * ddn * ny;
-        const float refz = dz - 2.0f * ddn * nz;
-        float ndx, ndy, ndz;
-        bool scattered = true;
-        float att_r = 1.0f, att_g = 1.0f, att_b = 1.0f;
-        if (diel) {
-          // Snell with the TIR check; Schlick with the reference's
-          // cosine = ref_idx * dot(d, N) when exiting.
-          const bool outside = ddn > 0.0f;
-          const float own_x = outside ? -nx : nx;
-          const float own_y = outside ? -ny : ny;
-          const float own_z = outside ? -nz : nz;
-          const float ni = outside ? param : 1.0f / param;
-          const float cosine = outside ? param * ddn : -ddn;
-          float uvx = dx, uvy = dy, uvz = dz;
-          normalize3(uvx, uvy, uvz, 0.0f);
-          const float dt = uvx * own_x + uvy * own_y + uvz * own_z;
-          const float disc2 = 1.0f - ni * ni * (1.0f - dt * dt);
-          const bool can = disc2 > 0.0f;
-          float r0 = (1.0f - param) / (1.0f + param);
-          r0 = r0 * r0;
-          const float om = 1.0f - cosine;
-          const float om2 = om * om;
-          const float schl = r0 + (1.0f - r0) * (om2 * om2 * om);
-          const float rprob = can ? schl : 1.0f;
-          if (coin < rprob) {
-            ndx = refx;
-            ndy = refy;
-            ndz = refz;
-          } else {
-            const float sq2 = sqrtf(disc2);
-            ndx = ni * (uvx - own_x * dt) - own_x * sq2;
-            ndy = ni * (uvy - own_y * dt) - own_y * sq2;
-            ndz = ni * (uvz - own_z * dt) - own_z * sq2;
-          }
-        } else {
-          if (metal) {
-            ndx = refx + param * bx;
-            ndy = refy + param * by;
-            ndz = refz + param * bzz;
-            scattered = (ndx * nx + ndy * ny + ndz * nz) > 0.0f;
-          } else {
-            ndx = nx + bx;
-            ndy = ny + by;
-            ndz = nz + bzz;
-          }
-          normalize3(ndx, ndy, ndz, 1e-20f);
-          bool odd = false;
-          if (check) {
-            odd = sinf(tsc * hx) * sinf(tsc * hy) * sinf(tsc * hz) < 0.0f;
-          }
-          att_r = odd ? a1r : a0r;
-          att_g = odd ? a1g : a0g;
-          att_b = odd ? a1b : a0b;
-        }
-        // Absorbed (metal below the surface) or at the depth cap: black.
-        if (!scattered || depth >= cf.max_depth) break;
-        tp_r *= att_r;
-        tp_g *= att_g;
-        tp_b *= att_b;
-        ox = hx;
-        oy = hy;
-        oz = hz;
-        dx = ndx;
-        dy = ndy;
-        dz = ndz;
-      }
+                               static_cast<uint32_t>(ln.spp_total) +
+                           static_cast<uint32_t>(ln.spp0 + s);
+      nseg += frt::trace_path<true, kTape>(tb, cam, pp, rid, fi, fj, sum_r,
+                                           sum_g, sum_b,
+                                           kTape ? col + s : nullptr, stride);
+    }
+  } else if (kTape) {
+    for (int s = 0; s < ln.spp; ++s) {
+      for (int d = 0; d <= pp.max_depth; ++d) col[d * stride + s] = -1;
     }
   }
   rad[3 * loc + 0] = sum_r;
@@ -385,12 +122,29 @@ __global__ void __launch_bounds__(kThreads)
   segs[loc] = nseg;
 }
 
+__global__ void __launch_bounds__(kThreads)
+    record_kernel(const Tables tb, const PathParams pp, int ray0,
+                  int num_rays, int spp_total, int* __restrict__ tape,
+                  int* __restrict__ its) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= num_rays) return;
+  const int rid = ray0 + i;
+  const int pix = rid / spp_total;
+  const CameraRow cam = frt::load_camera(tb.cam);
+  float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;  // unused: no radiance
+  its[i] = frt::trace_path<false, true>(
+      tb, cam, pp, static_cast<uint32_t>(rid),
+      static_cast<float>(pix % pp.nx), static_cast<float>(pix / pp.nx),
+      sum_r, sum_g, sum_b, tape + i, static_cast<size_t>(num_rays));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches K1 on `stream` over `num_pixels` pixels starting at global pixel
-// `pix0`; writes rad (num_pixels, 3) f32 and segs (num_pixels,) i32.
+// Launches K1 (tape == nullptr) or K2 on `stream` over `num_pixels` pixels
+// starting at global pixel `pix0`; writes rad (num_pixels, 3) f32, segs
+// (num_pixels,) i32 and, for K2, tape (max_depth + 1, num_pixels * spp) i32.
 // `groups` is a host array: the 7 sphere group starts, then the 7 triangle
 // ones.  Returns cudaGetLastError() after the launch (0 = launched).
 int frt_mega_render(const float* cam, const float* sph, const float* mx,
@@ -399,37 +153,41 @@ int frt_mega_render(const float* cam, const float* sph, const float* mx,
                     int nx, int ny, int spp, int spp_total, int spp0,
                     int pix0, int num_pixels, int total_pixels,
                     int max_depth, float t_min, float* rad, int* segs,
-                    void* stream) {
-  Tables tb;
-  tb.cam = cam;
-  tb.sph = sph;
-  tb.mx = reinterpret_cast<const float4*>(mx);
-  tb.tri = tri;
-  tb.ns = ns;
-  tb.nt = nt;
-  tb.ns_pad = ns_pad;
-  tb.nt_pad = nt_pad;
-  for (int k = 0; k < 7; ++k) {
-    tb.sph_groups[k] = groups[k];
-    tb.tri_groups[k] = groups[7 + k];
-  }
-  Config cf;
-  cf.k0 = k0;
-  cf.k1 = k1;
-  cf.nx = nx;
-  cf.ny = ny;
-  cf.spp = spp;
-  cf.spp_total = spp_total;
-  cf.spp0 = spp0;
-  cf.pix0 = pix0;
-  cf.num_pixels = num_pixels;
-  cf.total_pixels = total_pixels;
-  cf.max_depth = max_depth;
-  cf.t_min = t_min;
+                    int* tape, void* stream) {
+  const Tables tb =
+      frt::make_tables(cam, sph, mx, tri, ns, nt, ns_pad, nt_pad, groups);
+  const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
+  const Launch ln{spp, spp_total, spp0, pix0, num_pixels, total_pixels};
   if (num_pixels > 0) {
     const int blocks = (num_pixels + kThreads - 1) / kThreads;
-    mega_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        tb, cf, rad, segs);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (tape != nullptr) {
+      mega_kernel<true><<<blocks, kThreads, 0, st>>>(tb, pp, ln, rad, segs,
+                                                     tape);
+    } else {
+      mega_kernel<false><<<blocks, kThreads, 0, st>>>(tb, pp, ln, rad, segs,
+                                                      nullptr);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K2b on `stream` over ray ids [ray0, ray0 + num_rays); writes tape
+// (max_depth + 1, num_rays) i32 and its (num_rays,) i32.  `groups` as for
+// frt_mega_render.  Returns cudaGetLastError() after the launch.
+int frt_record_paths(const float* cam, const float* sph, const float* mx,
+                     const float* tri, int ns, int nt, int ns_pad,
+                     int nt_pad, const int* groups, unsigned int k0,
+                     unsigned int k1, int nx, int ny, int spp_total,
+                     int ray0, int num_rays, int max_depth, float t_min,
+                     int* tape, int* its, void* stream) {
+  const Tables tb =
+      frt::make_tables(cam, sph, mx, tri, ns, nt, ns_pad, nt_pad, groups);
+  const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
+  if (num_rays > 0) {
+    const int blocks = (num_rays + kThreads - 1) / kThreads;
+    record_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        tb, pp, ray0, num_rays, spp_total, tape, its);
   }
   return static_cast<int>(cudaGetLastError());
 }

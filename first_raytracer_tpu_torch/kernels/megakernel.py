@@ -1,13 +1,16 @@
-"""Megakernel render: the whole forward path tracer as one kernel (K1).
+"""Megakernel render: the whole forward path tracer as one kernel (K1), and
+the same kernel recording the winner tape of the differentiable pass (K2).
 
 Port of ``first_raytracer_tpu.kernels.megakernel``.  On a CUDA device
 ``render_pixels_mega`` launches the hand-written kernel in
 ``csrc/megakernel.cu``: one thread per pixel traces that pixel's samples to
 termination (in-kernel Threefry draws, thin-lens camera, dense sphere and
 triangle sweep with exact closest-hit selection, lambertian / metal /
-dielectric scatter with the checker texture, sky on a miss).  On the CPU it
-runs ``render_pixels_mega_reference``, the same function in plain PyTorch.
-A tensor on any other device is refused; nothing falls back.
+dielectric scatter with the checker texture, sky on a miss).  With
+``emit_tape=True`` it launches the kernel's tape variant (K2), which also
+writes each sample's winner tape.  On the CPU it runs
+``render_pixels_mega_reference``, the same function in plain PyTorch.  A
+tensor on any other device is refused; nothing falls back.
 
 The host packs the scene once (``pack_scene_mega``, NumPy copied from the
 JAX package): primitives sorted into six (material, texture) groups so the
@@ -199,7 +202,8 @@ NVCC_EXTRA_FLAGS = ("--fmad=false",)
 
 @functools.lru_cache(maxsize=None)
 def load_mega_library():
-    """Build (once per source and flags) and load K1's shared library.
+    """Build (once per source and flags) and load the shared library of K1,
+    K2 and K2b.
 
     Returns ``(ctypes.CDLL, BuildInfo)``.
     """
@@ -210,8 +214,13 @@ def load_mega_library():
     lib.frt_mega_render.argtypes = (
         [ptr] * 4 + [i32] * 4
         + [ctypes.POINTER(i32), ctypes.c_uint32, ctypes.c_uint32]
-        + [i32] * 9 + [ctypes.c_float, ptr, ptr, ptr])
+        + [i32] * 9 + [ctypes.c_float, ptr, ptr, ptr, ptr])
     lib.frt_mega_render.restype = i32
+    lib.frt_record_paths.argtypes = (
+        [ptr] * 4 + [i32] * 4
+        + [ctypes.POINTER(i32), ctypes.c_uint32, ctypes.c_uint32]
+        + [i32] * 6 + [ctypes.c_float, ptr, ptr, ptr])
+    lib.frt_record_paths.restype = i32
     lib.frt_error_string.argtypes = [i32]
     lib.frt_error_string.restype = ctypes.c_char_p
     return lib, info
@@ -229,9 +238,8 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch_cuda(pack, cam, cfg, k0, k1, pix0, num_pixels, total_pixels,
-                 spp0, spp_total):
-    """Launch K1 on the current stream; returns (rad (P, 3), segs (P,))."""
+def check_pack(pack, cam):
+    """The wrappers' checks of the camera row and the packed tables."""
     dev = pack.device
     f32 = torch.float32
     ns_pad, nt_pad = pack.spheres.shape[1], pack.tris.shape[1]
@@ -239,28 +247,43 @@ def _launch_cuda(pack, cam, cfg, k0, k1, pix0, num_pixels, total_pixels,
     _check("spheres", pack.spheres, f32, (SPH_ROWS, ns_pad), dev)
     _check("sph_mx", pack.sph_mx, f32, (ns_pad, 8), dev)
     _check("tris", pack.tris, f32, (TRI_ROWS, nt_pad), dev)
+
+
+def _launch_cuda(pack, cam, cfg, k0, k1, pix0, num_pixels, total_pixels,
+                 spp0, spp_total, emit_tape):
+    """Launch K1 (or K2 with ``emit_tape``) on the current stream; returns
+    (rad (P, 3), segs (P,)) and, for K2, tape (D, P * spp)."""
+    dev = pack.device
+    check_pack(pack, cam)
     lib, _ = load_mega_library()
-    rad = torch.empty((num_pixels, 3), dtype=f32, device=dev)
+    rad = torch.empty((num_pixels, 3), dtype=torch.float32, device=dev)
     segs = torch.empty((num_pixels,), dtype=torch.int32, device=dev)
+    # K2 writes every entry of its tape: no fill needed.
+    tape = (torch.empty((cfg.max_depth + 1, num_pixels * cfg.spp),
+                        dtype=torch.int32, device=dev) if emit_tape else None)
     groups = (ctypes.c_int * 14)(*pack.sph_groups, *pack.tri_groups)
     with torch.cuda.device(dev):  # the launch goes to the current device
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.frt_mega_render(
             cam.data_ptr(), pack.spheres.data_ptr(), pack.sph_mx.data_ptr(),
-            pack.tris.data_ptr(), pack.sphere_rows, pack.tri_rows, ns_pad,
-            nt_pad, groups, k0, k1, cfg.nx, cfg.ny, cfg.spp, spp_total,
-            spp0, pix0, num_pixels, total_pixels, cfg.max_depth,
-            float(cfg.t_min), rad.data_ptr(), segs.data_ptr(), stream)
+            pack.tris.data_ptr(), pack.sphere_rows, pack.tri_rows,
+            pack.spheres.shape[1], pack.tris.shape[1], groups, k0, k1,
+            cfg.nx, cfg.ny, cfg.spp, spp_total, spp0, pix0, num_pixels,
+            total_pixels, cfg.max_depth, float(cfg.t_min), rad.data_ptr(),
+            segs.data_ptr(), tape.data_ptr() if emit_tape else None, stream)
     if err != 0:
         raise RuntimeError("megakernel launch failed: "
                            f"{lib.frt_error_string(err).decode()} ({err})")
+    if emit_tape:
+        render_pixels_mega.tape_launches += 1
+        return rad, segs, tape
     render_pixels_mega.launches += 1
     return rad, segs
 
 
 def render_pixels_mega(pack: MegaScenePack, camera, cfg, key, spp0: int = 0,
                        spp_total: int = None, pix0: int = 0,
-                       num_pixels: int = None):
+                       num_pixels: int = None, emit_tape: bool = False):
     """Per-pixel radiance sums and segment counts for a render.
 
     Returns ``(radiance_sum (P, 3) f32, segments (P,) i32)`` for the
@@ -270,25 +293,35 @@ def render_pixels_mega(pack: MegaScenePack, camera, cfg, key, spp0: int = 0,
     divide by spp for the mean.  ``segments`` counts the traced ray
     segments of each pixel's paths.
 
-    Runs K1 for CUDA tensors and the plain version for CPU tensors; the
-    device is the pack's.  ``key`` is ``core.rng.base_key(seed)``.
+    With ``emit_tape=True`` also returns the winner tape ``(D, P * spp)``
+    i32, ``D = cfg.max_depth + 1``: column ``loc * spp + s`` is sample
+    ``spp0 + s`` of local pixel ``loc``, and row ``d`` holds the original
+    scene id (spheres, then triangles offset by Ns) of the primitive that
+    path hit at bounce ``d``, or -1 on a miss or after the path ended: the
+    contract of ``diff.replay.record_paths``.
+
+    Runs K1 (K2 with ``emit_tape``) for CUDA tensors and the plain version
+    for CPU tensors; the device is the pack's.  ``key`` is
+    ``core.rng.base_key(seed)``.
     """
     num_pixels, total_pixels, spp_total = _extent(cfg, pix0, num_pixels,
                                                   spp_total)
-    _check_guards(pack, cfg)
+    check_guards(pack, cfg)
     dev = pack.device
     if dev.type == "cpu":
         return render_pixels_mega_reference(
             pack, camera, cfg, key, spp0=spp0, spp_total=spp_total,
-            pix0=pix0, num_pixels=num_pixels)
+            pix0=pix0, num_pixels=num_pixels, emit_tape=emit_tape)
     if dev.type != "cuda":
         raise ValueError(f"no megakernel for device {dev}")
     k0, k1 = rng.key_words(key)
     return _launch_cuda(pack, camera_table(camera).to(dev), cfg, k0, k1,
-                        pix0, num_pixels, total_pixels, spp0, spp_total)
+                        pix0, num_pixels, total_pixels, spp0, spp_total,
+                        emit_tape)
 
 
-render_pixels_mega.launches = 0  # kernel launches (CUDA path only)
+render_pixels_mega.launches = 0  # K1 launches (CUDA path only)
+render_pixels_mega.tape_launches = 0  # K2 launches (CUDA path only)
 
 
 def _extent(cfg, pix0, num_pixels, spp_total):
@@ -305,7 +338,7 @@ def _extent(cfg, pix0, num_pixels, spp_total):
     return num_pixels, total_pixels, spp_total
 
 
-def _check_guards(pack, cfg):
+def check_guards(pack, cfg):
     """The JAX kernel's preconditions, kept so both accept the same input."""
     if not cfg.t_min > 0.0:
         raise ValueError(f"megakernel requires t_min > 0, got {cfg.t_min}")
@@ -468,9 +501,10 @@ def _camera_rays(camera, cfg, pix, rid, key):
     return origin, _normalize3(direction)
 
 
-def _trace_reference(pack, camera, cfg, key, pix, rid):
-    """Radiance (R, 3) and segments (R,) of the rays ``rid`` of pixels
-    ``pix``.
+def trace_reference(pack, camera, cfg, key, pix, rid):
+    """Radiance (R, 3), segments (R,) and the winner tape (D, R) of the
+    rays ``rid`` of pixels ``pix``: the path every kernel of the package
+    traces, in plain PyTorch.
 
     Rays still alive are compacted each bounce, so the dense (R, Np)
     temporaries shrink as paths end.
@@ -480,6 +514,8 @@ def _trace_reference(pack, camera, cfg, key, pix, rid):
     o, d = _camera_rays(camera, cfg, pix, rid, key)
     rad = torch.zeros((R, 3), dtype=torch.float32, device=dev)
     segs = torch.zeros((R,), dtype=torch.int32, device=dev)
+    tape = torch.full((cfg.max_depth + 1, R), -1, dtype=torch.int32,
+                      device=dev)
     tp = torch.ones((R, 3), dtype=torch.float32, device=dev)
     idx = torch.arange(R, device=dev)
     blue = torch.tensor([0.5, 0.7, 1.0], dtype=torch.float32, device=dev)
@@ -493,6 +529,9 @@ def _trace_reference(pack, camera, cfg, key, pix, rid):
         skyt = 0.5 * (d[miss, 1] + 1.0)
         sky = (1.0 - skyt)[:, None] + skyt[:, None] * blue
         rad.index_add_(0, idx[miss], tp[miss] * sky)
+        # The winner's original scene id rides in payload row 13 / 20.
+        oid = torch.where(is_tri, pack.tris[20, w_t], pack.spheres[13, w_s])
+        tape[depth, idx[hit]] = oid[hit].to(torch.int32)
         idx, o, d, tp, t = idx[hit], o[hit], d[hit], tp[hit], t[hit]
         p = o + t[:, None] * d
         u = rng.bounce_uniforms(key, rid[idx], depth)
@@ -500,14 +539,23 @@ def _trace_reference(pack, camera, cfg, key, pix, rid):
                                          is_tri[hit], u)
         cont = scattered & (depth < cfg.max_depth)
         idx, o, d, tp = idx[cont], p[cont], new_dir[cont], (tp * att)[cont]
-    return rad, segs
+    return rad, segs, tape
+
+
+def default_rays_per_chunk(pack):
+    """Rays per chunk of the plain versions: about 2^25 (ray, primitive)
+    pairs, so the dense sweep's temporaries stay bounded."""
+    prims = max(pack.sphere_rows + pack.tri_rows, 1)
+    return max(1 << 10, (1 << 25) // prims)
 
 
 def render_pixels_mega_reference(pack: MegaScenePack, camera, cfg, key,
                                  spp0: int = 0, spp_total: int = None,
                                  pix0: int = 0, num_pixels: int = None,
-                                 rays_per_chunk: int = None):
-    """K1's plain version: ``render_pixels_mega`` in plain PyTorch.
+                                 rays_per_chunk: int = None,
+                                 emit_tape: bool = False):
+    """K1's plain version (K2's with ``emit_tape``): ``render_pixels_mega``
+    in plain PyTorch.
 
     Camera rays for every (pixel, sample), then the bounce loop of the
     kernel's shading math on the packed tables with exact closest-hit
@@ -517,33 +565,40 @@ def render_pixels_mega_reference(pack: MegaScenePack, camera, cfg, key,
     """
     num_pixels, total_pixels, spp_total = _extent(cfg, pix0, num_pixels,
                                                   spp_total)
-    _check_guards(pack, cfg)
+    check_guards(pack, cfg)
     dev = pack.device
     camera = camera.to(dev)
     spp = cfg.spp
     rad = torch.zeros((num_pixels, 3), dtype=torch.float32, device=dev)
     segs = torch.zeros((num_pixels,), dtype=torch.int32, device=dev)
+    tape = (torch.full((cfg.max_depth + 1, num_pixels * spp), -1,
+                       dtype=torch.int32, device=dev) if emit_tape else None)
     live = max(0, min(num_pixels, total_pixels - pix0))
     if rays_per_chunk is None:
-        prims = max(pack.sphere_rows + pack.tri_rows, 1)
-        rays_per_chunk = max(1 << 10, (1 << 25) // prims)
+        rays_per_chunk = default_rays_per_chunk(pack)
     pix_chunk = max(1, rays_per_chunk // spp)
     samples = torch.arange(spp, dtype=torch.int64, device=dev)
     for lo in range(0, live, pix_chunk):
-        loc = torch.arange(lo, min(lo + pix_chunk, live), device=dev)
+        hi = min(lo + pix_chunk, live)
+        loc = torch.arange(lo, hi, device=dev)
         pix = pix0 + loc
         rid = (pix[:, None] * spp_total + spp0 + samples[None, :]).reshape(-1)
-        r, sg = _trace_reference(pack, camera, cfg, key,
-                                 pix.repeat_interleave(spp), rid)
+        r, sg, tp = trace_reference(pack, camera, cfg, key,
+                                    pix.repeat_interleave(spp), rid)
         rad[loc] = r.reshape(-1, spp, 3).sum(dim=1)
         segs[loc] = sg.reshape(-1, spp).sum(dim=1, dtype=torch.int32)
+        if emit_tape:
+            tape[:, lo * spp:hi * spp] = tp
+    if emit_tape:
+        return rad, segs, tape
     return rad, segs
 
 
-def render_image_mega(scene, camera, cfg, seed: int = 0, device=None):
+def render_image_mega(scene, camera, cfg, seed: int = 0, device="cuda"):
     """Full-image render through the megakernel; (ny, nx, 3) linear, top
-    row first.  ``device`` defaults to the scene's."""
-    device = scene.device if device is None else torch.device(device)
+    row first.  The scene and camera are moved to ``device``: the CUDA
+    kernel runs on ``"cuda"``, its plain version on ``"cpu"``."""
+    device = torch.device(device)
     pack = pack_scene_mega(scene, device)
     rad, _ = render_pixels_mega(pack, camera.to(device), cfg,
                                 rng.base_key(seed))

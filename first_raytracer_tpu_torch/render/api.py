@@ -32,16 +32,16 @@ def render_ray_batch(scene, camera: Camera, cfg: RenderConfig, key, ray_ids,
 
 def render_image(scene, camera: Camera, cfg: RenderConfig, seed: int = 0,
                  chunk: Optional[int] = None, mode: str = "wavefront",
-                 device=None):
+                 device="cuda"):
     """Render the full image; (ny, nx, 3) linear radiance, row 0 = top.
 
-    ``device`` defaults to the scene's; the scene and camera are moved
-    there.  Only ``mode="wavefront"`` is ported; the regenerative pool
+    The scene and camera are moved to ``device`` (``"cpu"`` to render on
+    the host).  Only ``mode="wavefront"`` is ported; the regenerative pool
     integrator is not.
     """
     if mode != "wavefront":
         raise ValueError(f"unknown or unported mode {mode!r}")
-    device = scene.device if device is None else torch.device(device)
+    device = torch.device(device)
     scene, camera = scene.to(device), camera.to(device)
     key = rng.base_key(seed)
     total = cfg.num_rays

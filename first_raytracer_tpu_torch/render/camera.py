@@ -82,8 +82,10 @@ def generate_rays(camera: Camera, nx: int, ny: int, spp: int, ray_ids,
     j = torch.div(pixel, nx, rounding_mode="floor").to(torch.float32)
     s = (i + cam_uniforms[:, 0]) / nx
     t = (j + cam_uniforms[:, 1]) / ny
-    rd = camera.lens_radius * unit_disk_sample(cam_uniforms[:, 2],
-                                               cam_uniforms[:, 3])
+    # In the camera's dtype: torch would round a float64 camera's 0-d
+    # radius down to the float32 samples', where JAX promotes.
+    rd = camera.lens_radius * unit_disk_sample(
+        cam_uniforms[:, 2], cam_uniforms[:, 3]).to(camera.lens_radius.dtype)
     offset = rd[:, 0:1] * camera.u + rd[:, 1:2] * camera.v
     origin = camera.origin + offset
     direction = (camera.lower_left + s[:, None] * camera.horizontal

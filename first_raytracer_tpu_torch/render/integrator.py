@@ -40,6 +40,10 @@ class RenderConfig:
     spp: int = 100
     max_depth: int = 50
     t_min: float = 1e-3
+    # Differentiable path: a fixed max_depth + 1 trips, no early exit (the
+    # JAX package's reverse-mode scan); forward path: stop once all rays
+    # are dead.
+    differentiable: bool = False
 
     @property
     def num_pixels(self) -> int:
@@ -120,6 +124,11 @@ def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
 
     With ``return_stats=True`` also returns ``segments``: (R,) int32 count
     of ray segments traced per path (the rays/s numerator).
+
+    ``torch.autograd`` differentiates the result through the hit
+    recompute, the scatter and the shading; primitive selection (the
+    sweep) is not differentiated.  ``cfg.differentiable`` runs all
+    ``max_depth + 1`` trips.
     """
     R = origin.shape[0]
     dev = origin.device
@@ -130,10 +139,12 @@ def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
     up = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev)
 
     for d in range(cfg.max_depth + 1):
-        if not bool(alive.any()):
+        if not cfg.differentiable and not bool(alive.any()):
             break
         segments = segments + alive.to(torch.int32)
-        prim, _, hit = intersect_brute(scene, origin, direction, cfg.t_min)
+        with torch.no_grad():
+            prim, _, hit = intersect_brute(scene, origin, direction,
+                                           cfg.t_min)
         t, p, n, mat = recompute_hit(scene, origin, direction, prim,
                                      cfg.t_min)
         # Dead and missing lanes get sanitized hit data so t = BIG points

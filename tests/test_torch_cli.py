@@ -2,8 +2,12 @@
 
 The CLI runs in a subprocess on the CPU; its PNG must decode and match the
 JAX render's ``to_uint8`` image within +-1 on 99% of values.  The image
-writers are NumPy in both packages and must write byte-equal files.
+writers are NumPy in both packages and must write byte-equal files.  The
+``fit`` subcommand's first logged loss matches the JAX CLI's step-0 loss
+(the loss at the same perturbed parameters) within ``rtol=1e-5``.
 """
+import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -21,10 +25,10 @@ from first_raytracer_tpu_torch.render import image as timg
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _run_cli(*args):
+def _run_cli(*args, cmd="render"):
     env = dict(os.environ, PYTHONPATH=REPO)
     return subprocess.run(
-        [sys.executable, "-m", "first_raytracer_tpu_torch.cli", "render",
+        [sys.executable, "-m", "first_raytracer_tpu_torch.cli", cmd,
          "--device", "cpu", *args], cwd=REPO, env=env, capture_output=True,
         text=True, timeout=300)
 
@@ -76,3 +80,50 @@ def test_image_diff_stats_match():
     b = b.astype(np.uint8)
     assert timg.image_diff_stats(torch.from_numpy(a), b) == \
         jimg.image_diff_stats(a, b)
+
+
+def _jax_fit_first_loss(preset, fields, seed, **kw):
+    """The JAX CLI's ``fit`` step-0 loss: the loss at its perturbed
+    parameters (first_raytracer_tpu/cli.py:151-218)."""
+    import jax
+    import jax.numpy as jnp
+    from first_raytracer_tpu.core import rng as jrng
+    from first_raytracer_tpu.diff.grad import (ray_radiance, render_loss,
+                                               split_params)
+
+    scene, cam, cfg = jb.build_preset(preset, **kw)
+    cfg = dataclasses.replace(cfg, max_depth=min(cfg.max_depth, 8),
+                              differentiable=True)
+    key = jrng.base_key(seed)
+    ids = jnp.arange(cfg.num_rays, dtype=jnp.int32)
+    true_params, _ = split_params(scene, fields=fields)
+    target = ray_radiance(true_params, scene, cam, cfg, key, ids)
+    r = np.random.RandomState(seed)
+    params = jax.tree_util.tree_map(
+        lambda p: jnp.asarray(np.clip(
+            np.asarray(p) * (0.6 + 0.3 * r.rand(*p.shape)), 0.02, None),
+            jnp.float32), true_params)
+    return float(render_loss(params, scene, cam, cfg, key, ids, target))
+
+
+@pytest.mark.parametrize("fast", [True, False], ids=["fast", "direct"])
+def test_cli_fit(tmp_path, fast):
+    ckpt = tmp_path / "fit.npz"
+    args = ["--preset", "random-spheres", "--nx", "16", "--ny", "8",
+            "--spp", "2", "--fields", "albedo,fuzz", "--opt", "adam",
+            "--lr", "0.05", "--steps", "3", "--log-every", "1",
+            "--checkpoint", str(ckpt)] + (["--fast"] if fast else [])
+    proc = _run_cli(*args, cmd="fit")
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(line) for line in proc.stdout.splitlines()]
+    steps, last = lines[:-1], lines[-1]
+    assert [s["step"] for s in steps] == [0, 1, 2]
+    assert all(set(s["max_param_err"]) == {"albedo", "fuzz"} for s in steps)
+    assert steps[-1]["loss"] < steps[0]["loss"]
+    assert last["fit"] == "done" and last["device"] == "cpu"
+    assert last["kernel_launches"] == {"K1": 0, "K2": 0, "K2b": 0}
+    want = _jax_fit_first_loss("random-spheres", ("albedo", "fuzz"), 0,
+                               nx=16, ny=8, spp=2)
+    np.testing.assert_allclose(steps[0]["loss"], want, rtol=1e-5)
+    with np.load(ckpt) as saved:
+        assert sorted(saved.files) == ["albedo", "fuzz"]

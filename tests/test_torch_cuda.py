@@ -1,4 +1,5 @@
-"""K1 (the CUDA megakernel) against its plain version on the card.
+"""K1, K2 and K2b (the CUDA kernels) against their plain versions on the
+card, and a gradient step through K2.
 
 Marked ``cuda``; skipped where ``torch.cuda.is_available()`` is False.
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -8,9 +9,11 @@ left out:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Bound: ``(|a - b| > 1e-3).mean() < 0.01`` on per-pixel mean radiance
-(rounding differs: nvcc contracts multiply-adds, libm and CUDA's math
-library round transcendentals differently, and a one-ulp change can send
-a path another way) and segment totals within 0.1%.
+(rounding differs: libm and CUDA's math library round transcendentals
+differently, and a one-ulp change can send a path another way) and segment
+totals within 0.1%.  Tapes: per-entry agreement above 0.999, or 0.99 on the
+coplanar triangle mesh (tests/test_record_mega.py:30-43); K2 must leave
+K1's radiance and segments bit-equal, and K2b's tape must equal K2's.
 """
 import dataclasses
 
@@ -18,7 +21,10 @@ import pytest
 import torch
 
 from first_raytracer_tpu_torch.core import rng
+from first_raytracer_tpu_torch.diff import grad as dg
+from first_raytracer_tpu_torch.diff.replay import plan_buckets
 from first_raytracer_tpu_torch.kernels import megakernel as mk
+from first_raytracer_tpu_torch.kernels import record_mega as rm
 from first_raytracer_tpu_torch.scene.builders import build_preset
 
 CASES = [
@@ -89,6 +95,84 @@ def test_kernel_triangles_only_and_offsets(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", CASES, ids=[c[0] for c in CASES])
+def test_tape_kernels_match_plain(cuda_device, name, kw):
+    scene, cam, cfg = build_preset(name, device=cuda_device, **kw)
+    pack = mk.pack_scene_mega(scene)
+    key = rng.base_key(0)
+    rad, segs = mk.render_pixels_mega(pack, cam, cfg, key)
+    before = (mk.render_pixels_mega.tape_launches,
+              rm.record_paths_mega.legacy_launches)
+    rad2, segs2, tape = mk.render_pixels_mega(pack, cam, cfg, key,
+                                              emit_tape=True)
+    tape_b, its = rm.record_paths_mega(pack, cam, cfg, key,
+                                       return_iters=True)
+    torch.cuda.synchronize()
+    assert (mk.render_pixels_mega.tape_launches,
+            rm.record_paths_mega.legacy_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert torch.equal(rad2, rad) and torch.equal(segs2, segs)
+    assert torch.equal(tape_b, tape)
+    assert torch.equal(its.reshape(-1, cfg.spp).sum(1, dtype=torch.int32),
+                       segs)
+    _, _, ref = mk.render_pixels_mega_reference(pack, cam, cfg, key,
+                                                emit_tape=True)
+    floor = 0.99 if name == "triangle-mesh" else 0.999
+    assert float((tape == ref).float().mean()) > floor
+
+
+@pytest.mark.cuda
+def test_tape_slice_at_large_ray_ids(cuda_device):
+    """A 512-ray slice high in the final scene's id space, through K2 and
+    K2b, equals the same columns of the full-frame K2 tape."""
+    scene, cam, cfg = build_preset("random-spheres", device=cuda_device)
+    pack = mk.pack_scene_mega(scene)
+    key = rng.base_key(0)
+    _, _, full = mk.render_pixels_mega(pack, cam, cfg, key, emit_tape=True)
+    ray0, n = 9_500_000, 512
+    want = full[:, ray0:ray0 + n]
+    del full
+    for impl in ("mega", "legacy"):
+        got = rm.record_paths_mega(pack, cam, cfg, key, ray0=ray0,
+                                   num_rays=n, impl=impl)
+        assert torch.equal(got, want), impl
+
+
+@pytest.mark.cuda
+def test_gradient_step_on_the_card(cuda_device):
+    """2^12 rays of the final scene: K2's tape, plan, bucketed value and
+    gradients on the card against the same step on the CPU (plain K2 and
+    the CPU replay): tapes agree above 0.999, the loss within 1e-3 and
+    each gradient's cosine above 0.99 (paths that graze a sphere move with
+    an ulp, and the card's math library rounds otherwise than libm)."""
+    scene, cam, cfg = build_preset("random-spheres", device="cpu")
+    R = 1 << 12
+    key = rng.base_key(0)
+    results = {}
+    for dev in ("cpu", cuda_device):
+        s, c = scene.to(dev), cam.to(dev)
+        ids = torch.arange(R, device=dev)
+        target = torch.zeros((R, 3), device=dev)
+        params, _ = dg.split_params(s)
+        tape = rm.record_paths_mega(mk.pack_scene_mega(s), c, cfg, key,
+                                    num_rays=R)
+        loss, grads = dg.render_loss_and_grads_bucketed(
+            params, s, c, cfg, key, ids, target, tape,
+            plan=plan_buckets(tape))
+        results[str(dev)] = (tape.cpu(), float(loss),
+                             {k: g.cpu() for k, g in grads.items()})
+    (t0, l0, g0), (t1, l1, g1) = results["cpu"], results[str(cuda_device)]
+    assert float((t0 == t1).float().mean()) > 0.999
+    assert abs(l1 - l0) <= 1e-3 * abs(l0)
+    assert float(g1["albedo"].abs().max()) > 0.0
+    for k, g in g1.items():
+        assert bool(torch.isfinite(g).all()), k
+        if g0[k].norm() > 0:
+            cos = (g0[k].flatten() @ g.flatten()) / (g0[k].norm() * g.norm())
+            assert float(cos) > 0.99, k
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_bad_input(cuda_device):
     scene, cam, cfg = build_preset("three-spheres", device=cuda_device,
                                    nx=8, ny=4, spp=1)
@@ -99,3 +183,7 @@ def test_kernel_refuses_bad_input(cuda_device):
     bad = dataclasses.replace(pack, sph_mx=pack.sph_mx.t().contiguous().t())
     with pytest.raises(ValueError, match="contiguous"):
         mk.render_pixels_mega(bad, cam, cfg, rng.base_key(0))
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.render_pixels_mega(bad, cam, cfg, rng.base_key(0), emit_tape=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        rm.record_paths_mega(bad, cam, cfg, rng.base_key(0), impl="legacy")

@@ -51,7 +51,7 @@ def test_render_image_matches_jax(name, kw):
     js, jc, cfg = jb.build_preset(name, **kw)
     ts, tc, tcfg = _port(js, jc, cfg)
     want = np.asarray(jax_render(js, jc, cfg, seed=0))
-    got = render_image(ts, tc, tcfg, seed=0).numpy()
+    got = render_image(ts, tc, tcfg, seed=0, device="cpu").numpy()
     assert got.shape == (cfg.ny, cfg.nx, 3)
     assert_images_close(got, want)
 
@@ -59,11 +59,12 @@ def test_render_image_matches_jax(name, kw):
 def test_render_image_chunking_invariant():
     js, jc, cfg = jb.three_spheres(nx=12, ny=6, spp=3)
     ts, tc, tcfg = _port(js, jc, cfg)
-    whole = render_image(ts, tc, tcfg, seed=5)
-    chunked = render_image(ts, tc, tcfg, seed=5, chunk=50)
+    whole = render_image(ts, tc, tcfg, seed=5, device="cpu")
+    chunked = render_image(ts, tc, tcfg, seed=5, chunk=50,
+                           device="cpu")
     torch.testing.assert_close(chunked, whole, rtol=0, atol=0)
     with pytest.raises(ValueError):
-        render_image(ts, tc, tcfg, mode="regenerative")
+        render_image(ts, tc, tcfg, mode="regenerative", device="cpu")
 
 
 def test_segment_totals_equal_jax():

@@ -55,7 +55,7 @@ def test_mega_plain_matches_jax_megakernel(name, kw):
     js, jc, cfg = jb.build_preset(name, **kw)
     ts, tc, tcfg = _port(js, jc, cfg)
     before = tmk.render_pixels_mega.launches
-    got = tmk.render_image_mega(ts, tc, tcfg, seed=0).numpy()
+    got = tmk.render_image_mega(ts, tc, tcfg, seed=0, device="cpu").numpy()
     assert tmk.render_pixels_mega.launches == before  # CPU: no kernel
     want = np.asarray(jax_render_mega(js, jc, cfg, interpret=True))
     assert_images_close(got, want)
@@ -65,8 +65,9 @@ def test_mega_plain_matches_jax_megakernel(name, kw):
 def test_mega_plain_matches_port_integrator(name, kw):
     js, jc, cfg = jb.build_preset(name, **kw)
     ts, tc, tcfg = _port(js, jc, cfg)
-    assert_images_close(tmk.render_image_mega(ts, tc, tcfg).numpy(),
-                        render_image(ts, tc, tcfg).numpy())
+    assert_images_close(
+        tmk.render_image_mega(ts, tc, tcfg, device="cpu").numpy(),
+        render_image(ts, tc, tcfg, device="cpu").numpy())
 
 
 def test_mega_segments_match_jax_megakernel():
@@ -90,8 +91,9 @@ def test_mega_triangles_only_scene():
         ts, sphere_center=torch.zeros((0, 3)),
         sphere_radius=torch.zeros((0,)),
         sphere_mat=torch.zeros((0,), dtype=torch.int32))
-    got = tmk.render_image_mega(tri_only, tc, tcfg).numpy()
-    assert_images_close(got, render_image(tri_only, tc, tcfg).numpy())
+    got = tmk.render_image_mega(tri_only, tc, tcfg, device="cpu").numpy()
+    assert_images_close(got,
+                        render_image(tri_only, tc, tcfg, device="cpu").numpy())
     js_tri = dataclasses.replace(
         js, sphere_center=js.sphere_center[:0],
         sphere_radius=js.sphere_radius[:0], sphere_mat=js.sphere_mat[:0])
@@ -102,7 +104,7 @@ def test_mega_triangles_only_scene():
 def test_mega_odd_shapes(nx, ny, spp):
     js, jc, cfg = jb.three_spheres(nx=nx, ny=ny, spp=spp)
     ts, tc, tcfg = _port(js, jc, cfg)
-    got = tmk.render_image_mega(ts, tc, tcfg).numpy()
+    got = tmk.render_image_mega(ts, tc, tcfg, device="cpu").numpy()
     assert got.shape == (ny, nx, 3)
     assert_images_close(got, np.asarray(jax_render(js, jc, cfg)))
 
@@ -158,3 +160,16 @@ def test_mega_guards():
         pack, tris=torch.zeros((tmk.TRI_ROWS, (1 << 14) + 128)))
     with pytest.raises(ValueError, match="2\\^14"):
         tmk.render_pixels_mega(wide, tc, tcfg, key)
+
+
+def test_render_image_mega_defaults_to_the_gpu():
+    """With no ``device``, the entry point asks for CUDA: on a CPU-only
+    torch it raises instead of running the plain version on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works here")
+    js, jc, cfg = jb.three_spheres(nx=4, ny=2, spp=1)
+    ts, tc, tcfg = _port(js, jc, cfg)
+    with pytest.raises((AssertionError, RuntimeError)):
+        tmk.render_image_mega(ts, tc, tcfg)
+    with pytest.raises((AssertionError, RuntimeError)):
+        render_image(ts, tc, tcfg)
