@@ -8,8 +8,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. Device: a CUDA GPU must be present; prints its name and the
    ``nvidia-smi`` name and power limit.
-2. Build: compiles K1, K2 and K2b (kernels/csrc/megakernel.cu, one nvcc)
-   for sm_90a.
+2. Build: compiles K1, K2, K2b, K3 and K3t (kernels/csrc/megakernel.cu and
+   megakernel_clustered.cu, one nvcc) for sm_90a.
 3. K1 vs plain: K1 and its plain PyTorch version on the same card and
    inputs, on four small presets and at the main path's full size.  Bound:
    ``(|a - b| > 1e-3).mean() < 0.01`` on per-pixel mean radiance, segment
@@ -22,13 +22,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    segments bit-equal to K1's, K2's and K2b's tapes against the plain
    versions' (agreement above 0.999, 0.99 on the coplanar triangle mesh),
    K2b's tape equal to K2's and its per-ray trip counts summing to K1's
-   segments; a 512-ray slice at ray id 9.5 M of the final scene through K2
-   and K2b equal to the same columns of the full-frame K2 tape, and off the
-   plain K2b's in at most one ray; K1, K2 and K2b timed at full frame, in
-   turns.
+   segments; K2's path, ``render_pixels_mega(emit_tape=True)`` over the full
+   frame, with its launch counter reset before and read after; a 512-ray
+   slice at ray id 9.5 M of the final scene through K2 and K2b equal to the
+   same columns of the full-frame K2 tape, and off the plain K2b's in at
+   most one ray; K1, K2 and K2b timed at full frame, in turns.
 6. The differentiable path at full width (bench.py's grad configuration):
    the final scene, ray ids [0, 2^17), zero target, mean squared radiance,
-   every DIFF_FIELDS leaf.  Counters reset, then one step (record by K2,
+   every DIFF_FIELDS leaf.  Counters reset, then one step (record by K2b,
    ``plan_buckets``, ``render_loss_and_grads_bucketed``) and the step's
    segment count (K2b's per-ray trip counts, bench.py's instrumentation
    pass), counters read.  Checks at that size: K2's and K2b's tapes equal,
@@ -49,11 +50,47 @@ Phases, in order; any failure raises and the exit code is non-zero:
    replay's value and gradient, the whole step (median of 3 after the warm
    step), peak memory.
 7. ``python -m first_raytracer_tpu_torch.cli fit ... --fast`` in a
-   subprocess on the card: exits 0, the loss falls, K2 launched each step.
+   subprocess on the card: exits 0, the loss falls, K2b launched each step.
+8. K3 vs plain on small scenes: three-spheres, random-spheres and
+   triangle-mesh at 64x32, sphere_field(600) and triangle_field(2000) at
+   64x32 @ 2: the image bound, segment totals within 0.1% (per pixel on
+   triangle scenes: their paths are chaotic), and K3's sweep counters at or
+   below an ungated sweep's.  K3 against K1 at full size on field5000
+   (800x450 @ 4) and on the final scene (1200x800 @ 10): the image bound,
+   both kernels timed; the final scene's radiance sum within 1% of its
+   golden.
+9. The large-scene render path: ``render_image_mega_clustered`` on
+   field20000, field5000 and trifield20000 at 800x450 @ 4, seed 0, launch
+   counter reset before and read after (one K3 launch per frame), each
+   radiance sum within 1% of its ``bench_golden.json`` golden; seconds per
+   frame (median of 3 after a warm run), Mpaths/s, Mrays/s, the host pack's
+   seconds, K3's CUDA-event ms and the clusters swept per segment.  At that
+   shape K3's output is held against its plain version over the whole
+   frame (the image bound; segment totals within 0.1%, per pixel on
+   trifield20000), and the plain version is timed.
+10. K3t and the clustered fit step: K3t's tape against the plain version
+   on the small presets of phase 8 (agreement above 0.999, 0.99 on
+   triangle scenes); on ray ids [0, 2^17) of field5000 against K2b's tape
+   (above 0.999, rays that differ counted) and its plain version, and on
+   field20000 against its plain version (above 0.999); on both against the
+   plain wavefront ``record_paths``, no more than 1e-4 below its plain
+   version's agreement with it: the expanded sphere quadratic that the
+   megakernels share with the JAX kernels re-hits its own sphere in the far
+   field, so no megakernel tape reaches 0.999 there
+   (``wavefront_agreement``).  One
+   ``make_fit_step_replay`` step on field5000 at 2^17 rays, every
+   DIFF_FIELDS leaf, zero target, counters reset before and read after: it
+   launches K3t, its loss and gradients are finite, its loss is within
+   1e-3 of the loss on K2b's tape and each ray's replayed radiance is
+   bit-equal where the two tapes are; K3t's ms, the step's seconds (median
+   of 3 after the first) and gradient Mpaths/s.
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements and the result line ``{"ok": true, "device": {...}}``.  This
-script imports no JAX.
+script imports no JAX.  Bounds count FP32 operations from the sources: 16
+per (segment, sphere) and 46 per (segment, triangle) for the dense sweep;
+for K3 and K3t the slots and boxes their sweep counters say they tested, 29
+operations per box test (``gate`` in kernels/csrc/megakernel_clustered.cu).
 """
 from __future__ import annotations
 
@@ -74,6 +111,7 @@ from first_raytracer_tpu_torch.diff.replay import (plan_buckets,
                                                    record_paths,
                                                    trace_rays_replay)
 from first_raytracer_tpu_torch.kernels import megakernel as mk
+from first_raytracer_tpu_torch.kernels import megakernel_clustered as mc
 from first_raytracer_tpu_torch.kernels import record_mega as rm
 from first_raytracer_tpu_torch.render.camera import generate_rays
 from first_raytracer_tpu_torch.render.image import write_png
@@ -102,6 +140,31 @@ PEAK_BYTES = 3.35e12
 # 6 + 6 + 1 for a triangle.  Roots, shading and Threefry are left out, so
 # the bound is a lower one.
 SPHERE_OPS, TRIANGLE_OPS = 16, 46
+# FP32 operations of one slab test of a box (ClusterScene::gate in
+# kernels/csrc/megakernel_clustered.cu): 6 subtractions and 6
+# multiplications, 10 minima and maxima, 4 for the widening, 3 for the test.
+BOX_OPS = 29
+# Phases 8 and 10: the small scenes.
+CLUSTER_CASES = [
+    ("three-spheres", dict(nx=64, ny=32, spp=2)),
+    ("random-spheres", dict(nx=64, ny=32, spp=2)),
+    ("triangle-mesh", dict(nx=64, ny=32, spp=2)),
+    ("sphere-field", dict(n=600, nx=64, ny=32, spp=2)),
+    ("triangle-field", dict(n=2000, nx=64, ny=32, spp=2)),
+]
+# (ray, column) pairs per chunk of the plain K3 over a whole field frame:
+# 1 GiB per dense temporary, so that its launches are few and its memory
+# stays a fraction of the card's.
+PLAIN_PAIRS = 1 << 28
+# Phase 9: the goldens of bench.py's BENCH_MODE=megacluster runs.
+FIELD_SCENES = [
+    ("field20000", "sphere-field", 20000,
+     "radiance_sum_megacluster_field20000_800x450_4spp"),
+    ("field5000", "sphere-field", 5000,
+     "radiance_sum_megacluster_field5000_800x450_4spp"),
+    ("trifield20000", "triangle-field", 20000,
+     "radiance_sum_megacluster_trifield20000_800x450_4spp"),
+]
 
 
 # Gradients of the final scene that rest on a few near-tangent rays, where
@@ -151,6 +214,26 @@ def compare(rad, segs, ref, ref_segs, spp, what):
         raise AssertionError(f"{what}: image bound failed ({frac})")
     if not seg_rel <= 1e-3:
         raise AssertionError(f"{what}: segment totals differ ({seg_rel})")
+    return float(diff.max())
+
+
+def compare_clustered(rad, segs, ref, ref_segs, spp, what, per_pixel):
+    """K3 vs its plain version: ``compare``'s bounds, or on triangle scenes
+    the image bound and segments per pixel (without a dense field of
+    spheres, paths leak between coplanar faces and a total moves with one
+    of them).  Returns the largest per-pixel error."""
+    if not per_pixel:
+        return compare(rad, segs, ref, ref_segs, spp, what)
+    diff = ((rad - ref) / spp).abs().cpu()
+    if not bool(torch.isfinite(rad).all()):
+        raise AssertionError(f"{what}: non-finite kernel radiance")
+    frac = float((diff > 1e-3).float().mean())
+    seg_frac = float((segs != ref_segs).float().mean())
+    log(f"  {what}: frac(|a-b|>1e-3)={frac:.6f} max="
+        f"{float(diff.max()):.6f}, pixels whose segments differ "
+        f"{seg_frac:.6f}")
+    if not (frac < 0.01 and seg_frac < 0.01):
+        raise AssertionError(f"{what}: K3 off its plain version")
     return float(diff.max())
 
 
@@ -219,7 +302,93 @@ def check_grads(what, grads, want, allowed):
 def reset_counts():
     mk.render_pixels_mega.launches = 0
     mk.render_pixels_mega.tape_launches = 0
-    rm.record_paths_mega.legacy_launches = 0
+    rm.record_paths_mega.launches = 0
+    mc.render_pixels_mega_clustered.launches = 0
+    rm.record_paths_mega_clustered.launches = 0
+
+
+def clustered_bound(pack, sweeps, out_bytes):
+    """The least time for a clustered sweep that did what ``sweeps`` (N, 4)
+    counts: its FP32 operations (slots and boxes tested) over the FP32 peak
+    against its bytes (tables and camera read once, outputs written once)
+    over the memory rate.  Returns (ms, "operations" | "bytes")."""
+    tot = sweeps.long().sum(0).tolist()
+    ops = tot[1] * SPHERE_OPS + tot[2] * TRIANGLE_OPS + tot[3] * BOX_OPS
+    tables = (pack.sph, pack.sph_mx, pack.boxes, pack.super_boxes,
+              pack.sph_starts, pack.sph_counts, pack.tris, pack.tri_boxes,
+              pack.tri_super_boxes, pack.tri_starts, pack.tri_counts)
+    in_bytes = 4 * 20 + sum(t.numel() * t.element_size() for t in tables)
+    t_ops, t_bytes = ops / PEAK_FP32, (in_bytes + out_bytes) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def wavefront_tape(scene, cam, cfg, key, ray0, num_rays, chunk=1 << 13):
+    """The plain wavefront ``record_paths`` over a ray range, in chunks, so
+    that its dense (rays, primitives) temporaries stay bounded."""
+    parts = []
+    for lo in range(ray0, ray0 + num_rays, chunk):
+        ids = torch.arange(lo, min(lo + chunk, ray0 + num_rays),
+                           device=scene.device)
+        o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                             rng.camera_uniforms(key, ids))
+        parts.append(record_paths(scene, o, d, ids, key, cfg))
+    return torch.cat(parts, dim=1)
+
+
+def wavefront_agreement(what, got, plain, want, scene):
+    """A megakernel recorder's tape (``got``) and its plain version's
+    (``plain``) against the plain wavefront ``record_paths`` (``want``) on a
+    far field.
+
+    The megakernels' expanded sphere quadratic (b = o.d - d.C, c = |o|^2 -
+    2 o.C + c0, the JAX kernels' form) loses c's absolute precision with
+    |o|^2, so a bounce ray leaving a sphere 30-90 units from the origin may
+    re-hit that sphere at t just past t_min, where the wavefront's oc-form
+    rarely does: the tapes part on a tenth of the rays and per-entry
+    agreement falls below 0.999.  The kernel is held to its own formula:
+    its agreement with the wavefront may fall short of its plain version's
+    by at most 1e-4.  The log counts the rays whose first difference is
+    such a re-hit (the same non-dielectric sphere twice in a row, which a
+    convex surface cannot give).  Returns the kernel's agreement.
+    """
+    diff = got != want
+    differs = diff.any(dim=0)
+    d = diff.int().argmax(dim=0)
+    refracts = torch.zeros(scene.num_primitives, dtype=torch.bool,
+                           device=got.device)
+    refracts[:scene.num_spheres] = scene.mat_type[scene.sphere_mat.long()] \
+        == 2
+
+    def rehit(tape):
+        prev = tape.gather(0, (d - 1).clamp(min=0)[None])[0]
+        cur = tape.gather(0, d[None])[0]
+        return (differs & (d >= 1) & (cur == prev) & (cur >= 0)
+                & ~refracts[cur.clamp(min=0).long()])
+
+    agree = float((~diff).float().mean())
+    agree_plain = float((plain == want).float().mean())
+    log(f"  {what}: tape agreement {agree:.6f} (plain version "
+        f"{agree_plain:.6f}, floor its own - 1e-4), {int(differs.sum())} of "
+        f"{got.shape[1]} rays differ, {int(rehit(got).sum())} first by a "
+        f"re-hit of the same sphere in the kernel's tape and "
+        f"{int(rehit(want).sum())} in the wavefront's")
+    if not agree >= agree_plain - 1e-4:
+        raise AssertionError(f"{what}: agreement {agree} below the plain "
+                             f"version's {agree_plain}")
+    return agree
+
+
+def tape_agreement(what, got, want, floor):
+    """Per-entry agreement of two tapes; logs it with the rays that
+    differ and fails below ``floor``."""
+    agree = float((got == want).float().mean())
+    rays = int((got != want).any(dim=0).sum())
+    log(f"  {what}: tape agreement {agree:.6f} (floor {floor}), {rays} of "
+        f"{got.shape[1]} rays differ")
+    if not agree > floor:
+        raise AssertionError(f"{what}: tape agreement {agree} <= {floor}")
+    return agree
 
 
 def build():
@@ -319,14 +488,14 @@ def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack):
         p = mk.pack_scene_mega(s)
         rad, segs = mk.render_pixels_mega(p, c, cf, key)
         before = (mk.render_pixels_mega.tape_launches,
-                  rm.record_paths_mega.legacy_launches)
+                  rm.record_paths_mega.launches)
         rad2, segs2, tape = mk.render_pixels_mega(p, c, cf, key,
                                                   emit_tape=True)
         tape_b, its = rm.record_paths_mega(p, c, cf, key, return_iters=True)
         torch.cuda.synchronize()
         if (mk.render_pixels_mega.tape_launches,
-                rm.record_paths_mega.legacy_launches) != (before[0] + 1,
-                                                          before[1] + 1):
+                rm.record_paths_mega.launches) != (before[0] + 1,
+                                                   before[1] + 1):
             raise AssertionError("K2 or K2b launch counter did not move")
         if not (torch.equal(rad2, rad) and torch.equal(segs2, segs)):
             raise AssertionError(f"{preset}: K2 changed K1's results")
@@ -350,13 +519,26 @@ def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack):
         if not (a2 > floor and ab > floor):
             raise AssertionError(f"{preset}: tape agreement below {floor}")
 
+    # K2's path: the megakernel with its tape over the full frame.
+    reset_counts()
     _, _, full = mk.render_pixels_mega(pack, cam, cfg, key, emit_tape=True)
+    torch.cuda.synchronize()
+    k2_launches = mk.render_pixels_mega.tape_launches
+    if k2_launches < 1:
+        raise AssertionError("render_pixels_mega(emit_tape=True) did not "
+                             "launch K2")
     want = full[:, SLICE_RAY0:SLICE_RAY0 + SLICE_RAYS]
-    for impl in ("mega", "legacy"):
-        got = rm.record_paths_mega(pack, cam, cfg, key, ray0=SLICE_RAY0,
-                                   num_rays=SLICE_RAYS, impl=impl)
+    p0 = SLICE_RAY0 // cfg.spp
+    _, _, by_k2 = mk.render_pixels_mega(
+        pack, cam, cfg, key, pix0=p0, num_pixels=-(-SLICE_RAYS // cfg.spp),
+        emit_tape=True)
+    off = SLICE_RAY0 - p0 * cfg.spp
+    by_k2b = rm.record_paths_mega(pack, cam, cfg, key, ray0=SLICE_RAY0,
+                                  num_rays=SLICE_RAYS)
+    for what, got in (("K2", by_k2[:, off:off + SLICE_RAYS]),
+                      ("K2b", by_k2b)):
         if not torch.equal(got, want):
-            raise AssertionError(f"{impl}: slice at ray {SLICE_RAY0} "
+            raise AssertionError(f"{what}: slice at ray {SLICE_RAY0} "
                                  "differs from the full-frame tape")
     ref, _ = rm.record_paths_mega_reference(pack, cam, cfg, key,
                                             ray0=SLICE_RAY0,
@@ -375,8 +557,7 @@ def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack):
         "K1": lambda: mk.render_pixels_mega(pack, cam, cfg, key),
         "K2": lambda: mk.render_pixels_mega(pack, cam, cfg, key,
                                             emit_tape=True),
-        "K2b": lambda: rm.record_paths_mega(pack, cam, cfg, key,
-                                            impl="legacy")}
+        "K2b": lambda: rm.record_paths_mega(pack, cam, cfg, key)}
     runs = {k: [] for k in calls}
     for k in ("K1", "K2", "K2b", "K2b", "K2", "K1"):  # in turns
         runs[k].append(cuda_ms(calls[k], 3))
@@ -386,6 +567,7 @@ def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack):
         f"{runs['K1']} ms, K2 {runs['K2']} ms, K2b {runs['K2b']} ms; tape "
         f"write +{k2_ms - k1_ms:.3f} ms ({(k2_ms / k1_ms - 1) * 100:.1f}%); "
         f"K2b/K2 {kb_ms / k2_ms:.3f}; on {card}")
+    return k2_launches
 
 
 def grad_path(dev, key, card, scene, cam, cfg, pack):
@@ -397,6 +579,11 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
 
     def record():
         return rm.record_paths_mega(pack, cam, cfg, key, num_rays=R)
+
+    def record_k2():
+        return mk.render_pixels_mega(pack, cam, cfg, key,
+                                     num_pixels=-(-R // cfg.spp),
+                                     emit_tape=True)[2][:, :R]
 
     def step():
         tape = record()
@@ -412,12 +599,11 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
                                        return_iters=True)
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = {"K2": mk.render_pixels_mega.tape_launches,
-                "K2b": rm.record_paths_mega.legacy_launches}
+    launches = {"K2b": rm.record_paths_mega.launches}
     log(f"grad path: launches {launches}, buckets {plan[1]}, peak memory "
         f"{peak_gb:.3f} GB")
-    if min(launches.values()) < 1:
-        raise AssertionError("the grad path did not launch K2 and K2b")
+    if launches["K2b"] < 2:
+        raise AssertionError("the grad path did not record with K2b")
     segments = int(its.sum())
 
     # (a) K2 and K2b against their plain versions at this size, and K2's
@@ -461,11 +647,11 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
     wave_s, wave = host_s(lambda: record_paths(scene, o, d, ids, key, cfg))
     agree = float((tape == wave).float().mean())
     differing = int((tape != wave).any(dim=0).sum())
-    log(f"  (a) K2 tape vs plain record_paths: agreement {agree:.6f}, "
-        f"{differing} rays differ (record_paths {wave_s * 1e3:.1f} ms, one "
-        "run)")
+    log(f"  (a) the step's tape (K2b) vs plain record_paths: agreement "
+        f"{agree:.6f}, {differing} rays differ (record_paths "
+        f"{wave_s * 1e3:.1f} ms, one run)")
     if not agree > 0.999:
-        raise AssertionError(f"K2 tape agreement {agree}")
+        raise AssertionError(f"K2b tape agreement {agree}")
     del wave
 
     # (b) The replay's radiance per whole pixel against K1.
@@ -496,19 +682,20 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
         jax_tape = torch.from_numpy(saved["tape"].astype(np.int32)).to(dev)
     agree_j = float((tape == jax_tape).float().mean())
     rays_j = int((tape != jax_tape).any(dim=0).sum())
-    log(f"  (d) K2 tape vs JAX's tape: agreement {agree_j:.6f}, {rays_j} "
-        "rays differ")
+    log(f"  (d) the step's tape (K2b) vs JAX's tape: agreement "
+        f"{agree_j:.6f}, {rays_j} rays differ")
     if not agree_j > 0.999:
-        raise AssertionError(f"K2 tape agreement with JAX's {agree_j}")
+        raise AssertionError(f"K2b tape agreement with JAX's {agree_j}")
     f64 = golden["f64"]
     want64 = {k: v["values"] for k, v in f64["fields"].items()}
-    # (d1) float32, on K2's tape (the step as run) and on JAX's: the loss
+    # (d1) float32, on K2b's tape (the step as run) and on JAX's: the loss
     # within 1% and the albedo gradient within 5% of JAX's float32 values.
     # The fields of TANGENT_FIELDS are only logged here: in float32 they
     # move by tens of percent between tapes or roundings in either package.
     loss_j, grads_j = dg.render_loss_and_grads_bucketed(
         params, scene, cam, cfg, key, ids, target, jax_tape)
-    for what, l32, g32 in (("K2's", loss, grads), ("JAX's", loss_j, grads_j)):
+    for what, l32, g32 in (("K2b's", loss, grads),
+                           ("JAX's", loss_j, grads_j)):
         rel = abs(float(l32) - golden["loss"]) / golden["loss"]
         log(f"  (d1) float32 on {what} tape: loss {float(l32):.9g}, rel "
             f"{rel:.3e} (bound 1e-2)")
@@ -538,9 +725,8 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
     del scene64, cam64, params64, grads64
 
     # Times, median of 3 after the warm step above.
-    k2_ms = cuda_ms(record, 3)
-    kb_ms = cuda_ms(lambda: rm.record_paths_mega(pack, cam, cfg, key,
-                                                 num_rays=R, impl="legacy"), 3)
+    k2_ms = cuda_ms(record_k2, 3)
+    kb_ms = cuda_ms(record, 3)
     replay_s = statistics.median(host_s(
         lambda: dg.render_loss_and_grads_bucketed(
             params, scene, cam, cfg, key, ids, target, tape, plan=plan))[0]
@@ -558,7 +744,8 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
         f"(record + plan + value and gradient) {step_s * 1e3:.1f} ms: "
         f"{R / step_s / 1e6:.4f} gradient Mpaths/s, "
         f"{segments / step_s / 1e6:.3f} Mrays/s ({segments} segments), "
-        f"replay {replay_s / step_s * 100:.1f}% of the step; peak memory "
+        f"replay {replay_s / step_s * 100:.1f}% of the step (K2b records); "
+        "peak memory "
         f"{peak_gb:.3f} GB; on {card}")
     return dict(launches=launches, k2_ms=k2_ms, kb_ms=kb_ms,
                 plain2_ms=plain2_s * 1e3, plain_b_ms=plain_b_s * 1e3,
@@ -585,8 +772,248 @@ def fit_cli(card):
         f"losses {[s['loss'] for s in steps]}, {last}")
     if not steps[-1]["loss"] < steps[0]["loss"]:
         raise AssertionError("the fit's loss did not fall")
-    if last["device"] != "cuda" or last["kernel_launches"]["K2"] < 5:
-        raise AssertionError("the fit did not record with K2 on the card")
+    if last["device"] != "cuda" or last["kernel_launches"]["K2b"] < 5:
+        raise AssertionError("the fit did not record with K2b on the card")
+
+
+def clustered_vs_plain(dev, key, card):
+    """Phase 8.  Returns K1's and K3's times on field5000 and the final
+    scene."""
+    for preset, kw in CLUSTER_CASES:
+        scene, cam, cfg = build_preset(preset, device=dev, **kw)
+        pack = mc.pack_scene_mega_clustered(scene, cam)
+        before = mc.render_pixels_mega_clustered.launches
+        rad, segs, sweeps = mc.render_pixels_mega_clustered(
+            pack, cam, cfg, key, return_iters=True)
+        torch.cuda.synchronize()
+        if mc.render_pixels_mega_clustered.launches != before + 1:
+            raise AssertionError("K3's launch counter did not move")
+        ref, ref_segs, ungated = mc.render_pixels_mega_clustered_reference(
+            pack, cam, cfg, key, return_iters=True)
+        what = (f"{preset} {kw.get('n', '')} {cfg.nx}x{cfg.ny}@{cfg.spp} "
+                f"({pack.clusters} + {pack.tri_clusters} clusters)")
+        compare_clustered(rad, segs, ref, ref_segs, cfg.spp, what,
+                          per_pixel="triangle" in preset)
+        done, full = sweeps.long().sum(0), ungated.long().sum(0)
+        log(f"    sweeps: {done.tolist()} of an ungated sweep's "
+            f"{full.tolist()} ({', '.join(mc.SWEEP_COLUMNS)})")
+        if not bool((sweeps[:, :3] <= ungated[:, :3]).all()):
+            raise AssertionError(f"{what}: K3 swept more than every cluster")
+
+    # K3 against K1 at full size, on field5000 and on the final scene.
+    with open(os.path.join(ROOT, "bench_golden.json")) as f:
+        goldens = json.load(f)
+    times = {}
+    for label, preset, kw in (("field5000", "sphere-field", dict(n=5000)),
+                              ("final scene", "random-spheres", {})):
+        scene_, cam_, cfg_ = build_preset(preset, device=dev, **kw)
+        dpack = mk.pack_scene_mega(scene_)
+        cpack = mc.pack_scene_mega_clustered(scene_, cam_)
+        rad1, segs1 = mk.render_pixels_mega(dpack, cam_, cfg_, key)
+        rad3, segs3 = mc.render_pixels_mega_clustered(cpack, cam_, cfg_, key)
+        diff = ((rad3 - rad1) / cfg_.spp).abs().cpu()
+        frac = float((diff > 1e-3).float().mean())
+        ms = {k: cuda_ms(fn, 3) for k, fn in (
+            ("K1", lambda: mk.render_pixels_mega(dpack, cam_, cfg_, key)),
+            ("K3", lambda: mc.render_pixels_mega_clustered(cpack, cam_, cfg_,
+                                                           key)))}
+        times[label] = ms
+        log(f"  K3 vs K1, {label} {cfg_.nx}x{cfg_.ny}@{cfg_.spp}: "
+            f"frac(|a-b|>1e-3)={frac:.6f} max={float(diff.max()):.3e}, "
+            f"segments {int(segs3.sum())} vs {int(segs1.sum())}; K1 "
+            f"{ms['K1']:.3f} ms, K3 {ms['K3']:.3f} ms; on {card}")
+        if not frac < 0.01:
+            raise AssertionError(f"K3 off K1 on {label} ({frac})")
+        if preset == "random-spheres":
+            total = float(rad3.double().sum())
+            rel = abs(total - goldens[GOLDEN_KEY]) / goldens[GOLDEN_KEY]
+            log(f"    final scene through K3: radiance sum {total:.1f} vs "
+                f"golden {goldens[GOLDEN_KEY]:.1f} (rel {rel:.2e})")
+            if not rel < 1e-2:
+                raise AssertionError(f"K3's final scene off golden ({rel})")
+        del rad1, rad3
+    return times
+
+
+def large_scene_path(dev, key, card):
+    """Phase 9.  Returns K3's launches, per scene its times, bound and error
+    against the plain version, and the field scenes for phase 10."""
+    with open(os.path.join(ROOT, "bench_golden.json")) as f:
+        goldens = json.load(f)
+    out, scenes = {}, {}
+    launches = 0
+    for label, preset, n, gkey in FIELD_SCENES:
+        scene, cam, cfg = build_preset(preset, device=dev, n=n)
+        scenes[label] = (scene, cam, cfg)
+        reset_counts()
+        img = mc.render_image_mega_clustered(scene, cam, cfg, seed=0,
+                                             device=dev)
+        torch.cuda.synchronize()
+        frame_launches = mc.render_pixels_mega_clustered.launches
+        launches += frame_launches
+        if frame_launches != 1:
+            raise AssertionError(f"{label}: {frame_launches} K3 launches "
+                                 "for one frame")
+        if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or \
+                not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{label}: bad image")
+        total = float(img.double().sum()) * cfg.spp
+        rel = abs(total - goldens[gkey]) / goldens[gkey]
+        log(f"{label} {cfg.nx}x{cfg.ny}@{cfg.spp} depth {cfg.max_depth}: "
+            f"radiance sum {total:.3f} vs golden {goldens[gkey]} (rel "
+            f"{rel:.2e}), K3 launches {frame_launches}")
+        if not rel < 1e-2:
+            raise AssertionError(f"{label}: radiance sum off golden by {rel}")
+        os.makedirs(os.path.join(ROOT, "out"), exist_ok=True)
+        write_png(os.path.join(ROOT, "out", f"{label}_torch.png"), img)
+        seconds = []
+        for _ in range(4):  # one warm run, then three timed
+            seconds.append(host_s(lambda: mc.render_image_mega_clustered(
+                scene, cam, cfg, seed=0, device=dev))[0])
+        sec = statistics.median(seconds[1:])
+        pack_s = statistics.median(host_s(
+            lambda: mc.pack_scene_mega_clustered(scene, cam))[0]
+            for _ in range(3))
+        pack = mc.pack_scene_mega_clustered(scene, cam)
+        rad, segs, sweeps = mc.render_pixels_mega_clustered(
+            pack, cam, cfg, key, return_iters=True)
+        rays = int(segs.sum())
+        k3_ms = cuda_ms(
+            lambda: mc.render_pixels_mega_clustered(pack, cam, cfg, key), 3)
+        tot = sweeps.long().sum(0).tolist()
+        b = clustered_bound(pack, sweeps, 32 * cfg.num_pixels)
+        log(f"  {sec:.4f} s/frame median of 3 ({cfg.num_rays / sec / 1e6:.3f}"
+            f" Mpaths/s, {rays / sec / 1e6:.3f} Mrays/s, {rays} segments); "
+            f"host pack {pack_s:.4f} s; K3 alone {k3_ms:.3f} ms "
+            f"({cfg.num_rays / k3_ms / 1e3:.1f} Mpaths/s; bound {b[0]:.4f} "
+            f"ms, {b[1]}); per segment {tot[0] / rays:.2f} clusters swept, "
+            f"{tot[1] / rays:.1f} sphere and {tot[2] / rays:.1f} triangle "
+            f"slots, {tot[3] / rays:.1f} boxes tested; on {card}")
+        # K3's output at this shape against its plain version, whole frame.
+        plain_s, (ref, ref_segs) = host_s(
+            lambda: mc.render_pixels_mega_clustered_reference(
+                pack, cam, cfg, key,
+                rays_per_chunk=PLAIN_PAIRS // pack.sweep_columns))
+        err = compare_clustered(rad, segs, ref, ref_segs, cfg.spp,
+                                "  K3 vs plain, whole frame",
+                                per_pixel=preset == "triangle-field")
+        log(f"  plain version {plain_s * 1e3:.1f} ms (one run)")
+        out[label] = dict(ms=k3_ms, bound=b, sec=sec, err=err,
+                          plain_ms=plain_s * 1e3)
+        del ref, ref_segs, rad
+        torch.cuda.empty_cache()
+    return launches, out, scenes
+
+
+def clustered_tapes_and_step(dev, key, card, scenes):
+    """Phase 10.  Returns K3t's entries for the kernels line."""
+    for preset, kw in CLUSTER_CASES:
+        scene, cam, cfg = build_preset(preset, device=dev, **kw)
+        pack = mc.pack_scene_mega_clustered(scene, cam)
+        before = rm.record_paths_mega_clustered.launches
+        tape = rm.record_paths_mega_clustered(pack, cam, cfg, key)
+        torch.cuda.synchronize()
+        if rm.record_paths_mega_clustered.launches != before + 1:
+            raise AssertionError("K3t's launch counter did not move")
+        ref, _ = rm.record_paths_mega_clustered_reference(pack, cam, cfg,
+                                                          key)
+        tape_agreement(f"K3t vs plain, {preset} {kw.get('n', '')} "
+                       f"{cfg.nx}x{cfg.ny}@{cfg.spp}", tape, ref,
+                       0.99 if "triangle" in preset else 0.999)
+
+    R = GRAD_RAYS
+    scene, cam, cfg = scenes["field5000"]
+    cpack = mc.pack_scene_mega_clustered(scene, cam)
+    dpack = mk.pack_scene_mega(scene)
+    tape3, its3, sweeps3 = rm.record_paths_mega_clustered(
+        cpack, cam, cfg, key, num_rays=R, return_iters=True)
+    tape_b = rm.record_paths_mega(dpack, cam, cfg, key, num_rays=R)
+    agree_k2b = tape_agreement(f"field5000 rays [0, {R}): K3t vs K2b",
+                               tape3, tape_b, 0.999)
+    plain_s, (ref3, ref_its3) = host_s(
+        lambda: rm.record_paths_mega_clustered_reference(
+            cpack, cam, cfg, key, num_rays=R))
+    trips_err = int((its3 - ref_its3).abs().max())
+    agree_plain = tape_agreement("  K3t vs its plain version", tape3, ref3,
+                                 0.999)
+    wavefront_agreement("  K3t vs the plain wavefront record_paths", tape3,
+                        ref3, wavefront_tape(scene, cam, cfg, key, 0, R),
+                        scene)
+    del ref3
+    k3t_ms = cuda_ms(lambda: rm.record_paths_mega_clustered(
+        cpack, cam, cfg, key, num_rays=R), 3)
+    bound = clustered_bound(cpack, sweeps3, 4 * (cfg.max_depth + 6) * R)
+
+    s20, c20, cfg20 = scenes["field20000"]
+    p20 = mc.pack_scene_mega_clustered(s20, c20)
+    t20 = rm.record_paths_mega_clustered(p20, c20, cfg20, key, num_rays=R)
+    ref20, _ = rm.record_paths_mega_clustered_reference(p20, c20, cfg20,
+                                                        key, num_rays=R)
+    tape_agreement(f"field20000 rays [0, {R}): K3t vs its plain version",
+                   t20, ref20, 0.999)
+    wavefront_agreement("  K3t vs the plain wavefront record_paths", t20,
+                        ref20, wavefront_tape(s20, c20, cfg20, key, 0, R),
+                        s20)
+    del ref20
+    k3t20_ms = cuda_ms(lambda: rm.record_paths_mega_clustered(
+        p20, c20, cfg20, key, num_rays=R), 3)
+    del t20, p20
+
+    # One clustered fit step on field5000 through the user's entry point.
+    ids = torch.arange(R, device=dev)
+    target = torch.zeros((R, 3), device=dev)
+    params, _ = dg.split_params(scene)
+    start = {k: v.detach().clone() for k, v in params.items()}
+    opt = dg.make_optimizer("adam", params, 1e-3)
+    step = dg.make_fit_step_replay(scene, cam, cfg, ids, target, opt,
+                                   device=dev)
+    reset_counts()
+    loss = step(params, key)
+    torch.cuda.synchronize()
+    launches = rm.record_paths_mega_clustered.launches
+    log(f"clustered fit step, field5000, {R} rays: loss {float(loss):.9g}, "
+        f"launches K3t {launches}, K2b {rm.record_paths_mega.launches}")
+    if launches != 1 or rm.record_paths_mega.launches:
+        raise AssertionError("the clustered fit step did not record with "
+                             "K3t alone")
+    grads = {k: v.grad for k, v in params.items()}
+    if not bool(torch.isfinite(loss)) or not all(
+            bool(torch.isfinite(g).all()) for g in grads.values()):
+        raise AssertionError("non-finite loss or gradient")
+    base = dataclasses.replace(scene, **start)
+    p0 = {k: v.clone().requires_grad_(True) for k, v in start.items()}
+    loss_b, _ = dg.render_loss_and_grads_bucketed(p0, base, cam, cfg, key,
+                                                  ids, target, tape_b)
+    rel = abs(float(loss) - float(loss_b)) / float(loss_b)
+    o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                         rng.camera_uniforms(key, ids))
+    with torch.no_grad():
+        rad3 = trace_rays_replay(base, o, d, ids, key, cfg, tape3)
+        rad_b = trace_rays_replay(base, o, d, ids, key, cfg, tape_b)
+    same = (tape3 == tape_b).all(dim=0)
+    bit_equal = torch.equal(rad3[same], rad_b[same])
+    log(f"  loss on K2b's tape {float(loss_b):.9g} (rel {rel:.3e}, bound "
+        f"1e-3); replayed radiance bit-equal on the {int(same.sum())} rays "
+        f"whose tapes are equal: {bit_equal}")
+    if not (rel < 1e-3 and bit_equal):
+        raise AssertionError("the clustered step is off the step on K2b's "
+                             "tape")
+    if bool(same.all()) and float(loss) != float(loss_b):
+        raise AssertionError("equal tapes, unequal losses")
+    step_s = statistics.median(host_s(lambda: step(params, key))[0]
+                               for _ in range(3))
+    segments = int(its3.sum())
+    log(f"  K3t at {R} rays: field5000 {k3t_ms:.3f} ms (bound "
+        f"{bound[0]:.4f} ms, {bound[1]}; plain {plain_s * 1e3:.1f} ms, one "
+        f"run), field20000 {k3t20_ms:.3f} ms; the step {step_s * 1e3:.1f} ms"
+        f" median of 3: {R / step_s / 1e6:.4f} gradient Mpaths/s, "
+        f"{segments / step_s / 1e6:.3f} Mrays/s ({segments} segments); "
+        f"trip counts off the plain version's by at most {trips_err}; on "
+        f"{card}")
+    return dict(launches=launches, ms=k3t_ms, ms20=k3t20_ms,
+                trips_err=trips_err,
+                plain_ms=plain_s * 1e3, bound=bound, agree=agree_plain,
+                agree_k2b=agree_k2b)
 
 
 def main():
@@ -604,28 +1031,52 @@ def main():
     key = rng.base_key(0)
     k1, scene, cam, cfg, pack = render_path(dev, key, card)  # 3, 4.
     log("K2 and K2b vs plain:")
-    tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack)  # 5.
+    k2_launches = tape_kernels_vs_plain(dev, key, card, scene, cam, cfg,
+                                        pack)  # 5.
     g = grad_path(dev, key, card, scene, cam, cfg, pack)  # 6.
     fit_cli(card)  # 7.
+    del scene, pack
+    torch.cuda.empty_cache()
+    log("K3 vs plain:")
+    clustered_vs_plain(dev, key, card)  # 8.
+    k3_launches, fields, scenes = large_scene_path(dev, key, card)  # 9.
+    log("K3t and the clustered fit step:")
+    t10 = clustered_tapes_and_step(dev, key, card, scenes)  # 10.
 
     src = "first_raytracer_tpu_torch/kernels/csrc/"
+    f20 = fields["field20000"]
     log(json.dumps({"kernels": [k1, {
         "name": "K2 megakernel with tape (render_pixels_mega "
-                "emit_tape=True, record_paths_mega)",
+                "emit_tape=True)",
         "route": "cuda", "source": src + "megakernel.cu",
-        "replaces": mk.REPLACES, "launches": g["launches"]["K2"],
+        "replaces": mk.REPLACES, "launches": k2_launches,
         "max_abs_err": g["err2"], "tape_agreement": g["agree2"],
         "ms": g["k2_ms"],
         "plain_ms": g["plain2_ms"], "bound_ms": g["k2_bound"][0],
         "bound_by": g["k2_bound"][1], "library_ms": None}, {
-        "name": "K2b standalone recorder (record_paths_mega "
-                "impl=legacy / return_iters)",
+        "name": "K2b standalone recorder (record_paths_mega)",
         "route": "cuda", "source": src + "megakernel.cu",
         "replaces": rm.REPLACES, "launches": g["launches"]["K2b"],
         "max_abs_err": g["err_b"], "tape_agreement": g["agree_b"],
         "ms": g["kb_ms"],
         "plain_ms": g["plain_b_ms"], "bound_ms": g["kb_bound"][0],
-        "bound_by": g["kb_bound"][1], "library_ms": None}]}))
+        "bound_by": g["kb_bound"][1], "library_ms": None}, {
+        "name": "K3 clustered megakernel (render_pixels_mega_clustered), "
+                "field20000 800x450@4",
+        "route": "cuda", "source": src + "megakernel_clustered.cu",
+        "replaces": mc.REPLACES, "launches": k3_launches,
+        "max_abs_err": f20["err"], "ms": f20["ms"],
+        "plain_ms": f20["plain_ms"],
+        "bound_ms": f20["bound"][0], "bound_by": f20["bound"][1],
+        "library_ms": None}, {
+        "name": "K3t clustered recorder (record_paths_mega_clustered), "
+                "2^17 rays of field5000",
+        "route": "cuda", "source": src + "megakernel_clustered.cu",
+        "replaces": mc.REPLACES, "launches": t10["launches"],
+        "max_abs_err": t10["trips_err"], "tape_agreement": t10["agree"],
+        "tape_agreement_with_k2b": t10["agree_k2b"], "ms": t10["ms"],
+        "plain_ms": t10["plain_ms"], "bound_ms": t10["bound"][0],
+        "bound_by": t10["bound"][1], "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -5,19 +5,25 @@ Examples:
         --out out/three.png
     python -m first_raytracer_tpu_torch.cli render --preset random-spheres \
         --out out/final.png               # megakernel on the GPU
+    python -m first_raytracer_tpu_torch.cli render --preset sphere-field \
+        --out out/field.png               # clustered megakernel: 20,004 spheres
     python -m first_raytracer_tpu_torch.cli fit --preset random-spheres \
         --nx 64 --ny 32 --spp 2 --fields albedo --opt adam --lr 0.05 --fast
 
 ``render --mode mega`` (the default) renders through the megakernel: the
-CUDA kernel on a GPU, its plain PyTorch version on the CPU.  ``--mode
-wavefront`` runs the chunked wavefront integrator.
+CUDA kernel on a GPU, its plain PyTorch version on the CPU.  A scene of
+more than ``DENSE_MAX`` (1024) spheres or triangles, such as the field
+presets, goes to the clustered megakernel, as the fit step's recorder
+does; ``--mode mega-clustered`` takes the clustered megakernel at any size.
+``--mode wavefront`` runs the chunked wavefront integrator.
 
 ``fit`` is the inverse-rendering demo: it perturbs the chosen scene fields,
 then recovers them by gradient descent on the per-ray radiance MSE against
 a render of the true scene (depth capped at 8), printing a JSON line
 ``{"step", "loss", "max_param_err"}`` every ``--log-every`` steps and a
 last line with the kernel launch counts.  ``--fast`` takes the
-record->replay step (the tape recorded by the CUDA kernel on a GPU).
+record->replay step (the tape recorded by the CUDA kernel on a GPU: the
+clustered recorder for scenes past 1024 spheres or triangles).
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs on the host.
 """
@@ -55,13 +61,26 @@ def _build(args, device):
 def _cmd_render(args):
     from .render.image import write_png, write_ppm
 
+    from .kernels.megakernel import DENSE_MAX
+
     device = torch.device(args.device)
     scene, camera, cfg = _build(args, device)
+    if args.mode == "mega" and max(scene.num_spheres,
+                                   scene.num_triangles) > DENSE_MAX:
+        # Informational notes go to stderr: with ``--out -`` stdout is the
+        # PPM stream.
+        print(f"note: more than {DENSE_MAX} spheres or triangles: "
+              "--mode mega-clustered", file=sys.stderr)
+        args.mode = "mega-clustered"
     t0 = time.perf_counter()
     if args.mode == "mega":
         from .kernels.megakernel import render_image_mega
         img = render_image_mega(scene, camera, cfg, seed=args.seed,
                                 device=device)
+    elif args.mode == "mega-clustered":
+        from .kernels.megakernel_clustered import render_image_mega_clustered
+        img = render_image_mega_clustered(scene, camera, cfg, seed=args.seed,
+                                          device=device)
     else:
         from .render.api import render_image
         img = render_image(scene, camera, cfg, seed=args.seed, mode=args.mode,
@@ -88,7 +107,9 @@ def _cmd_fit(args):
     from .diff.grad import (make_fit_step, make_fit_step_replay,
                             make_optimizer, ray_radiance, split_params)
     from .kernels.megakernel import render_pixels_mega
-    from .kernels.record_mega import record_paths_mega
+    from .kernels.megakernel_clustered import render_pixels_mega_clustered
+    from .kernels.record_mega import (record_paths_mega,
+                                      record_paths_mega_clustered)
 
     device = torch.device(args.device)
     scene, camera, cfg = _build(args, device)
@@ -134,7 +155,9 @@ def _cmd_fit(args):
                       "kernel_launches": {
                           "K1": render_pixels_mega.launches,
                           "K2": render_pixels_mega.tape_launches,
-                          "K2b": record_paths_mega.legacy_launches}}))
+                          "K2b": record_paths_mega.launches,
+                          "K3": render_pixels_mega_clustered.launches,
+                          "K3t": record_paths_mega_clustered.launches}}))
     return 0
 
 
@@ -159,9 +182,12 @@ def main(argv=None):
     _common(sp)
     sp.add_argument("--out", default="",
                     help="output .png or .ppm; '-' streams PPM to stdout")
-    sp.add_argument("--mode", default="mega", choices=("mega", "wavefront"),
-                    help="mega: the megakernel (CUDA kernel on a GPU); "
-                         "wavefront: the chunked wavefront integrator")
+    sp.add_argument("--mode", default="mega",
+                    choices=("mega", "mega-clustered", "wavefront"),
+                    help="mega: the megakernel (CUDA kernel on a GPU), "
+                         "clustered past 1024 spheres or triangles; "
+                         "mega-clustered: the clustered megakernel at any "
+                         "size; wavefront: the chunked wavefront integrator")
     fp = sub.add_parser("fit", help="recover perturbed scene parameters by "
                                     "gradient descent")
     fp.set_defaults(fn=_cmd_fit)

@@ -18,6 +18,7 @@ __all__ = [
     "reflect",
     "refract",
     "schlick",
+    "divide",
 ]
 
 
@@ -30,6 +31,14 @@ def cross(a, b):
     """Batched cross product on the trailing axis."""
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def divide(x, n):
+    """``x / n`` for a Python number ``n``, correctly rounded on every
+    device.  On CUDA, torch divides by a Python number as a multiplication
+    by its reciprocal, which can round one ulp away from the kernels' (and
+    XLA's) division; a 0-d tensor on ``x``'s device keeps the division."""
+    return x / torch.tensor(n, dtype=x.dtype, device=x.device)
 
 
 def squared_length(v):

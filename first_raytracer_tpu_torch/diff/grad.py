@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core import rng
+from ..kernels.megakernel import DENSE_MAX
 from ..kernels.record_mega import MAX_RAY_ID
 from ..render.camera import generate_rays
 from ..render.integrator import RenderConfig, trace_rays
@@ -42,11 +43,6 @@ __all__ = ["DIFF_FIELDS", "split_params", "merge_params", "ray_radiance",
 # second color and triangle vertices.
 DIFF_FIELDS = ("sphere_center", "sphere_radius", "albedo", "albedo2",
                "fuzz", "ref_idx", "tri_v0", "tri_v1", "tri_v2")
-
-# The dense recorder (K2) takes scenes up to this many spheres or triangles,
-# the JAX package's bound for its dense recorder; larger scenes need the
-# clustered recorder.
-DENSE_RECORDER_MAX = 1024
 
 
 def split_params(scene, fields=DIFF_FIELDS):
@@ -234,17 +230,21 @@ def make_fit_step_replay(scene, camera, cfg, ray_ids, target, optimizer,
     the ray ids:
 
     - contiguous ids below 2^24 and at most 1024 spheres and 1024
-      triangles: K2, ``record_paths_mega`` (the CUDA kernel on a GPU);
+      triangles: K2b, ``record_paths_mega`` on the dense pack;
+    - contiguous ids and a larger scene (below 2^24 primitives): K3t,
+      ``record_paths_mega_clustered`` on the clustered pack.  Its
+      ``ClusterLayout`` is frozen here, so every step keeps the cluster
+      memberships while boxes and payload follow the current parameters;
     - ids that are not contiguous or reach past 2^24: the wavefront
-      ``record_paths``;
-    - contiguous ids and a larger scene: the JAX package's clustered
-      recorder, which is not ported yet, so this raises
-      ``NotImplementedError`` rather than use another recorder.
+      ``record_paths``.
 
-    Returns ``step(params, key) -> loss``; as in ``make_fit_step``,
+    Each recorder is the CUDA kernel on a GPU and its plain version on the
+    CPU.  Returns ``step(params, key) -> loss``; as in ``make_fit_step``,
     ``params`` are updated in place and live on ``device``.
     """
-    from ..kernels.record_mega import pack_scene_mega, record_paths_mega
+    from ..kernels.megakernel_clustered import pack_scene_mega_clustered
+    from ..kernels.record_mega import (pack_scene_mega, record_paths_mega,
+                                       record_paths_mega_clustered)
 
     dev = torch.device(device)
     scene, camera = scene.to(dev), camera.to(dev)
@@ -255,18 +255,24 @@ def make_fit_step_replay(scene, camera, cfg, ray_ids, target, optimizer,
     ray0 = int(ids_np[0]) if n else 0
     in_range = contiguous and ray0 + n <= MAX_RAY_ID
     use_kernel = (in_range and max(scene.num_spheres, scene.num_triangles)
-                  <= DENSE_RECORDER_MAX)
-    if not use_kernel and in_range and scene.num_primitives < MAX_RAY_ID:
-        raise NotImplementedError(
-            "scenes with more than 1024 spheres or triangles need the "
-            "clustered recorder (record_paths_mega_clustered on kernel K3), "
-            "which slice C of the port brings")
+                  <= DENSE_MAX)
+    use_clustered = (not use_kernel and in_range
+                     and scene.num_primitives < MAX_RAY_ID)
+    layout = None
+    if use_clustered:
+        _, layout = pack_scene_mega_clustered(scene, camera,
+                                              return_layout=True, device=dev)
 
     def step(params, key):
         s = merge_params(scene, {k: v.detach() for k, v in params.items()})
         if use_kernel:
             tape = record_paths_mega(pack_scene_mega(s, dev), camera, cfg,
                                      key, ray0=ray0, num_rays=n)
+        elif use_clustered:
+            pack = pack_scene_mega_clustered(s, camera, layout=layout,
+                                             device=dev)
+            tape = record_paths_mega_clustered(pack, camera, cfg, key,
+                                               ray0=ray0, num_rays=n)
         else:
             o, d = _rays(camera, cfg, key, ray_ids)
             tape = record_paths(s, o, d, ray_ids, key, cfg)

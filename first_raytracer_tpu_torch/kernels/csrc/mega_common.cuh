@@ -1,12 +1,16 @@
-// Device code shared by the megakernel (K1, and K2 = K1 with a tape) and the
-// standalone tape recorder (K2b): the Threefry stream, the thin-lens camera
-// ray, the dense sphere and triangle sweep with exact closest-hit selection,
-// the shading, and one routine that traces a path to termination.  All three
-// kernels trace through `trace_path`, so the recorded tapes cannot drift from
-// the rendered paths.
+// Device code shared by the megakernel (K1, and K2 = K1 with a tape), the
+// standalone tape recorder (K2b) and the clustered megakernel (K3, K3t): the
+// Threefry stream, the thin-lens camera ray, the dense sweep with exact
+// closest-hit selection, the shading, and one routine that traces a path to
+// termination.  Every kernel traces through
+// `trace_path`, templated over the scene's closest-hit routine (DenseScene
+// here, ClusterScene in megakernel_clustered.cu), so the recorded tapes
+// cannot drift from the rendered paths and a clustered path is shaded by the
+// same code as a dense one.
 //
-// Scene tables (built on the host by kernels/megakernel.py::pack_scene_mega,
-// primitives sorted into six (material, texture) groups):
+// Dense scene tables (built on the host by
+// kernels/megakernel.py::pack_scene_mega, primitives sorted into six
+// (material, texture) groups):
 //   sph (16, ns_pad) plane-major: 0-2 center, 3 radius, 4 param (fuzz |
 //       ref_idx), 5-7 albedo, 8-10 albedo2, 11 tex_scale, 12 c0, 13 original
 //       id, 15 1/radius;
@@ -166,91 +170,163 @@ __device__ __forceinline__ void camera_ray(const CameraRow& c, float fi,
   normalize3(dx, dy, dz, 0.0f);
 }
 
-// Dense sweep of every sphere and triangle with exact (min t, lowest sorted
-// index) selection; a sphere wins a sphere/triangle tie.  t_best = kBig on a
-// miss.
-__device__ __forceinline__ void closest_hit(const Tables& tb, float ox,
-                                            float oy, float oz, float dx,
-                                            float dy, float dz, float t_min,
-                                            float& t_best, int& w_s, int& w_t,
-                                            bool& is_tri) {
-  const float4* __restrict__ mx = tb.mx;
-  const float* __restrict__ tri = tb.tri;
-  const int tp = tb.nt_pad;
-  // Expanded quadratic: b = o.d - d.C, c = |o|^2 - 2 o.C + c0.
-  const float od = ox * dx + oy * dy + oz * dz;
-  const float oo = ox * ox + oy * oy + oz * oz;
-  float t_s = kBig;
-  w_s = 0;
-  for (int i = 0; i < tb.ns; ++i) {
-    const float4 c = __ldg(&mx[2 * i]);
-    const float dc = c.x * dx + c.y * dy + c.z * dz;
-    const float oc = c.x * ox + c.y * oy + c.z * oz;
-    const float bq = od - dc;
-    const float cq = oo - 2.0f * oc + c.w;
-    const float disc = bq * bq - cq;
-    if (!(disc >= 0.0f)) continue;  // no root (or NaN): a miss
-    const float sq = sqrtf(disc);
-    const float tn = -bq - sq;
-    const float tf = sq - bq;
-    const float t = tn > t_min ? tn : (tf > t_min ? tf : kBig);
-    if (t < t_s) {  // strict: the lowest index wins a tie
-      t_s = t;
-      w_s = i;
+// The closest hit of a segment: t (kBig on a miss), the sphere and the
+// triangle winner (columns of the scene's tables) and which of them won.
+struct Hit {
+  float t;
+  int w_s, w_t;
+  bool is_tri;
+};
+
+// The winner's surface at the hit point, read from its payload row.
+struct Surface {
+  float nx, ny, nz, param, a0r, a0g, a0b, a1r, a1g, a1b, tsc;
+  bool metal, diel, check;
+};
+
+// The dense scene of K1, K2 and K2b.
+struct DenseScene {
+  Tables tb;
+  struct Counters {};  // the dense sweep counts nothing
+
+  // Dense sweep of every sphere and triangle with exact (min t, lowest
+  // sorted index) selection; a sphere wins a sphere/triangle tie.  The
+  // clustered sweep (megakernel_clustered.cu) repeats these hit tests as
+  // functions; here they stay spelled out in the loops, where ptxas turns
+  // the miss into a skip: written with the functions, it merged the miss
+  // into the compare, two more instructions per sphere, and K1 took
+  // 35.5-36.0 ms against 32.4-33.1 (H100, PERF.md).
+  __device__ __forceinline__ void closest(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float t_min, Hit& h,
+                                          Counters&) const {
+    const float4* __restrict__ mx = tb.mx;
+    const float* __restrict__ tri = tb.tri;
+    const int tp = tb.nt_pad;
+    // Expanded quadratic: b = o.d - d.C, c = |o|^2 - 2 o.C + c0.
+    const float od = ox * dx + oy * dy + oz * dz;
+    const float oo = ox * ox + oy * oy + oz * oz;
+    float t_s = kBig;
+    int w_s = 0;
+    for (int i = 0; i < tb.ns; ++i) {
+      const float4 c = __ldg(&mx[2 * i]);
+      const float dc = c.x * dx + c.y * dy + c.z * dz;
+      const float oc = c.x * ox + c.y * oy + c.z * oz;
+      const float bq = od - dc;
+      const float cq = oo - 2.0f * oc + c.w;
+      const float disc = bq * bq - cq;
+      if (!(disc >= 0.0f)) continue;  // no root (or NaN): a miss
+      const float sq = sqrtf(disc);
+      const float tn = -bq - sq;
+      const float tf = sq - bq;
+      const float t = tn > t_min ? tn : (tf > t_min ? tf : kBig);
+      if (t < t_s) {  // strict: the lowest index wins a tie
+        t_s = t;
+        w_s = i;
+      }
+    }
+    // Moller-Trumbore on prepacked edges.
+    float t_t = kBig;
+    int w_t = 0;
+    for (int i = 0; i < tb.nt; ++i) {
+      const float e2x = __ldg(&tri[6 * tp + i]);
+      const float e2y = __ldg(&tri[7 * tp + i]);
+      const float e2z = __ldg(&tri[8 * tp + i]);
+      const float e1x = __ldg(&tri[3 * tp + i]);
+      const float e1y = __ldg(&tri[4 * tp + i]);
+      const float e1z = __ldg(&tri[5 * tp + i]);
+      const float px = dy * e2z - dz * e2y;
+      const float py = dz * e2x - dx * e2z;
+      const float pz = dx * e2y - dy * e2x;
+      const float det = e1x * px + e1y * py + e1z * pz;
+      if (!(fabsf(det) > 1e-9f)) continue;
+      const float inv = 1.0f / det;
+      const float tvx = ox - __ldg(&tri[0 * tp + i]);
+      const float tvy = oy - __ldg(&tri[1 * tp + i]);
+      const float tvz = oz - __ldg(&tri[2 * tp + i]);
+      const float uu = (tvx * px + tvy * py + tvz * pz) * inv;
+      const float qx = tvy * e1z - tvz * e1y;
+      const float qy = tvz * e1x - tvx * e1z;
+      const float qz = tvx * e1y - tvy * e1x;
+      const float vv = (dx * qx + dy * qy + dz * qz) * inv;
+      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+      if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && t > t_min &&
+          t < kBig && t < t_t) {
+        t_t = t;
+        w_t = i;
+      }
+    }
+    h.w_s = w_s;
+    h.w_t = w_t;
+    h.is_tri = t_t < t_s;
+    h.t = h.is_tri ? t_t : t_s;
+  }
+
+  // The winner's original scene id (payload row 13 / 20).
+  __device__ __forceinline__ int original_id(const Hit& h) const {
+    return static_cast<int>(h.is_tri ? tb.tri[20 * tb.nt_pad + h.w_t]
+                                     : tb.sph[13 * tb.ns_pad + h.w_s]);
+  }
+
+  // Material and texture types follow from the winner's group range.
+  __device__ __forceinline__ void surface(const Hit& h, float hx, float hy,
+                                          float hz, Surface& f) const {
+    const float* __restrict__ sph = tb.sph;
+    const float* __restrict__ tri = tb.tri;
+    const int sp = tb.ns_pad, tp = tb.nt_pad;
+    if (h.is_tri) {
+      const int w = h.w_t;
+      f.nx = tri[9 * tp + w];
+      f.ny = tri[10 * tp + w];
+      f.nz = tri[11 * tp + w];
+      f.param = tri[12 * tp + w];
+      f.a0r = tri[13 * tp + w];
+      f.a0g = tri[14 * tp + w];
+      f.a0b = tri[15 * tp + w];
+      f.a1r = tri[16 * tp + w];
+      f.a1g = tri[17 * tp + w];
+      f.a1b = tri[18 * tp + w];
+      f.tsc = tri[19 * tp + w];
+      group_types(w, tb.tri_groups[1], tb.tri_groups[2], tb.tri_groups[3],
+                  tb.tri_groups[4], tb.tri_groups[5], tb.tri_groups[6],
+                  f.metal, f.diel, f.check);
+    } else {
+      const int w = h.w_s;
+      const float inv_r = sph[15 * sp + w];
+      f.nx = (hx - sph[0 * sp + w]) * inv_r;
+      f.ny = (hy - sph[1 * sp + w]) * inv_r;
+      f.nz = (hz - sph[2 * sp + w]) * inv_r;
+      f.param = sph[4 * sp + w];
+      f.a0r = sph[5 * sp + w];
+      f.a0g = sph[6 * sp + w];
+      f.a0b = sph[7 * sp + w];
+      f.a1r = sph[8 * sp + w];
+      f.a1g = sph[9 * sp + w];
+      f.a1b = sph[10 * sp + w];
+      f.tsc = sph[11 * sp + w];
+      group_types(w, tb.sph_groups[1], tb.sph_groups[2], tb.sph_groups[3],
+                  tb.sph_groups[4], tb.sph_groups[5], tb.sph_groups[6],
+                  f.metal, f.diel, f.check);
     }
   }
-  // Moller-Trumbore on prepacked edges.
-  float t_t = kBig;
-  w_t = 0;
-  for (int i = 0; i < tb.nt; ++i) {
-    const float e2x = __ldg(&tri[6 * tp + i]);
-    const float e2y = __ldg(&tri[7 * tp + i]);
-    const float e2z = __ldg(&tri[8 * tp + i]);
-    const float e1x = __ldg(&tri[3 * tp + i]);
-    const float e1y = __ldg(&tri[4 * tp + i]);
-    const float e1z = __ldg(&tri[5 * tp + i]);
-    const float px = dy * e2z - dz * e2y;
-    const float py = dz * e2x - dx * e2z;
-    const float pz = dx * e2y - dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    if (!(fabsf(det) > 1e-9f)) continue;
-    const float inv = 1.0f / det;
-    const float tvx = ox - __ldg(&tri[0 * tp + i]);
-    const float tvy = oy - __ldg(&tri[1 * tp + i]);
-    const float tvz = oz - __ldg(&tri[2 * tp + i]);
-    const float uu = (tvx * px + tvy * py + tvz * pz) * inv;
-    const float qx = tvy * e1z - tvz * e1y;
-    const float qy = tvz * e1x - tvx * e1z;
-    const float qz = tvx * e1y - tvy * e1x;
-    const float vv = (dx * qx + dy * qy + dz * qz) * inv;
-    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-    if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && t > t_min &&
-        t < kBig && t < t_t) {
-      t_t = t;
-      w_t = i;
-    }
-  }
-  is_tri = t_t < t_s;
-  t_best = is_tri ? t_t : t_s;
-}
+};
 
 // Traces ray `rid` of the pixel at column `fi`, bottom-up row `fj`, to
-// termination and returns its segment count.  With kRadiance the path's
-// radiance is added to `sum`; with kTape row d of the path's tape column
-// (`tape[d * stride]`) gets the original scene id of the primitive hit at
-// bounce d, or -1 on a miss or after the path ended, for every d up to
-// max_depth.
-template <bool kRadiance, bool kTape>
-__device__ __forceinline__ int trace_path(const Tables& tb,
+// termination through `scene`'s closest-hit routine and returns its segment
+// count.  With kRadiance the path's radiance is added to `sum`; with kTape
+// row d of the path's tape column (`tape[d * stride]`) gets the original
+// scene id of the primitive hit at bounce d, or -1 on a miss or after the
+// path ended, for every d up to max_depth.  `cnt` collects what the scene's
+// sweep counts.
+template <bool kRadiance, bool kTape, class Scene>
+__device__ __forceinline__ int trace_path(const Scene& scene,
+                                          typename Scene::Counters& cnt,
                                           const CameraRow& cam,
                                           const PathParams& pp, uint32_t rid,
                                           float fi, float fj, float& sum_r,
                                           float& sum_g, float& sum_b,
                                           int* __restrict__ tape,
                                           size_t stride) {
-  const float* __restrict__ sph = tb.sph;
-  const float* __restrict__ tri = tb.tri;
-  const int sp = tb.ns_pad, tp = tb.nt_pad;
   const float t_min = pp.t_min;
   float u[4];
   draws4(pp.k0, pp.k1, rid, 0u, u);  // camera domain
@@ -260,10 +336,9 @@ __device__ __forceinline__ int trace_path(const Tables& tb,
 
   int depth = 0;
   for (;; ++depth) {
-    float t_best;
-    int w_s, w_t;
-    bool is_tri;
-    closest_hit(tb, ox, oy, oz, dx, dy, dz, t_min, t_best, w_s, w_t, is_tri);
+    Hit h;
+    scene.closest(ox, oy, oz, dx, dy, dz, t_min, h, cnt);
+    const float t_best = h.t;
     if (!(t_best < kBig)) {  // miss: sky, white -> blue by height
       if (kRadiance) {
         const float skyt = 0.5f * (dy + 1.0f);
@@ -274,49 +349,18 @@ __device__ __forceinline__ int trace_path(const Tables& tb,
       if (kTape) tape[depth * stride] = -1;
       break;
     }
-    if (kTape) {
-      tape[depth * stride] = static_cast<int>(is_tri ? tri[20 * tp + w_t]
-                                                     : sph[13 * sp + w_s]);
-    }
+    if (kTape) tape[depth * stride] = scene.original_id(h);
 
     // Hit record and the winner's material, read from its payload row.
     const float hx = ox + t_best * dx;
     const float hy = oy + t_best * dy;
     const float hz = oz + t_best * dz;
-    float nx, ny, nz, param, a0r, a0g, a0b, a1r, a1g, a1b, tsc;
-    bool metal, diel, check;
-    if (is_tri) {
-      nx = tri[9 * tp + w_t];
-      ny = tri[10 * tp + w_t];
-      nz = tri[11 * tp + w_t];
-      param = tri[12 * tp + w_t];
-      a0r = tri[13 * tp + w_t];
-      a0g = tri[14 * tp + w_t];
-      a0b = tri[15 * tp + w_t];
-      a1r = tri[16 * tp + w_t];
-      a1g = tri[17 * tp + w_t];
-      a1b = tri[18 * tp + w_t];
-      tsc = tri[19 * tp + w_t];
-      group_types(w_t, tb.tri_groups[1], tb.tri_groups[2], tb.tri_groups[3],
-                  tb.tri_groups[4], tb.tri_groups[5], tb.tri_groups[6], metal,
-                  diel, check);
-    } else {
-      const float inv_r = sph[15 * sp + w_s];
-      nx = (hx - sph[0 * sp + w_s]) * inv_r;
-      ny = (hy - sph[1 * sp + w_s]) * inv_r;
-      nz = (hz - sph[2 * sp + w_s]) * inv_r;
-      param = sph[4 * sp + w_s];
-      a0r = sph[5 * sp + w_s];
-      a0g = sph[6 * sp + w_s];
-      a0b = sph[7 * sp + w_s];
-      a1r = sph[8 * sp + w_s];
-      a1g = sph[9 * sp + w_s];
-      a1b = sph[10 * sp + w_s];
-      tsc = sph[11 * sp + w_s];
-      group_types(w_s, tb.sph_groups[1], tb.sph_groups[2], tb.sph_groups[3],
-                  tb.sph_groups[4], tb.sph_groups[5], tb.sph_groups[6], metal,
-                  diel, check);
-    }
+    Surface f;
+    scene.surface(h, hx, hy, hz, f);
+    const float nx = f.nx, ny = f.ny, nz = f.nz, param = f.param;
+    const float a0r = f.a0r, a0g = f.a0g, a0b = f.a0b;
+    const float a1r = f.a1r, a1g = f.a1g, a1b = f.a1b, tsc = f.tsc;
+    const bool metal = f.metal, diel = f.diel, check = f.check;
 
     // Bounce-domain draws: unit-ball sample and the dielectric coin.
     draws4(pp.k0, pp.k1, rid, static_cast<uint32_t>(depth + 1), u);

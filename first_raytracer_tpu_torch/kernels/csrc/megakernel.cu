@@ -27,7 +27,8 @@
 //
 // K2b (`record_kernel`) replaces first_raytracer_tpu/kernels/record_mega.py:62
 // _record_kernel, the Pallas recorder that the JAX package reaches through
-// record_paths_mega(impl="legacy") or return_iters=True.  For every ray id in
+// record_paths_mega(impl="legacy") or return_iters=True; the port's
+// record_paths_mega records every dense tape with it.  For every ray id in
 // [ray0, ray0 + R) it records the path that K1 traces for that id (pixel
 // rid / spp_total, sample rid % spp_total) as a column of the same tape
 // (D, R), and writes the ray's bounce-loop trip count (its segment count).
@@ -70,8 +71,8 @@
 namespace {
 
 using frt::CameraRow;
+using frt::DenseScene;
 using frt::PathParams;
-using frt::Tables;
 
 constexpr int kThreads = 128;
 
@@ -88,7 +89,7 @@ struct Launch {
 // ptxas gives the shared trace 72 and K1 loses occupancy and time.
 template <bool kTape>
 __global__ void __launch_bounds__(kThreads, 8)
-    mega_kernel(const Tables tb, const PathParams pp, const Launch ln,
+    mega_kernel(const DenseScene scene, const PathParams pp, const Launch ln,
                 float* __restrict__ rad, int* __restrict__ segs,
                 int* __restrict__ tape) {
   const int loc = blockIdx.x * blockDim.x + threadIdx.x;
@@ -100,15 +101,16 @@ __global__ void __launch_bounds__(kThreads, 8)
   float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;
   int nseg = 0;
   if (pix < ln.total_pixels) {
-    const CameraRow cam = frt::load_camera(tb.cam);
+    const CameraRow cam = frt::load_camera(scene.tb.cam);
     const float fi = static_cast<float>(pix % pp.nx);
     const float fj = static_cast<float>(pix / pp.nx);  // bottom-up row
+    DenseScene::Counters cnt;
     for (int s = 0; s < ln.spp; ++s) {
       const uint32_t rid = static_cast<uint32_t>(pix) *
                                static_cast<uint32_t>(ln.spp_total) +
                            static_cast<uint32_t>(ln.spp0 + s);
-      nseg += frt::trace_path<true, kTape>(tb, cam, pp, rid, fi, fj, sum_r,
-                                           sum_g, sum_b,
+      nseg += frt::trace_path<true, kTape>(scene, cnt, cam, pp, rid, fi, fj,
+                                           sum_r, sum_g, sum_b,
                                            kTape ? col + s : nullptr, stride);
     }
   } else if (kTape) {
@@ -123,17 +125,18 @@ __global__ void __launch_bounds__(kThreads, 8)
 }
 
 __global__ void __launch_bounds__(kThreads)
-    record_kernel(const Tables tb, const PathParams pp, int ray0,
+    record_kernel(const DenseScene scene, const PathParams pp, int ray0,
                   int num_rays, int spp_total, int* __restrict__ tape,
                   int* __restrict__ its) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= num_rays) return;
   const int rid = ray0 + i;
   const int pix = rid / spp_total;
-  const CameraRow cam = frt::load_camera(tb.cam);
+  const CameraRow cam = frt::load_camera(scene.tb.cam);
   float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;  // unused: no radiance
+  DenseScene::Counters cnt;
   its[i] = frt::trace_path<false, true>(
-      tb, cam, pp, static_cast<uint32_t>(rid),
+      scene, cnt, cam, pp, static_cast<uint32_t>(rid),
       static_cast<float>(pix % pp.nx), static_cast<float>(pix / pp.nx),
       sum_r, sum_g, sum_b, tape + i, static_cast<size_t>(num_rays));
 }
@@ -154,19 +157,19 @@ int frt_mega_render(const float* cam, const float* sph, const float* mx,
                     int pix0, int num_pixels, int total_pixels,
                     int max_depth, float t_min, float* rad, int* segs,
                     int* tape, void* stream) {
-  const Tables tb =
-      frt::make_tables(cam, sph, mx, tri, ns, nt, ns_pad, nt_pad, groups);
+  const DenseScene scene{
+      frt::make_tables(cam, sph, mx, tri, ns, nt, ns_pad, nt_pad, groups)};
   const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
   const Launch ln{spp, spp_total, spp0, pix0, num_pixels, total_pixels};
   if (num_pixels > 0) {
     const int blocks = (num_pixels + kThreads - 1) / kThreads;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (tape != nullptr) {
-      mega_kernel<true><<<blocks, kThreads, 0, st>>>(tb, pp, ln, rad, segs,
-                                                     tape);
+      mega_kernel<true><<<blocks, kThreads, 0, st>>>(scene, pp, ln, rad,
+                                                     segs, tape);
     } else {
-      mega_kernel<false><<<blocks, kThreads, 0, st>>>(tb, pp, ln, rad, segs,
-                                                      nullptr);
+      mega_kernel<false><<<blocks, kThreads, 0, st>>>(scene, pp, ln, rad,
+                                                      segs, nullptr);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -181,13 +184,13 @@ int frt_record_paths(const float* cam, const float* sph, const float* mx,
                      unsigned int k1, int nx, int ny, int spp_total,
                      int ray0, int num_rays, int max_depth, float t_min,
                      int* tape, int* its, void* stream) {
-  const Tables tb =
-      frt::make_tables(cam, sph, mx, tri, ns, nt, ns_pad, nt_pad, groups);
+  const DenseScene scene{
+      frt::make_tables(cam, sph, mx, tri, ns, nt, ns_pad, nt_pad, groups)};
   const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
   if (num_rays > 0) {
     const int blocks = (num_rays + kThreads - 1) / kThreads;
     record_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        tb, pp, ray0, num_rays, spp_total, tape, its);
+        scene, pp, ray0, num_rays, spp_total, tape, its);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core import rng
+from ..core.vecmath import divide
 
 __all__ = ["MegaScenePack", "pack_scene_mega", "camera_table",
            "render_pixels_mega", "render_pixels_mega_reference",
@@ -45,8 +46,15 @@ TRI_ROWS = 24
 # The JAX kernel's packed selection caps a padded primitive type at 2^14;
 # the port keeps the guard so both packages accept the same scenes.
 MAX_PADDED_PRIMITIVES = 1 << 14
+# The entry points that choose a kernel give the dense ones (K1, K2b) scenes
+# of up to this many spheres and this many triangles, the JAX package's
+# bound for its dense recorder, and larger scenes to the clustered ones (K3,
+# K3t): ``make_fit_step_replay`` and ``cli render --mode mega``.
+DENSE_MAX = 1024
 
 KERNEL_SOURCE = "megakernel.cu"
+# K3 and K3t (the clustered megakernel) build into the same library.
+CLUSTERED_SOURCE = "megakernel_clustered.cu"
 REPLACES = "first_raytracer_tpu/kernels/megakernel.py:306"
 
 
@@ -78,6 +86,32 @@ class MegaScenePack:
     @property
     def device(self) -> torch.device:
         return self.spheres.device
+
+    @property
+    def sweep_columns(self) -> int:
+        """Columns a dense sweep visits per ray: every primitive."""
+        return self.sphere_rows + self.tri_rows
+
+    def closest_hit(self, o, d, t_min):
+        """Exact (min t, lowest sorted index) hit of rays ``o + t d``:
+        ``(t, sphere winner, triangle winner, is_tri)``, t = BIG on a miss."""
+        ns, nt = self.sphere_rows, self.tri_rows
+        return _sweep(self.sph_mx[:ns] if ns else None,
+                      self.tris[:, :nt] if nt else None, o, d, t_min)
+
+    def winner_ids(self, w_s, w_t, is_tri):
+        """Original scene ids of the winners (payload rows 13 and 20)."""
+        return torch.where(is_tri, self.tris[20, w_t], self.spheres[13, w_s])
+
+    def surface(self, p, w_s, w_t, is_tri):
+        """The winners' surfaces at hit points ``p``: normal, material
+        parameter, albedos, checker scale and (is_metal, is_diel,
+        is_check), the types from the group ranges."""
+        srow = self.spheres[:, w_s]  # (16, R) winner payload rows
+        trow = self.tris[:, w_t]     # (24, R)
+        types_t = _group_types(w_t, self.tri_groups)
+        types_s = _group_types(w_s, self.sph_groups)
+        return _merge_surface(srow, trow, p, is_tri, types_s, types_t)
 
 
 def pack_scene_mega(scene, device=None) -> MegaScenePack:
@@ -203,14 +237,25 @@ NVCC_EXTRA_FLAGS = ("--fmad=false",)
 @functools.lru_cache(maxsize=None)
 def load_mega_library():
     """Build (once per source and flags) and load the shared library of K1,
-    K2 and K2b.
+    K2, K2b, K3 and K3t: one nvcc over both sources.
 
     Returns ``(ctypes.CDLL, BuildInfo)``.
     """
     from .build import build_library
 
-    lib, info = build_library("frt_mega", [KERNEL_SOURCE], NVCC_EXTRA_FLAGS)
+    lib, info = build_library("frt_mega", [KERNEL_SOURCE, CLUSTERED_SOURCE],
+                              NVCC_EXTRA_FLAGS)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    u32, f32 = ctypes.c_uint32, ctypes.c_float
+    # The clustered tables: 12 pointers, then ns, nt, the two supergroup
+    # counts and the two column counts.
+    tables = [ptr] * 12 + [i32] * 6
+    lib.frt_mega_clustered_render.argtypes = (
+        tables + [u32, u32] + [i32] * 4 + [f32] + [ptr] * 4)
+    lib.frt_mega_clustered_render.restype = i32
+    lib.frt_record_clustered.argtypes = (
+        tables + [u32, u32] + [i32] * 6 + [f32] + [ptr] * 4)
+    lib.frt_record_clustered.restype = i32
     lib.frt_mega_render.argtypes = (
         [ptr] * 4 + [i32] * 4
         + [ctypes.POINTER(i32), ctypes.c_uint32, ctypes.c_uint32]
@@ -375,22 +420,23 @@ def _group_types(w, g):
     return metal, diel, check
 
 
-def _closest_hit(pack, o, d, t_min):
-    """Dense sweep with exact (min t, lowest sorted index) selection.
+def _sweep(mx, tri, o, d, t_min):
+    """Dense sweep with exact (min t, lowest column) selection over sphere
+    columns ``mx`` (N, 8) and triangle columns ``tri`` (24, M); either may
+    be None for a scene without that type.
 
     Returns ``(t, sphere winner, triangle winner, is_tri)``; t = BIG on a
     miss, and a sphere wins a sphere/triangle tie.
     """
     R = o.shape[0]
-    ns, nt = pack.sphere_rows, pack.tri_rows
     t_s = torch.full((R,), BIG, dtype=torch.float32, device=o.device)
     w_s = torch.zeros((R,), dtype=torch.int64, device=o.device)
     t_t, w_t = t_s, w_s
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    if ns:
+    if mx is not None:
         # Expanded quadratic: b = o.d - d.C, c = |o|^2 - 2 o.C + c0.
-        cx, cy, cz, c0 = pack.sph_mx[:ns, 0:4].T
+        cx, cy, cz, c0 = mx[:, 0:4].T
         od = _dot3(o, d)[:, None]
         oo = _dot3(o, o)[:, None]
         dc = cx * dx + cy * dy + cz * dz
@@ -404,8 +450,8 @@ def _closest_hit(pack, o, d, t_min):
                            torch.where(tf > t_min, tf, BIG))
         w_s = torch.argmin(tall, dim=1)  # first minimum on ties
         t_s = torch.gather(tall, 1, w_s[:, None])[:, 0]
-    if nt:
-        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = pack.tris[0:9, :nt]
+    if tri is not None:
+        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri[0:9]
         px = dy * e2z - dz * e2y
         py = dz * e2x - dx * e2z
         pz = dx * e2y - dy * e2x
@@ -428,20 +474,26 @@ def _closest_hit(pack, o, d, t_min):
     return torch.where(is_tri, t_t, t_s), w_s, w_t, is_tri
 
 
-def _shade(pack, d, p, w_s, w_t, is_tri, u):
-    """Scatter at the hit points: (new_dir, attenuation, scattered)."""
-    srow = pack.spheres[:, w_s]  # (16, R) winner payload rows
-    trow = pack.tris[:, w_t]     # (24, R)
+def _merge_surface(srow, trow, p, is_tri, types_s, types_t):
+    """Per-ray surface from the sphere and triangle winners' payload rows
+    (16, R) and (24, R) and their (metal, diel, check) masks."""
     tri = is_tri[:, None]
     n = torch.where(tri, trow[9:12].T, (p - srow[0:3].T) * srow[15][:, None])
     param = torch.where(is_tri, trow[12], srow[4])
     alb = torch.where(tri, trow[13:16].T, srow[5:8].T)
     alb2 = torch.where(tri, trow[16:19].T, srow[8:11].T)
     tsc = torch.where(is_tri, trow[19], srow[11])
-    types_t = _group_types(w_t, pack.tri_groups)
-    types_s = _group_types(w_s, pack.sph_groups)
-    metal, diel, check = (torch.where(is_tri, a, b)
-                          for a, b in zip(types_t, types_s))
+    types = tuple(torch.where(is_tri, a, b)
+                  for a, b in zip(types_t, types_s))
+    return n, param, alb, alb2, tsc, types
+
+
+def _shade(pack, d, p, w_s, w_t, is_tri, u):
+    """Scatter at the hit points: (new_dir, attenuation, scattered).  The
+    winners' surfaces come from ``pack.surface``, so the dense and the
+    clustered pack shade by the same code."""
+    n, param, alb, alb2, tsc, (metal, diel, check) = pack.surface(
+        p, w_s, w_t, is_tri)
 
     ball = rng.unit_ball_sample(u[:, 0], u[:, 1], u[:, 2])
     coin = u[:, 3]
@@ -491,8 +543,8 @@ def _camera_rays(camera, cfg, pix, rid, key):
     u = rng.camera_uniforms(key, rid)
     i = (pix % cfg.nx).to(torch.float32)
     j = torch.div(pix, cfg.nx, rounding_mode="floor").to(torch.float32)
-    s = ((i + u[:, 0]) / cfg.nx)[:, None]
-    t = ((j + u[:, 1]) / cfg.ny)[:, None]
+    s = divide(i + u[:, 0], cfg.nx)[:, None]
+    t = divide(j + u[:, 1], cfg.ny)[:, None]
     rd = camera.lens_radius * rng.unit_disk_sample(u[:, 2], u[:, 3])
     offset = rd[:, 0:1] * camera.u + rd[:, 1:2] * camera.v
     origin = camera.origin + offset
@@ -504,7 +556,8 @@ def _camera_rays(camera, cfg, pix, rid, key):
 def trace_reference(pack, camera, cfg, key, pix, rid):
     """Radiance (R, 3), segments (R,) and the winner tape (D, R) of the
     rays ``rid`` of pixels ``pix``: the path every kernel of the package
-    traces, in plain PyTorch.
+    traces, in plain PyTorch, on a dense or a clustered pack (its
+    ``closest_hit``, ``winner_ids`` and ``surface``).
 
     Rays still alive are compacted each bounce, so the dense (R, Np)
     temporaries shrink as paths end.
@@ -523,14 +576,13 @@ def trace_reference(pack, camera, cfg, key, pix, rid):
         if idx.numel() == 0:
             break
         segs[idx] += 1
-        t, w_s, w_t, is_tri = _closest_hit(pack, o, d, cfg.t_min)
+        t, w_s, w_t, is_tri = pack.closest_hit(o, d, cfg.t_min)
         hit = t < BIG
         miss = ~hit
         skyt = 0.5 * (d[miss, 1] + 1.0)
         sky = (1.0 - skyt)[:, None] + skyt[:, None] * blue
         rad.index_add_(0, idx[miss], tp[miss] * sky)
-        # The winner's original scene id rides in payload row 13 / 20.
-        oid = torch.where(is_tri, pack.tris[20, w_t], pack.spheres[13, w_s])
+        oid = pack.winner_ids(w_s, w_t, is_tri)
         tape[depth, idx[hit]] = oid[hit].to(torch.int32)
         idx, o, d, tp, t = idx[hit], o[hit], d[hit], tp[hit], t[hit]
         p = o + t[:, None] * d
@@ -543,9 +595,9 @@ def trace_reference(pack, camera, cfg, key, pix, rid):
 
 
 def default_rays_per_chunk(pack):
-    """Rays per chunk of the plain versions: about 2^25 (ray, primitive)
+    """Rays per chunk of the plain versions: about 2^25 (ray, column)
     pairs, so the dense sweep's temporaries stay bounded."""
-    prims = max(pack.sphere_rows + pack.tri_rows, 1)
+    prims = max(pack.sweep_columns, 1)
     return max(1 << 10, (1 << 25) // prims)
 
 
@@ -563,9 +615,20 @@ def render_pixels_mega_reference(pack: MegaScenePack, camera, cfg, key,
     the pack's device, chunked over rays so the (rays, primitives)
     temporaries stay bounded.
     """
+    check_guards(pack, cfg)
+    return render_reference(pack, camera, cfg, key, spp0, spp_total, pix0,
+                            num_pixels, rays_per_chunk, emit_tape)
+
+
+def render_reference(pack, camera, cfg, key, spp0=0, spp_total=None,
+                     pix0=0, num_pixels=None, rays_per_chunk=None,
+                     emit_tape=False):
+    """``render_pixels_mega_reference`` on a dense or a clustered pack,
+    without the dense kernel's size guard: per-pixel radiance sums and
+    segment counts (and the tape with ``emit_tape``) of
+    ``trace_reference``'s paths."""
     num_pixels, total_pixels, spp_total = _extent(cfg, pix0, num_pixels,
                                                   spp_total)
-    check_guards(pack, cfg)
     dev = pack.device
     camera = camera.to(dev)
     spp = cfg.spp

@@ -13,7 +13,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.rng import unit_disk_sample
-from ..core.vecmath import cross, normalize
+from ..core.vecmath import cross, divide, normalize
 
 __all__ = ["Camera", "make_camera", "generate_rays"]
 
@@ -80,8 +80,8 @@ def generate_rays(camera: Camera, nx: int, ny: int, spp: int, ray_ids,
     pixel = torch.div(ray_ids, spp, rounding_mode="floor")
     i = (pixel % nx).to(torch.float32)
     j = torch.div(pixel, nx, rounding_mode="floor").to(torch.float32)
-    s = (i + cam_uniforms[:, 0]) / nx
-    t = (j + cam_uniforms[:, 1]) / ny
+    s = divide(i + cam_uniforms[:, 0], nx)
+    t = divide(j + cam_uniforms[:, 1], ny)
     # In the camera's dtype: torch would round a float64 camera's 0-d
     # radius down to the float32 samples', where JAX promotes.
     rd = camera.lens_radius * unit_disk_sample(

@@ -1,5 +1,5 @@
-"""K1, K2 and K2b (the CUDA kernels) against their plain versions on the
-card, and a gradient step through K2.
+"""K1, K2, K2b, K3 and K3t (the CUDA kernels) against their plain versions
+on the card, and a gradient step through K2b.
 
 Marked ``cuda``; skipped where ``torch.cuda.is_available()`` is False.
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -13,7 +13,10 @@ Bound: ``(|a - b| > 1e-3).mean() < 0.01`` on per-pixel mean radiance
 differently, and a one-ulp change can send a path another way) and segment
 totals within 0.1%.  Tapes: per-entry agreement above 0.999, or 0.99 on the
 coplanar triangle mesh (tests/test_record_mega.py:30-43); K2 must leave
-K1's radiance and segments bit-equal, and K2b's tape must equal K2's.
+K1's radiance and segments bit-equal, and K2b's tape must equal K2's.  K3
+and K3t take the same bounds against their plain versions (triangle fields
+per pixel: their paths are chaotic), and K3's gates may only cut work: its
+sweep counters stay at or below an ungated sweep's.
 """
 import dataclasses
 
@@ -24,6 +27,7 @@ from first_raytracer_tpu_torch.core import rng
 from first_raytracer_tpu_torch.diff import grad as dg
 from first_raytracer_tpu_torch.diff.replay import plan_buckets
 from first_raytracer_tpu_torch.kernels import megakernel as mk
+from first_raytracer_tpu_torch.kernels import megakernel_clustered as mc
 from first_raytracer_tpu_torch.kernels import record_mega as rm
 from first_raytracer_tpu_torch.scene.builders import build_preset
 
@@ -102,15 +106,14 @@ def test_tape_kernels_match_plain(cuda_device, name, kw):
     key = rng.base_key(0)
     rad, segs = mk.render_pixels_mega(pack, cam, cfg, key)
     before = (mk.render_pixels_mega.tape_launches,
-              rm.record_paths_mega.legacy_launches)
+              rm.record_paths_mega.launches)
     rad2, segs2, tape = mk.render_pixels_mega(pack, cam, cfg, key,
                                               emit_tape=True)
     tape_b, its = rm.record_paths_mega(pack, cam, cfg, key,
                                        return_iters=True)
     torch.cuda.synchronize()
     assert (mk.render_pixels_mega.tape_launches,
-            rm.record_paths_mega.legacy_launches) == (before[0] + 1,
-                                                      before[1] + 1)
+            rm.record_paths_mega.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(rad2, rad) and torch.equal(segs2, segs)
     assert torch.equal(tape_b, tape)
     assert torch.equal(its.reshape(-1, cfg.spp).sum(1, dtype=torch.int32),
@@ -123,8 +126,8 @@ def test_tape_kernels_match_plain(cuda_device, name, kw):
 
 @pytest.mark.cuda
 def test_tape_slice_at_large_ray_ids(cuda_device):
-    """A 512-ray slice high in the final scene's id space, through K2 and
-    K2b, equals the same columns of the full-frame K2 tape."""
+    """A 512-ray slice high in the final scene's id space, through K2b,
+    equals the same columns of the full-frame K2 tape."""
     scene, cam, cfg = build_preset("random-spheres", device=cuda_device)
     pack = mk.pack_scene_mega(scene)
     key = rng.base_key(0)
@@ -132,16 +135,14 @@ def test_tape_slice_at_large_ray_ids(cuda_device):
     ray0, n = 9_500_000, 512
     want = full[:, ray0:ray0 + n]
     del full
-    for impl in ("mega", "legacy"):
-        got = rm.record_paths_mega(pack, cam, cfg, key, ray0=ray0,
-                                   num_rays=n, impl=impl)
-        assert torch.equal(got, want), impl
+    got = rm.record_paths_mega(pack, cam, cfg, key, ray0=ray0, num_rays=n)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
 def test_gradient_step_on_the_card(cuda_device):
-    """2^12 rays of the final scene: K2's tape, plan, bucketed value and
-    gradients on the card against the same step on the CPU (plain K2 and
+    """2^12 rays of the final scene: K2b's tape, plan, bucketed value and
+    gradients on the card against the same step on the CPU (plain K2b and
     the CPU replay): tapes agree above 0.999, the loss within 1e-3 and
     each gradient's cosine above 0.99 (paths that graze a sphere move with
     an ulp, and the card's math library rounds otherwise than libm)."""
@@ -186,4 +187,95 @@ def test_kernel_refuses_bad_input(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         mk.render_pixels_mega(bad, cam, cfg, rng.base_key(0), emit_tape=True)
     with pytest.raises(ValueError, match="contiguous"):
-        rm.record_paths_mega(bad, cam, cfg, rng.base_key(0), impl="legacy")
+        rm.record_paths_mega(bad, cam, cfg, rng.base_key(0))
+    cpack = mc.pack_scene_mega_clustered(scene, cam)
+    bad = dataclasses.replace(cpack, sph_counts=cpack.sph_counts.long())
+    with pytest.raises(ValueError, match="dtype"):
+        mc.render_pixels_mega_clustered(bad, cam, cfg, rng.base_key(0))
+    with pytest.raises(ValueError, match="dtype"):
+        rm.record_paths_mega_clustered(bad, cam, cfg, rng.base_key(0))
+
+
+CLUSTERED = [
+    ("three-spheres", dict(nx=64, ny=32, spp=2)),
+    ("random-spheres", dict(nx=64, ny=32, spp=2)),
+    ("triangle-mesh", dict(nx=64, ny=32, spp=2)),
+    ("sphere-field", dict(n=600, nx=64, ny=32, spp=2)),
+    ("sphere-field", dict(n=2500, nx=64, ny=36, spp=2)),
+    ("triangle-field", dict(n=2000, nx=64, ny=32, spp=2)),
+]
+
+
+def _clustered_id(case):
+    name, kw = case
+    return name + (f"-{kw['n']}" if "n" in kw else "")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", CLUSTERED,
+                         ids=[_clustered_id(c) for c in CLUSTERED])
+def test_clustered_kernels_match_plain(cuda_device, name, kw):
+    scene, cam, cfg = build_preset(name, device=cuda_device, **kw)
+    pack = mc.pack_scene_mega_clustered(scene, cam)
+    key = rng.base_key(0)
+    before = (mc.render_pixels_mega_clustered.launches,
+              rm.record_paths_mega_clustered.launches)
+    rad, segs, sweeps = mc.render_pixels_mega_clustered(pack, cam, cfg, key,
+                                                        return_iters=True)
+    tape, its, tsweeps = rm.record_paths_mega_clustered(
+        pack, cam, cfg, key, return_iters=True)
+    torch.cuda.synchronize()
+    assert (mc.render_pixels_mega_clustered.launches,
+            rm.record_paths_mega_clustered.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    ref, ref_segs, ungated = mc.render_pixels_mega_clustered_reference(
+        pack, cam, cfg, key, return_iters=True)
+    triangles = "triangle" in name
+    diff = ((rad - ref) / cfg.spp).abs().cpu()
+    assert torch.isfinite(rad).all()
+    assert float((diff > 1e-3).float().mean()) < 0.01, float(diff.max())
+    if triangles:
+        assert float((segs != ref_segs).float().mean()) < 0.01
+    else:
+        total, ref_total = int(segs.sum()), int(ref_segs.sum())
+        assert abs(total - ref_total) <= 1e-3 * ref_total
+    # K3t traces K3's paths: per pixel, its trips are K3's segments and
+    # its counters K3's.
+    assert torch.equal(its.reshape(-1, cfg.spp).sum(1, dtype=torch.int32),
+                       segs)
+    assert torch.equal(tsweeps.reshape(-1, cfg.spp, 4).sum(1,
+                                                          dtype=torch.int32),
+                       sweeps)
+    assert (sweeps[:, :3] <= ungated[:, :3]).all()
+    ref_tape, _ = rm.record_paths_mega_clustered_reference(pack, cam, cfg,
+                                                           key)
+    floor = 0.99 if triangles else 0.999
+    assert float((tape == ref_tape).float().mean()) > floor
+
+
+@pytest.mark.cuda
+def test_clustered_kernel_matches_k1(cuda_device):
+    """K3 against K1 on a scene both take: the image bound."""
+    scene, cam, cfg = build_preset("sphere-field", device=cuda_device,
+                                   n=5000, nx=200, ny=112, spp=2)
+    key = rng.base_key(0)
+    rad1, segs1 = mk.render_pixels_mega(mk.pack_scene_mega(scene), cam, cfg,
+                                        key)
+    rad3, segs3 = mc.render_pixels_mega_clustered(
+        mc.pack_scene_mega_clustered(scene, cam),
+        cam, cfg, key)
+    diff = ((rad1 - rad3) / cfg.spp).abs().cpu()
+    assert float((diff > 1e-3).float().mean()) < 0.01
+    assert abs(int(segs1.sum()) - int(segs3.sum())) <= 1e-3 * int(segs1.sum())
+
+
+@pytest.mark.cuda
+def test_divide_rounds_as_on_the_cpu(cuda_device):
+    """On the card ``vecmath.divide`` gives the CPU's correctly rounded
+    quotient, so the plain versions' camera rays are the kernels'; torch's
+    own division by a Python number multiplies by the reciprocal there."""
+    from first_raytracer_tpu_torch.core.vecmath import divide
+
+    x = torch.rand(1 << 16, generator=torch.Generator().manual_seed(3)) * 800
+    want = divide(x, 800)
+    assert torch.equal(divide(x.to(cuda_device), 800).cpu(), want)

@@ -137,3 +137,39 @@ def test_scatter_matches(random_rays, preset):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
                                    atol=1e-5)
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+def test_aabb_helpers_match():
+    """The host box helpers equal JAX's on spheres (hollow glass's negative
+    radius included) and triangles, and so does the box union."""
+    from first_raytracer_tpu.geometry import aabb as jaabb
+    from first_raytracer_tpu_torch.geometry import aabb as taabb
+
+    r = np.random.RandomState(9)
+    c = r.uniform(-5, 5, (32, 3)).astype(np.float32)
+    rad = r.uniform(-1, 1, 32).astype(np.float32)
+    v0, v1, v2 = (r.uniform(-5, 5, (32, 3)).astype(np.float32)
+                  for _ in range(3))
+    for got, want in ((taabb.sphere_aabb_np(c, rad),
+                       jaabb.sphere_aabb_np(c, rad)),
+                      (taabb.triangle_aabb_np(v0, v1, v2),
+                       jaabb.triangle_aabb_np(v0, v1, v2)),
+                      (taabb.surrounding_box_np(v0, v1, v2, c),
+                       jaabb.surrounding_box_np(v0, v1, v2, c))):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_divide_is_correctly_rounded():
+    """``vecmath.divide`` (the camera's (i + u) / nx in every plain
+    version) rounds as a division: its f32 quotient is the f64 quotient
+    rounded once, as in the kernels and in JAX's camera."""
+    r = np.random.RandomState(11)
+    x = torch.from_numpy((r.rand(4096) * 1200).astype(np.float32))
+    for n in (800, 450, 1200, 3):
+        got = tv.divide(x, n)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, (x.double() / n).float(), rtol=0,
+                                   atol=0)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jnp.asarray(x.numpy()) / n))

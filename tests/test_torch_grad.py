@@ -61,7 +61,6 @@ from first_raytracer_tpu_torch.core import rng as trng  # noqa: E402
 from first_raytracer_tpu_torch.diff import grad as tg  # noqa: E402
 from first_raytracer_tpu_torch.kernels import record_mega as trm  # noqa: E402
 from first_raytracer_tpu_torch.render import integrator  # noqa: E402
-from first_raytracer_tpu_torch.scene import builders as tb  # noqa: E402
 
 
 def _port(js, jc, cfg):
@@ -103,9 +102,17 @@ def test_fit_step_replay_converges_and_matches_jax():
 
 
 def test_fit_step_replay_recorder_branches(monkeypatch):
-    """Non-contiguous ids take the wavefront recorder (never K2); a scene
-    past the dense recorder's 1024 spheres raises rather than falling back
-    to another recorder."""
+    """Non-contiguous ids take the wavefront recorder (never K2b); a scene
+    past the dense recorder's 1024 spheres takes the clustered recorder
+    (K3t's plain version here) with a layout frozen at construction, and
+    its steps match JAX's ``make_fit_step_replay`` on the same scene: the
+    first loss to ``rtol=1e-5`` and a three-step Adam trajectory to
+    ``1e-4``.  The albedo is fitted: with the sphere centres moved too, one
+    of the 72 rays re-hits the sphere it leaves, and the two packages'
+    replays of that hit land on different roots, 1% of the loss (ROADMAP
+    Queue 3); the repack of moved geometry is held to JAX's in
+    tests/test_torch_mega_clustered.py.
+    """
     js, jc, cfg = jb.three_spheres(nx=8, ny=4, spp=2)
     ts, tc, tcfg = _port(js, jc, cfg)
     ids = torch.arange(tcfg.num_rays).flip(0)
@@ -114,19 +121,55 @@ def test_fit_step_replay_recorder_branches(monkeypatch):
     opt = torch.optim.SGD(params.values(), lr=0.1)
 
     def no_kernel(*args, **kwargs):
-        raise AssertionError("K2 on non-contiguous ids")
+        raise AssertionError("a megakernel recorder on non-contiguous ids")
 
     monkeypatch.setattr(trm, "record_paths_mega", no_kernel)
+    monkeypatch.setattr(trm, "record_paths_mega_clustered", no_kernel)
     step = tg.make_fit_step_replay(ts, tc, tcfg, ids, target, opt,
                                    device="cpu")
     before = params["albedo"].detach().clone()
     assert np.isfinite(float(step(params, trng.base_key(0))))
     assert not torch.equal(params["albedo"], before)  # updated in place
+    monkeypatch.undo()
 
-    big, bc, bcfg = tb.sphere_field(n=1100, nx=4, ny=2, spp=1)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tg.make_fit_step_replay(big, bc, bcfg, torch.arange(8),
-                                torch.zeros((8, 3)), opt, device="cpu")
+    import optax
+
+    fields = ("albedo",)
+    big, bc, bcfg = jb.sphere_field(n=1100, nx=12, ny=6, spp=1)
+    bcfg = dataclasses.replace(bcfg, max_depth=8)
+    key = jrng.base_key(0)
+    bids = jnp.arange(bcfg.num_rays, dtype=jnp.int32)
+    true_params, _ = jg.split_params(big, fields=fields)
+    btarget = jg.ray_radiance(true_params, big, bc, bcfg, key, bids)
+    bad = dataclasses.replace(big, albedo=big.albedo * 0.6)
+    jparams, _ = jg.split_params(bad, fields=fields)
+    jopt = optax.adam(0.02)
+    jstep = jg.make_fit_step_replay(bad, bc, bcfg, bids, btarget, jopt,
+                                    interpret=True)
+    state = jopt.init(jparams)
+    jax_losses = []
+    for _ in range(3):
+        loss, jparams, state = jstep(jparams, state, key)
+        jax_losses.append(float(loss))
+
+    tbad, tbc, tbcfg = _port(bad, bc, bcfg)
+    tparams = params_from_numpy({k: np.asarray(getattr(bad, k))
+                                 for k in fields})
+    real, calls = trm.record_paths_mega_clustered, []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(trm, "record_paths_mega_clustered", counted)
+    bstep = tg.make_fit_step_replay(
+        tbad, tbc, tbcfg, torch.arange(bcfg.num_rays),
+        torch.from_numpy(np.asarray(btarget)),
+        torch.optim.Adam(tparams.values(), lr=0.02), device="cpu")
+    losses = [float(bstep(tparams, trng.base_key(0))) for _ in range(3)]
+    assert len(calls) == 3  # the clustered recorder took every step
+    np.testing.assert_allclose(losses[0], jax_losses[0], rtol=1e-5)
+    np.testing.assert_allclose(losses, jax_losses, rtol=1e-4)
 
 
 def test_fit_steps_and_optimizers():
