@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. Device: a CUDA GPU must be present; prints its name and the
    ``nvidia-smi`` name and power limit.
-2. Build: compiles K1, K2, K2b, K3 and K3t (kernels/csrc/megakernel.cu and
-   megakernel_clustered.cu, one nvcc) for sm_90a.
+2. Build: compiles K1, K2, K2b, K3, K3t, K4 and K5
+   (kernels/csrc/megakernel.cu, megakernel_clustered.cu and intersect.cu,
+   one nvcc) for sm_90a.
 3. K1 vs plain: K1 and its plain PyTorch version on the same card and
    inputs, on four small presets and at the main path's full size.  Bound:
    ``(|a - b| > 1e-3).mean() < 0.01`` on per-pixel mean radiance, segment
@@ -65,9 +66,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    radiance sum within 1% of its ``bench_golden.json`` golden; seconds per
    frame (median of 3 after a warm run), Mpaths/s, Mrays/s, the host pack's
    seconds, K3's CUDA-event ms and the clusters swept per segment.  At that
-   shape K3's output is held against its plain version over the whole
-   frame (the image bound; segment totals within 0.1%, per pixel on
-   trifield20000), and the plain version is timed.
+   shape K3's output is held against its plain version on the middle
+   quarter of the frame's pixels (the image bound; segment totals within
+   0.1%, per pixel on trifield20000), and the plain version is timed
+   there.
 10. K3t and the clustered fit step: K3t's tape against the plain version
    on the small presets of phase 8 (agreement above 0.999, 0.99 on
    triangle scenes); on ray ids [0, 2^17) of field5000 against K2b's tape
@@ -85,12 +87,46 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bit-equal where the two tapes are; K3t's ms, the step's seconds (median
    of 3 after the first) and gradient Mpaths/s.
 
+11. K4 and K5 against their plain versions: the small scenes of phase 8,
+   each on its camera rays and on 4096 random rays (uniform origins in
+   [-8, 8]^3, normal directions), K5 on ``pack_scene_clustered`` with
+   max_leaf 1, 7 and 128: hit masks and primitives equal and t within 1e-6
+   relative (measured: equal), and K5 equal to K4.
+12. The dense wavefront path at full width (K4): the final scene at
+   1200x800 @ 10 spp, depth 50, seed 0, through ``render_image`` with
+   ``accel=pack_scene_pallas(scene)``, ``mode="regenerative"`` and a pool
+   of 2^17 (``bench.py BENCH_MODE=regenerative``), then ``mode="wavefront"``
+   in chunks of 2^17, counters reset before each and read after: each
+   radiance sum within 1% of the golden, the two images equal to 2e-6.  On
+   ray ids [0, 2^17): K4 and its plain version give equal radiance and
+   segments, the dense sweep (another summation order) the image bound and
+   segment totals within 0.1%; a ``record_paths_pool`` tape through K4
+   agrees with K2b's and with the plain wavefront ``record_paths`` on the
+   dense sweep at 0.999 or above, and equals the plain ``record_paths`` on
+   K4's plain version.  K1's image of the frame is
+   compared and logged.  Times: seconds per frame (median of 3 after a warm
+   run), Mpaths/s, Mrays/s; K4's launches, CUDA-event ms per frame and per
+   launch, and bound.
+13. The clustered wavefront path at full width (K5): field20000 and
+   trifield20000 at 800x450 @ 4, depth 50, seed 0, through ``render_image``
+   with ``accel=pack_scene_clustered(scene)``, wavefront in chunks of 2^17,
+   counters reset before and read after.  The same frame through K4 gives
+   the image bound (pixels that differ at all are counted) and segment
+   totals within 0.1% (per pixel on trifield20000).  The radiance sum is
+   logged beside the megacluster golden, not gated: the wavefront's
+   oc-form quadratic and the megakernels' expanded one part far from the
+   origin.  Times: seconds per frame, Mpaths/s, Mrays/s, the host pack's
+   seconds, K5's launches, ms and bound from its per-ray counters.
+
 The last two lines of standard output are a JSON object with the kernels'
 measurements and the result line ``{"ok": true, "device": {...}}``.  This
 script imports no JAX.  Bounds count FP32 operations from the sources: 16
 per (segment, sphere) and 46 per (segment, triangle) for the dense sweep;
 for K3 and K3t the slots and boxes their sweep counters say they tested, 29
 operations per box test (``gate`` in kernels/csrc/megakernel_clustered.cu).
+K4 and K5 (kernels/csrc/intersect.cu) test a sphere in 17 operations (the
+oc-form quadratic) and a triangle in 52 (its edges from the vertices); K5
+adds 29 per box its counters say it tested.
 """
 from __future__ import annotations
 
@@ -109,10 +145,15 @@ from first_raytracer_tpu_torch.core import rng
 from first_raytracer_tpu_torch.diff import grad as dg
 from first_raytracer_tpu_torch.diff.replay import (plan_buckets,
                                                    record_paths,
+                                                   record_paths_pool,
                                                    trace_rays_replay)
+from first_raytracer_tpu_torch.kernels import intersect_clustered as ic
+from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
 from first_raytracer_tpu_torch.kernels import megakernel as mk
 from first_raytracer_tpu_torch.kernels import megakernel_clustered as mc
 from first_raytracer_tpu_torch.kernels import record_mega as rm
+from first_raytracer_tpu_torch.render.api import (render_image,
+                                                  render_ray_batch)
 from first_raytracer_tpu_torch.render.camera import generate_rays
 from first_raytracer_tpu_torch.render.image import write_png
 from first_raytracer_tpu_torch.scene.builders import build_preset
@@ -144,6 +185,13 @@ SPHERE_OPS, TRIANGLE_OPS = 16, 46
 # kernels/csrc/megakernel_clustered.cu): 6 subtractions and 6
 # multiplications, 10 minima and maxima, 4 for the widening, 3 for the test.
 BOX_OPS = 29
+# FP32 operations per (ray, sphere) and per (ray, triangle) of K4 and K5
+# (kernels/csrc/intersect.cu): 3 + 5 + 5 + 2 + 2 for the oc-form
+# quadratic; 6 more than the dense sweep's 46 for a triangle, whose edges
+# K4 and K5 compute from the vertices.
+OC_SPHERE_OPS, MT_TRIANGLE_OPS = 17, 52
+# Phases 12 and 13: the pool and the chunk of the wavefront renders.
+WAVE_RAYS = 1 << 17
 # Phases 8 and 10: the small scenes.
 CLUSTER_CASES = [
     ("three-spheres", dict(nx=64, ny=32, spp=2)),
@@ -305,6 +353,8 @@ def reset_counts():
     rm.record_paths_mega.launches = 0
     mc.render_pixels_mega_clustered.launches = 0
     rm.record_paths_mega_clustered.launches = 0
+    ip.intersect_pallas.launches = 0
+    ic.intersect_clustered.launches = 0
 
 
 def clustered_bound(pack, sweeps, out_bytes):
@@ -889,15 +939,21 @@ def large_scene_path(dev, key, card):
             f"ms, {b[1]}); per segment {tot[0] / rays:.2f} clusters swept, "
             f"{tot[1] / rays:.1f} sphere and {tot[2] / rays:.1f} triangle "
             f"slots, {tot[3] / rays:.1f} boxes tested; on {card}")
-        # K3's output at this shape against its plain version, whole frame.
-        plain_s, (ref, ref_segs) = host_s(
-            lambda: mc.render_pixels_mega_clustered_reference(
-                pack, cam, cfg, key,
-                rays_per_chunk=PLAIN_PAIRS // pack.sweep_columns))
-        err = compare_clustered(rad, segs, ref, ref_segs, cfg.spp,
-                                "  K3 vs plain, whole frame",
+        # K3's output at this shape against its plain version, on the
+        # middle quarter of the frame's pixels (the plain version's time
+        # over whole frames pushed the script past ten minutes).
+        p0, n_px = 3 * cfg.num_pixels // 8, cfg.num_pixels // 4
+        mc.check_clustered_guards(pack, cfg)
+        plain_s, (ref, ref_segs) = host_s(lambda: mk.render_reference(
+            pack, cam, cfg, key, pix0=p0, num_pixels=n_px,
+            rays_per_chunk=PLAIN_PAIRS // pack.sweep_columns))
+        band = slice(p0, p0 + n_px)
+        err = compare_clustered(rad[band], segs[band], ref, ref_segs,
+                                cfg.spp, f"  K3 vs plain, pixels [{p0}, "
+                                f"{p0 + n_px}) of the frame",
                                 per_pixel=preset == "triangle-field")
-        log(f"  plain version {plain_s * 1e3:.1f} ms (one run)")
+        log(f"  plain version {plain_s * 1e3:.1f} ms on a quarter of the "
+            "frame (one run)")
         out[label] = dict(ms=k3_ms, bound=b, sec=sec, err=err,
                           plain_ms=plain_s * 1e3)
         del ref, ref_segs, rad
@@ -1016,6 +1072,393 @@ def clustered_tapes_and_step(dev, key, card, scenes):
                 agree_k2b=agree_k2b)
 
 
+def intersect_ops(pack, rays):
+    """FP32 operations of K4 over ``rays`` rays of a dense pack."""
+    return rays * (pack.sphere_rows * OC_SPHERE_OPS
+                   + pack.tri_rows * MT_TRIANGLE_OPS)
+
+
+def intersect_bound(ops, in_bytes, out_bytes):
+    """(ms, "operations" | "bytes") of ``ops`` FP32 operations against the
+    bytes read and written."""
+    t_ops, t_bytes = ops / PEAK_FP32, (in_bytes + out_bytes) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k4_bound(pack, rays, launches=1):
+    """K4's bound over ``launches`` launches of ``rays`` rays in all: the
+    table read once a launch, 24 bytes in and 8 out a ray."""
+    return intersect_bound(intersect_ops(pack, rays),
+                           launches * tensor_bytes(pack.spheres, pack.tris)
+                           + 24 * rays, 8 * rays)
+
+
+def k5_bound(pack, sweeps_total, rays, launches=1):
+    """K5's bound from the slots and boxes its counters say it tested
+    (``sweeps_total``: the four ``SWEEP_COLUMNS`` sums)."""
+    tot = [int(x) for x in sweeps_total]
+    ops = tot[1] * OC_SPHERE_OPS + tot[2] * MT_TRIANGLE_OPS + tot[3] * BOX_OPS
+    tables = tensor_bytes(pack.sph, pack.tri, pack.sph_box, pack.tri_box,
+                          pack.sph_gid, pack.tri_gid, pack.sph_count,
+                          pack.tri_count)
+    return intersect_bound(ops, launches * tables + 24 * rays, 8 * rays)
+
+
+class Clocked:
+    """An ``intersect_fn`` that records CUDA events around each call of the
+    wrapper ``fn`` (its kernel and the hit comparison after it) and, for
+    K5, sums its per-ray counters on the card: the kernel's time and work
+    over a whole frame without a host sync per call."""
+
+    def __init__(self, fn, counters=False):
+        self.fn, self.counters = fn, counters
+        self.events, self.rays = [], 0
+        self.sweeps = None
+
+    def __call__(self, scene, accel, o, d, t_min):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if self.counters:
+            prim, t, hit, sweeps = self.fn(scene, accel, o, d, t_min,
+                                           return_iters=True)
+            s = sweeps.long().sum(0)
+            self.sweeps = s if self.sweeps is None else self.sweeps + s
+        else:
+            prim, t, hit = self.fn(scene, accel, o, d, t_min)
+        end.record()
+        self.events.append((start, end))
+        self.rays += o.shape[0]
+        return prim, t, hit
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+def frame_stats(scene, cam, cfg, key, accel, intersect_fn=None):
+    """The wavefront frame in chunks of ``WAVE_RAYS``, as ``render_image``
+    traces it, with the segments: (per-pixel mean radiance (P, 3),
+    per-pixel segments (P,)), pixels bottom row first."""
+    rad, segs = [], []
+    for lo in range(0, cfg.num_rays, WAVE_RAYS):
+        ids = torch.arange(lo, min(lo + WAVE_RAYS, cfg.num_rays),
+                           device=scene.device)
+        r, sg = render_ray_batch(scene, cam, cfg, key, ids, accel,
+                                 intersect_fn, return_stats=True)
+        rad.append(r)
+        segs.append(sg)
+    rad = torch.cat(rad).reshape(-1, cfg.spp, 3).mean(dim=1)
+    segs = torch.cat(segs).reshape(-1, cfg.spp).sum(dim=1)
+    return rad, segs
+
+
+def camera_rays(scene, cam, cfg, key, num_rays):
+    ids = torch.arange(num_rays, device=scene.device)
+    return generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                         rng.camera_uniforms(key, ids))
+
+
+def same_hits(what, got, want):
+    """Hit masks and primitives equal, t within 1e-6 relative; returns the
+    largest |t| difference on the hits."""
+    p1, t1, h1 = got
+    p2, t2, h2 = want
+    if not (torch.equal(h1, h2) and torch.equal(p1, p2)):
+        raise AssertionError(f"{what}: hits or primitives differ "
+                             f"({int((p1 != p2).sum())} rays)")
+    err = float((t1[h1] - t2[h1]).abs().max()) if bool(h1.any()) else 0.0
+    rel = float(((t1[h1] - t2[h1]).abs() / t2[h1]).max()) if bool(
+        h1.any()) else 0.0
+    if not rel <= 1e-6:
+        raise AssertionError(f"{what}: t off by {rel:.3g} relative")
+    return err
+
+
+def intersect_vs_plain(dev, key):
+    """Phase 11.  Returns the largest t error of K4 and of K5 against their
+    plain versions."""
+    err4 = err5 = 0.0
+    for preset, kw in CLUSTER_CASES:
+        scene, cam, cfg = build_preset(preset, device=dev, **kw)
+        g = torch.Generator().manual_seed(0)
+        o = (torch.rand((4096, 3), generator=g) * 16 - 8).to(dev)
+        d = torch.randn((4096, 3), generator=g)
+        d = (d / d.norm(dim=1, keepdim=True)).to(dev)
+        dense = ip.pack_scene_pallas(scene)
+        line = []
+        for label, rays in (("random", (o, d)),
+                            ("camera", camera_rays(scene, cam, cfg, key,
+                                                   cfg.num_rays))):
+            before = ip.intersect_pallas.launches
+            k4 = ip.intersect_pallas(scene, dense, *rays, 1e-3)
+            torch.cuda.synchronize()
+            if ip.intersect_pallas.launches != before + 1:
+                raise AssertionError("K4's launch counter did not move")
+            err4 = max(err4, same_hits(
+                f"K4 {preset} {label}", k4,
+                ip.intersect_pallas_reference(scene, dense, *rays, 1e-3)))
+            for max_leaf in (1, 7, 128):
+                pack = ic.pack_scene_clustered(scene, max_leaf=max_leaf)
+                before = ic.intersect_clustered.launches
+                k5 = ic.intersect_clustered(scene, pack, *rays, 1e-3)
+                torch.cuda.synchronize()
+                if ic.intersect_clustered.launches != before + 1:
+                    raise AssertionError("K5's launch counter did not move")
+                what = f"K5 {preset} {label} max_leaf {max_leaf}"
+                err5 = max(err5, same_hits(
+                    what, k5, ic.intersect_clustered_reference(
+                        scene, pack, *rays, 1e-3)))
+                same_hits(f"{what} vs K4", k5, k4)
+            line.append(f"{label} {int(k4[2].sum())}/{rays[0].shape[0]} "
+                        "hits")
+        log(f"  {preset} {kw.get('n', '')}: K4 = plain, K5 (max_leaf 1, 7, "
+            f"128) = plain = K4 ({', '.join(line)})")
+    return err4, err5
+
+
+def dense_wavefront_path(dev, key, card):
+    """Phase 12.  Returns K4's entry of the kernels line."""
+    scene, cam, cfg = build_preset("random-spheres", device=dev)
+    with open(os.path.join(ROOT, "bench_golden.json")) as f:
+        golden = json.load(f)[GOLDEN_KEY]
+    pack = ip.pack_scene_pallas(scene)
+
+    def frame(mode):
+        return render_image(scene, cam, cfg, seed=0, accel=pack, mode=mode,
+                            chunk=WAVE_RAYS, pool_size=WAVE_RAYS,
+                            device=dev)
+
+    imgs, launches = {}, {}
+    for mode in ("regenerative", "wavefront"):
+        reset_counts()
+        imgs[mode] = frame(mode)
+        torch.cuda.synchronize()
+        launches[mode] = ip.intersect_pallas.launches
+        img = imgs[mode]
+        if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or \
+                not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{mode}: bad image")
+        total = float(img.double().sum()) * cfg.spp
+        rel = abs(total - golden) / golden
+        log(f"{mode} final scene {cfg.nx}x{cfg.ny}@{cfg.spp} through K4: "
+            f"radiance sum {total:.1f} vs golden {golden:.1f} (rel "
+            f"{rel:.2e}), K4 launches {launches[mode]}")
+        if launches[mode] < 1:
+            raise AssertionError(f"the {mode} render did not launch K4")
+        if not rel < 1e-2:
+            raise AssertionError(f"{mode}: radiance sum off golden ({rel})")
+    diff = float((imgs["regenerative"] - imgs["wavefront"]).abs().max())
+    log(f"  regenerative vs wavefront: max |a - b| = {diff:.3e} (bound 2e-6)")
+    if not diff <= 2e-6:
+        raise AssertionError("regenerative and wavefront images differ")
+    mega = mk.render_image_mega(scene, cam, cfg, seed=0, device=dev)
+    kdiff = (imgs["wavefront"] - mega).abs()
+    log(f"  against K1's image: frac(|a-b|>1e-3)="
+        f"{float((kdiff > 1e-3).float().mean()):.6f} (logged: K1 uses the "
+        f"expanded quadratic)")
+    del mega, kdiff
+
+    # Ray ids [0, 2^17): K4, its plain version and the dense sweep.
+    ids = torch.arange(WAVE_RAYS, device=dev)
+    r4, s4 = render_ray_batch(scene, cam, cfg, key, ids, pack,
+                              return_stats=True)
+    rp, sp = render_ray_batch(scene, cam, cfg, key, ids, pack,
+                              ip.intersect_pallas_reference,
+                              return_stats=True)
+    if not (torch.equal(r4, rp) and torch.equal(s4, sp)):
+        raise AssertionError("K4's and its plain version's paths differ")
+    rb, sb = render_ray_batch(scene, cam, cfg, key, ids, return_stats=True)
+    whole = WAVE_RAYS // cfg.spp * cfg.spp  # the rays of whole pixels
+    px = lambda r: r[:whole].reshape(-1, cfg.spp, 3).mean(1)  # noqa: E731
+    bdiff = (px(r4) - px(rb)).abs()
+    frac = float((bdiff > 1e-3).float().mean())
+    seg_rel = abs(int(s4.sum()) - int(sb.sum())) / int(sb.sum())
+    log(f"  rays [0, {WAVE_RAYS}): K4 = its plain version (radiance and "
+        f"segments); vs the dense sweep over {whole // cfg.spp} whole "
+        f"pixels frac(|a-b|>1e-3)={frac:.6f}, "
+        f"segments {int(s4.sum())} vs {int(sb.sum())} (rel {seg_rel:.2e})")
+    if not (frac < 0.01 and seg_rel <= 1e-3):
+        raise AssertionError("K4's paths off the dense sweep's")
+
+    # The tape of those rays through K4.
+    tape = record_paths_pool(scene, cam, cfg, key, ids, pack,
+                             ip.intersect_pallas, pool_size=1 << 14)
+    o, d = camera_rays(scene, cam, cfg, key, WAVE_RAYS)
+    plain = record_paths(scene, o, d, ids, key, cfg, pack,
+                         ip.intersect_pallas_reference)
+    if not torch.equal(tape, plain):
+        raise AssertionError("the pool tape through K4 differs from the "
+                             "plain wavefront record_paths")
+    k2b = rm.record_paths_mega(mk.pack_scene_mega(scene), cam, cfg, key,
+                               num_rays=WAVE_RAYS)
+    tape_agreement("  the pool tape through K4 (= plain record_paths on "
+                   "K4's plain version) vs K2b's", tape, k2b, 0.999)
+    tape_agreement("  the pool tape through K4 vs the plain record_paths on "
+                   "the dense sweep", tape,
+                   record_paths(scene, o, d, ids, key, cfg), 0.999)
+    del tape, plain, k2b
+
+    # Times: frames, then K4 over a whole frame and per launch.
+    sec = {}  # the frames above were the warm runs
+    for mode in ("regenerative", "wavefront"):
+        sec[mode] = statistics.median(host_s(lambda: frame(mode))[0]
+                                      for _ in range(3))
+    clocks = {mode: Clocked(ip.intersect_pallas)
+              for mode in ("regenerative", "wavefront")}
+    render_image(scene, cam, cfg, seed=0, accel=pack,
+                 intersect_fn=clocks["regenerative"], mode="regenerative",
+                 pool_size=WAVE_RAYS, device=dev)
+    _, segs = frame_stats(scene, cam, cfg, key, pack, clocks["wavefront"])
+    rays = int(segs.sum())
+    o, d = camera_rays(scene, cam, cfg, key, WAVE_RAYS)
+    k4_ms = cuda_ms(lambda: ip.intersect_pallas(scene, pack, o, d, 1e-3), 5)
+    plain_s, _ = host_s(lambda: ip.intersect_pallas_reference(
+        scene, pack, o, d, 1e-3))
+    b1 = k4_bound(pack, WAVE_RAYS)
+    for mode in ("regenerative", "wavefront"):
+        c = clocks[mode]
+        ms = c.ms()
+        fb = k4_bound(pack, c.rays, len(c.events))
+        log(f"{mode}: {sec[mode]:.4f} s/frame median of 3, "
+            f"{cfg.num_rays / sec[mode] / 1e6:.3f} Mpaths/s, "
+            f"{rays / sec[mode] / 1e6:.3f} Mrays/s ({rays} segments); K4 "
+            f"{len(c.events)} launches over {c.rays} rays, {ms:.2f} ms per "
+            f"frame ({ms / len(c.events) * 1e3:.1f} us per launch; bound "
+            f"{fb[0]:.3f} ms, {fb[1]}), {ms / 1e3 / sec[mode] * 100:.2f}% "
+            f"of the frame; on {card}")
+    log(f"  K4 alone at {WAVE_RAYS} camera rays: {k4_ms:.4f} ms (bound "
+        f"{b1[0]:.4f} ms, {b1[1]}); plain {plain_s * 1e3:.1f} ms (one run)")
+    c = clocks["regenerative"]
+    return {"name": "K4 dense closest hit (intersect_pallas), 2^17 rays of "
+                    "the final scene",
+            "route": "cuda",
+            "source": "first_raytracer_tpu_torch/kernels/csrc/intersect.cu",
+            "replaces": ip.REPLACES, "launches": launches["regenerative"],
+            "launches_wavefront": launches["wavefront"], "max_abs_err": None,
+            "ms": k4_ms, "plain_ms": plain_s * 1e3, "bound_ms": b1[0],
+            "bound_by": b1[1], "library_ms": None,
+            "frame_ms": c.ms(),
+            "frame_bound_ms": k4_bound(pack, c.rays, len(c.events))[0]}
+
+
+FIELD_WAVE = [("field20000", "sphere-field", 20000,
+               "radiance_sum_megacluster_field20000_800x450_4spp"),
+              ("trifield20000", "triangle-field", 20000,
+               "radiance_sum_megacluster_trifield20000_800x450_4spp")]
+
+
+def clustered_wavefront_path(dev, key, card):
+    """Phase 13.  Returns K5's entry of the kernels line."""
+    with open(os.path.join(ROOT, "bench_golden.json")) as f:
+        goldens = json.load(f)
+    launches, entry = 0, None
+    for label, preset, n, gkey in FIELD_WAVE:
+        scene, cam, cfg = build_preset(preset, device=dev, n=n)
+        pack_s = statistics.median(host_s(
+            lambda: ic.pack_scene_clustered(scene))[0] for _ in range(3))
+        cpack = ic.pack_scene_clustered(scene)
+
+        def frame():
+            return render_image(scene, cam, cfg, seed=0,
+                                accel=ic.pack_scene_clustered(scene),
+                                chunk=WAVE_RAYS, device=dev)
+
+        reset_counts()
+        img = frame()
+        torch.cuda.synchronize()
+        frame_launches = ic.intersect_clustered.launches
+        launches += frame_launches
+        if frame_launches < 1 or ip.intersect_pallas.launches:
+            raise AssertionError(f"{label}: the frame did not go through K5")
+        if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or \
+                not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{label}: bad image")
+        total = float(img.double().sum()) * cfg.spp
+        rel = (total - goldens[gkey]) / goldens[gkey]
+        log(f"{label} {cfg.nx}x{cfg.ny}@{cfg.spp} wavefront through K5: "
+            f"radiance sum {total:.3f}, megacluster golden {goldens[gkey]} "
+            f"(rel {rel:+.3e}, logged: the oc-form and the expanded "
+            f"quadratic part far out), K5 launches {frame_launches}")
+        sec = statistics.median(host_s(frame)[0] for _ in range(3))
+        clock = Clocked(ic.intersect_clustered, counters=True)
+        rad5, segs5 = frame_stats(scene, cam, cfg, key, cpack, clock)
+        k5_frame_ms = clock.ms()
+        rad_img = rad5.reshape(cfg.ny, cfg.nx, 3).flip(0)
+        if not torch.equal(rad_img, img):
+            raise AssertionError(f"{label}: the counted frame differs")
+        dpack = ip.pack_scene_pallas(scene)
+        clock4 = Clocked(ip.intersect_pallas)
+        rad4, segs4 = frame_stats(scene, cam, cfg, key, dpack, clock4)
+        diff = (rad5 - rad4).abs()
+        frac = float((diff > 1e-3).float().mean())
+        differ = int((diff > 0).any(dim=1).sum())
+        if preset == "triangle-field":
+            seg_bad = float((segs5 != segs4).float().mean())
+            seg_note = f"pixels whose segments differ {seg_bad:.6f}"
+            seg_ok = seg_bad < 0.01
+        else:
+            seg_rel = abs(int(segs5.sum()) - int(segs4.sum())) / int(
+                segs4.sum())
+            seg_note = (f"segments {int(segs5.sum())} vs {int(segs4.sum())}"
+                        f" (rel {seg_rel:.2e})")
+            seg_ok = seg_rel <= 1e-3
+        log(f"  K5 vs K4 frame: frac(|a-b|>1e-3)={frac:.6f}, {differ} pixels"
+            f" differ at all, {seg_note}")
+        if not (frac < 0.01 and seg_ok):
+            raise AssertionError(f"{label}: K5's frame off K4's")
+        rays = int(segs5.sum())
+        fb = k5_bound(cpack, clock.sweeps.tolist(), clock.rays,
+                      len(clock.events))
+        tot = clock.sweeps.tolist()
+        o, d = camera_rays(scene, cam, cfg, key, WAVE_RAYS)
+        k5_ms = cuda_ms(lambda: ic.intersect_clustered(scene, cpack, o, d,
+                                                       1e-3), 5)
+        *_, sw1 = ic.intersect_clustered(scene, cpack, o, d, 1e-3,
+                                         return_iters=True)
+        b1 = k5_bound(cpack, sw1.long().sum(0).tolist(), WAVE_RAYS)
+        plain_s, want = host_s(lambda: ic.intersect_clustered_reference(
+            scene, cpack, o, d, 1e-3))
+        err = same_hits(f"K5 {label} at {WAVE_RAYS} camera rays",
+                        ic.intersect_clustered(scene, cpack, o, d, 1e-3),
+                        want)
+        k4_ms = cuda_ms(lambda: ip.intersect_pallas(scene, dpack, o, d,
+                                                    1e-3), 3)
+        log(f"  {sec:.4f} s/frame median of 3 ({cfg.num_rays / sec / 1e6:.3f}"
+            f" Mpaths/s, {rays / sec / 1e6:.3f} Mrays/s, {rays} segments); "
+            f"host pack {pack_s:.4f} s; K5 {len(clock.events)} launches over "
+            f"{clock.rays} rays, {k5_frame_ms:.2f} ms per frame (bound "
+            f"{fb[0]:.3f} ms, {fb[1]}), per ray "
+            f"{tot[0] / clock.rays:.2f} clusters swept, "
+            f"{tot[1] / clock.rays:.1f} sphere and "
+            f"{tot[2] / clock.rays:.1f} triangle slots, "
+            f"{tot[3] / clock.rays:.1f} boxes; K4 on the same frame "
+            f"{clock4.ms():.2f} ms; on {card}")
+        log(f"  at {WAVE_RAYS} camera rays: K5 {k5_ms:.4f} ms (bound "
+            f"{b1[0]:.4f} ms, {b1[1]}), plain {plain_s * 1e3:.1f} ms (one "
+            f"run), K4 {k4_ms:.4f} ms")
+        if label == "field20000":
+            entry = {
+                "name": "K5 clustered closest hit (intersect_clustered), "
+                        "2^17 camera rays of field20000",
+                "route": "cuda",
+                "source": "first_raytracer_tpu_torch/kernels/csrc/"
+                          "intersect.cu",
+                "replaces": ic.REPLACES, "max_abs_err": err, "ms": k5_ms,
+                "plain_ms": plain_s * 1e3, "bound_ms": b1[0],
+                "bound_by": b1[1], "library_ms": None,
+                "frame_ms": k5_frame_ms, "frame_bound_ms": fb[0]}
+        del rad4, rad5, img, dpack, cpack
+        torch.cuda.empty_cache()
+    entry["launches"] = launches
+    return entry
+
+
 def main():
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1042,6 +1485,14 @@ def main():
     k3_launches, fields, scenes = large_scene_path(dev, key, card)  # 9.
     log("K3t and the clustered fit step:")
     t10 = clustered_tapes_and_step(dev, key, card, scenes)  # 10.
+    del scenes
+    torch.cuda.empty_cache()
+    log("K4 and K5 vs plain:")
+    err4, err5 = intersect_vs_plain(dev, key)  # 11.
+    k4 = dense_wavefront_path(dev, key, card)  # 12.
+    k4["max_abs_err"] = err4
+    k5 = clustered_wavefront_path(dev, key, card)  # 13.
+    k5["max_abs_err"] = max(err5, k5["max_abs_err"])
 
     src = "first_raytracer_tpu_torch/kernels/csrc/"
     f20 = fields["field20000"]
@@ -1062,7 +1513,7 @@ def main():
         "plain_ms": g["plain_b_ms"], "bound_ms": g["kb_bound"][0],
         "bound_by": g["kb_bound"][1], "library_ms": None}, {
         "name": "K3 clustered megakernel (render_pixels_mega_clustered), "
-                "field20000 800x450@4",
+                "field20000 800x450@4 (plain_ms: a quarter of the pixels)",
         "route": "cuda", "source": src + "megakernel_clustered.cu",
         "replaces": mc.REPLACES, "launches": k3_launches,
         "max_abs_err": f20["err"], "ms": f20["ms"],
@@ -1076,7 +1527,7 @@ def main():
         "max_abs_err": t10["trips_err"], "tape_agreement": t10["agree"],
         "tape_agreement_with_k2b": t10["agree_k2b"], "ms": t10["ms"],
         "plain_ms": t10["plain_ms"], "bound_ms": t10["bound"][0],
-        "bound_by": t10["bound"][1], "library_ms": None}]}))
+        "bound_by": t10["bound"][1], "library_ms": None}, k4, k5]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

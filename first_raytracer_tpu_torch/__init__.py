@@ -5,10 +5,11 @@ Hopper GPU.  Sub-packages and modules keep the JAX package's names, so each
 module's counterpart is found by path.  Plain functions work on tensors;
 entry points take a ``device``, ``"cuda"`` unless the caller asks for
 ``"cpu"``.  The forward megakernel renders (dense, and clustered for large
-scenes) and the differentiable pass's tape recorders run through
-hand-written CUDA kernels (``kernels/csrc/``) on a GPU
-and through their plain PyTorch versions on the CPU; ``diff/`` replays the
-tape under ``torch.autograd``.  This package never imports JAX.
+scenes), the differentiable pass's tape recorders and the wavefront
+integrator's closest hits (dense and clustered) run through hand-written
+CUDA kernels (``kernels/csrc/``) on a GPU and through their plain PyTorch
+versions on the CPU; ``diff/`` replays the tape under ``torch.autograd``.
+This package never imports JAX.
 """
 from .kernels.megakernel import render_image_mega
 from .kernels.megakernel_clustered import render_image_mega_clustered

@@ -1,4 +1,5 @@
-"""Command-line entry point: ``render`` a preset, or ``fit`` its parameters.
+"""Command-line entry point: ``render`` a preset, ``bench`` a ray batch,
+or ``fit`` a preset's parameters.
 
 Examples:
     python -m first_raytracer_tpu_torch.cli render --preset three-spheres \
@@ -7,6 +8,12 @@ Examples:
         --out out/final.png               # megakernel on the GPU
     python -m first_raytracer_tpu_torch.cli render --preset sphere-field \
         --out out/field.png               # clustered megakernel: 20,004 spheres
+    python -m first_raytracer_tpu_torch.cli render --preset sphere-field \
+        --mode wavefront --clustered      # wavefront, clustered closest hit
+    python -m first_raytracer_tpu_torch.cli render --preset random-spheres \
+        --mode wavefront --spp 10 --checkpoint out/final.ckpt.npz
+    python -m first_raytracer_tpu_torch.cli bench --preset random-spheres \
+        --bvh --rays 4096
     python -m first_raytracer_tpu_torch.cli fit --preset random-spheres \
         --nx 64 --ny 32 --spp 2 --fields albedo --opt adam --lr 0.05 --fast
 
@@ -14,8 +21,17 @@ Examples:
 CUDA kernel on a GPU, its plain PyTorch version on the CPU.  A scene of
 more than ``DENSE_MAX`` (1024) spheres or triangles, such as the field
 presets, goes to the clustered megakernel, as the fit step's recorder
-does; ``--mode mega-clustered`` takes the clustered megakernel at any size.
-``--mode wavefront`` runs the chunked wavefront integrator.
+does; ``--mode mega-clustered`` (or ``--clustered`` with ``--mode mega``)
+takes the clustered megakernel at any size.  ``--mode wavefront`` runs the
+chunked wavefront integrator and ``--mode regenerative`` its compacted
+ray pool; their closest hit is the dense sweep, the clustered kernel K5
+with ``--clustered``, or the flat-BVH walk with ``--bvh`` (a correctness
+oracle, not a fast path).  ``--checkpoint`` renders in resumable batches
+of ``--batch-spp`` samples through the wavefront integrator, writing a
+running-mean PNG after every batch with ``--preview``.
+
+``bench`` times one ``render_ray_batch`` of ``--rays`` rays (best of 3
+after a warm run) and prints one JSON line.
 
 ``fit`` is the inverse-rendering demo: it perturbs the chosen scene fields,
 then recovers them by gradient descent on the per-ray radiance MSE against
@@ -45,6 +61,11 @@ __all__ = ["main"]
 
 
 def _build(args, device):
+    """The preset's scene, camera and config on ``device``, and the accel
+    that ``--clustered`` or ``--bvh`` asks for (None without either)."""
+    from .accel.build import build_bvh
+    from .kernels.intersect_clustered import pack_scene_clustered
+
     kwargs = {}
     if args.nx:
         kwargs["nx"] = args.nx
@@ -55,7 +76,12 @@ def _build(args, device):
     scene, camera, cfg = build_preset(args.preset, device=device, **kwargs)
     if args.max_depth:
         cfg = dataclasses.replace(cfg, max_depth=args.max_depth)
-    return scene, camera, cfg
+    accel = None
+    if args.clustered:
+        accel = pack_scene_clustered(scene)
+    elif args.bvh:
+        accel = build_bvh(scene, max_leaf=4)
+    return scene, camera, cfg, accel
 
 
 def _cmd_render(args):
@@ -64,16 +90,34 @@ def _cmd_render(args):
     from .kernels.megakernel import DENSE_MAX
 
     device = torch.device(args.device)
-    scene, camera, cfg = _build(args, device)
-    if args.mode == "mega" and max(scene.num_spheres,
-                                   scene.num_triangles) > DENSE_MAX:
+    scene, camera, cfg, accel = _build(args, device)
+    if args.mode == "mega" and (args.clustered or max(
+            scene.num_spheres, scene.num_triangles) > DENSE_MAX):
         # Informational notes go to stderr: with ``--out -`` stdout is the
         # PPM stream.
-        print(f"note: more than {DENSE_MAX} spheres or triangles: "
-              "--mode mega-clustered", file=sys.stderr)
+        why = ("--clustered" if args.clustered else
+               f"more than {DENSE_MAX} spheres or triangles")
+        print(f"note: {why}: --mode mega-clustered", file=sys.stderr)
         args.mode = "mega-clustered"
+    if args.bvh and args.mode.startswith("mega") and not args.checkpoint:
+        raise SystemExit("--bvh needs --mode wavefront or regenerative")
     t0 = time.perf_counter()
-    if args.mode == "mega":
+    if args.checkpoint:
+        from .render.progressive import progressive_render
+        on_batch = None
+        if args.preview:
+            os.makedirs(os.path.dirname(args.preview) or ".", exist_ok=True)
+
+            def on_batch(state):
+                write_png(args.preview, state.image(cfg))
+                print(f"preview @ {state.samples_done}/{cfg.spp} spp "
+                      f"-> {args.preview}", file=sys.stderr)
+        img = torch.from_numpy(progressive_render(
+            scene, camera, cfg, seed=args.seed, accel=accel,
+            checkpoint_path=args.checkpoint,
+            samples_per_batch=args.batch_spp, on_batch=on_batch,
+            device=device).copy())
+    elif args.mode == "mega":
         from .kernels.megakernel import render_image_mega
         img = render_image_mega(scene, camera, cfg, seed=args.seed,
                                 device=device)
@@ -83,8 +127,8 @@ def _cmd_render(args):
                                           device=device)
     else:
         from .render.api import render_image
-        img = render_image(scene, camera, cfg, seed=args.seed, mode=args.mode,
-                           device=device)
+        img = render_image(scene, camera, cfg, seed=args.seed, accel=accel,
+                           mode=args.mode, device=device)
     img = img.cpu()  # waits for the device
     dt = time.perf_counter() - t0
     out = args.out or f"{args.preset}.png"
@@ -97,8 +141,29 @@ def _cmd_render(args):
         write_ppm(out, img)
     else:
         write_png(out, img)
-    print(f"wrote {out} ({cfg.nx}x{cfg.ny} @ {cfg.spp}spp, {args.mode}, "
+    mode = "progressive wavefront" if args.checkpoint else args.mode
+    print(f"wrote {out} ({cfg.nx}x{cfg.ny} @ {cfg.spp}spp, {mode}, "
           f"{device}) in {dt:.2f}s")
+    return 0
+
+
+def _cmd_bench(args):
+    from .core import rng
+    from .render.api import render_ray_batch
+    from .utils.profiling import throughput, time_fn
+
+    device = torch.device(args.device)
+    scene, camera, cfg, accel = _build(args, device)
+    key = rng.base_key(args.seed)
+    n = min(cfg.num_rays, args.rays or cfg.num_rays)
+    ids = torch.arange(n, dtype=torch.int64, device=device)
+    secs = time_fn(render_ray_batch, scene, camera, cfg, key, ids, accel)
+    _, segs = render_ray_batch(scene, camera, cfg, key, ids, accel,
+                               return_stats=True)
+    out = throughput(n, int(segs.sum()), secs)
+    out.update(preset=args.preset, rays=n, device=str(device),
+               accel=type(accel).__name__ if accel is not None else None)
+    print(json.dumps(out))
     return 0
 
 
@@ -106,13 +171,15 @@ def _cmd_fit(args):
     from .core import rng
     from .diff.grad import (make_fit_step, make_fit_step_replay,
                             make_optimizer, ray_radiance, split_params)
+    from .kernels.intersect_clustered import intersect_clustered
+    from .kernels.intersect_pallas import intersect_pallas
     from .kernels.megakernel import render_pixels_mega
     from .kernels.megakernel_clustered import render_pixels_mega_clustered
     from .kernels.record_mega import (record_paths_mega,
                                       record_paths_mega_clustered)
 
     device = torch.device(args.device)
-    scene, camera, cfg = _build(args, device)
+    scene, camera, cfg, accel = _build(args, device)
     cfg = dataclasses.replace(cfg, max_depth=min(cfg.max_depth, 8),
                               differentiable=True)
     fields = tuple(f for f in args.fields.split(",") if f)
@@ -121,7 +188,8 @@ def _cmd_fit(args):
 
     true_params, _ = split_params(scene, fields=fields)
     with torch.no_grad():
-        target = ray_radiance(true_params, scene, camera, cfg, key, ids)
+        target = ray_radiance(true_params, scene, camera, cfg, key, ids,
+                              accel)
 
     # Perturb each field by a factor in [0.6, 0.9), drawing in sorted key
     # order as the JAX package's tree_map does.
@@ -134,8 +202,12 @@ def _cmd_fit(args):
                                  requires_grad=True)
 
     opt = make_optimizer(args.opt, params, args.lr)
-    make = make_fit_step_replay if args.fast else make_fit_step
-    step = make(scene, camera, cfg, ids, target, opt, device=device)
+    if args.fast:  # the recorder kernels find their own hits
+        step = make_fit_step_replay(scene, camera, cfg, ids, target, opt,
+                                    device=device)
+    else:
+        step = make_fit_step(scene, camera, cfg, ids, target, opt,
+                             accel=accel, device=device)
     loss = None
     for i in range(args.steps):
         loss = float(step(params, key))
@@ -157,7 +229,9 @@ def _cmd_fit(args):
                           "K2": render_pixels_mega.tape_launches,
                           "K2b": record_paths_mega.launches,
                           "K3": render_pixels_mega_clustered.launches,
-                          "K3t": record_paths_mega_clustered.launches}}))
+                          "K3t": record_paths_mega_clustered.launches,
+                          "K4": intersect_pallas.launches,
+                          "K5": intersect_clustered.launches}}))
     return 0
 
 
@@ -172,6 +246,12 @@ def _common(sp):
     sp.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs on the "
                          "host)")
+    sp.add_argument("--clustered", action="store_true",
+                    help="closest hit by the clustered kernel K5 (large "
+                         "scenes); with --mode mega: mega-clustered")
+    sp.add_argument("--bvh", action="store_true",
+                    help="closest hit by the flat-BVH walk: a correctness "
+                         "oracle, not a fast path")
 
 
 def main(argv=None):
@@ -183,11 +263,26 @@ def main(argv=None):
     sp.add_argument("--out", default="",
                     help="output .png or .ppm; '-' streams PPM to stdout")
     sp.add_argument("--mode", default="mega",
-                    choices=("mega", "mega-clustered", "wavefront"),
+                    choices=("mega", "mega-clustered", "wavefront",
+                             "regenerative"),
                     help="mega: the megakernel (CUDA kernel on a GPU), "
                          "clustered past 1024 spheres or triangles; "
                          "mega-clustered: the clustered megakernel at any "
-                         "size; wavefront: the chunked wavefront integrator")
+                         "size; wavefront: the chunked wavefront "
+                         "integrator; regenerative: its compacted ray pool")
+    sp.add_argument("--checkpoint", default="",
+                    help="render in resumable batches through the "
+                         "wavefront integrator, checkpointed to this .npz")
+    sp.add_argument("--batch-spp", type=int, default=1,
+                    help="with --checkpoint: samples per pixel per batch")
+    sp.add_argument("--preview", default="",
+                    help="with --checkpoint: write a running-mean PNG "
+                         "after every batch")
+    bp = sub.add_parser("bench", help="time one ray batch; one JSON line")
+    bp.set_defaults(fn=_cmd_bench)
+    _common(bp)
+    bp.add_argument("--rays", type=int, default=0,
+                    help="rays in the batch (default: the whole image)")
     fp = sub.add_parser("fit", help="recover perturbed scene parameters by "
                                     "gradient descent")
     fp.set_defaults(fn=_cmd_fit)

@@ -21,6 +21,7 @@ returns new parameters and an optax state.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -62,34 +63,41 @@ def _rays(camera, cfg, key, ray_ids):
 
 
 def ray_radiance(params, scene, camera, cfg: RenderConfig, key, ray_ids,
+                 accel=None, intersect_fn: Optional[Callable] = None,
                  method: str = "replay", record_pool: int = 0):
     """(R, 3) radiance as a differentiable function of ``params``.
 
     ``method="replay"``: record the primitive tape outside autograd (the
     lockstep recorder, or the pool recorder with ``record_pool`` slots),
     then replay it.  ``method="scan"``: the wavefront integrator with
-    ``differentiable=True``.
+    ``differentiable=True``.  The closest hit is ``intersect_fn`` on
+    ``accel`` (``render.integrator.default_intersect`` by default); an
+    accel built from other parameters than ``params`` is used as it is.
     """
     scene = merge_params(scene, params)
     o, d = _rays(camera, cfg, key, ray_ids)
     if method == "replay":
         if record_pool:
             tape = record_paths_pool(scene, camera, cfg, key, ray_ids,
+                                     accel, intersect_fn,
                                      pool_size=record_pool)
         else:
-            tape = record_paths(scene, o, d, ray_ids, key, cfg)
+            tape = record_paths(scene, o, d, ray_ids, key, cfg, accel,
+                                intersect_fn)
         return trace_rays_replay(scene, o, d, ray_ids, key, cfg, tape)
     if method != "scan":
         raise ValueError(f"unknown method {method!r}")
     return trace_rays(scene, o, d, ray_ids, key,
-                      dataclasses.replace(cfg, differentiable=True))
+                      dataclasses.replace(cfg, differentiable=True),
+                      accel=accel, intersect_fn=intersect_fn)
 
 
 def render_loss(params, scene, camera, cfg, key, ray_ids, target,
+                accel=None, intersect_fn: Optional[Callable] = None,
                 method: str = "replay", record_pool: int = 0):
     """Mean squared error between rendered per-ray radiance and ``target``."""
-    rad = ray_radiance(params, scene, camera, cfg, key, ray_ids,
-                       method=method, record_pool=record_pool)
+    rad = ray_radiance(params, scene, camera, cfg, key, ray_ids, accel,
+                       intersect_fn, method=method, record_pool=record_pool)
     return torch.mean((rad - target) ** 2)
 
 
@@ -106,11 +114,13 @@ def _value_and_grad(loss_fn, params):
 
 
 def render_loss_and_grads(params, scene, camera, cfg, key, ray_ids, target,
+                          accel=None, intersect_fn: Optional[Callable] = None,
                           method: str = "replay", record_pool: int = 0):
     """(loss, grads) of ``render_loss``."""
     return _value_and_grad(
         lambda p: render_loss(p, scene, camera, cfg, key, ray_ids, target,
-                              method=method, record_pool=record_pool),
+                              accel, intersect_fn, method=method,
+                              record_pool=record_pool),
         params)
 
 
@@ -165,10 +175,11 @@ def render_loss_and_grads_bucketed(params, scene, camera, cfg, key,
 
 
 def sgd_step(params, scene, camera, cfg, key, ray_ids, target,
-             lr: float = 0.05):
+             lr: float = 0.05, accel=None,
+             intersect_fn: Optional[Callable] = None):
     """One inverse-rendering SGD step; returns (loss, new_params)."""
     loss, grads = render_loss_and_grads(params, scene, camera, cfg, key,
-                                        ray_ids, target)
+                                        ray_ids, target, accel, intersect_fn)
     return loss, {k: (p - lr * grads[k]).detach() for k, p in params.items()}
 
 
@@ -198,22 +209,27 @@ def _apply(optimizer, params, grads):
 
 
 def make_fit_step(scene, camera, cfg, ray_ids, target, optimizer,
+                  accel=None, intersect_fn: Optional[Callable] = None,
                   device="cuda"):
     """Inverse-rendering step around a ``torch.optim`` optimizer.
 
     Returns ``step(params, key) -> loss``: the gradient of the MSE loss
-    (``render_loss_and_grads``) followed by ``optimizer.step()``, which
-    updates ``params`` in place; the optimizer must have been built over
-    ``params``' tensors, which live on ``device``.  The scene, camera, ray
-    ids and target are moved to ``device``.
+    (``render_loss_and_grads``, closest hit by ``intersect_fn`` on
+    ``accel``) followed by ``optimizer.step()``, which updates ``params``
+    in place; the optimizer must have been built over ``params``' tensors,
+    which live on ``device``.  The scene, camera, accel, ray ids and target
+    are moved to ``device``.
     """
     dev = torch.device(device)
     scene, camera = scene.to(dev), camera.to(dev)
     ray_ids, target = ray_ids.to(dev), target.to(dev)
+    if accel is not None:
+        accel = accel.to(dev)
 
     def step(params, key):
         loss, grads = render_loss_and_grads(params, scene, camera, cfg, key,
-                                            ray_ids, target)
+                                            ray_ids, target, accel,
+                                            intersect_fn)
         _apply(optimizer, params, grads)
         return loss
 

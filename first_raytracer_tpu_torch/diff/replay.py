@@ -8,7 +8,9 @@ equation, not the traversal), so the pass splits in two:
    primitive id per (bounce, ray), a ``(max_depth + 1, R)`` int32 tape, -1
    for a miss or a dead path.  ``record_paths`` is the lockstep wavefront
    recorder, ``record_paths_pool`` a compacted regenerating pool with the
-   same tape; ``kernels/record_mega.py`` records it on the GPU.
+   same tape, both with the integrator's pluggable closest hit
+   (``intersect_fn`` on ``accel``); ``kernels/record_mega.py`` records it
+   on the GPU in one kernel.
 2. **Replay** (differentiated by ``torch.autograd``): a Python loop over the
    tape's rows in which each bounce recomputes the hit record from the
    recorded id and shades.  No intersection appears in the autograd graph.
@@ -26,6 +28,8 @@ bucket replays only its own trip count.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import numpy as np
 import torch
 
@@ -35,7 +39,7 @@ from ..geometry.sphere import BIG, sphere_hit_one, sphere_normal
 from ..geometry.triangle import triangle_hit_one, triangle_normal
 from ..materials.scatter import scatter, scatter_from_params
 from ..render.camera import generate_rays
-from ..render.integrator import (RenderConfig, intersect_brute,
+from ..render.integrator import (RenderConfig, default_intersect,
                                  recompute_hit, sky_color)
 from ..scene.textures import texture_from_params
 
@@ -43,14 +47,16 @@ __all__ = ["record_paths", "record_paths_pool", "trace_rays_replay",
            "live_trips", "plan_buckets"]
 
 
-def _record_bounce(scene, key, o, dr, ids, depth, t_min):
+def _record_bounce(scene, accel, intersect_fn, key, o, dr, ids, depth,
+                   t_min):
     """One recorder bounce of rays (o, dr) at bounce ``depth`` (an int or a
     per-ray tensor): ``(prim, hit, hit point, new direction, scattered)``.
 
     The recompute is the authority on hits, exactly as in ``trace_rays``:
     the tape stores an id iff the replay will re-derive a hit from it.
     """
-    prim, _, hit = intersect_brute(scene, o, dr, t_min)
+    prim, _, hit = (intersect_fn or default_intersect)(scene, accel, o, dr,
+                                                       t_min)
     t, p, n, mat = recompute_hit(scene, o, dr, prim, t_min)
     hit = hit & (t < BIG)
     p = torch.where(hit[:, None], p, 0.0)
@@ -62,14 +68,17 @@ def _record_bounce(scene, key, o, dr, ids, depth, t_min):
 
 
 @torch.no_grad()
-def record_paths(scene, origin, direction, ray_ids, key, cfg: RenderConfig):
+def record_paths(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
+                 accel=None, intersect_fn: Optional[Callable] = None):
     """Trace R rays forward and return the (max_depth + 1, R) int32 tape.
 
     Entry ``tape[d, i]`` is the global primitive id ray ``i`` hit at bounce
     ``d`` (after the recompute-authority check), or -1 when the ray missed,
     was already dead, or an earlier scatter absorbed it.  Every ray sweeps
     every bounce until all are dead (the JAX package's lockstep
-    ``while_loop``).  Runs without autograd.
+    ``while_loop``).  ``intersect_fn`` on ``accel`` finds the closest hit
+    (``render.integrator.default_intersect`` by default).  Runs without
+    autograd.
     """
     dev = origin.device
     R = origin.shape[0]
@@ -80,8 +89,8 @@ def record_paths(scene, origin, direction, ray_ids, key, cfg: RenderConfig):
     for d in range(cfg.max_depth + 1):
         if not bool(alive.any()):
             break
-        prim, hit, p, new_dir, ok = _record_bounce(scene, key, o, dr,
-                                                   ray_ids, d, cfg.t_min)
+        prim, hit, p, new_dir, ok = _record_bounce(
+            scene, accel, intersect_fn, key, o, dr, ray_ids, d, cfg.t_min)
         tape[d] = torch.where(alive & hit, prim, -1)
         alive = alive & hit & ok & (d < cfg.max_depth)
         o = torch.where(alive[:, None], p, o)
@@ -91,6 +100,7 @@ def record_paths(scene, origin, direction, ray_ids, key, cfg: RenderConfig):
 
 @torch.no_grad()
 def record_paths_pool(scene, camera, cfg: RenderConfig, key, ray_ids,
+                      accel=None, intersect_fn: Optional[Callable] = None,
                       pool_size: int = 8192):
     """``record_paths`` through a compacted regenerating pool (same tape).
 
@@ -98,7 +108,8 @@ def record_paths_pool(scene, camera, cfg: RenderConfig, key, ray_ids,
     the surviving rays are compacted to the front and the free slots are
     refilled from the ``ray_ids`` stream, so the recording cost follows the
     total segment count instead of R times the longest path.  Generates its
-    own camera rays (RNG domain 0 per ray id).  Runs without autograd.
+    own camera rays (RNG domain 0 per ray id).  ``accel`` and
+    ``intersect_fn`` as for ``record_paths``.  Runs without autograd.
     """
     dev = ray_ids.device
     R = ray_ids.shape[0]
@@ -119,8 +130,8 @@ def record_paths_pool(scene, camera, cfg: RenderConfig, key, ray_ids,
     alive = slot < min(C, R)
     cursor = min(C, R)
     while bool(alive.any()):
-        prim, hit, p, new_dir, ok = _record_bounce(scene, key, o, d, ids,
-                                                   depth, cfg.t_min)
+        prim, hit, p, new_dir, ok = _record_bounce(
+            scene, accel, intersect_fn, key, o, d, ids, depth, cfg.t_min)
         write = alive & hit
         tape[(depth * R + col)[write]] = prim[write]
         cont = write & ok & (depth < cfg.max_depth)

@@ -23,10 +23,11 @@
 //    order in which gates fire.  The plain version sweeps every column with no
 //    gates and picks the same winner, so it checks the gates.
 //
-// The slab test stays conservative: near and far are widened by a few ulp, as
-// the TPU kernel does, so a knife-edge hit is never culled; a NaN (an origin
-// on a slab plane with a zero direction component, 0 * inf) passes the gate,
-// since no other lane of a tile opens the cluster for this ray here.
+// The slab test stays conservative (slab.cuh::slab_gate): near and far are
+// widened by a few ulp, as the TPU kernel does, so a knife-edge hit is never
+// culled; a NaN (an origin on a slab plane with a zero direction component,
+// 0 * inf) passes the gate, since no other lane of a tile opens the cluster
+// for this ray here.
 //
 // K3 (`mega_clustered_kernel`): one thread per pixel, looping its samples in
 // order, writing the pixel's radiance sum, segment count and sweep counters
@@ -49,6 +50,7 @@
 // gating, regrouping rays by direction and shared-memory staging of hot
 // clusters are left to later work.
 #include "mega_common.cuh"
+#include "slab.cuh"
 
 namespace {
 
@@ -56,23 +58,11 @@ using frt::CameraRow;
 using frt::Hit;
 using frt::kBig;
 using frt::PathParams;
+using frt::slab_gate;
 using frt::Surface;
 
 constexpr int kThreads = 128;
 constexpr int kSlots = 128;  // columns per cluster
-// The widening of the slab interval (the TPU kernel's constants).
-constexpr float kNearScale = 1.0f - 4e-6f;
-constexpr float kFarScale = 1.0f + 4e-6f;
-constexpr float kPad = 1e-6f;
-
-// Minimum and maximum that return NaN when either operand is NaN (fminf and
-// fmaxf drop it), so that a NaN slab interval reaches the gate's comparison.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
 
 // The hit tests of the sweep: the arithmetic of DenseScene::closest's
 // loops (mega_common.cuh), as functions.
@@ -161,27 +151,6 @@ struct ClusterScene {
   int ns, nt, ks, kts, sp, tp;
   using Counters = ClusterCounters;
 
-  // Slab test of box `b` against [t_min, bound] with the widened interval;
-  // true unless the ray surely misses the box there.
-  __device__ __forceinline__ static bool gate(const float* __restrict__ b,
-                                              float ox, float oy, float oz,
-                                              float ivx, float ivy,
-                                              float ivz, float t_min,
-                                              float bound) {
-    const float4 lo = __ldg(reinterpret_cast<const float4*>(b));
-    const float4 hi = __ldg(reinterpret_cast<const float4*>(b) + 1);
-    const float t0x = (lo.x - ox) * ivx, t1x = (lo.w - ox) * ivx;
-    const float t0y = (lo.y - oy) * ivy, t1y = (hi.x - oy) * ivy;
-    const float t0z = (lo.z - oz) * ivz, t1z = (hi.y - oz) * ivz;
-    float near = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
-                         nan_min(t0z, t1z));
-    float far = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
-                        nan_max(t0z, t1z));
-    near = near * kNearScale - kPad;
-    far = far * kFarScale + kPad;
-    return !(nan_max(near, t_min) > nan_min(far, bound));
-  }
-
   __device__ __forceinline__ void closest(float ox, float oy, float oz,
                                           float dx, float dy, float dz,
                                           float t_min, Hit& h,
@@ -194,14 +163,15 @@ struct ClusterScene {
       const float oo = ox * ox + oy * oy + oz * oz;
       for (int s = 0; s < ks; ++s) {
         ++cnt.boxes;
-        if (!gate(sph_super + 8 * s, ox, oy, oz, ivx, ivy, ivz, t_min, t_s))
+        if (!slab_gate(sph_super + 8 * s, ox, oy, oz, ivx, ivy, ivz, t_min,
+                       t_s))
           continue;
         const int c0 = __ldg(&sph_starts[s]), c1 = __ldg(&sph_starts[s + 1]);
         for (int c = c0; c < c1; ++c) {
           if (c1 - c0 > 1) {
             ++cnt.boxes;
-            if (!gate(sph_boxes + 8 * c, ox, oy, oz, ivx, ivy, ivz, t_min,
-                      t_s))
+            if (!slab_gate(sph_boxes + 8 * c, ox, oy, oz, ivx, ivy, ivz,
+                           t_min, t_s))
               continue;
           }
           const int m = __ldg(&sph_counts[c]);
@@ -225,15 +195,15 @@ struct ClusterScene {
     if (nt > 0) {
       for (int s = 0; s < kts; ++s) {
         ++cnt.boxes;
-        if (!gate(tri_super + 8 * s, ox, oy, oz, ivx, ivy, ivz, t_min,
-                  fminf(t_s, t_t)))
+        if (!slab_gate(tri_super + 8 * s, ox, oy, oz, ivx, ivy, ivz, t_min,
+                       fminf(t_s, t_t)))
           continue;
         const int c0 = __ldg(&tri_starts[s]), c1 = __ldg(&tri_starts[s + 1]);
         for (int c = c0; c < c1; ++c) {
           if (c1 - c0 > 1) {
             ++cnt.boxes;
-            if (!gate(tri_boxes + 8 * c, ox, oy, oz, ivx, ivy, ivz, t_min,
-                      fminf(t_s, t_t)))
+            if (!slab_gate(tri_boxes + 8 * c, ox, oy, oz, ivx, ivy, ivz,
+                           t_min, fminf(t_s, t_t)))
               continue;
           }
           const int m = __ldg(&tri_counts[c]);

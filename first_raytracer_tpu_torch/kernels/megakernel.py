@@ -53,8 +53,10 @@ MAX_PADDED_PRIMITIVES = 1 << 14
 DENSE_MAX = 1024
 
 KERNEL_SOURCE = "megakernel.cu"
-# K3 and K3t (the clustered megakernel) build into the same library.
+# K3 and K3t (the clustered megakernel), and K4 and K5 (the wavefront
+# closest hits), build into the same library.
 CLUSTERED_SOURCE = "megakernel_clustered.cu"
+INTERSECT_SOURCE = "intersect.cu"
 REPLACES = "first_raytracer_tpu/kernels/megakernel.py:306"
 
 
@@ -237,16 +239,23 @@ NVCC_EXTRA_FLAGS = ("--fmad=false",)
 @functools.lru_cache(maxsize=None)
 def load_mega_library():
     """Build (once per source and flags) and load the shared library of K1,
-    K2, K2b, K3 and K3t: one nvcc over both sources.
+    K2, K2b, K3, K3t, K4 and K5: one nvcc over the three sources.
 
     Returns ``(ctypes.CDLL, BuildInfo)``.
     """
     from .build import build_library
 
-    lib, info = build_library("frt_mega", [KERNEL_SOURCE, CLUSTERED_SOURCE],
-                              NVCC_EXTRA_FLAGS)
+    lib, info = build_library(
+        "frt_mega", [KERNEL_SOURCE, CLUSTERED_SOURCE, INTERSECT_SOURCE],
+        NVCC_EXTRA_FLAGS)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     u32, f32 = ctypes.c_uint32, ctypes.c_float
+    lib.frt_intersect_dense.argtypes = (
+        [ptr] * 3 + [i32] * 2 + [ptr] + [i32] * 3 + [f32] + [ptr] * 3)
+    lib.frt_intersect_dense.restype = i32
+    lib.frt_intersect_clustered.argtypes = (
+        [ptr] * 6 + [i32] + [ptr] * 4 + [i32] * 2 + [f32] + [ptr] * 4)
+    lib.frt_intersect_clustered.restype = i32
     # The clustered tables: 12 pointers, then ns, nt, the two supergroup
     # counts and the two column counts.
     tables = [ptr] * 12 + [i32] * 6

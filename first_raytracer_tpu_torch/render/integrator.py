@@ -8,14 +8,22 @@ adds ``throughput * sky`` and dies; a metal-absorbed ray, or one still
 alive at the depth cap, adds black.  ``t_min = 1e-3`` is the reference's
 shadow-acne bound.
 
-Closest hit is the dense all-pairs sweep (``intersect_brute``); the hit
-record is then recomputed from the winning primitive (``recompute_hit``),
-which is the authority on whether it really hits.  This is the port's
-CPU-runnable yardstick for the megakernel (``kernels/megakernel.py``).
+Closest hit is pluggable: ``intersect_fn(scene, accel, origin, direction,
+t_min) -> (prim, t, hit)``, by default ``default_intersect``, which takes
+the dense all-pairs sweep (``intersect_brute``) without an accel and
+dispatches on the accel's type otherwise: K4 (``kernels/intersect_pallas``),
+K5 (``kernels/intersect_clustered``) or the flat-BVH walk
+(``accel/traverse``).  The hit record is then recomputed from the winning
+primitive (``recompute_hit``), which is the authority on whether it really
+hits, so gradients flow through the hit equation whatever found the
+primitive.  This is the port's CPU-runnable yardstick for the megakernel
+(``kernels/megakernel.py``).  The ring-sharded scene's ``resolve_fn`` and
+``sync_axis`` hooks are not ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 
@@ -27,8 +35,8 @@ from ..geometry.triangle import (triangle_hit_all, triangle_hit_one,
                                  triangle_normal)
 from ..materials.scatter import scatter
 
-__all__ = ["RenderConfig", "intersect_brute", "recompute_hit", "sky_color",
-           "trace_rays"]
+__all__ = ["RenderConfig", "default_intersect", "intersect_brute",
+           "recompute_hit", "sky_color", "trace_rays"]
 
 
 @dataclass(frozen=True)
@@ -64,6 +72,24 @@ def sky_color(direction):
     white = torch.tensor(_WHITE, dtype=torch.float32, device=direction.device)
     blue = torch.tensor(_BLUE, dtype=torch.float32, device=direction.device)
     return (1.0 - t)[:, None] * white + t[:, None] * blue
+
+
+@torch.no_grad()
+def default_intersect(scene, accel, origin, direction, t_min):
+    """Closest hit by the accel's type: the dense sweep (None), K5
+    (``ClusteredScenePack``), K4 (``PallasScenePack``) or the flat-BVH walk
+    (``FlatBVH``).  Runs without autograd: it only finds the primitive."""
+    if accel is None:
+        return intersect_brute(scene, origin, direction, t_min)
+    from ..kernels.intersect_clustered import (ClusteredScenePack,
+                                               intersect_clustered)
+    if isinstance(accel, ClusteredScenePack):
+        return intersect_clustered(scene, accel, origin, direction, t_min)
+    from ..kernels.intersect_pallas import PallasScenePack, intersect_pallas
+    if isinstance(accel, PallasScenePack):
+        return intersect_pallas(scene, accel, origin, direction, t_min)
+    from ..accel.traverse import intersect_bvh
+    return intersect_bvh(scene, accel, origin, direction, t_min)
 
 
 def intersect_brute(scene, origin, direction, t_min):
@@ -119,17 +145,22 @@ def recompute_hit(scene, origin, direction, prim, t_min):
 
 
 def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
+               accel=None, intersect_fn: Optional[Callable] = None,
                return_stats: bool = False):
     """Trace R primary rays to completion; returns (R, 3) radiance.
 
-    With ``return_stats=True`` also returns ``segments``: (R,) int32 count
-    of ray segments traced per path (the rays/s numerator).
+    ``intersect_fn(scene, accel, origin, direction, t_min) -> (prim, t,
+    hit)`` defaults to ``default_intersect``.  With ``return_stats=True``
+    also returns ``segments``: (R,) int32 count of ray segments traced per
+    path (the rays/s numerator).
 
     ``torch.autograd`` differentiates the result through the hit
     recompute, the scatter and the shading; primitive selection (the
     sweep) is not differentiated.  ``cfg.differentiable`` runs all
     ``max_depth + 1`` trips.
     """
+    if intersect_fn is None:
+        intersect_fn = default_intersect
     R = origin.shape[0]
     dev = origin.device
     throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
@@ -143,8 +174,8 @@ def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
             break
         segments = segments + alive.to(torch.int32)
         with torch.no_grad():
-            prim, _, hit = intersect_brute(scene, origin, direction,
-                                           cfg.t_min)
+            prim, _, hit = intersect_fn(scene, accel, origin, direction,
+                                        cfg.t_min)
         t, p, n, mat = recompute_hit(scene, origin, direction, prim,
                                      cfg.t_min)
         # Dead and missing lanes get sanitized hit data so t = BIG points

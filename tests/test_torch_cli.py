@@ -152,7 +152,7 @@ def test_cli_fit(tmp_path, fast):
     assert steps[-1]["loss"] < steps[0]["loss"]
     assert last["fit"] == "done" and last["device"] == "cpu"
     assert last["kernel_launches"] == {"K1": 0, "K2": 0, "K2b": 0,
-                                       "K3": 0, "K3t": 0}
+                                       "K3": 0, "K3t": 0, "K4": 0, "K5": 0}
     want = _jax_fit_first_loss("random-spheres", ("albedo", "fuzz"), 0,
                                nx=16, ny=8, spp=2)
     np.testing.assert_allclose(steps[0]["loss"], want, rtol=1e-5)
@@ -179,3 +179,111 @@ def test_cli_fit_large_scene_takes_the_clustered_recorder():
     want = _jax_fit_first_loss("sphere-field", ("albedo",), 0, nx=4, ny=2,
                                spp=1, max_depth=4)
     np.testing.assert_allclose(steps[0]["loss"], want, rtol=1e-4)
+
+
+ACCEL_RENDERS = {
+    "regenerative": ["--mode", "regenerative"],
+    "regenerative-clustered": ["--mode", "regenerative", "--clustered"],
+    "wavefront-bvh": ["--mode", "wavefront", "--bvh"],
+    "wavefront-clustered": ["--mode", "wavefront", "--clustered"],
+}
+
+
+@pytest.mark.parametrize("case", list(ACCEL_RENDERS))
+def test_cli_render_wavefront_modes_and_accels(tmp_path, case):
+    """``--mode wavefront|regenerative`` with ``--clustered`` (K5's plain
+    version here) or ``--bvh``: the PNG equals the port's
+    ``render_image`` without an accel (every closest hit finds the same
+    primitives on three-spheres, and the pool equals the chunks)."""
+    from first_raytracer_tpu_torch.render.api import render_image
+    from first_raytracer_tpu_torch.scene.builders import build_preset
+
+    out = tmp_path / f"{case}.png"
+    proc = _run_cli("--preset", "three-spheres", "--nx", "24", "--ny", "12",
+                    "--spp", "2", *ACCEL_RENDERS[case], "--out", str(out))
+    assert proc.returncode == 0, proc.stderr
+    assert f"{ACCEL_RENDERS[case][1]}, cpu)" in proc.stdout
+    scene, cam, cfg = build_preset("three-spheres", device="cpu", nx=24,
+                                   ny=12, spp=2)
+    want = timg.to_uint8(render_image(scene, cam, cfg, device="cpu"))
+    np.testing.assert_array_equal(timg.read_png(str(out)), want)
+
+
+def test_cli_render_clustered_mega_and_bvh_mega():
+    """``--clustered --mode mega`` means mega-clustered, as in the JAX
+    CLI; ``--bvh`` has no megakernel and is refused there."""
+    proc = _run_cli("--preset", "three-spheres", "--nx", "6", "--ny", "4",
+                    "--spp", "1", "--max-depth", "3", "--clustered",
+                    "--out", "-")
+    assert proc.returncode == 0, proc.stderr
+    assert "--clustered: --mode mega-clustered" in proc.stderr
+    proc = _run_cli("--preset", "three-spheres", "--nx", "6", "--ny", "4",
+                    "--spp", "1", "--bvh", "--out", "-")
+    assert proc.returncode != 0 and "--bvh needs" in proc.stderr
+
+
+def test_cli_render_checkpoint_and_preview(tmp_path):
+    """``--checkpoint`` renders in batches through ``progressive_render``
+    and writes the checkpoint and the preview; the image equals the
+    one-shot wavefront render's, and a second run resumes from the
+    finished checkpoint."""
+    from first_raytracer_tpu_torch.render.api import render_image
+    from first_raytracer_tpu_torch.scene.builders import build_preset
+
+    ckpt, preview = tmp_path / "r.ckpt.npz", tmp_path / "prev.png"
+    out = tmp_path / "r.png"
+    args = ["--preset", "three-spheres", "--nx", "16", "--ny", "8", "--spp",
+            "3", "--checkpoint", str(ckpt), "--batch-spp", "2",
+            "--preview", str(preview), "--out", str(out)]
+    proc = _run_cli(*args)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stderr.count("preview @") == 2
+    assert "progressive wavefront, cpu)" in proc.stdout
+    with np.load(ckpt) as saved:
+        assert int(saved["samples_done"]) == 3 and int(saved["seed"]) == 0
+    scene, cam, cfg = build_preset("three-spheres", device="cpu", nx=16,
+                                   ny=8, spp=3)
+    want = timg.to_uint8(render_image(scene, cam, cfg, device="cpu"))
+    got = timg.read_png(str(out))
+    assert (np.abs(got.astype(int) - want.astype(int)) <= 1).all()
+    np.testing.assert_array_equal(timg.read_png(str(preview)), got)
+    again = _run_cli(*args)
+    assert again.returncode == 0 and "preview @" not in again.stderr
+
+
+@pytest.mark.parametrize("accel", [[], ["--bvh"], ["--clustered"]],
+                         ids=["dense-sweep", "bvh", "clustered"])
+def test_cli_bench(accel):
+    """``bench`` prints one JSON line: the timed batch's seconds, Mpaths/s,
+    Mrays/s (its segments) and the accel used."""
+    proc = _run_cli("--preset", "three-spheres", "--nx", "16", "--ny", "8",
+                    "--spp", "2", "--rays", "100", *accel, cmd="bench")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["rays"] == 100 and out["device"] == "cpu"
+    assert out["seconds"] > 0 and out["mpaths_per_s"] > 0
+    assert 1.0 <= out["avg_path_length"] <= 51
+    want = {"[]": None, "['--bvh']": "FlatBVH",
+            "['--clustered']": "ClusteredScenePack"}[str(accel)]
+    assert out["accel"] == want
+
+
+def test_cli_fit_with_the_clustered_intersector():
+    """``fit --clustered`` (the direct step, closest hit by K5's plain
+    version): its first loss equals the JAX CLI's step-0 loss (same
+    winners as the dense sweep) within ``rtol=1e-5``; no kernel launches
+    on the CPU."""
+    args = ["--preset", "random-spheres", "--nx", "16", "--ny", "8",
+            "--spp", "2", "--fields", "albedo", "--opt", "sgd", "--lr",
+            "0.5", "--steps", "2", "--log-every", "1", "--clustered"]
+    proc = _run_cli(*args, cmd="fit")
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(line) for line in proc.stdout.splitlines()]
+    steps, last = lines[:-1], lines[-1]
+    assert [s["step"] for s in steps] == [0, 1]
+    assert set(last["kernel_launches"].values()) == {0}
+    want = _jax_fit_first_loss("random-spheres", ("albedo",), 0, nx=16,
+                               ny=8, spp=2)
+    np.testing.assert_allclose(steps[0]["loss"], want, rtol=1e-5)

@@ -1,5 +1,6 @@
-"""K1, K2, K2b, K3 and K3t (the CUDA kernels) against their plain versions
-on the card, and a gradient step through K2b.
+"""K1, K2, K2b, K3, K3t, K4 and K5 (the CUDA kernels) against their plain
+versions on the card, a gradient step through K2b, and the wavefront and
+regenerative renders through K4 and K5.
 
 Marked ``cuda``; skipped where ``torch.cuda.is_available()`` is False.
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -16,7 +17,10 @@ coplanar triangle mesh (tests/test_record_mega.py:30-43); K2 must leave
 K1's radiance and segments bit-equal, and K2b's tape must equal K2's.  K3
 and K3t take the same bounds against their plain versions (triangle fields
 per pixel: their paths are chaotic), and K3's gates may only cut work: its
-sweep counters stay at or below an ungated sweep's.
+sweep counters stay at or below an ungated sweep's.  K4 and K5 must equal
+their plain versions exactly (hits, primitives and t: the same operation
+order, built with ``--fmad=false``, and a correctly rounded square root in
+both), and K5 must equal K4.
 """
 import dataclasses
 
@@ -279,3 +283,106 @@ def test_divide_rounds_as_on_the_cpu(cuda_device):
     x = torch.rand(1 << 16, generator=torch.Generator().manual_seed(3)) * 800
     want = divide(x, 800)
     assert torch.equal(divide(x.to(cuda_device), 800).cpu(), want)
+
+
+INTERSECT = [
+    ("three-spheres", {}), ("random-spheres", {}), ("triangle-mesh", {}),
+    ("sphere-field", dict(n=600)), ("triangle-field", dict(n=2000)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", INTERSECT,
+                         ids=[_clustered_id(c) for c in INTERSECT])
+def test_intersect_kernels_match_plain(cuda_device, name, kw):
+    """K4 and K5 (max_leaf 1, 7, 128) on the camera's rays and on 4096
+    random rays (uniform origins in [-8, 8]^3): equal to their plain
+    versions and to each other; each launch moves its counter."""
+    from first_raytracer_tpu_torch.kernels import intersect_clustered as ic
+    from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
+    from first_raytracer_tpu_torch.render.camera import generate_rays
+
+    scene, cam, cfg = build_preset(name, device=cuda_device, nx=64, ny=32,
+                                   spp=2, **kw)
+    g = torch.Generator().manual_seed(0)
+    o = (torch.rand((4096, 3), generator=g) * 16 - 8).to(cuda_device)
+    d = torch.randn((4096, 3), generator=g)
+    d = (d / d.norm(dim=1, keepdim=True)).to(cuda_device)
+    ids = torch.arange(cfg.num_rays, device=cuda_device)
+    co, cd = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                           rng.camera_uniforms(rng.base_key(0), ids))
+    dense = ip.pack_scene_pallas(scene)
+    for rays in ((o, d), (co, cd)):
+        before = ip.intersect_pallas.launches
+        k4 = ip.intersect_pallas(scene, dense, *rays, 1e-3)
+        torch.cuda.synchronize()
+        assert ip.intersect_pallas.launches == before + 1
+        for a, b in zip(k4, ip.intersect_pallas_reference(scene, dense,
+                                                          *rays, 1e-3)):
+            assert torch.equal(a, b)
+        for max_leaf in (1, 7, 128):
+            pack = ic.pack_scene_clustered(scene, max_leaf=max_leaf)
+            before = ic.intersect_clustered.launches
+            *k5, sweeps = ic.intersect_clustered(scene, pack, *rays, 1e-3,
+                                                 return_iters=True)
+            torch.cuda.synchronize()
+            assert ic.intersect_clustered.launches == before + 1
+            plain = ic.intersect_clustered_reference(scene, pack, *rays,
+                                                     1e-3)
+            for a, b, c in zip(k5, plain, k4):
+                assert torch.equal(a, b) and torch.equal(a, c)
+            ungated = torch.tensor(
+                [pack.sph_clusters + pack.tri_clusters,
+                 scene.num_spheres, scene.num_triangles],
+                device=cuda_device)
+            assert (sweeps[:, :3] <= ungated).all()
+
+
+@pytest.mark.cuda
+def test_wavefront_renders_through_k4_and_k5(cuda_device):
+    """render_image on the card, wavefront and regenerative, through K4 and
+    K5: the four images equal (``atol=2e-6``) and within the image bound
+    of K1's; both counters move."""
+    from first_raytracer_tpu_torch.kernels import intersect_clustered as ic
+    from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
+    from first_raytracer_tpu_torch.render.api import render_image
+
+    scene, cam, cfg = build_preset("random-spheres", device=cuda_device,
+                                   nx=96, ny=64, spp=2)
+    before = (ip.intersect_pallas.launches, ic.intersect_clustered.launches)
+    imgs = [render_image(scene, cam, cfg, accel=accel, mode=mode,
+                         pool_size=4096, device=cuda_device)
+            for accel in (ip.pack_scene_pallas(scene),
+                          ic.pack_scene_clustered(scene))
+            for mode in ("wavefront", "regenerative")]
+    torch.cuda.synchronize()
+    assert ip.intersect_pallas.launches > before[0]
+    assert ic.intersect_clustered.launches > before[1]
+    for img in imgs[1:]:
+        torch.testing.assert_close(img, imgs[0], atol=2e-6, rtol=0)
+    mega = mk.render_image_mega(scene, cam, cfg, device=cuda_device)
+    diff = (imgs[0] - mega).abs().cpu()
+    assert float((diff > 1e-3).float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+def test_intersect_kernels_refuse_bad_input(cuda_device):
+    from first_raytracer_tpu_torch.kernels import intersect_clustered as ic
+    from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
+
+    scene, _, _ = build_preset("three-spheres", device=cuda_device)
+    o = torch.zeros((8, 3), device=cuda_device)
+    d = torch.ones((8, 3), device=cuda_device)
+    dense = ip.pack_scene_pallas(scene)
+    with pytest.raises(ValueError, match="dtype"):
+        ip.intersect_pallas(scene, dataclasses.replace(
+            dense, spheres=dense.spheres.double()), o, d, 1e-3)
+    with pytest.raises(ValueError, match="device"):
+        ip.intersect_pallas(scene, dense, o.cpu(), d.cpu(), 1e-3)
+    pack = ic.pack_scene_clustered(scene)
+    with pytest.raises(ValueError, match="dtype"):
+        ic.intersect_clustered(scene, dataclasses.replace(
+            pack, sph_gid=pack.sph_gid.long()), o, d, 1e-3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ic.intersect_clustered(scene, dataclasses.replace(
+            pack, sph_box=pack.sph_box.t().contiguous().t()), o, d, 1e-3)

@@ -422,3 +422,68 @@ if __name__ == "__main__":
     print(f"wrote {GOLDEN} and {GOLDEN_TAPE}: loss {g['loss']}")
     print(json.dumps({k: v["f32"] for k, v in g["f64"]["fields"].items()},
                      indent=1))
+
+
+@pytest.mark.parametrize("kind", ["dense", "clustered", "bvh"])
+def test_gradients_and_fit_step_with_an_accel(kind):
+    """``render_loss_and_grads`` and ``make_fit_step`` with an accel
+    against JAX's with the same accel (its Pallas intersectors in interpret
+    mode), random-spheres 16x8 @ 2, albedo: the loss ``rtol=1e-5`` and the
+    gradient ``rtol=1e-4, atol=1e-6`` (the tape-swap bound of
+    tests/test_record_mega.py:109-112), a three-step SGD trajectory by loss
+    ``rtol=1e-4``; and the port's with and without the accel equal."""
+    import functools
+
+    from first_raytracer_tpu.accel.build import build_bvh as jax_bvh
+    from first_raytracer_tpu.kernels import intersect_clustered as jic
+    from first_raytracer_tpu.kernels import intersect_pallas as jip
+    from first_raytracer_tpu_torch.accel.build import build_bvh
+    from first_raytracer_tpu_torch.kernels import intersect_clustered as tic
+    from first_raytracer_tpu_torch.kernels import intersect_pallas as tip
+
+    js, jc, cfg = jb.random_scene(nx=16, ny=8, spp=2)
+    cfg = dataclasses.replace(cfg, max_depth=8)
+    key = jrng.base_key(0)
+    ids = jnp.arange(cfg.num_rays, dtype=jnp.int32)
+    ts, tc, tcfg = _port(js, jc, cfg)
+    if kind == "bvh":
+        jacc, jfn, tacc = jax_bvh(js, backend="numpy"), None, build_bvh(ts)
+    elif kind == "dense":
+        jacc, tacc = jip.pack_scene_pallas(js), tip.pack_scene_pallas(ts)
+        jfn = functools.partial(jip.intersect_pallas, interpret=True)
+    else:
+        jacc, tacc = jic.pack_scene_clustered(js), tic.pack_scene_clustered(ts)
+        jfn = functools.partial(jic.intersect_clustered, interpret=True)
+    true_params, _ = jg.split_params(js, fields=("albedo",))
+    target = jg.ray_radiance(true_params, js, jc, cfg, key, ids, jacc, jfn)
+    bad = {"albedo": js.albedo * 0.6}
+    jloss, jgrads = jg.render_loss_and_grads(bad, js, jc, cfg, key, ids,
+                                             target, jacc, jfn)
+    tids, tkey = torch.arange(cfg.num_rays), trng.base_key(0)
+    ttarget = torch.from_numpy(np.array(target))
+    params = params_from_numpy({"albedo": np.asarray(bad["albedo"])})
+    loss, grads = tg.render_loss_and_grads(params, ts, tc, tcfg, tkey, tids,
+                                           ttarget, tacc)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(grads["albedo"].numpy(),
+                               np.asarray(jgrads["albedo"]), rtol=1e-4,
+                               atol=1e-6)
+    plain_loss, plain_grads = tg.render_loss_and_grads(
+        params, ts, tc, tcfg, tkey, tids, ttarget)
+    assert float(plain_loss) == float(loss)
+    torch.testing.assert_close(plain_grads["albedo"], grads["albedo"])
+
+    import optax
+    opt = optax.sgd(0.5)
+    jstep = jg.make_fit_step(js, jc, cfg, ids, target, opt, accel=jacc,
+                             intersect_fn=jfn)
+    jp, state, jlosses = dict(bad), opt.init(bad), []
+    for _ in range(3):
+        jl, jp, state = jstep(jp, state, key)
+        jlosses.append(float(jl))
+    step = tg.make_fit_step(ts, tc, tcfg, tids, ttarget,
+                            torch.optim.SGD(params.values(), lr=0.5),
+                            accel=tacc, device="cpu")
+    losses = [float(step(params, tkey)) for _ in range(3)]
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+    assert losses[-1] < losses[0]

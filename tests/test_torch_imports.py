@@ -10,6 +10,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "first_raytracer_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "first_raytracer_tpu")
@@ -59,3 +61,17 @@ def test_importing_every_module_loads_no_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+# The modules of the wavefront slice (intersectors, BVH, pool and
+# progressive renders, timing): each is scanned by the two checks above.
+SLICE_D = ["accel.build", "accel.native", "accel.traverse",
+           "kernels.intersect_pallas", "kernels.intersect_clustered",
+           "render.regenerative", "render.progressive", "utils.profiling"]
+
+
+@pytest.mark.parametrize("name", SLICE_D)
+def test_slice_modules_are_scanned(name):
+    full = f"first_raytracer_tpu_torch.{name}"
+    path = dict((n, p) for p, n in _modules())[full]
+    assert not [r for r in _imported_roots(path) if r in FORBIDDEN]
