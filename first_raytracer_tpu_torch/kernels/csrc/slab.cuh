@@ -33,13 +33,11 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }
 
 // True unless the ray o + t d, with inverse direction iv, surely misses the
-// box `b` for t in [t_min, bound].
-__device__ __forceinline__ bool slab_gate(const float* __restrict__ b,
-                                          float ox, float oy, float oz,
-                                          float ivx, float ivy, float ivz,
-                                          float t_min, float bound) {
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(b));
-  const float4 hi = __ldg(reinterpret_cast<const float4*>(b) + 1);
+// box whose row is `lo`, `hi` for t in [t_min, bound].
+__device__ __forceinline__ bool slab_gate(float4 lo, float4 hi, float ox,
+                                          float oy, float oz, float ivx,
+                                          float ivy, float ivz, float t_min,
+                                          float bound) {
   const float t0x = (lo.x - ox) * ivx, t1x = (lo.w - ox) * ivx;
   const float t0y = (lo.y - oy) * ivy, t1y = (hi.x - oy) * ivy;
   const float t0z = (lo.z - oz) * ivz, t1z = (hi.y - oz) * ivz;
@@ -50,6 +48,16 @@ __device__ __forceinline__ bool slab_gate(const float* __restrict__ b,
   near = near * kNearScale - kPad;
   far = far * kFarScale + kPad;
   return !(nan_max(near, t_min) > nan_min(far, bound));
+}
+
+// The same test of the box row `b` in device memory.
+__device__ __forceinline__ bool slab_gate(const float* __restrict__ b,
+                                          float ox, float oy, float oz,
+                                          float ivx, float ivy, float ivz,
+                                          float t_min, float bound) {
+  return slab_gate(__ldg(reinterpret_cast<const float4*>(b)),
+                   __ldg(reinterpret_cast<const float4*>(b) + 1), ox, oy, oz,
+                   ivx, ivy, ivz, t_min, bound);
 }
 
 }  // namespace frt

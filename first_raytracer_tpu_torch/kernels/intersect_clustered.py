@@ -4,12 +4,14 @@ integrator's intersector for large scenes, and the host's SAH clustering.
 Port of ``first_raytracer_tpu.kernels.intersect_clustered``.  The host
 (``pack_scene_clustered``, NumPy copied from the JAX package) cuts each
 primitive type into SAH clusters of at most ``max_leaf`` (<= 128) slots,
-each with a box; ``_cluster_type`` also decides the clusters of the
-clustered megakernel's pack (``megakernel_clustered.py``).  On a CUDA
-device ``intersect_clustered`` launches the hand-written kernel in
+each with a box, and bounds each run of ``_SUPER_FANOUT`` consecutive
+clusters by a supergroup box; ``_cluster_type`` and ``_span_boxes`` also
+serve the clustered megakernel's pack (``megakernel_clustered.py``).  On a
+CUDA device ``intersect_clustered`` launches the hand-written kernel in
 ``csrc/intersect.cu``: one thread per ray runs the sphere pass over the
 sphere clusters in pack order, then the triangle pass seeded with its
-winner, slab-tests each cluster's box against the ray's current best t and
+winner; it slab-tests each supergroup's box against the ray's current best
+t, then the boxes of the clusters of each supergroup that passes, and
 sweeps the clusters that pass; the winner is the lexicographic minimum of
 (t, global id), so it does not depend on which gates fire, and a sphere
 wins a sphere/triangle tie.  On the CPU it runs
@@ -21,7 +23,10 @@ Not carried over: the JAX pack's 8 MiB ``vmem_budget_bytes`` guard, which
 bounds the TPU kernel's VMEM (the card reads the planes from device
 memory, where a 20,000-primitive scene takes 10 MB); the TPU's ray tiles,
 ``C_BLK`` blocks and per-tile gates.  The pack keeps JAX's arrays, f32 gid
-rows included, and adds int32 gids and member counts for the kernel.
+rows included, and adds for the kernel the supergroup boxes, int32 gids
+and member counts, and each slot's primitive as 16-byte rows in the form
+the kernel tests: (cx, cy, cz, r*r) and (v0, v1 - v0, v2 - v0), each
+rounded once, as the plain version's arithmetic rounds it.
 """
 from __future__ import annotations
 
@@ -43,8 +48,10 @@ REPLACES = "first_raytracer_tpu/kernels/intersect_clustered.py:272"
 _BIG = 1e30
 _LANE = 128          # cluster slot capacity
 C_BLK = 16           # the JAX pack pads the cluster count to a multiple
+_SUPER_FANOUT = 8    # clusters per supergroup
 # Per-ray counters of ``return_iters``: clusters swept (spheres and
-# triangles), sphere and triangle slots tested, cluster boxes slab-tested.
+# triangles), sphere and triangle slots tested, supergroup and cluster boxes
+# slab-tested.
 SWEEP_COLUMNS = ("clusters", "sphere_slots", "triangle_slots", "box_tests")
 
 
@@ -60,6 +67,13 @@ class ClusteredScenePack:
     (K_pad, 128) int32 hold each slot's global id (triangles offset by Ns,
     0 in empty slots), ``sph_count``/``tri_count`` (K_pad,) int32 the
     members of each cluster, which fill its first slots.
+    ``sph_super_box``/``tri_super_box`` (K_pad / 8, 8) f32 bound the runs
+    of ``_SUPER_FANOUT`` consecutive clusters (the padding clusters'
+    inverted boxes add nothing).  ``sph_vec`` (K_pad * 128, 4) holds slot
+    ``128 k + j``'s (cx, cy, cz, r*r), (0, 0, 0, -inf) in empty slots (a
+    sphere no ray hits: the kernel sweeps whole groups of 4 slots);
+    ``tri_vec`` (K_pad * 128, 12) its (v0, 0, v1 - v0, 0, v2 - v0, 0),
+    zeros in empty slots.
     """
 
     sph: torch.Tensor      # (Ks_pad*8, 128) f32: per cluster cx cy cz r gid
@@ -72,6 +86,10 @@ class ClusteredScenePack:
     tri_gid: torch.Tensor
     sph_count: torch.Tensor
     tri_count: torch.Tensor
+    sph_super_box: torch.Tensor
+    tri_super_box: torch.Tensor
+    sph_vec: torch.Tensor
+    tri_vec: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -137,6 +155,15 @@ def _cluster_type(bmin, bmax, gids, max_leaf):
     return boxes, [gids[ids] for ids in clusters]
 
 
+def _span_boxes(boxes, spans):
+    """Supergroup AABBs = union of each span's cluster boxes."""
+    sb = np.zeros((len(spans), 8), np.float32)
+    for i, (a, b) in enumerate(spans):
+        sb[i, 0:3] = boxes[a:b, 0:3].min(axis=0)
+        sb[i, 3:6] = boxes[a:b, 3:6].max(axis=0)
+    return sb
+
+
 def pack_scene_clustered(scene, max_leaf: int = _LANE
                          ) -> ClusteredScenePack:
     """Host-side clustering and repack (once per scene); the tables land on
@@ -163,7 +190,11 @@ def pack_scene_clustered(scene, max_leaf: int = _LANE
             fill(geo[kk * rows:(kk + 1) * rows], gids)
             gid[kk, :len(gids)] = gids + gid0
             count[kk] = len(gids)
-        return geo, box, k, gid, count
+        return geo, box, k, gid, count, _super_boxes(box)
+
+    def _super_boxes(box):
+        return _span_boxes(box, [(a, a + _SUPER_FANOUT) for a in
+                                 range(0, box.shape[0], _SUPER_FANOUT)])
 
     def _inverted_boxes(k):
         box = np.zeros((k, 8), np.float32)
@@ -172,9 +203,10 @@ def pack_scene_clustered(scene, max_leaf: int = _LANE
         return box
 
     def empty(rows):
-        return (np.zeros((C_BLK * rows, _LANE), np.float32),
-                _inverted_boxes(C_BLK), 0,
-                np.zeros((C_BLK, _LANE), np.int32), np.zeros(C_BLK, np.int32))
+        box = _inverted_boxes(C_BLK)
+        return (np.zeros((C_BLK * rows, _LANE), np.float32), box, 0,
+                np.zeros((C_BLK, _LANE), np.int32), np.zeros(C_BLK, np.int32),
+                _super_boxes(box))
 
     sph_parts = empty(8)
     if ns:
@@ -215,13 +247,43 @@ def pack_scene_clustered(scene, max_leaf: int = _LANE
     def dev(a):
         return torch.from_numpy(a).to(scene.device)
 
-    sph, sph_box, ks, sph_gid, sph_count = sph_parts
-    tri, tri_box, kt, tri_gid, tri_count = tri_parts
+    sph, sph_box, ks, sph_gid, sph_count, sph_super = sph_parts
+    tri, tri_box, kt, tri_gid, tri_count, tri_super = tri_parts
     return ClusteredScenePack(
         sph=dev(sph), tri=dev(tri), sph_box=dev(sph_box),
         tri_box=dev(tri_box), sph_clusters=ks, tri_clusters=kt,
         sph_gid=dev(sph_gid), tri_gid=dev(tri_gid),
-        sph_count=dev(sph_count), tri_count=dev(tri_count))
+        sph_count=dev(sph_count), tri_count=dev(tri_count),
+        sph_super_box=dev(sph_super), tri_super_box=dev(tri_super),
+        sph_vec=dev(_slot_vectors(sph, 8, sph_count, _sphere_vec,
+                                  (0.0, 0.0, 0.0, -np.inf))),
+        tri_vec=dev(_slot_vectors(tri, 16, tri_count, _triangle_vec, 0.0)))
+
+
+def _sphere_vec(p):
+    """(N, 4) rows (cx, cy, cz, r*r) of the planes ``p`` (rows, N)."""
+    return np.stack([p[0], p[1], p[2], p[3] * p[3]], axis=1)
+
+
+def _triangle_vec(p):
+    """(N, 12) rows (v0, 0, v1 - v0, 0, v2 - v0, 0) of the planes ``p``."""
+    z = np.zeros_like(p[0])
+    return np.stack([p[0], p[1], p[2], z, p[3] - p[0], p[4] - p[1],
+                     p[5] - p[2], z, p[6] - p[0], p[7] - p[1], p[8] - p[2],
+                     z], axis=1)
+
+
+def _slot_vectors(planes, rows, count, form, empty):
+    """Slot ``128 k + j``'s row in the kernel's form, from the plane-major
+    ``planes`` (K_pad * rows, 128); ``empty`` in empty slots.  NumPy's
+    float32 products and differences round as the kernel's do."""
+    k_pad = count.shape[0]
+    cols = planes.reshape(k_pad, rows, _LANE).transpose(1, 0, 2).reshape(
+        rows, k_pad * _LANE)
+    vec = form(cols)
+    live = (np.arange(_LANE)[None, :] < count[:, None]).reshape(-1)
+    vec[~live] = empty
+    return np.ascontiguousarray(vec, dtype=np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -234,17 +296,23 @@ def _check_pack(pack):
 
     dev = pack.device
     f32, i32 = torch.float32, torch.int32
-    for name, rows in (("sph", 8), ("tri", 16)):
+    for name, rows, width in (("sph", 8, 4), ("tri", 16, 12)):
         k_pad = getattr(pack, f"{name}_box").shape[0]
+        if k_pad % C_BLK:
+            raise ValueError(f"{name}: {k_pad} cluster rows, not a multiple "
+                             f"of {C_BLK}")
         _check(name, getattr(pack, name), f32, (k_pad * rows, _LANE), dev)
-        box = getattr(pack, f"{name}_box")
-        _check(f"{name}_box", box, f32, (k_pad, 8), dev)
-        if box.data_ptr() % 16:
-            raise ValueError(f"{name}_box is not 16-byte aligned")
-        _check(f"{name}_gid", getattr(pack, f"{name}_gid"), i32,
-               (k_pad, _LANE), dev)
-        _check(f"{name}_count", getattr(pack, f"{name}_count"), i32,
-               (k_pad,), dev)
+        # The kernel copies these with 16-byte cp.async and float4 loads.
+        for field, dtype, shape in (
+                ("box", f32, (k_pad, 8)),
+                ("super_box", f32, (k_pad // _SUPER_FANOUT, 8)),
+                ("vec", f32, (k_pad * _LANE, width)),
+                ("gid", i32, (k_pad, _LANE)),
+                ("count", i32, (k_pad,))):
+            t = getattr(pack, f"{name}_{field}")
+            _check(f"{name}_{field}", t, dtype, shape, dev)
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}_{field} is not 16-byte aligned")
         if getattr(pack, f"{name}_clusters") > k_pad:
             raise ValueError(f"{name}: more clusters than rows")
 
@@ -263,10 +331,11 @@ def _launch_cuda(pack, o, d, t_min, return_iters):
     with torch.cuda.device(dev):  # the launch goes to the current device
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.frt_intersect_clustered(
-            o.data_ptr(), d.data_ptr(), pack.sph.data_ptr(),
-            pack.sph_box.data_ptr(), pack.sph_gid.data_ptr(),
-            pack.sph_count.data_ptr(), pack.sph_clusters,
-            pack.tri.data_ptr(), pack.tri_box.data_ptr(),
+            o.data_ptr(), d.data_ptr(), pack.sph_vec.data_ptr(),
+            pack.sph_box.data_ptr(), pack.sph_super_box.data_ptr(),
+            pack.sph_gid.data_ptr(), pack.sph_count.data_ptr(),
+            pack.sph_clusters, pack.tri_vec.data_ptr(),
+            pack.tri_box.data_ptr(), pack.tri_super_box.data_ptr(),
             pack.tri_gid.data_ptr(), pack.tri_count.data_ptr(),
             pack.tri_clusters, R, ctypes.c_float(t_min), t.data_ptr(),
             prim.data_ptr(), None if sweeps is None else sweeps.data_ptr(),
@@ -289,9 +358,9 @@ def intersect_clustered(scene, accel, origin, direction, t_min,
     Launches K5 for CUDA tensors and runs the plain version for CPU
     tensors; the device is the pack's.  With ``return_iters=True`` also
     the per-ray (R, 4) int32 counters of ``SWEEP_COLUMNS``: what K5's
-    gated sweep did, or, for the plain version, what an ungated sweep does
-    (every cluster of each present type, no box tests).  ``scene`` is not
-    read.
+    gated sweep did (its box tests count every slab test, supergroups and
+    clusters), or, for the plain version, what an ungated sweep does (every
+    cluster of each present type, no box tests).  ``scene`` is not read.
     """
     dev = accel.device
     o, d = check_rays(origin, direction, dev)

@@ -7,9 +7,11 @@ the nearest hit past ``t_min`` among every sphere (the oc-form quadratic of
 sphere index wins a tie, triangles are numbered from Ns and win only at a
 strictly smaller t, and a miss gives t = 1e30 and prim 0.  On a CUDA device
 ``intersect_pallas`` launches the hand-written kernel in
-``csrc/intersect.cu`` (one thread per ray); on the CPU it runs
-``intersect_pallas_reference``, the same function in plain PyTorch, with
-the kernel's operation order.  A tensor on any other device is refused;
+``csrc/intersect.cu``, which stages the planes through shared memory in
+tiles rewritten as (cx, cy, cz, r*r) and (v0, v1 - v0, v2 - v0) rows and
+tests each staged primitive against several rays a thread; on the CPU it
+runs ``intersect_pallas_reference``, the same function in plain PyTorch,
+with the kernel's operation order.  A tensor on any other device is refused;
 nothing falls back.
 
 ``pack_scene_pallas`` is the JAX package's host NumPy, copied, so the
@@ -113,6 +115,10 @@ def _launch_cuda(pack, o, d, t_min):
     _check("spheres", pack.spheres, torch.float32,
            (8, pack.spheres.shape[1]), dev)
     _check("tris", pack.tris, torch.float32, (16, pack.tris.shape[1]), dev)
+    for name, x in (("spheres", pack.spheres), ("tris", pack.tris)):
+        # The kernel copies whole 16-byte runs of each plane into its tiles.
+        if x.data_ptr() % 16 or x.shape[1] % 4:
+            raise ValueError(f"{name} is not in 16-byte aligned planes")
     lib, _ = load_mega_library()
     R = o.shape[0]
     t = torch.empty((R,), dtype=torch.float32, device=dev)

@@ -254,7 +254,7 @@ def load_mega_library():
         [ptr] * 3 + [i32] * 2 + [ptr] + [i32] * 3 + [f32] + [ptr] * 3)
     lib.frt_intersect_dense.restype = i32
     lib.frt_intersect_clustered.argtypes = (
-        [ptr] * 6 + [i32] + [ptr] * 4 + [i32] * 2 + [f32] + [ptr] * 4)
+        [ptr] * 7 + [i32] + [ptr] * 5 + [i32] * 2 + [f32] + [ptr] * 4)
     lib.frt_intersect_clustered.restype = i32
     # The clustered tables: 12 pointers, then ns, nt, the two supergroup
     # counts and the two column counts.

@@ -31,7 +31,7 @@ import torch
 
 from ..core import rng
 from ..geometry.aabb import sphere_aabb_np
-from .intersect_clustered import _cluster_type
+from .intersect_clustered import _SUPER_FANOUT, _cluster_type, _span_boxes
 from .megakernel import (BIG, TRI_ROWS, _check, _extent, _merge_surface,
                          _sweep, camera_table, load_mega_library,
                          render_reference)
@@ -43,7 +43,6 @@ __all__ = ["MegaClusteredPack", "ClusterLayout", "pack_scene_mega_clustered",
 
 REPLACES = "first_raytracer_tpu/kernels/megakernel_clustered.py:532"
 _LANE = 128           # cluster slot capacity
-_SUPER_FANOUT = 8     # clusters per supergroup
 _SPH_ROWS = 16
 # Sphere payload rows (cluster-major columns): 0-2 center, 3 radius, 4 param
 # (fuzz | ref_idx), 5-7 albedo, 8-10 albedo2, 11 tex_scale, 12 original
@@ -169,15 +168,6 @@ def _member_boxes(bmin, bmax, slot_ids):
         boxes[k, 0:3] = bmin[gids].min(axis=0)
         boxes[k, 3:6] = bmax[gids].max(axis=0)
     return boxes
-
-
-def _span_boxes(boxes, spans):
-    """Supergroup AABBs = union of each span's cluster boxes."""
-    sb = np.zeros((len(spans), 8), np.float32)
-    for i, (a, b) in enumerate(spans):
-        sb[i, 0:3] = boxes[a:b, 0:3].min(axis=0)
-        sb[i, 3:6] = boxes[a:b, 3:6].max(axis=0)
-    return sb
 
 
 def _starts(spans, k):

@@ -1,0 +1,266 @@
+"""K1, K3, K4 or K5 in one checkout, for comparing two commits on one card.
+
+For each kernel named: its ptxas line (registers, spills) and the SASS
+instruction count of its functions (``cuobjdump -sass``), then its CUDA-event
+times, median of the repeats after a warm launch:
+
+- k1: K1 on the final scene (1200x800 @ 10);
+- k3: K3 on field20000 (800x450 @ 4);
+- k4: K4 at 2^17 camera rays of the final scene, and over one regenerative
+  frame of it (pool 2^17);
+- k5: K5 at 2^17 camera rays of field20000 and of trifield20000, and over
+  one wavefront frame of field20000 (chunks of 2^17);
+- frames: the whole frames those kernels serve, host clock around
+  ``render_image`` and a synchronize, median of 3 after a warm frame: the
+  final scene regenerative (pool 2^17, K4), field20000 and trifield20000
+  wavefront (chunks of 2^17, K5).
+
+K4 and K5 take 0.05-0.2 ms a launch, less than the host's cost of one call
+of their wrappers, so the wrapper's calls are captured in a CUDA graph and
+the graph's replays timed: 20 calls at 2^17 rays; for a frame, every batch
+the frame hands its intersector, recorded once and captured back to back.
+The sum of events around each call of the frame (the wrapper's host time
+included, as ``chip_smoke.py`` clocks a frame) is printed beside it.
+
+Run from the repository root on a GPU host, each checkout in its own
+process, in turns (parent, change, change, parent):
+
+    git archive <parent> | tar -x -C out/parent
+    for t in out/parent . . out/parent; do
+        PYTHONPATH=. python probes/turns.py $t k1 k3 k4 k5; done
+
+The checkout's own package is imported (its path goes first on sys.path),
+so the parent is measured with its own kernels and wrappers.
+"""
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+CHECKOUT = sys.argv[1]
+sys.path.insert(0, CHECKOUT)
+
+import torch  # noqa: E402
+from torch.utils.cpp_extension import CUDA_HOME  # noqa: E402
+
+from first_raytracer_tpu_torch.core import rng  # noqa: E402
+from first_raytracer_tpu_torch.kernels import intersect_clustered as ic  # noqa: E402,E501
+from first_raytracer_tpu_torch.kernels import intersect_pallas as ip  # noqa: E402,E501
+from first_raytracer_tpu_torch.kernels import megakernel as mk  # noqa: E402
+from first_raytracer_tpu_torch.kernels import megakernel_clustered as mc  # noqa: E402,E501
+from first_raytracer_tpu_torch.render.api import render_image  # noqa: E402
+from first_raytracer_tpu_torch.render.camera import generate_rays  # noqa: E402,E501
+from first_raytracer_tpu_torch.scene.builders import build_preset  # noqa: E402,E501
+
+RAYS = 1 << 17
+# Kernel -> the function names of its entries in the library.
+ENTRIES = {"k1": ("mega_kernel",), "k3": ("mega_clustered_kernel",),
+           "k4": ("intersect_dense_kernel",),
+           "k5": ("intersect_clustered_kernel",), "frames": ()}
+
+
+def say(*parts):
+    print(CHECKOUT, *parts, flush=True)
+
+
+def event_ms(fn, repeats):
+    """Median and sorted CUDA-event milliseconds of ``fn`` after a warm
+    call."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), [round(t, 5) for t in sorted(times)]
+
+
+def graph_ms(fn, repeats, inner=1):
+    """Median and sorted milliseconds per call of ``fn``: ``inner`` calls
+    captured in one CUDA graph, its replays timed by events."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    med, times = event_ms(graph.replay, repeats)
+    return med / inner, [round(t / inner, 5) for t in times]
+
+
+class Clocked:
+    """An ``intersect_fn`` that records CUDA events around each call."""
+
+    def __init__(self, fn):
+        self.fn, self.events = fn, []
+
+    def __call__(self, scene, accel, o, d, t_min):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.fn(scene, accel, o, d, t_min)
+        end.record()
+        self.events.append((start, end))
+        return out
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+class Recorded:
+    """An ``intersect_fn`` that keeps a copy of every batch it is handed."""
+
+    def __init__(self, fn):
+        self.fn, self.batches = fn, []
+
+    def __call__(self, scene, accel, o, d, t_min):
+        self.batches.append((o.clone(), d.clone(), t_min))
+        return self.fn(scene, accel, o, d, t_min)
+
+    def replay_ms(self, scene, accel):
+        """The batches through ``fn`` back to back in one CUDA graph:
+        median of 3 replays."""
+        return graph_ms(lambda: [self.fn(scene, accel, o, d, t)
+                                 for o, d, t in self.batches], 3)
+
+
+def frame_ms(fn, render, scene, accel, what):
+    """``fn`` over the frame ``render(intersect_fn)`` draws: the batches
+    replayed back to back, and the per-call event sums of three frames."""
+    rec = Recorded(fn)
+    render(rec)
+    say(f"{what} replayed ms", *rec.replay_ms(scene, accel), "launches",
+        len(rec.batches), "rays", sum(o.shape[0] for o, _, _ in
+                                      rec.batches))
+    del rec
+    sums = []
+    for _ in range(3):
+        clock = Clocked(fn)
+        render(clock)
+        sums.append(clock.ms())
+    say(f"{what} per-call events ms", statistics.median(sums), sorted(sums))
+
+
+def camera_rays(scene, cam, cfg):
+    ids = torch.arange(RAYS, device=scene.device)
+    return generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                         rng.camera_uniforms(rng.base_key(0), ids))
+
+
+def code(info, kernels):
+    """The ptxas register lines and SASS instruction counts of the named
+    kernels' entries."""
+    entry = None
+    for line in info.log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif ("registers" in line or "spill" in line) and entry and any(
+                n in entry for k in kernels for n in ENTRIES[k]):
+            say("ptxas", entry[:60], line.split(":", 1)[-1].strip())
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", info.path],
+        capture_output=True, text=True, check=True).stdout
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if any(n in name for k in kernels for n in ENTRIES[k]):
+            say("SASS", name[:60], "instructions",
+                len(re.findall(r"/\*[0-9a-f]{4}\*/", body)))
+
+
+def k1():
+    scene, cam, cfg = build_preset("random-spheres", device="cuda")
+    pack = mk.pack_scene_mega(scene)
+    key = rng.base_key(0)
+    say("K1 final scene ms", *event_ms(
+        lambda: mk.render_pixels_mega(pack, cam, cfg, key), 5))
+
+
+def k3():
+    scene, cam, cfg = build_preset("sphere-field", device="cuda", n=20000)
+    pack = mc.pack_scene_mega_clustered(scene, cam)
+    key = rng.base_key(0)
+    say("K3 field20000 ms", *event_ms(
+        lambda: mc.render_pixels_mega_clustered(pack, cam, cfg, key), 5))
+
+
+def k4():
+    scene, cam, cfg = build_preset("random-spheres", device="cuda")
+    pack = ip.pack_scene_pallas(scene)
+    o, d = camera_rays(scene, cam, cfg)
+    say("K4 2^17 camera rays ms", *graph_ms(
+        lambda: ip.intersect_pallas(scene, pack, o, d, 1e-3), 11, 20))
+    frame_ms(ip.intersect_pallas, lambda fn: render_image(
+        scene, cam, cfg, seed=0, accel=pack, intersect_fn=fn,
+        mode="regenerative", pool_size=RAYS, device="cuda"), scene, pack,
+        "K4 regenerative frame")
+
+
+def k5():
+    for label, preset in (("field20000", "sphere-field"),
+                          ("trifield20000", "triangle-field")):
+        scene, cam, cfg = build_preset(preset, device="cuda", n=20000)
+        pack = ic.pack_scene_clustered(scene)
+        o, d = camera_rays(scene, cam, cfg)
+        say(f"K5 {label} 2^17 camera rays ms", *graph_ms(
+            lambda: ic.intersect_clustered(scene, pack, o, d, 1e-3), 11, 20))
+        if label != "field20000":
+            continue
+        *_, sweeps = ic.intersect_clustered(scene, pack, o, d, 1e-3,
+                                            return_iters=True)
+        say(f"K5 {label} per camera ray: boxes",
+            float(sweeps[:, 3].float().mean()), "clusters swept",
+            float(sweeps[:, 0].float().mean()))
+        frame_ms(ic.intersect_clustered, lambda fn: render_image(
+            scene, cam, cfg, seed=0, accel=pack, intersect_fn=fn,
+            chunk=RAYS, device="cuda"), scene, pack, f"K5 {label} frame")
+
+
+def host_s(fn, repeats):
+    """Median and sorted seconds of ``fn`` and all it queued, after a warm
+    call."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), [round(t, 4) for t in sorted(times)]
+
+
+def frames():
+    scene, cam, cfg = build_preset("random-spheres", device="cuda")
+    pack = ip.pack_scene_pallas(scene)
+    say("regenerative final scene s/frame", *host_s(lambda: render_image(
+        scene, cam, cfg, seed=0, accel=pack, mode="regenerative",
+        pool_size=RAYS, device="cuda"), 3))
+    for label, preset in (("field20000", "sphere-field"),
+                          ("trifield20000", "triangle-field")):
+        scene, cam, cfg = build_preset(preset, device="cuda", n=20000)
+        say(f"{label} wavefront s/frame", *host_s(lambda: render_image(
+            scene, cam, cfg, seed=0, accel=ic.pack_scene_clustered(scene),
+            chunk=RAYS, device="cuda"), 3))
+
+
+def main():
+    kernels = sys.argv[2:] or ["k1"]
+    for k in kernels:
+        if k not in ENTRIES:
+            raise SystemExit(f"unknown kernel {k}: one of {list(ENTRIES)}")
+    _, info = mk.load_mega_library()
+    say("build", f"{info.seconds:.1f} s", "cached" if info.cached else "")
+    code(info, kernels)
+    for k in kernels:
+        globals()[k]()
+
+
+if __name__ == "__main__":
+    main()

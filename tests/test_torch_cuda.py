@@ -338,6 +338,61 @@ def test_intersect_kernels_match_plain(cuda_device, name, kw):
             assert (sweeps[:, :3] <= ungated).all()
 
 
+def _camera_rays(scene, cam, cfg):
+    from first_raytracer_tpu_torch.render.camera import generate_rays
+
+    ids = torch.arange(cfg.num_rays, device=scene.device)
+    return generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                         rng.camera_uniforms(rng.base_key(0), ids))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", [("sphere-field", 5000),
+                                    ("triangle-field", 2000)])
+def test_dense_kernel_streams_tiles(cuda_device, name, n):
+    """K4 past one shared-memory tile (512 spheres, 256 triangles): equal
+    to its plain version on the camera's rays and on 4096 random rays."""
+    from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
+
+    scene, cam, cfg = build_preset(name, device=cuda_device, n=n, nx=64,
+                                   ny=32, spp=2)
+    dense = ip.pack_scene_pallas(scene)
+    assert dense.sphere_rows > 512 or dense.tri_rows > 256
+    g = torch.Generator().manual_seed(1)
+    o = (torch.rand((4096, 3), generator=g) * 16 - 8).to(cuda_device)
+    d = torch.randn((4096, 3), generator=g)
+    d = (d / d.norm(dim=1, keepdim=True)).to(cuda_device)
+    for rays in ((o, d), _camera_rays(scene, cam, cfg)):
+        got = ip.intersect_pallas(scene, dense, *rays, 1e-3)
+        want = ip.intersect_pallas_reference(scene, dense, *rays, 1e-3)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_clustered_kernel_box_tests(cuda_device):
+    """K5's supergroup level on sphere_field(5000)'s camera rays: at most
+    one box test per cluster and supergroup on every ray, fewer than one
+    per cluster on average, and the winner still K4's."""
+    from first_raytracer_tpu_torch.kernels import intersect_clustered as ic
+    from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
+
+    scene, cam, cfg = build_preset("sphere-field", device=cuda_device,
+                                   n=5000, nx=64, ny=32, spp=2)
+    rays = _camera_rays(scene, cam, cfg)
+    pack = ic.pack_scene_clustered(scene)
+    *k5, sweeps = ic.intersect_clustered(scene, pack, *rays, 1e-3,
+                                         return_iters=True)
+    k = pack.sph_clusters + pack.tri_clusters
+    kss = -(-pack.sph_clusters // 8) - (-pack.tri_clusters // 8)
+    boxes = sweeps[:, 3]
+    assert int(boxes.max()) <= k + kss
+    assert float(boxes.float().mean()) < k
+    k4 = ip.intersect_pallas(scene, ip.pack_scene_pallas(scene), *rays, 1e-3)
+    for a, b in zip(k5, k4):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_wavefront_renders_through_k4_and_k5(cuda_device):
     """render_image on the card, wavefront and regenerative, through K4 and

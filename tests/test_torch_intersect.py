@@ -324,3 +324,182 @@ def test_guards_and_devices():
     # The counters count CUDA launches only.
     assert (tip.intersect_pallas.launches,
             tic.intersect_clustered.launches) == before
+
+
+# The presets and fields of K5's supergroup checks (the small presets,
+# sphere_field(600) and triangle_field(2000)), at three leaf sizes.
+SUPER_SCENES = {
+    "three-spheres": lambda: jb.three_spheres(),
+    "random-spheres": lambda: jb.random_scene(),
+    "triangle-mesh": lambda: jb.triangle_scene(),
+    "camera-effects": lambda: jb.camera_showcase(),
+    "sphere-field-600": lambda: jb.sphere_field(n=600),
+    "triangle-field-2000": lambda: jb.triangle_field(n=2000),
+}
+SUPER_CASES = [(name, leaf) for name in SUPER_SCENES for leaf in (1, 7, 128)]
+SUPER_IDS = [f"{n}-{m}" for n, m in SUPER_CASES]
+
+
+@pytest.mark.parametrize("name,max_leaf", SUPER_CASES, ids=SUPER_IDS)
+def test_clustered_pack_keeps_jax_arrays(name, max_leaf):
+    """The supergroup level adds arrays and reorders nothing: the first six
+    fields equal JAX's at every leaf size, and the kernel's rows are the
+    planes' (cx, cy, cz, r*r) and (v0, v1 - v0, v2 - v0), rounded once;
+    an empty sphere slot holds (0, 0, 0, -inf), which no ray hits."""
+    js = SUPER_SCENES[name]()[0]
+    ts = scene_from_numpy(js.as_numpy())
+    # The TPU's VMEM budget does not bound the port's pack.
+    want = jic.pack_scene_clustered(js, max_leaf=max_leaf,
+                                    vmem_budget_bytes=1 << 30)
+    got = tic.pack_scene_clustered(ts, max_leaf=max_leaf)
+    for f in ("sph", "tri", "sph_box", "tri_box"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)))
+    assert (got.sph_clusters, got.tri_clusters) == (want.sph_clusters,
+                                                    want.tri_clusters)
+    for f, rows, width in (("sph", 8, 4), ("tri", 16, 12)):
+        planes = np.asarray(getattr(want, f)).reshape(-1, rows, 128)
+        cols = planes.transpose(0, 2, 1).reshape(-1, rows)  # slot-major
+        live = (np.arange(128)[None, :]
+                < getattr(got, f"{f}_count").numpy()[:, None]).reshape(-1)
+        vec = getattr(got, f"{f}_vec").numpy()
+        assert vec.shape == (cols.shape[0], width)
+        empty = [0, 0, 0, -np.inf] if f == "sph" else [0] * 12
+        assert (vec[~live] == empty).all()
+        c = cols[live]
+        if f == "sph":
+            want_vec = np.stack([c[:, 0], c[:, 1], c[:, 2],
+                                 c[:, 3] * c[:, 3]], axis=1)
+        else:
+            z = np.zeros_like(c[:, 0])
+            want_vec = np.stack(
+                [c[:, 0], c[:, 1], c[:, 2], z,
+                 c[:, 3] - c[:, 0], c[:, 4] - c[:, 1], c[:, 5] - c[:, 2], z,
+                 c[:, 6] - c[:, 0], c[:, 7] - c[:, 1], c[:, 8] - c[:, 2], z],
+                axis=1)
+        np.testing.assert_array_equal(vec[live], want_vec)
+
+
+@pytest.mark.parametrize("name,max_leaf", SUPER_CASES, ids=SUPER_IDS)
+def test_supergroup_boxes_bound_their_clusters(name, max_leaf):
+    """Row s of a type's supergroup boxes is the union of cluster boxes
+    8 s .. 8 s + 7, the last, partial run included; rows past the true
+    clusters stay inverted, so they never pass a slab test."""
+    ts = scene_from_numpy(SUPER_SCENES[name]()[0].as_numpy())
+    pack = tic.pack_scene_clustered(ts, max_leaf=max_leaf)
+    for f in ("sph", "tri"):
+        box = getattr(pack, f"{f}_box").numpy()
+        sup = getattr(pack, f"{f}_super_box").numpy()
+        k = getattr(pack, f"{f}_clusters")
+        assert sup.shape == (box.shape[0] // 8, 8)
+        kss = -(-k // 8)
+        for s in range(kss):
+            members = box[8 * s:min(8 * s + 8, k)]
+            assert (sup[s, 0:3] <= members[:, 0:3]).all()
+            assert (sup[s, 3:6] >= members[:, 3:6]).all()
+            np.testing.assert_array_equal(sup[s, 0:3],
+                                          members[:, 0:3].min(axis=0))
+            np.testing.assert_array_equal(sup[s, 3:6],
+                                          members[:, 3:6].max(axis=0))
+        assert (sup[kss:, 0:3] == 1e30).all()
+        assert (sup[kss:, 3:6] == -1e30).all()
+
+
+# slab.cuh's widening, in float32 as the kernel computes it.
+_NEAR = torch.tensor(1.0) - torch.tensor(4e-6)
+_FAR = torch.tensor(1.0) + torch.tensor(4e-6)
+_PAD = torch.tensor(1e-6)
+
+
+def _slab_gate(box, o, iv, t_min, bound):
+    """slab.cuh::slab_gate in plain torch: (R, 8) box rows, (R, 3) origins
+    and inverse directions, (R,) bounds; True unless the ray surely misses
+    the box in [t_min, bound].  torch.minimum and torch.maximum return NaN
+    when either operand is NaN, as the kernel's nan_min and nan_max do, so
+    a NaN interval passes."""
+    t0 = (box[:, 0:3] - o) * iv
+    t1 = (box[:, 3:6] - o) * iv
+    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+    far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+    near = near * _NEAR - _PAD
+    far = far * _FAR + _PAD
+    return ~(torch.maximum(near, torch.tensor(t_min)) >
+             torch.minimum(far, bound))
+
+
+def _two_level_sweep(pack, o, d, t_min):
+    """K5's gated sweep in plain torch: per type, each supergroup's box and
+    then the boxes of its clusters slab-tested against each ray's running
+    best t, the clusters that pass swept, their hits folded as the
+    lexicographic (t, global id) minimum.  Returns (prim, t, box tests per
+    ray)."""
+    R = o.shape[0]
+    iv = 1.0 / d
+    t_best = torch.full((R,), 1e30)
+    g_best = torch.full((R,), torch.iinfo(torch.int32).max,
+                        dtype=torch.int32)
+    boxes = torch.zeros(R, dtype=torch.int32)
+    for f, rows, t_fn in (
+            ("sph", 8, lambda ray, p: tip.sphere_oc_t(*ray, *p[:4], t_min)),
+            ("tri", 16, lambda ray, p: tip.triangle_mt_t(*ray, p[:9],
+                                                         t_min))):
+        k = getattr(pack, f"{f}_clusters")
+        box, sup = getattr(pack, f"{f}_box"), getattr(pack, f"{f}_super_box")
+        planes, gid = getattr(pack, f), getattr(pack, f"{f}_gid")
+        count = getattr(pack, f"{f}_count")
+        for s in range(-(-k // 8)):
+            boxes += 1
+            open_s = _slab_gate(sup[s].expand(R, 8), o, iv, t_min, t_best)
+            for c in range(8 * s, min(8 * s + 8, k)):
+                boxes += open_s.int()
+                sweep = open_s & _slab_gate(box[c].expand(R, 8), o, iv,
+                                            t_min, t_best)
+                idx = sweep.nonzero()[:, 0]
+                m = int(count[c])
+                if not len(idx):
+                    continue
+                ray = [x[idx][:, j:j + 1] for x in (o, d) for j in range(3)]
+                t_cl = t_fn(ray, planes[c * rows:(c + 1) * rows, :m])
+                t_c, g_c = tic._lex_min(t_cl, gid[c, :m])
+                tb, gb = t_best[idx], g_best[idx]
+                better = (t_c < tb) | ((t_c == tb) & (t_c < 1e30)
+                                       & (g_c < gb))
+                t_best[idx] = torch.where(better, t_c, tb)
+                g_best[idx] = torch.where(better, g_c, gb)
+    return torch.where(t_best < 1e30, g_best, 0), t_best, boxes
+
+
+@pytest.mark.parametrize("rays", ["random", "camera"])
+@pytest.mark.parametrize("max_leaf", [1, 7, 128])
+def test_two_level_gate_never_culls_the_winner(rays, max_leaf):
+    """K5's two-level gate, written here in plain torch with slab.cuh's
+    widening and NaN rule: on 4096 random rays and on the camera rays of
+    sphere_field(5000), the gated sweep finds the plain K5's winner on
+    every ray, with fewer box tests than clusters on average and at most
+    one per cluster and supergroup on every ray.  (A gate at the winner's
+    own t could cull it: a grazing hit's f32 t can fall ~1e-3 short of its
+    sphere's box; the running best t the sweep gates against is larger
+    whenever that matters here.)"""
+    from first_raytracer_tpu_torch.scene.builders import build_preset
+
+    ts, cam, cfg = build_preset("sphere-field", n=5000, nx=64, ny=32, spp=2)
+    if rays == "random":
+        o, d = (torch.from_numpy(x) for x in _rays(4096, 5))
+    else:
+        ids = torch.arange(cfg.num_rays)
+        o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                             trng.camera_uniforms(trng.base_key(0), ids))
+    pack = tic.pack_scene_clustered(ts, max_leaf=max_leaf)
+    # The plain K4's winner is the plain K5's (test_plain_k5_matches_jax_on_
+    # a_large_field), and its sweep does not grow with small leaves' empty
+    # slots.
+    prim, t, hit = tip.intersect_pallas_reference(
+        ts, tip.pack_scene_pallas(ts), o, d, 1e-3)
+    assert int(hit.sum()) > o.shape[0] // 2
+    g_prim, g_t, boxes = _two_level_sweep(pack, o, d, 1e-3)
+    assert torch.equal(g_prim, prim) and torch.equal(g_t, t)
+    k = pack.sph_clusters + pack.tri_clusters
+    kss = -(-pack.sph_clusters // 8) - (-pack.tri_clusters // 8)
+    assert int(boxes.max()) <= k + kss
+    assert float(boxes.float().mean()) < k
