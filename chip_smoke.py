@@ -11,34 +11,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
 2. Build: compiles K1, K2, K2b, K3, K3t, K4 and K5
    (kernels/csrc/megakernel.cu, megakernel_clustered.cu and intersect.cu,
    one nvcc) for sm_90a; prints ptxas's registers and spills of every
-   kernel, K4's and K5's on lines of their own.
+   kernel, each on a line of its own.
 3. K1 vs plain: K1 and its plain PyTorch version on the same card and
-   inputs, on four small presets and at the main path's full size.  Bound:
-   ``(|a - b| > 1e-3).mean() < 0.01`` on per-pixel mean radiance, segment
-   totals within 0.1%.
+   inputs, on four small presets and at the main path's full size:
+   radiance sums and segments bit-equal (the image bound,
+   ``(|a - b| > 1e-3).mean() < 0.01`` on per-pixel mean radiance, and
+   segment totals within 0.1% are logged beside).
 4. The render path: ``render_image_mega`` on the final scene (1200x800 @ 10
    spp, depth 50, seed 0), launch counter reset before and read after,
    radiance sum within 1% of ``bench_golden.json``; median of 3 timed runs
-   after a warm run; the image goes to ``out/final_torch.png``.
+   after a warm run; the image goes to ``out/final_torch.png``.  K1's warp
+   lane efficiency (segments over 32 x its warps' steps), beside that of a
+   warp whose lanes each trace one pixel's samples in turn.
 5. K2 and K2b vs plain on the four small presets: K2's radiance and
-   segments bit-equal to K1's, K2's and K2b's tapes against the plain
-   versions' (agreement above 0.999, 0.99 on the coplanar triangle mesh),
-   K2b's tape equal to K2's and its per-ray trip counts summing to K1's
-   segments; K2's path, ``render_pixels_mega(emit_tape=True)`` over the full
-   frame, with its launch counter reset before and read after; a 512-ray
-   slice at ray id 9.5 M of the final scene through K2 and K2b equal to the
-   same columns of the full-frame K2 tape, and off the plain K2b's in at
-   most one ray; K1, K2 and K2b timed at full frame, in turns.
+   segments bit-equal to K1's, K2's and K2b's tapes and K2b's trip counts
+   bit-equal to the plain versions', K2b's tape equal to K2's and its
+   per-ray trip counts summing to K1's segments; K2's path,
+   ``render_pixels_mega(emit_tape=True)`` over the full frame, with its
+   launch counter reset before and read after; a 512-ray slice at ray id
+   9.5 M of the final scene through K2 and K2b equal to the same columns of
+   the full-frame K2 tape and to the plain K2b's; K1, K2 and K2b timed at
+   full frame, in turns.
 6. The differentiable path at full width (bench.py's grad configuration):
    the final scene, ray ids [0, 2^17), zero target, mean squared radiance,
    every DIFF_FIELDS leaf.  Counters reset, then one step (record by K2b,
    ``plan_buckets``, ``render_loss_and_grads_bucketed``) and the step's
    segment count (K2b's per-ray trip counts, bench.py's instrumentation
    pass), counters read.  Checks at that size: K2's and K2b's tapes equal,
-   each against its plain version (agreement above 0.999), K2's radiance
-   and segments against the plain K2's (the image bound, totals within
-   0.1%), K2b's trips against the plain K2b's (totals within 0.1%) and, per
-   pixel, K2's segments; K2's tape against the plain wavefront
+   each bit-equal to its plain version, K2's radiance and segments
+   bit-equal to the plain K2's, K2b's trips to the plain K2b's and, per
+   pixel, to K2's segments; K2's tape against the plain wavefront
    ``record_paths`` (above 0.999); the replay's radiance per pixel against
    K1 over the 13,107 whole pixels (the image bound); finite loss and
    gradients, a non-zero albedo gradient.  Against the JAX package's golden
@@ -55,22 +57,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
    subprocess on the card: exits 0, the loss falls, K2b launched each step.
 8. K3 vs plain on small scenes: three-spheres, random-spheres and
    triangle-mesh at 64x32, sphere_field(600) and triangle_field(2000) at
-   64x32 @ 2: the image bound, segment totals within 0.1% (per pixel on
-   triangle scenes: their paths are chaotic), and K3's sweep counters at or
-   below an ungated sweep's.  K3 against K1 at full size on field5000
-   (800x450 @ 4) and on the final scene (1200x800 @ 10): the image bound,
-   both kernels timed; the final scene's radiance sum within 1% of its
-   golden.
+   64x32 @ 2: radiance and segments bit-equal to the plain version (the
+   image bound and segment totals logged beside), and K3's sweep counters
+   at or below an ungated sweep's; K1 and K3 timed on each (the small
+   scenes of the ``DENSE_MAX`` crossover).  K3 against K1 at full size on
+   field5000 (800x450 @ 4) and on the final scene (1200x800 @ 10): the
+   image bound, both kernels timed; the final scene's radiance sum within
+   1% of its golden.
 9. The large-scene render path: ``render_image_mega_clustered`` on
    field20000, field5000 and trifield20000 at 800x450 @ 4, seed 0, launch
    counter reset before and read after (one K3 launch per frame), each
    radiance sum within 1% of its ``bench_golden.json`` golden; seconds per
    frame (median of 3 after a warm run), Mpaths/s, Mrays/s, the host pack's
-   seconds, K3's CUDA-event ms and the clusters swept per segment.  At that
-   shape K3's output is held against its plain version on the middle
-   quarter of the frame's pixels (the image bound; segment totals within
-   0.1%, per pixel on trifield20000), and the plain version is timed
-   there.
+   seconds, K3's CUDA-event ms, the clusters its lanes opened per segment
+   and the clusters each warp swept per step (its union: each opened
+   cluster once, however many lanes needed it).  At that shape K3's output
+   is held against its plain version on the middle quarter of the frame's
+   pixels (the image bound; segment totals within 0.1%, per pixel on
+   trifield20000; the pixels that differ at all are counted), and the
+   plain version is timed there.
 10. K3t and the clustered fit step: K3t's tape against the plain version
    on the small presets of phase 8 (agreement above 0.999, 0.99 on
    triangle scenes); on ray ids [0, 2^17) of field5000 against K2b's tape
@@ -203,6 +208,12 @@ BOX_OPS = 29
 # r*r and the edges are computed once per primitive, when K4 stages a tile
 # or the host packs K5's rows, not once per pair.
 OC_SPHERE_OPS, MT_TRIANGLE_OPS = 16, 46
+# Each kernel's entry in the library (a part of its mangled name).
+KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
+                  ("record_kernel", "K2b"), ("mega_clustered_kernel", "K3"),
+                  ("record_clustered_kernel", "K3t"),
+                  ("intersect_dense_kernel", "K4"),
+                  ("intersect_clustered_kernel", "K5"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
 # Phases 8 and 10: the small scenes.
@@ -456,6 +467,18 @@ def wavefront_agreement(what, got, plain, want, scene):
     return agree
 
 
+def bit_equal(what, got, want):
+    """Fails unless each tensor of ``got`` equals its partner in ``want``
+    bit for bit; logs the largest difference of each."""
+    diffs = [float((a.double() - b.double()).abs().max()) if a.numel() else
+             0.0 for a, b in zip(got, want)]
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f"    {what}: bit-equal to the plain version {same} (largest "
+        f"differences {diffs})")
+    if not same:
+        raise AssertionError(f"{what} differs from its plain version")
+
+
 def tape_agreement(what, got, want, floor):
     """Per-entry agreement of two tapes; logs it with the rays that
     differ and fails below ``floor``."""
@@ -477,13 +500,12 @@ def build():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     for label, fn, regs, spills in ptxas_kernels(info.log):
-        if label in ("K4", "K5"):
-            log(f"  {label} {fn}: {regs} registers, {spills}")
+        log(f"  {label} {fn[:60]}: {regs} registers, {spills}")
 
 
 def ptxas_kernels(text):
     """(label, function, registers, spill line) of each entry in ptxas -v
-    output; label K4 or K5 for the intersect kernels, else ""."""
+    output, labelled K1-K5."""
     out, entry, spills = [], None, ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -492,8 +514,7 @@ def ptxas_kernels(text):
             spills = line.strip()
         elif "registers" in line and entry:
             regs = int(line.split("Used", 1)[1].split("registers")[0])
-            label = ("K4" if "intersect_dense_kernel" in entry else
-                     "K5" if "intersect_clustered_kernel" in entry else "")
+            label = next(k for n, k in KERNEL_ENTRIES if n in entry)
             out.append((label, entry, regs, spills))
             entry = None
     return out
@@ -513,6 +534,7 @@ def render_path(dev, key, card):
         ref, ref_segs = mk.render_pixels_mega_reference(pack, cam, cfg, key)
         compare(rad, segs, ref, ref_segs, cfg.spp,
                 f"{preset} {cfg.nx}x{cfg.ny}@{cfg.spp}")
+        bit_equal("K1", (rad, segs), (ref, ref_segs))
 
     scene, cam, cfg = build_preset("random-spheres", device=dev)
     pack = mk.pack_scene_mega(scene)
@@ -524,6 +546,7 @@ def render_path(dev, key, card):
     torch.cuda.synchronize()
     max_abs_err = compare(rad, segs, ref, ref_segs, cfg.spp,
                           f"final scene {cfg.nx}x{cfg.ny}@{cfg.spp}")
+    bit_equal("K1 at full size", (rad, segs), (ref, ref_segs))
     log(f"  plain version at full size: {plain_ms:.1f} ms (one run)")
     del ref, ref_segs, rad, segs
 
@@ -556,12 +579,14 @@ def render_path(dev, key, card):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     sec = statistics.median(seconds[1:])
-    _, segs = mk.render_pixels_mega(pack, cam, cfg, key)
+    _, segs, steps = mk.render_pixels_mega(pack, cam, cfg, key,
+                                           return_iters=True)
     rays = int(segs.sum())
-    # One thread per pixel: a warp of 32 consecutive pixels sweeps until its
-    # busiest thread is done, so mean/max per warp is its lane efficiency.
-    warps = segs.float().reshape(-1, 32)
-    lane_eff = float(warps.mean(1).sum() / warps.max(1).values.sum())
+    # A warp's lanes trace segments in step: segments over 32 x steps is
+    # its lane efficiency.  Without regeneration a warp of 32 pixels ran
+    # until its busiest pixel was done (mk.pixel_lane_steps).
+    lane_eff = rays / (32 * int(steps.long().sum()))
+    lane_eff_pixel = rays / (32 * int(mk.pixel_lane_steps(segs).long().sum()))
     kernel_ms = cuda_ms(lambda: mk.render_pixels_mega(pack, cam, cfg, key),
                         3)
     bound_ms, bound_by = bound(pack, rays, 16 * cfg.num_pixels)
@@ -570,7 +595,8 @@ def render_path(dev, key, card):
         f"{cfg.num_rays / sec / 1e6:.3f} Mpaths/s, "
         f"{rays / sec / 1e6:.3f} Mrays/s ({rays} segments); K1 alone "
         f"{kernel_ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}), warp "
-        f"lane efficiency {lane_eff:.3f}; plain {plain_ms:.1f} ms; on {card}")
+        f"lane efficiency {lane_eff:.3f} (one pixel a lane: "
+        f"{lane_eff_pixel:.3f}); plain {plain_ms:.1f} ms; on {card}")
     k1 = {"name": "K1 megakernel (render_pixels_mega)", "route": "cuda",
           "source": "first_raytracer_tpu_torch/kernels/csrc/megakernel.cu",
           "replaces": mk.REPLACES, "launches": launches,
@@ -603,9 +629,12 @@ def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack):
                            segs):
             raise AssertionError(f"{preset}: K2b's trips differ from K1's "
                                  "segments")
-        ref_rad, _, ref = mk.render_pixels_mega_reference(p, c, cf, key,
-                                                          emit_tape=True)
+        ref_rad, ref_segs, ref = mk.render_pixels_mega_reference(
+            p, c, cf, key, emit_tape=True)
         ref_b, ref_its = rm.record_paths_mega_reference(p, c, cf, key)
+        bit_equal(f"{preset} K2", (rad2, segs2, tape), (ref_rad, ref_segs,
+                                                        ref))
+        bit_equal(f"{preset} K2b", (tape_b, its), (ref_b, ref_its))
         a2 = float((tape == ref).float().mean())
         ab = float((tape_b == ref_b).float().mean())
         floor = 0.99 if preset == "triangle-mesh" else 0.999
@@ -644,8 +673,8 @@ def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack):
     rays = int((ref != want).any(dim=0).sum())
     log(f"  slice against the plain K2b: agreement "
         f"{float((ref == want).float().mean()):.6f}, {rays} rays differ "
-        "(bound: at most one)")
-    if rays > 1:
+        "(bound: none)")
+    if rays:
         raise AssertionError("the slice differs from the plain K2b's")
     log(f"  slice [{SLICE_RAY0}, +{SLICE_RAYS}) through K2 and K2b equals "
         "the full-frame K2 tape's columns")
@@ -718,6 +747,9 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
                                                emit_tape=True)
     err2 = compare(rad2, segs2, ref_rad, ref_segs, cfg.spp,
                    f"K2 vs plain over {pixels_k2} pixels")
+    bit_equal("K2 at 2^17 rays", (rad2, segs2, tape2),
+              (ref_rad, ref_segs, ref_tape))
+    bit_equal("K2b at 2^17 rays", (tape_b, its), (ref_b, ref_its))
     if not (torch.equal(tape2[:, :R], tape) and torch.equal(tape_b, tape)):
         raise AssertionError("K2b's tape, or K2's of the whole pixels, "
                              "differs from the step's")
@@ -892,11 +924,20 @@ def clustered_vs_plain(dev, key, card):
                 f"({pack.clusters} + {pack.tri_clusters} clusters)")
         compare_clustered(rad, segs, ref, ref_segs, cfg.spp, what,
                           per_pixel="triangle" in preset)
+        bit_equal("K3", (rad, segs), (ref, ref_segs))
         done, full = sweeps.long().sum(0), ungated.long().sum(0)
         log(f"    sweeps: {done.tolist()} of an ungated sweep's "
             f"{full.tolist()} ({', '.join(mc.SWEEP_COLUMNS)})")
         if not bool((sweeps[:, :3] <= ungated[:, :3]).all()):
             raise AssertionError(f"{what}: K3 swept more than every cluster")
+        dpack = mk.pack_scene_mega(scene)
+        if max(scene.num_spheres, scene.num_triangles) <= mk.DENSE_MAX:
+            ms1 = cuda_ms(lambda: mk.render_pixels_mega(dpack, cam, cfg, key),
+                          5)
+            ms3 = cuda_ms(lambda: mc.render_pixels_mega_clustered(
+                pack, cam, cfg, key), 5)
+            log(f"    K1 {ms1:.4f} ms, K3 {ms3:.4f} ms (median of 5); on "
+                f"{card}")
 
     # K3 against K1 at full size, on field5000 and on the final scene.
     with open(os.path.join(ROOT, "bench_golden.json")) as f:
@@ -987,6 +1028,9 @@ def large_scene_path(dev, key, card):
             f"ms, {b[1]}); per segment {tot[0] / rays:.2f} clusters swept, "
             f"{tot[1] / rays:.1f} sphere and {tot[2] / rays:.1f} triangle "
             f"slots, {tot[3] / rays:.1f} boxes tested; on {card}")
+        log(f"  per warp step: {tot[4] / tot[5]:.2f} clusters swept by the "
+            f"warp (its union), {tot[0] / tot[5]:.2f} opened by its lanes; "
+            f"lane efficiency {rays / (32 * tot[5]):.3f}")
         # K3's output at this shape against its plain version, on the
         # middle quarter of the frame's pixels (the plain version's time
         # over whole frames pushed the script past ten minutes).
@@ -1000,10 +1044,13 @@ def large_scene_path(dev, key, card):
                                 cfg.spp, f"  K3 vs plain, pixels [{p0}, "
                                 f"{p0 + n_px}) of the frame",
                                 per_pixel=preset == "triangle-field")
+        differ = int(((rad[band] != ref).any(dim=1)
+                      | (segs[band] != ref_segs)).sum())
+        log(f"    pixels that differ at all: {differ} of {n_px}")
         log(f"  plain version {plain_s * 1e3:.1f} ms on a quarter of the "
             "frame (one run)")
         out[label] = dict(ms=k3_ms, bound=b, sec=sec, err=err,
-                          plain_ms=plain_s * 1e3)
+                          plain_ms=plain_s * 1e3, differ=differ)
         del ref, ref_segs, rad
         torch.cuda.empty_cache()
     return launches, out, scenes

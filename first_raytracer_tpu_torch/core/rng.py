@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from . import vecmath
+
 __all__ = [
     "base_key",
     "key_words",
@@ -106,9 +108,10 @@ def bounce_uniforms(key, ray_ids, depth):
 
 def unit_disk_sample(u1, u2):
     """Uniform point in the unit disk from two uniforms; (..., 2)."""
-    r = torch.sqrt(u1)
+    r = vecmath.sqrt(u1)
     theta = (2.0 * math.pi) * u2
-    return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+    return torch.stack([r * vecmath.cos(theta), r * vecmath.sin(theta)],
+                       dim=-1)
 
 
 def unit_ball_sample(u1, u2, u3):
@@ -118,13 +121,13 @@ def unit_ball_sample(u1, u2, u3):
     the reference's rejection loop, as in the JAX package.
     """
     z = 1.0 - 2.0 * u1
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    r = vecmath.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     phi = (2.0 * math.pi) * u2
     # torch has no cbrt: the f64 power rounded to f32 is the cube root to
     # within an ulp, like ``jnp.cbrt`` and CUDA's ``cbrtf``.
     radius = torch.pow(u3.to(torch.float64), 1.0 / 3.0).to(u3.dtype)
     return radius[..., None] * torch.stack(
-        [r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+        [r * vecmath.cos(phi), r * vecmath.sin(phi), z], dim=-1)
 
 
 def precompute_uniforms(key, ray_ids, max_depth: int):

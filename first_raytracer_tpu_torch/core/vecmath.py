@@ -19,6 +19,9 @@ __all__ = [
     "refract",
     "schlick",
     "divide",
+    "sqrt",
+    "sin",
+    "cos",
 ]
 
 
@@ -39,6 +42,30 @@ def divide(x, n):
     by its reciprocal, which can round one ulp away from the kernels' (and
     XLA's) division; a 0-d tensor on ``x``'s device keeps the division."""
     return x / torch.tensor(n, dtype=x.dtype, device=x.device)
+
+
+def _rounded_once(fn, x):
+    """``fn(x)``, for a float32 CPU tensor computed in float64 and rounded
+    once.  torch's float32 sqrt, sin and cos on the CPU are vectorised
+    approximations an ulp off on a fraction of inputs, where the kernels'
+    sqrtf, sinf and cosf (CUDA's, and the host build's) are (nearly)
+    correctly rounded; on the card torch's float32 ops round as the
+    kernels do."""
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return fn(x.double()).float()
+    return fn(x)
+
+
+def sqrt(x):
+    return _rounded_once(torch.sqrt, x)
+
+
+def sin(x):
+    return _rounded_once(torch.sin, x)
+
+
+def cos(x):
+    return _rounded_once(torch.cos, x)
 
 
 def squared_length(v):

@@ -67,6 +67,7 @@
 //    cp.async one tile ahead; the members of the swept clusters stay in
 //    device memory, read as 16-byte (cx, cy, cz, r*r) and (v0, e1, e2) rows,
 //    the spheres in groups as in K4.
+#include "cp_async.cuh"
 #include "mega_common.cuh"
 #include "slab.cuh"
 
@@ -75,8 +76,13 @@
 
 namespace {
 
+using frt::commit_copies;
+using frt::copy16_async;
 using frt::kBig;
+using frt::kGroup;  // spheres whose discriminants share a branch
+using frt::round4;
 using frt::slab_gate;
+using frt::wait_copies;
 
 constexpr int kThreads = 128;
 constexpr int kSlots = 128;  // slots per cluster
@@ -91,32 +97,10 @@ constexpr int kDenseSplit = 1;
 static_assert(kDenseSplit == 1 || kDenseSplit == 2 || kDenseSplit == 4,
               "the split lanes of a ray must sit in one warp");
 
-constexpr int kGroup = 4;           // spheres whose discriminants share a branch
 constexpr int kSphereTile = 512;    // spheres per K4 tile (8 KB)
 constexpr int kTriangleTile = 256;  // triangles per K4 tile (12 KB)
 constexpr int kFanout = 8;          // clusters per supergroup
 constexpr int kSuperTile = 32;      // supergroups per K5 tile (10 KB)
-
-// ---------------------------------------------------------------------------
-// Asynchronous copies from device memory to shared memory (cp.async).
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void commit_copies() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void wait_copies() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Copies `n` floats (n a multiple of 4, both ends 16-byte aligned) with the
 // block's threads.
@@ -126,7 +110,6 @@ __device__ __forceinline__ void copy_floats_async(float* dst,
     copy16_async(dst + 4 * q, src + 4 * q);
 }
 
-__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 __host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
 
 // ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 // Device code shared by the megakernel (K1, and K2 = K1 with a tape), the
 // standalone tape recorder (K2b) and the clustered megakernel (K3, K3t): the
 // Threefry stream, the thin-lens camera ray, the dense sweep with exact
-// closest-hit selection, the shading, and one routine that traces a path to
-// termination.  Every kernel traces through
-// `trace_path`, templated over the scene's closest-hit routine (DenseScene
-// here, ClusterScene in megakernel_clustered.cu), so the recorded tapes
-// cannot drift from the rendered paths and a clustered path is shaded by the
-// same code as a dense one.
+// closest-hit selection, the shading of one segment, and the two loops that
+// drive paths through them: `render_warp` (K1, K2, K3), where a warp's lanes
+// take the next unstarted (pixel, sample) as their paths end, and
+// `record_rays` (K2b, K3t), one path a thread.  Both are templated over the
+// scene's closest-hit routine (DenseScene here, ClusterScene in
+// megakernel_clustered.cu), so the recorded tapes cannot drift from the
+// rendered paths and a clustered path is shaded by the same code as a dense
+// one.  Every lane of a warp calls the closest hit at the same step (an idle
+// lane with `active` false), so a scene may sweep with the whole warp.
 //
 // Dense scene tables (built on the host by
 // kernels/megakernel.py::pack_scene_mega, primitives sorted into six
@@ -20,6 +23,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "cp_async.cuh"
 
 #include <cstddef>
 #include <cstdint>
@@ -184,74 +189,182 @@ struct Surface {
   bool metal, diel, check;
 };
 
-// The dense scene of K1, K2 and K2b.
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarpSize = 32;
+constexpr int kSphereCap = 1024;  // spheres a dense block stages (16 KB)
+constexpr int kTriCap = 512;      // triangles a dense block stages (18 KB)
+constexpr int kGroup = 4;  // spheres whose discriminants share a branch
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// K1's expanded-quadratic test of the kGroup spheres s[g] = (cx, cy, cz,
+// c0) numbered base + g: the discriminants first, then, only if one is
+// non-negative, the roots in g order, each passed to fold(t, base + g).  A
+// miss costs 16 operations and a compare; the branch, the root and the
+// fold are paid once a group, on the rare hit.  A padding row (0, 0, 0,
+// +inf) has disc = -inf, the pack's sentinel (big, big, big, +inf) NaN:
+// neither passes.
+template <class Fold>
+__device__ __forceinline__ void sphere_group(const float4 (&s)[kGroup],
+                                             float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float od, float oo,
+                                             float t_min, int base,
+                                             Fold fold) {
+  float bq[kGroup], disc[kGroup];
+  bool any = false;
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    const float dc = s[g].x * dx + s[g].y * dy + s[g].z * dz;
+    const float oc = s[g].x * ox + s[g].y * oy + s[g].z * oz;
+    bq[g] = od - dc;
+    const float cq = oo - 2.0f * oc + s[g].w;
+    disc[g] = bq[g] * bq[g] - cq;
+    any |= disc[g] >= 0.0f;
+  }
+  if (!any) return;
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    if (!(disc[g] >= 0.0f)) continue;  // no root (or NaN): a miss
+    const float sq = sqrtf(disc[g]);
+    const float tn = -bq[g] - sq;
+    const float tf = sq - bq[g];
+    fold(tn > t_min ? tn : (tf > t_min ? tf : kBig), base + g);
+  }
+}
+
+// Moller-Trumbore on prepacked edges: true with t on a hit.
+__device__ __forceinline__ bool triangle_hit(float v0x, float v0y, float v0z,
+                                             float e1x, float e1y, float e1z,
+                                             float e2x, float e2y, float e2z,
+                                             float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float t_min, float& t) {
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  if (!(fabsf(det) > 1e-9f)) return false;
+  const float inv = 1.0f / det;
+  const float tvx = ox - v0x;
+  const float tvy = oy - v0y;
+  const float tvz = oz - v0z;
+  const float uu = (tvx * px + tvy * py + tvz * pz) * inv;
+  const float qx = tvy * e1z - tvz * e1y;
+  const float qy = tvz * e1x - tvx * e1z;
+  const float qz = tvx * e1y - tvy * e1x;
+  const float vv = (dx * qx + dy * qy + dz * qz) * inv;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  return uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && t > t_min &&
+         t < kBig;
+}
+
+// The dense scene of K1, K2 and K2b.  Its first kSphereCap spheres, as
+// (cx, cy, cz, c0) rows padded to a whole group, and the planes v0, e1, e2
+// of its first kTriCap triangles are staged once per block in shared
+// memory (`stage`); a larger scene's remaining primitives are read from
+// device memory, after the staged ones, so the sweep keeps index order.
 struct DenseScene {
   Tables tb;
-  struct Counters {};  // the dense sweep counts nothing
+  const float4* srow = nullptr;  // staged sphere rows
+  const float* tpl = nullptr;    // staged triangle planes, pitch tpitch
+  int ns_tile = 0, nt_tile = 0, tpitch = 0;
 
-  // Dense sweep of every sphere and triangle with exact (min t, lowest
-  // sorted index) selection; a sphere wins a sphere/triangle tie.  The
-  // clustered sweep (megakernel_clustered.cu) repeats these hit tests as
-  // functions; here they stay spelled out in the loops, where ptxas turns
-  // the miss into a skip: written with the functions, it merged the miss
-  // into the compare, two more instructions per sphere, and K1 took
-  // 35.5-36.0 ms against 32.4-33.1 (H100, PERF.md).
+  // Nothing is counted in the dense sweep.
+  struct Counters {
+    static constexpr int kLane = 0;
+    int warp_clusters = 0;
+    __device__ __forceinline__ void flush(int*) {}
+    __device__ __forceinline__ void store(int*) const {}
+  };
+
+  // Bytes of shared memory `stage` takes for ns spheres and nt triangles.
+  __host__ __device__ static constexpr int smem_bytes(int ns, int nt) {
+    return 16 * round4(ns < kSphereCap ? ns : kSphereCap) +
+           4 * 9 * round4(nt < kTriCap ? nt : kTriCap);
+  }
+
+  // Every thread of the block calls this once; the rows are in place for
+  // every thread when it returns.
+  __device__ void stage(unsigned char* smem) {
+    ns_tile = tb.ns < kSphereCap ? tb.ns : kSphereCap;
+    nt_tile = tb.nt < kTriCap ? tb.nt : kTriCap;
+    tpitch = round4(nt_tile);
+    float4* rows = reinterpret_cast<float4*>(smem);
+    float* planes = reinterpret_cast<float*>(rows + round4(ns_tile));
+    for (int k = threadIdx.x; k < round4(ns_tile); k += blockDim.x) {
+      if (k < ns_tile)
+        copy16_async(rows + k, tb.mx + 2 * k);
+      else
+        rows[k] = make_float4(0.0f, 0.0f, 0.0f, INFINITY);
+    }
+    // Whole 16-byte runs of each plane, inside the pack's padding.
+    for (int q = threadIdx.x; q < 9 * (tpitch / 4); q += blockDim.x) {
+      const int p = q / (tpitch / 4), k = 4 * (q % (tpitch / 4));
+      copy16_async(planes + p * tpitch + k, tb.tri + p * tb.nt_pad + k);
+    }
+    commit_copies();
+    wait_copies<0>();
+    __syncthreads();
+    srow = rows;
+    tpl = planes;
+  }
+
+  // Exact (min t, lowest sorted index) selection over every sphere and
+  // triangle; a sphere wins a sphere/triangle tie.
   __device__ __forceinline__ void closest(float ox, float oy, float oz,
                                           float dx, float dy, float dz,
-                                          float t_min, Hit& h,
+                                          float t_min, bool, Hit& h,
                                           Counters&) const {
-    const float4* __restrict__ mx = tb.mx;
-    const float* __restrict__ tri = tb.tri;
-    const int tp = tb.nt_pad;
     // Expanded quadratic: b = o.d - d.C, c = |o|^2 - 2 o.C + c0.
     const float od = ox * dx + oy * dy + oz * dz;
     const float oo = ox * ox + oy * oy + oz * oz;
     float t_s = kBig;
     int w_s = 0;
-    for (int i = 0; i < tb.ns; ++i) {
-      const float4 c = __ldg(&mx[2 * i]);
-      const float dc = c.x * dx + c.y * dy + c.z * dz;
-      const float oc = c.x * ox + c.y * oy + c.z * oz;
-      const float bq = od - dc;
-      const float cq = oo - 2.0f * oc + c.w;
-      const float disc = bq * bq - cq;
-      if (!(disc >= 0.0f)) continue;  // no root (or NaN): a miss
-      const float sq = sqrtf(disc);
-      const float tn = -bq - sq;
-      const float tf = sq - bq;
-      const float t = tn > t_min ? tn : (tf > t_min ? tf : kBig);
+    auto fold_s = [&](float t, int i) {
       if (t < t_s) {  // strict: the lowest index wins a tie
         t_s = t;
         w_s = i;
       }
+    };
+    for (int k = 0; k < ns_tile; k += kGroup) {
+      const float4 s[kGroup] = {srow[k], srow[k + 1], srow[k + 2],
+                                srow[k + 3]};
+      sphere_group(s, ox, oy, oz, dx, dy, dz, od, oo, t_min, k, fold_s);
     }
-    // Moller-Trumbore on prepacked edges.
+    // Past the staged rows: device memory, whose rows past ns are never
+    // hit either.
+    for (int k = ns_tile; k < tb.ns; k += kGroup) {
+      const float4 s[kGroup] = {__ldg(&tb.mx[2 * k]), __ldg(&tb.mx[2 * k + 2]),
+                                __ldg(&tb.mx[2 * k + 4]),
+                                __ldg(&tb.mx[2 * k + 6])};
+      sphere_group(s, ox, oy, oz, dx, dy, dz, od, oo, t_min, k, fold_s);
+    }
     float t_t = kBig;
     int w_t = 0;
-    for (int i = 0; i < tb.nt; ++i) {
-      const float e2x = __ldg(&tri[6 * tp + i]);
-      const float e2y = __ldg(&tri[7 * tp + i]);
-      const float e2z = __ldg(&tri[8 * tp + i]);
-      const float e1x = __ldg(&tri[3 * tp + i]);
-      const float e1y = __ldg(&tri[4 * tp + i]);
-      const float e1z = __ldg(&tri[5 * tp + i]);
-      const float px = dy * e2z - dz * e2y;
-      const float py = dz * e2x - dx * e2z;
-      const float pz = dx * e2y - dy * e2x;
-      const float det = e1x * px + e1y * py + e1z * pz;
-      if (!(fabsf(det) > 1e-9f)) continue;
-      const float inv = 1.0f / det;
-      const float tvx = ox - __ldg(&tri[0 * tp + i]);
-      const float tvy = oy - __ldg(&tri[1 * tp + i]);
-      const float tvz = oz - __ldg(&tri[2 * tp + i]);
-      const float uu = (tvx * px + tvy * py + tvz * pz) * inv;
-      const float qx = tvy * e1z - tvz * e1y;
-      const float qy = tvz * e1x - tvx * e1z;
-      const float qz = tvx * e1y - tvy * e1x;
-      const float vv = (dx * qx + dy * qy + dz * qz) * inv;
-      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-      if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && t > t_min &&
-          t < kBig && t < t_t) {
+    const int tp = tpitch;
+    for (int i = 0; i < nt_tile; ++i) {
+      float t;
+      if (triangle_hit(tpl[i], tpl[tp + i], tpl[2 * tp + i], tpl[3 * tp + i],
+                       tpl[4 * tp + i], tpl[5 * tp + i], tpl[6 * tp + i],
+                       tpl[7 * tp + i], tpl[8 * tp + i], ox, oy, oz, dx, dy,
+                       dz, t_min, t) &&
+          t < t_t) {
+        t_t = t;
+        w_t = i;
+      }
+    }
+    const float* __restrict__ tri = tb.tri;
+    const int gp = tb.nt_pad;
+    for (int i = nt_tile; i < tb.nt; ++i) {
+      float t;
+      if (triangle_hit(__ldg(&tri[i]), __ldg(&tri[gp + i]),
+                       __ldg(&tri[2 * gp + i]), __ldg(&tri[3 * gp + i]),
+                       __ldg(&tri[4 * gp + i]), __ldg(&tri[5 * gp + i]),
+                       __ldg(&tri[6 * gp + i]), __ldg(&tri[7 * gp + i]),
+                       __ldg(&tri[8 * gp + i]), ox, oy, oz, dx, dy, dz,
+                       t_min, t) &&
+          t < t_t) {
         t_t = t;
         w_t = i;
       }
@@ -311,59 +424,68 @@ struct DenseScene {
   }
 };
 
-// Traces ray `rid` of the pixel at column `fi`, bottom-up row `fj`, to
-// termination through `scene`'s closest-hit routine and returns its segment
-// count.  With kRadiance the path's radiance is added to `sum`; with kTape
-// row d of the path's tape column (`tape[d * stride]`) gets the original
-// scene id of the primitive hit at bounce d, or -1 on a miss or after the
-// path ended, for every d up to max_depth.  `cnt` collects what the scene's
-// sweep counts.
-template <bool kRadiance, bool kTape, class Scene>
-__device__ __forceinline__ int trace_path(const Scene& scene,
-                                          typename Scene::Counters& cnt,
-                                          const CameraRow& cam,
-                                          const PathParams& pp, uint32_t rid,
-                                          float fi, float fj, float& sum_r,
-                                          float& sum_g, float& sum_b,
-                                          int* __restrict__ tape,
-                                          size_t stride) {
-  const float t_min = pp.t_min;
+// One path between segments: its ray, throughput and depth.
+struct PathState {
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
+  float tp_r = 1.0f, tp_g = 1.0f, tp_b = 1.0f;
+  uint32_t rid = 0;
+  int depth = 0;
+};
+
+// The camera ray of ray `rid` of the pixel at column `fi`, bottom-up row
+// `fj`.
+__device__ __forceinline__ void start_path(const CameraRow& cam,
+                                           const PathParams& pp, uint32_t rid,
+                                           float fi, float fj,
+                                           PathState& st) {
   float u[4];
   draws4(pp.k0, pp.k1, rid, 0u, u);  // camera domain
-  float ox, oy, oz, dx, dy, dz;
-  camera_ray(cam, fi, fj, pp.nx, pp.ny, u, ox, oy, oz, dx, dy, dz);
-  float tp_r = 1.0f, tp_g = 1.0f, tp_b = 1.0f;
+  camera_ray(cam, fi, fj, pp.nx, pp.ny, u, st.ox, st.oy, st.oz, st.dx, st.dy,
+             st.dz);
+  st.tp_r = st.tp_g = st.tp_b = 1.0f;
+  st.rid = rid;
+  st.depth = 0;
+}
 
-  int depth = 0;
-  for (;; ++depth) {
-    Hit h;
-    scene.closest(ox, oy, oz, dx, dy, dz, t_min, h, cnt);
-    const float t_best = h.t;
-    if (!(t_best < kBig)) {  // miss: sky, white -> blue by height
-      if (kRadiance) {
-        const float skyt = 0.5f * (dy + 1.0f);
-        sum_r += tp_r * ((1.0f - skyt) + skyt * 0.5f);
-        sum_g += tp_g * ((1.0f - skyt) + skyt * 0.7f);
-        sum_b += tp_b * ((1.0f - skyt) + skyt * 1.0f);
-      }
-      if (kTape) tape[depth * stride] = -1;
-      break;
+// One segment of a path whose closest hit is `h`: on a miss the sky (its
+// radiance in r, g, b with kRadiance), else the scatter, and true when the
+// path ends here (a miss, absorbed, or at the depth cap; r, g, b stay 0 but
+// for the sky).  With kTape row `depth` of the path's tape column
+// (`tape[depth * stride]`) gets the original scene id of the primitive hit,
+// or -1, and a path that ends fills its rows past `depth` with -1.
+template <bool kRadiance, bool kTape, class Scene>
+__device__ __forceinline__ bool segment(const Scene& scene,
+                                        const PathParams& pp, const Hit& h,
+                                        PathState& st, float& r, float& g,
+                                        float& b, int* __restrict__ tape,
+                                        size_t stride) {
+  const int depth = st.depth;
+  const float dx = st.dx, dy = st.dy, dz = st.dz;
+  bool ended;
+  const float t_best = h.t;
+  if (!(t_best < kBig)) {  // miss: sky, white -> blue by height
+    if (kRadiance) {
+      const float skyt = 0.5f * (dy + 1.0f);
+      r = st.tp_r * ((1.0f - skyt) + skyt * 0.5f);
+      g = st.tp_g * ((1.0f - skyt) + skyt * 0.7f);
+      b = st.tp_b * ((1.0f - skyt) + skyt * 1.0f);
     }
+    if (kTape) tape[depth * stride] = -1;
+    ended = true;
+  } else {
     if (kTape) tape[depth * stride] = scene.original_id(h);
 
     // Hit record and the winner's material, read from its payload row.
-    const float hx = ox + t_best * dx;
-    const float hy = oy + t_best * dy;
-    const float hz = oz + t_best * dz;
+    const float hx = st.ox + t_best * dx;
+    const float hy = st.oy + t_best * dy;
+    const float hz = st.oz + t_best * dz;
     Surface f;
     scene.surface(h, hx, hy, hz, f);
     const float nx = f.nx, ny = f.ny, nz = f.nz, param = f.param;
-    const float a0r = f.a0r, a0g = f.a0g, a0b = f.a0b;
-    const float a1r = f.a1r, a1g = f.a1g, a1b = f.a1b, tsc = f.tsc;
-    const bool metal = f.metal, diel = f.diel, check = f.check;
 
     // Bounce-domain draws: unit-ball sample and the dielectric coin.
-    draws4(pp.k0, pp.k1, rid, static_cast<uint32_t>(depth + 1), u);
+    float u[4];
+    draws4(pp.k0, pp.k1, st.rid, static_cast<uint32_t>(depth + 1), u);
     const float bz = 1.0f - 2.0f * u[0];
     const float br = sqrtf(fmaxf(0.0f, 1.0f - bz * bz));
     const float phi = kTwoPi * u[1];
@@ -383,7 +505,7 @@ __device__ __forceinline__ int trace_path(const Scene& scene,
     float ndx, ndy, ndz;
     bool scattered = true;
     float att_r = 1.0f, att_g = 1.0f, att_b = 1.0f;
-    if (diel) {
+    if (f.diel) {
       // Snell with the TIR check; Schlick with the reference's
       // cosine = ref_idx * dot(d, N) when exiting.
       const bool outside = ddn > 0.0f;
@@ -414,7 +536,7 @@ __device__ __forceinline__ int trace_path(const Scene& scene,
         ndz = ni * (uvz - own_z * dt) - own_z * sq2;
       }
     } else {
-      if (metal) {
+      if (f.metal) {
         ndx = refx + param * bx;
         ndy = refy + param * by;
         ndz = refz + param * bzz;
@@ -427,30 +549,346 @@ __device__ __forceinline__ int trace_path(const Scene& scene,
       normalize3(ndx, ndy, ndz, 1e-20f);
       if (kRadiance) {
         bool odd = false;
-        if (check) {
-          odd = sinf(tsc * hx) * sinf(tsc * hy) * sinf(tsc * hz) < 0.0f;
+        if (f.check) {
+          odd = sinf(f.tsc * hx) * sinf(f.tsc * hy) * sinf(f.tsc * hz) < 0.0f;
         }
-        att_r = odd ? a1r : a0r;
-        att_g = odd ? a1g : a0g;
-        att_b = odd ? a1b : a0b;
+        att_r = odd ? f.a1r : f.a0r;
+        att_g = odd ? f.a1g : f.a0g;
+        att_b = odd ? f.a1b : f.a0b;
       }
     }
     // Absorbed (metal below the surface) or at the depth cap: black.
-    if (!scattered || depth >= pp.max_depth) break;
-    tp_r *= att_r;
-    tp_g *= att_g;
-    tp_b *= att_b;
-    ox = hx;
-    oy = hy;
-    oz = hz;
-    dx = ndx;
-    dy = ndy;
-    dz = ndz;
+    ended = !scattered || depth >= pp.max_depth;
+    if (!ended) {
+      st.tp_r *= att_r;
+      st.tp_g *= att_g;
+      st.tp_b *= att_b;
+      st.ox = hx;
+      st.oy = hy;
+      st.oz = hz;
+      st.dx = ndx;
+      st.dy = ndy;
+      st.dz = ndz;
+      st.depth = depth + 1;
+    }
   }
-  if (kTape) {
+  if (kTape && ended) {
     for (int d = depth + 1; d <= pp.max_depth; ++d) tape[d * stride] = -1;
   }
-  return depth + 1;
+  return ended;
+}
+
+// What one launch of K1, K2 or K3 renders: `num_pixels` pixels from global
+// pixel `pix0` (of `total_pixels`), samples spp0 .. spp0 + spp - 1 of a
+// `spp_total`-sample render, `chunk` samples of a pixel at a time.  `work`
+// counts the groups of 32 pixels handed out to warps; it is 0 when the
+// launch starts.
+struct RenderLaunch {
+  int spp, spp_total, spp0, pix0, num_pixels, total_pixels, chunk;
+  int* work;
+};
+
+constexpr int kRenderThreads = 128;
+constexpr int kRenderWarps = kRenderThreads / kWarpSize;
+
+// Bytes of a warp's shared store in render_warp: two slots, each the
+// radiance of `chunk` samples of 32 pixels; two groups' segment counts and
+// `lane` counters per pixel; the warp's first group (4 ints).
+__host__ __device__ constexpr int warp_store_bytes(int chunk, int lane) {
+  return 4 * (2 * kWarpSize * (3 * chunk + 1 + lane) + 4);
+}
+
+// K1, K2 and K3.  The launch's pixels are cut into groups of 32, each
+// group's samples into chunks of `chunk`; a (group, chunk) is a unit of
+// work.  A warp takes groups from the launch-wide counter `work`, and
+// keeps a window of two units: its lanes take the next unstarted (pixel,
+// sample) of the window, in lane order (__ballot_sync, __popc), at points
+// where the whole warp is converged, so a warp's lanes stay busy until the
+// launch runs out of work rather than until its pixels' longest path is
+// done.  Each sample's radiance goes to the unit's slot in the warp's
+// shared store; when a unit's paths are all done, its lanes add each
+// pixel's samples in sample order to the pixel's sum (lane p holds pixel
+// p of the group), and after a group's last chunk they write its pixels.
+// So each sum is the one a thread tracing the pixel's samples in turn
+// makes: the output does not depend on the schedule, and no float is
+// added atomically (only the integer counts are).  `steps` (if not null)
+// gets, at the first pixel of the warp's first group, the warp's segment
+// steps, 0 at every other pixel; `sweeps` (if the scene counts) each
+// pixel's counters, then the warp's swept clusters and steps as `steps`.
+template <bool kTape, class Scene>
+__device__ void render_warp(const Scene& scene, const CameraRow& cam,
+                            const PathParams& pp, const RenderLaunch& ln,
+                            unsigned char* store, float* __restrict__ rad,
+                            int* __restrict__ segs, int* __restrict__ tape,
+                            int* __restrict__ steps,
+                            int* __restrict__ sweeps) {
+  using Counters = typename Scene::Counters;
+  constexpr int kLane = Counters::kLane;
+  const int lane = threadIdx.x % kWarpSize;
+  const int warp = threadIdx.x / kWarpSize;
+  const int chunk = ln.chunk;
+  float* rbuf = reinterpret_cast<float*>(
+      store + warp * warp_store_bytes(chunk, kLane));
+  int* pseg = reinterpret_cast<int*>(rbuf + 6 * kWarpSize * chunk);
+  int* pcnt = pseg + 2 * kWarpSize;
+  int* first = pcnt + 2 * kWarpSize * kLane;
+  for (int k = lane; k < 2 * kWarpSize * (1 + kLane); k += kWarpSize)
+    pseg[k] = 0;
+  const int groups = (ln.num_pixels + kWarpSize - 1) / kWarpSize;
+  // Pixels traced: a prefix of the launch's (its end, the image's).
+  const int traced = min(ln.num_pixels, ln.total_pixels - ln.pix0);
+  const int nchunks = (ln.spp + chunk - 1) / chunk;
+  const size_t stride = static_cast<size_t>(ln.num_pixels) * ln.spp;
+  auto valid = [&](int g) {  // traced pixels of group g
+    return max(0, min(kWarpSize, traced - g * kWarpSize));
+  };
+  // The window, units [base, top): unit u in slot u & 1 is chunk cs & 0xffff
+  // of group gs, the group's parity among the warp's groups in bit 16, with
+  // ds of its paths done.  The next item to hand out is item si of unit su.
+  int g0 = 0, g1 = 0, c0 = 0, c1 = 0, d0 = 0, d1 = 0;
+  int base = 0, top = 0, su = 0, si = 0, taken_groups = 0;
+  bool exhausted = false;
+  auto items = [&](int s) {
+    const int c = (s ? c1 : c0) & 0xffff;
+    return valid(s ? g1 : g0) * min(chunk, ln.spp - c * chunk);
+  };
+  // Opens unit `top`: the next chunk of the last group, else a new group.
+  auto open = [&]() {
+    int g, c;
+    const int last = (top - 1) & 1;
+    if (top > 0 && ((last ? c1 : c0) & 0xffff) + 1 < nchunks) {
+      g = last ? g1 : g0;
+      c = (last ? c1 : c0) + 1;
+    } else {
+      if (exhausted) return false;
+      int got = 0;
+      if (lane == 0) got = atomicAdd(ln.work, 1);
+      got = __shfl_sync(kFullMask, got, 0);
+      if (got >= groups) {
+        exhausted = true;
+        return false;
+      }
+      if (taken_groups == 0 && lane == 0) first[0] = got;
+      g = got;
+      c = (taken_groups & 1) << 16;
+      ++taken_groups;
+    }
+    if (top & 1) {
+      g1 = g;
+      c1 = c;
+      d1 = 0;
+    } else {
+      g0 = g;
+      c0 = c;
+      d0 = 0;
+    }
+    ++top;
+    return true;
+  };
+
+  bool live = false;
+  int slot = 0, item = 0;  // this lane's path: item `item` of slot `slot`
+  PathState st;
+  int* col = nullptr;
+  float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;
+  Counters cnt;
+  int nsteps = 0;
+  __syncwarp();
+  for (;;) {
+    // Retire the oldest unit while all its paths are done.
+    while (base < su) {
+      const int s = base & 1;
+      if ((s ? d1 : d0) != items(s)) break;
+      __syncwarp();  // its paths' radiance is in the store
+      const int g = s ? g1 : g0, cb = s ? c1 : c0;
+      const int gp = cb >> 16, c = cb & 0xffff, nv = valid(g);
+      const float* r = rbuf + s * 3 * kWarpSize * chunk;
+      if (lane < nv) {
+        for (int q = lane; q < items(s); q += nv) {  // in sample order
+          sum_r += r[3 * q];
+          sum_g += r[3 * q + 1];
+          sum_b += r[3 * q + 2];
+        }
+      }
+      if (c == nchunks - 1) {  // the group's last chunk: write its pixels
+        const int loc = g * kWarpSize + lane;
+        int* pc = pcnt + (gp * kWarpSize + lane) * kLane;
+        if (loc < ln.num_pixels) {
+          rad[3 * loc + 0] = sum_r;
+          rad[3 * loc + 1] = sum_g;
+          rad[3 * loc + 2] = sum_b;
+          segs[loc] = pseg[gp * kWarpSize + lane];
+          if (steps != nullptr) steps[loc] = 0;
+          if (kLane > 0) {
+            int* out = sweeps + static_cast<size_t>(kLane + 2) * loc;
+            for (int k = 0; k < kLane; ++k) out[k] = pc[k];
+            out[kLane] = 0;
+            out[kLane + 1] = 0;
+          }
+          if (kTape && lane >= nv) {  // a pixel past the image: no path
+            int* cl = tape + static_cast<size_t>(loc) * ln.spp;
+            for (int q = 0; q < ln.spp; ++q) {
+              for (int d = 0; d <= pp.max_depth; ++d) cl[d * stride + q] = -1;
+            }
+          }
+        }
+        pseg[gp * kWarpSize + lane] = 0;
+        for (int k = 0; k < kLane; ++k) pc[k] = 0;
+        sum_r = sum_g = sum_b = 0.0f;
+      }
+      __syncwarp();
+      ++base;
+    }
+    // Hand the window's next items to the idle lanes, in lane order.
+    const unsigned idle = __ballot_sync(kFullMask, !live);
+    const int want = __popc(idle);
+    const int rank = __popc(idle & ((1u << lane) - 1u));
+    for (int given = 0; given < want;) {
+      if (su == top) {
+        if (top - base < 2 && open()) continue;
+        break;
+      }
+      const int s = su & 1, n = items(s);
+      const int take = min(n - si, want - given);
+      if (!live && rank >= given && rank < given + take) {
+        const int q = si + rank - given;
+        const int g = s ? g1 : g0, nv = valid(g);
+        const int p = q % nv;
+        const int smp = ((s ? c1 : c0) & 0xffff) * chunk + q / nv;
+        const int pix = ln.pix0 + g * kWarpSize + p;
+        start_path(cam, pp,
+                   static_cast<uint32_t>(pix) *
+                           static_cast<uint32_t>(ln.spp_total) +
+                       static_cast<uint32_t>(ln.spp0 + smp),
+                   static_cast<float>(pix % pp.nx),
+                   static_cast<float>(pix / pp.nx), st);
+        if (kTape) {
+          col = tape + static_cast<size_t>(g * kWarpSize + p) * ln.spp + smp;
+        }
+        live = true;
+        slot = s;
+        item = q;
+      }
+      given += take;
+      si += take;
+      if (si == n) {
+        ++su;
+        si = 0;
+      }
+    }
+    if (!__any_sync(kFullMask, live)) {
+      if (exhausted && base == top) break;
+      continue;  // units without paths, retired on the next turn
+    }
+    ++nsteps;
+    Hit h;
+    scene.closest(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz, pp.t_min, live,
+                  h, cnt);
+    bool ended = false;
+    if (live) {
+      float r = 0.0f, g = 0.0f, b = 0.0f;
+      if (segment<true, kTape>(scene, pp, h, st, r, g, b, col, stride)) {
+        float* out = rbuf + slot * 3 * kWarpSize * chunk + 3 * item;
+        out[0] = r;
+        out[1] = g;
+        out[2] = b;
+        const int cb = slot ? c1 : c0;
+        const int pi = (cb >> 16) * kWarpSize + item % valid(slot ? g1 : g0);
+        atomicAdd(&pseg[pi], st.depth + 1);
+        cnt.flush(pcnt + pi * kLane);
+        live = false;
+        ended = true;
+      }
+    }
+    const unsigned done = __ballot_sync(kFullMask, ended);
+    const unsigned done1 = __ballot_sync(kFullMask, ended && slot == 1);
+    d1 += __popc(done1);
+    d0 += __popc(done) - __popc(done1);
+  }
+  if (taken_groups > 0 && lane == 0) {  // the warp's totals
+    const int loc = first[0] * kWarpSize;
+    if (steps != nullptr) steps[loc] = nsteps;
+    if (kLane > 0) {
+      int* out = sweeps + static_cast<size_t>(kLane + 2) * loc;
+      out[kLane] = cnt.warp_clusters;
+      out[kLane + 1] = nsteps;
+    }
+  }
+}
+
+// Opts a kernel in to more than 48 KB of dynamic shared memory.
+template <class K>
+int allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+// The blocks of a launch of `kernel` with `smem` bytes of shared memory
+// over `num_pixels` pixels: as many as the card holds at once (the warps
+// take their work from the launch's counter), but no more than the pixels
+// need.
+template <class K>
+int render_blocks(K kernel, int smem, int num_pixels) {
+  const int need = (num_pixels + kRenderThreads - 1) / kRenderThreads;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kRenderThreads, smem) !=
+          cudaSuccess ||
+      per_sm < 1)
+    return need;
+  return need < sms * per_sm ? need : sms * per_sm;
+}
+
+// K2b and K3t: thread i records ray id ray0 + i (pixel rid / spp_total,
+// sample rid % spp_total) as column i of a (max_depth + 1, num_rays) tape
+// and writes its segment count.  The thread steps with its warp until
+// every lane's path has ended, so a scene may sweep with the whole warp.
+// `sweeps` (if the scene counts) gets the ray's counters, then at the
+// warp's first ray the clusters its sweeps opened and its steps.
+template <class Scene>
+__device__ void record_rays(const Scene& scene, const CameraRow& cam,
+                            const PathParams& pp, int ray0, int num_rays,
+                            int spp_total, int* __restrict__ tape,
+                            int* __restrict__ its,
+                            int* __restrict__ sweeps) {
+  using Counters = typename Scene::Counters;
+  constexpr int kLane = Counters::kLane;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool live = i < num_rays;
+  PathState st;
+  if (live) {
+    const int rid = ray0 + i;
+    const int pix = rid / spp_total;
+    start_path(cam, pp, static_cast<uint32_t>(rid),
+               static_cast<float>(pix % pp.nx),
+               static_cast<float>(pix / pp.nx), st);
+  }
+  Counters cnt;
+  int nsteps = 0;
+  while (__any_sync(kFullMask, live)) {
+    ++nsteps;
+    Hit h;
+    scene.closest(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz, pp.t_min, live,
+                  h, cnt);
+    if (live) {
+      float r, g, b;  // unused: no radiance
+      live = !segment<false, true>(scene, pp, h, st, r, g, b, tape + i,
+                                   static_cast<size_t>(num_rays));
+    }
+  }
+  if (i >= num_rays) return;
+  its[i] = st.depth + 1;
+  if (kLane > 0) {
+    int* out = sweeps + static_cast<size_t>(kLane + 2) * i;
+    cnt.store(out);
+    const bool first = threadIdx.x % kWarpSize == 0;
+    out[kLane] = first ? cnt.warp_clusters : 0;
+    out[kLane + 1] = first ? nsteps : 0;
+  }
 }
 
 }  // namespace frt

@@ -39,33 +39,45 @@
 // float-reciprocal division (_fdiv / _fdiv_exact), grid-stride lanes, rays
 // per lane and one-hot tape accumulation have no counterpart here.
 //
-// Mapping of K1 and K2: one thread per pixel.  The thread loops over the pixel's samples
-// in order, traces each to termination with ordinary per-thread control
-// flow (mega_common.cuh::trace_path), and writes its pixel and its own tape
-// columns, so there are no atomics and the output does not depend on the
-// schedule.  The TPU kernel's grid-stride lanes, pixels-per-lane,
-// channel-major flush and unrolling are TPU scheduling devices and have no
-// counterpart here.
+// Mapping (this design is Hopper's, not the TPU kernel's).  Each block of
+// 128 threads first stages the scene's sphere rows (cx, cy, cz, c0) and
+// triangle planes (v0, e1, e2) in shared memory with cp.async: the final
+// scene's 486 spheres take 7.8 KB, DENSE_MAX = 1024 spheres 16 KB; a scene
+// past kSphereCap spheres or kTriCap triangles reads the rest from device
+// memory after the staged rows.  The launch is persistent (as many blocks
+// as the card holds at once) and its warps take groups of 32 pixels from a
+// launch-wide counter (mega_common.cuh::render_warp): a lane whose path
+// ends takes the next unstarted (pixel, sample) of its warp's window of
+// work at a point where the whole warp is converged, and each pixel is
+// summed in sample order from the warp's shared store, so the output does
+// not depend on the schedule and equals the plain version's bit for bit.  K2b keeps one thread per ray id
+// (mega_common.cuh::record_rays), whose neighbouring threads write
+// neighbouring tape columns.
 //
-// What bounds it on an H100:
-//  - FP32 ALU work in the dense sweep: 16 flops per (segment, sphere) and
-//    46 per (segment, triangle), counted from closest_hit.  The final scene
-//    has 486 spheres, so each segment costs ~7.8e3 flops before any shading.
-//  - Divergence across a warp's paths: a warp runs until its longest path
-//    ends (glass paths reach tens of bounces while most end in two or
-//    three), and the material branches split the warp at each hit.
+// What bounds it on an H100, and what the design does about it:
+//  - FP32 work in the dense sweep: 16 operations per (segment, sphere) and
+//    46 per (segment, triangle).  Built with --fmad=false, each is one
+//    instruction, so everything around them counts: a pair reads one
+//    16-byte shared-memory broadcast (the first design read the row from
+//    device memory through the read-only cache), and a group of four
+//    spheres shares one branch to the rare root, so a miss costs its 16
+//    operations and a compare (the first design took a branch per sphere:
+//    ~56 issue slots a pair on the final scene, PERF.md).
+//  - Divergence across a warp's paths: glass paths reach tens of bounces
+//    while most end in two or three.  With one thread per pixel a warp ran
+//    until its busiest pixel's samples were done (lane efficiency 0.685 on
+//    the final scene); regeneration over a window of work keeps the lanes
+//    busy until the launch runs out of paths.
+//  - No tensor cores: the dot products C.d and C.o per (ray, sphere) would
+//    map to a (rays x 3) x (3 x spheres) product, but TF32 or bf16 inputs do
+//    not round as the f32 products do, and the expanded quadratic cancels
+//    badly far from the origin (~1e-2 relative, as the JAX package's
+//    geometry/sphere.py records); the kernel must stay bit-equal to its
+//    plain version.
 //  - K2's tape adds D * 4 bytes per sample: 51 x 9.6 M x 4 B = 1.96 GB at
-//    full frame, ~0.6 ms at 3.35 TB/s, far below the sweep's time, so K2
-//    stays compute-bound.  K2b has the same sweep and tape per ray; at the
-//    fit step's 2^17 rays its tape is 27 MB, 8 us.
-// This first design does nothing about either beyond one thread per pixel
-// (K2b: per ray, whose neighbouring threads write neighbouring columns):
-// the tables are read from global memory through the read-only cache, and
-// since every thread of a warp reads the same primitive at the same step,
-// each read is a broadcast.  K2's tape columns sit at stride `spp` between
-// neighbouring threads, so its stores are not coalesced; that too is left
-// to later work, with staging the tables in shared memory, culling, and
-// regrouping paths.
+//    full frame, ~0.6 ms at 3.35 TB/s, far below the sweep's time.  Its
+//    columns sit at stride spp between a pixel's samples, so its stores
+//    are not coalesced.
 #include "mega_common.cuh"
 
 namespace {
@@ -73,72 +85,49 @@ namespace {
 using frt::CameraRow;
 using frt::DenseScene;
 using frt::PathParams;
+using frt::RenderLaunch;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = frt::kRenderThreads;
+// Samples of a pixel in a unit of a warp's work (its window holds two
+// units); a render of more samples per pixel takes them in chunks of this
+// many.  8: K1 took 11.2 ms on the final scene against 11.5 at 4 and 12.7
+// at 2 (probes/mega_grid.py, PERF.md).
+constexpr int kMaxChunk = 8;
 
-struct Launch {
-  int spp;
-  int spp_total;   // samples per pixel of the whole render (ray id space)
-  int spp0;        // first sample of this launch
-  int pix0;        // global id of local pixel 0
-  int num_pixels;  // pixels of this launch
-  int total_pixels;
-};
+int chunk_of(int spp) { return spp < kMaxChunk ? spp : kMaxChunk; }
 
-// At most 64 registers, so that eight blocks fit an SM: left to itself,
-// ptxas gives the shared trace 72 and K1 loses occupancy and time.
+int render_smem_bytes(int ns, int nt, int chunk) {
+  return DenseScene::smem_bytes(ns, nt) +
+         frt::kRenderWarps * frt::warp_store_bytes(chunk, 0);
+}
+
+// At most 64 registers, so that eight blocks fit an SM.
 template <bool kTape>
 __global__ void __launch_bounds__(kThreads, 8)
-    mega_kernel(const DenseScene scene, const PathParams pp, const Launch ln,
-                float* __restrict__ rad, int* __restrict__ segs,
-                int* __restrict__ tape) {
-  const int loc = blockIdx.x * blockDim.x + threadIdx.x;
-  if (loc >= ln.num_pixels) return;
-  const int pix = ln.pix0 + loc;
-  // Tape column of sample s: loc * spp + s; rows at stride num_pixels * spp.
-  const size_t stride = static_cast<size_t>(ln.num_pixels) * ln.spp;
-  int* col = kTape ? tape + static_cast<size_t>(loc) * ln.spp : nullptr;
-  float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;
-  int nseg = 0;
-  if (pix < ln.total_pixels) {
-    const CameraRow cam = frt::load_camera(scene.tb.cam);
-    const float fi = static_cast<float>(pix % pp.nx);
-    const float fj = static_cast<float>(pix / pp.nx);  // bottom-up row
-    DenseScene::Counters cnt;
-    for (int s = 0; s < ln.spp; ++s) {
-      const uint32_t rid = static_cast<uint32_t>(pix) *
-                               static_cast<uint32_t>(ln.spp_total) +
-                           static_cast<uint32_t>(ln.spp0 + s);
-      nseg += frt::trace_path<true, kTape>(scene, cnt, cam, pp, rid, fi, fj,
-                                           sum_r, sum_g, sum_b,
-                                           kTape ? col + s : nullptr, stride);
-    }
-  } else if (kTape) {
-    for (int s = 0; s < ln.spp; ++s) {
-      for (int d = 0; d <= pp.max_depth; ++d) col[d * stride + s] = -1;
-    }
-  }
-  rad[3 * loc + 0] = sum_r;
-  rad[3 * loc + 1] = sum_g;
-  rad[3 * loc + 2] = sum_b;
-  segs[loc] = nseg;
+    mega_kernel(const DenseScene scene, const PathParams pp,
+                const RenderLaunch ln, float* __restrict__ rad,
+                int* __restrict__ segs, int* __restrict__ tape,
+                int* __restrict__ steps) {
+  extern __shared__ float4 smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  DenseScene sc = scene;
+  sc.stage(base);
+  const CameraRow cam = frt::load_camera(sc.tb.cam);
+  frt::render_warp<kTape>(sc, cam, pp, ln,
+                          base + DenseScene::smem_bytes(sc.tb.ns, sc.tb.nt),
+                          rad, segs, tape, steps, nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads)
     record_kernel(const DenseScene scene, const PathParams pp, int ray0,
                   int num_rays, int spp_total, int* __restrict__ tape,
                   int* __restrict__ its) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= num_rays) return;
-  const int rid = ray0 + i;
-  const int pix = rid / spp_total;
-  const CameraRow cam = frt::load_camera(scene.tb.cam);
-  float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;  // unused: no radiance
-  DenseScene::Counters cnt;
-  its[i] = frt::trace_path<false, true>(
-      scene, cnt, cam, pp, static_cast<uint32_t>(rid),
-      static_cast<float>(pix % pp.nx), static_cast<float>(pix / pp.nx),
-      sum_r, sum_g, sum_b, tape + i, static_cast<size_t>(num_rays));
+  extern __shared__ float4 smem[];
+  DenseScene sc = scene;
+  sc.stage(reinterpret_cast<unsigned char*>(smem));
+  const CameraRow cam = frt::load_camera(sc.tb.cam);
+  frt::record_rays(sc, cam, pp, ray0, num_rays, spp_total, tape, its,
+                   nullptr);
 }
 
 }  // namespace
@@ -147,7 +136,10 @@ extern "C" {
 
 // Launches K1 (tape == nullptr) or K2 on `stream` over `num_pixels` pixels
 // starting at global pixel `pix0`; writes rad (num_pixels, 3) f32, segs
-// (num_pixels,) i32 and, for K2, tape (max_depth + 1, num_pixels * spp) i32.
+// (num_pixels,) i32, for K2 tape (max_depth + 1, num_pixels * spp) i32, and
+// unless `steps` is null steps (num_pixels,) i32: each warp's segment steps
+// at the first pixel of its first group, 0 elsewhere.  `work` is one int of
+// device scratch, the launch's counter of groups handed out.
 // `groups` is a host array: the 7 sphere group starts, then the 7 triangle
 // ones.  Returns cudaGetLastError() after the launch (0 = launched).
 int frt_mega_render(const float* cam, const float* sph, const float* mx,
@@ -156,20 +148,31 @@ int frt_mega_render(const float* cam, const float* sph, const float* mx,
                     int nx, int ny, int spp, int spp_total, int spp0,
                     int pix0, int num_pixels, int total_pixels,
                     int max_depth, float t_min, float* rad, int* segs,
-                    int* tape, void* stream) {
+                    int* tape, int* steps, int* work, void* stream) {
   const DenseScene scene{
       frt::make_tables(cam, sph, mx, tri, ns, nt, ns_pad, nt_pad, groups)};
   const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
-  const Launch ln{spp, spp_total, spp0, pix0, num_pixels, total_pixels};
+  const RenderLaunch ln{spp,        spp_total,    spp0,          pix0,
+                        num_pixels, total_pixels, chunk_of(spp), work};
   if (num_pixels > 0) {
-    const int blocks = (num_pixels + kThreads - 1) / kThreads;
+    const int bytes = render_smem_bytes(ns, nt, ln.chunk);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int err = static_cast<int>(cudaMemsetAsync(work, 0, sizeof(int), st));
+    if (err != 0) return err;
     if (tape != nullptr) {
-      mega_kernel<true><<<blocks, kThreads, 0, st>>>(scene, pp, ln, rad,
-                                                     segs, tape);
+      err = frt::allow_smem(mega_kernel<true>, bytes);
+      if (err != 0) return err;
+      const int blocks = frt::render_blocks(mega_kernel<true>, bytes,
+                                            num_pixels);
+      mega_kernel<true><<<blocks, kThreads, bytes, st>>>(scene, pp, ln, rad,
+                                                         segs, tape, steps);
     } else {
-      mega_kernel<false><<<blocks, kThreads, 0, st>>>(scene, pp, ln, rad,
-                                                      segs, nullptr);
+      err = frt::allow_smem(mega_kernel<false>, bytes);
+      if (err != 0) return err;
+      const int blocks = frt::render_blocks(mega_kernel<false>, bytes,
+                                            num_pixels);
+      mega_kernel<false><<<blocks, kThreads, bytes, st>>>(
+          scene, pp, ln, rad, segs, nullptr, steps);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -189,7 +192,11 @@ int frt_record_paths(const float* cam, const float* sph, const float* mx,
   const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
   if (num_rays > 0) {
     const int blocks = (num_rays + kThreads - 1) / kThreads;
-    record_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int bytes = DenseScene::smem_bytes(ns, nt);
+    const int err = frt::allow_smem(record_kernel, bytes);
+    if (err != 0) return err;
+    record_kernel<<<blocks, kThreads, bytes,
+                    static_cast<cudaStream_t>(stream)>>>(
         scene, pp, ray0, num_rays, spp_total, tape, its);
   }
   return static_cast<int>(cudaGetLastError());

@@ -29,103 +29,157 @@
 // 0 * inf) passes the gate, since no other lane of a tile opens the cluster
 // for this ray here.
 //
-// K3 (`mega_clustered_kernel`): one thread per pixel, looping its samples in
-// order, writing the pixel's radiance sum, segment count and sweep counters
-// (clusters swept, sphere and triangle slots tested, boxes tested).
-// K3t (`record_clustered_kernel`): one thread per ray id, K2b's shape: an
-// int32 (D, R) tape holding -1 or the original id, every row written, and
-// per-ray trip counts and sweep counters.
+// K3 (`mega_clustered_kernel`) renders with K1's persistent warps and their
+// regeneration (mega_common.cuh::render_warp) and writes each pixel's
+// radiance sum,
+// segment count and sweep counters.  K3t (`record_clustered_kernel`): one
+// thread per ray id, K2b's shape (mega_common.cuh::record_rays): an int32
+// (D, R) tape holding -1 or the original id, every row written, and per-ray
+// trip counts and sweep counters.
 //
 // The TPU schedule is not carried over: no band, stride or rect pixel
 // mapping, no flush blocks, no gate words, ctz loop or two rounds, no one-hot
 // extraction of the winner's payload, no float-reciprocal division, no id + 1
 // float tape or VMEM spp batches.
 //
-// What bounds it on an H100: FP32 work in the sweeps actually run, 16
-// operations per sphere slot and 46 per triangle slot tested, plus the box
-// tests, all counted per thread; and divergence, since a warp runs the union
-// of its threads' gated clusters.  The tables do not fit in shared memory
-// (field20000's spheres take about 2 MB): they stay in global memory, read
-// through the read-only cache, and L2 (50 MB) holds all of them.  Warp-level
-// gating, regrouping rays by direction and shared-memory staging of hot
-// clusters are left to later work.
+// What bounds it on an H100, and what this design does about it: FP32 work
+// in the sweeps actually run (16 operations per sphere slot and 46 per
+// triangle slot tested) and in the box tests, and, with one thread per
+// pixel and per-lane loops (the first design), the union of a warp's gated
+// clusters, each swept by the few lanes that opened it while the rest
+// waited.  Here every segment step of a warp is one sweep that the whole
+// warp runs together (ClusterScene::closest):
+//  - the gate tables (supergroup boxes, cluster boxes, member counts and
+//    supergroup starts) are staged once per block in shared memory
+//    (field20000's spheres take 6.4 KB); a scene whose tables pass
+//    kGateCap reads them from device memory;
+//  - for each supergroup, in a loop the warp runs in step, every lane
+//    gates the supergroup and its clusters against its own running best t,
+//    and the warp ballots the lanes each cluster opened;
+//  - an opened cluster's member rows are copied once into the warp's
+//    shared buffer (cp.async; 128 x 16 B for spheres, 9 planes x 128
+//    floats for triangles), and its (ray, cluster) pairs are split over the
+//    warp's lanes: with k lanes needing the cluster, S = 32 / k lanes
+//    (rounded down to a power of two, at most kMaxSplit) take each pair,
+//    each a stride of its members, the spheres in groups of four sharing
+//    one branch to the root, and the S partial winners meet in a
+//    warp-shuffle lexicographic minimum;
+//  - the winner of each type stays the lexicographic minimum of (t,
+//    column), a sphere winning a sphere/triangle tie, so neither the split
+//    nor the order in which gates fire changes it.
+// The counters keep the per-lane numbers (clusters opened, slots and boxes
+// tested) and add the warp's: the clusters its sweeps opened, each once
+// however many lanes needed it, and its segment steps.
 #include "mega_common.cuh"
 #include "slab.cuh"
 
 namespace {
 
 using frt::CameraRow;
+using frt::commit_copies;
+using frt::copy16_async;
 using frt::Hit;
 using frt::kBig;
+using frt::kFullMask;
+using frt::kWarpSize;
 using frt::PathParams;
+using frt::RenderLaunch;
+using frt::round4;
 using frt::slab_gate;
 using frt::Surface;
+using frt::wait_copies;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = frt::kRenderThreads;
 constexpr int kSlots = 128;  // columns per cluster
+// The most lanes that share one (ray, cluster) pair; 1 sweeps each pair
+// on the lane of its ray.
+constexpr int kMaxSplit = 32;
+// Bytes of one type's gate tables a block stages in shared memory.
+constexpr int kGateCap = 16 * 1024;
+// Samples of a pixel per unit of work.  2: a warp's window then holds the
+// two halves of one group's samples more often than two groups, and its
+// lanes' rays stay closer together, so the clusters they open overlap
+// more (trifield20000 1.97 ms against 2.24 at 4; probes/mega_grid.py).
+constexpr int kMaxChunk = 2;
 
-// The hit tests of the sweep: the arithmetic of DenseScene::closest's
-// loops (mega_common.cuh), as functions.
-//
-// Sphere `c` = (cx, cy, cz, c0) against the ray with od = o.d, oo = o.o by
-// the expanded quadratic b = o.d - d.C, c = |o|^2 - 2 o.C + c0.  False
-// without a real root; else `t` is the nearest root past t_min, or kBig.
-__device__ __forceinline__ bool sphere_t(float4 c, float od, float oo,
-                                         float ox, float oy, float oz,
-                                         float dx, float dy, float dz,
-                                         float t_min, float& t) {
-  const float dc = c.x * dx + c.y * dy + c.z * dz;
-  const float oc = c.x * ox + c.y * oy + c.z * oz;
-  const float bq = od - dc;
-  const float cq = oo - 2.0f * oc + c.w;
-  const float disc = bq * bq - cq;
-  if (!(disc >= 0.0f)) return false;  // no root (or NaN): a miss
-  const float sq = sqrtf(disc);
-  const float tn = -bq - sq;
-  const float tf = sq - bq;
-  t = tn > t_min ? tn : (tf > t_min ? tf : kBig);
-  return true;
-}
-
-// Moller-Trumbore on the prepacked edges of column `i` of a plane-major
-// (24, tp) triangle table: true with the hit's `t` on a hit, false on a
-// miss.
-__device__ __forceinline__ bool triangle_t(const float* __restrict__ tri,
-                                           int tp, int i, float ox, float oy,
-                                           float oz, float dx, float dy,
-                                           float dz, float t_min, float& t) {
-  const float e2x = __ldg(&tri[6 * tp + i]);
-  const float e2y = __ldg(&tri[7 * tp + i]);
-  const float e2z = __ldg(&tri[8 * tp + i]);
-  const float e1x = __ldg(&tri[3 * tp + i]);
-  const float e1y = __ldg(&tri[4 * tp + i]);
-  const float e1z = __ldg(&tri[5 * tp + i]);
-  const float px = dy * e2z - dz * e2y;
-  const float py = dz * e2x - dx * e2z;
-  const float pz = dx * e2y - dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  if (!(fabsf(det) > 1e-9f)) return false;
-  const float inv = 1.0f / det;
-  const float tvx = ox - __ldg(&tri[0 * tp + i]);
-  const float tvy = oy - __ldg(&tri[1 * tp + i]);
-  const float tvz = oz - __ldg(&tri[2 * tp + i]);
-  const float uu = (tvx * px + tvy * py + tvz * pz) * inv;
-  const float qx = tvy * e1z - tvz * e1y;
-  const float qy = tvz * e1x - tvx * e1z;
-  const float qz = tvx * e1y - tvy * e1x;
-  const float vv = (dx * qx + dy * qy + dz * qz) * inv;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-  return uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && t > t_min &&
-         t < kBig;
-}
-
-// What a segment's sweep did, summed over a thread's paths.
+// What a lane's sweeps did (kLane counters, summed per pixel or ray), and
+// what its warp's did.
 struct ClusterCounters {
-  int clusters = 0;   // clusters swept (spheres and triangles)
+  static constexpr int kLane = 4;
+  int clusters = 0;   // clusters opened (spheres and triangles)
   int sph_slots = 0;  // sphere slots tested
   int tri_slots = 0;  // triangle slots tested
   int boxes = 0;      // supergroup and cluster boxes slab-tested
+  int warp_clusters = 0;  // clusters the warp swept, each once
+
+  // Adds the lane's counts to `dst` (shared memory) and clears them.
+  __device__ __forceinline__ void flush(int* dst) {
+    atomicAdd(dst + 0, clusters);
+    atomicAdd(dst + 1, sph_slots);
+    atomicAdd(dst + 2, tri_slots);
+    atomicAdd(dst + 3, boxes);
+    clusters = sph_slots = tri_slots = boxes = 0;
+  }
+  __device__ __forceinline__ void store(int* dst) const {
+    dst[0] = clusters;
+    dst[1] = sph_slots;
+    dst[2] = tri_slots;
+    dst[3] = boxes;
+  }
 };
+
+// One primitive type's gate tables: supergroup boxes (ks, 2) float4,
+// cluster boxes (kc, 2) float4, member counts (kc,), supergroup starts
+// (ks + 1,): in shared memory once staged, else in device memory.
+struct GateTables {
+  const float4* supers;
+  const float4* boxes;
+  const int* counts;
+  const int* starts;
+  int ks, kc;
+
+  __host__ __device__ static constexpr int bytes(int ks, int kc) {
+    return 32 * ks + 32 * kc + 4 * round4(kc) + 4 * round4(ks + 1);
+  }
+  __host__ __device__ static constexpr int staged_bytes(int ks, int kc,
+                                                        bool present) {
+    return present && bytes(ks, kc) <= kGateCap ? bytes(ks, kc) : 0;
+  }
+
+  // The block copies the tables to `smem` (staged_bytes of them); the
+  // caller syncs.
+  __device__ void stage(unsigned char* smem) {
+    float4* sup = reinterpret_cast<float4*>(smem);
+    float4* box = sup + 2 * ks;
+    int* cnt = reinterpret_cast<int*>(box + 2 * kc);
+    int* st = cnt + round4(kc);
+    for (int q = threadIdx.x; q < 2 * ks; q += blockDim.x)
+      copy16_async(sup + q, supers + q);
+    for (int q = threadIdx.x; q < 2 * kc; q += blockDim.x)
+      copy16_async(box + q, boxes + q);
+    for (int q = threadIdx.x; q < kc; q += blockDim.x) cnt[q] = counts[q];
+    for (int q = threadIdx.x; q <= ks; q += blockDim.x) st[q] = starts[q];
+    supers = sup;
+    boxes = box;
+    counts = cnt;
+    starts = st;
+  }
+};
+
+// The lexicographic (t, column) fold of a hit into a running winner.
+__device__ __forceinline__ void fold_lex(float t, int w, float& t_best,
+                                         int& w_best) {
+  if (t < t_best || (t == t_best && w < w_best)) {
+    t_best = t;
+    w_best = w;
+  }
+}
+
+// The lane of the g-th set bit of `mask`.
+__device__ __forceinline__ int nth_lane(unsigned mask, int g) {
+  for (int i = 0; i < g; ++i) mask &= mask - 1u;
+  return __ffs(static_cast<int>(mask)) - 1;
+}
 
 // The clustered scene (kernels/megakernel_clustered.py::MegaClusteredPack).
 //   sph (16, sp): 0-2 center, 3 radius, 4 param, 5-7 albedo, 8-10 albedo2,
@@ -135,95 +189,209 @@ struct ClusterCounters {
 //   tri (24, tp): the dense rows 0-20, 21 material type, 22 texture type;
 //   boxes (K, 8) and super boxes (KS, 8): mnx mny mnz mxx mxy mxz pad pad;
 //   starts (KS + 1,): first cluster of each supergroup, then K;
-//   counts (K,): members of each cluster.
+//   counts (K,): members of each cluster, which fill its first columns.
 struct ClusterScene {
   const float* sph;
   const float4* mx;
-  const float* sph_boxes;
-  const float* sph_super;
-  const int* sph_starts;
-  const int* sph_counts;
   const float* tri;
-  const float* tri_boxes;
-  const float* tri_super;
-  const int* tri_starts;
-  const int* tri_counts;
-  int ns, nt, ks, kts, sp, tp;
+  GateTables sg, tg;
+  int ns, nt, sp, tp;
+  float* members = nullptr;  // this warp's buffer of member rows
   using Counters = ClusterCounters;
+
+  // Bytes of a warp's member buffer: 128 sphere rows, or the 9 planes of
+  // 128 triangles.
+  __host__ __device__ static constexpr int member_bytes(int ns, int nt) {
+    return (nt > 0 ? 4 * 9 * kSlots : 0) > (ns > 0 ? 16 * kSlots : 0)
+               ? 4 * 9 * kSlots
+               : (ns > 0 ? 16 * kSlots : 0);
+  }
+  __host__ __device__ static constexpr int smem_bytes(int ns, int nt, int ks,
+                                                      int kc, int kts,
+                                                      int kt) {
+    return GateTables::staged_bytes(ks, kc, ns > 0) +
+           GateTables::staged_bytes(kts, kt, nt > 0) +
+           frt::kRenderWarps * member_bytes(ns, nt);
+  }
+
+  // Every thread of the block calls this once: the gate tables that fit go
+  // to shared memory, and each warp gets its member buffer.
+  __device__ void stage(unsigned char* smem) {
+    unsigned char* p = smem;
+    const int bs = GateTables::staged_bytes(sg.ks, sg.kc, ns > 0);
+    if (bs > 0) sg.stage(p);
+    p += bs;
+    const int bt = GateTables::staged_bytes(tg.ks, tg.kc, nt > 0);
+    if (bt > 0) tg.stage(p);
+    p += bt;
+    members = reinterpret_cast<float*>(
+        p + (threadIdx.x / kWarpSize) * member_bytes(ns, nt));
+    commit_copies();
+    wait_copies<0>();
+    __syncthreads();
+  }
+
+  // Copies cluster c's member rows to the warp's buffer (whole warp).
+  template <bool TRI>
+  __device__ __forceinline__ void load_members(int c, int m) const {
+    const int lane = threadIdx.x % kWarpSize;
+    const size_t col0 = static_cast<size_t>(c) * kSlots;
+    __syncwarp();  // every lane is done with the last cluster's rows
+    if (TRI) {
+      const int runs = round4(m) / 4;  // within the cluster's 128 columns
+      for (int q = lane; q < 9 * runs; q += kWarpSize) {
+        const int pl = q / runs, k = 4 * (q % runs);
+        copy16_async(members + pl * kSlots + k,
+                     tri + static_cast<size_t>(pl) * tp + col0 + k);
+      }
+    } else {
+      float4* rows = reinterpret_cast<float4*>(members);
+      for (int j = lane; j < round4(m); j += kWarpSize)
+        copy16_async(rows + j, mx + 2 * (col0 + j));
+    }
+    commit_copies();
+    wait_copies<0>();
+    __syncwarp();
+  }
+
+  // The members of cluster c (m of them, in the warp's buffer) against the
+  // rays of the lanes in `need`, split over the warp; `need_me` says
+  // whether this lane's ray is one of them, and its (t_best, w_best) takes
+  // the cluster's winner.
+  template <bool TRI>
+  __device__ __forceinline__ void sweep(int c, int m, unsigned need,
+                                        bool need_me, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz, float t_min, float& t_best,
+                                        int& w_best) const {
+    const int lane = threadIdx.x % kWarpSize;
+    const int k = __popc(need);
+    int split = 1;  // lanes per pair: a power of two, k * split <= 32
+    while (split < kMaxSplit && 2 * split * k <= kWarpSize) split *= 2;
+    const int g = lane / split, sub = lane % split;
+    // Lane g * split + sub takes pair g: the ray of the g-th lane in need.
+    const int src = g < k ? nth_lane(need, g) : lane;
+    float rox = ox, roy = oy, roz = oz, rdx = dx, rdy = dy, rdz = dz;
+    if (split > 1) {
+      rox = __shfl_sync(kFullMask, ox, src);
+      roy = __shfl_sync(kFullMask, oy, src);
+      roz = __shfl_sync(kFullMask, oz, src);
+      rdx = __shfl_sync(kFullMask, dx, src);
+      rdy = __shfl_sync(kFullMask, dy, src);
+      rdz = __shfl_sync(kFullMask, dz, src);
+    }
+    const bool mine = split > 1 ? g < k : need_me;
+    const int col0 = c * kSlots;
+    float t_c = kBig;
+    int w_c = INT_MAX;
+    if (mine) {
+      auto fold = [&](float t, int w) {
+        if (t < kBig) fold_lex(t, w, t_c, w_c);
+      };
+      const int first = split > 1 ? sub : 0;
+      if (TRI) {
+        const float* pl = members;
+        for (int j = first; j < m; j += split) {
+          float t;
+          if (frt::triangle_hit(pl[j], pl[kSlots + j], pl[2 * kSlots + j],
+                                pl[3 * kSlots + j], pl[4 * kSlots + j],
+                                pl[5 * kSlots + j], pl[6 * kSlots + j],
+                                pl[7 * kSlots + j], pl[8 * kSlots + j], rox,
+                                roy, roz, rdx, rdy, rdz, t_min, t))
+            fold(t, col0 + j);
+        }
+      } else {
+        const float od = rox * rdx + roy * rdy + roz * rdz;
+        const float oo = rox * rox + roy * roy + roz * roz;
+        const float4* rows = reinterpret_cast<const float4*>(members);
+        // Whole groups: the pack's empty slots are never-hit sentinels.
+        for (int j = frt::kGroup * first; j < m;
+             j += frt::kGroup * split) {
+          const float4 s[frt::kGroup] = {rows[j], rows[j + 1], rows[j + 2],
+                                         rows[j + 3]};
+          frt::sphere_group(s, rox, roy, roz, rdx, rdy, rdz, od, oo, t_min,
+                            col0 + j, fold);
+        }
+      }
+    }
+    if (split > 1) {
+      for (int o = 1; o < split; o <<= 1) {  // the pair's S partial winners
+        const float t = __shfl_xor_sync(kFullMask, t_c, o);
+        const int w = __shfl_xor_sync(kFullMask, w_c, o);
+        fold_lex(t, w, t_c, w_c);
+      }
+      // Each lane in need takes its pair's result from the pair's first
+      // lane: its rank among the lanes in need, times the split.
+      const int rank = __popc(need & ((1u << lane) - 1u));
+      const int from = need_me ? rank * split : lane;
+      const float t = __shfl_sync(kFullMask, t_c, from);
+      const int w = __shfl_sync(kFullMask, w_c, from);
+      t_c = t;
+      w_c = w;
+    }
+    if (need_me && t_c < kBig) fold_lex(t_c, w_c, t_best, w_best);
+  }
+
+  // One type's two-level gated sweep; the whole warp calls it.
+  template <bool TRI>
+  __device__ __forceinline__ void pass(const GateTables& gt, float ox,
+                                       float oy, float oz, float dx,
+                                       float dy, float dz, float ivx,
+                                       float ivy, float ivz, float t_min,
+                                       bool active, float other,
+                                       float& t_best, int& w_best,
+                                       Counters& cnt) const {
+    for (int s = 0; s < gt.ks; ++s) {
+      const float bound0 = fminf(t_best, other);
+      bool pass_s = false;
+      if (active) {
+        ++cnt.boxes;
+        pass_s = slab_gate(gt.supers[2 * s], gt.supers[2 * s + 1], ox, oy, oz,
+                           ivx, ivy, ivz, t_min, bound0);
+      }
+      if (!__any_sync(kFullMask, pass_s)) continue;
+      const int c0 = gt.starts[s], c1 = gt.starts[s + 1];
+      for (int c = c0; c < c1; ++c) {
+        bool need_me = pass_s;
+        if (pass_s && c1 - c0 > 1) {
+          ++cnt.boxes;
+          need_me = slab_gate(gt.boxes[2 * c], gt.boxes[2 * c + 1], ox, oy,
+                              oz, ivx, ivy, ivz, t_min,
+                              fminf(t_best, other));
+        }
+        const unsigned need = __ballot_sync(kFullMask, need_me);
+        if (need == 0u) continue;
+        const int m = gt.counts[c];
+        if (need_me) {
+          ++cnt.clusters;
+          if (TRI)
+            cnt.tri_slots += m;
+          else
+            cnt.sph_slots += m;
+        }
+        ++cnt.warp_clusters;
+        load_members<TRI>(c, m);
+        sweep<TRI>(c, m, need, need_me, ox, oy, oz, dx, dy, dz, t_min,
+                   t_best, w_best);
+      }
+    }
+  }
 
   __device__ __forceinline__ void closest(float ox, float oy, float oz,
                                           float dx, float dy, float dz,
-                                          float t_min, Hit& h,
+                                          float t_min, bool active, Hit& h,
                                           Counters& cnt) const {
     const float ivx = 1.0f / dx, ivy = 1.0f / dy, ivz = 1.0f / dz;
-    float t_s = kBig;
-    int w_s = 0;
-    if (ns > 0) {
-      const float od = ox * dx + oy * dy + oz * dz;
-      const float oo = ox * ox + oy * oy + oz * oz;
-      for (int s = 0; s < ks; ++s) {
-        ++cnt.boxes;
-        if (!slab_gate(sph_super + 8 * s, ox, oy, oz, ivx, ivy, ivz, t_min,
-                       t_s))
-          continue;
-        const int c0 = __ldg(&sph_starts[s]), c1 = __ldg(&sph_starts[s + 1]);
-        for (int c = c0; c < c1; ++c) {
-          if (c1 - c0 > 1) {
-            ++cnt.boxes;
-            if (!slab_gate(sph_boxes + 8 * c, ox, oy, oz, ivx, ivy, ivz,
-                           t_min, t_s))
-              continue;
-          }
-          const int m = __ldg(&sph_counts[c]);
-          ++cnt.clusters;
-          cnt.sph_slots += m;
-          for (int col = c * kSlots; col < c * kSlots + m; ++col) {
-            float t;
-            if (!sphere_t(__ldg(&mx[2 * col]), od, oo, ox, oy, oz, dx,
-                               dy, dz, t_min, t))
-              continue;
-            if (t < t_s || (t == t_s && col < w_s)) {
-              t_s = t;
-              w_s = col;
-            }
-          }
-        }
-      }
-    }
-    float t_t = kBig;
-    int w_t = 0;
-    if (nt > 0) {
-      for (int s = 0; s < kts; ++s) {
-        ++cnt.boxes;
-        if (!slab_gate(tri_super + 8 * s, ox, oy, oz, ivx, ivy, ivz, t_min,
-                       fminf(t_s, t_t)))
-          continue;
-        const int c0 = __ldg(&tri_starts[s]), c1 = __ldg(&tri_starts[s + 1]);
-        for (int c = c0; c < c1; ++c) {
-          if (c1 - c0 > 1) {
-            ++cnt.boxes;
-            if (!slab_gate(tri_boxes + 8 * c, ox, oy, oz, ivx, ivy, ivz,
-                           t_min, fminf(t_s, t_t)))
-              continue;
-          }
-          const int m = __ldg(&tri_counts[c]);
-          ++cnt.clusters;
-          cnt.tri_slots += m;
-          for (int col = c * kSlots; col < c * kSlots + m; ++col) {
-            float t;
-            if (!triangle_t(tri, tp, col, ox, oy, oz, dx, dy, dz, t_min,
-                                 t))
-              continue;
-            if (t < t_t || (t == t_t && col < w_t)) {
-              t_t = t;
-              w_t = col;
-            }
-          }
-        }
-      }
-    }
-    h.w_s = w_s;
-    h.w_t = w_t;
+    float t_s = kBig, t_t = kBig;
+    int w_s = INT_MAX, w_t = INT_MAX;
+    if (ns > 0)
+      pass<false>(sg, ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, t_min, active,
+                  kBig, t_s, w_s, cnt);
+    if (nt > 0)
+      pass<true>(tg, ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, t_min, active,
+                 t_s, t_t, w_t, cnt);
+    h.w_s = t_s < kBig ? w_s : 0;
+    h.w_t = t_t < kBig ? w_t : 0;
     h.is_tri = t_t < t_s;
     h.t = h.is_tri ? t_t : t_s;
   }
@@ -274,42 +442,29 @@ struct ClusterScene {
   }
 };
 
-__device__ __forceinline__ void write_counters(const ClusterCounters& cnt,
-                                               int* __restrict__ out) {
-  out[0] = cnt.clusters;
-  out[1] = cnt.sph_slots;
-  out[2] = cnt.tri_slots;
-  out[3] = cnt.boxes;
+int chunk_of(int spp) { return spp < kMaxChunk ? spp : kMaxChunk; }
+
+__host__ __device__ int scene_smem_bytes(const ClusterScene& s) {
+  return ClusterScene::smem_bytes(s.ns, s.nt, s.sg.ks, s.sg.kc, s.tg.ks,
+                                  s.tg.kc);
 }
 
-// K3.  At most 128 registers (four blocks an SM): the clustered sweep keeps
-// more state than K1's, and spilling it costs more than occupancy.
-__global__ void __launch_bounds__(kThreads, 4)
+// K3.  At most 96 registers (five blocks an SM): on the card, 2.9 ms on
+// field20000 against 3.1-3.3 at 128 (116 used) and 3.5 at 168
+// (probes/mega_grid.py, PERF.md).
+__global__ void __launch_bounds__(kThreads, 5)
     mega_clustered_kernel(const ClusterScene scene,
                           const float* __restrict__ camp,
-                          const PathParams pp, int spp, int num_pixels,
+                          const PathParams pp, const RenderLaunch ln,
                           float* __restrict__ rad, int* __restrict__ segs,
                           int* __restrict__ sweeps) {
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= num_pixels) return;
+  extern __shared__ float4 smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem);
+  ClusterScene sc = scene;
+  sc.stage(base);
   const CameraRow cam = frt::load_camera(camp);
-  const float fi = static_cast<float>(pix % pp.nx);
-  const float fj = static_cast<float>(pix / pp.nx);  // bottom-up row
-  float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;
-  int nseg = 0;
-  ClusterCounters cnt;
-  for (int s = 0; s < spp; ++s) {
-    const uint32_t rid = static_cast<uint32_t>(pix) *
-                             static_cast<uint32_t>(spp) +
-                         static_cast<uint32_t>(s);
-    nseg += frt::trace_path<true, false>(scene, cnt, cam, pp, rid, fi, fj,
-                                         sum_r, sum_g, sum_b, nullptr, 0);
-  }
-  rad[3 * pix + 0] = sum_r;
-  rad[3 * pix + 1] = sum_g;
-  rad[3 * pix + 2] = sum_b;
-  segs[pix] = nseg;
-  write_counters(cnt, sweeps + 4 * pix);
+  frt::render_warp<false>(sc, cam, pp, ln, base + scene_smem_bytes(scene),
+                          rad, segs, nullptr, nullptr, sweeps);
 }
 
 // K3t: K2b's shape on the clustered scene.
@@ -320,18 +475,12 @@ __global__ void __launch_bounds__(kThreads, 4)
                             int spp_total, int* __restrict__ tape,
                             int* __restrict__ its,
                             int* __restrict__ sweeps) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= num_rays) return;
-  const int rid = ray0 + i;
-  const int pix = rid / spp_total;
+  extern __shared__ float4 smem[];
+  ClusterScene sc = scene;
+  sc.stage(reinterpret_cast<unsigned char*>(smem));
   const CameraRow cam = frt::load_camera(camp);
-  float sum_r = 0.0f, sum_g = 0.0f, sum_b = 0.0f;  // unused: no radiance
-  ClusterCounters cnt;
-  its[i] = frt::trace_path<false, true>(
-      scene, cnt, cam, pp, static_cast<uint32_t>(rid),
-      static_cast<float>(pix % pp.nx), static_cast<float>(pix / pp.nx),
-      sum_r, sum_g, sum_b, tape + i, static_cast<size_t>(num_rays));
-  write_counters(cnt, sweeps + 4 * i);
+  frt::record_rays(sc, cam, pp, ray0, num_rays, spp_total, tape, its,
+                   sweeps);
 }
 
 ClusterScene make_scene(const float* sph, const float* mx,
@@ -341,15 +490,21 @@ ClusterScene make_scene(const float* sph, const float* mx,
                         const float* tri_super, const int* tri_starts,
                         const int* tri_counts, int ns, int nt, int ks,
                         int kts, int sp, int tp) {
-  return ClusterScene{sph,        reinterpret_cast<const float4*>(mx),
-                      sph_boxes,  sph_super,
-                      sph_starts, sph_counts,
-                      tri,        tri_boxes,
-                      tri_super,  tri_starts,
-                      tri_counts, ns,
-                      nt,         ks,
-                      kts,        sp,
-                      tp};
+  ClusterScene s;
+  s.sph = sph;
+  s.mx = reinterpret_cast<const float4*>(mx);
+  s.tri = tri;
+  s.sg = GateTables{reinterpret_cast<const float4*>(sph_super),
+                    reinterpret_cast<const float4*>(sph_boxes), sph_counts,
+                    sph_starts, ks, sp / kSlots};
+  s.tg = GateTables{reinterpret_cast<const float4*>(tri_super),
+                    reinterpret_cast<const float4*>(tri_boxes), tri_counts,
+                    tri_starts, kts, tp / kSlots};
+  s.ns = ns;
+  s.nt = nt;
+  s.sp = sp;
+  s.tp = tp;
+  return s;
 }
 
 }  // namespace
@@ -357,7 +512,9 @@ ClusterScene make_scene(const float* sph, const float* mx,
 extern "C" {
 
 // Launches K3 on `stream` over the whole nx x ny image; writes rad (P, 3)
-// f32, segs (P,) i32 and sweeps (P, 4) i32.  The tables are those of
+// f32, segs (P,) i32 and sweeps (P, 6) i32 (ClusterCounters, then the
+// warp's clusters and steps at the first pixel of its first group); `work`
+// is one int of device scratch, the launch's counter of groups.  The tables are those of
 // MegaClusteredPack; `sp` and `tp` are the sphere and triangle column
 // counts.  Returns cudaGetLastError() after the launch (0 = launched).
 int frt_mega_clustered_render(
@@ -367,24 +524,35 @@ int frt_mega_clustered_render(
     const float* tri_super, const int* tri_starts, const int* tri_counts,
     int ns, int nt, int ks, int kts, int sp, int tp, unsigned int k0,
     unsigned int k1, int nx, int ny, int spp, int max_depth, float t_min,
-    float* rad, int* segs, int* sweeps, void* stream) {
+    float* rad, int* segs, int* sweeps, int* work, void* stream) {
   const ClusterScene scene =
       make_scene(sph, mx, sph_boxes, sph_super, sph_starts, sph_counts, tri,
                  tri_boxes, tri_super, tri_starts, tri_counts, ns, nt, ks,
                  kts, sp, tp);
   const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
   const int num_pixels = nx * ny;
+  const RenderLaunch ln{spp,        spp,        0,   0,
+                        num_pixels, num_pixels, chunk_of(spp), work};
   if (num_pixels > 0) {
-    const int blocks = (num_pixels + kThreads - 1) / kThreads;
-    mega_clustered_kernel<<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        scene, cam, pp, spp, num_pixels, rad, segs, sweeps);
+    const int bytes =
+        scene_smem_bytes(scene) +
+        frt::kRenderWarps *
+            frt::warp_store_bytes(ln.chunk, ClusterCounters::kLane);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int err = static_cast<int>(cudaMemsetAsync(work, 0, sizeof(int), st));
+    if (err != 0) return err;
+    err = frt::allow_smem(mega_clustered_kernel, bytes);
+    if (err != 0) return err;
+    const int blocks =
+        frt::render_blocks(mega_clustered_kernel, bytes, num_pixels);
+    mega_clustered_kernel<<<blocks, kThreads, bytes, st>>>(
+        scene, cam, pp, ln, rad, segs, sweeps);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches K3t on `stream` over ray ids [ray0, ray0 + num_rays); writes tape
-// (max_depth + 1, num_rays) i32, its (num_rays,) i32 and sweeps (num_rays, 4)
+// (max_depth + 1, num_rays) i32, its (num_rays,) i32 and sweeps (num_rays, 6)
 // i32.  Tables as for frt_mega_clustered_render.  Returns cudaGetLastError()
 // after the launch.
 int frt_record_clustered(
@@ -403,7 +571,10 @@ int frt_record_clustered(
   const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
   if (num_rays > 0) {
     const int blocks = (num_rays + kThreads - 1) / kThreads;
-    record_clustered_kernel<<<blocks, kThreads, 0,
+    const int bytes = scene_smem_bytes(scene);
+    const int err = frt::allow_smem(record_clustered_kernel, bytes);
+    if (err != 0) return err;
+    record_clustered_kernel<<<blocks, kThreads, bytes,
                               static_cast<cudaStream_t>(stream)>>>(
         scene, cam, pp, ray0, num_rays, spp_total, tape, its, sweeps);
   }

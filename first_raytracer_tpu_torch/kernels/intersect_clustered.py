@@ -318,31 +318,25 @@ def _check_pack(pack):
 
 
 def _launch_cuda(pack, o, d, t_min, return_iters):
-    from .megakernel import load_mega_library
+    from . import megakernel
 
     dev = pack.device
     _check_pack(pack)
-    lib, _ = load_mega_library()
     R = o.shape[0]
     t = torch.empty((R,), dtype=torch.float32, device=dev)
     prim = torch.empty((R,), dtype=torch.int32, device=dev)
     sweeps = (torch.empty((R, len(SWEEP_COLUMNS)), dtype=torch.int32,
                           device=dev) if return_iters else None)
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.frt_intersect_clustered(
-            o.data_ptr(), d.data_ptr(), pack.sph_vec.data_ptr(),
-            pack.sph_box.data_ptr(), pack.sph_super_box.data_ptr(),
-            pack.sph_gid.data_ptr(), pack.sph_count.data_ptr(),
-            pack.sph_clusters, pack.tri_vec.data_ptr(),
-            pack.tri_box.data_ptr(), pack.tri_super_box.data_ptr(),
-            pack.tri_gid.data_ptr(), pack.tri_count.data_ptr(),
-            pack.tri_clusters, R, ctypes.c_float(t_min), t.data_ptr(),
-            prim.data_ptr(), None if sweeps is None else sweeps.data_ptr(),
-            stream)
-    if err != 0:
-        raise RuntimeError("clustered intersect launch failed: "
-                           f"{lib.frt_error_string(err).decode()} ({err})")
+    megakernel.launch_entry(
+        dev, "frt_intersect_clustered", o.data_ptr(), d.data_ptr(),
+        pack.sph_vec.data_ptr(), pack.sph_box.data_ptr(),
+        pack.sph_super_box.data_ptr(), pack.sph_gid.data_ptr(),
+        pack.sph_count.data_ptr(), pack.sph_clusters,
+        pack.tri_vec.data_ptr(), pack.tri_box.data_ptr(),
+        pack.tri_super_box.data_ptr(), pack.tri_gid.data_ptr(),
+        pack.tri_count.data_ptr(), pack.tri_clusters, R,
+        ctypes.c_float(t_min), t.data_ptr(), prim.data_ptr(),
+        None if sweeps is None else sweeps.data_ptr())
     if R:
         intersect_clustered.launches += 1
     return prim, t, sweeps

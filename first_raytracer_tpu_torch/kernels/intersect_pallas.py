@@ -109,7 +109,8 @@ def check_rays(origin, direction, dev):
 
 
 def _launch_cuda(pack, o, d, t_min):
-    from .megakernel import _check, load_mega_library
+    from . import megakernel
+    from .megakernel import _check
 
     dev = pack.device
     _check("spheres", pack.spheres, torch.float32,
@@ -119,20 +120,14 @@ def _launch_cuda(pack, o, d, t_min):
         # The kernel copies whole 16-byte runs of each plane into its tiles.
         if x.data_ptr() % 16 or x.shape[1] % 4:
             raise ValueError(f"{name} is not in 16-byte aligned planes")
-    lib, _ = load_mega_library()
     R = o.shape[0]
     t = torch.empty((R,), dtype=torch.float32, device=dev)
     prim = torch.empty((R,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.frt_intersect_dense(
-            o.data_ptr(), d.data_ptr(), pack.spheres.data_ptr(),
-            pack.sphere_rows, pack.spheres.shape[1], pack.tris.data_ptr(),
-            pack.tri_rows, pack.tris.shape[1], R, ctypes.c_float(t_min),
-            t.data_ptr(), prim.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("dense intersect launch failed: "
-                           f"{lib.frt_error_string(err).decode()} ({err})")
+    megakernel.launch_entry(
+        dev, "frt_intersect_dense", o.data_ptr(), d.data_ptr(),
+        pack.spheres.data_ptr(), pack.sphere_rows, pack.spheres.shape[1],
+        pack.tris.data_ptr(), pack.tri_rows, pack.tris.shape[1], R,
+        ctypes.c_float(t_min), t.data_ptr(), prim.data_ptr())
     if R:
         intersect_pallas.launches += 1
     return prim, t

@@ -3,10 +3,13 @@ the same kernel recording the winner tape of the differentiable pass (K2).
 
 Port of ``first_raytracer_tpu.kernels.megakernel``.  On a CUDA device
 ``render_pixels_mega`` launches the hand-written kernel in
-``csrc/megakernel.cu``: one thread per pixel traces that pixel's samples to
-termination (in-kernel Threefry draws, thin-lens camera, dense sphere and
-triangle sweep with exact closest-hit selection, lambertian / metal /
-dielectric scatter with the checker texture, sky on a miss).  With
+``csrc/megakernel.cu``: persistent warps take groups of 32 pixels and
+trace their samples to termination, a lane taking the next unstarted
+sample whenever its path ends (in-kernel Threefry draws, thin-lens
+camera, dense sphere and
+triangle sweep over rows staged in shared memory with exact closest-hit
+selection, lambertian / metal / dielectric scatter with the checker
+texture, sky on a miss), and sums each pixel in sample order.  With
 ``emit_tape=True`` it launches the kernel's tape variant (K2), which also
 writes each sample's winner tape.  On the CPU it runs
 ``render_pixels_mega_reference``, the same function in plain PyTorch.  A
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core import rng
+from ..core import vecmath
 from ..core.vecmath import divide
 
 __all__ = ["MegaScenePack", "pack_scene_mega", "camera_table",
@@ -248,6 +252,13 @@ def load_mega_library():
     lib, info = build_library(
         "frt_mega", [KERNEL_SOURCE, CLUSTERED_SOURCE, INTERSECT_SOURCE],
         NVCC_EXTRA_FLAGS)
+    return bind(lib), info
+
+
+def bind(lib):
+    """Declares the C entry points' argument and result types on ``lib``
+    (the card's library, or the CPU tests' host build of the same
+    sources)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     u32, f32 = ctypes.c_uint32, ctypes.c_float
     lib.frt_intersect_dense.argtypes = (
@@ -260,7 +271,7 @@ def load_mega_library():
     # counts and the two column counts.
     tables = [ptr] * 12 + [i32] * 6
     lib.frt_mega_clustered_render.argtypes = (
-        tables + [u32, u32] + [i32] * 4 + [f32] + [ptr] * 4)
+        tables + [u32, u32] + [i32] * 4 + [f32] + [ptr] * 5)
     lib.frt_mega_clustered_render.restype = i32
     lib.frt_record_clustered.argtypes = (
         tables + [u32, u32] + [i32] * 6 + [f32] + [ptr] * 4)
@@ -268,7 +279,7 @@ def load_mega_library():
     lib.frt_mega_render.argtypes = (
         [ptr] * 4 + [i32] * 4
         + [ctypes.POINTER(i32), ctypes.c_uint32, ctypes.c_uint32]
-        + [i32] * 9 + [ctypes.c_float, ptr, ptr, ptr, ptr])
+        + [i32] * 9 + [ctypes.c_float] + [ptr] * 6)
     lib.frt_mega_render.restype = i32
     lib.frt_record_paths.argtypes = (
         [ptr] * 4 + [i32] * 4
@@ -277,7 +288,19 @@ def load_mega_library():
     lib.frt_record_paths.restype = i32
     lib.frt_error_string.argtypes = [i32]
     lib.frt_error_string.restype = ctypes.c_char_p
-    return lib, info
+    return lib
+
+
+def launch_entry(dev, name, *args):
+    """Calls the library's C entry point ``name`` with ``args`` and the
+    current stream of CUDA device ``dev``; raises if the launch failed."""
+    lib, _ = load_mega_library()
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: "
+                           f"{lib.frt_error_string(err).decode()} ({err})")
 
 
 def _check(name, t, dtype, shape, device):
@@ -304,40 +327,41 @@ def check_pack(pack, cam):
 
 
 def _launch_cuda(pack, cam, cfg, k0, k1, pix0, num_pixels, total_pixels,
-                 spp0, spp_total, emit_tape):
+                 spp0, spp_total, emit_tape, return_iters=False):
     """Launch K1 (or K2 with ``emit_tape``) on the current stream; returns
-    (rad (P, 3), segs (P,)) and, for K2, tape (D, P * spp)."""
+    (rad (P, 3), segs (P,)), then for K2 tape (D, P * spp), then with
+    ``return_iters`` the warps' steps (P,)."""
     dev = pack.device
     check_pack(pack, cam)
-    lib, _ = load_mega_library()
     rad = torch.empty((num_pixels, 3), dtype=torch.float32, device=dev)
     segs = torch.empty((num_pixels,), dtype=torch.int32, device=dev)
     # K2 writes every entry of its tape: no fill needed.
     tape = (torch.empty((cfg.max_depth + 1, num_pixels * cfg.spp),
                         dtype=torch.int32, device=dev) if emit_tape else None)
+    steps = (torch.empty((num_pixels,), dtype=torch.int32, device=dev)
+             if return_iters else None)
+    work = torch.empty((1,), dtype=torch.int32, device=dev)  # its counter
     groups = (ctypes.c_int * 14)(*pack.sph_groups, *pack.tri_groups)
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.frt_mega_render(
-            cam.data_ptr(), pack.spheres.data_ptr(), pack.sph_mx.data_ptr(),
-            pack.tris.data_ptr(), pack.sphere_rows, pack.tri_rows,
-            pack.spheres.shape[1], pack.tris.shape[1], groups, k0, k1,
-            cfg.nx, cfg.ny, cfg.spp, spp_total, spp0, pix0, num_pixels,
-            total_pixels, cfg.max_depth, float(cfg.t_min), rad.data_ptr(),
-            segs.data_ptr(), tape.data_ptr() if emit_tape else None, stream)
-    if err != 0:
-        raise RuntimeError("megakernel launch failed: "
-                           f"{lib.frt_error_string(err).decode()} ({err})")
+    launch_entry(
+        dev, "frt_mega_render", cam.data_ptr(), pack.spheres.data_ptr(),
+        pack.sph_mx.data_ptr(), pack.tris.data_ptr(), pack.sphere_rows,
+        pack.tri_rows, pack.spheres.shape[1], pack.tris.shape[1], groups, k0,
+        k1, cfg.nx, cfg.ny, cfg.spp, spp_total, spp0, pix0, num_pixels,
+        total_pixels, cfg.max_depth, float(cfg.t_min), rad.data_ptr(),
+        segs.data_ptr(), tape.data_ptr() if emit_tape else None,
+        steps.data_ptr() if return_iters else None, work.data_ptr())
     if emit_tape:
         render_pixels_mega.tape_launches += 1
-        return rad, segs, tape
-    render_pixels_mega.launches += 1
-    return rad, segs
+    else:
+        render_pixels_mega.launches += 1
+    return ((rad, segs) + ((tape,) if emit_tape else ())
+            + ((steps,) if return_iters else ()))
 
 
 def render_pixels_mega(pack: MegaScenePack, camera, cfg, key, spp0: int = 0,
                        spp_total: int = None, pix0: int = 0,
-                       num_pixels: int = None, emit_tape: bool = False):
+                       num_pixels: int = None, emit_tape: bool = False,
+                       return_iters: bool = False):
     """Per-pixel radiance sums and segment counts for a render.
 
     Returns ``(radiance_sum (P, 3) f32, segments (P,) i32)`` for the
@@ -354,6 +378,15 @@ def render_pixels_mega(pack: MegaScenePack, camera, cfg, key, spp0: int = 0,
     path hit at bounce ``d``, or -1 on a miss or after the path ended: the
     contract of ``diff.replay.record_paths``.
 
+    With ``return_iters=True`` also returns, last, the kernel's warps'
+    segment steps ``(P,)`` i32, each warp's at the first pixel of the first
+    group of 32 pixels it took (0 elsewhere): the warps' lanes take the
+    next unstarted sample as their paths end, so segments / (32 x steps)
+    is its lane efficiency.  The
+    plain version gives the steps of a warp whose lanes each trace one
+    pixel's samples in turn (its busiest pixel's segments), the schedule
+    without regeneration.
+
     Runs K1 (K2 with ``emit_tape``) for CUDA tensors and the plain version
     for CPU tensors; the device is the pack's.  ``key`` is
     ``core.rng.base_key(seed)``.
@@ -363,19 +396,32 @@ def render_pixels_mega(pack: MegaScenePack, camera, cfg, key, spp0: int = 0,
     check_guards(pack, cfg)
     dev = pack.device
     if dev.type == "cpu":
-        return render_pixels_mega_reference(
+        out = render_pixels_mega_reference(
             pack, camera, cfg, key, spp0=spp0, spp_total=spp_total,
             pix0=pix0, num_pixels=num_pixels, emit_tape=emit_tape)
+        return out + (pixel_lane_steps(out[1]),) if return_iters else out
     if dev.type != "cuda":
         raise ValueError(f"no megakernel for device {dev}")
     k0, k1 = rng.key_words(key)
     return _launch_cuda(pack, camera_table(camera).to(dev), cfg, k0, k1,
                         pix0, num_pixels, total_pixels, spp0, spp_total,
-                        emit_tape)
+                        emit_tape, return_iters)
 
 
 render_pixels_mega.launches = 0  # K1 launches (CUDA path only)
 render_pixels_mega.tape_launches = 0  # K2 launches (CUDA path only)
+
+
+def pixel_lane_steps(segs):
+    """(P,) i32: for each warp of 32 consecutive pixels, at its first
+    pixel, the segments of its busiest pixel, the steps the warp takes
+    when each lane traces one pixel's samples in turn; 0 elsewhere."""
+    P = segs.shape[0]
+    pad = torch.zeros((-P) % 32, dtype=segs.dtype, device=segs.device)
+    most = torch.cat([segs, pad]).reshape(-1, 32).max(dim=1).values
+    out = torch.zeros_like(segs)
+    out[::32] = most
+    return out
 
 
 def _extent(cfg, pix0, num_pixels, spp_total):
@@ -416,7 +462,8 @@ def _normalize3(v, eps=0.0):
     if eps:
         n2 = torch.clamp(n2, min=eps)
     pos = n2 > 0
-    inv = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, n2, 1.0)), 0.0)
+    inv = torch.where(pos, 1.0 / vecmath.sqrt(torch.where(pos, n2, 1.0)),
+                      0.0)
     return v * inv[:, None]
 
 
@@ -452,7 +499,7 @@ def _sweep(mx, tri, o, d, t_min):
         oc = cx * ox + cy * oy + cz * oz
         bq = od - dc
         cq = oo - 2.0 * oc + c0
-        sq = torch.sqrt(bq * bq - cq)  # NaN without a root: a miss
+        sq = vecmath.sqrt(bq * bq - cq)  # NaN without a root: a miss
         tn = -bq - sq
         tf = sq - bq
         tall = torch.where(tn > t_min, tn,
@@ -525,7 +572,7 @@ def _shade(pack, d, p, w_s, w_t, is_tri, u):
     dt = _dot3(uv, own)
     disc2 = 1.0 - ni * ni * (1.0 - dt * dt)
     can = disc2 > 0
-    sq2 = torch.sqrt(torch.where(can, disc2, 0.0))
+    sq2 = vecmath.sqrt(torch.where(can, disc2, 0.0))
     rf = torch.where(can[:, None], ni[:, None] * (uv - own * dt[:, None])
                      - own * sq2[:, None], 0.0)
     r0 = (1.0 - param) / (1.0 + param)
@@ -536,8 +583,8 @@ def _shade(pack, d, p, w_s, w_t, is_tri, u):
     use_refl = coin < torch.where(can, schl, 1.0)
     dielectric = torch.where(use_refl[:, None], refl, rf)
 
-    sines = (torch.sin(tsc * p[:, 0]) * torch.sin(tsc * p[:, 1])
-             * torch.sin(tsc * p[:, 2]))
+    sines = (vecmath.sin(tsc * p[:, 0]) * vecmath.sin(tsc * p[:, 1])
+             * vecmath.sin(tsc * p[:, 2]))
     tex = torch.where((check & (sines < 0.0))[:, None], alb2, alb)
 
     new_dir = torch.where(diel[:, None], dielectric,
@@ -657,7 +704,12 @@ def render_reference(pack, camera, cfg, key, spp0=0, spp_total=None,
         rid = (pix[:, None] * spp_total + spp0 + samples[None, :]).reshape(-1)
         r, sg, tp = trace_reference(pack, camera, cfg, key,
                                     pix.repeat_interleave(spp), rid)
-        rad[loc] = r.reshape(-1, spp, 3).sum(dim=1)
+        # The samples of a pixel added in order, as the kernels add them.
+        r = r.reshape(-1, spp, 3)
+        acc = r[:, 0]
+        for k in range(1, spp):
+            acc = acc + r[:, k]
+        rad[loc] = acc
         segs[loc] = sg.reshape(-1, spp).sum(dim=1, dtype=torch.int32)
         if emit_tape:
             tape[:, lo * spp:hi * spp] = tp

@@ -7,10 +7,11 @@ SAH-partitions each primitive type into clusters of at most 128 slots,
 groups up to 8 clusters under a supergroup box, and lays the payload out
 cluster-major, so a cluster's primitives are one run of 128 columns.  On a
 CUDA device ``render_pixels_mega_clustered`` launches the hand-written
-kernel in ``csrc/megakernel_clustered.cu``: one thread per pixel traces its
-samples to termination as K1 does, but each segment walks the supergroups
-in pack order, slab-tests each box against the ray's current best t, and
-sweeps only the clusters whose boxes it may hit.  The winner is the
+kernel in ``csrc/megakernel_clustered.cu``: its warps trace the pixels'
+samples to termination as K1's do, but each segment walks the supergroups
+in pack order, every lane slab-tests each box against its ray's current
+best t, and the warp sweeps together each cluster that any of its lanes
+may hit.  The winner is the
 lexicographic minimum of (t, column in the pack) per type, and a sphere
 wins a sphere/triangle tie, so the result does not depend on which gates
 fire.  On the CPU it runs ``render_pixels_mega_clustered_reference``, which
@@ -33,8 +34,7 @@ from ..core import rng
 from ..geometry.aabb import sphere_aabb_np
 from .intersect_clustered import _SUPER_FANOUT, _cluster_type, _span_boxes
 from .megakernel import (BIG, TRI_ROWS, _check, _extent, _merge_surface,
-                         _sweep, camera_table, load_mega_library,
-                         render_reference)
+                         _sweep, camera_table, render_reference)
 
 __all__ = ["MegaClusteredPack", "ClusterLayout", "pack_scene_mega_clustered",
            "render_pixels_mega_clustered",
@@ -51,8 +51,13 @@ _SPH_ROWS = 16
 # type and 22 texture type: SAH order destroys the dense pack's group sort.
 # Per-pixel (or per-ray) counters of ``return_iters``: clusters swept
 # (spheres and triangles), sphere slots and triangle slots tested, and
-# supergroup and cluster boxes slab-tested.
-SWEEP_COLUMNS = ("clusters", "sphere_slots", "triangle_slots", "box_tests")
+# supergroup and cluster boxes slab-tested, each counted per ray; then, for
+# each warp (K3: at the first pixel of the first group of 32 pixels it
+# took; K3t: at its first ray) and 0 elsewhere, the clusters the warp
+# swept (each once, however many of its rays needed it) and the warp's
+# segment steps.
+SWEEP_COLUMNS = ("clusters", "sphere_slots", "triangle_slots", "box_tests",
+                 "warp_clusters", "warp_steps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -412,25 +417,22 @@ def table_args(pack, cam):
 
 def _launch_cuda(pack, cam, cfg, key):
     """Launch K3 on the current stream; returns (rad (P, 3), segs (P,),
-    sweeps (P, 4))."""
+    sweeps (P, 6))."""
+    from . import megakernel
+
     dev = pack.device
     check_clustered_pack(pack, cam)
-    lib, _ = load_mega_library()
     P = cfg.nx * cfg.ny
     rad = torch.empty((P, 3), dtype=torch.float32, device=dev)
     segs = torch.empty((P,), dtype=torch.int32, device=dev)
     sweeps = torch.empty((P, len(SWEEP_COLUMNS)), dtype=torch.int32,
                          device=dev)
+    work = torch.empty((1,), dtype=torch.int32, device=dev)  # its counter
     k0, k1 = rng.key_words(key)
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.frt_mega_clustered_render(
-            *table_args(pack, cam), k0, k1, cfg.nx, cfg.ny, cfg.spp,
-            cfg.max_depth, float(cfg.t_min), rad.data_ptr(), segs.data_ptr(),
-            sweeps.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("clustered megakernel launch failed: "
-                           f"{lib.frt_error_string(err).decode()} ({err})")
+    megakernel.launch_entry(
+        dev, "frt_mega_clustered_render", *table_args(pack, cam), k0, k1,
+        cfg.nx, cfg.ny, cfg.spp, cfg.max_depth, float(cfg.t_min),
+        rad.data_ptr(), segs.data_ptr(), sweeps.data_ptr(), work.data_ptr())
     render_pixels_mega_clustered.launches += 1
     return rad, segs, sweeps
 
@@ -450,7 +452,7 @@ def render_pixels_mega_clustered(pack: MegaClusteredPack, camera, cfg, key,
 
     Returns ``(radiance_sum (P, 3) f32, segments (P,) i32)`` in pixel
     order (bottom row first); divide by ``cfg.spp`` for the mean.  With
-    ``return_iters=True`` also the per-pixel counters ``(P, 4)`` i32 of
+    ``return_iters=True`` also the per-pixel counters ``(P, 6)`` i32 of
     ``SWEEP_COLUMNS``: what the gated sweep of K3 did, or, for the plain
     version, what an ungated sweep does (every cluster of each present
     type per segment, no box tests).
@@ -475,12 +477,13 @@ render_pixels_mega_clustered.launches = 0  # K3 launches (CUDA path only)
 
 
 def ungated_sweeps(pack, segs):
-    """(N, 4) ``SWEEP_COLUMNS`` counters of an ungated sweep for the
-    per-pixel or per-ray segment counts ``segs``."""
+    """(N, 6) ``SWEEP_COLUMNS`` counters of an ungated sweep for the
+    per-pixel or per-ray segment counts ``segs``; no warps, so the warp
+    columns are 0."""
     ns, nt = pack.sphere_rows, pack.tri_rows
     per_segment = torch.tensor(
         [(pack.clusters if ns else 0) + (pack.tri_clusters if nt else 0),
-         ns, nt, 0], dtype=torch.int32, device=segs.device)
+         ns, nt, 0, 0, 0], dtype=torch.int32, device=segs.device)
     return segs[:, None] * per_segment
 
 

@@ -29,9 +29,10 @@ import ctypes
 import torch
 
 from ..core import rng
+from . import megakernel
 from .megakernel import (MegaScenePack, camera_table, check_guards,
                          check_pack, default_rays_per_chunk,
-                         load_mega_library, pack_scene_mega, trace_reference)
+                         pack_scene_mega, trace_reference)
 from .megakernel_clustered import (MegaClusteredPack, SWEEP_COLUMNS,
                                    check_clustered_guards,
                                    check_clustered_pack, table_args,
@@ -52,24 +53,18 @@ def _launch_record(pack, cam, cfg, key, ray0, num_rays, spp_total):
     """Launch K2b on the current stream; returns (tape (D, R), its (R,))."""
     dev = pack.device
     check_pack(pack, cam)
-    lib, _ = load_mega_library()
     # K2b writes every entry of both outputs: no fill needed.
     tape = torch.empty((cfg.max_depth + 1, num_rays), dtype=torch.int32,
                        device=dev)
     its = torch.empty((num_rays,), dtype=torch.int32, device=dev)
     groups = (ctypes.c_int * 14)(*pack.sph_groups, *pack.tri_groups)
     k0, k1 = rng.key_words(key)
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.frt_record_paths(
-            cam.data_ptr(), pack.spheres.data_ptr(), pack.sph_mx.data_ptr(),
-            pack.tris.data_ptr(), pack.sphere_rows, pack.tri_rows,
-            pack.spheres.shape[1], pack.tris.shape[1], groups, k0, k1,
-            cfg.nx, cfg.ny, spp_total, ray0, num_rays, cfg.max_depth,
-            float(cfg.t_min), tape.data_ptr(), its.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("recorder launch failed: "
-                           f"{lib.frt_error_string(err).decode()} ({err})")
+    megakernel.launch_entry(
+        dev, "frt_record_paths", cam.data_ptr(), pack.spheres.data_ptr(),
+        pack.sph_mx.data_ptr(), pack.tris.data_ptr(), pack.sphere_rows,
+        pack.tri_rows, pack.spheres.shape[1], pack.tris.shape[1], groups, k0,
+        k1, cfg.nx, cfg.ny, spp_total, ray0, num_rays, cfg.max_depth,
+        float(cfg.t_min), tape.data_ptr(), its.data_ptr())
     record_paths_mega.launches += 1
     return tape, its
 
@@ -157,10 +152,9 @@ def record_paths_mega_reference(pack: MegaScenePack, camera, cfg, key,
 def _launch_record_clustered(pack, cam, cfg, key, ray0, num_rays,
                              spp_total):
     """Launch K3t on the current stream; returns (tape (D, R), its (R,),
-    sweeps (R, 4))."""
+    sweeps (R, 6))."""
     dev = pack.device
     check_clustered_pack(pack, cam)
-    lib, _ = load_mega_library()
     # K3t writes every entry of its outputs: no fill needed.
     tape = torch.empty((cfg.max_depth + 1, num_rays), dtype=torch.int32,
                        device=dev)
@@ -168,15 +162,10 @@ def _launch_record_clustered(pack, cam, cfg, key, ray0, num_rays,
     sweeps = torch.empty((num_rays, len(SWEEP_COLUMNS)), dtype=torch.int32,
                          device=dev)
     k0, k1 = rng.key_words(key)
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.frt_record_clustered(
-            *table_args(pack, cam), k0, k1, cfg.nx, cfg.ny, spp_total, ray0,
-            num_rays, cfg.max_depth, float(cfg.t_min), tape.data_ptr(),
-            its.data_ptr(), sweeps.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("clustered recorder launch failed: "
-                           f"{lib.frt_error_string(err).decode()} ({err})")
+    megakernel.launch_entry(
+        dev, "frt_record_clustered", *table_args(pack, cam), k0, k1, cfg.nx,
+        cfg.ny, spp_total, ray0, num_rays, cfg.max_depth, float(cfg.t_min),
+        tape.data_ptr(), its.data_ptr(), sweeps.data_ptr())
     record_paths_mega_clustered.launches += 1
     return tape, its, sweeps
 

@@ -1,11 +1,15 @@
-"""K1, K3, K4 or K5 in one checkout, for comparing two commits on one card.
+"""K1-K5 in one checkout, for comparing two commits on one card.
 
 For each kernel named: its ptxas line (registers, spills) and the SASS
 instruction count of its functions (``cuobjdump -sass``), then its CUDA-event
 times, median of the repeats after a warm launch:
 
 - k1: K1 on the final scene (1200x800 @ 10);
-- k3: K3 on field20000 (800x450 @ 4);
+- k2: K2 on the pixels of the final scene's first 2^17 ray ids, and K2b
+  on those ray ids (the gradient step's record);
+- k3: K3 on field20000, field5000 and trifield20000 (800x450 @ 4);
+- k3t: K3t on the first 2^17 ray ids of field5000 (the clustered fit
+  step's record);
 - k4: K4 at 2^17 camera rays of the final scene, and over one regenerative
   frame of it (pool 2^17);
 - k5: K5 at 2^17 camera rays of field20000 and of trifield20000, and over
@@ -27,7 +31,7 @@ process, in turns (parent, change, change, parent):
 
     git archive <parent> | tar -x -C out/parent
     for t in out/parent . . out/parent; do
-        PYTHONPATH=. python probes/turns.py $t k1 k3 k4 k5; done
+        PYTHONPATH=. python probes/turns.py $t k1 k2 k3 k3t k4 k5; done
 
 The checkout's own package is imported (its path goes first on sys.path),
 so the parent is measured with its own kernels and wrappers.
@@ -50,13 +54,17 @@ from first_raytracer_tpu_torch.kernels import intersect_clustered as ic  # noqa:
 from first_raytracer_tpu_torch.kernels import intersect_pallas as ip  # noqa: E402,E501
 from first_raytracer_tpu_torch.kernels import megakernel as mk  # noqa: E402
 from first_raytracer_tpu_torch.kernels import megakernel_clustered as mc  # noqa: E402,E501
+from first_raytracer_tpu_torch.kernels import record_mega as rm  # noqa: E402
 from first_raytracer_tpu_torch.render.api import render_image  # noqa: E402
 from first_raytracer_tpu_torch.render.camera import generate_rays  # noqa: E402,E501
 from first_raytracer_tpu_torch.scene.builders import build_preset  # noqa: E402,E501
 
 RAYS = 1 << 17
 # Kernel -> the function names of its entries in the library.
-ENTRIES = {"k1": ("mega_kernel",), "k3": ("mega_clustered_kernel",),
+ENTRIES = {"k1": ("mega_kernelILb0",),
+           "k2": ("mega_kernelILb1", "record_kernel"),
+           "k3": ("mega_clustered_kernel",),
+           "k3t": ("record_clustered_kernel",),
            "k4": ("intersect_dense_kernel",),
            "k5": ("intersect_clustered_kernel",), "frames": ()}
 
@@ -182,12 +190,36 @@ def k1():
         lambda: mk.render_pixels_mega(pack, cam, cfg, key), 5))
 
 
+def k2():
+    scene, cam, cfg = build_preset("random-spheres", device="cuda")
+    pack = mk.pack_scene_mega(scene)
+    key = rng.base_key(0)
+    say("K2 2^17 rays ms", *event_ms(
+        lambda: mk.render_pixels_mega(pack, cam, cfg, key,
+                                      num_pixels=-(-RAYS // cfg.spp),
+                                      emit_tape=True), 5))
+    say("K2b 2^17 rays ms", *event_ms(
+        lambda: rm.record_paths_mega(pack, cam, cfg, key, num_rays=RAYS), 5))
+
+
 def k3():
-    scene, cam, cfg = build_preset("sphere-field", device="cuda", n=20000)
+    for label, preset, n in (("field20000", "sphere-field", 20000),
+                             ("field5000", "sphere-field", 5000),
+                             ("trifield20000", "triangle-field", 20000)):
+        scene, cam, cfg = build_preset(preset, device="cuda", n=n)
+        pack = mc.pack_scene_mega_clustered(scene, cam)
+        key = rng.base_key(0)
+        say(f"K3 {label} ms", *event_ms(
+            lambda: mc.render_pixels_mega_clustered(pack, cam, cfg, key), 5))
+
+
+def k3t():
+    scene, cam, cfg = build_preset("sphere-field", device="cuda", n=5000)
     pack = mc.pack_scene_mega_clustered(scene, cam)
     key = rng.base_key(0)
-    say("K3 field20000 ms", *event_ms(
-        lambda: mc.render_pixels_mega_clustered(pack, cam, cfg, key), 5))
+    say("K3t field5000 2^17 rays ms", *event_ms(
+        lambda: rm.record_paths_mega_clustered(pack, cam, cfg, key,
+                                               num_rays=RAYS), 5))
 
 
 def k4():

@@ -29,6 +29,7 @@ so the card's float32 step is held to the loss and the albedo gradient,
 and its float64 replay of JAX's tape to every field.
 """
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -324,6 +325,84 @@ def _f64(obj):
         if getattr(obj, f.name).is_floating_point()})
 
 
+GRAD_CHECK_RAYS = 4096
+
+
+@functools.lru_cache(maxsize=None)
+def _golden_case():
+    """JAX's tape of the final scene's first ``GRAD_CHECK_RAYS`` ray ids
+    (the golden's), and JAX's float64 loss and gradients on it."""
+    with np.load(GOLDEN_TAPE) as saved:
+        tape = saved["tape"][:, :GRAD_CHECK_RAYS].astype(np.int32)
+    js, jc, cfg = jb.random_scene()
+    loss64, grads64 = _jax_f64_loss_and_grads(
+        js, jc, cfg, jrng.base_key(0),
+        jnp.arange(GRAD_CHECK_RAYS, dtype=jnp.int32), tape)
+    return tape, loss64, grads64
+
+
+def test_float32_loss_matches_jax_float32():
+    """The float32 loss of the final scene on JAX's tape of its first 4096
+    ray ids: the port's bucketed replay against JAX's, both on the CPU.
+    Bounds: ``rtol=1e-5`` against JAX's float32 loss (measured 4.9e-6),
+    and no farther from JAX's float64 loss than twice JAX's own float32
+    distance (measured 1.1e-6 against 3.9e-6).  At 2^17 rays the port's
+    loss is 3.4e-4 from float64 and the golden's JAX loss 1.7e-5, but JAX's
+    forward replay (``trace_rays_replay``) of the same tape is 3.5e-4 from
+    it too: a few chaotic rays carry the difference, and XLA rounds them
+    by the program it compiles (PERF.md)."""
+    rays = GRAD_CHECK_RAYS
+    tape, loss64, _ = _golden_case()
+    js, jc, cfg = jb.random_scene()
+    jparams, _ = jg.split_params(js, fields=("albedo",))
+    jloss, _ = jg.render_loss_and_grads_bucketed(
+        jparams, js, jc, cfg, jrng.base_key(0),
+        jnp.arange(rays, dtype=jnp.int32), jnp.zeros((rays, 3), jnp.float32),
+        jnp.asarray(tape))
+    ts, tc, tcfg = _port(js, jc, cfg)
+    params, _ = tg.split_params(ts, fields=("albedo",))
+    loss, _ = tg.render_loss_and_grads_bucketed(
+        params, ts, tc, tcfg, trng.base_key(0), torch.arange(rays),
+        torch.zeros((rays, 3)), torch.from_numpy(tape))
+    assert loss.dtype == torch.float32
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    assert abs(float(loss) - loss64) <= 2 * abs(float(jloss) - loss64)
+
+
+def test_rehit_case_parts_on_one_grazing_entry():
+    """Why ``test_fit_step_replay_recorder_branches`` fits the albedo alone
+    (ROADMAP Queue 3): on its sphere_field(1100) scene with the centres
+    moved by 0.01, JAX's clustered recorder (the expanded quadratic, which
+    XLA compiles with fused multiply-adds) and the port's (K3t's plain
+    version, rounding each operation) part on one entry of the 72 rays'
+    tapes: the fourth segment of ray 57, which JAX records on sphere 240
+    and the port on the ground sphere it grazes past.  The entry is a
+    graze, not a re-hit of the sphere the ray leaves (206, then the ground,
+    then 206, then 240): the replay's rule is not at fault."""
+    from first_raytracer_tpu.kernels.megakernel_clustered import (
+        pack_scene_mega_clustered as jax_pack)
+    from first_raytracer_tpu.kernels.record_mega import (
+        record_paths_mega_clustered as jax_record)
+    from first_raytracer_tpu_torch.kernels import megakernel_clustered as tmc
+
+    big, bc, bcfg = jb.sphere_field(n=1100, nx=12, ny=6, spp=1)
+    bcfg = dataclasses.replace(bcfg, max_depth=8)
+    moved = dataclasses.replace(big, albedo=big.albedo * 0.6,
+                                sphere_center=big.sphere_center + 0.01)
+    want = np.asarray(jax_record(
+        jax_pack(moved, sort_from=bc.origin), bc, bcfg, jrng.base_key(0),
+        ray0=0, num_rays=bcfg.num_rays, interpret=True))
+    ts, tc, tcfg = _port(moved, bc, bcfg)
+    got = trm.record_paths_mega_clustered(
+        tmc.pack_scene_mega_clustered(ts, tc), tc, tcfg,
+        trng.base_key(0)).numpy()
+    rows, cols = np.nonzero(got != want)
+    assert cols.tolist() == [57, 57]
+    assert rows.tolist() == [3, 4]
+    assert want[:5, 57].tolist() == [206, 0, 206, 240, 0]
+    assert got[:5, 57].tolist() == [206, 0, 206, 0, -1]
+
+
 def test_float64_replay_matches_jax_float64():
     """On JAX's tape of the final scene's first 4096 rays, both replays in
     float64.  Bounds: the loss and the albedo gradient ``rtol=1e-7``
@@ -331,13 +410,9 @@ def test_float64_replay_matches_jax_float64():
     error of 1e-3 (measured up to 8.5e-5: the uniforms stay float32 and go
     through each library's own sine and cosine, and a near-tangent ray
     magnifies that last-bit difference); zero gradients zero."""
-    rays = 4096
-    with np.load(GOLDEN_TAPE) as saved:
-        tape = saved["tape"][:, :rays].astype(np.int32)
+    rays = GRAD_CHECK_RAYS
+    tape, want_loss, want = _golden_case()
     js, jc, cfg = jb.random_scene()
-    want_loss, want = _jax_f64_loss_and_grads(
-        js, jc, cfg, jrng.base_key(0), jnp.arange(rays, dtype=jnp.int32),
-        tape)
     ts, tc, tcfg = _port(js, jc, cfg)
     ts, tc = _f64(ts), _f64(tc)
     params, _ = tg.split_params(ts)
