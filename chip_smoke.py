@@ -74,8 +74,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    cluster once, however many lanes needed it).  At that shape K3's output
    is held against its plain version on the middle quarter of the frame's
    pixels (the image bound; segment totals within 0.1%, per pixel on
-   trifield20000; the pixels that differ at all are counted), and the
-   plain version is timed there.
+   trifield20000; the pixels that differ at all are counted, and on
+   trifield20000 none may: there K3 is bit-equal), and the plain version
+   is timed there.
 10. K3t and the clustered fit step: K3t's tape against the plain version
    on the small presets of phase 8 (agreement above 0.999, 0.99 on
    triangle scenes); on ray ids [0, 2^17) of field5000 against K2b's tape
@@ -1047,6 +1048,9 @@ def large_scene_path(dev, key, card):
         differ = int(((rad[band] != ref).any(dim=1)
                       | (segs[band] != ref_segs)).sum())
         log(f"    pixels that differ at all: {differ} of {n_px}")
+        if preset == "triangle-field":  # the design reaches bit-equality
+            bit_equal("K3 on the quarter", (rad[band], segs[band]),
+                      (ref, ref_segs))
         log(f"  plain version {plain_s * 1e3:.1f} ms on a quarter of the "
             "frame (one run)")
         out[label] = dict(ms=k3_ms, bound=b, sec=sec, err=err,
