@@ -137,8 +137,52 @@ Phases, in order; any failure raises and the exit code is non-zero:
    Times: seconds per frame, Mpaths/s, Mrays/s, the host pack's seconds,
    K5's launches, ms (as K4's) and bound from its per-ray counters.
 
+14. The sharded megakernels in this process, under a world-size-1 NCCL
+   process group that the phase opens (so their all-gather runs through
+   NCCL on the card): ``render_image_mega_sharded`` on the final scene
+   bit-equal to phase 4's frame, ``render_image_mega_clustered_sharded``
+   on field20000 bit-equal to phase 9's, each with one K1 or K3 launch
+   (counters reset before, read after), timed (median of 3 after a warm
+   run) beside the all-gather of its pixels alone.  K3 over 4 pixel ranges
+   of field5000 and of trifield20000 (4 launches each), concatenated,
+   bit-equal to the whole-frame K3; the second range against the plain
+   version's same range: on field5000 phase 9's bounds (K3's gate parts
+   from the ungated plain version on a few grazing hits; the pixels that
+   differ are counted), on trifield20000 bit-equal.
+15. Two processes on the one card: ``python -m
+   first_raytracer_tpu_torch.parallel.dryrun --size chip`` as ranks 0 and
+   1 of a gloo group over a localhost store (NCCL refuses two ranks on
+   one GPU; the collectives stage through host tensors, logged as such,
+   while the compute stays on the card).  Each rank's
+   ``render_image_mega_sharded`` of the final scene is bit-equal to phase
+   4's frame and its ``render_image_mega_clustered_sharded`` of field20000
+   to phase 9's (both timed, with the all-gather's share); the wavefront
+   ``render_image_distributed`` with K4 on random-spheres 120x80 @ 4 is
+   bit-equal to one process's ``render_image`` with pixels split (2 x 1)
+   and within the image bound with samples split (1 x 2);
+   ``render_image_ring`` on random-spheres 64x32 @ 2 is within the image
+   bound of the replicated render and selects the replicated sweep's
+   primitive for every camera ray; the sharded record->replay step at
+   2^17 rays of the final scene (2^16 a rank, each recorded by K2b) has
+   the ranks' tapes equal to phase 6's and its loss and gradients within
+   ``rtol=1e-4, atol=1e-7`` of one process's step on the same rays; the
+   autograd training step on random-spheres 24x12 @ 2 within the same
+   bound of one process's.  The ranks and those references run under
+   ``torch.use_deterministic_algorithms``: with atomic adds the largest
+   albedo gradient moves by a few 1e-4 from run to run (phase 6's step is
+   logged against the reference).
+   K1, K3, K4 and K2b must each launch on every rank.  A rank that fails
+   fails the phase.
+16. ``python -m first_raytracer_tpu_torch.cli occupancy`` on the final
+   scene in a subprocess: at full size its megakernel ``lane_occupancy``
+   within 1e-3 of phase 4's lane efficiency (the warps' steps follow the
+   schedule), and at 64x32 @ 8 (2^14 rays, the wavefront report's whole
+   sample) both megakernels' ``mean_path_len`` within 1e-3 of the
+   wavefront's ``avg_path_length``.
+
 The last two lines of standard output are a JSON object with the kernels'
-measurements and the result line ``{"ok": true, "device": {...}}``.  This
+measurements (``sharded_launches``: the launches of phases 14 and 15) and
+the result line ``{"ok": true, "device": {...}}``.  This
 script imports no JAX.  Bounds count FP32 operations from the sources: 16
 per (segment, sphere) and 46 per (segment, triangle) for the dense sweep;
 for K3 and K3t the slots and boxes their sweep counters say they tested, 29
@@ -150,9 +194,12 @@ cluster, its counters say it tested.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -160,6 +207,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from first_raytracer_tpu_torch.core import rng
 from first_raytracer_tpu_torch.diff import grad as dg
@@ -172,9 +220,13 @@ from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
 from first_raytracer_tpu_torch.kernels import megakernel as mk
 from first_raytracer_tpu_torch.kernels import megakernel_clustered as mc
 from first_raytracer_tpu_torch.kernels import record_mega as rm
+from first_raytracer_tpu_torch.parallel import dryrun, shard
+from first_raytracer_tpu_torch.parallel.mesh import (TILE_AXIS,
+                                                     make_render_mesh)
 from first_raytracer_tpu_torch.render.api import (render_image,
                                                   render_ray_batch)
 from first_raytracer_tpu_torch.render.camera import generate_rays
+from first_raytracer_tpu_torch.render.integrator import intersect_brute
 from first_raytracer_tpu_torch.render.image import write_png
 from first_raytracer_tpu_torch.scene.builders import build_preset
 
@@ -470,16 +522,16 @@ def wavefront_agreement(what, got, plain, want, scene):
     return agree
 
 
-def bit_equal(what, got, want):
+def bit_equal(what, got, want, against="the plain version"):
     """Fails unless each tensor of ``got`` equals its partner in ``want``
     bit for bit; logs the largest difference of each."""
     diffs = [float((a.double() - b.double()).abs().max()) if a.numel() else
              0.0 for a, b in zip(got, want)]
     same = all(torch.equal(a, b) for a, b in zip(got, want))
-    log(f"    {what}: bit-equal to the plain version {same} (largest "
+    log(f"    {what}: bit-equal to {against} {same} (largest "
         f"differences {diffs})")
     if not same:
-        raise AssertionError(f"{what} differs from its plain version")
+        raise AssertionError(f"{what} differs from {against}")
 
 
 def tape_agreement(what, got, want, floor):
@@ -605,7 +657,7 @@ def render_path(dev, key, card):
           "replaces": mk.REPLACES, "launches": launches,
           "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    return k1, scene, cam, cfg, pack
+    return k1, scene, cam, cfg, pack, img.cpu(), lane_eff
 
 
 def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack):
@@ -900,6 +952,8 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
         "peak memory "
         f"{peak_gb:.3f} GB; on {card}")
     return dict(launches=launches, k2_ms=k2_ms, kb_ms=kb_ms,
+                step=(tape.cpu(), float(loss),
+                      {k: v.cpu() for k, v in grads.items()}),
                 plain2_ms=plain2_s * 1e3, plain_b_ms=plain_b_s * 1e3,
                 k2_bound=k2_bound, kb_bound=kb_bound, err2=err2,
                 err_b=err_b, agree2=agree2, agree_b=agree_b)
@@ -1074,7 +1128,7 @@ def large_scene_path(dev, key, card):
                       (ref, ref_segs))
         log(f"  plain version {plain_s * 1e3:.1f} ms on a quarter of the "
             "frame (one run)")
-        out[label] = dict(ms=k3_ms, bound=b, sec=sec, err=err,
+        out[label] = dict(ms=k3_ms, bound=b, sec=sec, err=err, img=img.cpu(),
                           plain_ms=plain_s * 1e3, differ=differ)
         del ref, ref_segs, rad
         torch.cuda.empty_cache()
@@ -1616,6 +1670,321 @@ def clustered_wavefront_path(dev, key, card):
     return entry, err4
 
 
+def free_port():
+    """A free TCP port on localhost for a process group's store."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def frame_times(fn):
+    """Seconds of one frame (``fn`` and what it queued): median of 3
+    after a warm run."""
+    fn()
+    return statistics.median(host_s(fn)[0] for _ in range(3))
+
+
+def sharded_one_process(dev, key, card, final_img, field_img):
+    """Phase 14: the sharded megakernels under a world-size-1 NCCL group,
+    so that their collectives run through NCCL on the card.  Returns the
+    slice's launches of K1 and K3."""
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_render_mesh(1, 1)
+        gather = mesh.axis(TILE_AXIS)
+        launches = {}
+        for label, fn, preset, kw, want, counter in (
+                ("render_image_mega_sharded", mk.render_image_mega_sharded,
+                 "random-spheres", {}, final_img, "K1"),
+                ("render_image_mega_clustered_sharded",
+                 mc.render_image_mega_clustered_sharded, "sphere-field",
+                 dict(n=20000), field_img, "K3")):
+            scene, cam, cfg = build_preset(preset, device=dev, **kw)
+            reset_counts()
+            img = fn(scene, cam, cfg, mesh, seed=0, device=dev)
+            torch.cuda.synchronize()
+            launches[counter] = (mk.render_pixels_mega.launches
+                                 if counter == "K1" else
+                                 mc.render_pixels_mega_clustered.launches)
+            log(f"  {label} on {preset} {cfg.nx}x{cfg.ny}@{cfg.spp}: "
+                f"{counter} launches {launches[counter]}")
+            if launches[counter] != 1:
+                raise AssertionError(f"{label}: {launches[counter]} "
+                                     f"{counter} launches, not 1")
+            bit_equal(label, (img.cpu(),), (want,), "the unsharded frame")
+            sec = frame_times(lambda: fn(scene, cam, cfg, mesh, seed=0,
+                                         device=dev))
+            rad = torch.zeros((cfg.num_pixels, 3), device=dev)
+            gather_s = frame_times(lambda: gather.all_gather(rad))
+            log(f"    {sec:.4f} s/frame median of 3 after a warm run; the "
+                f"all-gather of its ({cfg.num_pixels}, 3) f32 pixels "
+                f"{gather_s * 1e3:.4f} ms ({gather_s / sec * 100:.3f}% of "
+                f"the frame); collectives over {sorted(gather.transports)}; "
+                f"on {card}")
+
+        # K3 over 4 pixel ranges of field5000: their concatenation against
+        # the whole frame, one range against the plain version's, and one
+        # range of trifield20000, where the gate reaches bit-equality.
+        for preset, n, exact in (("sphere-field", 5000, False),
+                                 ("triangle-field", 20000, True)):
+            scene, cam, cfg = build_preset(preset, device=dev, n=n)
+            pack = mc.pack_scene_mega_clustered(scene, cam)
+            whole, whole_segs = mc.render_pixels_mega_clustered(pack, cam,
+                                                                cfg, key)
+            P = cfg.num_pixels
+            per = -(-P // 4)
+            reset_counts()
+            parts = [mc.render_pixels_mega_clustered(
+                pack, cam, cfg, key, pix0=i * per, num_pixels=per)
+                for i in range(4)]
+            torch.cuda.synchronize()
+            ranges = mc.render_pixels_mega_clustered.launches
+            log(f"  K3 over 4 pixel ranges of {per} of {preset}({n}) "
+                f"{cfg.nx}x{cfg.ny}@{cfg.spp}: K3 launches {ranges}")
+            if ranges != 4:
+                raise AssertionError(f"{ranges} K3 launches for 4 ranges")
+            launches["K3"] += ranges
+            bit_equal("  the ranges, concatenated",
+                      (torch.cat([p[0] for p in parts])[:P],
+                       torch.cat([p[1] for p in parts])[:P]),
+                      (whole, whole_segs), "the whole frame")
+            mc.check_clustered_guards(pack, cfg)
+            plain_s, (ref, ref_segs) = host_s(lambda: mk.render_reference(
+                pack, cam, cfg, key, pix0=per, num_pixels=per,
+                rays_per_chunk=PLAIN_PAIRS // pack.sweep_columns))
+            rad, segs = parts[1]
+            compare_clustered(rad, segs, ref, ref_segs, cfg.spp,
+                              f"    range [{per}, {2 * per}) against the "
+                              "plain version's", per_pixel=exact)
+            differ = int(((rad != ref).any(dim=1) | (segs != ref_segs)).sum())
+            log(f"    pixels that differ at all: {differ} of {per} (plain "
+                f"version {plain_s * 1e3:.1f} ms, one run)")
+            if exact:
+                bit_equal("  the range", (rad, segs), (ref, ref_segs),
+                          "the plain version's same range")
+            del parts, whole, ref
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def two_processes(dev, card, final_img, field_img, step_single,
+                  size="chip"):
+    """Phase 15: ``parallel.dryrun`` (the six sharded steps) in two
+    processes on the one card, each a rank of a gloo group over a
+    localhost store, against this process's frames and step.  Returns the
+    slice's launches of K2b and K4 (both ranks)."""
+    outdir = os.path.join(ROOT, "out", "phase15")
+    shutil.rmtree(outdir, ignore_errors=True)
+    env = dict(os.environ, MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()), WORLD_SIZE="2",
+               LOCAL_WORLD_SIZE="2")
+    cmd = [sys.executable, "-m", "first_raytracer_tpu_torch.parallel.dryrun",
+           "--size", size, "--device", dev.type, "--timed", "--out", outdir]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=ROOT, env=dict(env, RANK=str(r),
+                                                      LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=480)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines()[-3:]:
+            log(f"  rank {r}: {line}")
+        if p.returncode != 0:
+            log(out[-6000:])
+            raise AssertionError(f"phase 15: rank {r} exited "
+                                 f"{p.returncode}")
+    log(f"  two ranks done in {time.perf_counter() - t0:.1f} s")
+    ranks = []
+    for r in range(2):
+        with np.load(os.path.join(outdir, f"rank{r}.npz")) as f:
+            ranks.append({k: f[k] for k in f.files})
+    infos = [json.loads(str(r["info"])) for r in ranks]
+    log(f"  transports: {infos[0]['transports']} (the compute stays on "
+        f"the card: {infos[0]['device']})")
+    staged = ("gloo via host tensors" if dev.type == "cuda" else
+              "gloo on cpu tensors")
+    if not all(i["transports"] == [staged] for i in infos):
+        raise AssertionError("phase 15: unexpected transport")
+
+    def equal_on_ranks(what, key, want, against):
+        for i, r in enumerate(ranks):
+            bit_equal(f"rank {i}: {what}", (torch.from_numpy(r[key]),),
+                      (want,), against)
+
+    def launched(step, kernel):
+        counts = [i["launches"][step][kernel] for i in infos]
+        if not all(counts):
+            raise AssertionError(f"phase 15 {step}: {kernel} did not "
+                                 f"launch on every rank ({counts})")
+        return sum(counts)
+
+    # (a) K1 over pixel ranges of the final scene, 2 x 1.
+    equal_on_ranks("render_image_mega_sharded, final scene, 2 x 1", "mega",
+                   final_img, "phase 4's frame")
+    launched("mega", "K1")
+    # (b) K3 over pixel ranges of field20000.
+    equal_on_ranks("render_image_mega_clustered_sharded, field20000, 2 x 1",
+                   "clustered", field_img, "phase 9's frame")
+    launched("clustered", "K3")
+    for label in ("mega", "clustered"):
+        sec = [statistics.median(r[f"{label}_s"]) for r in ranks]
+        gat = [statistics.median(r[f"{label}_gather_s"]) for r in ranks]
+        log(f"  {label} sharded frame, 2 ranks sharing the card: "
+            f"{sec[0]:.4f} / {sec[1]:.4f} s (median of 3 after a warm run), "
+            f"the all-gather alone {gat[0] * 1e3:.3f} / {gat[1] * 1e3:.3f} "
+            f"ms ({gat[0] / sec[0] * 100:.2f}% / {gat[1] / sec[1] * 100:.2f}"
+            f"% of the frame), gloo via host tensors; on {card}")
+    # (c) the wavefront with K4: pixels split bit-equal to one process,
+    # samples split within the image bound.
+    scene, cam, cfg = dryrun.build("wavefront", size, dev)
+    accel = ip.pack_scene_pallas(scene)
+    want = render_image(scene, cam, cfg, accel=accel, device=dev).cpu()
+    equal_on_ranks("render_image_distributed with K4, 2 x 1",
+                   "wavefront_tiles", want, "one process's render_image")
+    k4 = launched("wavefront_tiles", "K4") + launched("wavefront_spp", "K4")
+    for r in ranks:
+        compare(torch.from_numpy(r["wavefront_spp"]).reshape(-1, 3),
+                torch.zeros(1), want.reshape(-1, 3), torch.zeros(1), 1,
+                "  render_image_distributed with K4, 1 x 2 (spp split)")
+    # (d) the ring: the image bound of the replicated render, and the
+    # selection of every camera ray equal to the replicated sweep's.
+    scene, cam, cfg = dryrun.build("ring", size, dev)
+    want = render_image(scene, cam, cfg, device=dev).cpu()
+    for r in ranks:
+        compare(torch.from_numpy(r["ring"]).reshape(-1, 3), torch.zeros(1),
+                want.reshape(-1, 3), torch.zeros(1), 1,
+                "  render_image_ring, random-spheres 64x32@2, 2 ranks")
+    ids = torch.arange(cfg.num_rays, device=dev)
+    o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                         rng.camera_uniforms(rng.base_key(0), ids))
+    prim, _, hit = intersect_brute(scene, o, d, cfg.t_min)
+    gid = torch.from_numpy(np.concatenate([r["ring_gid"] for r in ranks]))
+    prim, hit = prim.cpu(), hit.cpu()
+    same = bool(((gid == prim) | ~hit).all()
+                and (gid[~hit] == np.iinfo(np.int32).max).all())
+    log(f"  ring selection of {cfg.num_rays} camera rays equal to the "
+        f"replicated sweep's: {same}")
+    if not same:
+        raise AssertionError("the ring's selection differs")
+    # (e) the record->replay step at 2^17 rays, 2^16 a rank, against one
+    # process's step on the same rays.  Both run under deterministic
+    # algorithms: the gradient of a gather is otherwise summed by atomic
+    # adds in no fixed order (phase 6's step is logged against it).
+    tape, loss6, grads6 = step_single
+    got_tape = torch.from_numpy(np.concatenate(
+        [r["replay_tape"] for r in ranks], axis=1))
+    bit_equal("  the ranks' K2b tapes, concatenated", (got_tape,), (tape,),
+              "phase 6's tape")
+    kb = launched("replay", "K2b")
+    scene, cam, cfg = dryrun.build("replay", size, dev)
+    rays = dryrun.REPLAY_RAYS[size] or cfg.num_rays
+    params, _ = dg.split_params(scene)
+    with deterministic():
+        loss, grads, _ = shard.render_loss_and_grads_replay_sharded(
+            params, scene, cam, cfg, rng.base_key(0),
+            torch.arange(rays, device=dev),
+            torch.zeros((rays, 3), device=dev), make_render_mesh())
+    grads = {k: g.cpu().numpy() for k, g in grads.items()}
+    log(f"  one process's step, deterministic: loss {float(loss):.9g}; "
+        f"phase 6's (atomic adds) against it: loss {loss6:.9g}, "
+        f"{grad_spread(grads, {k: g.numpy() for k, g in grads6.items()})}")
+    for i, r in enumerate(ranks):
+        check_step(f"rank {i} record->replay step", r, "replay", loss,
+                   grads)
+    # The training step (autograd through the wavefront), against one
+    # process on the same rays.
+    scene, cam, cfg = dryrun.build("train", size, dev)
+    cfg = dataclasses.replace(cfg, differentiable=True)
+    params, _ = dg.split_params(scene, fields=dryrun.TRAIN_FIELDS)
+    with deterministic():
+        loss, grads = dg.render_loss_and_grads(
+            params, scene, cam, cfg, rng.base_key(0),
+            torch.arange(cfg.num_rays, device=dev),
+            torch.zeros((cfg.num_rays, 3), device=dev))
+    grads = {k: g.cpu().numpy() for k, g in grads.items()}
+    for i, r in enumerate(ranks):
+        check_step(f"rank {i} training step", r, "train", loss, grads)
+    return {"K2b": kb, "K4": k4}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` for the block."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def grad_spread(got, want):
+    """Per field, the largest of |got - want| / (1e-7 + 1e-4 |want|): at
+    most 1 within ``rtol=1e-4, atol=1e-7``."""
+    return {k: float((np.abs(got[k] - w) / (1e-7 + 1e-4 * np.abs(w))).max())
+            if w.size else 0.0 for k, w in want.items()}
+
+
+def check_step(what, r, prefix, loss, grads):
+    """A rank's loss and gradients within ``rtol=1e-4, atol=1e-7`` of one
+    process's."""
+    got = {k: r[f"{prefix}_grad_{k}"] for k in grads}
+    ratios = grad_spread(got, grads)
+    ok = bool(np.allclose(r[f"{prefix}_loss"], float(loss), rtol=1e-4,
+                          atol=1e-7)) and max(ratios.values()) <= 1.0
+    log(f"  {what}: loss {float(r[f'{prefix}_loss']):.9g} vs "
+        f"{float(loss):.9g}; per field the largest |a - b| / (1e-7 + 1e-4 "
+        f"|b|) {ratios} (bound 1)")
+    if not ok:
+        raise AssertionError(f"{what} off one process's")
+
+
+def occupancy_cli(card, lane_eff):
+    """Phase 16: ``cli occupancy`` in a subprocess on the card, at full size
+    (the megakernel's lane occupancy against phase 4's lane efficiency) and
+    at 64x32 @ 8 (2^14 rays: the wavefront report's whole image, so the
+    megakernel's mean path length is held to the wavefront's)."""
+    outs = []
+    for size in ([], ["--nx", "64", "--ny", "32", "--spp", "8"]):
+        cmd = [sys.executable, "-m", "first_raytracer_tpu_torch.cli",
+               "occupancy", "--preset", "random-spheres", *size]
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                                 f"{proc.returncode}")
+        outs.append(json.loads(proc.stdout))
+    full, small = outs
+    occ = full["megakernel"]["lane_occupancy"]
+    log(f"  full size: megakernel lane_occupancy {occ} against phase 4's "
+        f"lane efficiency {lane_eff:.4f} (bound 1e-3: the warps' steps "
+        f"follow the schedule); clustered lane_occupancy "
+        f"{full['megakernel_clustered']['lane_occupancy']}, "
+        f"sweeps_per_iter {full['megakernel_clustered']['sweeps_per_iter']}")
+    if not abs(occ - lane_eff) < 1e-3:
+        raise AssertionError("occupancy's lane efficiency is not phase 4's")
+    mpl, avg = small["megakernel"]["mean_path_len"], small["avg_path_length"]
+    log(f"  64x32@8: megakernel mean_path_len {mpl}, wavefront "
+        f"avg_path_length {avg:.6f} over the same {small['rays']} rays "
+        f"(bound 1e-3); clustered "
+        f"{small['megakernel_clustered']['mean_path_len']}; on {card}")
+    if not (abs(mpl - avg) < 1e-3 and abs(
+            small["megakernel_clustered"]["mean_path_len"] - avg) < 1e-3):
+        raise AssertionError("megakernel path length off the wavefront's")
+
+
 def main():
     # 1. Device.
     if not torch.cuda.is_available():
@@ -1629,7 +1998,8 @@ def main():
 
     build()  # 2.
     key = rng.base_key(0)
-    k1, scene, cam, cfg, pack = render_path(dev, key, card)  # 3, 4.
+    k1, scene, cam, cfg, pack, final_img, lane_eff = render_path(
+        dev, key, card)  # 3, 4.
     log("K2 and K2b vs plain:")
     k2_launches = tape_kernels_vs_plain(dev, key, card, scene, cam, cfg,
                                         pack)  # 5.
@@ -1650,6 +2020,17 @@ def main():
     k5, err4_fields = clustered_wavefront_path(dev, key, card)  # 13.
     k4["max_abs_err"] = max(err4, err4_fields)
     k5["max_abs_err"] = max(err5, k5["max_abs_err"])
+    torch.cuda.empty_cache()
+    log("The sharded megakernels in one process (NCCL, world size 1):")
+    f20_img = fields["field20000"]["img"]
+    slice14 = sharded_one_process(dev, key, card, final_img, f20_img)  # 14.
+    torch.cuda.empty_cache()
+    log("Two processes on the one card (parallel.dryrun, gloo):")
+    slice15 = two_processes(dev, card, final_img, f20_img, g["step"])  # 15.
+    log("cli occupancy:")
+    occupancy_cli(card, lane_eff)  # 16.
+    k1["sharded_launches"] = {"phase14": slice14["K1"]}
+    k4["sharded_launches"] = {"phase15": slice15["K4"]}
 
     src = "first_raytracer_tpu_torch/kernels/csrc/"
     f20 = fields["field20000"]
@@ -1668,7 +2049,8 @@ def main():
         "max_abs_err": g["err_b"], "tape_agreement": g["agree_b"],
         "ms": g["kb_ms"],
         "plain_ms": g["plain_b_ms"], "bound_ms": g["kb_bound"][0],
-        "bound_by": g["kb_bound"][1], "library_ms": None}, {
+        "bound_by": g["kb_bound"][1], "library_ms": None,
+        "sharded_launches": {"phase15": slice15["K2b"]}}, {
         "name": "K3 clustered megakernel (render_pixels_mega_clustered), "
                 "field20000 800x450@4 (plain_ms: a quarter of the pixels)",
         "route": "cuda", "source": src + "megakernel_clustered.cu",
@@ -1676,7 +2058,8 @@ def main():
         "max_abs_err": f20["err"], "ms": f20["ms"],
         "plain_ms": f20["plain_ms"],
         "bound_ms": f20["bound"][0], "bound_by": f20["bound"][1],
-        "library_ms": None}, {
+        "library_ms": None, "sharded_launches": {"phase14": slice14["K3"]}},
+        {
         "name": "K3t clustered recorder (record_paths_mega_clustered), "
                 "2^17 rays of field5000",
         "route": "cuda", "source": src + "megakernel_clustered.cu",

@@ -13,14 +13,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import shutil
-import subprocess
 
 import numpy as np
 
-from ..kernels.build import BUILD_DIR
+from ..kernels.build import build_host_library
 
 __all__ = ["available", "error", "build_bvh_native_arrays", "SOURCE"]
 
@@ -32,23 +29,9 @@ FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 @functools.lru_cache(maxsize=None)
 def _load():
     """(library, None) once built and loaded, else (None, the reason)."""
-    cxx = shutil.which(os.environ.get("CXX", "g++"))
-    if cxx is None:
-        return None, "no C++ compiler (g++) found"
-    if not os.path.exists(SOURCE):
-        return None, f"{SOURCE} is missing"
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
-    out = os.path.join(BUILD_DIR,
-                       f"libfrt_native_{digest.hexdigest()[:12]}.so")
-    if not os.path.exists(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.run([cxx, *FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            return None, f"g++ failed: {proc.stderr[-2000:]}"
-        os.replace(tmp, out)  # atomic: concurrent builders never see half
+    out, why = build_host_library("frt_native", SOURCE, FLAGS)
+    if out is None:
+        return None, why
     lib = ctypes.CDLL(out)
     fptr = ctypes.POINTER(ctypes.c_float)
     iptr = ctypes.POINTER(ctypes.c_int32)

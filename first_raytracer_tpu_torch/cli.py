@@ -1,5 +1,6 @@
 """Command-line entry point: ``render`` a preset, ``bench`` a ray batch,
-or ``fit`` a preset's parameters.
+``fit`` a preset's parameters, report ``occupancy`` or ``compare`` two
+images.
 
 Examples:
     python -m first_raytracer_tpu_torch.cli render --preset three-spheres \
@@ -16,6 +17,11 @@ Examples:
         --bvh --rays 4096
     python -m first_raytracer_tpu_torch.cli fit --preset random-spheres \
         --nx 64 --ny 32 --spp 2 --fields albedo --opt adam --lr 0.05 --fast
+    python -m first_raytracer_tpu_torch.cli occupancy --preset random-spheres
+    python -m first_raytracer_tpu_torch.cli compare a.png b.ppm \
+        --max-frac-gt-4 0.01
+    torchrun --nproc-per-node 2 -m first_raytracer_tpu_torch.cli render \
+        --preset random-spheres --mode mega --out out/final.png
 
 ``render --mode mega`` (the default) renders through the megakernel: the
 CUDA kernel on a GPU, its plain PyTorch version on the CPU.  A scene of
@@ -28,7 +34,19 @@ ray pool; their closest hit is the dense sweep, the clustered kernel K5
 with ``--clustered``, or the flat-BVH walk with ``--bvh`` (a correctness
 oracle, not a fast path).  ``--checkpoint`` renders in resumable batches
 of ``--batch-spp`` samples through the wavefront integrator, writing a
-running-mean PNG after every batch with ``--preview``.
+running-mean PNG after every batch with ``--preview``.  ``--mode ring``
+splits the scene's primitives over every rank and passes the shards
+around a ring each bounce (``parallel/ring.py``).
+
+Under ``torchrun`` (or any launcher that sets ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR`` and ``MASTER_PORT``) ``render`` joins the process group
+(NCCL when each process has a GPU of its own, else gloo) and shards the
+render over all ranks, each on its own GPU (``LOCAL_RANK``): ``mega`` and
+``mega-clustered`` by pixel ranges (``render_image_mega_sharded``,
+``render_image_mega_clustered_sharded``), ``wavefront`` by blocks of
+pixels (``parallel.shard.render_image_sharded``), ``ring`` by the scene;
+rank 0 writes the image.  ``regenerative`` and ``--checkpoint`` run in one
+process only.
 
 ``bench`` times one ``render_ray_batch`` of ``--rays`` rays (best of 3
 after a warm run) and prints one JSON line.
@@ -40,6 +58,13 @@ a render of the true scene (depth capped at 8), printing a JSON line
 last line with the kernel launch counts.  ``--fast`` takes the
 record->replay step (the tape recorded by the CUDA kernel on a GPU: the
 clustered recorder for scenes past 1024 spheres or triangles).
+
+``occupancy`` prints the JAX package's occupancy report as JSON: the
+wavefront's rays alive per bounce over the first 2^14 rays, and the
+megakernels' lane occupancy (``utils/metrics.py``).  ``compare`` prints
+the difference statistics of two images (PPM P3/P6, PNG or npz) and, with
+``--max-frac-gt-4``, exits 1 when more than that fraction of pixels differ
+by more than 4/255 in a channel.
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs on the host.
 """
@@ -84,12 +109,50 @@ def _build(args, device):
     return scene, camera, cfg, accel
 
 
+def _join_group():
+    """The process group of a ``torchrun``-style launch (a no-op for one
+    process); returns the world size."""
+    from .parallel.mesh import initialize_distributed
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    initialize_distributed(None, world, int(os.environ.get("RANK", "0")))
+    return world
+
+
+def _render_sharded(args, scene, camera, cfg, accel, device):
+    """The render of ``args.mode`` over a mesh of every rank."""
+    from .kernels.megakernel import render_image_mega_sharded
+    from .kernels.megakernel_clustered import (
+        render_image_mega_clustered_sharded)
+    from .parallel.mesh import make_render_mesh
+    from .parallel.ring import render_image_ring
+    from .parallel.shard import render_image_sharded
+
+    mesh = make_render_mesh()
+    if args.mode == "mega":
+        return render_image_mega_sharded(scene, camera, cfg, mesh,
+                                         seed=args.seed, device=device)
+    if args.mode == "mega-clustered":
+        return render_image_mega_clustered_sharded(
+            scene, camera, cfg, mesh, seed=args.seed, device=device)
+    if args.mode == "ring":
+        return render_image_ring(scene, camera, cfg, mesh, seed=args.seed,
+                                 device=device)
+    return render_image_sharded(scene, camera, cfg, mesh, seed=args.seed,
+                                accel=accel, device=device)
+
+
 def _cmd_render(args):
     from .render.image import write_png, write_ppm
 
     from .kernels.megakernel import DENSE_MAX
+    from .parallel.mesh import local_device
 
-    device = torch.device(args.device)
+    world = _join_group()
+    if world > 1 and (args.checkpoint or args.mode == "regenerative"):
+        raise SystemExit("--checkpoint and --mode regenerative run in one "
+                         "process")
+    device = local_device(args.device)
     scene, camera, cfg, accel = _build(args, device)
     if args.mode == "mega" and (args.clustered or max(
             scene.num_spheres, scene.num_triangles) > DENSE_MAX):
@@ -102,7 +165,9 @@ def _cmd_render(args):
     if args.bvh and args.mode.startswith("mega") and not args.checkpoint:
         raise SystemExit("--bvh needs --mode wavefront or regenerative")
     t0 = time.perf_counter()
-    if args.checkpoint:
+    if world > 1 or args.mode == "ring":
+        img = _render_sharded(args, scene, camera, cfg, accel, device)
+    elif args.checkpoint:
         from .render.progressive import progressive_render
         on_batch = None
         if args.preview:
@@ -131,6 +196,11 @@ def _cmd_render(args):
                            mode=args.mode, device=device)
     img = img.cpu()  # waits for the device
     dt = time.perf_counter() - t0
+    if world > 1:
+        rank = torch.distributed.get_rank()
+        torch.distributed.destroy_process_group()
+        if rank != 0:
+            return 0
     out = args.out or f"{args.preset}.png"
     if out == "-":
         # PPM P3 streamed to stdout, as the reference program writes it.
@@ -142,8 +212,9 @@ def _cmd_render(args):
     else:
         write_png(out, img)
     mode = "progressive wavefront" if args.checkpoint else args.mode
+    ranks = f", {world} ranks" if world > 1 else ""
     print(f"wrote {out} ({cfg.nx}x{cfg.ny} @ {cfg.spp}spp, {mode}, "
-          f"{device}) in {dt:.2f}s")
+          f"{device.type}{ranks}) in {dt:.2f}s")
     return 0
 
 
@@ -235,6 +306,36 @@ def _cmd_fit(args):
     return 0
 
 
+def _cmd_occupancy(args):
+    from .utils.metrics import (megakernel_clustered_occupancy,
+                                megakernel_occupancy, wavefront_occupancy)
+
+    device = torch.device(args.device)
+    scene, camera, cfg, accel = _build(args, device)
+    out = wavefront_occupancy(scene, camera, cfg, seed=args.seed,
+                              accel=accel, device=device)
+    if scene.num_primitives <= (1 << 14):
+        out["megakernel"] = megakernel_occupancy(scene, camera, cfg,
+                                                 seed=args.seed,
+                                                 device=device)
+    out["megakernel_clustered"] = megakernel_clustered_occupancy(
+        scene, camera, cfg, seed=args.seed, device=device)
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _cmd_compare(args):
+    """Image difference statistics (PPM, PNG or npz); exit 1 above
+    ``--max-frac-gt-4``."""
+    from .render.image import image_diff_stats, read_image
+
+    stats = image_diff_stats(read_image(args.a), read_image(args.b))
+    print(json.dumps(stats))
+    if args.max_frac_gt_4 is not None:
+        return 0 if stats["frac_pixels_gt_4"] <= args.max_frac_gt_4 else 1
+    return 0
+
+
 def _common(sp):
     sp.add_argument("--preset", default="three-spheres",
                     choices=sorted(PRESETS))
@@ -264,12 +365,14 @@ def main(argv=None):
                     help="output .png or .ppm; '-' streams PPM to stdout")
     sp.add_argument("--mode", default="mega",
                     choices=("mega", "mega-clustered", "wavefront",
-                             "regenerative"),
+                             "regenerative", "ring"),
                     help="mega: the megakernel (CUDA kernel on a GPU), "
                          "clustered past 1024 spheres or triangles; "
                          "mega-clustered: the clustered megakernel at any "
                          "size; wavefront: the chunked wavefront "
-                         "integrator; regenerative: its compacted ray pool")
+                         "integrator; regenerative: its compacted ray pool; "
+                         "ring: the wavefront with the scene's primitives "
+                         "split over every rank, passed around a ring")
     sp.add_argument("--checkpoint", default="",
                     help="render in resumable batches through the "
                          "wavefront integrator, checkpointed to this .npz")
@@ -300,6 +403,17 @@ def main(argv=None):
                          "kernel on a GPU) and depth-bucketed replay")
     fp.add_argument("--checkpoint", default="",
                     help="write the learned parameters to this .npz")
+    op = sub.add_parser("occupancy", help="occupancy report as JSON")
+    op.set_defaults(fn=_cmd_occupancy)
+    _common(op)
+    cp = sub.add_parser("compare", help="image difference statistics "
+                        "(ppm/png/npz); exit 1 above the threshold")
+    cp.set_defaults(fn=_cmd_compare)
+    cp.add_argument("a")
+    cp.add_argument("b")
+    cp.add_argument("--max-frac-gt-4", type=float, default=None,
+                    help="fail (exit 1) if more than this fraction of "
+                         "pixels differ by >4/255 in any channel")
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -37,8 +37,9 @@ from .replay import (plan_buckets, record_paths, record_paths_pool,
 __all__ = ["DIFF_FIELDS", "split_params", "merge_params", "ray_radiance",
            "render_loss", "render_loss_and_grads",
            "render_loss_and_grads_tape", "render_loss_and_grads_bucketed",
-           "sgd_step", "make_optimizer", "make_fit_step",
-           "make_fit_step_replay"]
+           "value_and_grad",
+           "sgd_step", "make_optimizer", "apply_grads", "make_fit_step",
+           "tape_recorder", "make_fit_step_replay"]
 
 # Material albedo / fuzz / IOR, sphere centers and radii, the checker's
 # second color and triangle vertices.
@@ -101,7 +102,7 @@ def render_loss(params, scene, camera, cfg, key, ray_ids, target,
     return torch.mean((rad - target) ** 2)
 
 
-def _value_and_grad(loss_fn, params):
+def value_and_grad(loss_fn, params):
     """(loss, grads) of ``loss_fn(leaves)`` at ``params``; a leaf the loss
     does not reach gets a zero gradient."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
@@ -117,7 +118,7 @@ def render_loss_and_grads(params, scene, camera, cfg, key, ray_ids, target,
                           accel=None, intersect_fn: Optional[Callable] = None,
                           method: str = "replay", record_pool: int = 0):
     """(loss, grads) of ``render_loss``."""
-    return _value_and_grad(
+    return value_and_grad(
         lambda p: render_loss(p, scene, camera, cfg, key, ray_ids, target,
                               accel, intersect_fn, method=method,
                               record_pool=record_pool),
@@ -135,12 +136,13 @@ def render_loss_and_grads_tape(params, scene, camera, cfg, key, ray_ids,
                                 cfg, tape)
         return torch.mean((rad - target) ** 2)
 
-    return _value_and_grad(loss, params)
+    return value_and_grad(loss, params)
 
 
 def render_loss_and_grads_bucketed(params, scene, camera, cfg, key,
                                    ray_ids, target, tape, plan=None,
-                                   max_groups: int = 4):
+                                   max_groups: int = 4,
+                                   num_values: Optional[int] = None):
     """(loss, grads) replaying depth-sorted ray buckets (``plan_buckets``):
     each bucket replays only its own trip count, so the replay's work is
     about R x the mean path length instead of R x the deepest.  Equal to
@@ -150,8 +152,13 @@ def render_loss_and_grads_bucketed(params, scene, camera, cfg, key,
     ``plan`` (from ``plan_buckets(tape, max_groups)``) may be passed so
     that repeated calls on one tape skip the host-side sort.  The default
     of 4 groups here against 6 in ``plan_buckets`` is the JAX package's,
-    kept on purpose so that both packages plan the same buckets.
+    kept on purpose so that both packages plan the same buckets.  The sum
+    of squares is divided by ``num_values``, by default the target's
+    element count: a rank of a sharded step passes the whole batch's
+    (``parallel/shard.py``).
     """
+    if num_values is None:
+        num_values = target.shape[0] * target.shape[1]
     if plan is None:
         plan = plan_buckets(tape, max_groups)
     order, groups = plan
@@ -169,9 +176,9 @@ def render_loss_and_grads_bucketed(params, scene, camera, cfg, key,
             rad = trace_rays_replay(s, o, d, ids_g, key, cfg,
                                     tape_s[:trips, g0:g0 + n])
             total = total + torch.sum((rad - target_s[g0:g0 + n]) ** 2)
-        return total / (target.shape[0] * target.shape[1])
+        return total / num_values
 
-    return _value_and_grad(loss, params)
+    return value_and_grad(loss, params)
 
 
 def sgd_step(params, scene, camera, cfg, key, ray_ids, target,
@@ -202,7 +209,8 @@ def make_optimizer(name: str, params, lr: float):
     return _OPTIMIZERS[name](list(params.values()), lr)
 
 
-def _apply(optimizer, params, grads):
+def apply_grads(optimizer, params, grads):
+    """Sets each parameter's ``.grad`` and takes one optimizer step."""
     for k, p in params.items():
         p.grad = grads[k]
     optimizer.step()
@@ -230,10 +238,58 @@ def make_fit_step(scene, camera, cfg, ray_ids, target, optimizer,
         loss, grads = render_loss_and_grads(params, scene, camera, cfg, key,
                                             ray_ids, target, accel,
                                             intersect_fn)
-        _apply(optimizer, params, grads)
+        apply_grads(optimizer, params, grads)
         return loss
 
     return step
+
+
+def tape_recorder(scene, camera, cfg, ray_ids, device="cuda"):
+    """The recorder of ``make_fit_step_replay`` for ``ray_ids``:
+    ``record(scene, key) -> tape`` (D, R) for the scene as it then stands
+    (the same primitives; moved or recoloured).  It follows the scene and
+    the ray ids:
+
+    - contiguous ids below 2^24 and at most 1024 spheres and 1024
+      triangles: K2b, ``record_paths_mega`` on the dense pack;
+    - contiguous ids and a larger scene (below 2^24 primitives): K3t,
+      ``record_paths_mega_clustered`` on the clustered pack.  Its
+      ``ClusterLayout`` is frozen here, so every call keeps the cluster
+      memberships while boxes and payload follow the scene;
+    - ids that are not contiguous or reach past 2^24: the wavefront
+      ``record_paths``.
+
+    Each recorder is the CUDA kernel on a GPU and its plain version on the
+    CPU.
+    """
+    from ..kernels.megakernel_clustered import pack_scene_mega_clustered
+    from ..kernels.record_mega import (pack_scene_mega, record_paths_mega,
+                                       record_paths_mega_clustered)
+
+    dev = torch.device(device)
+    ids_np = ray_ids.cpu().numpy()
+    n = len(ids_np)
+    contiguous = bool((np.diff(ids_np) == 1).all()) if n else True
+    ray0 = int(ids_np[0]) if n else 0
+    in_range = contiguous and ray0 + n <= MAX_RAY_ID
+    if in_range and max(scene.num_spheres, scene.num_triangles) <= DENSE_MAX:
+        def record(s, key):
+            return record_paths_mega(pack_scene_mega(s, dev), camera, cfg,
+                                     key, ray0=ray0, num_rays=n)
+    elif in_range and scene.num_primitives < MAX_RAY_ID:
+        _, layout = pack_scene_mega_clustered(scene, camera,
+                                              return_layout=True, device=dev)
+
+        def record(s, key):
+            pack = pack_scene_mega_clustered(s, camera, layout=layout,
+                                             device=dev)
+            return record_paths_mega_clustered(pack, camera, cfg, key,
+                                               ray0=ray0, num_rays=n)
+    else:
+        def record(s, key):
+            o, d = _rays(camera, cfg, key, ray_ids)
+            return record_paths(s, o, d, ray_ids, key, cfg)
+    return record
 
 
 def make_fit_step_replay(scene, camera, cfg, ray_ids, target, optimizer,
@@ -241,61 +297,23 @@ def make_fit_step_replay(scene, camera, cfg, ray_ids, target, optimizer,
     """Inverse-rendering step on the record->replay path.
 
     Per step: repack the current scene for the recorder, record the
-    primitive tape, plan depth buckets and differentiate only the bucketed
-    replay, then ``optimizer.step()``.  The recorder follows the scene and
-    the ray ids:
-
-    - contiguous ids below 2^24 and at most 1024 spheres and 1024
-      triangles: K2b, ``record_paths_mega`` on the dense pack;
-    - contiguous ids and a larger scene (below 2^24 primitives): K3t,
-      ``record_paths_mega_clustered`` on the clustered pack.  Its
-      ``ClusterLayout`` is frozen here, so every step keeps the cluster
-      memberships while boxes and payload follow the current parameters;
-    - ids that are not contiguous or reach past 2^24: the wavefront
-      ``record_paths``.
-
-    Each recorder is the CUDA kernel on a GPU and its plain version on the
-    CPU.  Returns ``step(params, key) -> loss``; as in ``make_fit_step``,
-    ``params`` are updated in place and live on ``device``.
+    primitive tape (``tape_recorder``: K2b, K3t or the wavefront recorder
+    by the scene's size and the ids), plan depth buckets and differentiate
+    only the bucketed replay, then ``optimizer.step()``.  Returns
+    ``step(params, key) -> loss``; as in ``make_fit_step``, ``params`` are
+    updated in place and live on ``device``.
     """
-    from ..kernels.megakernel_clustered import pack_scene_mega_clustered
-    from ..kernels.record_mega import (pack_scene_mega, record_paths_mega,
-                                       record_paths_mega_clustered)
-
     dev = torch.device(device)
     scene, camera = scene.to(dev), camera.to(dev)
     ray_ids, target = ray_ids.to(dev), target.to(dev)
-    ids_np = ray_ids.cpu().numpy()
-    n = len(ids_np)
-    contiguous = bool((np.diff(ids_np) == 1).all()) if n else True
-    ray0 = int(ids_np[0]) if n else 0
-    in_range = contiguous and ray0 + n <= MAX_RAY_ID
-    use_kernel = (in_range and max(scene.num_spheres, scene.num_triangles)
-                  <= DENSE_MAX)
-    use_clustered = (not use_kernel and in_range
-                     and scene.num_primitives < MAX_RAY_ID)
-    layout = None
-    if use_clustered:
-        _, layout = pack_scene_mega_clustered(scene, camera,
-                                              return_layout=True, device=dev)
+    record = tape_recorder(scene, camera, cfg, ray_ids, dev)
 
     def step(params, key):
         s = merge_params(scene, {k: v.detach() for k, v in params.items()})
-        if use_kernel:
-            tape = record_paths_mega(pack_scene_mega(s, dev), camera, cfg,
-                                     key, ray0=ray0, num_rays=n)
-        elif use_clustered:
-            pack = pack_scene_mega_clustered(s, camera, layout=layout,
-                                             device=dev)
-            tape = record_paths_mega_clustered(pack, camera, cfg, key,
-                                               ray0=ray0, num_rays=n)
-        else:
-            o, d = _rays(camera, cfg, key, ray_ids)
-            tape = record_paths(s, o, d, ray_ids, key, cfg)
         loss, grads = render_loss_and_grads_bucketed(
-            params, scene, camera, cfg, key, ray_ids, target, tape,
+            params, scene, camera, cfg, key, ray_ids, target, record(s, key),
             max_groups=max_groups)
-        _apply(optimizer, params, grads)
+        apply_grads(optimizer, params, grads)
         return loss
 
     return step

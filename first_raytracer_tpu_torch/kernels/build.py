@@ -17,7 +17,7 @@ import subprocess
 import time
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "BuildInfo",
-           "build_library"]
+           "build_library", "build_host_library"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -82,3 +82,27 @@ def build_library(name: str, sources, extra_flags=()):
                            f"{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return ctypes.CDLL(out), BuildInfo(out, seconds, log, False)
+
+
+def build_host_library(name: str, source: str, flags):
+    """Compile one C++ source for the host with ``g++`` (or ``$CXX``) into
+    ``BUILD_DIR/lib<name>_<hash>.so`` at first use; the hash covers the
+    source and the flags.  Returns ``(path, None)``, or ``(None, the
+    reason)`` when there is no compiler, no source or the build fails."""
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        return None, "no C++ compiler (g++) found"
+    if not os.path.exists(source):
+        return None, f"{source} is missing"
+    with open(source, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.run([cxx, *flags, "-o", tmp, source],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            return None, f"g++ failed: {proc.stderr[-2000:]}"
+        os.replace(tmp, out)  # atomic: concurrent builders never see half
+    return out, None

@@ -511,10 +511,12 @@ ClusterScene make_scene(const float* sph, const float* mx,
 
 extern "C" {
 
-// Launches K3 on `stream` over the whole nx x ny image; writes rad (P, 3)
-// f32, segs (P,) i32 and sweeps (P, 6) i32 (ClusterCounters, then the
-// warp's clusters and steps at the first pixel of its first group); `work`
-// is one int of device scratch, the launch's counter of groups.  The tables are those of
+// Launches K3 on `stream` over `num_pixels` pixels of the nx x ny image
+// starting at global pixel `pix0` (pixels past the image are not traced);
+// writes rad (num_pixels, 3) f32, segs (num_pixels,) i32 and sweeps
+// (num_pixels, 6) i32 (ClusterCounters, then the warp's clusters and steps
+// at the first pixel of its first group); `work` is one int of device
+// scratch, the launch's counter of groups.  The tables are those of
 // MegaClusteredPack; `sp` and `tp` are the sphere and triangle column
 // counts.  Returns cudaGetLastError() after the launch (0 = launched).
 int frt_mega_clustered_render(
@@ -523,16 +525,16 @@ int frt_mega_clustered_render(
     const int* sph_counts, const float* tri, const float* tri_boxes,
     const float* tri_super, const int* tri_starts, const int* tri_counts,
     int ns, int nt, int ks, int kts, int sp, int tp, unsigned int k0,
-    unsigned int k1, int nx, int ny, int spp, int max_depth, float t_min,
-    float* rad, int* segs, int* sweeps, int* work, void* stream) {
+    unsigned int k1, int nx, int ny, int spp, int pix0, int num_pixels,
+    int max_depth, float t_min, float* rad, int* segs, int* sweeps,
+    int* work, void* stream) {
   const ClusterScene scene =
       make_scene(sph, mx, sph_boxes, sph_super, sph_starts, sph_counts, tri,
                  tri_boxes, tri_super, tri_starts, tri_counts, ns, nt, ks,
                  kts, sp, tp);
   const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
-  const int num_pixels = nx * ny;
-  const RenderLaunch ln{spp,        spp,        0,   0,
-                        num_pixels, num_pixels, chunk_of(spp), work};
+  const RenderLaunch ln{spp,        spp,     0,   pix0,
+                        num_pixels, nx * ny, chunk_of(spp), work};
   if (num_pixels > 0) {
     const int bytes =
         scene_smem_bytes(scene) +

@@ -35,7 +35,8 @@ from ..core.vecmath import divide
 
 __all__ = ["MegaScenePack", "pack_scene_mega", "camera_table",
            "render_pixels_mega", "render_pixels_mega_reference",
-           "render_image_mega", "load_mega_library"]
+           "render_image_mega", "render_image_mega_sharded",
+           "load_mega_library"]
 
 BIG = 1e30
 _LANE = 128
@@ -271,7 +272,7 @@ def bind(lib):
     # counts and the two column counts.
     tables = [ptr] * 12 + [i32] * 6
     lib.frt_mega_clustered_render.argtypes = (
-        tables + [u32, u32] + [i32] * 4 + [f32] + [ptr] * 5)
+        tables + [u32, u32] + [i32] * 6 + [f32] + [ptr] * 5)
     lib.frt_mega_clustered_render.restype = i32
     lib.frt_record_clustered.argtypes = (
         tables + [u32, u32] + [i32] * 6 + [f32] + [ptr] * 4)
@@ -726,5 +727,35 @@ def render_image_mega(scene, camera, cfg, seed: int = 0, device="cuda"):
     pack = pack_scene_mega(scene, device)
     rad, _ = render_pixels_mega(pack, camera.to(device), cfg,
                                 rng.base_key(seed))
+    img = (rad / cfg.spp).reshape(cfg.ny, cfg.nx, 3)
+    return img.flip(0)
+
+
+def render_image_mega_sharded(scene, camera, cfg, mesh, seed: int = 0,
+                              device="cuda"):
+    """Mesh-sharded megakernel render; (ny, nx, 3) on ``device``, top row
+    first, the whole image on every rank.
+
+    Data-parallel over the mesh's tile axis (``parallel/mesh.py``): each
+    rank launches K1 over a contiguous range of ceil(P / tiles) pixels
+    (the last range may run past the image; those pixels are not traced)
+    with the globally keyed RNG, and the ranges are gathered.  K1 sums each
+    pixel's samples in sample order whichever range holds it, so the image
+    is bit-identical to ``render_image_mega``'s for any rank count.  Scene
+    tables and camera are replicated (ranks of one tile index but another
+    spp index render the same range); the only collective is the
+    all-gather.  A pixel keeps its samples on one rank: spp sharding is
+    the wavefront path's (``parallel/shard.py``).
+    """
+    from ..parallel.mesh import TILE_AXIS, local_device
+
+    device = local_device(device)
+    pack = pack_scene_mega(scene, device)
+    total = cfg.num_pixels
+    per = -(-total // mesh.tiles)
+    rad, _ = render_pixels_mega(pack, camera.to(device), cfg,
+                                rng.base_key(seed),
+                                pix0=mesh.tile_index * per, num_pixels=per)
+    rad = mesh.axis(TILE_AXIS).all_gather(rad)[:total]
     img = (rad / cfg.spp).reshape(cfg.ny, cfg.nx, 3)
     return img.flip(0)

@@ -39,7 +39,8 @@ from .megakernel import (BIG, TRI_ROWS, _check, _extent, _merge_surface,
 __all__ = ["MegaClusteredPack", "ClusterLayout", "pack_scene_mega_clustered",
            "render_pixels_mega_clustered",
            "render_pixels_mega_clustered_reference",
-           "render_image_mega_clustered", "SWEEP_COLUMNS"]
+           "render_image_mega_clustered",
+           "render_image_mega_clustered_sharded", "SWEEP_COLUMNS"]
 
 REPLACES = "first_raytracer_tpu/kernels/megakernel_clustered.py:532"
 _LANE = 128           # cluster slot capacity
@@ -415,14 +416,15 @@ def table_args(pack, cam):
             pack.sph.shape[1], pack.tris.shape[1])
 
 
-def _launch_cuda(pack, cam, cfg, key):
-    """Launch K3 on the current stream; returns (rad (P, 3), segs (P,),
-    sweeps (P, 6))."""
+def _launch_cuda(pack, cam, cfg, key, pix0=0, num_pixels=None):
+    """Launch K3 on the current stream over ``num_pixels`` pixels from
+    ``pix0`` (the rest of the image by default); returns (rad (P, 3), segs
+    (P,), sweeps (P, 6)), P = ``num_pixels``."""
     from . import megakernel
 
     dev = pack.device
     check_clustered_pack(pack, cam)
-    P = cfg.nx * cfg.ny
+    P, _, _ = _extent(cfg, pix0, num_pixels, None)
     rad = torch.empty((P, 3), dtype=torch.float32, device=dev)
     segs = torch.empty((P,), dtype=torch.int32, device=dev)
     sweeps = torch.empty((P, len(SWEEP_COLUMNS)), dtype=torch.int32,
@@ -431,7 +433,7 @@ def _launch_cuda(pack, cam, cfg, key):
     k0, k1 = rng.key_words(key)
     megakernel.launch_entry(
         dev, "frt_mega_clustered_render", *table_args(pack, cam), k0, k1,
-        cfg.nx, cfg.ny, cfg.spp, cfg.max_depth, float(cfg.t_min),
+        cfg.nx, cfg.ny, cfg.spp, pix0, P, cfg.max_depth, float(cfg.t_min),
         rad.data_ptr(), segs.data_ptr(), sweeps.data_ptr(), work.data_ptr())
     render_pixels_mega_clustered.launches += 1
     return rad, segs, sweeps
@@ -447,11 +449,14 @@ def check_clustered_guards(pack, cfg):
 
 
 def render_pixels_mega_clustered(pack: MegaClusteredPack, camera, cfg, key,
+                                 pix0: int = 0, num_pixels: int = None,
                                  return_iters: bool = False):
-    """Per-pixel radiance sums and segment counts of a whole-image render.
+    """Per-pixel radiance sums and segment counts of a render.
 
-    Returns ``(radiance_sum (P, 3) f32, segments (P,) i32)`` in pixel
-    order (bottom row first); divide by ``cfg.spp`` for the mean.  With
+    Returns ``(radiance_sum (P, 3) f32, segments (P,) i32)`` for the ``P =
+    num_pixels`` pixels starting at global pixel ``pix0`` (the whole image
+    by default, bottom row first); divide by ``cfg.spp`` for the mean.  A
+    pixel's value does not depend on the range it is rendered in.  With
     ``return_iters=True`` also the per-pixel counters ``(P, 6)`` i32 of
     ``SWEEP_COLUMNS``: what the gated sweep of K3 did, or, for the plain
     version, what an ungated sweep does (every cluster of each present
@@ -460,16 +465,17 @@ def render_pixels_mega_clustered(pack: MegaClusteredPack, camera, cfg, key,
     Runs K3 for CUDA tensors and the plain version for CPU tensors; the
     device is the pack's.  ``key`` is ``core.rng.base_key(seed)``.
     """
-    _extent(cfg, 0, None, None)
+    num_pixels, _, _ = _extent(cfg, pix0, num_pixels, None)
     check_clustered_guards(pack, cfg)
     dev = pack.device
     if dev.type == "cpu":
         return render_pixels_mega_clustered_reference(
-            pack, camera, cfg, key, return_iters=return_iters)
+            pack, camera, cfg, key, pix0=pix0, num_pixels=num_pixels,
+            return_iters=return_iters)
     if dev.type != "cuda":
         raise ValueError(f"no clustered megakernel for device {dev}")
     rad, segs, sweeps = _launch_cuda(pack, camera_table(camera).to(dev),
-                                     cfg, key)
+                                     cfg, key, pix0, num_pixels)
     return (rad, segs, sweeps) if return_iters else (rad, segs)
 
 
@@ -488,16 +494,18 @@ def ungated_sweeps(pack, segs):
 
 
 def render_pixels_mega_clustered_reference(pack: MegaClusteredPack, camera,
-                                           cfg, key,
+                                           cfg, key, pix0: int = 0,
+                                           num_pixels: int = None,
                                            return_iters: bool = False,
                                            rays_per_chunk: int = None):
     """K3's plain version: ``render_pixels_mega_clustered`` in plain
-    PyTorch.  It sweeps every column of the clustered pack with no gates
-    and takes the lowest column among equal t, so it checks the kernel's
-    gates rather than repeating them; camera rays and shading are K1's
-    plain code."""
+    PyTorch, over the same pixel range.  It sweeps every column of the
+    clustered pack with no gates and takes the lowest column among equal
+    t, so it checks the kernel's gates rather than repeating them; camera
+    rays and shading are K1's plain code."""
     check_clustered_guards(pack, cfg)
-    rad, segs = render_reference(pack, camera, cfg, key,
+    rad, segs = render_reference(pack, camera, cfg, key, pix0=pix0,
+                                 num_pixels=num_pixels,
                                  rays_per_chunk=rays_per_chunk)
     if return_iters:
         return rad, segs, ungated_sweeps(pack, segs)
@@ -514,5 +522,34 @@ def render_image_mega_clustered(scene, camera, cfg, seed: int = 0,
     pack = pack_scene_mega_clustered(scene, camera, device=device)
     rad, _ = render_pixels_mega_clustered(pack, camera.to(device), cfg,
                                           rng.base_key(seed))
+    img = (rad / cfg.spp).reshape(cfg.ny, cfg.nx, 3)
+    return img.flip(0)
+
+
+def render_image_mega_clustered_sharded(scene, camera, cfg, mesh,
+                                        seed: int = 0, device="cuda"):
+    """Mesh-sharded clustered-megakernel render; (ny, nx, 3) on ``device``,
+    top row first, the whole image on every rank.
+
+    Data-parallel over the mesh's tile axis, as
+    ``megakernel.render_image_mega_sharded``: each rank launches K3 over a
+    contiguous range of ceil(P / tiles) pixels (the last range may run past
+    the image; those pixels are not traced) and the ranges are gathered.
+    The JAX package distributes its kernel by ranges of 2-D pixel tiles;
+    this one has none, so its unit is the pixel range.  Every pixel is
+    traced and summed as in the whole-frame launch, so the image is
+    bit-identical to ``render_image_mega_clustered``'s.  Cluster tables
+    and camera are replicated; the only collective is the all-gather.
+    """
+    from ..parallel.mesh import TILE_AXIS, local_device
+
+    device = local_device(device)
+    pack = pack_scene_mega_clustered(scene, camera, device=device)
+    total = cfg.num_pixels
+    per = -(-total // mesh.tiles)
+    rad, _ = render_pixels_mega_clustered(
+        pack, camera.to(device), cfg, rng.base_key(seed),
+        pix0=mesh.tile_index * per, num_pixels=per)
+    rad = mesh.axis(TILE_AXIS).all_gather(rad)[:total]
     img = (rad / cfg.spp).reshape(cfg.ny, cfg.nx, 3)
     return img.flip(0)

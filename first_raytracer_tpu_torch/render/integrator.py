@@ -17,8 +17,11 @@ K5 (``kernels/intersect_clustered``) or the flat-BVH walk
 primitive (``recompute_hit``), which is the authority on whether it really
 hits, so gradients flow through the hit equation whatever found the
 primitive.  This is the port's CPU-runnable yardstick for the megakernel
-(``kernels/megakernel.py``).  The ring-sharded scene's ``resolve_fn`` and
-``sync_axis`` hooks are not ported.
+(``kernels/megakernel.py``).  ``resolve_fn`` replaces the closest hit and
+its recompute together (the ring-sharded scene of ``parallel/ring.py``
+assembles them over hops between ranks), and ``sync_axis`` makes the
+early exit uniform over a mesh axis, so that every rank runs the same
+passes and a collective inside a pass cannot deadlock.
 """
 from __future__ import annotations
 
@@ -144,15 +147,31 @@ def recompute_hit(scene, origin, direction, prim, t_min):
     return t, p, n, mat
 
 
+def _any_alive(alive, sync_axis):
+    """Whether any ray is alive: here, or on any rank of ``sync_axis``."""
+    if sync_axis is None:
+        return bool(alive.any())
+    count = alive.sum(dtype=torch.int32).reshape(1)
+    return int(sync_axis.all_reduce(count)) > 0
+
+
 def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
                accel=None, intersect_fn: Optional[Callable] = None,
-               return_stats: bool = False):
+               return_stats: bool = False,
+               resolve_fn: Optional[Callable] = None, sync_axis=None):
     """Trace R primary rays to completion; returns (R, 3) radiance.
 
     ``intersect_fn(scene, accel, origin, direction, t_min) -> (prim, t,
     hit)`` defaults to ``default_intersect``.  With ``return_stats=True``
     also returns ``segments``: (R,) int32 count of ray segments traced per
     path (the rays/s numerator).
+
+    ``resolve_fn(scene, accel, origin, direction, t_min) -> (t, p, n, mat,
+    hit)``, when given, replaces the whole closest-hit resolution
+    (``intersect_fn`` and ``recompute_hit``).  ``sync_axis``, a
+    ``parallel.mesh.MeshAxis``, turns the forward path's exit once every
+    ray is dead into an all-reduce of the alive count over that axis, so
+    that every rank of it runs the same number of passes.
 
     ``torch.autograd`` differentiates the result through the hit
     recompute, the scatter and the shading; primitive selection (the
@@ -161,6 +180,13 @@ def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
     """
     if intersect_fn is None:
         intersect_fn = default_intersect
+    if resolve_fn is None:
+        def resolve_fn(scene, accel, origin, direction, t_min):
+            with torch.no_grad():
+                prim, _, hit = intersect_fn(scene, accel, origin, direction,
+                                            t_min)
+            return (*recompute_hit(scene, origin, direction, prim, t_min),
+                    hit)
     R = origin.shape[0]
     dev = origin.device
     throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
@@ -170,14 +196,11 @@ def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
     up = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev)
 
     for d in range(cfg.max_depth + 1):
-        if not cfg.differentiable and not bool(alive.any()):
+        if not cfg.differentiable and not _any_alive(alive, sync_axis):
             break
         segments = segments + alive.to(torch.int32)
-        with torch.no_grad():
-            prim, _, hit = intersect_fn(scene, accel, origin, direction,
-                                        cfg.t_min)
-        t, p, n, mat = recompute_hit(scene, origin, direction, prim,
-                                     cfg.t_min)
+        t, p, n, mat, hit = resolve_fn(scene, accel, origin, direction,
+                                       cfg.t_min)
         # Dead and missing lanes get sanitized hit data so t = BIG points
         # cannot breed NaN/Inf.
         hit = hit & (t < BIG)

@@ -27,9 +27,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _run_cli(*args, cmd="render"):
     env = dict(os.environ, PYTHONPATH=REPO)
+    device = [] if cmd == "compare" else ["--device", "cpu"]
     return subprocess.run(
         [sys.executable, "-m", "first_raytracer_tpu_torch.cli", cmd,
-         "--device", "cpu", *args], cwd=REPO, env=env, capture_output=True,
+         *device, *args], cwd=REPO, env=env, capture_output=True,
         text=True, timeout=300)
 
 
@@ -287,3 +288,104 @@ def test_cli_fit_with_the_clustered_intersector():
     want = _jax_fit_first_loss("random-spheres", ("albedo",), 0, nx=16,
                                ny=8, spp=2)
     np.testing.assert_allclose(steps[0]["loss"], want, rtol=1e-5)
+
+
+def test_cli_render_ring_matches_jax(tmp_path):
+    """``render --mode ring`` in one process (one shard, one hop): the JAX
+    CLI's ring render of three-spheres within +-1 on 99% of values (the
+    bound of ``test_cli_render_matches_jax``), and the port's wavefront
+    image exactly."""
+    from first_raytracer_tpu.parallel.mesh import make_render_mesh
+    from first_raytracer_tpu.parallel.ring import render_image_ring
+    from first_raytracer_tpu_torch.render.api import render_image
+    from first_raytracer_tpu_torch.scene.builders import build_preset
+
+    out = tmp_path / "ring.png"
+    proc = _run_cli("--preset", "three-spheres", "--nx", "24", "--ny", "12",
+                    "--spp", "2", "--mode", "ring", "--out", str(out))
+    assert proc.returncode == 0, proc.stderr
+    assert "ring, cpu)" in proc.stdout
+    got = timg.read_png(str(out))
+    js, jc, cfg = jb.three_spheres(nx=24, ny=12, spp=2)
+    want = jimg.to_uint8(np.asarray(render_image_ring(
+        js, jc, cfg, make_render_mesh(1, 1, devices=_jax_devices()[:1]))))
+    close = np.abs(got.astype(np.int16) - want.astype(np.int16)) <= 1
+    assert close.mean() >= 0.99
+    scene, cam, tcfg = build_preset("three-spheres", device="cpu", nx=24,
+                                    ny=12, spp=2)
+    np.testing.assert_array_equal(
+        got, timg.to_uint8(render_image(scene, cam, tcfg, device="cpu")))
+
+
+def _jax_devices():
+    import jax
+
+    return jax.devices()
+
+
+def test_cli_occupancy_matches_jax_keys():
+    """``occupancy`` prints the JAX CLI's report: the same keys, the
+    wavefront counts equal to JAX's, the megakernels' sections with the
+    JAX report's keys."""
+    from first_raytracer_tpu.utils.metrics import (
+        wavefront_occupancy as jax_wavefront_occupancy)
+
+    proc = _run_cli("--preset", "three-spheres", "--nx", "24", "--ny", "12",
+                    "--spp", "2", cmd="occupancy")
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    js, jc, cfg = jb.three_spheres(nx=24, ny=12, spp=2)
+    want = jax_wavefront_occupancy(js, jc, cfg, seed=0)
+    assert out["alive_per_bounce"] == want["alive_per_bounce"]
+    assert set(out) == set(want) | {"megakernel", "megakernel_clustered"}
+    assert set(out["megakernel"]) == {
+        "segments", "mean_path_len", "tile_trips_mean", "tile_trips_max",
+        "lane_occupancy"}
+    assert set(out["megakernel_clustered"]) == set(out["megakernel"]) | {
+        "clusters", "sweeps_per_iter"}
+    assert abs(out["megakernel"]["mean_path_len"]
+               - out["avg_path_length"]) < 1e-3
+
+
+@pytest.mark.parametrize("fmt", ["png", "ppm", "npz"])
+def test_cli_compare_formats_and_exit_codes(tmp_path, fmt):
+    """``compare`` reads PNG, PPM (P3 and P6) and npz; its statistics equal
+    the JAX package's ``image_diff_stats``; with ``--max-frac-gt-4`` it
+    exits 1 above the threshold and 0 at or below it."""
+    r = np.random.RandomState(7)
+    a = (r.rand(6, 9, 3) * 0.8).astype(np.float32)
+    b = a.copy()
+    b[0, :3] += 0.5  # 3 of 54 pixels move by far more than 4/255
+    pa, pb = tmp_path / f"a.{fmt}", tmp_path / f"b.{fmt}"
+    for img, path in ((a, pa), (b, pb)):
+        if fmt == "png":
+            timg.write_png(str(path), torch.from_numpy(img))
+        elif fmt == "ppm":
+            timg.write_ppm(str(path), torch.from_numpy(img))
+        else:
+            np.savez(path, img=img)
+    proc = _run_cli(str(pa), str(pb), cmd="compare")
+    assert proc.returncode == 0, proc.stderr
+    stats = json.loads(proc.stdout)
+    assert stats == json.loads(json.dumps(jimg.image_diff_stats(
+        jimg.read_image(str(pa)), jimg.read_image(str(pb)))))
+    assert stats["frac_pixels_gt_4"] == pytest.approx(3 / 54)
+    assert _run_cli(str(pa), str(pb), "--max-frac-gt-4", "0.05",
+                    cmd="compare").returncode == 1
+    assert _run_cli(str(pa), str(pb), "--max-frac-gt-4", "0.06",
+                    cmd="compare").returncode == 0
+
+
+def test_cli_compare_reads_binary_ppm(tmp_path):
+    """A P6 file (as other renderers write them) reads as its P3 twin."""
+    r = np.random.RandomState(8)
+    img = r.randint(0, 256, (4, 5, 3)).astype(np.uint8)
+    p6 = tmp_path / "x6.ppm"
+    p6.write_bytes(b"P6\n5 4\n255\n" + img.tobytes())
+    p3 = tmp_path / "x3.ppm"
+    p3.write_text("P3\n5 4\n255\n" + "\n".join(
+        " ".join(str(v) for v in px) for px in img.reshape(-1, 3)) + "\n")
+    proc = _run_cli(str(p6), str(p3), "--max-frac-gt-4", "0",
+                    cmd="compare")
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout)["max_abs"] == 0.0

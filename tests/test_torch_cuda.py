@@ -440,3 +440,43 @@ def test_intersect_kernels_refuse_bad_input(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ic.intersect_clustered(scene, dataclasses.replace(
             pack, sph_box=pack.sph_box.t().contiguous().t()), o, d, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", CLUSTERED,
+                         ids=[c[0] for c in CLUSTERED])
+def test_clustered_kernel_pixel_ranges(cuda_device, name, kw):
+    """K3 over three pixel ranges of ceil(P / 3) (the sharded render's
+    split; the last runs past the image), concatenated: bit-equal to the
+    whole-frame K3; the plain version's ranges likewise to its whole
+    frame (which ``test_clustered_kernels_match_plain`` holds K3 to)."""
+    scene, cam, cfg = build_preset(name, device=cuda_device, **kw)
+    pack = mc.pack_scene_mega_clustered(scene, cam)
+    key = rng.base_key(0)
+    P = cfg.nx * cfg.ny
+    per = -(-P // 3)
+    for fn in (mc.render_pixels_mega_clustered,
+               mc.render_pixels_mega_clustered_reference):
+        whole, whole_segs = fn(pack, cam, cfg, key)
+        parts = [fn(pack, cam, cfg, key, pix0=i * per, num_pixels=per)
+                 for i in range(3)]
+        assert torch.equal(torch.cat([p[0] for p in parts])[:P], whole)
+        assert torch.equal(torch.cat([p[1] for p in parts])[:P],
+                           whole_segs)
+
+
+@pytest.mark.cuda
+def test_sharded_megakernels_in_one_process(cuda_device):
+    """The sharded megakernel entries on a mesh of one rank (no process
+    group, no collective) equal the unsharded renders bit for bit."""
+    from first_raytracer_tpu_torch.parallel.mesh import make_render_mesh
+
+    mesh = make_render_mesh()
+    scene, cam, cfg = build_preset("random-spheres", device=cuda_device,
+                                   nx=96, ny=64, spp=2)
+    assert torch.equal(
+        mk.render_image_mega_sharded(scene, cam, cfg, mesh),
+        mk.render_image_mega(scene, cam, cfg))
+    assert torch.equal(
+        mc.render_image_mega_clustered_sharded(scene, cam, cfg, mesh),
+        mc.render_image_mega_clustered(scene, cam, cfg))

@@ -165,6 +165,34 @@ def test_k3_k3t_equal_plain(host_kernels, name):
     assert 0 < int(segs.sum()) <= 32 * int(sweeps[:, 5].sum())
 
 
+@pytest.mark.parametrize("name", ["random-spheres", "triangle-mesh",
+                                  "sphere-field-600"])
+def test_k3_pixel_ranges(host_kernels, name):
+    """K3 over four pixel ranges of ceil(P / 4) pixels (the sharded
+    render's split; the last runs past the image), concatenated, is
+    bit-equal to the whole-frame K3, and each range to the plain version's
+    same range: radiance and segments."""
+    scene, cam, cfg = _scene(CLUSTERED, name)
+    pack = mc.pack_scene_mega_clustered(scene, cam)
+    cam_row = mk.camera_table(cam)
+    P = cfg.nx * cfg.ny
+    per = -(-(P - 3) // 4)  # ranges that do not fall on a warp's 32
+    whole, whole_segs, _ = mc._launch_cuda(pack, cam_row, cfg, KEY)
+    rads, segs = [], []
+    for r in range(4):
+        rad, seg, _ = mc._launch_cuda(pack, cam_row, cfg, KEY, pix0=r * per,
+                                      num_pixels=per)
+        ref, ref_seg = mc.render_pixels_mega_clustered_reference(
+            pack, cam, cfg, KEY, pix0=r * per, num_pixels=per)
+        live = max(0, min(per, P - r * per))
+        assert torch.equal(rad[:live], ref[:live])
+        assert torch.equal(seg[:live], ref_seg[:live])
+        rads.append(rad[:live])
+        segs.append(seg[:live])
+    assert torch.equal(torch.cat(rads), whole)
+    assert torch.equal(torch.cat(segs), whole_segs)
+
+
 def _rays(scene, cam, cfg, n=512):
     ids = torch.arange(min(n, cfg.num_rays))
     return generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,

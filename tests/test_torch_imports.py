@@ -75,3 +75,26 @@ def test_slice_modules_are_scanned(name):
     full = f"first_raytracer_tpu_torch.{name}"
     path = dict((n, p) for p, n in _modules())[full]
     assert not [r for r in _imported_roots(path) if r in FORBIDDEN]
+
+
+# The modules of the sharding, metrics and oracle slice.
+SLICE_E = ["parallel.mesh", "parallel.shard", "parallel.ring",
+           "parallel.dryrun", "utils.metrics", "oracle.cpu_oracle",
+           "oracle.native_oracle"]
+
+
+@pytest.mark.parametrize("name", SLICE_E)
+def test_sharding_slice_modules_are_scanned(name):
+    full = f"first_raytracer_tpu_torch.{name}"
+    path = dict((n, p) for p, n in _modules())[full]
+    assert not [r for r in _imported_roots(path) if r in FORBIDDEN]
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py",
+                                  os.path.join("tests",
+                                               "torch_dist_worker.py")])
+def test_scripts_import_no_jax(path):
+    """The card's smoke script and the multi-process tests' worker import
+    neither JAX nor the JAX package."""
+    roots = set(_imported_roots(os.path.join(REPO, path)))
+    assert not roots & set(FORBIDDEN)
