@@ -31,13 +31,6 @@ frames after a warm one and of an all-gather of the frame's shape alone
 tests' size); ``--size chip`` the configurations of the package's H100
 checks (``chip_smoke.py`` phase 15).  One process (no ``WORLD_SIZE``) runs
 the same steps without collectives.  It imports no JAX.
-
-The steps run under ``torch.use_deterministic_algorithms``: on a GPU the
-gradient of a gather (a material's albedo read by a hundred thousand
-rays) is otherwise summed by atomic adds in no fixed order, which moves
-the largest albedo gradient of the 2^17-ray step by a few 1e-4 between
-two runs of the same step, more than the bound to which the sharded
-gradients are held against one process's.
 """
 from __future__ import annotations
 
@@ -257,7 +250,6 @@ def main(argv=None):
     initialize_distributed(None, int(os.environ.get("WORLD_SIZE", "1")),
                            int(os.environ.get("RANK", "0")))
     device = local_device(args.device)
-    torch.use_deterministic_algorithms(True, warn_only=True)
     out = run(args.size, device, args.timed)
     os.makedirs(args.out, exist_ok=True)
     rank = json.loads(str(out["info"]))["rank"]

@@ -33,7 +33,7 @@ from ..render.integrator import RenderConfig
 from .mesh import SPP_AXIS, TILE_AXIS, local_device
 
 __all__ = ["ray_id_grid", "render_image_sharded", "render_image_distributed",
-           "render_image_auto", "shard_block", "render_loss_and_grads_sharded",
+           "render_image_auto", "render_loss_and_grads_sharded",
            "render_loss_and_grads_replay_sharded",
            "make_fit_step_replay_sharded"]
 
@@ -117,7 +117,7 @@ def render_image_auto(scene, camera, cfg: RenderConfig, mesh, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def shard_block(n: int, mesh):
+def _rank_block(n: int, mesh):
     """This rank's contiguous block ``[lo, hi)`` of ``n`` rays split over
     all the mesh's ranks; ``ValueError`` unless they divide."""
     if n % mesh.size:
@@ -146,7 +146,7 @@ def render_loss_and_grads_sharded(params, scene, camera, cfg, key, ray_ids,
     every gradient are summed over the ranks, so that every rank holds the
     single-process loss and gradients (up to f32 summation order).  The
     tensors stay on their device."""
-    lo, hi = shard_block(ray_ids.shape[0], mesh)
+    lo, hi = _rank_block(ray_ids.shape[0], mesh)
     ids, tgt = ray_ids[lo:hi], target[lo:hi]
     count = target.shape[0] * target.shape[1]
 
@@ -168,7 +168,7 @@ def render_loss_and_grads_replay_sharded(params, scene, camera, cfg, key,
     and differentiates its bucketed replay over the whole batch's value
     count; then the loss and every gradient are summed over the ranks.
     Returns ``(loss, grads, tape)``, the tape this rank's."""
-    lo, hi = shard_block(ray_ids.shape[0], mesh)
+    lo, hi = _rank_block(ray_ids.shape[0], mesh)
     ids, tgt = ray_ids[lo:hi], target[lo:hi]
     record = dg.tape_recorder(scene, camera, cfg, ids, ids.device)
     s = dg.merge_params(scene, {k: v.detach() for k, v in params.items()})
@@ -189,7 +189,7 @@ def make_fit_step_replay_sharded(scene, camera, cfg, ray_ids, target,
     ``step(params, key) -> loss``."""
     dev = local_device(device)
     scene, camera = scene.to(dev), camera.to(dev)
-    lo, hi = shard_block(ray_ids.shape[0], mesh)
+    lo, hi = _rank_block(ray_ids.shape[0], mesh)
     ids, tgt = ray_ids[lo:hi].to(dev), target[lo:hi].to(dev)
     count = target.shape[0] * target.shape[1]
     record = dg.tape_recorder(scene, camera, cfg, ids, dev)

@@ -259,3 +259,33 @@ def test_clustered_plain_pixel_ranges_equal_whole_frame(parts):
     rad = torch.cat([p[0] for p in pieces])[:P]
     segs = torch.cat([p[1] for p in pieces])[:P]
     assert torch.equal(rad, whole) and torch.equal(segs, whole_segs)
+
+
+def test_replay_gradient_does_not_depend_on_the_split():
+    """The record->replay gradient of the final scene's first 2^16 rays,
+    as one step and as two halves summed (a two-rank sharded step without
+    the collective), within ``rtol=1e-4, atol=1e-7``.  The replay gathers
+    its payload rows in float64: with the gather's backward summed in
+    float32, the ground sphere's hundred thousand reads moved its albedo
+    gradient by 2e-4 between the two groupings here (3e-4 at 2^17 rays)."""
+    from first_raytracer_tpu_torch.kernels.record_mega import (
+        pack_scene_mega, record_paths_mega)
+
+    scene, cam, cfg = build_preset("random-spheres", device="cpu")
+    rays, key = 1 << 16, rng.base_key(0)
+    tape = record_paths_mega(pack_scene_mega(scene), cam, cfg, key,
+                             num_rays=rays)
+    ids, target = torch.arange(rays), torch.zeros((rays, 3))
+    params, _ = dg.split_params(scene)
+    loss, grads = dg.render_loss_and_grads_bucketed(
+        params, scene, cam, cfg, key, ids, target, tape)
+    h = rays // 2
+    halves = [dg.render_loss_and_grads_bucketed(
+        params, scene, cam, cfg, key, ids[a:a + h], target[a:a + h],
+        tape[:, a:a + h], num_values=rays * 3) for a in (0, h)]
+    np.testing.assert_allclose(float(halves[0][0] + halves[1][0]),
+                               float(loss), rtol=1e-4, atol=1e-7)
+    for k, g in grads.items():
+        np.testing.assert_allclose(
+            (halves[0][1][k] + halves[1][1][k]).numpy(), g.numpy(),
+            rtol=1e-4, atol=1e-7, err_msg=k)
