@@ -39,7 +39,8 @@ __all__ = ["DIFF_FIELDS", "split_params", "merge_params", "ray_radiance",
            "render_loss_and_grads_tape", "render_loss_and_grads_bucketed",
            "value_and_grad",
            "sgd_step", "make_optimizer", "apply_grads", "make_fit_step",
-           "tape_recorder", "make_fit_step_replay"]
+           "tape_recorder", "render_loss_and_grads_recorded",
+           "make_fit_step_replay"]
 
 # Material albedo / fuzz / IOR, sphere centers and radii, the checker's
 # second color and triangle vertices.
@@ -292,27 +293,66 @@ def tape_recorder(scene, camera, cfg, ray_ids, device="cuda"):
     return record
 
 
+def render_loss_and_grads_recorded(params, scene, camera, cfg, key,
+                                   ray_ids, target, record,
+                                   max_groups: int = 4, mesh=None):
+    """The record->replay gradient of the scene under ``params``:
+    ``record`` (from ``tape_recorder``) records the primitive tape and
+    ``render_loss_and_grads_bucketed`` differentiates its bucketed replay.
+    Returns ``(loss, grads, tape)``.
+
+    With a ``mesh`` (``parallel.mesh.RenderMesh``) the rays are split over
+    its ranks: ``ray_ids`` and ``target`` are the whole batch, ``record``
+    records this rank's block of them (``mesh.ray_block``), the block's sum
+    of squares is divided by the whole batch's value count, and the loss
+    and every gradient are summed over the ranks (``mesh.sum_over_ranks``);
+    the tape is this rank's.
+    """
+    num_values = target.shape[0] * target.shape[1]
+    if mesh is not None:
+        lo, hi = mesh.ray_block(ray_ids.shape[0])
+        ray_ids, target = ray_ids[lo:hi], target[lo:hi]
+    s = merge_params(scene, {k: v.detach() for k, v in params.items()})
+    tape = record(s, key)
+    loss, grads = render_loss_and_grads_bucketed(
+        params, scene, camera, cfg, key, ray_ids, target, tape,
+        max_groups=max_groups, num_values=num_values)
+    if mesh is not None:
+        loss, grads = mesh.sum_over_ranks(loss, grads)
+    return loss, grads, tape
+
+
 def make_fit_step_replay(scene, camera, cfg, ray_ids, target, optimizer,
-                         max_groups: int = 4, device="cuda"):
+                         max_groups: int = 4, device="cuda", mesh=None):
     """Inverse-rendering step on the record->replay path.
 
     Per step: repack the current scene for the recorder, record the
     primitive tape (``tape_recorder``: K2b, K3t or the wavefront recorder
     by the scene's size and the ids), plan depth buckets and differentiate
-    only the bucketed replay, then ``optimizer.step()``.  Returns
-    ``step(params, key) -> loss``; as in ``make_fit_step``, ``params`` are
-    updated in place and live on ``device``.
+    only the bucketed replay (``render_loss_and_grads_recorded``), then
+    ``optimizer.step()``.  Returns ``step(params, key) -> loss``; as in
+    ``make_fit_step``, ``params`` are updated in place and live on
+    ``device`` (a bare ``"cuda"`` is this process's GPU,
+    ``parallel.mesh.local_device``).
+
+    With a ``mesh`` the rays are split over its ranks: each step records
+    and replays this rank's block and sums the loss and gradients over the
+    ranks before the optimizer's step, so that every rank keeps identical
+    parameters.
     """
-    dev = torch.device(device)
+    from ..parallel.mesh import local_device
+
+    dev = local_device(device)
     scene, camera = scene.to(dev), camera.to(dev)
     ray_ids, target = ray_ids.to(dev), target.to(dev)
-    record = tape_recorder(scene, camera, cfg, ray_ids, dev)
+    lo, hi = (0, ray_ids.shape[0]) if mesh is None else mesh.ray_block(
+        ray_ids.shape[0])
+    record = tape_recorder(scene, camera, cfg, ray_ids[lo:hi], dev)
 
     def step(params, key):
-        s = merge_params(scene, {k: v.detach() for k, v in params.items()})
-        loss, grads = render_loss_and_grads_bucketed(
-            params, scene, camera, cfg, key, ray_ids, target, record(s, key),
-            max_groups=max_groups)
+        loss, grads, _ = render_loss_and_grads_recorded(
+            params, scene, camera, cfg, key, ray_ids, target, record,
+            max_groups=max_groups, mesh=mesh)
         apply_grads(optimizer, params, grads)
         return loss
 

@@ -263,18 +263,32 @@ def _payload_tables(scene):
     return sph, tri
 
 
-def _extract(table, idx):
-    """Payload rows ``table[idx]``: an exact gather, ``index_add`` backward.
+class _Extract(torch.autograd.Function):
+    """Payload rows ``table[idx]``: an exact gather forward, an
+    ``index_add`` into a float64 buffer backward.
 
-    The gather runs on a float64 copy of the table (the values round-trip
-    exactly), so that its backward sums each row's gradient over the rays
-    in float64 and rounds it once: a row that many rays read (the ground
+    The backward sums each row's gradient over the rays that read it in
+    float64 and rounds it once: a row that many rays read (the ground
     sphere's, a hundred thousand at 2^17 rays) otherwise accumulates
     float32 rounding in proportion to their count, 3e-4 of the final
     scene's largest albedo gradient at 2^17 rays, so that the same rays
     summed in another grouping (the sharded step's ranks) gave another
-    gradient."""
-    return table.double().index_select(0, idx).to(table.dtype)
+    gradient.  The forward gathers in the table's own type."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        acc = grad.new_zeros((ctx.rows, grad.shape[1]), dtype=torch.float64)
+        return acc.index_add_(0, idx, grad.double()).to(grad.dtype), None
+
+
+_extract = _Extract.apply
 
 
 def _resolve_from_tape(scene, sph_t, tri_t, o, dr, rec, t_min):

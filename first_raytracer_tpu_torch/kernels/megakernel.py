@@ -747,15 +747,27 @@ def render_image_mega_sharded(scene, camera, cfg, mesh, seed: int = 0,
     all-gather.  A pixel keeps its samples on one rank: spp sharding is
     the wavefront path's (``parallel/shard.py``).
     """
-    from ..parallel.mesh import TILE_AXIS, local_device
+    from ..parallel.mesh import local_device
 
     device = local_device(device)
-    pack = pack_scene_mega(scene, device)
+    return _sharded_image(render_pixels_mega,
+                          pack_scene_mega(scene, device), camera.to(device),
+                          cfg, mesh, seed)
+
+
+def _sharded_image(render_pixels, pack, camera, cfg, mesh, seed: int):
+    """The image of a megakernel's ``render_pixels`` (``render_pixels_mega``
+    or ``render_pixels_mega_clustered``) on ``pack``, split over the mesh's
+    tile axis: this rank renders a contiguous range of ceil(P / tiles)
+    pixels (the last range may run past the image; those pixels are not
+    traced), the ranges are all-gathered and divided by spp.  (ny, nx, 3),
+    top row first, on every rank."""
+    from ..parallel.mesh import TILE_AXIS
+
     total = cfg.num_pixels
     per = -(-total // mesh.tiles)
-    rad, _ = render_pixels_mega(pack, camera.to(device), cfg,
-                                rng.base_key(seed),
-                                pix0=mesh.tile_index * per, num_pixels=per)
+    rad, _ = render_pixels(pack, camera, cfg, rng.base_key(seed),
+                           pix0=mesh.tile_index * per, num_pixels=per)
     rad = mesh.axis(TILE_AXIS).all_gather(rad)[:total]
     img = (rad / cfg.spp).reshape(cfg.ny, cfg.nx, 3)
     return img.flip(0)

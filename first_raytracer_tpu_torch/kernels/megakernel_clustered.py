@@ -34,7 +34,8 @@ from ..core import rng
 from ..geometry.aabb import sphere_aabb_np
 from .intersect_clustered import _SUPER_FANOUT, _cluster_type, _span_boxes
 from .megakernel import (BIG, TRI_ROWS, _check, _extent, _merge_surface,
-                         _sweep, camera_table, render_reference)
+                         _sharded_image, _sweep, camera_table,
+                         render_reference)
 
 __all__ = ["MegaClusteredPack", "ClusterLayout", "pack_scene_mega_clustered",
            "render_pixels_mega_clustered",
@@ -541,15 +542,10 @@ def render_image_mega_clustered_sharded(scene, camera, cfg, mesh,
     bit-identical to ``render_image_mega_clustered``'s.  Cluster tables
     and camera are replicated; the only collective is the all-gather.
     """
-    from ..parallel.mesh import TILE_AXIS, local_device
+    from ..parallel.mesh import local_device
 
     device = local_device(device)
-    pack = pack_scene_mega_clustered(scene, camera, device=device)
-    total = cfg.num_pixels
-    per = -(-total // mesh.tiles)
-    rad, _ = render_pixels_mega_clustered(
-        pack, camera.to(device), cfg, rng.base_key(seed),
-        pix0=mesh.tile_index * per, num_pixels=per)
-    rad = mesh.axis(TILE_AXIS).all_gather(rad)[:total]
-    img = (rad / cfg.spp).reshape(cfg.ny, cfg.nx, 3)
-    return img.flip(0)
+    return _sharded_image(render_pixels_mega_clustered,
+                          pack_scene_mega_clustered(scene, camera,
+                                                    device=device),
+                          camera.to(device), cfg, mesh, seed)

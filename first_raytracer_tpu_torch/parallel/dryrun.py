@@ -132,7 +132,7 @@ def counts():
             "K2b": rm.record_paths_mega.launches}
 
 
-def run(size, device, timed):
+def run(size, device):
     """The six steps on a mesh of every rank; returns this rank's results
     (a dict of arrays and JSON strings)."""
     world = make_render_mesh()
@@ -176,13 +176,11 @@ def run(size, device, timed):
     scene, cam, cfg = build("mega", size, device)
     out["mega"] = step("mega", lambda: mk.render_image_mega_sharded(
         scene, cam, cfg, world, device=device)).cpu().numpy()
-    per = -(-cfg.num_pixels // n)
-    if timed:
-        out["mega_s"] = np.array(_seconds(
-            lambda: mk.render_image_mega_sharded(scene, cam, cfg, world,
-                                                 device=device), device))
-        out["mega_gather_s"] = np.array(_gather_seconds(
-            world.axis(TILE_AXIS), (per, 3), device))
+    out["mega_s"] = np.array(_seconds(
+        lambda: mk.render_image_mega_sharded(scene, cam, cfg, world,
+                                             device=device), device))
+    out["mega_gather_s"] = np.array(_gather_seconds(
+        world.axis(TILE_AXIS), (-(-cfg.num_pixels // n), 3), device))
 
     # 4. The ring-sharded scene, and the global ids of the closest hits of
     # this rank's block of camera rays (the selection).
@@ -219,12 +217,11 @@ def run(size, device, timed):
     out["clustered"] = step("clustered", lambda: (
         mc.render_image_mega_clustered_sharded(scene, cam, cfg, world,
                                                device=device))).cpu().numpy()
-    if timed:
-        out["clustered_s"] = np.array(_seconds(
-            lambda: mc.render_image_mega_clustered_sharded(
-                scene, cam, cfg, world, device=device), device))
-        out["clustered_gather_s"] = np.array(_gather_seconds(
-            world.axis(TILE_AXIS), (-(-cfg.num_pixels // n), 3), device))
+    out["clustered_s"] = np.array(_seconds(
+        lambda: mc.render_image_mega_clustered_sharded(
+            scene, cam, cfg, world, device=device), device))
+    out["clustered_gather_s"] = np.array(_gather_seconds(
+        world.axis(TILE_AXIS), (-(-cfg.num_pixels // n), 3), device))
 
     transports = sorted(set().union(
         *(m.world.transports | m.tiles_axis.transports | m.spp_axis.transports
@@ -243,14 +240,12 @@ def main(argv=None):
     p.add_argument("--size", default="small", choices=sorted(SIZES))
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs on the host)")
-    p.add_argument("--timed", action="store_true",
-                   help="time the megakernel frames and their all-gather")
     args = p.parse_args(argv)
     # NCCL when each process has a GPU of its own, else gloo.
     initialize_distributed(None, int(os.environ.get("WORLD_SIZE", "1")),
                            int(os.environ.get("RANK", "0")))
     device = local_device(args.device)
-    out = run(args.size, device, args.timed)
+    out = run(args.size, device)
     os.makedirs(args.out, exist_ok=True)
     rank = json.loads(str(out["info"]))["rank"]
     np.savez(os.path.join(args.out, f"rank{rank}.npz"), **out)

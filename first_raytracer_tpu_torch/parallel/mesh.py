@@ -151,6 +151,23 @@ class RenderMesh:
     def axis(self, name: str) -> MeshAxis:
         return {TILE_AXIS: self.tiles_axis, SPP_AXIS: self.spp_axis}[name]
 
+    def ray_block(self, n: int):
+        """This rank's contiguous block ``(lo, hi)`` of ``n`` rays split
+        over all the mesh's ranks; ``ValueError`` unless they divide."""
+        if n % self.size:
+            raise ValueError(f"{n} rays not divisible by {self.size} ranks")
+        per = n // self.size
+        return self.rank * per, (self.rank + 1) * per
+
+    def sum_over_ranks(self, loss, grads):
+        """The loss and every gradient (a dict) summed over all the mesh's
+        ranks: one all-reduce of them laid end to end."""
+        flat = self.world.all_reduce(torch.cat(
+            [loss.reshape(1)] + [g.reshape(-1) for g in grads.values()]))
+        parts = flat[1:].split([g.numel() for g in grads.values()])
+        return flat[0], {k: p.reshape(g.shape)
+                         for (k, g), p in zip(grads.items(), parts)}
+
     def tiles_only(self) -> "RenderMesh":
         """The same ranks laid out as (size, 1): every rank a pixel
         block."""

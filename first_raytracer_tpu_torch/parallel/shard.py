@@ -17,7 +17,7 @@ of the replicated parameters' broadcast is a ``psum``.  torch's autograd
 sees only this rank's rays, so the sharded gradient functions here divide
 each rank's sum of squares by the whole batch's value count and sum the
 loss and every gradient over all ranks explicitly (``MeshAxis.all_reduce``
-on the mesh's ``world`` axis).
+on the mesh's ``world`` axis, ``RenderMesh.sum_over_ranks``).
 """
 from __future__ import annotations
 
@@ -34,8 +34,7 @@ from .mesh import SPP_AXIS, TILE_AXIS, local_device
 
 __all__ = ["ray_id_grid", "render_image_sharded", "render_image_distributed",
            "render_image_auto", "render_loss_and_grads_sharded",
-           "render_loss_and_grads_replay_sharded",
-           "make_fit_step_replay_sharded"]
+           "render_loss_and_grads_replay_sharded"]
 
 
 def ray_id_grid(cfg: RenderConfig, device="cpu"):
@@ -117,25 +116,6 @@ def render_image_auto(scene, camera, cfg: RenderConfig, mesh, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def _rank_block(n: int, mesh):
-    """This rank's contiguous block ``[lo, hi)`` of ``n`` rays split over
-    all the mesh's ranks; ``ValueError`` unless they divide."""
-    if n % mesh.size:
-        raise ValueError(f"{n} rays not divisible by {mesh.size} ranks")
-    per = n // mesh.size
-    return mesh.rank * per, (mesh.rank + 1) * per
-
-
-def _sum_over_ranks(mesh, loss, grads):
-    """The loss and every gradient summed over all ranks: one all-reduce
-    of them laid end to end."""
-    flat = mesh.world.all_reduce(torch.cat(
-        [loss.reshape(1)] + [g.reshape(-1) for g in grads.values()]))
-    parts = flat[1:].split([g.numel() for g in grads.values()])
-    return flat[0], {k: p.reshape(g.shape)
-                     for (k, g), p in zip(grads.items(), parts)}
-
-
 def render_loss_and_grads_sharded(params, scene, camera, cfg, key, ray_ids,
                                   target, mesh, accel=None,
                                   intersect_fn: Optional[Callable] = None,
@@ -146,7 +126,7 @@ def render_loss_and_grads_sharded(params, scene, camera, cfg, key, ray_ids,
     every gradient are summed over the ranks, so that every rank holds the
     single-process loss and gradients (up to f32 summation order).  The
     tensors stay on their device."""
-    lo, hi = _rank_block(ray_ids.shape[0], mesh)
+    lo, hi = mesh.ray_block(ray_ids.shape[0])
     ids, tgt = ray_ids[lo:hi], target[lo:hi]
     count = target.shape[0] * target.shape[1]
 
@@ -155,52 +135,24 @@ def render_loss_and_grads_sharded(params, scene, camera, cfg, key, ray_ids,
                               intersect_fn, method=method)
         return torch.sum((rad - tgt) ** 2) / count
 
-    return _sum_over_ranks(mesh, *dg.value_and_grad(loss_fn, params))
+    return mesh.sum_over_ranks(*dg.value_and_grad(loss_fn, params))
 
 
 def render_loss_and_grads_replay_sharded(params, scene, camera, cfg, key,
                                          ray_ids, target, mesh,
                                          max_groups: int = 4):
     """The record->replay gradient with the rays split over all the mesh's
-    ranks: each rank records its block of ``ray_ids`` (K2b on the dense
-    pack for contiguous ids of a scene of up to 1024 spheres and 1024
-    triangles, as ``diff.grad.tape_recorder`` chooses), plans its buckets
-    and differentiates its bucketed replay over the whole batch's value
-    count; then the loss and every gradient are summed over the ranks.
-    Returns ``(loss, grads, tape)``, the tape this rank's."""
-    lo, hi = _rank_block(ray_ids.shape[0], mesh)
-    ids, tgt = ray_ids[lo:hi], target[lo:hi]
-    record = dg.tape_recorder(scene, camera, cfg, ids, ids.device)
-    s = dg.merge_params(scene, {k: v.detach() for k, v in params.items()})
-    tape = record(s, key)
-    loss, grads = dg.render_loss_and_grads_bucketed(
-        params, scene, camera, cfg, key, ids, tgt, tape,
-        max_groups=max_groups, num_values=target.shape[0] * target.shape[1])
-    return (*_sum_over_ranks(mesh, loss, grads), tape)
-
-
-def make_fit_step_replay_sharded(scene, camera, cfg, ray_ids, target,
-                                 optimizer, mesh, max_groups: int = 4,
-                                 device="cuda"):
-    """``diff.grad.make_fit_step_replay`` with the rays split over all the
-    mesh's ranks: each step records and replays this rank's block, sums
-    the loss and gradients over the ranks, then takes the optimizer's
-    step, so that every rank keeps identical parameters.  Returns
-    ``step(params, key) -> loss``."""
-    dev = local_device(device)
-    scene, camera = scene.to(dev), camera.to(dev)
-    lo, hi = _rank_block(ray_ids.shape[0], mesh)
-    ids, tgt = ray_ids[lo:hi].to(dev), target[lo:hi].to(dev)
-    count = target.shape[0] * target.shape[1]
-    record = dg.tape_recorder(scene, camera, cfg, ids, dev)
-
-    def step(params, key):
-        s = dg.merge_params(scene, {k: v.detach() for k, v in params.items()})
-        loss, grads = dg.render_loss_and_grads_bucketed(
-            params, scene, camera, cfg, key, ids, tgt, record(s, key),
-            max_groups=max_groups, num_values=count)
-        loss, grads = _sum_over_ranks(mesh, loss, grads)
-        dg.apply_grads(optimizer, params, grads)
-        return loss
-
-    return step
+    ranks (``diff.grad.render_loss_and_grads_recorded`` on a mesh): each
+    rank records its block of ``ray_ids`` (K2b on the dense pack for
+    contiguous ids of a scene of up to 1024 spheres and 1024 triangles, as
+    ``diff.grad.tape_recorder`` chooses), plans its buckets and
+    differentiates its bucketed replay over the whole batch's value count;
+    then the loss and every gradient are summed over the ranks.  Returns
+    ``(loss, grads, tape)``, the tape this rank's.  ``make_fit_step_replay``
+    with a ``mesh`` takes the optimizer's step after it."""
+    lo, hi = mesh.ray_block(ray_ids.shape[0])
+    record = dg.tape_recorder(scene, camera, cfg, ray_ids[lo:hi],
+                              ray_ids.device)
+    return dg.render_loss_and_grads_recorded(
+        params, scene, camera, cfg, key, ray_ids, target, record,
+        max_groups=max_groups, mesh=mesh)

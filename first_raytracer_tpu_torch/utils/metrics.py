@@ -38,19 +38,19 @@ _WARP = 32
 
 
 @torch.no_grad()
-def _alive_counts(scene, camera, cfg, key, ray_ids, accel):
-    """(max_depth + 1,) rays alive at each bounce: the integrator's bounce
-    loop, keeping only the count (a pass of its own, so that the render
-    path carries no counter)."""
+def _path_lengths(scene, camera, cfg, key, ray_ids, accel):
+    """(R,) int64 segments each ray traced: the integrator's bounce loop,
+    keeping only each ray's count of bounces it entered alive (a pass of
+    its own, so that the render path carries no counter)."""
     o, d = generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ray_ids,
                          rng.camera_uniforms(key, ray_ids))
     alive = torch.ones((o.shape[0],), dtype=torch.bool, device=o.device)
+    length = torch.zeros((o.shape[0],), dtype=torch.int64, device=o.device)
     up = torch.tensor([0.0, 0.0, 1.0], device=o.device)
-    counts = np.zeros(cfg.max_depth + 1, np.int64)
     for depth in range(cfg.max_depth + 1):
-        counts[depth] = int(alive.sum())
-        if counts[depth] == 0:
+        if not bool(alive.any()):
             break
+        length += alive
         prim, _, hit = default_intersect(scene, accel, o, d, cfg.t_min)
         t, p, n, mat = recompute_hit(scene, o, d, prim, cfg.t_min)
         hit = hit & (t < BIG)
@@ -61,7 +61,7 @@ def _alive_counts(scene, camera, cfg, key, ray_ids, accel):
         alive = alive & hit & ok & (depth < cfg.max_depth)
         o = torch.where(alive[:, None], p, o)
         d = torch.where(alive[:, None], new_dir, d)
-    return counts
+    return length
 
 
 def wavefront_occupancy(scene, camera, cfg: RenderConfig, seed: int = 0,
@@ -78,9 +78,12 @@ def wavefront_occupancy(scene, camera, cfg: RenderConfig, seed: int = 0,
         accel = accel.to(device)
     ids = torch.arange(min(num_rays, cfg.num_rays), dtype=torch.int64,
                        device=device)
-    counts = _alive_counts(scene, camera, cfg, rng.base_key(seed), ids,
-                           accel)
+    lengths = _path_lengths(scene, camera, cfg, rng.base_key(seed), ids,
+                            accel).cpu().numpy()
+    # Rays alive at each bounce: those whose paths are longer.
+    ended = np.bincount(lengths, minlength=cfg.max_depth + 2)
     total = int(ids.shape[0])
+    counts = total - np.cumsum(ended)[:cfg.max_depth + 1]
     terminated = -np.diff(np.append(counts, 0))
     return {
         "rays": total,

@@ -8,7 +8,8 @@ on three-spheres and triangle-mesh (JAX's own test's bound and scene: the
 same RNG stream traces the same segments; on random-spheres' 256 rays one
 path that the megakernels' expanded sphere quadratic and the wavefront's
 oc-form part on moves the mean by 0.008), and their lane occupancy in
-(0, 1].  The megakernels' lane occupancy is
+(0, 1].  One test shows the megakernels' re-hit fault on a ray of the
+final scene, tape for tape against JAX's recorders.  The megakernels' lane occupancy is
 the port's warp lane efficiency, not JAX's TPU lane count, so it is not
 compared with JAX's.
 """
@@ -97,3 +98,55 @@ def test_log_metrics_emits_json(caplog):
         log_metrics("tag", {"a": 1})
     assert any("tag" in r.getMessage() and '"a": 1' in r.getMessage()
                for r in caplog.records)
+
+
+def test_megakernel_rehit_traps_a_path_the_jax_recorder_ends():
+    """A fault of the port's megakernels (ROADMAP Queue 3, item 1) on one
+    ray of the final scene at full size.  Ray 6,037,462 enters and leaves
+    glass sphere 102 (7.2 from the origin); K2b's plain version, like K2b
+    on the card, then re-hits that sphere at every bounce up to the depth
+    cap, through its expanded sphere quadratic rounded op by op, while the
+    port's and JAX's wavefront recorders and JAX's K2b (interpret mode,
+    whose compiled quadratic rounds otherwise) end the path after its two
+    hits.  Over the whole frame such traps lengthen the megakernels' mean
+    path by 1.6e-3 against the wavefront's (``probes/path_length.py``)."""
+    import jax.numpy as jnp
+    import torch
+
+    from first_raytracer_tpu.core import rng as jrng
+    from first_raytracer_tpu.diff.replay import record_paths as jax_record
+    from first_raytracer_tpu.kernels.megakernel import (
+        pack_scene_mega as jax_pack)
+    from first_raytracer_tpu.kernels.record_mega import (
+        record_paths_mega as jax_k2b)
+    from first_raytracer_tpu.render.camera import (
+        generate_rays as jax_rays)
+    from first_raytracer_tpu_torch.core import rng
+    from first_raytracer_tpu_torch.diff.replay import record_paths
+    from first_raytracer_tpu_torch.kernels.megakernel import pack_scene_mega
+    from first_raytracer_tpu_torch.kernels.record_mega import (
+        record_paths_mega)
+    from first_raytracer_tpu_torch.render.camera import generate_rays
+
+    ray = 6037462
+    scene, cam, cfg = build_preset("random-spheres", device="cpu")
+    key = rng.base_key(0)
+    ids = torch.tensor([ray])
+    o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                         rng.camera_uniforms(key, ids))
+    wave = record_paths(scene, o, d, ids, key, cfg).numpy()[:, 0]
+    k2b = record_paths_mega(pack_scene_mega(scene), cam, cfg, key,
+                            ray0=ray, num_rays=1).numpy()[:, 0]
+    js, jc, jcfg = jb.build_preset("random-spheres")
+    jkey, jids = jrng.base_key(0), jnp.array([ray])
+    jo, jd = jax_rays(jc, jcfg.nx, jcfg.ny, jcfg.spp, jids,
+                      jrng.camera_uniforms(jkey, jids))
+    jax_wave = np.asarray(jax_record(js, jo, jd, jids, jkey, jcfg))[:, 0]
+    jax_mega = np.asarray(jax_k2b(jax_pack(js), jc, jcfg, jkey, ray0=ray,
+                                  num_rays=1, interpret=True))[:, 0]
+    ended = np.full(cfg.max_depth + 1, -1)
+    ended[:2] = 102
+    np.testing.assert_array_equal(wave, ended)
+    np.testing.assert_array_equal(jax_wave, ended)
+    np.testing.assert_array_equal(jax_mega, ended)
+    np.testing.assert_array_equal(k2b, np.full(cfg.max_depth + 1, 102))

@@ -183,9 +183,9 @@ def test_sharded_replay_grads_match_single_process(ranks):
 
 
 def test_sharded_fit_step_keeps_ranks_equal(ranks):
-    """Two SGD steps of ``make_fit_step_replay_sharded`` leave identical
+    """Two SGD steps of ``make_fit_step_replay`` on a mesh leave identical
     parameters on every rank, equal to the single-process
-    ``make_fit_step_replay``'s within the gradient bound."""
+    step's (no mesh) within the gradient bound."""
     scene, cam, cfg = _three(nx=16, ny=8, spp=2)
     params, _ = dg.split_params(scene, fields=("albedo",))
     step = dg.make_fit_step_replay(
@@ -264,10 +264,10 @@ def test_clustered_plain_pixel_ranges_equal_whole_frame(parts):
 def test_replay_gradient_does_not_depend_on_the_split():
     """The record->replay gradient of the final scene's first 2^16 rays,
     as one step and as two halves summed (a two-rank sharded step without
-    the collective), within ``rtol=1e-4, atol=1e-7``.  The replay gathers
-    its payload rows in float64: with the gather's backward summed in
-    float32, the ground sphere's hundred thousand reads moved its albedo
-    gradient by 2e-4 between the two groupings here (3e-4 at 2^17 rays)."""
+    the collective), within ``rtol=1e-4, atol=1e-7``.  The replay's gather
+    of payload rows sums its backward in float64: summed in float32, the
+    ground sphere's hundred thousand reads moved its albedo gradient by
+    2e-4 between the two groupings here (3e-4 at 2^17 rays)."""
     from first_raytracer_tpu_torch.kernels.record_mega import (
         pack_scene_mega, record_paths_mega)
 

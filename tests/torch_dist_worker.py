@@ -128,9 +128,10 @@ def sharding_suite():
     out["replay_loss"] = loss.numpy()
     out.update({f"replay_{k}": g.numpy() for k, g in grads.items()})
     params, _ = dg.split_params(scene, fields=("albedo",))
-    step = shard.make_fit_step_replay_sharded(
+    step = dg.make_fit_step_replay(
         scene, cam, small, ids, target,
-        torch.optim.SGD(params.values(), lr=0.1), meshes[4, 1], device="cpu")
+        torch.optim.SGD(params.values(), lr=0.1), device="cpu",
+        mesh=meshes[4, 1])
     out["fit_loss"] = np.array([float(step(params, key)) for _ in range(2)])
     out["fit_albedo"] = params["albedo"].detach().numpy()
 
