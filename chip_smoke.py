@@ -69,7 +69,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
 9. The large-scene render path: ``render_image_mega_clustered`` on
    field20000, field5000 and trifield20000 at 800x450 @ 4, seed 0, launch
    counter reset before and read after (one K3 launch per frame), each
-   radiance sum within 1% of its ``bench_golden.json`` golden; seconds per
+   radiance sum within 1% of the C++ oracle's golden of the same frame
+   (``first_raytracer_tpu_torch/data/field_goldens_oracle.json``), logged
+   beside ``bench_golden.json``'s TPU golden with its offset; seconds per
    frame (median of 3 after a warm run), Mpaths/s, Mrays/s, the host pack's
    seconds, K3's CUDA-event ms, the clusters its lanes opened per segment
    and the clusters each warp swept per step (its union: each opened
@@ -83,12 +85,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    on the small presets of phase 8 (agreement above 0.999, 0.99 on
    triangle scenes); on ray ids [0, 2^17) of field5000 against K2b's tape
    (above 0.999, rays that differ counted) and its plain version, and on
-   field20000 against its plain version (above 0.999); on both against the
-   plain wavefront ``record_paths``, no more than 1e-4 below its plain
-   version's agreement with it: the expanded sphere quadratic that the
-   megakernels share with the JAX kernels re-hits its own sphere in the far
-   field, so no megakernel tape reaches 0.999 there
-   (``wavefront_agreement``).  One
+   field20000 against its plain version (above 0.999); K3t on both, and
+   K2b on field5000, against the plain wavefront ``record_paths`` run in
+   float64 at 0.999 or above, the agreement with the same recorder in
+   float32 logged beside it (``wavefront_agreement``).  One
    ``make_fit_step_replay`` step on field5000 at 2^17 rays, every
    DIFF_FIELDS leaf, zero target, counters reset before and read after: it
    launches K3t, its loss and gradients are finite, its loss is within
@@ -129,10 +129,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    with ``accel=pack_scene_clustered(scene)``, wavefront in chunks of 2^17,
    counters reset before and read after.  The same frame through K4 gives
    the image bound (pixels that differ at all are counted) and segment
-   totals within 0.1% (per pixel on trifield20000).  The radiance sum is
-   logged beside the megacluster golden, not gated: the wavefront's
-   oc-form quadratic and the megakernels' expanded one part far from the
-   origin.  At 2^17 camera rays, K5 and K4 each equal their plain versions
+   totals within 0.1% (per pixel on trifield20000).  Each radiance sum
+   within 1% of the oracle's golden, as in phase 9.  At 2^17 camera rays, K5 and K4 each equal their plain versions
    (hits, primitives and t) and each other: K4's tiled path at full width.
    Times: seconds per frame, Mpaths/s, Mrays/s, the host pack's seconds,
    K5's launches, ms (as K4's) and bound from its per-ray counters.
@@ -175,17 +173,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
    schedule) and its ``mean_path_len`` phase 4's segments over rays; on
    three-spheres 24x12 @ 2 (the JAX package's own case) both megakernels'
    ``mean_path_len`` within 1e-3 of the wavefront's ``avg_path_length``
-   over the same rays.  On the final scene the same comparison is logged,
-   not held: at 64x32 @ 8 (2^14 rays) and over the whole full-size frame
-   (phase 4's segments against ``wavefront_occupancy`` on K4 over the same
-   rays, with each side's paths at the depth cap), where the port's
-   megakernels miss the 1e-3 bound by trapping paths through their
-   expanded sphere quadratic's re-hits (ROADMAP Queue 3 item 1).
+   over the same rays; over the final scene's whole full-size frame, phase
+   4's segments against ``wavefront_occupancy`` on K4 over the same rays,
+   the mean path length within 1e-3 (each side's paths at the depth cap
+   logged).  The same comparison at 64x32 @ 8 (2^14 rays) is logged.
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements (``sharded_launches``: the launches of phases 14 and 15) and
 the result line ``{"ok": true, "device": {...}}``.  This
-script imports no JAX.  Bounds count FP32 operations from the sources: 16
+script imports no JAX.  Bounds count FP32 operations from the sources: 20
 per (segment, sphere) and 46 per (segment, triangle) for the dense sweep;
 for K3 and K3t the slots and boxes their sweep counters say they tested, 29
 operations per box test (``gate`` in kernels/csrc/megakernel_clustered.cu).
@@ -251,10 +247,11 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # FP32 operations per (segment, sphere) and per (segment, triangle) that
 # every sweep step does, counted from kernels/csrc/mega_common.cuh
-# (closest_hit): 5 + 5 + 1 + 3 + 2 for a sphere; 9 + 5 + 1 + 3 + 6 + 9 +
-# 6 + 6 + 1 for a triangle.  Roots, shading and Threefry are left out, so
-# the bound is a lower one.
-SPHERE_OPS, TRIANGLE_OPS = 16, 46
+# (sphere_group's float prefilter: 3 + 5 + 5 + 1 + 1 + 2 + 1 + 1 + 1 for a
+# sphere; triangle_hit: 9 + 5 + 1 + 3 + 6 + 9 + 6 + 6 + 1 for a triangle).
+# The float64 root of the spheres past the prefilter, shading and Threefry
+# are left out, so the bound is a lower one.
+SPHERE_OPS, TRIANGLE_OPS = 20, 46
 # FP32 operations of one slab test of a box (ClusterScene::gate in
 # kernels/csrc/megakernel_clustered.cu): 6 subtractions and 6
 # multiplications, 10 minima and maxima, 4 for the widening, 3 for the test.
@@ -282,10 +279,16 @@ CLUSTER_CASES = [
     ("triangle-field", dict(n=2000, nx=64, ny=32, spp=2)),
 ]
 # (ray, column) pairs per chunk of the plain K3 over a whole field frame:
-# 1 GiB per dense temporary, so that its launches are few and its memory
-# stays a fraction of the card's.
+# 1 GiB per float32 temporary (2 per float64 one), so that its launches are
+# few and its memory stays a fraction of the card's.
 PLAIN_PAIRS = 1 << 28
-# Phase 9: the goldens of bench.py's BENCH_MODE=megacluster runs.
+# Phases 9 and 13: the field frames, held within 1% (bench.py's bound) of
+# the C++ oracle's radiance sums (python -m
+# first_raytracer_tpu_torch.oracle.native_oracle --write-goldens), each
+# logged beside the TPU golden of bench.py's BENCH_MODE=megacluster run of
+# the same frame, which carries the expanded sphere quadratic's re-hits.
+ORACLE_GOLDENS = os.path.join(ROOT, "first_raytracer_tpu_torch", "data",
+                              "field_goldens_oracle.json")
 FIELD_SCENES = [
     ("field20000", "sphere-field", 20000,
      "radiance_sum_megacluster_field20000_800x450_4spp"),
@@ -417,6 +420,23 @@ def bound(pack, segments, out_bytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def field_golden(what, label, tpu_key, total):
+    """Holds a field frame's radiance sum within 1% of the oracle's golden
+    and logs its offset from the TPU golden beside it."""
+    with open(ORACLE_GOLDENS) as f:
+        oracle = json.load(f)["goldens"][label]["radiance_sum"]
+    with open(os.path.join(ROOT, "bench_golden.json")) as f:
+        tpu = json.load(f)[tpu_key]
+    rel = (total - oracle) / oracle
+    log(f"{what}: radiance sum {total:.3f}, oracle golden {oracle:.3f} (rel "
+        f"{rel:+.3e}, bound 1e-2); TPU golden {tpu} (rel "
+        f"{(total - tpu) / tpu:+.3e}, logged; the oracle's is "
+        f"{(oracle - tpu) / tpu:+.3e} from it)")
+    if not abs(rel) < 1e-2:
+        raise AssertionError(f"{what}: radiance sum off the oracle's golden "
+                             f"by {rel}")
+
+
 def rel_err(g, w):
     """|g - w| / |w| in float64, or None where ``w`` is zero; and |g|."""
     g, w = g.double().flatten().cpu(), w.double().flatten().cpu()
@@ -468,59 +488,63 @@ def clustered_bound(pack, sweeps, out_bytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def wavefront_tape(scene, cam, cfg, key, ray0, num_rays, chunk=1 << 13):
+def wavefront_tape(scene, cam, cfg, key, ray0, num_rays, chunk=1 << 13,
+                   f64=False):
     """The plain wavefront ``record_paths`` over a ray range, in chunks, so
-    that its dense (rays, primitives) temporaries stay bounded."""
+    that its dense (rays, primitives) temporaries stay bounded; with
+    ``f64`` on the scene and the camera rays in float64."""
+    sc = to_f64(scene) if f64 else scene
     parts = []
     for lo in range(ray0, ray0 + num_rays, chunk):
         ids = torch.arange(lo, min(lo + chunk, ray0 + num_rays),
                            device=scene.device)
         o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
                              rng.camera_uniforms(key, ids))
-        parts.append(record_paths(scene, o, d, ids, key, cfg))
+        if f64:
+            o, d = o.double(), d.double()
+        parts.append(record_paths(sc, o, d, ids, key, cfg))
     return torch.cat(parts, dim=1)
 
 
-def wavefront_agreement(what, got, plain, want, scene):
-    """A megakernel recorder's tape (``got``) and its plain version's
-    (``plain``) against the plain wavefront ``record_paths`` (``want``) on a
-    far field.
-
-    The megakernels' expanded sphere quadratic (b = o.d - d.C, c = |o|^2 -
-    2 o.C + c0, the JAX kernels' form) loses c's absolute precision with
-    |o|^2, so a bounce ray leaving a sphere 30-90 units from the origin may
-    re-hit that sphere at t just past t_min, where the wavefront's oc-form
-    rarely does: the tapes part on a tenth of the rays and per-entry
-    agreement falls below 0.999.  The kernel is held to its own formula:
-    its agreement with the wavefront may fall short of its plain version's
-    by at most 1e-4.  The log counts the rays whose first difference is
-    such a re-hit (the same non-dielectric sphere twice in a row, which a
-    convex surface cannot give).  Returns the kernel's agreement.
-    """
-    diff = got != want
-    differs = diff.any(dim=0)
-    d = diff.int().argmax(dim=0)
+def wavefront_agreement(what, got, want, want32, scene):
+    """A megakernel recorder's tape (``got``) on a far field against the
+    plain wavefront ``record_paths`` run in float64 (``want``): per-entry
+    agreement of 0.999 or above (tests/test_record_mega.py's floor).
+    Beside it, logged, the agreement with the same recorder in float32
+    (``want32``), whose float32 discriminant puts far hit points up to
+    ~1e-3 off the surface, so that its bounce rays re-hit their own
+    sphere; the log counts the rays whose first difference is such a
+    re-hit (the same non-dielectric sphere twice in a row, which a convex
+    surface cannot give) in each tape.  Returns the agreement."""
     refracts = torch.zeros(scene.num_primitives, dtype=torch.bool,
                            device=got.device)
     refracts[:scene.num_spheres] = scene.mat_type[scene.sphere_mat.long()] \
         == 2
 
-    def rehit(tape):
-        prev = tape.gather(0, (d - 1).clamp(min=0)[None])[0]
-        cur = tape.gather(0, d[None])[0]
-        return (differs & (d >= 1) & (cur == prev) & (cur >= 0)
-                & ~refracts[cur.clamp(min=0).long()])
+    def rehits(a, b):
+        diff = a != b
+        differs = diff.any(dim=0)
+        d = diff.int().argmax(dim=0)
 
-    agree = float((~diff).float().mean())
-    agree_plain = float((plain == want).float().mean())
-    log(f"  {what}: tape agreement {agree:.6f} (plain version "
-        f"{agree_plain:.6f}, floor its own - 1e-4), {int(differs.sum())} of "
-        f"{got.shape[1]} rays differ, {int(rehit(got).sum())} first by a "
-        f"re-hit of the same sphere in the kernel's tape and "
-        f"{int(rehit(want).sum())} in the wavefront's")
-    if not agree >= agree_plain - 1e-4:
-        raise AssertionError(f"{what}: agreement {agree} below the plain "
-                             f"version's {agree_plain}")
+        def count(tape):
+            prev = tape.gather(0, (d - 1).clamp(min=0)[None])[0]
+            cur = tape.gather(0, d[None])[0]
+            return int((differs & (d >= 1) & (cur == prev) & (cur >= 0)
+                        & ~refracts[cur.clamp(min=0).long()]).sum())
+
+        return (float((~diff).float().mean()), int(differs.sum()), count(a),
+                count(b))
+
+    agree, rays, mine, theirs = rehits(got, want)
+    agree32, rays32, mine32, theirs32 = rehits(got, want32)
+    log(f"  {what}: tape agreement {agree:.6f} with the float64 wavefront "
+        f"(floor 0.999), {rays} of {got.shape[1]} rays differ ({mine} first "
+        f"by a re-hit of the same sphere in the kernel's tape, {theirs} in "
+        f"the wavefront's); {agree32:.6f} with the float32 wavefront "
+        f"(logged), {rays32} rays differ ({mine32} and {theirs32} by a "
+        f"re-hit)")
+    if not agree >= 0.999:
+        raise AssertionError(f"{what}: agreement {agree} below 0.999")
     return agree
 
 
@@ -1055,8 +1079,6 @@ def clustered_vs_plain(dev, key, card):
 def large_scene_path(dev, key, card):
     """Phase 9.  Returns K3's launches, per scene its times, bound and error
     against the plain version, and the field scenes for phase 10."""
-    with open(os.path.join(ROOT, "bench_golden.json")) as f:
-        goldens = json.load(f)
     out, scenes = {}, {}
     launches = 0
     for label, preset, n, gkey in FIELD_SCENES:
@@ -1074,13 +1096,9 @@ def large_scene_path(dev, key, card):
         if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or \
                 not bool(torch.isfinite(img).all()):
             raise AssertionError(f"{label}: bad image")
-        total = float(img.double().sum()) * cfg.spp
-        rel = abs(total - goldens[gkey]) / goldens[gkey]
-        log(f"{label} {cfg.nx}x{cfg.ny}@{cfg.spp} depth {cfg.max_depth}: "
-            f"radiance sum {total:.3f} vs golden {goldens[gkey]} (rel "
-            f"{rel:.2e}), K3 launches {frame_launches}")
-        if not rel < 1e-2:
-            raise AssertionError(f"{label}: radiance sum off golden by {rel}")
+        field_golden(f"{label} {cfg.nx}x{cfg.ny}@{cfg.spp} depth "
+                     f"{cfg.max_depth}, K3 launches {frame_launches}", label,
+                     gkey, float(img.double().sum()) * cfg.spp)
         os.makedirs(os.path.join(ROOT, "out"), exist_ok=True)
         write_png(os.path.join(ROOT, "out", f"{label}_torch.png"), img)
         seconds = []
@@ -1168,10 +1186,14 @@ def clustered_tapes_and_step(dev, key, card, scenes):
     trips_err = int((its3 - ref_its3).abs().max())
     agree_plain = tape_agreement("  K3t vs its plain version", tape3, ref3,
                                  0.999)
-    wavefront_agreement("  K3t vs the plain wavefront record_paths", tape3,
-                        ref3, wavefront_tape(scene, cam, cfg, key, 0, R),
-                        scene)
     del ref3
+    wave5 = wavefront_tape(scene, cam, cfg, key, 0, R, f64=True)
+    wave5_32 = wavefront_tape(scene, cam, cfg, key, 0, R)
+    wavefront_agreement("  K3t vs the plain wavefront record_paths", tape3,
+                        wave5, wave5_32, scene)
+    wavefront_agreement("  K2b vs the plain wavefront record_paths", tape_b,
+                        wave5, wave5_32, scene)
+    del wave5, wave5_32
     k3t_ms = cuda_ms(lambda: rm.record_paths_mega_clustered(
         cpack, cam, cfg, key, num_rays=R), 3)
     bound = clustered_bound(cpack, sweeps3, 4 * (cfg.max_depth + 6) * R)
@@ -1183,10 +1205,10 @@ def clustered_tapes_and_step(dev, key, card, scenes):
                                                         key, num_rays=R)
     tape_agreement(f"field20000 rays [0, {R}): K3t vs its plain version",
                    t20, ref20, 0.999)
-    wavefront_agreement("  K3t vs the plain wavefront record_paths", t20,
-                        ref20, wavefront_tape(s20, c20, cfg20, key, 0, R),
-                        s20)
     del ref20
+    wavefront_agreement("  K3t vs the plain wavefront record_paths", t20,
+                        wavefront_tape(s20, c20, cfg20, key, 0, R, f64=True),
+                        wavefront_tape(s20, c20, cfg20, key, 0, R), s20)
     k3t20_ms = cuda_ms(lambda: rm.record_paths_mega_clustered(
         p20, c20, cfg20, key, num_rays=R), 3)
     del t20, p20
@@ -1454,8 +1476,8 @@ def dense_wavefront_path(dev, key, card):
     mega = mk.render_image_mega(scene, cam, cfg, seed=0, device=dev)
     kdiff = (imgs["wavefront"] - mega).abs()
     log(f"  against K1's image: frac(|a-b|>1e-3)="
-        f"{float((kdiff > 1e-3).float().mean()):.6f} (logged: K1 uses the "
-        f"expanded quadratic)")
+        f"{float((kdiff > 1e-3).float().mean()):.6f} (logged: the two "
+        f"programs round in other orders)")
     del mega, kdiff
 
     # Ray ids [0, 2^17): K4, its plain version and the dense sweep.
@@ -1556,8 +1578,6 @@ FIELD_WAVE = [("field20000", "sphere-field", 20000,
 def clustered_wavefront_path(dev, key, card):
     """Phase 13.  Returns K5's entry of the kernels line and the largest t
     error of K4 against its plain version there."""
-    with open(os.path.join(ROOT, "bench_golden.json")) as f:
-        goldens = json.load(f)
     launches, entry, err4 = 0, None, 0.0
     for label, preset, n, gkey in FIELD_WAVE:
         scene, cam, cfg = build_preset(preset, device=dev, n=n)
@@ -1580,12 +1600,9 @@ def clustered_wavefront_path(dev, key, card):
         if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or \
                 not bool(torch.isfinite(img).all()):
             raise AssertionError(f"{label}: bad image")
-        total = float(img.double().sum()) * cfg.spp
-        rel = (total - goldens[gkey]) / goldens[gkey]
-        log(f"{label} {cfg.nx}x{cfg.ny}@{cfg.spp} wavefront through K5: "
-            f"radiance sum {total:.3f}, megacluster golden {goldens[gkey]} "
-            f"(rel {rel:+.3e}, logged: the oc-form and the expanded "
-            f"quadratic part far out), K5 launches {frame_launches}")
+        field_golden(f"{label} {cfg.nx}x{cfg.ny}@{cfg.spp} wavefront "
+                     f"through K5, K5 launches {frame_launches}", label,
+                     gkey, float(img.double().sum()) * cfg.spp)
         sec = statistics.median(host_s(frame)[0] for _ in range(3))
         clock = Clocked(ic.intersect_clustered, counters=True, keep=True)
         rad5, segs5 = frame_stats(scene, cam, cfg, key, cpack, clock)
@@ -1939,15 +1956,11 @@ def occupancy_cli(dev, key, card, lane_eff, segments):
     megakernels' ``mean_path_len`` within 1e-3 of the wavefront's
     ``avg_path_length``.
 
-    Logged, not held: the same comparison on the final scene, at 64x32 @ 8
-    (2^14 rays) and over the whole full-size frame (phase 4's segments
-    against ``wavefront_occupancy`` on K4 over the same 9.6M rays, and
-    each side's paths at the depth cap).  It misses the 1e-3 bound there
-    through a fault of the port's megakernels: their expanded sphere
-    quadratic re-hits small spheres far from the origin and traps paths to
-    the depth cap that the wavefront's oc-form, and the JAX package's
-    recorder on the CPU, end in a few segments (ROADMAP Queue 3 item 1;
-    ``probes/path_length.py``)."""
+    Held too: over the final scene's whole full-size frame, phase 4's
+    segments against ``wavefront_occupancy`` on K4 over the same 9.6M rays,
+    mean path length within 1e-3 (each side's paths at the depth cap
+    logged).  Logged only: the same comparison at 64x32 @ 8 (2^14 rays),
+    where one long path moves the mean by more than the bound."""
     def occupancy(*args):
         cmd = [sys.executable, "-m", "first_raytracer_tpu_torch.cli",
                "occupancy", *args]
@@ -2002,13 +2015,15 @@ def occupancy_cli(dev, key, card, lane_eff, segments):
         raise AssertionError("K2b's trips over the frame are not K1's "
                              "segments")
     seconds = time.perf_counter() - t0
+    gap = segments / rays - wave["avg_path_length"]
     log(f"  random-spheres whole frame ({rays} rays): K1's mean path length "
         f"{segments / rays:.6f}, the wavefront's (K4) "
-        f"{wave['avg_path_length']:.6f}, difference "
-        f"{segments / rays - wave['avg_path_length']:.3e} (logged, against "
-        f"a bound of 1e-3); paths at the depth cap: K2b {capped}, the "
-        f"wavefront {wave['alive_per_bounce'][-1]} ({seconds:.1f} s); on "
-        f"{card}")
+        f"{wave['avg_path_length']:.6f}, difference {gap:.3e} (bound "
+        f"1e-3); paths at the depth cap: K2b {capped}, the wavefront "
+        f"{wave['alive_per_bounce'][-1]} ({seconds:.1f} s); on {card}")
+    if not abs(gap) < 1e-3:
+        raise AssertionError("K1's mean path length over the final scene "
+                             "off the wavefront's")
 
 
 def main():

@@ -17,7 +17,8 @@
 //   sph (16, ns_pad) plane-major: 0-2 center, 3 radius, 4 param (fuzz |
 //       ref_idx), 5-7 albedo, 8-10 albedo2, 11 tex_scale, 12 c0, 13 original
 //       id, 15 1/radius;
-//   mx  (ns_pad, 8): cx cy cz c0 pad, c0 = |C|^2 - r^2 rounded from f64;
+//   mx  (ns_pad, 8): cx cy cz c0 (the JAX kernel's row, unused here), then
+//       cx cy cz r, the row the sphere root reads (r NaN in padding rows).
 //   tri (24, nt_pad) plane-major: 0-2 v0, 3-5 e1, 6-8 e2, 9-11 unit normal,
 //       12 param, 13-15 albedo, 16-18 albedo2, 19 tex_scale, 20 original id.
 #pragma once
@@ -38,7 +39,8 @@ struct Tables {
   const float* cam;   // (20,): origin, lower_left, horizontal, vertical,
                       // lens u, lens v, lens radius, pad
   const float* sph;   // (16, ns_pad)
-  const float4* mx;   // (ns_pad, 2) float4 = (ns_pad, 8) floats
+  const float4* mx;   // (ns_pad, 2) float4 = (ns_pad, 8) floats; the
+                      // second float4 of a row is (cx, cy, cz, r)
   const float* tri;   // (24, nt_pad)
   int ns, nt, ns_pad, nt_pad;
   int sph_groups[7];  // cumulative starts of the six groups, then total
@@ -197,38 +199,69 @@ constexpr int kGroup = 4;  // spheres whose discriminants share a branch
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
-// K1's expanded-quadratic test of the kGroup spheres s[g] = (cx, cy, cz,
-// c0) numbered base + g: the discriminants first, then, only if one is
-// non-negative, the roots in g order, each passed to fold(t, base + g).  A
-// miss costs 16 operations and a compare; the branch, the root and the
-// fold are paid once a group, on the rare hit.  A padding row (0, 0, 0,
-// +inf) has disc = -inf, the pack's sentinel (big, big, big, +inf) NaN:
-// neither passes.
+// The sphere root of every megakernel.  For the kGroup spheres s[g] = (cx,
+// cy, cz, r) numbered base + g: b = d.(o - C), c = (o - C).(o - C) - r^2,
+// the discriminant b^2 - c and the roots -b -+ sqrt(b^2 - c), all in double
+// from the float inputs (nvcc --fmad=false leaves them uncontracted), each
+// root rounded once to float and passed to fold(t, base + g).  The JAX
+// kernels' expanded quadratic (c = |o|^2 - 2 o.C + |C|^2 - r^2 in float)
+// cancels |o|^2 against 2 o.C far from the origin, and a float
+// discriminant cancels b^2 against c there (b^2 ~ 8,000 on field20000):
+// either puts a hit point up to ~1e-3 off the surface, so that a bounce
+// ray re-hit its own sphere just past t_min.  A root in double puts it
+// within a float rounding of the surface.
+//
+// A sphere reaches the doubles only past a float prefilter, the same
+// oc-form in float: disc' = b'^2 - (|o - C|^2 - r^2) is within about 17 u
+// (b^2 + |o - C|^2 + r^2) of the exact discriminant (u = 2^-24), and b^2 <=
+// |d|^2 |o - C|^2, so a sphere with disc' < -slack (|o - C|^2 + r^2), slack
+// = 2^-16 (|d|^2 + 1), has no root (the margin is 15 times that error): a
+// miss costs 20 float operations and a compare, and the doubles, the branch
+// and the roots are paid once a group, by the spheres past the prefilter,
+// those whose line the ray nearly meets.  This holds while the squares stay
+// finite and normal in float (|o - C| and |r| below 2^60, |r| above
+// 2^-40).  A padding row (any centre, radius NaN) fails the prefilter and
+// would fail the root too.
+constexpr float kSlack = 1.0f / 65536.0f;
+
+__device__ __forceinline__ float sphere_slack(float dx, float dy, float dz) {
+  return kSlack * (dx * dx + dy * dy + dz * dz + 1.0f);
+}
+
 template <class Fold>
 __device__ __forceinline__ void sphere_group(const float4 (&s)[kGroup],
                                              float ox, float oy, float oz,
                                              float dx, float dy, float dz,
-                                             float od, float oo,
-                                             float t_min, int base,
-                                             Fold fold) {
-  float bq[kGroup], disc[kGroup];
+                                             float slack, float t_min,
+                                             int base, Fold fold) {
+  bool maybe[kGroup];
   bool any = false;
 #pragma unroll
   for (int g = 0; g < kGroup; ++g) {
-    const float dc = s[g].x * dx + s[g].y * dy + s[g].z * dz;
-    const float oc = s[g].x * ox + s[g].y * oy + s[g].z * oz;
-    bq[g] = od - dc;
-    const float cq = oo - 2.0f * oc + s[g].w;
-    disc[g] = bq[g] * bq[g] - cq;
-    any |= disc[g] >= 0.0f;
+    const float px = ox - s[g].x, py = oy - s[g].y, pz = oz - s[g].z;
+    const float bp = dx * px + dy * py + dz * pz;
+    const float pp = px * px + py * py + pz * pz;
+    const float rr = s[g].w * s[g].w;
+    maybe[g] = bp * bp - (pp - rr) >= -slack * (pp + rr);
+    any |= maybe[g];
   }
   if (!any) return;
+  const double ox64 = ox, oy64 = oy, oz64 = oz;
+  const double dx64 = dx, dy64 = dy, dz64 = dz;
 #pragma unroll
   for (int g = 0; g < kGroup; ++g) {
-    if (!(disc[g] >= 0.0f)) continue;  // no root (or NaN): a miss
-    const float sq = sqrtf(disc[g]);
-    const float tn = -bq[g] - sq;
-    const float tf = sq - bq[g];
+    if (!maybe[g]) continue;
+    const double px = ox64 - static_cast<double>(s[g].x);
+    const double py = oy64 - static_cast<double>(s[g].y);
+    const double pz = oz64 - static_cast<double>(s[g].z);
+    const double r = s[g].w;
+    const double bq = dx64 * px + dy64 * py + dz64 * pz;
+    const double cq = px * px + py * py + pz * pz - r * r;
+    const double disc = bq * bq - cq;
+    if (!(disc >= 0.0)) continue;  // no root (or NaN): a miss
+    const double sq = sqrt(disc);
+    const float tn = static_cast<float>(-bq - sq);
+    const float tf = static_cast<float>(sq - bq);
     fold(tn > t_min ? tn : (tf > t_min ? tf : kBig), base + g);
   }
 }
@@ -260,7 +293,7 @@ __device__ __forceinline__ bool triangle_hit(float v0x, float v0y, float v0z,
 }
 
 // The dense scene of K1, K2 and K2b.  Its first kSphereCap spheres, as
-// (cx, cy, cz, c0) rows padded to a whole group, and the planes v0, e1, e2
+// (cx, cy, cz, r) rows padded to a whole group, and the planes v0, e1, e2
 // of its first kTriCap triangles are staged once per block in shared
 // memory (`stage`); a larger scene's remaining primitives are read from
 // device memory, after the staged ones, so the sweep keeps index order.
@@ -294,9 +327,9 @@ struct DenseScene {
     float* planes = reinterpret_cast<float*>(rows + round4(ns_tile));
     for (int k = threadIdx.x; k < round4(ns_tile); k += blockDim.x) {
       if (k < ns_tile)
-        copy16_async(rows + k, tb.mx + 2 * k);
+        copy16_async(rows + k, tb.mx + 2 * k + 1);
       else
-        rows[k] = make_float4(0.0f, 0.0f, 0.0f, INFINITY);
+        rows[k] = make_float4(0.0f, 0.0f, 0.0f, NAN);
     }
     // Whole 16-byte runs of each plane, inside the pack's padding.
     for (int q = threadIdx.x; q < 9 * (tpitch / 4); q += blockDim.x) {
@@ -316,9 +349,7 @@ struct DenseScene {
                                           float dx, float dy, float dz,
                                           float t_min, bool, Hit& h,
                                           Counters&) const {
-    // Expanded quadratic: b = o.d - d.C, c = |o|^2 - 2 o.C + c0.
-    const float od = ox * dx + oy * dy + oz * dz;
-    const float oo = ox * ox + oy * oy + oz * oz;
+    const float slack = sphere_slack(dx, dy, dz);
     float t_s = kBig;
     int w_s = 0;
     auto fold_s = [&](float t, int i) {
@@ -330,15 +361,15 @@ struct DenseScene {
     for (int k = 0; k < ns_tile; k += kGroup) {
       const float4 s[kGroup] = {srow[k], srow[k + 1], srow[k + 2],
                                 srow[k + 3]};
-      sphere_group(s, ox, oy, oz, dx, dy, dz, od, oo, t_min, k, fold_s);
+      sphere_group(s, ox, oy, oz, dx, dy, dz, slack, t_min, k, fold_s);
     }
     // Past the staged rows: device memory, whose rows past ns are never
     // hit either.
     for (int k = ns_tile; k < tb.ns; k += kGroup) {
-      const float4 s[kGroup] = {__ldg(&tb.mx[2 * k]), __ldg(&tb.mx[2 * k + 2]),
-                                __ldg(&tb.mx[2 * k + 4]),
-                                __ldg(&tb.mx[2 * k + 6])};
-      sphere_group(s, ox, oy, oz, dx, dy, dz, od, oo, t_min, k, fold_s);
+      const float4 s[kGroup] = {
+          __ldg(&tb.mx[2 * k + 1]), __ldg(&tb.mx[2 * k + 3]),
+          __ldg(&tb.mx[2 * k + 5]), __ldg(&tb.mx[2 * k + 7])};
+      sphere_group(s, ox, oy, oz, dx, dy, dz, slack, t_min, k, fold_s);
     }
     float t_t = kBig;
     int w_t = 0;
@@ -546,7 +577,6 @@ __device__ __forceinline__ bool segment(const Scene& scene,
         ndy = ny + by;
         ndz = nz + bzz;
       }
-      normalize3(ndx, ndy, ndz, 1e-20f);
       if (kRadiance) {
         bool odd = false;
         if (f.check) {
@@ -557,6 +587,11 @@ __device__ __forceinline__ bool segment(const Scene& scene,
         att_b = odd ? f.a1b : f.a0b;
       }
     }
+    // Every scattered direction is made a unit vector, the dielectric's
+    // too (materials/scatter.py's rule): the sphere root takes |d| = 1,
+    // and a reflection or refraction off a hit point a little off the
+    // surface (a short normal) is not one.
+    normalize3(ndx, ndy, ndz, 1e-20f);
     // Absorbed (metal below the surface) or at the depth cap: black.
     ended = !scattered || depth >= pp.max_depth;
     if (!ended) {

@@ -40,7 +40,7 @@
 // per lane and one-hot tape accumulation have no counterpart here.
 //
 // Mapping (this design is Hopper's, not the TPU kernel's).  Each block of
-// 128 threads first stages the scene's sphere rows (cx, cy, cz, c0) and
+// 128 threads first stages the scene's sphere rows (cx, cy, cz, r) and
 // triangle planes (v0, e1, e2) in shared memory with cp.async: the final
 // scene's 486 spheres take 7.8 KB, DENSE_MAX = 1024 spheres 16 KB; a scene
 // past kSphereCap spheres or kTriCap triangles reads the rest from device
@@ -55,14 +55,17 @@
 // neighbouring tape columns.
 //
 // What bounds it on an H100, and what the design does about it:
-//  - FP32 work in the dense sweep: 16 operations per (segment, sphere) and
+//  - FP32 work in the dense sweep: 20 operations per (segment, sphere) and
 //    46 per (segment, triangle).  Built with --fmad=false, each is one
 //    instruction, so everything around them counts: a pair reads one
 //    16-byte shared-memory broadcast (the first design read the row from
 //    device memory through the read-only cache), and a group of four
-//    spheres shares one branch to the rare root, so a miss costs its 16
-//    operations and a compare (the first design took a branch per sphere:
-//    ~56 issue slots a pair on the final scene, PERF.md).
+//    spheres shares one branch to the rare root, so a miss costs the 20
+//    operations of the float prefilter and a compare (the first design
+//    took a branch per sphere: ~56 issue slots a pair on the final scene,
+//    PERF.md).  The root is taken in double (mega_common.cuh::
+//    sphere_group), at half the float rate with conversions at an eighth
+//    of it, but only by the spheres past the prefilter.
 //  - Divergence across a warp's paths: glass paths reach tens of bounces
 //    while most end in two or three.  With one thread per pixel a warp ran
 //    until its busiest pixel's samples were done (lane efficiency 0.685 on
@@ -70,10 +73,8 @@
 //    busy until the launch runs out of paths.
 //  - No tensor cores: the dot products C.d and C.o per (ray, sphere) would
 //    map to a (rays x 3) x (3 x spheres) product, but TF32 or bf16 inputs do
-//    not round as the f32 products do, and the expanded quadratic cancels
-//    badly far from the origin (~1e-2 relative, as the JAX package's
-//    geometry/sphere.py records); the kernel must stay bit-equal to its
-//    plain version.
+//    not round as the f32 products do, and the root is taken in double;
+//    the kernel must stay bit-equal to its plain version.
 //  - K2's tape adds D * 4 bytes per sample: 51 x 9.6 M x 4 B = 1.96 GB at
 //    full frame, ~0.6 ms at 3.35 TB/s, far below the sweep's time.  Its
 //    columns sit at stride spp between a pixel's samples, so its stores

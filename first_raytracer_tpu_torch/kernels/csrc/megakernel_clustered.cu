@@ -43,7 +43,7 @@
 // float tape or VMEM spp batches.
 //
 // What bounds it on an H100, and what this design does about it: FP32 work
-// in the sweeps actually run (16 operations per sphere slot and 46 per
+// in the sweeps actually run (20 operations per sphere slot and 46 per
 // triangle slot tested) and in the box tests, and, with one thread per
 // pixel and per-lane loops (the first design), the union of a warp's gated
 // clusters, each swept by the few lanes that opened it while the rest
@@ -185,7 +185,8 @@ __device__ __forceinline__ int nth_lane(unsigned mask, int g) {
 //   sph (16, sp): 0-2 center, 3 radius, 4 param, 5-7 albedo, 8-10 albedo2,
 //       11 tex_scale, 12 original id, 13 material type, 14 texture type,
 //       15 1/radius;
-//   mx (sp, 8): cx cy cz c0 pad;
+//   mx (sp, 8): cx cy cz c0 (unused here), cx cy cz r (the sphere root's
+//       row; r NaN in sentinel slots);
 //   tri (24, tp): the dense rows 0-20, 21 material type, 22 texture type;
 //   boxes (K, 8) and super boxes (KS, 8): mnx mny mnz mxx mxy mxz pad pad;
 //   starts (KS + 1,): first cluster of each supergroup, then K;
@@ -247,7 +248,7 @@ struct ClusterScene {
     } else {
       float4* rows = reinterpret_cast<float4*>(members);
       for (int j = lane; j < round4(m); j += kWarpSize)
-        copy16_async(rows + j, mx + 2 * (col0 + j));
+        copy16_async(rows + j, mx + 2 * (col0 + j) + 1);
     }
     commit_copies();
     wait_copies<0>();
@@ -301,15 +302,14 @@ struct ClusterScene {
             fold(t, col0 + j);
         }
       } else {
-        const float od = rox * rdx + roy * rdy + roz * rdz;
-        const float oo = rox * rox + roy * roy + roz * roz;
+        const float slack = frt::sphere_slack(rdx, rdy, rdz);
         const float4* rows = reinterpret_cast<const float4*>(members);
         // Whole groups: the pack's empty slots are never-hit sentinels.
         for (int j = frt::kGroup * first; j < m;
              j += frt::kGroup * split) {
           const float4 s[frt::kGroup] = {rows[j], rows[j + 1], rows[j + 2],
                                          rows[j + 3]};
-          frt::sphere_group(s, rox, roy, roz, rdx, rdy, rdz, od, oo, t_min,
+          frt::sphere_group(s, rox, roy, roz, rdx, rdy, rdz, slack, t_min,
                             col0 + j, fold);
         }
       }

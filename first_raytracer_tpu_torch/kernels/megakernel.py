@@ -80,7 +80,7 @@ class MegaScenePack:
     """
 
     spheres: torch.Tensor  # (16, Ns_pad) f32
-    sph_mx: torch.Tensor   # (Ns_pad, 8) f32: cx cy cz c0 pad
+    sph_mx: torch.Tensor   # (Ns_pad, 8) f32: cx cy cz c0, cx cy cz r
     tris: torch.Tensor     # (24, Nt_pad) f32
     sphere_rows: int
     tri_rows: int
@@ -168,6 +168,7 @@ def pack_scene_mega(scene, device=None) -> MegaScenePack:
     sph[0:3] = BIG  # sentinel: never-hit center, radius 0
     mx = np.zeros((ns_pad, 8), np.float32)
     mx[:, 0:3] = BIG
+    mx[:, 7] = np.float32(np.nan)  # the sphere root's radius: a sure miss
     sph_groups = (0,) * 7
     if ns:
         order, sph_groups = group_order(s.sphere_mat)
@@ -180,6 +181,8 @@ def pack_scene_mega(scene, device=None) -> MegaScenePack:
         sph[13, :ns] = np.asarray(order, np.float32)
         sph[15, :ns] = np.where(r != 0.0, 1.0 / np.where(r != 0, r, 1.0), 0.0)
         mx[:ns, 0:3] = c
+        mx[:ns, 4:7] = c
+        mx[:ns, 7] = r
         # |C|^2 - r^2 in f64: exact for the huge ground sphere, where f32
         # would cancel catastrophically.
         c64 = c.astype(np.float64)
@@ -187,7 +190,7 @@ def pack_scene_mega(scene, device=None) -> MegaScenePack:
         c0 = ((c64 * c64).sum(1) - r64 * r64).astype(np.float32)
         mx[:ns, 3] = c0
         sph[12, :ns] = c0
-    # Sentinel c0 = +inf makes every root comparison false (a sure miss).
+    # The JAX kernel's sentinel c0 = +inf.
     mx[ns:, 3] = np.float32(np.inf)
     sph[12, ns:] = np.float32(BIG)
 
@@ -492,17 +495,23 @@ def _sweep(mx, tri, o, d, t_min):
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     if mx is not None:
-        # Expanded quadratic: b = o.d - d.C, c = |o|^2 - 2 o.C + c0.
-        cx, cy, cz, c0 = mx[:, 0:4].T
-        od = _dot3(o, d)[:, None]
-        oo = _dot3(o, o)[:, None]
-        dc = cx * dx + cy * dy + cz * dz
-        oc = cx * ox + cy * oy + cz * oz
-        bq = od - dc
-        cq = oo - 2.0 * oc + c0
-        sq = vecmath.sqrt(bq * bq - cq)  # NaN without a root: a miss
-        tn = -bq - sq
-        tf = sq - bq
+        # The kernels' sphere root (csrc/mega_common.cuh::sphere_group): b =
+        # d.(o - C), c = |o - C|^2 - r^2, the discriminant and the roots in
+        # float64 from the float32 (cx, cy, cz, r) row and ray, each root
+        # rounded once to float32.  A NaN radius (padding) gives no root.
+        cx, cy, cz, r = mx[:, 4:8].double().T
+        o64, d64 = o.double(), d.double()
+        px = o64[:, 0:1] - cx
+        py = o64[:, 1:2] - cy
+        pz = o64[:, 2:3] - cz
+        bq = d64[:, 0:1] * px + d64[:, 1:2] * py + d64[:, 2:3] * pz
+        cq = px * px + py * py + pz * pz - r * r
+        del px, py, pz
+        disc = bq * bq - cq
+        sq = torch.sqrt(torch.where(disc >= 0, disc, -1.0))  # NaN: a miss
+        tn = (-bq - sq).float()
+        tf = (sq - bq).float()
+        del bq, cq, disc, sq
         tall = torch.where(tn > t_min, tn,
                            torch.where(tf > t_min, tf, BIG))
         w_s = torch.argmin(tall, dim=1)  # first minimum on ties
@@ -563,8 +572,11 @@ def _shade(pack, d, p, w_s, w_t, is_tri, u):
     met = _normalize3(mraw, 1e-20)
 
     # Dielectric: Snell with the TIR check; Schlick with the reference's
-    # cosine = ref_idx * dot(d, N) when exiting.  Like the TPU kernel, the
-    # reflected and refracted directions are not renormalized.
+    # cosine = ref_idx * dot(d, N) when exiting.  The reflected or
+    # refracted direction is normalized, as materials/scatter.py does (the
+    # TPU kernel skips it): off a hit point a little inside or outside the
+    # sphere the normal is short, and so would the direction be, which the
+    # sphere root takes as a unit vector.
     outside = ddn > 0.0
     own = torch.where(outside[:, None], -n, n)
     ni = torch.where(outside, param, 1.0 / param)
@@ -582,7 +594,7 @@ def _shade(pack, d, p, w_s, w_t, is_tri, u):
     om2 = om * om
     schl = r0 + (1.0 - r0) * (om2 * om2 * om)
     use_refl = coin < torch.where(can, schl, 1.0)
-    dielectric = torch.where(use_refl[:, None], refl, rf)
+    dielectric = _normalize3(torch.where(use_refl[:, None], refl, rf), 1e-20)
 
     sines = (vecmath.sin(tsc * p[:, 0]) * vecmath.sin(tsc * p[:, 1])
              * vecmath.sin(tsc * p[:, 2]))

@@ -74,7 +74,7 @@ class MegaClusteredPack:
     """
 
     sph: torch.Tensor          # (16, KC*128) f32 payload, cluster-major
-    sph_mx: torch.Tensor       # (KC*128, 8) f32: cx cy cz c0 pad
+    sph_mx: torch.Tensor       # (KC*128, 8) f32: cx cy cz c0, cx cy cz r
     boxes: torch.Tensor        # (KC, 8) f32: mnx mny mnz mxx mxy mxz pad
     super_boxes: torch.Tensor  # (KS, 8) f32
     super_spans: tuple         # (start, end) cluster spans per supergroup
@@ -189,6 +189,16 @@ def _starts(spans, k):
     return np.asarray(starts, np.int32)
 
 
+def _sentinel_rows(cols):
+    """(cols, 8) sphere rows that never hit: the JAX kernel's (BIG, BIG,
+    BIG, c0 = +inf), then the sphere root's radius NaN."""
+    mx = np.zeros((cols, 8), np.float32)
+    mx[:, 0:3] = BIG
+    mx[:, 3] = np.float32(np.inf)
+    mx[:, 7] = np.float32(np.nan)
+    return mx
+
+
 def pack_scene_mega_clustered(scene, camera, layout: ClusterLayout = None,
                               return_layout: bool = False, device=None):
     """SAH-cluster and repack the scene (host), tables on ``device`` (by
@@ -235,9 +245,7 @@ def _pack(scene, sort_from, layout=None, return_layout=False, device=None):
     sph = np.zeros((_SPH_ROWS, _LANE), np.float32)
     sph[0:3] = BIG
     sph[12] = np.float32(BIG)
-    mx = np.zeros((_LANE, 8), np.float32)
-    mx[:, 0:3] = BIG
-    mx[:, 3] = np.float32(np.inf)
+    mx = _sentinel_rows(_LANE)
     boxes_np = np.zeros((1, 8), np.float32)
     boxes_np[:, 0:3] = BIG
     boxes_np[:, 3:6] = -BIG
@@ -268,9 +276,7 @@ def _pack(scene, sort_from, layout=None, return_layout=False, device=None):
         sph = np.zeros((_SPH_ROWS, cols), np.float32)
         sph[0:3] = BIG                      # sentinel slots: never hit
         sph[12] = np.float32(BIG)
-        mx = np.zeros((cols, 8), np.float32)
-        mx[:, 0:3] = BIG
-        mx[:, 3] = np.float32(np.inf)       # sweep sentinel: certain miss
+        mx = _sentinel_rows(cols)
         boxes_np = np.asarray(boxes, np.float32)
         c_all = np.asarray(s.sphere_center, np.float32)
         r_all = np.asarray(s.sphere_radius, np.float32)
@@ -295,6 +301,8 @@ def _pack(scene, sort_from, layout=None, return_layout=False, device=None):
                                                                  1.0), 0.0)
             mx[j0:j0 + m, 0:3] = c
             mx[j0:j0 + m, 3] = c0
+            mx[j0:j0 + m, 4:7] = c
+            mx[j0:j0 + m, 7] = r
 
     # --- triangles: SAH clusters, cluster-major columns ---
     # Zero sentinel columns have det == 0: never hit.

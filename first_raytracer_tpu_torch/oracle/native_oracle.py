@@ -15,23 +15,47 @@ never loads the JAX package's ``native/libfrt_native.so``.
 ``available()`` is False when no compiler builds it, and ``error()`` says
 why; ``render_oracle_native`` then raises: a caller that asked for the
 native oracle never gets the NumPy one.
+
+Run as a module, it writes the radiance-sum goldens of the field frames
+(sphere_field(20000), sphere_field(5000) and triangle_field(20000) at
+800x450 @ 4, depth 50, seed 0) that ``chip_smoke.py`` holds the clustered
+megakernel's and the clustered wavefront's frames to, rendering every ray
+id of each frame in chunks over threads (a few minutes on 8 cores):
+
+    python -m first_raytracer_tpu_torch.oracle.native_oracle --write-goldens
+    # -> first_raytracer_tpu_torch/data/field_goldens_oracle.json
 """
 from __future__ import annotations
 
+import argparse
+import concurrent.futures
 import ctypes
 import functools
+import hashlib
+import json
 import os
 
 import numpy as np
 
 from ..core import rng
 from ..kernels.build import build_host_library
+from ..scene.builders import build_preset
 
-__all__ = ["available", "error", "render_oracle_native", "SOURCE"]
+__all__ = ["available", "error", "render_oracle_native", "radiance_sum",
+           "write_goldens", "SOURCE", "GOLDENS", "GOLDEN_SCENES"]
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native", "frt_oracle.cpp")
 FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+GOLDENS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "data", "field_goldens_oracle.json")
+# (label, preset, builder arguments): the field frames of chip_smoke.py's
+# phases 9 and 13 (the presets' own 800x450 @ 4, depth 50).
+GOLDEN_SCENES = (
+    ("field20000", "sphere-field", dict(n=20000)),
+    ("field5000", "sphere-field", dict(n=5000)),
+    ("trifield20000", "triangle-field", dict(n=20000)),
+)
 
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I32P = ctypes.POINTER(ctypes.c_int32)
@@ -124,3 +148,64 @@ def render_oracle_native(scene, camera, cfg, seed: int = 0, ray_ids=None):
         img = out.reshape(cfg.ny, cfg.nx, cfg.spp, 3).mean(axis=2)
         return img[::-1].astype(np.float32)
     return out
+
+
+def radiance_sum(scene, camera, cfg, seed=0, threads=None, chunk=1 << 16):
+    """The radiance sum of a whole frame: the float64 sum over every ray id
+    of the oracle's radiance, every channel (the frame's per-pixel means
+    times spp, summed).  Chunks of ``chunk`` ray ids run on ``threads``
+    threads (default: every core); the oracle holds no state and ctypes
+    lets go of the GIL while it runs."""
+    def part(r0):
+        ids = np.arange(r0, min(r0 + chunk, cfg.num_rays), dtype=np.int64)
+        rad = render_oracle_native(scene, camera, cfg, seed=seed,
+                                   ray_ids=ids)
+        return float(rad.astype(np.float64).sum())
+
+    with concurrent.futures.ThreadPoolExecutor(
+            threads or os.cpu_count() or 1) as pool:
+        return sum(pool.map(part, range(0, cfg.num_rays, chunk)))
+
+
+def write_goldens(path=GOLDENS, scenes=GOLDEN_SCENES, threads=None,
+                  chunk=1 << 16):
+    """Renders each of ``scenes`` ((label, preset, builder arguments))
+    whole through the oracle, seed 0, and writes their radiance sums to
+    ``path`` as JSON, each with its scene, shape and seed, and the oracle
+    source's SHA-256.  Returns the dict written."""
+    if not available():
+        raise RuntimeError(f"native oracle unavailable: {error()}")
+    with open(SOURCE, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    out = {"writer": "python -m first_raytracer_tpu_torch.oracle."
+                     "native_oracle --write-goldens",
+           "oracle": {"source": "native/frt_oracle.cpp", "sha256": digest,
+                      "flags": list(FLAGS)},
+           "goldens": {}}
+    for label, preset, kwargs in scenes:
+        scene, cam, cfg = build_preset(preset, device="cpu", **kwargs)
+        total = radiance_sum(scene, cam, cfg, threads=threads, chunk=chunk)
+        out["goldens"][label] = {
+            "scene": preset, "builder_args": dict(kwargs), "nx": cfg.nx,
+            "ny": cfg.ny, "spp": cfg.spp, "max_depth": cfg.max_depth,
+            "t_min": cfg.t_min, "seed": 0, "rays": cfg.num_rays,
+            "radiance_sum": total}
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--write-goldens", action="store_true", required=True,
+                    help="render the field frames and write their goldens "
+                         f"to {os.path.relpath(GOLDENS)}")
+    ap.parse_args(argv)
+    out = write_goldens()
+    for label, g in out["goldens"].items():
+        print(f"{label}: {g['radiance_sum']!r}")
+
+
+if __name__ == "__main__":
+    main()

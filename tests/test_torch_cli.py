@@ -112,14 +112,18 @@ def test_image_diff_stats_match():
         jimg.image_diff_stats(a, b)
 
 
-def _jax_fit_first_loss(preset, fields, seed, max_depth=8, **kw):
+def _jax_fit_first_loss(preset, fields, seed, max_depth=8, tape=None,
+                        **kw):
     """The JAX CLI's ``fit`` step-0 loss: the loss at its perturbed
     parameters (first_raytracer_tpu/cli.py:151-218), depth capped at
-    ``max_depth`` as ``--max-depth`` and the CLI's own cap of 8 do."""
+    ``max_depth`` as ``--max-depth`` and the CLI's own cap of 8 do; with
+    ``tape``, JAX's replay of that tape at those parameters against the
+    same target."""
     import jax
     import jax.numpy as jnp
     from first_raytracer_tpu.core import rng as jrng
     from first_raytracer_tpu.diff.grad import (ray_radiance, render_loss,
+                                               render_loss_and_grads_tape,
                                                split_params)
 
     scene, cam, cfg = jb.build_preset(preset, **kw)
@@ -134,6 +138,10 @@ def _jax_fit_first_loss(preset, fields, seed, max_depth=8, **kw):
         lambda p: jnp.asarray(np.clip(
             np.asarray(p) * (0.6 + 0.3 * r.rand(*p.shape)), 0.02, None),
             jnp.float32), true_params)
+    if tape is not None:
+        loss, _ = render_loss_and_grads_tape(params, scene, cam, cfg, key,
+                                             ids, target, jnp.asarray(tape))
+        return float(loss)
     return float(render_loss(params, scene, cam, cfg, key, ids, target))
 
 
@@ -163,11 +171,29 @@ def test_cli_fit(tmp_path, fast):
 
 def test_cli_fit_large_scene_takes_the_clustered_recorder():
     """``fit --fast`` on sphere-field (20,004 spheres) records with the
-    clustered recorder (its plain version on the CPU); the first logged
-    loss matches the JAX CLI's step-0 loss within ``rtol=1e-4`` (measured
-    6.4e-5: the field's camera sits 40-90 units out, where f32 rounding of
-    the sphere quadratic moves a ray's radiance more than in the final
-    scene, whose bound is 1e-5)."""
+    clustered recorder (its plain version on the CPU); its tape parts from
+    JAX's wavefront recorder only on rays where JAX's own clustered and
+    wavefront recorders part (ray 7, which grazes lambertian sphere 4701
+    168 units out: JAX's wavefront hits it twice in a row and JAX's
+    clustered recorder three times, which a convex surface cannot give,
+    and the port's float64 root once), and the first logged loss matches
+    JAX's step-0 loss on that tape within ``rtol=1e-4`` (the field's
+    camera sits 40-90 units out, where f32 rounding of the sphere
+    quadratic moves a ray's radiance more than in the final scene, whose
+    bound is 1e-5)."""
+    import jax.numpy as jnp
+    from first_raytracer_tpu.core import rng as jrng
+    from first_raytracer_tpu.diff.replay import record_paths as jax_record
+    from first_raytracer_tpu.kernels.megakernel_clustered import (
+        pack_scene_mega_clustered as jax_pack)
+    from first_raytracer_tpu.kernels.record_mega import (
+        record_paths_mega_clustered as jax_k3t)
+    from first_raytracer_tpu.render.camera import generate_rays as jax_rays
+    from first_raytracer_tpu_torch.core import rng
+    from first_raytracer_tpu_torch.kernels import megakernel_clustered as mc
+    from first_raytracer_tpu_torch.kernels import record_mega as rm
+    from first_raytracer_tpu_torch.scene.builders import build_preset
+
     args = ["--preset", "sphere-field", "--nx", "4", "--ny", "2", "--spp",
             "1", "--max-depth", "4", "--fields", "albedo", "--opt", "adam",
             "--lr", "0.05", "--steps", "2", "--log-every", "1", "--fast"]
@@ -177,8 +203,27 @@ def test_cli_fit_large_scene_takes_the_clustered_recorder():
     steps, last = lines[:-1], lines[-1]
     assert [s["step"] for s in steps] == [0, 1]
     assert last["fit"] == "done" and last["device"] == "cpu"
-    want = _jax_fit_first_loss("sphere-field", ("albedo",), 0, nx=4, ny=2,
-                               spp=1, max_depth=4)
+
+    kw = dict(nx=4, ny=2, spp=1)
+    scene, cam, cfg = build_preset("sphere-field", device="cpu", **kw)
+    cfg = dataclasses.replace(cfg, max_depth=4)
+    tape = rm.record_paths_mega_clustered(
+        mc.pack_scene_mega_clustered(scene, cam), cam, cfg,
+        rng.base_key(0)).numpy()
+    js, jc, jcfg = jb.build_preset("sphere-field", **kw)
+    jcfg = dataclasses.replace(jcfg, max_depth=4)
+    key = jrng.base_key(0)
+    ids = jnp.arange(jcfg.num_rays, dtype=jnp.int32)
+    o, d = jax_rays(jc, jcfg.nx, jcfg.ny, jcfg.spp, ids,
+                    jrng.camera_uniforms(key, ids))
+    wave = np.asarray(jax_record(js, o, d, ids, key, jcfg))
+    clustered = np.asarray(jax_k3t(jax_pack(js, sort_from=jc.origin), jc,
+                                   jcfg, key, interpret=True))
+    spread = np.nonzero((clustered != wave).any(axis=0))[0].tolist()
+    parts = np.nonzero((tape != wave).any(axis=0))[0].tolist()
+    assert spread == [7] and set(parts) <= set(spread), (parts, spread)
+    want = _jax_fit_first_loss("sphere-field", ("albedo",), 0, max_depth=4,
+                               tape=tape, **kw)
     np.testing.assert_allclose(steps[0]["loss"], want, rtol=1e-4)
 
 

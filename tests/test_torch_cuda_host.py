@@ -38,6 +38,9 @@ DENSE = {
     "three-spheres-spp20": (dict(nx=6, ny=4, spp=20), None),
     # 1100 spheres: past the block's staged 1024, the rest from memory.
     "sphere-field-1100": (dict(n=1100, nx=8, ny=4, spp=1), 8),
+    # A far field (camera ~40 units out), where the sphere root's float
+    # prefilter and its float64 b and c both matter.
+    "sphere-field-2500": (dict(n=2500, nx=8, ny=4, spp=2), 8),
 }
 CLUSTERED = {
     "three-spheres": (dict(nx=16, ny=8, spp=2), None),
@@ -45,6 +48,7 @@ CLUSTERED = {
     "triangle-mesh": (dict(nx=12, ny=8, spp=2), 8),
     "sphere-field-600": (dict(n=600, nx=16, ny=8, spp=2), 8),
     "triangle-field-2000": (dict(n=2000, nx=16, ny=8, spp=1), 8),
+    "sphere-field-5000": (dict(n=5000, nx=16, ny=8, spp=1), 8),
 }
 
 
@@ -126,7 +130,8 @@ def test_k1_k2_pixel_and_sample_ranges(host_kernels, name):
 
 
 @pytest.mark.parametrize("name", ["three-spheres", "triangle-mesh",
-                                  "random-spheres", "sphere-field-1100"])
+                                  "random-spheres", "sphere-field-1100",
+                                  "sphere-field-2500"])
 def test_k2b_equals_plain(host_kernels, name):
     """K2b's tape and trip counts over a ray range bit-equal to the plain
     version's."""

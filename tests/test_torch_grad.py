@@ -401,37 +401,60 @@ def test_float32_loss_within_jax_forward_replay_spread():
 
 
 def test_rehit_case_parts_on_one_grazing_entry():
-    """Why ``test_fit_step_replay_recorder_branches`` fits the albedo alone
-    (ROADMAP Queue 3): on its sphere_field(1100) scene with the centres
-    moved by 0.01, JAX's clustered recorder (the expanded quadratic, which
-    XLA compiles with fused multiply-adds) and the port's (K3t's plain
-    version, rounding each operation) part on one entry of the 72 rays'
-    tapes: the fourth segment of ray 57, which JAX records on sphere 240
-    and the port on the ground sphere it grazes past.  The entry is a
-    graze, not a re-hit of the sphere the ray leaves (206, then the ground,
-    then 206, then 240): the replay's rule is not at fault."""
+    """The case of ``test_fit_step_replay_recorder_branches`` with the
+    sphere centres moved too lies inside the JAX package's own spread
+    (ROADMAP, "Deviations inside the reference"): on sphere_field(1100) at
+    12x6 @ 1, depth 8, with the centres moved by 0.01, JAX's clustered
+    recorder and JAX's wavefront ``record_paths`` part on rays 12, 56 and
+    57 (ray 57's fourth segment: sphere 240 in the clustered recorder, the
+    ground sphere in the wavefront one).  The port's recorder (K3t's plain
+    version, its sphere root in float64) records every ray as the port's
+    wavefront ``record_paths`` does on the scene in float64, and parts from
+    JAX's clustered recorder only on rays where that float64 recorder does
+    too: 57, and 55, whose bounce off sphere 6 grazes sphere 5, which both
+    JAX recorders in float32 miss."""
     from first_raytracer_tpu.kernels.megakernel_clustered import (
         pack_scene_mega_clustered as jax_pack)
     from first_raytracer_tpu.kernels.record_mega import (
         record_paths_mega_clustered as jax_record)
+    from first_raytracer_tpu_torch.diff.replay import record_paths
     from first_raytracer_tpu_torch.kernels import megakernel_clustered as tmc
+    from first_raytracer_tpu_torch.render.camera import generate_rays
 
     big, bc, bcfg = jb.sphere_field(n=1100, nx=12, ny=6, spp=1)
     bcfg = dataclasses.replace(bcfg, max_depth=8)
     moved = dataclasses.replace(big, albedo=big.albedo * 0.6,
                                 sphere_center=big.sphere_center + 0.01)
+    key = jrng.base_key(0)
     want = np.asarray(jax_record(
-        jax_pack(moved, sort_from=bc.origin), bc, bcfg, jrng.base_key(0),
-        ray0=0, num_rays=bcfg.num_rays, interpret=True))
+        jax_pack(moved, sort_from=bc.origin), bc, bcfg, key, ray0=0,
+        num_rays=bcfg.num_rays, interpret=True))
+    ids = jnp.arange(bcfg.num_rays, dtype=jnp.int32)
+    o, d = jcam.generate_rays(bc, bcfg.nx, bcfg.ny, bcfg.spp, ids,
+                              jrng.camera_uniforms(key, ids))
+    wave = np.asarray(jrp.record_paths(moved, o, d, ids, key, bcfg))
     ts, tc, tcfg = _port(moved, bc, bcfg)
+    tkey = trng.base_key(0)
     got = trm.record_paths_mega_clustered(
-        tmc.pack_scene_mega_clustered(ts, tc), tc, tcfg,
-        trng.base_key(0)).numpy()
-    rows, cols = np.nonzero(got != want)
-    assert cols.tolist() == [57, 57]
-    assert rows.tolist() == [3, 4]
+        tmc.pack_scene_mega_clustered(ts, tc), tc, tcfg, tkey).numpy()
+    tids = torch.arange(tcfg.num_rays)
+    to, td = generate_rays(tc, tcfg.nx, tcfg.ny, tcfg.spp, tids,
+                           trng.camera_uniforms(tkey, tids))
+    f64 = dataclasses.replace(ts, **{
+        f.name: getattr(ts, f.name).double()
+        for f in dataclasses.fields(ts)
+        if getattr(ts, f.name).is_floating_point()})
+    exact = record_paths(f64, to.double(), td.double(), tids, tkey,
+                         tcfg).numpy()
+    jax_spread = np.nonzero((want != wave).any(axis=0))[0].tolist()
+    assert jax_spread == [12, 56, 57]
     assert want[:5, 57].tolist() == [206, 0, 206, 240, 0]
-    assert got[:5, 57].tolist() == [206, 0, 206, 0, -1]
+    assert wave[:5, 57].tolist() == [206, 0, 206, 0, -1]
+    np.testing.assert_array_equal(got, exact)
+    parts = np.nonzero((got != want).any(axis=0))[0].tolist()
+    assert parts == [55, 57], parts
+    assert want[:2, 55].tolist() == wave[:2, 55].tolist() == [6, -1]
+    assert got[:3, 55].tolist() == [6, 5, -1]
 
 
 def test_float64_replay_matches_jax_float64():

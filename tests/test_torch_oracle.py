@@ -105,3 +105,39 @@ def test_native_oracle_is_built_from_its_source():
         lib_path = native_oracle._load()[0]._name
         assert lib_path.startswith(BUILD_DIR)
         assert "libfrt_native.so" not in lib_path
+
+
+def test_golden_writer_sums_the_oracle_over_the_frame(native, tmp_path):
+    """The field goldens' writer at a small size: its radiance sum is the
+    oracle's per-ray radiance summed over every ray id of the frame (chunks
+    over threads; a float64 sum in another order, so ``rtol=1e-12``), and
+    the file records the scene, shape, seed and the oracle source's hash.
+    The committed goldens name the frames chip_smoke.py renders."""
+    import hashlib
+    import json
+
+    kw = dict(n=600, nx=16, ny=8, spp=2)
+    out = native.write_goldens(str(tmp_path / "g.json"),
+                               scenes=(("f600", "sphere-field", kw),),
+                               threads=3, chunk=37)
+    with open(tmp_path / "g.json") as f:
+        assert json.load(f) == out
+    g = out["goldens"]["f600"]
+    scene, cam, cfg = build_preset("sphere-field", device="cpu", **kw)
+    rad = native.render_oracle_native(scene, cam, cfg,
+                                      ray_ids=np.arange(cfg.num_rays))
+    np.testing.assert_allclose(g["radiance_sum"],
+                               rad.astype(np.float64).sum(), rtol=1e-12)
+    assert (g["scene"], g["nx"], g["ny"], g["spp"], g["seed"],
+            g["rays"]) == ("sphere-field", 16, 8, 2, 0, 256)
+    with open(native.SOURCE, "rb") as f:
+        assert out["oracle"]["sha256"] == hashlib.sha256(
+            f.read()).hexdigest()
+    with open(native.GOLDENS) as f:
+        committed = json.load(f)
+    assert committed["oracle"]["sha256"] == out["oracle"]["sha256"]
+    for label, preset, kw in native.GOLDEN_SCENES:
+        c = committed["goldens"][label]
+        assert (c["scene"], c["builder_args"], c["nx"], c["ny"], c["spp"],
+                c["max_depth"], c["seed"]) == (preset, kw, 800, 450, 4, 50,
+                                               0)

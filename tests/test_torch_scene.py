@@ -68,7 +68,14 @@ def test_pack_scene_mega_equal(name):
     for f in ("spheres", "sph_mx", "tris", "sph_order", "tri_order"):
         a, b = np.asarray(getattr(jp, f)), getattr(tp, f).numpy()
         assert b.dtype == a.dtype, f
+        if f == "sph_mx":  # JAX's fields; columns 4-7 are the port's own
+            a, b = a[:, :4], b[:, :4]
         np.testing.assert_array_equal(b, a, err_msg=f)
+    # The port's sphere-root row: centre and radius, NaN past the spheres.
+    mx, ns = tp.sph_mx.numpy(), tp.sphere_rows
+    np.testing.assert_array_equal(mx[:ns, 4:7], mx[:ns, 0:3])
+    np.testing.assert_array_equal(mx[:ns, 7], tp.spheres[3, :ns].numpy())
+    assert np.isnan(mx[ns:, 7]).all()
     for f in ("sphere_rows", "tri_rows", "sph_groups", "tri_groups",
               "has_checker"):
         assert getattr(tp, f) == getattr(jp, f), f
