@@ -177,11 +177,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    4's segments against ``wavefront_occupancy`` on K4 over the same rays,
    the mean path length within 1e-3 (each side's paths at the depth cap
    logged).  The same comparison at 64x32 @ 8 (2^14 rays) is logged.
+17. ``python3 bench_torch.py`` in subprocesses (``BENCH_RUNS``): ``mega``
+   on the final scene (K1); ``megacluster`` on field20000, field5000 and
+   trifield20000 (K3, checked against the oracle's goldens); ``grad`` on
+   the final scene (K2b) and on field5000 (K3t), 4 steps back to back;
+   ``regenerative`` on the final scene (K4); ``wavefront`` on field20000
+   with ``BENCH_INTERSECT=clustered`` (K5).  Each exits 0 with one JSON
+   line without an ``error``, its guards passed, and its ``launches`` show
+   its kernel; each value is logged beside the earlier phase's reading of
+   the same configuration.
 
 The last two lines of standard output are a JSON object with the kernels'
-measurements (``sharded_launches``: the launches of phases 14 and 15) and
+measurements (``sharded_launches``: the launches of phases 14 and 15;
+``bench_launches``: phase 17's, by run) and
 the result line ``{"ok": true, "device": {...}}``.  This
-script imports no JAX.  Bounds count FP32 operations from the sources: 20
+script imports no JAX.  Bounds count FP32 operations from the sources
+(``first_raytracer_tpu_torch/utils/roofline.py``, which ``bench_torch.py``'s
+plausibility guard counts with too): 20
 per (segment, sphere) and 46 per (segment, triangle) for the dense sweep;
 for K3 and K3t the slots and boxes their sweep counters say they tested, 29
 operations per box test (``gate`` in kernels/csrc/megakernel_clustered.cu).
@@ -227,6 +239,9 @@ from first_raytracer_tpu_torch.render.integrator import intersect_brute
 from first_raytracer_tpu_torch.render.image import write_png
 from first_raytracer_tpu_torch.scene.builders import build_preset
 from first_raytracer_tpu_torch.utils.metrics import wavefront_occupancy
+from first_raytracer_tpu_torch.utils.roofline import (bound,
+                                                      clustered_bound,
+                                                      k4_bound, k5_bound)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_KEY = "radiance_sum_mega_1200x800_10spp"
@@ -241,27 +256,6 @@ SMALL_CASES = [
 ]
 GRAD_RAYS = 1 << 17
 SLICE_RAY0, SLICE_RAYS = 9_500_000, 512
-# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores,
-# and HBM3 bandwidth.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-# FP32 operations per (segment, sphere) and per (segment, triangle) that
-# every sweep step does, counted from kernels/csrc/mega_common.cuh
-# (sphere_group's float prefilter: 3 + 5 + 5 + 1 + 1 + 2 + 1 + 1 + 1 for a
-# sphere; triangle_hit: 9 + 5 + 1 + 3 + 6 + 9 + 6 + 6 + 1 for a triangle).
-# The float64 root of the spheres past the prefilter, shading and Threefry
-# are left out, so the bound is a lower one.
-SPHERE_OPS, TRIANGLE_OPS = 20, 46
-# FP32 operations of one slab test of a box (ClusterScene::gate in
-# kernels/csrc/megakernel_clustered.cu): 6 subtractions and 6
-# multiplications, 10 minima and maxima, 4 for the widening, 3 for the test.
-BOX_OPS = 29
-# FP32 operations per (ray, sphere) and per (ray, triangle) of K4 and K5
-# (kernels/csrc/intersect.cu): 3 + 5 + 6 + 2 for the oc-form quadratic on
-# (cx, cy, cz, r*r); the dense sweep's 46 for a triangle on (v0, e1, e2).
-# r*r and the edges are computed once per primitive, when K4 stages a tile
-# or the host packs K5's rows, not once per pair.
-OC_SPHERE_OPS, MT_TRIANGLE_OPS = 16, 46
 # Each kernel's entry in the library (a part of its mangled name).
 KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("record_kernel", "K2b"), ("mega_clustered_kernel", "K3"),
@@ -297,6 +291,34 @@ FIELD_SCENES = [
     ("trifield20000", "triangle-field", 20000,
      "radiance_sum_megacluster_trifield20000_800x450_4spp"),
 ]
+
+
+# Phase 17: ``bench_torch.py``'s configurations, each in a subprocess:
+# (label, switches, the kernel it must launch).  The grad steps are timed
+# 4 back to back (the bench's default is 16) to keep the run short.  The
+# final scene's wavefront frame (about 20 s a frame) is left to a manual
+# run (README.md).
+BENCH_RUNS = [
+    ("mega final scene", {}, "K1"),
+    ("megacluster field20000", {"BENCH_SCENE": "field20000",
+                                "BENCH_MODE": "megacluster"}, "K3"),
+    ("megacluster field5000", {"BENCH_SCENE": "field5000",
+                               "BENCH_MODE": "megacluster"}, "K3"),
+    ("megacluster trifield20000", {"BENCH_SCENE": "trifield20000",
+                                   "BENCH_MODE": "megacluster"}, "K3"),
+    ("grad final scene", {"BENCH_MODE": "grad",
+                          "BENCH_GRAD_PIPELINE": "4"}, "K2b"),
+    ("grad field5000", {"BENCH_SCENE": "field5000", "BENCH_MODE": "grad",
+                        "BENCH_GRAD_PIPELINE": "4"}, "K3t"),
+    ("regenerative final scene", {"BENCH_MODE": "regenerative"}, "K4"),
+    ("wavefront field20000", {"BENCH_SCENE": "field20000",
+                              "BENCH_MODE": "wavefront",
+                              "BENCH_INTERSECT": "clustered"}, "K5"),
+]
+# Each earlier phase's Mpaths/s of the configuration a bench run repeats,
+# by the label of ``BENCH_RUNS``: host clock around the user's entry point,
+# the packs (and the gradient step's plan) inside the time.
+READINGS = {}
 
 
 # Gradients of the final scene that rest on a few near-tangent rays, where
@@ -406,20 +428,6 @@ def host_s(fn):
     return time.perf_counter() - t0, out
 
 
-def bound(pack, segments, out_bytes):
-    """The least time the card could take for a sweep of ``segments``
-    segments over the pack: the larger of its FP32 operations over the FP32
-    peak and its bytes (tables and camera read once, outputs written once)
-    over the memory rate.  Returns (ms, "operations" | "bytes")."""
-    ops = segments * (pack.sphere_rows * SPHERE_OPS
-                      + pack.tri_rows * TRIANGLE_OPS)
-    in_bytes = 4 * (20 + pack.spheres.numel() + pack.sph_mx.numel()
-                    + pack.tris.numel())
-    t_ops, t_bytes = ops / PEAK_FP32, (in_bytes + out_bytes) / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 def field_golden(what, label, tpu_key, total):
     """Holds a field frame's radiance sum within 1% of the oracle's golden
     and logs its offset from the TPU golden beside it."""
@@ -470,22 +478,6 @@ def reset_counts():
     rm.record_paths_mega_clustered.launches = 0
     ip.intersect_pallas.launches = 0
     ic.intersect_clustered.launches = 0
-
-
-def clustered_bound(pack, sweeps, out_bytes):
-    """The least time for a clustered sweep that did what ``sweeps`` (N, 4)
-    counts: its FP32 operations (slots and boxes tested) over the FP32 peak
-    against its bytes (tables and camera read once, outputs written once)
-    over the memory rate.  Returns (ms, "operations" | "bytes")."""
-    tot = sweeps.long().sum(0).tolist()
-    ops = tot[1] * SPHERE_OPS + tot[2] * TRIANGLE_OPS + tot[3] * BOX_OPS
-    tables = (pack.sph, pack.sph_mx, pack.boxes, pack.super_boxes,
-              pack.sph_starts, pack.sph_counts, pack.tris, pack.tri_boxes,
-              pack.tri_super_boxes, pack.tri_starts, pack.tri_counts)
-    in_bytes = 4 * 20 + sum(t.numel() * t.element_size() for t in tables)
-    t_ops, t_bytes = ops / PEAK_FP32, (in_bytes + out_bytes) / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def wavefront_tape(scene, cam, cfg, key, ray0, num_rays, chunk=1 << 13,
@@ -660,6 +652,7 @@ def render_path(dev, key, card):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     sec = statistics.median(seconds[1:])
+    READINGS["mega final scene"] = cfg.num_rays / sec / 1e6
     _, segs, steps = mk.render_pixels_mega(pack, cam, cfg, key,
                                            return_iters=True)
     rays = int(segs.sum())
@@ -962,6 +955,7 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
             params, scene, cam, cfg, key, ids, target, tape, plan=plan))[0]
         for _ in range(3))
     step_s = statistics.median(host_s(step)[0] for _ in range(3))
+    READINGS["grad final scene"] = R / step_s / 1e6
     D = cfg.max_depth + 1
     k2_bound = bound(pack, int(segs2.sum()),
                      16 * pixels_k2 + 4 * D * pixels_k2 * cfg.spp)
@@ -1106,6 +1100,7 @@ def large_scene_path(dev, key, card):
             seconds.append(host_s(lambda: mc.render_image_mega_clustered(
                 scene, cam, cfg, seed=0, device=dev))[0])
         sec = statistics.median(seconds[1:])
+        READINGS[f"megacluster {label}"] = cfg.num_rays / sec / 1e6
         pack_s = statistics.median(host_s(
             lambda: mc.pack_scene_mega_clustered(scene, cam))[0]
             for _ in range(3))
@@ -1256,6 +1251,7 @@ def clustered_tapes_and_step(dev, key, card, scenes):
         raise AssertionError("equal tapes, unequal losses")
     step_s = statistics.median(host_s(lambda: step(params, key))[0]
                                for _ in range(3))
+    READINGS["grad field5000"] = R / step_s / 1e6
     segments = int(its3.sum())
     log(f"  K3t at {R} rays: field5000 {k3t_ms:.3f} ms (bound "
         f"{bound[0]:.4f} ms, {bound[1]}; plain {plain_s * 1e3:.1f} ms, one "
@@ -1268,44 +1264,6 @@ def clustered_tapes_and_step(dev, key, card, scenes):
                 trips_err=trips_err,
                 plain_ms=plain_s * 1e3, bound=bound, agree=agree_plain,
                 agree_k2b=agree_k2b)
-
-
-def intersect_ops(pack, rays):
-    """FP32 operations of K4 over ``rays`` rays of a dense pack."""
-    return rays * (pack.sphere_rows * OC_SPHERE_OPS
-                   + pack.tri_rows * MT_TRIANGLE_OPS)
-
-
-def intersect_bound(ops, in_bytes, out_bytes):
-    """(ms, "operations" | "bytes") of ``ops`` FP32 operations against the
-    bytes read and written."""
-    t_ops, t_bytes = ops / PEAK_FP32, (in_bytes + out_bytes) / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def tensor_bytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def k4_bound(pack, rays, launches=1):
-    """K4's bound over ``launches`` launches of ``rays`` rays in all: the
-    table read once a launch, 24 bytes in and 8 out a ray."""
-    return intersect_bound(intersect_ops(pack, rays),
-                           launches * tensor_bytes(pack.spheres, pack.tris)
-                           + 24 * rays, 8 * rays)
-
-
-def k5_bound(pack, sweeps_total, rays, launches=1):
-    """K5's bound from the slots and boxes its counters say it tested
-    (``sweeps_total``: the four ``SWEEP_COLUMNS`` sums)."""
-    tot = [int(x) for x in sweeps_total]
-    ops = tot[1] * OC_SPHERE_OPS + tot[2] * MT_TRIANGLE_OPS + tot[3] * BOX_OPS
-    tables = tensor_bytes(pack.sph_vec, pack.tri_vec, pack.sph_box,
-                          pack.tri_box, pack.sph_super_box,
-                          pack.tri_super_box, pack.sph_gid, pack.tri_gid,
-                          pack.sph_count, pack.tri_count)
-    return intersect_bound(ops, launches * tables + 24 * rays, 8 * rays)
 
 
 class Clocked:
@@ -1525,6 +1483,7 @@ def dense_wavefront_path(dev, key, card):
     for mode in ("regenerative", "wavefront"):
         sec[mode] = statistics.median(host_s(lambda: frame(mode))[0]
                                       for _ in range(3))
+        READINGS[f"{mode} final scene"] = cfg.num_rays / sec[mode] / 1e6
     clocks = {mode: Clocked(ip.intersect_pallas,
                             keep=mode == "regenerative")
               for mode in ("regenerative", "wavefront")}
@@ -1604,6 +1563,7 @@ def clustered_wavefront_path(dev, key, card):
                      f"through K5, K5 launches {frame_launches}", label,
                      gkey, float(img.double().sum()) * cfg.spp)
         sec = statistics.median(host_s(frame)[0] for _ in range(3))
+        READINGS[f"wavefront {label}"] = cfg.num_rays / sec / 1e6
         clock = Clocked(ic.intersect_clustered, counters=True, keep=True)
         rad5, segs5 = frame_stats(scene, cam, cfg, key, cpack, clock)
         k5_frame_ms = clock.ms()
@@ -2026,6 +1986,41 @@ def occupancy_cli(dev, key, card, lane_eff, segments):
                              "off the wavefront's")
 
 
+def bench_runs(card):
+    """Phase 17: ``python3 bench_torch.py`` in subprocesses, one for each
+    of ``BENCH_RUNS``.  Each must exit 0 with one JSON line without an
+    ``error`` whose ``launches`` show its kernel.  Returns each kernel's
+    launches by label."""
+    launches = {}
+    for label, switches, kernel in BENCH_RUNS:
+        env = dict(os.environ, **switches)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        line = json.loads(lines[-1]) if lines else {}
+        if proc.returncode != 0 or "error" in line or len(lines) != 1:
+            log(proc.stderr[-4000:])
+            raise AssertionError(f"bench_torch.py {label} exited "
+                                 f"{proc.returncode}: {proc.stdout[-2000:]}")
+        n = line["launches"][kernel]
+        if n < 1:
+            raise AssertionError(f"bench_torch.py {label} launched no "
+                                 f"{kernel}: {line['launches']}")
+        launches.setdefault(kernel, {})[label] = n
+        seen = READINGS.get(label)
+        log(f"  {label}: {line['value']:.4f} Mpaths/s, {line['mrays_s']:.3f}"
+            f" Mrays/s, {line['seconds']:.4f} s median, vs_baseline "
+            f"{line['vs_baseline']:.3f}, {kernel} launches {n} "
+            f"({wall:.1f} s of process); the earlier phase's "
+            + (f"{seen:.4f} Mpaths/s (packs and plan inside its time)"
+               if seen is not None else "reading: none")
+            + f"; on {line['device']}")
+    return launches
+
+
 def main():
     # 1. Device.
     if not torch.cuda.is_available():
@@ -2070,8 +2065,13 @@ def main():
     slice15 = two_processes(dev, card, final_img, f20_img, g["step"])  # 15.
     log("cli occupancy:")
     occupancy_cli(dev, key, card, *k1_steps)  # 16.
+    log("bench_torch.py:")
+    bench = bench_runs(card)  # 17.
     k1["sharded_launches"] = {"phase14": slice14["K1"]}
     k4["sharded_launches"] = {"phase15": slice15["K4"]}
+    k1["bench_launches"] = bench["K1"]
+    k4["bench_launches"] = bench["K4"]
+    k5["bench_launches"] = bench["K5"]
 
     src = "first_raytracer_tpu_torch/kernels/csrc/"
     f20 = fields["field20000"]
@@ -2091,7 +2091,8 @@ def main():
         "ms": g["kb_ms"],
         "plain_ms": g["plain_b_ms"], "bound_ms": g["kb_bound"][0],
         "bound_by": g["kb_bound"][1], "library_ms": None,
-        "sharded_launches": {"phase15": slice15["K2b"]}}, {
+        "sharded_launches": {"phase15": slice15["K2b"]},
+        "bench_launches": bench["K2b"]}, {
         "name": "K3 clustered megakernel (render_pixels_mega_clustered), "
                 "field20000 800x450@4 (plain_ms: a quarter of the pixels)",
         "route": "cuda", "source": src + "megakernel_clustered.cu",
@@ -2099,7 +2100,8 @@ def main():
         "max_abs_err": f20["err"], "ms": f20["ms"],
         "plain_ms": f20["plain_ms"],
         "bound_ms": f20["bound"][0], "bound_by": f20["bound"][1],
-        "library_ms": None, "sharded_launches": {"phase14": slice14["K3"]}},
+        "library_ms": None, "sharded_launches": {"phase14": slice14["K3"]},
+        "bench_launches": bench["K3"]},
         {
         "name": "K3t clustered recorder (record_paths_mega_clustered), "
                 "2^17 rays of field5000",
@@ -2108,7 +2110,8 @@ def main():
         "max_abs_err": t10["trips_err"], "tape_agreement": t10["agree"],
         "tape_agreement_with_k2b": t10["agree_k2b"], "ms": t10["ms"],
         "plain_ms": t10["plain_ms"], "bound_ms": t10["bound"][0],
-        "bound_by": t10["bound"][1], "library_ms": None}, k4, k5]}))
+        "bound_by": t10["bound"][1], "library_ms": None,
+        "bench_launches": bench["K3t"]}, k4, k5]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -40,10 +40,13 @@ __all__ = ["render_rays_regenerative"]
 def render_rays_regenerative(scene, camera, cfg: RenderConfig, key,
                              start_id: int, num_rays: int, accel=None,
                              intersect_fn: Optional[Callable] = None,
-                             pool_size: int = 1 << 16):
+                             pool_size: int = 1 << 16,
+                             return_stats: bool = False):
     """Trace rays [start_id, start_id + num_rays) through a pool of
     ``pool_size`` slots; returns their (num_rays, 3) radiance on the
-    scene's device."""
+    scene's device, and with ``return_stats=True`` also their (num_rays,)
+    int32 segment counts, as ``trace_rays`` counts them (a pass adds one
+    to each slot that is alive)."""
     if intersect_fn is None:
         intersect_fn = default_intersect
     C = pool_size
@@ -58,6 +61,7 @@ def render_rays_regenerative(scene, camera, cfg: RenderConfig, key,
                              rng.camera_uniforms(key, ids))
 
     out = torch.zeros((num_rays, 3), dtype=f32, device=dev)
+    segments = torch.zeros((num_rays,), dtype=torch.int32, device=dev)
     slot = torch.arange(C, dtype=torch.int64, device=dev)
     ids = start_id + slot
     o, d = fresh_rays(ids)
@@ -67,6 +71,10 @@ def render_rays_regenerative(scene, camera, cfg: RenderConfig, key,
     alive = slot < cursor
     while bool(alive.any()):
         prim, _, hit = intersect_fn(scene, accel, o, d, cfg.t_min)
+        if return_stats:
+            live = ids[alive] - start_id
+            segments.index_add_(0, live, torch.ones_like(live,
+                                                         dtype=torch.int32))
         t, p, n, mat = recompute_hit(scene, o, d, prim, cfg.t_min)
         hit = hit & (t < BIG)
         p = torch.where(hit[:, None], p, 0.0)
@@ -100,4 +108,4 @@ def render_rays_regenerative(scene, camera, cfg: RenderConfig, key,
         alive = torch.cat([torch.ones((n_alive,), dtype=torch.bool,
                                       device=dev), fresh_idx < num_rays])
         cursor += min(C - n_alive, max(num_rays - cursor, 0))
-    return out
+    return (out, segments) if return_stats else out

@@ -16,7 +16,8 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["Timer", "time_fn", "throughput", "trace_to"]
+__all__ = ["Timer", "time_fn", "time_repeats", "throughput",
+           "trace_to"]
 
 
 @dataclass
@@ -53,14 +54,23 @@ def time_fn(fn: Callable, *args, warmup: int = 1, repeats: int = 3,
             **kwargs) -> float:
     """Best-of-N seconds for ``fn(*args, **kwargs)``, each run waiting for
     the devices that hold its outputs."""
+    return min(time_repeats(fn, *args, warmup=warmup, repeats=repeats,
+                            **kwargs))
+
+
+def time_repeats(fn: Callable, *args, warmup: int = 0, repeats: int = 3,
+                 **kwargs) -> list:
+    """Seconds of each of ``repeats`` runs of ``fn(*args, **kwargs)``
+    after ``warmup`` untimed ones, each run waiting for the devices that
+    hold its outputs: the samples of a median and a spread."""
     for _ in range(warmup):
         _wait(fn(*args, **kwargs))
-    best = float("inf")
+    times = []
     for _ in range(repeats):
         t0 = time.perf_counter()
         _wait(fn(*args, **kwargs))
-        best = min(best, time.perf_counter() - t0)
-    return best
+        times.append(time.perf_counter() - t0)
+    return times
 
 
 def throughput(num_paths: int, num_segments: int, seconds: float) -> dict:

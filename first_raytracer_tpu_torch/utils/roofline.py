@@ -1,0 +1,146 @@
+"""One count of the kernels' work: FP32 operations and bytes, and the
+least time an H100 could take for them.
+
+``chip_smoke.py`` prints its bounds from these counts and ``bench.py``
+guards its measured rates with them, so the two can never count
+differently.  The operations are counted from the CUDA sources:
+
+- K1, K2, K2b (``kernels/csrc/mega_common.cuh``): 20 FP32 operations per
+  (segment, sphere) and 46 per (segment, triangle) that every sweep step
+  does (``sphere_group``'s float prefilter: 3 + 5 + 5 + 1 + 1 + 2 + 1 + 1
+  + 1 for a sphere; ``triangle_hit``: 9 + 5 + 1 + 3 + 6 + 9 + 6 + 6 + 1 for
+  a triangle).  The float64 root of the spheres past the prefilter,
+  shading and Threefry are left out, so a bound is a lower one.
+- K3, K3t: the slots and boxes their ``SWEEP_COLUMNS`` counters say they
+  tested, 29 operations per box (``ClusterScene::gate`` in
+  ``kernels/csrc/megakernel_clustered.cu``: 6 subtractions and 6
+  multiplications, 10 minima and maxima, 4 for the widening, 3 for the
+  test).
+- K4, K5 (``kernels/csrc/intersect.cu``): 16 per (ray, sphere), the
+  oc-form quadratic on (cx, cy, cz, r*r) (3 + 5 + 6 + 2), and the dense
+  sweep's 46 per (ray, triangle) on (v0, e1, e2); r*r and the edges are
+  computed once per primitive, when K4 stages a tile or the host packs
+  K5's rows.  K5 adds 29 per box, supergroup or cluster, its counters say
+  it tested.
+"""
+from __future__ import annotations
+
+__all__ = ["PEAK_FP32", "PEAK_BYTES", "FP32_PEAKS", "SPHERE_OPS",
+           "TRIANGLE_OPS", "BOX_OPS", "OC_SPHERE_OPS", "MT_TRIANGLE_OPS",
+           "dense_ops", "clustered_ops", "intersect_ops", "k5_ops",
+           "roofline", "bound", "clustered_bound", "intersect_bound",
+           "tensor_bytes", "k4_bound", "k5_bound", "fp32_peak"]
+
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores,
+# and HBM3 bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 peak outside the tensor cores by ``torch.cuda.get_device_name``
+# (NVIDIA's data sheets).  ``bench.py``'s plausibility guard reads it; a
+# card missing here is an error there, never a guess.
+FP32_PEAKS = {
+    "NVIDIA H100 80GB HBM3": PEAK_FP32,  # SXM5
+    "NVIDIA H100 PCIe": 51e12,
+    "NVIDIA H100 NVL": 60e12,
+}
+SPHERE_OPS, TRIANGLE_OPS = 20, 46
+BOX_OPS = 29
+OC_SPHERE_OPS, MT_TRIANGLE_OPS = 16, 46
+
+
+def fp32_peak(name: str) -> float:
+    """The FP32 peak of the card named ``name``; KeyError if the table
+    does not hold it."""
+    try:
+        return FP32_PEAKS[name]
+    except KeyError:
+        raise KeyError(f"no FP32 peak for {name!r} in "
+                       "utils/roofline.FP32_PEAKS") from None
+
+
+def dense_ops(pack, segments):
+    """FP32 operations of K1's (K2's, K2b's) sweep over ``segments``
+    segments: every segment tests every row of the dense pack."""
+    return segments * (pack.sphere_rows * SPHERE_OPS
+                       + pack.tri_rows * TRIANGLE_OPS)
+
+
+def clustered_ops(sweeps_total):
+    """FP32 operations of K3's (K3t's) gated sweep from the sums of its
+    ``SWEEP_COLUMNS`` counters: slots and boxes tested."""
+    tot = [int(x) for x in sweeps_total]
+    return tot[1] * SPHERE_OPS + tot[2] * TRIANGLE_OPS + tot[3] * BOX_OPS
+
+
+def intersect_ops(pack, rays):
+    """FP32 operations of K4 over ``rays`` rays of a dense pack."""
+    return rays * (pack.sphere_rows * OC_SPHERE_OPS
+                   + pack.tri_rows * MT_TRIANGLE_OPS)
+
+
+def k5_ops(sweeps_total):
+    """FP32 operations of K5 from the sums of its four ``SWEEP_COLUMNS``
+    counters: slots and boxes tested."""
+    tot = [int(x) for x in sweeps_total]
+    return (tot[1] * OC_SPHERE_OPS + tot[2] * MT_TRIANGLE_OPS
+            + tot[3] * BOX_OPS)
+
+
+def roofline(ops, nbytes):
+    """(ms, "operations" | "bytes"): the larger of ``ops`` FP32 operations
+    over the FP32 peak and ``nbytes`` over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(pack, segments, out_bytes):
+    """The least time the card could take for a sweep of ``segments``
+    segments over the dense pack: its FP32 operations against its bytes
+    (tables and camera read once, outputs written once).  Returns (ms,
+    "operations" | "bytes")."""
+    in_bytes = 4 * (20 + pack.spheres.numel() + pack.sph_mx.numel()
+                    + pack.tris.numel())
+    return roofline(dense_ops(pack, segments), in_bytes + out_bytes)
+
+
+def clustered_bound(pack, sweeps, out_bytes):
+    """The least time for a clustered sweep that did what ``sweeps`` (N, 4+)
+    counts: its FP32 operations (slots and boxes tested) against its bytes
+    (tables and camera read once, outputs written once).  Returns (ms,
+    "operations" | "bytes")."""
+    tables = (pack.sph, pack.sph_mx, pack.boxes, pack.super_boxes,
+              pack.sph_starts, pack.sph_counts, pack.tris, pack.tri_boxes,
+              pack.tri_super_boxes, pack.tri_starts, pack.tri_counts)
+    in_bytes = 4 * 20 + tensor_bytes(*tables)
+    return roofline(clustered_ops(sweeps.long().sum(0).tolist()),
+                    in_bytes + out_bytes)
+
+
+def intersect_bound(ops, in_bytes, out_bytes):
+    """(ms, "operations" | "bytes") of ``ops`` FP32 operations against the
+    bytes read and written."""
+    return roofline(ops, in_bytes + out_bytes)
+
+
+def k4_bound(pack, rays, launches=1):
+    """K4's bound over ``launches`` launches of ``rays`` rays in all: the
+    table read once a launch, 24 bytes in and 8 out a ray."""
+    return intersect_bound(intersect_ops(pack, rays),
+                           launches * tensor_bytes(pack.spheres, pack.tris)
+                           + 24 * rays, 8 * rays)
+
+
+def k5_bound(pack, sweeps_total, rays, launches=1):
+    """K5's bound from the slots and boxes its counters say it tested
+    (``sweeps_total``: the four ``SWEEP_COLUMNS`` sums)."""
+    tables = tensor_bytes(pack.sph_vec, pack.tri_vec, pack.sph_box,
+                          pack.tri_box, pack.sph_super_box,
+                          pack.tri_super_box, pack.sph_gid, pack.tri_gid,
+                          pack.sph_count, pack.tri_count)
+    return intersect_bound(k5_ops(sweeps_total),
+                           launches * tables + 24 * rays, 8 * rays)

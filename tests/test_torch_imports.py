@@ -90,11 +90,24 @@ def test_sharding_slice_modules_are_scanned(name):
     assert not [r for r in _imported_roots(path) if r in FORBIDDEN]
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py",
+# The modules of the bench entry slice.
+SLICE_F = ["bench", "entry", "utils.roofline"]
+
+
+@pytest.mark.parametrize("name", SLICE_F)
+def test_bench_slice_modules_are_scanned(name):
+    full = f"first_raytracer_tpu_torch.{name}"
+    path = dict((n, p) for p, n in _modules())[full]
+    assert not [r for r in _imported_roots(path) if r in FORBIDDEN]
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "bench_torch.py",
+                                  os.path.join("probes", "grad_syncs.py"),
                                   os.path.join("tests",
                                                "torch_dist_worker.py")])
 def test_scripts_import_no_jax(path):
-    """The card's smoke script and the multi-process tests' worker import
-    neither JAX nor the JAX package."""
+    """The card's smoke script, the bench entry, the grad step's sync
+    probe and the multi-process tests' worker import neither JAX nor the
+    JAX package."""
     roots = set(_imported_roots(os.path.join(REPO, path)))
     assert not roots & set(FORBIDDEN)

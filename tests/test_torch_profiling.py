@@ -1,8 +1,8 @@
 """The port's timing helpers against the JAX package's.
 
 ``throughput`` is the same arithmetic in both packages and must give equal
-dicts; ``time_fn`` and ``Timer`` measure host seconds (on the CPU here; on
-a GPU ``time_fn`` waits for the device); ``trace_to`` writes a
+dicts; ``time_fn``, ``time_repeats`` and ``Timer`` measure host seconds (on
+the CPU here; on a GPU the timers wait for the device); ``trace_to`` writes a
 ``torch.profiler`` Chrome trace.
 """
 import json
@@ -13,7 +13,8 @@ import torch
 
 from first_raytracer_tpu.utils.profiling import throughput as jax_throughput
 from first_raytracer_tpu_torch.utils.profiling import (Timer, throughput,
-                                                       time_fn, trace_to)
+                                                       time_fn, time_repeats,
+                                                       trace_to)
 
 
 @pytest.mark.parametrize("paths,segments,seconds",
@@ -47,3 +48,11 @@ def test_trace_to(tmp_path):
         torch.ones(64).sum()
     with open(os.path.join(logdir, "trace.json")) as f:
         assert "traceEvents" in json.load(f)
+
+
+def test_time_repeats_gives_every_repeat():
+    calls = []
+    times = time_repeats(lambda x: calls.append(x) or torch.ones(2) * x,
+                         3.0, warmup=1, repeats=4)
+    assert len(times) == 4 and len(calls) == 5
+    assert all(t >= 0.0 for t in times)
