@@ -30,8 +30,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``render_pixels_mega(emit_tape=True)`` over the full frame, with its
    launch counter reset before and read after; a 512-ray slice at ray id
    9.5 M of the final scene through K2 and K2b equal to the same columns of
-   the full-frame K2 tape and to the plain K2b's; K1, K2 and K2b timed at
-   full frame, in turns.
+   the full-frame K2 tape and to the plain K2b's; K2b over the whole frame
+   (9.6 M ray ids, far past the card's resident lanes, so its warps take
+   many windows of ids each): its tape bit-equal to the full-frame K2
+   tape, its trips per pixel to phase 3's K1 segments (held there to the
+   plain version), its last 2^17 columns and trips bit-equal to the plain
+   K2b's, its warp lane efficiency (trips over 32 x its warps' steps)
+   logged; K1, K2 and K2b timed at full frame, in turns.
 6. The differentiable path at full width (bench.py's grad configuration):
    the final scene, ray ids [0, 2^17), zero target, mean squared radiance,
    every DIFF_FIELDS leaf.  Counters reset, then one step (record by K2b,
@@ -54,7 +59,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
    within 1e-6, those that rest on near-tangent rays (``TANGENT_FIELDS``)
    within 1e-2.  Times: K2, K2b and their plain versions at 2^17 rays, the
    replay's value and gradient, the whole step (median of 3 after the warm
-   step), peak memory.
+   step), peak memory; K2b's warp lane efficiency at 2^17 rays.
 7. ``python -m first_raytracer_tpu_torch.cli fit ... --fast`` in a
    subprocess on the card: exits 0, the loss falls, K2b launched each step.
 8. K3 vs plain on small scenes: three-spheres, random-spheres and
@@ -93,8 +98,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    DIFF_FIELDS leaf, zero target, counters reset before and read after: it
    launches K3t, its loss and gradients are finite, its loss is within
    1e-3 of the loss on K2b's tape and each ray's replayed radiance is
-   bit-equal where the two tapes are; K3t's ms, the step's seconds (median
-   of 3 after the first) and gradient Mpaths/s.
+   bit-equal where the two tapes are; K3t's ms and warp lane efficiency
+   (trips over 32 x ``sweeps[:, 5]``) on both fields (2^17 rays are past
+   its resident lanes, 4 blocks of 128 on each SM), the step's seconds
+   (median of 3 after the first) and gradient Mpaths/s.
 
 11. K4 and K5 against their plain versions: the small scenes of phase 8
    and sphere_field(5000), each on its camera rays and on 4096 random rays
@@ -676,11 +683,12 @@ def render_path(dev, key, card):
           "replaces": mk.REPLACES, "launches": launches,
           "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    return k1, scene, cam, cfg, pack, img.cpu(), (lane_eff, rays)
+    return k1, scene, cam, cfg, pack, img.cpu(), (lane_eff, rays), segs
 
 
-def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack):
-    """Phase 5."""
+def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack, k1_segs):
+    """Phase 5.  ``k1_segs``: K1's segments over the frame (phase 3 holds
+    K1 bit-equal to its plain version)."""
     for preset, kw in SMALL_CASES:
         s, c, cf = build_preset(preset, device=dev, **kw)
         p = mk.pack_scene_mega(s)
@@ -752,7 +760,30 @@ def tape_kernels_vs_plain(dev, key, card, scene, cam, cfg, pack):
         raise AssertionError("the slice differs from the plain K2b's")
     log(f"  slice [{SLICE_RAY0}, +{SLICE_RAYS}) through K2 and K2b equals "
         "the full-frame K2 tape's columns")
-    del full, want
+    del want
+    # K2b over the whole frame, where its warps regenerate across many
+    # windows of ray ids.
+    tape_f, its_f, steps_f = rm._launch_record(
+        pack, mk.camera_table(cam).to(dev), cfg, key, 0, cfg.num_rays,
+        cfg.spp, return_steps=True)
+    torch.cuda.synchronize()
+    bit_equal("K2b over the whole frame, its tape", (tape_f,), (full,),
+              against="the full-frame K2 tape")
+    bit_equal("K2b over the whole frame, its trips per pixel",
+              (its_f.reshape(-1, cfg.spp).sum(1, dtype=torch.int32),),
+              (k1_segs,), against="K1's segments")
+    lo = cfg.num_rays - GRAD_RAYS
+    ref_f, ref_its_f = rm.record_paths_mega_reference(
+        pack, cam, cfg, key, ray0=lo, num_rays=GRAD_RAYS)
+    bit_equal(f"K2b over the whole frame, its columns [{lo}, "
+              f"{cfg.num_rays})", (tape_f[:, lo:], its_f[lo:]),
+              (ref_f, ref_its_f))
+    trips = int(its_f.long().sum())
+    log(f"  K2b over the whole frame ({cfg.num_rays} ray ids): warp lane "
+        f"efficiency {trips / (32 * int(steps_f.long().sum())):.4f} "
+        f"({trips} trips, {int((steps_f > 0).sum())} warps took ids); on "
+        f"{card}")
+    del full, tape_f, its_f, steps_f, ref_f, ref_its_f
     torch.cuda.empty_cache()
     calls = {
         "K1": lambda: mk.render_pixels_mega(pack, cam, cfg, key),
@@ -960,8 +991,13 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
     k2_bound = bound(pack, int(segs2.sum()),
                      16 * pixels_k2 + 4 * D * pixels_k2 * cfg.spp)
     kb_bound = bound(pack, segments, 4 * (D + 1) * R)
+    _, _, kb_steps = rm._launch_record(pack, mk.camera_table(cam).to(dev),
+                                       cfg, key, 0, R, cfg.spp,
+                                       return_steps=True)
+    kb_lanes = segments / (32 * int(kb_steps.long().sum()))
     log(f"  at {R} rays: K2 {k2_ms:.3f} ms (bound {k2_bound[0]:.4f} ms), "
-        f"K2b {kb_ms:.3f} ms (bound {kb_bound[0]:.4f} ms), plain K2 "
+        f"K2b {kb_ms:.3f} ms (bound {kb_bound[0]:.4f} ms, warp lane "
+        f"efficiency {kb_lanes:.4f}), plain K2 "
         f"{plain2_s * 1e3:.1f} ms, plain K2b {plain_b_s * 1e3:.1f} ms (one "
         f"run each); on {card}")
     log(f"  replay value and gradient {replay_s * 1e3:.1f} ms; whole step "
@@ -1195,7 +1231,11 @@ def clustered_tapes_and_step(dev, key, card, scenes):
 
     s20, c20, cfg20 = scenes["field20000"]
     p20 = mc.pack_scene_mega_clustered(s20, c20)
-    t20 = rm.record_paths_mega_clustered(p20, c20, cfg20, key, num_rays=R)
+    t20, its20, sweeps20 = rm.record_paths_mega_clustered(
+        p20, c20, cfg20, key, num_rays=R, return_iters=True)
+    lanes = {f: int(i.long().sum()) / (32 * int(w[:, 5].long().sum()))
+             for f, i, w in (("field5000", its3, sweeps3),
+                             ("field20000", its20, sweeps20))}
     ref20, _ = rm.record_paths_mega_clustered_reference(p20, c20, cfg20,
                                                         key, num_rays=R)
     tape_agreement(f"field20000 rays [0, {R}): K3t vs its plain version",
@@ -1206,7 +1246,7 @@ def clustered_tapes_and_step(dev, key, card, scenes):
                         wavefront_tape(s20, c20, cfg20, key, 0, R), s20)
     k3t20_ms = cuda_ms(lambda: rm.record_paths_mega_clustered(
         p20, c20, cfg20, key, num_rays=R), 3)
-    del t20, p20
+    del t20, its20, sweeps20, p20
 
     # One clustered fit step on field5000 through the user's entry point.
     ids = torch.arange(R, device=dev)
@@ -1255,7 +1295,8 @@ def clustered_tapes_and_step(dev, key, card, scenes):
     segments = int(its3.sum())
     log(f"  K3t at {R} rays: field5000 {k3t_ms:.3f} ms (bound "
         f"{bound[0]:.4f} ms, {bound[1]}; plain {plain_s * 1e3:.1f} ms, one "
-        f"run), field20000 {k3t20_ms:.3f} ms; the step {step_s * 1e3:.1f} ms"
+        f"run), field20000 {k3t20_ms:.3f} ms; warp lane efficiency "
+        f"{lanes}; the step {step_s * 1e3:.1f} ms"
         f" median of 3: {R / step_s / 1e6:.4f} gradient Mpaths/s, "
         f"{segments / step_s / 1e6:.3f} Mrays/s ({segments} segments); "
         f"trip counts off the plain version's by at most {trips_err}; on "
@@ -2034,11 +2075,12 @@ def main():
 
     build()  # 2.
     key = rng.base_key(0)
-    k1, scene, cam, cfg, pack, final_img, k1_steps = render_path(
+    k1, scene, cam, cfg, pack, final_img, k1_steps, k1_segs = render_path(
         dev, key, card)  # 3, 4.
     log("K2 and K2b vs plain:")
     k2_launches = tape_kernels_vs_plain(dev, key, card, scene, cam, cfg,
-                                        pack)  # 5.
+                                        pack, k1_segs)  # 5.
+    del k1_segs
     g = grad_path(dev, key, card, scene, cam, cfg, pack)  # 6.
     fit_cli(card)  # 7.
     del scene, pack

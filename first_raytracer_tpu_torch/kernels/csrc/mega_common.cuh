@@ -2,14 +2,20 @@
 // standalone tape recorder (K2b) and the clustered megakernel (K3, K3t): the
 // Threefry stream, the thin-lens camera ray, the dense sweep with exact
 // closest-hit selection, the shading of one segment, and the two loops that
-// drive paths through them: `render_warp` (K1, K2, K3), where a warp's lanes
-// take the next unstarted (pixel, sample) as their paths end, and
-// `record_rays` (K2b, K3t), one path a thread.  Both are templated over the
-// scene's closest-hit routine (DenseScene here, ClusterScene in
+// drive paths through them, both run by persistent warps that take work
+// from a launch-wide counter: `render_warp` (K1, K2, K3), where a warp's
+// lanes take the next unstarted (pixel, sample) as their paths end and
+// each pixel is summed in sample order, and `record_warp` (K2b, K3t), where
+// they take the next unstarted ray id of the warp's window and each ray
+// writes its own tape column.  Both are templated over the scene's
+// closest-hit routine (DenseScene here, ClusterScene in
 // megakernel_clustered.cu), so the recorded tapes cannot drift from the
 // rendered paths and a clustered path is shaded by the same code as a dense
 // one.  Every lane of a warp calls the closest hit at the same step (an idle
-// lane with `active` false), so a scene may sweep with the whole warp.
+// lane with `active` false), so a scene sweeps with the whole warp: the
+// clustered sweep splits each opened cluster's (ray, cluster) pairs over
+// the warp (and K3t's walks its few live rays' gates together), the dense
+// one each live ray's primitives over the idle lanes.
 //
 // Dense scene tables (built on the host by
 // kernels/megakernel.py::pack_scene_mega, primitives sorted into six
@@ -199,6 +205,29 @@ constexpr int kGroup = 4;  // spheres whose discriminants share a branch
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
+// The lexicographic (t, column) fold of a hit into a running winner.
+__device__ __forceinline__ void fold_lex(float t, int w, float& t_best,
+                                         int& w_best) {
+  if (t < t_best || (t == t_best && w < w_best)) {
+    t_best = t;
+    w_best = w;
+  }
+}
+
+// The lane of the g-th set bit of `mask`.
+__device__ __forceinline__ int nth_lane(unsigned mask, int g) {
+  for (int i = 0; i < g; ++i) mask &= mask - 1u;
+  return __ffs(static_cast<int>(mask)) - 1;
+}
+
+// Lanes that share one ray's sweep when k lanes of the warp need one: the
+// largest power of two S with k * S <= 32, at most `most`.
+__device__ __forceinline__ int lanes_per_ray(int k, int most) {
+  int split = 1;
+  while (split < most && 2 * split * k <= kWarpSize) split *= 2;
+  return split;
+}
+
 // The sphere root of every megakernel.  For the kGroup spheres s[g] = (cx,
 // cy, cz, r) numbered base + g: b = d.(o - C), c = (o - C).(o - C) - r^2,
 // the discriminant b^2 - c and the roots -b -+ sqrt(b^2 - c), all in double
@@ -297,6 +326,17 @@ __device__ __forceinline__ bool triangle_hit(float v0x, float v0y, float v0z,
 // of its first kTriCap triangles are staged once per block in shared
 // memory (`stage`); a larger scene's remaining primitives are read from
 // device memory, after the staged ones, so the sweep keeps index order.
+//
+// The sweep is the warp's: with k lanes live, each live ray's sphere
+// groups and triangles are split over S = 32 / k lanes (rounded down to a
+// power of two), and the S partial winners of each primitive type
+// meet in a warp-shuffle lexicographic minimum of (t, column), as K3
+// splits a cluster's members.  The winner is the one a lane's own sweep in
+// index order picks, so the split is exact; with one lane live its path's
+// segment costs about a 32nd of a sweep.  With more than 16 live (S = 1)
+// each live lane sweeps its own ray.  K2b's tail, where a launch of 2^17
+// rays waits on its deepest paths, needs it; K1 measured 13.2-13.5 ms
+// with it against 13.9-14.3 without (probes/mega_grid.py, PERF.md).
 struct DenseScene {
   Tables tb;
   const float4* srow = nullptr;  // staged sphere rows
@@ -308,7 +348,7 @@ struct DenseScene {
     static constexpr int kLane = 0;
     int warp_clusters = 0;
     __device__ __forceinline__ void flush(int*) {}
-    __device__ __forceinline__ void store(int*) const {}
+    __device__ __forceinline__ void store(int*) {}
   };
 
   // Bytes of shared memory `stage` takes for ns spheres and nt triangles.
@@ -343,38 +383,36 @@ struct DenseScene {
     tpl = planes;
   }
 
-  // Exact (min t, lowest sorted index) selection over every sphere and
-  // triangle; a sphere wins a sphere/triangle tie.
-  __device__ __forceinline__ void closest(float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float t_min, bool, Hit& h,
-                                          Counters&) const {
+  // Sphere groups sub, sub + split, ... and triangles sub, sub + split, ...
+  // against the ray o + t d, each type folded in index order (the lowest
+  // column wins a tie): (t_s, w_s) and (t_t, w_t), kBig and 0 on a miss.
+  __device__ __forceinline__ void sweep(float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float t_min, int sub, int split,
+                                        float& t_s, int& w_s, float& t_t,
+                                        int& w_t) const {
     const float slack = sphere_slack(dx, dy, dz);
-    float t_s = kBig;
-    int w_s = 0;
     auto fold_s = [&](float t, int i) {
       if (t < t_s) {  // strict: the lowest index wins a tie
         t_s = t;
         w_s = i;
       }
     };
-    for (int k = 0; k < ns_tile; k += kGroup) {
+    for (int k = kGroup * sub; k < ns_tile; k += kGroup * split) {
       const float4 s[kGroup] = {srow[k], srow[k + 1], srow[k + 2],
                                 srow[k + 3]};
       sphere_group(s, ox, oy, oz, dx, dy, dz, slack, t_min, k, fold_s);
     }
     // Past the staged rows: device memory, whose rows past ns are never
     // hit either.
-    for (int k = ns_tile; k < tb.ns; k += kGroup) {
+    for (int k = ns_tile + kGroup * sub; k < tb.ns; k += kGroup * split) {
       const float4 s[kGroup] = {
           __ldg(&tb.mx[2 * k + 1]), __ldg(&tb.mx[2 * k + 3]),
           __ldg(&tb.mx[2 * k + 5]), __ldg(&tb.mx[2 * k + 7])};
       sphere_group(s, ox, oy, oz, dx, dy, dz, slack, t_min, k, fold_s);
     }
-    float t_t = kBig;
-    int w_t = 0;
     const int tp = tpitch;
-    for (int i = 0; i < nt_tile; ++i) {
+    for (int i = sub; i < nt_tile; i += split) {
       float t;
       if (triangle_hit(tpl[i], tpl[tp + i], tpl[2 * tp + i], tpl[3 * tp + i],
                        tpl[4 * tp + i], tpl[5 * tp + i], tpl[6 * tp + i],
@@ -387,7 +425,7 @@ struct DenseScene {
     }
     const float* __restrict__ tri = tb.tri;
     const int gp = tb.nt_pad;
-    for (int i = nt_tile; i < tb.nt; ++i) {
+    for (int i = nt_tile + sub; i < tb.nt; i += split) {
       float t;
       if (triangle_hit(__ldg(&tri[i]), __ldg(&tri[gp + i]),
                        __ldg(&tri[2 * gp + i]), __ldg(&tri[3 * gp + i]),
@@ -399,6 +437,55 @@ struct DenseScene {
         t_t = t;
         w_t = i;
       }
+    }
+  }
+
+  // Exact (min t, lowest sorted index) selection over every sphere and
+  // triangle; a sphere wins a sphere/triangle tie.  Every lane of the warp
+  // calls it, and h is set on the live (`active`) lanes only.
+  __device__ __forceinline__ void closest(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float t_min, bool active, Hit& h,
+                                          Counters&) const {
+    float t_s = kBig, t_t = kBig;
+    int w_s = 0, w_t = 0;
+    const unsigned live = __ballot_sync(kFullMask, active);
+    const int split = lanes_per_ray(__popc(live), kWarpSize);
+    if (split == 1) {
+      if (!active) return;
+      sweep(ox, oy, oz, dx, dy, dz, t_min, 0, 1, t_s, w_s, t_t, w_t);
+    } else {
+      // Lane g * split + sub takes share sub of the ray of the g-th live
+      // lane.
+      const int lane = threadIdx.x % kWarpSize;
+      const int g = lane / split;
+      const bool mine = g < __popc(live);
+      const int src = mine ? nth_lane(live, g) : lane;
+      const float rox = __shfl_sync(kFullMask, ox, src);
+      const float roy = __shfl_sync(kFullMask, oy, src);
+      const float roz = __shfl_sync(kFullMask, oz, src);
+      const float rdx = __shfl_sync(kFullMask, dx, src);
+      const float rdy = __shfl_sync(kFullMask, dy, src);
+      const float rdz = __shfl_sync(kFullMask, dz, src);
+      if (mine)
+        sweep(rox, roy, roz, rdx, rdy, rdz, t_min, lane % split, split, t_s,
+              w_s, t_t, w_t);
+      for (int o = 1; o < split; o <<= 1) {  // the ray's split partials
+        const float ts = __shfl_xor_sync(kFullMask, t_s, o);
+        const int ws = __shfl_xor_sync(kFullMask, w_s, o);
+        const float tt = __shfl_xor_sync(kFullMask, t_t, o);
+        const int wt = __shfl_xor_sync(kFullMask, w_t, o);
+        fold_lex(ts, ws, t_s, w_s);
+        fold_lex(tt, wt, t_t, w_t);
+      }
+      // Each live lane takes its ray's winners from the first lane of its
+      // share: its rank among the live lanes, times the split.
+      const int rank = __popc(live & ((1u << lane) - 1u));
+      const int from = active ? rank * split : lane;
+      t_s = __shfl_sync(kFullMask, t_s, from);
+      w_s = __shfl_sync(kFullMask, w_s, from);
+      t_t = __shfl_sync(kFullMask, t_t, from);
+      w_t = __shfl_sync(kFullMask, w_t, from);
     }
     h.w_s = w_s;
     h.w_t = w_t;
@@ -626,6 +713,11 @@ struct RenderLaunch {
 constexpr int kRenderThreads = 128;
 constexpr int kRenderWarps = kRenderThreads / kWarpSize;
 
+// The groups of 32 pixels a render of `num_pixels` hands out to warps.
+__host__ __device__ constexpr int pixel_groups(int num_pixels) {
+  return (num_pixels + kWarpSize - 1) / kWarpSize;
+}
+
 // Bytes of a warp's shared store in render_warp: two slots, each the
 // radiance of `chunk` samples of 32 pixels; two groups' segment counts and
 // `lane` counters per pixel; the warp's first group (4 ints).
@@ -669,7 +761,7 @@ __device__ void render_warp(const Scene& scene, const CameraRow& cam,
   int* first = pcnt + 2 * kWarpSize * kLane;
   for (int k = lane; k < 2 * kWarpSize * (1 + kLane); k += kWarpSize)
     pseg[k] = 0;
-  const int groups = (ln.num_pixels + kWarpSize - 1) / kWarpSize;
+  const int groups = pixel_groups(ln.num_pixels);
   // Pixels traced: a prefix of the launch's (its end, the image's).
   const int traced = min(ln.num_pixels, ln.total_pixels - ln.pix0);
   const int nchunks = (ln.spp + chunk - 1) / chunk;
@@ -859,13 +951,13 @@ int allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// The blocks of a launch of `kernel` with `smem` bytes of shared memory
-// over `num_pixels` pixels: as many as the card holds at once (the warps
-// take their work from the launch's counter), but no more than the pixels
+// The blocks of a persistent launch of `kernel` with `smem` bytes of
+// shared memory whose warps take `units` units of work from the launch's
+// counter: as many as the card holds at once, but no more than the units
 // need.
 template <class K>
-int render_blocks(K kernel, int smem, int num_pixels) {
-  const int need = (num_pixels + kRenderThreads - 1) / kRenderThreads;
+int render_blocks(K kernel, int smem, int units) {
+  const int need = (units + kRenderWarps - 1) / kRenderWarps;
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
@@ -878,51 +970,117 @@ int render_blocks(K kernel, int smem, int num_pixels) {
   return need < sms * per_sm ? need : sms * per_sm;
 }
 
-// K2b and K3t: thread i records ray id ray0 + i (pixel rid / spp_total,
-// sample rid % spp_total) as column i of a (max_depth + 1, num_rays) tape
-// and writes its segment count.  The thread steps with its warp until
-// every lane's path has ended, so a scene may sweep with the whole warp.
-// `sweeps` (if the scene counts) gets the ray's counters, then at the
-// warp's first ray the clusters its sweeps opened and its steps.
+// What one launch of K2b or K3t records: ray ids [ray0, ray0 + num_rays),
+// ray id rid being sample rid % spp_total of pixel rid / spp_total.
+// `work` counts the windows of kRecordWindow consecutive ray ids handed out
+// to warps; it is 0 when the launch starts.
+struct RecordLaunch {
+  int ray0, num_rays, spp_total;
+  int* work;
+};
+
+// Consecutive ray ids a warp takes from the launch's counter at a time.
+// 16: at 2^17 rays a resident warp takes three (K2b) or four (K3t)
+// windows; 32 and 64 were slower there, 4 and 8 no faster
+// (probes/mega_grid.py, PERF.md).
+constexpr int kRecordWindow = 16;
+
+// K2b and K3t: the launch's warps each take windows of kRecordWindow ray
+// ids from the counter `work`, and their lanes take the window's next
+// unstarted id, in lane order (__ballot_sync, __popc), at points where the
+// whole warp is converged, so a warp's lanes stay busy until the launch
+// runs out of ids rather than until its deepest path ends.  Ray ray0 + i
+// is column i of the (max_depth + 1, num_rays) tape; its lane writes the
+// column's rows past the path's end (-1), `its[i]` (its segment count) and
+// its counters when its path ends.  Each ray owns its column, so nothing
+// depends on which lane traces it.  (One memset of the tape to -1 before
+// the launch, the kernel writing only the rows paths reach, was no faster
+// at 2^17 rays and 2% slower over the final scene's frame, where it
+// writes 1.96 GB: the L2 cache merges the tails' scattered stores.)
+// `steps` (if not null) gets the warp's segment steps at the first ray of
+// its first window, 0 at every other ray; `sweeps` (if the scene counts)
+// each ray's counters, then the warp's swept clusters and steps as
+// `steps`.
 template <class Scene>
-__device__ void record_rays(const Scene& scene, const CameraRow& cam,
-                            const PathParams& pp, int ray0, int num_rays,
-                            int spp_total, int* __restrict__ tape,
-                            int* __restrict__ its,
+__device__ void record_warp(const Scene& scene, const CameraRow& cam,
+                            const PathParams& pp, const RecordLaunch& ln,
+                            int* __restrict__ tape, int* __restrict__ its,
+                            int* __restrict__ steps,
                             int* __restrict__ sweeps) {
   using Counters = typename Scene::Counters;
   constexpr int kLane = Counters::kLane;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool live = i < num_rays;
+  const int lane = threadIdx.x % kWarpSize;
+  const int windows = (ln.num_rays + kRecordWindow - 1) / kRecordWindow;
+  const size_t stride = static_cast<size_t>(ln.num_rays);
+  int next = 0, end = 0;  // the window's unstarted ids: [next, end)
+  int first = -1;         // the first id of the warp's first window
+  bool exhausted = false;
+  bool live = false;
+  int i = 0;  // this lane's ray: ray0 + i
   PathState st;
-  if (live) {
-    const int rid = ray0 + i;
-    const int pix = rid / spp_total;
-    start_path(cam, pp, static_cast<uint32_t>(rid),
-               static_cast<float>(pix % pp.nx),
-               static_cast<float>(pix / pp.nx), st);
-  }
   Counters cnt;
   int nsteps = 0;
-  while (__any_sync(kFullMask, live)) {
+  for (;;) {
+    // Hand the next unstarted ids to the idle lanes, in lane order.
+    const unsigned idle = __ballot_sync(kFullMask, !live);
+    const int want = __popc(idle);
+    const int rank = __popc(idle & ((1u << lane) - 1u));
+    for (int given = 0; given < want;) {
+      if (next == end) {
+        if (exhausted) break;
+        int got = 0;
+        if (lane == 0) got = atomicAdd(ln.work, 1);
+        got = __shfl_sync(kFullMask, got, 0);
+        if (got >= windows) {
+          exhausted = true;
+          break;
+        }
+        next = got * kRecordWindow;
+        end = min(next + kRecordWindow, ln.num_rays);
+        if (first < 0) first = next;
+      }
+      const int take = min(end - next, want - given);
+      if (!live && rank >= given && rank < given + take) {
+        i = next + rank - given;
+        const int rid = ln.ray0 + i;
+        const int pix = rid / ln.spp_total;
+        start_path(cam, pp, static_cast<uint32_t>(rid),
+                   static_cast<float>(pix % pp.nx),
+                   static_cast<float>(pix / pp.nx), st);
+        live = true;
+      }
+      given += take;
+      next += take;
+    }
+    if (!__any_sync(kFullMask, live)) break;  // no ids left, paths done
     ++nsteps;
     Hit h;
     scene.closest(st.ox, st.oy, st.oz, st.dx, st.dy, st.dz, pp.t_min, live,
                   h, cnt);
     if (live) {
       float r, g, b;  // unused: no radiance
-      live = !segment<false, true>(scene, pp, h, st, r, g, b, tape + i,
-                                   static_cast<size_t>(num_rays));
+      if (segment<false, true>(scene, pp, h, st, r, g, b, tape + i,
+                               stride)) {
+        its[i] = st.depth + 1;
+        if (steps != nullptr) steps[i] = 0;
+        if (kLane > 0) {
+          int* out = sweeps + static_cast<size_t>(kLane + 2) * i;
+          cnt.store(out);
+          out[kLane] = 0;
+          out[kLane + 1] = 0;
+        }
+        live = false;
+      }
     }
   }
-  if (i >= num_rays) return;
-  its[i] = st.depth + 1;
-  if (kLane > 0) {
-    int* out = sweeps + static_cast<size_t>(kLane + 2) * i;
-    cnt.store(out);
-    const bool first = threadIdx.x % kWarpSize == 0;
-    out[kLane] = first ? cnt.warp_clusters : 0;
-    out[kLane + 1] = first ? nsteps : 0;
+  __syncwarp();  // the first ray's zeros are written
+  if (first >= 0 && lane == 0) {  // the warp's totals
+    if (steps != nullptr) steps[first] = nsteps;
+    if (kLane > 0) {
+      int* out = sweeps + static_cast<size_t>(kLane + 2) * first;
+      out[kLane] = cnt.warp_clusters;
+      out[kLane + 1] = nsteps;
+    }
   }
 }
 

@@ -33,26 +33,33 @@
 // rid / spp_total, sample rid % spp_total) as a column of the same tape
 // (D, R), and writes the ray's bounce-loop trip count (its segment count).
 // The TPU kernel counts trips per tile of lanes, a number that depends on its
-// schedule; the per-ray count here does not.  One thread per ray id, tracing
-// with the radiance work compiled out, so its tape equals K2's over the same
-// ids.  The pixel comes from integer division: the TPU kernel's
-// float-reciprocal division (_fdiv / _fdiv_exact), grid-stride lanes, rays
-// per lane and one-hot tape accumulation have no counterpart here.
+// schedule; the per-ray count here does not.  It traces with the radiance
+// work compiled out, so its tape equals K2's over the same ids.  The pixel
+// comes from integer division: the TPU kernel's float-reciprocal division
+// (_fdiv / _fdiv_exact), grid-stride lanes, rays per lane and one-hot tape
+// accumulation have no counterpart here.
 //
 // Mapping (this design is Hopper's, not the TPU kernel's).  Each block of
 // 128 threads first stages the scene's sphere rows (cx, cy, cz, r) and
 // triangle planes (v0, e1, e2) in shared memory with cp.async: the final
 // scene's 486 spheres take 7.8 KB, DENSE_MAX = 1024 spheres 16 KB; a scene
 // past kSphereCap spheres or kTriCap triangles reads the rest from device
-// memory after the staged rows.  The launch is persistent (as many blocks
-// as the card holds at once) and its warps take groups of 32 pixels from a
-// launch-wide counter (mega_common.cuh::render_warp): a lane whose path
-// ends takes the next unstarted (pixel, sample) of its warp's window of
-// work at a point where the whole warp is converged, and each pixel is
+// memory after the staged rows.  Every launch is persistent (as many blocks
+// as the card holds at once).  K1's and K2's warps take groups of 32 pixels
+// from a launch-wide counter (mega_common.cuh::render_warp): a lane whose
+// path ends takes the next unstarted (pixel, sample) of its warp's window
+// of work at a point where the whole warp is converged, and each pixel is
 // summed in sample order from the warp's shared store, so the output does
-// not depend on the schedule and equals the plain version's bit for bit.  K2b keeps one thread per ray id
-// (mega_common.cuh::record_rays), whose neighbouring threads write
-// neighbouring tape columns.
+// not depend on the schedule and equals the plain version's bit for bit.
+// K2b's warps take windows of consecutive ray ids the same way
+// (mega_common.cuh::record_warp), each ray writing its own tape column.
+// All three sweep with the whole warp (DenseScene::closest): with k paths
+// live, each live ray's spheres and triangles are split over 32 / k lanes.
+// The gradient step records 2^17 rays, about the card's resident lanes, so
+// regeneration has few ids to hand out there, and the launch would end
+// when its deepest path (up to 51 segments) had swept the scene serially on
+// one lane while 31 idled; split, that path's segments take a 32nd of the
+// sweep.
 //
 // What bounds it on an H100, and what the design does about it:
 //  - FP32 work in the dense sweep: 20 operations per (segment, sphere) and
@@ -75,10 +82,11 @@
 //    map to a (rays x 3) x (3 x spheres) product, but TF32 or bf16 inputs do
 //    not round as the f32 products do, and the root is taken in double;
 //    the kernel must stay bit-equal to its plain version.
-//  - K2's tape adds D * 4 bytes per sample: 51 x 9.6 M x 4 B = 1.96 GB at
-//    full frame, ~0.6 ms at 3.35 TB/s, far below the sweep's time.  Its
-//    columns sit at stride spp between a pixel's samples, so its stores
-//    are not coalesced.
+//  - K2's and K2b's tapes add D * 4 bytes per sample: 51 x 9.6 M x 4 B =
+//    1.96 GB at full frame, ~0.6 ms at 3.35 TB/s, far below the sweep's
+//    time.  K2's columns sit at stride spp between a pixel's samples, and
+//    K2b's regenerating lanes write scattered columns, so neither's stores
+//    are coalesced; the L2 cache merges them.
 #include "mega_common.cuh"
 
 namespace {
@@ -86,6 +94,7 @@ namespace {
 using frt::CameraRow;
 using frt::DenseScene;
 using frt::PathParams;
+using frt::RecordLaunch;
 using frt::RenderLaunch;
 
 constexpr int kThreads = frt::kRenderThreads;
@@ -119,16 +128,18 @@ __global__ void __launch_bounds__(kThreads, 8)
                           rad, segs, tape, steps, nullptr);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    record_kernel(const DenseScene scene, const PathParams pp, int ray0,
-                  int num_rays, int spp_total, int* __restrict__ tape,
-                  int* __restrict__ its) {
+// K2b.  At most 96 registers (92 used, no spills), five blocks an SM: at
+// 2^17 rays 0.39-0.40 ms against 0.43-0.45 at eight blocks (64 registers,
+// 86 bytes spilled) and 0.43 at six (probes/mega_grid.py, PERF.md).
+__global__ void __launch_bounds__(kThreads, 5)
+    record_kernel(const DenseScene scene, const PathParams pp,
+                  const RecordLaunch ln, int* __restrict__ tape,
+                  int* __restrict__ its, int* __restrict__ steps) {
   extern __shared__ float4 smem[];
   DenseScene sc = scene;
   sc.stage(reinterpret_cast<unsigned char*>(smem));
   const CameraRow cam = frt::load_camera(sc.tb.cam);
-  frt::record_rays(sc, cam, pp, ray0, num_rays, spp_total, tape, its,
-                   nullptr);
+  frt::record_warp(sc, cam, pp, ln, tape, its, steps, nullptr);
 }
 
 }  // namespace
@@ -164,14 +175,14 @@ int frt_mega_render(const float* cam, const float* sph, const float* mx,
       err = frt::allow_smem(mega_kernel<true>, bytes);
       if (err != 0) return err;
       const int blocks = frt::render_blocks(mega_kernel<true>, bytes,
-                                            num_pixels);
+                                            frt::pixel_groups(num_pixels));
       mega_kernel<true><<<blocks, kThreads, bytes, st>>>(scene, pp, ln, rad,
                                                          segs, tape, steps);
     } else {
       err = frt::allow_smem(mega_kernel<false>, bytes);
       if (err != 0) return err;
       const int blocks = frt::render_blocks(mega_kernel<false>, bytes,
-                                            num_pixels);
+                                            frt::pixel_groups(num_pixels));
       mega_kernel<false><<<blocks, kThreads, bytes, st>>>(
           scene, pp, ln, rad, segs, nullptr, steps);
     }
@@ -180,25 +191,33 @@ int frt_mega_render(const float* cam, const float* sph, const float* mx,
 }
 
 // Launches K2b on `stream` over ray ids [ray0, ray0 + num_rays); writes tape
-// (max_depth + 1, num_rays) i32 and its (num_rays,) i32.  `groups` as for
-// frt_mega_render.  Returns cudaGetLastError() after the launch.
+// (max_depth + 1, num_rays) i32, its (num_rays,) i32 and, unless `steps` is
+// null, steps (num_rays,) i32: each warp's segment steps at the first ray of
+// its first window, 0 elsewhere.  `work` is one int of device scratch, the
+// launch's counter of windows handed out.  `groups` as for frt_mega_render.
+// Returns cudaGetLastError() after the launch.
 int frt_record_paths(const float* cam, const float* sph, const float* mx,
                      const float* tri, int ns, int nt, int ns_pad,
                      int nt_pad, const int* groups, unsigned int k0,
                      unsigned int k1, int nx, int ny, int spp_total,
                      int ray0, int num_rays, int max_depth, float t_min,
-                     int* tape, int* its, void* stream) {
+                     int* tape, int* its, int* steps, int* work,
+                     void* stream) {
   const DenseScene scene{
       frt::make_tables(cam, sph, mx, tri, ns, nt, ns_pad, nt_pad, groups)};
   const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
+  const RecordLaunch ln{ray0, num_rays, spp_total, work};
   if (num_rays > 0) {
-    const int blocks = (num_rays + kThreads - 1) / kThreads;
     const int bytes = DenseScene::smem_bytes(ns, nt);
-    const int err = frt::allow_smem(record_kernel, bytes);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int err = static_cast<int>(cudaMemsetAsync(work, 0, sizeof(int), st));
+    if (err == 0) err = frt::allow_smem(record_kernel, bytes);
     if (err != 0) return err;
-    record_kernel<<<blocks, kThreads, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(
-        scene, pp, ray0, num_rays, spp_total, tape, its);
+    const int windows =
+        (num_rays + frt::kRecordWindow - 1) / frt::kRecordWindow;
+    const int blocks = frt::render_blocks(record_kernel, bytes, windows);
+    record_kernel<<<blocks, kThreads, bytes, st>>>(scene, pp, ln, tape, its,
+                                                   steps);
   }
   return static_cast<int>(cudaGetLastError());
 }

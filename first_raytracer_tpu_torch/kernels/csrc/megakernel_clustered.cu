@@ -31,11 +31,23 @@
 //
 // K3 (`mega_clustered_kernel`) renders with K1's persistent warps and their
 // regeneration (mega_common.cuh::render_warp) and writes each pixel's
-// radiance sum,
-// segment count and sweep counters.  K3t (`record_clustered_kernel`): one
-// thread per ray id, K2b's shape (mega_common.cuh::record_rays): an int32
-// (D, R) tape holding -1 or the original id, every row written, and per-ray
-// trip counts and sweep counters.
+// radiance sum, segment count and sweep counters.  K3t
+// (`record_clustered_kernel`) records with K2b's persistent warps
+// (mega_common.cuh::record_warp), whose lanes take the next unstarted ray
+// id of their warp's window as their paths end: an int32 (D, R) tape
+// holding -1 or the original id, every row written, and per-ray trip counts
+// and sweep counters.  At 2^17 rays, about the card's resident lanes, a K3t
+// launch ends on a chain: the segments of its few deepest paths (rays
+// trapped to the depth cap; several often share a warp: walking a warp's
+// lone live ray alone did not shorten the launch, walking up to four did),
+// each segment testing up to 40 gate boxes in order on one lane while the
+// rest idle.  So a K3t warp with at most 4 live lanes walks their gates
+// together (ClusterScene::walk): each ray's box intervals are taken 32 / k
+// boxes at a time by its share of the lanes, and a ballot finds the next
+// box any ray passes, with the same bounds in the same order, so the same
+// clusters open and the counters count the same tests; a deep path's
+// segment alone went from 5.6 to 4.6 us on field5000 and from 9.0 to 4.9
+// on field20000.
 //
 // The TPU schedule is not carried over: no band, stride or rect pixel
 // mapping, no flush blocks, no gate words, ctz loop or two rounds, no one-hot
@@ -78,14 +90,19 @@ namespace {
 using frt::CameraRow;
 using frt::commit_copies;
 using frt::copy16_async;
+using frt::fold_lex;
 using frt::Hit;
 using frt::kBig;
 using frt::kFullMask;
 using frt::kWarpSize;
+using frt::nth_lane;
 using frt::PathParams;
+using frt::RecordLaunch;
 using frt::RenderLaunch;
 using frt::round4;
 using frt::slab_gate;
+using frt::slab_interval;
+using frt::slab_pass;
 using frt::Surface;
 using frt::wait_copies;
 
@@ -94,6 +111,12 @@ constexpr int kSlots = 128;  // columns per cluster
 // The most lanes that share one (ray, cluster) pair; 1 sweeps each pair
 // on the lane of its ray.
 constexpr int kMaxSplit = 32;
+// The fewest lanes a ray's gates take in pass_split: with k live lanes K3t's
+// warp walks the gates of each ray over 32 / k lanes when that is at least
+// this many (k <= 4), else each lane gates its own ray.  8: at 2^17 rays
+// 0.455 / 0.568 ms (field5000 / field20000) against 0.48 / 0.59 at 4 and
+// 0.50 / 0.72 never walking (probes/mega_grid.py, PERF.md).
+constexpr int kMinWalkSplit = 8;
 // Bytes of one type's gate tables a block stages in shared memory.
 constexpr int kGateCap = 16 * 1024;
 // Samples of a pixel per unit of work.  2: a warp's window then holds the
@@ -120,11 +143,13 @@ struct ClusterCounters {
     atomicAdd(dst + 3, boxes);
     clusters = sph_slots = tri_slots = boxes = 0;
   }
-  __device__ __forceinline__ void store(int* dst) const {
+  // Writes the lane's counts to `dst` and clears them.
+  __device__ __forceinline__ void store(int* dst) {
     dst[0] = clusters;
     dst[1] = sph_slots;
     dst[2] = tri_slots;
     dst[3] = boxes;
+    clusters = sph_slots = tri_slots = boxes = 0;
   }
 };
 
@@ -165,21 +190,6 @@ struct GateTables {
     starts = st;
   }
 };
-
-// The lexicographic (t, column) fold of a hit into a running winner.
-__device__ __forceinline__ void fold_lex(float t, int w, float& t_best,
-                                         int& w_best) {
-  if (t < t_best || (t == t_best && w < w_best)) {
-    t_best = t;
-    w_best = w;
-  }
-}
-
-// The lane of the g-th set bit of `mask`.
-__device__ __forceinline__ int nth_lane(unsigned mask, int g) {
-  for (int i = 0; i < g; ++i) mask &= mask - 1u;
-  return __ffs(static_cast<int>(mask)) - 1;
-}
 
 // The clustered scene (kernels/megakernel_clustered.py::MegaClusteredPack).
 //   sph (16, sp): 0-2 center, 3 radius, 4 param, 5-7 albedo, 8-10 albedo2,
@@ -267,8 +277,7 @@ struct ClusterScene {
                                         int& w_best) const {
     const int lane = threadIdx.x % kWarpSize;
     const int k = __popc(need);
-    int split = 1;  // lanes per pair: a power of two, k * split <= 32
-    while (split < kMaxSplit && 2 * split * k <= kWarpSize) split *= 2;
+    const int split = frt::lanes_per_ray(k, kMaxSplit);  // lanes per pair
     const int g = lane / split, sub = lane % split;
     // Lane g * split + sub takes pair g: the ray of the g-th lane in need.
     const int src = g < k ? nth_lane(need, g) : lane;
@@ -377,23 +386,153 @@ struct ClusterScene {
     }
   }
 
-  __device__ __forceinline__ void closest(float ox, float oy, float oz,
-                                          float dx, float dy, float dz,
-                                          float t_min, bool active, Hit& h,
-                                          Counters& cnt) const {
+  // Boxes first .. first + n - 1 of `table` (rows of two float4), gated in
+  // order for each ray g < k with bit g of `in` set, as `pass` gates them
+  // for its lane: box i passes for ray g if ray g's interval in it meets
+  // [t_min, bound()] with the bound as it stands when i is reached.  Lane
+  // g * split + sub holds ray g (o, iv) and takes its intervals of boxes
+  // sub, sub + split, ... a run of `split` at a time; a ballot finds the
+  // next box that any ray passes, and visit(i, rays) runs on every lane
+  // with the rays (bit g) box i passes for, and may lower their bounds,
+  // which bound() reads back for the lane's ray.  So a ray's tests of a
+  // run of boxes take one step of its lanes, not one step each.
+  template <class Bound, class Visit>
+  __device__ __forceinline__ void walk(const float4* table, int first, int n,
+                                       int k, int split, unsigned in,
+                                       float ox, float oy, float oz,
+                                       float ivx, float ivy, float ivz,
+                                       float t_min, Bound bound,
+                                       Visit visit) const {
+    const int lane = threadIdx.x % kWarpSize;
+    const int g = lane / split, sub = lane % split;
+    const bool mine = g < k && ((in >> g) & 1u);
+    const unsigned run = split == kWarpSize ? kFullMask : (1u << split) - 1u;
+    for (int b0 = 0; b0 < n; b0 += split) {
+      const int end = min(n - b0, split);
+      float near = 0.0f, far = 0.0f;
+      if (mine && sub < end)
+        slab_interval(table[2 * (first + b0 + sub)],
+                      table[2 * (first + b0 + sub) + 1], ox, oy, oz, ivx,
+                      ivy, ivz, t_min, near, far);
+      for (int j = 0; j < end; ++j) {
+        const unsigned bits = __ballot_sync(
+            kFullMask,
+            mine && sub >= j && sub < end && slab_pass(near, far, bound()));
+        unsigned any = 0u;  // boxes of the run that some ray passes
+        for (int h = 0; h < k; ++h) any |= (bits >> (h * split)) & run;
+        if (any == 0u) break;
+        j = __ffs(static_cast<int>(any)) - 1;
+        unsigned rays = 0u;
+        for (int h = 0; h < k; ++h)
+          rays |= ((bits >> (h * split + j)) & 1u) << h;
+        visit(first + b0 + j, rays);
+      }
+    }
+  }
+
+  // `pass` for a warp with few live lanes (the tail of a launch, where a
+  // few deep paths' segments are a chain the launch waits on): the same
+  // gates in the same order against the same bounds, so the same clusters
+  // open for the same rays and the counters count the same tests, with
+  // each ray's gates taken `split` = 32 / k at a time by walk.
+  template <bool TRI>
+  __device__ __forceinline__ void pass_split(const GateTables& gt,
+                                             unsigned live, int k, int split,
+                                             float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float ivx, float ivy, float ivz,
+                                             float t_min, bool active,
+                                             float other, float& t_best,
+                                             int& w_best,
+                                             Counters& cnt) const {
+    const int lane = threadIdx.x % kWarpSize;
+    const int g = lane / split;
+    const int src = g < k ? nth_lane(live, g) : lane;  // the lane's ray
+    const int rank = __popc(live & ((1u << lane) - 1u));  // its own, live
+    const float rox = __shfl_sync(kFullMask, ox, src);
+    const float roy = __shfl_sync(kFullMask, oy, src);
+    const float roz = __shfl_sync(kFullMask, oz, src);
+    const float rivx = __shfl_sync(kFullMask, ivx, src);
+    const float rivy = __shfl_sync(kFullMask, ivy, src);
+    const float rivz = __shfl_sync(kFullMask, ivz, src);
+    float gb = __shfl_sync(kFullMask, fminf(t_best, other), src);
+    auto bound = [&] { return gb; };
+    auto open = [&](int c, unsigned rays) {
+      const bool need_me = active && ((rays >> rank) & 1u);
+      const unsigned need = __ballot_sync(kFullMask, need_me);
+      const int m = gt.counts[c];
+      if (need_me) {
+        ++cnt.clusters;
+        if (TRI)
+          cnt.tri_slots += m;
+        else
+          cnt.sph_slots += m;
+      }
+      ++cnt.warp_clusters;
+      load_members<TRI>(c, m);
+      sweep<TRI>(c, m, need, need_me, ox, oy, oz, dx, dy, dz, t_min, t_best,
+                 w_best);
+      gb = __shfl_sync(kFullMask, fminf(t_best, other), src);
+    };
+    if (active) cnt.boxes += gt.ks;
+    walk(gt.supers, 0, gt.ks, k, split, (1u << k) - 1u, rox, roy, roz, rivx,
+         rivy, rivz, t_min, bound, [&](int s, unsigned rays) {
+           const int c0 = gt.starts[s], c1 = gt.starts[s + 1];
+           if (c1 - c0 == 1) {
+             open(c0, rays);
+             return;
+           }
+           if (active && ((rays >> rank) & 1u)) cnt.boxes += c1 - c0;
+           walk(gt.boxes, c0, c1 - c0, k, split, rays, rox, roy, roz, rivx,
+                rivy, rivz, t_min, bound, open);
+         });
+  }
+
+  // The closest hit of the rays of the warp's live lanes; with kWalk (K3t)
+  // a warp with few of them live walks their gates together (pass_split).
+  // K3 keeps the lane-by-lane gates: compiled into it, the walk's code
+  // spilled three times the bytes and slowed it by up to a fifth.
+  template <bool kWalk>
+  __device__ __forceinline__ void closest_hit(float ox, float oy, float oz,
+                                              float dx, float dy, float dz,
+                                              float t_min, bool active,
+                                              Hit& h, Counters& cnt) const {
     const float ivx = 1.0f / dx, ivy = 1.0f / dy, ivz = 1.0f / dz;
     float t_s = kBig, t_t = kBig;
     int w_s = INT_MAX, w_t = INT_MAX;
-    if (ns > 0)
-      pass<false>(sg, ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, t_min, active,
-                  kBig, t_s, w_s, cnt);
-    if (nt > 0)
-      pass<true>(tg, ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, t_min, active,
-                 t_s, t_t, w_t, cnt);
+    unsigned live = 0u;
+    int k = 0, split = 1;
+    if (kWalk) {
+      live = __ballot_sync(kFullMask, active);
+      k = __popc(live);
+      split = frt::lanes_per_ray(k, kWarpSize);
+    }
+    if (kWalk && split >= kMinWalkSplit) {
+      if (ns > 0)
+        pass_split<false>(sg, live, k, split, ox, oy, oz, dx, dy, dz, ivx,
+                          ivy, ivz, t_min, active, kBig, t_s, w_s, cnt);
+      if (nt > 0)
+        pass_split<true>(tg, live, k, split, ox, oy, oz, dx, dy, dz, ivx,
+                         ivy, ivz, t_min, active, t_s, t_t, w_t, cnt);
+    } else {
+      if (ns > 0)
+        pass<false>(sg, ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, t_min, active,
+                    kBig, t_s, w_s, cnt);
+      if (nt > 0)
+        pass<true>(tg, ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, t_min, active,
+                   t_s, t_t, w_t, cnt);
+    }
     h.w_s = t_s < kBig ? w_s : 0;
     h.w_t = t_t < kBig ? w_t : 0;
     h.is_tri = t_t < t_s;
     h.t = h.is_tri ? t_t : t_s;
+  }
+
+  __device__ __forceinline__ void closest(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float t_min, bool active, Hit& h,
+                                          Counters& cnt) const {
+    closest_hit<false>(ox, oy, oz, dx, dy, dz, t_min, active, h, cnt);
   }
 
   // The winner's original scene id (payload row 12 / 20).
@@ -442,6 +581,17 @@ struct ClusterScene {
   }
 };
 
+// K3t's scene: the clustered scene whose closest hit walks the gates of a
+// warp's few live rays together.
+struct RecordClusterScene : ClusterScene {
+  __device__ __forceinline__ void closest(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float t_min, bool active, Hit& h,
+                                          Counters& cnt) const {
+    closest_hit<true>(ox, oy, oz, dx, dy, dz, t_min, active, h, cnt);
+  }
+};
+
 int chunk_of(int spp) { return spp < kMaxChunk ? spp : kMaxChunk; }
 
 __host__ __device__ int scene_smem_bytes(const ClusterScene& s) {
@@ -467,20 +617,21 @@ __global__ void __launch_bounds__(kThreads, 5)
                           rad, segs, nullptr, nullptr, sweeps);
 }
 
-// K3t: K2b's shape on the clustered scene.
+// K3t: K2b's recorder on the clustered scene.  At most 128 registers (four
+// blocks an SM, 64 bytes spilled): three (168 registers, none spilled) were
+// no faster at 2^17 rays, five and six slower (probes/mega_grid.py,
+// PERF.md).
 __global__ void __launch_bounds__(kThreads, 4)
-    record_clustered_kernel(const ClusterScene scene,
+    record_clustered_kernel(const RecordClusterScene scene,
                             const float* __restrict__ camp,
-                            const PathParams pp, int ray0, int num_rays,
-                            int spp_total, int* __restrict__ tape,
-                            int* __restrict__ its,
+                            const PathParams pp, const RecordLaunch ln,
+                            int* __restrict__ tape, int* __restrict__ its,
                             int* __restrict__ sweeps) {
   extern __shared__ float4 smem[];
-  ClusterScene sc = scene;
+  RecordClusterScene sc = scene;
   sc.stage(reinterpret_cast<unsigned char*>(smem));
   const CameraRow cam = frt::load_camera(camp);
-  frt::record_rays(sc, cam, pp, ray0, num_rays, spp_total, tape, its,
-                   sweeps);
+  frt::record_warp(sc, cam, pp, ln, tape, its, nullptr, sweeps);
 }
 
 ClusterScene make_scene(const float* sph, const float* mx,
@@ -545,8 +696,8 @@ int frt_mega_clustered_render(
     if (err != 0) return err;
     err = frt::allow_smem(mega_clustered_kernel, bytes);
     if (err != 0) return err;
-    const int blocks =
-        frt::render_blocks(mega_clustered_kernel, bytes, num_pixels);
+    const int blocks = frt::render_blocks(mega_clustered_kernel, bytes,
+                                          frt::pixel_groups(num_pixels));
     mega_clustered_kernel<<<blocks, kThreads, bytes, st>>>(
         scene, cam, pp, ln, rad, segs, sweeps);
   }
@@ -555,8 +706,10 @@ int frt_mega_clustered_render(
 
 // Launches K3t on `stream` over ray ids [ray0, ray0 + num_rays); writes tape
 // (max_depth + 1, num_rays) i32, its (num_rays,) i32 and sweeps (num_rays, 6)
-// i32.  Tables as for frt_mega_clustered_render.  Returns cudaGetLastError()
-// after the launch.
+// i32 (ClusterCounters, then the warp's clusters and steps at the first ray
+// of its first window).  `work` is one int of device scratch, the launch's
+// counter of windows.  Tables as for frt_mega_clustered_render.  Returns
+// cudaGetLastError() after the launch.
 int frt_record_clustered(
     const float* cam, const float* sph, const float* mx,
     const float* sph_boxes, const float* sph_super, const int* sph_starts,
@@ -564,21 +717,26 @@ int frt_record_clustered(
     const float* tri_super, const int* tri_starts, const int* tri_counts,
     int ns, int nt, int ks, int kts, int sp, int tp, unsigned int k0,
     unsigned int k1, int nx, int ny, int spp_total, int ray0, int num_rays,
-    int max_depth, float t_min, int* tape, int* its, int* sweeps,
+    int max_depth, float t_min, int* tape, int* its, int* sweeps, int* work,
     void* stream) {
-  const ClusterScene scene =
+  const RecordClusterScene scene{
       make_scene(sph, mx, sph_boxes, sph_super, sph_starts, sph_counts, tri,
                  tri_boxes, tri_super, tri_starts, tri_counts, ns, nt, ks,
-                 kts, sp, tp);
+                 kts, sp, tp)};
   const PathParams pp{k0, k1, nx, ny, max_depth, t_min};
+  const RecordLaunch ln{ray0, num_rays, spp_total, work};
   if (num_rays > 0) {
-    const int blocks = (num_rays + kThreads - 1) / kThreads;
     const int bytes = scene_smem_bytes(scene);
-    const int err = frt::allow_smem(record_clustered_kernel, bytes);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int err = static_cast<int>(cudaMemsetAsync(work, 0, sizeof(int), st));
+    if (err == 0) err = frt::allow_smem(record_clustered_kernel, bytes);
     if (err != 0) return err;
-    record_clustered_kernel<<<blocks, kThreads, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-        scene, cam, pp, ray0, num_rays, spp_total, tape, its, sweeps);
+    const int windows =
+        (num_rays + frt::kRecordWindow - 1) / frt::kRecordWindow;
+    const int blocks =
+        frt::render_blocks(record_clustered_kernel, bytes, windows);
+    record_clustered_kernel<<<blocks, kThreads, bytes, st>>>(
+        scene, cam, pp, ln, tape, its, sweeps);
   }
   return static_cast<int>(cudaGetLastError());
 }

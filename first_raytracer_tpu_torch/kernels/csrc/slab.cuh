@@ -32,22 +32,40 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
+// The widened interval [near, far] of the ray o + t d, with inverse
+// direction iv, in the box whose row is `lo`, `hi`, its near end raised to
+// t_min: the half of the test that does not depend on the bound.
+__device__ __forceinline__ void slab_interval(float4 lo, float4 hi, float ox,
+                                              float oy, float oz, float ivx,
+                                              float ivy, float ivz,
+                                              float t_min, float& near,
+                                              float& far) {
+  const float t0x = (lo.x - ox) * ivx, t1x = (lo.w - ox) * ivx;
+  const float t0y = (lo.y - oy) * ivy, t1y = (hi.x - oy) * ivy;
+  const float t0z = (lo.z - oz) * ivz, t1z = (hi.y - oz) * ivz;
+  near = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
+                 nan_min(t0z, t1z));
+  far = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
+                nan_max(t0z, t1z));
+  near = nan_max(near * kNearScale - kPad, t_min);
+  far = far * kFarScale + kPad;
+}
+
+// The other half: true unless the interval misses [t_min, bound].
+__device__ __forceinline__ bool slab_pass(float near, float far,
+                                          float bound) {
+  return !(near > nan_min(far, bound));
+}
+
 // True unless the ray o + t d, with inverse direction iv, surely misses the
 // box whose row is `lo`, `hi` for t in [t_min, bound].
 __device__ __forceinline__ bool slab_gate(float4 lo, float4 hi, float ox,
                                           float oy, float oz, float ivx,
                                           float ivy, float ivz, float t_min,
                                           float bound) {
-  const float t0x = (lo.x - ox) * ivx, t1x = (lo.w - ox) * ivx;
-  const float t0y = (lo.y - oy) * ivy, t1y = (hi.x - oy) * ivy;
-  const float t0z = (lo.z - oz) * ivz, t1z = (hi.y - oz) * ivz;
-  float near = nan_max(nan_max(nan_min(t0x, t1x), nan_min(t0y, t1y)),
-                       nan_min(t0z, t1z));
-  float far = nan_min(nan_min(nan_max(t0x, t1x), nan_max(t0y, t1y)),
-                      nan_max(t0z, t1z));
-  near = near * kNearScale - kPad;
-  far = far * kFarScale + kPad;
-  return !(nan_max(near, t_min) > nan_min(far, bound));
+  float near, far;
+  slab_interval(lo, hi, ox, oy, oz, ivx, ivy, ivz, t_min, near, far);
+  return slab_pass(near, far, bound);
 }
 
 // The same test of the box row `b` in device memory.

@@ -278,7 +278,7 @@ def bind(lib):
         tables + [u32, u32] + [i32] * 6 + [f32] + [ptr] * 5)
     lib.frt_mega_clustered_render.restype = i32
     lib.frt_record_clustered.argtypes = (
-        tables + [u32, u32] + [i32] * 6 + [f32] + [ptr] * 4)
+        tables + [u32, u32] + [i32] * 6 + [f32] + [ptr] * 5)
     lib.frt_record_clustered.restype = i32
     lib.frt_mega_render.argtypes = (
         [ptr] * 4 + [i32] * 4
@@ -288,7 +288,7 @@ def bind(lib):
     lib.frt_record_paths.argtypes = (
         [ptr] * 4 + [i32] * 4
         + [ctypes.POINTER(i32), ctypes.c_uint32, ctypes.c_uint32]
-        + [i32] * 6 + [ctypes.c_float, ptr, ptr, ptr])
+        + [i32] * 6 + [ctypes.c_float] + [ptr] * 5)
     lib.frt_record_paths.restype = i32
     lib.frt_error_string.argtypes = [i32]
     lib.frt_error_string.restype = ctypes.c_char_p

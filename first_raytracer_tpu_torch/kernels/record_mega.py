@@ -6,8 +6,11 @@ pass (``diff/replay.py``) records, outside the autograd graph, which
 primitive each ray hit at each bounce: a ``(max_depth + 1, R)`` int32 tape,
 -1 for a miss or a dead path, else the original scene id (spheres
 ``0..Ns-1``, triangles ``Ns + j``).  The recorders here produce that tape
-for a contiguous range of ray ids ``[ray0, ray0 + R)``, one thread per ray
-id:
+for a contiguous range of ray ids ``[ray0, ray0 + R)``.  Both kernels run
+persistent warps that take windows of consecutive ray ids from a
+launch-wide counter, each lane taking the next unstarted id as its path
+ends, and every ray writes its own tape column, so the outputs do not
+depend on the schedule:
 
 - ``record_paths_mega``: K2b (``record_kernel`` in ``csrc/megakernel.cu``)
   on a dense pack.  K2, the megakernel with its tape on, stays reachable
@@ -49,14 +52,20 @@ REPLACES = "first_raytracer_tpu/kernels/record_mega.py:62"
 MAX_RAY_ID = 1 << 24
 
 
-def _launch_record(pack, cam, cfg, key, ray0, num_rays, spp_total):
-    """Launch K2b on the current stream; returns (tape (D, R), its (R,))."""
+def _launch_record(pack, cam, cfg, key, ray0, num_rays, spp_total,
+                   return_steps=False):
+    """Launch K2b on the current stream; returns (tape (D, R), its (R,)),
+    then with ``return_steps`` the warps' segment steps (R,): each warp's
+    at the first ray of its first window, 0 elsewhere."""
     dev = pack.device
     check_pack(pack, cam)
-    # K2b writes every entry of both outputs: no fill needed.
+    # K2b writes every entry of its outputs: no fill needed.
     tape = torch.empty((cfg.max_depth + 1, num_rays), dtype=torch.int32,
                        device=dev)
     its = torch.empty((num_rays,), dtype=torch.int32, device=dev)
+    steps = (torch.empty((num_rays,), dtype=torch.int32, device=dev)
+             if return_steps else None)
+    work = torch.empty((1,), dtype=torch.int32, device=dev)  # its counter
     groups = (ctypes.c_int * 14)(*pack.sph_groups, *pack.tri_groups)
     k0, k1 = rng.key_words(key)
     megakernel.launch_entry(
@@ -64,9 +73,10 @@ def _launch_record(pack, cam, cfg, key, ray0, num_rays, spp_total):
         pack.sph_mx.data_ptr(), pack.tris.data_ptr(), pack.sphere_rows,
         pack.tri_rows, pack.spheres.shape[1], pack.tris.shape[1], groups, k0,
         k1, cfg.nx, cfg.ny, spp_total, ray0, num_rays, cfg.max_depth,
-        float(cfg.t_min), tape.data_ptr(), its.data_ptr())
+        float(cfg.t_min), tape.data_ptr(), its.data_ptr(),
+        steps.data_ptr() if return_steps else None, work.data_ptr())
     record_paths_mega.launches += 1
-    return tape, its
+    return (tape, its, steps) if return_steps else (tape, its)
 
 
 def _ray_range(cfg, ray0, num_rays, spp_total):
@@ -161,11 +171,12 @@ def _launch_record_clustered(pack, cam, cfg, key, ray0, num_rays,
     its = torch.empty((num_rays,), dtype=torch.int32, device=dev)
     sweeps = torch.empty((num_rays, len(SWEEP_COLUMNS)), dtype=torch.int32,
                          device=dev)
+    work = torch.empty((1,), dtype=torch.int32, device=dev)  # its counter
     k0, k1 = rng.key_words(key)
     megakernel.launch_entry(
         dev, "frt_record_clustered", *table_args(pack, cam), k0, k1, cfg.nx,
         cfg.ny, spp_total, ray0, num_rays, cfg.max_depth, float(cfg.t_min),
-        tape.data_ptr(), its.data_ptr(), sweeps.data_ptr())
+        tape.data_ptr(), its.data_ptr(), sweeps.data_ptr(), work.data_ptr())
     record_paths_mega_clustered.launches += 1
     return tape, its, sweeps
 

@@ -5,11 +5,19 @@ instruction count of its functions (``cuobjdump -sass``), then its CUDA-event
 times, median of the repeats after a warm launch:
 
 - k1: K1 on the final scene (1200x800 @ 10);
-- k2: K2 on the pixels of the final scene's first 2^17 ray ids, and K2b
-  on those ray ids (the gradient step's record);
+- k2: K2 on the pixels of the final scene's first 2^17 ray ids;
+- k2b: K2b on those ray ids (the gradient step's record) and over the
+  whole frame (9.6 M ray ids, past the card's resident lanes);
 - k3: K3 on field20000, field5000 and trifield20000 (800x450 @ 4);
 - k3t: K3t on the first 2^17 ray ids of field5000 (the clustered fit
-  step's record);
+  step's record) and of field20000;
+- chain: K2b (final scene) and K3t (field5000, field20000) at 2^17 rays
+  with the depth cap at 50 (the scenes' own), 20, 10 and 5, queued: how
+  much of a launch waits on its deepest paths' serial segments;
+- lone: the deepest path among those 2^17 ray ids, recorded alone by a
+  launch of that one ray id (queued): the latency of one path's chain of
+  segments, and for K3t its counters per segment (boxes tested, clusters
+  opened); with the paths' depths at 2^17 rays;
 - k4: K4 at 2^17 camera rays of the final scene, and over one regenerative
   frame of it (pool 2^17);
 - k5: K5 at 2^17 camera rays of field20000 and of trifield20000, and over
@@ -31,11 +39,26 @@ process, in turns (parent, change, change, parent):
 
     git archive <parent> | tar -x -C out/parent
     for t in out/parent . . out/parent; do
-        PYTHONPATH=. python probes/turns.py $t k1 k2 k3 k3t k4 k5; done
+        PYTHONPATH=. python probes/turns.py $t k1 k2 k2b k3 k3t k4 k5; done
 
 The checkout's own package is imported (its path goes first on sys.path),
-so the parent is measured with its own kernels and wrappers.
+so the parent is measured with its own kernels and wrappers.  For K2b and
+K3t at 2^17 rays the time per call of 10 calls queued back to back between
+two events is printed too (at under a millisecond a call, the wrapper's
+host work is a part of an eager call's events).  For K2b and K3t each
+shape also prints a digest of the outputs that must not depend on
+the schedule (tape, trips, K3t's per-ray counters), to compare the two
+checkouts bit for bit, and the warp lane efficiency: trips over 32 x the
+warps' steps (K3t's ``sweeps[:, 5]``; K2b's ``steps`` output where the
+checkout's recorder has one, else the steps of its one-shot grid, whose
+warps hold 32 consecutive ray ids each until the deepest path ends).  The
+ptxas lines come with the blocks an SM holds at that register count
+(shared memory is not the limit of these kernels).
 """
+import dataclasses
+import functools
+import hashlib
+import inspect
 import os
 import re
 import statistics
@@ -58,13 +81,17 @@ from first_raytracer_tpu_torch.kernels import record_mega as rm  # noqa: E402
 from first_raytracer_tpu_torch.render.api import render_image  # noqa: E402
 from first_raytracer_tpu_torch.render.camera import generate_rays  # noqa: E402,E501
 from first_raytracer_tpu_torch.scene.builders import build_preset  # noqa: E402,E501
+from first_raytracer_tpu_torch.utils.roofline import (bound,  # noqa: E402
+                                                      clustered_bound)
 
 RAYS = 1 << 17
 # Kernel -> the function names of its entries in the library.
-ENTRIES = {"k1": ("mega_kernelILb0",),
-           "k2": ("mega_kernelILb1", "record_kernel"),
+ENTRIES = {"k1": ("mega_kernelILb0",), "k2": ("mega_kernelILb1",),
+           "k2b": ("record_kernel",),
            "k3": ("mega_clustered_kernel",),
            "k3t": ("record_clustered_kernel",),
+           "chain": ("record_kernel", "record_clustered_kernel"),
+           "lone": ("record_kernel", "record_clustered_kernel"),
            "k4": ("intersect_dense_kernel",),
            "k5": ("intersect_clustered_kernel",), "frames": ()}
 
@@ -87,6 +114,13 @@ def event_ms(fn, repeats):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), [round(t, 5) for t in sorted(times)]
+
+
+def queued_ms(fn, repeats, calls=10):
+    """Median and sorted milliseconds per call of ``fn``: ``calls`` calls
+    queued back to back between two events."""
+    med, times = event_ms(lambda: [fn() for _ in range(calls)], repeats)
+    return med / calls, [round(t / calls, 5) for t in times]
 
 
 def graph_ms(fn, repeats, inner=1):
@@ -171,7 +205,11 @@ def code(info, kernels):
             entry = line.split("'")[1]
         elif ("registers" in line or "spill" in line) and entry and any(
                 n in entry for k in kernels for n in ENTRIES[k]):
-            say("ptxas", entry[:60], line.split(":", 1)[-1].strip())
+            text = line.split(":", 1)[-1].strip()
+            regs = re.search(r"Used (\d+) registers", text)
+            say("ptxas", entry[:60], text, *(
+                ["blocks/SM by registers", blocks_per_sm(int(regs[1]))]
+                if regs else []))
     sass = subprocess.run(
         [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", info.path],
         capture_output=True, text=True, check=True).stdout
@@ -180,6 +218,23 @@ def code(info, kernels):
         if any(n in name for k in kernels for n in ENTRIES[k]):
             say("SASS", name[:60], "instructions",
                 len(re.findall(r"/\*[0-9a-f]{4}\*/", body)))
+
+
+def blocks_per_sm(regs, threads=128):
+    """Blocks of ``threads`` an H100 SM holds at ``regs`` registers a
+    thread: 65,536 registers, allocated per warp in units of 256, and at
+    most 64 warps and 32 blocks."""
+    per_warp = -(-regs * 32 // 256) * 256
+    warps = threads // 32
+    return min(65536 // (per_warp * warps), 64 // warps, 32)
+
+
+def digest(*tensors):
+    """A short hash of the tensors' bytes, to compare two checkouts."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def k1():
@@ -198,8 +253,35 @@ def k2():
         lambda: mk.render_pixels_mega(pack, cam, cfg, key,
                                       num_pixels=-(-RAYS // cfg.spp),
                                       emit_tape=True), 5))
-    say("K2b 2^17 rays ms", *event_ms(
-        lambda: rm.record_paths_mega(pack, cam, cfg, key, num_rays=RAYS), 5))
+
+
+def k2b():
+    scene, cam, cfg = build_preset("random-spheres", device="cuda")
+    pack = mk.pack_scene_mega(scene)
+    key = rng.base_key(0)
+    with_steps = "return_steps" in inspect.signature(
+        rm._launch_record).parameters
+    for label, n in (("2^17 rays", RAYS), ("full frame", cfg.num_rays)):
+        call = functools.partial(rm.record_paths_mega, pack, cam, cfg, key,
+                                 num_rays=n)
+        say(f"K2b {label} ms", *event_ms(call, 5))
+        if n == RAYS:
+            say(f"K2b {label} queued ms", *queued_ms(call, 5))
+        if with_steps:
+            tape, its, steps = rm._launch_record(
+                pack, mk.camera_table(cam).to(pack.device), cfg, key, 0, n,
+                cfg.spp, return_steps=True)
+        else:
+            tape, its = rm.record_paths_mega(pack, cam, cfg, key, num_rays=n,
+                                             return_iters=True)
+            steps = mk.pixel_lane_steps(its)
+        trips = int(its.long().sum())
+        say(f"K2b {label} outputs", digest(tape, its), "lane efficiency",
+            trips / (32 * int(steps.long().sum())), "trips", trips,
+            "deepest", int(its.max()), "bound ms",
+            *bound(pack, trips, 4 * (cfg.max_depth + 2) * n))
+        del tape
+        torch.cuda.empty_cache()
 
 
 def k3():
@@ -214,12 +296,73 @@ def k3():
 
 
 def k3t():
-    scene, cam, cfg = build_preset("sphere-field", device="cuda", n=5000)
-    pack = mc.pack_scene_mega_clustered(scene, cam)
-    key = rng.base_key(0)
-    say("K3t field5000 2^17 rays ms", *event_ms(
-        lambda: rm.record_paths_mega_clustered(pack, cam, cfg, key,
-                                               num_rays=RAYS), 5))
+    for n in (5000, 20000):
+        scene, cam, cfg = build_preset("sphere-field", device="cuda", n=n)
+        pack = mc.pack_scene_mega_clustered(scene, cam)
+        key = rng.base_key(0)
+        call = functools.partial(rm.record_paths_mega_clustered, pack, cam,
+                                 cfg, key, num_rays=RAYS)
+        say(f"K3t field{n} 2^17 rays ms", *event_ms(call, 5))
+        say(f"K3t field{n} 2^17 rays queued ms", *queued_ms(call, 5))
+        tape, its, sweeps = rm.record_paths_mega_clustered(
+            pack, cam, cfg, key, num_rays=RAYS, return_iters=True)
+        trips = int(its.long().sum())
+        say(f"K3t field{n} outputs", digest(tape, its, sweeps[:, :4]),
+            "lane efficiency", trips / (32 * int(sweeps[:, 5].long().sum())),
+            "trips", trips, "deepest", int(its.max()), "bound ms",
+            *clustered_bound(pack, sweeps, 4 * (cfg.max_depth + 6) * RAYS))
+
+
+def chain():
+    scenes = [("K2b final scene", "random-spheres", {}, False)] + [
+        (f"K3t field{n}", "sphere-field", {"n": n}, True)
+        for n in (5000, 20000)]
+    for label, preset, kw, clustered in scenes:
+        scene, cam, cfg = build_preset(preset, device="cuda", **kw)
+        pack = (mc.pack_scene_mega_clustered(scene, cam) if clustered else
+                mk.pack_scene_mega(scene))
+        record = (rm.record_paths_mega_clustered if clustered else
+                  rm.record_paths_mega)
+        for depth in (50, 20, 10, 5):
+            c = dataclasses.replace(cfg, max_depth=depth)
+            call = functools.partial(record, pack, cam, c, rng.base_key(0),
+                                     num_rays=RAYS)
+            say(f"{label} 2^17 rays depth cap {depth} queued ms",
+                *queued_ms(call, 5))
+
+
+def lone():
+    scenes = [("K2b final scene", "random-spheres", {}, False)] + [
+        (f"K3t field{n}", "sphere-field", {"n": n}, True)
+        for n in (5000, 20000)]
+    for label, preset, kw, clustered in scenes:
+        scene, cam, cfg = build_preset(preset, device="cuda", **kw)
+        key = rng.base_key(0)
+        if clustered:
+            pack = mc.pack_scene_mega_clustered(scene, cam)
+            _, its, sweeps = rm.record_paths_mega_clustered(
+                pack, cam, cfg, key, num_rays=RAYS, return_iters=True)
+        else:
+            pack = mk.pack_scene_mega(scene)
+            _, its = rm.record_paths_mega(pack, cam, cfg, key,
+                                          num_rays=RAYS, return_iters=True)
+        record = (rm.record_paths_mega_clustered if clustered else
+                  rm.record_paths_mega)
+        deep = int(its.argmax())
+        say(f"{label} 2^17 rays: paths of 20+ segments",
+            int((its >= 20).sum()), "of 40+", int((its >= 40).sum()),
+            "at the cap", int((its == cfg.max_depth + 1).sum()))
+        call = functools.partial(record, pack, cam, cfg, key, ray0=deep,
+                                 num_rays=1)
+        say(f"{label} ray {deep} ({int(its[deep])} segments) alone queued ms",
+            *queued_ms(call, 5))
+        if clustered:
+            n = int(its[deep])
+            say(f"{label} ray {deep} per segment: clusters opened",
+                int(sweeps[deep, 0]) / n, "sphere slots",
+                int(sweeps[deep, 1]) / n, "boxes", int(sweeps[deep, 3]) / n,
+                "; all 2^17 rays:", *(int(v) / int(its.sum()) for v in
+                                     sweeps[:, :4].long().sum(0)))
 
 
 def k4():

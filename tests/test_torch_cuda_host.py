@@ -23,8 +23,10 @@ from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
 from first_raytracer_tpu_torch.kernels import megakernel as mk
 from first_raytracer_tpu_torch.kernels import megakernel_clustered as mc
 from first_raytracer_tpu_torch.kernels import record_mega as rm
-from first_raytracer_tpu_torch.render.camera import generate_rays
+from first_raytracer_tpu_torch.render.camera import generate_rays, make_camera
+from first_raytracer_tpu_torch.render.integrator import RenderConfig
 from first_raytracer_tpu_torch.scene.builders import build_preset
+from first_raytracer_tpu_torch.scene.soa import SceneBuilder
 
 KEY = rng.base_key(0)
 # (preset, builder arguments, max_depth or None); small enough that a
@@ -41,6 +43,9 @@ DENSE = {
     # A far field (camera ~40 units out), where the sphere root's float
     # prefilter and its float64 b and c both matter.
     "sphere-field-2500": (dict(n=2500, nx=8, ny=4, spp=2), 8),
+    # Exact ties, which the warp's split sweep must give to the lowest
+    # column (exact_ties below).
+    "exact-ties": (None, None),
 }
 CLUSTERED = {
     "three-spheres": (dict(nx=16, ny=8, spp=2), None),
@@ -50,6 +55,60 @@ CLUSTERED = {
     "triangle-field-2000": (dict(n=2000, nx=16, ny=8, spp=1), 8),
     "sphere-field-5000": (dict(n=5000, nx=16, ny=8, spp=1), 8),
 }
+
+# The recorders (K2b, K3t) over ray ranges other than their cases' default
+# (ray ids 5 to num_rays - 5): case -> (scene, builder
+# arguments replacing the table's or None, ray0, number of rays).  Fewer
+# rays than a warp; a count that is not a multiple of 32 from an odd ray0;
+# more rays than the emulated card's resident lanes (2 SMs x 2 blocks x 128),
+# so that the warps regenerate; the exact-tie scene.
+RECORD_RANGES = {
+    "three-spheres-13-rays": ("three-spheres", None, 3, 13),
+    "random-spheres-37+155": ("random-spheres", None, 37, 155),
+    "random-spheres-past-grid": ("random-spheres",
+                                 dict(nx=32, ny=20, spp=2), 11, 1260),
+    "exact-ties-13-rays": ("exact-ties", None, 7, 13),
+    "exact-ties": ("exact-ties", None, 0, 256),
+}
+CLUSTERED_RANGES = {
+    "three-spheres-13-rays": ("three-spheres", None, 3, 13),
+    "sphere-field-600-37+155": ("sphere-field-600", None, 37, 155),
+    "random-spheres-past-grid": ("random-spheres",
+                                 dict(nx=32, ny=20, spp=2), 11, 1260),
+    "exact-ties": ("exact-ties", None, 0, 256),
+}
+
+
+def exact_ties():
+    """A dense scene whose closest hits tie exactly: sphere 6 coincides
+    with sphere 1 (four lambertian spheres between them, so that the two
+    fall in different groups of four, on different lanes of a split
+    sweep), and each of the back wall's two triangles is there twice, in
+    neighbouring columns.  Every tie must go to the lowest column: the
+    first copy's id on the tape."""
+    b = SceneBuilder()
+    m_ground = b.lambertian((0.8, 0.8, 0.0))
+    m_center = b.lambertian((0.1, 0.2, 0.5))
+    m_twin = b.lambertian((0.7, 0.1, 0.1))
+    m_metal = b.metal((0.8, 0.6, 0.2), fuzz=0.1)
+    m_glass = b.dielectric(1.5)
+    m_wall = b.lambertian((0.6, 0.6, 0.6))
+    b.sphere((0.0, -100.5, -1.0), 100.0, m_ground)
+    b.sphere((0.0, 0.0, -1.0), 0.5, m_center)
+    for x in (-2.2, -1.6, 1.6, 2.2):
+        b.sphere((x, 0.8, -2.0), 0.25, m_center)
+    b.sphere((0.0, 0.0, -1.0), 0.5, m_twin)  # sphere 1's twin
+    b.sphere((1.0, 0.0, -1.0), 0.5, m_metal)
+    b.sphere((-1.0, 0.0, -1.0), 0.5, m_glass)
+    quad = [((-4, -1, -3), (4, -1, -3), (4, 3, -3)),
+            ((-4, -1, -3), (4, 3, -3), (-4, 3, -3))]
+    for tri in quad:
+        b.triangle(*tri, m_wall)
+        b.triangle(*tri, m_wall)
+    nx, ny = 16, 8
+    cam = make_camera((0, 0, 0), (0, 0, -1), (0, 1, 0), 90.0, nx / ny,
+                      aperture=0.0, focus_dist=1.0)
+    return b.build(), cam, RenderConfig(nx=nx, ny=ny, spp=2)
 
 
 @pytest.fixture(scope="module")
@@ -73,15 +132,28 @@ def host_kernels():
     mk.launch_entry = saved
 
 
-def _scene(table, name):
-    kw, depth = table[name]
+def _scene(table, name, kw=None):
+    if name == "exact-ties":
+        return exact_ties()
+    table_kw, depth = table[name]
     preset = name.split("-spp")[0]
     if preset.startswith(("sphere-field", "triangle-field")):
         preset = preset.rsplit("-", 1)[0]
-    scene, cam, cfg = build_preset(preset, device="cpu", **kw)
+    scene, cam, cfg = build_preset(preset, device="cpu", **(
+        table_kw if kw is None else dict(table_kw, **kw)))
     if depth is not None:
         cfg = dataclasses.replace(cfg, max_depth=depth)
     return scene, cam, cfg
+
+
+def _case(table, ranges, case):
+    """(scene, camera, config, ray0, rays) of a recorder's case: a scene
+    of ``table`` over its default range, or a case of ``ranges``."""
+    if case in ranges:
+        name, kw, ray0, n = ranges[case]
+        return (*_scene(table, name, kw), ray0, n)
+    scene, cam, cfg = _scene(table, case)
+    return scene, cam, cfg, 5, cfg.num_rays - 9
 
 
 def _k1(pack, cam, cfg, emit_tape=False, pix0=0, num_pixels=None, spp0=0,
@@ -131,27 +203,53 @@ def test_k1_k2_pixel_and_sample_ranges(host_kernels, name):
 
 @pytest.mark.parametrize("name", ["three-spheres", "triangle-mesh",
                                   "random-spheres", "sphere-field-1100",
-                                  "sphere-field-2500"])
+                                  "sphere-field-2500", *RECORD_RANGES])
 def test_k2b_equals_plain(host_kernels, name):
     """K2b's tape and trip counts over a ray range bit-equal to the plain
-    version's."""
-    scene, cam, cfg = _scene(DENSE, name)
+    version's; its warps' steps cover the trips (lane efficiency at most
+    1), each warp's at the first ray of its first window."""
+    scene, cam, cfg, ray0, n = _case(DENSE, RECORD_RANGES, name)
     pack = mk.pack_scene_mega(scene)
-    ray0, n = 5, cfg.num_rays - 9
-    tape, its = rm._launch_record(pack, mk.camera_table(cam), cfg, KEY, ray0,
-                                  n, cfg.spp)
+    tape, its, steps = rm._launch_record(pack, mk.camera_table(cam), cfg, KEY,
+                                         ray0, n, cfg.spp, return_steps=True)
     ref, ref_its = rm.record_paths_mega_reference(pack, cam, cfg, KEY,
                                                   ray0=ray0, num_rays=n)
     assert torch.equal(tape, ref) and torch.equal(its, ref_its)
+    assert 0 < int(its.sum()) <= 32 * int(steps.sum())
 
 
-@pytest.mark.parametrize("name", list(CLUSTERED))
+def _k3t_equal_plain(pack, cam, cfg, ray0, n):
+    """K3t over rays [ray0, ray0 + n) against its plain version: tape and
+    trips bit-equal, and its warps' steps (``sweeps[:, 5]``) covering the
+    trips.  Returns K3t's per-ray counters."""
+    tape, its, sweeps = rm._launch_record_clustered(
+        pack, mk.camera_table(cam), cfg, KEY, ray0, n, cfg.spp)
+    ref_tape, ref_its = rm.record_paths_mega_clustered_reference(
+        pack, cam, cfg, KEY, ray0=ray0, num_rays=n)
+    assert torch.equal(tape, ref_tape) and torch.equal(its, ref_its)
+    assert 0 < int(its.sum()) <= 32 * int(sweeps[:, 5].sum())
+    return sweeps
+
+
+@pytest.mark.parametrize("name", [*CLUSTERED, *CLUSTERED_RANGES])
 def test_k3_k3t_equal_plain(host_kernels, name):
     """K3's radiance and segments and K3t's tape and trips bit-equal to the
     plain versions (every column, no gates); K3 swept no more than an
     ungated sweep; its per-ray counters are K3t's summed over each pixel's
     samples; the warps swept each cluster once however many lanes needed
-    it, so no more clusters than their lanes opened."""
+    it, so no more clusters than their lanes opened.  A case of
+    ``CLUSTERED_RANGES`` holds K3t alone to the plain version over its
+    range, and its per-ray counters to those of a launch over every ray
+    (another schedule: a ray alone in its warp in one launch shares it in
+    the other)."""
+    if name in CLUSTERED_RANGES:
+        scene, cam, cfg, ray0, n = _case(CLUSTERED, CLUSTERED_RANGES, name)
+        pack = mc.pack_scene_mega_clustered(scene, cam)
+        sweeps = _k3t_equal_plain(pack, cam, cfg, ray0, n)
+        *_, whole = rm._launch_record_clustered(
+            pack, mk.camera_table(cam), cfg, KEY, 0, cfg.num_rays, cfg.spp)
+        assert torch.equal(sweeps[:, :4], whole[ray0:ray0 + n, :4])
+        return
     scene, cam, cfg = _scene(CLUSTERED, name)
     pack = mc.pack_scene_mega_clustered(scene, cam)
     rad, segs, sweeps = mc._launch_cuda(pack, mk.camera_table(cam), cfg, KEY)
@@ -159,11 +257,7 @@ def test_k3_k3t_equal_plain(host_kernels, name):
         pack, cam, cfg, KEY, return_iters=True)
     assert torch.equal(rad, ref) and torch.equal(segs, ref_segs)
     assert (sweeps[:, :3] <= ungated[:, :3]).all()
-    tape, its, tsweeps = rm._launch_record_clustered(
-        pack, mk.camera_table(cam), cfg, KEY, 0, cfg.num_rays, cfg.spp)
-    ref_tape, ref_its = rm.record_paths_mega_clustered_reference(
-        pack, cam, cfg, KEY)
-    assert torch.equal(tape, ref_tape) and torch.equal(its, ref_its)
+    tsweeps = _k3t_equal_plain(pack, cam, cfg, 0, cfg.num_rays)
     per_pixel = tsweeps[:, :4].reshape(-1, cfg.spp, 4).sum(1)
     assert torch.equal(per_pixel.to(torch.int32), sweeps[:, :4])
     assert 0 < int(sweeps[:, 4].sum()) <= int(sweeps[:, 0].sum())
