@@ -57,11 +57,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
    of JAX's forward replay of that tape; in float64, the port's replay of
    JAX's tape against JAX's float64 replay: the loss and every gradient
    within 1e-6, those that rest on near-tangent rays (``TANGENT_FIELDS``)
-   within 1e-2.  Times: K2, K2b and their plain versions at 2^17 rays, the
-   replay's value and gradient, the whole step (median of 3 after the warm
-   step), peak memory; K2b's warp lane efficiency at 2^17 rays.
+   within 1e-2.  On the card ``render_loss_and_grads_bucketed`` replays a
+   CUDA graph of its body, so every check above holds the graphed step;
+   ``graph_against_eager`` then holds it to its eager body
+   (``bucketed_loss_and_grads``) on the same inputs, for two keys and
+   after an Adam step has moved the parameters: the loss within one
+   float32 ulp, every gradient within ``rtol=1e-6``.  Times: K2, K2b and
+   their plain versions at 2^17 rays; the eager and the graphed value and
+   gradient and whole step, in turns (median of 3); the latest capture's
+   warm-up and capture seconds and pool bytes; peak memory of the
+   capturing step and of an eager and a graphed step; K2b's warp lane
+   efficiency at 2^17 rays.
 7. ``python -m first_raytracer_tpu_torch.cli fit ... --fast`` in a
-   subprocess on the card: exits 0, the loss falls, K2b launched each step.
+   subprocess on the card: exits 0, the loss falls, K2b launched each step,
+   every step replayed the graph (its captures against replays logged).
 8. K3 vs plain on small scenes: three-spheres, random-spheres and
    triangle-mesh at 64x32, sphere_field(600) and triangle_field(2000) at
    64x32 @ 2: radiance and segments bit-equal to the plain version (the
@@ -101,7 +110,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    bit-equal where the two tapes are; K3t's ms and warp lane efficiency
    (trips over 32 x ``sweeps[:, 5]``) on both fields (2^17 rays are past
    its resident lanes, 4 blocks of 128 on each SM), the step's seconds
-   (median of 3 after the first) and gradient Mpaths/s.
+   (median of 3 after the first) and gradient Mpaths/s.  Then phase 6's
+   ``graph_against_eager`` on field5000 with K3t's tapes: the graphed step
+   against its eager body for two keys and after an Adam step, and the
+   two timed in turns.
 
 11. K4 and K5 against their plain versions: the small scenes of phase 8
    and sphere_field(5000), each on its camera rays and on 4096 random rays
@@ -170,9 +182,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    primitive for every camera ray; the sharded record->replay step at
    2^17 rays of the final scene (2^16 a rank, each recorded by K2b) has
    the ranks' tapes equal to phase 6's and its loss and gradients within
-   ``rtol=1e-4, atol=1e-7`` of phase 6's step; the autograd training step
-   on random-spheres 24x12 @ 2 within the same bound of one process's.
-   K1, K3, K4 and K2b must each launch on every rank.  A rank that fails
+   ``rtol=1e-4, atol=1e-7`` of phase 6's step (each rank replays its own
+   graph of the value and gradient, the all-reduce outside it); the
+   autograd training step on random-spheres 24x12 @ 2 within the same
+   bound of one process's.  K1, K3, K4 and K2b must each launch on every
+   rank, and each rank's replay step must replay its graph.  A rank that fails
    fails the phase.
 16. ``python -m first_raytracer_tpu_torch.cli occupancy`` in subprocesses:
    on the final scene at full size its megakernel ``lane_occupancy``
@@ -475,6 +489,99 @@ def check_grads(what, grads, want, allowed):
                 f"{allowed(k):g})")
         if not ok:
             raise AssertionError(f"{what}: gradient {k} off its reference")
+
+
+def graph_against_eager(what, scene, cam, cfg, ids, target, record, keys,
+                        card):
+    """Phases 6 and 10: the graphed value and gradient
+    (``render_loss_and_grads_bucketed``, a replay of its captured CUDA
+    graph) against its eager body (``bucketed_loss_and_grads``) on the same
+    inputs: the loss within one float32 ulp and every gradient within
+    ``rtol=1e-6`` (the replay's gather sums its backward in float64 with
+    atomics, whose order changes between runs, and then rounds once).  For
+    each of ``keys`` (each key's tape recorded by ``record``), then again
+    on the first key after an Adam step has moved the parameters.  Then,
+    in turns, median of 3: the eager and the graphed value and gradient on
+    the first key's tape and the whole step (record, plan, value and
+    gradient); the captures' seconds and pool bytes, and peak memory."""
+    params, _ = dg.split_params(scene)
+
+    def tape_plan(p, key):
+        tape = record(dg.merge_params(scene, {k: v.detach()
+                                              for k, v in p.items()}), key)
+        return tape, plan_buckets(tape)
+
+    def graphed(p, key, tape, plan):
+        return dg.render_loss_and_grads_bucketed(p, scene, cam, cfg, key,
+                                                 ids, target, tape,
+                                                 plan=plan)
+
+    def eager(p, key, tape, plan):
+        return dg.bucketed_loss_and_grads(
+            p, scene, cam, key, ids, target, tape, plan[0], cfg=cfg,
+            groups=plan[1], num_values=target.numel())
+
+    def hold(label, p, key):
+        tape, plan = tape_plan(p, key)
+        before = dg.GRAPHS.captures
+        loss, grads = graphed(p, key, tape, plan)
+        how = "captured" if dg.GRAPHS.captures > before else "replayed"
+        want_loss, want = eager(p, key, tape, plan)
+        ulp = float(np.spacing(np.float32(abs(float(want_loss)))))
+        dl = abs(float(loss) - float(want_loss))
+        ratio = max(float(((g - want[k]).abs()
+                           / (1e-6 * want[k].abs())).nan_to_num(0.0).max())
+                    for k, g in grads.items() if g.numel())
+        log(f"  {what}, {label}: graph ({how}, groups {plan[1]}) against "
+            f"the eager body: loss {float(loss):.9g} vs "
+            f"{float(want_loss):.9g} (|a - b| {dl:.3g}, one ulp {ulp:.3g}); "
+            f"gradients' largest |a - b| / (1e-6 |b|) {ratio:.4g} (bound 1)")
+        if not (dl <= ulp and ratio <= 1.0):
+            raise AssertionError(f"{what}, {label}: the graphed step is off "
+                                 f"its eager body")
+        return grads
+
+    grads = [hold(f"key {i}", params, key) for i, key in enumerate(keys)]
+    opt = dg.make_optimizer("adam", params, 1e-3)
+    dg.apply_grads(opt, params, grads[0])
+    hold("key 0 after an Adam step", params, keys[0])
+
+    key = keys[0]
+    tape, plan = tape_plan(params, key)
+    fns = {
+        "eager replay": lambda: eager(params, key, tape, plan),
+        "graphed replay": lambda: graphed(params, key, tape, plan),
+        "eager step": lambda: eager(params, key, *tape_plan(params, key)),
+        "graphed step": lambda: graphed(params, key,
+                                        *tape_plan(params, key)),
+    }
+    times = {k: [] for k in fns}
+    for r in range(3):
+        for pair in (("eager replay", "graphed replay"),
+                     ("eager step", "graphed step")):
+            for k in (pair if r % 2 == 0 else pair[::-1]):
+                times[k].append(host_s(fns[k])[0])
+    med = {k: statistics.median(v) for k, v in times.items()}
+    peaks = {}
+    for k in ("eager step", "graphed step"):
+        torch.cuda.reset_peak_memory_stats()
+        host_s(fns[k])
+        peaks[k] = torch.cuda.max_memory_allocated() / 1e9
+    last = dg.GRAPHS.last
+    log(f"  {what}, in turns, median of 3 (all 3): "
+        + "; ".join(f"{k} {med[k] * 1e3:.1f} ms "
+                    f"({', '.join(f'{t * 1e3:.1f}' for t in times[k])})"
+                    for k in fns)
+        + f"; replay {med['eager replay'] / med['graphed replay']:.2f}x, "
+        f"step {med['eager step'] / med['graphed step']:.2f}x; the latest "
+        f"capture: warm-up {last['warmup_s']:.3f} s, capture "
+        f"{last['capture_s']:.3f} s, pool {last['pool_bytes'] / 1e9:.3f} "
+        f"GB; peak memory allocated in a step: eager "
+        f"{peaks['eager step']:.3f} GB, graphed {peaks['graphed step']:.3f}"
+        f" GB (the pool beside it); graphs: {dg.GRAPHS.captures} captures "
+        f"({dg.GRAPHS.warmups} warm-ups), {dg.GRAPHS.replays} replays so "
+        f"far; on {card}")
+    return dict(times=med, peaks=peaks, capture=last)
 
 
 def reset_counts():
@@ -833,7 +940,8 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {"K2b": rm.record_paths_mega.launches}
     log(f"grad path: launches {launches}, buckets {plan[1]}, peak memory "
-        f"{peak_gb:.3f} GB")
+        f"{peak_gb:.3f} GB (the first step: the graph's warm-up and "
+        f"capture)")
     if launches["K2b"] < 2:
         raise AssertionError("the grad path did not record with K2b")
     segments = int(its.sum())
@@ -978,14 +1086,18 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
                 else F64_BOUND)
     del scene64, cam64, params64, grads64
 
+    # (e) The graphed value and gradient against its eager body, for two
+    # keys and after a parameter update, and both timed in turns.
+    turns = graph_against_eager(
+        "final scene, K2b", scene, cam, cfg, ids, target,
+        dg.tape_recorder(scene, cam, cfg, ids, dev),
+        (key, rng.base_key(1)), card)
+
     # Times, median of 3 after the warm step above.
     k2_ms = cuda_ms(record_k2, 3)
     kb_ms = cuda_ms(record, 3)
-    replay_s = statistics.median(host_s(
-        lambda: dg.render_loss_and_grads_bucketed(
-            params, scene, cam, cfg, key, ids, target, tape, plan=plan))[0]
-        for _ in range(3))
-    step_s = statistics.median(host_s(step)[0] for _ in range(3))
+    replay_s = turns["times"]["graphed replay"]
+    step_s = turns["times"]["graphed step"]
     READINGS["grad final scene"] = R / step_s / 1e6
     D = cfg.max_depth + 1
     k2_bound = bound(pack, int(segs2.sum()),
@@ -1000,8 +1112,9 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
         f"efficiency {kb_lanes:.4f}), plain K2 "
         f"{plain2_s * 1e3:.1f} ms, plain K2b {plain_b_s * 1e3:.1f} ms (one "
         f"run each); on {card}")
-    log(f"  replay value and gradient {replay_s * 1e3:.1f} ms; whole step "
-        f"(record + plan + value and gradient) {step_s * 1e3:.1f} ms: "
+    log(f"  graphed replay value and gradient {replay_s * 1e3:.1f} ms; "
+        f"whole step (record + plan + graphed value and gradient) "
+        f"{step_s * 1e3:.1f} ms: "
         f"{R / step_s / 1e6:.4f} gradient Mpaths/s, "
         f"{segments / step_s / 1e6:.3f} Mrays/s ({segments} segments), "
         f"replay {replay_s / step_s * 100:.1f}% of the step (K2b records); "
@@ -1036,6 +1149,11 @@ def fit_cli(card):
         raise AssertionError("the fit's loss did not fall")
     if last["device"] != "cuda" or last["kernel_launches"]["K2b"] < 5:
         raise AssertionError("the fit did not record with K2b on the card")
+    graphs = last["graphs"]
+    log(f"  the fit's value and gradient: {graphs['captures']} graph "
+        f"captures against {graphs['replays']} replays over 5 steps")
+    if graphs["replays"] != 5:
+        raise AssertionError("the fit's steps did not replay the graph")
 
 
 def clustered_vs_plain(dev, key, card):
@@ -1292,6 +1410,9 @@ def clustered_tapes_and_step(dev, key, card, scenes):
     step_s = statistics.median(host_s(lambda: step(params, key))[0]
                                for _ in range(3))
     READINGS["grad field5000"] = R / step_s / 1e6
+    graph_against_eager("field5000, K3t", scene, cam, cfg, ids, target,
+                        dg.tape_recorder(scene, cam, cfg, ids, dev),
+                        (key, rng.base_key(1)), card)
     segments = int(its3.sum())
     log(f"  K3t at {R} rays: field5000 {k3t_ms:.3f} ms (bound "
         f"{bound[0]:.4f} ms, {bound[1]}; plain {plain_s * 1e3:.1f} ms, one "
@@ -1906,6 +2027,11 @@ def two_processes(dev, card, final_img, field_img, step_single,
     bit_equal("  the ranks' K2b tapes, concatenated", (got_tape,), (tape,),
               "phase 6's tape")
     kb = launched("replay", "K2b")
+    graphs = [i["graphs"] for i in infos]
+    log(f"  the ranks' value and gradient: graphs {graphs}")
+    if dev.type == "cuda" and not all(g["replays"] for g in graphs):
+        raise AssertionError("phase 15: a rank's replay step did not "
+                             "replay its graph")
     grads = {k: g.numpy() for k, g in grads.items()}
     for i, r in enumerate(ranks):
         check_step(f"rank {i} record->replay step", r, "replay", loss,

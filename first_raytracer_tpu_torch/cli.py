@@ -55,9 +55,12 @@ after a warm run) and prints one JSON line.
 then recovers them by gradient descent on the per-ray radiance MSE against
 a render of the true scene (depth capped at 8), printing a JSON line
 ``{"step", "loss", "max_param_err"}`` every ``--log-every`` steps and a
-last line with the kernel launch counts.  ``--fast`` takes the
-record->replay step (the tape recorded by the CUDA kernel on a GPU: the
-clustered recorder for scenes past 1024 spheres or triangles).
+last line with the kernel launch counts and the CUDA graphs captured and
+replayed.  ``--fast`` takes the record->replay step (the tape recorded by
+the CUDA kernel on a GPU: the clustered recorder for scenes past 1024
+spheres or triangles; on a GPU the replay's value and gradient is a CUDA
+graph, captured once per plan shape: a fit that moves geometry changes
+its plan, and so captures, every step, about 1.5x slower than eager).
 
 ``occupancy`` prints the JAX package's occupancy report as JSON: the
 wavefront's rays alive per bounce over the first 2^14 rays, and the
@@ -240,7 +243,7 @@ def _cmd_bench(args):
 
 def _cmd_fit(args):
     from .core import rng
-    from .diff.grad import (make_fit_step, make_fit_step_replay,
+    from .diff.grad import (GRAPHS, make_fit_step, make_fit_step_replay,
                             make_optimizer, ray_radiance, split_params)
     from .kernels.intersect_clustered import intersect_clustered
     from .kernels.intersect_pallas import intersect_pallas
@@ -302,7 +305,9 @@ def _cmd_fit(args):
                           "K3": render_pixels_mega_clustered.launches,
                           "K3t": record_paths_mega_clustered.launches,
                           "K4": intersect_pallas.launches,
-                          "K5": intersect_clustered.launches}}))
+                          "K5": intersect_clustered.launches},
+                      "graphs": {"captures": GRAPHS.captures,
+                                 "replays": GRAPHS.replays}}))
     return 0
 
 
@@ -391,7 +396,11 @@ def main(argv=None):
     fp.set_defaults(fn=_cmd_fit)
     _common(fp)
     fp.add_argument("--fields", default="albedo",
-                    help="comma-separated fields of diff.grad.DIFF_FIELDS")
+                    help="comma-separated fields of diff.grad.DIFF_FIELDS; "
+                         "with --fast on a GPU a field that moves geometry "
+                         "changes the replay's plan, and so captures a new "
+                         "CUDA graph, every step: such a step is about 1.5x "
+                         "slower than an eager one")
     fp.add_argument("--opt", default="sgd",
                     choices=("sgd", "adam", "adamw", "rmsprop"),
                     help="torch.optim optimizer (diff.grad.make_optimizer)")

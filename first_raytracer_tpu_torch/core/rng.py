@@ -57,14 +57,29 @@ def base_key(seed: int) -> torch.Tensor:
 
 
 def key_words(key):
-    """The key's two uint32 words as Python ints."""
+    """The key's two uint32 words as Python ints (the kernels take them by
+    value)."""
     k0, k1 = (int(k) for k in torch.as_tensor(key).reshape(2).tolist())
     return k0 & _MASK, k1 & _MASK
 
 
-def _threefry2x32(k0: int, k1: int, c0, c1):
-    """Threefry-2x32-20 on int64 tensors holding uint32 words."""
-    ks = (k0, k1, k0 ^ k1 ^ PARITY)
+def _key_schedule(key, device):
+    """Threefry's key injections, from the key as data on ``device``: the
+    words ``ks = (k0, k1, k0 ^ k1 ^ PARITY)`` and, for each of the five
+    rounds ``g``, ``(ks[(g + 1) % 3], ks[(g + 2) % 3] + g + 1)``, all 0-d
+    int64 tensors.  Nothing is read back to the host, so a CUDA graph that
+    captures a draw reads the key from its buffer on every replay."""
+    k = torch.as_tensor(key, dtype=torch.int64, device=device).reshape(2)
+    k = k & _MASK
+    ks = (k[0], k[1], k[0] ^ k[1] ^ PARITY)
+    return ks, [(ks[(g + 1) % 3], ks[(g + 2) % 3] + (g + 1))
+                for g in range(5)]
+
+
+def _threefry2x32(schedule, c0, c1):
+    """Threefry-2x32-20 on int64 tensors (or Python ints) holding uint32
+    words, keyed by ``_key_schedule``."""
+    ks, inject = schedule
     x0 = (c0 + ks[0]) & _MASK
     x1 = (c1 + ks[1]) & _MASK
     for g in range(5):
@@ -73,8 +88,8 @@ def _threefry2x32(k0: int, k1: int, c0, c1):
             x0 = (x0 + x1) & _MASK
             x1 = ((x1 << r) | (x1 >> (32 - r))) & _MASK
             x1 = x1 ^ x0
-        x0 = (x0 + ks[(g + 1) % 3]) & _MASK
-        x1 = (x1 + (ks[(g + 2) % 3] + g + 1)) & _MASK
+        x0 = (x0 + inject[g][0]) & _MASK
+        x1 = (x1 + inject[g][1]) & _MASK
     return x0, x1
 
 
@@ -83,15 +98,18 @@ def _bits_to_unit_float(bits):
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def _uniforms(key, ray_ids, domains):
-    """(..., 4) f32 uniforms for broadcastable ray ids and domains."""
-    k0, k1 = key_words(key)
-    ids = torch.as_tensor(ray_ids).to(torch.int64) & _MASK
-    dom = torch.as_tensor(domains, device=ids.device).to(torch.int64)
-    ids, dom = torch.broadcast_tensors(ids, dom)
-    d2 = (dom * 2) & _MASK
-    a0, a1 = _threefry2x32(k0, k1, ids, d2)
-    b0, b1 = _threefry2x32(k0, k1, ids, (d2 + 1) & _MASK)
+def _uniforms(key, ray_ids, domain):
+    """(..., 4) f32 uniforms for ray ids and a domain (a Python int, or an
+    integer tensor that broadcasts against the ids).  The key (a (2,)
+    tensor) is read as data on the ids' device; an integer domain is a
+    scalar operand, so no tensor is made from host data."""
+    ids = ray_ids.to(torch.int64) & _MASK
+    schedule = _key_schedule(key, ids.device)
+    if isinstance(domain, torch.Tensor):
+        domain = domain.to(torch.int64)
+    d2 = (domain * 2) & _MASK
+    a0, a1 = _threefry2x32(schedule, ids, d2)
+    b0, b1 = _threefry2x32(schedule, ids, (d2 + 1) & _MASK)
     return torch.stack([_bits_to_unit_float(w) for w in (a0, a1, b0, b1)],
                        dim=-1)
 
@@ -103,7 +121,9 @@ def camera_uniforms(key, ray_ids):
 
 def bounce_uniforms(key, ray_ids, depth):
     """(R, 4) uniforms for bounce ``depth`` (0-based; scalar or per-ray)."""
-    return _uniforms(key, ray_ids, torch.as_tensor(depth) + 1)
+    if not isinstance(depth, torch.Tensor):
+        depth = int(depth)
+    return _uniforms(key, ray_ids, depth + 1)
 
 
 def unit_disk_sample(u1, u2):

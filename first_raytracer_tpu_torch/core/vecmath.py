@@ -19,6 +19,7 @@ __all__ = [
     "refract",
     "schlick",
     "divide",
+    "constant",
     "sqrt",
     "sin",
     "cos",
@@ -36,12 +37,28 @@ def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+_CONSTANTS = {}
+
+
+def constant(value, dtype, device):
+    """A constant tensor of ``value`` (a number or a tuple of numbers),
+    made once per (value, dtype, device) and shared by every later call.
+    Code that runs on every ray batch takes its constants here, so that it
+    copies nothing from the host after its first call and a CUDA graph can
+    capture it.  Callers must not write into the result."""
+    key = (value, dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(value, dtype=dtype, device=device)
+    return t
+
+
 def divide(x, n):
     """``x / n`` for a Python number ``n``, correctly rounded on every
     device.  On CUDA, torch divides by a Python number as a multiplication
     by its reciprocal, which can round one ulp away from the kernels' (and
     XLA's) division; a 0-d tensor on ``x``'s device keeps the division."""
-    return x / torch.tensor(n, dtype=x.dtype, device=x.device)
+    return x / constant(n, x.dtype, x.device)
 
 
 def _rounded_once(fn, x):

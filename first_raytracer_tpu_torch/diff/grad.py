@@ -31,12 +31,14 @@ from ..kernels.megakernel import DENSE_MAX
 from ..kernels.record_mega import MAX_RAY_ID
 from ..render.camera import generate_rays
 from ..render.integrator import RenderConfig, trace_rays
+from .graphed import GraphCache
 from .replay import (plan_buckets, record_paths, record_paths_pool,
                      trace_rays_replay)
 
 __all__ = ["DIFF_FIELDS", "split_params", "merge_params", "ray_radiance",
            "render_loss", "render_loss_and_grads",
            "render_loss_and_grads_tape", "render_loss_and_grads_bucketed",
+           "tape_loss_and_grads", "bucketed_loss_and_grads", "GRAPHS",
            "value_and_grad",
            "sgd_step", "make_optimizer", "apply_grads", "make_fit_step",
            "tape_recorder", "render_loss_and_grads_recorded",
@@ -126,10 +128,10 @@ def render_loss_and_grads(params, scene, camera, cfg, key, ray_ids, target,
         params)
 
 
-def render_loss_and_grads_tape(params, scene, camera, cfg, key, ray_ids,
-                               target, tape):
-    """(loss, grads) for a recorded (possibly ``live_trips``-trimmed)
-    primitive tape: only the replay is differentiated."""
+def tape_loss_and_grads(params, scene, camera, key, ray_ids, target, tape,
+                        *, cfg):
+    """The eager body of ``render_loss_and_grads_tape``: a plain function
+    that the CPU runs and a CUDA device captures."""
     o, d = _rays(camera, cfg, key, ray_ids)
 
     def loss(p):
@@ -138,6 +140,47 @@ def render_loss_and_grads_tape(params, scene, camera, cfg, key, ray_ids,
         return torch.mean((rad - target) ** 2)
 
     return value_and_grad(loss, params)
+
+
+def bucketed_loss_and_grads(params, scene, camera, key, ray_ids, target,
+                            tape, order, *, cfg, groups, num_values):
+    """The eager body of ``render_loss_and_grads_bucketed``: the sort by
+    ``order``, the rays of each group, the replay of its ``trips`` rows,
+    the sum of squares over ``num_values`` and ``torch.autograd.grad``.
+    A plain function that the CPU runs and a CUDA device captures."""
+    ids_s = ray_ids[order]
+    target_s = target[order]
+    tape_s = tape.index_select(1, order)
+
+    def loss(p):
+        s = merge_params(scene, p)
+        total = torch.zeros((), dtype=torch.float32, device=target.device)
+        for g0, n, trips in groups:
+            ids_g = ids_s[g0:g0 + n]
+            o, d = _rays(camera, cfg, key, ids_g)
+            rad = trace_rays_replay(s, o, d, ids_g, key, cfg,
+                                    tape_s[:trips, g0:g0 + n])
+            total = total + torch.sum((rad - target_s[g0:g0 + n]) ** 2)
+        return total / num_values
+
+    return value_and_grad(loss, params)
+
+
+# The CUDA graphs of the two bodies above, by static signature: the
+# counterpart of the JAX package's jit cache, which retraces once per
+# bucket-shape combination; a plan that changes every step captures every
+# step.  On the CPU the bodies run eagerly on its static buffers.
+GRAPHS = GraphCache(maxsize=4)
+
+
+def render_loss_and_grads_tape(params, scene, camera, cfg, key, ray_ids,
+                               target, tape):
+    """(loss, grads) for a recorded (possibly ``live_trips``-trimmed)
+    primitive tape: only the replay is differentiated.  On a CUDA device
+    a replay of the body's CUDA graph (``tape_loss_and_grads``)."""
+    return GRAPHS.run(tape_loss_and_grads, dict(cfg=cfg), dict(
+        params=params, scene=scene, camera=camera, key=key,
+        ray_ids=ray_ids, target=target, tape=tape), target.device)
 
 
 def render_loss_and_grads_bucketed(params, scene, camera, cfg, key,
@@ -157,29 +200,25 @@ def render_loss_and_grads_bucketed(params, scene, camera, cfg, key,
     of squares is divided by ``num_values``, by default the target's
     element count: a rank of a sharded step passes the whole batch's
     (``parallel/shard.py``).
+
+    On a CUDA device the body (``bucketed_loss_and_grads``) runs as a
+    CUDA graph captured once per static signature (the plan's groups, the
+    shapes of the tape and the scene, ``cfg``, ``num_values``, the params'
+    names, shapes and dtypes) and replayed on this call's parameters,
+    scene, camera, key, ray ids, target, tape and order
+    (``diff/graphed.py``).
     """
     if num_values is None:
         num_values = target.shape[0] * target.shape[1]
     if plan is None:
         plan = plan_buckets(tape, max_groups)
     order, groups = plan
-    order = order.to(tape.device)
-    ids_s = ray_ids[order]
-    target_s = target[order]
-    tape_s = tape.index_select(1, order)
-
-    def loss(p):
-        s = merge_params(scene, p)
-        total = torch.zeros((), dtype=torch.float32, device=target.device)
-        for g0, n, trips in groups:
-            ids_g = ids_s[g0:g0 + n]
-            o, d = _rays(camera, cfg, key, ids_g)
-            rad = trace_rays_replay(s, o, d, ids_g, key, cfg,
-                                    tape_s[:trips, g0:g0 + n])
-            total = total + torch.sum((rad - target_s[g0:g0 + n]) ** 2)
-        return total / num_values
-
-    return value_and_grad(loss, params)
+    return GRAPHS.run(
+        bucketed_loss_and_grads,
+        dict(cfg=cfg, groups=groups, num_values=num_values),
+        dict(params=params, scene=scene, camera=camera, key=key,
+             ray_ids=ray_ids, target=target, tape=tape, order=order),
+        target.device)
 
 
 def sgd_step(params, scene, camera, cfg, key, ray_ids, target,

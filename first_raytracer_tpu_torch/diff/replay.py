@@ -34,12 +34,12 @@ import numpy as np
 import torch
 
 from ..core import rng
-from ..core.vecmath import point_at
+from ..core.vecmath import constant, point_at
 from ..geometry.sphere import BIG, sphere_hit_one, sphere_normal
 from ..geometry.triangle import triangle_hit_one, triangle_normal
 from ..materials.scatter import scatter, scatter_from_params
 from ..render.camera import generate_rays
-from ..render.integrator import (RenderConfig, default_intersect,
+from ..render.integrator import (UP, RenderConfig, default_intersect,
                                  recompute_hit, sky_color)
 from ..scene.textures import texture_from_params
 
@@ -60,7 +60,7 @@ def _record_bounce(scene, accel, intersect_fn, key, o, dr, ids, depth,
     t, p, n, mat = recompute_hit(scene, o, dr, prim, t_min)
     hit = hit & (t < BIG)
     p = torch.where(hit[:, None], p, 0.0)
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=o.device)
+    up = constant(UP, torch.float32, o.device)
     n = torch.where(hit[:, None], n, up)
     new_dir, _, ok = scatter(scene, mat, dr, p, n,
                              rng.bounce_uniforms(key, ids, depth))
@@ -339,7 +339,7 @@ def trace_rays_replay(scene, origin, direction, ray_ids, key,
     dev = origin.device
     R = origin.shape[0]
     sph_t, tri_t = _payload_tables(scene)
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev)
+    up = constant(UP, torch.float32, dev)
     o, dr = origin, direction
     throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
     radiance = torch.zeros((R, 3), dtype=torch.float32, device=dev)

@@ -25,12 +25,14 @@ Run it as
 
 Each rank writes ``rank<r>.npz`` into ``--out``: every image, loss and
 gradient, the kernels' launch counts of each step, the transports its
-collectives took, and for the megakernel frames the seconds of three timed
-frames after a warm one and of an all-gather of the frame's shape alone
-(the gather's share).  ``--size small`` renders small scenes (the CPU
-tests' size); ``--size chip`` the configurations of the package's H100
-checks (``chip_smoke.py`` phase 15).  One process (no ``WORLD_SIZE``) runs
-the same steps without collectives.  It imports no JAX.
+collectives took, the CUDA graphs the replay's value and gradient captured
+and replayed (``diff.grad.GRAPHS``), and for the megakernel frames the
+seconds of three timed frames after a warm one and of an all-gather of
+the frame's shape alone (the gather's share).  ``--size small`` renders
+small scenes (the CPU tests' size); ``--size chip`` the configurations of
+the package's H100 checks (``chip_smoke.py`` phase 15).  One process (no
+``WORLD_SIZE``) runs the same steps without collectives.  It imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -228,7 +230,9 @@ def run(size, device):
           for m in (world, spp_mesh))))
     out["info"] = np.array(json.dumps({
         "rank": world.rank, "world": n, "device": str(device),
-        "launches": launches, "transports": transports}))
+        "launches": launches, "transports": transports,
+        "graphs": {"captures": dg.GRAPHS.captures,
+                   "replays": dg.GRAPHS.replays}}))
     return out
 
 

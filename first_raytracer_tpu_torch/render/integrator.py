@@ -31,7 +31,7 @@ from typing import Callable, Optional
 import torch
 
 from ..core import rng
-from ..core.vecmath import point_at
+from ..core.vecmath import constant, point_at
 from ..geometry.sphere import (BIG, sphere_hit_all, sphere_hit_one,
                                sphere_normal)
 from ..geometry.triangle import (triangle_hit_all, triangle_hit_one,
@@ -67,13 +67,15 @@ class RenderConfig:
 
 _WHITE = (1.0, 1.0, 1.0)
 _BLUE = (0.5, 0.7, 1.0)
+# The normal given to a lane without a hit, so that its shading stays finite.
+UP = (0.0, 0.0, 1.0)
 
 
 def sky_color(direction):
     """Miss shader: vertical white -> blue lerp; (R, 3)."""
     t = 0.5 * (direction[:, 1] + 1.0)
-    white = torch.tensor(_WHITE, dtype=torch.float32, device=direction.device)
-    blue = torch.tensor(_BLUE, dtype=torch.float32, device=direction.device)
+    white = constant(_WHITE, torch.float32, direction.device)
+    blue = constant(_BLUE, torch.float32, direction.device)
     return (1.0 - t)[:, None] * white + t[:, None] * blue
 
 
@@ -193,7 +195,7 @@ def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
     radiance = torch.zeros((R, 3), dtype=torch.float32, device=dev)
     alive = torch.ones((R,), dtype=torch.bool, device=dev)
     segments = torch.zeros((R,), dtype=torch.int32, device=dev)
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev)
+    up = constant(UP, torch.float32, dev)
 
     for d in range(cfg.max_depth + 1):
         if not cfg.differentiable and not _any_alive(alive, sync_axis):

@@ -1,13 +1,22 @@
-"""The host synchronizations inside ``bench_torch.py``'s grad step.
+"""The host synchronizations of the gradient step, by part.
 
 Builds the bench's grad configuration (``BENCH_MODE=grad``; the scene
-from ``--scene``, empty for the final scene) with a pipeline of one step,
-runs the step once to warm it, then once more under
-``torch.cuda.set_sync_debug_mode("warn")`` and prints one JSON line: the
-number of synchronizing CUDA calls the step made and the source lines
-that made them.  A step without any can be queued back to back with the
-next one; each one found makes the host wait for the card inside the
-bench's pipeline.
+from ``--scene``, empty for the final scene) and counts, under
+``torch.cuda.set_sync_debug_mode("warn")``, the synchronizing CUDA calls
+that each part of one step makes after a warm run of it:
+
+- ``record``: the recorder's wrapper (K2b on the final scene, K3t on a
+  field), ``diff.grad.tape_recorder``'s choice;
+- ``plan``: ``plan_buckets`` (host NumPy: it reads the tape back, once a
+  step, before the replay);
+- ``replay``: ``render_loss_and_grads_bucketed`` on that tape and plan,
+  the value and gradient (on the card, a replay of its CUDA graph);
+- ``bench_step``: the bench's whole step as ``bench_torch.py`` runs it (its
+  plan is made once, outside the timed loop).
+
+Prints one JSON line with each part's count and the source lines that
+made them.  A replay without any can be queued back to back with the
+next step's work; each one found makes the host wait for the card.
 
     python probes/grad_syncs.py                    # final scene, K2b
     python probes/grad_syncs.py --scene field5000  # K3t
@@ -26,6 +35,26 @@ import torch  # noqa: E402
 
 from first_raytracer_tpu_torch import bench  # noqa: E402
 from first_raytracer_tpu_torch.core import rng  # noqa: E402
+from first_raytracer_tpu_torch.diff import grad as dg  # noqa: E402
+from first_raytracer_tpu_torch.diff.replay import plan_buckets  # noqa: E402
+
+
+def syncs(fn):
+    """The synchronizing calls of ``fn`` after a warm run: (count, {site:
+    count})."""
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    found = [w for w in caught if "synchroniz" in str(w.message)]
+    return len(found), dict(collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in found))
 
 
 def main():
@@ -36,26 +65,31 @@ def main():
     env = {"BENCH_MODE": "grad", "BENCH_SCENE": args.scene,
            "BENCH_GRAD_PIPELINE": "1"}
     scene, cam, cfg, _ = bench.select_scene(args.scene, dev)
+    key = rng.base_key(0)
     isect = "clustered" if args.scene else "pallas"
-    plan, _ = bench._plan(env, "grad", args.scene, scene, cam, cfg,
-                          rng.base_key(0), isect)
-    fn = bench.INTERSECT_FN[isect]
-    plan.run(fn)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            plan.run(fn)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    syncs = [w for w in caught if "synchroniz" in str(w.message)]
-    sites = collections.Counter(
-        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs)
-    print(json.dumps({"scene": args.scene or "final", "kernel": plan.kernel,
-                      "syncs": len(syncs), "sites": dict(sites),
-                      "device": torch.cuda.get_device_name(0)}))
+    plan, _ = bench._plan(env, "grad", args.scene, scene, cam, cfg, key,
+                          isect)
+    R = 1 << 17
+    ids = torch.arange(R, device=dev)
+    target = torch.zeros((R, 3), device=dev)
+    params, _ = dg.split_params(scene)
+    record = dg.tape_recorder(scene, cam, cfg, ids, dev)
+    tape = record(scene, key)
+    buckets = plan_buckets(tape)
+    parts = {
+        "record": lambda: record(scene, key),
+        "plan": lambda: plan_buckets(tape),
+        "replay": lambda: dg.render_loss_and_grads_bucketed(
+            params, scene, cam, cfg, key, ids, target, tape, plan=buckets),
+        "bench_step": lambda: plan.run(bench.INTERSECT_FN[isect]),
+    }
+    out = {"scene": args.scene or "final", "kernel": plan.kernel}
+    for name, fn in parts.items():
+        out[name] = dict(zip(("syncs", "sites"), syncs(fn)))
+    out["graphs"] = {"captures": dg.GRAPHS.captures,
+                     "replays": dg.GRAPHS.replays}
+    out["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -162,6 +162,8 @@ def test_cli_fit(tmp_path, fast):
     assert last["fit"] == "done" and last["device"] == "cpu"
     assert last["kernel_launches"] == {"K1": 0, "K2": 0, "K2b": 0,
                                        "K3": 0, "K3t": 0, "K4": 0, "K5": 0}
+    # The CPU runs the replay's value and gradient eagerly: no graph.
+    assert last["graphs"] == {"captures": 0, "replays": 0}
     want = _jax_fit_first_loss("random-spheres", ("albedo", "fuzz"), 0,
                                nx=16, ny=8, spp=2)
     np.testing.assert_allclose(steps[0]["loss"], want, rtol=1e-5)

@@ -24,6 +24,7 @@ both), and K5 must equal K4.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -175,6 +176,45 @@ def test_gradient_step_on_the_card(cuda_device):
         if g0[k].norm() > 0:
             cos = (g0[k].flatten() @ g.flatten()) / (g0[k].norm() * g.norm())
             assert float(cos) > 0.99, k
+
+
+@pytest.mark.cuda
+def test_graphed_step_matches_its_eager_body(cuda_device):
+    """2^12 rays of the final scene: ``render_loss_and_grads_bucketed`` on
+    the card (a replay of its CUDA graph) against its eager body
+    (``bucketed_loss_and_grads``) on the same inputs, for two keys and
+    after the parameters moved (the same signature replayed on new
+    inputs), then on a plan of two groups (another signature, captured
+    with no second warm-up): the loss within one float32 ulp, every
+    gradient within ``rtol=1e-6`` (the replay's float64 gather sums with
+    atomics)."""
+    scene, cam, cfg = build_preset("random-spheres", device=cuda_device)
+    R = 1 << 12
+    ids = torch.arange(R, device=cuda_device)
+    target = torch.zeros((R, 3), device=cuda_device)
+    params, _ = dg.split_params(scene)
+    record = dg.tape_recorder(scene, cam, cfg, ids, cuda_device)
+    replays, warmups = dg.GRAPHS.replays, dg.GRAPHS.warmups
+    for key, scale, max_groups in ((rng.base_key(0), 1.0, 6),
+                                   (rng.base_key(5), 1.0, 6),
+                                   (rng.base_key(0), 1.01, 6),
+                                   (rng.base_key(0), 1.01, 2)):
+        p = {k: (v.detach() * scale).requires_grad_(True)
+             for k, v in params.items()}
+        tape = record(dg.merge_params(scene, p), key)
+        order, groups = plan_buckets(tape, max_groups)
+        loss, grads = dg.render_loss_and_grads_bucketed(
+            p, scene, cam, cfg, key, ids, target, tape, plan=(order, groups))
+        want_loss, want = dg.bucketed_loss_and_grads(
+            p, scene, cam, key, ids, target, tape, order, cfg=cfg,
+            groups=groups, num_values=target.numel())
+        ulp = float(np.spacing(np.float32(abs(float(want_loss)))))
+        assert abs(float(loss) - float(want_loss)) <= ulp
+        for k, g in grads.items():
+            torch.testing.assert_close(g, want[k], rtol=1e-6, atol=0.0,
+                                       msg=k)
+    assert dg.GRAPHS.replays == replays + 4
+    assert dg.GRAPHS.warmups <= warmups + 1
 
 
 @pytest.mark.cuda

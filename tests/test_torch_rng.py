@@ -46,10 +46,24 @@ def test_uniforms_bit_equal_all_domains(seed):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("seed", SEEDS)
+# Base keys by seed, and raw key words with the top bits set: the key is
+# read as data (0-d int64 tensors), masked to 32 bits.
+KEYS = SEEDS + (-1, pytest.param((0x9E3779B9, 0xDEADBEEF), id="raw"),
+                pytest.param((0xFFFFFFFF, 0xFFFFFFFF), id="ones"))
+
+
+def _keys(seed):
+    """(JAX key, port key) of a seed or of two raw key words."""
+    if isinstance(seed, int):
+        return jrng.base_key(seed), trng.base_key(seed)
+    return (jnp.asarray(np.array(seed, np.uint32)),
+            torch.tensor(seed, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("seed", KEYS)
 def test_camera_and_bounce_uniforms_bit_equal(seed):
     ids = _ids()
-    jk, tk = jrng.base_key(seed), trng.base_key(seed)
+    jk, tk = _keys(seed)
     jids, tids = jnp.asarray(ids.astype(np.int32)), torch.from_numpy(ids)
     np.testing.assert_array_equal(
         trng.camera_uniforms(tk, tids).numpy(),
@@ -58,6 +72,20 @@ def test_camera_and_bounce_uniforms_bit_equal(seed):
         np.testing.assert_array_equal(
             trng.bounce_uniforms(tk, tids, depth).numpy(),
             np.asarray(jrng.bounce_uniforms(jk, jids, depth)))
+
+
+@pytest.mark.parametrize("seed", KEYS)
+def test_per_ray_depth_bounce_uniforms_bit_equal(seed):
+    """A depth per ray (the replay's buckets) against JAX's
+    ``bounce_uniforms_var``."""
+    ids = _ids()
+    jk, tk = _keys(seed)
+    depths = np.random.RandomState(5).randint(0, 51, len(ids))
+    np.testing.assert_array_equal(
+        trng.bounce_uniforms(tk, torch.from_numpy(ids),
+                             torch.from_numpy(depths)).numpy(),
+        np.asarray(jrng.bounce_uniforms_var(
+            jk, jnp.asarray(ids.astype(np.int32)), jnp.asarray(depths))))
 
 
 def test_int32_ray_ids_match_int64():
