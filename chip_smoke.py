@@ -129,30 +129,44 @@ Phases, in order; any failure raises and the exit code is non-zero:
    1200x800 @ 10 spp, depth 50, seed 0, through ``render_image`` with
    ``accel=pack_scene_pallas(scene)``, ``mode="regenerative"`` and a pool
    of 2^17 (``bench.py BENCH_MODE=regenerative``), then ``mode="wavefront"``
-   in chunks of 2^17, counters reset before each and read after: each
-   radiance sum within 1% of the golden, the two images equal to 2e-6.  On
-   ray ids [0, 2^17): K4 and its plain version give equal radiance and
-   segments, the dense sweep (another summation order) the image bound and
-   segment totals within 0.1%; a ``record_paths_pool`` tape through K4
-   agrees with K2b's and with the plain wavefront ``record_paths`` on the
-   dense sweep at 0.999 or above, and equals the plain ``record_paths`` on
-   K4's plain version.  K1's image of the frame is
-   compared and logged.  Times: seconds per frame (median of 3 after a warm
-   run), Mpaths/s, Mrays/s; K4's launches and bound, its ms at 2^17 camera
-   rays (20 calls captured in a CUDA graph, whose replays are timed: one
-   eager call costs the host more than the kernel takes), and per frame:
-   the regenerative frame's batches replayed back to back in a graph, and
-   the sum of events around each eager call.
+   in chunks of 2^17, counters reset before each and read after.  Both run
+   as CUDA graphs of their loops (``render/graphed.py``): K4's launches
+   (the capture's, added back on every replay) equal the passes replayed
+   plus the warm-up's block; the host reads the alive flag once per
+   ``PASSES_PER_READ`` passes, with fewer than that many inert passes a
+   loop; the captures, replays and a capture's seconds and pool bytes are
+   logged.  Each radiance sum within 1% of the golden, the two images equal
+   to 2e-6.  Each graphed frame ``torch.equal`` to the eager one
+   (``graphed=False``, K4's calls clocked by events), radiance and
+   segments ray by ray.  On ray ids [0, 2^17): K4 and its plain version
+   give equal radiance and segments, the dense sweep (another summation
+   order) the image bound and segment totals within 0.1%; a
+   ``record_paths_pool`` tape through K4 agrees with K2b's and with the
+   plain wavefront ``record_paths`` on the dense sweep at 0.999 or above,
+   and equals the plain ``record_paths`` on K4's plain version.  K1's image
+   of the frame is compared and logged.  Times: seconds per frame through
+   ``render_image``, eager / graphed / graphed / eager (each frame
+   ``torch.equal`` to the first graphed one; the pool's median of 3 a
+   turn, the chunked frame one frame a turn: an eager one takes ~18 s),
+   Mpaths/s, Mrays/s; K4's launches and bound, its ms at 2^17 camera rays
+   (20 calls captured in a CUDA graph, whose replays are timed: one eager
+   call costs the host more than the kernel takes), and per frame: the
+   regenerative frame's batches replayed back to back in a graph, and the
+   sum of events around each eager call.
 13. The clustered wavefront path at full width (K5): field20000 and
    trifield20000 at 800x450 @ 4, depth 50, seed 0, through ``render_image``
    with ``accel=pack_scene_clustered(scene)``, wavefront in chunks of 2^17,
-   counters reset before and read after.  The same frame through K4 gives
-   the image bound (pixels that differ at all are counted) and segment
-   totals within 0.1% (per pixel on trifield20000).  Each radiance sum
-   within 1% of the oracle's golden, as in phase 9.  At 2^17 camera rays, K5 and K4 each equal their plain versions
-   (hits, primitives and t) and each other: K4's tiled path at full width.
-   Times: seconds per frame, Mpaths/s, Mrays/s, the host pack's seconds,
-   K5's launches, ms (as K4's) and bound from its per-ray counters.
+   graphed, counters reset before and read after (K5's launches and the
+   reads held as in phase 12), each graphed frame ``torch.equal`` to the
+   eager one (per pixel, and its segments).  The same frame through K4
+   gives the image bound (pixels that differ at all are counted) and
+   segment totals within 0.1% (per pixel on trifield20000).  Each radiance
+   sum within 1% of the oracle's golden, as in phase 9.  At 2^17 camera
+   rays, K5 and K4 each equal their plain versions (hits, primitives and
+   t) and each other: K4's tiled path at full width.  Times: seconds per
+   frame eager / graphed / graphed / eager (median of 3 a turn), Mpaths/s,
+   Mrays/s, the host pack's seconds, K5's launches, ms (as K4's) and bound
+   from its per-ray counters.
 
 14. The sharded megakernels in this process, under a world-size-1 NCCL
    process group that the phase opens (so their all-gather runs through
@@ -253,10 +267,13 @@ from first_raytracer_tpu_torch.kernels import record_mega as rm
 from first_raytracer_tpu_torch.parallel import dryrun
 from first_raytracer_tpu_torch.parallel.mesh import (TILE_AXIS,
                                                      make_render_mesh)
+from first_raytracer_tpu_torch.render import graphed
 from first_raytracer_tpu_torch.render.api import (render_image,
                                                   render_ray_batch)
 from first_raytracer_tpu_torch.render.camera import generate_rays
 from first_raytracer_tpu_torch.render.integrator import intersect_brute
+from first_raytracer_tpu_torch.render.regenerative import (
+    render_rays_regenerative)
 from first_raytracer_tpu_torch.render.image import write_png
 from first_raytracer_tpu_torch.scene.builders import build_preset
 from first_raytracer_tpu_torch.utils.metrics import wavefront_occupancy
@@ -592,6 +609,7 @@ def reset_counts():
     rm.record_paths_mega_clustered.launches = 0
     ip.intersect_pallas.launches = 0
     ic.intersect_clustered.launches = 0
+    graphed.LOOPS.reset_counts()
 
 
 def wavefront_tape(scene, cam, cfg, key, ray0, num_rays, chunk=1 << 13,
@@ -1471,21 +1489,81 @@ class Clocked:
         return ms
 
 
-def frame_stats(scene, cam, cfg, key, accel, intersect_fn=None):
+def frame_stats(scene, cam, cfg, key, accel, intersect_fn=None, **kw):
     """The wavefront frame in chunks of ``WAVE_RAYS``, as ``render_image``
-    traces it, with the segments: (per-pixel mean radiance (P, 3),
-    per-pixel segments (P,)), pixels bottom row first."""
+    traces it (the last chunk padded with the last id), with the segments:
+    (per-pixel mean radiance (P, 3), per-pixel segments (P,)), pixels
+    bottom row first.  ``kw`` goes to ``render_ray_batch`` (``graphed``)."""
     rad, segs = [], []
-    for lo in range(0, cfg.num_rays, WAVE_RAYS):
-        ids = torch.arange(lo, min(lo + WAVE_RAYS, cfg.num_rays),
-                           device=scene.device)
+    total = cfg.num_rays
+    for lo in range(0, total, WAVE_RAYS):
+        ids = torch.arange(lo, lo + WAVE_RAYS, device=scene.device).clamp(
+            max=total - 1)
         r, sg = render_ray_batch(scene, cam, cfg, key, ids, accel,
-                                 intersect_fn, return_stats=True)
+                                 intersect_fn, return_stats=True, **kw)
         rad.append(r)
         segs.append(sg)
-    rad = torch.cat(rad).reshape(-1, cfg.spp, 3).mean(dim=1)
-    segs = torch.cat(segs).reshape(-1, cfg.spp).sum(dim=1)
+    rad = torch.cat(rad)[:total].reshape(-1, cfg.spp, 3).mean(dim=1)
+    segs = torch.cat(segs)[:total].reshape(-1, cfg.spp).sum(dim=1)
     return rad, segs
+
+
+def capture_note(c):
+    """The capture of a graphed frame's counters, for the log."""
+    if not c["captures"]:
+        return "no capture (its graphs were cached)"
+    cap = c["capture"]
+    return (f"{c['captures']} capture(s), {c['warmups']} warm-up(s): the "
+            f"latest warm-up {cap['warmup_s']:.3f} s, capture "
+            f"{cap['capture_s']:.3f} s, pool {cap['pool_bytes'] / 1e9:.3f} "
+            "GB")
+
+
+def loop_counts():
+    """The wavefront graphs' counters since ``reset_counts``, and the
+    latest capture."""
+    loops = graphed.LOOPS
+    return dict(captures=loops.captures, warmups=loops.warmups,
+                replays=loops.replays, passes=loops.passes,
+                live_passes=loops.live_passes, syncs=loops.syncs,
+                capture=loops.last)
+
+
+def check_reads(what, counts, loops_run):
+    """The host's reads of a graphed frame: one per block of
+    ``PASSES_PER_READ`` passes, and fewer than a block of inert passes at
+    the end of each of its ``loops_run`` loops (chunks, or the one pool):
+    at most ceil(passes / K) + loops_run reads."""
+    k = graphed.PASSES_PER_READ
+    if counts["syncs"] * k != counts["passes"] or not (
+            0 <= counts["passes"] - counts["live_passes"] < k * loops_run):
+        raise AssertionError(f"{what}: {counts} off one read per {k} passes")
+
+
+def graph_vs_eager(what, got, want):
+    """Graphed against eager outputs: ``torch.equal`` each."""
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{what}: the graphed frame differs from the "
+                             "eager one")
+    log(f"  {what}: graphed = eager (radiance and segments, torch.equal)")
+
+
+def in_turns(frame, repeats):
+    """Seconds of ``frame(graphed)`` eager, graphed, graphed, eager (the
+    median of ``repeats`` frames a turn), each frame held ``torch.equal``
+    to the first graphed one; returns {"eager": [s, s], "graphed": [s,
+    s]}."""
+    out = {"eager": [], "graphed": []}
+    want = frame(True)
+    for run in ("eager", "graphed", "graphed", "eager"):
+        secs = []
+        for _ in range(repeats):
+            sec, img = host_s(lambda: frame(run == "graphed"))
+            if not torch.equal(img, want):
+                raise AssertionError(f"the {run} frame differs")
+            secs.append(sec)
+        out[run].append(statistics.median(secs))
+    return out
 
 
 def camera_rays(scene, cam, cfg, key, num_rays):
@@ -1564,29 +1642,42 @@ def dense_wavefront_path(dev, key, card):
     with open(os.path.join(ROOT, "bench_golden.json")) as f:
         golden = json.load(f)[GOLDEN_KEY]
     pack = ip.pack_scene_pallas(scene)
+    total = cfg.num_rays
+    chunks = -(-total // WAVE_RAYS)
 
-    def frame(mode):
+    def frame(mode, graphed_=None):
         return render_image(scene, cam, cfg, seed=0, accel=pack, mode=mode,
                             chunk=WAVE_RAYS, pool_size=WAVE_RAYS,
-                            device=dev)
+                            device=dev, graphed=graphed_)
 
-    imgs, launches = {}, {}
+    # The graphed frames (the first of each captures its loop).
+    imgs, launches, loops = {}, {}, {}
     for mode in ("regenerative", "wavefront"):
         reset_counts()
         imgs[mode] = frame(mode)
         torch.cuda.synchronize()
         launches[mode] = ip.intersect_pallas.launches
+        loops[mode] = c = loop_counts()
         img = imgs[mode]
         if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or \
                 not bool(torch.isfinite(img).all()):
             raise AssertionError(f"{mode}: bad image")
-        total = float(img.double().sum()) * cfg.spp
-        rel = abs(total - golden) / golden
-        log(f"{mode} final scene {cfg.nx}x{cfg.ny}@{cfg.spp} through K4: "
-            f"radiance sum {total:.1f} vs golden {golden:.1f} (rel "
-            f"{rel:.2e}), K4 launches {launches[mode]}")
+        total_rad = float(img.double().sum()) * cfg.spp
+        rel = abs(total_rad - golden) / golden
+        log(f"{mode} final scene {cfg.nx}x{cfg.ny}@{cfg.spp} through K4, "
+            f"graphed: radiance sum {total_rad:.1f} vs golden {golden:.1f} "
+            f"(rel {rel:.2e}), K4 launches {launches[mode]} ("
+            f"{c['warmups']} warm-up block(s), {c['passes']} passes "
+            f"replayed, {c['live_passes']} with a live ray), "
+            f"{c['replays']} replays, {c['syncs']} host "
+            f"reads ({graphed.PASSES_PER_READ} passes a read); "
+            f"{capture_note(c)}")
         if launches[mode] < 1:
             raise AssertionError(f"the {mode} render did not launch K4")
+        if launches[mode] != c["passes"] + c["warmups"] * \
+                graphed.PASSES_PER_READ:
+            raise AssertionError(f"{mode}: K4's count is not the passes")
+        check_reads(mode, c, 1 if mode == "regenerative" else chunks)
         if not rel < 1e-2:
             raise AssertionError(f"{mode}: radiance sum off golden ({rel})")
     diff = float((imgs["regenerative"] - imgs["wavefront"]).abs().max())
@@ -1600,13 +1691,32 @@ def dense_wavefront_path(dev, key, card):
         f"programs round in other orders)")
     del mega, kdiff
 
+    # The graphed frames against the eager ones, ray by ray: radiance and
+    # segments.  The eager frames' K4 calls are clocked by events.
+    clocks = {mode: Clocked(ip.intersect_pallas,
+                            keep=mode == "regenerative")
+              for mode in ("regenerative", "wavefront")}
+
+    def pool(**kw):
+        return render_rays_regenerative(scene, cam, cfg, key, 0, total, pack,
+                                        pool_size=WAVE_RAYS,
+                                        return_stats=True, **kw)
+    graph_vs_eager("the regenerative frame", pool(),
+                   pool(intersect_fn=clocks["regenerative"], graphed=False))
+    graph_vs_eager("the wavefront frame", frame_stats(scene, cam, cfg, key,
+                                                      pack),
+                   frame_stats(scene, cam, cfg, key, pack,
+                               clocks["wavefront"], graphed=False))
+    segs = frame_stats(scene, cam, cfg, key, pack)[1]
+    rays = int(segs.sum())
+
     # Ray ids [0, 2^17): K4, its plain version and the dense sweep.
     ids = torch.arange(WAVE_RAYS, device=dev)
     r4, s4 = render_ray_batch(scene, cam, cfg, key, ids, pack,
                               return_stats=True)
     rp, sp = render_ray_batch(scene, cam, cfg, key, ids, pack,
                               ip.intersect_pallas_reference,
-                              return_stats=True)
+                              return_stats=True, graphed=False)
     if not (torch.equal(r4, rp) and torch.equal(s4, sp)):
         raise AssertionError("K4's and its plain version's paths differ")
     rb, sb = render_ray_batch(scene, cam, cfg, key, ids, return_stats=True)
@@ -1615,8 +1725,9 @@ def dense_wavefront_path(dev, key, card):
     bdiff = (px(r4) - px(rb)).abs()
     frac = float((bdiff > 1e-3).float().mean())
     seg_rel = abs(int(s4.sum()) - int(sb.sum())) / int(sb.sum())
-    log(f"  rays [0, {WAVE_RAYS}): K4 = its plain version (radiance and "
-        f"segments); vs the dense sweep over {whole // cfg.spp} whole "
+    log(f"  rays [0, {WAVE_RAYS}): K4 (graphed) = its plain version (eager; "
+        f"radiance and segments); vs the dense sweep (graphed) over "
+        f"{whole // cfg.spp} whole "
         f"pixels frac(|a-b|>1e-3)={frac:.6f}, "
         f"segments {int(s4.sum())} vs {int(sb.sum())} (rel {seg_rel:.2e})")
     if not (frac < 0.01 and seg_rel <= 1e-3):
@@ -1640,21 +1751,23 @@ def dense_wavefront_path(dev, key, card):
                    record_paths(scene, o, d, ids, key, cfg), 0.999)
     del tape, plain, k2b
 
-    # Times: frames, then K4 over a whole frame and per launch.
-    sec = {}  # the frames above were the warm runs
-    for mode in ("regenerative", "wavefront"):
-        sec[mode] = statistics.median(host_s(lambda: frame(mode))[0]
-                                      for _ in range(3))
-        READINGS[f"{mode} final scene"] = cfg.num_rays / sec[mode] / 1e6
-    clocks = {mode: Clocked(ip.intersect_pallas,
-                            keep=mode == "regenerative")
-              for mode in ("regenerative", "wavefront")}
-    render_image(scene, cam, cfg, seed=0, accel=pack,
-                 intersect_fn=clocks["regenerative"], mode="regenerative",
-                 pool_size=WAVE_RAYS, device=dev)
-    _, segs = frame_stats(scene, cam, cfg, key, pack, clocks["wavefront"])
-    rays = int(segs.sum())
-    o, d = camera_rays(scene, cam, cfg, key, WAVE_RAYS)
+    # Times: the frames through render_image, eager and graphed in turns
+    # (the pool's median of 3 a turn, the chunked frame's one frame a
+    # turn: an eager one takes ~18 s); then K4 over a frame and alone.
+    sec = {}
+    for mode, reps in (("regenerative", 3), ("wavefront", 1)):
+        sec[mode] = in_turns(lambda g: frame(mode, g), reps)
+        t = sec[mode]
+        g = statistics.mean(t["graphed"])
+        READINGS[f"{mode} final scene"] = total / min(t["graphed"]) / 1e6
+        log(f"{mode}: eager / graphed / graphed / eager s/frame "
+            f"{t['eager'][0]:.4f} / {t['graphed'][0]:.4f} / "
+            f"{t['graphed'][1]:.4f} / {t['eager'][1]:.4f} ("
+            f"{'median of 3' if reps == 3 else 'one frame'} a turn; "
+            f"{statistics.mean(t['eager']) / g:.2f}x), graphed "
+            f"{total / g / 1e6:.3f} Mpaths/s, {rays / g / 1e6:.3f} "
+            f"Mrays/s ({rays} segments); {loops[mode]['syncs']} host reads "
+            f"a graphed frame; on {card}")
     k4_ms = graph_ms(lambda: ip.intersect_pallas(scene, pack, o, d, 1e-3), 5,
                      20)
     regen_replay_ms = clocks["regenerative"].replay_ms(scene, pack)
@@ -1665,14 +1778,12 @@ def dense_wavefront_path(dev, key, card):
         c = clocks[mode]
         ms = c.ms()
         fb = k4_bound(pack, c.rays, len(c.events))
-        log(f"{mode}: {sec[mode]:.4f} s/frame median of 3, "
-            f"{cfg.num_rays / sec[mode] / 1e6:.3f} Mpaths/s, "
-            f"{rays / sec[mode] / 1e6:.3f} Mrays/s ({rays} segments); K4 "
-            f"{len(c.events)} launches over {c.rays} rays, {ms:.2f} ms of "
-            f"events around each call per frame ({ms / len(c.events) * 1e3:.1f}"
-            f" us per launch; bound "
-            f"{fb[0]:.3f} ms, {fb[1]}), {ms / 1e3 / sec[mode] * 100:.2f}% "
-            f"of the frame; on {card}")
+        eager_s = statistics.mean(sec[mode]["eager"])
+        log(f"  {mode} eager: K4 {len(c.events)} launches over {c.rays} "
+            f"rays, {ms:.2f} ms of events around each call per frame "
+            f"({ms / len(c.events) * 1e3:.1f} us per launch; bound "
+            f"{fb[0]:.3f} ms, {fb[1]}), {ms / 1e3 / eager_s * 100:.2f}% "
+            f"of the eager frame")
     log(f"  K4 alone at {WAVE_RAYS} camera rays: {k4_ms:.4f} ms (20 calls in"
         f" a CUDA graph; bound {b1[0]:.4f} ms, {b1[1]}); plain "
         f"{plain_s * 1e3:.1f} ms (one run); over the regenerative frame's "
@@ -1687,7 +1798,8 @@ def dense_wavefront_path(dev, key, card):
             "ms": k4_ms, "plain_ms": plain_s * 1e3, "bound_ms": b1[0],
             "bound_by": b1[1], "library_ms": None,
             "frame_ms": regen_replay_ms, "frame_events_ms": c.ms(),
-            "frame_bound_ms": k4_bound(pack, c.rays, len(c.events))[0]}
+            "frame_bound_ms": k4_bound(pack, c.rays, len(c.events))[0],
+            "frame_s": sec, "loops": loops}
 
 
 FIELD_WAVE = [("field20000", "sphere-field", 20000,
@@ -1705,29 +1817,46 @@ def clustered_wavefront_path(dev, key, card):
         pack_s = statistics.median(host_s(
             lambda: ic.pack_scene_clustered(scene))[0] for _ in range(3))
         cpack = ic.pack_scene_clustered(scene)
+        chunks = -(-cfg.num_rays // WAVE_RAYS)
 
-        def frame():
+        def frame(graphed_=None):
             return render_image(scene, cam, cfg, seed=0,
                                 accel=ic.pack_scene_clustered(scene),
-                                chunk=WAVE_RAYS, device=dev)
+                                chunk=WAVE_RAYS, device=dev,
+                                graphed=graphed_)
 
         reset_counts()
         img = frame()
         torch.cuda.synchronize()
         frame_launches = ic.intersect_clustered.launches
+        c = loop_counts()
         launches += frame_launches
         if frame_launches < 1 or ip.intersect_pallas.launches:
             raise AssertionError(f"{label}: the frame did not go through K5")
+        if frame_launches != c["passes"] + c["warmups"] * \
+                graphed.PASSES_PER_READ:
+            raise AssertionError(f"{label}: K5's count is not the passes")
+        check_reads(label, c, chunks)
         if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or \
                 not bool(torch.isfinite(img).all()):
             raise AssertionError(f"{label}: bad image")
         field_golden(f"{label} {cfg.nx}x{cfg.ny}@{cfg.spp} wavefront "
-                     f"through K5, K5 launches {frame_launches}", label,
-                     gkey, float(img.double().sum()) * cfg.spp)
-        sec = statistics.median(host_s(frame)[0] for _ in range(3))
-        READINGS[f"wavefront {label}"] = cfg.num_rays / sec / 1e6
+                     f"through K5, graphed, K5 launches {frame_launches} "
+                     f"({c['warmups']} warm-up block(s), {c['passes']} "
+                     f"trips replayed, {c['live_passes']} "
+                     f"with a live ray, {c['syncs']} host reads; "
+                     f"{capture_note(c)})", label, gkey,
+                     float(img.double().sum()) * cfg.spp)
+        t = in_turns(frame, 3)
+        READINGS[f"wavefront {label}"] = cfg.num_rays / min(t["graphed"]) \
+            / 1e6
+        sec = statistics.mean(t["graphed"])
         clock = Clocked(ic.intersect_clustered, counters=True, keep=True)
-        rad5, segs5 = frame_stats(scene, cam, cfg, key, cpack, clock)
+        rad5, segs5 = frame_stats(scene, cam, cfg, key, cpack, clock,
+                                  graphed=False)
+        graph_vs_eager(f"{label}'s frame", frame_stats(scene, cam, cfg, key,
+                                                       cpack),
+                       (rad5, segs5))
         k5_frame_ms = clock.ms()
         k5_replay_ms = clock.replay_ms(scene, cpack)
         rad_img = rad5.reshape(cfg.ny, cfg.nx, 3).flip(0)
@@ -1735,7 +1864,8 @@ def clustered_wavefront_path(dev, key, card):
             raise AssertionError(f"{label}: the counted frame differs")
         dpack = ip.pack_scene_pallas(scene)
         clock4 = Clocked(ip.intersect_pallas)
-        rad4, segs4 = frame_stats(scene, cam, cfg, key, dpack, clock4)
+        rad4, segs4 = frame_stats(scene, cam, cfg, key, dpack, clock4,
+                                  graphed=False)
         diff = (rad5 - rad4).abs()
         frac = float((diff > 1e-3).float().mean())
         differ = int((diff > 0).any(dim=1).sum())
@@ -1779,8 +1909,13 @@ def clustered_wavefront_path(dev, key, card):
         del k5_hits, k4_hits
         k4_ms = cuda_ms(lambda: ip.intersect_pallas(scene, dpack, o, d,
                                                     1e-3), 3)
-        log(f"  {sec:.4f} s/frame median of 3 ({cfg.num_rays / sec / 1e6:.3f}"
-            f" Mpaths/s, {rays / sec / 1e6:.3f} Mrays/s, {rays} segments); "
+        log(f"  eager / graphed / graphed / eager s/frame "
+            f"{t['eager'][0]:.4f} / {t['graphed'][0]:.4f} / "
+            f"{t['graphed'][1]:.4f} / {t['eager'][1]:.4f} (median of 3 a "
+            f"turn, the host pack inside; "
+            f"{statistics.mean(t['eager']) / sec:.2f}x), graphed "
+            f"{cfg.num_rays / sec / 1e6:.3f} Mpaths/s, "
+            f"{rays / sec / 1e6:.3f} Mrays/s ({rays} segments); "
             f"host pack {pack_s:.4f} s; K5 {len(clock.events)} launches over "
             f"{clock.rays} rays, {k5_replay_ms:.2f} ms per frame back to back"
             f" ({k5_frame_ms:.2f} ms of events around each call; bound "
@@ -1804,7 +1939,7 @@ def clustered_wavefront_path(dev, key, card):
                 "plain_ms": plain_s * 1e3, "bound_ms": b1[0],
                 "bound_by": b1[1], "library_ms": None,
                 "frame_ms": k5_replay_ms, "frame_events_ms": k5_frame_ms,
-                "frame_bound_ms": fb[0]}
+                "frame_bound_ms": fb[0], "frame_s": t, "loops": c}
         del rad4, rad5, img, dpack, cpack
         torch.cuda.empty_cache()
     entry["launches"] = launches

@@ -33,8 +33,12 @@ Switches (environment, as ``bench.py``'s):
 schedules, a TPU tile, and the writing of ``bench_golden.json``) have no
 counterpart here and are refused, never ignored.
 
-Packs, plans and scenes are built outside the timed loop.  After an
-untimed warm run (instrumented: segments and work) and one untimed run that
+Packs, plans and scenes are built outside the timed loop.  The timed
+``wavefront`` and ``regenerative`` runs replay the loops' CUDA graphs
+(``render/graphed.py``; the BVH walk runs eagerly); their warm run counts
+through a ``CountedIntersect`` and so runs eagerly, by ``graphed=False``.
+After an untimed warm run (instrumented: segments and work) and one
+untimed run (the graphs' capture, for those modes) that
 sets how many runs each repeat queues back to back to last about
 ``MIN_REPEAT_S`` (one synchronize at its end), each repeat's time over its
 runs is one sample; ``seconds`` is the median sample, the time of one run
@@ -353,7 +357,14 @@ def _accel(scene, isect):
     return None
 
 
-def _segments_pass(scene, cam, cfg, key, num_rays, chunk, accel):
+def _graphed(isect, fn=None):
+    """Whether a wavefront run replays the loops' CUDA graphs: not for the
+    BVH walk (it reads back every step) nor through a
+    ``CountedIntersect`` (host state), which run eagerly."""
+    return isect != "bvh" and not isinstance(fn, CountedIntersect)
+
+
+def _segments_pass(scene, cam, cfg, key, num_rays, chunk, accel, isect):
     """Segments of ray ids [0, num_rays) through the wavefront integrator
     in chunks: the untimed instrumented pass of ``bench.py``."""
     total = 0
@@ -361,7 +372,8 @@ def _segments_pass(scene, cam, cfg, key, num_rays, chunk, accel):
         ids = torch.arange(lo, min(lo + chunk, num_rays),
                            device=scene.device)
         _, segs = render_ray_batch(scene, cam, cfg, key, ids, accel,
-                                   return_stats=True)
+                                   return_stats=True,
+                                   graphed=_graphed(isect))
         total += int(segs.long().sum())
     return total
 
@@ -387,8 +399,8 @@ def _plan_grad(env, scene_sel, scene, cam, cfg, key, isect, chunk):
                                             intersect_fn=fn, method="scan")
 
         def count(_):
-            return (_segments_pass(scene, cam, cfg, key, R, chunk, accel),
-                    None, None)
+            return (_segments_pass(scene, cam, cfg, key, R, chunk, accel,
+                                   isect), None, None)
         return Plan(run, count, R, INTERSECT_KERNEL[isect]), accel
 
     accel = None
@@ -432,8 +444,8 @@ def _plan_grad(env, scene_sel, scene, cam, cfg, key, isect, chunk):
                                      pool_size=gpool)
 
         def rec_counts():
-            return _segments_pass(scene, cam, cfg, key, R, chunk, accel), \
-                None
+            return _segments_pass(scene, cam, cfg, key, R, chunk, accel,
+                                  isect), None
 
     pipe = max(1, _int_env(env, "BENCH_GRAD_PIPELINE", 16))
     replay = _choice(env, "BENCH_GRAD_REPLAY", "bucketed",
@@ -504,7 +516,8 @@ def _plan(env, mode, scene_sel, scene, cam, cfg, key, isect):
         def run(fn):
             return render_rays_regenerative(
                 scene, cam, cfg, key, 0, total, accel, fn, pool_size=pool,
-                return_stats=isinstance(fn, CountedIntersect))
+                return_stats=isinstance(fn, CountedIntersect),
+                graphed=_graphed(isect, fn))
 
         def count(out):
             return int(out[1].long().sum()), None, None
@@ -516,7 +529,9 @@ def _plan(env, mode, scene_sel, scene, cam, cfg, key, isect):
     def run(fn):
         stats = isinstance(fn, CountedIntersect)
         outs = [render_ray_batch(scene, cam, cfg, key, b, accel, fn,
-                                 return_stats=stats) for b in blocks]
+                                 return_stats=stats,
+                                 graphed=_graphed(isect, fn))
+                for b in blocks]
         if not stats:
             return outs[-1]
         # The last block repeats ray total - 1 past the frame: count the

@@ -122,6 +122,13 @@ def _join_group():
     return world
 
 
+def _graphed(args):
+    """The wavefront loops' ``graphed`` argument: the BVH walk reads back
+    every step, so with ``--bvh`` they run eagerly; otherwise the default
+    (CUDA graphs on the card)."""
+    return False if args.bvh else None
+
+
 def _render_sharded(args, scene, camera, cfg, accel, device):
     """The render of ``args.mode`` over a mesh of every rank."""
     from .kernels.megakernel import render_image_mega_sharded
@@ -142,7 +149,8 @@ def _render_sharded(args, scene, camera, cfg, accel, device):
         return render_image_ring(scene, camera, cfg, mesh, seed=args.seed,
                                  device=device)
     return render_image_sharded(scene, camera, cfg, mesh, seed=args.seed,
-                                accel=accel, device=device)
+                                accel=accel, device=device,
+                                graphed=_graphed(args))
 
 
 def _cmd_render(args):
@@ -184,7 +192,7 @@ def _cmd_render(args):
             scene, camera, cfg, seed=args.seed, accel=accel,
             checkpoint_path=args.checkpoint,
             samples_per_batch=args.batch_spp, on_batch=on_batch,
-            device=device).copy())
+            device=device, graphed=_graphed(args)).copy())
     elif args.mode == "mega":
         from .kernels.megakernel import render_image_mega
         img = render_image_mega(scene, camera, cfg, seed=args.seed,
@@ -196,7 +204,8 @@ def _cmd_render(args):
     else:
         from .render.api import render_image
         img = render_image(scene, camera, cfg, seed=args.seed, accel=accel,
-                           mode=args.mode, device=device)
+                           mode=args.mode, device=device,
+                           graphed=_graphed(args))
     img = img.cpu()  # waits for the device
     dt = time.perf_counter() - t0
     if world > 1:
@@ -231,9 +240,11 @@ def _cmd_bench(args):
     key = rng.base_key(args.seed)
     n = min(cfg.num_rays, args.rays or cfg.num_rays)
     ids = torch.arange(n, dtype=torch.int64, device=device)
-    secs = time_fn(render_ray_batch, scene, camera, cfg, key, ids, accel)
+    graphed = _graphed(args)
+    secs = time_fn(render_ray_batch, scene, camera, cfg, key, ids, accel,
+                   graphed=graphed)
     _, segs = render_ray_batch(scene, camera, cfg, key, ids, accel,
-                               return_stats=True)
+                               return_stats=True, graphed=graphed)
     out = throughput(n, int(segs.sum()), secs)
     out.update(preset=args.preset, rays=n, device=str(device),
                accel=type(accel).__name__ if accel is not None else None)

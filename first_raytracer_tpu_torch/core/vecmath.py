@@ -20,6 +20,7 @@ __all__ = [
     "schlick",
     "divide",
     "constant",
+    "bound",
     "sqrt",
     "sin",
     "cos",
@@ -51,6 +52,15 @@ def constant(value, dtype, device):
     if t is None:
         t = _CONSTANTS[key] = torch.tensor(value, dtype=dtype, device=device)
     return t
+
+
+def bound(x, device):
+    """A distance bound (``t_min``, ``t_max``) as a tensor on ``device``: a
+    tensor moved there, a Python number as a float32 ``constant``, so that
+    a per-batch call makes no tensor from host data."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return constant(float(x), torch.float32, device)
 
 
 def divide(x, n):

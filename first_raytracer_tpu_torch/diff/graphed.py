@@ -71,6 +71,18 @@ def _map(fn, obj):
     return obj
 
 
+def copy_leaves(buffers, leaves):
+    """Copies the tensors ``leaves`` into ``buffers``, with no host
+    synchronization: a host tensor (the key) goes through pinned memory
+    (the pinned block is not reused until its copy has run)."""
+    for dst, src in zip(buffers, leaves):
+        src = src.detach()
+        if dst.device.type == "cuda" and src.device.type == "cpu":
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
+
+
 class _Graphed:
     """One signature: its static input buffers, and on a CUDA device its
     graph and the outputs the graph writes."""
@@ -81,17 +93,6 @@ class _Graphed:
                             inputs)
         self.leaves = _flatten(self.buffers)[0]
         self.graph = self.outputs = None
-
-    def load(self, leaves):
-        """Copies the inputs' tensors into the buffers, with no host
-        synchronization: a host tensor (the key) goes through pinned
-        memory (the pinned block is not reused until its copy has run)."""
-        for dst, src in zip(self.leaves, leaves):
-            src = src.detach()
-            if dst.device.type == "cuda" and src.device.type == "cpu":
-                dst.copy_(src.pin_memory(), non_blocking=True)
-            else:
-                dst.copy_(src)
 
     def call(self):
         return self.body(**self.buffers, **self.static)
@@ -140,7 +141,7 @@ class GraphCache:
                 self.entries.popitem(last=False)
         else:
             self.entries.move_to_end(sig)
-        entry.load(leaves)
+        copy_leaves(entry.leaves, leaves)
         if device.type != "cuda":
             return _map(torch.clone, entry.call())
         if entry.graph is None:

@@ -30,6 +30,8 @@ def entry(device="cuda"):
     ray_ids = torch.arange(8192, dtype=torch.int64, device=device)
 
     def forward(scene, camera, key, ray_ids, accel):
-        return render_ray_batch(scene, camera, cfg, key, ray_ids, accel)
+        # The BVH walk reads back every step: its loop runs eagerly.
+        return render_ray_batch(scene, camera, cfg, key, ray_ids, accel,
+                                graphed=False)
 
     return forward, (scene, camera, key, ray_ids, accel)

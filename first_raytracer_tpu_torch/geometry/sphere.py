@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.vecmath import dot, point_at
+from ..core.vecmath import bound, dot, point_at
 
 __all__ = ["BIG", "sphere_hit_all", "sphere_hit_one", "sphere_normal"]
 
@@ -34,8 +34,8 @@ def sphere_hit_all(origin, direction, center, radius, t_min, t_max):
     ``oc`` form as ``sphere_hit_one`` so hit masks agree between the
     sweep and the per-ray recompute.
     """
-    t_min = torch.as_tensor(t_min, device=origin.device)[..., None]
-    t_max = torch.as_tensor(t_max, device=origin.device)[..., None]
+    t_min = bound(t_min, origin.device)[..., None]
+    t_max = bound(t_max, origin.device)[..., None]
     oc = origin[:, None, :] - center[None, :, :]          # (R, Ns, 3)
     b = torch.sum(oc * direction[:, None, :], dim=-1)
     c_coef = torch.sum(oc * oc, dim=-1) - (radius * radius)[None, :]

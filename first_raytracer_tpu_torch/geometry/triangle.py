@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.vecmath import cross, dot, normalize
+from ..core.vecmath import bound, cross, dot, normalize
 
 __all__ = ["BIG", "triangle_hit_all", "triangle_hit_one", "triangle_normal"]
 
@@ -40,8 +40,7 @@ def triangle_hit_all(origin, direction, v0, v1, v2, t_min, t_max):
     t, _ = _moller_trumbore(
         origin[:, None, :], direction[:, None, :],
         v0[None, :, :], v1[None, :, :], v2[None, :, :],
-        torch.as_tensor(t_min, device=dev)[..., None],
-        torch.as_tensor(t_max, device=dev)[..., None])
+        bound(t_min, dev)[..., None], bound(t_max, dev)[..., None])
     return t
 
 

@@ -52,7 +52,7 @@ def _check_divisible(cfg, mesh):
 
 
 def _render_block(scene, camera, cfg, mesh, seed, accel, intersect_fn,
-                  device):
+                  device, graphed):
     """This rank's (npix / tiles, 3) pixel means, combined over the spp
     axis."""
     _check_divisible(cfg, mesh)
@@ -63,7 +63,7 @@ def _render_block(scene, camera, cfg, mesh, seed, accel, intersect_fn,
     p0, s0 = mesh.tile_index * npix, mesh.spp_index * spp
     ids = ray_id_grid(cfg, device)[p0:p0 + npix, s0:s0 + spp].reshape(-1)
     rad = render_rays(scene, camera, cfg, rng.base_key(seed), ids, accel,
-                      intersect_fn)
+                      intersect_fn, graphed=graphed)
     part = pixel_means(rad, spp)
     if mesh.spp > 1:
         part = mesh.axis(SPP_AXIS).all_reduce(part) / mesh.spp
@@ -73,10 +73,11 @@ def _render_block(scene, camera, cfg, mesh, seed, accel, intersect_fn,
 def render_image_sharded(scene, camera, cfg: RenderConfig, mesh,
                          seed: int = 0, accel=None,
                          intersect_fn: Optional[Callable] = None,
-                         device="cuda"):
+                         device="cuda", graphed: Optional[bool] = None):
     """Full-image wavefront render sharded over ``mesh``; (ny, nx, 3) on
     ``device``, row 0 = top, the whole image on every rank.  Each rank
-    traces its rays in ``render_image``'s chunks.
+    traces its rays in ``render_image``'s chunks (CUDA graphs on the card
+    unless ``graphed=False``, which the flat-BVH walk needs there).
 
     Raises ``ValueError`` when the pixels do not divide over the tile axis
     or the samples over the spp axis.  Every rank of the mesh must call
@@ -84,7 +85,7 @@ def render_image_sharded(scene, camera, cfg: RenderConfig, mesh,
     """
     device = local_device(device)
     part = _render_block(scene, camera, cfg, mesh, seed, accel,
-                         intersect_fn, device)
+                         intersect_fn, device, graphed)
     img = mesh.axis(TILE_AXIS).all_gather(part)
     return img.reshape(cfg.ny, cfg.nx, 3).flip(0)
 
@@ -92,23 +93,24 @@ def render_image_sharded(scene, camera, cfg: RenderConfig, mesh,
 def render_image_distributed(scene, camera, cfg: RenderConfig, mesh,
                              seed: int = 0, accel=None,
                              intersect_fn: Optional[Callable] = None,
-                             device="cuda") -> np.ndarray:
+                             device="cuda",
+                             graphed: Optional[bool] = None) -> np.ndarray:
     """``render_image_sharded`` over a mesh that spans processes, returned
     as the complete host-side (ny, nx, 3) NumPy image on every rank, as the
     JAX package's multi-process render returns it."""
     return render_image_sharded(scene, camera, cfg, mesh, seed, accel,
-                                intersect_fn, device).cpu().numpy()
+                                intersect_fn, device, graphed).cpu().numpy()
 
 
 def render_image_auto(scene, camera, cfg: RenderConfig, mesh, seed: int = 0,
                       accel=None, intersect_fn: Optional[Callable] = None,
-                      device="cuda"):
+                      device="cuda", graphed: Optional[bool] = None):
     """The JAX package's GSPMD render, where XLA's partitioner chooses the
     collectives.  torch has no such partitioner, so this is
     ``render_image_sharded`` on the mesh's ranks laid out tiles-only (every
     rank a block of pixels, all samples): one all-gather."""
     return render_image_sharded(scene, camera, cfg, mesh.tiles_only(), seed,
-                                accel, intersect_fn, device)
+                                accel, intersect_fn, device, graphed)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,13 @@ its recompute together (the ring-sharded scene of ``parallel/ring.py``
 assembles them over hops between ranks), and ``sync_axis`` makes the
 early exit uniform over a mesh axis, so that every rank runs the same
 passes and a collective inside a pass cannot deadlock.
+
+The forward path is the JAX package's ``while_loop``: ``trip`` advances a
+state of fixed shape (``trace_state``) by one trip in place, the depth a
+0-d device tensor, and the host reads "any ray alive" once per block of
+trips; on a CUDA device the blocks replay as a CUDA graph
+(``render/graphed.py``).  The differentiable path, ``resolve_fn`` and
+``sync_axis`` run one trip at a time, eagerly.
 """
 from __future__ import annotations
 
@@ -38,8 +45,9 @@ from ..geometry.triangle import (triangle_hit_all, triangle_hit_one,
                                  triangle_normal)
 from ..materials.scatter import scatter
 
-__all__ = ["RenderConfig", "default_intersect", "intersect_brute",
-           "recompute_hit", "sky_color", "trace_rays"]
+__all__ = ["RenderConfig", "default_intersect", "forward_trips",
+           "intersect_brute", "recompute_hit", "sky_color", "trace_rays",
+           "trace_state", "trip"]
 
 
 @dataclass(frozen=True)
@@ -157,10 +165,86 @@ def _any_alive(alive, sync_axis):
     return int(sync_axis.all_reduce(count)) > 0
 
 
+def _resolver(intersect_fn):
+    """``resolve_fn`` from an ``intersect_fn``: the closest hit without
+    autograd, then the hit record recomputed from its primitive."""
+    def resolve_fn(scene, accel, origin, direction, t_min):
+        with torch.no_grad():
+            prim, _, hit = intersect_fn(scene, accel, origin, direction,
+                                        t_min)
+        return (*recompute_hit(scene, origin, direction, prim, t_min), hit)
+    return resolve_fn
+
+
+_CARRY = ("origin", "direction", "throughput", "radiance", "alive",
+          "segments")
+
+
+def _bounce(scene, accel, resolve_fn, key, ray_ids, cfg, d, carry):
+    """One trip of every ray at depth ``d`` (a Python int or a 0-d device
+    tensor): the carry ``_CARRY`` in, the next carry out.  A trip in which
+    every ray is dead changes nothing."""
+    origin, direction, throughput, radiance, alive, segments = carry
+    segments = segments + alive.to(torch.int32)
+    t, p, n, mat, hit = resolve_fn(scene, accel, origin, direction,
+                                   cfg.t_min)
+    # Dead and missing lanes get sanitized hit data so t = BIG points
+    # cannot breed NaN/Inf.
+    hit = hit & (t < BIG)
+    p = torch.where(hit[:, None], p, 0.0)
+    n = torch.where(hit[:, None], n, constant(UP, torch.float32,
+                                              origin.device))
+
+    miss_now = alive & ~hit
+    radiance = radiance + torch.where(
+        miss_now[:, None], throughput * sky_color(direction), 0.0)
+
+    uniforms = rng.bounce_uniforms(key, ray_ids, d)
+    new_dir, attenuation, scattered_ok = scatter(
+        scene, mat, direction, p, n, uniforms)
+    cont = alive & hit & scattered_ok & (d < cfg.max_depth)
+
+    throughput = torch.where(cont[:, None], throughput * attenuation,
+                             throughput)
+    origin = torch.where(cont[:, None], p, origin)
+    direction = torch.where(cont[:, None], new_dir, direction)
+    return origin, direction, throughput, radiance, cont, segments
+
+
+def trace_state(origin, direction, ray_ids, **_):
+    """The forward trips' state at depth 0: ``_CARRY``, the ray ids and
+    the depth as a 0-d int64 tensor, every tensor the state's own."""
+    R, dev = origin.shape[0], origin.device
+    return dict(origin=origin.clone(), direction=direction.clone(),
+                throughput=torch.ones((R, 3), dtype=torch.float32,
+                                      device=dev),
+                radiance=torch.zeros((R, 3), dtype=torch.float32,
+                                     device=dev),
+                alive=torch.ones((R,), dtype=torch.bool, device=dev),
+                segments=torch.zeros((R,), dtype=torch.int32, device=dev),
+                depth=torch.zeros((), dtype=torch.int64, device=dev),
+                ray_ids=ray_ids.clone())
+
+
+@torch.no_grad()
+def trip(state, *, scene, accel, key, cfg, intersect_fn, **_):
+    """One forward trip of ``trace_state``'s state, in place: the body of
+    the JAX package's ``while_loop`` (``integrator.py:255-268``), the
+    depth on the device and no host read, so that a CUDA graph captures
+    it; past the depth cap or once every ray is dead it changes nothing."""
+    carry = _bounce(scene, accel, _resolver(intersect_fn), key,
+                    state["ray_ids"], cfg, state["depth"],
+                    tuple(state[k] for k in _CARRY))
+    for k, v in zip(_CARRY, carry):
+        state[k].copy_(v)
+    state["depth"].add_(1)
+
+
 def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
                accel=None, intersect_fn: Optional[Callable] = None,
                return_stats: bool = False,
-               resolve_fn: Optional[Callable] = None, sync_axis=None):
+               resolve_fn: Optional[Callable] = None, sync_axis=None,
+               graphed: Optional[bool] = None):
     """Trace R primary rays to completion; returns (R, 3) radiance.
 
     ``intersect_fn(scene, accel, origin, direction, t_min) -> (prim, t,
@@ -168,62 +252,58 @@ def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
     also returns ``segments``: (R,) int32 count of ray segments traced per
     path (the rays/s numerator).
 
+    The forward path runs ``trip`` in blocks of
+    ``render.graphed.PASSES_PER_READ`` trips, one read of "any ray alive"
+    per block; on a CUDA device as CUDA graphs
+    (``render.graphed.LOOPS``) unless ``graphed=False``
+    (``render.graphed.graphed_route``).
+
     ``resolve_fn(scene, accel, origin, direction, t_min) -> (t, p, n, mat,
     hit)``, when given, replaces the whole closest-hit resolution
     (``intersect_fn`` and ``recompute_hit``).  ``sync_axis``, a
     ``parallel.mesh.MeshAxis``, turns the forward path's exit once every
     ray is dead into an all-reduce of the alive count over that axis, so
-    that every rank of it runs the same number of passes.
+    that every rank of it runs the same number of passes.  Both run
+    eagerly, one trip at a time.
 
     ``torch.autograd`` differentiates the result through the hit
     recompute, the scatter and the shading; primitive selection (the
     sweep) is not differentiated.  ``cfg.differentiable`` runs all
-    ``max_depth + 1`` trips.
+    ``max_depth + 1`` trips, eagerly.
     """
     if intersect_fn is None:
         intersect_fn = default_intersect
+    if not (cfg.differentiable or resolve_fn or sync_axis):
+        out = forward_trips(trace_state, dict(
+            scene=scene, accel=accel, key=key, origin=origin,
+            direction=direction, ray_ids=ray_ids), cfg, intersect_fn,
+            graphed)
+        return out if return_stats else out[0]
     if resolve_fn is None:
-        def resolve_fn(scene, accel, origin, direction, t_min):
-            with torch.no_grad():
-                prim, _, hit = intersect_fn(scene, accel, origin, direction,
-                                            t_min)
-            return (*recompute_hit(scene, origin, direction, prim, t_min),
-                    hit)
+        resolve_fn = _resolver(intersect_fn)
     R = origin.shape[0]
     dev = origin.device
-    throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
-    radiance = torch.zeros((R, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones((R,), dtype=torch.bool, device=dev)
-    segments = torch.zeros((R,), dtype=torch.int32, device=dev)
-    up = constant(UP, torch.float32, dev)
-
+    carry = (origin, direction,
+             torch.ones((R, 3), dtype=torch.float32, device=dev),
+             torch.zeros((R, 3), dtype=torch.float32, device=dev),
+             torch.ones((R,), dtype=torch.bool, device=dev),
+             torch.zeros((R,), dtype=torch.int32, device=dev))
     for d in range(cfg.max_depth + 1):
-        if not cfg.differentiable and not _any_alive(alive, sync_axis):
+        if not cfg.differentiable and not _any_alive(carry[4], sync_axis):
             break
-        segments = segments + alive.to(torch.int32)
-        t, p, n, mat, hit = resolve_fn(scene, accel, origin, direction,
-                                       cfg.t_min)
-        # Dead and missing lanes get sanitized hit data so t = BIG points
-        # cannot breed NaN/Inf.
-        hit = hit & (t < BIG)
-        p = torch.where(hit[:, None], p, 0.0)
-        n = torch.where(hit[:, None], n, up)
-
-        miss_now = alive & ~hit
-        radiance = radiance + torch.where(
-            miss_now[:, None], throughput * sky_color(direction), 0.0)
-
-        uniforms = rng.bounce_uniforms(key, ray_ids, d)
-        new_dir, attenuation, scattered_ok = scatter(
-            scene, mat, direction, p, n, uniforms)
-        cont = alive & hit & scattered_ok & (d < cfg.max_depth)
-
-        throughput = torch.where(cont[:, None], throughput * attenuation,
-                                 throughput)
-        origin = torch.where(cont[:, None], p, origin)
-        direction = torch.where(cont[:, None], new_dir, direction)
-        alive = cont
-
+        carry = _bounce(scene, accel, resolve_fn, key, ray_ids, cfg, d,
+                        carry)
     if return_stats:
-        return radiance, segments
-    return radiance
+        return carry[3], carry[5]
+    return carry[3]
+
+
+@torch.no_grad()
+def forward_trips(init, inputs, cfg, intersect_fn, graphed):
+    """(radiance, segments) of the forward trips from ``init``'s state,
+    through ``render.graphed.run_loop``."""
+    from .graphed import run_loop
+    out = run_loop(init, trip, dict(cfg=cfg, intersect_fn=intersect_fn),
+                   inputs, inputs["ray_ids"].device, ("radiance", "segments"),
+                   graphed)
+    return out["radiance"], out["segments"]

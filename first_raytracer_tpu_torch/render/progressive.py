@@ -75,7 +75,8 @@ def progressive_render(scene, camera, cfg: RenderConfig, seed: int = 0,
                        checkpoint_every: int = 4,
                        samples_per_batch: int = 1,
                        on_batch: Optional[Callable] = None,
-                       mode: str = "wavefront", device="cuda"):
+                       mode: str = "wavefront", device="cuda",
+                       graphed: Optional[bool] = None):
     """Render ``cfg.spp`` samples in resumable batches of
     ``samples_per_batch`` samples per pixel.
 
@@ -85,7 +86,8 @@ def progressive_render(scene, camera, cfg: RenderConfig, seed: int = 0,
     end.  ``on_batch(state)`` runs after every batch.  ``mode``:
     ``"wavefront"`` (``render_ray_batch`` on ``accel``) or ``"mega"`` (the
     megakernel K1 with its sample offset).  The scene, camera and accel
-    are moved to ``device``.
+    are moved to ``device``.  ``graphed`` goes to ``render_ray_batch``
+    (False for the flat-BVH walk on the card).
     """
     if mode not in ("wavefront", "mega"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -122,7 +124,8 @@ def progressive_render(scene, camera, cfg: RenderConfig, seed: int = 0,
             smp = torch.arange(state.samples_done, state.samples_done + n_s,
                                dtype=torch.int64, device=device)
             ids = (pix[:, None] * cfg.spp + smp[None, :]).reshape(-1)
-            rad = render_ray_batch(scene, camera, cfg, key, ids, accel)
+            rad = render_ray_batch(scene, camera, cfg, key, ids, accel,
+                                   graphed=graphed)
             state.radiance_sum += rad.cpu().numpy().reshape(
                 npix, n_s, 3).sum(axis=1)
         state.samples_done += n_s

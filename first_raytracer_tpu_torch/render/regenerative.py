@@ -13,13 +13,20 @@ slots is kept near full by
 
 The per-ray math is ``trace_rays``'s (the counter RNG keys each draw by ray
 id and depth, which travel with the ray), so the result equals the
-wavefront render to float rounding.  The loop runs on the host: each pass
-reads the survivor count back from the device.
+wavefront render to float rounding.
 
-The JAX package compacts with a scatter in which every dead lane collides
-at slot C - 1; the port compacts with a boolean mask (``x[cont]``), a
-stable partition with no colliding writes, which is deterministic on a GPU.
-Slot C - 1 is a tail slot whenever a lane died, so both give the same pool.
+As in the JAX package, a pass (``pool_pass``) has fixed shapes and reads
+nothing back to the host: the survivor count and the stream's cursor stay
+on the device, the regeneration fills every slot and keeps the fresh rays
+in the tail, and the sky and segment counts go in by ``index_add_`` over
+all C slots (zero for the others: adding 0.0 is exact, so the order of the
+adds cannot change a bit).  The host reads "any slot alive" once per block
+of passes; on a CUDA device the passes replay as a CUDA graph
+(``render/graphed.py``).  JAX compacts with a scatter in which every dead
+lane collides at slot C - 1; the port scatters the dead lanes after the
+survivors (a stable partition, a permutation), which is deterministic on a
+GPU.  Slot C - 1 is a tail slot whenever a lane died, so both give the
+same pool.
 """
 from __future__ import annotations
 
@@ -28,12 +35,88 @@ from typing import Callable, Optional
 import torch
 
 from ..core import rng
+from ..core.vecmath import constant
 from ..materials.scatter import scatter
 from .camera import generate_rays
-from .integrator import (BIG, RenderConfig, default_intersect, recompute_hit,
-                         sky_color)
+from .integrator import (BIG, UP, RenderConfig, default_intersect,
+                         recompute_hit, sky_color)
 
-__all__ = ["render_rays_regenerative"]
+__all__ = ["pool_state", "pool_pass", "render_rays_regenerative"]
+
+
+def _fresh_rays(camera, cfg, key, ids):
+    """Camera rays for global ray ids (clamped into the image)."""
+    ids = ids.clamp(0, cfg.num_rays - 1)
+    return generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ids,
+                         rng.camera_uniforms(key, ids))
+
+
+def pool_state(scene, camera, key, start_id, *, cfg, num_rays, pool_size,
+               **_):
+    """The pool's state before its first pass: slot s holds ray id
+    ``start_id + s`` (alive while s < num_rays), the stream's ``cursor``
+    (0-d int64), the (num_rays, 3) output and the (num_rays,) segment
+    counts.  ``start_id`` is a 0-d int64 tensor on the scene's device."""
+    C, dev, f32 = pool_size, scene.device, torch.float32
+    slot = torch.arange(C, dtype=torch.int64, device=dev)
+    ids = start_id + slot
+    o, d = _fresh_rays(camera, cfg, key, ids)
+    n0 = min(C, num_rays)
+    return dict(o=o, d=d, tp=torch.ones((C, 3), dtype=f32, device=dev),
+                ids=ids, depth=torch.zeros((C,), dtype=torch.int64,
+                                           device=dev),
+                alive=slot < n0,
+                cursor=torch.full((), n0, dtype=torch.int64, device=dev),
+                out=torch.zeros((num_rays, 3), dtype=f32, device=dev),
+                segments=torch.zeros((num_rays,), dtype=torch.int32,
+                                     device=dev))
+
+
+@torch.no_grad()
+def pool_pass(state, *, scene, camera, accel, key, start_id, cfg, num_rays,
+              pool_size, intersect_fn, **_):
+    """One pass of the pool, in place (the JAX package's loop body,
+    ``regenerative.py:87-141``): no host read, every shape fixed.  Once
+    every slot is dead and the stream is spent it changes nothing."""
+    C = pool_size
+    o, d, tp, ids, depth, alive = (state[k] for k in (
+        "o", "d", "tp", "ids", "depth", "alive"))
+    prim, _, hit = intersect_fn(scene, accel, o, d, cfg.t_min)
+    row = (ids - start_id).clamp(0, num_rays - 1)
+    state["segments"].index_add_(0, row, alive.to(torch.int32))
+    t, p, n, mat = recompute_hit(scene, o, d, prim, cfg.t_min)
+    hit = hit & (t < BIG)
+    p = torch.where(hit[:, None], p, 0.0)
+    n = torch.where(hit[:, None], n, constant(UP, torch.float32, o.device))
+    new_dir, attenuation, ok = scatter(
+        scene, mat, d, p, n, rng.bounce_uniforms(key, ids, depth))
+    cont = alive & hit & ok & (depth < cfg.max_depth)
+
+    # Rays that miss add the sky and end; the others end in black.
+    state["out"].index_add_(0, row, torch.where(
+        (alive & ~hit)[:, None], tp * sky_color(d), 0.0))
+
+    # Compaction: survivors in order to the front, the dead after them.
+    n_alive = cont.sum()
+    slot = torch.arange(C, dtype=torch.int64, device=o.device)
+    dest = torch.where(cont, torch.cumsum(cont, 0) - 1,
+                       n_alive + torch.cumsum(~cont, 0) - 1)
+    src = torch.empty_like(dest).index_copy_(0, dest, slot)
+
+    # Regeneration: the tail from the primary stream.
+    cursor = state["cursor"]
+    is_tail = slot >= n_alive
+    fresh_idx = cursor + slot - n_alive
+    fresh_ids = start_id + fresh_idx.clamp(0, num_rays - 1)
+    fo, fd = _fresh_rays(camera, cfg, key, fresh_ids)
+    tail = is_tail[:, None]
+    o.copy_(torch.where(tail, fo, p[src]))
+    d.copy_(torch.where(tail, fd, new_dir[src]))
+    tp.copy_(torch.where(tail, 1.0, (tp * attenuation)[src]))
+    depth.copy_(torch.where(is_tail, 0, depth[src] + 1))
+    ids.copy_(torch.where(is_tail, fresh_ids, ids[src]))
+    alive.copy_(~is_tail | (fresh_idx < num_rays))
+    cursor.add_(torch.minimum(C - n_alive, (num_rays - cursor).clamp(min=0)))
 
 
 @torch.no_grad()
@@ -41,71 +124,26 @@ def render_rays_regenerative(scene, camera, cfg: RenderConfig, key,
                              start_id: int, num_rays: int, accel=None,
                              intersect_fn: Optional[Callable] = None,
                              pool_size: int = 1 << 16,
-                             return_stats: bool = False):
+                             return_stats: bool = False,
+                             graphed: Optional[bool] = None):
     """Trace rays [start_id, start_id + num_rays) through a pool of
     ``pool_size`` slots; returns their (num_rays, 3) radiance on the
     scene's device, and with ``return_stats=True`` also their (num_rays,)
     int32 segment counts, as ``trace_rays`` counts them (a pass adds one
-    to each slot that is alive)."""
-    if intersect_fn is None:
-        intersect_fn = default_intersect
-    C = pool_size
-    dev = scene.device
-    f32 = torch.float32
-    up = torch.tensor([0.0, 0.0, 1.0], dtype=f32, device=dev)
+    to each slot that is alive).
 
-    def fresh_rays(ids):
-        """Camera rays for global ray ids (clamped into the image)."""
-        ids = ids.clamp(0, cfg.num_rays - 1)
-        return generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ids,
-                             rng.camera_uniforms(key, ids))
-
-    out = torch.zeros((num_rays, 3), dtype=f32, device=dev)
-    segments = torch.zeros((num_rays,), dtype=torch.int32, device=dev)
-    slot = torch.arange(C, dtype=torch.int64, device=dev)
-    ids = start_id + slot
-    o, d = fresh_rays(ids)
-    tp = torch.ones((C, 3), dtype=f32, device=dev)
-    depth = torch.zeros((C,), dtype=torch.int64, device=dev)
-    cursor = min(C, num_rays)
-    alive = slot < cursor
-    while bool(alive.any()):
-        prim, _, hit = intersect_fn(scene, accel, o, d, cfg.t_min)
-        if return_stats:
-            live = ids[alive] - start_id
-            segments.index_add_(0, live, torch.ones_like(live,
-                                                         dtype=torch.int32))
-        t, p, n, mat = recompute_hit(scene, o, d, prim, cfg.t_min)
-        hit = hit & (t < BIG)
-        p = torch.where(hit[:, None], p, 0.0)
-        n = torch.where(hit[:, None], n, up)
-
-        new_dir, attenuation, ok = scatter(
-            scene, mat, d, p, n, rng.bounce_uniforms(key, ids, depth))
-        cont = alive & hit & ok & (depth < cfg.max_depth)
-
-        # Rays that miss add the sky and end; the others end in black.
-        miss = alive & ~hit
-        out.index_add_(0, (ids[miss] - start_id).clamp(0, num_rays - 1),
-                       tp[miss] * sky_color(d[miss]))
-
-        # Compaction: the survivors, in order, to the front of the pool.
-        n_alive = int(cont.sum())
-        o, d = p[cont], new_dir[cont]
-        tp = (tp * attenuation)[cont]
-        ids, depth = ids[cont], depth[cont] + 1
-
-        # Regeneration: the tail from the primary stream.
-        fresh_idx = cursor + torch.arange(C - n_alive, dtype=torch.int64,
-                                          device=dev)
-        fresh_ids = start_id + fresh_idx.clamp(0, num_rays - 1)
-        fo, fd = fresh_rays(fresh_ids)
-        o, d = torch.cat([o, fo]), torch.cat([d, fd])
-        tp = torch.cat([tp, torch.ones((C - n_alive, 3), dtype=f32,
-                                       device=dev)])
-        ids = torch.cat([ids, fresh_ids])
-        depth = torch.cat([depth, torch.zeros_like(fresh_idx)])
-        alive = torch.cat([torch.ones((n_alive,), dtype=torch.bool,
-                                      device=dev), fresh_idx < num_rays])
-        cursor += min(C - n_alive, max(num_rays - cursor, 0))
-    return (out, segments) if return_stats else out
+    ``pool_state`` and ``pool_pass`` run in blocks of
+    ``render.graphed.PASSES_PER_READ`` passes, one read of "any slot
+    alive" per block; on a CUDA device as CUDA graphs
+    (``render.graphed.LOOPS``, ``start_id`` as data) unless
+    ``graphed=False`` (``render.graphed.graphed_route``)."""
+    from .graphed import run_loop
+    static = dict(cfg=cfg, num_rays=num_rays, pool_size=pool_size,
+                  intersect_fn=intersect_fn or default_intersect)
+    inputs = dict(scene=scene, camera=camera, accel=accel, key=key,
+                  start_id=torch.full((), int(start_id), dtype=torch.int64,
+                                      device=scene.device))
+    state = run_loop(pool_state, pool_pass, static, inputs, scene.device,
+                     ("out", "segments"), graphed)
+    return (state["out"], state["segments"]) if return_stats \
+        else state["out"]

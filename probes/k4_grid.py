@@ -176,7 +176,8 @@ def main():
         return ip.intersect_pallas(scene_, accel, o, d, t_min)
 
     render_image(scene, cam, cfg, seed=0, accel=pack, intersect_fn=record,
-                 mode="regenerative", pool_size=RAYS, device="cuda")
+                 mode="regenerative", pool_size=RAYS, device="cuda",
+                 graphed=False)
     cam_rays = camera_rays(scene, cam, cfg)
     field, fcam, fcfg = build_preset("sphere-field", device="cuda", n=20000)
     fpack = ip.pack_scene_pallas(field)

@@ -80,6 +80,11 @@ from first_raytracer_tpu_torch.kernels import megakernel_clustered as mc  # noqa
 from first_raytracer_tpu_torch.kernels import record_mega as rm  # noqa: E402
 from first_raytracer_tpu_torch.render.api import render_image  # noqa: E402
 from first_raytracer_tpu_torch.render.camera import generate_rays  # noqa: E402,E501
+
+# A frame whose intersector is a Python wrapper (``Recorded``, ``Clocked``)
+# runs eagerly, where the checkout's render_image can be asked to.
+EAGER = ({"graphed": False} if "graphed" in inspect.signature(
+    render_image).parameters else {})
 from first_raytracer_tpu_torch.scene.builders import build_preset  # noqa: E402,E501
 from first_raytracer_tpu_torch.utils.roofline import (bound,  # noqa: E402
                                                       clustered_bound)
@@ -372,7 +377,7 @@ def k4():
     say("K4 2^17 camera rays ms", *graph_ms(
         lambda: ip.intersect_pallas(scene, pack, o, d, 1e-3), 11, 20))
     frame_ms(ip.intersect_pallas, lambda fn: render_image(
-        scene, cam, cfg, seed=0, accel=pack, intersect_fn=fn,
+        scene, cam, cfg, seed=0, accel=pack, intersect_fn=fn, **EAGER,
         mode="regenerative", pool_size=RAYS, device="cuda"), scene, pack,
         "K4 regenerative frame")
 
@@ -393,7 +398,7 @@ def k5():
             float(sweeps[:, 3].float().mean()), "clusters swept",
             float(sweeps[:, 0].float().mean()))
         frame_ms(ic.intersect_clustered, lambda fn: render_image(
-            scene, cam, cfg, seed=0, accel=pack, intersect_fn=fn,
+            scene, cam, cfg, seed=0, accel=pack, intersect_fn=fn, **EAGER,
             chunk=RAYS, device="cuda"), scene, pack, f"K5 {label} frame")
 
 

@@ -1,6 +1,7 @@
 """K1, K2, K2b, K3, K3t, K4 and K5 (the CUDA kernels) against their plain
 versions on the card, a gradient step through K2b, and the wavefront and
-regenerative renders through K4 and K5.
+regenerative renders through K4 and K5 (their loops as CUDA graphs, held
+bit-equal to the same bodies run eagerly).
 
 Marked ``cuda``; skipped where ``torch.cuda.is_available()`` is False.
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -457,6 +458,58 @@ def test_wavefront_renders_through_k4_and_k5(cuda_device):
     mega = mk.render_image_mega(scene, cam, cfg, device=cuda_device)
     diff = (imgs[0] - mega).abs().cpu()
     assert float((diff > 1e-3).float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["regenerative", "wavefront"])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_wavefront_graph_equals_eager(cuda_device, kernel, mode):
+    """The pool and the chunked batch through K4 and K5, replayed as CUDA
+    graphs (``render/graphed.py``), against the same bodies run eagerly
+    (``graphed=False``): radiance and segments bit-equal, twice (the second
+    call replays the cached graphs); the kernel's counter moves by the
+    passes the graphs ran, and the host reads the flag once per
+    ``PASSES_PER_READ`` passes."""
+    from first_raytracer_tpu_torch.kernels import intersect_clustered as ic
+    from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
+    from first_raytracer_tpu_torch.render import graphed
+    from first_raytracer_tpu_torch.render.api import render_ray_batch
+    from first_raytracer_tpu_torch.render.regenerative import (
+        render_rays_regenerative)
+
+    scene, cam, cfg = build_preset("random-spheres", device=cuda_device,
+                                   nx=96, ny=64, spp=2)
+    if kernel == "K4":
+        accel, counter = ip.pack_scene_pallas(scene), ip.intersect_pallas
+    else:
+        accel, counter = (ic.pack_scene_clustered(scene),
+                          ic.intersect_clustered)
+    key = rng.base_key(3)
+
+    def frame(**kw):
+        if mode == "regenerative":
+            return render_rays_regenerative(scene, cam, cfg, key, 5,
+                                            cfg.num_rays - 5, accel,
+                                            pool_size=4096,
+                                            return_stats=True, **kw)
+        ids = torch.arange(cfg.num_rays, device=cuda_device)
+        return render_ray_batch(scene, cam, cfg, key, ids, accel,
+                                return_stats=True, **kw)
+
+    want = frame(graphed=False)
+    for _ in range(2):
+        graphed.LOOPS.reset_counts()
+        before = counter.launches
+        got = frame()
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        loops = graphed.LOOPS
+        assert counter.launches - before == loops.passes + (
+            loops.warmups * graphed.PASSES_PER_READ)
+        assert loops.syncs * graphed.PASSES_PER_READ == loops.passes
+        assert 0 <= loops.passes - loops.live_passes < \
+            graphed.PASSES_PER_READ
+    assert loops.captures == 0 and loops.replays == loops.syncs
 
 
 @pytest.mark.cuda
