@@ -71,6 +71,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
 7. ``python -m first_raytracer_tpu_torch.cli fit ... --fast`` in a
    subprocess on the card: exits 0, the loss falls, K2b launched each step,
    every step replayed the graph (its captures against replays logged).
+   Then ``cli fit`` without ``--fast`` (the direct step, every step's
+   recorder loop and whole-tape value and gradient replayed as CUDA
+   graphs): exits 0, the loss falls, the replay's graph replayed on each
+   of the 5 steps and the recorder's loop captured once and replayed on
+   the target's recording and on every step.
 8. K3 vs plain on small scenes: three-spheres, random-spheres and
    triangle-mesh at 64x32, sphere_field(600) and triangle_field(2000) at
    64x32 @ 2: radiance and segments bit-equal to the plain version (the
@@ -209,7 +214,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    three-spheres 24x12 @ 2 (the JAX package's own case) both megakernels'
    ``mean_path_len`` within 1e-3 of the wavefront's ``avg_path_length``
    over the same rays; over the final scene's whole full-size frame, phase
-   4's segments against ``wavefront_occupancy`` on K4 over the same rays,
+   4's segments against ``wavefront_occupancy`` on K4 over the same rays
+   (its scan the recorder's loop replayed as CUDA graphs, as in the CLI),
    the mean path length within 1e-3 (each side's paths at the depth cap
    logged).  The same comparison at 64x32 @ 8 (2^14 rays) is logged.
 17. ``python3 bench_torch.py`` in subprocesses (``BENCH_RUNS``): ``mega``
@@ -221,10 +227,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
    line without an ``error``, its guards passed, and its ``launches`` show
    its kernel; each value is logged beside the earlier phase's reading of
    the same configuration.
+18. The direct gradient step (``cli fit`` without ``--fast``; the JAX
+   package's jitted ``render_loss_and_grads``) at 2^17 rays of the final
+   scene (dense sweep, depth 50, ids [0, 2^17), zero target, every
+   field) through ``render_loss_and_grads`` (the lockstep recorder's loop
+   and the whole tape's value and gradient replayed as CUDA graphs),
+   after the same step op by op (``graphed=False`` and the eager body
+   ``tape_loss_and_grads``): the tapes ``torch.equal``, the loss within
+   one float32 ulp, the gradients within ``rtol=1e-6``; the recorder's
+   flag read once per ``PASSES_PER_READ`` passes.  Against the JAX golden
+   (its recorder is this lockstep ``record_paths``): the tape's
+   agreement above 0.999 and its hits per row beside the golden's (the
+   differences logged), the loss within 1% and the albedo gradient within
+   5%.  Eager, graphed, graphed, eager: the step, the recorder and the
+   replay; the captures' seconds and pool bytes, peak memory.  The pool
+   recorder (2^14 slots) equals the lockstep one.  The same step through
+   K4 (counters reset before, read after: its launches go to the kernels
+   line), its tape at 0.999 or above of the dense sweep's and its pool
+   recorder's equal; field5000 through K5, graphed against eager as
+   above, its tape's agreement with K3t's logged, timed in turns.
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements (``sharded_launches``: the launches of phases 14 and 15;
-``bench_launches``: phase 17's, by run) and
+``bench_launches``: phase 17's, by run; ``direct_step_launches``: phase
+18's, K4 on the final scene and K5 on field5000) and
 the result line ``{"ok": true, "device": {...}}``.  This
 script imports no JAX.  Bounds count FP32 operations from the sources
 (``first_raytracer_tpu_torch/utils/roofline.py``, which ``bench_torch.py``'s
@@ -1147,31 +1173,46 @@ def grad_path(dev, key, card, scene, cam, cfg, pack):
 
 
 def fit_cli(card):
-    """Phase 7: the fit CLI in a subprocess on the card."""
-    cmd = [sys.executable, "-m", "first_raytracer_tpu_torch.cli", "fit",
-           "--preset", "random-spheres", "--nx", "64", "--ny", "32",
-           "--spp", "2", "--fields", "albedo", "--opt", "adam", "--lr",
-           "0.05", "--fast", "--steps", "5"]
+    """Phase 7: the fit CLI in subprocesses on the card, the record->replay
+    step (``--fast``) and the direct step."""
+    base = ["--preset", "random-spheres", "--nx", "64", "--ny", "32",
+            "--spp", "2", "--opt", "adam", "--lr", "0.05", "--steps", "5"]
     env = dict(os.environ, PYTHONPATH=ROOT)
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"fit CLI exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    lines = [json.loads(x) for x in proc.stdout.splitlines()]
-    steps, last = lines[:-1], lines[-1]
-    log(f"fit CLI: {' '.join(cmd[3:])} in {time.perf_counter() - t0:.1f} s: "
-        f"losses {[s['loss'] for s in steps]}, {last}")
-    if not steps[-1]["loss"] < steps[0]["loss"]:
-        raise AssertionError("the fit's loss did not fall")
-    if last["device"] != "cuda" or last["kernel_launches"]["K2b"] < 5:
-        raise AssertionError("the fit did not record with K2b on the card")
-    graphs = last["graphs"]
-    log(f"  the fit's value and gradient: {graphs['captures']} graph "
-        f"captures against {graphs['replays']} replays over 5 steps")
-    if graphs["replays"] != 5:
-        raise AssertionError("the fit's steps did not replay the graph")
+    for what, args in (("--fast", ["--fields", "albedo", "--fast"]),
+                       ("direct", [])):
+        cmd = [sys.executable, "-m", "first_raytracer_tpu_torch.cli", "fit",
+               *base, *args]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"fit CLI ({what}) exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        lines = [json.loads(x) for x in proc.stdout.splitlines()]
+        steps, last = lines[:-1], lines[-1]
+        log(f"fit CLI: {' '.join(cmd[3:])} in "
+            f"{time.perf_counter() - t0:.1f} s: losses "
+            f"{[s['loss'] for s in steps]}, {last}")
+        if not steps[-1]["loss"] < steps[0]["loss"]:
+            raise AssertionError(f"the fit's loss did not fall ({what})")
+        if last["device"] != "cuda":
+            raise AssertionError(f"the fit ({what}) did not run on the card")
+        graphs, loops = last["graphs"], last["loops"]
+        log(f"  the fit's value and gradient: {graphs['captures']} graph "
+            f"captures against {graphs['replays']} replays over 5 steps; "
+            f"the recorder's loops: {loops}")
+        if graphs["replays"] != 5:
+            raise AssertionError(f"the fit's steps ({what}) did not replay "
+                                 "the graph")
+        if what == "--fast" and last["kernel_launches"]["K2b"] < 5:
+            raise AssertionError("the fit did not record with K2b on the "
+                                 "card")
+        # The direct step records the target, then each step, in the
+        # loop's graphs: one capture, and at least a block replayed a call.
+        if what == "direct" and not (loops["captures"] == 1
+                                     and loops["replays"] >= 6):
+            raise AssertionError("the direct fit's recorder did not replay "
+                                 "its graphs every step")
 
 
 def clustered_vs_plain(dev, key, card):
@@ -1738,7 +1779,7 @@ def dense_wavefront_path(dev, key, card):
                              ip.intersect_pallas, pool_size=1 << 14)
     o, d = camera_rays(scene, cam, cfg, key, WAVE_RAYS)
     plain = record_paths(scene, o, d, ids, key, cfg, pack,
-                         ip.intersect_pallas_reference)
+                         ip.intersect_pallas_reference, graphed=False)
     if not torch.equal(tape, plain):
         raise AssertionError("the pool tape through K4 differs from the "
                              "plain wavefront record_paths")
@@ -2288,6 +2329,218 @@ def occupancy_cli(dev, key, card, lane_eff, segments):
                              "off the wavefront's")
 
 
+def eager_direct(params, scene, cam, cfg, key, ids, target, accel=None,
+                 record_pool=0):
+    """The direct step op by op: ``record_tape`` with ``graphed=False`` and
+    the eager body ``tape_loss_and_grads``.  Returns (tape, (loss,
+    grads))."""
+    tape = dg.record_tape(params, scene, cam, cfg, key, ids, accel,
+                          record_pool=record_pool, graphed=False)
+    return tape, dg.tape_loss_and_grads(params, scene, cam, key, ids, target,
+                                        tape, cfg=cfg)
+
+
+def direct_against_eager(what, params, scene, cam, cfg, key, ids, target,
+                         accel=None):
+    """The direct step through the user's entry point,
+    ``render_loss_and_grads`` (the recorder's loop and the whole tape's
+    value and gradient replayed as CUDA graphs), against ``eager_direct``
+    on the same inputs: the tapes ``torch.equal``, the loss within one
+    float32 ulp and every gradient within ``rtol=1e-6``.  The loop's
+    counters and K4's and K5's launches are reset just before the graphed
+    step and read just after it.  Returns the graphed step's tape, loss,
+    gradients, its loop counters, launches and captures, and the eager
+    step's seconds."""
+    eager_s, (tape_e, (loss_e, grads_e)) = host_s(lambda: eager_direct(
+        params, scene, cam, cfg, key, ids, target, accel))
+    captures = dg.GRAPHS.captures
+    reset_counts()
+    first_s, (loss, grads) = host_s(lambda: dg.render_loss_and_grads(
+        params, scene, cam, cfg, key, ids, target, accel))
+    counts = loop_counts()
+    launches = {"K4": ip.intersect_pallas.launches,
+                "K5": ic.intersect_clustered.launches}
+    replay_capture = dg.GRAPHS.last if dg.GRAPHS.captures > captures \
+        else None
+    tape = dg.record_tape(params, scene, cam, cfg, key, ids, accel)
+    ulp = float(np.spacing(np.float32(abs(float(loss_e)))))
+    dl = abs(float(loss) - float(loss_e))
+    ratio = max(float(((g - grads_e[k]).abs()
+                       / (1e-6 * grads_e[k].abs())).nan_to_num(0.0).max())
+                for k, g in grads.items() if g.numel())
+    log(f"  {what}: graph against eager: tape equal "
+        f"{torch.equal(tape, tape_e)}, loss {float(loss):.9g} vs "
+        f"{float(loss_e):.9g} (|a - b| {dl:.3g}, one ulp {ulp:.3g}); "
+        f"gradients' largest |a - b| / (1e-6 |b|) {ratio:.4g} (bound 1); "
+        f"the first graphed step {first_s:.3f} s (its captures), eager "
+        f"{eager_s:.3f} s; the recorder's loop {counts['passes']} passes "
+        f"({counts['live_passes']} live) in {counts['replays']} replays, "
+        f"{counts['syncs']} flag reads; launches {launches}")
+    if not torch.equal(tape, tape_e):
+        raise AssertionError(f"{what}: the graphed tape differs from the "
+                             "eager one")
+    if not (dl <= ulp and ratio <= 1.0):
+        raise AssertionError(f"{what}: the graphed step is off its eager "
+                             "body")
+    check_reads(what, counts, 1)
+    for k, g in grads.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: non-finite gradient {k}")
+    return dict(tape=tape, loss=loss, grads=grads, counts=counts,
+                launches=launches, eager_s=eager_s,
+                loop_capture=counts["capture"],
+                replay_capture=replay_capture)
+
+
+def direct_turns(what, fns, card):
+    """Seconds of each pair of ``fns`` ((eager, graphed) by name) in turns,
+    eager, graphed, graphed, eager; logs and returns {name: [s, s]}."""
+    times = {k: [] for k in fns}
+    for pair in (("eager step", "graphed step"),
+                 ("eager recorder", "graphed recorder"),
+                 ("eager replay", "graphed replay")):
+        for k in (*pair, *pair[::-1]):
+            times[k].append(host_s(fns[k])[0])
+    log(f"  {what}, in turns (eager, graphed, graphed, eager): "
+        + "; ".join(f"{k} {', '.join(f'{t * 1e3:.1f}' for t in v)} ms"
+                    for k, v in times.items()) + f"; on {card}")
+    return times
+
+
+def direct_step_path(dev, key, card):
+    """Phase 18.  The direct gradient step (``cli fit`` without
+    ``--fast``, JAX's jitted ``render_loss_and_grads``) at 2^17 rays.
+    Returns K4's and K5's launches on it for the kernels line."""
+    R = GRAD_RAYS
+    ids = torch.arange(R, device=dev)
+    target = torch.zeros((R, 3), device=dev)
+    scene, cam, cfg = build_preset("random-spheres", device=dev)
+    params, _ = dg.split_params(scene)
+    d = direct_against_eager("final scene, dense sweep", params, scene, cam,
+                             cfg, key, ids, target)
+    tape = d["tape"]
+
+    # Against the JAX package's golden: its recorder is the lockstep
+    # record_paths this step replays.
+    with open(GRAD_GOLDEN) as f:
+        golden = json.load(f)
+    with np.load(GRAD_GOLDEN_TAPE) as saved:
+        jax_tape = torch.from_numpy(saved["tape"].astype(np.int32)).to(dev)
+    rows = (tape >= 0).sum(dim=1).tolist()
+    row_diff = [a - b for a, b in zip(rows, golden["tape"]["hits_per_row"])]
+    log(f"  hits per row against the golden's (JAX's record_paths): "
+        f"differences {row_diff}, largest {max(map(abs, row_diff))}")
+    tape_agreement("  the direct step's tape vs JAX's", tape, jax_tape,
+                   0.999)
+    rel = abs(float(d["loss"]) - golden["loss"]) / golden["loss"]
+    log(f"  loss {float(d['loss']):.9g} against the golden's "
+        f"{golden['loss']:.9g}: rel {rel:.3e} (bound 1e-2)")
+    if not rel < 1e-2:
+        raise AssertionError(f"the direct step's loss off the golden by "
+                             f"{rel:.3g}")
+    check_grads("direct step", {"albedo": d["grads"]["albedo"]},
+                {"albedo": golden["fields"]["albedo"]["values"]},
+                lambda k: 0.05)
+
+    def eager_step():
+        return eager_direct(params, scene, cam, cfg, key, ids, target)
+
+    fns = {
+        "eager step": eager_step,
+        "graphed step": lambda: dg.render_loss_and_grads(
+            params, scene, cam, cfg, key, ids, target),
+        "eager recorder": lambda: dg.record_tape(
+            params, scene, cam, cfg, key, ids, graphed=False),
+        "graphed recorder": lambda: dg.record_tape(
+            params, scene, cam, cfg, key, ids),
+        "eager replay": lambda: dg.tape_loss_and_grads(
+            params, scene, cam, key, ids, target, tape, cfg=cfg),
+        "graphed replay": lambda: dg.render_loss_and_grads_tape(
+            params, scene, cam, cfg, key, ids, target, tape),
+    }
+    times = direct_turns("final scene, dense sweep", fns, card)
+    peaks = {}
+    for k in ("eager step", "graphed step"):
+        torch.cuda.reset_peak_memory_stats()
+        host_s(fns[k])
+        peaks[k] = torch.cuda.max_memory_allocated() / 1e9
+    loop_cap, replay_cap = d["loop_capture"], d["replay_capture"]
+    log(f"  captures: the recorder's loop warm-up "
+        f"{loop_cap['warmup_s']:.3f} s, capture {loop_cap['capture_s']:.3f}"
+        f" s, pool {loop_cap['pool_bytes'] / 1e9:.3f} GB; the replay's "
+        + (f"warm-up {replay_cap['warmup_s']:.3f} s, capture "
+           f"{replay_cap['capture_s']:.3f} s, pool "
+           f"{replay_cap['pool_bytes'] / 1e9:.3f} GB" if replay_cap
+           else "graph was cached")
+        + f"; peak memory allocated in a step: eager "
+        f"{peaks['eager step']:.3f} GB, graphed {peaks['graphed step']:.3f}"
+        f" GB; on {card}")
+
+    # The pool recorder (2^14 slots) gives the lockstep recorder's tape.
+    pool_s, pool = host_s(lambda: dg.record_tape(
+        params, scene, cam, cfg, key, ids, record_pool=1 << 14))
+    pool_s = host_s(lambda: dg.record_tape(
+        params, scene, cam, cfg, key, ids, record_pool=1 << 14))[0]
+    log(f"  the pool recorder (2^14 slots): tape equal to the lockstep "
+        f"recorder's {torch.equal(pool, tape)} ({pool_s * 1e3:.1f} ms "
+        f"graphed, its second call)")
+    if not torch.equal(pool, tape):
+        raise AssertionError("the pool recorder's tape differs from the "
+                             "lockstep recorder's")
+    del pool
+
+    # K4: the direct step on the Pallas pack, and its pool recorder.
+    pack4 = ip.pack_scene_pallas(scene)
+    d4 = direct_against_eager("final scene, K4", params, scene, cam, cfg,
+                              key, ids, target, pack4)
+    tape_agreement("  the K4 tape vs the dense sweep's", d4["tape"], tape,
+                   0.999)
+    pool4 = dg.record_tape(params, scene, cam, cfg, key, ids, pack4,
+                           record_pool=1 << 14)
+    if not torch.equal(pool4, d4["tape"]):
+        raise AssertionError("the pool recorder's tape through K4 differs "
+                             "from the lockstep recorder's")
+    log("  the pool recorder through K4 (2^14 slots): tape equal to the "
+        "lockstep recorder's")
+    k4_launches = d4["launches"]["K4"]
+    del d, d4, pool4, tape, fns, pack4, jax_tape
+    torch.cuda.empty_cache()
+
+    # K5 on field5000.
+    scene, cam, cfg = build_preset("sphere-field", device=dev, n=5000)
+    params, _ = dg.split_params(scene)
+    pack5 = ic.pack_scene_clustered(scene)
+    d5 = direct_against_eager("field5000, K5", params, scene, cam, cfg, key,
+                              ids, target, pack5)
+    k3t = rm.record_paths_mega_clustered(
+        mc.pack_scene_mega_clustered(scene, cam), cam, cfg, key, num_rays=R)
+    agree = float((d5["tape"] == k3t).float().mean())
+    log(f"  field5000: the direct step's tape (K5) vs K3t's (phase 10's "
+        f"recorder): agreement {agree:.6f}, "
+        f"{int((d5['tape'] != k3t).any(dim=0).sum())} rays differ (logged: "
+        "the float32 wavefront re-hits far spheres, phase 10)")
+    tape5 = d5["tape"]
+    fns5 = {
+        "eager step": lambda: eager_direct(params, scene, cam, cfg, key,
+                                           ids, target, pack5),
+        "graphed step": lambda: dg.render_loss_and_grads(
+            params, scene, cam, cfg, key, ids, target, pack5),
+        "eager recorder": lambda: dg.record_tape(
+            params, scene, cam, cfg, key, ids, pack5, graphed=False),
+        "graphed recorder": lambda: dg.record_tape(
+            params, scene, cam, cfg, key, ids, pack5),
+        "eager replay": lambda: dg.tape_loss_and_grads(
+            params, scene, cam, key, ids, target, tape5, cfg=cfg),
+        "graphed replay": lambda: dg.render_loss_and_grads_tape(
+            params, scene, cam, cfg, key, ids, target, tape5),
+    }
+    times5 = direct_turns("field5000, K5", fns5, card)
+    if not (k4_launches > 0 and d5["launches"]["K5"] > 0):
+        raise AssertionError("the direct step did not launch K4 or K5")
+    return dict(times=times, times5=times5, peaks=peaks,
+                launches={"K4": k4_launches, "K5": d5["launches"]["K5"]})
+
+
 def bench_runs(card):
     """Phase 17: ``python3 bench_torch.py`` in subprocesses, one for each
     of ``BENCH_RUNS``.  Each must exit 0 with one JSON line without an
@@ -2370,6 +2623,11 @@ def main():
     occupancy_cli(dev, key, card, *k1_steps)  # 16.
     log("bench_torch.py:")
     bench = bench_runs(card)  # 17.
+    torch.cuda.empty_cache()
+    log("The direct gradient step:")
+    direct = direct_step_path(dev, key, card)  # 18.
+    k4["direct_step_launches"] = direct["launches"]["K4"]
+    k5["direct_step_launches"] = direct["launches"]["K5"]
     k1["sharded_launches"] = {"phase14": slice14["K1"]}
     k4["sharded_launches"] = {"phase15": slice15["K4"]}
     k1["bench_launches"] = bench["K1"]

@@ -20,7 +20,8 @@ Switches (environment, as ``bench.py``'s):
 - ``BENCH_REPEATS`` (at least 3), and for ``grad``: ``BENCH_GRAD_RAYS``
   (2^17), ``BENCH_GRAD_METHOD`` (``replay`` or ``scan``),
   ``BENCH_GRAD_REC`` (``mega`` = K2b, ``megacluster`` = K3t, ``pool`` =
-  the pool recorder on ``BENCH_INTERSECT``; by default K2b up to
+  the pool recorder on ``BENCH_INTERSECT``, its loop CUDA graphs on the
+  card but through the BVH walk; by default K2b up to
   ``DENSE_MAX`` spheres and triangles, K3t past it and on the fields),
   ``BENCH_GRAD_POOL`` (2^14), ``BENCH_GRAD_REPLAY`` (``bucketed`` or
   ``flat``) and ``BENCH_GRAD_PIPELINE`` (16 steps timed back to back with
@@ -441,7 +442,8 @@ def _plan_grad(env, scene_sel, scene, cam, cfg, key, isect, chunk):
 
         def rec_tape(fn=INTERSECT_FN.get(isect)):
             return record_paths_pool(scene, cam, cfg, key, ids, accel, fn,
-                                     pool_size=gpool)
+                                     pool_size=gpool,
+                                     graphed=_graphed(isect, fn))
 
         def rec_counts():
             return _segments_pass(scene, cam, cfg, key, R, chunk, accel,

@@ -55,12 +55,18 @@ after a warm run) and prints one JSON line.
 then recovers them by gradient descent on the per-ray radiance MSE against
 a render of the true scene (depth capped at 8), printing a JSON line
 ``{"step", "loss", "max_param_err"}`` every ``--log-every`` steps and a
-last line with the kernel launch counts and the CUDA graphs captured and
-replayed.  ``--fast`` takes the record->replay step (the tape recorded by
-the CUDA kernel on a GPU: the clustered recorder for scenes past 1024
-spheres or triangles; on a GPU the replay's value and gradient is a CUDA
-graph, captured once per plan shape: a fit that moves geometry changes
-its plan, and so captures, every step, about 1.5x slower than eager).
+last line with the kernel launch counts, the replay's CUDA graphs captured
+and replayed (``graphs``) and the recorder loops' (``loops``: captures,
+block replays, passes, live passes and flag reads).  Without ``--fast``
+it takes the direct step (``make_fit_step``): on a GPU the wavefront
+recorder's loop and the value and gradient of the whole tape's replay are
+CUDA graphs, replayed every step (``--bvh`` records eagerly: the walk reads
+back every step).  ``--fast`` takes the record->replay step (the tape
+recorded by the CUDA kernel on a GPU: the clustered recorder for scenes
+past 1024 spheres or triangles; on a GPU the replay's value and gradient is
+a CUDA graph, captured once per plan shape: a fit that moves geometry
+changes its plan, and so captures, every step, about 1.5x slower than
+eager).  ``occupancy``'s wavefront scan is the recorder's loop too.
 
 ``occupancy`` prints the JAX package's occupancy report as JSON: the
 wavefront's rays alive per bounce over the first 2^14 rays, and the
@@ -123,9 +129,10 @@ def _join_group():
 
 
 def _graphed(args):
-    """The wavefront loops' ``graphed`` argument: the BVH walk reads back
-    every step, so with ``--bvh`` they run eagerly; otherwise the default
-    (CUDA graphs on the card)."""
+    """The wavefront loops' ``graphed`` argument (the renders, the fit's
+    recorder and the occupancy scan): the BVH walk reads back every step,
+    so with ``--bvh`` they run eagerly; otherwise the default (CUDA graphs
+    on the card)."""
     return False if args.bvh else None
 
 
@@ -262,6 +269,7 @@ def _cmd_fit(args):
     from .kernels.megakernel_clustered import render_pixels_mega_clustered
     from .kernels.record_mega import (record_paths_mega,
                                       record_paths_mega_clustered)
+    from .render.graphed import LOOPS
 
     device = torch.device(args.device)
     scene, camera, cfg, accel = _build(args, device)
@@ -274,7 +282,7 @@ def _cmd_fit(args):
     true_params, _ = split_params(scene, fields=fields)
     with torch.no_grad():
         target = ray_radiance(true_params, scene, camera, cfg, key, ids,
-                              accel)
+                              accel, graphed=_graphed(args))
 
     # Perturb each field by a factor in [0.6, 0.9), drawing in sorted key
     # order as the JAX package's tree_map does.
@@ -292,7 +300,8 @@ def _cmd_fit(args):
                                     device=device)
     else:
         step = make_fit_step(scene, camera, cfg, ids, target, opt,
-                             accel=accel, device=device)
+                             accel=accel, device=device,
+                             graphed=_graphed(args))
     loss = None
     for i in range(args.steps):
         loss = float(step(params, key))
@@ -318,7 +327,10 @@ def _cmd_fit(args):
                           "K4": intersect_pallas.launches,
                           "K5": intersect_clustered.launches},
                       "graphs": {"captures": GRAPHS.captures,
-                                 "replays": GRAPHS.replays}}))
+                                 "replays": GRAPHS.replays},
+                      "loops": {k: getattr(LOOPS, k) for k in (
+                          "captures", "replays", "passes", "live_passes",
+                          "syncs")}}))
     return 0
 
 
@@ -329,7 +341,8 @@ def _cmd_occupancy(args):
     device = torch.device(args.device)
     scene, camera, cfg, accel = _build(args, device)
     out = wavefront_occupancy(scene, camera, cfg, seed=args.seed,
-                              accel=accel, device=device)
+                              accel=accel, device=device,
+                              graphed=_graphed(args))
     if scene.num_primitives <= (1 << 14):
         out["megakernel"] = megakernel_occupancy(scene, camera, cfg,
                                                  seed=args.seed,

@@ -12,7 +12,17 @@ function returns ``(loss, grads)`` with ``grads`` a dict of the same keys.
 Two equivalent radiance paths: ``method="replay"`` (default) records the
 primitive tape outside autograd and differentiates the tape replay
 (``diff/replay.py``); ``method="scan"`` differentiates the wavefront
-integrator's fixed-trip loop directly, kept as the equivalence oracle.
+integrator's fixed-trip loop directly, kept as the equivalence oracle, and
+runs eagerly.
+
+The direct step (``render_loss_and_grads``, ``sgd_step``,
+``make_fit_step``) is the JAX package's jitted one: the recorder's loop
+(``diff/replay.py``, through ``render.graphed.run_loop``: CUDA graphs on
+the card, the bounce counter on the device) and then the value and
+gradient of the replay over the whole tape, a replay of the CUDA graph of
+``tape_loss_and_grads`` (``GRAPHS``).  Its ``graphed`` argument is the
+recorder's (``render.graphed.graphed_route``: ``graphed=False`` runs the
+recorder op by op, as the flat-BVH walk must on the card).
 
 The fit steps update the parameters in place through a ``torch.optim``
 optimizer built over them (``make_optimizer``), where the JAX package
@@ -32,11 +42,11 @@ from ..kernels.record_mega import MAX_RAY_ID
 from ..render.camera import generate_rays
 from ..render.integrator import RenderConfig, trace_rays
 from .graphed import GraphCache
-from .replay import (plan_buckets, record_paths, record_paths_pool,
+from .replay import (plan_buckets, record_camera_paths, record_paths_pool,
                      trace_rays_replay)
 
 __all__ = ["DIFF_FIELDS", "split_params", "merge_params", "ray_radiance",
-           "render_loss", "render_loss_and_grads",
+           "record_tape", "render_loss", "render_loss_and_grads",
            "render_loss_and_grads_tape", "render_loss_and_grads_bucketed",
            "tape_loss_and_grads", "bucketed_loss_and_grads", "GRAPHS",
            "value_and_grad",
@@ -66,31 +76,44 @@ def _rays(camera, cfg, key, ray_ids):
                          rng.camera_uniforms(key, ray_ids))
 
 
+def record_tape(params, scene, camera, cfg: RenderConfig, key, ray_ids,
+                accel=None, intersect_fn: Optional[Callable] = None,
+                record_pool: int = 0, graphed: Optional[bool] = None):
+    """The (max_depth + 1, R) tape of the scene under ``params`` (detached):
+    the lockstep recorder of the camera rays, or the pool recorder with
+    ``record_pool`` slots, through ``render.graphed.run_loop``."""
+    s = merge_params(scene, {k: v.detach() for k, v in params.items()})
+    if record_pool:
+        return record_paths_pool(s, camera, cfg, key, ray_ids, accel,
+                                 intersect_fn, pool_size=record_pool,
+                                 graphed=graphed)
+    return record_camera_paths(s, camera, cfg, key, ray_ids, accel,
+                               intersect_fn, graphed=graphed)
+
+
 def ray_radiance(params, scene, camera, cfg: RenderConfig, key, ray_ids,
                  accel=None, intersect_fn: Optional[Callable] = None,
-                 method: str = "replay", record_pool: int = 0):
+                 method: str = "replay", record_pool: int = 0,
+                 graphed: Optional[bool] = None):
     """(R, 3) radiance as a differentiable function of ``params``.
 
-    ``method="replay"``: record the primitive tape outside autograd (the
-    lockstep recorder, or the pool recorder with ``record_pool`` slots),
-    then replay it.  ``method="scan"``: the wavefront integrator with
-    ``differentiable=True``.  The closest hit is ``intersect_fn`` on
-    ``accel`` (``render.integrator.default_intersect`` by default); an
+    ``method="replay"``: record the primitive tape outside autograd
+    (``record_tape``: the lockstep recorder, or the pool recorder with
+    ``record_pool`` slots; ``graphed`` is its route), then replay it.
+    ``method="scan"``: the wavefront integrator with
+    ``differentiable=True``, eagerly.  The closest hit is ``intersect_fn``
+    on ``accel`` (``render.integrator.default_intersect`` by default); an
     accel built from other parameters than ``params`` is used as it is.
     """
+    if method == "replay":
+        tape = record_tape(params, scene, camera, cfg, key, ray_ids, accel,
+                           intersect_fn, record_pool, graphed)
+    elif method != "scan":
+        raise ValueError(f"unknown method {method!r}")
     scene = merge_params(scene, params)
     o, d = _rays(camera, cfg, key, ray_ids)
     if method == "replay":
-        if record_pool:
-            tape = record_paths_pool(scene, camera, cfg, key, ray_ids,
-                                     accel, intersect_fn,
-                                     pool_size=record_pool)
-        else:
-            tape = record_paths(scene, o, d, ray_ids, key, cfg, accel,
-                                intersect_fn)
         return trace_rays_replay(scene, o, d, ray_ids, key, cfg, tape)
-    if method != "scan":
-        raise ValueError(f"unknown method {method!r}")
     return trace_rays(scene, o, d, ray_ids, key,
                       dataclasses.replace(cfg, differentiable=True),
                       accel=accel, intersect_fn=intersect_fn)
@@ -98,10 +121,12 @@ def ray_radiance(params, scene, camera, cfg: RenderConfig, key, ray_ids,
 
 def render_loss(params, scene, camera, cfg, key, ray_ids, target,
                 accel=None, intersect_fn: Optional[Callable] = None,
-                method: str = "replay", record_pool: int = 0):
+                method: str = "replay", record_pool: int = 0,
+                graphed: Optional[bool] = None):
     """Mean squared error between rendered per-ray radiance and ``target``."""
     rad = ray_radiance(params, scene, camera, cfg, key, ray_ids, accel,
-                       intersect_fn, method=method, record_pool=record_pool)
+                       intersect_fn, method=method, record_pool=record_pool,
+                       graphed=graphed)
     return torch.mean((rad - target) ** 2)
 
 
@@ -119,8 +144,22 @@ def value_and_grad(loss_fn, params):
 
 def render_loss_and_grads(params, scene, camera, cfg, key, ray_ids, target,
                           accel=None, intersect_fn: Optional[Callable] = None,
-                          method: str = "replay", record_pool: int = 0):
-    """(loss, grads) of ``render_loss``."""
+                          method: str = "replay", record_pool: int = 0,
+                          graphed: Optional[bool] = None):
+    """(loss, grads) of ``render_loss``: the JAX package's jitted
+    ``render_loss_and_grads``.
+
+    ``method="replay"``: ``record_tape`` (its loop through
+    ``render.graphed.run_loop``, ``graphed`` its route), then the value and
+    gradient of the replay over the whole (max_depth + 1, R) tape,
+    ``render_loss_and_grads_tape`` (on a CUDA device a replay of its CUDA
+    graph), as JAX replays every row.  ``method="scan"`` differentiates
+    ``render_loss`` eagerly."""
+    if method == "replay":
+        tape = record_tape(params, scene, camera, cfg, key, ray_ids, accel,
+                           intersect_fn, record_pool, graphed)
+        return render_loss_and_grads_tape(params, scene, camera, cfg, key,
+                                          ray_ids, target, tape)
     return value_and_grad(
         lambda p: render_loss(p, scene, camera, cfg, key, ray_ids, target,
                               accel, intersect_fn, method=method,
@@ -223,10 +262,12 @@ def render_loss_and_grads_bucketed(params, scene, camera, cfg, key,
 
 def sgd_step(params, scene, camera, cfg, key, ray_ids, target,
              lr: float = 0.05, accel=None,
-             intersect_fn: Optional[Callable] = None):
+             intersect_fn: Optional[Callable] = None,
+             graphed: Optional[bool] = None):
     """One inverse-rendering SGD step; returns (loss, new_params)."""
     loss, grads = render_loss_and_grads(params, scene, camera, cfg, key,
-                                        ray_ids, target, accel, intersect_fn)
+                                        ray_ids, target, accel, intersect_fn,
+                                        graphed=graphed)
     return loss, {k: (p - lr * grads[k]).detach() for k, p in params.items()}
 
 
@@ -258,13 +299,14 @@ def apply_grads(optimizer, params, grads):
 
 def make_fit_step(scene, camera, cfg, ray_ids, target, optimizer,
                   accel=None, intersect_fn: Optional[Callable] = None,
-                  device="cuda"):
+                  device="cuda", graphed: Optional[bool] = None):
     """Inverse-rendering step around a ``torch.optim`` optimizer.
 
     Returns ``step(params, key) -> loss``: the gradient of the MSE loss
     (``render_loss_and_grads``, closest hit by ``intersect_fn`` on
-    ``accel``) followed by ``optimizer.step()``, which updates ``params``
-    in place; the optimizer must have been built over ``params``' tensors,
+    ``accel``, ``graphed`` the recorder's route) followed by
+    ``optimizer.step()`` outside the graphs, which updates ``params`` in
+    place; the optimizer must have been built over ``params``' tensors,
     which live on ``device``.  The scene, camera, accel, ray ids and target
     are moved to ``device``.
     """
@@ -277,7 +319,7 @@ def make_fit_step(scene, camera, cfg, ray_ids, target, optimizer,
     def step(params, key):
         loss, grads = render_loss_and_grads(params, scene, camera, cfg, key,
                                             ray_ids, target, accel,
-                                            intersect_fn)
+                                            intersect_fn, graphed=graphed)
         apply_grads(optimizer, params, grads)
         return loss
 
@@ -297,7 +339,7 @@ def tape_recorder(scene, camera, cfg, ray_ids, device="cuda"):
       ``ClusterLayout`` is frozen here, so every call keeps the cluster
       memberships while boxes and payload follow the scene;
     - ids that are not contiguous or reach past 2^24: the wavefront
-      ``record_paths``.
+      ``record_camera_paths`` (its loop a CUDA graph on the card).
 
     Each recorder is the CUDA kernel on a GPU and its plain version on the
     CPU.
@@ -327,8 +369,7 @@ def tape_recorder(scene, camera, cfg, ray_ids, device="cuda"):
                                                ray0=ray0, num_rays=n)
     else:
         def record(s, key):
-            o, d = _rays(camera, cfg, key, ray_ids)
-            return record_paths(s, o, d, ray_ids, key, cfg)
+            return record_camera_paths(s, camera, cfg, key, ray_ids)
     return record
 
 

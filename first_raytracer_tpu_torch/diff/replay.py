@@ -10,7 +10,13 @@ equation, not the traversal), so the pass splits in two:
    recorder, ``record_paths_pool`` a compacted regenerating pool with the
    same tape, both with the integrator's pluggable closest hit
    (``intersect_fn`` on ``accel``); ``kernels/record_mega.py`` records it
-   on the GPU in one kernel.
+   on the GPU in one kernel.  Both recorders are the JAX package's
+   ``while_loop``s: a state of fixed shape (``record_state``,
+   ``record_pool_state``) advanced in place by a body that reads nothing
+   back (``record_bounce``, ``record_pool_pass``), the bounce counter, the
+   survivor count and the stream's cursor on the device, run through
+   ``render.graphed.run_loop`` (CUDA graphs on the card, one read of
+   "any ray alive" per block of passes).
 2. **Replay** (differentiated by ``torch.autograd``): a Python loop over the
    tape's rows in which each bounce recomputes the hit record from the
    recorded id and shades.  No intersection appears in the autograd graph.
@@ -43,7 +49,9 @@ from ..render.integrator import (UP, RenderConfig, default_intersect,
                                  recompute_hit, sky_color)
 from ..scene.textures import texture_from_params
 
-__all__ = ["record_paths", "record_paths_pool", "trace_rays_replay",
+__all__ = ["record_paths", "record_camera_paths", "record_paths_pool",
+           "record_state", "camera_record_state", "record_bounce",
+           "record_pool_state", "record_pool_pass", "trace_rays_replay",
            "live_trips", "plan_buckets"]
 
 
@@ -67,9 +75,66 @@ def _record_bounce(scene, accel, intersect_fn, key, o, dr, ids, depth,
     return prim, hit, p, new_dir, ok
 
 
+def record_state(origin, direction, *, cfg, tape=True, **_):
+    """The lockstep recorder's state before its first bounce: the rays
+    ``o`` and ``dr`` (copies), ``alive``, the bounce counter ``d`` (a 0-d
+    int64 tensor on the rays' device) and, with ``tape``, the int32 tape
+    of -1s with one scratch row past the ``max_depth + 1`` it returns,
+    which the inert passes past the last bounce write."""
+    R, dev = origin.shape[0], origin.device
+    state = dict(o=origin.clone(), dr=direction.clone(),
+                 alive=torch.ones((R,), dtype=torch.bool, device=dev),
+                 d=torch.zeros((), dtype=torch.int64, device=dev))
+    if tape:
+        state["tape"] = torch.full((cfg.max_depth + 2, R), -1,
+                                   dtype=torch.int32, device=dev)
+    return state
+
+
+def camera_record_state(camera, key, ray_ids, *, cfg, tape=True, **_):
+    """``record_state`` of the camera rays of ``ray_ids`` (RNG domain 0),
+    made inside the state's own init."""
+    o, d = generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ray_ids,
+                         rng.camera_uniforms(key, ray_ids))
+    return record_state(o, d, cfg=cfg, tape=tape)
+
+
+@torch.no_grad()
+def record_bounce(state, *, scene, accel, key, ray_ids, cfg, intersect_fn,
+                  **_):
+    """One bounce of the lockstep recorder, in place: the body of the JAX
+    package's ``while_loop`` (``diff/replay.py:71-115`` there), with its
+    test ``(d <= max_depth) & any(alive)`` folded into ``alive``.  No host
+    read and no tensor from host data; a pass after the last bounce
+    changes nothing but the scratch row."""
+    d = state["d"]
+    o, dr = state["o"], state["dr"]
+    alive = state["alive"] & (d <= cfg.max_depth)
+    prim, hit, p, new_dir, ok = _record_bounce(
+        scene, accel, intersect_fn, key, o, dr, ray_ids, d, cfg.t_min)
+    if "tape" in state:
+        row = d.clamp(max=cfg.max_depth + 1).reshape(1)
+        state["tape"].index_copy_(0, row,
+                                  torch.where(alive & hit, prim, -1)[None])
+    alive = alive & hit & ok & (d < cfg.max_depth)
+    state["alive"].copy_(alive)
+    o.copy_(torch.where(alive[:, None], p, o))
+    dr.copy_(torch.where(alive[:, None], new_dir, dr))
+    d.add_(1)
+
+
+def _lockstep(init, inputs, cfg, intersect_fn, graphed):
+    from ..render.graphed import run_loop
+    static = dict(cfg=cfg, intersect_fn=intersect_fn or default_intersect)
+    tape = run_loop(init, record_bounce, static, inputs,
+                    inputs["ray_ids"].device, ("tape",), graphed)["tape"]
+    return tape[:cfg.max_depth + 1]
+
+
 @torch.no_grad()
 def record_paths(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
-                 accel=None, intersect_fn: Optional[Callable] = None):
+                 accel=None, intersect_fn: Optional[Callable] = None,
+                 graphed: Optional[bool] = None):
     """Trace R rays forward and return the (max_depth + 1, R) int32 tape.
 
     Entry ``tape[d, i]`` is the global primitive id ray ``i`` hit at bounce
@@ -78,30 +143,100 @@ def record_paths(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
     every bounce until all are dead (the JAX package's lockstep
     ``while_loop``).  ``intersect_fn`` on ``accel`` finds the closest hit
     (``render.integrator.default_intersect`` by default).  Runs without
-    autograd.
+    autograd, ``record_state`` then blocks of ``record_bounce`` through
+    ``render.graphed.run_loop``: on a CUDA device CUDA graphs unless
+    ``graphed=False`` (``render.graphed.graphed_route``).
     """
-    dev = origin.device
-    R = origin.shape[0]
-    tape = torch.full((cfg.max_depth + 1, R), -1, dtype=torch.int32,
-                      device=dev)
-    o, dr = origin, direction
-    alive = torch.ones((R,), dtype=torch.bool, device=dev)
-    for d in range(cfg.max_depth + 1):
-        if not bool(alive.any()):
-            break
-        prim, hit, p, new_dir, ok = _record_bounce(
-            scene, accel, intersect_fn, key, o, dr, ray_ids, d, cfg.t_min)
-        tape[d] = torch.where(alive & hit, prim, -1)
-        alive = alive & hit & ok & (d < cfg.max_depth)
-        o = torch.where(alive[:, None], p, o)
-        dr = torch.where(alive[:, None], new_dir, dr)
-    return tape
+    return _lockstep(record_state, dict(
+        scene=scene, accel=accel, key=key, origin=origin,
+        direction=direction, ray_ids=ray_ids), cfg, intersect_fn, graphed)
+
+
+@torch.no_grad()
+def record_camera_paths(scene, camera, cfg: RenderConfig, key, ray_ids,
+                        accel=None, intersect_fn: Optional[Callable] = None,
+                        graphed: Optional[bool] = None):
+    """``record_paths`` of the camera rays of ``ray_ids``, which the
+    loop's init makes (``camera_record_state``): the same tape."""
+    return _lockstep(camera_record_state, dict(
+        scene=scene, accel=accel, key=key, camera=camera, ray_ids=ray_ids),
+        cfg, intersect_fn, graphed)
+
+
+def _stream_rays(camera, cfg, key, ray_ids, idx):
+    """(ids, origin, direction) of the stream's entries ``idx`` (clamped
+    into the stream)."""
+    ids = ray_ids[idx.clamp(0, max(ray_ids.shape[0] - 1, 0))]
+    o, d = generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ids,
+                         rng.camera_uniforms(key, ids))
+    return ids, o, d
+
+
+def record_pool_state(camera, key, ray_ids, *, cfg, pool_size, **_):
+    """The pool recorder's state before its first pass: slot s holds the
+    stream's entry s (alive while s < R), its tape column ``col``, the
+    stream's ``cursor`` (0-d int64) and the flat tape of -1s, (D * R + 1,)
+    with D = max_depth + 1: its last entry takes the lanes that write
+    nothing."""
+    C, R, dev = pool_size, ray_ids.shape[0], ray_ids.device
+    slot = torch.arange(C, dtype=torch.int64, device=dev)
+    col = slot.clamp(max=max(R - 1, 0))
+    ids, o, d = _stream_rays(camera, cfg, key, ray_ids, col)
+    n0 = min(C, R)
+    return dict(o=o, d=d, ids=ids, col=col,
+                depth=torch.zeros((C,), dtype=torch.int64, device=dev),
+                alive=slot < n0,
+                cursor=torch.full((), n0, dtype=torch.int64, device=dev),
+                tape=torch.full(((cfg.max_depth + 1) * R + 1,), -1,
+                                dtype=torch.int32, device=dev))
+
+
+@torch.no_grad()
+def record_pool_pass(state, *, scene, camera, accel, key, ray_ids, cfg,
+                     pool_size, intersect_fn, **_):
+    """One pass of the pool recorder, in place (the JAX package's loop
+    body, ``diff/replay.py:167-206`` there): no host read, every shape
+    fixed.  The hits go to the flat tape, the others to its last entry;
+    the survivors move in order to the front (a stable scatter partition,
+    the dead after them) and every slot past them takes the stream's next
+    ray.  Once every slot is dead and the stream is spent it changes
+    nothing the tape returns."""
+    C, R = pool_size, ray_ids.shape[0]
+    o, d, ids, col, depth, alive = (state[k] for k in (
+        "o", "d", "ids", "col", "depth", "alive"))
+    prim, hit, p, new_dir, ok = _record_bounce(
+        scene, accel, intersect_fn, key, o, d, ids, depth, cfg.t_min)
+    write = alive & hit
+    state["tape"].scatter_(0, torch.where(
+        write, depth * R + col, (cfg.max_depth + 1) * R), prim)
+    cont = write & ok & (depth < cfg.max_depth)
+
+    n_alive = cont.sum()
+    slot = torch.arange(C, dtype=torch.int64, device=o.device)
+    dest = torch.where(cont, torch.cumsum(cont, 0) - 1,
+                       n_alive + torch.cumsum(~cont, 0) - 1)
+    src = torch.empty_like(dest).index_copy_(0, dest, slot)
+
+    cursor = state["cursor"]
+    is_tail = slot >= n_alive
+    fresh_idx = cursor + slot - n_alive
+    f_ids, fo, fd = _stream_rays(camera, cfg, key, ray_ids, fresh_idx)
+    tail = is_tail[:, None]
+    o.copy_(torch.where(tail, fo, p[src]))
+    d.copy_(torch.where(tail, fd, new_dir[src]))
+    ids.copy_(torch.where(is_tail, f_ids, ids[src]))
+    col.copy_(torch.where(is_tail, fresh_idx.clamp(0, max(R - 1, 0)),
+                          col[src]))
+    depth.copy_(torch.where(is_tail, 0, depth[src] + 1))
+    alive.copy_(~is_tail | (fresh_idx < R))
+    cursor.add_(torch.minimum(C - n_alive, (R - cursor).clamp(min=0)))
 
 
 @torch.no_grad()
 def record_paths_pool(scene, camera, cfg: RenderConfig, key, ray_ids,
                       accel=None, intersect_fn: Optional[Callable] = None,
-                      pool_size: int = 8192):
+                      pool_size: int = 8192,
+                      graphed: Optional[bool] = None):
     """``record_paths`` through a compacted regenerating pool (same tape).
 
     A pool of ``pool_size`` ray slots stays near full: after each bounce
@@ -109,46 +244,19 @@ def record_paths_pool(scene, camera, cfg: RenderConfig, key, ray_ids,
     refilled from the ``ray_ids`` stream, so the recording cost follows the
     total segment count instead of R times the longest path.  Generates its
     own camera rays (RNG domain 0 per ray id).  ``accel`` and
-    ``intersect_fn`` as for ``record_paths``.  Runs without autograd.
+    ``intersect_fn`` as for ``record_paths``.  Runs without autograd,
+    ``record_pool_state`` then blocks of ``record_pool_pass`` through
+    ``render.graphed.run_loop`` (CUDA graphs on the card unless
+    ``graphed=False``).
     """
-    dev = ray_ids.device
-    R = ray_ids.shape[0]
-    C = pool_size
-    D = cfg.max_depth + 1
-    tape = torch.full((D * R,), -1, dtype=torch.int32, device=dev)
-
-    def fresh_rays(stream_idx):
-        ids = ray_ids[stream_idx.clamp(0, max(R - 1, 0))]
-        o, d = generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ids,
-                             rng.camera_uniforms(key, ids))
-        return ids, o, d
-
-    slot = torch.arange(C, device=dev)
-    ids, o, d = fresh_rays(slot)
-    col = slot
-    depth = torch.zeros((C,), dtype=torch.int64, device=dev)
-    alive = slot < min(C, R)
-    cursor = min(C, R)
-    while bool(alive.any()):
-        prim, hit, p, new_dir, ok = _record_bounce(
-            scene, accel, intersect_fn, key, o, d, ids, depth, cfg.t_min)
-        write = alive & hit
-        tape[(depth * R + col)[write]] = prim[write]
-        cont = write & ok & (depth < cfg.max_depth)
-        # Compaction (stable) and regeneration from the stream.
-        keep = torch.nonzero(cont)[:, 0]
-        n_alive = keep.shape[0]
-        fresh_idx = cursor + torch.arange(C - n_alive, device=dev)
-        f_ids, fo, fd = fresh_rays(fresh_idx)
-        o = torch.cat([p[keep], fo])
-        d = torch.cat([new_dir[keep], fd])
-        ids = torch.cat([ids[keep], f_ids])
-        col = torch.cat([col[keep], fresh_idx.clamp(0, max(R - 1, 0))])
-        depth = torch.cat([depth[keep] + 1, torch.zeros_like(fresh_idx)])
-        alive = torch.cat([torch.ones_like(keep, dtype=torch.bool),
-                           fresh_idx < R])
-        cursor += min(C - n_alive, max(R - cursor, 0))
-    return tape.reshape(D, R)
+    from ..render.graphed import run_loop
+    R, D = ray_ids.shape[0], cfg.max_depth + 1
+    static = dict(cfg=cfg, pool_size=pool_size,
+                  intersect_fn=intersect_fn or default_intersect)
+    tape = run_loop(record_pool_state, record_pool_pass, static, dict(
+        scene=scene, camera=camera, accel=accel, key=key, ray_ids=ray_ids),
+        ray_ids.device, ("tape",), graphed)["tape"]
+    return tape[:D * R].reshape(D, R)
 
 
 def live_trips(tape) -> int:

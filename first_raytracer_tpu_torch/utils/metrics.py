@@ -23,11 +23,8 @@ import numpy as np
 import torch
 
 from ..core import rng
-from ..geometry.sphere import BIG
-from ..materials.scatter import scatter
-from ..render.camera import generate_rays
-from ..render.integrator import (RenderConfig, default_intersect,
-                                 recompute_hit)
+from ..diff.replay import camera_record_state, record_bounce
+from ..render.integrator import RenderConfig, default_intersect
 
 logger = logging.getLogger("first_raytracer_tpu_torch")
 
@@ -37,41 +34,47 @@ __all__ = ["wavefront_occupancy", "megakernel_occupancy",
 _WARP = 32
 
 
+def _length_state(camera, key, ray_ids, *, cfg, **_):
+    """The lockstep recorder's state of the camera rays, without a tape,
+    and each ray's ``length``: the bounces it entered alive."""
+    state = camera_record_state(camera, key, ray_ids, cfg=cfg, tape=False)
+    state["length"] = torch.zeros(ray_ids.shape, dtype=torch.int64,
+                                  device=ray_ids.device)
+    return state
+
+
 @torch.no_grad()
-def _path_lengths(scene, camera, cfg, key, ray_ids, accel):
+def _length_pass(state, **kw):
+    """One bounce of the recorder, counting the rays that enter it alive:
+    the body of the JAX package's ``_occupancy_scan``."""
+    state["length"].add_(state["alive"])
+    record_bounce(state, **kw)
+
+
+@torch.no_grad()
+def _path_lengths(scene, camera, cfg, key, ray_ids, accel, graphed=None):
     """(R,) int64 segments each ray traced: the integrator's bounce loop,
     keeping only each ray's count of bounces it entered alive (a pass of
-    its own, so that the render path carries no counter)."""
-    o, d = generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ray_ids,
-                         rng.camera_uniforms(key, ray_ids))
-    alive = torch.ones((o.shape[0],), dtype=torch.bool, device=o.device)
-    length = torch.zeros((o.shape[0],), dtype=torch.int64, device=o.device)
-    up = torch.tensor([0.0, 0.0, 1.0], device=o.device)
-    for depth in range(cfg.max_depth + 1):
-        if not bool(alive.any()):
-            break
-        length += alive
-        prim, _, hit = default_intersect(scene, accel, o, d, cfg.t_min)
-        t, p, n, mat = recompute_hit(scene, o, d, prim, cfg.t_min)
-        hit = hit & (t < BIG)
-        p = torch.where(hit[:, None], p, 0.0)
-        n = torch.where(hit[:, None], n, up)
-        new_dir, _, ok = scatter(scene, mat, d, p, n,
-                                 rng.bounce_uniforms(key, ray_ids, depth))
-        alive = alive & hit & ok & (depth < cfg.max_depth)
-        o = torch.where(alive[:, None], p, o)
-        d = torch.where(alive[:, None], new_dir, d)
-    return length
+    its own, so that the render path carries no counter), through
+    ``render.graphed.run_loop`` (CUDA graphs on the card unless
+    ``graphed=False``)."""
+    from ..render.graphed import run_loop
+    return run_loop(_length_state, _length_pass, dict(
+        cfg=cfg, intersect_fn=default_intersect), dict(
+        scene=scene, accel=accel, key=key, camera=camera, ray_ids=ray_ids),
+        ray_ids.device, ("length",), graphed)["length"]
 
 
 def wavefront_occupancy(scene, camera, cfg: RenderConfig, seed: int = 0,
                         accel=None, num_rays: int = 1 << 14,
-                        device="cuda") -> dict:
+                        device="cuda", graphed=None) -> dict:
     """Occupancy report for the first ``num_rays`` rays of a render: the
     rays alive per bounce and their fraction, the bounce histogram (paths
     ending at each depth), the mean path length and the wavefront
     efficiency (alive rays over rays x the bounces with any alive).  The
-    scene, camera and accel go to ``device``."""
+    scene, camera and accel go to ``device``; ``graphed`` is the loop's
+    route (``render.graphed.graphed_route``: ``graphed=False`` for the
+    flat-BVH walk on the card)."""
     device = torch.device(device)
     scene, camera = scene.to(device), camera.to(device)
     if accel is not None:
@@ -79,7 +82,7 @@ def wavefront_occupancy(scene, camera, cfg: RenderConfig, seed: int = 0,
     ids = torch.arange(min(num_rays, cfg.num_rays), dtype=torch.int64,
                        device=device)
     lengths = _path_lengths(scene, camera, cfg, rng.base_key(seed), ids,
-                            accel).cpu().numpy()
+                            accel, graphed).cpu().numpy()
     # Rays alive at each bounce: those whose paths are longer.
     ended = np.bincount(lengths, minlength=cfg.max_depth + 2)
     total = int(ids.shape[0])

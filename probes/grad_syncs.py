@@ -12,7 +12,16 @@ that each part of one step makes after a warm run of it:
 - ``replay``: ``render_loss_and_grads_bucketed`` on that tape and plan,
   the value and gradient (on the card, a replay of its CUDA graph);
 - ``bench_step``: the bench's whole step as ``bench_torch.py`` runs it (its
-  plan is made once, outside the timed loop).
+  plan is made once, outside the timed loop);
+- the direct step (``cli fit`` without ``--fast``; the dense sweep on the
+  final scene, K5 on a field): ``direct_record`` (``record_tape``, the
+  lockstep recorder's loop: on the card its CUDA graphs, whose one read
+  of the alive flag a block of passes waits on an event, which the debug
+  mode does not count; ``direct_record`` also gives the flag reads the
+  loop counted), ``direct_replay`` (the whole tape's value and gradient,
+  ``render_loss_and_grads_tape``), ``direct_step``
+  (``render_loss_and_grads``) and ``fit_step`` (a ``make_fit_step`` step
+  with Adam, its optimizer's step outside the graphs).
 
 Prints one JSON line with each part's count and the source lines that
 made them.  A replay without any can be queued back to back with the
@@ -37,6 +46,8 @@ from first_raytracer_tpu_torch import bench  # noqa: E402
 from first_raytracer_tpu_torch.core import rng  # noqa: E402
 from first_raytracer_tpu_torch.diff import grad as dg  # noqa: E402
 from first_raytracer_tpu_torch.diff.replay import plan_buckets  # noqa: E402
+from first_raytracer_tpu_torch.kernels import intersect_clustered as ic  # noqa: E402,E501
+from first_raytracer_tpu_torch.render.graphed import LOOPS  # noqa: E402
 
 
 def syncs(fn):
@@ -83,11 +94,32 @@ def main():
             params, scene, cam, cfg, key, ids, target, tape, plan=buckets),
         "bench_step": lambda: plan.run(bench.INTERSECT_FN[isect]),
     }
+    accel = ic.pack_scene_clustered(scene) if args.scene else None
+    fit_params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+    fit = dg.make_fit_step(scene, cam, cfg, ids, target,
+                           dg.make_optimizer("adam", fit_params, 1e-4),
+                           accel=accel, device=dev)
+    direct_tape = dg.record_tape(params, scene, cam, cfg, key, ids, accel)
+    parts.update({
+        "direct_record": lambda: dg.record_tape(params, scene, cam, cfg,
+                                                key, ids, accel),
+        "direct_replay": lambda: dg.render_loss_and_grads_tape(
+            params, scene, cam, cfg, key, ids, target, direct_tape),
+        "direct_step": lambda: dg.render_loss_and_grads(
+            params, scene, cam, cfg, key, ids, target, accel),
+        "fit_step": lambda: fit(fit_params, key),
+    })
     out = {"scene": args.scene or "final", "kernel": plan.kernel}
     for name, fn in parts.items():
+        reads = LOOPS.syncs
         out[name] = dict(zip(("syncs", "sites"), syncs(fn)))
+        if name.startswith("direct") or name == "fit_step":
+            # The loop's flag reads over the warm run and the counted one.
+            out[name]["flag_reads"] = (LOOPS.syncs - reads) // 2
     out["graphs"] = {"captures": dg.GRAPHS.captures,
                      "replays": dg.GRAPHS.replays}
+    out["loops"] = {"captures": LOOPS.captures, "replays": LOOPS.replays}
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
 

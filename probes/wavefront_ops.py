@@ -9,8 +9,17 @@ closest hit is one K4 or K5 launch.  Prints the ops of a pool pass
 (``pool_pass``), of a chunk's trip (``trip``), of a chunk's init
 (``batch_state``: its camera rays), of the pass's two Threefry draws
 (the camera draw and the bounce draw) and of K4's plain version, for
-reference.  The CPU also takes sqrt, sin and cos in float64 and rounds
-once (``core/vecmath.py``), a few ops the card does not run.
+reference.  The gradient step's loops too: a bounce of the lockstep
+recorder (``diff/replay.py::record_bounce``, with the stand-in), a pass of
+the pool recorder (``record_pool_pass``), the recorder's init from the
+camera (``camera_record_state``), a pass of the occupancy scan
+(``utils/metrics.py::_length_pass``), the dense sweep
+(``intersect_brute``, the recorder's closest hit without an accel), and
+the value and gradient of the whole-tape replay
+(``diff/grad.py::tape_loss_and_grads``): its ops a tape row and its fixed
+ops, from tapes of 2 and 10 rows.  The CPU also takes sqrt, sin and cos
+in float64 and rounds once (``core/vecmath.py``), a few ops the card does
+not run.
 
     python probes/wavefront_ops.py
 """
@@ -24,10 +33,14 @@ import torch  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from first_raytracer_tpu_torch.core import rng  # noqa: E402
+from first_raytracer_tpu_torch.diff import grad as dg  # noqa: E402
+from first_raytracer_tpu_torch.diff import replay as rp  # noqa: E402
 from first_raytracer_tpu_torch.kernels import intersect_pallas as ip  # noqa: E402,E501
 from first_raytracer_tpu_torch.render import regenerative as reg  # noqa: E402,E501
 from first_raytracer_tpu_torch.render.api import batch_state  # noqa: E402
-from first_raytracer_tpu_torch.render.integrator import trip  # noqa: E402
+from first_raytracer_tpu_torch.render.integrator import (  # noqa: E402
+    intersect_brute, trip)
+from first_raytracer_tpu_torch.utils import metrics  # noqa: E402
 from first_raytracer_tpu_torch.scene.builders import build_preset  # noqa: E402,E501
 
 
@@ -71,6 +84,37 @@ def main():
     batch_static = dict(cfg=cfg, intersect_fn=stand_in)
     chunk = batch_state(**batch_in, **batch_static)
     trip(chunk, **batch_in, **batch_static)
+    rec_in = dict(scene=scene, camera=cam, accel=pack, key=key,
+                  ray_ids=ids)
+    rec_static = dict(cfg=cfg, intersect_fn=stand_in, pool_size=C)
+    rec = rp.camera_record_state(**rec_in, **rec_static)
+    rp.record_bounce(rec, **rec_in, **rec_static)
+    rpool = rp.record_pool_state(**rec_in, **rec_static)
+    rp.record_pool_pass(rpool, **rec_in, **rec_static)
+    lengths = metrics._length_state(**rec_in, **rec_static)
+    metrics._length_pass(lengths, **rec_in, **rec_static)
+    params, _ = dg.split_params(scene)
+    target = torch.zeros((C, 3))
+
+    def replay(rows):
+        tape = torch.full((rows, C), -1, dtype=torch.int32)
+        return ops(lambda: dg.tape_loss_and_grads(
+            params, scene, cam, key, ids, target, tape, cfg=cfg))
+
+    replay(2)
+    row = (replay(10) - replay(2)) / 8
+    print({"record_bounce": ops(lambda: rp.record_bounce(
+               rec, **rec_in, **rec_static)),
+           "record_pool_pass": ops(lambda: rp.record_pool_pass(
+               rpool, **rec_in, **rec_static)),
+           "camera_record_state": ops(lambda: rp.camera_record_state(
+               **rec_in, **rec_static)),
+           "length_pass": ops(lambda: metrics._length_pass(
+               lengths, **rec_in, **rec_static)),
+           "dense_sweep": ops(lambda: intersect_brute(scene, o, d,
+                                                      cfg.t_min)),
+           "replay_per_row": row,
+           "replay_fixed": replay(2) - 2 * row})
     print({"pool_pass": ops(lambda: reg.pool_pass(state, **pool_in,
                                                    **pool_static)),
            "trip": ops(lambda: trip(chunk, **batch_in, **batch_static)),

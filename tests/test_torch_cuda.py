@@ -1,7 +1,12 @@
 """K1, K2, K2b, K3, K3t, K4 and K5 (the CUDA kernels) against their plain
 versions on the card, a gradient step through K2b, and the wavefront and
 regenerative renders through K4 and K5 (their loops as CUDA graphs, held
-bit-equal to the same bodies run eagerly).
+bit-equal to the same bodies run eagerly).  The direct gradient step (its
+recorder's loop and its whole tape's value and gradient as CUDA graphs) on
+the dense sweep, K4 and K5, and the occupancy scan, against the same
+bodies op by op: tapes and lengths ``torch.equal``, the loss within one
+float32 ulp and the gradients within ``rtol=1e-6``; the BVH walk refused
+on the card unless ``graphed=False``.
 
 Marked ``cuda``; skipped where ``torch.cuda.is_available()`` is False.
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -510,6 +515,126 @@ def test_wavefront_graph_equals_eager(cuda_device, kernel, mode):
         assert 0 <= loops.passes - loops.live_passes < \
             graphed.PASSES_PER_READ
     assert loops.captures == 0 and loops.replays == loops.syncs
+
+
+def _within_graph_bounds(loss, grads, want_loss, want):
+    """The graphed value and gradient against the eager body's: the loss
+    within one float32 ulp, every gradient within ``rtol=1e-6`` (the
+    replay's gather sums its backward in float64 with atomics)."""
+    ulp = float(np.spacing(np.float32(abs(float(want_loss)))))
+    assert abs(float(loss) - float(want_loss)) <= ulp
+    for k, g in grads.items():
+        torch.testing.assert_close(g, want[k], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("record_pool", [0, 4096], ids=["lockstep", "pool"])
+@pytest.mark.parametrize("accel", ["dense sweep", "K4", "K5"])
+def test_direct_step_graph_equals_eager(cuda_device, accel, record_pool):
+    """The direct step (``render_loss_and_grads``): its recorder's loop and
+    the whole tape's value and gradient replayed as CUDA graphs, against
+    the same recorder run op by op (``graphed=False``) and the eager body
+    ``tape_loss_and_grads``: the tapes ``torch.equal``, the loss and the
+    gradients within the graph's bounds, twice (the second call replays
+    the cached graphs); then two ``make_fit_step`` steps with Adam, each
+    loss against the eager step's within one ulp."""
+    from first_raytracer_tpu_torch.kernels import intersect_clustered as ic
+    from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
+    from first_raytracer_tpu_torch.render import graphed
+
+    scene, cam, cfg = build_preset("random-spheres", device=cuda_device,
+                                   nx=96, ny=64, spp=2)
+    acc = {"dense sweep": lambda s: None, "K4": ip.pack_scene_pallas,
+           "K5": ic.pack_scene_clustered}[accel](scene)
+    key = rng.base_key(2)
+    ids = torch.arange(cfg.num_rays, device=cuda_device)
+    target = torch.zeros((cfg.num_rays, 3), device=cuda_device)
+    params, _ = dg.split_params(scene)
+    args = (scene, cam, cfg, key, ids)
+
+    def eager(p):
+        tape = dg.record_tape(p, *args, acc, record_pool=record_pool,
+                              graphed=False)
+        return tape, dg.tape_loss_and_grads(p, scene, cam, key, ids, target,
+                                            tape, cfg=cfg)
+
+    tape, (want_loss, want) = eager(params)
+    for _ in range(2):
+        graphed.LOOPS.reset_counts()
+        got = dg.record_tape(params, *args, acc, record_pool=record_pool)
+        loss, grads = dg.render_loss_and_grads(params, *args, target, acc,
+                                               record_pool=record_pool)
+        assert torch.equal(got, tape)
+        _within_graph_bounds(loss, grads, want_loss, want)
+        assert graphed.LOOPS.replays == graphed.LOOPS.syncs >= 2
+    assert dg.GRAPHS.replays >= 2
+
+    fit = {k: v.detach().clone().requires_grad_(True)
+           for k, v in params.items()}
+    ref = {k: v.detach().clone().requires_grad_(True)
+           for k, v in params.items()}
+    step = dg.make_fit_step(scene, cam, cfg, ids, target,
+                            dg.make_optimizer("adam", fit, 1e-3),
+                            accel=acc, device=cuda_device)
+    ref_opt = dg.make_optimizer("adam", ref, 1e-3)
+    for _ in range(2):
+        loss = step(fit, key)
+        _, (want_loss, want) = eager(ref)
+        dg.apply_grads(ref_opt, ref, want)
+        ulp = float(np.spacing(np.float32(abs(float(want_loss)))))
+        assert abs(float(loss) - float(want_loss)) <= ulp
+
+
+@pytest.mark.cuda
+def test_occupancy_scan_graph_equals_eager(cuda_device):
+    """``wavefront_occupancy``'s loop replayed as CUDA graphs against the
+    same bodies op by op: the per-ray lengths ``torch.equal``."""
+    from first_raytracer_tpu_torch.utils import metrics
+
+    scene, cam, cfg = build_preset("random-spheres", device=cuda_device,
+                                   nx=96, ny=64, spp=2)
+    ids = torch.arange(cfg.num_rays, device=cuda_device)
+    key = rng.base_key(0)
+    want = metrics._path_lengths(scene, cam, cfg, key, ids, None,
+                                 graphed=False)
+    for _ in range(2):
+        assert torch.equal(
+            metrics._path_lengths(scene, cam, cfg, key, ids, None), want)
+    report = metrics.wavefront_occupancy(scene, cam, cfg,
+                                         num_rays=cfg.num_rays,
+                                         device=cuda_device)
+    assert sum(report["alive_per_bounce"]) == int(want.sum())
+
+
+@pytest.mark.cuda
+def test_the_walk_records_eagerly_on_the_card(cuda_device):
+    """The flat-BVH walk reads back every step: on the card the recorders
+    and the direct step refuse it unless ``graphed=False``, and then
+    record the dense sweep's tape."""
+    from first_raytracer_tpu_torch.accel.build import build_bvh
+    from first_raytracer_tpu_torch.diff import replay
+
+    scene, cam, cfg = build_preset("three-spheres", device=cuda_device,
+                                   nx=32, ny=16, spp=2)
+    bvh = build_bvh(scene, max_leaf=4)
+    key = rng.base_key(0)
+    ids = torch.arange(cfg.num_rays, device=cuda_device)
+    target = torch.zeros((cfg.num_rays, 3), device=cuda_device)
+    params, _ = dg.split_params(scene)
+    with pytest.raises(ValueError, match="graphed=False"):
+        replay.record_camera_paths(scene, cam, cfg, key, ids, bvh)
+    with pytest.raises(ValueError, match="graphed=False"):
+        replay.record_paths_pool(scene, cam, cfg, key, ids, bvh)
+    with pytest.raises(ValueError, match="graphed=False"):
+        dg.render_loss_and_grads(params, scene, cam, cfg, key, ids, target,
+                                 bvh)
+    got = replay.record_camera_paths(scene, cam, cfg, key, ids, bvh,
+                                     graphed=False)
+    assert torch.equal(got, replay.record_camera_paths(scene, cam, cfg, key,
+                                                       ids))
+    loss, _ = dg.render_loss_and_grads(params, scene, cam, cfg, key, ids,
+                                       target, bvh, graphed=False)
+    assert bool(torch.isfinite(loss))
 
 
 @pytest.mark.cuda
