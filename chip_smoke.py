@@ -8,10 +8,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. Device: a CUDA GPU must be present; prints its name and the
    ``nvidia-smi`` name and power limit.
-2. Build: compiles K1, K2, K2b, K3, K3t, K4 and K5
-   (kernels/csrc/megakernel.cu, megakernel_clustered.cu and intersect.cu,
-   one nvcc) for sm_90a; prints ptxas's registers and spills of every
-   kernel, each on a line of its own.
+2. Build: compiles K1, K2, K2b, K3, K3t, K4, K5 and K6
+   (kernels/csrc/megakernel.cu, megakernel_clustered.cu, intersect.cu and
+   bvh_walk.cu, one nvcc a source, all at once) for sm_90a; prints ptxas's
+   registers and spills of every kernel, each on a line of its own.
 3. K1 vs plain: K1 and its plain PyTorch version on the same card and
    inputs, on four small presets and at the main path's full size:
    radiance sums and segments bit-equal (the image bound,
@@ -222,7 +222,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    on the final scene (K1); ``megacluster`` on field20000, field5000 and
    trifield20000 (K3, checked against the oracle's goldens); ``grad`` on
    the final scene (K2b) and on field5000 (K3t), 4 steps back to back;
-   ``regenerative`` on the final scene (K4); ``wavefront`` on field20000
+   ``regenerative`` on the final scene (K4, and K6 with
+   ``BENCH_INTERSECT=bvh``); ``wavefront`` on field20000
    with ``BENCH_INTERSECT=clustered`` (K5).  Each exits 0 with one JSON
    line without an ``error``, its guards passed, and its ``launches`` show
    its kernel; each value is logged beside the earlier phase's reading of
@@ -246,11 +247,38 @@ Phases, in order; any failure raises and the exit code is non-zero:
    line), its tape at 0.999 or above of the dense sweep's and its pool
    recorder's equal; field5000 through K5, graphed against eager as
    above, its tape's agreement with K3t's logged, timed in turns.
+19. K6, the flat-BVH walk (``intersect_bvh`` on a ``FlatBVH``), on the
+   graft entry's BVH (the final scene, ``build_bvh(max_leaf=4)``): bit-equal
+   (prim, t, hit) to its plain version, the lockstep walk, on the final
+   scene's 2^17 camera rays, on one bounce's secondary rays from their
+   hits, on trifield20000's camera rays (and on its triangles alone) and
+   on the triangle-mesh preset's (triangles and spheres); against the
+   dense sweep on the 2^17 camera rays, the same hits and primitives but
+   on exact ties in t (counted); no host sync inside its call
+   (``torch.cuda.set_sync_debug_mode``; the plain walk's logged).
+   ``entry()``'s forward (the graft entry's step) graphed twice, each
+   ``torch.equal`` to the same forward op by op through the plain walk
+   (``graphed=False``), both timed.  The lockstep recorder through K6 at
+   2^17 rays against phase 18's dense-sweep tape (above 0.999, the
+   differing entries counted).  The main path: the final scene's full
+   frame (1200x800 @ 10, depth 50) through ``render_image``'s
+   regenerative pool of 2^17 on K6, graphed, counters reset before and
+   read after (K6 launched once a pass), its radiance sum within 1% of
+   ``bench_golden.json``; the same frame through K4 beside it (the image
+   difference logged), both timed in turns; the same pool op by op
+   (``graphed=False``, K6 clocked by events) ``torch.equal`` to the
+   graphed one.  K6's ms at 2^17 camera rays (in a CUDA graph) and over
+   the frame's calls, its bound from its counters (25 operations a node,
+   20 a sphere slot, 52 a triangle slot), the plain walk's ms.  Then
+   ``cli render --mode regenerative --bvh`` at 120x80 @ 4 in a
+   subprocess: it exits 0 and its line shows the loops captured and
+   replayed.
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements (``sharded_launches``: the launches of phases 14 and 15;
 ``bench_launches``: phase 17's, by run; ``direct_step_launches``: phase
-18's, K4 on the final scene and K5 on field5000) and
+18's, K4 on the final scene and K5 on field5000; K6's ``entry_launches``:
+phase 19's ``entry()`` forward) and
 the result line ``{"ok": true, "device": {...}}``.  This
 script imports no JAX.  Bounds count FP32 operations from the sources
 (``first_raytracer_tpu_torch/utils/roofline.py``, which ``bench_torch.py``'s
@@ -261,7 +289,9 @@ operations per box test (``gate`` in kernels/csrc/megakernel_clustered.cu).
 K4 and K5 (kernels/csrc/intersect.cu) test a sphere in 16 operations (the
 oc-form quadratic on (cx, cy, cz, r*r)) and a triangle in 46 (on its
 edges, computed once per triangle); K5 adds 29 per box, supergroup or
-cluster, its counters say it tested.
+cluster, its counters say it tested.  K6 (kernels/csrc/bvh_walk.cu) counts
+25 per node, 20 per sphere slot and 52 per triangle slot its counters say
+it tested.
 """
 from __future__ import annotations
 
@@ -274,11 +304,14 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from first_raytracer_tpu_torch.accel import traverse
+from first_raytracer_tpu_torch.accel.build import build_bvh
 from first_raytracer_tpu_torch.core import rng
 from first_raytracer_tpu_torch.diff import grad as dg
 from first_raytracer_tpu_torch.diff.replay import (plan_buckets,
@@ -297,15 +330,20 @@ from first_raytracer_tpu_torch.render import graphed
 from first_raytracer_tpu_torch.render.api import (render_image,
                                                   render_ray_batch)
 from first_raytracer_tpu_torch.render.camera import generate_rays
-from first_raytracer_tpu_torch.render.integrator import intersect_brute
+from first_raytracer_tpu_torch.entry import entry
+from first_raytracer_tpu_torch.materials.scatter import scatter
+from first_raytracer_tpu_torch.render.integrator import (intersect_brute,
+                                                         recompute_hit)
 from first_raytracer_tpu_torch.render.regenerative import (
     render_rays_regenerative)
 from first_raytracer_tpu_torch.render.image import write_png
-from first_raytracer_tpu_torch.scene.builders import build_preset
+from first_raytracer_tpu_torch.scene.builders import (build_preset,
+                                                      random_scene)
 from first_raytracer_tpu_torch.utils.metrics import wavefront_occupancy
 from first_raytracer_tpu_torch.utils.roofline import (bound,
                                                       clustered_bound,
-                                                      k4_bound, k5_bound)
+                                                      k4_bound, k5_bound,
+                                                      k6_bound)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_KEY = "radiance_sum_mega_1200x800_10spp"
@@ -325,7 +363,8 @@ KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("record_kernel", "K2b"), ("mega_clustered_kernel", "K3"),
                   ("record_clustered_kernel", "K3t"),
                   ("intersect_dense_kernel", "K4"),
-                  ("intersect_clustered_kernel", "K5"))
+                  ("intersect_clustered_kernel", "K5"),
+                  ("bvh_walk_kernel", "K6"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
 # Phases 8 and 10: the small scenes.
@@ -375,6 +414,8 @@ BENCH_RUNS = [
     ("grad field5000", {"BENCH_SCENE": "field5000", "BENCH_MODE": "grad",
                         "BENCH_GRAD_PIPELINE": "4"}, "K3t"),
     ("regenerative final scene", {"BENCH_MODE": "regenerative"}, "K4"),
+    ("regenerative final scene, BVH", {"BENCH_MODE": "regenerative",
+                                       "BENCH_INTERSECT": "bvh"}, "K6"),
     ("wavefront field20000", {"BENCH_SCENE": "field20000",
                               "BENCH_MODE": "wavefront",
                               "BENCH_INTERSECT": "clustered"}, "K5"),
@@ -490,6 +531,12 @@ def host_s(fn):
     out = fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0, out
+
+
+def final_golden():
+    """The final scene's radiance sum in ``bench_golden.json``."""
+    with open(os.path.join(ROOT, "bench_golden.json")) as f:
+        return json.load(f)[GOLDEN_KEY]
 
 
 def field_golden(what, label, tpu_key, total):
@@ -635,6 +682,7 @@ def reset_counts():
     rm.record_paths_mega_clustered.launches = 0
     ip.intersect_pallas.launches = 0
     ic.intersect_clustered.launches = 0
+    traverse.intersect_bvh.launches = 0
     graphed.LOOPS.reset_counts()
 
 
@@ -723,7 +771,7 @@ def tape_agreement(what, got, want, floor):
 
 
 def build():
-    """Phase 2: the one library of K1, K2 and K2b."""
+    """Phase 2: the one library of K1-K6."""
     _, info = mk.load_mega_library()
     log(f"build: {os.path.relpath(info.path, ROOT)} (nvcc "
         f"{info.seconds:.2f} s, cached={info.cached})")
@@ -736,7 +784,7 @@ def build():
 
 def ptxas_kernels(text):
     """(label, function, registers, spill line) of each entry in ptxas -v
-    output, labelled K1-K5."""
+    output, labelled K1-K6."""
     out, entry, spills = [], None, ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -782,8 +830,7 @@ def render_path(dev, key, card):
     del ref, ref_segs, rad, segs
 
     # 4. The render path at full size, through the user's entry point.
-    with open(os.path.join(ROOT, "bench_golden.json")) as f:
-        golden = json.load(f)[GOLDEN_KEY]
+    golden = final_golden()
     reset_counts()
     img = mk.render_image_mega(scene, cam, cfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -1680,8 +1727,7 @@ def intersect_vs_plain(dev, key):
 def dense_wavefront_path(dev, key, card):
     """Phase 12.  Returns K4's entry of the kernels line."""
     scene, cam, cfg = build_preset("random-spheres", device=dev)
-    with open(os.path.join(ROOT, "bench_golden.json")) as f:
-        golden = json.load(f)[GOLDEN_KEY]
+    golden = final_golden()
     pack = ip.pack_scene_pallas(scene)
     total = cfg.num_rays
     chunks = -(-total // WAVE_RAYS)
@@ -2410,7 +2456,8 @@ def direct_turns(what, fns, card):
 def direct_step_path(dev, key, card):
     """Phase 18.  The direct gradient step (``cli fit`` without
     ``--fast``, JAX's jitted ``render_loss_and_grads``) at 2^17 rays.
-    Returns K4's and K5's launches on it for the kernels line."""
+    Returns K4's and K5's launches on it for the kernels line, and the
+    final scene's dense-sweep tape (phase 19 holds K6's to it)."""
     R = GRAD_RAYS
     ids = torch.arange(R, device=dev)
     target = torch.zeros((R, 3), device=dev)
@@ -2503,6 +2550,7 @@ def direct_step_path(dev, key, card):
     log("  the pool recorder through K4 (2^14 slots): tape equal to the "
         "lockstep recorder's")
     k4_launches = d4["launches"]["K4"]
+    dense_tape = tape
     del d, d4, pool4, tape, fns, pack4, jax_tape
     torch.cuda.empty_cache()
 
@@ -2537,8 +2585,278 @@ def direct_step_path(dev, key, card):
     times5 = direct_turns("field5000, K5", fns5, card)
     if not (k4_launches > 0 and d5["launches"]["K5"] > 0):
         raise AssertionError("the direct step did not launch K4 or K5")
-    return dict(times=times, times5=times5, peaks=peaks,
+    return dict(times=times, times5=times5, peaks=peaks, tape=dense_tape,
                 launches={"K4": k4_launches, "K5": d5["launches"]["K5"]})
+
+
+# Phase 19: K6, the flat-BVH walk, on the graft entry's BVH (the final
+# scene, ``build_bvh(max_leaf=4)``) and on triangle scenes.
+BVH_MAX_LEAF = 4
+
+
+def walk_sets(dev, key, scene, bvh, cam, cfg, o, d):
+    """The ray sets phase 19 holds K6 to its plain version on: (label,
+    scene, BVH, origin, direction).  The final scene's 2^17 camera rays and
+    one bounce's secondary rays from their hits (``scatter`` at bounce 0);
+    trifield20000's camera rays, and on its triangles alone; the
+    triangle-mesh preset's (triangles and spheres)."""
+    ids = torch.arange(o.shape[0], device=dev)
+    prim, _, hit = traverse.intersect_bvh(scene, bvh, o, d, 1e-3)
+    _, p, n, mat = recompute_hit(scene, o, d, prim, 1e-3)
+    new_d, _, ok = scatter(scene, mat, d, p, n,
+                           rng.bounce_uniforms(key, ids, 0))
+    live = hit & ok
+    sets = [("final scene, 2^17 camera rays", scene, bvh, o, d),
+            ("final scene, one bounce's secondary rays", scene, bvh,
+             p[live].contiguous(), new_d[live].contiguous())]
+    field, fcam, fcfg = build_preset("triangle-field", device=dev, n=20000)
+    tris = dataclasses.replace(field, sphere_center=field.sphere_center[:0],
+                               sphere_radius=field.sphere_radius[:0],
+                               sphere_mat=field.sphere_mat[:0])
+    fo, fd = camera_rays(field, fcam, fcfg, key, WAVE_RAYS)
+    sets.append(("trifield20000, 2^17 camera rays", field,
+                 build_bvh(field, max_leaf=BVH_MAX_LEAF), fo, fd))
+    sets.append(("trifield20000's triangles alone, 2^17 camera rays", tris,
+                 build_bvh(tris, max_leaf=BVH_MAX_LEAF), fo, fd))
+    mesh, mcam, mcfg = build_preset("triangle-mesh", device=dev)
+    sets.append(("triangle-mesh (triangles and spheres), its "
+                 f"{mcfg.num_rays} camera rays", mesh,
+                 build_bvh(mesh, max_leaf=BVH_MAX_LEAF),
+                 *camera_rays(mesh, mcam, mcfg, key, mcfg.num_rays)))
+    return sets
+
+
+def sync_count(fn):
+    """Synchronizing CUDA calls that ``fn`` makes after a warm call, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` counts them: (count, the
+    source lines that made them)."""
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # torch's one-time notice that the mode is a prototype mentions
+    # synchronization too; only the warnings of a synchronizing call count.
+    found = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
+    return len(found), sorted({f"{os.path.relpath(w.filename, ROOT)}:"
+                               f"{w.lineno}" for w in found})
+
+
+def bvh_cli(card):
+    """``cli render --mode regenerative --bvh`` at 120x80 @ 4 in a
+    subprocess: it exits 0 and its loops were captured and replayed."""
+    out = os.path.join(ROOT, "out", "bvh_cli.png")
+    cmd = [sys.executable, "-m", "first_raytracer_tpu_torch.cli", "render",
+           "--preset", "random-spheres", "--nx", "120", "--ny", "80",
+           "--spp", "4", "--mode", "regenerative", "--bvh", "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ,
+                                                  PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli render --bvh exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    log(f"  {' '.join(cmd[3:])} in {time.perf_counter() - t0:.1f} s of "
+        f"process: {line}")
+    loops = line.split("loops: ", 1)[-1].split(", ")
+    counts = {k.split()[1]: int(k.split()[0]) for k in loops}
+    if "cuda" not in line or not (counts.get("captures", 0) >= 1
+                                  and counts.get("replays", 0) >= 1):
+        raise AssertionError("cli render --bvh did not replay graphs on the "
+                             "card")
+
+
+def bvh_walk_path(dev, key, card, dense_tape):
+    """Phase 19.  Returns K6's entry of the kernels line."""
+    scene, cam, cfg = build_preset("random-spheres", device=dev)
+    bvh = build_bvh(scene, max_leaf=BVH_MAX_LEAF)
+    leaves = bvh.node_count > 0
+    log(f"final scene BVH (build_bvh max_leaf {BVH_MAX_LEAF}): "
+        f"{bvh.num_nodes} nodes, {int(leaves.sum())} leaves")
+    o, d = camera_rays(scene, cam, cfg, key, WAVE_RAYS)
+    ids = torch.arange(WAVE_RAYS, device=dev)
+
+    # K6 against its plain version, bit for bit.
+    err = 0.0
+    for label, sc, bv, so, sd in walk_sets(dev, key, scene, bvh, cam, cfg,
+                                           o, d):
+        before = traverse.intersect_bvh.launches
+        got = traverse.intersect_bvh(sc, bv, so, sd, 1e-3)
+        torch.cuda.synchronize()
+        if traverse.intersect_bvh.launches != before + 1:
+            raise AssertionError("K6's launch counter did not move")
+        want = traverse.intersect_bvh_plain(sc, bv, so, sd, 1e-3)
+        bit_equal(f"K6 {label} ({so.shape[0]} rays, "
+                  f"{int(got[2].sum())} hits; {bv.num_nodes} nodes)", got,
+                  want)
+        err = max(err, float((got[1] - want[1]).abs().max()))
+
+    # Against the dense sweep: the same winner but on exact ties.
+    k6 = traverse.intersect_bvh(scene, bvh, o, d, 1e-3)
+    brute = intersect_brute(scene, o, d, 1e-3)
+    differ = k6[0] != brute[0]
+    ties = differ & (k6[1] == brute[1])
+    log(f"  K6 vs the dense sweep on the 2^17 camera rays: hits equal "
+        f"{torch.equal(k6[2], brute[2])}, {int(differ.sum())} primitives "
+        f"differ, {int(ties.sum())} of them exact ties in t")
+    if not torch.equal(k6[2], brute[2]) or bool((differ & ~ties).any()):
+        raise AssertionError("K6's winners differ from the dense sweep's "
+                             "off exact ties")
+
+    # Host syncs inside one call, K6 against its plain version.
+    syncs, where = sync_count(lambda: traverse.intersect_bvh(scene, bvh, o,
+                                                             d, 1e-3))
+    plain_syncs, _ = sync_count(lambda: traverse.intersect_bvh_plain(
+        scene, bvh, o, d, 1e-3))
+    log(f"  syncs in a call (torch.cuda.set_sync_debug_mode): K6 {syncs} "
+        f"{where}, the plain walk {plain_syncs}")
+    if syncs:
+        raise AssertionError(f"K6's call made {syncs} host syncs")
+
+    # The graft entry's forward step, graphed, against the plain walk.
+    fn, args = entry(dev)
+    reset_counts()
+    first_s, out1 = host_s(lambda: fn(*args))
+    out2 = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches, c = traverse.intersect_bvh.launches, loop_counts()
+    scene_e, cam_e, key_e, ids_e, bvh_e = args
+    cfg_e = random_scene(nx=128, ny=64, spp=2, device=dev)[2]
+
+    def plain_entry():
+        return render_ray_batch(scene_e, cam_e, cfg_e, key_e, ids_e, bvh_e,
+                                traverse.intersect_bvh_plain, graphed=False)
+    eager_s, plain = host_s(plain_entry)
+    graphed_s = host_s(lambda: fn(*args))[0]
+    log(f"  entry() (8192 rays of the final scene at 128x64 @ 2, depth 50):"
+        f" graphed twice, equal {torch.equal(out1, out2)}, equal to the "
+        f"plain walk's eager forward {torch.equal(out1, plain)}; K6 "
+        f"launches {entry_launches} ({c['passes']} passes, {c['replays']} "
+        f"replays, {c['syncs']} flag reads); {capture_note(c)}; s: first "
+        f"(its capture) {first_s:.3f}, graphed {graphed_s:.4f}, the plain "
+        f"walk eager {eager_s:.3f}; on {card}")
+    if not (torch.equal(out1, out2) and torch.equal(out1, plain)):
+        raise AssertionError("entry()'s graphed forward differs from the "
+                             "plain walk's")
+    if not (entry_launches > 0 and c["replays"] > 0):
+        raise AssertionError("entry() did not replay graphs through K6")
+    del out1, out2, plain
+
+    # The lockstep recorder through K6 against phase 18's dense sweep.
+    rec_s, tape6 = host_s(lambda: record_paths(scene, o, d, ids, key, cfg,
+                                               bvh))
+    rec_s2 = host_s(lambda: record_paths(scene, o, d, ids, key, cfg, bvh))[0]
+    log(f"  the lockstep recorder through K6 at 2^17 rays: {rec_s:.3f} s "
+        f"(its capture), {rec_s2:.4f} s graphed; "
+        f"{int((tape6 != dense_tape).sum())} of {tape6.numel()} entries "
+        "differ from phase 18's dense-sweep tape")
+    tape_agreement("  K6's lockstep tape vs the dense sweep's", tape6,
+                   dense_tape, 0.999)
+    del tape6
+
+    # The main path: the full-width pool frame through K6; counters reset
+    # just before it, read just after.
+    golden = final_golden()
+    pack4 = ip.pack_scene_pallas(scene)
+
+    def frame(accel):
+        return render_image(scene, cam, cfg, seed=0, accel=accel,
+                            mode="regenerative", pool_size=WAVE_RAYS,
+                            device=dev)
+    reset_counts()
+    img6 = frame(bvh)
+    torch.cuda.synchronize()
+    launches, c6 = traverse.intersect_bvh.launches, loop_counts()
+    if tuple(img6.shape) != (cfg.ny, cfg.nx, 3) or \
+            not bool(torch.isfinite(img6).all()):
+        raise AssertionError("the K6 frame: bad image")
+    total_rad = float(img6.double().sum()) * cfg.spp
+    rel = abs(total_rad - golden) / golden
+    log(f"regenerative final scene {cfg.nx}x{cfg.ny}@{cfg.spp} through K6, "
+        f"graphed: radiance sum {total_rad:.1f} vs golden {golden:.1f} (rel "
+        f"{rel:.2e}), K6 launches {launches} ({c6['warmups']} warm-up "
+        f"block(s), {c6['passes']} passes replayed, {c6['live_passes']} "
+        f"with a live ray), {c6['replays']} replays, {c6['syncs']} host "
+        f"reads; {capture_note(c6)}")
+    if launches < 1 or launches != c6["passes"] + c6["warmups"] * \
+            graphed.PASSES_PER_READ:
+        raise AssertionError("the K6 frame's launches are not its passes")
+    check_reads("the K6 frame", c6, 1)
+    if not rel < 1e-2:
+        raise AssertionError(f"the K6 frame's radiance sum off golden ({rel})")
+    img4 = frame(pack4)
+    kdiff = (img6 - img4).abs()
+    log(f"  against the same frame through K4: frac(|a-b|>1e-3)="
+        f"{float((kdiff > 1e-3).float().mean()):.6f}, max "
+        f"{float(kdiff.max()):.3e} (logged: the two kernels sum their dot "
+        "products in other orders)")
+    del img4, kdiff
+    turns = {"K4": [], "K6": []}
+    for label in ("K4", "K6", "K6", "K4"):
+        accel = pack4 if label == "K4" else bvh
+        turns[label].append(statistics.median(
+            host_s(lambda: frame(accel))[0] for _ in range(3)))
+    total = cfg.num_rays
+    log(f"  s/frame in turns (K4, K6, K6, K4; median of 3 a turn): K4 "
+        f"{turns['K4'][0]:.4f}, {turns['K4'][1]:.4f}; K6 "
+        f"{turns['K6'][0]:.4f}, {turns['K6'][1]:.4f} "
+        f"({total / min(turns['K6']) / 1e6:.3f} Mpaths/s); on {card}")
+
+    # The same frame op by op, K6 clocked by events around each call:
+    # graphed = eager, and K6's time and work over the frame.
+    clock = Clocked(traverse.intersect_bvh, keep=True)
+
+    def pool(**kw):
+        return render_rays_regenerative(scene, cam, cfg, key, 0, total, bvh,
+                                        pool_size=WAVE_RAYS,
+                                        return_stats=True, **kw)
+    graph_vs_eager("the regenerative frame through K6", pool(),
+                   pool(intersect_fn=clock, graphed=False))
+    walk = torch.zeros(3, dtype=torch.int64, device=dev)
+    for bo, bd, bt in clock.batches:
+        walk += traverse.intersect_bvh(scene, bvh, bo, bd, bt,
+                                       return_counters=True)[3].long().sum(0)
+    frame_bound = k6_bound(scene, bvh, walk.tolist(), clock.rays,
+                           len(clock.events))
+    frame_ms = clock.replay_ms(scene, bvh)
+
+    # K6 alone at 2^17 camera rays.
+    k6_ms = graph_ms(lambda: traverse.intersect_bvh(scene, bvh, o, d, 1e-3),
+                     5, 20)
+    plain_s, _ = host_s(lambda: traverse.intersect_bvh_plain(
+        scene, bvh, o, d, 1e-3))
+    counts = traverse.intersect_bvh(scene, bvh, o, d, 1e-3,
+                                    return_counters=True)[3].long()
+    sums = counts.sum(0).tolist()
+    b1 = k6_bound(scene, bvh, sums, WAVE_RAYS)
+    log(f"  K6 alone at {WAVE_RAYS} camera rays: {k6_ms:.4f} ms (20 calls in"
+        f" a CUDA graph; bound {b1[0]:.4f} ms, {b1[1]}: per ray "
+        f"{sums[0] / WAVE_RAYS:.2f} nodes (at most {int(counts[:, 0].max())})"
+        f", {sums[1] / WAVE_RAYS:.2f} sphere slots); plain "
+        f"{plain_s * 1e3:.1f} ms (one run, {plain_syncs} syncs); over the "
+        f"frame's {len(clock.events)} calls ({clock.rays} rays) back to back "
+        f"{frame_ms:.2f} ms (bound {frame_bound[0]:.3f} ms, "
+        f"{frame_bound[1]}), events around the eager calls "
+        f"{clock.ms():.2f} ms; on {card}")
+    bvh_cli(card)
+    return {"name": "K6 flat-BVH walk (intersect_bvh), 2^17 camera rays of "
+                    "the final scene",
+            "route": "cuda",
+            "source": "first_raytracer_tpu_torch/kernels/csrc/bvh_walk.cu",
+            "replaces": traverse.REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": k6_ms, "plain_ms": plain_s * 1e3,
+            "bound_ms": b1[0], "bound_by": b1[1], "library_ms": None,
+            "entry_launches": entry_launches, "frame_ms": frame_ms,
+            "frame_bound_ms": frame_bound[0], "frame_s": turns,
+            "entry_s": {"graphed": graphed_s, "plain_eager": eager_s},
+            "syncs": syncs}
 
 
 def bench_runs(card):
@@ -2626,6 +2944,10 @@ def main():
     torch.cuda.empty_cache()
     log("The direct gradient step:")
     direct = direct_step_path(dev, key, card)  # 18.
+    torch.cuda.empty_cache()
+    log("K6, the flat-BVH walk:")
+    k6 = bvh_walk_path(dev, key, card, direct.pop("tape"))  # 19.
+    k6["bench_launches"] = bench["K6"]
     k4["direct_step_launches"] = direct["launches"]["K4"]
     k5["direct_step_launches"] = direct["launches"]["K5"]
     k1["sharded_launches"] = {"phase14": slice14["K1"]}
@@ -2672,7 +2994,7 @@ def main():
         "tape_agreement_with_k2b": t10["agree_k2b"], "ms": t10["ms"],
         "plain_ms": t10["plain_ms"], "bound_ms": t10["bound"][0],
         "bound_by": t10["bound"][1], "library_ms": None,
-        "bench_launches": bench["K3t"]}, k4, k5]}))
+        "bench_launches": bench["K3t"]}, k4, k5, k6]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -16,12 +16,12 @@ Switches (environment, as ``bench.py``'s):
   of ``BENCH_POOL`` slots) or ``grad`` (record + replay gradient steps).
 - ``BENCH_INTERSECT``: the wavefront closest hit, ``pallas`` (K4, the
   final scene's default), ``clustered`` (K5, the fields' default), ``bvh``
-  (the BVH walk, a correctness oracle) or ``brute`` (the dense sweep).
+  (K6, the flat-BVH walk) or ``brute`` (the dense sweep).
 - ``BENCH_REPEATS`` (at least 3), and for ``grad``: ``BENCH_GRAD_RAYS``
   (2^17), ``BENCH_GRAD_METHOD`` (``replay`` or ``scan``),
   ``BENCH_GRAD_REC`` (``mega`` = K2b, ``megacluster`` = K3t, ``pool`` =
   the pool recorder on ``BENCH_INTERSECT``, its loop CUDA graphs on the
-  card but through the BVH walk; by default K2b up to
+  card; by default K2b up to
   ``DENSE_MAX`` spheres and triangles, K3t past it and on the fields),
   ``BENCH_GRAD_POOL`` (2^14), ``BENCH_GRAD_REPLAY`` (``bucketed`` or
   ``flat``) and ``BENCH_GRAD_PIPELINE`` (16 steps timed back to back with
@@ -36,8 +36,8 @@ counterpart here and are refused, never ignored.
 
 Packs, plans and scenes are built outside the timed loop.  The timed
 ``wavefront`` and ``regenerative`` runs replay the loops' CUDA graphs
-(``render/graphed.py``; the BVH walk runs eagerly); their warm run counts
-through a ``CountedIntersect`` and so runs eagerly, by ``graphed=False``.
+(``render/graphed.py``); their warm run counts through a
+``CountedIntersect`` and so runs eagerly, by ``graphed=False``.
 After an untimed warm run (instrumented: segments and work) and one
 untimed run (the graphs' capture, for those modes) that
 sets how many runs each repeat queues back to back to last about
@@ -69,6 +69,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .accel import traverse
 from .core import rng
 from .diff import grad as dg
 from .diff.replay import live_trips, plan_buckets, record_paths_pool
@@ -111,13 +112,15 @@ COUNTERS = (("K1", mk.render_pixels_mega, "launches"),
             ("K3", mc.render_pixels_mega_clustered, "launches"),
             ("K3t", rm.record_paths_mega_clustered, "launches"),
             ("K4", ip.intersect_pallas, "launches"),
-            ("K5", ic.intersect_clustered, "launches"))
-# The closest-hit kernel and wrapper of each BENCH_INTERSECT (the walk
-# and the dense sweep are plain PyTorch, ``default_intersect``'s).
-INTERSECT_KERNEL = {"pallas": "K4", "clustered": "K5", "bvh": None,
+            ("K5", ic.intersect_clustered, "launches"),
+            ("K6", traverse.intersect_bvh, "launches"))
+# The closest-hit kernel and wrapper of each BENCH_INTERSECT (the dense
+# sweep is plain PyTorch, ``default_intersect``'s).
+INTERSECT_KERNEL = {"pallas": "K4", "clustered": "K5", "bvh": "K6",
                     "brute": None}
 INTERSECT_FN = {"pallas": ip.intersect_pallas,
-                "clustered": ic.intersect_clustered}
+                "clustered": ic.intersect_clustered,
+                "bvh": traverse.intersect_bvh}
 
 
 class BenchError(Exception):
@@ -249,14 +252,14 @@ def read_launches():
 
 class CountedIntersect:
     """An ``intersect_fn`` that counts the FP32 operations of the closest
-    hits it computes: K4's rays x rows, K5's slots and boxes from its
-    counters (summed on the device), the dense sweep's rays x primitives
-    at K4's counts; none for the BVH walk, whose work the guard does not
-    count."""
+    hits it computes: K4's rays x rows, K5's and K6's nodes and slots from
+    their counters (summed on the device), the dense sweep's rays x
+    primitives at K4's counts; none for the plain walk on the CPU, which
+    keeps no counters."""
 
     def __init__(self, kind, scene, accel):
         self.kind, self.scene, self.accel = kind, scene, accel
-        self.rays, self.sweeps = 0, None
+        self.rays, self.sweeps, self.walk = 0, None, None
 
     def __call__(self, scene, accel, o, d, t_min):
         self.rays += o.shape[0]
@@ -268,6 +271,12 @@ class CountedIntersect:
             return prim, t, hit
         if self.kind == "pallas":
             return ip.intersect_pallas(scene, accel, o, d, t_min)
+        if self.kind == "bvh" and accel.device.type == "cuda":
+            prim, t, hit, walk = traverse.intersect_bvh(
+                scene, accel, o, d, t_min, return_counters=True)
+            s = walk.long().sum(0)
+            self.walk = s if self.walk is None else self.walk + s
+            return prim, t, hit
         return default_intersect(scene, accel, o, d, t_min)
 
     def ops(self):
@@ -276,6 +285,9 @@ class CountedIntersect:
                 self.sweeps.tolist())
         if self.kind == "pallas":
             return roofline.intersect_ops(self.accel, self.rays)
+        if self.kind == "bvh":
+            return 0 if self.walk is None else roofline.k6_ops(
+                self.walk.tolist())
         if self.kind == "brute":
             return self.rays * (
                 self.scene.num_spheres * roofline.OC_SPHERE_OPS
@@ -351,21 +363,20 @@ def _accel(scene, isect):
     if isect == "clustered":
         return ic.pack_scene_clustered(scene)
     if isect == "bvh":
-        print("# NOTE: BENCH_INTERSECT=bvh selects the flat-BVH walk, a "
-              "correctness oracle, not a performance path.", file=sys.stderr)
+        print("# NOTE: BENCH_INTERSECT=bvh: the closest hit is K6, the "
+              "flat-BVH walk (build_bvh(max_leaf=4)).", file=sys.stderr)
         from .accel.build import build_bvh
         return build_bvh(scene, max_leaf=4)
     return None
 
 
-def _graphed(isect, fn=None):
-    """Whether a wavefront run replays the loops' CUDA graphs: not for the
-    BVH walk (it reads back every step) nor through a
-    ``CountedIntersect`` (host state), which run eagerly."""
-    return isect != "bvh" and not isinstance(fn, CountedIntersect)
+def _graphed(fn):
+    """Whether a wavefront run replays the loops' CUDA graphs: not through
+    a ``CountedIntersect`` (host state), which runs eagerly."""
+    return not isinstance(fn, CountedIntersect)
 
 
-def _segments_pass(scene, cam, cfg, key, num_rays, chunk, accel, isect):
+def _segments_pass(scene, cam, cfg, key, num_rays, chunk, accel):
     """Segments of ray ids [0, num_rays) through the wavefront integrator
     in chunks: the untimed instrumented pass of ``bench.py``."""
     total = 0
@@ -373,8 +384,7 @@ def _segments_pass(scene, cam, cfg, key, num_rays, chunk, accel, isect):
         ids = torch.arange(lo, min(lo + chunk, num_rays),
                            device=scene.device)
         _, segs = render_ray_batch(scene, cam, cfg, key, ids, accel,
-                                   return_stats=True,
-                                   graphed=_graphed(isect))
+                                   return_stats=True)
         total += int(segs.long().sum())
     return total
 
@@ -400,8 +410,8 @@ def _plan_grad(env, scene_sel, scene, cam, cfg, key, isect, chunk):
                                             intersect_fn=fn, method="scan")
 
         def count(_):
-            return (_segments_pass(scene, cam, cfg, key, R, chunk, accel,
-                                   isect), None, None)
+            return (_segments_pass(scene, cam, cfg, key, R, chunk, accel),
+                    None, None)
         return Plan(run, count, R, INTERSECT_KERNEL[isect]), accel
 
     accel = None
@@ -443,11 +453,11 @@ def _plan_grad(env, scene_sel, scene, cam, cfg, key, isect, chunk):
         def rec_tape(fn=INTERSECT_FN.get(isect)):
             return record_paths_pool(scene, cam, cfg, key, ids, accel, fn,
                                      pool_size=gpool,
-                                     graphed=_graphed(isect, fn))
+                                     graphed=_graphed(fn))
 
         def rec_counts():
-            return _segments_pass(scene, cam, cfg, key, R, chunk, accel,
-                                  isect), None
+            return _segments_pass(scene, cam, cfg, key, R, chunk,
+                                  accel), None
 
     pipe = max(1, _int_env(env, "BENCH_GRAD_PIPELINE", 16))
     replay = _choice(env, "BENCH_GRAD_REPLAY", "bucketed",
@@ -519,7 +529,7 @@ def _plan(env, mode, scene_sel, scene, cam, cfg, key, isect):
             return render_rays_regenerative(
                 scene, cam, cfg, key, 0, total, accel, fn, pool_size=pool,
                 return_stats=isinstance(fn, CountedIntersect),
-                graphed=_graphed(isect, fn))
+                graphed=_graphed(fn))
 
         def count(out):
             return int(out[1].long().sum()), None, None
@@ -532,7 +542,7 @@ def _plan(env, mode, scene_sel, scene, cam, cfg, key, isect):
         stats = isinstance(fn, CountedIntersect)
         outs = [render_ray_batch(scene, cam, cfg, key, b, accel, fn,
                                  return_stats=stats,
-                                 graphed=_graphed(isect, fn))
+                                 graphed=_graphed(fn))
                 for b in blocks]
         if not stats:
             return outs[-1]

@@ -31,8 +31,10 @@ does; ``--mode mega-clustered`` (or ``--clustered`` with ``--mode mega``)
 takes the clustered megakernel at any size.  ``--mode wavefront`` runs the
 chunked wavefront integrator and ``--mode regenerative`` its compacted
 ray pool; their closest hit is the dense sweep, the clustered kernel K5
-with ``--clustered``, or the flat-BVH walk with ``--bvh`` (a correctness
-oracle, not a fast path).  ``--checkpoint`` renders in resumable batches
+with ``--clustered``, or the flat-BVH walk K6 with ``--bvh``; on a GPU
+their loops replay as CUDA graphs with any of the three (the line
+``render`` prints ends with the loops' captures, replays, passes and flag
+reads).  ``--checkpoint`` renders in resumable batches
 of ``--batch-spp`` samples through the wavefront integrator, writing a
 running-mean PNG after every batch with ``--preview``.  ``--mode ring``
 splits the scene's primitives over every rank and passes the shards
@@ -60,9 +62,9 @@ and replayed (``graphs``) and the recorder loops' (``loops``: captures,
 block replays, passes, live passes and flag reads).  Without ``--fast``
 it takes the direct step (``make_fit_step``): on a GPU the wavefront
 recorder's loop and the value and gradient of the whole tape's replay are
-CUDA graphs, replayed every step (``--bvh`` records eagerly: the walk reads
-back every step).  ``--fast`` takes the record->replay step (the tape
-recorded by the CUDA kernel on a GPU: the clustered recorder for scenes
+CUDA graphs, replayed every step (``--bvh`` too: K6 walks on the card).
+``--fast`` takes the record->replay step (the tape recorded by the CUDA
+kernel on a GPU: the clustered recorder for scenes
 past 1024 spheres or triangles; on a GPU the replay's value and gradient is
 a CUDA graph, captured once per plan shape: a fit that moves geometry
 changes its plan, and so captures, every step, about 1.5x slower than
@@ -128,14 +130,6 @@ def _join_group():
     return world
 
 
-def _graphed(args):
-    """The wavefront loops' ``graphed`` argument (the renders, the fit's
-    recorder and the occupancy scan): the BVH walk reads back every step,
-    so with ``--bvh`` they run eagerly; otherwise the default (CUDA graphs
-    on the card)."""
-    return False if args.bvh else None
-
-
 def _render_sharded(args, scene, camera, cfg, accel, device):
     """The render of ``args.mode`` over a mesh of every rank."""
     from .kernels.megakernel import render_image_mega_sharded
@@ -156,8 +150,7 @@ def _render_sharded(args, scene, camera, cfg, accel, device):
         return render_image_ring(scene, camera, cfg, mesh, seed=args.seed,
                                  device=device)
     return render_image_sharded(scene, camera, cfg, mesh, seed=args.seed,
-                                accel=accel, device=device,
-                                graphed=_graphed(args))
+                                accel=accel, device=device)
 
 
 def _cmd_render(args):
@@ -199,7 +192,7 @@ def _cmd_render(args):
             scene, camera, cfg, seed=args.seed, accel=accel,
             checkpoint_path=args.checkpoint,
             samples_per_batch=args.batch_spp, on_batch=on_batch,
-            device=device, graphed=_graphed(args)).copy())
+            device=device).copy())
     elif args.mode == "mega":
         from .kernels.megakernel import render_image_mega
         img = render_image_mega(scene, camera, cfg, seed=args.seed,
@@ -211,8 +204,7 @@ def _cmd_render(args):
     else:
         from .render.api import render_image
         img = render_image(scene, camera, cfg, seed=args.seed, accel=accel,
-                           mode=args.mode, device=device,
-                           graphed=_graphed(args))
+                           mode=args.mode, device=device)
     img = img.cpu()  # waits for the device
     dt = time.perf_counter() - t0
     if world > 1:
@@ -232,8 +224,12 @@ def _cmd_render(args):
         write_png(out, img)
     mode = "progressive wavefront" if args.checkpoint else args.mode
     ranks = f", {world} ranks" if world > 1 else ""
+    from .render.graphed import LOOPS
+    loops = (f"; loops: {LOOPS.captures} captures, {LOOPS.replays} "
+             f"replays, {LOOPS.passes} passes, {LOOPS.syncs} flag reads"
+             if LOOPS.passes else "")
     print(f"wrote {out} ({cfg.nx}x{cfg.ny} @ {cfg.spp}spp, {mode}, "
-          f"{device.type}{ranks}) in {dt:.2f}s")
+          f"{device.type}{ranks}) in {dt:.2f}s{loops}")
     return 0
 
 
@@ -247,11 +243,9 @@ def _cmd_bench(args):
     key = rng.base_key(args.seed)
     n = min(cfg.num_rays, args.rays or cfg.num_rays)
     ids = torch.arange(n, dtype=torch.int64, device=device)
-    graphed = _graphed(args)
-    secs = time_fn(render_ray_batch, scene, camera, cfg, key, ids, accel,
-                   graphed=graphed)
+    secs = time_fn(render_ray_batch, scene, camera, cfg, key, ids, accel)
     _, segs = render_ray_batch(scene, camera, cfg, key, ids, accel,
-                               return_stats=True, graphed=graphed)
+                               return_stats=True)
     out = throughput(n, int(segs.sum()), secs)
     out.update(preset=args.preset, rays=n, device=str(device),
                accel=type(accel).__name__ if accel is not None else None)
@@ -282,7 +276,7 @@ def _cmd_fit(args):
     true_params, _ = split_params(scene, fields=fields)
     with torch.no_grad():
         target = ray_radiance(true_params, scene, camera, cfg, key, ids,
-                              accel, graphed=_graphed(args))
+                              accel)
 
     # Perturb each field by a factor in [0.6, 0.9), drawing in sorted key
     # order as the JAX package's tree_map does.
@@ -300,8 +294,7 @@ def _cmd_fit(args):
                                     device=device)
     else:
         step = make_fit_step(scene, camera, cfg, ids, target, opt,
-                             accel=accel, device=device,
-                             graphed=_graphed(args))
+                             accel=accel, device=device)
     loss = None
     for i in range(args.steps):
         loss = float(step(params, key))
@@ -341,8 +334,7 @@ def _cmd_occupancy(args):
     device = torch.device(args.device)
     scene, camera, cfg, accel = _build(args, device)
     out = wavefront_occupancy(scene, camera, cfg, seed=args.seed,
-                              accel=accel, device=device,
-                              graphed=_graphed(args))
+                              accel=accel, device=device)
     if scene.num_primitives <= (1 << 14):
         out["megakernel"] = megakernel_occupancy(scene, camera, cfg,
                                                  seed=args.seed,
@@ -380,8 +372,7 @@ def _common(sp):
                     help="closest hit by the clustered kernel K5 (large "
                          "scenes); with --mode mega: mega-clustered")
     sp.add_argument("--bvh", action="store_true",
-                    help="closest hit by the flat-BVH walk: a correctness "
-                         "oracle, not a fast path")
+                    help="closest hit by the flat-BVH walk (K6 on a GPU)")
 
 
 def main(argv=None):

@@ -22,7 +22,7 @@ the card, the bounce counter on the device) and then the value and
 gradient of the replay over the whole tape, a replay of the CUDA graph of
 ``tape_loss_and_grads`` (``GRAPHS``).  Its ``graphed`` argument is the
 recorder's (``render.graphed.graphed_route``: ``graphed=False`` runs the
-recorder op by op, as the flat-BVH walk must on the card).
+recorder op by op).
 
 The fit steps update the parameters in place through a ``torch.optim``
 optimizer built over them (``make_optimizer``), where the JAX package

@@ -6,7 +6,8 @@ The twin of the JAX package's ``__graft_entry__.entry()`` (and
 renders 8192 consecutive ray ids of the random-spheres final scene at
 128x64 @ 2 spp through the wavefront integrator with the flat-BVH walk,
 (8192, 3) float32 radiance.  It runs on the card unless the caller asks for
-``device="cpu"``.
+``device="cpu"``; there the walk is K6 and the batch's loop replays as CUDA
+graphs (``render/graphed.py``).
 """
 from __future__ import annotations
 
@@ -30,8 +31,6 @@ def entry(device="cuda"):
     ray_ids = torch.arange(8192, dtype=torch.int64, device=device)
 
     def forward(scene, camera, key, ray_ids, accel):
-        # The BVH walk reads back every step: its loop runs eagerly.
-        return render_ray_batch(scene, camera, cfg, key, ray_ids, accel,
-                                graphed=False)
+        return render_ray_batch(scene, camera, cfg, key, ray_ids, accel)
 
     return forward, (scene, camera, key, ray_ids, accel)

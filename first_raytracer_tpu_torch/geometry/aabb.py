@@ -3,8 +3,10 @@
 Port of ``first_raytracer_tpu.geometry.aabb``.  ``aabb_hit`` is the
 per-axis ``(min - O) / d`` interval-intersection slab test; a zero direction
 component divides to inf (IEEE), which the min/max form handles.  Its first
-caller is the flat-BVH walk (``accel/traverse.py``); the clustered kernels
-run their own slab test (``slab_gate`` in ``kernels/csrc/mega_common.cuh``).
+caller is the flat-BVH walk's plain version (``accel/traverse.py``), whose
+kernel K6 runs the same test (``box_hit`` in ``kernels/csrc/bvh_walk.cu``);
+the clustered kernels run their own, widened one
+(``kernels/csrc/slab.cuh``).
 The NumPy helpers are copied as they are: the per-primitive boxes that the
 BVH builder and the clustered packs group.
 """

@@ -72,14 +72,34 @@ def build_library(name: str, sources, extra_flags=()):
         return ctypes.CDLL(out), BuildInfo(out, 0.0, "", True)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *flags, "-o", tmp, *paths]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # One nvcc a source, all started together, then one link.
+    objs = [f"{tmp}.{i}.o" for i in range(len(paths))]
+    compile_flags = [f for f in flags if f != "-shared"]
+    cmds = [[nvcc, *compile_flags, "-c", "-o", obj, p]
+            for obj, p in zip(objs, paths)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    try:
+        for cmd, proc, one in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{one}")
+        cmd = [nvcc, *flags, "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{log}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return ctypes.CDLL(out), BuildInfo(out, seconds, log, False)
 

@@ -21,7 +21,7 @@ from ..build import BUILD_DIR, CSRC_DIR
 __all__ = ["GXX_FLAGS", "build_host_library", "rewrite"]
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GXX_FLAGS = ("-O2", "-std=c++20", "-pthread", "-ffp-contract=off",
+GXX_FLAGS = ("-O2", "-std=c++20", "-ffp-contract=off",
              "-fPIC", "-shared", "-x", "c++")
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;{}]*>)?)\s*<<<")
 _SHARED = re.compile(r"extern\s+__shared__\s+([\w:]+)\s+(\w+)\[\];")
@@ -79,11 +79,12 @@ def rewrite(src):
                   f"{m.group(1)}*>(frt_emu::tl_smem);", "".join(out))
 
 
-def build_host_library(gxx="g++"):
-    """Compile every ``.cu`` under ``csrc/`` for the host; returns the
-    loaded ``ctypes.CDLL``.  The library's name carries a hash of the
-    sources, the shim and the flags."""
-    names = sorted(os.listdir(CSRC_DIR))
+def build_host_library(gxx="g++", units=None):
+    """Compile every ``.cu`` under ``csrc/`` (or those named in ``units``)
+    for the host; returns the loaded ``ctypes.CDLL``.  The library's name
+    carries a hash of the sources, the shim and the flags."""
+    names = sorted(n for n in os.listdir(CSRC_DIR)
+                   if units is None or not n.endswith(".cu") or n in units)
     shim = ("cuda_runtime.h", "cp_async.cuh")
     digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     for base, files in ((CSRC_DIR, names), (HERE, shim)):

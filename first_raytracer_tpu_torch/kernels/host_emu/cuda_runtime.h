@@ -1,34 +1,40 @@
 // A stand-in for <cuda_runtime.h> that lets g++ compile the package's CUDA
 // sources (kernels/csrc) into a host library, for the CPU tests of
-// tests/test_torch_cuda_host.py: the kernels' own code, run on the host,
-// held bit for bit against their plain PyTorch versions.  Nothing of the
-// package's entry points loads it; the card runs the real sources.
+// tests/test_torch_cuda_host.py and test_torch_bvh_walk.py: the kernels'
+// own code, run on the host, held bit for bit against their plain PyTorch
+// versions.  Nothing of the package's entry points loads it; the card runs
+// the real sources.
 //
 // A launch `k<<<grid, block, smem, stream>>>(args);` is rewritten by
 // host_emu/build.py into frt_emu::launch(grid, block, smem, [&] { k(args);
-// }): the blocks run one after another, each CUDA thread of a block on a
-// std::thread of its own, so __syncthreads is a barrier of the block and a
-// warp's collectives (ballot, shuffles, __syncwarp) a barrier of its 32
-// threads with an exchange buffer between two waits.  The kernels call
-// those only where the whole warp is converged, as on the card.  A thread
-// that returns leaves both barriers.  `extern __shared__` becomes the
-// block's buffer, which the launcher fills with garbage; cp.async (csrc/
-// cp_async.cuh) is replaced by a synchronous copy.  Build with g++
-// -std=c++20 -pthread -ffp-contract=off, so that no product is fused where
-// nvcc --fmad=false would not fuse it.
+// }): the blocks run one after another, each CUDA thread of a block as a
+// fiber of its own (ucontext) on the calling thread, so __syncthreads is a
+// barrier of the block and a warp's collectives (ballot, shuffles,
+// __syncwarp) a barrier of its 32 threads with an exchange buffer between
+// two waits.  A fiber runs until it waits at a barrier or returns, then
+// the block's scheduler resumes the next one, in thread order; a barrier
+// opens when its last thread arrives.  One OS thread runs the whole block,
+// so a launch costs no thread starts and its barriers never wait on the
+// host's scheduler, however busy the host is.  The kernels call the
+// collectives only where the whole warp is converged, as on the card.  A
+// thread that returns leaves both barriers.  `extern __shared__` becomes
+// the block's buffer, which the launcher fills with garbage; cp.async
+// (csrc/cp_async.cuh) is replaced by a synchronous copy.  Build with g++
+// -std=c++20 -ffp-contract=off, so that no product is fused where nvcc
+// --fmad=false would not fuse it.
 #pragma once
 
+#include <sys/mman.h>
+#include <ucontext.h>
+
 #include <algorithm>
-#include <atomic>
-#include <barrier>
 #include <climits>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
-#include <functional>
-#include <memory>
-#include <thread>
 #include <vector>
 
 #define __device__
@@ -119,16 +125,31 @@ inline int atomicAdd(int* p, int v) {
 namespace frt_emu {
 
 constexpr int kWarp = 32;
+constexpr size_t kStack = 512 * 1024;  // each fiber's stack
+
+// A barrier of a block's fibers: the last of `expected` to arrive opens
+// the phase; the others give the processor back until it has opened.
+struct Barrier {
+  int expected = 0;
+  int arrived = 0;
+  unsigned long phase = 0;
+};
 
 struct Block {
-  std::unique_ptr<std::barrier<>> all;
-  std::vector<std::unique_ptr<std::barrier<>>> warps;
+  Barrier all;
+  std::vector<Barrier> warps;
   std::vector<uint64_t> exchange;  // one slot per thread of the block
+  std::vector<ucontext_t> fibers;  // one per thread of the block
+  std::vector<char> done;
+  ucontext_t scheduler;
+  int current = 0;
+  unsigned long progress = 0;  // arrivals and returns: a deadlock makes none
 };
 
 inline thread_local dim3 tl_thread, tl_block, tl_dim, tl_grid;
 inline thread_local Block* tl_state = nullptr;
 inline thread_local unsigned char* tl_smem = nullptr;
+inline thread_local void* tl_body = nullptr;  // the launch's kernel call
 
 }  // namespace frt_emu
 
@@ -140,8 +161,37 @@ inline thread_local unsigned char* tl_smem = nullptr;
 namespace frt_emu {
 
 inline int flat_thread() { return static_cast<int>(tl_thread.x); }
-inline std::barrier<>& warp_barrier() {
-  return *tl_state->warps[flat_thread() / kWarp];
+
+// Gives the processor back to the block's scheduler.
+inline void yield() {
+  Block& b = *tl_state;
+  swapcontext(&b.fibers[b.current], &b.scheduler);
+}
+
+inline void open(Barrier& br) {
+  br.arrived = 0;
+  ++br.phase;
+}
+
+inline void arrive_and_wait(Barrier& br) {
+  ++tl_state->progress;
+  if (++br.arrived == br.expected) {
+    open(br);
+    return;
+  }
+  const unsigned long phase = br.phase;
+  while (br.phase == phase) yield();
+}
+
+// A returning thread counts as arrived in this phase and is not expected
+// in later ones (std::barrier::arrive_and_drop).
+inline void arrive_and_drop(Barrier& br) {
+  --br.expected;
+  if (br.expected > 0 && br.arrived == br.expected) open(br);
+}
+
+inline Barrier& warp_barrier() {
+  return tl_state->warps[flat_thread() / kWarp];
 }
 
 // Every lane of the calling thread's warp publishes `v`; returns the
@@ -153,53 +203,94 @@ inline void exchange(T v, T (&out)[kWarp]) {
   uint64_t slot = 0;
   std::memcpy(&slot, &v, sizeof(T));
   tl_state->exchange[t] = slot;
-  warp_barrier().arrive_and_wait();
+  arrive_and_wait(warp_barrier());
   const int w0 = t / kWarp * kWarp;
   for (int l = 0; l < kWarp; ++l)
     std::memcpy(&out[l], &tl_state->exchange[w0 + l], sizeof(T));
-  warp_barrier().arrive_and_wait();
+  arrive_and_wait(warp_barrier());
 }
 
-// Runs `body` as the kernel: `grid` blocks in turn, `block` threads each.
+// A fiber's life: the kernel call, then it leaves both barriers and
+// returns to the scheduler (its context's uc_link).
+template <class F>
+void fiber_main() {
+  (*static_cast<F*>(tl_body))();
+  Block& b = *tl_state;
+  arrive_and_drop(b.warps[flat_thread() / kWarp]);
+  arrive_and_drop(b.all);
+  b.done[b.current] = 1;
+  ++b.progress;
+}
+
+// Runs `body` as the kernel: `grid` blocks in turn, `block` threads each,
+// every thread a fiber on the calling thread.
 template <class F>
 void launch(dim3 grid, dim3 block, size_t smem_bytes, F body) {
   const int nthreads = static_cast<int>(block.x * block.y * block.z);
   const int nwarps = (nthreads + kWarp - 1) / kWarp;
   std::vector<unsigned char> smem(smem_bytes + 16);
+  // The fibers' stacks, touched only as deep as they grow.
+  const size_t bytes = kStack * static_cast<size_t>(nthreads);
+  void* stacks = mmap(nullptr, bytes, PROT_READ | PROT_WRITE,
+                      MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+  if (stacks == MAP_FAILED) {
+    std::fprintf(stderr, "frt_emu: no memory for %d fiber stacks\n",
+                 nthreads);
+    std::abort();
+  }
+  tl_body = &body;
+  tl_dim = block;
+  tl_grid = grid;
+  tl_smem = smem.data();
   for (unsigned bx = 0; bx < grid.x; ++bx) {
     // Garbage in shared memory, as a kernel may find it.
     for (size_t i = 0; i < smem.size(); ++i)
       smem[i] = static_cast<unsigned char>(0xA5 ^ (i * 131 + bx));
     Block st;
-    st.all = std::make_unique<std::barrier<>>(nthreads);
+    st.all.expected = nthreads;
+    st.warps.resize(nwarps);
     for (int w = 0; w < nwarps; ++w)
-      st.warps.push_back(std::make_unique<std::barrier<>>(
-          std::min(kWarp, nthreads - w * kWarp)));
+      st.warps[w].expected = std::min(kWarp, nthreads - w * kWarp);
     st.exchange.assign(nthreads, 0);
-    std::vector<std::thread> threads;
-    threads.reserve(nthreads);
+    st.fibers.resize(nthreads);
+    st.done.assign(nthreads, 0);
+    tl_state = &st;
+    tl_block = dim3(bx);
     for (int t = 0; t < nthreads; ++t) {
-      threads.emplace_back([&, t, bx] {
-        tl_thread = dim3(t);
-        tl_block = dim3(bx);
-        tl_dim = block;
-        tl_grid = grid;
-        tl_state = &st;
-        tl_smem = smem.data();
-        body();
-        st.warps[t / kWarp]->arrive_and_drop();
-        st.all->arrive_and_drop();
-      });
+      ucontext_t& c = st.fibers[t];
+      getcontext(&c);
+      c.uc_stack.ss_sp = static_cast<char*>(stacks) + kStack * t;
+      c.uc_stack.ss_size = kStack;
+      c.uc_link = &st.scheduler;
+      makecontext(&c, &fiber_main<F>, 0);
     }
-    for (auto& th : threads) th.join();
+    for (int left = nthreads; left > 0;) {
+      const unsigned long before = st.progress;
+      for (int t = 0; t < nthreads; ++t) {
+        if (st.done[t]) continue;
+        st.current = t;
+        tl_thread = dim3(t);
+        swapcontext(&st.scheduler, &st.fibers[t]);
+        left -= st.done[t];
+      }
+      if (left > 0 && st.progress == before) {
+        std::fprintf(stderr, "frt_emu: block %u deadlocked at a barrier\n",
+                     bx);
+        std::abort();
+      }
+    }
   }
+  tl_state = nullptr;
+  munmap(stacks, bytes);
 }
 
 }  // namespace frt_emu
 
-inline void __syncthreads() { frt_emu::tl_state->all->arrive_and_wait(); }
+inline void __syncthreads() {
+  frt_emu::arrive_and_wait(frt_emu::tl_state->all);
+}
 inline void __syncwarp(unsigned = 0xffffffffu) {
-  frt_emu::warp_barrier().arrive_and_wait();
+  frt_emu::arrive_and_wait(frt_emu::warp_barrier());
 }
 
 inline unsigned __ballot_sync(unsigned mask, int pred) {

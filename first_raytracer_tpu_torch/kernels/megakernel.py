@@ -58,10 +58,11 @@ MAX_PADDED_PRIMITIVES = 1 << 14
 DENSE_MAX = 1024
 
 KERNEL_SOURCE = "megakernel.cu"
-# K3 and K3t (the clustered megakernel), and K4 and K5 (the wavefront
-# closest hits), build into the same library.
+# K3 and K3t (the clustered megakernel), K4 and K5 (the wavefront closest
+# hits) and K6 (the flat-BVH walk) build into the same library.
 CLUSTERED_SOURCE = "megakernel_clustered.cu"
 INTERSECT_SOURCE = "intersect.cu"
+BVH_SOURCE = "bvh_walk.cu"
 REPLACES = "first_raytracer_tpu/kernels/megakernel.py:306"
 
 
@@ -247,14 +248,15 @@ NVCC_EXTRA_FLAGS = ("--fmad=false",)
 @functools.lru_cache(maxsize=None)
 def load_mega_library():
     """Build (once per source and flags) and load the shared library of K1,
-    K2, K2b, K3, K3t, K4 and K5: one nvcc over the three sources.
+    K2, K2b, K3, K3t, K4, K5 and K6: one nvcc a source, all at once.
 
     Returns ``(ctypes.CDLL, BuildInfo)``.
     """
     from .build import build_library
 
     lib, info = build_library(
-        "frt_mega", [KERNEL_SOURCE, CLUSTERED_SOURCE, INTERSECT_SOURCE],
+        "frt_mega",
+        [KERNEL_SOURCE, CLUSTERED_SOURCE, INTERSECT_SOURCE, BVH_SOURCE],
         NVCC_EXTRA_FLAGS)
     return bind(lib), info
 
@@ -271,6 +273,7 @@ def bind(lib):
     lib.frt_intersect_clustered.argtypes = (
         [ptr] * 7 + [i32] + [ptr] * 5 + [i32] * 2 + [f32] + [ptr] * 4)
     lib.frt_intersect_clustered.restype = i32
+    bind_bvh(lib)
     # The clustered tables: 12 pointers, then ns, nt, the two supergroup
     # counts and the two column counts.
     tables = [ptr] * 12 + [i32] * 6
@@ -292,6 +295,17 @@ def bind(lib):
     lib.frt_record_paths.restype = i32
     lib.frt_error_string.argtypes = [i32]
     lib.frt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bind_bvh(lib):
+    """Declares K6's C entry point's argument and result types on ``lib``
+    (also a host build of ``bvh_walk.cu`` alone)."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.frt_bvh_walk.argtypes = (
+        [ptr] * 8 + [i32] * 2 + [ptr] * 2 + [i32] + [ptr] * 3 + [i32] * 3
+        + [f32] + [ptr] * 5)
+    lib.frt_bvh_walk.restype = i32
     return lib
 
 

@@ -77,7 +77,7 @@ def render_image_sharded(scene, camera, cfg: RenderConfig, mesh,
     """Full-image wavefront render sharded over ``mesh``; (ny, nx, 3) on
     ``device``, row 0 = top, the whole image on every rank.  Each rank
     traces its rays in ``render_image``'s chunks (CUDA graphs on the card
-    unless ``graphed=False``, which the flat-BVH walk needs there).
+    unless ``graphed=False``).
 
     Raises ``ValueError`` when the pixels do not divide over the tile axis
     or the samples over the spp axis.  Every rank of the mesh must call

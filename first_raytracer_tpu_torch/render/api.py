@@ -108,8 +108,8 @@ def render_image(scene, camera: Camera, cfg: RenderConfig, seed: int = 0,
     256).  The scene, camera and ``accel`` are moved to ``device``
     (``"cpu"`` to render on the host).  On a CUDA device both modes replay
     CUDA graphs of their loops unless ``graphed=False``
-    (``render.graphed.graphed_route``: the flat-BVH walk and a Python
-    ``intersect_fn`` must say which).
+    (``render.graphed.graphed_route``: a Python ``intersect_fn`` must say
+    which).
     """
     device = torch.device(device)
     scene, camera = scene.to(device), camera.to(device)

@@ -24,10 +24,10 @@ A capture or a replay that fails raises; there is no eager fallback.  On
 the CPU the same bodies run eagerly over the same buffers and state, with
 the same blocks and the flag read per block.
 
-Kernel launches under a graph: K4's and K5's wrappers count their launches
-in Python, which runs only while a graph is captured.  The cache takes the
-launches a capture recorded off the counters and adds them back on every
-replay, so the counters count what ran on the card.
+Kernel launches under a graph: K4's, K5's and K6's wrappers count their
+launches in Python, which runs only while a graph is captured.  The cache
+takes the launches a capture recorded off the counters and adds them back
+on every replay, so the counters count what ran on the card.
 """
 from __future__ import annotations
 
@@ -54,10 +54,12 @@ PASSES_PER_READ = 2
 
 def _counters():
     """(wrapper, attribute) of the launch counters a wavefront body can
-    move: K4's and K5's."""
+    move: K4's, K5's and K6's."""
+    from ..accel import traverse
     from ..kernels import intersect_clustered, intersect_pallas
     return ((intersect_pallas.intersect_pallas, "launches"),
-            (intersect_clustered.intersect_clustered, "launches"))
+            (intersect_clustered.intersect_clustered, "launches"),
+            (traverse.intersect_bvh, "launches"))
 
 
 def _block(step, state, inputs, static, passes):
@@ -84,19 +86,18 @@ def run_eager(init, step, static, inputs, passes):
 def graphed_route(device, accel, intersect_fn, graphed):
     """Whether a wavefront loop goes through ``LOOPS``: on the CPU (which
     runs the same bodies eagerly there) unless ``graphed`` is False; on a
-    CUDA device as ``graphed`` says, by default for the dense sweep, K4
-    and K5.  Any other closest hit on the card must be asked for either
-    way: the flat-BVH walk reads back every step, and a Python
-    ``intersect_fn`` may keep host state that a graph would not update."""
+    CUDA device as ``graphed`` says, by default for the package's closest
+    hits (the dense sweep, K4, K5 and K6, the flat-BVH walk).  A Python
+    ``intersect_fn`` of the caller's must be asked for either way: it may
+    keep host state that a graph would not update."""
     if graphed is not None or torch.device(device).type != "cuda":
         return graphed is not False
-    from ..accel.build import FlatBVH
+    from ..accel.traverse import intersect_bvh
     from ..kernels.intersect_clustered import intersect_clustered
     from ..kernels.intersect_pallas import intersect_pallas
     from .integrator import default_intersect
-    if intersect_fn in (intersect_pallas, intersect_clustered) or (
-            intersect_fn in (None, default_intersect)
-            and not isinstance(accel, FlatBVH)):
+    if intersect_fn in (None, default_intersect, intersect_pallas,
+                        intersect_clustered, intersect_bvh):
         return True
     raise ValueError(
         f"{getattr(intersect_fn, '__name__', intersect_fn)!r} on "

@@ -12,7 +12,7 @@ Closest hit is pluggable: ``intersect_fn(scene, accel, origin, direction,
 t_min) -> (prim, t, hit)``, by default ``default_intersect``, which takes
 the dense all-pairs sweep (``intersect_brute``) without an accel and
 dispatches on the accel's type otherwise: K4 (``kernels/intersect_pallas``),
-K5 (``kernels/intersect_clustered``) or the flat-BVH walk
+K5 (``kernels/intersect_clustered``) or K6, the flat-BVH walk
 (``accel/traverse``).  The hit record is then recomputed from the winning
 primitive (``recompute_hit``), which is the authority on whether it really
 hits, so gradients flow through the hit equation whatever found the
@@ -90,8 +90,9 @@ def sky_color(direction):
 @torch.no_grad()
 def default_intersect(scene, accel, origin, direction, t_min):
     """Closest hit by the accel's type: the dense sweep (None), K5
-    (``ClusteredScenePack``), K4 (``PallasScenePack``) or the flat-BVH walk
-    (``FlatBVH``).  Runs without autograd: it only finds the primitive."""
+    (``ClusteredScenePack``), K4 (``PallasScenePack``) or K6, the flat-BVH
+    walk (``FlatBVH``); each kernel's plain version on the CPU.  Runs
+    without autograd: it only finds the primitive."""
     if accel is None:
         return intersect_brute(scene, origin, direction, t_min)
     from ..kernels.intersect_clustered import (ClusteredScenePack,

@@ -86,8 +86,7 @@ def progressive_render(scene, camera, cfg: RenderConfig, seed: int = 0,
     end.  ``on_batch(state)`` runs after every batch.  ``mode``:
     ``"wavefront"`` (``render_ray_batch`` on ``accel``) or ``"mega"`` (the
     megakernel K1 with its sample offset).  The scene, camera and accel
-    are moved to ``device``.  ``graphed`` goes to ``render_ray_batch``
-    (False for the flat-BVH walk on the card).
+    are moved to ``device``.  ``graphed`` goes to ``render_ray_batch``.
     """
     if mode not in ("wavefront", "mega"):
         raise ValueError(f"unknown mode {mode!r}")

@@ -73,8 +73,8 @@ def wavefront_occupancy(scene, camera, cfg: RenderConfig, seed: int = 0,
     ending at each depth), the mean path length and the wavefront
     efficiency (alive rays over rays x the bounces with any alive).  The
     scene, camera and accel go to ``device``; ``graphed`` is the loop's
-    route (``render.graphed.graphed_route``: ``graphed=False`` for the
-    flat-BVH walk on the card)."""
+    route (``render.graphed.graphed_route``: ``graphed=False`` runs it op
+    by op)."""
     device = torch.device(device)
     scene, camera = scene.to(device), camera.to(device)
     if accel is not None:

@@ -22,14 +22,22 @@ differently.  The operations are counted from the CUDA sources:
   computed once per primitive, when K4 stages a tile or the host packs
   K5's rows.  K5 adds 29 per box, supergroup or cluster, its counters say
   it tested.
+- K6 (``kernels/csrc/bvh_walk.cu``): the nodes and slots its counters say
+  it tested: 25 per node (``box_hit``: 6 subtractions, 6 multiplications,
+  6 minima and maxima per axis, 3 maxima for the near end and 3 minima for
+  the far end, 1 test), 20 per sphere slot (the oc-form quadratic with r*r
+  computed, 3 + 5 + 6 + 1 + 2, then the square root and the two roots, 3)
+  and 52 per triangle slot (the 46 above and the two edges, 6).
 """
 from __future__ import annotations
 
 __all__ = ["PEAK_FP32", "PEAK_BYTES", "FP32_PEAKS", "SPHERE_OPS",
            "TRIANGLE_OPS", "BOX_OPS", "OC_SPHERE_OPS", "MT_TRIANGLE_OPS",
+           "WALK_BOX_OPS", "WALK_SPHERE_OPS", "WALK_TRIANGLE_OPS",
            "dense_ops", "clustered_ops", "intersect_ops", "k5_ops",
-           "roofline", "bound", "clustered_bound", "intersect_bound",
-           "tensor_bytes", "k4_bound", "k5_bound", "fp32_peak"]
+           "k6_ops", "roofline", "bound", "clustered_bound",
+           "intersect_bound", "tensor_bytes", "k4_bound", "k5_bound",
+           "k6_bound", "fp32_peak"]
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores,
 # and HBM3 bandwidth.
@@ -46,6 +54,7 @@ FP32_PEAKS = {
 SPHERE_OPS, TRIANGLE_OPS = 20, 46
 BOX_OPS = 29
 OC_SPHERE_OPS, MT_TRIANGLE_OPS = 16, 46
+WALK_BOX_OPS, WALK_SPHERE_OPS, WALK_TRIANGLE_OPS = 25, 20, 52
 
 
 def fp32_peak(name: str) -> float:
@@ -84,6 +93,14 @@ def k5_ops(sweeps_total):
     tot = [int(x) for x in sweeps_total]
     return (tot[1] * OC_SPHERE_OPS + tot[2] * MT_TRIANGLE_OPS
             + tot[3] * BOX_OPS)
+
+
+def k6_ops(walk_total):
+    """FP32 operations of K6 from the sums of its three ``WALK_COLUMNS``
+    counters: nodes, sphere slots and triangle slots tested."""
+    nodes, spheres, triangles = (int(x) for x in walk_total)
+    return (nodes * WALK_BOX_OPS + spheres * WALK_SPHERE_OPS
+            + triangles * WALK_TRIANGLE_OPS)
 
 
 def roofline(ops, nbytes):
@@ -144,3 +161,16 @@ def k5_bound(pack, sweeps_total, rays, launches=1):
                           pack.sph_count, pack.tri_count)
     return intersect_bound(k5_ops(sweeps_total),
                            launches * tables + 24 * rays, 8 * rays)
+
+
+def k6_bound(scene, bvh, walk_total, rays, launches=1):
+    """K6's bound from the nodes and slots its counters say it tested
+    (``walk_total``: the three ``WALK_COLUMNS`` sums): the BVH and the
+    scene's primitives read once a launch, 24 bytes in and 9 out a ray
+    (prim, t, hit)."""
+    tables = tensor_bytes(bvh.node_min, bvh.node_max, bvh.node_first,
+                          bvh.node_count, bvh.node_skip, bvh.prim_ids,
+                          scene.sphere_center, scene.sphere_radius,
+                          scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    return intersect_bound(k6_ops(walk_total), launches * tables + 24 * rays,
+                           9 * rays)

@@ -63,7 +63,9 @@ def syncs(fn):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    found = [w for w in caught if "synchroniz" in str(w.message)]
+    # Not torch's one-time notice that the mode is a prototype.
+    found = [w for w in caught
+             if "called a synchronizing" in str(w.message)]
     return len(found), dict(collections.Counter(
         f"{os.path.relpath(w.filename)}:{w.lineno}" for w in found))
 

@@ -9,6 +9,7 @@ run, each with one ``error`` line, exit code 2 and no history.  The CPU
 runs (``BENCH_DEVICE=cpu``) go through the kernels' plain versions, on
 scenes cut to a few hundred rays where a whole frame is timed.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import hashlib
 import json
 import os
@@ -311,6 +312,21 @@ def test_wavefront_modes_count_the_same_segments(tiny_bench):
     # K4's plain version over the rays of every call: the wavefront's
     # chunks trace dead rays too, the pool only its slots.
     assert wave.ops > regen.ops > 0
+
+
+def test_bvh_names_k6_and_counts_the_same_segments(tiny_bench):
+    """``BENCH_INTERSECT=bvh``: the closest hit is K6 (on the CPU its plain
+    walk, which keeps no counters, so the guard counts no work) and the
+    pool traces the dense sweep's segments."""
+    env = {"BENCH_DEVICE": "cpu", "BENCH_POOL": "64",
+           "BENCH_INTERSECT": "bvh", "BENCH_MODE": "regenerative"}
+    regen = bench.measure(env)
+    scene, cam, cfg, _ = _tiny("", torch.device("cpu"))
+    _, segs = render_ray_batch(scene, cam, cfg, rng.base_key(0),
+                               torch.arange(cfg.num_rays),
+                               return_stats=True)
+    assert regen.kernel == "K6" and regen.ops == 0
+    assert regen.segments == int(segs.sum())
 
 
 @pytest.mark.parametrize("env,reason", [

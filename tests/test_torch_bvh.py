@@ -13,6 +13,7 @@ inputs, which a near root ``-b - sqrt(disc)`` magnifies (measured 1.0e-4).
 The walk must also find the brute-force sweep's winners, as the JAX
 package holds its own walk (knife-edge grazers aside, ``rtol=2e-4``).
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ writers are NumPy in both packages and must write byte-equal files.  The
 ``fit`` subcommand's first logged loss matches the JAX CLI's step-0 loss
 (the loss at the same perturbed parameters) within ``rtol=1e-5``.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import json
 import os
@@ -26,7 +27,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run_cli(*args, cmd="render"):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO,
+               OMP_NUM_THREADS=str(torch_cpu.THREADS))
     device = [] if cmd == "compare" else ["--device", "cpu"]
     return subprocess.run(
         [sys.executable, "-m", "first_raytracer_tpu_torch.cli", cmd,

@@ -5,8 +5,9 @@ bit-equal to the same bodies run eagerly).  The direct gradient step (its
 recorder's loop and its whole tape's value and gradient as CUDA graphs) on
 the dense sweep, K4 and K5, and the occupancy scan, against the same
 bodies op by op: tapes and lengths ``torch.equal``, the loss within one
-float32 ulp and the gradients within ``rtol=1e-6``; the BVH walk refused
-on the card unless ``graphed=False``.
+float32 ulp and the gradients within ``rtol=1e-6``; the flat-BVH walk
+(K6) graphed in the recorders and the direct step, equal to the same bodies
+run op by op and to the dense sweep's tape.
 
 Marked ``cuda``; skipped where ``torch.cuda.is_available()`` is False.
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -28,6 +29,7 @@ their plain versions exactly (hits, primitives and t: the same operation
 order, built with ``--fmad=false``, and a correctly rounded square root in
 both), and K5 must equal K4.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import numpy as np
@@ -608,9 +610,12 @@ def test_occupancy_scan_graph_equals_eager(cuda_device):
 
 @pytest.mark.cuda
 def test_the_walk_records_eagerly_on_the_card(cuda_device):
-    """The flat-BVH walk reads back every step: on the card the recorders
-    and the direct step refuse it unless ``graphed=False``, and then
-    record the dense sweep's tape."""
+    """The flat-BVH walk is K6 on the card: the recorders and the direct
+    step take their graphs with it by default, and record the tape that
+    the same bodies record op by op (``graphed=False``), which is the
+    dense sweep's (the loss within one float32 ulp of the eager step's);
+    K6 equals its plain version."""
+    from first_raytracer_tpu_torch.accel import traverse
     from first_raytracer_tpu_torch.accel.build import build_bvh
     from first_raytracer_tpu_torch.diff import replay
 
@@ -621,20 +626,29 @@ def test_the_walk_records_eagerly_on_the_card(cuda_device):
     ids = torch.arange(cfg.num_rays, device=cuda_device)
     target = torch.zeros((cfg.num_rays, 3), device=cuda_device)
     params, _ = dg.split_params(scene)
-    with pytest.raises(ValueError, match="graphed=False"):
-        replay.record_camera_paths(scene, cam, cfg, key, ids, bvh)
-    with pytest.raises(ValueError, match="graphed=False"):
-        replay.record_paths_pool(scene, cam, cfg, key, ids, bvh)
-    with pytest.raises(ValueError, match="graphed=False"):
-        dg.render_loss_and_grads(params, scene, cam, cfg, key, ids, target,
-                                 bvh)
-    got = replay.record_camera_paths(scene, cam, cfg, key, ids, bvh,
-                                     graphed=False)
+    before = traverse.intersect_bvh.launches
+    got = replay.record_camera_paths(scene, cam, cfg, key, ids, bvh)
+    assert traverse.intersect_bvh.launches > before
+    eager = replay.record_camera_paths(scene, cam, cfg, key, ids, bvh,
+                                       graphed=False)
+    assert torch.equal(got, eager)
     assert torch.equal(got, replay.record_camera_paths(scene, cam, cfg, key,
                                                        ids))
+    assert torch.equal(replay.record_paths_pool(scene, cam, cfg, key, ids,
+                                                bvh), got)
     loss, _ = dg.render_loss_and_grads(params, scene, cam, cfg, key, ids,
-                                       target, bvh, graphed=False)
+                                       target, bvh)
+    loss_e, _ = dg.render_loss_and_grads(params, scene, cam, cfg, key, ids,
+                                         target, bvh, graphed=False)
+    ulp = float(np.spacing(np.float32(abs(float(loss_e)))))
     assert bool(torch.isfinite(loss))
+    assert abs(float(loss) - float(loss_e)) <= ulp
+    o = torch.randn((4096, 3), device=cuda_device)
+    d = torch.nn.functional.normalize(torch.randn((4096, 3),
+                                                  device=cuda_device), dim=1)
+    k6 = traverse.intersect_bvh(scene, bvh, o, d, 1e-3)
+    plain = traverse.intersect_bvh_plain(scene, bvh, o, d, 1e-3)
+    assert all(torch.equal(a, b) for a, b in zip(k6, plain))
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ K1, K2, K2b, K3, K3t, K4 and K5 as the card runs them, on CPU tensors, and
 hold each bit for bit to its plain version: radiance, segments, tapes,
 trip counts, hits and t.  They skip only where there is no g++.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import shutil
 

@@ -12,6 +12,7 @@ replicated render; gradients within ``rtol=1e-4, atol=1e-7`` of the
 single-process ones; the command line's ``render`` under two processes
 equal to its single-process image.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import os
 

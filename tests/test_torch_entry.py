@@ -2,6 +2,7 @@
 ``__graft_entry__.entry()``: the same forward step (8192 ray ids of the
 final scene at 128x64 @ 2 through the BVH walk) on the same inputs, per-ray
 radiance within the image bound ``(|a - b| > 1e-3).mean() < 0.01``."""
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import os
 import sys
 

@@ -39,6 +39,7 @@ the CPU (``diff/replay.py``'s recorder bodies through
 - ``cli fit --device cpu`` without ``--fast`` prints the recorder loops'
   and the replay graphs' counters.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import functools
 import json

@@ -4,6 +4,7 @@ Inputs are the ``random_rays`` fixture and seeded numpy scenes.  Hit masks
 must agree exactly; hit distances to 1e-5 relative; scatter, given the same
 uniforms, to 1e-5 abs (sqrt, sin/cos and cbrt round differently per libm).
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

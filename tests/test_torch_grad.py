@@ -28,6 +28,7 @@ quadratic's discriminant moves them by tens of percent in either package,
 so the card's float32 step is held to the loss and the albedo gradient,
 and its float64 replay of JAX's tape to every field.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import functools
 import json

@@ -5,6 +5,7 @@ for ``jax`` or ``first_raytracer_tpu`` imports, and a fresh interpreter that
 imports every module of the package and then finds no ``jax`` in
 ``sys.modules``.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import ast
 import os
 import subprocess

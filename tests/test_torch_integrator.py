@@ -5,6 +5,7 @@ mismatch points at the render.  Image bound, as the JAX package holds its
 own megakernel to its integrator (tests/test_megakernel.py):
 ``(|a - b| > 1e-3).mean() < 0.01`` and ``median(|a - b|) < 1e-5``.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

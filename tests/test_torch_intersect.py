@@ -14,6 +14,7 @@ Within the port, K5's plain version equals K4's on every ray (same t
 formula, the same (t, id) winner rule), and the CUDA kernels are held to
 both on the card (tests/test_torch_cuda.py).
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp

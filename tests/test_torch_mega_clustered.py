@@ -21,6 +21,7 @@ against the JAX package's.
 The CUDA kernel is held against the plain version by the ``cuda`` tests
 (tests/test_torch_cuda.py) and by chip_smoke.py.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import functools
 

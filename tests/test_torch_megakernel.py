@@ -8,6 +8,7 @@ megakernel to (tests/test_megakernel.py): ``(|a - b| > 1e-3).mean() <
 with the plain version by the ``cuda``-marked test, which skips without a
 GPU (tests/test_torch_cuda.py), and by chip_smoke.py.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import numpy as np

@@ -14,6 +14,7 @@ trapped in a glass sphere.  The megakernels' lane occupancy is
 the port's warp lane efficiency, not JAX's TPU lane count, so it is not
 compared with JAX's.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import functools
 import logging
 

@@ -11,6 +11,7 @@ Bounds:
   allowance of knife-edge rays on the two scenes of near-ties (1% on
   random-spheres, 0.5% on triangle-mesh) and none elsewhere.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ dicts; ``time_fn``, ``time_repeats`` and ``Timer`` measure host seconds (on
 the CPU here; on a GPU the timers wait for the device); ``trace_to`` writes a
 ``torch.profiler`` Chrome trace.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import json
 import os
 

@@ -9,6 +9,7 @@ matches the wavefront batches within the image bound
 ``(|a - b| > 1e-3).mean() < 0.01``, median below 1e-5.  Against JAX's
 progressive render: the same image bound.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import os
 
 import numpy as np

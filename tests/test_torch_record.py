@@ -27,6 +27,7 @@ the same scenes, cameras and keys:
 The CUDA kernels are held against these plain versions by the ``cuda``
 tests (tests/test_torch_cuda.py) and by chip_smoke.py.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp

@@ -10,6 +10,7 @@ regenerative render: the image bound ``(|a - b| > 1e-3).mean() < 0.01``
 and median below 1e-5 (the two packages round camera rays and scatter by
 their own libraries).
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import numpy as np
 import pytest
 import torch

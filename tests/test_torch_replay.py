@@ -19,6 +19,7 @@ direction, moves by up to ~1e-3.  Bounds:
   cosine with JAX's at least 0.999 and its norm within 3% (measured
   1 - 1.1e-4 and 1.2%, both on ``sphere_radius``).
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 import functools
 

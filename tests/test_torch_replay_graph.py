@@ -15,6 +15,7 @@ capture, on the CPU.
   turn, equal the plain eager function on each, bit for bit: a stale
   buffer would show.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import pytest

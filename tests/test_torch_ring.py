@@ -12,6 +12,7 @@ integrator to JAX's (``(|a - b| > 1e-3).mean() < 0.01``, median < 1e-5);
 the selection (the global id of each ray's closest hit) equal to the
 replicated sweep's.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax

@@ -3,6 +3,7 @@
 Uniforms are plain 32-bit integer work, so they must be bit-equal; the disk
 and ball samples go through sin/cos/sqrt/cbrt and are held to 1e-6 abs.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

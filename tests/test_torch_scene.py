@@ -4,6 +4,7 @@ The builders copy the JAX package's seeded NumPy logic, so every preset
 and every pack array must be equal; the camera is float32 arithmetic in the
 same order and is held to 1e-6 relative.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp

@@ -15,6 +15,7 @@ group.  Bounds:
   unsharded renders, and the image bound against JAX's sharded
   megakernels in interpret mode.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax

@@ -25,6 +25,7 @@ does not show that fault.  Bounds:
   the origin and rays aimed at the sentinels' centre, nor when their
   centres are moved to the origin, where rows of radius 0.01 are hit.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

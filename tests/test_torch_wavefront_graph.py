@@ -24,9 +24,10 @@ capture, on the CPU (``render/graphed.py``).
   read nothing back (counted as ``tests/test_torch_replay_graph.py``
   counts it), on the dense sweep and K4's and K5's plain versions.
 - ``graphed_route``: the CPU runs the bodies eagerly; on a CUDA device the
-  dense sweep, K4 and K5 are graphed by default and anything else must be
-  asked for.
+  dense sweep, K4, K5 and K6 are graphed by default and anything else must
+  be asked for.
 """
+import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp
@@ -284,8 +285,8 @@ def test_no_host_traffic_in_a_pass(monkeypatch, loop, accel):
 
 def test_graphed_route():
     """On the CPU the bodies run eagerly (through the cache's buffers
-    unless ``graphed=False``); on a CUDA device the dense sweep, K4 and K5
-    take the graphs by default, and the flat-BVH walk or a Python
+    unless ``graphed=False``); on a CUDA device the dense sweep, K4, K5 and
+    the flat-BVH walk (K6) take the graphs by default, and a Python
     ``intersect_fn`` raises unless the caller says which."""
     ts, _, _ = _small()
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
@@ -295,9 +296,10 @@ def test_graphed_route():
     for accel, fn in ((None, default_intersect), (None, None),
                       (ip.pack_scene_pallas(ts), ip.intersect_pallas),
                       (ic.pack_scene_clustered(ts), ic.intersect_clustered),
-                      (ic.pack_scene_clustered(ts), default_intersect)):
+                      (ic.pack_scene_clustered(ts), default_intersect),
+                      (bvh, default_intersect), (bvh, None)):
         assert graphed_route(cuda, accel, fn, None)
-    for accel, fn in ((bvh, default_intersect),
+    for accel, fn in ((bvh, lambda *a: default_intersect(*a)),
                       (None, lambda *a: default_intersect(*a))):
         with pytest.raises(ValueError, match="graphed=False"):
             graphed_route(cuda, accel, fn, None)
