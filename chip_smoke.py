@@ -8,10 +8,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. Device: a CUDA GPU must be present; prints its name and the
    ``nvidia-smi`` name and power limit.
-2. Build: compiles K1, K2, K2b, K3, K3t, K4, K5 and K6
-   (kernels/csrc/megakernel.cu, megakernel_clustered.cu, intersect.cu and
-   bvh_walk.cu, one nvcc a source, all at once) for sm_90a; prints ptxas's
-   registers and spills of every kernel, each on a line of its own.
+2. Build: compiles K1, K2, K2b, K3, K3t, K4, K5, K6, K7 and K8
+   (kernels/csrc/megakernel.cu, megakernel_clustered.cu, intersect.cu,
+   bvh_walk.cu and rng_rays.cu, one nvcc a source, all at once) for
+   sm_90a; prints ptxas's registers and spills of every kernel, each on a
+   line of its own.
 3. K1 vs plain: K1 and its plain PyTorch version on the same card and
    inputs, on four small presets and at the main path's full size:
    radiance sums and segments bit-equal (the image bound,
@@ -273,12 +274,31 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``cli render --mode regenerative --bvh`` at 120x80 @ 4 in a
    subprocess: it exits 0 and its line shows the loops captured and
    replayed.
+20. K7 and K8, the wavefront paths' Threefry draw (``core.rng.uniforms``)
+   and camera rays (``render.camera.camera_rays``).  The main path: the
+   final scene's full pool frame through K4, graphed, counters reset
+   before and read after: K7 once a pass and K8 once a pass plus the
+   pool's init (warm-up blocks included), the radiance sum within 1% of
+   ``bench_golden.json``.  Bit-equal to their plain versions
+   (``rng.uniforms_plain``, ``camera.camera_rays_plain``: torch ops) on the
+   card: K7's camera draw at 2^17 final-scene ids, its bounce draw at a
+   0-d depth, at per-ray depths 0-50 and at the ids and depths of the
+   frame's last pool pass (the frame run op by op); K8 at 2^17 ids, at the
+   last pass's ids, with a float64 camera and on camera-effects' lens.
+   Times at 2^17 rays, each kernel's 20 calls in a CUDA graph, the plain
+   versions one call a graph and one eager call; bounds from
+   ``utils/roofline.py``.  A graphed pool pass at 2^17 slots: its ms and
+   its graph's nodes (``cuGraphGetNodes``), beside the 2.006 ms and ~1060
+   nodes it took before K7 and K8.  Phases 12, 13, 18 and 19 print their
+   graphed frame and step times beside those before K7 and K8
+   (``EARLIER``).
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements (``sharded_launches``: the launches of phases 14 and 15;
 ``bench_launches``: phase 17's, by run; ``direct_step_launches``: phase
 18's, K4 on the final scene and K5 on field5000; K6's ``entry_launches``:
-phase 19's ``entry()`` forward) and
+phase 19's ``entry()`` forward; K7's and K8's ``launches``: phase 20's
+pool frame, ``launches_wavefront``: phase 12's chunked frame) and
 the result line ``{"ok": true, "device": {...}}``.  This
 script imports no JAX.  Bounds count FP32 operations from the sources
 (``first_raytracer_tpu_torch/utils/roofline.py``, which ``bench_torch.py``'s
@@ -291,10 +311,12 @@ oc-form quadratic on (cx, cy, cz, r*r)) and a triangle in 46 (on its
 edges, computed once per triangle); K5 adds 29 per box, supergroup or
 cluster, its counters say it tested.  K6 (kernels/csrc/bvh_walk.cu) counts
 25 per node, 20 per sphere slot and 52 per triangle slot its counters say
-it tested.
+it tested.  K7 and K8 (kernels/csrc/rng_rays.cu) count 252 and 315
+operations a ray and are bound by their bytes.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -329,13 +351,14 @@ from first_raytracer_tpu_torch.parallel.mesh import (TILE_AXIS,
 from first_raytracer_tpu_torch.render import graphed
 from first_raytracer_tpu_torch.render.api import (render_image,
                                                   render_ray_batch)
+from first_raytracer_tpu_torch.render import camera as rcam
 from first_raytracer_tpu_torch.render.camera import generate_rays
 from first_raytracer_tpu_torch.entry import entry
 from first_raytracer_tpu_torch.materials.scatter import scatter
 from first_raytracer_tpu_torch.render.integrator import (intersect_brute,
                                                          recompute_hit)
 from first_raytracer_tpu_torch.render.regenerative import (
-    render_rays_regenerative)
+    pool_pass, pool_state, render_rays_regenerative)
 from first_raytracer_tpu_torch.render.image import write_png
 from first_raytracer_tpu_torch.scene.builders import (build_preset,
                                                       random_scene)
@@ -343,7 +366,8 @@ from first_raytracer_tpu_torch.utils.metrics import wavefront_occupancy
 from first_raytracer_tpu_torch.utils.roofline import (bound,
                                                       clustered_bound,
                                                       k4_bound, k5_bound,
-                                                      k6_bound)
+                                                      k6_bound, k7_bound,
+                                                      k8_bound)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_KEY = "radiance_sum_mega_1200x800_10spp"
@@ -364,7 +388,8 @@ KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("record_clustered_kernel", "K3t"),
                   ("intersect_dense_kernel", "K4"),
                   ("intersect_clustered_kernel", "K5"),
-                  ("bvh_walk_kernel", "K6"))
+                  ("bvh_walk_kernel", "K6"), ("uniforms_kernel", "K7"),
+                  ("camera_rays_kernel", "K8"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
 # Phases 8 and 10: the small scenes.
@@ -420,6 +445,23 @@ BENCH_RUNS = [
                               "BENCH_MODE": "wavefront",
                               "BENCH_INTERSECT": "clustered"}, "K5"),
 ]
+# The graphed wavefront frames and steps before K7 and K8 took the draws
+# and camera rays (PERF.md section 5: this script and its probes on an
+# NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this run's.
+EARLIER = {
+    "regenerative": "0.424-0.513 s/frame",
+    "wavefront": "3.61-3.68 s/frame",
+    "field20000": "0.598-0.636 s/frame",
+    "trifield20000": "none recorded",
+    "pool pass": "2.006 ms and ~1060 nodes",
+    "final scene, dense sweep": "graphed step 0.490 s, recorder 0.381 s, "
+                                "replay 0.125 s",
+    "field5000, K5": "graphed step 0.191-0.194 s, recorder 0.056 s",
+    "pool recorder": "0.156 s",
+    "bvh frame": "0.5070-0.5088 s/frame, through K4 0.5110-0.5142",
+    "entry": "0.0416-0.0473 s graphed",
+    "bvh recorder": "0.0603-0.0616 s graphed",
+}
 # Each earlier phase's Mpaths/s of the configuration a bench run repeats,
 # by the label of ``BENCH_RUNS``: host clock around the user's entry point,
 # the packs (and the gradient step's plan) inside the time.
@@ -683,6 +725,8 @@ def reset_counts():
     ip.intersect_pallas.launches = 0
     ic.intersect_clustered.launches = 0
     traverse.intersect_bvh.launches = 0
+    rng.uniforms.launches = 0
+    rcam.camera_rays.launches = 0
     graphed.LOOPS.reset_counts()
 
 
@@ -1656,8 +1700,7 @@ def in_turns(frame, repeats):
 
 def camera_rays(scene, cam, cfg, key, num_rays):
     ids = torch.arange(num_rays, device=scene.device)
-    return generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
-                         rng.camera_uniforms(key, ids))
+    return rcam.camera_rays(cam, cfg.nx, cfg.ny, cfg.spp, key, ids)
 
 
 def same_hits(what, got, want):
@@ -1738,12 +1781,13 @@ def dense_wavefront_path(dev, key, card):
                             device=dev, graphed=graphed_)
 
     # The graphed frames (the first of each captures its loop).
-    imgs, launches, loops = {}, {}, {}
+    imgs, launches, loops, draws = {}, {}, {}, {}
     for mode in ("regenerative", "wavefront"):
         reset_counts()
         imgs[mode] = frame(mode)
         torch.cuda.synchronize()
         launches[mode] = ip.intersect_pallas.launches
+        draws[mode] = (rng.uniforms.launches, rcam.camera_rays.launches)
         loops[mode] = c = loop_counts()
         img = imgs[mode]
         if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or \
@@ -1757,7 +1801,8 @@ def dense_wavefront_path(dev, key, card):
             f"{c['warmups']} warm-up block(s), {c['passes']} passes "
             f"replayed, {c['live_passes']} with a live ray), "
             f"{c['replays']} replays, {c['syncs']} host "
-            f"reads ({graphed.PASSES_PER_READ} passes a read); "
+            f"reads ({graphed.PASSES_PER_READ} passes a read), K7 and K8 "
+            f"launches {draws[mode][0]} and {draws[mode][1]}; "
             f"{capture_note(c)}")
         if launches[mode] < 1:
             raise AssertionError(f"the {mode} render did not launch K4")
@@ -1854,7 +1899,7 @@ def dense_wavefront_path(dev, key, card):
             f"{statistics.mean(t['eager']) / g:.2f}x), graphed "
             f"{total / g / 1e6:.3f} Mpaths/s, {rays / g / 1e6:.3f} "
             f"Mrays/s ({rays} segments); {loops[mode]['syncs']} host reads "
-            f"a graphed frame; on {card}")
+            f"a graphed frame; before K7 and K8 {EARLIER[mode]}; on {card}")
     k4_ms = graph_ms(lambda: ip.intersect_pallas(scene, pack, o, d, 1e-3), 5,
                      20)
     regen_replay_ms = clocks["regenerative"].replay_ms(scene, pack)
@@ -1886,7 +1931,7 @@ def dense_wavefront_path(dev, key, card):
             "bound_by": b1[1], "library_ms": None,
             "frame_ms": regen_replay_ms, "frame_events_ms": c.ms(),
             "frame_bound_ms": k4_bound(pack, c.rays, len(c.events))[0],
-            "frame_s": sec, "loops": loops}
+            "frame_s": sec, "loops": loops, "draw_launches": draws}
 
 
 FIELD_WAVE = [("field20000", "sphere-field", 20000,
@@ -2011,7 +2056,8 @@ def clustered_wavefront_path(dev, key, card):
             f"{tot[1] / clock.rays:.1f} sphere and "
             f"{tot[2] / clock.rays:.1f} triangle slots, "
             f"{tot[3] / clock.rays:.1f} boxes; K4 on the same frame "
-            f"{clock4.ms():.2f} ms; on {card}")
+            f"{clock4.ms():.2f} ms; before K7 and K8 {EARLIER[label]}; on "
+            f"{card}")
         log(f"  at {WAVE_RAYS} camera rays: K5 {k5_ms:.4f} ms (bound "
             f"{b1[0]:.4f} ms, {b1[1]}), plain {plain_s * 1e3:.1f} ms (one "
             f"run), K4 {k4_ms:.4f} ms")
@@ -2449,7 +2495,8 @@ def direct_turns(what, fns, card):
             times[k].append(host_s(fns[k])[0])
     log(f"  {what}, in turns (eager, graphed, graphed, eager): "
         + "; ".join(f"{k} {', '.join(f'{t * 1e3:.1f}' for t in v)} ms"
-                    for k, v in times.items()) + f"; on {card}")
+                    for k, v in times.items())
+        + f"; before K7 and K8 {EARLIER[what]}; on {card}")
     return times
 
 
@@ -2530,7 +2577,8 @@ def direct_step_path(dev, key, card):
         params, scene, cam, cfg, key, ids, record_pool=1 << 14))[0]
     log(f"  the pool recorder (2^14 slots): tape equal to the lockstep "
         f"recorder's {torch.equal(pool, tape)} ({pool_s * 1e3:.1f} ms "
-        f"graphed, its second call)")
+        f"graphed, its second call; before K7 and K8 "
+        f"{EARLIER['pool recorder']})")
     if not torch.equal(pool, tape):
         raise AssertionError("the pool recorder's tape differs from the "
                              "lockstep recorder's")
@@ -2740,8 +2788,9 @@ def bvh_walk_path(dev, key, card, dense_tape):
         f"plain walk's eager forward {torch.equal(out1, plain)}; K6 "
         f"launches {entry_launches} ({c['passes']} passes, {c['replays']} "
         f"replays, {c['syncs']} flag reads); {capture_note(c)}; s: first "
-        f"(its capture) {first_s:.3f}, graphed {graphed_s:.4f}, the plain "
-        f"walk eager {eager_s:.3f}; on {card}")
+        f"(its capture) {first_s:.3f}, graphed {graphed_s:.4f} (before K7 "
+        f"and K8 {EARLIER['entry']}), the plain walk eager {eager_s:.3f}; "
+        f"on {card}")
     if not (torch.equal(out1, out2) and torch.equal(out1, plain)):
         raise AssertionError("entry()'s graphed forward differs from the "
                              "plain walk's")
@@ -2754,7 +2803,8 @@ def bvh_walk_path(dev, key, card, dense_tape):
                                                bvh))
     rec_s2 = host_s(lambda: record_paths(scene, o, d, ids, key, cfg, bvh))[0]
     log(f"  the lockstep recorder through K6 at 2^17 rays: {rec_s:.3f} s "
-        f"(its capture), {rec_s2:.4f} s graphed; "
+        f"(its capture), {rec_s2:.4f} s graphed (before K7 and K8 "
+        f"{EARLIER['bvh recorder']}); "
         f"{int((tape6 != dense_tape).sum())} of {tape6.numel()} entries "
         "differ from phase 18's dense-sweep tape")
     tape_agreement("  K6's lockstep tape vs the dense sweep's", tape6,
@@ -2807,7 +2857,8 @@ def bvh_walk_path(dev, key, card, dense_tape):
     log(f"  s/frame in turns (K4, K6, K6, K4; median of 3 a turn): K4 "
         f"{turns['K4'][0]:.4f}, {turns['K4'][1]:.4f}; K6 "
         f"{turns['K6'][0]:.4f}, {turns['K6'][1]:.4f} "
-        f"({total / min(turns['K6']) / 1e6:.3f} Mpaths/s); on {card}")
+        f"({total / min(turns['K6']) / 1e6:.3f} Mpaths/s); before K7 and K8 "
+        f"{EARLIER['bvh frame']}; on {card}")
 
     # The same frame op by op, K6 clocked by events around each call:
     # graphed = eager, and K6's time and work over the frame.
@@ -2859,11 +2910,189 @@ def bvh_walk_path(dev, key, card, dense_tape):
             "syncs": syncs}
 
 
+def graph_nodes(fn):
+    """Nodes of a CUDA graph of one call of ``fn``, as ``cuGraphGetNodes``
+    counts them on the graph torch keeps with ``keep_graph``."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed ({err})")
+    return count.value
+
+
+def last_pool_pass(scene, cam, cfg, key, pack):
+    """The final scene's pool frame (2^17 slots through K4) op by op: the
+    ids, depths and live slots at the start of its last pass with a live
+    slot, and its passes."""
+    dev = scene.device
+    inputs = dict(scene=scene, camera=cam, accel=pack, key=key,
+                  start_id=torch.zeros((), dtype=torch.int64, device=dev))
+    static = dict(cfg=cfg, num_rays=cfg.num_rays, pool_size=WAVE_RAYS,
+                  intersect_fn=ip.intersect_pallas)
+    state = pool_state(**inputs, **static)
+    passes = 0
+    while bool(state["alive"].any()):
+        last = (state["ids"].clone(), state["depth"].clone(),
+                state["alive"].clone())
+        pool_pass(state, **inputs, **static)
+        passes += 1
+    return (*last, passes)
+
+
+def rng_rays_path(dev, key, card, frames, chunk_draws):
+    """Phase 20.  ``frames``: the graphed frames' seconds of the earlier
+    phases, by name; ``chunk_draws``: K7's and K8's launches over phase
+    12's chunked frame.  Returns K7's and K8's entries of the kernels
+    line."""
+    scene, cam, cfg = build_preset("random-spheres", device=dev)
+    pack = ip.pack_scene_pallas(scene)
+    key = key.to(dev)
+    R = WAVE_RAYS
+    ids = torch.arange(R, device=dev)
+    depths = torch.randint(0, 51, (R,), generator=torch.Generator(
+        ).manual_seed(0)).to(dev)
+    last_ids, last_depth, last_alive, passes = last_pool_pass(
+        scene, cam, cfg, key, pack)
+    log(f"  the frame's last pool pass (pass {passes} of the frame op by "
+        f"op): {int(last_alive.sum())} live slots, ids {int(last_ids.min())}"
+        f"-{int(last_ids.max())}, depths {int(last_depth.min())}-"
+        f"{int(last_depth.max())}")
+
+    # The main path: the final scene's pool frame through K4, graphed, the
+    # counters reset just before it and read just after.
+    golden = final_golden()
+    reset_counts()
+    img = render_image(scene, cam, cfg, seed=0, accel=pack,
+                       mode="regenerative", pool_size=WAVE_RAYS, device=dev)
+    torch.cuda.synchronize()
+    n7, n8, c = rng.uniforms.launches, rcam.camera_rays.launches, \
+        loop_counts()
+    rel = abs(float(img.double().sum()) * cfg.spp - golden) / golden
+    log(f"  the pool frame through K4, graphed: K7 launches {n7}, K8 "
+        f"launches {n8} ({c['warmups']} warm-up block(s), {c['passes']} "
+        f"passes replayed, {c['replays']} replays); radiance sum rel "
+        f"{rel:.2e} off the golden")
+    k = graphed.PASSES_PER_READ
+    if not (n7 >= 1 and n8 >= 1 and n7 == c["passes"] + c["warmups"] * k
+            and n8 == n7 + 1 + c["warmups"]):
+        raise AssertionError(f"the pool frame's K7 and K8 launches {n7}, "
+                             f"{n8} are not one a pass: {c}")
+    if not rel < 1e-2:
+        raise AssertionError(f"the pool frame's radiance sum off golden "
+                             f"({rel})")
+    del img
+
+    # K7 and K8 against their plain versions on the card, bit for bit.
+    draws = [("the camera draw at 2^17 ids", ids, 0, 0),
+             ("the bounce draw at a 0-d depth 3", ids,
+              torch.tensor(3, device=dev), 1),
+             ("the bounce draws at per-ray depths 0-50, 2^17 ids", ids,
+              depths, 1),
+             ("the bounce draws of the frame's last pool pass", last_ids,
+              last_depth, 1)]
+    for label, i, dom, off in draws:
+        before = rng.uniforms.launches
+        got = rng.uniforms(key, i, dom, offset=off)
+        torch.cuda.synchronize()
+        if rng.uniforms.launches != before + 1:
+            raise AssertionError("K7's launch counter did not move")
+        bit_equal(f"K7 {label}", [got], [rng.uniforms_plain(key, i,
+                                                            dom + off)])
+    lens, lcam, lcfg = build_preset("camera-effects", device=dev)
+    rays = [("final scene, 2^17 ids", cam, cfg, ids),
+            ("final scene, the frame's last pool pass", cam, cfg, last_ids),
+            ("final scene, float64 camera, 2^17 ids", to_f64(cam), cfg,
+             ids),
+            (f"camera-effects (lens radius {float(lcam.lens_radius)}), "
+             "2^17 ids", lcam, lcfg, ids)]
+    for label, cm, cf, i in rays:
+        before = rcam.camera_rays.launches
+        got = rcam.camera_rays(cm, cf.nx, cf.ny, cf.spp, key, i)
+        torch.cuda.synchronize()
+        if rcam.camera_rays.launches != before + 1:
+            raise AssertionError("K8's launch counter did not move")
+        bit_equal(f"K8 {label}", got, rcam.camera_rays_plain(
+            cm, cf.nx, cf.ny, cf.spp, key, i))
+    del lens
+
+    # Times at 2^17 rays, each call in a CUDA graph (20 calls a graph for
+    # the kernels; the plain versions one call a graph, as they ran in the
+    # wavefront graphs before, and one eager call).
+    def k7():
+        return rng.uniforms(key, ids, depths, offset=1)
+
+    def plain7():
+        return rng.uniforms_plain(key, ids, depths + 1)
+
+    def k8():
+        return rcam.camera_rays(cam, cfg.nx, cfg.ny, cfg.spp, key, ids)
+
+    def plain8():
+        return rcam.camera_rays_plain(cam, cfg.nx, cfg.ny, cfg.spp, key, ids)
+    ms7, ms8 = graph_ms(k7, 5, 20), graph_ms(k8, 5, 20)
+    cam_ms = graph_ms(lambda: rng.camera_uniforms(key, ids), 5, 20)
+    plain7_ms, plain8_ms = graph_ms(plain7, 5), graph_ms(plain8, 5)
+    eager7_s, eager8_s = host_s(plain7)[0], host_s(plain8)[0]
+    b7, b7c, b8 = k7_bound(R, True), k7_bound(R), k8_bound(R)
+    log(f"  K7 at {R} bounce draws (per-ray depths): {ms7:.4f} ms (bound "
+        f"{b7[0]:.4f} ms, {b7[1]}); the camera draw {cam_ms:.4f} ms (bound "
+        f"{b7c[0]:.4f}); plain {plain7_ms:.4f} ms in a graph, "
+        f"{eager7_s * 1e3:.2f} ms eager")
+    log(f"  K8 at {R} camera rays: {ms8:.4f} ms (bound {b8[0]:.4f} ms, "
+        f"{b8[1]}); plain {plain8_ms:.4f} ms in a graph, "
+        f"{eager8_s * 1e3:.2f} ms eager; on {card}")
+
+    # A graphed pool pass at 2^17 slots and its parts, as
+    # probes/wavefront_graph.py reads them, beside the pass before K7 and
+    # K8.
+    inputs = dict(scene=scene, camera=cam, accel=pack, key=key,
+                  start_id=torch.zeros((), dtype=torch.int64, device=dev))
+    static = dict(cfg=cfg, num_rays=cfg.num_rays, pool_size=R,
+                  intersect_fn=ip.intersect_pallas)
+    state = pool_state(**inputs, **static)
+
+    def one_pass():
+        pool_pass(state, **inputs, **static)
+    pass_ms = graph_ms(one_pass, 5)
+    nodes = graph_nodes(one_pass)
+    o, d = camera_rays(scene, cam, cfg, key, R)
+    k4_ms = graph_ms(lambda: ip.intersect_pallas(scene, pack, o, d, 1e-3),
+                     5)
+    log(f"  a graphed pool pass at {R} slots: {pass_ms:.4f} ms, {nodes} "
+        f"graph nodes (cuGraphGetNodes); its camera rays (K8) {ms8:.4f} ms, its bounce "
+        f"draw (K7) {ms7:.4f} ms, K4 {k4_ms:.4f} ms alone; before K7 and K8"
+        f" {EARLIER['pool pass']}; on {card}")
+    src = "first_raytracer_tpu_torch/kernels/csrc/rng_rays.cu"
+    common = {"route": "cuda", "source": src, "max_abs_err": 0.0,
+              "library_ms": None}
+    return [dict(common, **{
+        "name": "K7 Threefry draw (core.rng.uniforms), 2^17 bounce draws "
+                "at per-ray depths",
+        "replaces": rng.REPLACES, "launches": n7,
+        "launches_wavefront": chunk_draws[0],
+        "ms": ms7, "plain_ms": plain7_ms, "plain_eager_ms": eager7_s * 1e3,
+        "bound_ms": b7[0], "bound_by": b7[1], "camera_draw_ms": cam_ms,
+        "camera_draw_bound_ms": b7c[0]}), dict(common, **{
+        "name": "K8 camera rays (render.camera.camera_rays), 2^17 rays of "
+                "the final scene",
+        "replaces": rcam.REPLACES, "launches": n8,
+        "launches_wavefront": chunk_draws[1],
+        "ms": ms8, "plain_ms": plain8_ms, "plain_eager_ms": eager8_s * 1e3,
+        "bound_ms": b8[0], "bound_by": b8[1], "pool_pass_ms": pass_ms,
+        "pool_pass_nodes": nodes, "frame_s": frames})]
+
+
 def bench_runs(card):
     """Phase 17: ``python3 bench_torch.py`` in subprocesses, one for each
     of ``BENCH_RUNS``.  Each must exit 0 with one JSON line without an
     ``error`` whose ``launches`` show its kernel.  Returns each kernel's
-    launches by label."""
+    launches by label (and K7's and K8's where a run launched them)."""
     launches = {}
     for label, switches, kernel in BENCH_RUNS:
         env = dict(os.environ, **switches)
@@ -2883,6 +3112,10 @@ def bench_runs(card):
             raise AssertionError(f"bench_torch.py {label} launched no "
                                  f"{kernel}: {line['launches']}")
         launches.setdefault(kernel, {})[label] = n
+        for draw in ("K7", "K8"):  # the wavefront modes' draws
+            if line["launches"].get(draw):
+                launches.setdefault(draw, {})[label] = \
+                    line["launches"][draw]
         seen = READINGS.get(label)
         log(f"  {label}: {line['value']:.4f} Mpaths/s, {line['mrays_s']:.3f}"
             f" Mrays/s, {line['seconds']:.4f} s median, vs_baseline "
@@ -2947,6 +3180,16 @@ def main():
     torch.cuda.empty_cache()
     log("K6, the flat-BVH walk:")
     k6 = bvh_walk_path(dev, key, card, direct.pop("tape"))  # 19.
+    torch.cuda.empty_cache()
+    log("K7 and K8, the Threefry draw and the camera rays:")
+    frames = {f"{m} final scene": k4["frame_s"][m]["graphed"]
+              for m in k4["frame_s"]}
+    frames["field20000 chunks"] = k5["frame_s"]["graphed"]
+    frames["bvh pool frame"] = k6["frame_s"]["K6"]
+    k7, k8 = rng_rays_path(dev, key, card, frames,
+                           k4["draw_launches"]["wavefront"])  # 20.
+    k7["bench_launches"] = bench.get("K7", {})
+    k8["bench_launches"] = bench.get("K8", {})
     k6["bench_launches"] = bench["K6"]
     k4["direct_step_launches"] = direct["launches"]["K4"]
     k5["direct_step_launches"] = direct["launches"]["K5"]
@@ -2994,7 +3237,7 @@ def main():
         "tape_agreement_with_k2b": t10["agree_k2b"], "ms": t10["ms"],
         "plain_ms": t10["plain_ms"], "bound_ms": t10["bound"][0],
         "bound_by": t10["bound"][1], "library_ms": None,
-        "bench_launches": bench["K3t"]}, k4, k5, k6]}))
+        "bench_launches": bench["K3t"]}, k4, k5, k6, k7, k8]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -79,6 +79,7 @@ from .kernels import megakernel as mk
 from .kernels import megakernel_clustered as mc
 from .kernels import record_mega as rm
 from .render.api import render_ray_batch
+from .render.camera import camera_rays
 from .render.integrator import default_intersect
 from .render.regenerative import render_rays_regenerative
 from .scene.builders import random_scene, sphere_field, triangle_field
@@ -113,7 +114,9 @@ COUNTERS = (("K1", mk.render_pixels_mega, "launches"),
             ("K3t", rm.record_paths_mega_clustered, "launches"),
             ("K4", ip.intersect_pallas, "launches"),
             ("K5", ic.intersect_clustered, "launches"),
-            ("K6", traverse.intersect_bvh, "launches"))
+            ("K6", traverse.intersect_bvh, "launches"),
+            ("K7", rng.uniforms, "launches"),
+            ("K8", camera_rays, "launches"))
 # The closest-hit kernel and wrapper of each BENCH_INTERSECT (the dense
 # sweep is plain PyTorch, ``default_intersect``'s).
 INTERSECT_KERNEL = {"pallas": "K4", "clustered": "K5", "bvh": "K6",

@@ -16,6 +16,13 @@ Draw layout per ray (one ray = one (pixel, sample) pair):
 Each domain's 4 uniforms come from two Threefry calls with counters
 ``(id, 2 * dom)`` and ``(id, 2 * dom + 1)``; a uniform is the top 24 bits
 of a word scaled by 2^-24.
+
+``uniforms`` dispatches by the ids' device.  On a CUDA device it launches
+K7 (``kernels/csrc/rng_rays.cu``): one thread draws one ray's four
+uniforms, the key read from its device tensor, so a draw is one node of a
+CUDA graph where the plain version is ~350.  On the CPU it runs
+``uniforms_plain``, the Threefry of int64 torch ops; K7 is bit-equal to it.
+A failed build or launch raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -28,6 +35,9 @@ from . import vecmath
 __all__ = [
     "base_key",
     "key_words",
+    "device_key",
+    "uniforms",
+    "uniforms_plain",
     "camera_uniforms",
     "bounce_uniforms",
     "unit_disk_sample",
@@ -63,14 +73,20 @@ def key_words(key):
     return k0 & _MASK, k1 & _MASK
 
 
+def device_key(key, device):
+    """The key as a contiguous (2,) int64 tensor on ``device`` (the key
+    itself where it already is one)."""
+    return torch.as_tensor(key, dtype=torch.int64,
+                           device=device).reshape(2).contiguous()
+
+
 def _key_schedule(key, device):
     """Threefry's key injections, from the key as data on ``device``: the
     words ``ks = (k0, k1, k0 ^ k1 ^ PARITY)`` and, for each of the five
     rounds ``g``, ``(ks[(g + 1) % 3], ks[(g + 2) % 3] + g + 1)``, all 0-d
     int64 tensors.  Nothing is read back to the host, so a CUDA graph that
     captures a draw reads the key from its buffer on every replay."""
-    k = torch.as_tensor(key, dtype=torch.int64, device=device).reshape(2)
-    k = k & _MASK
+    k = device_key(key, device) & _MASK
     ks = (k[0], k[1], k[0] ^ k[1] ^ PARITY)
     return ks, [(ks[(g + 1) % 3], ks[(g + 2) % 3] + (g + 1))
                 for g in range(5)]
@@ -98,11 +114,14 @@ def _bits_to_unit_float(bits):
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def _uniforms(key, ray_ids, domain):
-    """(..., 4) f32 uniforms for ray ids and a domain (a Python int, or an
-    integer tensor that broadcasts against the ids).  The key (a (2,)
-    tensor) is read as data on the ids' device; an integer domain is a
-    scalar operand, so no tensor is made from host data."""
+REPLACES = "first_raytracer_tpu/core/rng.py:97"
+
+
+def uniforms_plain(key, ray_ids, domain):
+    """K7's plain version: (..., 4) f32 uniforms for ray ids and a domain
+    (a Python int, or an integer tensor that broadcasts against the ids).
+    The key (a (2,) tensor) is read as data on the ids' device; an integer
+    domain is a scalar operand, so no tensor is made from host data."""
     ids = ray_ids.to(torch.int64) & _MASK
     schedule = _key_schedule(key, ids.device)
     if isinstance(domain, torch.Tensor):
@@ -114,16 +133,62 @@ def _uniforms(key, ray_ids, domain):
                        dim=-1)
 
 
+def _launch_cuda(key, ids, domain, offset):
+    """K7 over the ids (a CUDA tensor) in domain ``domain + offset``: the
+    (..., 4) f32 uniforms.  Makes no host read and allocates through torch,
+    so a CUDA graph can capture it."""
+    from ..kernels import megakernel
+
+    dev = ids.device
+    k = device_key(key, dev)
+    dom, stride = None, 0
+    if isinstance(domain, torch.Tensor):
+        dom = domain.to(device=dev, dtype=torch.int64)
+        if dom.dim():
+            shape = torch.broadcast_shapes(ids.shape, dom.shape)
+            ids, dom, stride = ids.expand(shape), dom.expand(shape), 1
+        dom = dom.contiguous()
+    else:
+        offset += int(domain)
+    ids = ids.to(torch.int64).contiguous()
+    out = torch.empty(ids.shape + (4,), dtype=torch.float32, device=dev)
+    n = ids.numel()
+    megakernel.launch_entry(
+        dev, "frt_uniforms", k.data_ptr(), ids.data_ptr(),
+        None if dom is None else dom.data_ptr(), stride, offset, n,
+        out.data_ptr())
+    if n:
+        uniforms.launches += 1
+    return out
+
+
+def uniforms(key, ray_ids, domain, offset: int = 0):
+    """(..., 4) f32 uniforms of ray ids in RNG domain ``domain + offset``
+    (``domain`` a Python int, or an integer tensor that broadcasts against
+    the ids: 0-d, or one per ray).  Launches K7 for CUDA ids and runs
+    ``uniforms_plain`` for CPU ids; bit-equal either way."""
+    ids = torch.as_tensor(ray_ids)
+    if ids.device.type == "cpu":
+        return uniforms_plain(key, ids,
+                              domain + offset if offset else domain)
+    if ids.device.type != "cuda":
+        raise ValueError(f"no Threefry kernel for device {ids.device}")
+    return _launch_cuda(key, ids, domain, offset)
+
+
+uniforms.launches = 0  # K7 launches (CUDA path only)
+
+
 def camera_uniforms(key, ray_ids):
     """(R, 4) uniforms for AA jitter and lens sampling."""
-    return _uniforms(key, ray_ids, DOMAIN_CAMERA)
+    return uniforms(key, ray_ids, DOMAIN_CAMERA)
 
 
 def bounce_uniforms(key, ray_ids, depth):
     """(R, 4) uniforms for bounce ``depth`` (0-based; scalar or per-ray)."""
     if not isinstance(depth, torch.Tensor):
         depth = int(depth)
-    return _uniforms(key, ray_ids, depth + 1)
+    return uniforms(key, ray_ids, depth, offset=1)
 
 
 def unit_disk_sample(u1, u2):
@@ -157,4 +222,4 @@ def precompute_uniforms(key, ray_ids, max_depth: int):
     """
     ids = torch.as_tensor(ray_ids)
     domains = torch.arange(max_depth + 2, device=ids.device)
-    return _uniforms(key, ids[:, None], domains[None, :])
+    return uniforms(key, ids[:, None], domains[None, :])

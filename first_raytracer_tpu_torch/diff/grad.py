@@ -36,10 +36,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core import rng
 from ..kernels.megakernel import DENSE_MAX
 from ..kernels.record_mega import MAX_RAY_ID
-from ..render.camera import generate_rays
+from ..render.camera import camera_rays
 from ..render.integrator import RenderConfig, trace_rays
 from .graphed import GraphCache
 from .replay import (plan_buckets, record_camera_paths, record_paths_pool,
@@ -72,8 +71,7 @@ def merge_params(scene, params):
 
 
 def _rays(camera, cfg, key, ray_ids):
-    return generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ray_ids,
-                         rng.camera_uniforms(key, ray_ids))
+    return camera_rays(camera, cfg.nx, cfg.ny, cfg.spp, key, ray_ids)
 
 
 def record_tape(params, scene, camera, cfg: RenderConfig, key, ray_ids,

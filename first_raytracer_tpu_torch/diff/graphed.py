@@ -18,6 +18,12 @@ its ``cfg`` (``core/vecmath.constant``, the key read as data by
 The outputs are cloned out of the graph's pool, so a later replay cannot
 overwrite what a caller holds.  On the CPU the same static buffers feed
 the body eagerly.
+
+The kernels' wrappers count their launches in Python, which runs only
+while a graph is captured: the caches here and in ``render/graphed.py``
+take a capture's launches off the counters (``take_launches``) and add
+them back on every replay (``add_launches``), so a counter counts what
+ran on the card.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ import time
 
 import torch
 
-__all__ = ["GraphCache"]
+__all__ = ["GraphCache", "launch_counters", "launches_now",
+           "take_launches", "add_launches"]
 
 logger = logging.getLogger("first_raytracer_tpu_torch")
 
@@ -71,6 +78,41 @@ def _map(fn, obj):
     return obj
 
 
+def launch_counters():
+    """(wrapper, attribute) of the launch counters a graphed body can move:
+    K4's, K5's, K6's, K7's and K8's."""
+    from ..accel import traverse
+    from ..core import rng
+    from ..kernels import intersect_clustered, intersect_pallas
+    from ..render import camera
+    return ((intersect_pallas.intersect_pallas, "launches"),
+            (intersect_clustered.intersect_clustered, "launches"),
+            (traverse.intersect_bvh, "launches"),
+            (rng.uniforms, "launches"),
+            (camera.camera_rays, "launches"))
+
+
+def launches_now():
+    """The counters' values: (wrapper, attribute, count) each."""
+    return [(fn, attr, getattr(fn, attr)) for fn, attr in launch_counters()]
+
+
+def take_launches(before):
+    """The launches counted since ``before`` (``launches_now()``), taken
+    back off the counters: (wrapper, attribute, launches) of each that
+    moved."""
+    made = [(fn, attr, getattr(fn, attr) - n) for fn, attr, n in before]
+    for fn, attr, n in before:
+        setattr(fn, attr, n)
+    return [m for m in made if m[2]]
+
+
+def add_launches(made):
+    """Adds ``take_launches``' counts back: a replay launched them."""
+    for fn, attr, n in made:
+        setattr(fn, attr, getattr(fn, attr) + n)
+
+
 def copy_leaves(buffers, leaves):
     """Copies the tensors ``leaves`` into ``buffers``, with no host
     synchronization: a host tensor (the key) goes through pinned memory
@@ -93,6 +135,7 @@ class _Graphed:
                             inputs)
         self.leaves = _flatten(self.buffers)[0]
         self.graph = self.outputs = None
+        self.launches = ()  # (wrapper, attribute, launches) a replay makes
 
     def call(self):
         return self.body(**self.buffers, **self.static)
@@ -147,6 +190,7 @@ class GraphCache:
         if entry.graph is None:
             self._capture(entry, (body, device, static.get("cfg")), device)
         entry.graph.replay()
+        add_launches(entry.launches)
         self.replays += 1
         return _map(torch.clone, entry.outputs)
 
@@ -169,6 +213,7 @@ class GraphCache:
             torch.cuda.synchronize()
             reserved = torch.cuda.memory_reserved(device)
             graph = torch.cuda.CUDAGraph()
+            before = launches_now()
             with torch.cuda.stream(torch.cuda.Stream()):
                 graph.capture_begin()
                 try:
@@ -176,6 +221,7 @@ class GraphCache:
                 finally:
                     graph.capture_end()
             torch.cuda.synchronize()
+            entry.launches = take_launches(before)
             entry.graph, entry.outputs = graph, outputs
         self.captures += 1
         self.last = dict(warmup_s=t1 - t0, capture_s=time.perf_counter() - t1,

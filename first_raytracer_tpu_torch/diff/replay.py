@@ -44,7 +44,7 @@ from ..core.vecmath import constant, point_at
 from ..geometry.sphere import BIG, sphere_hit_one, sphere_normal
 from ..geometry.triangle import triangle_hit_one, triangle_normal
 from ..materials.scatter import scatter, scatter_from_params
-from ..render.camera import generate_rays
+from ..render.camera import camera_rays
 from ..render.integrator import (UP, RenderConfig, default_intersect,
                                  recompute_hit, sky_color)
 from ..scene.textures import texture_from_params
@@ -94,8 +94,7 @@ def record_state(origin, direction, *, cfg, tape=True, **_):
 def camera_record_state(camera, key, ray_ids, *, cfg, tape=True, **_):
     """``record_state`` of the camera rays of ``ray_ids`` (RNG domain 0),
     made inside the state's own init."""
-    o, d = generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ray_ids,
-                         rng.camera_uniforms(key, ray_ids))
+    o, d = camera_rays(camera, cfg.nx, cfg.ny, cfg.spp, key, ray_ids)
     return record_state(o, d, cfg=cfg, tape=tape)
 
 
@@ -167,8 +166,7 @@ def _stream_rays(camera, cfg, key, ray_ids, idx):
     """(ids, origin, direction) of the stream's entries ``idx`` (clamped
     into the stream)."""
     ids = ray_ids[idx.clamp(0, max(ray_ids.shape[0] - 1, 0))]
-    o, d = generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ids,
-                         rng.camera_uniforms(key, ids))
+    o, d = camera_rays(camera, cfg.nx, cfg.ny, cfg.spp, key, ids)
     return ids, o, d
 
 

@@ -59,10 +59,12 @@ DENSE_MAX = 1024
 
 KERNEL_SOURCE = "megakernel.cu"
 # K3 and K3t (the clustered megakernel), K4 and K5 (the wavefront closest
-# hits) and K6 (the flat-BVH walk) build into the same library.
+# hits), K6 (the flat-BVH walk), K7 and K8 (the wavefront paths' Threefry
+# draws and camera rays) build into the same library.
 CLUSTERED_SOURCE = "megakernel_clustered.cu"
 INTERSECT_SOURCE = "intersect.cu"
 BVH_SOURCE = "bvh_walk.cu"
+RNG_RAYS_SOURCE = "rng_rays.cu"
 REPLACES = "first_raytracer_tpu/kernels/megakernel.py:306"
 
 
@@ -248,7 +250,8 @@ NVCC_EXTRA_FLAGS = ("--fmad=false",)
 @functools.lru_cache(maxsize=None)
 def load_mega_library():
     """Build (once per source and flags) and load the shared library of K1,
-    K2, K2b, K3, K3t, K4, K5 and K6: one nvcc a source, all at once.
+    K2, K2b, K3, K3t, K4, K5, K6, K7 and K8: one nvcc a source, all at
+    once.
 
     Returns ``(ctypes.CDLL, BuildInfo)``.
     """
@@ -256,7 +259,8 @@ def load_mega_library():
 
     lib, info = build_library(
         "frt_mega",
-        [KERNEL_SOURCE, CLUSTERED_SOURCE, INTERSECT_SOURCE, BVH_SOURCE],
+        [KERNEL_SOURCE, CLUSTERED_SOURCE, INTERSECT_SOURCE, BVH_SOURCE,
+         RNG_RAYS_SOURCE],
         NVCC_EXTRA_FLAGS)
     return bind(lib), info
 
@@ -274,6 +278,7 @@ def bind(lib):
         [ptr] * 7 + [i32] + [ptr] * 5 + [i32] * 2 + [f32] + [ptr] * 4)
     lib.frt_intersect_clustered.restype = i32
     bind_bvh(lib)
+    bind_rng_rays(lib)
     # The clustered tables: 12 pointers, then ns, nt, the two supergroup
     # counts and the two column counts.
     tables = [ptr] * 12 + [i32] * 6
@@ -306,6 +311,19 @@ def bind_bvh(lib):
         [ptr] * 8 + [i32] * 2 + [ptr] * 2 + [i32] + [ptr] * 3 + [i32] * 3
         + [f32] + [ptr] * 5)
     lib.frt_bvh_walk.restype = i32
+    return lib
+
+
+def bind_rng_rays(lib):
+    """Declares K7's and K8's C entry points' argument and result types on
+    ``lib`` (also a host build of ``rng_rays.cu`` alone)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.frt_uniforms.argtypes = [ptr] * 3 + [i64] * 3 + [ptr] * 2
+    lib.frt_uniforms.restype = i32
+    for name in ("frt_camera_rays_f32", "frt_camera_rays_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr] * 2 + [i64] * 4 + [ptr] * 10
+        fn.restype = i32
     return lib
 
 
@@ -622,8 +640,10 @@ def _shade(pack, d, p, w_s, w_t, is_tri, u):
 
 def _camera_rays(camera, cfg, pix, rid, key):
     """Thin-lens camera rays of pixels ``pix``, as the kernel computes them
-    (``render.camera.generate_rays`` with the kernel's operation order)."""
-    u = rng.camera_uniforms(key, rid)
+    (``render.camera.generate_rays`` with the kernel's operation order).
+    The draws are the plain ones, so that on the card this plain version
+    launches no kernel."""
+    u = rng.uniforms_plain(key, rid, rng.DOMAIN_CAMERA)
     i = (pix % cfg.nx).to(torch.float32)
     j = torch.div(pix, cfg.nx, rounding_mode="floor").to(torch.float32)
     s = divide(i + u[:, 0], cfg.nx)[:, None]
@@ -669,7 +689,7 @@ def trace_reference(pack, camera, cfg, key, pix, rid):
         tape[depth, idx[hit]] = oid[hit].to(torch.int32)
         idx, o, d, tp, t = idx[hit], o[hit], d[hit], tp[hit], t[hit]
         p = o + t[:, None] * d
-        u = rng.bounce_uniforms(key, rid[idx], depth)
+        u = rng.uniforms_plain(key, rid[idx], depth + 1)
         new_dir, att, scattered = _shade(pack, d, p, w_s[hit], w_t[hit],
                                          is_tri[hit], u)
         cont = scattered & (depth < cfg.max_depth)

@@ -52,7 +52,7 @@ from ..kernels import intersect_pallas as ip
 from ..kernels import megakernel as mk
 from ..kernels import megakernel_clustered as mc
 from ..kernels import record_mega as rm
-from ..render.camera import generate_rays
+from ..render.camera import camera_rays
 from ..scene.builders import build_preset
 from . import ring, shard
 from .mesh import (TILE_AXIS, initialize_distributed, local_device,
@@ -194,8 +194,7 @@ def run(size, device):
     per = cfg.num_rays // n
     ids = torch.arange(axis.index * per, (axis.index + 1) * per,
                        device=device)
-    o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
-                         rng.camera_uniforms(rng.base_key(0), ids))
+    o, d = camera_rays(cam, cfg.nx, cfg.ny, cfg.spp, rng.base_key(0), ids)
     _, gid = ring.ring_closest_hit(held.to(device), axis, ns_total, o, d,
                                    cfg.t_min)
     out["ring_gid"] = gid.cpu().numpy()

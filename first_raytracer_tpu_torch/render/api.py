@@ -16,7 +16,7 @@ from typing import Callable, Optional
 import torch
 
 from ..core import rng
-from .camera import Camera, generate_rays
+from .camera import Camera, camera_rays
 from .integrator import (RenderConfig, default_intersect, forward_trips,
                          trace_rays, trace_state)
 
@@ -29,9 +29,8 @@ DEFAULT_CHUNK = 1 << 15
 def batch_state(scene, camera, key, ray_ids, *, cfg, **_):
     """``trace_state`` of the camera rays of ``ray_ids``: the init body of
     the chunked batch's loop."""
-    cam_u = rng.camera_uniforms(key, ray_ids)
-    origin, direction = generate_rays(camera, cfg.nx, cfg.ny, cfg.spp,
-                                      ray_ids, cam_u)
+    origin, direction = camera_rays(camera, cfg.nx, cfg.ny, cfg.spp, key,
+                                    ray_ids)
     return trace_state(origin, direction, ray_ids)
 
 
@@ -48,9 +47,8 @@ def render_ray_batch(scene, camera: Camera, cfg: RenderConfig, key, ray_ids,
     if intersect_fn is None:
         intersect_fn = default_intersect
     if trace_kw or cfg.differentiable:
-        cam_u = rng.camera_uniforms(key, ray_ids)
-        origin, direction = generate_rays(camera, cfg.nx, cfg.ny, cfg.spp,
-                                          ray_ids, cam_u)
+        origin, direction = camera_rays(camera, cfg.nx, cfg.ny, cfg.spp,
+                                        key, ray_ids)
         return trace_rays(scene, origin, direction, ray_ids, key, cfg,
                           accel=accel, intersect_fn=intersect_fn,
                           return_stats=return_stats, **trace_kw)

@@ -24,10 +24,11 @@ A capture or a replay that fails raises; there is no eager fallback.  On
 the CPU the same bodies run eagerly over the same buffers and state, with
 the same blocks and the flag read per block.
 
-Kernel launches under a graph: K4's, K5's and K6's wrappers count their
-launches in Python, which runs only while a graph is captured.  The cache
-takes the launches a capture recorded off the counters and adds them back
-on every replay, so the counters count what ran on the card.
+Kernel launches under a graph: K4's, K5's, K6's, K7's and K8's wrappers
+count their launches in Python, which runs only while a graph is
+captured.  The cache takes the launches a capture recorded off the
+counters and adds them back on every replay, so the counters count what
+ran on the card (``diff.graphed.launch_counters``).
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ import time
 
 import torch
 
-from ..diff.graphed import _flatten, _map, copy_leaves
+from ..diff.graphed import (_flatten, _map, add_launches, copy_leaves,
+                            launches_now, take_launches)
 
 __all__ = ["LoopCache", "LOOPS", "PASSES_PER_READ", "graphed_route",
            "run_eager", "run_loop"]
@@ -50,16 +52,6 @@ logger = logging.getLogger("first_raytracer_tpu_torch")
 # frames and on field20000's (a read and a replay's launch cost ~10 us, a
 # pass 1-2 ms); 8 was up to 11% slower (its inert passes).
 PASSES_PER_READ = 2
-
-
-def _counters():
-    """(wrapper, attribute) of the launch counters a wavefront body can
-    move: K4's, K5's and K6's."""
-    from ..accel import traverse
-    from ..kernels import intersect_clustered, intersect_pallas
-    return ((intersect_pallas.intersect_pallas, "launches"),
-            (intersect_clustered.intersect_clustered, "launches"),
-            (traverse.intersect_bvh, "launches"))
 
 
 def _block(step, state, inputs, static, passes):
@@ -129,7 +121,9 @@ class _Loop:
         self.leaves = _flatten(self.buffers)[0]
         self.state = self.flag = None
         self.init_graph = self.block_graph = None
-        self.launches = ()  # (wrapper, attribute, launches a block makes)
+        # (wrapper, attribute, launches) an init replay and a block replay
+        # make.
+        self.init_launches = self.launches = ()
         self.host = self.done = None
         if device.type == "cuda":
             self.host = torch.zeros((2,), dtype=torch.int64).pin_memory()
@@ -207,10 +201,10 @@ class LoopCache:
 
     def _run_cuda(self, entry, passes):
         entry.init_graph.replay()
+        add_launches(entry.init_launches)
         while True:
             entry.block_graph.replay()
-            for fn, attr, n in entry.launches:
-                setattr(fn, attr, getattr(fn, attr) + n)
+            add_launches(entry.launches)
             entry.host.copy_(entry.flag, non_blocking=True)
             entry.done.record()
             entry.done.synchronize()
@@ -240,8 +234,9 @@ class LoopCache:
             t1 = time.perf_counter()
             torch.cuda.synchronize()
             reserved = torch.cuda.memory_reserved(device)
-            counters = _counters()
-            before = [getattr(fn, attr) for fn, attr in counters]
+            # The wrappers run once while capturing; the card runs their
+            # kernels on each replay, which adds them back.
+            before = launches_now()
             init_graph, block_graph = (torch.cuda.CUDAGraph(),
                                        torch.cuda.CUDAGraph())
             # capture_begin/end rather than torch.cuda.graph, which also
@@ -252,18 +247,15 @@ class LoopCache:
                     state = init(**b, **static)
                 finally:
                     init_graph.capture_end()
+                init_launches = take_launches(before)
                 block_graph.capture_begin()
                 try:
                     flag = _block(step, state, b, static, passes)
                 finally:
                     block_graph.capture_end()
             torch.cuda.synchronize()
-            # The wrappers ran once while capturing; the card runs their
-            # kernels on each replay, which adds them back.
-            entry.launches = [(fn, attr, getattr(fn, attr) - n)
-                              for (fn, attr), n in zip(counters, before)]
-            for (fn, attr), n in zip(counters, before):
-                setattr(fn, attr, n)
+            entry.init_launches = init_launches
+            entry.launches = take_launches(before)
             entry.state, entry.flag = state, flag
             entry.init_graph, entry.block_graph = init_graph, block_graph
         self.captures += 1

@@ -37,7 +37,7 @@ import torch
 from ..core import rng
 from ..core.vecmath import constant
 from ..materials.scatter import scatter
-from .camera import generate_rays
+from .camera import camera_rays
 from .integrator import (BIG, UP, RenderConfig, default_intersect,
                          recompute_hit, sky_color)
 
@@ -47,8 +47,7 @@ __all__ = ["pool_state", "pool_pass", "render_rays_regenerative"]
 def _fresh_rays(camera, cfg, key, ids):
     """Camera rays for global ray ids (clamped into the image)."""
     ids = ids.clamp(0, cfg.num_rays - 1)
-    return generate_rays(camera, cfg.nx, cfg.ny, cfg.spp, ids,
-                         rng.camera_uniforms(key, ids))
+    return camera_rays(camera, cfg.nx, cfg.ny, cfg.spp, key, ids)
 
 
 def pool_state(scene, camera, key, start_id, *, cfg, num_rays, pool_size,

@@ -28,6 +28,22 @@ differently.  The operations are counted from the CUDA sources:
   the far end, 1 test), 20 per sphere slot (the oc-form quadratic with r*r
   computed, 3 + 5 + 6 + 1 + 2, then the square root and the two roots, 3)
   and 52 per triangle slot (the 46 above and the two edges, 6).
+- K7 (``kernels/csrc/rng_rays.cu``, ``mega_common.cuh::draws4``): 252
+  integer and FP32 operations a ray: two Threefry-2x32-20 calls of 119
+  (the third key word's 2 xors, 2 key additions, 20 rounds of an add, a
+  rotate as two shifts and an or, and an xor, 5 injections of 3
+  additions), the two counters (2) and four words to floats (a shift, a
+  conversion and a multiply each, 12).  K8 adds 63 a ray past the draw:
+  the pixel's floor divisions and modulo (6), the jitter (2 conversions,
+  2 additions, 2 divisions), the lens sample (a square root, a multiply,
+  a sine, a cosine, 2 multiplies, 2 by the radius, 2 conversions to the
+  camera's type), 10 a component for the offset, origin and direction
+  (30) and the normalization (11); a transcendental or a 64-bit division
+  counts as one, so the bound is a lower one.  Both are counted against
+  the FP32 rate outside the tensor cores (the H100's INT32 lanes are half
+  as many), and both are bound by bytes: K7 reads an 8-byte id (and an
+  8-byte domain where it has one a ray) and writes 16 bytes, K8 reads the
+  id and writes six floats of the camera's type.
 """
 from __future__ import annotations
 
@@ -37,7 +53,8 @@ __all__ = ["PEAK_FP32", "PEAK_BYTES", "FP32_PEAKS", "SPHERE_OPS",
            "dense_ops", "clustered_ops", "intersect_ops", "k5_ops",
            "k6_ops", "roofline", "bound", "clustered_bound",
            "intersect_bound", "tensor_bytes", "k4_bound", "k5_bound",
-           "k6_bound", "fp32_peak"]
+           "k6_bound", "fp32_peak", "THREEFRY_OPS", "CAMERA_RAY_OPS",
+           "k7_bound", "k8_bound"]
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores,
 # and HBM3 bandwidth.
@@ -55,6 +72,7 @@ SPHERE_OPS, TRIANGLE_OPS = 20, 46
 BOX_OPS = 29
 OC_SPHERE_OPS, MT_TRIANGLE_OPS = 16, 46
 WALK_BOX_OPS, WALK_SPHERE_OPS, WALK_TRIANGLE_OPS = 25, 20, 52
+THREEFRY_OPS, CAMERA_RAY_OPS = 252, 63
 
 
 def fp32_peak(name: str) -> float:
@@ -174,3 +192,21 @@ def k6_bound(scene, bvh, walk_total, rays, launches=1):
                           scene.tri_v0, scene.tri_v1, scene.tri_v2)
     return intersect_bound(k6_ops(walk_total), launches * tables + 24 * rays,
                            9 * rays)
+
+
+def k7_bound(rays, domain_per_ray=False, launches=1):
+    """K7's bound over ``launches`` launches of ``rays`` draws in all: the
+    key read once a launch, an 8-byte id (and an 8-byte domain with
+    ``domain_per_ray``) in and 16 bytes out a ray."""
+    in_bytes = 16 * launches + (16 if domain_per_ray else 8) * rays
+    return roofline(THREEFRY_OPS * rays, in_bytes + 16 * rays)
+
+
+def k8_bound(rays, itemsize=4, launches=1):
+    """K8's bound over ``launches`` launches of ``rays`` camera rays in
+    all: the key and the camera's 19 values read once a launch, an 8-byte
+    id in and the origin and direction (6 values of ``itemsize`` bytes)
+    out a ray."""
+    in_bytes = (16 + 19 * itemsize) * launches + 8 * rays
+    return roofline((THREEFRY_OPS + CAMERA_RAY_OPS) * rays,
+                    in_bytes + 6 * itemsize * rays)

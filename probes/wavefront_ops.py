@@ -16,10 +16,18 @@ camera (``camera_record_state``), a pass of the occupancy scan
 (``utils/metrics.py::_length_pass``), the dense sweep
 (``intersect_brute``, the recorder's closest hit without an accel), and
 the value and gradient of the whole-tape replay
-(``diff/grad.py::tape_loss_and_grads``): its ops a tape row and its fixed
-ops, from tapes of 2 and 10 rows.  The CPU also takes sqrt, sin and cos
+(``diff/grad.py::tape_loss_and_grads``): its ops a tape row, from tapes
+of 2 and 10 rows, and its ops on 2 rows (the rows do not all cost the
+same, so the two do not split into a fixed part).  The CPU also takes sqrt, sin and cos
 in float64 and rounds once (``core/vecmath.py``), a few ops the card does
 not run.
+
+Each count is printed twice: with the draws and camera rays as the CPU
+runs them (``core/rng.uniforms_plain``, ``render/camera.generate_rays``:
+their torch ops), and, under ``"with K7 and K8"``, with each call of
+``core.rng.uniforms`` (K7) and ``render.camera.camera_rays`` (K8) counted
+as one op, as the card launches each as one kernel: stand-ins run the
+plain versions with the count paused.
 
     python probes/wavefront_ops.py
 """
@@ -33,6 +41,8 @@ import torch  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from first_raytracer_tpu_torch.core import rng  # noqa: E402
+from first_raytracer_tpu_torch.render import api  # noqa: E402
+from first_raytracer_tpu_torch.render import camera  # noqa: E402
 from first_raytracer_tpu_torch.diff import grad as dg  # noqa: E402
 from first_raytracer_tpu_torch.diff import replay as rp  # noqa: E402
 from first_raytracer_tpu_torch.kernels import intersect_pallas as ip  # noqa: E402,E501
@@ -48,19 +58,53 @@ class Count(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.ops = 0
+        self.paused = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.ops += 1
+        self.ops += not self.paused
         return func(*args, **(kwargs or {}))
+
+
+ACTIVE = []  # the Count of the running ``ops``
 
 
 def ops(fn):
     with Count() as c:
-        fn()
+        ACTIVE.append(c)
+        try:
+            fn()
+        finally:
+            ACTIVE.pop()
     return c.ops
 
 
-def main():
+def one_op(fn):
+    """``fn`` counted as one op, its own ops not counted: a kernel's one
+    launch."""
+    def stand_in(*args, **kwargs):
+        c = ACTIVE[-1] if ACTIVE else None
+        if c is None:
+            return fn(*args, **kwargs)
+        c.paused = True
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            c.paused = False
+            c.ops += 1
+    return stand_in
+
+
+def with_kernels():
+    """Routes the draws and camera rays of every body through ``one_op``
+    stand-ins of K7 and K8."""
+    rng.uniforms = one_op(rng.uniforms)
+    rays = one_op(camera.camera_rays)
+    for module in (camera, reg, api, rp, dg):
+        module.camera_rays = rays
+
+
+def counts():
+    """Each body's ops, as the module docstring lists them."""
     scene, cam, cfg = build_preset("random-spheres", device="cpu", nx=32,
                                    ny=16, spp=4)
     pack = ip.pack_scene_pallas(scene)
@@ -103,28 +147,34 @@ def main():
 
     replay(2)
     row = (replay(10) - replay(2)) / 8
-    print({"record_bounce": ops(lambda: rp.record_bounce(
-               rec, **rec_in, **rec_static)),
-           "record_pool_pass": ops(lambda: rp.record_pool_pass(
-               rpool, **rec_in, **rec_static)),
-           "camera_record_state": ops(lambda: rp.camera_record_state(
-               **rec_in, **rec_static)),
-           "length_pass": ops(lambda: metrics._length_pass(
-               lengths, **rec_in, **rec_static)),
-           "dense_sweep": ops(lambda: intersect_brute(scene, o, d,
-                                                      cfg.t_min)),
-           "replay_per_row": row,
-           "replay_fixed": replay(2) - 2 * row})
-    print({"pool_pass": ops(lambda: reg.pool_pass(state, **pool_in,
+    return {"record_bounce": ops(lambda: rp.record_bounce(
+                rec, **rec_in, **rec_static)),
+            "record_pool_pass": ops(lambda: rp.record_pool_pass(
+                rpool, **rec_in, **rec_static)),
+            "camera_record_state": ops(lambda: rp.camera_record_state(
+                **rec_in, **rec_static)),
+            "length_pass": ops(lambda: metrics._length_pass(
+                lengths, **rec_in, **rec_static)),
+            "dense_sweep": ops(lambda: intersect_brute(scene, o, d,
+                                                       cfg.t_min)),
+            "replay_per_row": row,
+            "replay_2_rows": replay(2),
+            "pool_pass": ops(lambda: reg.pool_pass(state, **pool_in,
                                                    **pool_static)),
-           "trip": ops(lambda: trip(chunk, **batch_in, **batch_static)),
-           "batch_state": ops(lambda: batch_state(**batch_in,
-                                                  **batch_static)),
-           "camera_draw": ops(lambda: rng.camera_uniforms(key, ids)),
-           "bounce_draw": ops(lambda: rng.bounce_uniforms(
-               key, ids, state["depth"])),
-           "k4_plain": ops(lambda: ip.intersect_pallas_reference(
-               scene, pack, o, d, cfg.t_min))})
+            "trip": ops(lambda: trip(chunk, **batch_in, **batch_static)),
+            "batch_state": ops(lambda: batch_state(**batch_in,
+                                                   **batch_static)),
+            "camera_draw": ops(lambda: rng.camera_uniforms(key, ids)),
+            "bounce_draw": ops(lambda: rng.bounce_uniforms(
+                key, ids, state["depth"])),
+            "k4_plain": ops(lambda: ip.intersect_pallas_reference(
+                scene, pack, o, d, cfg.t_min))}
+
+
+def main():
+    print(counts())
+    with_kernels()
+    print({"with K7 and K8": counts()})
 
 
 if __name__ == "__main__":
