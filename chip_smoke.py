@@ -250,11 +250,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
    above, its tape's agreement with K3t's logged, timed in turns.
 19. K6, the flat-BVH walk (``intersect_bvh`` on a ``FlatBVH``), on the
    graft entry's BVH (the final scene, ``build_bvh(max_leaf=4)``): bit-equal
-   (prim, t, hit) to its plain version, the lockstep walk, on the final
-   scene's 2^17 camera rays, on one bounce's secondary rays from their
-   hits, on trifield20000's camera rays (and on its triangles alone) and
-   on the triangle-mesh preset's (triangles and spheres); against the
-   dense sweep on the 2^17 camera rays, the same hits and primitives but
+   (prim, t, hit) to its plain version, the lockstep walk, and with the
+   same per-ray counters (nodes, sphere slots, triangle slots: the same
+   visits), through the path each scene takes (shared memory when its
+   node records and leaf slots fit ``traverse.SHARED_BUDGET``, else
+   global), on the final scene's 2^17 camera rays and on one bounce's
+   secondary rays from their hits, on field5000's, field20000's and
+   trifield20000's 2^17 camera rays (global), on trifield20000's
+   triangles alone and on the triangle-mesh preset's (triangles and
+   spheres); each set also through the other path forced where a block
+   can hold the staged bytes (the final scene's and triangle-mesh's
+   global, field5000's shared), each set of 2^17 rays timed through each
+   (20 calls in a CUDA graph) beside its bound; ``build_bvh`` of the final
+   scene and the three fields, native and NumPy, timed on the host.
+   Against the dense sweep on the 2^17 camera rays, the same hits and
+   primitives but
    on exact ties in t (counted); no host sync inside its call
    (``torch.cuda.set_sync_debug_mode``; the plain walk's logged).
    ``entry()``'s forward (the graft entry's step) graphed twice, each
@@ -461,6 +471,20 @@ EARLIER = {
     "bvh frame": "0.5070-0.5088 s/frame, through K4 0.5110-0.5142",
     "entry": "0.0416-0.0473 s graphed",
     "bvh recorder": "0.0603-0.0616 s graphed",
+}
+# K6's times as a one-thread-a-ray kernel, before the warp walk (PERF.md
+# section 6: probes/turns.py k6 on that checkout in turns with this one,
+# and earlier runs of this script; an NVIDIA H100 80GB HBM3 at 700.00 W),
+# printed beside this run's.
+EARLIER_K6 = {
+    "final scene, 2^17 camera rays": "0.0171-0.0172 ms",
+    "final scene, one bounce's secondary rays": "0.0320 ms",
+    "field5000, 2^17 camera rays": "0.0233-0.0234 ms",
+    "field20000, 2^17 camera rays": "0.0281-0.0284 ms",
+    "trifield20000, 2^17 camera rays": "0.0409 ms",
+    "frame calls": "9.21-9.29 ms over 234 calls",
+    "bvh frame": "0.156-0.178 s/frame",
+    "entry": "0.0195-0.0215 s graphed",
 }
 # Each earlier phase's Mpaths/s of the configuration a bench run repeats,
 # by the label of ``BENCH_RUNS``: host clock around the user's entry point,
@@ -2646,8 +2670,9 @@ def walk_sets(dev, key, scene, bvh, cam, cfg, o, d):
     """The ray sets phase 19 holds K6 to its plain version on: (label,
     scene, BVH, origin, direction).  The final scene's 2^17 camera rays and
     one bounce's secondary rays from their hits (``scatter`` at bounce 0);
-    trifield20000's camera rays, and on its triangles alone; the
-    triangle-mesh preset's (triangles and spheres)."""
+    field5000's, field20000's and trifield20000's 2^17 camera rays, and
+    trifield20000's on its triangles alone; the triangle-mesh preset's
+    (triangles and spheres)."""
     ids = torch.arange(o.shape[0], device=dev)
     prim, _, hit = traverse.intersect_bvh(scene, bvh, o, d, 1e-3)
     _, p, n, mat = recompute_hit(scene, o, d, prim, 1e-3)
@@ -2657,6 +2682,12 @@ def walk_sets(dev, key, scene, bvh, cam, cfg, o, d):
     sets = [("final scene, 2^17 camera rays", scene, bvh, o, d),
             ("final scene, one bounce's secondary rays", scene, bvh,
              p[live].contiguous(), new_d[live].contiguous())]
+    for label, preset, n_prims in (("field5000", "sphere-field", 5000),
+                                   ("field20000", "sphere-field", 20000)):
+        field, fcam, fcfg = build_preset(preset, device=dev, n=n_prims)
+        sets.append((f"{label}, 2^17 camera rays", field,
+                     build_bvh(field, max_leaf=BVH_MAX_LEAF),
+                     *camera_rays(field, fcam, fcfg, key, WAVE_RAYS)))
     field, fcam, fcfg = build_preset("triangle-field", device=dev, n=20000)
     tris = dataclasses.replace(field, sphere_center=field.sphere_center[:0],
                                sphere_radius=field.sphere_radius[:0],
@@ -2672,6 +2703,30 @@ def walk_sets(dev, key, scene, bvh, cam, cfg, o, d):
                  build_bvh(mesh, max_leaf=BVH_MAX_LEAF),
                  *camera_rays(mesh, mcam, mcfg, key, mcfg.num_rays)))
     return sets
+
+
+def bvh_builds(dev, card):
+    """``build_bvh(max_leaf=4)`` of the final scene, field5000, field20000
+    and trifield20000 (their scenes on the card), native and NumPy: host
+    seconds, median of 3, the copy of the scene to the host and of the
+    arrays to the card included.  Returns {scene: {backend: s}}."""
+    out = {}
+    for label, preset, kw in (("final scene", "random-spheres", {}),
+                              ("field5000", "sphere-field", {"n": 5000}),
+                              ("field20000", "sphere-field", {"n": 20000}),
+                              ("trifield20000", "triangle-field",
+                               {"n": 20000})):
+        sc = build_preset(preset, device=dev, **kw)[0]
+        out[label] = {b: statistics.median(
+            host_s(lambda: build_bvh(sc, max_leaf=BVH_MAX_LEAF,
+                                     backend=b))[0] for _ in range(3))
+            for b in ("native", "numpy")}
+        bv = build_bvh(sc, max_leaf=BVH_MAX_LEAF)
+        log(f"  build_bvh(max_leaf {BVH_MAX_LEAF}) of {label}: "
+            f"{bv.num_nodes} nodes, {bv.prim_ids.shape[0]} slots; native "
+            f"{out[label]['native']:.4f} s, NumPy {out[label]['numpy']:.4f}"
+            f" s (host, median of 3); on {card}")
+    return out
 
 
 def sync_count(fn):
@@ -2721,6 +2776,60 @@ def bvh_cli(card):
                              "card")
 
 
+def walk_against_plain(dev, key, card, scene, bvh, cam, cfg, o, d):
+    """K6 against its plain version on ``walk_sets``, bit for bit and visit
+    for visit (the per-ray counters): through the path each scene takes,
+    and through the other one forced where a block can hold the staged
+    bytes; each set of 2^17 rays timed through each.  Returns (the largest
+    t difference, {set: times})."""
+    err = 0.0
+    set_ms = {}
+    smem_limit = getattr(torch.cuda.get_device_properties(dev),
+                         "shared_memory_per_block_optin", 232448)
+    for label, sc, bv, so, sd in walk_sets(dev, key, scene, bvh, cam, cfg,
+                                           o, d):
+        path = traverse.walk_path(sc, bv)
+        before = traverse.intersect_bvh.launches
+        got = traverse.intersect_bvh(sc, bv, so, sd, 1e-3,
+                                     return_counters=True)
+        torch.cuda.synchronize()
+        if traverse.intersect_bvh.launches != before + 1:
+            raise AssertionError("K6's launch counter did not move")
+        want = traverse.intersect_bvh_plain(sc, bv, so, sd, 1e-3,
+                                            return_counters=True)
+        what = (f"K6 {label} ({so.shape[0]} rays, {int(got[2].sum())} "
+                f"hits; {bv.num_nodes} nodes, "
+                f"{traverse.shared_bytes(sc, bv)} bytes staged")
+        bit_equal(f"{what}, {path} path) (prim, t, hit, counters)", got,
+                  want)
+        runs = {path: lambda: traverse.intersect_bvh(sc, bv, so, sd, 1e-3)}
+        # The other path, forced, where a block can hold the staged bytes.
+        other, budget = (("global", 0) if path == "shared" else
+                         ("shared", 2 ** 31 - 1))
+        if traverse.shared_bytes(sc, bv) <= smem_limit:
+            forced = traverse._launch_cuda(sc, bv, so, sd, 1e-3,
+                                           BVH_MAX_LEAF, True, budget)
+            bit_equal(f"{what}, the {other} path forced)", forced, want)
+            runs[other] = lambda: traverse._launch_cuda(
+                sc, bv, so, sd, 1e-3, BVH_MAX_LEAF, False, budget)
+        err = max(err, float((got[1] - want[1]).abs().max()))
+        if so.shape[0] < GRAD_RAYS // 2:
+            continue
+        sums = want[3].long().sum(0).tolist()
+        b = k6_bound(sc, bv, sums, so.shape[0])
+        times = {p: graph_ms(fn, 5, 20) for p, fn in runs.items()}
+        set_ms[label] = {"ms": times, "bound_ms": b[0], "path": path}
+        log(f"  K6 {label}: " + ", ".join(
+            f"{p} path {ms:.5f} ms" for p, ms in times.items())
+            + f" (20 calls in a CUDA graph; bound {b[0]:.5f} ms, {b[1]}; per"
+            f" ray {sums[0] / so.shape[0]:.2f} nodes, "
+            f"{sums[1] / so.shape[0]:.2f} sphere and "
+            f"{sums[2] / so.shape[0]:.2f} triangle slots); default path "
+            f"{path}; before the warp walk "
+            f"{EARLIER_K6.get(label, 'not measured')}; on {card}")
+    return err, set_ms
+
+
 def bvh_walk_path(dev, key, card, dense_tape):
     """Phase 19.  Returns K6's entry of the kernels line."""
     scene, cam, cfg = build_preset("random-spheres", device=dev)
@@ -2731,20 +2840,9 @@ def bvh_walk_path(dev, key, card, dense_tape):
     o, d = camera_rays(scene, cam, cfg, key, WAVE_RAYS)
     ids = torch.arange(WAVE_RAYS, device=dev)
 
-    # K6 against its plain version, bit for bit.
-    err = 0.0
-    for label, sc, bv, so, sd in walk_sets(dev, key, scene, bvh, cam, cfg,
-                                           o, d):
-        before = traverse.intersect_bvh.launches
-        got = traverse.intersect_bvh(sc, bv, so, sd, 1e-3)
-        torch.cuda.synchronize()
-        if traverse.intersect_bvh.launches != before + 1:
-            raise AssertionError("K6's launch counter did not move")
-        want = traverse.intersect_bvh_plain(sc, bv, so, sd, 1e-3)
-        bit_equal(f"K6 {label} ({so.shape[0]} rays, "
-                  f"{int(got[2].sum())} hits; {bv.num_nodes} nodes)", got,
-                  want)
-        err = max(err, float((got[1] - want[1]).abs().max()))
+    err, set_ms = walk_against_plain(dev, key, card, scene, bvh, cam, cfg,
+                                     o, d)
+    builds = bvh_builds(dev, card)
 
     # Against the dense sweep: the same winner but on exact ties.
     k6 = traverse.intersect_bvh(scene, bvh, o, d, 1e-3)
@@ -2789,7 +2887,9 @@ def bvh_walk_path(dev, key, card, dense_tape):
         f"launches {entry_launches} ({c['passes']} passes, {c['replays']} "
         f"replays, {c['syncs']} flag reads); {capture_note(c)}; s: first "
         f"(its capture) {first_s:.3f}, graphed {graphed_s:.4f} (before K7 "
-        f"and K8 {EARLIER['entry']}), the plain walk eager {eager_s:.3f}; "
+        f"and K8 {EARLIER['entry']}; before the warp walk "
+        f"{EARLIER_K6['entry']}), "
+        f"the plain walk eager {eager_s:.3f}; "
         f"on {card}")
     if not (torch.equal(out1, out2) and torch.equal(out1, plain)):
         raise AssertionError("entry()'s graphed forward differs from the "
@@ -2858,7 +2958,9 @@ def bvh_walk_path(dev, key, card, dense_tape):
         f"{turns['K4'][0]:.4f}, {turns['K4'][1]:.4f}; K6 "
         f"{turns['K6'][0]:.4f}, {turns['K6'][1]:.4f} "
         f"({total / min(turns['K6']) / 1e6:.3f} Mpaths/s); before K7 and K8 "
-        f"{EARLIER['bvh frame']}; on {card}")
+        f"{EARLIER['bvh frame']}; before the warp walk "
+        f"{EARLIER_K6['bvh frame']}; "
+        f"on {card}")
 
     # The same frame op by op, K6 clocked by events around each call:
     # graphed = eager, and K6's time and work over the frame.
@@ -2894,8 +2996,10 @@ def bvh_walk_path(dev, key, card, dense_tape):
         f"{plain_s * 1e3:.1f} ms (one run, {plain_syncs} syncs); over the "
         f"frame's {len(clock.events)} calls ({clock.rays} rays) back to back "
         f"{frame_ms:.2f} ms (bound {frame_bound[0]:.3f} ms, "
-        f"{frame_bound[1]}), events around the eager calls "
-        f"{clock.ms():.2f} ms; on {card}")
+        f"{frame_bound[1]}; before the warp walk "
+        f"{EARLIER_K6['frame calls']}), "
+        f"events around the eager calls {clock.ms():.2f} ms; path "
+        f"{traverse.walk_path(scene, bvh)}; on {card}")
     bvh_cli(card)
     return {"name": "K6 flat-BVH walk (intersect_bvh), 2^17 camera rays of "
                     "the final scene",
@@ -2907,7 +3011,8 @@ def bvh_walk_path(dev, key, card, dense_tape):
             "entry_launches": entry_launches, "frame_ms": frame_ms,
             "frame_bound_ms": frame_bound[0], "frame_s": turns,
             "entry_s": {"graphed": graphed_s, "plain_eager": eager_s},
-            "syncs": syncs}
+            "syncs": syncs, "path": traverse.walk_path(scene, bvh),
+            "sets": set_ms, "bvh_build_s": builds}
 
 
 def graph_nodes(fn):

@@ -8,7 +8,9 @@ needs no stack:
 - preorder: an inner node's left child is ``node + 1``;
 - ``skip[node]``: the next preorder index after the node's whole subtree,
   where the walk jumps when the node's box is missed or a leaf is done;
-- leaves own up to ``max_leaf`` primitives, contiguous in ``prim_ids``.
+- leaves own up to ``max_leaf`` primitives, contiguous in ``prim_ids``;
+- ``nodes``: each node again as K6's 32-byte record (``pack_nodes``), the
+  array the walk kernel reads.
 
 Split: the largest-extent centroid axis, at the sweep-SAH position (or the
 median with ``use_sah=False``).  ``backend="native"`` builds the same
@@ -24,7 +26,7 @@ import torch
 
 from ..geometry.aabb import sphere_aabb_np, triangle_aabb_np
 
-__all__ = ["FlatBVH", "build_bvh", "scene_prim_bounds"]
+__all__ = ["FlatBVH", "build_bvh", "pack_nodes", "scene_prim_bounds"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +39,7 @@ class FlatBVH:
     node_count: torch.Tensor  # (N,) i32: leaf: primitives (> 0); else 0
     node_skip: torch.Tensor   # (N,) i32: preorder index after this subtree
     prim_ids: torch.Tensor    # (Np,) i32: permuted global primitive ids
+    nodes: torch.Tensor       # (N, 8) i32: K6's records (``pack_nodes``)
 
     @property
     def num_nodes(self) -> int:
@@ -85,7 +88,7 @@ def build_bvh(scene, max_leaf: int = 4, use_sah: bool = True,
 
     def flat(*arrays):
         return FlatBVH(*(torch.from_numpy(np.ascontiguousarray(a)).to(
-            scene.device) for a in arrays))
+            scene.device) for a in (*arrays, pack_nodes(*arrays))))
 
     if backend != "numpy":
         from . import native
@@ -95,6 +98,36 @@ def build_bvh(scene, max_leaf: int = 4, use_sah: bool = True,
         if backend == "native":
             raise RuntimeError(f"native builder unavailable: {native.error()}")
     return flat(*_build_numpy(bmin, bmax, max_leaf, use_sah))
+
+
+# K6's node record: a leaf's count in the top 8 bits of a 32-bit word, its
+# first slot in prim_ids in the low 24.
+COUNT_SHIFT = 24
+
+
+def pack_nodes(node_min, node_max, node_first, node_count, node_skip,
+               prim_ids):
+    """The nodes as K6's (N, 8) int32 records, 32 bytes each: the float32
+    bits of min.xyz, skip, the float32 bits of max.xyz, then ``count << 24
+    | first`` (``kernels/csrc/bvh_walk.cu``), so that a node step is two
+    128-bit loads.  Raises if a leaf's count or first slot does not fit
+    its bits."""
+    n_prims = prim_ids.shape[0]
+    count = np.asarray(node_count, np.int64)
+    first = np.asarray(node_first, np.int64)
+    if n_prims >= 1 << COUNT_SHIFT:
+        raise ValueError(f"K6's node record holds a first slot in "
+                         f"{COUNT_SHIFT} bits: {n_prims} primitives")
+    if count.size and count.max() > 255:
+        raise ValueError("K6's node record holds a leaf's count in 8 bits: "
+                         f"a count of {count.max()}")
+    rec = np.empty((count.shape[0], 8), np.int32)
+    rec[:, 0:3] = np.asarray(node_min, np.float32).view(np.int32)
+    rec[:, 3] = node_skip
+    rec[:, 4:7] = np.asarray(node_max, np.float32).view(np.int32)
+    rec[:, 7] = ((count << COUNT_SHIFT) | first).astype(np.uint32).view(
+        np.int32)
+    return rec
 
 
 def _build_numpy(bmin, bmax, max_leaf, use_sah):

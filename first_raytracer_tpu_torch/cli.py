@@ -254,15 +254,10 @@ def _cmd_bench(args):
 
 
 def _cmd_fit(args):
+    from .bench import read_launches
     from .core import rng
     from .diff.grad import (GRAPHS, make_fit_step, make_fit_step_replay,
                             make_optimizer, ray_radiance, split_params)
-    from .kernels.intersect_clustered import intersect_clustered
-    from .kernels.intersect_pallas import intersect_pallas
-    from .kernels.megakernel import render_pixels_mega
-    from .kernels.megakernel_clustered import render_pixels_mega_clustered
-    from .kernels.record_mega import (record_paths_mega,
-                                      record_paths_mega_clustered)
     from .render.graphed import LOOPS
 
     device = torch.device(args.device)
@@ -311,14 +306,7 @@ def _cmd_fit(args):
                                          for k, v in params.items()})
     print(json.dumps({"fit": "done", "steps": args.steps,
                       "final_loss": loss, "device": str(device),
-                      "kernel_launches": {
-                          "K1": render_pixels_mega.launches,
-                          "K2": render_pixels_mega.tape_launches,
-                          "K2b": record_paths_mega.launches,
-                          "K3": render_pixels_mega_clustered.launches,
-                          "K3t": record_paths_mega_clustered.launches,
-                          "K4": intersect_pallas.launches,
-                          "K5": intersect_clustered.launches},
+                      "kernel_launches": read_launches(),
                       "graphs": {"captures": GRAPHS.captures,
                                  "replays": GRAPHS.replays},
                       "loops": {k: getattr(LOOPS, k) for k in (

@@ -115,6 +115,23 @@ inline T __ldg(const T* p) {
   return *p;
 }
 
+// Reinterpretations of a 32-bit word, as the card's intrinsics.
+inline float __int_as_float(int x) {
+  float f;
+  std::memcpy(&f, &x, sizeof f);
+  return f;
+}
+inline int __float_as_int(float x) {
+  int i;
+  std::memcpy(&i, &x, sizeof i);
+  return i;
+}
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+}
+
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(int x) { return __builtin_ffs(x); }
 

@@ -308,9 +308,11 @@ def bind_bvh(lib):
     (also a host build of ``bvh_walk.cu`` alone)."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.frt_bvh_walk.argtypes = (
-        [ptr] * 8 + [i32] * 2 + [ptr] * 2 + [i32] + [ptr] * 3 + [i32] * 3
-        + [f32] + [ptr] * 5)
+        [ptr] * 4 + [i32] * 2 + [ptr] * 2 + [i32] + [ptr] * 3 + [i32] * 3
+        + [f32] + [i32] + [ptr] * 5)
     lib.frt_bvh_walk.restype = i32
+    lib.frt_bvh_walk_shared_bytes.argtypes = [i32] * 3
+    lib.frt_bvh_walk_shared_bytes.restype = i32
     return lib
 
 

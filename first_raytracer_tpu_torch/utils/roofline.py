@@ -183,11 +183,10 @@ def k5_bound(pack, sweeps_total, rays, launches=1):
 
 def k6_bound(scene, bvh, walk_total, rays, launches=1):
     """K6's bound from the nodes and slots its counters say it tested
-    (``walk_total``: the three ``WALK_COLUMNS`` sums): the BVH and the
-    scene's primitives read once a launch, 24 bytes in and 9 out a ray
-    (prim, t, hit)."""
-    tables = tensor_bytes(bvh.node_min, bvh.node_max, bvh.node_first,
-                          bvh.node_count, bvh.node_skip, bvh.prim_ids,
+    (``walk_total``: the three ``WALK_COLUMNS`` sums): the BVH's node
+    records and slots and the scene's primitives read once a launch, 24
+    bytes in and 9 out a ray (prim, t, hit)."""
+    tables = tensor_bytes(bvh.nodes, bvh.prim_ids,
                           scene.sphere_center, scene.sphere_radius,
                           scene.tri_v0, scene.tri_v1, scene.tri_v2)
     return intersect_bound(k6_ops(walk_total), launches * tables + 24 * rays,

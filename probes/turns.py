@@ -22,6 +22,13 @@ times, median of the repeats after a warm launch:
   frame of it (pool 2^17);
 - k5: K5 at 2^17 camera rays of field20000 and of trifield20000, and over
   one wavefront frame of field20000 (chunks of 2^17);
+- k6: K6, the flat-BVH walk (``build_bvh(max_leaf=4)``), at 2^17 camera
+  rays of the final scene, at one bounce's secondary rays from their hits,
+  at 2^17 camera rays of field5000, field20000 and trifield20000 (each
+  with a digest of (prim, t, hit, counters) and the path it took where the
+  checkout has two), over one regenerative frame's calls (pool 2^17); the
+  BVH pool frame (s/frame, median of 3) and ``entry()``'s forward (s,
+  median of 5);
 - frames: the whole frames those kernels serve, host clock around
   ``render_image`` and a synchronize, median of 3 after a warm frame: the
   final scene regenerative (pool 2^17, K4), field20000 and trifield20000
@@ -98,7 +105,8 @@ ENTRIES = {"k1": ("mega_kernelILb0",), "k2": ("mega_kernelILb1",),
            "chain": ("record_kernel", "record_clustered_kernel"),
            "lone": ("record_kernel", "record_clustered_kernel"),
            "k4": ("intersect_dense_kernel",),
-           "k5": ("intersect_clustered_kernel",), "frames": ()}
+           "k5": ("intersect_clustered_kernel",),
+           "k6": ("bvh_walk_kernel",), "frames": ()}
 
 
 def say(*parts):
@@ -400,6 +408,52 @@ def k5():
         frame_ms(ic.intersect_clustered, lambda fn: render_image(
             scene, cam, cfg, seed=0, accel=pack, intersect_fn=fn, **EAGER,
             chunk=RAYS, device="cuda"), scene, pack, f"K5 {label} frame")
+
+
+def k6():
+    from first_raytracer_tpu_torch.accel import traverse
+    from first_raytracer_tpu_torch.accel.build import build_bvh
+    from first_raytracer_tpu_torch.entry import entry
+    from first_raytracer_tpu_torch.materials.scatter import scatter
+    from first_raytracer_tpu_torch.render.integrator import recompute_hit
+
+    path = getattr(traverse, "walk_path", lambda *a: "one")
+    scene, cam, cfg = build_preset("random-spheres", device="cuda")
+    bvh = build_bvh(scene, max_leaf=4)
+    o, d = (t.contiguous() for t in camera_rays(scene, cam, cfg))
+    prim, _, hit = traverse.intersect_bvh(scene, bvh, o, d, 1e-3)
+    _, p, n, mat = recompute_hit(scene, o, d, prim, 1e-3)
+    ids = torch.arange(RAYS, device="cuda")
+    new_d, _, ok = scatter(scene, mat, d, p, n,
+                           rng.bounce_uniforms(rng.base_key(0), ids, 0))
+    live = hit & ok
+    sets = [("final scene 2^17 camera rays", scene, bvh, o, d),
+            (f"final scene {int(live.sum())} bounce rays", scene, bvh,
+             p[live].contiguous(), new_d[live].contiguous())]
+    for label, preset, n_prims in (("field5000", "sphere-field", 5000),
+                                   ("field20000", "sphere-field", 20000),
+                                   ("trifield20000", "triangle-field",
+                                    20000)):
+        sc, c, cf = build_preset(preset, device="cuda", n=n_prims)
+        sets.append((f"{label} 2^17 camera rays", sc,
+                     build_bvh(sc, max_leaf=4),
+                     *(t.contiguous() for t in camera_rays(sc, c, cf))))
+    for label, sc, bv, so, sd in sets:
+        out = traverse.intersect_bvh(sc, bv, so, sd, 1e-3,
+                                     return_counters=True)
+        say(f"K6 {label} ms", *graph_ms(
+            lambda: traverse.intersect_bvh(sc, bv, so, sd, 1e-3), 11, 20),
+            "path", path(sc, bv), "outputs", digest(*out))
+    frame_ms(traverse.intersect_bvh, lambda fn: render_image(
+        scene, cam, cfg, seed=0, accel=bvh, intersect_fn=fn, **EAGER,
+        mode="regenerative", pool_size=RAYS, device="cuda"), scene, bvh,
+        "K6 regenerative frame")
+    say("BVH regenerative final scene s/frame", *host_s(
+        lambda: render_image(scene, cam, cfg, seed=0, accel=bvh,
+                             mode="regenerative", pool_size=RAYS,
+                             device="cuda"), 3))
+    fn, args = entry("cuda")
+    say("entry() forward s", *host_s(lambda: fn(*args), 5))
 
 
 def host_s(fn, repeats):

@@ -12,11 +12,20 @@ a ``FlatBVH`` through their default (graphed) route.
   magnifies that ulp (64 ulps of t seen on three-spheres).  So the plain
   walk runs with ``torch.sqrt`` taken in float64 and rounded once, which
   is what the card computes; against the unchanged plain walk the
-  primitives and hits are equal.  Scenes: three-spheres, random-spheres
+  primitives and hits are equal.  Its per-ray counters (nodes, sphere
+  slots, triangle slots) equal the plain walk's row by row: it visits the
+  same nodes and leaf slots.  Each case runs through both of K6's paths,
+  forced by the budget its launch is given (shared memory: the budget is
+  the staged bytes; global: 0).  Scenes: three-spheres, random-spheres
   (64 rays), the triangle-mesh preset, its triangles alone, random spheres
   mixed with triangles, a median-split BVH with 2-slot leaves, rays along
-  the axes whose origins lie on slab planes (0 * inf = NaN, a miss), and
-  ``max_leaf`` above the builder's.
+  the axes whose origins lie on slab planes (0 * inf = NaN, a miss),
+  ``max_leaf`` above the builder's, and 4000 triangles whose records and
+  slots are over ``SHARED_BUDGET`` (the global path by default).  Between
+  two launches over one scene its centres move in place: the second
+  launch reads them anew.  The node records (``pack_nodes``) decode to
+  the BVH's arrays, and the bytes the kernel's source stages are the
+  wrapper's ``shared_bytes``.
 - ``render_ray_batch`` with a ``FlatBVH`` on its default route (on the
   CPU the loop's bodies run through ``LOOPS``' buffers) against the JAX
   package's ``render_ray_batch`` with its BVH, at 16x8 @ 2 and depth 8:
@@ -186,47 +195,130 @@ def _case(name):
         scene = scene_from_numpy(_mixed(9, 48, 16).as_numpy())
         bvh = build_bvh(scene, max_leaf=3)
         return scene, bvh, 7, [_random_rays(256, 4)]
+    if name == "over-budget":
+        scene = scene_from_numpy(_mixed(11, 0, 4000).as_numpy())
+        bvh = build_bvh(scene, max_leaf=4)
+        return scene, bvh, 4, [_random_rays(96, 8, spread=3.0)]
     raise KeyError(name)
 
 
 K6_CASES = ["three-spheres", "random-spheres", "triangle-mesh",
             "triangles-only", "mixed", "median-2-slot", "slab-planes",
-            "max-leaf-above"]
+            "max-leaf-above", "over-budget"]
+# The budget that forces each of K6's paths: the bytes the shared path
+# stages, or none.
+PATH_BUDGET = {"shared": tv.shared_bytes, "global": lambda scene, bvh: 0}
+# (case, path): every case that fits SHARED_BUDGET takes the shared path by
+# default, so that path keeps the case's own id.
+K6_RUNS = [pytest.param(name, path,
+                        id=name if path == "shared" else f"{name}-{path}")
+           for name in K6_CASES for path in PATH_BUDGET]
 
 
-@pytest.mark.parametrize("name", K6_CASES)
-def test_k6_equals_plain(host_k6, monkeypatch, name):
+def _k6_against_plain(monkeypatch, scene, bvh, max_leaf, o, d, budget):
+    """K6 through its launch code under ``budget`` against the plain walk:
+    (prim, t, hit) bit-equal with the card's square root, primitives and
+    hits equal to the unchanged plain walk's, and the per-ray counters
+    equal.  Returns K6's hit."""
+    prim, t, hit, counts = tv._launch_cuda(scene, bvh, o, d, 1e-3,
+                                           max_leaf, True, budget)
+    assert prim.dtype == torch.int32 and t.dtype == torch.float32
+    assert hit.dtype == torch.bool and counts.dtype == torch.int32
+    rp, rt, rh = tv.intersect_bvh_plain(scene, bvh, o, d, 1e-3, max_leaf)
+    assert torch.equal(prim, rp) and torch.equal(hit, rh)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sqrt", _rounded_sqrt)
+        cp, ct, ch, cc = tv.intersect_bvh_plain(scene, bvh, o, d, 1e-3,
+                                                max_leaf, True)
+    assert torch.equal(prim, cp) and torch.equal(t, ct)
+    assert torch.equal(hit, ch) and torch.equal(hit, t < 1e30)
+    assert torch.equal(counts, cc)
+    nodes, spheres, triangles = counts.long().sum(0).tolist()
+    assert (counts[:, 0] >= 1).all() and nodes <= o.shape[0] * \
+        bvh.num_nodes
+    assert (spheres == 0) == (scene.num_spheres == 0)
+    assert (triangles == 0) == (scene.num_triangles == 0)
+    return hit
+
+
+@pytest.mark.parametrize("name, path", K6_RUNS)
+def test_k6_equals_plain(host_k6, monkeypatch, name, path):
     """K6's (prim, t, hit) bit-equal to the plain walk's with the card's
-    square root, and its primitives and hits equal to the unchanged plain
-    walk's; its counters count a box test for every node it visited and
-    only the slots of the scene's primitive types."""
+    square root, its primitives and hits equal to the unchanged plain
+    walk's, and its counters equal to the plain walk's row by row, through
+    the path its budget forces."""
     scene, bvh, max_leaf, rays = _case(name)
+    budget = PATH_BUDGET[path](scene, bvh)
+    assert tv.walk_path(scene, bvh, budget) == path
+    default = "global" if name == "over-budget" else "shared"
+    assert tv.walk_path(scene, bvh) == default
     for o, d in rays:
-        prim, t, hit, counts = tv._launch_cuda(scene, bvh, o, d, 1e-3,
-                                               max_leaf, True)
-        assert prim.dtype == torch.int32 and t.dtype == torch.float32
-        assert hit.dtype == torch.bool
-        rp, rt, rh = tv.intersect_bvh_plain(scene, bvh, o, d, 1e-3, max_leaf)
-        assert torch.equal(prim, rp) and torch.equal(hit, rh)
-        with monkeypatch.context() as m:
-            m.setattr(torch, "sqrt", _rounded_sqrt)
-            cp, ct, ch = tv.intersect_bvh_plain(scene, bvh, o, d, 1e-3,
-                                                max_leaf)
-        assert torch.equal(prim, cp) and torch.equal(t, ct)
-        assert torch.equal(hit, ch) and torch.equal(hit, t < 1e30)
-        nodes, spheres, triangles = counts.long().sum(0).tolist()
-        assert (counts[:, 0] >= 1).all() and nodes <= o.shape[0] * \
-            bvh.num_nodes
-        assert (spheres == 0) == (scene.num_spheres == 0)
-        assert (triangles == 0) == (scene.num_triangles == 0)
+        hit = _k6_against_plain(monkeypatch, scene, bvh, max_leaf, o, d,
+                                budget)
     if name == "slab-planes":
         assert bool((~hit).any()) and bool(hit.any())
 
 
+@pytest.mark.parametrize("path", list(PATH_BUDGET))
+def test_k6_reads_a_scene_moved_in_place(host_k6, monkeypatch, path):
+    """Sphere centres and triangle vertices moved in place between two
+    launches over one BVH (as ``cli fit --bvh`` moves them): the second
+    launch equals the plain walk on the moved scene, through each path."""
+    scene = scene_from_numpy(_mixed(13, 32, 24).as_numpy())
+    bvh = build_bvh(scene, max_leaf=4)
+    budget = PATH_BUDGET[path](scene, bvh)
+    o, d = _random_rays(160, 9)
+    before = _k6_against_plain(monkeypatch, scene, bvh, 4, o, d, budget)
+    g = torch.Generator().manual_seed(13)
+    scene.sphere_center.add_(0.3 * torch.randn(
+        scene.sphere_center.shape, generator=g))
+    scene.tri_v1.add_(0.3 * torch.randn(scene.tri_v1.shape, generator=g))
+    after = _k6_against_plain(monkeypatch, scene, bvh, 4, o, d, budget)
+    assert not torch.equal(before, after)
+
+
+@pytest.mark.parametrize("name", K6_CASES)
+def test_k6_records_and_staged_bytes(host_k6, name):
+    """``FlatBVH.nodes`` decodes to the node arrays (min, skip, max, count
+    << 24 | first); the bytes the kernel's source stages for the shared
+    path are ``shared_bytes``; the budget picks the shared path at those
+    bytes and the global one a byte below."""
+    scene, bvh, _, _ = _case(name)
+    rec = bvh.nodes
+    assert torch.equal(rec[:, 0:3].view(torch.float32), bvh.node_min)
+    assert torch.equal(rec[:, 4:7].view(torch.float32), bvh.node_max)
+    assert torch.equal(rec[:, 3], bvh.node_skip)
+    word = rec[:, 7].long() & 0xFFFFFFFF
+    assert torch.equal(word >> 24, bvh.node_count.long())
+    assert torch.equal(word & 0xFFFFFF, bvh.node_first.long())
+    n = tv.shared_bytes(scene, bvh)
+    assert host_k6.frt_bvh_walk_shared_bytes(
+        bvh.num_nodes, bvh.prim_ids.shape[0], scene.num_triangles) == n
+    assert tv.walk_path(scene, bvh, n) == "shared"
+    assert tv.walk_path(scene, bvh, n - 1) == "global"
+
+
+def test_pack_nodes_refuses_what_its_bits_cannot_hold():
+    """A first slot past 24 bits (2^24 primitives) or a leaf count past 8
+    bits is refused where the record is made."""
+    from first_raytracer_tpu_torch.accel.build import pack_nodes
+
+    z3, z1 = np.zeros((1, 3), np.float32), np.zeros(1, np.int32)
+    with pytest.raises(ValueError, match="24 bits"):
+        pack_nodes(z3, z3, z1, z1 + 1, z1 + 1,
+                   np.broadcast_to(np.int32(0), (1 << 24,)))
+    with pytest.raises(ValueError, match="8 bits"):
+        pack_nodes(z3, z3, z1, z1 + 256, z1 + 1, np.zeros(256, np.int32))
+    rec = pack_nodes(z3, z3, z1 + (1 << 24) - 1, z1 + 255, z1 + 1,
+                     np.zeros((1 << 24) - 1, np.int32))
+    assert rec[0, 7] == -1  # all 32 bits set
+
+
 def test_k6_launch_skips_no_rays_and_refuses_bad_input(host_k6):
-    """No launch for R = 0; a wrong dtype or max_leaf is refused before
-    the launch; the CPU path keeps no counters and another device has no
-    walk."""
+    """No launch for R = 0; a wrong dtype, unaligned records or max_leaf
+    is refused before the launch; ``intersect_bvh`` on the CPU returns no
+    counters (the plain walk does, asked directly) and another device has
+    no walk."""
     scene, bvh, _, _ = _case("mixed")
     before = tv.intersect_bvh.launches
     e = torch.zeros((0, 3))
@@ -237,6 +329,13 @@ def test_k6_launch_skips_no_rays_and_refuses_bad_input(host_k6):
     with pytest.raises(ValueError, match="dtype"):
         tv._launch_cuda(scene, dataclasses.replace(
             bvh, node_skip=bvh.node_skip.long()), o, d, 1e-3, 4, False)
+    with pytest.raises(ValueError, match="nodes has dtype"):
+        tv._launch_cuda(scene, dataclasses.replace(
+            bvh, nodes=bvh.nodes.view(torch.float32)), o, d, 1e-3, 4, False)
+    with pytest.raises(ValueError, match="aligned"):
+        tv._launch_cuda(scene, dataclasses.replace(
+            bvh, nodes=torch.zeros(bvh.nodes.numel() + 1, dtype=torch.int32)
+            [1:].view(bvh.nodes.shape)), o, d, 1e-3, 4, False)
     with pytest.raises(ValueError, match="max_leaf"):
         tv._launch_cuda(scene, bvh, o, d, 1e-3, 0, False)
     with pytest.raises(ValueError, match="counters"):

@@ -163,7 +163,8 @@ def test_cli_fit(tmp_path, fast):
     assert steps[-1]["loss"] < steps[0]["loss"]
     assert last["fit"] == "done" and last["device"] == "cpu"
     assert last["kernel_launches"] == {"K1": 0, "K2": 0, "K2b": 0,
-                                       "K3": 0, "K3t": 0, "K4": 0, "K5": 0}
+                                       "K3": 0, "K3t": 0, "K4": 0, "K5": 0,
+                                       "K6": 0, "K7": 0, "K8": 0}
     # The CPU runs the replay's value and gradient eagerly: no graph.
     assert last["graphs"] == {"captures": 0, "replays": 0}
     want = _jax_fit_first_loss("random-spheres", ("albedo", "fuzz"), 0,
@@ -171,6 +172,24 @@ def test_cli_fit(tmp_path, fast):
     np.testing.assert_allclose(steps[0]["loss"], want, rtol=1e-5)
     with np.load(ckpt) as saved:
         assert sorted(saved.files) == ["albedo", "fuzz"]
+
+
+def test_cli_fit_line_reads_every_kernel_counter(monkeypatch, capsys):
+    """``fit``'s ``kernel_launches`` is ``bench.COUNTERS``' table: K1-K8,
+    each its wrapper's counter (set here, since the CPU's plain versions
+    count nothing), K6-K8 among them on a ``--bvh`` fit."""
+    from first_raytracer_tpu_torch import bench, cli
+
+    for i, (_, fn, attr) in enumerate(bench.COUNTERS):
+        monkeypatch.setattr(fn, attr, 100 + i)
+    assert cli.main(["fit", "--preset", "three-spheres", "--nx", "8", "--ny",
+                     "4", "--spp", "1", "--device", "cpu", "--bvh",
+                     "--fields", "albedo", "--steps", "1",
+                     "--max-depth", "3"]) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    want = {k: 100 + i for i, (k, _, _) in enumerate(bench.COUNTERS)}
+    assert last["kernel_launches"] == want
+    assert {"K6", "K7", "K8"} <= set(want)
 
 
 def test_cli_fit_large_scene_takes_the_clustered_recorder():
