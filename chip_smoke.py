@@ -8,9 +8,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. Device: a CUDA GPU must be present; prints its name and the
    ``nvidia-smi`` name and power limit.
-2. Build: compiles K1, K2, K2b, K3, K3t, K4, K5, K6, K7 and K8
+2. Build: compiles K1, K2, K2b, K3, K3t, K4, K5, K6, K7, K8, K9 and K10
    (kernels/csrc/megakernel.cu, megakernel_clustered.cu, intersect.cu,
-   bvh_walk.cu and rng_rays.cu, one nvcc a source, all at once) for
+   bvh_walk.cu, rng_rays.cu and wavefront_pass.cu, one nvcc a source, all
+   at once) for
    sm_90a; prints ptxas's registers and spills of every kernel, each on a
    line of its own.
 3. K1 vs plain: K1 and its plain PyTorch version on the same card and
@@ -284,31 +285,56 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``cli render --mode regenerative --bvh`` at 120x80 @ 4 in a
    subprocess: it exits 0 and its line shows the loops captured and
    replayed.
-20. K7 and K8, the wavefront paths' Threefry draw (``core.rng.uniforms``)
-   and camera rays (``render.camera.camera_rays``).  The main path: the
-   final scene's full pool frame through K4, graphed, counters reset
+20. K7 and K8, the Threefry draw (``core.rng.uniforms``) and camera rays
+   (``render.camera.camera_rays``) of the recorders, the replays and the
+   wavefront loops' inits.  The main path: the pool recorder (2^14 slots)
+   over 2^17 rays of the final scene through K4, graphed, counters reset
    before and read after: K7 once a pass and K8 once a pass plus the
-   pool's init (warm-up blocks included), the radiance sum within 1% of
-   ``bench_golden.json``.  Bit-equal to their plain versions
+   init (warm-up blocks included), its tape ``torch.equal`` to the same
+   recorder op by op.  Bit-equal to their plain versions
    (``rng.uniforms_plain``, ``camera.camera_rays_plain``: torch ops) on the
    card: K7's camera draw at 2^17 final-scene ids, its bounce draw at a
    0-d depth, at per-ray depths 0-50 and at the ids and depths of the
-   frame's last pool pass (the frame run op by op); K8 at 2^17 ids, at the
+   pool frame's last pass (the frame run op by op); K8 at 2^17 ids, at the
    last pass's ids, with a float64 camera and on camera-effects' lens.
    Times at 2^17 rays, each kernel's 20 calls in a CUDA graph, the plain
    versions one call a graph and one eager call; bounds from
-   ``utils/roofline.py``.  A graphed pool pass at 2^17 slots: its ms and
-   its graph's nodes (``cuGraphGetNodes``), beside the 2.006 ms and ~1060
-   nodes it took before K7 and K8.  Phases 12, 13, 18 and 19 print their
-   graphed frame and step times beside those before K7 and K8
-   (``EARLIER``).
+   ``utils/roofline.py``.
+21. K9 and K10, the wavefront pass's shading and regeneration
+   (``render.wavefront_pass``).  Pass by pass, ``torch.equal`` to their
+   plain versions (``shade_plain``, ``regenerate_plain``: torch ops) on
+   the card, every tensor of the state, output rows, segment counts and
+   ``cont``, and the scratch rows of the next state where ``cont`` holds
+   (the only rows K9 writes): a pool of 2^17 slots over 2^19 ray ids from id 1000 and
+   the trips of a chunk of 2^17 ids (K9's survivor counts a block equal to
+   the plain ``cont``'s), on the final scene through K4 and
+   through K6, field20000 and trifield20000 through K5, triangle-mesh,
+   its triangles alone and camera-effects through the dense sweep.  The
+   main path, counters reset before and read after each: the final
+   scene's pool frame through K4, graphed (K9 and K10 once a pass, K7 not
+   at all, K8 once for the init, the radiance sum within 1% of
+   ``bench_golden.json``), its chunked frame (K9 once a trip, K10 not at
+   all), and field20000's and trifield20000's chunked frames through K5
+   (within 1% of their oracle goldens).  Times at 2^17 slots, 20 calls a
+   CUDA graph: K9 in pool mode and in trip mode (a chunk's first trip,
+   the carry restored before each call and the restore's own time taken
+   off), K10 with the cursor's copy, as the pass runs them (its scan
+   inside, from K9's block counts), beside the copy alone and the torch
+   cumsum it replaced, and the plain versions one call a graph; bounds
+   from ``utils/roofline.py``, from this run's live, missing and
+   continuing slots.  A graphed
+   pool pass's and trip's ms and nodes (``cuGraphGetNodes``, at most 30 each)
+   beside the 267 and 259 before K9 and K10.  Phases 12, 13, 18 and 19
+   print their graphed frame and step times beside those before K9 and
+   K10 (``EARLIER``).
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements (``sharded_launches``: the launches of phases 14 and 15;
 ``bench_launches``: phase 17's, by run; ``direct_step_launches``: phase
 18's, K4 on the final scene and K5 on field5000; K6's ``entry_launches``:
 phase 19's ``entry()`` forward; K7's and K8's ``launches``: phase 20's
-pool frame, ``launches_wavefront``: phase 12's chunked frame) and
+pool recorder, ``frame_launches``: phase 12's frames; K9's and K10's:
+phase 21's pool frame, ``frame_launches``: its frames) and
 the result line ``{"ok": true, "device": {...}}``.  This
 script imports no JAX.  Bounds count FP32 operations from the sources
 (``first_raytracer_tpu_torch/utils/roofline.py``, which ``bench_torch.py``'s
@@ -321,8 +347,10 @@ oc-form quadratic on (cx, cy, cz, r*r)) and a triangle in 46 (on its
 edges, computed once per triangle); K5 adds 29 per box, supergroup or
 cluster, its counters say it tested.  K6 (kernels/csrc/bvh_walk.cu) counts
 25 per node, 20 per sphere slot and 52 per triangle slot its counters say
-it tested.  K7 and K8 (kernels/csrc/rng_rays.cu) count 252 and 315
-operations a ray and are bound by their bytes.
+it tested.  K7 and K8 (kernels/csrc/rng_rays.cu) count 164 integer
+operations a ray at the INT32 rate (and 8 and 71 FP32); K9 and K10
+(kernels/csrc/wavefront_pass.cu) add the shading's 60 FP32 operations a
+slot and a tail slot's camera ray, and are bound by their bytes.
 """
 from __future__ import annotations
 
@@ -359,14 +387,17 @@ from first_raytracer_tpu_torch.parallel import dryrun
 from first_raytracer_tpu_torch.parallel.mesh import (TILE_AXIS,
                                                      make_render_mesh)
 from first_raytracer_tpu_torch.render import graphed
-from first_raytracer_tpu_torch.render.api import (render_image,
+from first_raytracer_tpu_torch.render import wavefront_pass as wp
+from first_raytracer_tpu_torch.render.api import (batch_state,
+                                                  render_image,
                                                   render_ray_batch)
 from first_raytracer_tpu_torch.render import camera as rcam
 from first_raytracer_tpu_torch.render.camera import generate_rays
 from first_raytracer_tpu_torch.entry import entry
 from first_raytracer_tpu_torch.materials.scatter import scatter
-from first_raytracer_tpu_torch.render.integrator import (intersect_brute,
-                                                         recompute_hit)
+from first_raytracer_tpu_torch.render.integrator import (default_intersect,
+                                                         intersect_brute,
+                                                         recompute_hit, trip)
 from first_raytracer_tpu_torch.render.regenerative import (
     pool_pass, pool_state, render_rays_regenerative)
 from first_raytracer_tpu_torch.render.image import write_png
@@ -377,7 +408,8 @@ from first_raytracer_tpu_torch.utils.roofline import (bound,
                                                       clustered_bound,
                                                       k4_bound, k5_bound,
                                                       k6_bound, k7_bound,
-                                                      k8_bound)
+                                                      k8_bound, k9_bound,
+                                                      k10_bound)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_KEY = "radiance_sum_mega_1200x800_10spp"
@@ -399,7 +431,10 @@ KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("intersect_dense_kernel", "K4"),
                   ("intersect_clustered_kernel", "K5"),
                   ("bvh_walk_kernel", "K6"), ("uniforms_kernel", "K7"),
-                  ("camera_rays_kernel", "K8"))
+                  ("camera_rays_kernel", "K8"),
+                  ("shade_pool_kernel", "K9 (pool)"),
+                  ("shade_trip_kernel", "K9 (trip)"),
+                  ("regenerate_kernel", "K10"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
 # Phases 8 and 10: the small scenes.
@@ -455,22 +490,24 @@ BENCH_RUNS = [
                               "BENCH_MODE": "wavefront",
                               "BENCH_INTERSECT": "clustered"}, "K5"),
 ]
-# The graphed wavefront frames and steps before K7 and K8 took the draws
-# and camera rays (PERF.md section 5: this script and its probes on an
-# NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this run's.
+# The graphed wavefront frames and steps before K9 and K10 took the pass's
+# shading and regeneration (PERF.md sections 5 and 6: this script's runs in
+# PRs 15 and 16 on an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside
+# this run's.
 EARLIER = {
-    "regenerative": "0.424-0.513 s/frame",
-    "wavefront": "3.61-3.68 s/frame",
-    "field20000": "0.598-0.636 s/frame",
-    "trifield20000": "none recorded",
-    "pool pass": "2.006 ms and ~1060 nodes",
-    "final scene, dense sweep": "graphed step 0.490 s, recorder 0.381 s, "
-                                "replay 0.125 s",
-    "field5000, K5": "graphed step 0.191-0.194 s, recorder 0.056 s",
-    "pool recorder": "0.156 s",
-    "bvh frame": "0.5070-0.5088 s/frame, through K4 0.5110-0.5142",
-    "entry": "0.0416-0.0473 s graphed",
-    "bvh recorder": "0.0603-0.0616 s graphed",
+    "regenerative": "0.155-0.180 s/frame",
+    "wavefront": "1.705-1.762 s/frame",
+    "field20000": "0.3124-0.3715 s/frame",
+    "trifield20000": "0.2702-0.2784 s/frame",
+    "pool pass": "0.663-0.678 ms and 267 nodes",
+    "trip": "259 nodes (counted on the CPU)",
+    "final scene, dense sweep": "graphed step 0.438-0.450 s, recorder "
+                                "0.358-0.360 s, replay 0.090 s",
+    "field5000, K5": "graphed step 0.121-0.122 s, recorder 0.031 s",
+    "pool recorder": "0.0845 s",
+    "bvh frame": "0.149-0.173 s/frame, through K4 0.155-0.180",
+    "entry": "0.0207-0.0215 s graphed",
+    "bvh recorder": "0.0262 s graphed",
 }
 # K6's times as a one-thread-a-ray kernel, before the warp walk (PERF.md
 # section 6: probes/turns.py k6 on that checkout in turns with this one,
@@ -751,6 +788,8 @@ def reset_counts():
     traverse.intersect_bvh.launches = 0
     rng.uniforms.launches = 0
     rcam.camera_rays.launches = 0
+    wp.shade.launches = 0
+    wp.regenerate.launches = 0
     graphed.LOOPS.reset_counts()
 
 
@@ -839,7 +878,7 @@ def tape_agreement(what, got, want, floor):
 
 
 def build():
-    """Phase 2: the one library of K1-K6."""
+    """Phase 2: the one library of K1-K10."""
     _, info = mk.load_mega_library()
     log(f"build: {os.path.relpath(info.path, ROOT)} (nvcc "
         f"{info.seconds:.2f} s, cached={info.cached})")
@@ -852,7 +891,7 @@ def build():
 
 def ptxas_kernels(text):
     """(label, function, registers, spill line) of each entry in ptxas -v
-    output, labelled K1-K6."""
+    output, labelled K1-K10."""
     out, entry, spills = [], None, ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -1811,7 +1850,8 @@ def dense_wavefront_path(dev, key, card):
         imgs[mode] = frame(mode)
         torch.cuda.synchronize()
         launches[mode] = ip.intersect_pallas.launches
-        draws[mode] = (rng.uniforms.launches, rcam.camera_rays.launches)
+        draws[mode] = (rng.uniforms.launches, rcam.camera_rays.launches,
+                       wp.shade.launches, wp.regenerate.launches)
         loops[mode] = c = loop_counts()
         img = imgs[mode]
         if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or \
@@ -1825,14 +1865,18 @@ def dense_wavefront_path(dev, key, card):
             f"{c['warmups']} warm-up block(s), {c['passes']} passes "
             f"replayed, {c['live_passes']} with a live ray), "
             f"{c['replays']} replays, {c['syncs']} host "
-            f"reads ({graphed.PASSES_PER_READ} passes a read), K7 and K8 "
-            f"launches {draws[mode][0]} and {draws[mode][1]}; "
+            f"reads ({graphed.PASSES_PER_READ} passes a read), K7, K8, K9 "
+            f"and K10 launches {', '.join(map(str, draws[mode]))}; "
             f"{capture_note(c)}")
         if launches[mode] < 1:
             raise AssertionError(f"the {mode} render did not launch K4")
         if launches[mode] != c["passes"] + c["warmups"] * \
                 graphed.PASSES_PER_READ:
             raise AssertionError(f"{mode}: K4's count is not the passes")
+        if draws[mode][2] != launches[mode] or draws[mode][3] != (
+                launches[mode] if mode == "regenerative" else 0):
+            raise AssertionError(f"{mode}: K9's and K10's counts "
+                                 f"{draws[mode][2:]} are not the passes")
         check_reads(mode, c, 1 if mode == "regenerative" else chunks)
         if not rel < 1e-2:
             raise AssertionError(f"{mode}: radiance sum off golden ({rel})")
@@ -1923,7 +1967,7 @@ def dense_wavefront_path(dev, key, card):
             f"{statistics.mean(t['eager']) / g:.2f}x), graphed "
             f"{total / g / 1e6:.3f} Mpaths/s, {rays / g / 1e6:.3f} "
             f"Mrays/s ({rays} segments); {loops[mode]['syncs']} host reads "
-            f"a graphed frame; before K7 and K8 {EARLIER[mode]}; on {card}")
+            f"a graphed frame; before K9 and K10 {EARLIER[mode]}; on {card}")
     k4_ms = graph_ms(lambda: ip.intersect_pallas(scene, pack, o, d, 1e-3), 5,
                      20)
     regen_replay_ms = clocks["regenerative"].replay_ms(scene, pack)
@@ -2080,7 +2124,7 @@ def clustered_wavefront_path(dev, key, card):
             f"{tot[1] / clock.rays:.1f} sphere and "
             f"{tot[2] / clock.rays:.1f} triangle slots, "
             f"{tot[3] / clock.rays:.1f} boxes; K4 on the same frame "
-            f"{clock4.ms():.2f} ms; before K7 and K8 {EARLIER[label]}; on "
+            f"{clock4.ms():.2f} ms; before K9 and K10 {EARLIER[label]}; on "
             f"{card}")
         log(f"  at {WAVE_RAYS} camera rays: K5 {k5_ms:.4f} ms (bound "
             f"{b1[0]:.4f} ms, {b1[1]}), plain {plain_s * 1e3:.1f} ms (one "
@@ -2520,7 +2564,7 @@ def direct_turns(what, fns, card):
     log(f"  {what}, in turns (eager, graphed, graphed, eager): "
         + "; ".join(f"{k} {', '.join(f'{t * 1e3:.1f}' for t in v)} ms"
                     for k, v in times.items())
-        + f"; before K7 and K8 {EARLIER[what]}; on {card}")
+        + f"; before K9 and K10 {EARLIER[what]}; on {card}")
     return times
 
 
@@ -2601,7 +2645,7 @@ def direct_step_path(dev, key, card):
         params, scene, cam, cfg, key, ids, record_pool=1 << 14))[0]
     log(f"  the pool recorder (2^14 slots): tape equal to the lockstep "
         f"recorder's {torch.equal(pool, tape)} ({pool_s * 1e3:.1f} ms "
-        f"graphed, its second call; before K7 and K8 "
+        f"graphed, its second call; before K9 and K10 "
         f"{EARLIER['pool recorder']})")
     if not torch.equal(pool, tape):
         raise AssertionError("the pool recorder's tape differs from the "
@@ -2886,8 +2930,8 @@ def bvh_walk_path(dev, key, card, dense_tape):
         f"plain walk's eager forward {torch.equal(out1, plain)}; K6 "
         f"launches {entry_launches} ({c['passes']} passes, {c['replays']} "
         f"replays, {c['syncs']} flag reads); {capture_note(c)}; s: first "
-        f"(its capture) {first_s:.3f}, graphed {graphed_s:.4f} (before K7 "
-        f"and K8 {EARLIER['entry']}; before the warp walk "
+        f"(its capture) {first_s:.3f}, graphed {graphed_s:.4f} (before K9 "
+        f"and K10 {EARLIER['entry']}; before the warp walk "
         f"{EARLIER_K6['entry']}), "
         f"the plain walk eager {eager_s:.3f}; "
         f"on {card}")
@@ -2903,7 +2947,7 @@ def bvh_walk_path(dev, key, card, dense_tape):
                                                bvh))
     rec_s2 = host_s(lambda: record_paths(scene, o, d, ids, key, cfg, bvh))[0]
     log(f"  the lockstep recorder through K6 at 2^17 rays: {rec_s:.3f} s "
-        f"(its capture), {rec_s2:.4f} s graphed (before K7 and K8 "
+        f"(its capture), {rec_s2:.4f} s graphed (before K9 and K10 "
         f"{EARLIER['bvh recorder']}); "
         f"{int((tape6 != dense_tape).sum())} of {tape6.numel()} entries "
         "differ from phase 18's dense-sweep tape")
@@ -2957,8 +3001,8 @@ def bvh_walk_path(dev, key, card, dense_tape):
     log(f"  s/frame in turns (K4, K6, K6, K4; median of 3 a turn): K4 "
         f"{turns['K4'][0]:.4f}, {turns['K4'][1]:.4f}; K6 "
         f"{turns['K6'][0]:.4f}, {turns['K6'][1]:.4f} "
-        f"({total / min(turns['K6']) / 1e6:.3f} Mpaths/s); before K7 and K8 "
-        f"{EARLIER['bvh frame']}; before the warp walk "
+        f"({total / min(turns['K6']) / 1e6:.3f} Mpaths/s); before K9 and "
+        f"K10 {EARLIER['bvh frame']}; before the warp walk "
         f"{EARLIER_K6['bvh frame']}; "
         f"on {card}")
 
@@ -3050,11 +3094,9 @@ def last_pool_pass(scene, cam, cfg, key, pack):
     return (*last, passes)
 
 
-def rng_rays_path(dev, key, card, frames, chunk_draws):
-    """Phase 20.  ``frames``: the graphed frames' seconds of the earlier
-    phases, by name; ``chunk_draws``: K7's and K8's launches over phase
-    12's chunked frame.  Returns K7's and K8's entries of the kernels
-    line."""
+def rng_rays_path(dev, key, card, frame_draws):
+    """Phase 20.  ``frame_draws``: K7's and K8's launches over phase 12's
+    frames, by mode.  Returns K7's and K8's entries of the kernels line."""
     scene, cam, cfg = build_preset("random-spheres", device=dev)
     pack = ip.pack_scene_pallas(scene)
     key = key.to(dev)
@@ -3064,34 +3106,37 @@ def rng_rays_path(dev, key, card, frames, chunk_draws):
         ).manual_seed(0)).to(dev)
     last_ids, last_depth, last_alive, passes = last_pool_pass(
         scene, cam, cfg, key, pack)
-    log(f"  the frame's last pool pass (pass {passes} of the frame op by "
+    log(f"  the pool frame's last pass (pass {passes} of the frame op by "
         f"op): {int(last_alive.sum())} live slots, ids {int(last_ids.min())}"
         f"-{int(last_ids.max())}, depths {int(last_depth.min())}-"
         f"{int(last_depth.max())}")
 
-    # The main path: the final scene's pool frame through K4, graphed, the
-    # counters reset just before it and read just after.
-    golden = final_golden()
+    # The main path: the pool recorder over 2^17 rays of the final scene
+    # through K4, graphed, the counters reset just before it and read just
+    # after.  The recorders keep their torch bodies, which draw through K7
+    # and K8; the render passes take K9 and K10 (phase 21).
+    def recorder(graphed_=None):
+        return record_paths_pool(scene, cam, cfg, key, ids, pack,
+                                 ip.intersect_pallas, pool_size=1 << 14,
+                                 graphed=graphed_)
     reset_counts()
-    img = render_image(scene, cam, cfg, seed=0, accel=pack,
-                       mode="regenerative", pool_size=WAVE_RAYS, device=dev)
+    tape = recorder()
     torch.cuda.synchronize()
     n7, n8, c = rng.uniforms.launches, rcam.camera_rays.launches, \
         loop_counts()
-    rel = abs(float(img.double().sum()) * cfg.spp - golden) / golden
-    log(f"  the pool frame through K4, graphed: K7 launches {n7}, K8 "
-        f"launches {n8} ({c['warmups']} warm-up block(s), {c['passes']} "
-        f"passes replayed, {c['replays']} replays); radiance sum rel "
-        f"{rel:.2e} off the golden")
+    same = torch.equal(tape, recorder(False))
+    log(f"  the pool recorder (2^14 slots) at {R} rays through K4, graphed:"
+        f" K7 launches {n7}, K8 launches {n8} ({c['warmups']} warm-up "
+        f"block(s), {c['passes']} passes replayed, {c['replays']} "
+        f"replays); its tape equal to the recorder op by op {same}")
     k = graphed.PASSES_PER_READ
     if not (n7 >= 1 and n8 >= 1 and n7 == c["passes"] + c["warmups"] * k
             and n8 == n7 + 1 + c["warmups"]):
-        raise AssertionError(f"the pool frame's K7 and K8 launches {n7}, "
+        raise AssertionError(f"the pool recorder's K7 and K8 launches {n7}, "
                              f"{n8} are not one a pass: {c}")
-    if not rel < 1e-2:
-        raise AssertionError(f"the pool frame's radiance sum off golden "
-                             f"({rel})")
-    del img
+    if not same:
+        raise AssertionError("the graphed pool recorder's tape differs")
+    del tape
 
     # K7 and K8 against their plain versions on the card, bit for bit.
     draws = [("the camera draw at 2^17 ids", ids, 0, 0),
@@ -3099,7 +3144,7 @@ def rng_rays_path(dev, key, card, frames, chunk_draws):
               torch.tensor(3, device=dev), 1),
              ("the bounce draws at per-ray depths 0-50, 2^17 ids", ids,
               depths, 1),
-             ("the bounce draws of the frame's last pool pass", last_ids,
+             ("the bounce draws of the pool frame's last pass", last_ids,
               last_depth, 1)]
     for label, i, dom, off in draws:
         before = rng.uniforms.launches
@@ -3111,7 +3156,7 @@ def rng_rays_path(dev, key, card, frames, chunk_draws):
                                                             dom + off)])
     lens, lcam, lcfg = build_preset("camera-effects", device=dev)
     rays = [("final scene, 2^17 ids", cam, cfg, ids),
-            ("final scene, the frame's last pool pass", cam, cfg, last_ids),
+            ("final scene, the pool frame's last pass", cam, cfg, last_ids),
             ("final scene, float64 camera, 2^17 ids", to_f64(cam), cfg,
              ids),
             (f"camera-effects (lens radius {float(lcam.lens_radius)}), "
@@ -3146,33 +3191,12 @@ def rng_rays_path(dev, key, card, frames, chunk_draws):
     eager7_s, eager8_s = host_s(plain7)[0], host_s(plain8)[0]
     b7, b7c, b8 = k7_bound(R, True), k7_bound(R), k8_bound(R)
     log(f"  K7 at {R} bounce draws (per-ray depths): {ms7:.4f} ms (bound "
-        f"{b7[0]:.4f} ms, {b7[1]}); the camera draw {cam_ms:.4f} ms (bound "
-        f"{b7c[0]:.4f}); plain {plain7_ms:.4f} ms in a graph, "
+        f"{b7[0]:.5f} ms, {b7[1]}); the camera draw {cam_ms:.4f} ms (bound "
+        f"{b7c[0]:.5f}, {b7c[1]}); plain {plain7_ms:.4f} ms in a graph, "
         f"{eager7_s * 1e3:.2f} ms eager")
-    log(f"  K8 at {R} camera rays: {ms8:.4f} ms (bound {b8[0]:.4f} ms, "
+    log(f"  K8 at {R} camera rays: {ms8:.4f} ms (bound {b8[0]:.5f} ms, "
         f"{b8[1]}); plain {plain8_ms:.4f} ms in a graph, "
         f"{eager8_s * 1e3:.2f} ms eager; on {card}")
-
-    # A graphed pool pass at 2^17 slots and its parts, as
-    # probes/wavefront_graph.py reads them, beside the pass before K7 and
-    # K8.
-    inputs = dict(scene=scene, camera=cam, accel=pack, key=key,
-                  start_id=torch.zeros((), dtype=torch.int64, device=dev))
-    static = dict(cfg=cfg, num_rays=cfg.num_rays, pool_size=R,
-                  intersect_fn=ip.intersect_pallas)
-    state = pool_state(**inputs, **static)
-
-    def one_pass():
-        pool_pass(state, **inputs, **static)
-    pass_ms = graph_ms(one_pass, 5)
-    nodes = graph_nodes(one_pass)
-    o, d = camera_rays(scene, cam, cfg, key, R)
-    k4_ms = graph_ms(lambda: ip.intersect_pallas(scene, pack, o, d, 1e-3),
-                     5)
-    log(f"  a graphed pool pass at {R} slots: {pass_ms:.4f} ms, {nodes} "
-        f"graph nodes (cuGraphGetNodes); its camera rays (K8) {ms8:.4f} ms, its bounce "
-        f"draw (K7) {ms7:.4f} ms, K4 {k4_ms:.4f} ms alone; before K7 and K8"
-        f" {EARLIER['pool pass']}; on {card}")
     src = "first_raytracer_tpu_torch/kernels/csrc/rng_rays.cu"
     common = {"route": "cuda", "source": src, "max_abs_err": 0.0,
               "library_ms": None}
@@ -3180,24 +3204,323 @@ def rng_rays_path(dev, key, card, frames, chunk_draws):
         "name": "K7 Threefry draw (core.rng.uniforms), 2^17 bounce draws "
                 "at per-ray depths",
         "replaces": rng.REPLACES, "launches": n7,
-        "launches_wavefront": chunk_draws[0],
+        "frame_launches": {m: v[0] for m, v in frame_draws.items()},
         "ms": ms7, "plain_ms": plain7_ms, "plain_eager_ms": eager7_s * 1e3,
         "bound_ms": b7[0], "bound_by": b7[1], "camera_draw_ms": cam_ms,
         "camera_draw_bound_ms": b7c[0]}), dict(common, **{
         "name": "K8 camera rays (render.camera.camera_rays), 2^17 rays of "
                 "the final scene",
         "replaces": rcam.REPLACES, "launches": n8,
-        "launches_wavefront": chunk_draws[1],
+        "frame_launches": {m: v[1] for m, v in frame_draws.items()},
         "ms": ms8, "plain_ms": plain8_ms, "plain_eager_ms": eager8_s * 1e3,
-        "bound_ms": b8[0], "bound_by": b8[1], "pool_pass_ms": pass_ms,
-        "pool_pass_nodes": nodes, "frame_s": frames})]
+        "bound_ms": b8[0], "bound_by": b8[1]})]
+
+
+# Phase 21: the pool's slots and ray ids, and where its range starts.
+PASS_POOL, PASS_RAYS, PASS_START = 1 << 17, 1 << 19, 1000
+# The graphed pass and trip before K9 and K10 (PERF.md section 5).
+NODES_BEFORE = {"pool pass": 267, "trip": 259}
+MAX_PASS_NODES = 30
+# The ``EARLIER`` entry of each earlier phase's frame that phase 21 lists.
+FRAME_EARLIER = {"bvh pool frame": "bvh frame"}
+
+
+def pass_sets(dev):
+    """Phase 21's sets: (label, scene, camera, cfg, accel), the accel
+    choosing the closest hit through ``default_intersect``."""
+    scene, cam, cfg = build_preset("random-spheres", device=dev)
+    out = [("final scene through K4", scene, cam, cfg,
+            ip.pack_scene_pallas(scene)),
+           ("final scene through K6", scene, cam, cfg,
+            build_bvh(scene, max_leaf=BVH_MAX_LEAF))]
+    for label, preset, n, _ in FIELD_WAVE:
+        fs, fc, fcfg = build_preset(preset, device=dev, n=n)
+        out.append((f"{label} through K5", fs, fc, fcfg,
+                    ic.pack_scene_clustered(fs)))
+    ms, mc_, mcfg = build_preset("triangle-mesh", device=dev)
+    out.append((f"triangle-mesh ({ms.num_spheres} spheres, "
+                f"{ms.num_triangles} triangles), dense sweep", ms, mc_, mcfg,
+                None))
+    tris = dataclasses.replace(ms, sphere_center=ms.sphere_center[:0],
+                               sphere_radius=ms.sphere_radius[:0],
+                               sphere_mat=ms.sphere_mat[:0])
+    out.append(("triangle-mesh's triangles alone, dense sweep", tris, mc_,
+                mcfg, None))
+    ls, lc, lcfg = build_preset("camera-effects", device=dev)
+    out.append(("camera-effects (a checker, a lens), dense sweep", ls, lc,
+                lcfg, None))
+    return out
+
+
+def k9_block_counts(what, got, want):
+    """Fails unless K9's block counts (``got``) are the counts of the plain
+    ``cont`` (``want``) a block of ``wavefront_pass.BLOCK`` slots; then
+    gives ``want`` K9's, which the plain version does not write."""
+    cont = want["cont"]
+    pad = (-cont.shape[0]) % wp.BLOCK
+    sums = torch.nn.functional.pad(cont.to(torch.int32), (0, pad)).view(
+        -1, wp.BLOCK).sum(1, dtype=torch.int32)
+    if not torch.equal(got["block_counts"], sums):
+        raise AssertionError(f"{what}: K9's block counts are not cont's")
+    want["block_counts"] = got["block_counts"]
+
+
+def same_state(what, got, want):
+    """Fails unless every tensor of ``got`` equals its partner in
+    ``want``, the scratch rows of the next state where ``want["cont"]``
+    holds (the only rows K9 writes); returns the largest difference (0.0
+    when equal)."""
+    def same(k):
+        if k in wp.NEXT_ROWS:
+            keep = want["cont"]
+            return torch.equal(got[k][keep], want[k][keep])
+        return torch.equal(got[k], want[k])
+    bad = [k for k in want if not same(k)]
+    if bad:
+        diffs = {k: float((got[k].double() - want[k].double()).abs().max())
+                 for k in bad}
+        raise AssertionError(f"{what} differs from the plain version: "
+                             f"{diffs}")
+    return 0.0
+
+
+def passes_vs_plain(label, scene, cam, cfg, key, accel):
+    """K9 and K10 against ``shade_plain`` and ``regenerate_plain`` pass by
+    pass over a pool of ``PASS_POOL`` slots, and K9 against
+    ``shade_plain`` trip by trip over a chunk of ``WAVE_RAYS`` ids, each
+    on a clone of the same state.  Returns (passes, trips)."""
+    dev = scene.device
+    start = torch.full((), PASS_START, dtype=torch.int64, device=dev)
+    n = min(PASS_RAYS, cfg.num_rays - PASS_START)
+    static = dict(cfg=cfg, num_rays=n, pool_size=PASS_POOL)
+    state = pool_state(scene, cam, key, start, **static)
+    passes = 0
+    while bool(state["alive"].any()):
+        prim, _, hit = default_intersect(scene, accel, state["o"],
+                                         state["d"], cfg.t_min)
+        want = {k: v.clone() for k, v in state.items()}
+        before = wp.shade.launches, wp.regenerate.launches
+        wp.shade(state, prim, hit, scene=scene, key=key, cfg=cfg,
+                 start_id=start, num_rays=n)
+        wp.shade_plain(want, prim, hit, scene=scene, key=key, cfg=cfg,
+                       start_id=start, num_rays=n)
+        k9_block_counts(f"{label}: pool pass {passes}", state, want)
+        same_state(f"{label}: K9, pool pass {passes}", state, want)
+        wp.regenerate(state, camera=cam, key=key, start_id=start, **static)
+        wp.regenerate_plain(want, camera=cam, key=key, start_id=start,
+                            **static)
+        want["cursor_next"] = state["cursor_next"]  # K10's own buffer
+        same_state(f"{label}: K10, pool pass {passes}", state, want)
+        if (wp.shade.launches, wp.regenerate.launches) != (
+                before[0] + 1, before[1] + 1):
+            raise AssertionError("K9's or K10's counter did not move")
+        passes += 1
+    if int(state["cursor"]) != n:
+        raise AssertionError(f"{label}: the pool did not spend its stream")
+    ids = torch.arange(min(WAVE_RAYS, cfg.num_rays), device=dev)
+    state = batch_state(scene, cam, key, ids, cfg=cfg)
+    trips = 0
+    while bool(state["alive"].any()):
+        prim, _, hit = default_intersect(scene, accel, state["origin"],
+                                         state["direction"], cfg.t_min)
+        want = {k: v.clone() for k, v in state.items()}
+        wp.shade(state, prim, hit, scene=scene, key=key, cfg=cfg)
+        wp.shade_plain(want, prim, hit, scene=scene, key=key, cfg=cfg)
+        same_state(f"{label}: K9, trip {trips}", state, want)
+        state["depth"].add_(1)
+        trips += 1
+    return passes, trips
+
+
+def counted_frame(what, frame, passes_k10):
+    """``frame()`` with the counters reset just before and read just
+    after: K9 once a pass or trip (as K4, K5 or K6), K10 once a pool pass
+    (``passes_k10``) or not at all, K7 never, K8 only for the inits.
+    Returns (image, launches)."""
+    reset_counts()
+    img = frame()
+    torch.cuda.synchronize()
+    c = loop_counts()
+    n = {"K7": rng.uniforms.launches, "K8": rcam.camera_rays.launches,
+         "K9": wp.shade.launches, "K10": wp.regenerate.launches}
+    k = graphed.PASSES_PER_READ
+    passes = c["passes"] + c["warmups"] * k
+    log(f"  {what}, graphed: launches {n} ({c['warmups']} warm-up "
+        f"block(s), {c['passes']} passes replayed, {c['replays']} replays)")
+    if not (n["K9"] >= 1 and n["K9"] == passes and n["K7"] == 0
+            and n["K10"] == (passes if passes_k10 else 0)):
+        raise AssertionError(f"{what}: K9 and K10 not once a pass ({n}, "
+                             f"{c})")
+    if tuple(img.shape)[-1] != 3 or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{what}: bad image")
+    return img, n
+
+
+def wavefront_pass_path(dev, key, card, frames):
+    """Phase 21.  ``frames``: the graphed frames' seconds of the earlier
+    phases, by name.  Returns K9's and K10's entries of the kernels
+    line."""
+    key = key.to(dev)
+    sets = pass_sets(dev)
+    for label, scene, cam, cfg, accel in sets:
+        t0 = time.perf_counter()
+        passes, trips = passes_vs_plain(label, scene, cam, cfg, key, accel)
+        log(f"  {label}: {passes} pool passes (K9 and K10) and {trips} "
+            f"trips (K9) bit-equal to the plain versions "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    # The main path, the counters reset just before each frame and read
+    # just after.
+    label, scene, cam, cfg, pack = sets[0]
+    golden = final_golden()
+    launches = {}
+    for mode in ("regenerative", "wavefront"):
+        img, launches[mode] = counted_frame(
+            f"the final scene's {mode} frame through K4",
+            lambda: render_image(scene, cam, cfg, seed=0, accel=pack,
+                                 mode=mode, chunk=WAVE_RAYS,
+                                 pool_size=WAVE_RAYS, device=dev),
+            mode == "regenerative")
+        rel = abs(float(img.double().sum()) * cfg.spp - golden) / golden
+        log(f"    radiance sum rel {rel:.2e} off the golden")
+        if not rel < 1e-2:
+            raise AssertionError(f"{mode}: radiance sum off golden ({rel})")
+    if launches["regenerative"]["K8"] > 2:
+        raise AssertionError("the pool frame made camera rays past its init")
+    for (flabel, preset, n, gkey), (_, fs, fc, fcfg, cpack) in zip(
+            FIELD_WAVE, sets[2:4]):
+        img, launches[flabel] = counted_frame(
+            f"{flabel} {fcfg.nx}x{fcfg.ny}@{fcfg.spp} chunks through K5",
+            lambda: render_image(fs, fc, fcfg, seed=0, accel=cpack,
+                                 chunk=WAVE_RAYS, device=dev), False)
+        field_golden(f"{flabel} chunks through K9", flabel, gkey,
+                     float(img.double().sum()) * fcfg.spp)
+
+    # Times at 2^17 slots: the pool's state after its init and one pass
+    # (K9 and K10 on live, dead and fresh slots), a chunk's first trip.
+    R = WAVE_RAYS
+    start = torch.zeros((), dtype=torch.int64, device=dev)
+    static = dict(cfg=cfg, num_rays=cfg.num_rays, pool_size=R)
+    inputs = dict(scene=scene, camera=cam, accel=pack, key=key,
+                  start_id=start)
+    state = pool_state(**inputs, **static)
+    pool_pass(state, **inputs, intersect_fn=ip.intersect_pallas, **static)
+    prim, _, hit = ip.intersect_pallas(scene, pack, state["o"], state["d"],
+                                       cfg.t_min)
+    work = {k: v.clone() for k, v in state.items()}
+    plain = {k: v.clone() for k, v in state.items()}
+    shade_kw = dict(scene=scene, key=key, cfg=cfg, start_id=start,
+                    num_rays=cfg.num_rays)
+    ms9 = graph_ms(lambda: wp._launch_shade(work, prim, hit, **shade_kw),
+                   5, 20)
+    plain9 = graph_ms(lambda: wp.shade_plain(plain, prim, hit, **shade_kw),
+                      5)
+    live = int(state["alive"].sum())
+    misses = int((state["alive"] & ~hit).sum())
+    cont = int(work["cont"].sum())
+    b9 = k9_bound(scene, R, live, cont, misses)
+    ms10 = graph_ms(lambda: wp._launch_regenerate(
+        work, camera=cam, key=key, start_id=start, **static), 5, 20)
+    copy_ms = graph_ms(lambda: work["cursor"].copy_(work["cursor_next"]),
+                       5, 20)
+    scan_ms = graph_ms(lambda: torch.cumsum(work["cont"], 0), 5, 20)
+    plain10 = graph_ms(lambda: wp.regenerate_plain(
+        plain, camera=cam, key=key, start_id=start, **static), 5)
+    b10 = k10_bound(R, cont)
+    ids = torch.arange(R, device=dev)
+    chunk = batch_state(scene, cam, key, ids, cfg=cfg)
+    cprim, _, chit = ip.intersect_pallas(scene, pack, chunk["origin"],
+                                         chunk["direction"], cfg.t_min)
+    # K9 in trip mode changes its carry: each call in the graph first
+    # restores the chunk's first trip, whose own time is taken off.
+    tchunk = {k: v.clone() for k, v in chunk.items()}
+    carry = ("origin", "direction", "throughput", "radiance", "alive",
+             "segments")
+
+    def restore():
+        for k in carry:
+            tchunk[k].copy_(chunk[k])
+
+    def restored_k9():
+        restore()
+        wp.shade(tchunk, cprim, chit, scene=scene, key=key, cfg=cfg)
+    restore_ms = graph_ms(restore, 5, 20)
+    ms9t = graph_ms(restored_k9, 5, 20) - restore_ms
+    after = {k: v.clone() for k, v in chunk.items()}
+    wp.shade_plain(after, cprim, chit, scene=scene, key=key, cfg=cfg)
+    plain9t = graph_ms(lambda: wp.shade_plain(
+        {k: v.clone() for k, v in chunk.items()}, cprim, chit, scene=scene,
+        key=key, cfg=cfg), 5)
+    tlive = int(chunk["alive"].sum())
+    tmisses = int((chunk["alive"] & ~chit).sum())
+    tcont = int(after["alive"].sum())
+    b9t = k9_bound(scene, R, tlive, tcont, tmisses, pool=False)
+    log(f"  K9 at {R} pool slots ({live} live, {misses} missing, {cont} "
+        f"going on): {ms9:.4f} ms (bound {b9[0]:.5f} ms, {b9[1]}); plain "
+        f"{plain9:.4f} ms in a graph")
+    log(f"  K9 at {R} trip rays (a chunk's first trip: {tlive} live, "
+        f"{tmisses} missing, {tcont} going on): {ms9t:.4f} ms, its carry's "
+        f"restore ({restore_ms:.4f} ms) taken off (bound {b9t[0]:.5f} ms, "
+        f"{b9t[1]}); plain {plain9t:.4f} ms in a graph")
+    log(f"  K10 at {R} pool slots ({cont} survivors), with the cursor's "
+        f"copy: {ms10:.4f} ms (bound {b10[0]:.5f} ms, {b10[1]}; its scan "
+        f"from K9's block counts inside); the copy alone {copy_ms:.4f} ms; "
+        f"a torch cumsum of cont, the plain scan, {scan_ms:.4f} ms; plain "
+        f"(the compaction and camera rays of every slot) {plain10:.4f} ms "
+        f"in a graph; on {card}")
+
+    # A graphed pool pass and trip at 2^17 slots: ms and nodes.
+    def one_pass():
+        pool_pass(state, **inputs, intersect_fn=ip.intersect_pallas,
+                  **static)
+
+    def one_trip():
+        trip(chunk, scene=scene, accel=pack, key=key, cfg=cfg,
+             intersect_fn=ip.intersect_pallas)
+    pass_ms, trip_ms = graph_ms(one_pass, 5), graph_ms(one_trip, 5)
+    nodes = {"pool pass": graph_nodes(one_pass), "trip": graph_nodes(one_trip)}
+    k4_ms = graph_ms(lambda: ip.intersect_pallas(scene, pack, state["o"],
+                                                 state["d"], cfg.t_min), 5)
+    log(f"  a graphed pool pass at {R} slots: {pass_ms:.4f} ms, "
+        f"{nodes['pool pass']} graph nodes (cuGraphGetNodes; before K9 and "
+        f"K10 {EARLIER['pool pass']}); a trip {trip_ms:.4f} ms, "
+        f"{nodes['trip']} nodes (before: {EARLIER['trip']}); K4 "
+        f"{k4_ms:.4f} ms alone; on {card}")
+    if max(nodes.values()) > MAX_PASS_NODES:
+        raise AssertionError(f"a graphed pass has {nodes} nodes, more than "
+                             f"{MAX_PASS_NODES}")
+    for name, sec in frames.items():
+        before = EARLIER[FRAME_EARLIER.get(name, name.split(" ")[0])]
+        log(f"  {name}: {', '.join(f'{x:.4f}' for x in sec)} s/frame "
+            f"graphed (earlier phases); before K9 and K10 {before}")
+    src = "first_raytracer_tpu_torch/kernels/csrc/wavefront_pass.cu"
+    common = {"route": "cuda", "source": src, "max_abs_err": 0.0,
+              "library_ms": None}
+    return [dict(common, **{
+        "name": "K9 wavefront pass shading (render.wavefront_pass.shade), "
+                "2^17 pool slots of the final scene",
+        "replaces": wp.REPLACES_SHADE,
+        "launches": launches["regenerative"]["K9"],
+        "frame_launches": {m: v["K9"] for m, v in launches.items()},
+        "ms": ms9, "plain_ms": plain9, "bound_ms": b9[0],
+        "bound_by": b9[1], "trip_ms": ms9t, "trip_plain_ms": plain9t,
+        "trip_bound_ms": b9t[0], "pool_pass_ms": pass_ms,
+        "trip_pass_ms": trip_ms, "nodes": nodes, "nodes_before":
+        NODES_BEFORE, "frame_s": frames}), dict(common, **{
+        "name": "K10 pool regeneration (render.wavefront_pass.regenerate: "
+                "K10 and the cursor's copy), 2^17 slots of the final scene",
+        "replaces": wp.REPLACES_REGENERATE,
+        "launches": launches["regenerative"]["K10"],
+        "frame_launches": {m: v["K10"] for m, v in launches.items()},
+        "ms": ms10, "plain_ms": plain10, "bound_ms": b10[0],
+        "bound_by": b10[1], "cumsum_ms": scan_ms, "copy_ms": copy_ms})]
 
 
 def bench_runs(card):
     """Phase 17: ``python3 bench_torch.py`` in subprocesses, one for each
     of ``BENCH_RUNS``.  Each must exit 0 with one JSON line without an
     ``error`` whose ``launches`` show its kernel.  Returns each kernel's
-    launches by label (and K7's and K8's where a run launched them)."""
+    launches by label (and K7's to K10's where a run launched them)."""
     launches = {}
     for label, switches, kernel in BENCH_RUNS:
         env = dict(os.environ, **switches)
@@ -3217,7 +3540,7 @@ def bench_runs(card):
             raise AssertionError(f"bench_torch.py {label} launched no "
                                  f"{kernel}: {line['launches']}")
         launches.setdefault(kernel, {})[label] = n
-        for draw in ("K7", "K8"):  # the wavefront modes' draws
+        for draw in ("K7", "K8", "K9", "K10"):  # the wavefront modes'
             if line["launches"].get(draw):
                 launches.setdefault(draw, {})[label] = \
                     line["launches"][draw]
@@ -3287,14 +3610,18 @@ def main():
     k6 = bvh_walk_path(dev, key, card, direct.pop("tape"))  # 19.
     torch.cuda.empty_cache()
     log("K7 and K8, the Threefry draw and the camera rays:")
+    k7, k8 = rng_rays_path(dev, key, card, k4["draw_launches"])  # 20.
+    k7["bench_launches"] = bench.get("K7", {})
+    k8["bench_launches"] = bench.get("K8", {})
+    torch.cuda.empty_cache()
+    log("K9 and K10, the wavefront pass's shading and regeneration:")
     frames = {f"{m} final scene": k4["frame_s"][m]["graphed"]
               for m in k4["frame_s"]}
     frames["field20000 chunks"] = k5["frame_s"]["graphed"]
     frames["bvh pool frame"] = k6["frame_s"]["K6"]
-    k7, k8 = rng_rays_path(dev, key, card, frames,
-                           k4["draw_launches"]["wavefront"])  # 20.
-    k7["bench_launches"] = bench.get("K7", {})
-    k8["bench_launches"] = bench.get("K8", {})
+    k9, k10 = wavefront_pass_path(dev, key, card, frames)  # 21.
+    k9["bench_launches"] = bench.get("K9", {})
+    k10["bench_launches"] = bench.get("K10", {})
     k6["bench_launches"] = bench["K6"]
     k4["direct_step_launches"] = direct["launches"]["K4"]
     k5["direct_step_launches"] = direct["launches"]["K5"]
@@ -3342,7 +3669,7 @@ def main():
         "tape_agreement_with_k2b": t10["agree_k2b"], "ms": t10["ms"],
         "plain_ms": t10["plain_ms"], "bound_ms": t10["bound"][0],
         "bound_by": t10["bound"][1], "library_ms": None,
-        "bench_launches": bench["K3t"]}, k4, k5, k6, k7, k8]}))
+        "bench_launches": bench["K3t"]}, k4, k5, k6, k7, k8, k9, k10]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -80,6 +80,7 @@ from .kernels import megakernel_clustered as mc
 from .kernels import record_mega as rm
 from .render.api import render_ray_batch
 from .render.camera import camera_rays
+from .render import wavefront_pass
 from .render.integrator import default_intersect
 from .render.regenerative import render_rays_regenerative
 from .scene.builders import random_scene, sphere_field, triangle_field
@@ -116,7 +117,9 @@ COUNTERS = (("K1", mk.render_pixels_mega, "launches"),
             ("K5", ic.intersect_clustered, "launches"),
             ("K6", traverse.intersect_bvh, "launches"),
             ("K7", rng.uniforms, "launches"),
-            ("K8", camera_rays, "launches"))
+            ("K8", camera_rays, "launches"),
+            ("K9", wavefront_pass.shade, "launches"),
+            ("K10", wavefront_pass.regenerate, "launches"))
 # The closest-hit kernel and wrapper of each BENCH_INTERSECT (the dense
 # sweep is plain PyTorch, ``default_intersect``'s).
 INTERSECT_KERNEL = {"pallas": "K4", "clustered": "K5", "bvh": "K6",

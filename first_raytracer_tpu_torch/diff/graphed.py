@@ -80,16 +80,18 @@ def _map(fn, obj):
 
 def launch_counters():
     """(wrapper, attribute) of the launch counters a graphed body can move:
-    K4's, K5's, K6's, K7's and K8's."""
+    K4's, K5's, K6's, K7's, K8's, K9's and K10's."""
     from ..accel import traverse
     from ..core import rng
     from ..kernels import intersect_clustered, intersect_pallas
-    from ..render import camera
+    from ..render import camera, wavefront_pass
     return ((intersect_pallas.intersect_pallas, "launches"),
             (intersect_clustered.intersect_clustered, "launches"),
             (traverse.intersect_bvh, "launches"),
             (rng.uniforms, "launches"),
-            (camera.camera_rays, "launches"))
+            (camera.camera_rays, "launches"),
+            (wavefront_pass.shade, "launches"),
+            (wavefront_pass.regenerate, "launches"))
 
 
 def launches_now():

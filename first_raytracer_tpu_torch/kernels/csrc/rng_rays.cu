@@ -21,19 +21,9 @@
 // K8 (`camera_rays_kernel<T>`) fuses the camera draw with
 // render/camera.py::generate_rays, which replaces
 // first_raytracer_tpu/render/camera.py:71 (no Pallas kernel either).  It is
-// bit-equal to generate_rays as torch runs it on the same device: the
-// jitter divided by the image size as a true division (vecmath.divide's
-// 0-d tensor, not a multiply by the reciprocal), 2 pi rounded to float32
-// before its multiply, sqrtf / sinf / cosf in float32, the direction summed
-// in the order camera.py writes it, and vecmath.normalize as sum -> 1 /
-// sqrt -> multiply, where torch.sum over a row of three adds (x + z) + y on
-// the card and (x + y) + z on the CPU (`sum3`; probes/torch_arith.py).
-// That is not K1's order (mega_common.cuh::camera_ray follows the
-// megakernel's), so K8 has its own.  A float64 camera takes K8<double>:
-// the draws and the unit disk stay float32 and are promoted as
-// generate_rays promotes them.  The host build (kernels/host_emu) takes
-// sqrtf, sinf and cosf in double rounded once, as core/vecmath.py does on
-// the CPU, so the same source is held to the CPU's plain version.
+// bit-equal to generate_rays as torch runs it on the same device; the ray's
+// arithmetic, torch's rounding and the host build's are camera_rays.cuh's,
+// which K10 (wavefront_pass.cu) shares for the pool's fresh rays.
 //
 // Both are bound by bytes on an H100: K7 reads an 8-byte id (and an 8-byte
 // depth when it has one per ray) and writes 16 bytes a ray, against ~250
@@ -45,33 +35,14 @@
 #include <cmath>
 #include <cstdint>
 
+#include "camera_rays.cuh"
 #include "mega_common.cuh"
 
 namespace {
 
+using frt::CameraFields;
+
 constexpr int kThreads = 256;
-
-// torch.sum over a row of three, in the order of the device it runs on.
-template <typename T>
-__device__ __forceinline__ T sum3(T x, T y, T z) {
-#if defined(__CUDA_ARCH__)
-  return (x + z) + y;
-#else
-  return (x + y) + z;
-#endif
-}
-
-// The square root in the type's own precision (a bare sqrt of a float
-// would take the host's double overload).
-__device__ __forceinline__ float root(float x) { return sqrtf(x); }
-__device__ __forceinline__ double root(double x) { return sqrt(x); }
-
-// Python's floor division and modulo of int64 by a positive divisor
-// (torch.div(..., rounding_mode="floor") and %).
-__device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
-  const int64_t q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
 
 __global__ void __launch_bounds__(kThreads)
     uniforms_kernel(const int64_t* __restrict__ key,
@@ -95,20 +66,6 @@ __global__ void __launch_bounds__(kThreads)
   out[4 * i + 3] = u[3];
 }
 
-// The camera's seven fields (render/camera.py::Camera), each its own
-// tensor: origin, lower_left, horizontal, vertical, u, v ((3,) each) and
-// lens_radius (()).
-template <typename T>
-struct CameraFields {
-  const T* origin;
-  const T* lower_left;
-  const T* horizontal;
-  const T* vertical;
-  const T* u;
-  const T* v;
-  const T* lens_radius;
-};
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     camera_rays_kernel(const int64_t* __restrict__ key,
@@ -117,40 +74,15 @@ __global__ void __launch_bounds__(kThreads)
                        T* __restrict__ origin, T* __restrict__ direction) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
-  const int64_t id = __ldg(ids + i);
-  float u[4];
-  frt::draws4(static_cast<uint32_t>(__ldg(key)),
-              static_cast<uint32_t>(__ldg(key + 1)), static_cast<uint32_t>(id),
-              0u, u);
-  const int64_t pixel = floor_div(id, spp);
-  const int64_t row = floor_div(pixel, nx);
-  const float fi = static_cast<float>(pixel - row * nx);
-  const float fj = static_cast<float>(row);
-  const float s = (fi + u[0]) / static_cast<float>(nx);
-  const float t = (fj + u[1]) / static_cast<float>(ny);
-  // rng.unit_disk_sample in float32, then promoted to the camera's type.
-  const float r = sqrtf(u[2]);
-  const float theta = frt::kTwoPi * u[3];
-  const float disk0 = r * cosf(theta);
-  const float disk1 = r * sinf(theta);
-  const T lens = __ldg(cam.lens_radius);
-  const T rd0 = lens * static_cast<T>(disk0);
-  const T rd1 = lens * static_cast<T>(disk1);
-  const T ts = static_cast<T>(s), tt = static_cast<T>(t);
-  T dir[3];
+  T o[3], dir[3];
+  frt::torch_camera_ray<T>(static_cast<uint32_t>(__ldg(key)),
+                           static_cast<uint32_t>(__ldg(key + 1)),
+                           __ldg(ids + i), nx, ny, spp, cam, o, dir);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const T co = __ldg(cam.origin + c);
-    const T offset = rd0 * __ldg(cam.u + c) + rd1 * __ldg(cam.v + c);
-    origin[3 * i + c] = co + offset;
-    dir[c] = __ldg(cam.lower_left + c) + ts * __ldg(cam.horizontal + c) +
-             tt * __ldg(cam.vertical + c) - co - offset;
+    origin[3 * i + c] = o[c];
+    direction[3 * i + c] = dir[c];
   }
-  // vecmath.normalize: v * where(n2 > 0, 1 / sqrt(n2), 0).
-  const T n2 = sum3(dir[0] * dir[0], dir[1] * dir[1], dir[2] * dir[2]);
-  const T inv = n2 > T(0) ? T(1) / root(n2) : T(0);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) direction[3 * i + c] = dir[c] * inv;
 }
 
 int blocks_for(int64_t n) {

@@ -60,11 +60,14 @@ DENSE_MAX = 1024
 KERNEL_SOURCE = "megakernel.cu"
 # K3 and K3t (the clustered megakernel), K4 and K5 (the wavefront closest
 # hits), K6 (the flat-BVH walk), K7 and K8 (the wavefront paths' Threefry
-# draws and camera rays) build into the same library.
+# draws and camera rays), K9 and K10 (the wavefront pass's shading and
+# regeneration) build into the same library.
 CLUSTERED_SOURCE = "megakernel_clustered.cu"
 INTERSECT_SOURCE = "intersect.cu"
 BVH_SOURCE = "bvh_walk.cu"
 RNG_RAYS_SOURCE = "rng_rays.cu"
+# K9 and K10 (the wavefront pass's shading and regeneration).
+WAVEFRONT_PASS_SOURCE = "wavefront_pass.cu"
 REPLACES = "first_raytracer_tpu/kernels/megakernel.py:306"
 
 
@@ -250,8 +253,8 @@ NVCC_EXTRA_FLAGS = ("--fmad=false",)
 @functools.lru_cache(maxsize=None)
 def load_mega_library():
     """Build (once per source and flags) and load the shared library of K1,
-    K2, K2b, K3, K3t, K4, K5, K6, K7 and K8: one nvcc a source, all at
-    once.
+    K2, K2b, K3, K3t, K4, K5, K6, K7, K8, K9 and K10: one nvcc a source,
+    all at once.
 
     Returns ``(ctypes.CDLL, BuildInfo)``.
     """
@@ -260,7 +263,7 @@ def load_mega_library():
     lib, info = build_library(
         "frt_mega",
         [KERNEL_SOURCE, CLUSTERED_SOURCE, INTERSECT_SOURCE, BVH_SOURCE,
-         RNG_RAYS_SOURCE],
+         RNG_RAYS_SOURCE, WAVEFRONT_PASS_SOURCE],
         NVCC_EXTRA_FLAGS)
     return bind(lib), info
 
@@ -279,6 +282,7 @@ def bind(lib):
     lib.frt_intersect_clustered.restype = i32
     bind_bvh(lib)
     bind_rng_rays(lib)
+    bind_wavefront_pass(lib)
     # The clustered tables: 12 pointers, then ns, nt, the two supergroup
     # counts and the two column counts.
     tables = [ptr] * 12 + [i32] * 6
@@ -326,6 +330,26 @@ def bind_rng_rays(lib):
         fn = getattr(lib, name)
         fn.argtypes = [ptr] * 2 + [i64] * 4 + [ptr] * 10
         fn.restype = i32
+    return lib
+
+
+def bind_wavefront_pass(lib):
+    """Declares K9's and K10's C entry points' argument and result types
+    on ``lib`` (also a host build of ``wavefront_pass.cu`` alone)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    f32 = ctypes.c_float
+    # The key, the scene's seven primitive tensors and their two counts,
+    # the material table's seven tensors and its rows.
+    scene = [ptr] * 8 + [i32] * 2 + [ptr] * 7 + [i32]
+    lib.frt_shade_pool.argtypes = (
+        scene + [ptr] * 9 + [i64, i32, f32] + [ptr] * 9 + [i64, ptr])
+    lib.frt_shade_pool.restype = i32
+    lib.frt_shade_trip.argtypes = (
+        scene + [ptr] * 10 + [i32, f32, i64, ptr])
+    lib.frt_shade_trip.restype = i32
+    lib.frt_regenerate.argtypes = (
+        [ptr] * 8 + [i64] * 3 + [ptr] * 16 + [i64] * 2 + [ptr])
+    lib.frt_regenerate.restype = i32
     return lib
 
 

@@ -24,9 +24,8 @@ A capture or a replay that fails raises; there is no eager fallback.  On
 the CPU the same bodies run eagerly over the same buffers and state, with
 the same blocks and the flag read per block.
 
-Kernel launches under a graph: K4's, K5's, K6's, K7's and K8's wrappers
-count their launches in Python, which runs only while a graph is
-captured.  The cache takes the launches a capture recorded off the
+Kernel launches under a graph: K4's to K10's wrappers count their
+launches in Python, which runs only while a graph is captured.  The cache takes the launches a capture recorded off the
 counters and adds them back on every replay, so the counters count what
 ran on the card (``diff.graphed.launch_counters``).
 """

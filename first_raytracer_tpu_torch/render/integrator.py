@@ -27,8 +27,10 @@ The forward path is the JAX package's ``while_loop``: ``trip`` advances a
 state of fixed shape (``trace_state``) by one trip in place, the depth a
 0-d device tensor, and the host reads "any ray alive" once per block of
 trips; on a CUDA device the blocks replay as a CUDA graph
-(``render/graphed.py``).  The differentiable path, ``resolve_fn`` and
-``sync_axis`` run one trip at a time, eagerly.
+(``render/graphed.py``).  Past its closest hit a trip is
+``render/wavefront_pass.shade``: K9, one kernel, on a CUDA device, and
+``_bounce``'s body (``shade_carry``) on the CPU.  The differentiable
+path, ``resolve_fn`` and ``sync_axis`` run one trip at a time, eagerly.
 """
 from __future__ import annotations
 
@@ -46,8 +48,8 @@ from ..geometry.triangle import (triangle_hit_all, triangle_hit_one,
 from ..materials.scatter import scatter
 
 __all__ = ["RenderConfig", "default_intersect", "forward_trips",
-           "intersect_brute", "recompute_hit", "sky_color", "trace_rays",
-           "trace_state", "trip"]
+           "intersect_brute", "recompute_hit", "shade_carry", "sky_color",
+           "trace_rays", "trace_state", "trip"]
 
 
 @dataclass(frozen=True)
@@ -185,10 +187,18 @@ def _bounce(scene, accel, resolve_fn, key, ray_ids, cfg, d, carry):
     """One trip of every ray at depth ``d`` (a Python int or a 0-d device
     tensor): the carry ``_CARRY`` in, the next carry out.  A trip in which
     every ray is dead changes nothing."""
+    resolved = resolve_fn(scene, accel, carry[0], carry[1], cfg.t_min)
+    return shade_carry(scene, cfg, d, carry, resolved,
+                       rng.bounce_uniforms(key, ray_ids, d))
+
+
+def shade_carry(scene, cfg, d, carry, resolved, uniforms):
+    """``_bounce`` past its closest hit: the carry ``_CARRY`` at depth
+    ``d``, the hit record ``resolved`` (t, p, n, mat, hit) and the bounce's
+    (R, 4) uniforms in, the next carry out."""
     origin, direction, throughput, radiance, alive, segments = carry
     segments = segments + alive.to(torch.int32)
-    t, p, n, mat, hit = resolve_fn(scene, accel, origin, direction,
-                                   cfg.t_min)
+    t, p, n, mat, hit = resolved
     # Dead and missing lanes get sanitized hit data so t = BIG points
     # cannot breed NaN/Inf.
     hit = hit & (t < BIG)
@@ -200,7 +210,6 @@ def _bounce(scene, accel, resolve_fn, key, ray_ids, cfg, d, carry):
     radiance = radiance + torch.where(
         miss_now[:, None], throughput * sky_color(direction), 0.0)
 
-    uniforms = rng.bounce_uniforms(key, ray_ids, d)
     new_dir, attenuation, scattered_ok = scatter(
         scene, mat, direction, p, n, uniforms)
     cont = alive & hit & scattered_ok & (d < cfg.max_depth)
@@ -232,12 +241,13 @@ def trip(state, *, scene, accel, key, cfg, intersect_fn, **_):
     """One forward trip of ``trace_state``'s state, in place: the body of
     the JAX package's ``while_loop`` (``integrator.py:255-268``), the
     depth on the device and no host read, so that a CUDA graph captures
-    it; past the depth cap or once every ray is dead it changes nothing."""
-    carry = _bounce(scene, accel, _resolver(intersect_fn), key,
-                    state["ray_ids"], cfg, state["depth"],
-                    tuple(state[k] for k in _CARRY))
-    for k, v in zip(_CARRY, carry):
-        state[k].copy_(v)
+    it; past the depth cap or once every ray is dead it changes nothing.
+    The closest hit, then ``render.wavefront_pass.shade``: K9 on a CUDA
+    device, ``shade_plain`` (``_bounce``'s body) on the CPU."""
+    from .wavefront_pass import shade
+    prim, _, hit = intersect_fn(scene, accel, state["origin"],
+                                state["direction"], cfg.t_min)
+    shade(state, prim, hit, scene=scene, key=key, cfg=cfg)
     state["depth"].add_(1)
 
 

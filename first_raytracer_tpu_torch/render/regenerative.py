@@ -17,16 +17,20 @@ wavefront render to float rounding.
 
 As in the JAX package, a pass (``pool_pass``) has fixed shapes and reads
 nothing back to the host: the survivor count and the stream's cursor stay
-on the device, the regeneration fills every slot and keeps the fresh rays
-in the tail, and the sky and segment counts go in by ``index_add_`` over
-all C slots (zero for the others: adding 0.0 is exact, so the order of the
-adds cannot change a bit).  The host reads "any slot alive" once per block
-of passes; on a CUDA device the passes replay as a CUDA graph
-(``render/graphed.py``).  JAX compacts with a scatter in which every dead
-lane collides at slot C - 1; the port scatters the dead lanes after the
-survivors (a stable partition, a permutation), which is deterministic on a
-GPU.  Slot C - 1 is a tail slot whenever a lane died, so both give the
-same pool.
+on the device.  Past the closest hit a pass is ``render/wavefront_pass``'s
+two seams.  On the CPU (``shade_plain``, ``regenerate_plain``) the
+regeneration fills every slot and keeps the fresh rays in the tail, and
+the sky and segment counts go in by ``index_add_`` over all C slots (zero
+for the others: adding 0.0 is exact, so the order of the adds cannot
+change a bit).  On a CUDA device K9 shades every slot in one kernel, each
+live slot adding to its own output row, and K10 compacts the survivors
+and makes camera rays for the tail only, bit-equal to those.  The host
+reads "any slot alive" once per block of passes; on a CUDA device the
+passes replay as a CUDA graph (``render/graphed.py``).  JAX compacts
+with a scatter in which every dead lane collides at slot C - 1; the port
+scatters the dead lanes after the survivors (a stable partition, a
+permutation), which is deterministic on a GPU.  Slot C - 1 is a tail
+slot whenever a lane died, so both give the same pool.
 """
 from __future__ import annotations
 
@@ -34,12 +38,9 @@ from typing import Callable, Optional
 
 import torch
 
-from ..core import rng
-from ..core.vecmath import constant
-from ..materials.scatter import scatter
 from .camera import camera_rays
-from .integrator import (BIG, UP, RenderConfig, default_intersect,
-                         recompute_hit, sky_color)
+from .integrator import RenderConfig, default_intersect
+from .wavefront_pass import pool_scratch, regenerate, shade
 
 __all__ = ["pool_state", "pool_pass", "render_rays_regenerative"]
 
@@ -54,8 +55,9 @@ def pool_state(scene, camera, key, start_id, *, cfg, num_rays, pool_size,
                **_):
     """The pool's state before its first pass: slot s holds ray id
     ``start_id + s`` (alive while s < num_rays), the stream's ``cursor``
-    (0-d int64), the (num_rays, 3) output and the (num_rays,) segment
-    counts.  ``start_id`` is a 0-d int64 tensor on the scene's device."""
+    (0-d int64), the (num_rays, 3) output, the (num_rays,) segment counts
+    and the scratch rows of ``render.wavefront_pass.pool_scratch``.
+    ``start_id`` is a 0-d int64 tensor on the scene's device."""
     C, dev, f32 = pool_size, scene.device, torch.float32
     slot = torch.arange(C, dtype=torch.int64, device=dev)
     ids = start_id + slot
@@ -68,7 +70,8 @@ def pool_state(scene, camera, key, start_id, *, cfg, num_rays, pool_size,
                 cursor=torch.full((), n0, dtype=torch.int64, device=dev),
                 out=torch.zeros((num_rays, 3), dtype=f32, device=dev),
                 segments=torch.zeros((num_rays,), dtype=torch.int32,
-                                     device=dev))
+                                     device=dev),
+                **pool_scratch(C, dev))
 
 
 @torch.no_grad()
@@ -76,46 +79,16 @@ def pool_pass(state, *, scene, camera, accel, key, start_id, cfg, num_rays,
               pool_size, intersect_fn, **_):
     """One pass of the pool, in place (the JAX package's loop body,
     ``regenerative.py:87-141``): no host read, every shape fixed.  Once
-    every slot is dead and the stream is spent it changes nothing."""
-    C = pool_size
-    o, d, tp, ids, depth, alive = (state[k] for k in (
-        "o", "d", "tp", "ids", "depth", "alive"))
-    prim, _, hit = intersect_fn(scene, accel, o, d, cfg.t_min)
-    row = (ids - start_id).clamp(0, num_rays - 1)
-    state["segments"].index_add_(0, row, alive.to(torch.int32))
-    t, p, n, mat = recompute_hit(scene, o, d, prim, cfg.t_min)
-    hit = hit & (t < BIG)
-    p = torch.where(hit[:, None], p, 0.0)
-    n = torch.where(hit[:, None], n, constant(UP, torch.float32, o.device))
-    new_dir, attenuation, ok = scatter(
-        scene, mat, d, p, n, rng.bounce_uniforms(key, ids, depth))
-    cont = alive & hit & ok & (depth < cfg.max_depth)
-
-    # Rays that miss add the sky and end; the others end in black.
-    state["out"].index_add_(0, row, torch.where(
-        (alive & ~hit)[:, None], tp * sky_color(d), 0.0))
-
-    # Compaction: survivors in order to the front, the dead after them.
-    n_alive = cont.sum()
-    slot = torch.arange(C, dtype=torch.int64, device=o.device)
-    dest = torch.where(cont, torch.cumsum(cont, 0) - 1,
-                       n_alive + torch.cumsum(~cont, 0) - 1)
-    src = torch.empty_like(dest).index_copy_(0, dest, slot)
-
-    # Regeneration: the tail from the primary stream.
-    cursor = state["cursor"]
-    is_tail = slot >= n_alive
-    fresh_idx = cursor + slot - n_alive
-    fresh_ids = start_id + fresh_idx.clamp(0, num_rays - 1)
-    fo, fd = _fresh_rays(camera, cfg, key, fresh_ids)
-    tail = is_tail[:, None]
-    o.copy_(torch.where(tail, fo, p[src]))
-    d.copy_(torch.where(tail, fd, new_dir[src]))
-    tp.copy_(torch.where(tail, 1.0, (tp * attenuation)[src]))
-    depth.copy_(torch.where(is_tail, 0, depth[src] + 1))
-    ids.copy_(torch.where(is_tail, fresh_ids, ids[src]))
-    alive.copy_(~is_tail | (fresh_idx < num_rays))
-    cursor.add_(torch.minimum(C - n_alive, (num_rays - cursor).clamp(min=0)))
+    every slot is dead and the stream is spent it changes nothing.  The
+    closest hit, then ``render.wavefront_pass``'s two seams: ``shade`` (K9
+    on a CUDA device) and ``regenerate`` (K10), their plain versions on the
+    CPU."""
+    prim, _, hit = intersect_fn(scene, accel, state["o"], state["d"],
+                                cfg.t_min)
+    shade(state, prim, hit, scene=scene, key=key, cfg=cfg,
+          start_id=start_id, num_rays=num_rays)
+    regenerate(state, camera=camera, key=key, start_id=start_id, cfg=cfg,
+               num_rays=num_rays, pool_size=pool_size)
 
 
 @torch.no_grad()

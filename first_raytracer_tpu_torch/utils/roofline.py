@@ -28,22 +28,42 @@ differently.  The operations are counted from the CUDA sources:
   the far end, 1 test), 20 per sphere slot (the oc-form quadratic with r*r
   computed, 3 + 5 + 6 + 1 + 2, then the square root and the two roots, 3)
   and 52 per triangle slot (the 46 above and the two edges, 6).
-- K7 (``kernels/csrc/rng_rays.cu``, ``mega_common.cuh::draws4``): 252
-  integer and FP32 operations a ray: two Threefry-2x32-20 calls of 119
-  (the third key word's 2 xors, 2 key additions, 20 rounds of an add, a
-  rotate as two shifts and an or, and an xor, 5 injections of 3
-  additions), the two counters (2) and four words to floats (a shift, a
-  conversion and a multiply each, 12).  K8 adds 63 a ray past the draw:
-  the pixel's floor divisions and modulo (6), the jitter (2 conversions,
-  2 additions, 2 divisions), the lens sample (a square root, a multiply,
-  a sine, a cosine, 2 multiplies, 2 by the radius, 2 conversions to the
-  camera's type), 10 a component for the offset, origin and direction
-  (30) and the normalization (11); a transcendental or a 64-bit division
-  counts as one, so the bound is a lower one.  Both are counted against
-  the FP32 rate outside the tensor cores (the H100's INT32 lanes are half
-  as many), and both are bound by bytes: K7 reads an 8-byte id (and an
-  8-byte domain where it has one a ray) and writes 16 bytes, K8 reads the
-  id and writes six floats of the camera's type.
+- K7 (``kernels/csrc/rng_rays.cu``, ``mega_common.cuh::draws4``): 164
+  integer operations a ray, two Threefry-2x32-20 calls of 79 (the third
+  key word's 2 xors, 2 key additions, 20 rounds of an add, a rotate as one
+  funnel shift and an xor, 5 injections of 3 additions), the two counters
+  (2) and the four words' shifts (4), counted at the INT32 rate
+  (``PEAK_INT32``: 64 lanes an SM); and 8 FP32 operations (the four
+  conversions and scalings to floats).  K8 adds 63 FP32 operations a ray
+  past the draw: the pixel's floor divisions and modulo (6), the jitter (2
+  conversions, 2 additions, 2 divisions), the lens sample (a square root,
+  a multiply, a sine, a cosine, 2 multiplies, 2 by the radius, 2
+  conversions to the camera's type), 10 a component for the offset, origin
+  and direction (30) and the normalization (11); a transcendental or a
+  64-bit division counts as one, so the bound is a lower one.  Both are
+  bound by their integer operations, by 3% over their bytes (0.00129
+  against 0.00125 ms at 2^17 rays; a rotate counted as three operations
+  would make it 0.0019): K7 reads an 8-byte id (and an 8-byte domain
+  where it has one a ray) and writes 16 bytes, K8 reads the id and writes
+  six floats of the camera's type.
+- K9 (``kernels/csrc/wavefront_pass.cu``, the pass's shading): for each
+  live slot, K7's 164 integer and 8 FP32 operations of the draw and the
+  60 FP32 operations of the cheapest path through the shading (a sphere's
+  recompute 37, the ball sample 12 with its power and its sine and cosine
+  one each, a lambertian scatter 11); a triangle, a metal or a dielectric
+  takes more, so the bound is a lower one.  A dead slot needs no
+  operation.  Bytes: every slot's liveness read; a live slot's ray,
+  throughput, id, depth (pool mode) and closest hit read, its segment
+  count read and written and, on a miss, its output row read and written;
+  pool mode writes every slot's ``cont`` and the scratch row of each slot
+  that goes on (52 bytes), trip mode a live ray's liveness and the carry
+  of each ray that goes on (36); the scene's tensors read once a launch.
+  Bound by bytes.
+- K10 (the pool's regeneration): a tail slot's camera ray is K8's (164
+  integer and 71 FP32 operations); bytes: ``cont`` read for every slot and
+  K9's survivor count of every block of 256 slots, a survivor's scratch
+  row read (52 bytes), every slot's state written (53), the key and camera
+  read once.  Bound by bytes.
 """
 from __future__ import annotations
 
@@ -53,13 +73,18 @@ __all__ = ["PEAK_FP32", "PEAK_BYTES", "FP32_PEAKS", "SPHERE_OPS",
            "dense_ops", "clustered_ops", "intersect_ops", "k5_ops",
            "k6_ops", "roofline", "bound", "clustered_bound",
            "intersect_bound", "tensor_bytes", "k4_bound", "k5_bound",
-           "k6_bound", "fp32_peak", "THREEFRY_OPS", "CAMERA_RAY_OPS",
-           "k7_bound", "k8_bound"]
+           "k6_bound", "fp32_peak", "PEAK_INT32", "THREEFRY_INT_OPS",
+           "THREEFRY_FP32_OPS", "CAMERA_RAY_OPS", "SHADE_OPS", "k7_bound",
+           "k8_bound", "k9_bound", "k10_bound"]
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores,
 # and HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# INT32 operations a second outside the tensor cores: 132 SMs of 64 INT32
+# lanes (half the FP32 lanes; the Hopper architecture white paper) at the
+# SXM part's 1.98 GHz boost clock.
+PEAK_INT32 = 132 * 64 * 1.98e9
 # FP32 peak outside the tensor cores by ``torch.cuda.get_device_name``
 # (NVIDIA's data sheets).  ``bench.py``'s plausibility guard reads it; a
 # card missing here is an error there, never a guess.
@@ -72,7 +97,8 @@ SPHERE_OPS, TRIANGLE_OPS = 20, 46
 BOX_OPS = 29
 OC_SPHERE_OPS, MT_TRIANGLE_OPS = 16, 46
 WALK_BOX_OPS, WALK_SPHERE_OPS, WALK_TRIANGLE_OPS = 25, 20, 52
-THREEFRY_OPS, CAMERA_RAY_OPS = 252, 63
+THREEFRY_INT_OPS, THREEFRY_FP32_OPS, CAMERA_RAY_OPS = 164, 8, 63
+SHADE_OPS = 60
 
 
 def fp32_peak(name: str) -> float:
@@ -121,10 +147,12 @@ def k6_ops(walk_total):
             + triangles * WALK_TRIANGLE_OPS)
 
 
-def roofline(ops, nbytes):
-    """(ms, "operations" | "bytes"): the larger of ``ops`` FP32 operations
-    over the FP32 peak and ``nbytes`` over the memory rate."""
-    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+def roofline(ops, nbytes, int_ops=0):
+    """(ms, "operations" | "bytes"): the largest of ``ops`` FP32
+    operations over the FP32 peak, ``int_ops`` integer operations over the
+    INT32 peak (a pipe of its own) and ``nbytes`` over the memory rate."""
+    t_ops = max(ops / PEAK_FP32, int_ops / PEAK_INT32)
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -198,7 +226,8 @@ def k7_bound(rays, domain_per_ray=False, launches=1):
     key read once a launch, an 8-byte id (and an 8-byte domain with
     ``domain_per_ray``) in and 16 bytes out a ray."""
     in_bytes = 16 * launches + (16 if domain_per_ray else 8) * rays
-    return roofline(THREEFRY_OPS * rays, in_bytes + 16 * rays)
+    return roofline(THREEFRY_FP32_OPS * rays, in_bytes + 16 * rays,
+                    THREEFRY_INT_OPS * rays)
 
 
 def k8_bound(rays, itemsize=4, launches=1):
@@ -207,5 +236,51 @@ def k8_bound(rays, itemsize=4, launches=1):
     id in and the origin and direction (6 values of ``itemsize`` bytes)
     out a ray."""
     in_bytes = (16 + 19 * itemsize) * launches + 8 * rays
-    return roofline((THREEFRY_OPS + CAMERA_RAY_OPS) * rays,
-                    in_bytes + 6 * itemsize * rays)
+    return roofline((THREEFRY_FP32_OPS + CAMERA_RAY_OPS) * rays,
+                    in_bytes + 6 * itemsize * rays, THREEFRY_INT_OPS * rays)
+
+
+def scene_bytes(scene):
+    """Bytes of the scene's tensors (K9 reads them once a launch)."""
+    return tensor_bytes(scene.sphere_center, scene.sphere_radius,
+                        scene.sphere_mat, scene.tri_v0, scene.tri_v1,
+                        scene.tri_v2, scene.tri_mat, scene.mat_type,
+                        scene.tex_type, scene.albedo, scene.albedo2,
+                        scene.tex_scale, scene.fuzz, scene.ref_idx)
+
+
+def k9_bound(scene, slots, live, cont, misses, pool=True, launches=1):
+    """K9's bound over ``launches`` launches of ``slots`` slots in all, of
+    which ``live`` were alive, ``cont`` went on and ``misses`` were live
+    and missed.  Every slot reads its liveness (1 byte); a live slot its
+    ray and throughput (36), id (8), depth (8, pool mode) and closest hit
+    (5), and reads and writes its segment count (8) and, on a miss, its
+    output row (24).  Pool mode writes every slot's ``cont`` (1), the
+    scratch row of a slot that goes on (52) and a count a block of 256;
+    trip mode a live ray's liveness (1) and the carry of a ray that goes
+    on (36).  The scene is read once a launch, with the key and the first
+    id or the depth.  Operations: the draw and the shading of each live
+    slot."""
+    if pool:
+        nbytes = (2 * slots + (36 + 8 + 8 + 5 + 8) * live + 52 * cont
+                  + 4 * -(-slots // 256))
+    else:
+        nbytes = slots + (36 + 8 + 5 + 8 + 1) * live + 36 * cont
+    nbytes += 24 * misses + launches * (scene_bytes(scene) + 16 + 8)
+    return roofline((THREEFRY_FP32_OPS + SHADE_OPS) * live, nbytes,
+                    THREEFRY_INT_OPS * live)
+
+
+def k10_bound(slots, survivors, launches=1):
+    """K10's bound over ``launches`` launches of ``slots`` slots in all,
+    ``survivors`` of them compacted and the rest given camera rays: every
+    slot reads ``cont`` (1 byte) and every block of 256 slots its survivor
+    count (4), a survivor its scratch row (52) and writes its state (53), a
+    tail slot writes its state; the key, the camera (19 floats), the
+    cursor and the first id are read and the advanced cursor written once
+    a launch, then copied into the cursor (``_launch_regenerate``: 16)."""
+    tail = slots - survivors
+    nbytes = (slots + 4 * -(-slots // 256) + 105 * survivors + 53 * tail
+              + launches * (16 + 76 + 24 + 16))
+    return roofline((THREEFRY_FP32_OPS + CAMERA_RAY_OPS) * tail, nbytes,
+                    THREEFRY_INT_OPS * tail)

@@ -1,5 +1,5 @@
-"""How torch rounds the few ops of the flat-BVH walk's and the camera
-rays' plain versions.
+"""How torch rounds the few ops of the flat-BVH walk's, the camera
+rays' and the wavefront pass's plain versions.
 
 The plain walk (``accel/traverse.py::intersect_bvh_plain``) takes its dot
 products from ``torch.sum`` over a (R, 3) tensor and its cross products
@@ -14,6 +14,17 @@ candidate form: the form with 0 is the one torch uses.  The fused forms are
 computed in float64 and rounded once more (a double rounding, wrong on
 about 2^-29 of inputs).  It also counts torch's float32 and float64 square
 roots that differ from the correctly rounded ones (numpy's).
+
+For the wavefront pass (K9 and K10, ``kernels/csrc/wavefront_pass.cu``)
+it also counts: ``torch.prod`` over a row of three (the checker texture's
+sines) against its three orders; ``x ** 5`` (Schlick's term) against the
+float64 power rounded once and against the chain of four products;
+``torch.pow`` of a float64 tensor by 1/3 rounded to float32 (the ball
+sample's radius) against the float64 power of the C library (numpy's)
+rounded once; and the two true divisions (``a / b`` of two tensors,
+``1.0 / x``) against the float64 quotient rounded once; and
+``index_add_`` of subnormal values into zeros, against the values (the
+card's atomic add flushes them to zero).
 
     python probes/torch_arith.py            # the CPU, and the card if any
 """
@@ -68,6 +79,36 @@ def forms(dev):
         r = (torch.rand(n, generator=g, dtype=torch.float64) * 100).to(dtype)
         out[f"{dtype} sqrt vs numpy's (correctly rounded)"] = int(
             (torch.sqrt(r.to(dev)).cpu().numpy() != np.sqrt(r.numpy())).sum())
+    x = (torch.rand(n, 3, generator=g) * 2 - 1) * 3
+    pr = torch.prod(x.to(dev), dim=-1).cpu()
+    out.update({
+        "prod (x*y)*z": int((pr != (x[:, 0] * x[:, 1]) * x[:, 2]).sum()),
+        "prod (x*z)*y": int((pr != (x[:, 0] * x[:, 2]) * x[:, 1]).sum()),
+        "prod x*(y*z)": int((pr != x[:, 0] * (x[:, 1] * x[:, 2])).sum())})
+    om = torch.rand(n, generator=g) * 2.5 - 0.5
+    p5 = (om.to(dev) ** 5).cpu()
+    chain = om * om * om * om * om
+    out.update({
+        "x ** 5 vs float64 power rounded once": int(
+            (p5 != (om.double() ** 5).float()).sum()),
+        "x ** 5 vs x*x*x*x*x": int((p5 != chain).sum())})
+    u = (torch.randint(0, 1 << 24, (n,), generator=g).float()
+         * (1.0 / (1 << 24)))
+    cb = torch.pow(u.double().to(dev), 1.0 / 3.0).float().cpu()
+    out["pow(float64, 1/3) to float32 vs libm's pow rounded once"] = int(
+        (cb.numpy() != np.power(u.double().numpy(), 1.0 / 3.0).astype(
+            np.float32)).sum())
+    a, b = torch.randn(n, generator=g), torch.rand(n, generator=g) + 0.5
+    out["a / b vs float64 quotient rounded once"] = int(
+        ((a.to(dev) / b.to(dev)).cpu()
+         != (a.double() / b.double()).float()).sum())
+    out["1.0 / x vs float64 quotient rounded once"] = int(
+        ((1.0 / b.to(dev)).cpu() != (1.0 / b.double()).float()).sum())
+    tiny = torch.rand(n, generator=g) * 1e-38  # subnormal below 1.18e-38
+    added = torch.zeros(n, device=dev).index_add_(
+        0, torch.arange(n, device=dev), tiny.to(dev)).cpu()
+    out["index_add_ of subnormals into zeros vs the values"] = int(
+        (added != tiny).sum())
     return out
 
 

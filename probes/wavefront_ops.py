@@ -22,12 +22,16 @@ same, so the two do not split into a fixed part).  The CPU also takes sqrt, sin 
 in float64 and rounds once (``core/vecmath.py``), a few ops the card does
 not run.
 
-Each count is printed twice: with the draws and camera rays as the CPU
-runs them (``core/rng.uniforms_plain``, ``render/camera.generate_rays``:
-their torch ops), and, under ``"with K7 and K8"``, with each call of
-``core.rng.uniforms`` (K7) and ``render.camera.camera_rays`` (K8) counted
-as one op, as the card launches each as one kernel: stand-ins run the
-plain versions with the count paused.
+Each count is printed three times: with the draws, camera rays and the
+pass's two seams as the CPU runs them (``core/rng.uniforms_plain``,
+``render/camera.generate_rays``, ``render/wavefront_pass.shade_plain``
+and ``regenerate_plain``: their torch ops); under ``"with K7 and K8"``,
+with each call of ``core.rng.uniforms`` (K7) and
+``render.camera.camera_rays`` (K8) counted as one op, as the card
+launches each as one kernel; and under ``"with K7 to K10"``, also with
+the pass's shading counted as one op (K9) and its regeneration as three
+(the cumsum of ``cont``, K10 and the cursor's copy), as the card runs
+them.  Stand-ins run the plain versions with the count paused.
 
     python probes/wavefront_ops.py
 """
@@ -47,6 +51,7 @@ from first_raytracer_tpu_torch.diff import grad as dg  # noqa: E402
 from first_raytracer_tpu_torch.diff import replay as rp  # noqa: E402
 from first_raytracer_tpu_torch.kernels import intersect_pallas as ip  # noqa: E402,E501
 from first_raytracer_tpu_torch.render import regenerative as reg  # noqa: E402,E501
+from first_raytracer_tpu_torch.render import wavefront_pass as wp  # noqa: E402,E501
 from first_raytracer_tpu_torch.render.api import batch_state  # noqa: E402
 from first_raytracer_tpu_torch.render.integrator import (  # noqa: E402
     intersect_brute, trip)
@@ -78,9 +83,9 @@ def ops(fn):
     return c.ops
 
 
-def one_op(fn):
-    """``fn`` counted as one op, its own ops not counted: a kernel's one
-    launch."""
+def one_op(fn, n=1):
+    """``fn`` counted as ``n`` ops (one by default), its own ops not
+    counted: a kernel's one launch."""
     def stand_in(*args, **kwargs):
         c = ACTIVE[-1] if ACTIVE else None
         if c is None:
@@ -90,7 +95,7 @@ def one_op(fn):
             return fn(*args, **kwargs)
         finally:
             c.paused = False
-            c.ops += 1
+            c.ops += n
     return stand_in
 
 
@@ -101,6 +106,13 @@ def with_kernels():
     rays = one_op(camera.camera_rays)
     for module in (camera, reg, api, rp, dg):
         module.camera_rays = rays
+
+
+def with_pass_kernels():
+    """Routes the pool pass's and the trip's seams through stand-ins of K9
+    (one op) and of the cumsum, K10 and the cursor's copy (three)."""
+    wp.shade_plain = one_op(wp.shade_plain)
+    wp.regenerate_plain = one_op(wp.regenerate_plain, 3)
 
 
 def counts():
@@ -175,6 +187,8 @@ def main():
     print(counts())
     with_kernels()
     print({"with K7 and K8": counts()})
+    with_pass_kernels()
+    print({"with K7 to K10": counts()})
 
 
 if __name__ == "__main__":

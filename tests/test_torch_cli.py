@@ -164,7 +164,8 @@ def test_cli_fit(tmp_path, fast):
     assert last["fit"] == "done" and last["device"] == "cpu"
     assert last["kernel_launches"] == {"K1": 0, "K2": 0, "K2b": 0,
                                        "K3": 0, "K3t": 0, "K4": 0, "K5": 0,
-                                       "K6": 0, "K7": 0, "K8": 0}
+                                       "K6": 0, "K7": 0, "K8": 0, "K9": 0,
+                                       "K10": 0}
     # The CPU runs the replay's value and gradient eagerly: no graph.
     assert last["graphs"] == {"captures": 0, "replays": 0}
     want = _jax_fit_first_loss("random-spheres", ("albedo", "fuzz"), 0,
@@ -175,9 +176,9 @@ def test_cli_fit(tmp_path, fast):
 
 
 def test_cli_fit_line_reads_every_kernel_counter(monkeypatch, capsys):
-    """``fit``'s ``kernel_launches`` is ``bench.COUNTERS``' table: K1-K8,
+    """``fit``'s ``kernel_launches`` is ``bench.COUNTERS``' table: K1-K10,
     each its wrapper's counter (set here, since the CPU's plain versions
-    count nothing), K6-K8 among them on a ``--bvh`` fit."""
+    count nothing), K6-K10 among them on a ``--bvh`` fit."""
     from first_raytracer_tpu_torch import bench, cli
 
     for i, (_, fn, attr) in enumerate(bench.COUNTERS):
@@ -189,7 +190,7 @@ def test_cli_fit_line_reads_every_kernel_counter(monkeypatch, capsys):
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     want = {k: 100 + i for i, (k, _, _) in enumerate(bench.COUNTERS)}
     assert last["kernel_launches"] == want
-    assert {"K6", "K7", "K8"} <= set(want)
+    assert {"K6", "K7", "K8", "K9", "K10"} <= set(want)
 
 
 def test_cli_fit_large_scene_takes_the_clustered_recorder():
