@@ -300,33 +300,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
    Times at 2^17 rays, each kernel's 20 calls in a CUDA graph, the plain
    versions one call a graph and one eager call; bounds from
    ``utils/roofline.py``.
-21. K9 and K10, the wavefront pass's shading and regeneration
-   (``render.wavefront_pass``).  Pass by pass, ``torch.equal`` to their
-   plain versions (``shade_plain``, ``regenerate_plain``: torch ops) on
-   the card, every tensor of the state, output rows, segment counts and
-   ``cont``, and the scratch rows of the next state where ``cont`` holds
-   (the only rows K9 writes): a pool of 2^17 slots over 2^19 ray ids from id 1000 and
-   the trips of a chunk of 2^17 ids (K9's survivor counts a block equal to
-   the plain ``cont``'s), on the final scene through K4 and
+21. K9 and K10, the wavefront pass's shading and compaction and the pool's
+   regeneration (``render.wavefront_pass``).  Pass by pass, ``torch.equal``
+   to their plain versions (``shade_plain``, ``regenerate_plain``: torch
+   ops) on the card, every tensor of the state (the pool compacted in
+   place, the slots past its survivors, output rows, segment counts, the
+   cursor and the pass record), K9's scan words checked on their own
+   (every tile's word this pass's inclusive prefix) and carried from pass
+   to pass: a pool of 2^17 slots over 2^19 ray ids from id 1000 and the
+   trips of a chunk of 2^17 ids, on the final scene through K4 and
    through K6, field20000 and trifield20000 through K5, triangle-mesh,
-   its triangles alone and camera-effects through the dense sweep.  The
-   main path, counters reset before and read after each: the final
-   scene's pool frame through K4, graphed (K9 and K10 once a pass, K7 not
-   at all, K8 once for the init, the radiance sum within 1% of
-   ``bench_golden.json``), its chunked frame (K9 once a trip, K10 not at
-   all), and field20000's and trifield20000's chunked frames through K5
-   (within 1% of their oracle goldens).  Times at 2^17 slots, 20 calls a
-   CUDA graph: K9 in pool mode and in trip mode (a chunk's first trip,
-   the carry restored before each call and the restore's own time taken
-   off), K10 with the cursor's copy, as the pass runs them (its scan
-   inside, from K9's block counts), beside the copy alone and the torch
-   cumsum it replaced, and the plain versions one call a graph; bounds
-   from ``utils/roofline.py``, from this run's live, missing and
-   continuing slots.  A graphed
-   pool pass's and trip's ms and nodes (``cuGraphGetNodes``, at most 30 each)
-   beside the 267 and 259 before K9 and K10.  Phases 12, 13, 18 and 19
-   print their graphed frame and step times beside those before K9 and
-   K10 (``EARLIER``).
+   its triangles alone and camera-effects through the dense sweep; and a
+   stress set, a pool of 2^21 slots (8192 blocks of K9, several waves on
+   the card, so that look-backs wait) over 2^22 ids of the final scene
+   through K4.  The main path, counters reset before and read after each:
+   the final scene's pool frame through K4, graphed (K9 and K10 once a
+   pass, K7 not at all, K8 once for the init, the radiance sum within 1%
+   of ``bench_golden.json``), its chunked frame (K9 once a trip, K10 not
+   at all), and field20000's and trifield20000's chunked frames through
+   K5 (within 1% of their oracle goldens).  Times at 2^17 slots, 20 calls
+   a CUDA graph: K9 in pool mode (the pass's state restored before each
+   call, the restore's own time taken off) and in trip mode (a chunk's
+   first trip, its carry restored likewise), K10 (the tail's camera rays
+   and the cursor), and the plain versions one call a graph, each beside
+   its time before the redesign (``EARLIER_K9``); bounds from
+   ``utils/roofline.py``, from this run's live, missing and continuing
+   slots.  A graphed pool pass's and trip's ms and nodes
+   (``cuGraphGetNodes``, at most 4 each) beside the 5 and 4 before the
+   redesign and the 267 and 259 before K9 and K10.  Phases 12, 13 and
+   19's graphed frames are printed beside those before the redesign and
+   before K9 and K10 (``EARLIER``).
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements (``sharded_launches``: the launches of phases 14 and 15;
@@ -350,7 +353,10 @@ cluster, its counters say it tested.  K6 (kernels/csrc/bvh_walk.cu) counts
 it tested.  K7 and K8 (kernels/csrc/rng_rays.cu) count 164 integer
 operations a ray at the INT32 rate (and 8 and 71 FP32); K9 and K10
 (kernels/csrc/wavefront_pass.cu) add the shading's 60 FP32 operations a
-slot and a tail slot's camera ray, and are bound by their bytes.
+live slot and a tail slot's camera ray, and are bound by their bytes: K9
+every slot's state and closest hit read, a survivor's next state written
+to its compacted slot, the scan's status words, ticket and pass record;
+K10 a tail slot's state written.
 """
 from __future__ import annotations
 
@@ -3216,11 +3222,28 @@ def rng_rays_path(dev, key, card, frame_draws):
         "bound_ms": b8[0], "bound_by": b8[1]})]
 
 
-# Phase 21: the pool's slots and ray ids, and where its range starts.
+# Phase 21: the pool's slots and ray ids, and where its range starts; the
+# stress set's pool (8192 blocks of K9, several waves) and ray ids.
 PASS_POOL, PASS_RAYS, PASS_START = 1 << 17, 1 << 19, 1000
+STRESS_POOL, STRESS_RAYS = 1 << 21, 1 << 22
 # The graphed pass and trip before K9 and K10 (PERF.md section 5).
 NODES_BEFORE = {"pool pass": 267, "trip": 259}
-MAX_PASS_NODES = 30
+MAX_PASS_NODES = 4
+# K9's and K10's readings before their redesign (PERF.md section 5, the
+# proof run after review; an NVIDIA H100 80GB HBM3 at 700.00 W), printed
+# beside this run's.
+EARLIER_K9 = {
+    "K9 pool": "0.0088 ms (bound 0.00404)",
+    "K9 trip": "0.0064 ms (bound 0.00373)",
+    "K10": "0.0081 ms with the cursor's copy, the copy alone 0.0015 "
+           "(bound 0.00299)",
+    "pool pass": "0.0780 ms, 5 nodes",
+    "trip": "0.0679 ms, 4 nodes",
+    "regenerative final scene": "0.0246, 0.0241 s/frame",
+    "wavefront final scene": "0.3259, 0.3302 s/frame",
+    "field20000 chunks": "0.1627, 0.1706 s/frame",
+    "bvh pool frame": "0.0190, 0.0191 s/frame",
+}
 # The ``EARLIER`` entry of each earlier phase's frame that phase 21 lists.
 FRAME_EARLIER = {"bvh pool frame": "bvh frame"}
 
@@ -3252,30 +3275,32 @@ def pass_sets(dev):
     return out
 
 
-def k9_block_counts(what, got, want):
-    """Fails unless K9's block counts (``got``) are the counts of the plain
-    ``cont`` (``want``) a block of ``wavefront_pass.BLOCK`` slots; then
-    gives ``want`` K9's, which the plain version does not write."""
-    cont = want["cont"]
-    pad = (-cont.shape[0]) % wp.BLOCK
-    sums = torch.nn.functional.pad(cont.to(torch.int32), (0, pad)).view(
-        -1, wp.BLOCK).sum(1, dtype=torch.int32)
-    if not torch.equal(got["block_counts"], sums):
-        raise AssertionError(f"{what}: K9's block counts are not cont's")
-    want["block_counts"] = got["block_counts"]
+def k9_scan_words(what, got, want):
+    """Fails unless K9's scan words (``got``) after a launch on them hold
+    the ticket at a whole number of passes of tiles and every tile's word
+    an inclusive prefix of that pass, nondecreasing by at most a tile, the
+    last the plain record's survivors; then gives ``want`` K9's words,
+    which the plain version does not write."""
+    scan = got["scan"]
+    blocks = scan.numel() - 1
+    words = scan[1:]
+    counts = words & 0xFFFFFFFF
+    steps = torch.diff(counts, prepend=counts.new_zeros(1))
+    passes = int(scan[0]) // blocks
+    if not (int(scan[0]) == passes * blocks
+            and bool((((words >> 32) & 3) == 2).all())
+            and bool(((words >> 34) == passes - 1).all())
+            and bool(((steps >= 0) & (steps <= wp.BLOCK)).all())
+            and int(counts[-1]) == int(want["record"][0])):
+        raise AssertionError(f"{what}: K9's scan words are not this pass's "
+                             "inclusive prefixes")
+    want["scan"] = scan
 
 
 def same_state(what, got, want):
     """Fails unless every tensor of ``got`` equals its partner in
-    ``want``, the scratch rows of the next state where ``want["cont"]``
-    holds (the only rows K9 writes); returns the largest difference (0.0
-    when equal)."""
-    def same(k):
-        if k in wp.NEXT_ROWS:
-            keep = want["cont"]
-            return torch.equal(got[k][keep], want[k][keep])
-        return torch.equal(got[k], want[k])
-    bad = [k for k in want if not same(k)]
+    ``want``; returns the largest difference (0.0 when equal)."""
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
     if bad:
         diffs = {k: float((got[k].double() - want[k].double()).abs().max())
                  for k in bad}
@@ -3284,15 +3309,15 @@ def same_state(what, got, want):
     return 0.0
 
 
-def passes_vs_plain(label, scene, cam, cfg, key, accel):
+def pool_vs_plain(label, scene, cam, cfg, key, accel, pool, num_rays):
     """K9 and K10 against ``shade_plain`` and ``regenerate_plain`` pass by
-    pass over a pool of ``PASS_POOL`` slots, and K9 against
-    ``shade_plain`` trip by trip over a chunk of ``WAVE_RAYS`` ids, each
-    on a clone of the same state.  Returns (passes, trips)."""
+    pass over a pool of ``pool`` slots and ``num_rays`` ids from
+    ``PASS_START``, each on a clone of the same state (K9's scan words
+    carried over from pass to pass).  Returns the passes."""
     dev = scene.device
     start = torch.full((), PASS_START, dtype=torch.int64, device=dev)
-    n = min(PASS_RAYS, cfg.num_rays - PASS_START)
-    static = dict(cfg=cfg, num_rays=n, pool_size=PASS_POOL)
+    n = min(num_rays, cfg.num_rays - PASS_START)
+    static = dict(cfg=cfg, num_rays=n, pool_size=pool)
     state = pool_state(scene, cam, key, start, **static)
     passes = 0
     while bool(state["alive"].any()):
@@ -3304,19 +3329,30 @@ def passes_vs_plain(label, scene, cam, cfg, key, accel):
                  start_id=start, num_rays=n)
         wp.shade_plain(want, prim, hit, scene=scene, key=key, cfg=cfg,
                        start_id=start, num_rays=n)
-        k9_block_counts(f"{label}: pool pass {passes}", state, want)
+        k9_scan_words(f"{label}: pool pass {passes}", state, want)
         same_state(f"{label}: K9, pool pass {passes}", state, want)
         wp.regenerate(state, camera=cam, key=key, start_id=start, **static)
         wp.regenerate_plain(want, camera=cam, key=key, start_id=start,
                             **static)
-        want["cursor_next"] = state["cursor_next"]  # K10's own buffer
         same_state(f"{label}: K10, pool pass {passes}", state, want)
         if (wp.shade.launches, wp.regenerate.launches) != (
                 before[0] + 1, before[1] + 1):
             raise AssertionError("K9's or K10's counter did not move")
         passes += 1
+        del want, prim, hit
     if int(state["cursor"]) != n:
         raise AssertionError(f"{label}: the pool did not spend its stream")
+    return passes
+
+
+def passes_vs_plain(label, scene, cam, cfg, key, accel):
+    """``pool_vs_plain`` over a pool of ``PASS_POOL`` slots and
+    ``PASS_RAYS`` ids, and K9 against ``shade_plain`` trip by trip over a
+    chunk of ``WAVE_RAYS`` ids, each on a clone of the same state.
+    Returns (passes, trips)."""
+    dev = scene.device
+    passes = pool_vs_plain(label, scene, cam, cfg, key, accel, PASS_POOL,
+                           PASS_RAYS)
     ids = torch.arange(min(WAVE_RAYS, cfg.num_rays), device=dev)
     state = batch_state(scene, cam, key, ids, cfg=cfg)
     trips = 0
@@ -3368,10 +3404,20 @@ def wavefront_pass_path(dev, key, card, frames):
         log(f"  {label}: {passes} pool passes (K9 and K10) and {trips} "
             f"trips (K9) bit-equal to the plain versions "
             f"({time.perf_counter() - t0:.1f} s)")
+    # The stress set: 8192 blocks of K9 a pass, several waves of them on
+    # the card, so that look-backs wait on tiles still being shaded.
+    label, scene, cam, cfg, pack = sets[0]
+    t0 = time.perf_counter()
+    passes = pool_vs_plain("stress", scene, cam, cfg, key, pack,
+                           STRESS_POOL, STRESS_RAYS)
+    log(f"  stress: a pool of {STRESS_POOL} slots "
+        f"({STRESS_POOL // wp.BLOCK} blocks of K9) over {STRESS_RAYS} ids of "
+        f"the final scene through K4: {passes} pool passes bit-equal to the "
+        f"plain versions ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
 
     # The main path, the counters reset just before each frame and read
     # just after.
-    label, scene, cam, cfg, pack = sets[0]
     golden = final_golden()
     launches = {}
     for mode in ("regenerative", "wavefront"):
@@ -3407,23 +3453,36 @@ def wavefront_pass_path(dev, key, card, frames):
     pool_pass(state, **inputs, intersect_fn=ip.intersect_pallas, **static)
     prim, _, hit = ip.intersect_pallas(scene, pack, state["o"], state["d"],
                                        cfg.t_min)
-    work = {k: v.clone() for k, v in state.items()}
-    plain = {k: v.clone() for k, v in state.items()}
     shade_kw = dict(scene=scene, key=key, cfg=cfg, start_id=start,
                     num_rays=cfg.num_rays)
-    ms9 = graph_ms(lambda: wp._launch_shade(work, prim, hit, **shade_kw),
-                   5, 20)
+    # K9 compacts the pool in place: each call in the graph first restores
+    # the pass's state, whose own time is taken off.
+    work = {k: v.clone() for k, v in state.items()}
+
+    def restore_pool():
+        for k in wp.POOL_ROWS:
+            work[k].copy_(state[k])
+
+    def restored_k9():
+        restore_pool()
+        wp._launch_shade(work, prim, hit, **shade_kw)
+    restore9_ms = graph_ms(restore_pool, 5, 20)
+    ms9 = graph_ms(restored_k9, 5, 20) - restore9_ms
+    # The plain version's ops do not depend on the data: its calls repeat
+    # on one copy.
+    plain = {k: v.clone() for k, v in state.items()}
     plain9 = graph_ms(lambda: wp.shade_plain(plain, prim, hit, **shade_kw),
                       5)
+    plain = {k: v.clone() for k, v in state.items()}
+    wp.shade_plain(plain, prim, hit, **shade_kw)
     live = int(state["alive"].sum())
     misses = int((state["alive"] & ~hit).sum())
-    cont = int(work["cont"].sum())
+    cont = int(plain["record"][0])
     b9 = k9_bound(scene, R, live, cont, misses)
+    # K10 reads the pass record, not the cursor: its calls repeat one.
+    restored_k9()
     ms10 = graph_ms(lambda: wp._launch_regenerate(
         work, camera=cam, key=key, start_id=start, **static), 5, 20)
-    copy_ms = graph_ms(lambda: work["cursor"].copy_(work["cursor_next"]),
-                       5, 20)
-    scan_ms = graph_ms(lambda: torch.cumsum(work["cont"], 0), 5, 20)
     plain10 = graph_ms(lambda: wp.regenerate_plain(
         plain, camera=cam, key=key, start_id=start, **static), 5)
     b10 = k10_bound(R, cont)
@@ -3441,11 +3500,11 @@ def wavefront_pass_path(dev, key, card, frames):
         for k in carry:
             tchunk[k].copy_(chunk[k])
 
-    def restored_k9():
+    def restored_k9t():
         restore()
         wp.shade(tchunk, cprim, chit, scene=scene, key=key, cfg=cfg)
     restore_ms = graph_ms(restore, 5, 20)
-    ms9t = graph_ms(restored_k9, 5, 20) - restore_ms
+    ms9t = graph_ms(restored_k9t, 5, 20) - restore_ms
     after = {k: v.clone() for k, v in chunk.items()}
     wp.shade_plain(after, cprim, chit, scene=scene, key=key, cfg=cfg)
     plain9t = graph_ms(lambda: wp.shade_plain(
@@ -3456,18 +3515,20 @@ def wavefront_pass_path(dev, key, card, frames):
     tcont = int(after["alive"].sum())
     b9t = k9_bound(scene, R, tlive, tcont, tmisses, pool=False)
     log(f"  K9 at {R} pool slots ({live} live, {misses} missing, {cont} "
-        f"going on): {ms9:.4f} ms (bound {b9[0]:.5f} ms, {b9[1]}); plain "
-        f"{plain9:.4f} ms in a graph")
+        f"going on): {ms9:.4f} ms, the pool's restore ({restore9_ms:.4f} "
+        f"ms) taken off (bound {b9[0]:.5f} ms, {b9[1]}); plain "
+        f"{plain9:.4f} ms in a graph; before the redesign "
+        f"{EARLIER_K9['K9 pool']}")
     log(f"  K9 at {R} trip rays (a chunk's first trip: {tlive} live, "
         f"{tmisses} missing, {tcont} going on): {ms9t:.4f} ms, its carry's "
         f"restore ({restore_ms:.4f} ms) taken off (bound {b9t[0]:.5f} ms, "
-        f"{b9t[1]}); plain {plain9t:.4f} ms in a graph")
-    log(f"  K10 at {R} pool slots ({cont} survivors), with the cursor's "
-        f"copy: {ms10:.4f} ms (bound {b10[0]:.5f} ms, {b10[1]}; its scan "
-        f"from K9's block counts inside); the copy alone {copy_ms:.4f} ms; "
-        f"a torch cumsum of cont, the plain scan, {scan_ms:.4f} ms; plain "
-        f"(the compaction and camera rays of every slot) {plain10:.4f} ms "
-        f"in a graph; on {card}")
+        f"{b9t[1]}); plain {plain9t:.4f} ms in a graph; before the "
+        f"redesign {EARLIER_K9['K9 trip']}")
+    log(f"  K10 at {R} pool slots ({cont} survivors, {R - cont} tail "
+        f"slots): {ms10:.4f} ms, the cursor written inside (bound "
+        f"{b10[0]:.5f} ms, {b10[1]}); plain (the tail's camera rays over "
+        f"every slot) {plain10:.4f} ms in a graph; before the redesign "
+        f"{EARLIER_K9['K10']}; on {card}")
 
     # A graphed pool pass and trip at 2^17 slots: ms and nodes.
     def one_pass():
@@ -3482,17 +3543,20 @@ def wavefront_pass_path(dev, key, card, frames):
     k4_ms = graph_ms(lambda: ip.intersect_pallas(scene, pack, state["o"],
                                                  state["d"], cfg.t_min), 5)
     log(f"  a graphed pool pass at {R} slots: {pass_ms:.4f} ms, "
-        f"{nodes['pool pass']} graph nodes (cuGraphGetNodes; before K9 and "
-        f"K10 {EARLIER['pool pass']}); a trip {trip_ms:.4f} ms, "
-        f"{nodes['trip']} nodes (before: {EARLIER['trip']}); K4 "
-        f"{k4_ms:.4f} ms alone; on {card}")
+        f"{nodes['pool pass']} graph nodes (cuGraphGetNodes; before the "
+        f"redesign {EARLIER_K9['pool pass']}; before K9 and K10 "
+        f"{EARLIER['pool pass']}); a trip {trip_ms:.4f} ms, "
+        f"{nodes['trip']} nodes (before the redesign {EARLIER_K9['trip']}; "
+        f"before K9 and K10 {EARLIER['trip']}); K4 {k4_ms:.4f} ms alone; "
+        f"on {card}")
     if max(nodes.values()) > MAX_PASS_NODES:
         raise AssertionError(f"a graphed pass has {nodes} nodes, more than "
                              f"{MAX_PASS_NODES}")
     for name, sec in frames.items():
         before = EARLIER[FRAME_EARLIER.get(name, name.split(" ")[0])]
         log(f"  {name}: {', '.join(f'{x:.4f}' for x in sec)} s/frame "
-            f"graphed (earlier phases); before K9 and K10 {before}")
+            f"graphed (earlier phases); before the redesign "
+            f"{EARLIER_K9[name]}; before K9 and K10 {before}")
     src = "first_raytracer_tpu_torch/kernels/csrc/wavefront_pass.cu"
     common = {"route": "cuda", "source": src, "max_abs_err": 0.0,
               "library_ms": None}
@@ -3505,15 +3569,17 @@ def wavefront_pass_path(dev, key, card, frames):
         "ms": ms9, "plain_ms": plain9, "bound_ms": b9[0],
         "bound_by": b9[1], "trip_ms": ms9t, "trip_plain_ms": plain9t,
         "trip_bound_ms": b9t[0], "pool_pass_ms": pass_ms,
+        "stress_passes": passes,
         "trip_pass_ms": trip_ms, "nodes": nodes, "nodes_before":
         NODES_BEFORE, "frame_s": frames}), dict(common, **{
         "name": "K10 pool regeneration (render.wavefront_pass.regenerate: "
-                "K10 and the cursor's copy), 2^17 slots of the final scene",
+                "the tail's camera rays and the cursor), 2^17 slots of the "
+                "final scene",
         "replaces": wp.REPLACES_REGENERATE,
         "launches": launches["regenerative"]["K10"],
         "frame_launches": {m: v["K10"] for m, v in launches.items()},
         "ms": ms10, "plain_ms": plain10, "bound_ms": b10[0],
-        "bound_by": b10[1], "cumsum_ms": scan_ms, "copy_ms": copy_ms})]
+        "bound_by": b10[1]})]
 
 
 def bench_runs(card):

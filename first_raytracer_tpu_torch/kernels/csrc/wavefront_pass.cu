@@ -1,6 +1,7 @@
-// K9 and K10 on Hopper: the wavefront pass's shading and its regeneration,
-// each one kernel in place of the ~250 elementwise torch ops a pass ran
-// between the closest hit (K4, K5 or K6) and the next pass.
+// K9 and K10 on Hopper: the wavefront pass's shading and compaction, and
+// the pool's regeneration, each one kernel in place of the ~250 elementwise
+// torch ops a pass ran between the closest hit (K4, K5 or K6) and the next
+// pass.
 //
 // K9 (`shade_pool_kernel`, `shade_trip_kernel`) is the device form of
 // render/wavefront_pass.py::shade_plain: the body of a pass past its
@@ -15,6 +16,12 @@
 // + depth, the key read from its device tensor on every launch), the unit
 // ball sample, the checker texture, and lambertian, metal and dielectric
 // scatter with Schlick's term and the coin; then whether the path goes on.
+// A slot's chain of dependent loads is three deep: its whole state and
+// closest hit at once (the liveness with the rest: a dead slot's reads are
+// wasted, not waited for), then its primitive's geometry and material id
+// together, then the material's whole row; the draw, which needs only the
+// id and depth, is issued between the first two so that it runs while the
+// geometry is in flight.  A dead slot is not shaded.
 //   - Trip mode updates the chunked batch's carry in place: origin,
 //     direction, throughput, radiance, alive and segments, the depth a 0-d
 //     tensor shared by the batch.
@@ -23,36 +30,56 @@
 //     owns a row adds to it, and a dead slot adds nothing: bit-equal to
 //     index_add_ of every slot with zeros.  The sky's add is an atomic on
 //     the card all the same, for its rounding: torch's CUDA index_add_
-//     flushes a subnormal sum to zero (`index_add`).  It then writes
-//     whether each slot continues (`cont`) and, for a slot that does, its
-//     next state (its hit point, its scattered direction, tp *
-//     attenuation, its id and depth + 1) to scratch rows, which K10 reads
-//     for those slots only; a row of a slot that ends keeps what it held.
-//     Each block writes its count of slots that continue (a ballot a
-//     warp), K10's offsets.
-//   - A dead slot is not shaded in either mode: it reads its liveness
-//     and, in pool mode, writes cont = 0.
+//     flushes a subnormal sum to zero (`index_add`).  It then compacts the
+//     survivors to the front of the pool, in order, in place: a survivor's
+//     next state (its hit point, its scattered direction, tp * attenuation,
+//     its id, depth + 1, alive) goes straight to slot prefix + rank, where
+//     prefix counts the survivors of the tiles before its own and rank
+//     those before it in its tile.
+//
+// The scan is single-pass with decoupled look-back (Merrill and Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
+// NVR-2016-002).  A block takes its tile of kThreads slots from a ticket
+// (an atomicAdd on the scan's first word), not from blockIdx, so every
+// tile before its own belongs to a block that is already running.  Its
+// threads read their slots, shade and ballot; after a __syncthreads warp 1
+// publishes the tile's survivor count (flag aggregate; tile 0 its
+// inclusive prefix) while warp 0 reads its predecessors' status words 32
+// at a time, nearest first, spinning while a word nearer than the nearest
+// inclusive prefix is not yet this pass's, and sums aggregates back to
+// that prefix: its exclusive prefix.  After a second __syncthreads the
+// block writes its survivors and warp 0 publishes its inclusive prefix.
+// Status words are 64 bits:
+// the count in the low 32, the flag in the next 2, the pass's epoch (its
+// ticket / blocks) above, so a word of an earlier pass never reads as this
+// one's and nothing has to be cleared between passes, by a kernel or a
+// memset node of a CUDA graph.  Words are published with release stores
+// and read relaxed, a fence after the look-back's last read making its
+// reads acquire ones.  The tile holding the last ticket writes the pass
+// record: the survivors in all (n_alive) and the cursor as the pass found
+// it.
+//
+// Why the in-place writes are safe.  A survivor at slot i goes to slot
+// prefix + rank <= i (at most i slots before it survive), so a destination
+// is never past the end of its own block's tile.  A destination in the
+// block's own tile was read before the block's first __syncthreads after
+// the shading, and the writes come after it.  A destination in an earlier
+// tile belongs to a block that published its aggregate before this block's
+// look-back ended (a tile's inclusive prefix is published only after every
+// tile before it has published; the look-back's acquire reads see the
+// release stores that chain back to each of them), and a block publishes
+// only after its first __syncthreads, that is after it has read all of its
+// slots.  No block writes a slot that is still to be read.  Slots at or
+// past n_alive are not written: K10 refills them.
 //
 // K10 (`regenerate_kernel`) is the device form of
-// render/wavefront_pass.py::regenerate_plain, the pool's compaction and
-// regeneration, with K8's camera rays folded in.  One thread a slot, in
-// the blocks of K9's launch.  The plain compaction's scan (a torch cumsum
-// of `cont`, two graph nodes and 0.0077 ms at 2^17 slots, more than K10
-// itself: chip_smoke.py phase 21) is done inside: a block sums K9's
-// counts of the blocks before it (its offset) and of all of them
-// (n_alive), and its slots' own prefix by a ballot a warp.  Every block
-// reads every count, so the scan's reads grow as the square of the blocks:
-// 2^18 four-byte reads (1 MB from L2) a launch at the 2^17 slots it is
-// measured at, 2^24 (64 MB) at 2^20 slots and 2^28 at 2^22, where they
-// would cost about what the rest of K10 does.  A survivor
-// writes its next state to its compacted slot; a slot s at or past n_alive
-// makes the camera ray of ray id start_id + clamp(cursor + s - n_alive)
-// (camera_rays.cuh, K8's arithmetic) and resets its throughput, depth, id
-// and liveness.  The two sets of slots are disjoint and K10 reads only K9's
-// scratch rows, so the state is updated in place.  The cursor and the
-// pool's first id are read from device tensors; thread 0 writes the
-// advanced cursor to its own buffer, so no launch reads and writes the
-// same word.  Camera rays are made for the tail only, not for every slot.
+// render/wavefront_pass.py::regenerate_plain: the pool's tail refilled with
+// camera rays, with K8's arithmetic folded in (camera_rays.cuh).  It reads
+// the pass record; thread g makes the camera ray of slot n_alive + g (ray
+// id start_id + clamp(cursor + g)) and resets its throughput, depth, id and
+// liveness; threads past the pool return at once.  Thread 0 writes the
+// advanced cursor into the cursor itself: K10 reads the old value from the
+// record, so no launch reads and writes the same word, and no copy follows.
 //
 // Bit-equality.  Each operation rounds as torch rounds it on the device the
 // kernel runs on (probes/torch_arith.py): torch.sum over a row of three
@@ -66,18 +93,25 @@
 // torch.sqrt of normalize and of the sphere root).  Every other operation is
 // one rounding, in torch's order, and the file is built with --fmad=false
 // like the other kernels.  torch.clamp keeps a NaN; so do the selects here.
+// Reordering loads changes no rounding.
 //
-// Bounds on an H100 (utils/roofline.py): K9 reads every slot's liveness
-// and a live one's ray, throughput, id, depth and closest hit (57 bytes in
-// pool mode), writes `cont` and a surviving slot's scratch row (52), against
-// K7's 164 integer operations of the draw and at least 60 FP32 operations
-// of the recompute and the scatter a live slot: bound by bytes.  K10 reads
-// `cont` (1 byte a slot), the block counts (4 bytes a block, for every
-// block) and a survivor's scratch row (52) and writes every slot's state
-// (53); a tail slot adds K8's draw and ray: bound by bytes.  The material
-// table (11 words a row) is read through the read-only cache (__ldg):
-// staged in shared memory instead, K9 took 0.0101 against 0.0089 ms at
-// 2^17 slots of the final scene (PERF.md).
+// Bounds on an H100 (utils/roofline.py): K9 reads every slot's state and
+// closest hit (57 bytes in pool mode), a live slot's segment count (read
+// and written) and a miss's output row, and writes a survivor's next state
+// (53) and a tile's status word twice, against K7's 164 integer operations
+// of the draw and at least 60 FP32 operations of the recompute and the
+// scatter a live slot: bound by bytes.  K10 writes a tail slot's state
+// (53) from K8's draw and ray: bound by bytes.  The material table (11
+// words a row) is read through the read-only cache (__ldg): staged in
+// shared memory instead, K9 took 0.0101 against 0.0089 ms at 2^17 slots of
+// the final scene (PERF.md).
+//
+// probes/k9_chain.py builds variants of K9 that split one slot's time:
+// FRT_K9_NO_DRAW (constant uniforms), FRT_K9_CONST_GATHERS (the primitive
+// and its material replaced by constants) and FRT_K9_ALIVE_FIRST (a
+// slot's liveness read and tested before its other fields, as before the
+// redesign), and others of the scan by editing a copy of this file.  The
+// first two give wrong results; the package defines none.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -101,6 +135,16 @@ constexpr int kMetal = 1;
 constexpr int kDielectric = 2;
 constexpr int kChecker = 1;
 
+// A status word of the look-back: the count in bits 0-31, the flag in bits
+// 32-33 (0: not this pass's yet), the pass's epoch in bits 34-63.
+using Word = unsigned long long;
+constexpr Word kCountMask = 0xffffffffull;
+constexpr Word kFlagMask = 3ull << 32;
+constexpr Word kAggregate = 1ull << 32;
+constexpr Word kPrefix = 2ull << 32;
+constexpr int kEpochShift = 34;
+constexpr Word kEpochMask = (1ull << 30) - 1;
+
 struct V3 {
   float x, y, z;
 };
@@ -108,8 +152,11 @@ struct V3 {
 __device__ __forceinline__ V3 load3(const float* __restrict__ p, int64_t i) {
   return V3{__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2)};
 }
-__device__ __forceinline__ void store3(float* __restrict__ p, int64_t i,
-                                       V3 v) {
+// A row of the pool's state, which the same launch writes: a coherent load.
+__device__ __forceinline__ V3 state3(const float* p, int64_t i) {
+  return V3{p[3 * i], p[3 * i + 1], p[3 * i + 2]};
+}
+__device__ __forceinline__ void store3(float* p, int64_t i, V3 v) {
   p[3 * i] = v.x;
   p[3 * i + 1] = v.y;
   p[3 * i + 2] = v.z;
@@ -208,6 +255,68 @@ struct SceneArgs {
   int ns, nt, nm;
 };
 
+// The winning primitive's rows: a sphere's centre and radius in a and r, or
+// a triangle's three vertices, and its material id.
+struct Prim {
+  bool sphere;
+  V3 a, b, c;
+  float r;
+  int m;
+};
+
+// render/integrator.py::recompute_hit's gather, geometry and material id
+// in one step.
+__device__ __forceinline__ Prim gather_prim(const SceneArgs& sc, int prim) {
+  const int64_t pr = prim;
+  Prim g;
+  g.sphere = sc.nt == 0 || (sc.ns > 0 && pr < sc.ns);
+#if defined(FRT_K9_CONST_GATHERS)
+  g.a = V3{0.0f, 0.0f, -1.0f};
+  g.b = V3{1.0f, 0.0f, -1.0f};
+  g.c = V3{0.0f, 1.0f, -1.0f};
+  g.r = 0.5f;
+  g.m = 0;
+#else
+  if (g.sphere) {
+    const int64_t si = pr < 0 ? 0 : (pr > sc.ns - 1 ? sc.ns - 1 : pr);
+    g.a = load3(sc.sph_center, si);
+    g.r = __ldg(sc.sph_radius + si);
+    g.m = __ldg(sc.sph_mat + si);
+  } else {
+    const int64_t q = pr - sc.ns;
+    const int64_t ti = q < 0 ? 0 : (q > sc.nt - 1 ? sc.nt - 1 : q);
+    g.a = load3(sc.tri_v0, ti);
+    g.b = load3(sc.tri_v1, ti);
+    g.c = load3(sc.tri_v2, ti);
+    g.m = __ldg(sc.tri_mat + ti);
+  }
+#endif
+  return g;
+}
+
+// A material's row (materials/scatter.py, scene/textures.py), every field
+// in one step.
+struct Material {
+  int type, tex;
+  V3 albedo, albedo2;
+  float tex_scale, fuzz, ref_idx;
+};
+
+__device__ __forceinline__ Material gather_material(const SceneArgs& sc,
+                                                    int m) {
+#if defined(FRT_K9_CONST_GATHERS)
+  (void)sc;
+  (void)m;
+  return Material{0, 0, V3{0.5f, 0.5f, 0.5f}, V3{0.5f, 0.5f, 0.5f}, 1.0f,
+                  0.0f, 1.5f};
+#else
+  return Material{__ldg(sc.mat_type + m), __ldg(sc.tex_type + m),
+                  load3(sc.albedo, m),    load3(sc.albedo2, m),
+                  __ldg(sc.tex_scale + m), __ldg(sc.fuzz + m),
+                  __ldg(sc.ref_idx + m)};
+#endif
+}
+
 // One slot's pass past its closest hit.
 struct Shaded {
   bool hit;      // the recompute's hit, sanitised
@@ -222,44 +331,19 @@ __device__ __forceinline__ Shaded shade_slot(const SceneArgs& sc, V3 o,
                                              uint32_t k0, uint32_t k1,
                                              uint32_t id, uint32_t dom,
                                              float t_min) {
-  // render/integrator.py::recompute_hit.
-  const int64_t pr = prim;
-  const bool is_sph = sc.nt == 0 || (sc.ns > 0 && pr < sc.ns);
-  float t;
-  V3 p, n;
-  int m;
-  if (is_sph) {
-    const int64_t si = pr < 0 ? 0 : (pr > sc.ns - 1 ? sc.ns - 1 : pr);
-    const V3 c = load3(sc.sph_center, si);
-    const float r = __ldg(sc.sph_radius + si);
-    t = sphere_t(o, d, c, r, t_min);
-    p = add(o, scale(t, d));
-    const V3 pc = sub(p, c);
-    n = V3{pc.x / r, pc.y / r, pc.z / r};
-    m = __ldg(sc.sph_mat + si);
-  } else {
-    const int64_t q = pr - sc.ns;
-    const int64_t ti = q < 0 ? 0 : (q > sc.nt - 1 ? sc.nt - 1 : q);
-    const V3 v0 = load3(sc.tri_v0, ti);
-    const V3 e1 = sub(load3(sc.tri_v1, ti), v0);
-    const V3 e2 = sub(load3(sc.tri_v2, ti), v0);
-    t = triangle_t(o, d, v0, e1, e2, t_min);
-    p = add(o, scale(t, d));
-    n = normalize(cross(e1, e2), 0.0f);
-    m = __ldg(sc.tri_mat + ti);
-  }
-  // Dead and missing lanes get sanitised hit data.
-  Shaded s;
-  s.hit = hit_in && t < kBig;
-  if (!s.hit) {
-    p = V3{0.0f, 0.0f, 0.0f};
-    n = V3{0.0f, 0.0f, 1.0f};
-  }
-  s.p = p;
+  const Prim g = gather_prim(sc, prim);
 
-  // The bounce's draws and core/rng.py::unit_ball_sample.
+  // The bounce's draws and core/rng.py::unit_ball_sample, while the
+  // primitive's rows are in flight.
   float u[4];
+#if defined(FRT_K9_NO_DRAW)
+  (void)k0;
+  (void)k1;
+  (void)dom;
+  u[0] = u[1] = u[2] = u[3] = 0.5f - 0x1p-24f * static_cast<float>(id & 255u);
+#else
   frt::draws4(k0, k1, id, dom, u);
+#endif
   const float z = 1.0f - 2.0f * u[0];
   const float rr = 1.0f - z * z;
   const float r = sqrtf(rr < 0.0f ? 0.0f : rr);
@@ -269,10 +353,34 @@ __device__ __forceinline__ Shaded shade_slot(const SceneArgs& sc, V3 o,
   const V3 ball{radius * (r * cosf(phi)), radius * (r * sinf(phi)),
                 radius * z};
 
+  // render/integrator.py::recompute_hit.
+  float t;
+  V3 p, n;
+  if (g.sphere) {
+    t = sphere_t(o, d, g.a, g.r, t_min);
+    p = add(o, scale(t, d));
+    const V3 pc = sub(p, g.a);
+    n = V3{pc.x / g.r, pc.y / g.r, pc.z / g.r};
+  } else {
+    const V3 e1 = sub(g.b, g.a);
+    const V3 e2 = sub(g.c, g.a);
+    t = triangle_t(o, d, g.a, e1, e2, t_min);
+    p = add(o, scale(t, d));
+    n = normalize(cross(e1, e2), 0.0f);
+  }
+  const Material mt = gather_material(sc, g.m);
+  // Dead and missing lanes get sanitised hit data.
+  Shaded s;
+  s.hit = hit_in && t < kBig;
+  if (!s.hit) {
+    p = V3{0.0f, 0.0f, 0.0f};
+    n = V3{0.0f, 0.0f, 1.0f};
+  }
+  s.p = p;
+
   // materials/scatter.py::scatter_from_params, the material's branch only.
-  const int mtype = __ldg(sc.mat_type + m);
-  if (mtype == kDielectric) {
-    const float ref = __ldg(sc.ref_idx + m);
+  if (mt.type == kDielectric) {
+    const float ref = mt.ref_idx;
     const float dn = dot(d, n);
     const V3 reflected = sub(d, scale(2.0f * dn, n));
     const bool outside = dn > 0.0f;
@@ -298,18 +406,17 @@ __device__ __forceinline__ Shaded shade_slot(const SceneArgs& sc, V3 o,
     return s;
   }
   // scene/textures.py::texture_from_params.
-  V3 tex = load3(sc.albedo, m);
-  if (__ldg(sc.tex_type + m) == kChecker) {
-    const float sc_ = __ldg(sc.tex_scale + m);
+  V3 tex = mt.albedo;
+  if (mt.tex == kChecker) {
+    const float sc_ = mt.tex_scale;
     const float sines =
         prod3(sinf(sc_ * p.x), sinf(sc_ * p.y), sinf(sc_ * p.z));
-    if (sines < 0.0f) tex = load3(sc.albedo2, m);
+    if (sines < 0.0f) tex = mt.albedo2;
   }
   s.att = tex;
-  if (mtype == kMetal) {
-    const float fz = __ldg(sc.fuzz + m);
+  if (mt.type == kMetal) {
     const V3 reflected = sub(d, scale(2.0f * dot(d, n), n));
-    const V3 raw = add(reflected, scale(fz, ball));
+    const V3 raw = add(reflected, scale(mt.fuzz, ball));
     s.ok = dot(raw, n) > 0.0f;
     s.dir = normalize(raw, kNormEps);
   } else {
@@ -332,25 +439,102 @@ __device__ __forceinline__ void index_add(float* p, float v) {
 #endif
 }
 
-// How many threads of the block pass `pred`, in thread 0 (every thread of
-// the block calls it, converged).
-__device__ __forceinline__ int block_count(bool pred) {
-  __shared__ int warp_counts[kWarps];
-  const unsigned ballot = __ballot_sync(kFullMask, pred);
-  if ((threadIdx.x & 31) == 0) warp_counts[threadIdx.x >> 5] = __popc(ballot);
-  __syncthreads();
-  int total = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) total += warp_counts[w];
-  return total;
-}
-
 // render/integrator.py::sky_color, times the throughput.
 __device__ __forceinline__ V3 sky(V3 tp, V3 d) {
   const float t = 0.5f * (d.y + 1.0f);
   const float w = 1.0f - t;
   return mul(tp, V3{w * 1.0f + t * 0.5f, w * 1.0f + t * 0.7f,
                     w * 1.0f + t * 1.0f});
+}
+
+// A status word published with release semantics, and read relaxed (a
+// fence after the look-back's last read makes its reads acquire ones), at
+// the scope of the device.
+__device__ __forceinline__ void publish(Word* p, Word v) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+#else
+  __threadfence();
+  *reinterpret_cast<volatile Word*>(p) = v;
+#endif
+}
+__device__ __forceinline__ Word peek(const Word* p) {
+#if defined(__CUDA_ARCH__)
+  Word v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+#else
+  return *reinterpret_cast<const volatile Word*>(p);
+#endif
+}
+
+// Status words a look-back reads at once: kSpan a lane, lane l holding
+// the tiles 32 * j + l back, nearest first (probes/k9_chain.py: 2 was no
+// faster at 2^17 slots, 4 and 8 slower).
+constexpr int kSpan = 1;
+constexpr int kWindow = 32 * kSpan;
+
+// The exclusive prefix of tile `tile` (> 0), whose aggregate is published:
+// warp 0 reads the kWindow tiles before `end` (= tile at first), nearest
+// first, until every word nearer than the nearest inclusive prefix holds
+// this epoch's word (spinning while one does not), then sums the
+// aggregates up to that prefix, or all kWindow and goes on kWindow tiles
+// back.  Tile 0 always holds an inclusive prefix, so the walk ends.  Every
+// lane of warp 0 returns the prefix.
+__device__ __forceinline__ int64_t look_back(const Word* status, int tile,
+                                             Word epoch) {
+  const int lane = threadIdx.x & 31;
+  int64_t prefix = 0;
+  for (int end = tile;; end -= kWindow) {
+    Word w[kSpan];
+    bool ready[kSpan];
+    for (int j = 0; j < kSpan; ++j) {
+      w[j] = 0;
+      ready[j] = end - 1 - lane - 32 * j < 0;  // past tile 0: never read
+    }
+    int stop;  // the nearest inclusive prefix's position, kWindow if none
+    for (;;) {
+      unsigned waiting[kSpan], inclusive[kSpan];
+      for (int j = 0; j < kSpan; ++j) {
+        const int pred = end - 1 - lane - 32 * j;
+        if (!ready[j]) {
+          w[j] = peek(status + pred);
+          ready[j] = (w[j] >> kEpochShift) == epoch &&
+                     (w[j] & kFlagMask) != 0;
+        }
+        waiting[j] = __ballot_sync(kFullMask, !ready[j]);
+        inclusive[j] = __ballot_sync(kFullMask, pred >= 0 && ready[j] &&
+                                                    (w[j] & kFlagMask) ==
+                                                        kPrefix);
+      }
+      stop = kWindow;
+      bool blocked = false;  // a word nearer than `stop` not yet this pass's
+      for (int j = 0; j < kSpan && stop == kWindow; ++j) {
+        const int first = __ffs(static_cast<int>(inclusive[j])) - 1;
+        const unsigned nearer = inclusive[j] ? (1u << first) - 1u : kFullMask;
+        blocked = blocked || (waiting[j] & nearer) != 0;
+        if (inclusive[j]) stop = 32 * j + first;
+      }
+      if (!blocked) break;
+      __nanosleep(32);
+    }
+#if defined(FRT_HOST_EMU)  // what the emulation's look-backs meet
+    if (lane == 0) frt_emu::note_window(stop, stop == kWindow);
+#endif
+    int64_t v = 0;
+    for (int j = 0; j < kSpan; ++j)
+      if (end - 1 - lane - 32 * j >= 0 && lane + 32 * j <= stop)
+        v += static_cast<int64_t>(w[j] & kCountMask);
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(kFullMask, v, off);
+    prefix += v;
+    if (stop < kWindow) {
+      __threadfence();  // the reads above become acquire reads
+      return prefix;
+    }
+  }
 }
 
 // What every launch of K9 shares.
@@ -364,70 +548,150 @@ struct PassArgs {
 };
 
 // Pool mode.  The pool's state (render/regenerative.py::pool_state): ray o,
-// d, tp (C, 3), ids, depth (C,) int64, alive (C,) bool; the output rows
-// (num_rays, 3) and segments (num_rays,) int32; the scratch rows K10 reads.
+// d, tp (C, 3), ids, depth (C,) int64, alive (C,) bool, compacted in place;
+// the output rows (num_rays, 3) and segments (num_rays,) int32; the
+// cursor; the pass record K9 writes for K10 (n_alive, the cursor); the
+// scan's ticket and status words.
 struct PoolArgs {
-  const float* o;
-  const float* d;
-  const float* tp;
-  const int64_t* ids;
-  const int64_t* depth;
-  const uint8_t* alive;
+  float* o;
+  float* d;
+  float* tp;
+  int64_t* ids;
+  int64_t* depth;
+  uint8_t* alive;
   const int64_t* start_id;  // 0-d
   int64_t num_rays;
   float* out;
   int* segments;
-  float* next_o;
-  float* next_d;
-  float* next_tp;
-  int64_t* next_ids;
-  int64_t* next_depth;
-  uint8_t* cont;
-  int* block_counts;  // (blocks,): each block's slots that continue
+  const int64_t* cursor;  // 0-d
+  int64_t* record;        // (2,)
+  Word* scan;             // (1 + blocks,): the ticket, a word a tile
 };
 
-__device__ __forceinline__ bool shade_pool_slot(const SceneArgs& sc,
-                                                const PassArgs& a,
-                                                const PoolArgs& q,
-                                                int64_t i) {
-  if (__ldg(q.alive + i) == 0) {  // a dead slot adds nothing and ends
-    q.cont[i] = 0;
-    return false;
+// A block's shared memory in pool mode (dynamic, so that the host
+// emulation gives each block its own).
+struct PoolShared {
+  Word ticket;
+  int64_t prefix;  // the tile's exclusive prefix
+  int warp_counts[kWarps];
+};
+
+// One slot's state and closest hit (pool mode), read in one step.
+struct Slot {
+  bool live, hit;
+  V3 o, d, tp;
+  int64_t id, depth;
+  int prim;
+};
+
+__device__ __forceinline__ Slot load_slot(const PassArgs& a,
+                                          const PoolArgs& q, int64_t i) {
+  Slot s{};
+  if (i < a.n) {
+    s.live = q.alive[i] != 0;
+#if defined(FRT_K9_ALIVE_FIRST)
+    if (s.live)  // the liveness first, then the other fields
+#endif
+    {
+      s.o = state3(q.o, i);
+      s.d = state3(q.d, i);
+      s.tp = state3(q.tp, i);
+      s.id = q.ids[i];
+      s.depth = q.depth[i];
+      s.prim = __ldg(a.prim + i);
+      s.hit = __ldg(a.hit + i) != 0;
+    }
   }
-  const V3 o = load3(q.o, i), d = load3(q.d, i), tp = load3(q.tp, i);
-  const int64_t id = __ldg(q.ids + i);
-  const int64_t depth = __ldg(q.depth + i);
-  int64_t row = id - __ldg(q.start_id);
-  row = row < 0 ? 0 : (row > q.num_rays - 1 ? q.num_rays - 1 : row);
-  const Shaded s = shade_slot(
-      sc, o, d, __ldg(a.prim + i), __ldg(a.hit + i) != 0,
-      static_cast<uint32_t>(__ldg(a.key)), static_cast<uint32_t>(__ldg(a.key + 1)),
-      static_cast<uint32_t>(id), static_cast<uint32_t>(depth + 1), a.t_min);
-  q.segments[row] += 1;
-  if (!s.hit) {
-    const V3 add_ = sky(tp, d);
-    index_add(q.out + 3 * row, add_.x);
-    index_add(q.out + 3 * row + 1, add_.y);
-    index_add(q.out + 3 * row + 2, add_.z);
-  }
-  const bool cont = s.hit && s.ok && depth < a.max_depth;
-  q.cont[i] = cont;
-  if (cont) {  // K10 reads the scratch rows of these slots only
-    store3(q.next_o, i, s.p);
-    store3(q.next_d, i, s.dir);
-    store3(q.next_tp, i, mul(tp, s.att));
-    q.next_ids[i] = id;
-    q.next_depth[i] = depth + 1;
-  }
-  return cont;
+  return s;
 }
 
 __global__ void __launch_bounds__(kThreads)
     shade_pool_kernel(SceneArgs sc, PassArgs a, PoolArgs q) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool cont = i < a.n && shade_pool_slot(sc, a, q, i);
-  const int count = block_count(cont);
-  if (threadIdx.x == 0) q.block_counts[blockIdx.x] = count;
+  extern __shared__ Word pool_shared[];
+  PoolShared& sh = *reinterpret_cast<PoolShared*>(pool_shared);
+  if (threadIdx.x == 0) sh.ticket = atomicAdd(q.scan, 1ull);
+  __syncthreads();
+  const Word blocks = gridDim.x;
+  const int tile = static_cast<int>(sh.ticket % blocks);
+  const Word epoch = (sh.ticket / blocks) & kEpochMask;
+  Word* status = q.scan + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const Slot slot =
+      load_slot(a, q, static_cast<int64_t>(tile) * kThreads + threadIdx.x);
+
+  // The shading; the slot's segment and sky are added at the end, so that
+  // no store is outstanding when the tile's status is published.
+  bool cont = false, miss = false;
+  V3 p{}, dir{}, att{};
+  int64_t row = 0;
+  int segs = 0;
+  if (slot.live) {
+    row = slot.id - __ldg(q.start_id);
+    row = row < 0 ? 0 : (row > q.num_rays - 1 ? q.num_rays - 1 : row);
+    segs = q.segments[row];
+    const Shaded s = shade_slot(
+        sc, slot.o, slot.d, slot.prim, slot.hit,
+        static_cast<uint32_t>(__ldg(a.key)),
+        static_cast<uint32_t>(__ldg(a.key + 1)),
+        static_cast<uint32_t>(slot.id),
+        static_cast<uint32_t>(slot.depth + 1), a.t_min);
+    miss = !s.hit;
+    cont = s.hit && s.ok && slot.depth < a.max_depth;
+    p = s.p;
+    dir = s.dir;
+    att = mul(slot.tp, s.att);
+  }
+
+  // The tile's survivors: a ballot a warp, then the block's aggregate.
+  const unsigned ballot = __ballot_sync(kFullMask, cont);
+  if (lane == 0) sh.warp_counts[warp] = __popc(ballot);
+  __syncthreads();  // every slot of the tile has been read
+  int64_t before = 0, aggregate = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    aggregate += sh.warp_counts[w];
+    if (w < warp) before += sh.warp_counts[w];
+  }
+  // Warp 1 publishes the tile's aggregate (tile 0 its inclusive prefix)
+  // while warp 0 looks back, so that neither waits on the other's fence;
+  // the inclusive prefix follows the block's barrier, so that no write of
+  // the tile waits on its fence.
+  if (warp == 1 && lane == 0)
+    publish(status + tile, (epoch << kEpochShift) |
+                               (tile > 0 ? kAggregate : kPrefix) |
+                               static_cast<Word>(aggregate));
+  if (warp == 0) {
+    const int64_t prefix = tile > 0 ? look_back(status, tile, epoch) : 0;
+    if (lane == 0) {
+      sh.prefix = prefix;
+      if (tile == static_cast<int>(blocks) - 1) {  // the last ticket
+        q.record[0] = prefix + aggregate;
+        q.record[1] = __ldg(q.cursor);
+      }
+    }
+  }
+  __syncthreads();
+  if (warp == 0 && lane == 0 && tile > 0)  // warp 1 has published
+    publish(status + tile, (epoch << kEpochShift) | kPrefix |
+                               static_cast<Word>(sh.prefix + aggregate));
+  if (slot.live) {
+    q.segments[row] = segs + 1;
+    if (miss) {
+      const V3 add_ = sky(slot.tp, slot.d);
+      index_add(q.out + 3 * row, add_.x);
+      index_add(q.out + 3 * row + 1, add_.y);
+      index_add(q.out + 3 * row + 2, add_.z);
+    }
+  }
+  if (cont) {  // straight to its compacted slot
+    const int64_t dest =
+        sh.prefix + before + __popc(ballot & ((1u << lane) - 1u));
+    store3(q.o, dest, p);
+    store3(q.d, dest, dir);
+    store3(q.tp, dest, att);
+    q.ids[dest] = slot.id;
+    q.depth[dest] = slot.depth + 1;
+    q.alive[dest] = 1;
+  }
 }
 
 // Trip mode.  The chunked batch's carry (render/integrator.py::trace_state):
@@ -447,16 +711,25 @@ struct TripArgs {
 __global__ void __launch_bounds__(kThreads)
     shade_trip_kernel(SceneArgs sc, PassArgs a, TripArgs q) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= a.n || q.alive[i] == 0) return;  // a dead ray's carry stays
-  const V3 o = load3(q.origin, i), d = load3(q.direction, i);
-  const V3 tp = load3(q.throughput, i);
+  if (i >= a.n) return;
+  // The ray's whole carry and closest hit, in one step.
+  const bool live = q.alive[i] != 0;
+#if defined(FRT_K9_ALIVE_FIRST)
+  if (!live) return;
+#endif
+  const V3 o = state3(q.origin, i), d = state3(q.direction, i);
+  const V3 tp = state3(q.throughput, i);
+  const int64_t id = __ldg(q.ray_ids + i);
+  const int prim = __ldg(a.prim + i);
+  const bool hit_in = __ldg(a.hit + i) != 0;
+  const int segs = q.segments[i];
+  if (!live) return;  // a dead ray's carry stays
   const int64_t depth = __ldg(q.depth);
   const Shaded s = shade_slot(
-      sc, o, d, __ldg(a.prim + i), __ldg(a.hit + i) != 0,
-      static_cast<uint32_t>(__ldg(a.key)), static_cast<uint32_t>(__ldg(a.key + 1)),
-      static_cast<uint32_t>(__ldg(q.ray_ids + i)),
+      sc, o, d, prim, hit_in, static_cast<uint32_t>(__ldg(a.key)),
+      static_cast<uint32_t>(__ldg(a.key + 1)), static_cast<uint32_t>(id),
       static_cast<uint32_t>(depth + 1), a.t_min);
-  q.segments[i] += 1;
+  q.segments[i] = segs + 1;
   if (!s.hit) {
     const V3 add_ = sky(tp, d);
     q.radiance[3 * i] += add_.x;
@@ -472,8 +745,8 @@ __global__ void __launch_bounds__(kThreads)
   q.alive[i] = cont;
 }
 
-// K10.  The pool's state, written in place, K9's scratch rows and block
-// counts, the camera and the stream's cursor.
+// K10.  The pool's state, whose tail it writes, K9's pass record, the
+// camera and the stream's cursor.
 struct RegenArgs {
   const int64_t* key;  // (2,)
   CameraFields<float> cam;
@@ -484,86 +757,43 @@ struct RegenArgs {
   int64_t* ids;
   int64_t* depth;
   uint8_t* alive;
-  const float* next_o;
-  const float* next_d;
-  const float* next_tp;
-  const int64_t* next_ids;
-  const int64_t* next_depth;
-  const uint8_t* cont;
-  const int* block_counts;  // (blocks,): K9's, in K9's blocks
-  int blocks;
-  const int64_t* cursor;    // 0-d
+  const int64_t* record;    // (2,): n_alive, the cursor K9 found
   const int64_t* start_id;  // 0-d
-  int64_t* cursor_next;     // 0-d
+  int64_t* cursor;          // 0-d, written
   int64_t num_rays;
   int64_t n;  // slots
 };
 
 __global__ void __launch_bounds__(kThreads)
     regenerate_kernel(RegenArgs a) {
-  __shared__ int warp_before[kWarps], warp_total[kWarps], warp_counts[kWarps];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool cont = i < a.n && __ldg(a.cont + i) != 0;
-  // The survivors of the blocks before this one and of all of them.
-  int before = 0, total = 0;
-  for (int b = threadIdx.x; b < a.blocks; b += kThreads) {
-    const int c = __ldg(a.block_counts + b);
-    total += c;
-    if (b < static_cast<int>(blockIdx.x)) before += c;
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    before += __shfl_xor_sync(kFullMask, before, off);
-    total += __shfl_xor_sync(kFullMask, total, off);
-  }
-  // This slot's survivors before it in its block, by a ballot a warp.
-  const unsigned ballot = __ballot_sync(kFullMask, cont);
-  if (lane == 0) {
-    warp_before[warp] = before;
-    warp_total[warp] = total;
-    warp_counts[warp] = __popc(ballot);
-  }
-  __syncthreads();
-  int64_t n_alive = 0, dest = __popc(ballot & ((1u << lane) - 1u));
-  for (int w = 0; w < kWarps; ++w) {
-    n_alive += warp_total[w];
-    dest += warp_before[w] + (w < warp ? warp_counts[w] : 0);
-  }
-  if (i >= a.n) return;
-  const int64_t cursor = __ldg(a.cursor);
-  if (cont) {
-    store3(a.o, dest, load3(a.next_o, i));
-    store3(a.d, dest, load3(a.next_d, i));
-    store3(a.tp, dest, load3(a.next_tp, i));
-    a.ids[dest] = __ldg(a.next_ids + i);
-    a.depth[dest] = __ldg(a.next_depth + i);
-    a.alive[dest] = 1;
-  }
-  if (i >= n_alive) {
-    const int64_t fresh = cursor + i - n_alive;
-    const int64_t idx =
-        fresh < 0 ? 0 : (fresh > a.num_rays - 1 ? a.num_rays - 1 : fresh);
-    const int64_t id = __ldg(a.start_id) + idx;
-    const int64_t cam_id =
-        id < 0 ? 0 : (id > a.image_rays - 1 ? a.image_rays - 1 : id);
-    float o[3], d[3];
-    frt::torch_camera_ray<float>(static_cast<uint32_t>(__ldg(a.key)),
-                                 static_cast<uint32_t>(__ldg(a.key + 1)),
-                                 cam_id, a.nx, a.ny, a.spp, a.cam, o, d);
-    store3(a.o, i, V3{o[0], o[1], o[2]});
-    store3(a.d, i, V3{d[0], d[1], d[2]});
-    store3(a.tp, i, V3{1.0f, 1.0f, 1.0f});
-    a.depth[i] = 0;
-    a.ids[i] = id;
-    a.alive[i] = fresh < a.num_rays;
-  }
-  if (i == 0) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t n_alive = __ldg(a.record);
+  const int64_t cursor = __ldg(a.record + 1);
+  if (g == 0) {
     const int64_t left = a.num_rays - cursor;
     const int64_t room = a.n - n_alive;
-    *a.cursor_next = cursor + (room < (left < 0 ? 0 : left)
-                                   ? room
-                                   : (left < 0 ? 0 : left));
+    *a.cursor = cursor + (room < (left < 0 ? 0 : left)
+                              ? room
+                              : (left < 0 ? 0 : left));
   }
+  const int64_t s = n_alive + g;
+  if (s >= a.n) return;  // a survivor's slot, or past the pool
+  const int64_t fresh = cursor + g;
+  const int64_t idx =
+      fresh < 0 ? 0 : (fresh > a.num_rays - 1 ? a.num_rays - 1 : fresh);
+  const int64_t id = __ldg(a.start_id) + idx;
+  const int64_t cam_id =
+      id < 0 ? 0 : (id > a.image_rays - 1 ? a.image_rays - 1 : id);
+  float o[3], d[3];
+  frt::torch_camera_ray<float>(static_cast<uint32_t>(__ldg(a.key)),
+                               static_cast<uint32_t>(__ldg(a.key + 1)),
+                               cam_id, a.nx, a.ny, a.spp, a.cam, o, d);
+  store3(a.o, s, V3{o[0], o[1], o[2]});
+  store3(a.d, s, V3{d[0], d[1], d[2]});
+  store3(a.tp, s, V3{1.0f, 1.0f, 1.0f});
+  a.depth[s] = 0;
+  a.ids[s] = id;
+  a.alive[s] = fresh < a.num_rays;
 }
 
 int blocks_for(int64_t n) {
@@ -587,15 +817,16 @@ SceneArgs scene_args(const float* sph_center, const float* sph_radius,
 
 extern "C" {
 
-
-// Launches K9 in pool mode on `stream` over n slots (module comment),
-// writing each block's count of slots that continue to block_counts
-// (one int32 a block of kThreads slots).  The
-// scene: sph_center (ns, 3), sph_radius (ns,), sph_mat (ns,) int32, tri_v0,
-// tri_v1, tri_v2 (nt, 3), tri_mat (nt,) int32, and the material table of nm
-// rows: mat_type, tex_type (int32), albedo, albedo2 (nm, 3), tex_scale,
-// fuzz, ref_idx.  Launches nothing for n = 0.  Returns cudaGetLastError()
-// after the launch (0 = launched).
+// Launches K9 in pool mode on `stream` over n slots (module comment): the
+// scene, sph_center (ns, 3), sph_radius (ns,), sph_mat (ns,) int32,
+// tri_v0, tri_v1, tri_v2 (nt, 3), tri_mat (nt,) int32, and the material
+// table of nm rows: mat_type, tex_type (int32), albedo, albedo2 (nm, 3),
+// tex_scale, fuzz, ref_idx; the pool's state, compacted in place; the
+// closest hit; the output rows and segments; the cursor (0-d int64, read),
+// the pass record (2,) int64 (written) and the scan's words (1 + one a
+// block of kThreads slots, uint64; zeroed once when the pool is made, then
+// left to the kernel).  Launches nothing for n = 0.  Returns
+// cudaGetLastError() after the launch (0 = launched).
 int frt_shade_pool(const int64_t* key, const float* sph_center,
                    const float* sph_radius, const int* sph_mat,
                    const float* tri_v0, const float* tri_v1,
@@ -603,14 +834,12 @@ int frt_shade_pool(const int64_t* key, const float* sph_center,
                    const int* mat_type, const int* tex_type,
                    const float* albedo, const float* albedo2,
                    const float* tex_scale, const float* fuzz,
-                   const float* ref_idx, int nm, const float* o,
-                   const float* d, const float* tp, const int64_t* ids,
-                   const int64_t* depth, const uint8_t* alive,
+                   const float* ref_idx, int nm, float* o, float* d,
+                   float* tp, int64_t* ids, int64_t* depth, uint8_t* alive,
                    const int* prim, const uint8_t* hit,
                    const int64_t* start_id, int64_t num_rays, int max_depth,
-                   float t_min, float* out, int* segments, float* next_o,
-                   float* next_d, float* next_tp, int64_t* next_ids,
-                   int64_t* next_depth, uint8_t* cont, int* block_counts,
+                   float t_min, float* out, int* segments,
+                   const int64_t* cursor, int64_t* record, Word* scan,
                    int64_t n, void* stream) {
   if (n > 0) {
     const SceneArgs sc = scene_args(sph_center, sph_radius, sph_mat, tri_v0,
@@ -618,11 +847,10 @@ int frt_shade_pool(const int64_t* key, const float* sph_center,
                                     mat_type, tex_type, albedo, albedo2,
                                     tex_scale, fuzz, ref_idx, nm);
     const PassArgs a{key, prim, hit, n, max_depth, t_min};
-    const PoolArgs q{o,        d,       tp,      ids,      depth,
-                     alive,    start_id, num_rays, out,    segments,
-                     next_o,   next_d,  next_tp, next_ids, next_depth,
-                     cont,     block_counts};
-    shade_pool_kernel<<<blocks_for(n), kThreads, 0,
+    const PoolArgs q{o,   d,        tp,     ids,    depth,
+                     alive, start_id, num_rays, out, segments,
+                     cursor, record, scan};
+    shade_pool_kernel<<<blocks_for(n), kThreads, sizeof(PoolShared),
                         static_cast<cudaStream_t>(stream)>>>(sc, a, q);
   }
   return static_cast<int>(cudaGetLastError());
@@ -661,32 +889,26 @@ int frt_shade_trip(const int64_t* key, const float* sph_center,
 // Launches K10 on `stream` over the pool's n slots (module comment): the
 // key, the camera's seven float32 fields, the image's size (nx, ny, spp),
 // the pool's state o, d, tp (n, 3), ids, depth (n,) int64, alive (n,) bool
-// (written), K9's scratch rows and block counts, the cursor and the first
-// id (0-d int64), the advanced cursor's buffer
-// (0-d int64, written) and the stream's length num_rays.  Launches nothing
-// for n = 0.
+// (its tail written), K9's pass record (2,) int64, the first id (0-d
+// int64), the cursor (0-d int64, written) and the stream's length
+// num_rays.  Launches nothing for n = 0.
 int frt_regenerate(const int64_t* key, const float* cam_origin,
                    const float* cam_lower_left, const float* cam_horizontal,
                    const float* cam_vertical, const float* cam_u,
                    const float* cam_v, const float* cam_lens_radius,
                    int64_t nx, int64_t ny, int64_t spp, float* o, float* d,
                    float* tp, int64_t* ids, int64_t* depth, uint8_t* alive,
-                   const float* next_o, const float* next_d,
-                   const float* next_tp, const int64_t* next_ids,
-                   const int64_t* next_depth, const uint8_t* cont,
-                   const int* block_counts, const int64_t* cursor,
-                   const int64_t* start_id, int64_t* cursor_next,
-                   int64_t num_rays, int64_t n, void* stream) {
+                   const int64_t* record, const int64_t* start_id,
+                   int64_t* cursor, int64_t num_rays, int64_t n,
+                   void* stream) {
   if (n > 0) {
     const CameraFields<float> cam{cam_origin, cam_lower_left, cam_horizontal,
                                   cam_vertical, cam_u,      cam_v,
                                   cam_lens_radius};
-    const RegenArgs a{key,      cam,       nx,         ny,
-                      spp,      nx * ny * spp, o,      d,
-                      tp,       ids,       depth,      alive,
-                      next_o,   next_d,    next_tp,    next_ids,
-                      next_depth, cont,    block_counts, blocks_for(n),
-                      cursor,   start_id,  cursor_next, num_rays, n};
+    const RegenArgs a{key,   cam,    nx,     ny,       spp,
+                      nx * ny * spp, o,      d,        tp,
+                      ids,   depth,  alive,  record,   start_id,
+                      cursor, num_rays, n};
     regenerate_kernel<<<blocks_for(n), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(a);
   }

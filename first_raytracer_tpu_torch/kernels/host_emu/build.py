@@ -5,7 +5,12 @@ The sources are copied into ``kernels/build/``, their launches and
 ``extern __shared__`` buffers rewritten for the shim, ``cp_async.cuh``
 replaced by the synchronous one here, and compiled with ``-ffp-contract=
 off``.  The library keeps the sources' C entry points, so the tests bind
-it as ``megakernel.load_mega_library`` binds the card's.
+it as ``megakernel.load_mega_library`` binds the card's, and adds the
+shim's own: ``frt_emu_interleave(resident, seed)`` (blocks in flight at
+once in the launches that follow, 0 for one after another, and the seed
+of their fibers' schedule), ``frt_emu_spins()`` (spin-waits since) and
+``frt_emu_look_backs(out)`` (three uint64: the look-backs' windows,
+those they went on past, and the aggregates they summed, since).
 """
 from __future__ import annotations
 
@@ -106,6 +111,10 @@ def build_host_library(gxx="g++", units=None):
             with open(os.path.join(src, n), "w") as f:
                 f.write(text)
         shutil.copy(os.path.join(HERE, "cp_async.cuh"), src)
+        control = os.path.join(src, "emu_control.cc")
+        with open(control, "w") as f:
+            f.write("#define FRT_EMU_CONTROL\n#include <cuda_runtime.h>\n")
+        units.append(control)
         tmp = f"{out}.{os.getpid()}.tmp"
         proc = subprocess.run(
             [gxx, *GXX_FLAGS, "-I", HERE, "-o", tmp, *units],
@@ -113,4 +122,10 @@ def build_host_library(gxx="g++", units=None):
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed:\n{proc.stderr[-6000:]}")
         os.replace(tmp, out)
-    return ctypes.CDLL(out)
+    lib = ctypes.CDLL(out)
+    lib.frt_emu_interleave.argtypes = [ctypes.c_int, ctypes.c_ulonglong]
+    lib.frt_emu_interleave.restype = None
+    lib.frt_emu_spins.restype = ctypes.c_ulonglong
+    lib.frt_emu_look_backs.argtypes = [ctypes.c_void_p]
+    lib.frt_emu_look_backs.restype = None
+    return lib

@@ -1,26 +1,38 @@
 // A stand-in for <cuda_runtime.h> that lets g++ compile the package's CUDA
 // sources (kernels/csrc) into a host library, for the CPU tests of
-// tests/test_torch_cuda_host.py and test_torch_bvh_walk.py: the kernels'
-// own code, run on the host, held bit for bit against their plain PyTorch
-// versions.  Nothing of the package's entry points loads it; the card runs
-// the real sources.
+// tests/test_torch_cuda_host.py, test_torch_bvh_walk.py and
+// test_torch_wavefront_pass.py: the kernels' own code, run on the host,
+// held bit for bit against their plain PyTorch versions.  Nothing of the
+// package's entry points loads it; the card runs the real sources.
 //
 // A launch `k<<<grid, block, smem, stream>>>(args);` is rewritten by
 // host_emu/build.py into frt_emu::launch(grid, block, smem, [&] { k(args);
-// }): the blocks run one after another, each CUDA thread of a block as a
-// fiber of its own (ucontext) on the calling thread, so __syncthreads is a
-// barrier of the block and a warp's collectives (ballot, shuffles,
-// __syncwarp) a barrier of its 32 threads with an exchange buffer between
-// two waits.  A fiber runs until it waits at a barrier or returns, then
-// the block's scheduler resumes the next one, in thread order; a barrier
-// opens when its last thread arrives.  One OS thread runs the whole block,
-// so a launch costs no thread starts and its barriers never wait on the
-// host's scheduler, however busy the host is.  The kernels call the
-// collectives only where the whole warp is converged, as on the card.  A
-// thread that returns leaves both barriers.  `extern __shared__` becomes
-// the block's buffer, which the launcher fills with garbage; cp.async
-// (csrc/cp_async.cuh) is replaced by a synchronous copy.  Build with g++
-// -std=c++20 -ffp-contract=off, so that no product is fused where nvcc
+// }): each CUDA thread of a block runs as a fiber of its own (ucontext) on
+// the calling thread, so __syncthreads is a barrier of the block and a
+// warp's collectives (ballot, shuffles, __syncwarp) a barrier of its 32
+// threads with an exchange buffer between two waits.  A fiber runs until
+// it waits at a barrier, spins (__nanosleep) or returns, then the
+// scheduler resumes the next one; a barrier opens when its last thread
+// arrives.  One OS thread runs the whole launch, so a launch costs no
+// thread starts and its barriers never wait on the host's scheduler,
+// however busy the host is.  The kernels call the collectives only where
+// the whole warp is converged, as on the card.  A thread that returns
+// leaves both barriers.
+//
+// Blocks run one after another by default.  frt_emu_interleave(resident,
+// seed) (the library's own entry point, from host_emu/build.py) makes the
+// launches that follow keep `resident` blocks in flight at once, as a card
+// of that many resident blocks would (this shim reports 2 multiprocessors
+// of 2 blocks: 4), started in blockIdx order as others finish, their
+// fibers swept in an order of the blocks drawn from `seed` anew each
+// sweep: a block that waits on another (a look-back's spin) sees it at any
+// stage.  Static __shared__ variables are one per kernel for every block,
+// so a kernel run interleaved keeps its shared memory in `extern
+// __shared__`, the block's own buffer, which the launcher fills with
+// garbage.  cp.async (csrc/cp_async.cuh) is replaced by a synchronous
+// copy.  Memory is sequentially consistent here: __threadfence is a no-op,
+// and races between warps between two switches cannot show.  Build with
+// g++ -std=c++20 -ffp-contract=off, so that no product is fused where nvcc
 // --fmad=false would not fuse it.
 #pragma once
 
@@ -37,6 +49,7 @@
 #include <cstring>
 #include <vector>
 
+#define FRT_HOST_EMU 1  // a kernel may note what it met for the tests
 #define __device__
 #define __global__
 #define __host__
@@ -138,6 +151,11 @@ inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
+inline void __threadfence() {}
 
 namespace frt_emu {
 
@@ -153,6 +171,8 @@ struct Barrier {
 };
 
 struct Block {
+  unsigned index = 0;               // blockIdx.x
+  std::vector<unsigned char> smem;  // its dynamic shared memory
   Barrier all;
   std::vector<Barrier> warps;
   std::vector<uint64_t> exchange;  // one slot per thread of the block
@@ -167,6 +187,27 @@ inline thread_local dim3 tl_thread, tl_block, tl_dim, tl_grid;
 inline thread_local Block* tl_state = nullptr;
 inline thread_local unsigned char* tl_smem = nullptr;
 inline thread_local void* tl_body = nullptr;  // the launch's kernel call
+
+// frt_emu_interleave's settings: resident blocks (0: one after another)
+// and the seed of the sweeps' orders; the spins (__nanosleep calls) since.
+struct Schedule {
+  int resident = 0;
+  unsigned long long seed = 0;
+  unsigned long long spins = 0;
+  unsigned long long launch_spins = 0;  // the current launch's
+  // What look-backs met (wavefront_pass.cu notes them): windows of status
+  // words read, those with no inclusive prefix in them (the look-back went
+  // on past them), and aggregates summed.
+  unsigned long long windows = 0, crossings = 0, aggregates = 0;
+};
+inline Schedule schedule;
+inline void note_window(int aggregates, bool crossed) {
+  ++schedule.windows;
+  schedule.crossings += crossed;
+  schedule.aggregates += aggregates;
+}
+// A launch that spins this often without ending is stuck.
+constexpr unsigned long long kMaxSpins = 1ull << 26;
 
 }  // namespace frt_emu
 
@@ -239,62 +280,117 @@ void fiber_main() {
   ++b.progress;
 }
 
-// Runs `body` as the kernel: `grid` blocks in turn, `block` threads each,
-// every thread a fiber on the calling thread.
+// A spinning thread gives the processor back (__nanosleep).
+inline void spin() {
+  ++schedule.spins;
+  if (++schedule.launch_spins == kMaxSpins) {
+    std::fprintf(stderr, "frt_emu: a launch spun %llu times\n",
+                 schedule.launch_spins);
+    std::abort();
+  }
+  yield();
+}
+
+// xorshift64*: the sweeps' orders.
+inline unsigned long long next_random(unsigned long long& x) {
+  x ^= x >> 12;
+  x ^= x << 25;
+  x ^= x >> 27;
+  return x * 2685821657736338717ull;
+}
+
+// Makes block `index`'s fibers, on the stacks at `stacks`.
+template <class F>
+void start_block(Block& st, unsigned index, int nthreads, size_t smem_bytes,
+                 char* stacks) {
+  const int nwarps = (nthreads + kWarp - 1) / kWarp;
+  st.index = index;
+  // Garbage in shared memory, as a kernel may find it.
+  st.smem.resize(smem_bytes + 16);
+  for (size_t i = 0; i < st.smem.size(); ++i)
+    st.smem[i] = static_cast<unsigned char>(0xA5 ^ (i * 131 + index));
+  st.all.expected = nthreads;
+  st.warps.assign(nwarps, Barrier{});
+  for (int w = 0; w < nwarps; ++w)
+    st.warps[w].expected = std::min(kWarp, nthreads - w * kWarp);
+  st.exchange.assign(nthreads, 0);
+  st.fibers.resize(nthreads);
+  st.done.assign(nthreads, 0);
+  for (int t = 0; t < nthreads; ++t) {
+    ucontext_t& c = st.fibers[t];
+    getcontext(&c);
+    c.uc_stack.ss_sp = stacks + kStack * t;
+    c.uc_stack.ss_size = kStack;
+    c.uc_link = &st.scheduler;
+    makecontext(&c, &fiber_main<F>, 0);
+  }
+}
+
+// One sweep of a block: each of its fibers that has not returned runs
+// until it next gives the processor back.  Returns the fibers left.
+inline int sweep(Block& st, int nthreads) {
+  tl_state = &st;
+  tl_block = dim3(st.index);
+  tl_smem = st.smem.data();
+  int left = 0;
+  for (int t = 0; t < nthreads; ++t) {
+    if (st.done[t]) continue;
+    st.current = t;
+    tl_thread = dim3(t);
+    swapcontext(&st.scheduler, &st.fibers[t]);
+    left += !st.done[t];
+  }
+  return left;
+}
+
+// Runs `body` as the kernel: `grid` blocks, `block` threads each, every
+// thread a fiber on the calling thread; schedule.resident blocks at once
+// (one when 0).
 template <class F>
 void launch(dim3 grid, dim3 block, size_t smem_bytes, F body) {
   const int nthreads = static_cast<int>(block.x * block.y * block.z);
-  const int nwarps = (nthreads + kWarp - 1) / kWarp;
-  std::vector<unsigned char> smem(smem_bytes + 16);
+  const int resident = std::max(1, schedule.resident);
   // The fibers' stacks, touched only as deep as they grow.
-  const size_t bytes = kStack * static_cast<size_t>(nthreads);
+  const size_t per_block = kStack * static_cast<size_t>(nthreads);
+  const size_t bytes = per_block * resident;
   void* stacks = mmap(nullptr, bytes, PROT_READ | PROT_WRITE,
                       MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
   if (stacks == MAP_FAILED) {
     std::fprintf(stderr, "frt_emu: no memory for %d fiber stacks\n",
-                 nthreads);
+                 nthreads * resident);
     std::abort();
   }
   tl_body = &body;
   tl_dim = block;
   tl_grid = grid;
-  tl_smem = smem.data();
-  for (unsigned bx = 0; bx < grid.x; ++bx) {
-    // Garbage in shared memory, as a kernel may find it.
-    for (size_t i = 0; i < smem.size(); ++i)
-      smem[i] = static_cast<unsigned char>(0xA5 ^ (i * 131 + bx));
-    Block st;
-    st.all.expected = nthreads;
-    st.warps.resize(nwarps);
-    for (int w = 0; w < nwarps; ++w)
-      st.warps[w].expected = std::min(kWarp, nthreads - w * kWarp);
-    st.exchange.assign(nthreads, 0);
-    st.fibers.resize(nthreads);
-    st.done.assign(nthreads, 0);
-    tl_state = &st;
-    tl_block = dim3(bx);
-    for (int t = 0; t < nthreads; ++t) {
-      ucontext_t& c = st.fibers[t];
-      getcontext(&c);
-      c.uc_stack.ss_sp = static_cast<char*>(stacks) + kStack * t;
-      c.uc_stack.ss_size = kStack;
-      c.uc_link = &st.scheduler;
-      makecontext(&c, &fiber_main<F>, 0);
+  schedule.launch_spins = 0;
+  std::vector<Block> slots(resident);
+  std::vector<char> busy(resident, 0);
+  std::vector<int> order(resident);
+  unsigned long long random = schedule.seed * 0x9E3779B97F4A7C15ull + 1;
+  for (unsigned next = 0;;) {
+    for (int s = 0; s < resident; ++s)
+      if (!busy[s] && next < grid.x) {
+        start_block<F>(slots[s], next++, nthreads, smem_bytes,
+                       static_cast<char*>(stacks) + per_block * s);
+        busy[s] = 1;
+      }
+    int running = 0;
+    for (int s = 0; s < resident; ++s)
+      if (busy[s]) order[running++] = s;
+    if (running == 0) break;
+    for (int k = running - 1; k > 0 && schedule.resident > 0; --k)
+      std::swap(order[k], order[next_random(random) % (k + 1)]);
+    unsigned long long before = 0, after = 0;
+    for (int s = 0; s < resident; ++s) before += slots[s].progress;
+    for (int k = 0; k < running; ++k) {
+      const int s = order[k];
+      busy[s] = sweep(slots[s], nthreads) > 0;
     }
-    for (int left = nthreads; left > 0;) {
-      const unsigned long before = st.progress;
-      for (int t = 0; t < nthreads; ++t) {
-        if (st.done[t]) continue;
-        st.current = t;
-        tl_thread = dim3(t);
-        swapcontext(&st.scheduler, &st.fibers[t]);
-        left -= st.done[t];
-      }
-      if (left > 0 && st.progress == before) {
-        std::fprintf(stderr, "frt_emu: block %u deadlocked at a barrier\n",
-                     bx);
-        std::abort();
-      }
+    for (int s = 0; s < resident; ++s) after += slots[s].progress;
+    if (after == before) {
+      std::fprintf(stderr, "frt_emu: blocks deadlocked at a barrier\n");
+      std::abort();
     }
   }
   tl_state = nullptr;
@@ -309,6 +405,7 @@ inline void __syncthreads() {
 inline void __syncwarp(unsigned = 0xffffffffu) {
   frt_emu::arrive_and_wait(frt_emu::warp_barrier());
 }
+inline void __nanosleep(unsigned) { frt_emu::spin(); }
 
 inline unsigned __ballot_sync(unsigned mask, int pred) {
   int v[frt_emu::kWarp];
@@ -337,3 +434,24 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   frt_emu::exchange<T>(v, all);
   return all[(frt_emu::flat_thread() % frt_emu::kWarp) ^ lane_mask];
 }
+
+// The library's control of the emulation (host_emu/build.py compiles this
+// part once, with FRT_EMU_CONTROL defined): resident blocks and the seed
+// of the sweeps' orders for the launches that follow (resets the spins);
+// the spins since; what look-backs met since (windows, crossings,
+// aggregates).
+#if defined(FRT_EMU_CONTROL)
+extern "C" void frt_emu_interleave(int resident, unsigned long long seed) {
+  frt_emu::schedule = frt_emu::Schedule{};
+  frt_emu::schedule.resident = resident;
+  frt_emu::schedule.seed = seed;
+}
+extern "C" unsigned long long frt_emu_spins() {
+  return frt_emu::schedule.spins;
+}
+extern "C" void frt_emu_look_backs(unsigned long long* out) {
+  out[0] = frt_emu::schedule.windows;
+  out[1] = frt_emu::schedule.crossings;
+  out[2] = frt_emu::schedule.aggregates;
+}
+#endif

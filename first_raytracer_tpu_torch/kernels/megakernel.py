@@ -342,13 +342,13 @@ def bind_wavefront_pass(lib):
     # the material table's seven tensors and its rows.
     scene = [ptr] * 8 + [i32] * 2 + [ptr] * 7 + [i32]
     lib.frt_shade_pool.argtypes = (
-        scene + [ptr] * 9 + [i64, i32, f32] + [ptr] * 9 + [i64, ptr])
+        scene + [ptr] * 9 + [i64, i32, f32] + [ptr] * 5 + [i64, ptr])
     lib.frt_shade_pool.restype = i32
     lib.frt_shade_trip.argtypes = (
         scene + [ptr] * 10 + [i32, f32, i64, ptr])
     lib.frt_shade_trip.restype = i32
     lib.frt_regenerate.argtypes = (
-        [ptr] * 8 + [i64] * 3 + [ptr] * 16 + [i64] * 2 + [ptr])
+        [ptr] * 8 + [i64] * 3 + [ptr] * 9 + [i64] * 2 + [ptr])
     lib.frt_regenerate.restype = i32
     return lib
 

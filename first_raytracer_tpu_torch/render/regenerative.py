@@ -19,12 +19,13 @@ As in the JAX package, a pass (``pool_pass``) has fixed shapes and reads
 nothing back to the host: the survivor count and the stream's cursor stay
 on the device.  Past the closest hit a pass is ``render/wavefront_pass``'s
 two seams.  On the CPU (``shade_plain``, ``regenerate_plain``) the
-regeneration fills every slot and keeps the fresh rays in the tail, and
-the sky and segment counts go in by ``index_add_`` over all C slots (zero
-for the others: adding 0.0 is exact, so the order of the adds cannot
-change a bit).  On a CUDA device K9 shades every slot in one kernel, each
-live slot adding to its own output row, and K10 compacts the survivors
-and makes camera rays for the tail only, bit-equal to those.  The host
+compaction and the regeneration are selects over every slot, and the sky
+and segment counts go in by ``index_add_`` over all C slots (zero for the
+others: adding 0.0 is exact, so the order of the adds cannot change a
+bit).  On a CUDA device K9 shades every slot in one kernel, each live
+slot adding to its own output row, and moves each survivor to its
+compacted slot in place (a single-pass scan with decoupled look-back);
+K10 makes camera rays for the tail only; bit-equal to those.  The host
 reads "any slot alive" once per block of passes; on a CUDA device the
 passes replay as a CUDA graph (``render/graphed.py``).  JAX compacts
 with a scatter in which every dead lane collides at slot C - 1; the port
@@ -56,7 +57,8 @@ def pool_state(scene, camera, key, start_id, *, cfg, num_rays, pool_size,
     """The pool's state before its first pass: slot s holds ray id
     ``start_id + s`` (alive while s < num_rays), the stream's ``cursor``
     (0-d int64), the (num_rays, 3) output, the (num_rays,) segment counts
-    and the scratch rows of ``render.wavefront_pass.pool_scratch``.
+    and the pass record and scan words of
+    ``render.wavefront_pass.pool_scratch``.
     ``start_id`` is a 0-d int64 tensor on the scene's device."""
     C, dev, f32 = pool_size, scene.device, torch.float32
     slot = torch.arange(C, dtype=torch.int64, device=dev)

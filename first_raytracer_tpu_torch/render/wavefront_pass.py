@@ -1,5 +1,5 @@
-"""The wavefront pass past its closest hit: the shading (K9) and the pool's
-regeneration (K10), and their plain versions.
+"""The wavefront pass past its closest hit: the shading and compaction
+(K9) and the pool's regeneration (K10), and their plain versions.
 
 A forward pass of the chunked batch (``render/integrator.py::trip``) or of
 the regenerative pool (``render/regenerative.py::pool_pass``) is a closest
@@ -8,25 +8,26 @@ hit (K4, K5, K6 or the dense sweep), then two seams:
 - ``shade``: the hit record re-solved from the winning primitive, the sky
   on a miss, the bounce's draw and the scatter, then whether each path goes
   on.  In trip mode (no ``start_id``) it updates the batch's carry in
-  place; in pool mode it adds each live slot's segment and sky to its
-  output row, writes whether each slot goes on (``cont``) and the next
-  state of those that do to the pool's scratch rows (``next_o``,
-  ``next_d``, ``next_tp``, ``next_ids``, ``next_depth``).  ``regenerate``
-  reads the rows of those slots only: the plain version writes every row,
-  K9 leaves the rows of the slots that end as they were.
-- ``regenerate`` (pool mode only): the survivors compacted to the front in
-  order and the freed tail refilled with camera rays from the id stream.
+  place.  In pool mode it adds each live slot's segment and sky to its
+  output row and compacts the survivors' next states, in order, into the
+  front of the pool in place; the slots past them keep what they held.  It
+  writes the pass record (``record``: the survivors in all and the cursor
+  as the pass found it).
+- ``regenerate`` (pool mode only): the slots past the survivors refilled
+  with camera rays from the id stream, and the cursor advanced, from the
+  pass record.
 
-On a CUDA device ``shade`` launches K9 and ``regenerate`` K10 and one
-copy of the advanced cursor (``kernels/csrc/wavefront_pass.cu``); each
-kernel computes its part in registers, the draw (K7's) and the camera
-rays (K8's, for the tail only) folded in, and K10 takes the compaction's
-scan from the survivor counts K9 writes a block: bit-equal to the plain
-versions as torch runs them on the card.
-On the CPU they run ``shade_plain`` and ``regenerate_plain``, the bodies
-of ``_bounce`` and ``pool_pass`` as they were, split at these two seams,
-drawing through the plain Threefry and camera rays.  A tensor on any other
-device is refused; a failed build or launch raises, and nothing falls back.
+On a CUDA device ``shade`` launches K9 and ``regenerate`` K10
+(``kernels/csrc/wavefront_pass.cu``); each computes its part in registers,
+the draw (K7's) and the camera rays (K8's, for the tail only) folded in,
+and K9 takes the compaction's offsets from a single-pass scan with
+decoupled look-back over the pool's ``scan`` words: bit-equal to the plain
+versions as torch runs them on the card.  On the CPU they run
+``shade_plain`` and ``regenerate_plain``, torch ops whose composition is
+``pool_pass``' body as it was (a stable partition of the survivors, then
+the tail), drawing through the plain Threefry and camera rays.  A tensor
+on any other device is refused; a failed build or launch raises, and
+nothing falls back.
 
 The differentiable ``_bounce`` (autograd, ``method="scan"``), the
 recorders, the replays and the pool's init keep their torch bodies.
@@ -43,33 +44,27 @@ from .integrator import (_CARRY, BIG, UP, recompute_hit, shade_carry,
                          sky_color)
 
 __all__ = ["shade", "shade_plain", "regenerate", "regenerate_plain",
-           "pool_scratch", "BLOCK", "NEXT_ROWS"]
+           "pool_scratch", "BLOCK", "POOL_ROWS"]
 
 REPLACES_SHADE = "first_raytracer_tpu/render/integrator.py:213"
 REPLACES_REGENERATE = "first_raytracer_tpu/render/regenerative.py:87"
-# Threads of a block of K9 and K10 (kThreads in the source): K9 counts each
-# block's slots that continue, K10 takes its offsets from those counts.
+# Threads of a block of K9 and K10 (kThreads in the source): a tile of the
+# scan, one status word each.
 BLOCK = 256
-# The scratch rows of the next state, which hold a value only where
-# ``cont`` is true once K9 has run.
-NEXT_ROWS = ("next_o", "next_d", "next_tp", "next_ids", "next_depth")
+# The pool's state that a pass moves: the compaction's rows.
+POOL_ROWS = ("o", "d", "tp", "ids", "depth", "alive")
 
 
 def pool_scratch(pool_size, device):
-    """The pool's scratch rows: the next state of each slot that goes on
-    (``next_o``, ``next_d``, ``next_tp``, ``next_ids``, ``next_depth``),
-    ``cont`` and its count a block of ``BLOCK`` slots (``block_counts``),
-    and the advanced cursor K10 writes (``cursor_next``)."""
-    C, f32, i64 = pool_size, torch.float32, torch.int64
-    return dict(next_o=torch.zeros((C, 3), dtype=f32, device=device),
-                next_d=torch.zeros((C, 3), dtype=f32, device=device),
-                next_tp=torch.zeros((C, 3), dtype=f32, device=device),
-                next_ids=torch.zeros((C,), dtype=i64, device=device),
-                next_depth=torch.zeros((C,), dtype=i64, device=device),
-                cont=torch.zeros((C,), dtype=torch.bool, device=device),
-                block_counts=torch.zeros((-(-C // BLOCK),), dtype=torch.int32,
-                                         device=device),
-                cursor_next=torch.zeros((), dtype=i64, device=device))
+    """The pass record (``record``, (2,) int64: the survivors of the last
+    pass and the cursor as it found it), which ``shade`` writes and
+    ``regenerate`` reads, and K9's scan words (``scan``, int64: a ticket,
+    then a status word a block of ``BLOCK`` slots; zero here, then left to
+    K9, which tags each word with its pass, so nothing clears them)."""
+    blocks = -(-pool_size // BLOCK)
+    return dict(record=torch.zeros((2,), dtype=torch.int64, device=device),
+                scan=torch.zeros((1 + blocks,), dtype=torch.int64,
+                                 device=device))
 
 
 def shade_plain(state, prim, hit, *, scene, key, cfg, start_id=None,
@@ -77,8 +72,9 @@ def shade_plain(state, prim, hit, *, scene, key, cfg, start_id=None,
     """K9's plain version, in place, torch ops on any device.  Trip mode
     (``start_id`` None): ``_bounce``'s body past the closest hit on
     ``trace_state``'s carry.  Pool mode: ``pool_pass``' body from the
-    closest hit to the sky's ``index_add_``, its results written to every
-    slot's scratch rows (``pool_scratch``)."""
+    closest hit to the sky's ``index_add_``, then the survivors' next
+    states compacted, in order, into the front of the pool (the slots past
+    them keep what they held) and the pass record written."""
     if start_id is None:
         resolved = (*recompute_hit(scene, state["origin"],
                                    state["direction"], prim, cfg.t_min),
@@ -90,8 +86,7 @@ def shade_plain(state, prim, hit, *, scene, key, cfg, start_id=None,
         for k, v in zip(_CARRY, carry):
             state[k].copy_(v)
         return
-    o, d, tp, ids, depth, alive = (state[k] for k in (
-        "o", "d", "tp", "ids", "depth", "alive"))
+    o, d, tp, ids, depth, alive = (state[k] for k in POOL_ROWS)
     row = (ids - start_id).clamp(0, num_rays - 1)
     state["segments"].index_add_(0, row, alive.to(torch.int32))
     t, p, n, mat = recompute_hit(scene, o, d, prim, cfg.t_min)
@@ -105,10 +100,20 @@ def shade_plain(state, prim, hit, *, scene, key, cfg, start_id=None,
     # Rays that miss add the sky and end; the others end in black.
     state["out"].index_add_(0, row, torch.where(
         (alive & ~hit)[:, None], tp * sky_color(d), 0.0))
-    for k, v in (("next_o", p), ("next_d", new_dir),
-                 ("next_tp", tp * attenuation), ("next_ids", ids),
-                 ("next_depth", depth + 1), ("cont", cont)):
-        state[k].copy_(v)
+
+    # Compaction: a stable partition, survivors first; slot s < n_alive
+    # takes the s-th survivor's next state.
+    n_alive = cont.sum()
+    slot = torch.arange(cont.shape[0], dtype=torch.int64, device=o.device)
+    dest = torch.where(cont, torch.cumsum(cont, 0) - 1,
+                       n_alive + torch.cumsum(~cont, 0) - 1)
+    src = torch.empty_like(dest).index_copy_(0, dest, slot)
+    front = slot < n_alive
+    nexts = (p, new_dir, tp * attenuation, ids, depth + 1, cont)
+    for k, v in zip(POOL_ROWS, nexts):
+        keep = front[:, None] if v.dim() == 2 else front
+        state[k].copy_(torch.where(keep, v[src], state[k]))
+    state["record"].copy_(torch.stack([n_alive, state["cursor"]]))
 
 
 def _fresh_rays_plain(camera, cfg, key, ids):
@@ -119,34 +124,26 @@ def _fresh_rays_plain(camera, cfg, key, ids):
 
 def regenerate_plain(state, *, camera, key, start_id, cfg, num_rays,
                      pool_size, **_):
-    """K10's plain version, in place, torch ops on any device:
-    ``pool_pass``' compaction and regeneration from the scratch rows that
-    ``shade`` wrote."""
+    """K10's plain version, in place, torch ops on any device: the slots
+    past the pass record's survivors refilled from the primary stream at
+    the record's cursor, and the cursor advanced."""
     C = pool_size
-    o, d, tp, ids, depth, alive = (state[k] for k in (
-        "o", "d", "tp", "ids", "depth", "alive"))
-    cont = state["cont"]
-    # Compaction: survivors in order to the front, the dead after them.
-    n_alive = cont.sum()
+    o, d, tp, ids, depth, alive = (state[k] for k in POOL_ROWS)
+    n_alive, cursor = state["record"]
     slot = torch.arange(C, dtype=torch.int64, device=o.device)
-    dest = torch.where(cont, torch.cumsum(cont, 0) - 1,
-                       n_alive + torch.cumsum(~cont, 0) - 1)
-    src = torch.empty_like(dest).index_copy_(0, dest, slot)
-
-    # Regeneration: the tail from the primary stream.
-    cursor = state["cursor"]
     is_tail = slot >= n_alive
     fresh_idx = cursor + slot - n_alive
     fresh_ids = start_id + fresh_idx.clamp(0, num_rays - 1)
     fo, fd = _fresh_rays_plain(camera, cfg, key, fresh_ids)
     tail = is_tail[:, None]
-    o.copy_(torch.where(tail, fo, state["next_o"][src]))
-    d.copy_(torch.where(tail, fd, state["next_d"][src]))
-    tp.copy_(torch.where(tail, 1.0, state["next_tp"][src]))
-    depth.copy_(torch.where(is_tail, 0, state["next_depth"][src]))
-    ids.copy_(torch.where(is_tail, fresh_ids, state["next_ids"][src]))
-    alive.copy_(~is_tail | (fresh_idx < num_rays))
-    cursor.add_(torch.minimum(C - n_alive, (num_rays - cursor).clamp(min=0)))
+    o.copy_(torch.where(tail, fo, o))
+    d.copy_(torch.where(tail, fd, d))
+    tp.copy_(torch.where(tail, 1.0, tp))
+    depth.copy_(torch.where(is_tail, 0, depth))
+    ids.copy_(torch.where(is_tail, fresh_ids, ids))
+    alive.copy_(torch.where(is_tail, fresh_idx < num_rays, alive))
+    state["cursor"].copy_(cursor + torch.minimum(
+        C - n_alive, (num_rays - cursor).clamp(min=0)))
 
 
 def _check(name, t, dtype, shape, device):
@@ -204,14 +201,15 @@ def _launch_shade(state, prim, hit, *, scene, key, cfg, start_id=None,
     dev = state["alive"].device
     R = state["alive"].shape[0]
     if pool:
+        if R >= 2 ** 31:
+            raise ValueError(f"a pool of {R} slots: K9's scan counts in "
+                             "32 bits")
         names = (("o", f32, (R, 3)), ("d", f32, (R, 3)), ("tp", f32, (R, 3)),
                  ("ids", i64, (R,)), ("depth", i64, (R,)),
                  ("alive", b, (R,)), ("out", f32, (num_rays, 3)),
                  ("segments", torch.int32, (num_rays,)),
-                 ("next_o", f32, (R, 3)), ("next_d", f32, (R, 3)),
-                 ("next_tp", f32, (R, 3)), ("next_ids", i64, (R,)),
-                 ("next_depth", i64, (R,)), ("cont", b, (R,)),
-                 ("block_counts", torch.int32, (-(-R // BLOCK),)))
+                 ("cursor", i64, ()), ("record", i64, (2,)),
+                 ("scan", i64, (1 + -(-R // BLOCK),)))
     else:
         names = (("origin", f32, (R, 3)), ("direction", f32, (R, 3)),
                  ("throughput", f32, (R, 3)), ("radiance", f32, (R, 3)),
@@ -227,12 +225,11 @@ def _launch_shade(state, prim, hit, *, scene, key, cfg, start_id=None,
         _check("start_id", start_id, i64, (), dev)
         megakernel.launch_entry(
             dev, "frt_shade_pool", k.data_ptr(), *scene_args,
-            *(ptr[n] for n in ("o", "d", "tp", "ids", "depth", "alive")),
+            *(ptr[n] for n in POOL_ROWS),
             prim.data_ptr(), hit.data_ptr(), start_id.data_ptr(),
             int(num_rays), int(cfg.max_depth), float(cfg.t_min),
-            *(ptr[n] for n in ("out", "segments", "next_o", "next_d",
-                               "next_tp", "next_ids", "next_depth",
-                               "cont", "block_counts")), R)
+            *(ptr[n] for n in ("out", "segments", "cursor", "record",
+                               "scan")), R)
     else:
         megakernel.launch_entry(
             dev, "frt_shade_trip", k.data_ptr(), *scene_args,
@@ -250,9 +247,9 @@ def shade(state, prim, hit, *, scene, key, cfg, start_id=None,
     """The pass past its closest hit ``(prim, hit)``, in place: trip mode
     on ``trace_state``'s carry, or pool mode (``start_id``, the pool's
     first id as a 0-d int64 tensor, and ``num_rays``) on ``pool_state``'s
-    state and scratch rows.  Launches K9 for a CUDA state (float32
-    throughout) and runs ``shade_plain`` for a CPU one; bit-equal either
-    way."""
+    state, compacted, and its pass record.  Launches K9 for a CUDA state
+    (float32 throughout) and runs ``shade_plain`` for a CPU one; bit-equal
+    either way."""
     dev = state["alive"].device
     if dev.type == "cpu":
         return shade_plain(state, prim, hit, scene=scene, key=key, cfg=cfg,
@@ -268,9 +265,8 @@ shade.launches = 0  # K9 launches (CUDA path only)
 
 def _launch_regenerate(state, *, camera, key, start_id, cfg, num_rays,
                        pool_size):
-    """K10 over the pool's slots, from K9's scratch rows and block
-    counts, in place (``regenerate``): the state, and the advanced cursor
-    written to ``cursor_next`` and then copied into ``cursor``.  Makes no
+    """K10 over the pool's tail, from K9's pass record, in place
+    (``regenerate``): the tail's state and the advanced cursor.  Makes no
     host read, so a CUDA graph can capture it."""
     from ..kernels import megakernel
 
@@ -280,12 +276,7 @@ def _launch_regenerate(state, *, camera, key, start_id, cfg, num_rays,
     for name, dtype, shape in (
             ("o", f32, (C, 3)), ("d", f32, (C, 3)), ("tp", f32, (C, 3)),
             ("ids", i64, (C,)), ("depth", i64, (C,)), ("alive", b, (C,)),
-            ("cursor", i64, ()), ("next_o", f32, (C, 3)),
-            ("next_d", f32, (C, 3)), ("next_tp", f32, (C, 3)),
-            ("next_ids", i64, (C,)), ("next_depth", i64, (C,)),
-            ("cont", b, (C,)),
-            ("block_counts", torch.int32, (-(-C // BLOCK),)),
-            ("cursor_next", i64, ())):
+            ("record", i64, (2,)), ("cursor", i64, ())):
         _check(f"state[{name!r}]", state[name], dtype, shape, dev)
     _check("start_id", start_id, i64, (), dev)
     fields = [getattr(camera, f) for f in _FIELDS]
@@ -301,23 +292,18 @@ def _launch_regenerate(state, *, camera, key, start_id, cfg, num_rays,
     megakernel.launch_entry(
         dev, "frt_regenerate", k.data_ptr(), *(t.data_ptr() for t in fields),
         int(cfg.nx), int(cfg.ny), int(cfg.spp),
-        *(state[n].data_ptr() for n in (
-            "o", "d", "tp", "ids", "depth", "alive", "next_o", "next_d",
-            "next_tp", "next_ids", "next_depth", "cont", "block_counts",
-            "cursor")),
-        start_id.data_ptr(), state["cursor_next"].data_ptr(), int(num_rays),
-        C)
+        *(state[n].data_ptr() for n in POOL_ROWS),
+        state["record"].data_ptr(), start_id.data_ptr(),
+        state["cursor"].data_ptr(), int(num_rays), C)
     if C:
         regenerate.launches += 1
-    state["cursor"].copy_(state["cursor_next"])
 
 
 def regenerate(state, *, camera, key, start_id, cfg, num_rays, pool_size,
                **_):
-    """The pool's compaction and regeneration, in place, from the scratch
-    rows ``shade`` wrote: launches K10 for a CUDA pool (a float32 camera on
-    its device) and runs ``regenerate_plain`` for a CPU one; bit-equal
-    either way."""
+    """The pool's regeneration, in place, from the pass record ``shade``
+    wrote: launches K10 for a CUDA pool (a float32 camera on its device)
+    and runs ``regenerate_plain`` for a CPU one; bit-equal either way."""
     dev = state["alive"].device
     if dev.type == "cpu":
         return regenerate_plain(state, camera=camera, key=key,

@@ -46,24 +46,24 @@ differently.  The operations are counted from the CUDA sources:
   would make it 0.0019): K7 reads an 8-byte id (and an 8-byte domain
   where it has one a ray) and writes 16 bytes, K8 reads the id and writes
   six floats of the camera's type.
-- K9 (``kernels/csrc/wavefront_pass.cu``, the pass's shading): for each
-  live slot, K7's 164 integer and 8 FP32 operations of the draw and the
-  60 FP32 operations of the cheapest path through the shading (a sphere's
-  recompute 37, the ball sample 12 with its power and its sine and cosine
-  one each, a lambertian scatter 11); a triangle, a metal or a dielectric
-  takes more, so the bound is a lower one.  A dead slot needs no
-  operation.  Bytes: every slot's liveness read; a live slot's ray,
-  throughput, id, depth (pool mode) and closest hit read, its segment
-  count read and written and, on a miss, its output row read and written;
-  pool mode writes every slot's ``cont`` and the scratch row of each slot
-  that goes on (52 bytes), trip mode a live ray's liveness and the carry
-  of each ray that goes on (36); the scene's tensors read once a launch.
-  Bound by bytes.
+- K9 (``kernels/csrc/wavefront_pass.cu``, the pass's shading and, in
+  pool mode, its compaction): for each live slot, K7's 164 integer and 8
+  FP32 operations of the draw and the 60 FP32 operations of the cheapest
+  path through the shading (a sphere's recompute 37, the ball sample 12
+  with its power and its sine and cosine one each, a lambertian scatter
+  11); a triangle, a metal or a dielectric takes more, so the bound is a
+  lower one.  A dead slot needs no operation.  Bytes: every slot's state
+  and closest hit read, live or dead (K9 reads them in one step, before
+  it knows); a live slot's segment count read and written and, on a miss,
+  its output row read and written; pool mode writes a survivor's next
+  state to its compacted slot (53 bytes), each tile's status word twice
+  and reads it once, takes a ticket and writes the pass record; trip mode
+  writes a live ray's liveness and the carry of each ray that goes on
+  (36); the scene's tensors read once a launch.  Bound by bytes.
 - K10 (the pool's regeneration): a tail slot's camera ray is K8's (164
-  integer and 71 FP32 operations); bytes: ``cont`` read for every slot and
-  K9's survivor count of every block of 256 slots, a survivor's scratch
-  row read (52 bytes), every slot's state written (53), the key and camera
-  read once.  Bound by bytes.
+  integer and 71 FP32 operations); bytes: a tail slot's state written
+  (53), the pass record, key, camera and first id read and the cursor
+  written once a launch.  Bound by bytes.
 """
 from __future__ import annotations
 
@@ -252,20 +252,22 @@ def scene_bytes(scene):
 def k9_bound(scene, slots, live, cont, misses, pool=True, launches=1):
     """K9's bound over ``launches`` launches of ``slots`` slots in all, of
     which ``live`` were alive, ``cont`` went on and ``misses`` were live
-    and missed.  Every slot reads its liveness (1 byte); a live slot its
-    ray and throughput (36), id (8), depth (8, pool mode) and closest hit
-    (5), and reads and writes its segment count (8) and, on a miss, its
-    output row (24).  Pool mode writes every slot's ``cont`` (1), the
-    scratch row of a slot that goes on (52) and a count a block of 256;
-    trip mode a live ray's liveness (1) and the carry of a ray that goes
-    on (36).  The scene is read once a launch, with the key and the first
-    id or the depth.  Operations: the draw and the shading of each live
-    slot."""
+    and missed.  Every slot reads its liveness (1 byte), ray and
+    throughput (36), closest hit (5) and id (8); pool mode also its depth
+    (8), trip mode its segment count (4).  A live slot reads and writes its
+    segment count (8 in pool mode; 4 written in trip mode, with its
+    liveness, 1) and, on a miss, its output row (24).  Pool mode writes a
+    survivor's next state (53), each tile of 256 slots its status word
+    twice and reads it once (24), takes a ticket (16) and writes the pass
+    record from the cursor (24); trip mode writes the carry of a ray that
+    goes on (36).  The scene is read once a launch, with the key and the
+    first id or the depth.  Operations: the draw and the shading of each
+    live slot."""
     if pool:
-        nbytes = (2 * slots + (36 + 8 + 8 + 5 + 8) * live + 52 * cont
-                  + 4 * -(-slots // 256))
+        nbytes = ((1 + 36 + 5 + 8 + 8) * slots + 8 * live + 53 * cont
+                  + 24 * -(-slots // 256) + launches * (16 + 24))
     else:
-        nbytes = slots + (36 + 8 + 5 + 8 + 1) * live + 36 * cont
+        nbytes = (1 + 36 + 5 + 8 + 4) * slots + 5 * live + 36 * cont
     nbytes += 24 * misses + launches * (scene_bytes(scene) + 16 + 8)
     return roofline((THREEFRY_FP32_OPS + SHADE_OPS) * live, nbytes,
                     THREEFRY_INT_OPS * live)
@@ -273,14 +275,11 @@ def k9_bound(scene, slots, live, cont, misses, pool=True, launches=1):
 
 def k10_bound(slots, survivors, launches=1):
     """K10's bound over ``launches`` launches of ``slots`` slots in all,
-    ``survivors`` of them compacted and the rest given camera rays: every
-    slot reads ``cont`` (1 byte) and every block of 256 slots its survivor
-    count (4), a survivor its scratch row (52) and writes its state (53), a
-    tail slot writes its state; the key, the camera (19 floats), the
-    cursor and the first id are read and the advanced cursor written once
-    a launch, then copied into the cursor (``_launch_regenerate``: 16)."""
+    ``survivors`` of them left as K9 compacted them and the rest given
+    camera rays: a tail slot writes its state (53 bytes); the pass record
+    (16), the key (16), the camera (19 floats) and the first id (8) are
+    read and the cursor written (8) once a launch."""
     tail = slots - survivors
-    nbytes = (slots + 4 * -(-slots // 256) + 105 * survivors + 53 * tail
-              + launches * (16 + 76 + 24 + 16))
+    nbytes = 53 * tail + launches * (16 + 16 + 76 + 8 + 8)
     return roofline((THREEFRY_FP32_OPS + CAMERA_RAY_OPS) * tail, nbytes,
                     THREEFRY_INT_OPS * tail)

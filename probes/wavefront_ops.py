@@ -29,8 +29,8 @@ and ``regenerate_plain``: their torch ops); under ``"with K7 and K8"``,
 with each call of ``core.rng.uniforms`` (K7) and
 ``render.camera.camera_rays`` (K8) counted as one op, as the card
 launches each as one kernel; and under ``"with K7 to K10"``, also with
-the pass's shading counted as one op (K9) and its regeneration as three
-(the cumsum of ``cont``, K10 and the cursor's copy), as the card runs
+the pass's shading and compaction counted as one op (K9) and its
+regeneration as one (K10, which writes the cursor), as the card runs
 them.  Stand-ins run the plain versions with the count paused.
 
     python probes/wavefront_ops.py
@@ -83,9 +83,9 @@ def ops(fn):
     return c.ops
 
 
-def one_op(fn, n=1):
-    """``fn`` counted as ``n`` ops (one by default), its own ops not
-    counted: a kernel's one launch."""
+def one_op(fn):
+    """``fn`` counted as one op, its own ops not counted: a kernel's one
+    launch."""
     def stand_in(*args, **kwargs):
         c = ACTIVE[-1] if ACTIVE else None
         if c is None:
@@ -95,7 +95,7 @@ def one_op(fn, n=1):
             return fn(*args, **kwargs)
         finally:
             c.paused = False
-            c.ops += n
+            c.ops += 1
     return stand_in
 
 
@@ -110,9 +110,9 @@ def with_kernels():
 
 def with_pass_kernels():
     """Routes the pool pass's and the trip's seams through stand-ins of K9
-    (one op) and of the cumsum, K10 and the cursor's copy (three)."""
+    and K10 (one op each)."""
     wp.shade_plain = one_op(wp.shade_plain)
-    wp.regenerate_plain = one_op(wp.regenerate_plain, 3)
+    wp.regenerate_plain = one_op(wp.regenerate_plain)
 
 
 def counts():

@@ -6,12 +6,13 @@ each kernel), then times, graphed, the final scene's pool frame (2^17
 slots through K4, median of 3) and chunked frame (chunks of 2^17, one
 frame), field20000's chunked frame through K5 (median of 3, its host pack
 inside, as phase 13 times it) and the final scene's pool frame through K6
-(median of 3), each printed beside the readings before K9 and K10
+(median of 3), each printed beside the readings before K9 and K10's
+redesign (``chip_smoke.EARLIER_K9``) and before K9 and K10
 (``chip_smoke.EARLIER``); then runs ``chip_smoke.wavefront_pass_path``:
-K9 and K10 bit-equal to their plain versions pass by pass on every set,
-their launches over the frames, their ms at 2^17 slots (K9 in pool and
-trip mode, K10 with the cursor's copy), their bounds, and a graphed pool
-pass's and trip's ms and nodes.  Prints the phase's log and K9's and
+K9 and K10 bit-equal to their plain versions pass by pass on every set
+and on the stress set (a pool of 2^21 slots), their launches over the
+frames, their ms at 2^17 slots (K9 in pool and trip mode, K10), their
+bounds, and a graphed pool pass's and trip's ms and nodes.  Prints the phase's log and K9's and
 K10's entries of the kernels line (a few minutes with the build).
 
     python probes/wavefront_pass.py
