@@ -8,10 +8,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 1. Device: a CUDA GPU must be present; prints its name and the
    ``nvidia-smi`` name and power limit.
-2. Build: compiles K1, K2, K2b, K3, K3t, K4, K5, K6, K7, K8, K9 and K10
-   (kernels/csrc/megakernel.cu, megakernel_clustered.cu, intersect.cu,
-   bvh_walk.cu, rng_rays.cu and wavefront_pass.cu, one nvcc a source, all
-   at once) for
+2. Build: compiles K1, K2, K2b, K3, K3t, K4, K5, K6, K7, K8, K9, K10,
+   K11, K12 and K13 (kernels/csrc/megakernel.cu, megakernel_clustered.cu,
+   intersect.cu, bvh_walk.cu, rng_rays.cu, wavefront_pass.cu and
+   dense_hit.cu, one nvcc a source, all at once) for
    sm_90a; prints ptxas's registers and spills of every kernel, each on a
    line of its own.
 3. K1 vs plain: K1 and its plain PyTorch version on the same card and
@@ -286,12 +286,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    subprocess: it exits 0 and its line shows the loops captured and
    replayed.
 20. K7 and K8, the Threefry draw (``core.rng.uniforms``) and camera rays
-   (``render.camera.camera_rays``) of the recorders, the replays and the
-   wavefront loops' inits.  The main path: the pool recorder (2^14 slots)
-   over 2^17 rays of the final scene through K4, graphed, counters reset
-   before and read after: K7 once a pass and K8 once a pass plus the
-   init (warm-up blocks included), its tape ``torch.equal`` to the same
-   recorder op by op.  Bit-equal to their plain versions
+   (``render.camera.camera_rays``) of the replays and the recorders' and
+   the wavefront loops' inits.  The main path, counters reset before and
+   read after each run: the pool recorder (2^14 slots) over 2^17 rays of
+   the final scene through K4, graphed: K8 once for the init (and once a
+   warm-up), K7 never (its passes draw inside K12 and K13, phase 22), its
+   tape ``torch.equal`` to the same recorder op by op; the graphed replay
+   of its tape: K7 once a row, K8 once.  Bit-equal to their plain versions
    (``rng.uniforms_plain``, ``camera.camera_rays_plain``: torch ops) on the
    card: K7's camera draw at 2^17 final-scene ids, its bounce draw at a
    0-d depth, at per-ray depths 0-50 and at the ids and depths of the
@@ -331,13 +332,41 @@ Phases, in order; any failure raises and the exit code is non-zero:
    19's graphed frames are printed beside those before the redesign and
    before K9 and K10 (``EARLIER``).
 
+22. K11, K12 and K13, the recorders on the device (``kernels.dense_hit``,
+   ``diff.record_pass``).  K11 against ``intersect_brute``, (prim, t, hit)
+   ``torch.equal``, on the final scene's 2^17 camera rays and its first
+   bounce's rays, 2^16 camera rays of field5000, field20000 and
+   trifield20000, and two tie sets (the final scene with every sphere
+   twice; rays down the shared edge of two triangles, each twice).  K12 in
+   lockstep and length modes bounce by bounce (2^16 rays), and K12 in pool
+   mode and K13 pass by pass (2^14 slots over the same ids, K12's scan
+   words checked and carried), ``torch.equal`` to ``record_step_plain``,
+   ``record_shade_plain`` and ``record_regenerate_plain`` (the flat tape's
+   last entry aside) on phase 21's seven sets.  The main path, counters
+   reset before and read after each: the direct step at 2^17 rays of the
+   final scene (K11 and K12 once a bounce), the lockstep and the pool
+   recorder (2^14 slots: K11, K12 and K13 once a pass), their tapes
+   ``torch.equal`` to the same recorders on the plain versions op by op
+   and to each other, and the occupancy scan of 2^17 rays (K11 and K12's
+   length mode), its counts equal to the plain route's.  Times at 2^17
+   (20 calls a CUDA graph, the state a call changes restored and its time
+   taken off): K11 on the camera rays, K12 at the first bounce in
+   lockstep and length modes and at 2^17 pool slots after a pass, K13;
+   the plain versions one call a graph; bounds from ``utils/roofline.py``.
+   A graphed lockstep bounce's, pool pass's and length pass's ms and
+   nodes (``cuGraphGetNodes``, at most 4 each), and the graphed direct
+   step, recorders and field5000's direct step twice each after a warm
+   call, beside their times before K11-K13 (``EARLIER_K12``).
+
 The last two lines of standard output are a JSON object with the kernels'
 measurements (``sharded_launches``: the launches of phases 14 and 15;
 ``bench_launches``: phase 17's, by run; ``direct_step_launches``: phase
 18's, K4 on the final scene and K5 on field5000; K6's ``entry_launches``:
-phase 19's ``entry()`` forward; K7's and K8's ``launches``: phase 20's
-pool recorder, ``frame_launches``: phase 12's frames; K9's and K10's:
-phase 21's pool frame, ``frame_launches``: its frames) and
+phase 19's ``entry()`` forward; K7's ``launches``: phase 20's replay,
+K8's: its pool recorder's init, ``frame_launches``: phase 12's frames;
+K9's and K10's: phase 21's pool frame, ``frame_launches``: its frames;
+K11's and K12's lockstep mode: phase 22's direct step, K12's length mode:
+its occupancy scan, K12's pool mode and K13: its pool recorder) and
 the result line ``{"ok": true, "device": {...}}``.  This
 script imports no JAX.  Bounds count FP32 operations from the sources
 (``first_raytracer_tpu_torch/utils/roofline.py``, which ``bench_torch.py``'s
@@ -356,7 +385,9 @@ operations a ray at the INT32 rate (and 8 and 71 FP32); K9 and K10
 live slot and a tail slot's camera ray, and are bound by their bytes: K9
 every slot's state and closest hit read, a survivor's next state written
 to its compacted slot, the scan's status words, ticket and pass record;
-K10 a tail slot's state written.
+K10 a tail slot's state written.  K11 (kernels/csrc/dense_hit.cu) counts
+K4's 16 a (ray, sphere) and 46 a (ray, triangle) pair; K12 and K13
+(wavefront_pass.cu) count K9's and K10's operations and their own bytes.
 """
 from __future__ import annotations
 
@@ -380,10 +411,13 @@ from first_raytracer_tpu_torch.accel import traverse
 from first_raytracer_tpu_torch.accel.build import build_bvh
 from first_raytracer_tpu_torch.core import rng
 from first_raytracer_tpu_torch.diff import grad as dg
+from first_raytracer_tpu_torch.diff import record_pass as rpass
+from first_raytracer_tpu_torch.diff import replay as rrep
 from first_raytracer_tpu_torch.diff.replay import (plan_buckets,
                                                    record_paths,
                                                    record_paths_pool,
                                                    trace_rays_replay)
+from first_raytracer_tpu_torch.kernels import dense_hit as dh
 from first_raytracer_tpu_torch.kernels import intersect_clustered as ic
 from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
 from first_raytracer_tpu_torch.kernels import megakernel as mk
@@ -409,13 +443,15 @@ from first_raytracer_tpu_torch.render.regenerative import (
 from first_raytracer_tpu_torch.render.image import write_png
 from first_raytracer_tpu_torch.scene.builders import (build_preset,
                                                       random_scene)
+from first_raytracer_tpu_torch.utils import metrics
 from first_raytracer_tpu_torch.utils.metrics import wavefront_occupancy
 from first_raytracer_tpu_torch.utils.roofline import (bound,
                                                       clustered_bound,
                                                       k4_bound, k5_bound,
                                                       k6_bound, k7_bound,
                                                       k8_bound, k9_bound,
-                                                      k10_bound)
+                                                      k10_bound, k11_bound,
+                                                      k12_bound, k13_bound)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_KEY = "radiance_sum_mega_1200x800_10spp"
@@ -440,7 +476,11 @@ KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("camera_rays_kernel", "K8"),
                   ("shade_pool_kernel", "K9 (pool)"),
                   ("shade_trip_kernel", "K9 (trip)"),
-                  ("regenerate_kernel", "K10"))
+                  ("record_regenerate_kernel", "K13"),
+                  ("regenerate_kernel", "K10"),
+                  ("dense_hit_kernel", "K11"),
+                  ("record_step_kernel", "K12 (lockstep, length)"),
+                  ("record_pool_kernel", "K12 (pool)"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
 # Phases 8 and 10: the small scenes.
@@ -796,14 +836,20 @@ def reset_counts():
     rcam.camera_rays.launches = 0
     wp.shade.launches = 0
     wp.regenerate.launches = 0
+    dh.dense_hit.launches = 0
+    rpass.record_step.launches = 0
+    rpass.record_step.length_launches = 0
+    rpass.record_shade.launches = 0
+    rpass.record_regenerate.launches = 0
     graphed.LOOPS.reset_counts()
 
 
 def wavefront_tape(scene, cam, cfg, key, ray0, num_rays, chunk=1 << 13,
                    f64=False):
-    """The plain wavefront ``record_paths`` over a ray range, in chunks, so
-    that its dense (rays, primitives) temporaries stay bounded; with
-    ``f64`` on the scene and the camera rays in float64."""
+    """The wavefront ``record_paths`` over a ray range, in chunks; with
+    ``f64`` on the scene and the camera rays in float64, through the
+    plain route (``plain_lockstep``: K11 and K12 take float32), in chunks
+    so that its dense (rays, primitives) temporaries stay bounded."""
     sc = to_f64(scene) if f64 else scene
     parts = []
     for lo in range(ray0, ray0 + num_rays, chunk):
@@ -812,8 +858,10 @@ def wavefront_tape(scene, cam, cfg, key, ray0, num_rays, chunk=1 << 13,
         o, d = generate_rays(cam, cfg.nx, cfg.ny, cfg.spp, ids,
                              rng.camera_uniforms(key, ids))
         if f64:
-            o, d = o.double(), d.double()
-        parts.append(record_paths(sc, o, d, ids, key, cfg))
+            parts.append(plain_lockstep(sc, o.double(), d.double(), ids, key,
+                                        cfg)[:cfg.max_depth + 1])
+        else:
+            parts.append(record_paths(sc, o, d, ids, key, cfg))
     return torch.cat(parts, dim=1)
 
 
@@ -884,7 +932,7 @@ def tape_agreement(what, got, want, floor):
 
 
 def build():
-    """Phase 2: the one library of K1-K10."""
+    """Phase 2: the one library of K1-K13."""
     _, info = mk.load_mega_library()
     log(f"build: {os.path.relpath(info.path, ROOT)} (nvcc "
         f"{info.seconds:.2f} s, cached={info.cached})")
@@ -897,7 +945,7 @@ def build():
 
 def ptxas_kernels(text):
     """(label, function, registers, spill line) of each entry in ptxas -v
-    output, labelled K1-K10."""
+    output, labelled K1-K13."""
     out, entry, spills = [], None, ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -2570,7 +2618,7 @@ def direct_turns(what, fns, card):
     log(f"  {what}, in turns (eager, graphed, graphed, eager): "
         + "; ".join(f"{k} {', '.join(f'{t * 1e3:.1f}' for t in v)} ms"
                     for k, v in times.items())
-        + f"; before K9 and K10 {EARLIER[what]}; on {card}")
+        + f"; before K11-K13 {EARLIER[what]}; on {card}")
     return times
 
 
@@ -2651,7 +2699,7 @@ def direct_step_path(dev, key, card):
         params, scene, cam, cfg, key, ids, record_pool=1 << 14))[0]
     log(f"  the pool recorder (2^14 slots): tape equal to the lockstep "
         f"recorder's {torch.equal(pool, tape)} ({pool_s * 1e3:.1f} ms "
-        f"graphed, its second call; before K9 and K10 "
+        f"graphed, its second call; before K11-K13 "
         f"{EARLIER['pool recorder']})")
     if not torch.equal(pool, tape):
         raise AssertionError("the pool recorder's tape differs from the "
@@ -3117,10 +3165,11 @@ def rng_rays_path(dev, key, card, frame_draws):
         f"-{int(last_ids.max())}, depths {int(last_depth.min())}-"
         f"{int(last_depth.max())}")
 
-    # The main path: the pool recorder over 2^17 rays of the final scene
-    # through K4, graphed, the counters reset just before it and read just
-    # after.  The recorders keep their torch bodies, which draw through K7
-    # and K8; the render passes take K9 and K10 (phase 21).
+    # The main path, the counters reset just before each run and read just
+    # after: the pool recorder over 2^17 rays of the final scene through
+    # K4, graphed, whose init makes its camera rays through K8 (its passes
+    # draw and make rays inside K12 and K13, phase 22), and the replay of
+    # its tape, which draws through K7 a row (and K8 for its rays).
     def recorder(graphed_=None):
         return record_paths_pool(scene, cam, cfg, key, ids, pack,
                                  ip.intersect_pallas, pool_size=1 << 14,
@@ -3128,20 +3177,33 @@ def rng_rays_path(dev, key, card, frame_draws):
     reset_counts()
     tape = recorder()
     torch.cuda.synchronize()
-    n7, n8, c = rng.uniforms.launches, rcam.camera_rays.launches, \
+    n7r, n8, c = rng.uniforms.launches, rcam.camera_rays.launches, \
         loop_counts()
     same = torch.equal(tape, recorder(False))
     log(f"  the pool recorder (2^14 slots) at {R} rays through K4, graphed:"
-        f" K7 launches {n7}, K8 launches {n8} ({c['warmups']} warm-up "
+        f" K7 launches {n7r}, K8 launches {n8} ({c['warmups']} warm-up "
         f"block(s), {c['passes']} passes replayed, {c['replays']} "
         f"replays); its tape equal to the recorder op by op {same}")
-    k = graphed.PASSES_PER_READ
-    if not (n7 >= 1 and n8 >= 1 and n7 == c["passes"] + c["warmups"] * k
-            and n8 == n7 + 1 + c["warmups"]):
-        raise AssertionError(f"the pool recorder's K7 and K8 launches {n7}, "
-                             f"{n8} are not one a pass: {c}")
+    if not (n7r == 0 and n8 == 1 + c["warmups"]):
+        raise AssertionError(f"the pool recorder's K7 and K8 launches {n7r}, "
+                             f"{n8} are not none and one an init: {c}")
     if not same:
         raise AssertionError("the graphed pool recorder's tape differs")
+    params, _ = dg.split_params(scene)
+    target = torch.zeros((R, 3), device=dev)
+    tape = tape[:rrep.live_trips(tape)]
+    dg.render_loss_and_grads_tape(params, scene, cam, cfg, key, ids, target,
+                                  tape)
+    reset_counts()
+    dg.render_loss_and_grads_tape(params, scene, cam, cfg, key, ids, target,
+                                  tape)
+    torch.cuda.synchronize()
+    n7, n8r = rng.uniforms.launches, rcam.camera_rays.launches
+    log(f"  the replay of its {tape.shape[0]} rows, graphed: K7 launches "
+        f"{n7}, K8 launches {n8r}")
+    if not (n7 == tape.shape[0] and n8r == 1):
+        raise AssertionError(f"the replay's K7 and K8 launches {n7}, {n8r} "
+                             "are not one a row and one")
     del tape
 
     # K7 and K8 against their plain versions on the card, bit for bit.
@@ -3582,6 +3644,474 @@ def wavefront_pass_path(dev, key, card, frames):
         "bound_by": b10[1]})]
 
 
+# Phase 22: K11, K12 and K13, the recorders on the device.  The pool
+# recorder's slots (the direct step's ``record_pool``), the rays of each set
+# held pass by pass to the plain versions, and K11's rays on the fields.
+RECORD_POOL = 1 << 14
+RECORD_RAYS = 1 << 16
+K11_FIELD_RAYS = 1 << 16
+# A graphed body's nodes before K11-K13, the closest hit included
+# (``cuGraphGetNodes`` on the parent's bodies, probes/record_pass.py
+# --turns, PERF.md section 5; an NVIDIA H100 80GB HBM3 at 700.00 W).
+NODES_BEFORE_RECORD = {"lockstep bounce": 243, "pool pass": 283,
+                       "length pass": 239}
+# The recorders' and the direct step's seconds before K11-K13 (PERF.md
+# sections 5 and 6; an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside
+# this run's.
+EARLIER_K12 = {
+    "direct step": "0.438-0.450 s (recorder 0.357-0.360, replay "
+                   "0.082-0.090)",
+    "recorder": "0.357-0.360 s",
+    "pool recorder": "0.084-0.086 s",
+    "field5000 direct step": "0.109-0.122 s",
+}
+
+
+def plain_lockstep(scene, o, d, ray_ids, key, cfg, length=False):
+    """The lockstep recorder of the rays (o, d), or with ``length`` the
+    occupancy scan's lengths, on the plain versions op by op
+    (``intersect_brute``, ``record_step_plain`` and the counter's add,
+    through ``render.graphed.run_eager``): any float type.  Returns the
+    tape with its scratch row, or the lengths."""
+    def init():
+        state = rrep.record_state(o, d, cfg=cfg, tape=not length)
+        if length:
+            state["length"] = torch.zeros(ray_ids.shape, dtype=torch.int64,
+                                          device=o.device)
+        return state
+
+    def step(state):
+        prim, _, hit = intersect_brute(scene, state["o"], state["dr"],
+                                       cfg.t_min)
+        rpass.record_step_plain(state, prim, hit, scene=scene, key=key,
+                                ray_ids=ray_ids, cfg=cfg)
+        state["d"].add_(1)
+    state = graphed.run_eager(init, step, {}, {}, graphed.PASSES_PER_READ)
+    return state["length" if length else "tape"]
+
+
+def plain_pool(scene, cam, key, ray_ids, cfg, pool):
+    """The pool recorder of ``pool`` slots on the plain versions op by op
+    (``intersect_brute``, ``record_shade_plain``,
+    ``record_regenerate_plain``; the init's rays from
+    ``camera_rays_plain``).  Returns the (max_depth + 1, R) tape."""
+    def init():
+        state = rrep.record_pool_state(cam, key, ray_ids, cfg=cfg,
+                                       pool_size=pool)
+        o, d = rcam.camera_rays_plain(cam, cfg.nx, cfg.ny, cfg.spp, key,
+                                      state["ids"])
+        state["o"].copy_(o)
+        state["d"].copy_(d)
+        return state
+
+    def step(state):
+        prim, _, hit = intersect_brute(scene, state["o"], state["d"],
+                                       cfg.t_min)
+        rpass.record_shade_plain(state, prim, hit, scene=scene, key=key,
+                                 ray_ids=ray_ids, cfg=cfg)
+        rpass.record_regenerate_plain(state, camera=cam, key=key,
+                                      ray_ids=ray_ids, cfg=cfg)
+    state = graphed.run_eager(init, step, {}, {}, graphed.PASSES_PER_READ)
+    R, D = ray_ids.shape[0], cfg.max_depth + 1
+    return state["tape"][:D * R].reshape(D, R)
+
+
+def edge_scene(scene):
+    """Two triangles sharing the diagonal from (-1, 0, -1) to (1, 0, 1) of
+    a floor quad, each twice (ids 0-3), and no sphere; and 2^16 rays
+    straight down onto the diagonal: exact ties in t."""
+    dev = scene.device
+    a, b = (-1.0, 0.0, -1.0), (1.0, 0.0, 1.0)
+    tri = dataclasses.replace(
+        scene, sphere_center=scene.sphere_center[:0],
+        sphere_radius=scene.sphere_radius[:0],
+        sphere_mat=scene.sphere_mat[:0],
+        tri_v0=torch.tensor([a, a, a, a], device=dev),
+        tri_v1=torch.tensor([(1.0, 0.0, -1.0), b] * 2, device=dev),
+        tri_v2=torch.tensor([b, (-1.0, 0.0, 1.0)] * 2, device=dev),
+        tri_mat=torch.zeros((4,), dtype=torch.int32, device=dev))
+    s = torch.linspace(-0.99, 0.99, 1 << 16, device=dev)
+    o = torch.stack([s, torch.ones_like(s), s], dim=1)
+    d = torch.tensor([0.0, -1.0, 0.0], device=dev).expand(
+        s.shape[0], 3).contiguous()
+    return tri, o, d
+
+
+def k11_sets(dev, key, scene, cam, cfg, o, d):
+    """Phase 22's ray sets for K11: (label, scene, origin, direction)."""
+    ids = torch.arange(o.shape[0], device=dev)
+    state = rrep.record_state(o, d, cfg=cfg)
+    prim, _, hit = intersect_brute(scene, o, d, cfg.t_min)
+    rpass.record_step_plain(state, prim, hit, scene=scene, key=key,
+                            ray_ids=ids, cfg=cfg)
+    alive = state["alive"]
+    out = [(f"final scene, {o.shape[0]} camera rays", scene, o, d),
+           (f"final scene, one bounce's {int(alive.sum())} rays", scene,
+            state["o"][alive].contiguous(), state["dr"][alive].contiguous())]
+    for preset, n, label in (("sphere-field", 5000, "field5000"),
+                             ("sphere-field", 20000, "field20000"),
+                             ("triangle-field", 20000, "trifield20000")):
+        fs, fc, fcfg = build_preset(preset, device=dev, n=n)
+        fo, fd = camera_rays(fs, fc, fcfg, key, K11_FIELD_RAYS)
+        out.append((f"{label}, {K11_FIELD_RAYS} camera rays", fs, fo, fd))
+    twice = dataclasses.replace(
+        scene, sphere_center=scene.sphere_center.repeat(2, 1),
+        sphere_radius=scene.sphere_radius.repeat(2),
+        sphere_mat=scene.sphere_mat.repeat(2))
+    out.append(("final scene with every sphere twice (exact ties)", twice,
+                o, d))
+    out.append(("two triangles' shared edge, each twice (exact ties)",
+                *edge_scene(scene)))
+    return out
+
+
+def k11_vs_plain(label, scene, o, d):
+    """K11 (``dense_hit`` on the card) against ``intersect_brute`` on the
+    rays (o, d), prim, t and hit ``torch.equal``, the plain sweep in
+    chunks of 2^27 (ray, primitive) pairs.  Returns the hits."""
+    before = dh.dense_hit.launches
+    got = dh.dense_hit(scene, o, d, 1e-3)
+    torch.cuda.synchronize()
+    if dh.dense_hit.launches != before + 1:
+        raise AssertionError("K11's launch counter did not move")
+    step = max(1, (PLAIN_PAIRS // 2) // max(scene.num_primitives, 1))
+    parts = [intersect_brute(scene, o[lo:lo + step], d[lo:lo + step], 1e-3)
+             for lo in range(0, o.shape[0], step)]
+    want = [torch.cat(p) for p in zip(*parts)]
+    bit_equal(f"K11, {label} ({scene.num_spheres} spheres, "
+              f"{scene.num_triangles} triangles)", got, want,
+              "intersect_brute")
+    return int(got[2].sum())
+
+
+def record_passes_vs_plain(label, scene, cam, cfg, key, accel):
+    """K12 in lockstep and length modes bounce by bounce over
+    ``RECORD_RAYS`` camera rays, and K12 in pool mode and K13 pass by pass
+    over a pool of ``RECORD_POOL`` slots and the same ids, each against
+    its plain version on a clone of the same state (K12's scan words
+    checked and carried from pass to pass; the flat tape's last entry,
+    which the plain pass scatters its non-writing lanes to, aside), through
+    one inert bounce or pass past the last live one.  The closest hit is
+    ``default_intersect`` on ``accel``.  Returns (bounces, passes)."""
+    dev = scene.device
+    n = min(RECORD_RAYS, cfg.num_rays)
+    ids = torch.arange(n, device=dev)
+    o, d = rcam.camera_rays(cam, cfg.nx, cfg.ny, cfg.spp, key, ids)
+    kw = dict(scene=scene, key=key, ray_ids=ids, cfg=cfg)
+    bounces = 0
+    for mode in ("tape", "length"):
+        state = rrep.record_state(o, d, cfg=cfg, tape=mode == "tape")
+        if mode == "length":
+            state["length"] = torch.zeros((n,), dtype=torch.int64,
+                                          device=dev)
+        b, live = 0, True
+        while live:
+            live = bool(state["alive"].any())
+            prim, _, hit = default_intersect(scene, accel, state["o"],
+                                             state["dr"], cfg.t_min)
+            want = {k: v.clone() for k, v in state.items()}
+            rpass.record_step(state, prim, hit, **kw)
+            rpass.record_step_plain(want, prim, hit, **kw)
+            same_state(f"{label}: K12 ({mode}), bounce {b}", state, want)
+            state["d"].add_(1)
+            b += 1
+        bounces = max(bounces, b)
+    state = rrep.record_pool_state(cam, key, ids, cfg=cfg,
+                                   pool_size=RECORD_POOL)
+    passes, live = 0, True
+    while live:
+        live = bool(state["alive"].any())
+        prim, _, hit = default_intersect(scene, accel, state["o"],
+                                         state["d"], cfg.t_min)
+        want = {k: v.clone() for k, v in state.items()}
+        before = rpass.record_shade.launches, rpass.record_regenerate.launches
+        rpass.record_shade(state, prim, hit, **kw)
+        rpass.record_shade_plain(want, prim, hit, **kw)
+        k9_scan_words(f"{label}: K12 (pool), pass {passes}", state, want)
+        want["tape"][-1] = state["tape"][-1]
+        same_state(f"{label}: K12 (pool), pass {passes}", state, want)
+        rpass.record_regenerate(state, camera=cam, **kw)
+        rpass.record_regenerate_plain(want, camera=cam, **kw)
+        same_state(f"{label}: K13, pass {passes}", state, want)
+        if (rpass.record_shade.launches, rpass.record_regenerate.launches) \
+                != (before[0] + 1, before[1] + 1):
+            raise AssertionError("K12's or K13's counter did not move")
+        passes += 1
+    if int(state["cursor"]) != n:
+        raise AssertionError(f"{label}: the pool did not spend its stream")
+    return bounces, passes
+
+
+def counted(what, fn, kernels):
+    """``fn()`` with the counters reset just before and read just after;
+    fails unless each of ``kernels`` (label: (wrapper, attribute)) was
+    launched.  Returns (its seconds, its output, the launches)."""
+    reset_counts()
+    sec, out = host_s(fn)
+    n = {k: getattr(f, a) for k, (f, a) in kernels.items()}
+    c = loop_counts()
+    log(f"  {what}, graphed: {sec:.4f} s, launches {n} ({c['warmups']} "
+        f"warm-up block(s), {c['passes']} passes replayed, {c['replays']} "
+        "replays)")
+    if min(n.values()) < 1:
+        raise AssertionError(f"{what}: a kernel of its path did not launch "
+                             f"({n})")
+    return sec, out, n
+
+
+def restored_ms(restore, call):
+    """Milliseconds of ``call`` with the state it changes restored before
+    each call, 20 calls a CUDA graph, the restore's own time taken off."""
+    def both():
+        restore()
+        call()
+    return graph_ms(both, 5, 20) - graph_ms(restore, 5, 20)
+
+
+def record_pass_path(dev, key, card):
+    """Phase 22.  Returns the kernels line's entries of K11, K12 (its
+    lockstep, length and pool modes) and K13."""
+    key = key.to(dev)
+    scene, cam, cfg = build_preset("random-spheres", device=dev)
+    R, D = WAVE_RAYS, cfg.max_depth + 1
+    ids = torch.arange(R, device=dev)
+    o, d = camera_rays(scene, cam, cfg, key, R)
+
+    # K11 against intersect_brute, bit for bit.
+    for label, s, so, sd in k11_sets(dev, key, scene, cam, cfg, o, d):
+        hits = k11_vs_plain(label, s, so, sd)
+        log(f"    ({hits} of {so.shape[0]} rays hit)")
+    torch.cuda.empty_cache()
+
+    # K12's modes and K13 against their plain versions on phase 21's sets.
+    for label, s, c, cf, accel in pass_sets(dev):
+        t0 = time.perf_counter()
+        bounces, passes = record_passes_vs_plain(label, s, c, cf, key, accel)
+        log(f"  {label}: {bounces} lockstep and length bounces (K12) and "
+            f"{passes} pool passes (K12, K13) bit-equal to the plain "
+            f"versions ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    # The main path, counters reset just before each run and read just
+    # after: the direct step (the lockstep recorder), the pool recorder and
+    # the occupancy scan; each output against the plain route op by op.
+    params, _ = dg.split_params(scene)
+    target = torch.zeros((R, 3), device=dev)
+    po, pd = rcam.camera_rays_plain(cam, cfg.nx, cfg.ny, cfg.spp, key, ids)
+    dg.render_loss_and_grads(params, scene, cam, cfg, key, ids, target)
+    step_s, _, n_step = counted(
+        "the direct step at 2^17 rays of the final scene",
+        lambda: dg.render_loss_and_grads(params, scene, cam, cfg, key, ids,
+                                         target),
+        {"K11": (dh.dense_hit, "launches"),
+         "K12": (rpass.record_step, "launches")})
+    if n_step["K11"] != n_step["K12"]:
+        raise AssertionError(f"K11 and K12 not once a bounce: {n_step}")
+    rec_s, tape, _ = counted(
+        "the lockstep recorder (record_tape)",
+        lambda: dg.record_tape(params, scene, cam, cfg, key, ids),
+        {"K11": (dh.dense_hit, "launches"),
+         "K12": (rpass.record_step, "launches")})
+    bit_equal("  the direct step's tape (lockstep, graphed)", [tape],
+              [plain_lockstep(scene, po, pd, ids, key, cfg)[:D]],
+              "the plain route op by op")
+    pool_s, pool, n_pool = counted(
+        f"the pool recorder ({RECORD_POOL} slots)",
+        lambda: dg.record_tape(params, scene, cam, cfg, key, ids,
+                               record_pool=RECORD_POOL),
+        {"K11": (dh.dense_hit, "launches"),
+         "K12 pool": (rpass.record_shade, "launches"),
+         "K13": (rpass.record_regenerate, "launches")})
+    if not n_pool["K11"] == n_pool["K12 pool"] == n_pool["K13"]:
+        raise AssertionError(f"K11-K13 not once a pool pass: {n_pool}")
+    bit_equal("  the pool recorder's tape (graphed)", [pool],
+              [plain_pool(scene, cam, key, ids, cfg, RECORD_POOL)],
+              "the plain route op by op")
+    if not torch.equal(pool, tape):
+        raise AssertionError("the pool recorder's tape differs from the "
+                             "lockstep recorder's")
+    occ_s, occ, n_len = counted(
+        f"the occupancy scan ({R} rays)",
+        lambda: wavefront_occupancy(scene, cam, cfg, seed=0, num_rays=R,
+                                    device=dev),
+        {"K11": (dh.dense_hit, "launches"),
+         "K12 length": (rpass.record_step, "length_launches")})
+    lengths = plain_lockstep(scene, po, pd, ids, key, cfg, length=True)
+    ended = np.bincount(lengths.cpu().numpy(), minlength=D + 1)
+    counts = (R - np.cumsum(ended)[:D]).tolist()
+    alive = occ["alive_per_bounce"]
+    log(f"  the occupancy scan's rays alive per bounce {alive[:8]}... equal "
+        f"to the plain route's {counts == alive}")
+    if counts != occ["alive_per_bounce"]:
+        raise AssertionError("the occupancy counts differ from the plain "
+                             "route's")
+
+    # Times at 2^17, each call in a CUDA graph.  K11 on the camera rays.
+    ms11 = graph_ms(lambda: dh.dense_hit(scene, o, d, cfg.t_min), 5, 20)
+    plain11 = graph_ms(lambda: intersect_brute(scene, o, d, cfg.t_min), 3)
+    b11 = k11_bound(scene, R)
+    prim, _, hit = dh.dense_hit(scene, o, d, cfg.t_min)
+    kw = dict(scene=scene, key=key, ray_ids=ids, cfg=cfg)
+    # K12, lockstep and length modes, at the first bounce of the camera
+    # rays: each call restores the rays it moves.
+    step_ms, step_plain, step_bound = {}, {}, {}
+    for mode in ("lockstep", "length"):
+        first = rrep.record_state(o, d, cfg=cfg, tape=mode == "lockstep")
+        if mode == "length":
+            first["length"] = torch.zeros((R,), dtype=torch.int64,
+                                          device=dev)
+        work = {k: v.clone() for k, v in first.items()}
+        moved = ("o", "dr", "alive") + (("length",) if mode == "length"
+                                        else ())
+
+        def restore(work=work, first=first, moved=moved):
+            for k in moved:
+                work[k].copy_(first[k])
+        step_ms[mode] = restored_ms(
+            restore, lambda work=work: rpass.record_step(work, prim, hit,
+                                                         **kw))
+        after = {k: v.clone() for k, v in first.items()}
+        rpass.record_step_plain(after, prim, hit, **kw)
+        step_plain[mode] = graph_ms(
+            lambda after=after: rpass.record_step_plain(after, prim, hit,
+                                                        **kw), 5)
+        step_bound[mode] = k12_bound(scene, R, R, int(after["alive"].sum()),
+                                     int(hit.sum()), mode)
+    # K12 in pool mode and K13 at 2^17 slots over 2^19 ids after one pass.
+    pids = torch.arange(4 * R, device=dev)
+    pkw = dict(kw, ray_ids=pids)
+    pstate = rrep.record_pool_state(cam, key, pids, cfg=cfg, pool_size=R)
+    rrep.record_pool_pass(pstate, camera=cam, accel=None, **pkw,
+                          intersect_fn=default_intersect)
+    pprim, _, phit = dh.dense_hit(scene, pstate["o"], pstate["d"], cfg.t_min)
+    work = {k: v.clone() for k, v in pstate.items()}
+
+    def restore_pool():
+        for k in rpass.RECORD_ROWS:
+            work[k].copy_(pstate[k])
+    ms12p = restored_ms(restore_pool, lambda: rpass.record_shade(
+        work, pprim, phit, **pkw))
+    plain = {k: v.clone() for k, v in pstate.items()}
+    plain12p = graph_ms(lambda: rpass.record_shade_plain(plain, pprim, phit,
+                                                         **pkw), 5)
+    plain = {k: v.clone() for k, v in pstate.items()}
+    rpass.record_shade_plain(plain, pprim, phit, **pkw)
+    live = int(pstate["alive"].sum())
+    cont = int(plain["record"][0])
+    b12p = k12_bound(scene, R, live, cont,
+                     int((plain["tape"][:-1] != pstate["tape"][:-1]).sum()),
+                     "pool")
+    restore_pool()
+    rpass.record_shade(work, pprim, phit, **pkw)
+    ms13 = graph_ms(lambda: rpass.record_regenerate(work, camera=cam,
+                                                    **pkw), 5, 20)
+    plain13 = graph_ms(lambda: rpass.record_regenerate_plain(
+        plain, camera=cam, **pkw), 5)
+    b13 = k13_bound(R, cont)
+    log(f"  K11 at {R} camera rays: {ms11:.4f} ms (bound {b11[0]:.5f} ms, "
+        f"{b11[1]}); plain {plain11:.4f} ms in a graph")
+    for mode in step_ms:
+        log(f"  K12 ({mode}) at the first bounce of {R} rays: "
+            f"{step_ms[mode]:.4f} ms, the rays' restore taken off (bound "
+            f"{step_bound[mode][0]:.5f} ms, {step_bound[mode][1]}); plain "
+            f"{step_plain[mode]:.4f} ms in a graph")
+    log(f"  K12 (pool) at {R} slots after a pass ({live} live, {cont} going "
+        f"on): {ms12p:.4f} ms, the pool's restore taken off (bound "
+        f"{b12p[0]:.5f} ms, {b12p[1]}); plain {plain12p:.4f} ms in a graph")
+    log(f"  K13 at {R} slots ({R - cont} tail slots): {ms13:.4f} ms (bound "
+        f"{b13[0]:.5f} ms, {b13[1]}); plain {plain13:.4f} ms in a graph; on "
+        f"{card}")
+
+    # A graphed recorder bounce, pool pass and length pass: ms and nodes.
+    inputs = dict(scene=scene, accel=None, key=key, ray_ids=ids)
+    static = dict(cfg=cfg, intersect_fn=default_intersect)
+    lock = rrep.record_state(o, d, cfg=cfg)
+    length = rrep.record_state(o, d, cfg=cfg, tape=False)
+    length["length"] = torch.zeros((R,), dtype=torch.int64, device=dev)
+    rpool = rrep.record_pool_state(cam, key, ids, cfg=cfg,
+                                   pool_size=RECORD_POOL)
+    bodies = {
+        "lockstep bounce": lambda: rrep.record_bounce(lock, **inputs,
+                                                      **static),
+        "pool pass": lambda: rrep.record_pool_pass(rpool, camera=cam,
+                                                   **inputs, **static),
+        "length pass": lambda: metrics._length_pass(length, **inputs,
+                                                    **static)}
+    nodes = {k: graph_nodes(f) for k, f in bodies.items()}
+    body_ms = {k: graph_ms(f, 5) for k, f in bodies.items()}
+    log("  graphed bodies: " + "; ".join(
+        f"{k} {body_ms[k]:.4f} ms, {nodes[k]} nodes (before K11-K13: "
+        f"{NODES_BEFORE_RECORD[k]})"
+        for k in bodies) + f" (cuGraphGetNodes); on {card}")
+    if max(nodes.values()) > MAX_PASS_NODES:
+        raise AssertionError(f"a graphed recorder body has {nodes} nodes, "
+                             f"more than {MAX_PASS_NODES}")
+
+    # The direct step, the recorders and field5000's step, graphed, twice.
+    fs, fc, fcfg = build_preset("sphere-field", device=dev, n=5000)
+    fparams, _ = dg.split_params(fs)
+    pack5 = ic.pack_scene_clustered(fs)
+    dg.render_loss_and_grads(fparams, fs, fc, fcfg, key, ids, target, pack5)
+    runs = {
+        "direct step": lambda: dg.render_loss_and_grads(
+            params, scene, cam, cfg, key, ids, target),
+        "recorder": lambda: dg.record_tape(params, scene, cam, cfg, key,
+                                           ids),
+        "pool recorder": lambda: dg.record_tape(
+            params, scene, cam, cfg, key, ids, record_pool=RECORD_POOL),
+        "field5000 direct step": lambda: dg.render_loss_and_grads(
+            fparams, fs, fc, fcfg, key, ids, target, pack5)}
+    times = {k: [host_s(f)[0] for _ in range(3)][1:] for k, f in runs.items()}
+    log("  graphed, twice each after a warm call: " + "; ".join(
+        f"{k} {', '.join(f'{t:.4f}' for t in v)} s (before K11-K13 "
+        f"{EARLIER_K12[k]})" for k, v in times.items()) + f"; on {card}")
+
+    src = "first_raytracer_tpu_torch/kernels/csrc/"
+    common = {"route": "cuda", "max_abs_err": 0.0, "library_ms": None}
+    k12 = dict(common, source=src + "wavefront_pass.cu", nodes=nodes,
+               nodes_before=NODES_BEFORE_RECORD, body_ms=body_ms)
+    return [dict(common, **{
+        "name": "K11 dense closest hit (kernels.dense_hit), 2^17 camera "
+                "rays of the final scene",
+        "source": src + "dense_hit.cu", "replaces": dh.REPLACES,
+        "launches": n_step["K11"],
+        "pool_recorder_launches": n_pool["K11"],
+        "occupancy_launches": n_len["K11"], "ms": ms11,
+        "plain_ms": plain11, "bound_ms": b11[0], "bound_by": b11[1]}),
+        dict(k12, **{
+            "name": "K12 recorder pass, lockstep mode "
+                    "(diff.record_pass.record_step), the first bounce of "
+                    "2^17 rays of the final scene",
+            "replaces": rpass.REPLACES_STEP, "launches": n_step["K12"],
+            "ms": step_ms["lockstep"], "plain_ms": step_plain["lockstep"],
+            "bound_ms": step_bound["lockstep"][0],
+            "bound_by": step_bound["lockstep"][1], "step_s": step_s,
+            "recorder_s": rec_s, "times_s": times}),
+        dict(k12, **{
+            "name": "K12 recorder pass, length mode (record_step in "
+                    "utils.metrics._length_pass), the first bounce of "
+                    "2^17 rays",
+            "replaces": rpass.REPLACES_LENGTH,
+            "launches": n_len["K12 length"], "ms": step_ms["length"],
+            "plain_ms": step_plain["length"],
+            "bound_ms": step_bound["length"][0],
+            "bound_by": step_bound["length"][1], "occupancy_s": occ_s}),
+        dict(k12, **{
+            "name": "K12 recorder pass, pool mode "
+                    "(diff.record_pass.record_shade), 2^17 slots of the "
+                    "final scene",
+            "replaces": rpass.REPLACES_POOL, "launches": n_pool["K12 pool"],
+            "ms": ms12p, "plain_ms": plain12p, "bound_ms": b12p[0],
+            "bound_by": b12p[1], "pool_recorder_s": pool_s}),
+        dict(common, **{
+            "name": "K13 pool recorder regeneration "
+                    "(diff.record_pass.record_regenerate), 2^17 slots",
+            "source": src + "wavefront_pass.cu",
+            "replaces": rpass.REPLACES_POOL, "launches": n_pool["K13"],
+            "ms": ms13, "plain_ms": plain13, "bound_ms": b13[0],
+            "bound_by": b13[1]})]
+
+
 def bench_runs(card):
     """Phase 17: ``python3 bench_torch.py`` in subprocesses, one for each
     of ``BENCH_RUNS``.  Each must exit 0 with one JSON line without an
@@ -3688,6 +4218,9 @@ def main():
     k9, k10 = wavefront_pass_path(dev, key, card, frames)  # 21.
     k9["bench_launches"] = bench.get("K9", {})
     k10["bench_launches"] = bench.get("K10", {})
+    torch.cuda.empty_cache()
+    log("K11, K12 and K13, the recorders on the device:")
+    k11_13 = record_pass_path(dev, key, card)  # 22.
     k6["bench_launches"] = bench["K6"]
     k4["direct_step_launches"] = direct["launches"]["K4"]
     k5["direct_step_launches"] = direct["launches"]["K5"]
@@ -3735,7 +4268,8 @@ def main():
         "tape_agreement_with_k2b": t10["agree_k2b"], "ms": t10["ms"],
         "plain_ms": t10["plain_ms"], "bound_ms": t10["bound"][0],
         "bound_by": t10["bound"][1], "library_ms": None,
-        "bench_launches": bench["K3t"]}, k4, k5, k6, k7, k8, k9, k10]}))
+        "bench_launches": bench["K3t"]}, k4, k5, k6, k7, k8, k9, k10,
+        *k11_13]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

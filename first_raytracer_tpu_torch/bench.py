@@ -73,6 +73,8 @@ from .accel import traverse
 from .core import rng
 from .diff import grad as dg
 from .diff.replay import live_trips, plan_buckets, record_paths_pool
+from .diff import record_pass
+from .kernels import dense_hit
 from .kernels import intersect_clustered as ic
 from .kernels import intersect_pallas as ip
 from .kernels import megakernel as mk
@@ -119,11 +121,16 @@ COUNTERS = (("K1", mk.render_pixels_mega, "launches"),
             ("K7", rng.uniforms, "launches"),
             ("K8", camera_rays, "launches"),
             ("K9", wavefront_pass.shade, "launches"),
-            ("K10", wavefront_pass.regenerate, "launches"))
+            ("K10", wavefront_pass.regenerate, "launches"),
+            ("K11", dense_hit.dense_hit, "launches"),
+            ("K12", record_pass.record_step, "launches"),
+            ("K12 (length)", record_pass.record_step, "length_launches"),
+            ("K12 (pool)", record_pass.record_shade, "launches"),
+            ("K13", record_pass.record_regenerate, "launches"))
 # The closest-hit kernel and wrapper of each BENCH_INTERSECT (the dense
-# sweep is plain PyTorch, ``default_intersect``'s).
+# sweep is K11, ``default_intersect``'s).
 INTERSECT_KERNEL = {"pallas": "K4", "clustered": "K5", "bvh": "K6",
-                    "brute": None}
+                    "brute": "K11"}
 INTERSECT_FN = {"pallas": ip.intersect_pallas,
                 "clustered": ic.intersect_clustered,
                 "bvh": traverse.intersect_bvh}

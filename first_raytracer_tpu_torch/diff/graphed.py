@@ -80,18 +80,25 @@ def _map(fn, obj):
 
 def launch_counters():
     """(wrapper, attribute) of the launch counters a graphed body can move:
-    K4's, K5's, K6's, K7's, K8's, K9's and K10's."""
+    K4's, K5's, K6's, K7's, K8's, K9's, K10's, K11's, K12's (each mode)
+    and K13's."""
     from ..accel import traverse
     from ..core import rng
-    from ..kernels import intersect_clustered, intersect_pallas
+    from ..kernels import dense_hit, intersect_clustered, intersect_pallas
     from ..render import camera, wavefront_pass
+    from . import record_pass
     return ((intersect_pallas.intersect_pallas, "launches"),
             (intersect_clustered.intersect_clustered, "launches"),
             (traverse.intersect_bvh, "launches"),
             (rng.uniforms, "launches"),
             (camera.camera_rays, "launches"),
             (wavefront_pass.shade, "launches"),
-            (wavefront_pass.regenerate, "launches"))
+            (wavefront_pass.regenerate, "launches"),
+            (dense_hit.dense_hit, "launches"),
+            (record_pass.record_step, "launches"),
+            (record_pass.record_step, "length_launches"),
+            (record_pass.record_shade, "launches"),
+            (record_pass.record_regenerate, "launches"))
 
 
 def launches_now():

@@ -9,8 +9,9 @@ equation, not the traversal), so the pass splits in two:
    for a miss or a dead path.  ``record_paths`` is the lockstep wavefront
    recorder, ``record_paths_pool`` a compacted regenerating pool with the
    same tape, both with the integrator's pluggable closest hit
-   (``intersect_fn`` on ``accel``); ``kernels/record_mega.py`` records it
-   on the GPU in one kernel.  Both recorders are the JAX package's
+   (``intersect_fn`` on ``accel``) and, past it, ``diff/record_pass.py``
+   (K12 and K13 on the card); ``kernels/record_mega.py`` records it on the
+   GPU in one kernel.  Both recorders are the JAX package's
    ``while_loop``s: a state of fixed shape (``record_state``,
    ``record_pool_state``) advanced in place by a body that reads nothing
    back (``record_bounce``, ``record_pool_pass``), the bounce counter, the
@@ -43,36 +44,18 @@ from ..core import rng
 from ..core.vecmath import constant, point_at
 from ..geometry.sphere import BIG, sphere_hit_one, sphere_normal
 from ..geometry.triangle import triangle_hit_one, triangle_normal
-from ..materials.scatter import scatter, scatter_from_params
+from ..materials.scatter import scatter_from_params
 from ..render.camera import camera_rays
 from ..render.integrator import (UP, RenderConfig, default_intersect,
-                                 recompute_hit, sky_color)
+                                 sky_color)
+from ..render.wavefront_pass import pool_scratch
 from ..scene.textures import texture_from_params
+from .record_pass import record_regenerate, record_shade, record_step
 
 __all__ = ["record_paths", "record_camera_paths", "record_paths_pool",
            "record_state", "camera_record_state", "record_bounce",
            "record_pool_state", "record_pool_pass", "trace_rays_replay",
            "live_trips", "plan_buckets"]
-
-
-def _record_bounce(scene, accel, intersect_fn, key, o, dr, ids, depth,
-                   t_min):
-    """One recorder bounce of rays (o, dr) at bounce ``depth`` (an int or a
-    per-ray tensor): ``(prim, hit, hit point, new direction, scattered)``.
-
-    The recompute is the authority on hits, exactly as in ``trace_rays``:
-    the tape stores an id iff the replay will re-derive a hit from it.
-    """
-    prim, _, hit = (intersect_fn or default_intersect)(scene, accel, o, dr,
-                                                       t_min)
-    t, p, n, mat = recompute_hit(scene, o, dr, prim, t_min)
-    hit = hit & (t < BIG)
-    p = torch.where(hit[:, None], p, 0.0)
-    up = constant(UP, torch.float32, o.device)
-    n = torch.where(hit[:, None], n, up)
-    new_dir, _, ok = scatter(scene, mat, dr, p, n,
-                             rng.bounce_uniforms(key, ids, depth))
-    return prim, hit, p, new_dir, ok
 
 
 def record_state(origin, direction, *, cfg, tape=True, **_):
@@ -103,23 +86,16 @@ def record_bounce(state, *, scene, accel, key, ray_ids, cfg, intersect_fn,
                   **_):
     """One bounce of the lockstep recorder, in place: the body of the JAX
     package's ``while_loop`` (``diff/replay.py:71-115`` there), with its
-    test ``(d <= max_depth) & any(alive)`` folded into ``alive``.  No host
-    read and no tensor from host data; a pass after the last bounce
+    test ``(d <= max_depth) & any(alive)`` folded into ``alive``.  The
+    closest hit, then ``diff.record_pass.record_step`` (K12 on a CUDA
+    device, ``record_step_plain`` on the CPU), then the counter's add.  No
+    host read and no tensor from host data; a pass after the last bounce
     changes nothing but the scratch row."""
-    d = state["d"]
-    o, dr = state["o"], state["dr"]
-    alive = state["alive"] & (d <= cfg.max_depth)
-    prim, hit, p, new_dir, ok = _record_bounce(
-        scene, accel, intersect_fn, key, o, dr, ray_ids, d, cfg.t_min)
-    if "tape" in state:
-        row = d.clamp(max=cfg.max_depth + 1).reshape(1)
-        state["tape"].index_copy_(0, row,
-                                  torch.where(alive & hit, prim, -1)[None])
-    alive = alive & hit & ok & (d < cfg.max_depth)
-    state["alive"].copy_(alive)
-    o.copy_(torch.where(alive[:, None], p, o))
-    dr.copy_(torch.where(alive[:, None], new_dir, dr))
-    d.add_(1)
+    prim, _, hit = intersect_fn(scene, accel, state["o"], state["dr"],
+                                cfg.t_min)
+    record_step(state, prim, hit, scene=scene, key=key, ray_ids=ray_ids,
+                cfg=cfg)
+    state["d"].add_(1)
 
 
 def _lockstep(init, inputs, cfg, intersect_fn, graphed):
@@ -173,9 +149,10 @@ def _stream_rays(camera, cfg, key, ray_ids, idx):
 def record_pool_state(camera, key, ray_ids, *, cfg, pool_size, **_):
     """The pool recorder's state before its first pass: slot s holds the
     stream's entry s (alive while s < R), its tape column ``col``, the
-    stream's ``cursor`` (0-d int64) and the flat tape of -1s, (D * R + 1,)
-    with D = max_depth + 1: its last entry takes the lanes that write
-    nothing."""
+    stream's ``cursor`` (0-d int64), the flat tape of -1s, (D * R + 1,)
+    with D = max_depth + 1 (its last entry takes the plain pass's lanes
+    that write nothing), and the pass record and K12's scan words
+    (``render.wavefront_pass.pool_scratch``)."""
     C, R, dev = pool_size, ray_ids.shape[0], ray_ids.device
     slot = torch.arange(C, dtype=torch.int64, device=dev)
     col = slot.clamp(max=max(R - 1, 0))
@@ -186,48 +163,26 @@ def record_pool_state(camera, key, ray_ids, *, cfg, pool_size, **_):
                 alive=slot < n0,
                 cursor=torch.full((), n0, dtype=torch.int64, device=dev),
                 tape=torch.full(((cfg.max_depth + 1) * R + 1,), -1,
-                                dtype=torch.int32, device=dev))
+                                dtype=torch.int32, device=dev),
+                **pool_scratch(C, dev))
 
 
 @torch.no_grad()
 def record_pool_pass(state, *, scene, camera, accel, key, ray_ids, cfg,
-                     pool_size, intersect_fn, **_):
+                     intersect_fn, **_):
     """One pass of the pool recorder, in place (the JAX package's loop
     body, ``diff/replay.py:167-206`` there): no host read, every shape
-    fixed.  The hits go to the flat tape, the others to its last entry;
-    the survivors move in order to the front (a stable scatter partition,
-    the dead after them) and every slot past them takes the stream's next
-    ray.  Once every slot is dead and the stream is spent it changes
-    nothing the tape returns."""
-    C, R = pool_size, ray_ids.shape[0]
-    o, d, ids, col, depth, alive = (state[k] for k in (
-        "o", "d", "ids", "col", "depth", "alive"))
-    prim, hit, p, new_dir, ok = _record_bounce(
-        scene, accel, intersect_fn, key, o, d, ids, depth, cfg.t_min)
-    write = alive & hit
-    state["tape"].scatter_(0, torch.where(
-        write, depth * R + col, (cfg.max_depth + 1) * R), prim)
-    cont = write & ok & (depth < cfg.max_depth)
-
-    n_alive = cont.sum()
-    slot = torch.arange(C, dtype=torch.int64, device=o.device)
-    dest = torch.where(cont, torch.cumsum(cont, 0) - 1,
-                       n_alive + torch.cumsum(~cont, 0) - 1)
-    src = torch.empty_like(dest).index_copy_(0, dest, slot)
-
-    cursor = state["cursor"]
-    is_tail = slot >= n_alive
-    fresh_idx = cursor + slot - n_alive
-    f_ids, fo, fd = _stream_rays(camera, cfg, key, ray_ids, fresh_idx)
-    tail = is_tail[:, None]
-    o.copy_(torch.where(tail, fo, p[src]))
-    d.copy_(torch.where(tail, fd, new_dir[src]))
-    ids.copy_(torch.where(is_tail, f_ids, ids[src]))
-    col.copy_(torch.where(is_tail, fresh_idx.clamp(0, max(R - 1, 0)),
-                          col[src]))
-    depth.copy_(torch.where(is_tail, 0, depth[src] + 1))
-    alive.copy_(~is_tail | (fresh_idx < R))
-    cursor.add_(torch.minimum(C - n_alive, (R - cursor).clamp(min=0)))
+    fixed.  The closest hit, then ``diff.record_pass.record_shade`` (the
+    hits to the flat tape, the survivors moved in order to the front: K12
+    on a CUDA device) and ``record_regenerate`` (every slot past them takes
+    the stream's next ray: K13).  Once every slot is dead and the stream
+    is spent it changes nothing the tape returns."""
+    prim, _, hit = intersect_fn(scene, accel, state["o"], state["d"],
+                                cfg.t_min)
+    record_shade(state, prim, hit, scene=scene, key=key, ray_ids=ray_ids,
+                 cfg=cfg)
+    record_regenerate(state, camera=camera, key=key, ray_ids=ray_ids,
+                      cfg=cfg)
 
 
 @torch.no_grad()

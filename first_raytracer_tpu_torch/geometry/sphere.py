@@ -4,6 +4,9 @@ Port of ``first_raytracer_tpu.geometry.sphere``: the ``oc = O - C`` quadratic
 with unit directions (``a = 1``), near root first, then far root, against
 ``(t_min, t_max)``.  The normal ``(p - C) / radius`` uses the signed
 radius, so a negative radius is a hollow (inward-facing) shell.
+``sphere_hit_all`` is part of K11's plain version (the dense sweep,
+``kernels/csrc/dense_hit.cu`` on the card, which rounds as torch rounds
+these ops there).
 """
 from __future__ import annotations
 

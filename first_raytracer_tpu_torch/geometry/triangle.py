@@ -2,7 +2,8 @@
 
 Port of ``first_raytracer_tpu.geometry.triangle``.  The geometric normal
 is ``normalize(cross(e1, e2))``, un-flipped: the winding defines the
-outward side.
+outward side.  ``triangle_hit_all`` is part of K11's plain version (the
+dense sweep, ``kernels/csrc/dense_hit.cu`` on the card).
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 // K9 and K10 on Hopper: the wavefront pass's shading and compaction, and
 // the pool's regeneration, each one kernel in place of the ~250 elementwise
-// torch ops a pass ran between the closest hit (K4, K5 or K6) and the next
-// pass.
+// torch ops a pass ran between the closest hit (K4, K5, K6 or K11) and the
+// next pass; K12 and K13, the same for the recorders' passes.
 //
 // K9 (`shade_pool_kernel`, `shade_trip_kernel`) is the device form of
 // render/wavefront_pass.py::shade_plain: the body of a pass past its
@@ -81,6 +81,28 @@
 // advanced cursor into the cursor itself: K10 reads the old value from the
 // record, so no launch reads and writes the same word, and no copy follows.
 //
+// K12 and K13 are the same pass for the gradient step's recorders, the
+// device forms of diff/record_pass.py's plain seams, which replace the
+// recorders' loop bodies that XLA fused (first_raytracer_tpu/diff/
+// replay.py:92-110 lockstep, :155-206 pool, utils/metrics.py:29 the
+// occupancy scan).  K12 (`record_step_kernel`, `record_pool_kernel`) shades
+// a live ray with K9's shade_slot at bounce d (+1 for the draw's domain):
+//   - lockstep mode writes tape row min(d, max_depth + 1) whole (the
+//     winner where the ray was alive within the depth cap and the recompute
+//     hit, else -1) and moves a continuing ray's o and dr in place; the
+//     bounce counter d is a 0-d tensor it only reads (the torch add after
+//     it moves it, so no block reads a moved counter);
+//   - length mode writes no tape and adds one to a live ray's length;
+//   - pool mode writes a hit's flat tape entry depth * R + col (live slots
+//     hold distinct columns) and compacts the survivors' o, d, id, column
+//     and depth + 1 in place through K9's scan (take_ticket, compact_slot:
+//     its own pool's status words and pass record).
+// K13 (`record_regenerate_kernel`) is K10 for the recorder's pool: the tail
+// [n_alive, C) from the pass record, each slot's id gathered from the
+// stream (ray_ids[clamp(cursor + g)]), its camera ray, column, depth 0 and
+// liveness, and the cursor written by thread 0.  Both are bound by bytes,
+// as K9 and K10 are (utils/roofline.py).
+//
 // Bit-equality.  Each operation rounds as torch rounds it on the device the
 // kernel runs on (probes/torch_arith.py): torch.sum over a row of three
 // adds (x + z) + y on the card and (x + y) + z on the CPU, and torch.prod
@@ -119,17 +141,18 @@
 
 #include "camera_rays.cuh"
 #include "mega_common.cuh"
+#include "torch_hits.cuh"
 
 namespace {
 
 using frt::CameraFields;
 using frt::sum3;
+using namespace frt::th;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kBig = 1e30f;
-constexpr float kDetEps = 1e-9f;
 constexpr float kNormEps = 1e-20f;
 constexpr int kMetal = 1;
 constexpr int kDielectric = 2;
@@ -145,40 +168,6 @@ constexpr Word kPrefix = 2ull << 32;
 constexpr int kEpochShift = 34;
 constexpr Word kEpochMask = (1ull << 30) - 1;
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 load3(const float* __restrict__ p, int64_t i) {
-  return V3{__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2)};
-}
-// A row of the pool's state, which the same launch writes: a coherent load.
-__device__ __forceinline__ V3 state3(const float* p, int64_t i) {
-  return V3{p[3 * i], p[3 * i + 1], p[3 * i + 2]};
-}
-__device__ __forceinline__ void store3(float* p, int64_t i, V3 v) {
-  p[3 * i] = v.x;
-  p[3 * i + 1] = v.y;
-  p[3 * i + 2] = v.z;
-}
-__device__ __forceinline__ V3 add(V3 a, V3 b) {
-  return V3{a.x + b.x, a.y + b.y, a.z + b.z};
-}
-__device__ __forceinline__ V3 sub(V3 a, V3 b) {
-  return V3{a.x - b.x, a.y - b.y, a.z - b.z};
-}
-__device__ __forceinline__ V3 scale(float s, V3 v) {
-  return V3{s * v.x, s * v.y, s * v.z};
-}
-__device__ __forceinline__ V3 mul(V3 a, V3 b) {
-  return V3{a.x * b.x, a.y * b.y, a.z * b.z};
-}
-
-// vecmath.dot: torch.sum(a * b, dim=-1).
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return sum3(a.x * b.x, a.y * b.y, a.z * b.z);
-}
-
 // torch.prod over a row of three, in the order of the device it runs on.
 __device__ __forceinline__ float prod3(float x, float y, float z) {
 #if defined(__CUDA_ARCH__)
@@ -188,12 +177,6 @@ __device__ __forceinline__ float prod3(float x, float y, float z) {
 #endif
 }
 
-// vecmath.cross: torch.linalg.cross, each component fma(a, b, -(c * d)).
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return V3{fmaf(a.y, b.z, -(a.z * b.y)), fmaf(a.z, b.x, -(a.x * b.z)),
-            fmaf(a.x, b.y, -(a.y * b.x))};
-}
-
 // vecmath.normalize(v, eps): the squared length floored at eps (a NaN
 // kept), then v * (1 / sqrt(n2)) where n2 > 0, else 0.
 __device__ __forceinline__ V3 normalize(V3 v, float eps) {
@@ -201,39 +184,6 @@ __device__ __forceinline__ V3 normalize(V3 v, float eps) {
   if (eps > 0.0f) n2 = n2 < eps ? eps : n2;
   const float inv = n2 > 0.0f ? 1.0f / sqrtf(n2) : 0.0f;
   return scale(inv, v);
-}
-
-// geometry/sphere.py::sphere_hit_one on the oc form.
-__device__ __forceinline__ float sphere_t(V3 o, V3 d, V3 c, float r,
-                                          float t_min) {
-  const V3 oc = sub(o, c);
-  const float b = dot(oc, d);
-  const float cc = dot(oc, oc) - r * r;
-  const float disc = b * b - cc;
-  const bool has = disc > 0.0f;
-  const float sq = sqrtf(has ? disc : 0.0f);
-  const float tn = -b - sq;
-  const float tf = -b + sq;
-  const bool near_ok = has && tn > t_min && tn < kBig;
-  const bool far_ok = has && tf > t_min && tf < kBig;
-  return near_ok ? tn : (far_ok ? tf : kBig);
-}
-
-// geometry/triangle.py::_moller_trumbore, kBig on a miss.
-__device__ __forceinline__ float triangle_t(V3 o, V3 d, V3 v0, V3 e1, V3 e2,
-                                            float t_min) {
-  const V3 pvec = cross(d, e2);
-  const float det = dot(e1, pvec);
-  const bool ok = fabsf(det) > kDetEps;
-  const float inv = ok ? 1.0f / det : 0.0f;
-  const V3 tvec = sub(o, v0);
-  const float u = dot(tvec, pvec) * inv;
-  const V3 qvec = cross(tvec, e1);
-  const float v = dot(d, qvec) * inv;
-  const float t = dot(e2, qvec) * inv;
-  const bool hit = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                   t > t_min && t < kBig;
-  return hit ? t : kBig;
 }
 
 // The scene's tensors (scene/soa.py::Scene), each its own.
@@ -605,19 +555,74 @@ __device__ __forceinline__ Slot load_slot(const PassArgs& a,
   return s;
 }
 
+// The pool's tile and the pass's epoch, from the ticket the block takes.
+struct Ticket {
+  int tile;
+  Word epoch;
+};
+
+__device__ __forceinline__ Ticket take_ticket(PoolShared& sh, Word* scan) {
+  if (threadIdx.x == 0) sh.ticket = atomicAdd(scan, 1ull);
+  __syncthreads();
+  const Word blocks = gridDim.x;
+  return Ticket{static_cast<int>(sh.ticket % blocks),
+                (sh.ticket / blocks) & kEpochMask};
+}
+
+// The compaction's scan (module comment), called by every thread of the
+// block once it has read its slot: the slot a survivor (`cont`) of this
+// thread goes to, prefix + rank (meaningless for the others).  The tile of
+// the last ticket writes the pass record (the survivors in all, the cursor
+// as the pass found it).  On return every slot of the tile has been read
+// and the tile's inclusive prefix is published.
+__device__ __forceinline__ int64_t compact_slot(PoolShared& sh, Word* scan,
+                                                Ticket tk, bool cont,
+                                                int64_t* record,
+                                                const int64_t* cursor) {
+  Word* status = scan + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // The tile's survivors: a ballot a warp, then the block's aggregate.
+  const unsigned ballot = __ballot_sync(kFullMask, cont);
+  if (lane == 0) sh.warp_counts[warp] = __popc(ballot);
+  __syncthreads();  // every slot of the tile has been read
+  int64_t before = 0, aggregate = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    aggregate += sh.warp_counts[w];
+    if (w < warp) before += sh.warp_counts[w];
+  }
+  // Warp 1 publishes the tile's aggregate (tile 0 its inclusive prefix)
+  // while warp 0 looks back, so that neither waits on the other's fence;
+  // the inclusive prefix follows the block's barrier, so that no write of
+  // the tile waits on its fence.
+  if (warp == 1 && lane == 0)
+    publish(status + tk.tile, (tk.epoch << kEpochShift) |
+                                  (tk.tile > 0 ? kAggregate : kPrefix) |
+                                  static_cast<Word>(aggregate));
+  if (warp == 0) {
+    const int64_t prefix =
+        tk.tile > 0 ? look_back(status, tk.tile, tk.epoch) : 0;
+    if (lane == 0) {
+      sh.prefix = prefix;
+      if (tk.tile == static_cast<int>(gridDim.x) - 1) {  // the last ticket
+        record[0] = prefix + aggregate;
+        record[1] = __ldg(cursor);
+      }
+    }
+  }
+  __syncthreads();
+  if (warp == 0 && lane == 0 && tk.tile > 0)  // warp 1 has published
+    publish(status + tk.tile, (tk.epoch << kEpochShift) | kPrefix |
+                                  static_cast<Word>(sh.prefix + aggregate));
+  return sh.prefix + before + __popc(ballot & ((1u << lane) - 1u));
+}
+
 __global__ void __launch_bounds__(kThreads)
     shade_pool_kernel(SceneArgs sc, PassArgs a, PoolArgs q) {
   extern __shared__ Word pool_shared[];
   PoolShared& sh = *reinterpret_cast<PoolShared*>(pool_shared);
-  if (threadIdx.x == 0) sh.ticket = atomicAdd(q.scan, 1ull);
-  __syncthreads();
-  const Word blocks = gridDim.x;
-  const int tile = static_cast<int>(sh.ticket % blocks);
-  const Word epoch = (sh.ticket / blocks) & kEpochMask;
-  Word* status = q.scan + 1;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const Slot slot =
-      load_slot(a, q, static_cast<int64_t>(tile) * kThreads + threadIdx.x);
+  const Ticket tk = take_ticket(sh, q.scan);
+  const Slot slot = load_slot(
+      a, q, static_cast<int64_t>(tk.tile) * kThreads + threadIdx.x);
 
   // The shading; the slot's segment and sky are added at the end, so that
   // no store is outstanding when the tile's status is published.
@@ -641,38 +646,8 @@ __global__ void __launch_bounds__(kThreads)
     dir = s.dir;
     att = mul(slot.tp, s.att);
   }
-
-  // The tile's survivors: a ballot a warp, then the block's aggregate.
-  const unsigned ballot = __ballot_sync(kFullMask, cont);
-  if (lane == 0) sh.warp_counts[warp] = __popc(ballot);
-  __syncthreads();  // every slot of the tile has been read
-  int64_t before = 0, aggregate = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    aggregate += sh.warp_counts[w];
-    if (w < warp) before += sh.warp_counts[w];
-  }
-  // Warp 1 publishes the tile's aggregate (tile 0 its inclusive prefix)
-  // while warp 0 looks back, so that neither waits on the other's fence;
-  // the inclusive prefix follows the block's barrier, so that no write of
-  // the tile waits on its fence.
-  if (warp == 1 && lane == 0)
-    publish(status + tile, (epoch << kEpochShift) |
-                               (tile > 0 ? kAggregate : kPrefix) |
-                               static_cast<Word>(aggregate));
-  if (warp == 0) {
-    const int64_t prefix = tile > 0 ? look_back(status, tile, epoch) : 0;
-    if (lane == 0) {
-      sh.prefix = prefix;
-      if (tile == static_cast<int>(blocks) - 1) {  // the last ticket
-        q.record[0] = prefix + aggregate;
-        q.record[1] = __ldg(q.cursor);
-      }
-    }
-  }
-  __syncthreads();
-  if (warp == 0 && lane == 0 && tile > 0)  // warp 1 has published
-    publish(status + tile, (epoch << kEpochShift) | kPrefix |
-                               static_cast<Word>(sh.prefix + aggregate));
+  const int64_t dest = compact_slot(sh, q.scan, tk, cont, q.record,
+                                    q.cursor);
   if (slot.live) {
     q.segments[row] = segs + 1;
     if (miss) {
@@ -683,8 +658,6 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   if (cont) {  // straight to its compacted slot
-    const int64_t dest =
-        sh.prefix + before + __popc(ballot & ((1u << lane) - 1u));
     store3(q.o, dest, p);
     store3(q.d, dest, dir);
     store3(q.tp, dest, att);
@@ -793,6 +766,174 @@ __global__ void __launch_bounds__(kThreads)
   store3(a.tp, s, V3{1.0f, 1.0f, 1.0f});
   a.depth[s] = 0;
   a.ids[s] = id;
+  a.alive[s] = fresh < a.num_rays;
+}
+
+// K12, lockstep and length modes (record_step_kernel): the recorders' state
+// (diff/replay.py::record_state): the rays o, dr (n, 3) and alive (n,) bool,
+// updated in place, the ray ids (n,) int64 and the bounce counter d (0-d
+// int64, read only: the torch op after the launch adds to it); the tape
+// (max_depth + 2, n) int32 whose row min(d, max_depth + 1) the launch
+// writes whole, or null; the lengths (n,) int64, or null.
+struct StepArgs {
+  float* o;
+  float* dr;
+  uint8_t* alive;
+  const int64_t* ray_ids;
+  const int64_t* d;  // 0-d
+  int* tape;
+  int64_t* length;
+};
+
+__global__ void __launch_bounds__(kThreads)
+    record_step_kernel(SceneArgs sc, PassArgs a, StepArgs q) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= a.n) return;
+  // The ray's state and closest hit, in one step.
+  const bool was = q.alive[i] != 0;
+  const int64_t d = __ldg(q.d);
+  const V3 o = state3(q.o, i), dr = state3(q.dr, i);
+  const int64_t id = __ldg(q.ray_ids + i);
+  const int prim = __ldg(a.prim + i);
+  const bool hit_in = __ldg(a.hit + i) != 0;
+  if (q.length && was) q.length[i] += 1;  // entered this bounce alive
+  int entry = -1;
+  if (was && d <= a.max_depth) {
+    const Shaded s = shade_slot(
+        sc, o, dr, prim, hit_in, static_cast<uint32_t>(__ldg(a.key)),
+        static_cast<uint32_t>(__ldg(a.key + 1)), static_cast<uint32_t>(id),
+        static_cast<uint32_t>(d + 1), a.t_min);
+    if (s.hit) entry = prim;
+    const bool cont = s.hit && s.ok && d < a.max_depth;
+    if (cont) {
+      store3(q.o, i, s.p);
+      store3(q.dr, i, s.dir);
+    }
+    q.alive[i] = cont;
+  } else if (was) {
+    q.alive[i] = 0;  // past the depth cap
+  }
+  if (q.tape) {
+    const int64_t row = d < a.max_depth + 1 ? d : a.max_depth + 1;
+    q.tape[row * a.n + i] = entry;
+  }
+}
+
+// K12, pool mode (record_pool_kernel): the pool recorder's state
+// (diff/replay.py::record_pool_state): o, d (C, 3), ids, col, depth (C,)
+// int64 and alive (C,) bool, compacted in place; the flat tape (D * R + 1,)
+// int32 of the stream's R rays, D = max_depth + 1; the cursor (read), the
+// pass record (written) and the scan's ticket and status words.
+struct RecordPoolArgs {
+  float* o;
+  float* d;
+  int64_t* ids;
+  int64_t* col;
+  int64_t* depth;
+  uint8_t* alive;
+  int* tape;
+  int64_t num_rays;  // R
+  const int64_t* cursor;  // 0-d
+  int64_t* record;        // (2,)
+  Word* scan;             // (1 + blocks,)
+};
+
+__global__ void __launch_bounds__(kThreads)
+    record_pool_kernel(SceneArgs sc, PassArgs a, RecordPoolArgs q) {
+  extern __shared__ Word record_shared[];
+  PoolShared& sh = *reinterpret_cast<PoolShared*>(record_shared);
+  const Ticket tk = take_ticket(sh, q.scan);
+  const int64_t i = static_cast<int64_t>(tk.tile) * kThreads + threadIdx.x;
+  // The slot's state and closest hit, in one step.
+  bool live = false, hit_in = false;
+  V3 o{}, d{};
+  int64_t id = 0, col = 0, depth = 0;
+  int prim = 0;
+  if (i < a.n) {
+    live = q.alive[i] != 0;
+    o = state3(q.o, i);
+    d = state3(q.d, i);
+    id = q.ids[i];
+    col = q.col[i];
+    depth = q.depth[i];
+    prim = __ldg(a.prim + i);
+    hit_in = __ldg(a.hit + i) != 0;
+  }
+  bool write = false, cont = false;
+  V3 p{}, dir{};
+  if (live) {
+    const Shaded s = shade_slot(
+        sc, o, d, prim, hit_in, static_cast<uint32_t>(__ldg(a.key)),
+        static_cast<uint32_t>(__ldg(a.key + 1)), static_cast<uint32_t>(id),
+        static_cast<uint32_t>(depth + 1), a.t_min);
+    write = s.hit;
+    cont = s.hit && s.ok && depth < a.max_depth;
+    p = s.p;
+    dir = s.dir;
+  }
+  const int64_t dest = compact_slot(sh, q.scan, tk, cont, q.record,
+                                    q.cursor);
+  // The hit's tape entry (live slots hold distinct columns); a depth past
+  // the tape's rows, which the recorder never gives, writes nothing.
+  if (write && depth >= 0 && depth <= a.max_depth)
+    q.tape[depth * q.num_rays + col] = prim;
+  if (cont) {  // straight to its compacted slot
+    store3(q.o, dest, p);
+    store3(q.d, dest, dir);
+    q.ids[dest] = id;
+    q.col[dest] = col;
+    q.depth[dest] = depth + 1;
+    q.alive[dest] = 1;
+  }
+}
+
+// K13 (record_regenerate_kernel): the pool recorder's tail refilled from
+// K12's pass record, with the stream's ids gathered (ray_ids (R,) int64),
+// and the cursor advanced.
+struct RecordRegenArgs {
+  const int64_t* key;  // (2,)
+  CameraFields<float> cam;
+  int64_t nx, ny, spp;
+  float* o;
+  float* d;
+  int64_t* ids;
+  int64_t* col;
+  int64_t* depth;
+  uint8_t* alive;
+  const int64_t* record;   // (2,): n_alive, the cursor K12 found
+  const int64_t* ray_ids;  // (R,)
+  int64_t* cursor;         // 0-d, written
+  int64_t num_rays;        // R
+  int64_t n;               // slots
+};
+
+__global__ void __launch_bounds__(kThreads)
+    record_regenerate_kernel(RecordRegenArgs a) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t n_alive = __ldg(a.record);
+  const int64_t cursor = __ldg(a.record + 1);
+  if (g == 0) {
+    const int64_t left = a.num_rays - cursor;
+    const int64_t room = a.n - n_alive;
+    *a.cursor = cursor + (room < (left < 0 ? 0 : left)
+                              ? room
+                              : (left < 0 ? 0 : left));
+  }
+  const int64_t s = n_alive + g;
+  if (s >= a.n) return;  // a survivor's slot, or past the pool
+  const int64_t fresh = cursor + g;
+  const int64_t idx =
+      fresh < 0 ? 0 : (fresh > a.num_rays - 1 ? a.num_rays - 1 : fresh);
+  const int64_t id = __ldg(a.ray_ids + idx);
+  float o[3], d[3];
+  frt::torch_camera_ray<float>(static_cast<uint32_t>(__ldg(a.key)),
+                               static_cast<uint32_t>(__ldg(a.key + 1)), id,
+                               a.nx, a.ny, a.spp, a.cam, o, d);
+  store3(a.o, s, V3{o[0], o[1], o[2]});
+  store3(a.d, s, V3{d[0], d[1], d[2]});
+  a.ids[s] = id;
+  a.col[s] = idx;
+  a.depth[s] = 0;
   a.alive[s] = fresh < a.num_rays;
 }
 
@@ -911,6 +1052,101 @@ int frt_regenerate(const int64_t* key, const float* cam_origin,
                       cursor, num_rays, n};
     regenerate_kernel<<<blocks_for(n), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K12 in lockstep or length mode on `stream` over n rays (module
+// comment): the key, the scene as for K9, the rays o, dr (n, 3) and alive
+// (n,) bool, updated in place, the ray ids (n,) int64, the bounce counter
+// (0-d int64, read), the closest hit, the tape ((max_depth + 2) x n int32,
+// or null) and the lengths ((n,) int64, or null).  Launches nothing for
+// n = 0.
+int frt_record_step(const int64_t* key, const float* sph_center,
+                    const float* sph_radius, const int* sph_mat,
+                    const float* tri_v0, const float* tri_v1,
+                    const float* tri_v2, const int* tri_mat, int ns, int nt,
+                    const int* mat_type, const int* tex_type,
+                    const float* albedo, const float* albedo2,
+                    const float* tex_scale, const float* fuzz,
+                    const float* ref_idx, int nm, float* o, float* dr,
+                    uint8_t* alive, const int64_t* ray_ids, const int64_t* d,
+                    const int* prim, const uint8_t* hit, int* tape,
+                    int64_t* length, int max_depth, float t_min, int64_t n,
+                    void* stream) {
+  if (n > 0) {
+    const SceneArgs sc = scene_args(sph_center, sph_radius, sph_mat, tri_v0,
+                                    tri_v1, tri_v2, tri_mat, ns, nt,
+                                    mat_type, tex_type, albedo, albedo2,
+                                    tex_scale, fuzz, ref_idx, nm);
+    const PassArgs a{key, prim, hit, n, max_depth, t_min};
+    const StepArgs q{o, dr, alive, ray_ids, d, tape, length};
+    record_step_kernel<<<blocks_for(n), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(sc, a, q);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K12 in pool mode on `stream` over the pool's n slots (module
+// comment): the key, the scene as for K9, the pool's state o, d (n, 3),
+// ids, col, depth (n,) int64, alive (n,) bool, compacted in place; the
+// closest hit; the flat tape ((max_depth + 1) * num_rays + 1 int32); the
+// cursor (0-d int64, read), the pass record (2,) int64 (written) and the
+// scan's words as for K9.  Launches nothing for n = 0.
+int frt_record_pool(const int64_t* key, const float* sph_center,
+                    const float* sph_radius, const int* sph_mat,
+                    const float* tri_v0, const float* tri_v1,
+                    const float* tri_v2, const int* tri_mat, int ns, int nt,
+                    const int* mat_type, const int* tex_type,
+                    const float* albedo, const float* albedo2,
+                    const float* tex_scale, const float* fuzz,
+                    const float* ref_idx, int nm, float* o, float* d,
+                    int64_t* ids, int64_t* col, int64_t* depth,
+                    uint8_t* alive, const int* prim, const uint8_t* hit,
+                    int* tape, int64_t num_rays, int max_depth, float t_min,
+                    const int64_t* cursor, int64_t* record, Word* scan,
+                    int64_t n, void* stream) {
+  if (n > 0) {
+    const SceneArgs sc = scene_args(sph_center, sph_radius, sph_mat, tri_v0,
+                                    tri_v1, tri_v2, tri_mat, ns, nt,
+                                    mat_type, tex_type, albedo, albedo2,
+                                    tex_scale, fuzz, ref_idx, nm);
+    const PassArgs a{key, prim, hit, n, max_depth, t_min};
+    const RecordPoolArgs q{o,    d,        ids,    col,    depth, alive,
+                           tape, num_rays, cursor, record, scan};
+    record_pool_kernel<<<blocks_for(n), kThreads, sizeof(PoolShared),
+                         static_cast<cudaStream_t>(stream)>>>(sc, a, q);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K13 on `stream` over the pool's n slots (module comment): the
+// key, the camera's seven float32 fields, the image's size (nx, ny, spp),
+// the pool's state o, d (n, 3), ids, col, depth (n,) int64, alive (n,)
+// bool (its tail written), K12's pass record (2,) int64, the stream's ray
+// ids (num_rays,) int64 and the cursor (0-d int64, written).  Launches
+// nothing for n = 0.
+int frt_record_regenerate(const int64_t* key, const float* cam_origin,
+                          const float* cam_lower_left,
+                          const float* cam_horizontal,
+                          const float* cam_vertical, const float* cam_u,
+                          const float* cam_v, const float* cam_lens_radius,
+                          int64_t nx, int64_t ny, int64_t spp, float* o,
+                          float* d, int64_t* ids, int64_t* col,
+                          int64_t* depth, uint8_t* alive,
+                          const int64_t* record, const int64_t* ray_ids,
+                          int64_t* cursor, int64_t num_rays, int64_t n,
+                          void* stream) {
+  if (n > 0) {
+    const CameraFields<float> cam{cam_origin, cam_lower_left, cam_horizontal,
+                                  cam_vertical, cam_u,      cam_v,
+                                  cam_lens_radius};
+    const RecordRegenArgs a{key,   cam,    nx,      ny,     spp,
+                            o,     d,      ids,     col,    depth,
+                            alive, record, ray_ids, cursor, num_rays,
+                            n};
+    record_regenerate_kernel<<<blocks_for(n), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,85 @@
+"""The dense closest hit on the scene's own tensors (K11): the wavefront's
+closest hit without an accel.
+
+``dense_hit(scene, origin, direction, t_min)`` is the contract of
+``render.integrator.intersect_brute``: for every ray the nearest hit past
+``t_min`` among every sphere and every triangle, ``(prim int32, t float32,
+hit bool)``, the lowest global id winning a tie (torch.argmin's first
+minimum), triangles numbered from Ns, prim 0 and t = 1e30 on a miss.  On a
+CUDA device it launches K11 (``csrc/dense_hit.cu``), which reads the
+scene's sphere and triangle tensors at every launch (no pack, so a scene
+moved in place is read anew, under a CUDA graph too) and rounds each pair
+as torch rounds ``sphere_hit_all`` and ``triangle_hit_all`` on the card:
+bit-equal to ``intersect_brute`` there.  On the CPU it runs
+``intersect_brute``, which stays the plain version.  A tensor on any other
+device is refused; a failed build or launch raises, and nothing falls back.
+
+The JAX package has no Pallas kernel here: XLA fuses its sweep
+(``first_raytracer_tpu/render/integrator.py:106``), which torch runs as
+some 40 ops over (R, N, 3) temporaries.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["dense_hit", "REPLACES"]
+
+REPLACES = "first_raytracer_tpu/render/integrator.py:106"
+
+
+def _launch_cuda(scene, origin, direction, t_min):
+    """K11 over the rays: (prim, t, hit), each (R,).  Makes no host read
+    and allocates only its outputs, so a CUDA graph can capture it."""
+    from . import megakernel
+    from .megakernel import _check
+
+    if isinstance(t_min, torch.Tensor):
+        raise ValueError("K11 takes t_min as a number, not a tensor")
+    dev = origin.device
+    ns, nt = scene.num_spheres, scene.num_triangles
+    if ns + nt == 0:
+        raise ValueError("K11 needs a scene with a primitive")
+    if ns + nt >= 2 ** 31:
+        raise ValueError(f"{ns} spheres and {nt} triangles: K11 numbers "
+                         "primitives in 32 bits")
+    R = origin.shape[0]
+    f32 = torch.float32
+    _check("origin", origin, f32, (R, 3), dev)
+    _check("direction", direction, f32, (R, 3), dev)
+    for name, shape in (("sphere_center", (ns, 3)), ("sphere_radius", (ns,)),
+                        ("tri_v0", (nt, 3)), ("tri_v1", (nt, 3)),
+                        ("tri_v2", (nt, 3))):
+        _check(f"scene.{name}", getattr(scene, name), f32, shape, dev)
+    prim = torch.empty((R,), dtype=torch.int32, device=dev)
+    t = torch.empty((R,), dtype=torch.float32, device=dev)
+    hit = torch.empty((R,), dtype=torch.bool, device=dev)
+    megakernel.launch_entry(
+        dev, "frt_dense_hit", scene.sphere_center.data_ptr(),
+        scene.sphere_radius.data_ptr(), scene.tri_v0.data_ptr(),
+        scene.tri_v1.data_ptr(), scene.tri_v2.data_ptr(), ns, nt,
+        origin.data_ptr(), direction.data_ptr(), R,
+        ctypes.c_float(float(t_min)), prim.data_ptr(), t.data_ptr(),
+        hit.data_ptr())
+    if R:
+        dense_hit.launches += 1
+    return prim, t, hit
+
+
+@torch.no_grad()
+def dense_hit(scene, origin, direction, t_min):
+    """Dense closest hit of rays ``origin + t direction`` (R, 3) over every
+    primitive of ``scene``: ``(prim, t, hit)``.  Launches K11 for CUDA rays
+    (float32 rays and scene, contiguous, ``t_min`` a number) and runs
+    ``intersect_brute`` for CPU rays; bit-equal either way."""
+    dev = origin.device
+    if dev.type == "cpu":
+        from ..render.integrator import intersect_brute
+        return intersect_brute(scene, origin, direction, t_min)
+    if dev.type != "cuda":
+        raise ValueError(f"no dense closest-hit kernel for device {dev}")
+    return _launch_cuda(scene, origin, direction, t_min)
+
+
+dense_hit.launches = 0  # K11 launches (CUDA path only)

@@ -61,13 +61,17 @@ KERNEL_SOURCE = "megakernel.cu"
 # K3 and K3t (the clustered megakernel), K4 and K5 (the wavefront closest
 # hits), K6 (the flat-BVH walk), K7 and K8 (the wavefront paths' Threefry
 # draws and camera rays), K9 and K10 (the wavefront pass's shading and
-# regeneration) build into the same library.
+# regeneration), K11 (the dense closest hit) and K12 and K13 (the
+# recorders' pass and regeneration) build into the same library.
 CLUSTERED_SOURCE = "megakernel_clustered.cu"
 INTERSECT_SOURCE = "intersect.cu"
 BVH_SOURCE = "bvh_walk.cu"
 RNG_RAYS_SOURCE = "rng_rays.cu"
-# K9 and K10 (the wavefront pass's shading and regeneration).
+# K9 and K10 (the wavefront pass's shading and regeneration), K12 and K13
+# (the recorders' pass and the pool recorder's regeneration).
 WAVEFRONT_PASS_SOURCE = "wavefront_pass.cu"
+# K11 (the dense closest hit on the scene's own tensors).
+DENSE_HIT_SOURCE = "dense_hit.cu"
 REPLACES = "first_raytracer_tpu/kernels/megakernel.py:306"
 
 
@@ -253,8 +257,8 @@ NVCC_EXTRA_FLAGS = ("--fmad=false",)
 @functools.lru_cache(maxsize=None)
 def load_mega_library():
     """Build (once per source and flags) and load the shared library of K1,
-    K2, K2b, K3, K3t, K4, K5, K6, K7, K8, K9 and K10: one nvcc a source,
-    all at once.
+    K2, K2b, K3, K3t, K4, K5, K6, K7, K8, K9, K10, K11, K12 and K13: one
+    nvcc a source, all at once.
 
     Returns ``(ctypes.CDLL, BuildInfo)``.
     """
@@ -263,7 +267,7 @@ def load_mega_library():
     lib, info = build_library(
         "frt_mega",
         [KERNEL_SOURCE, CLUSTERED_SOURCE, INTERSECT_SOURCE, BVH_SOURCE,
-         RNG_RAYS_SOURCE, WAVEFRONT_PASS_SOURCE],
+         RNG_RAYS_SOURCE, WAVEFRONT_PASS_SOURCE, DENSE_HIT_SOURCE],
         NVCC_EXTRA_FLAGS)
     return bind(lib), info
 
@@ -283,6 +287,7 @@ def bind(lib):
     bind_bvh(lib)
     bind_rng_rays(lib)
     bind_wavefront_pass(lib)
+    bind_dense_hit(lib)
     # The clustered tables: 12 pointers, then ns, nt, the two supergroup
     # counts and the two column counts.
     tables = [ptr] * 12 + [i32] * 6
@@ -333,9 +338,21 @@ def bind_rng_rays(lib):
     return lib
 
 
+def bind_dense_hit(lib):
+    """Declares K11's C entry point's argument and result types on ``lib``
+    (also a host build of ``dense_hit.cu`` alone)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.frt_dense_hit.argtypes = (
+        [ptr] * 5 + [i32] * 2 + [ptr] * 2 + [i64, ctypes.c_float]
+        + [ptr] * 4)
+    lib.frt_dense_hit.restype = i32
+    return lib
+
+
 def bind_wavefront_pass(lib):
-    """Declares K9's and K10's C entry points' argument and result types
-    on ``lib`` (also a host build of ``wavefront_pass.cu`` alone)."""
+    """Declares K9's, K10's, K12's and K13's C entry points' argument and
+    result types on ``lib`` (also a host build of ``wavefront_pass.cu``
+    alone)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     f32 = ctypes.c_float
     # The key, the scene's seven primitive tensors and their two counts,
@@ -350,6 +367,15 @@ def bind_wavefront_pass(lib):
     lib.frt_regenerate.argtypes = (
         [ptr] * 8 + [i64] * 3 + [ptr] * 9 + [i64] * 2 + [ptr])
     lib.frt_regenerate.restype = i32
+    lib.frt_record_step.argtypes = (
+        scene + [ptr] * 9 + [i32, f32, i64, ptr])
+    lib.frt_record_step.restype = i32
+    lib.frt_record_pool.argtypes = (
+        scene + [ptr] * 9 + [i64, i32, f32] + [ptr] * 3 + [i64, ptr])
+    lib.frt_record_pool.restype = i32
+    lib.frt_record_regenerate.argtypes = (
+        [ptr] * 8 + [i64] * 3 + [ptr] * 9 + [i64] * 2 + [ptr])
+    lib.frt_record_regenerate.restype = i32
     return lib
 
 

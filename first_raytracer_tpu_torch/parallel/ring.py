@@ -10,7 +10,8 @@ replicated.
 
 Each bounce resolves the global closest hit in ``n`` hops (``n`` the tile
 axis's size): the rank's rays are swept against the shard it holds with
-the port's ``intersect_brute``, the candidate is folded into a running
+the port's dense closest hit (``kernels/dense_hit``: K11 on the card,
+``intersect_brute`` on the CPU), the candidate is folded into a running
 best (ties to the lower global primitive id, as the replicated sweep's
 first minimum; a hop that misses everything never displaces the miss
 sentinel), and the shard goes to rank ``r - 1`` while the shard of rank
@@ -41,7 +42,8 @@ from ..core.vecmath import point_at
 from ..geometry.sphere import BIG, sphere_hit_one, sphere_normal
 from ..geometry.triangle import triangle_hit_one, triangle_normal
 from ..render.api import pixel_means, render_rays
-from ..render.integrator import RenderConfig, intersect_brute
+from ..kernels.dense_hit import dense_hit
+from ..render.integrator import RenderConfig
 from .mesh import TILE_AXIS, local_device
 
 __all__ = ["pad_scene_ring", "shard_scene", "ring_closest_hit",
@@ -93,12 +95,16 @@ def _pack_shard(s):
 
 
 def _unpack_shard(scene, flat, ns, nt):
+    """A shard from ``_pack_shard``'s flat tensor, each field contiguous
+    (K11 reads the scene's tensors as they are)."""
     sph = flat[:ns * _SPH_W].reshape(ns, _SPH_W)
     tri = flat[ns * _SPH_W:].reshape(nt, _TRI_W)
     return dataclasses.replace(
-        scene, sphere_center=sph[:, :3], sphere_radius=sph[:, 3],
-        sphere_mat=sph[:, 4].to(scene.sphere_mat.dtype), tri_v0=tri[:, 0:3],
-        tri_v1=tri[:, 3:6], tri_v2=tri[:, 6:9],
+        scene, sphere_center=sph[:, :3].contiguous(),
+        sphere_radius=sph[:, 3].contiguous(),
+        sphere_mat=sph[:, 4].to(scene.sphere_mat.dtype),
+        tri_v0=tri[:, 0:3].contiguous(), tri_v1=tri[:, 3:6].contiguous(),
+        tri_v2=tri[:, 6:9].contiguous(),
         tri_mat=tri[:, 9].to(scene.tri_mat.dtype))
 
 
@@ -151,7 +157,7 @@ def ring_closest_hit(shard, axis, ns_total: int, origin, direction, t_min):
         block = (me + h) % n
         local = shard if h == 0 else _unpack_shard(shard, flat, ns, nt)
         # Selection only, the replicated sweep's arithmetic on this shard.
-        lp, lt, _ = intersect_brute(local, origin, direction, t_min)
+        lp, lt, _ = dense_hit(local, origin, direction, t_min)
         lp = lp.long()
         is_sph = lp < ns
         gid = torch.where(is_sph, block * ns + lp,

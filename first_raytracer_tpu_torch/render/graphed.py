@@ -24,7 +24,7 @@ A capture or a replay that fails raises; there is no eager fallback.  On
 the CPU the same bodies run eagerly over the same buffers and state, with
 the same blocks and the flag read per block.
 
-Kernel launches under a graph: K4's to K10's wrappers count their
+Kernel launches under a graph: K4's to K13's wrappers count their
 launches in Python, which runs only while a graph is captured.  The cache takes the launches a capture recorded off the
 counters and adds them back on every replay, so the counters count what
 ran on the card (``diff.graphed.launch_counters``).
@@ -78,16 +78,17 @@ def graphed_route(device, accel, intersect_fn, graphed):
     """Whether a wavefront loop goes through ``LOOPS``: on the CPU (which
     runs the same bodies eagerly there) unless ``graphed`` is False; on a
     CUDA device as ``graphed`` says, by default for the package's closest
-    hits (the dense sweep, K4, K5 and K6, the flat-BVH walk).  A Python
+    hits (the dense sweep, K11, K4, K5 and K6, the flat-BVH walk).  A Python
     ``intersect_fn`` of the caller's must be asked for either way: it may
     keep host state that a graph would not update."""
     if graphed is not None or torch.device(device).type != "cuda":
         return graphed is not False
     from ..accel.traverse import intersect_bvh
+    from ..kernels.dense_hit import dense_hit
     from ..kernels.intersect_clustered import intersect_clustered
     from ..kernels.intersect_pallas import intersect_pallas
     from .integrator import default_intersect
-    if intersect_fn in (None, default_intersect, intersect_pallas,
+    if intersect_fn in (None, default_intersect, dense_hit, intersect_pallas,
                         intersect_clustered, intersect_bvh):
         return True
     raise ValueError(

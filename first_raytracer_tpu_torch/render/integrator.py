@@ -10,7 +10,8 @@ shadow-acne bound.
 
 Closest hit is pluggable: ``intersect_fn(scene, accel, origin, direction,
 t_min) -> (prim, t, hit)``, by default ``default_intersect``, which takes
-the dense all-pairs sweep (``intersect_brute``) without an accel and
+the dense all-pairs sweep without an accel (K11, ``kernels/dense_hit``, on
+a CUDA device; ``intersect_brute``, its plain version, on the CPU) and
 dispatches on the accel's type otherwise: K4 (``kernels/intersect_pallas``),
 K5 (``kernels/intersect_clustered``) or K6, the flat-BVH walk
 (``accel/traverse``).  The hit record is then recomputed from the winning
@@ -91,12 +92,13 @@ def sky_color(direction):
 
 @torch.no_grad()
 def default_intersect(scene, accel, origin, direction, t_min):
-    """Closest hit by the accel's type: the dense sweep (None), K5
+    """Closest hit by the accel's type: K11, the dense sweep (None), K5
     (``ClusteredScenePack``), K4 (``PallasScenePack``) or K6, the flat-BVH
     walk (``FlatBVH``); each kernel's plain version on the CPU.  Runs
     without autograd: it only finds the primitive."""
     if accel is None:
-        return intersect_brute(scene, origin, direction, t_min)
+        from ..kernels.dense_hit import dense_hit
+        return dense_hit(scene, origin, direction, t_min)
     from ..kernels.intersect_clustered import (ClusteredScenePack,
                                                intersect_clustered)
     if isinstance(accel, ClusteredScenePack):
@@ -109,7 +111,8 @@ def default_intersect(scene, accel, origin, direction, t_min):
 
 
 def intersect_brute(scene, origin, direction, t_min):
-    """Dense closest hit over every (ray, primitive) pair.
+    """Dense closest hit over every (ray, primitive) pair: K11's plain
+    version (``kernels/dense_hit.py``), torch ops on any device.
 
     Returns ``(prim_id, t, hit)``; the lowest global id wins a tie.
     """

@@ -29,8 +29,11 @@ the tail), drawing through the plain Threefry and camera rays.  A tensor
 on any other device is refused; a failed build or launch raises, and
 nothing falls back.
 
-The differentiable ``_bounce`` (autograd, ``method="scan"``), the
-recorders, the replays and the pool's init keep their torch bodies.
+The recorders and the occupancy scan run K12 and K13, modes of the same
+source (``diff/record_pass.py``), whose plain versions share
+``shade_slots``.  The differentiable ``_bounce`` (autograd,
+``method="scan"``), the replays and the pool's init keep their torch
+bodies.
 """
 from __future__ import annotations
 
@@ -43,8 +46,8 @@ from .camera import _FIELDS, camera_rays_plain
 from .integrator import (_CARRY, BIG, UP, recompute_hit, shade_carry,
                          sky_color)
 
-__all__ = ["shade", "shade_plain", "regenerate", "regenerate_plain",
-           "pool_scratch", "BLOCK", "POOL_ROWS"]
+__all__ = ["shade", "shade_plain", "shade_slots", "regenerate",
+           "regenerate_plain", "pool_scratch", "BLOCK", "POOL_ROWS"]
 
 REPLACES_SHADE = "first_raytracer_tpu/render/integrator.py:213"
 REPLACES_REGENERATE = "first_raytracer_tpu/render/regenerative.py:87"
@@ -65,6 +68,21 @@ def pool_scratch(pool_size, device):
     return dict(record=torch.zeros((2,), dtype=torch.int64, device=device),
                 scan=torch.zeros((1 + blocks,), dtype=torch.int64,
                                  device=device))
+
+
+def shade_slots(scene, cfg, key, ids, depth, o, d, prim, hit):
+    """A pool's or recorder's slots past their closest hit, torch ops: the
+    hit record re-solved from the primitive (the recompute the authority,
+    ``hit & (t < BIG)``), the dead or missing lane sanitised (p = 0, n =
+    UP), the draw of bounce ``depth`` and the scatter.  Returns ``(hit, p,
+    new_dir, attenuation, ok)``."""
+    t, p, n, mat = recompute_hit(scene, o, d, prim, cfg.t_min)
+    hit = hit & (t < BIG)
+    p = torch.where(hit[:, None], p, 0.0)
+    n = torch.where(hit[:, None], n, constant(UP, torch.float32, o.device))
+    new_dir, attenuation, ok = scatter(
+        scene, mat, d, p, n, rng.uniforms_plain(key, ids, depth + 1))
+    return hit, p, new_dir, attenuation, ok
 
 
 def shade_plain(state, prim, hit, *, scene, key, cfg, start_id=None,
@@ -89,12 +107,8 @@ def shade_plain(state, prim, hit, *, scene, key, cfg, start_id=None,
     o, d, tp, ids, depth, alive = (state[k] for k in POOL_ROWS)
     row = (ids - start_id).clamp(0, num_rays - 1)
     state["segments"].index_add_(0, row, alive.to(torch.int32))
-    t, p, n, mat = recompute_hit(scene, o, d, prim, cfg.t_min)
-    hit = hit & (t < BIG)
-    p = torch.where(hit[:, None], p, 0.0)
-    n = torch.where(hit[:, None], n, constant(UP, torch.float32, o.device))
-    new_dir, attenuation, ok = scatter(
-        scene, mat, d, p, n, rng.uniforms_plain(key, ids, depth + 1))
+    hit, p, new_dir, attenuation, ok = shade_slots(scene, cfg, key, ids,
+                                                   depth, o, d, prim, hit)
     cont = alive & hit & ok & (depth < cfg.max_depth)
 
     # Rays that miss add the sky and end; the others end in black.

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from ..core import rng
-from ..diff.replay import camera_record_state, record_bounce
+from ..diff.record_pass import record_step
+from ..diff.replay import camera_record_state
 from ..render.integrator import RenderConfig, default_intersect
 
 logger = logging.getLogger("first_raytracer_tpu_torch")
@@ -44,11 +45,17 @@ def _length_state(camera, key, ray_ids, *, cfg, **_):
 
 
 @torch.no_grad()
-def _length_pass(state, **kw):
+def _length_pass(state, *, scene, accel, key, ray_ids, cfg, intersect_fn,
+                 **_):
     """One bounce of the recorder, counting the rays that enter it alive:
-    the body of the JAX package's ``_occupancy_scan``."""
-    state["length"].add_(state["alive"])
-    record_bounce(state, **kw)
+    the body of the JAX package's ``_occupancy_scan``.  The closest hit,
+    then ``diff.record_pass.record_step`` in its length mode (K12 on a
+    CUDA device), then the counter's add."""
+    prim, _, hit = intersect_fn(scene, accel, state["o"], state["dr"],
+                                cfg.t_min)
+    record_step(state, prim, hit, scene=scene, key=key, ray_ids=ray_ids,
+                cfg=cfg)
+    state["d"].add_(1)
 
 
 @torch.no_grad()

@@ -64,6 +64,24 @@ differently.  The operations are counted from the CUDA sources:
   integer and 71 FP32 operations); bytes: a tail slot's state written
   (53), the pass record, key, camera and first id read and the cursor
   written once a launch.  Bound by bytes.
+- K11 (``kernels/csrc/dense_hit.cu``, the dense closest hit on the
+  scene's tensors): K4's 16 per (ray, sphere) and 46 per (ray, triangle),
+  r*r and the edges computed once per primitive when a block stages its
+  tile (the square root and the two roots past a positive discriminant
+  left out: a lower bound); bytes: the scene's centres, radii and
+  vertices read once a launch, 24 bytes in and 9 out a ray.  Bound by
+  operations.
+- K12 (the recorders' pass, ``wavefront_pass.cu``): K9's draw and shading
+  operations for each ray or slot it shades; bytes as K9's rows count
+  them: lockstep and length modes read every ray's liveness, rays, id and
+  closest hit (38), write a tape entry a ray (4, lockstep) or read and
+  write a live ray's length (16, length mode), a live ray's liveness (1)
+  and a continuing ray's rays (24); pool mode reads every slot's
+  liveness, rays, id, column, depth and closest hit (54), writes a hit's
+  tape entry (4) and a survivor's next state (49), with K9's scan words,
+  ticket and pass record.  Bound by bytes.
+- K13 (the pool recorder's regeneration): K10's, with a tail slot's id
+  read from the stream (8) and its state written (49).  Bound by bytes.
 """
 from __future__ import annotations
 
@@ -75,7 +93,8 @@ __all__ = ["PEAK_FP32", "PEAK_BYTES", "FP32_PEAKS", "SPHERE_OPS",
            "intersect_bound", "tensor_bytes", "k4_bound", "k5_bound",
            "k6_bound", "fp32_peak", "PEAK_INT32", "THREEFRY_INT_OPS",
            "THREEFRY_FP32_OPS", "CAMERA_RAY_OPS", "SHADE_OPS", "k7_bound",
-           "k8_bound", "k9_bound", "k10_bound"]
+           "k8_bound", "k9_bound", "k10_bound", "k11_bound", "k12_bound",
+           "k13_bound"]
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores,
 # and HBM3 bandwidth.
@@ -281,5 +300,49 @@ def k10_bound(slots, survivors, launches=1):
     read and the cursor written (8) once a launch."""
     tail = slots - survivors
     nbytes = 53 * tail + launches * (16 + 16 + 76 + 8 + 8)
+    return roofline((THREEFRY_FP32_OPS + CAMERA_RAY_OPS) * tail, nbytes,
+                    THREEFRY_INT_OPS * tail)
+
+
+def k11_bound(scene, rays, launches=1):
+    """K11's bound over ``launches`` launches of ``rays`` rays in all:
+    every (ray, primitive) pair tested, the scene's geometry read once a
+    launch, 24 bytes in and 9 out a ray (prim, t, hit)."""
+    ops = rays * (scene.num_spheres * OC_SPHERE_OPS
+                  + scene.num_triangles * MT_TRIANGLE_OPS)
+    tables = tensor_bytes(scene.sphere_center, scene.sphere_radius,
+                          scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    return intersect_bound(ops, launches * tables + 24 * rays, 9 * rays)
+
+
+def k12_bound(scene, slots, live, cont, hits, mode="lockstep",
+              launches=1):
+    """K12's bound over ``launches`` launches of ``slots`` rays or slots in
+    all, of which ``live`` were shaded (alive, and within the depth cap in
+    the lockstep modes), ``cont`` went on and ``hits`` were live and hit.
+    ``mode``: "lockstep" (a tape entry a ray), "length" (a live ray's
+    length read and written) or "pool" (the module docstring).  The scene
+    is read once a launch, with the key and the bounce counter or cursor.
+    Operations: the draw and the shading of each live ray or slot."""
+    if mode == "pool":
+        nbytes = (54 * slots + 4 * hits + 49 * cont
+                  + 24 * -(-slots // 256) + launches * (16 + 24))
+    else:
+        nbytes = 38 * slots + live + 24 * cont + (
+            4 * slots if mode == "lockstep" else 16 * live)
+    nbytes += launches * (scene_bytes(scene) + 16 + 8)
+    return roofline((THREEFRY_FP32_OPS + SHADE_OPS) * live, nbytes,
+                    THREEFRY_INT_OPS * live)
+
+
+def k13_bound(slots, survivors, launches=1):
+    """K13's bound over ``launches`` launches of ``slots`` slots in all,
+    ``survivors`` of them left as K12 compacted them and the rest given
+    the stream's next camera rays: a tail slot reads its id (8 bytes) and
+    writes its state (49); the pass record (16), the key (16) and the
+    camera (19 floats) are read and the cursor written (8) once a
+    launch."""
+    tail = slots - survivors
+    nbytes = 57 * tail + launches * (16 + 16 + 76 + 8)
     return roofline((THREEFRY_FP32_OPS + CAMERA_RAY_OPS) * tail, nbytes,
                     THREEFRY_INT_OPS * tail)

@@ -26,6 +26,11 @@ rounded once; and the two true divisions (``a / b`` of two tensors,
 ``index_add_`` of subnormal values into zeros, against the values (the
 card's atomic add flushes them to zero).
 
+For the dense closest hit (K11, ``kernels/csrc/dense_hit.cu``) it counts
+the same sum and cross product on the broadcast (R, N, 3) shapes of
+``geometry/sphere.py::sphere_hit_all`` and ``triangle.py::
+triangle_hit_all`` (rays (R, 1, 3) against primitives (1, N, 3)).
+
     python probes/torch_arith.py            # the CPU, and the card if any
 """
 import json
@@ -109,6 +114,31 @@ def forms(dev):
         0, torch.arange(n, device=dev), tiny.to(dev)).cpu()
     out["index_add_ of subnormals into zeros vs the values"] = int(
         (added != tiny).sum())
+    out.update(broadcast_forms(dev, g))
+    return out
+
+
+def broadcast_forms(dev, g):
+    """The sum and cross product on the dense sweep's broadcast shapes."""
+    R, N = 1 << 12, 300
+    o = torch.randn(R, 1, 3, generator=g) * 5
+    d = torch.nn.functional.normalize(torch.randn(R, 1, 3, generator=g),
+                                      dim=-1)
+    c = torch.randn(1, N, 3, generator=g) * 5
+    oc = o.to(dev) - c.to(dev)
+    s = torch.sum(oc * d.to(dev), dim=-1).cpu()
+    x = (oc * d.to(dev)).cpu()
+    out = {"(R, N, 3) sum (x+y)+z": int((s != (x[..., 0] + x[..., 1])
+                                         + x[..., 2]).sum()),
+           "(R, N, 3) sum (x+z)+y": int((s != (x[..., 0] + x[..., 2])
+                                         + x[..., 1]).sum())}
+    e = torch.randn(1, N, 3, generator=g)
+    cr = torch.linalg.cross(d.to(dev), e.to(dev), dim=-1).cpu()
+    dd, ed = d.double(), e.double()
+    first = torch.stack([
+        (dd[..., i] * ed[..., j] - (d[..., j] * e[..., i]).double()).float()
+        for i, j in ((1, 2), (2, 0), (0, 1))], dim=-1)
+    out["(R, N, 3) cross fma(a,b,-(c*d))"] = int((cr != first).sum())
     return out
 
 

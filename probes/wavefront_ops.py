@@ -28,10 +28,17 @@ pass's two seams as the CPU runs them (``core/rng.uniforms_plain``,
 and ``regenerate_plain``: their torch ops); under ``"with K7 and K8"``,
 with each call of ``core.rng.uniforms`` (K7) and
 ``render.camera.camera_rays`` (K8) counted as one op, as the card
-launches each as one kernel; and under ``"with K7 to K10"``, also with
+launches each as one kernel; under ``"with K7 to K10"``, also with
 the pass's shading and compaction counted as one op (K9) and its
 regeneration as one (K10, which writes the cursor), as the card runs
-them.  Stand-ins run the plain versions with the count paused.
+them; and under ``"with K7 to K13"``, also with the recorders' seams
+(``diff/record_pass.py``: ``record_step_plain``, K12 in lockstep and
+length modes; ``record_shade_plain``, K12 in pool mode;
+``record_regenerate_plain``, K13) and the dense sweep (``dense_sweep``,
+K11) counted as one op each.  The recorders' plain seams draw through
+``uniforms_plain`` and ``camera_rays_plain`` themselves, so before the
+last line their draws count as torch ops.  Stand-ins run the plain
+versions with the count paused.
 
     python probes/wavefront_ops.py
 """
@@ -48,6 +55,7 @@ from first_raytracer_tpu_torch.core import rng  # noqa: E402
 from first_raytracer_tpu_torch.render import api  # noqa: E402
 from first_raytracer_tpu_torch.render import camera  # noqa: E402
 from first_raytracer_tpu_torch.diff import grad as dg  # noqa: E402
+from first_raytracer_tpu_torch.diff import record_pass  # noqa: E402
 from first_raytracer_tpu_torch.diff import replay as rp  # noqa: E402
 from first_raytracer_tpu_torch.kernels import intersect_pallas as ip  # noqa: E402,E501
 from first_raytracer_tpu_torch.render import regenerative as reg  # noqa: E402,E501
@@ -113,6 +121,16 @@ def with_pass_kernels():
     and K10 (one op each)."""
     wp.shade_plain = one_op(wp.shade_plain)
     wp.regenerate_plain = one_op(wp.regenerate_plain)
+
+
+def with_record_kernels():
+    """Routes the recorders' seams through stand-ins of K12 and K13, and
+    the dense sweep through one of K11 (one op each)."""
+    global intersect_brute
+    for name in ("record_step_plain", "record_shade_plain",
+                 "record_regenerate_plain"):
+        setattr(record_pass, name, one_op(getattr(record_pass, name)))
+    intersect_brute = one_op(intersect_brute)
 
 
 def counts():
@@ -189,6 +207,8 @@ def main():
     print({"with K7 and K8": counts()})
     with_pass_kernels()
     print({"with K7 to K10": counts()})
+    with_record_kernels()
+    print({"with K7 to K13": counts()})
 
 
 if __name__ == "__main__":
