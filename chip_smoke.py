@@ -337,7 +337,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``torch.equal``, on the final scene's 2^17 camera rays and its first
    bounce's rays, 2^16 camera rays of field5000, field20000 and
    trifield20000, and two tie sets (the final scene with every sphere
-   twice; rays down the shared edge of two triangles, each twice).  K12 in
+   twice; rays down the shared edge of two triangles, each twice), each
+   also with liveness masks of live shares 1, 0.5, 0.1, 0.03, 0.01, 0.001
+   and 0 (from a numpy seed) against ``dense_hit_plain`` (the masked
+   plain sweep) on every ray, and the first bounce's recorder state with
+   its own mask; K11's ms at 100%, 10% and 1% live.  K12 in
    lockstep and length modes bounce by bounce (2^16 rays), and K12 in pool
    mode and K13 pass by pass (2^14 slots over the same ids, K12's scan
    words checked and carried), ``torch.equal`` to ``record_step_plain``,
@@ -356,7 +360,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    A graphed lockstep bounce's, pool pass's and length pass's ms and
    nodes (``cuGraphGetNodes``, at most 4 each), and the graphed direct
    step, recorders and field5000's direct step twice each after a warm
-   call, beside their times before K11-K13 (``EARLIER_K12``).
+   call, beside their times before K11-K13 (``EARLIER_K12``).  The
+   final scene's pool frame (2^17 slots) and chunked frame (chunks of
+   2^17) without an accel, graphed, counters reset before and read after
+   each (K11 once a pass, with the pool's or the chunk's mask), their
+   radiance sums within 1% of ``bench_golden.json``, and their seconds
+   twice after that first frame.
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements (``sharded_launches``: the launches of phases 14 and 15;
@@ -3650,6 +3659,10 @@ def wavefront_pass_path(dev, key, card, frames):
 RECORD_POOL = 1 << 14
 RECORD_RAYS = 1 << 16
 K11_FIELD_RAYS = 1 << 16
+# K11's liveness masks: the live shares held to the plain version, and
+# those timed.
+K11_SHARES = (1.0, 0.5, 0.1, 0.03, 0.01, 0.001, 0.0)
+K11_TIMED = (1.0, 0.1, 0.01)
 # A graphed body's nodes before K11-K13, the closest hit included
 # (``cuGraphGetNodes`` on the parent's bodies, probes/record_pass.py
 # --turns, PERF.md section 5; an NVIDIA H100 80GB HBM3 at 700.00 W).
@@ -3765,22 +3778,41 @@ def k11_sets(dev, key, scene, cam, cfg, o, d):
     return out
 
 
-def k11_vs_plain(label, scene, o, d):
+def live_mask(n, share, seed, dev):
+    """A (n,) bool mask on ``dev``, each ray live with probability
+    ``share`` (numpy's generator from ``seed``)."""
+    return torch.from_numpy(
+        np.random.default_rng(seed).random(n) < share).to(dev)
+
+
+def k11_vs_plain(label, scene, o, d, shares=()):
     """K11 (``dense_hit`` on the card) against ``intersect_brute`` on the
     rays (o, d), prim, t and hit ``torch.equal``, the plain sweep in
-    chunks of 2^27 (ray, primitive) pairs.  Returns the hits."""
-    before = dh.dense_hit.launches
-    got = dh.dense_hit(scene, o, d, 1e-3)
-    torch.cuda.synchronize()
-    if dh.dense_hit.launches != before + 1:
-        raise AssertionError("K11's launch counter did not move")
+    chunks of 2^27 (ray, primitive) pairs; then with a liveness mask of
+    each of ``shares`` against ``dense_hit_plain`` (the same sweep, the
+    miss where the mask is False) on every ray.  Returns the hits."""
+    def k11(alive=None):
+        before = dh.dense_hit.launches
+        got = dh.dense_hit(scene, o, d, 1e-3, alive)
+        torch.cuda.synchronize()
+        if dh.dense_hit.launches != before + 1:
+            raise AssertionError("K11's launch counter did not move")
+        return got
+    got = k11()
     step = max(1, (PLAIN_PAIRS // 2) // max(scene.num_primitives, 1))
     parts = [intersect_brute(scene, o[lo:lo + step], d[lo:lo + step], 1e-3)
              for lo in range(0, o.shape[0], step)]
     want = [torch.cat(p) for p in zip(*parts)]
-    bit_equal(f"K11, {label} ({scene.num_spheres} spheres, "
-              f"{scene.num_triangles} triangles)", got, want,
-              "intersect_brute")
+    what = (f"K11, {label} ({scene.num_spheres} spheres, "
+            f"{scene.num_triangles} triangles)")
+    bit_equal(what, got, want, "intersect_brute")
+    for k, share in enumerate(shares):
+        alive = live_mask(o.shape[0], share, 1000 + k, o.device)
+        prim, t, hit = want
+        bit_equal(f"  {what}, {int(alive.sum())} live ({share})",
+                  k11(alive), [torch.where(alive, prim, 0),
+                               torch.where(alive, t, 1e30), hit & alive],
+                  "dense_hit_plain")
     return int(got[2].sum())
 
 
@@ -3877,10 +3909,22 @@ def record_pass_path(dev, key, card):
     ids = torch.arange(R, device=dev)
     o, d = camera_rays(scene, cam, cfg, key, R)
 
-    # K11 against intersect_brute, bit for bit.
+    # K11 against intersect_brute, bit for bit, without and with masks.
     for label, s, so, sd in k11_sets(dev, key, scene, cam, cfg, o, d):
-        hits = k11_vs_plain(label, s, so, sd)
+        hits = k11_vs_plain(label, s, so, sd, K11_SHARES)
         log(f"    ({hits} of {so.shape[0]} rays hit)")
+    bounce = rrep.record_state(o, d, cfg=cfg)
+    prim, _, hit = dh.dense_hit(scene, o, d, cfg.t_min)
+    rpass.record_step(bounce, prim, hit, scene=scene, key=key, ray_ids=ids,
+                      cfg=cfg)
+    bit_equal(f"K11, the first bounce's recorder state, its own mask "
+              f"({int(bounce['alive'].sum())} live)",
+              dh.dense_hit(scene, bounce["o"], bounce["dr"], cfg.t_min,
+                           bounce["alive"]),
+              dh.dense_hit_plain(scene, bounce["o"], bounce["dr"],
+                                 cfg.t_min, bounce["alive"]),
+              "dense_hit_plain")
+    del bounce
     torch.cuda.empty_cache()
 
     # K12's modes and K13 against their plain versions on phase 21's sets.
@@ -3946,10 +3990,19 @@ def record_pass_path(dev, key, card):
         raise AssertionError("the occupancy counts differ from the plain "
                              "route's")
 
-    # Times at 2^17, each call in a CUDA graph.  K11 on the camera rays.
+    # Times at 2^17, each call in a CUDA graph.  K11 on the camera rays,
+    # without a mask and at live shares 1, 0.1 and 0.01.
     ms11 = graph_ms(lambda: dh.dense_hit(scene, o, d, cfg.t_min), 5, 20)
     plain11 = graph_ms(lambda: intersect_brute(scene, o, d, cfg.t_min), 3)
     b11 = k11_bound(scene, R)
+    live11 = {}
+    for share in K11_TIMED:
+        alive = live_mask(R, share, 7, dev)
+        live = int(alive.sum())
+        live11[share] = dict(
+            live=live, bound_ms=k11_bound(scene, R, live)[0],
+            ms=graph_ms(lambda alive=alive: dh.dense_hit(
+                scene, o, d, cfg.t_min, alive), 5, 20))
     prim, _, hit = dh.dense_hit(scene, o, d, cfg.t_min)
     kw = dict(scene=scene, key=key, ray_ids=ids, cfg=cfg)
     # K12, lockstep and length modes, at the first bounce of the camera
@@ -4009,7 +4062,9 @@ def record_pass_path(dev, key, card):
         plain, camera=cam, **pkw), 5)
     b13 = k13_bound(R, cont)
     log(f"  K11 at {R} camera rays: {ms11:.4f} ms (bound {b11[0]:.5f} ms, "
-        f"{b11[1]}); plain {plain11:.4f} ms in a graph")
+        f"{b11[1]}); plain {plain11:.4f} ms in a graph; with a mask: " +
+        "; ".join(f"{v['live']} live ({k}) {v['ms']:.4f} ms (bound "
+                  f"{v['bound_ms']:.5f})" for k, v in live11.items()))
     for mode in step_ms:
         log(f"  K12 ({mode}) at the first bounce of {R} rays: "
             f"{step_ms[mode]:.4f} ms, the rays' restore taken off (bound "
@@ -4066,6 +4121,38 @@ def record_pass_path(dev, key, card):
         f"{k} {', '.join(f'{t:.4f}' for t in v)} s (before K11-K13 "
         f"{EARLIER_K12[k]})" for k, v in times.items()) + f"; on {card}")
 
+    # The final scene's frames without an accel: K11, with each pass's
+    # mask.
+    golden = final_golden()
+    frames_s, frame_launches = {}, {}
+    for mode in ("regenerative", "wavefront"):
+        def frame(mode=mode):
+            img = render_image(scene, cam, cfg, seed=0, accel=None,
+                               mode=mode, chunk=WAVE_RAYS,
+                               pool_size=WAVE_RAYS, device=dev)
+            torch.cuda.synchronize()
+            return img
+        label = "pool" if mode == "regenerative" else "chunked"
+        _, img, n = counted(f"the {label} frame without an accel", frame,
+                            {"K11": (dh.dense_hit, "launches"),
+                             "K9": (wp.shade, "launches")})
+        c = loop_counts()
+        if n["K11"] != n["K9"] or n["K11"] != c["passes"] + c["warmups"] \
+                * graphed.PASSES_PER_READ:
+            raise AssertionError(f"{label}: K11 not once a pass ({n}, {c})")
+        if tuple(img.shape) != (cfg.ny, cfg.nx, 3) or \
+                not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{label}: bad image")
+        total_rad = float(img.double().sum()) * cfg.spp
+        rel = abs(total_rad - golden) / golden
+        frames_s[label] = [host_s(frame)[0] for _ in range(2)]
+        frame_launches[label] = n["K11"]
+        log(f"  the {label} frame through K11: radiance sum {total_rad:.1f} "
+            f"vs golden {golden:.1f} (rel {rel:.2e}); graphed "
+            f"{', '.join(f'{t:.4f}' for t in frames_s[label])} s; on {card}")
+        if not rel < 1e-2:
+            raise AssertionError(f"{label}: radiance sum off golden ({rel})")
+
     src = "first_raytracer_tpu_torch/kernels/csrc/"
     common = {"route": "cuda", "max_abs_err": 0.0, "library_ms": None}
     k12 = dict(common, source=src + "wavefront_pass.cu", nodes=nodes,
@@ -4076,7 +4163,9 @@ def record_pass_path(dev, key, card):
         "source": src + "dense_hit.cu", "replaces": dh.REPLACES,
         "launches": n_step["K11"],
         "pool_recorder_launches": n_pool["K11"],
-        "occupancy_launches": n_len["K11"], "ms": ms11,
+        "occupancy_launches": n_len["K11"],
+        "frame_launches": frame_launches, "frames_s": frames_s,
+        "ms": ms11, "masked": {str(k): v for k, v in live11.items()},
         "plain_ms": plain11, "bound_ms": b11[0], "bound_by": b11[1]}),
         dict(k12, **{
             "name": "K12 recorder pass, lockstep mode "

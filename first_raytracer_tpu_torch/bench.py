@@ -266,15 +266,22 @@ def read_launches():
 class CountedIntersect:
     """An ``intersect_fn`` that counts the FP32 operations of the closest
     hits it computes: K4's rays x rows, K5's and K6's nodes and slots from
-    their counters (summed on the device), the dense sweep's rays x
+    their counters (summed on the device), the dense sweep's swept rays x
     primitives at K4's counts; none for the plain walk on the CPU, which
-    keeps no counters."""
+    keeps no counters.  It takes the loop bodies' liveness mask as
+    ``default_intersect`` does (``takes_alive``): K11 sweeps only the live
+    rays, so only theirs are counted (summed on the device)."""
+
+    takes_alive = True
 
     def __init__(self, kind, scene, accel):
         self.kind, self.scene, self.accel = kind, scene, accel
         self.rays, self.sweeps, self.walk = 0, None, None
 
-    def __call__(self, scene, accel, o, d, t_min):
+    def __call__(self, scene, accel, o, d, t_min, alive=None):
+        if self.kind == "brute" and alive is not None:
+            self.rays = alive.sum() + self.rays
+            return default_intersect(scene, accel, o, d, t_min, alive)
         self.rays += o.shape[0]
         if self.kind == "clustered":
             prim, t, hit, sweeps = ic.intersect_clustered(
@@ -302,7 +309,7 @@ class CountedIntersect:
             return 0 if self.walk is None else roofline.k6_ops(
                 self.walk.tolist())
         if self.kind == "brute":
-            return self.rays * (
+            return int(self.rays) * (
                 self.scene.num_spheres * roofline.OC_SPHERE_OPS
                 + self.scene.num_triangles * roofline.MT_TRIANGLE_OPS)
         return 0

@@ -46,8 +46,8 @@ from ..geometry.sphere import BIG, sphere_hit_one, sphere_normal
 from ..geometry.triangle import triangle_hit_one, triangle_normal
 from ..materials.scatter import scatter_from_params
 from ..render.camera import camera_rays
-from ..render.integrator import (UP, RenderConfig, default_intersect,
-                                 sky_color)
+from ..render.integrator import (UP, RenderConfig, closest_hit,
+                                 default_intersect, sky_color)
 from ..render.wavefront_pass import pool_scratch
 from ..scene.textures import texture_from_params
 from .record_pass import record_regenerate, record_shade, record_step
@@ -91,8 +91,8 @@ def record_bounce(state, *, scene, accel, key, ray_ids, cfg, intersect_fn,
     device, ``record_step_plain`` on the CPU), then the counter's add.  No
     host read and no tensor from host data; a pass after the last bounce
     changes nothing but the scratch row."""
-    prim, _, hit = intersect_fn(scene, accel, state["o"], state["dr"],
-                                cfg.t_min)
+    prim, _, hit = closest_hit(intersect_fn, scene, accel, state["o"],
+                               state["dr"], cfg.t_min, state["alive"])
     record_step(state, prim, hit, scene=scene, key=key, ray_ids=ray_ids,
                 cfg=cfg)
     state["d"].add_(1)
@@ -177,8 +177,8 @@ def record_pool_pass(state, *, scene, camera, accel, key, ray_ids, cfg,
     on a CUDA device) and ``record_regenerate`` (every slot past them takes
     the stream's next ray: K13).  Once every slot is dead and the stream
     is spent it changes nothing the tape returns."""
-    prim, _, hit = intersect_fn(scene, accel, state["o"], state["d"],
-                                cfg.t_min)
+    prim, _, hit = closest_hit(intersect_fn, scene, accel, state["o"],
+                               state["d"], cfg.t_min, state["alive"])
     record_shade(state, prim, hit, scene=scene, key=key, ray_ids=ray_ids,
                  cfg=cfg)
     record_regenerate(state, camera=camera, key=key, ray_ids=ray_ids,

@@ -1,6 +1,6 @@
 // Asynchronous copies from device memory to shared memory (cp.async),
-// shared by K1-K3t (megakernel.cu, megakernel_clustered.cu) and K4-K5
-// (intersect.cu).
+// shared by K1-K3t (megakernel.cu, megakernel_clustered.cu), K4-K5
+// (intersect.cu) and K11 (dense_hit.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,6 +11,14 @@ namespace frt {
 __device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// Copies 4 bytes (both addresses 4-byte aligned) without a register.
+__device__ __forceinline__ void copy4_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }

@@ -9,6 +9,9 @@ namespace frt {
 inline void copy16_async(void* smem, const void* gmem) {
   std::memcpy(smem, gmem, 16);
 }
+inline void copy4_async(void* smem, const void* gmem) {
+  std::memcpy(smem, gmem, 4);
+}
 inline void commit_copies() {}
 template <int N>
 inline void wait_copies() {}

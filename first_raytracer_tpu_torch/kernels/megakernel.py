@@ -343,7 +343,7 @@ def bind_dense_hit(lib):
     (also a host build of ``dense_hit.cu`` alone)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.frt_dense_hit.argtypes = (
-        [ptr] * 5 + [i32] * 2 + [ptr] * 2 + [i64, ctypes.c_float]
+        [ptr] * 5 + [i32] * 2 + [ptr] * 3 + [i64, ctypes.c_float]
         + [ptr] * 4)
     lib.frt_dense_hit.restype = i32
     return lib

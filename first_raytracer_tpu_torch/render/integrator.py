@@ -91,14 +91,16 @@ def sky_color(direction):
 
 
 @torch.no_grad()
-def default_intersect(scene, accel, origin, direction, t_min):
+def default_intersect(scene, accel, origin, direction, t_min, alive=None):
     """Closest hit by the accel's type: K11, the dense sweep (None), K5
     (``ClusteredScenePack``), K4 (``PallasScenePack``) or K6, the flat-BVH
     walk (``FlatBVH``); each kernel's plain version on the CPU.  Runs
-    without autograd: it only finds the primitive."""
+    without autograd: it only finds the primitive.  ``alive``, the rays'
+    (R,) bool liveness, goes to K11 only, which gives a dead ray the miss
+    without sweeping it; K4, K5 and K6 sweep every ray."""
     if accel is None:
         from ..kernels.dense_hit import dense_hit
-        return dense_hit(scene, origin, direction, t_min)
+        return dense_hit(scene, origin, direction, t_min, alive)
     from ..kernels.intersect_clustered import (ClusteredScenePack,
                                                intersect_clustered)
     if isinstance(accel, ClusteredScenePack):
@@ -108,6 +110,22 @@ def default_intersect(scene, accel, origin, direction, t_min):
         return intersect_pallas(scene, accel, origin, direction, t_min)
     from ..accel.traverse import intersect_bvh
     return intersect_bvh(scene, accel, origin, direction, t_min)
+
+
+default_intersect.takes_alive = True
+
+
+def closest_hit(intersect_fn, scene, accel, origin, direction, t_min,
+                alive):
+    """A loop body's closest hit through ``intersect_fn``: one marked
+    ``takes_alive`` (``default_intersect``) also gets the rays' liveness,
+    so that K11 sweeps only the live rays and gives the others the miss;
+    any other is called with its five arguments.  The bodies that call it
+    read a dead ray's (prim, hit) only under ``alive``."""
+    if getattr(intersect_fn, "takes_alive", False):
+        return intersect_fn(scene, accel, origin, direction, t_min,
+                            alive=alive)
+    return intersect_fn(scene, accel, origin, direction, t_min)
 
 
 def intersect_brute(scene, origin, direction, t_min):
@@ -248,8 +266,8 @@ def trip(state, *, scene, accel, key, cfg, intersect_fn, **_):
     The closest hit, then ``render.wavefront_pass.shade``: K9 on a CUDA
     device, ``shade_plain`` (``_bounce``'s body) on the CPU."""
     from .wavefront_pass import shade
-    prim, _, hit = intersect_fn(scene, accel, state["origin"],
-                                state["direction"], cfg.t_min)
+    prim, _, hit = closest_hit(intersect_fn, scene, accel, state["origin"],
+                               state["direction"], cfg.t_min, state["alive"])
     shade(state, prim, hit, scene=scene, key=key, cfg=cfg)
     state["depth"].add_(1)
 

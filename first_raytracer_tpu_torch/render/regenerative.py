@@ -40,7 +40,7 @@ from typing import Callable, Optional
 import torch
 
 from .camera import camera_rays
-from .integrator import RenderConfig, default_intersect
+from .integrator import RenderConfig, closest_hit, default_intersect
 from .wavefront_pass import pool_scratch, regenerate, shade
 
 __all__ = ["pool_state", "pool_pass", "render_rays_regenerative"]
@@ -85,8 +85,8 @@ def pool_pass(state, *, scene, camera, accel, key, start_id, cfg, num_rays,
     closest hit, then ``render.wavefront_pass``'s two seams: ``shade`` (K9
     on a CUDA device) and ``regenerate`` (K10), their plain versions on the
     CPU."""
-    prim, _, hit = intersect_fn(scene, accel, state["o"], state["d"],
-                                cfg.t_min)
+    prim, _, hit = closest_hit(intersect_fn, scene, accel, state["o"],
+                               state["d"], cfg.t_min, state["alive"])
     shade(state, prim, hit, scene=scene, key=key, cfg=cfg,
           start_id=start_id, num_rays=num_rays)
     regenerate(state, camera=camera, key=key, start_id=start_id, cfg=cfg,

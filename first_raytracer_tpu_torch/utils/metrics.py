@@ -25,7 +25,7 @@ import torch
 from ..core import rng
 from ..diff.record_pass import record_step
 from ..diff.replay import camera_record_state
-from ..render.integrator import RenderConfig, default_intersect
+from ..render.integrator import RenderConfig, closest_hit, default_intersect
 
 logger = logging.getLogger("first_raytracer_tpu_torch")
 
@@ -51,8 +51,8 @@ def _length_pass(state, *, scene, accel, key, ray_ids, cfg, intersect_fn,
     the body of the JAX package's ``_occupancy_scan``.  The closest hit,
     then ``diff.record_pass.record_step`` in its length mode (K12 on a
     CUDA device), then the counter's add."""
-    prim, _, hit = intersect_fn(scene, accel, state["o"], state["dr"],
-                                cfg.t_min)
+    prim, _, hit = closest_hit(intersect_fn, scene, accel, state["o"],
+                               state["dr"], cfg.t_min, state["alive"])
     record_step(state, prim, hit, scene=scene, key=key, ray_ids=ray_ids,
                 cfg=cfg)
     state["d"].add_(1)

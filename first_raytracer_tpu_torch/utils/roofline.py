@@ -65,12 +65,13 @@ differently.  The operations are counted from the CUDA sources:
   (53), the pass record, key, camera and first id read and the cursor
   written once a launch.  Bound by bytes.
 - K11 (``kernels/csrc/dense_hit.cu``, the dense closest hit on the
-  scene's tensors): K4's 16 per (ray, sphere) and 46 per (ray, triangle),
-  r*r and the edges computed once per primitive when a block stages its
-  tile (the square root and the two roots past a positive discriminant
-  left out: a lower bound); bytes: the scene's centres, radii and
-  vertices read once a launch, 24 bytes in and 9 out a ray.  Bound by
-  operations.
+  scene's tensors): K4's 16 per (ray, sphere) and 46 per (ray, triangle)
+  of the live rays it sweeps (a dead ray is not swept), r*r and the edges
+  computed once per primitive when a block stages its tile (the square
+  root and the two roots past a positive discriminant left out: a lower
+  bound); bytes: the scene's centres, radii and vertices read once a
+  launch, 24 bytes in a live ray, the mask's byte and 9 bytes out every
+  ray.  Bound by operations unless almost every ray is dead.
 - K12 (the recorders' pass, ``wavefront_pass.cu``): K9's draw and shading
   operations for each ray or slot it shades; bytes as K9's rows count
   them: lockstep and length modes read every ray's liveness, rays, id and
@@ -304,15 +305,20 @@ def k10_bound(slots, survivors, launches=1):
                     THREEFRY_INT_OPS * tail)
 
 
-def k11_bound(scene, rays, launches=1):
-    """K11's bound over ``launches`` launches of ``rays`` rays in all:
-    every (ray, primitive) pair tested, the scene's geometry read once a
-    launch, 24 bytes in and 9 out a ray (prim, t, hit)."""
-    ops = rays * (scene.num_spheres * OC_SPHERE_OPS
+def k11_bound(scene, rays, live=None, launches=1):
+    """K11's bound over ``launches`` launches of ``rays`` rays in all, of
+    which ``live`` were live and swept (None: no mask, every ray swept):
+    the live rays' (ray, primitive) pairs tested, the scene's geometry read
+    once a launch, a live ray's 24 bytes in, every ray's mask byte in (with
+    a mask) and 9 bytes out (prim, t, hit)."""
+    mask = 0 if live is None else rays
+    live = rays if live is None else live
+    ops = live * (scene.num_spheres * OC_SPHERE_OPS
                   + scene.num_triangles * MT_TRIANGLE_OPS)
     tables = tensor_bytes(scene.sphere_center, scene.sphere_radius,
                           scene.tri_v0, scene.tri_v1, scene.tri_v2)
-    return intersect_bound(ops, launches * tables + 24 * rays, 9 * rays)
+    return intersect_bound(ops, launches * tables + 24 * live + mask,
+                           9 * rays)
 
 
 def k12_bound(scene, slots, live, cont, hits, mode="lockstep",

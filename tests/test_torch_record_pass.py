@@ -473,9 +473,10 @@ def test_pool_at_the_depth_cap_and_stale_words(host_lib):
 def _through_host_build(monkeypatch):
     """The recorders' and the occupancy scan's seams on the host build:
     the CPU's plain versions replaced by the kernels' launch code (K11 in
-    place of ``intersect_brute``, which ``dense_hit`` runs on the CPU)."""
+    place of ``dense_hit_plain``, which ``dense_hit`` runs on the CPU,
+    with the loops' liveness masks)."""
     with monkeypatch.context() as m:
-        m.setattr(integrator, "intersect_brute", dh._launch_cuda)
+        m.setattr(dh, "dense_hit_plain", dh._launch_cuda)
         m.setattr(rp, "record_step_plain", rp._launch_step)
         m.setattr(rp, "record_shade_plain", rp._launch_shade)
         m.setattr(rp, "record_regenerate_plain", rp._launch_regenerate)
