@@ -342,23 +342,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and 0 (from a numpy seed) against ``dense_hit_plain`` (the masked
    plain sweep) on every ray, and the first bounce's recorder state with
    its own mask; K11's ms at 100%, 10% and 1% live.  K12 in
-   lockstep and length modes bounce by bounce (2^16 rays), and K12 in pool
-   mode and K13 pass by pass (2^14 slots over the same ids, K12's scan
-   words checked and carried), ``torch.equal`` to ``record_step_plain``,
-   ``record_shade_plain`` and ``record_regenerate_plain`` (the flat tape's
-   last entry aside) on phase 21's seven sets.  The main path, counters
-   reset before and read after each: the direct step at 2^17 rays of the
-   final scene (K11 and K12 once a bounce), the lockstep and the pool
-   recorder (2^14 slots: K11, K12 and K13 once a pass), their tapes
-   ``torch.equal`` to the same recorders on the plain versions op by op
-   and to each other, and the occupancy scan of 2^17 rays (K11 and K12's
-   length mode), its counts equal to the plain route's.  Times at 2^17
-   (20 calls a CUDA graph, the state a call changes restored and its time
-   taken off): K11 on the camera rays, K12 at the first bounce in
-   lockstep and length modes and at 2^17 pool slots after a pass, K13;
-   the plain versions one call a graph; bounds from ``utils/roofline.py``.
-   A graphed lockstep bounce's, pool pass's and length pass's ms and
-   nodes (``cuGraphGetNodes``, at most 4 each), and the graphed direct
+   lockstep and length modes bounce by bounce (2^16 rays, the counter
+   after every bounce), and K12's pool launch with K13 folded in pass by
+   pass (2^14 slots over the same ids, its scan words checked and
+   carried), ``torch.equal`` to ``record_step_plain`` and to
+   ``record_shade_plain`` then ``record_regenerate_plain`` (the flat
+   tape's last entry aside) on phase 21's seven sets.  The main path,
+   counters reset before and read after each: the direct step at 2^17
+   rays of the final scene (K11 and K12 once a bounce), the lockstep and
+   the pool recorder (2^14 slots: K11 and K12's pool launch, which counts
+   K13 too, once a pass), their tapes ``torch.equal`` to the same
+   recorders on the plain versions op by op and to each other, and the
+   occupancy scan of 2^17 rays (K11 and K12's length mode), its counts
+   equal to the plain route's.  Times (20 calls a CUDA graph, the state a
+   call changes restored and its time taken off): K11 on the 2^17 camera
+   rays; K12 at their first bounce in lockstep and length modes at live
+   shares 1, 0.1 and 0.01 (each bit-equal to the plain seam), summed over
+   the direct step's bounces, and its pool launch after a pass at 2^14
+   and 2^17 slots; the plain versions one call a graph; bounds from
+   ``utils/roofline.py``.  A graphed lockstep bounce's, pool pass's and
+   length pass's ms and nodes (``cuGraphGetNodes``, at most 2 each), and
+   the graphed direct
    step, recorders and field5000's direct step twice each after a warm
    call, beside their times before K11-K13 (``EARLIER_K12``).  The
    final scene's pool frame (2^17 slots) and chunked frame (chunks of
@@ -375,7 +379,8 @@ phase 19's ``entry()`` forward; K7's ``launches``: phase 20's replay,
 K8's: its pool recorder's init, ``frame_launches``: phase 12's frames;
 K9's and K10's: phase 21's pool frame, ``frame_launches``: its frames;
 K11's and K12's lockstep mode: phase 22's direct step, K12's length mode:
-its occupancy scan, K12's pool mode and K13: its pool recorder) and
+its occupancy scan, K12's pool mode and K13, folded into it: its pool
+recorder) and
 the result line ``{"ok": true, "device": {...}}``.  This
 script imports no JAX.  Bounds count FP32 operations from the sources
 (``first_raytracer_tpu_torch/utils/roofline.py``, which ``bench_torch.py``'s
@@ -396,7 +401,8 @@ every slot's state and closest hit read, a survivor's next state written
 to its compacted slot, the scan's status words, ticket and pass record;
 K10 a tail slot's state written.  K11 (kernels/csrc/dense_hit.cu) counts
 K4's 16 a (ray, sphere) and 46 a (ray, triangle) pair; K12 and K13
-(wavefront_pass.cu) count K9's and K10's operations and their own bytes.
+(wavefront_pass.cu) count K9's and K10's operations and the bytes their
+inputs need (a dead ray's liveness byte, a live one's state).
 """
 from __future__ import annotations
 
@@ -460,7 +466,7 @@ from first_raytracer_tpu_torch.utils.roofline import (bound,
                                                       k6_bound, k7_bound,
                                                       k8_bound, k9_bound,
                                                       k10_bound, k11_bound,
-                                                      k12_bound, k13_bound)
+                                                      k12_bound)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_KEY = "radiance_sum_mega_1200x800_10spp"
@@ -485,11 +491,10 @@ KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("camera_rays_kernel", "K8"),
                   ("shade_pool_kernel", "K9 (pool)"),
                   ("shade_trip_kernel", "K9 (trip)"),
-                  ("record_regenerate_kernel", "K13"),
                   ("regenerate_kernel", "K10"),
                   ("dense_hit_kernel", "K11"),
                   ("record_step_kernel", "K12 (lockstep, length)"),
-                  ("record_pool_kernel", "K12 (pool)"))
+                  ("record_pool_kernel", "K12 (pool) and K13"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
 # Phases 8 and 10: the small scenes.
@@ -849,7 +854,7 @@ def reset_counts():
     rpass.record_step.launches = 0
     rpass.record_step.length_launches = 0
     rpass.record_shade.launches = 0
-    rpass.record_regenerate.launches = 0
+    rpass.record_shade.refill_launches = 0
     graphed.LOOPS.reset_counts()
 
 
@@ -3668,6 +3673,17 @@ K11_TIMED = (1.0, 0.1, 0.01)
 # --turns, PERF.md section 5; an NVIDIA H100 80GB HBM3 at 700.00 W).
 NODES_BEFORE_RECORD = {"lockstep bounce": 243, "pool pass": 283,
                        "length pass": 239}
+# K12's live shares held to the plain seams and timed at the first bounce.
+K12_SHARES = (1.0, 0.1, 0.01)
+# Nodes of a graphed recorder body: the closest hit and K12 (the counter's
+# add and K13 are K12's own now), against 3 each before (PERF.md section
+# 5; an NVIDIA H100 80GB HBM3 at 700.00 W).
+RECORD_BODY_NODES = 2
+NODES_BEFORE_FOLD = 3
+# K12's ms at the first bounce of 2^17 rays before it packed its live rays
+# (PERF.md section 6; the same card), printed beside this run's.
+EARLIER_K12_STEP = {("lockstep", 1.0): "0.0061 ms",
+                    ("length", 1.0): "0.0063 ms"}
 # The recorders' and the direct step's seconds before K11-K13 (PERF.md
 # sections 5 and 6; an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside
 # this run's.
@@ -3683,9 +3699,9 @@ EARLIER_K12 = {
 def plain_lockstep(scene, o, d, ray_ids, key, cfg, length=False):
     """The lockstep recorder of the rays (o, d), or with ``length`` the
     occupancy scan's lengths, on the plain versions op by op
-    (``intersect_brute``, ``record_step_plain`` and the counter's add,
-    through ``render.graphed.run_eager``): any float type.  Returns the
-    tape with its scratch row, or the lengths."""
+    (``intersect_brute``, ``record_step_plain``, which advances the
+    counter, through ``render.graphed.run_eager``): any float type.
+    Returns the tape with its scratch row, or the lengths."""
     def init():
         state = rrep.record_state(o, d, cfg=cfg, tape=not length)
         if length:
@@ -3698,9 +3714,32 @@ def plain_lockstep(scene, o, d, ray_ids, key, cfg, length=False):
                                        cfg.t_min)
         rpass.record_step_plain(state, prim, hit, scene=scene, key=key,
                                 ray_ids=ray_ids, cfg=cfg)
-        state["d"].add_(1)
     state = graphed.run_eager(init, step, {}, {}, graphed.PASSES_PER_READ)
     return state["length" if length else "tape"]
+
+
+def step_moved(state):
+    """The keys of a lockstep or length state that K12 moves."""
+    return [k for k in ("o", "dr", "alive", "d", "arrivals", "length")
+            if k in state]
+
+
+def direct_bounces(scene, cfg, key, o, d):
+    """The lockstep recorder's bounces on the rays (o, d) as the direct
+    step runs them, op by op: each bounce's (o, dr, alive, d) and the
+    closest hit (prim, hit) K11 hands K12."""
+    ids = torch.arange(o.shape[0], device=o.device)
+    state = rrep.record_state(o, d, cfg=cfg)
+    out = []
+    while bool(state["alive"].any()):
+        prim, _, hit = dh.dense_hit(scene, state["o"], state["dr"],
+                                    cfg.t_min, state["alive"])
+        out.append(({k: state[k].clone() for k in ("o", "dr", "alive",
+                                                  "d")}, (prim, hit)))
+        rrep.record_bounce(state, scene=scene, accel=None, key=key,
+                           ray_ids=ids, cfg=cfg,
+                           intersect_fn=default_intersect)
+    return out
 
 
 def plain_pool(scene, cam, key, ray_ids, cfg, pool):
@@ -3816,15 +3855,43 @@ def k11_vs_plain(label, scene, o, d, shares=()):
     return int(got[2].sum())
 
 
+def record_scan_words(what, got, want, passes):
+    """Fails unless K12's pool-mode scan words (``got``) after ``passes``
+    launches on them hold the ticket at ``passes`` times a pass's tickets
+    (its tiles and one a block of its persistent grid, at most a tile's
+    worth) and every tile's word an inclusive prefix of the last pass,
+    nondecreasing by at most a tile, the last the plain record's
+    survivors; then gives ``want`` K12's words, which the plain versions do
+    not write."""
+    scan = got["scan"]
+    tiles = scan.numel() - 1
+    words = scan[1:]
+    counts = words & 0xFFFFFFFF
+    steps = torch.diff(counts, prepend=counts.new_zeros(1))
+    per_pass = int(scan[0]) // passes
+    if not (int(scan[0]) == passes * per_pass
+            and tiles < per_pass <= 2 * tiles
+            and bool((((words >> 32) & 3) == 2).all())
+            and bool(((words >> 34) == passes - 1).all())
+            and bool(((steps >= 0) & (steps <= rpass.RECORD_TILE)).all())
+            and int(counts[-1]) == int(want["record"][0])):
+        raise AssertionError(f"{what}: K12's scan words are not this pass's "
+                             "inclusive prefixes")
+    want["scan"] = scan
+
+
 def record_passes_vs_plain(label, scene, cam, cfg, key, accel):
     """K12 in lockstep and length modes bounce by bounce over
-    ``RECORD_RAYS`` camera rays, and K12 in pool mode and K13 pass by pass
-    over a pool of ``RECORD_POOL`` slots and the same ids, each against
-    its plain version on a clone of the same state (K12's scan words
-    checked and carried from pass to pass; the flat tape's last entry,
-    which the plain pass scatters its non-writing lanes to, aside), through
-    one inert bounce or pass past the last live one.  The closest hit is
-    ``default_intersect`` on ``accel``.  Returns (bounces, passes)."""
+    ``RECORD_RAYS`` camera rays, and K12's pool launch (K13 folded in) pass
+    by pass over a pool of ``RECORD_POOL`` slots and the same ids, each
+    against its plain versions on a clone of the same state
+    (``record_step_plain``, which advances the counter as K12 does;
+    ``record_shade_plain`` then ``record_regenerate_plain``; K12's scan
+    words checked and carried from pass to pass; the flat tape's last
+    entry, which the plain pass scatters its non-writing lanes to, aside),
+    through one inert bounce or pass past the last live one.  The closest
+    hit is ``default_intersect`` on ``accel``.  Returns (bounces,
+    passes)."""
     dev = scene.device
     n = min(RECORD_RAYS, cfg.num_rays)
     ids = torch.arange(n, device=dev)
@@ -3845,7 +3912,10 @@ def record_passes_vs_plain(label, scene, cam, cfg, key, accel):
             rpass.record_step(state, prim, hit, **kw)
             rpass.record_step_plain(want, prim, hit, **kw)
             same_state(f"{label}: K12 ({mode}), bounce {b}", state, want)
-            state["d"].add_(1)
+            if int(state["d"]) != b + 1:
+                raise AssertionError(f"{label}: K12 ({mode}) left the "
+                                     f"counter at {int(state['d'])} after "
+                                     f"bounce {b}")
             b += 1
         bounces = max(bounces, b)
     state = rrep.record_pool_state(cam, key, ids, cfg=cfg,
@@ -3856,18 +3926,20 @@ def record_passes_vs_plain(label, scene, cam, cfg, key, accel):
         prim, _, hit = default_intersect(scene, accel, state["o"],
                                          state["d"], cfg.t_min)
         want = {k: v.clone() for k, v in state.items()}
-        before = rpass.record_shade.launches, rpass.record_regenerate.launches
-        rpass.record_shade(state, prim, hit, **kw)
+        before = (rpass.record_shade.launches,
+                  rpass.record_shade.refill_launches)
+        rpass.record_shade(state, prim, hit, camera=cam, **kw)
         rpass.record_shade_plain(want, prim, hit, **kw)
-        k9_scan_words(f"{label}: K12 (pool), pass {passes}", state, want)
-        want["tape"][-1] = state["tape"][-1]
-        same_state(f"{label}: K12 (pool), pass {passes}", state, want)
-        rpass.record_regenerate(state, camera=cam, **kw)
         rpass.record_regenerate_plain(want, camera=cam, **kw)
-        same_state(f"{label}: K13, pass {passes}", state, want)
-        if (rpass.record_shade.launches, rpass.record_regenerate.launches) \
-                != (before[0] + 1, before[1] + 1):
-            raise AssertionError("K12's or K13's counter did not move")
+        record_scan_words(f"{label}: K12 (pool), pass {passes}", state, want,
+                          passes + 1)
+        want["tape"][-1] = state["tape"][-1]
+        same_state(f"{label}: K12 (pool, K13 folded in), pass {passes}",
+                   state, want)
+        if (rpass.record_shade.launches,
+                rpass.record_shade.refill_launches) != (before[0] + 1,
+                                                        before[1] + 1):
+            raise AssertionError("K12's pool launch did not count itself")
         passes += 1
     if int(state["cursor"]) != n:
         raise AssertionError(f"{label}: the pool did not spend its stream")
@@ -3932,7 +4004,7 @@ def record_pass_path(dev, key, card):
         t0 = time.perf_counter()
         bounces, passes = record_passes_vs_plain(label, s, c, cf, key, accel)
         log(f"  {label}: {bounces} lockstep and length bounces (K12) and "
-            f"{passes} pool passes (K12, K13) bit-equal to the plain "
+            f"{passes} pool passes (K12 with K13 folded in) bit-equal to the plain "
             f"versions ({time.perf_counter() - t0:.1f} s)")
     torch.cuda.empty_cache()
 
@@ -3965,7 +4037,7 @@ def record_pass_path(dev, key, card):
                                record_pool=RECORD_POOL),
         {"K11": (dh.dense_hit, "launches"),
          "K12 pool": (rpass.record_shade, "launches"),
-         "K13": (rpass.record_regenerate, "launches")})
+         "K13": (rpass.record_shade, "refill_launches")})
     if not n_pool["K11"] == n_pool["K12 pool"] == n_pool["K13"]:
         raise AssertionError(f"K11-K13 not once a pool pass: {n_pool}")
     bit_equal("  the pool recorder's tape (graphed)", [pool],
@@ -4006,76 +4078,117 @@ def record_pass_path(dev, key, card):
     prim, _, hit = dh.dense_hit(scene, o, d, cfg.t_min)
     kw = dict(scene=scene, key=key, ray_ids=ids, cfg=cfg)
     # K12, lockstep and length modes, at the first bounce of the camera
-    # rays: each call restores the rays it moves.
+    # rays with masks of live shares 1, 0.1 and 0.01, each against the
+    # plain seam; each call restores the rays, liveness and counter it
+    # moves.
     step_ms, step_plain, step_bound = {}, {}, {}
     for mode in ("lockstep", "length"):
-        first = rrep.record_state(o, d, cfg=cfg, tape=mode == "lockstep")
-        if mode == "length":
-            first["length"] = torch.zeros((R,), dtype=torch.int64,
-                                          device=dev)
-        work = {k: v.clone() for k, v in first.items()}
-        moved = ("o", "dr", "alive") + (("length",) if mode == "length"
-                                        else ())
+        for share in K12_SHARES:
+            first = rrep.record_state(o, d, cfg=cfg, tape=mode == "lockstep")
+            first["alive"].copy_(live_mask(R, share, 7, dev))
+            if mode == "length":
+                first["length"] = torch.zeros((R,), dtype=torch.int64,
+                                              device=dev)
+            work = {k: v.clone() for k, v in first.items()}
+            after = {k: v.clone() for k, v in first.items()}
+            rpass.record_step(work, prim, hit, **kw)
+            rpass.record_step_plain(after, prim, hit, **kw)
+            live = int(first["alive"].sum())
+            same_state(f"K12 ({mode}) at the first bounce, {live} live",
+                       work, after)
+            key_ = (mode, share)
+            step_bound[key_] = k12_bound(
+                scene, R, live, int(after["alive"].sum()),
+                int((first["alive"] & hit).sum()), mode)
 
-        def restore(work=work, first=first, moved=moved):
-            for k in moved:
-                work[k].copy_(first[k])
-        step_ms[mode] = restored_ms(
-            restore, lambda work=work: rpass.record_step(work, prim, hit,
-                                                         **kw))
-        after = {k: v.clone() for k, v in first.items()}
-        rpass.record_step_plain(after, prim, hit, **kw)
-        step_plain[mode] = graph_ms(
-            lambda after=after: rpass.record_step_plain(after, prim, hit,
-                                                        **kw), 5)
-        step_bound[mode] = k12_bound(scene, R, R, int(after["alive"].sum()),
-                                     int(hit.sum()), mode)
-    # K12 in pool mode and K13 at 2^17 slots over 2^19 ids after one pass.
-    pids = torch.arange(4 * R, device=dev)
-    pkw = dict(kw, ray_ids=pids)
-    pstate = rrep.record_pool_state(cam, key, pids, cfg=cfg, pool_size=R)
-    rrep.record_pool_pass(pstate, camera=cam, accel=None, **pkw,
-                          intersect_fn=default_intersect)
-    pprim, _, phit = dh.dense_hit(scene, pstate["o"], pstate["d"], cfg.t_min)
-    work = {k: v.clone() for k, v in pstate.items()}
+            def restore(work=work, first=first):
+                for k in step_moved(first):
+                    work[k].copy_(first[k])
+            step_ms[key_] = restored_ms(
+                restore, lambda work=work: rpass.record_step(
+                    work, prim, hit, **kw))
+            step_plain[key_] = graph_ms(
+                lambda after=after: rpass.record_step_plain(
+                    after, prim, hit, **kw), 5)
+            del work, after, first
+    # K12 in lockstep mode summed over the direct step's bounces, each
+    # bounce's state and K11's closest hit as the recorder hands them over.
+    bounces = direct_bounces(scene, cfg, key, o, d)
+    lock = rrep.record_state(o, d, cfg=cfg)
+    sum_ms = sum_bound = 0.0
+    for b, (p, h) in bounces:
+        def restore(b=b):
+            for k, v in b.items():
+                lock[k].copy_(v)
+        sum_ms += restored_ms(restore, lambda p=p, h=h: rpass.record_step(
+            lock, p, h, **kw))
+        live = int(b["alive"].sum()) if int(b["d"]) <= cfg.max_depth else 0
+        plain = dict(rrep.record_state(o, d, cfg=cfg), **b)
+        rpass.record_step_plain(plain, p, h, **kw)
+        sum_bound += k12_bound(scene, R, live, int(plain["alive"].sum()),
+                               int((b["alive"] & h).sum()), "lockstep")[0]
+        del plain
+    del lock
+    # K12's pool launch (K13 folded in) after one pass, at the direct
+    # step's 2^14 slots over its 2^17 ids and at 2^17 slots over 2^19.
+    pool_ms = {}
+    for slots, n_ids in ((RECORD_POOL, R), (R, 4 * R)):
+        pids = torch.arange(n_ids, device=dev)
+        pkw = dict(kw, ray_ids=pids)
+        pstate = rrep.record_pool_state(cam, key, pids, cfg=cfg,
+                                        pool_size=slots)
+        rrep.record_pool_pass(pstate, camera=cam, accel=None, **pkw,
+                              intersect_fn=default_intersect)
+        pprim, _, phit = dh.dense_hit(scene, pstate["o"], pstate["d"],
+                                      cfg.t_min, pstate["alive"])
+        work = {k: v.clone() for k, v in pstate.items()}
+        plain = {k: v.clone() for k, v in pstate.items()}
+        rpass.record_shade(work, pprim, phit, camera=cam, **pkw)
+        rpass.record_shade_plain(plain, pprim, phit, **pkw)
+        rpass.record_regenerate_plain(plain, camera=cam, **pkw)
+        plain["scan"], plain["tape"][-1] = work["scan"], work["tape"][-1]
+        same_state(f"K12's pool launch at {slots} slots after a pass", work,
+                   plain)
 
-    def restore_pool():
-        for k in rpass.RECORD_ROWS:
-            work[k].copy_(pstate[k])
-    ms12p = restored_ms(restore_pool, lambda: rpass.record_shade(
-        work, pprim, phit, **pkw))
-    plain = {k: v.clone() for k, v in pstate.items()}
-    plain12p = graph_ms(lambda: rpass.record_shade_plain(plain, pprim, phit,
-                                                         **pkw), 5)
-    plain = {k: v.clone() for k, v in pstate.items()}
-    rpass.record_shade_plain(plain, pprim, phit, **pkw)
-    live = int(pstate["alive"].sum())
-    cont = int(plain["record"][0])
-    b12p = k12_bound(scene, R, live, cont,
-                     int((plain["tape"][:-1] != pstate["tape"][:-1]).sum()),
-                     "pool")
-    restore_pool()
-    rpass.record_shade(work, pprim, phit, **pkw)
-    ms13 = graph_ms(lambda: rpass.record_regenerate(work, camera=cam,
-                                                    **pkw), 5, 20)
-    plain13 = graph_ms(lambda: rpass.record_regenerate_plain(
-        plain, camera=cam, **pkw), 5)
-    b13 = k13_bound(R, cont)
+        def restore_pool(work=work, pstate=pstate):
+            for k in rpass.RECORD_ROWS + ("cursor",):
+                work[k].copy_(pstate[k])
+
+        def both_plain(plain=plain, pprim=pprim, phit=phit, pkw=pkw):
+            rpass.record_shade_plain(plain, pprim, phit, **pkw)
+            rpass.record_regenerate_plain(plain, camera=cam, **pkw)
+        live = int(pstate["alive"].sum())
+        cont = int(plain["record"][0])
+        pool_ms[slots] = dict(
+            live=live, going_on=cont,
+            ms=restored_ms(restore_pool, lambda work=work, pprim=pprim,
+                           phit=phit, pkw=pkw: rpass.record_shade(
+                               work, pprim, phit, camera=cam, **pkw)),
+            plain_ms=graph_ms(both_plain, 5),
+            bound=k12_bound(scene, slots, live, cont,
+                            int((pstate["alive"] & phit).sum()), "pool",
+                            tile=rpass.RECORD_TILE))
+        del work, plain, pstate
+    torch.cuda.empty_cache()
     log(f"  K11 at {R} camera rays: {ms11:.4f} ms (bound {b11[0]:.5f} ms, "
         f"{b11[1]}); plain {plain11:.4f} ms in a graph; with a mask: " +
         "; ".join(f"{v['live']} live ({k}) {v['ms']:.4f} ms (bound "
                   f"{v['bound_ms']:.5f})" for k, v in live11.items()))
-    for mode in step_ms:
-        log(f"  K12 ({mode}) at the first bounce of {R} rays: "
-            f"{step_ms[mode]:.4f} ms, the rays' restore taken off (bound "
-            f"{step_bound[mode][0]:.5f} ms, {step_bound[mode][1]}); plain "
-            f"{step_plain[mode]:.4f} ms in a graph")
-    log(f"  K12 (pool) at {R} slots after a pass ({live} live, {cont} going "
-        f"on): {ms12p:.4f} ms, the pool's restore taken off (bound "
-        f"{b12p[0]:.5f} ms, {b12p[1]}); plain {plain12p:.4f} ms in a graph")
-    log(f"  K13 at {R} slots ({R - cont} tail slots): {ms13:.4f} ms (bound "
-        f"{b13[0]:.5f} ms, {b13[1]}); plain {plain13:.4f} ms in a graph; on "
-        f"{card}")
+    for (mode, share), ms in step_ms.items():
+        bd = step_bound[(mode, share)]
+        log(f"  K12 ({mode}) at the first bounce of {R} rays, {share} live: "
+            f"{ms:.5f} ms, the restore taken off (bound {bd[0]:.5f} ms, "
+            f"{bd[1]}; before {EARLIER_K12_STEP.get((mode, share), 'not '
+            'measured')}); plain {step_plain[(mode, share)]:.4f} ms in a "
+            "graph")
+    log(f"  K12 (lockstep) summed over the direct step's {len(bounces)} "
+        f"bounces: {sum_ms:.5f} ms (bound {sum_bound:.5f} ms)")
+    for slots, v in pool_ms.items():
+        log(f"  K12's pool launch (K13 folded in) at {slots} slots after a "
+            f"pass ({v['live']} live, {v['going_on']} going on): "
+            f"{v['ms']:.5f} ms, the pool's restore taken off (bound "
+            f"{v['bound'][0]:.5f} ms, {v['bound'][1]}); plain "
+            f"{v['plain_ms']:.4f} ms in a graph; on {card}")
 
     # A graphed recorder bounce, pool pass and length pass: ms and nodes.
     inputs = dict(scene=scene, accel=None, key=key, ray_ids=ids)
@@ -4096,11 +4209,12 @@ def record_pass_path(dev, key, card):
     body_ms = {k: graph_ms(f, 5) for k, f in bodies.items()}
     log("  graphed bodies: " + "; ".join(
         f"{k} {body_ms[k]:.4f} ms, {nodes[k]} nodes (before K11-K13: "
-        f"{NODES_BEFORE_RECORD[k]})"
+        f"{NODES_BEFORE_RECORD[k]}; before K12 advanced the counter and "
+        f"took K13 in: {NODES_BEFORE_FOLD})"
         for k in bodies) + f" (cuGraphGetNodes); on {card}")
-    if max(nodes.values()) > MAX_PASS_NODES:
+    if max(nodes.values()) > RECORD_BODY_NODES:
         raise AssertionError(f"a graphed recorder body has {nodes} nodes, "
-                             f"more than {MAX_PASS_NODES}")
+                             f"more than {RECORD_BODY_NODES}")
 
     # The direct step, the recorders and field5000's step, graphed, twice.
     fs, fc, fcfg = build_preset("sphere-field", device=dev, n=5000)
@@ -4157,6 +4271,21 @@ def record_pass_path(dev, key, card):
     common = {"route": "cuda", "max_abs_err": 0.0, "library_ms": None}
     k12 = dict(common, source=src + "wavefront_pass.cu", nodes=nodes,
                nodes_before=NODES_BEFORE_RECORD, body_ms=body_ms)
+
+    def shares(mode):
+        return {str(share): {
+            "ms": step_ms[(mode, share)],
+            "plain_ms": step_plain[(mode, share)],
+            "bound_ms": step_bound[(mode, share)][0]}
+            for share in K12_SHARES}
+    small, big = pool_ms[RECORD_POOL], pool_ms[R]
+    fused = dict(k12, **{
+        "replaces": rpass.REPLACES_POOL, "ms": small["ms"],
+        "plain_ms": small["plain_ms"], "bound_ms": small["bound"][0],
+        "bound_by": small["bound"][1], "pool_recorder_s": pool_s,
+        "slots_2p17": {"ms": big["ms"], "plain_ms": big["plain_ms"],
+                       "bound_ms": big["bound"][0]}})
+    first = (K12_SHARES[0],)
     return [dict(common, **{
         "name": "K11 dense closest hit (kernels.dense_hit), 2^17 camera "
                 "rays of the final scene",
@@ -4170,35 +4299,36 @@ def record_pass_path(dev, key, card):
         dict(k12, **{
             "name": "K12 recorder pass, lockstep mode "
                     "(diff.record_pass.record_step), the first bounce of "
-                    "2^17 rays of the final scene",
+                    "2^17 rays of the final scene, every ray live",
             "replaces": rpass.REPLACES_STEP, "launches": n_step["K12"],
-            "ms": step_ms["lockstep"], "plain_ms": step_plain["lockstep"],
-            "bound_ms": step_bound["lockstep"][0],
-            "bound_by": step_bound["lockstep"][1], "step_s": step_s,
-            "recorder_s": rec_s, "times_s": times}),
+            "ms": step_ms[("lockstep", *first)],
+            "plain_ms": step_plain[("lockstep", *first)],
+            "bound_ms": step_bound[("lockstep", *first)][0],
+            "bound_by": step_bound[("lockstep", *first)][1],
+            "live_shares": shares("lockstep"),
+            "direct_step_bounces": {"bounces": len(bounces), "ms": sum_ms,
+                                    "bound_ms": sum_bound},
+            "step_s": step_s, "recorder_s": rec_s, "times_s": times}),
         dict(k12, **{
             "name": "K12 recorder pass, length mode (record_step in "
                     "utils.metrics._length_pass), the first bounce of "
-                    "2^17 rays",
+                    "2^17 rays, every ray live",
             "replaces": rpass.REPLACES_LENGTH,
-            "launches": n_len["K12 length"], "ms": step_ms["length"],
-            "plain_ms": step_plain["length"],
-            "bound_ms": step_bound["length"][0],
-            "bound_by": step_bound["length"][1], "occupancy_s": occ_s}),
-        dict(k12, **{
-            "name": "K12 recorder pass, pool mode "
-                    "(diff.record_pass.record_shade), 2^17 slots of the "
-                    "final scene",
-            "replaces": rpass.REPLACES_POOL, "launches": n_pool["K12 pool"],
-            "ms": ms12p, "plain_ms": plain12p, "bound_ms": b12p[0],
-            "bound_by": b12p[1], "pool_recorder_s": pool_s}),
-        dict(common, **{
-            "name": "K13 pool recorder regeneration "
-                    "(diff.record_pass.record_regenerate), 2^17 slots",
-            "source": src + "wavefront_pass.cu",
-            "replaces": rpass.REPLACES_POOL, "launches": n_pool["K13"],
-            "ms": ms13, "plain_ms": plain13, "bound_ms": b13[0],
-            "bound_by": b13[1]})]
+            "launches": n_len["K12 length"],
+            "ms": step_ms[("length", *first)],
+            "plain_ms": step_plain[("length", *first)],
+            "bound_ms": step_bound[("length", *first)][0],
+            "bound_by": step_bound[("length", *first)][1],
+            "live_shares": shares("length"), "occupancy_s": occ_s}),
+        dict(fused, **{
+            "name": "K12 recorder pass, pool mode, with K13's refill "
+                    "(diff.record_pass.record_shade), 2^14 slots of the "
+                    "final scene after a pass",
+            "launches": n_pool["K12 pool"]}),
+        dict(fused, **{
+            "name": "K13 pool recorder regeneration, folded into K12's "
+                    "pool launch: that launch's numbers",
+            "launches": n_pool["K13"]})]
 
 
 def bench_runs(card):

@@ -126,7 +126,7 @@ COUNTERS = (("K1", mk.render_pixels_mega, "launches"),
             ("K12", record_pass.record_step, "launches"),
             ("K12 (length)", record_pass.record_step, "length_launches"),
             ("K12 (pool)", record_pass.record_shade, "launches"),
-            ("K13", record_pass.record_regenerate, "launches"))
+            ("K13", record_pass.record_shade, "refill_launches"))
 # The closest-hit kernel and wrapper of each BENCH_INTERSECT (the dense
 # sweep is K11, ``default_intersect``'s).
 INTERSECT_KERNEL = {"pallas": "K4", "clustered": "K5", "bvh": "K6",

@@ -81,7 +81,7 @@ def _map(fn, obj):
 def launch_counters():
     """(wrapper, attribute) of the launch counters a graphed body can move:
     K4's, K5's, K6's, K7's, K8's, K9's, K10's, K11's, K12's (each mode)
-    and K13's."""
+    and K13's (its refills, folded into K12's pool launch)."""
     from ..accel import traverse
     from ..core import rng
     from ..kernels import dense_hit, intersect_clustered, intersect_pallas
@@ -98,7 +98,7 @@ def launch_counters():
             (record_pass.record_step, "launches"),
             (record_pass.record_step, "length_launches"),
             (record_pass.record_shade, "launches"),
-            (record_pass.record_regenerate, "launches"))
+            (record_pass.record_shade, "refill_launches"))
 
 
 def launches_now():

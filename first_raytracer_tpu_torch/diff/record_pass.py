@@ -1,5 +1,5 @@
-"""The recorders' pass past the closest hit (K12) and the pool recorder's
-regeneration (K13), and their plain versions.
+"""The recorders' pass past the closest hit (K12, with the pool recorder's
+regeneration, K13, folded into its pool mode), and their plain versions.
 
 A bounce of the lockstep recorder (``diff/replay.py::record_bounce``), a
 bounce of the occupancy scan (``utils/metrics.py::_length_pass``) and a
@@ -12,29 +12,28 @@ K4, K5 or K6) and then these seams:
   scatter; the tape's row ``min(d, max_depth + 1)`` written whole (the id
   where the ray was alive and hit, else -1) when the state has a ``tape``,
   each ray's ``length`` counting the bounces it entered alive when it has
-  one; the rays and ``alive`` updated in place.  ``d`` is not advanced:
-  the torch op after it does that, so that no block reads a counter
-  another block has moved.
+  one; the rays and ``alive`` updated in place; and ``d`` advanced by one.
+  K12 advances it itself (its last block to arrive on the state's
+  ``arrivals`` word adds one), so a bounce is two graph nodes.
 - ``record_shade`` (pool mode): the same shading per slot at the slot's own
-  depth, the hit's entry ``depth * R + col`` of the flat tape, and the
+  depth, the hit's entry ``depth * R + col`` of the flat tape, the
   survivors' next states compacted, in order, into the front of the pool
-  in place (the slots past them keep what they held), and the pass record
-  (``record``: the survivors in all and the cursor as the pass found it).
-- ``record_regenerate``: the slots past the pass record's survivors
-  refilled with the camera rays of the stream's next ids, and the cursor
-  advanced.
+  in place and the pass record (``record``: the survivors in all and the
+  cursor as the pass found it); then the slots past the survivors refilled
+  with the camera rays of the stream's next ids, and the cursor advanced.
 
-On a CUDA device ``record_step`` and ``record_shade`` launch K12's modes
-and ``record_regenerate`` K13 (``kernels/csrc/wavefront_pass.cu``, beside
-K9 and K10, whose shading, draw and scan they share): bit-equal to the
-plain versions as torch runs them on the card.  On the CPU they run
-``record_step_plain``, ``record_shade_plain`` and
-``record_regenerate_plain``, torch ops that draw through the plain
-Threefry and camera rays; the last two compose to the pool recorder's body
-as it was (a stable partition of the survivors, then the tail).  A tensor
-on any other device is refused; a failed build or launch raises, and
-nothing falls back.  The wrappers make no host read and allocate nothing
-but a cast of ``prim``, so ``render/graphed.py::run_loop`` captures them.
+On a CUDA device ``record_step`` launches K12 in lockstep or length mode
+and ``record_shade`` K12 in pool mode, one launch that also refills the
+tail (``kernels/csrc/wavefront_pass.cu``, beside K9 and K10, whose shading,
+draw and look-back they share): bit-equal to the plain versions as torch
+runs them on the card.  On the CPU they run ``record_step_plain``, and
+``record_shade_plain`` then ``record_regenerate_plain``: torch ops that
+draw through the plain Threefry and camera rays, which compose to the pool
+recorder's body as it was (a stable partition of the survivors, then the
+tail).  A tensor on any other device is refused; a failed build or launch
+raises, and nothing falls back.  The wrappers make no host read and
+allocate nothing but a cast of ``prim``, so ``render/graphed.py::
+run_loop`` captures them.
 
 One difference the tape never shows: the plain pool scatters the lanes
 that write nothing to the flat tape's last entry, which the recorder
@@ -46,12 +45,11 @@ import torch
 
 from ..core import rng
 from ..render.camera import _FIELDS, camera_rays_plain
-from ..render.wavefront_pass import (BLOCK, _check, _hits, _scene_args,
-                                     shade_slots)
+from ..render.wavefront_pass import _check, _hits, _scene_args, shade_slots
 
 __all__ = ["record_step", "record_step_plain", "record_shade",
-           "record_shade_plain", "record_regenerate",
-           "record_regenerate_plain", "RECORD_ROWS", "REPLACES_STEP",
+           "record_shade_plain", "record_regenerate_plain", "record_scratch",
+           "RECORD_ROWS", "RECORD_TILE", "STEP_WINDOW", "REPLACES_STEP",
            "REPLACES_LENGTH", "REPLACES_POOL"]
 
 REPLACES_STEP = "first_raytracer_tpu/diff/replay.py:92"
@@ -59,13 +57,31 @@ REPLACES_LENGTH = "first_raytracer_tpu/utils/metrics.py:29"
 REPLACES_POOL = "first_raytracer_tpu/diff/replay.py:155"
 # The pool recorder's state that a pass moves: the compaction's rows.
 RECORD_ROWS = ("o", "d", "ids", "col", "depth", "alive")
+# Rays a block of K12's lockstep and length modes takes (kStepWindow in the
+# source): the window whose live rays it packs.
+STEP_WINDOW = 256
+# Slots a tile of K12's pool-mode scan (kRecordTile in the source), one
+# status word each.
+RECORD_TILE = 256
+
+
+def record_scratch(pool_size, device):
+    """The pool recorder's pass record (``record``, (2,) int64: the
+    survivors of the last pass and the cursor as it found it) and K12's
+    scan words (``scan``, int64: a ticket, then a status word a tile of
+    ``RECORD_TILE`` slots; zero here, then left to K12, which tags each
+    word with its pass, so nothing clears them)."""
+    tiles = -(-pool_size // RECORD_TILE)
+    return dict(record=torch.zeros((2,), dtype=torch.int64, device=device),
+                scan=torch.zeros((1 + tiles,), dtype=torch.int64,
+                                 device=device))
 
 
 def record_step_plain(state, prim, hit, *, scene, key, ray_ids, cfg):
     """K12's plain version in lockstep and length modes, in place, torch
     ops on any device: ``record_bounce``'s body past its closest hit (the
     JAX package's ``diff/replay.py:92-110`` and, with ``length``,
-    ``utils/metrics.py:29``'s ``bounce``), ``d`` left as it was."""
+    ``utils/metrics.py:29``'s ``bounce``), then ``d`` advanced."""
     d = state["d"]
     o, dr = state["o"], state["dr"]
     if "length" in state:
@@ -81,6 +97,7 @@ def record_step_plain(state, prim, hit, *, scene, key, ray_ids, cfg):
     state["alive"].copy_(alive)
     o.copy_(torch.where(alive[:, None], p, o))
     dr.copy_(torch.where(alive[:, None], new_dir, dr))
+    d.add_(1)
 
 
 def record_shade_plain(state, prim, hit, *, scene, key, ray_ids, cfg):
@@ -139,15 +156,16 @@ def record_regenerate_plain(state, *, camera, key, ray_ids, cfg, **_):
 
 
 def _launch_step(state, prim, hit, *, scene, key, ray_ids, cfg):
-    """K12 in lockstep or length mode over the state's rays, in place
-    (``record_step``)."""
+    """K12 in lockstep or length mode over the state's rays, in place, the
+    counter advanced (``record_step``); one block for no rays."""
     from ..kernels import megakernel
 
     f32, i64 = torch.float32, torch.int64
     dev = state["alive"].device
     R = state["alive"].shape[0]
     names = [("o", f32, (R, 3)), ("dr", f32, (R, 3)),
-             ("alive", torch.bool, (R,)), ("d", i64, ())]
+             ("alive", torch.bool, (R,)), ("d", i64, ()),
+             ("arrivals", i64, ())]
     if "tape" in state:
         names.append(("tape", torch.int32, (cfg.max_depth + 2, R)))
     if "length" in state:
@@ -162,23 +180,22 @@ def _launch_step(state, prim, hit, *, scene, key, ray_ids, cfg):
         dev, "frt_record_step", k.data_ptr(), *_scene_args(scene, dev),
         state["o"].data_ptr(), state["dr"].data_ptr(),
         state["alive"].data_ptr(), ray_ids.data_ptr(), state["d"].data_ptr(),
-        prim.data_ptr(), hit.data_ptr(),
+        state["arrivals"].data_ptr(), prim.data_ptr(), hit.data_ptr(),
         None if tape is None else tape.data_ptr(),
         None if length is None else length.data_ptr(), int(cfg.max_depth),
         float(cfg.t_min), R)
-    if R:
-        if tape is not None:
-            record_step.launches += 1
-        else:
-            record_step.length_launches += 1
+    if tape is not None:
+        record_step.launches += 1
+    else:
+        record_step.length_launches += 1
 
 
 def record_step(state, prim, hit, *, scene, key, ray_ids, cfg):
     """The lockstep recorder's bounce past its closest hit ``(prim, hit)``,
     in place, on ``record_state``'s state (with a ``tape``, or a ``length``
-    for the occupancy scan).  Launches K12 for a CUDA state (float32 rays,
-    the scene on its device) and runs ``record_step_plain`` for a CPU one;
-    bit-equal either way."""
+    for the occupancy scan), the bounce counter ``d`` advanced.  Launches
+    K12 for a CUDA state (float32 rays, the scene on its device) and runs
+    ``record_step_plain`` for a CPU one; bit-equal either way."""
     dev = state["alive"].device
     if dev.type == "cpu":
         return record_step_plain(state, prim, hit, scene=scene, key=key,
@@ -193,9 +210,9 @@ record_step.launches = 0  # K12 launches in lockstep mode (CUDA path only)
 record_step.length_launches = 0  # ... in length mode
 
 
-def _launch_shade(state, prim, hit, *, scene, key, ray_ids, cfg):
-    """K12 in pool mode over the pool's slots, in place (``record_shade``).
-    """
+def _launch_shade(state, prim, hit, *, scene, camera, key, ray_ids, cfg):
+    """K12 in pool mode over the pool's slots, K13's refill of the tail in
+    the same launch, in place (``record_shade``)."""
     from ..kernels import megakernel
 
     f32, i64 = torch.float32, torch.int64
@@ -203,95 +220,63 @@ def _launch_shade(state, prim, hit, *, scene, key, ray_ids, cfg):
     C, R = state["alive"].shape[0], ray_ids.shape[0]
     if C >= 2 ** 31:
         raise ValueError(f"a pool of {C} slots: K12's scan counts in 32 bits")
+    if R < 1:
+        raise ValueError("K12's refill needs a stream of at least one ray id")
     for name, dtype, shape in (
             ("o", f32, (C, 3)), ("d", f32, (C, 3)), ("ids", i64, (C,)),
             ("col", i64, (C,)), ("depth", i64, (C,)),
             ("alive", torch.bool, (C,)),
             ("tape", torch.int32, ((cfg.max_depth + 1) * R + 1,)),
             ("cursor", i64, ()), ("record", i64, (2,)),
-            ("scan", i64, (1 + -(-C // BLOCK),))):
-        _check(f"state[{name!r}]", state[name], dtype, shape, dev)
-    prim, hit = _hits(prim, hit, C, dev)
-    k = rng.device_key(key, dev)
-    megakernel.launch_entry(
-        dev, "frt_record_pool", k.data_ptr(), *_scene_args(scene, dev),
-        *(state[n].data_ptr() for n in RECORD_ROWS), prim.data_ptr(),
-        hit.data_ptr(), state["tape"].data_ptr(), R, int(cfg.max_depth),
-        float(cfg.t_min), state["cursor"].data_ptr(),
-        state["record"].data_ptr(), state["scan"].data_ptr(), C)
-    if C:
-        record_shade.launches += 1
-
-
-def record_shade(state, prim, hit, *, scene, key, ray_ids, cfg):
-    """The pool recorder's pass past its closest hit ``(prim, hit)``, in
-    place, on ``record_pool_state``'s state: the tape's entries, the
-    survivors compacted and the pass record.  Launches K12 for a CUDA pool
-    and runs ``record_shade_plain`` for a CPU one; bit-equal either way
-    (but for the flat tape's last entry, which nothing reads)."""
-    dev = state["alive"].device
-    if dev.type == "cpu":
-        return record_shade_plain(state, prim, hit, scene=scene, key=key,
-                                  ray_ids=ray_ids, cfg=cfg)
-    if dev.type != "cuda":
-        raise ValueError(f"no recorder kernel for device {dev}")
-    return _launch_shade(state, prim, hit, scene=scene, key=key,
-                         ray_ids=ray_ids, cfg=cfg)
-
-
-record_shade.launches = 0  # K12 launches in pool mode (CUDA path only)
-
-
-def _launch_regenerate(state, *, camera, key, ray_ids, cfg):
-    """K13 over the pool's tail, from K12's pass record, in place
-    (``record_regenerate``)."""
-    from ..kernels import megakernel
-
-    f32, i64 = torch.float32, torch.int64
-    dev = state["alive"].device
-    C, R = state["alive"].shape[0], ray_ids.shape[0]
-    if R < 1:
-        raise ValueError("K13 needs a stream of at least one ray id")
-    for name, dtype, shape in (
-            ("o", f32, (C, 3)), ("d", f32, (C, 3)), ("ids", i64, (C,)),
-            ("col", i64, (C,)), ("depth", i64, (C,)),
-            ("alive", torch.bool, (C,)), ("record", i64, (2,)),
-            ("cursor", i64, ())):
+            ("scan", i64, (1 + -(-C // RECORD_TILE),))):
         _check(f"state[{name!r}]", state[name], dtype, shape, dev)
     _check("ray_ids", ray_ids, i64, (R,), dev)
     fields = [getattr(camera, f) for f in _FIELDS]
     for name, t in zip(_FIELDS, fields):
         if t.requires_grad:
-            raise ValueError(f"camera.{name} requires grad: K13 has no "
+            raise ValueError(f"camera.{name} requires grad: K12 has no "
                              "gradient")
         _check(f"camera.{name}", t, f32,
                () if name == "lens_radius" else (3,), dev)
     if min(cfg.nx, cfg.ny, cfg.spp) < 1:
         raise ValueError(f"bad image size {cfg.nx}x{cfg.ny}@{cfg.spp}")
+    prim, hit = _hits(prim, hit, C, dev)
     k = rng.device_key(key, dev)
     megakernel.launch_entry(
-        dev, "frt_record_regenerate", k.data_ptr(),
+        dev, "frt_record_pool", k.data_ptr(), *_scene_args(scene, dev),
+        *(state[n].data_ptr() for n in RECORD_ROWS), prim.data_ptr(),
+        hit.data_ptr(), state["tape"].data_ptr(), ray_ids.data_ptr(), R,
+        int(cfg.max_depth), float(cfg.t_min), state["cursor"].data_ptr(),
+        state["record"].data_ptr(), state["scan"].data_ptr(),
         *(t.data_ptr() for t in fields), int(cfg.nx), int(cfg.ny),
-        int(cfg.spp), *(state[n].data_ptr() for n in RECORD_ROWS),
-        state["record"].data_ptr(), ray_ids.data_ptr(),
-        state["cursor"].data_ptr(), R, C)
+        int(cfg.spp), C)
     if C:
-        record_regenerate.launches += 1
+        record_shade.launches += 1
+        record_shade.refill_launches += 1
 
 
-def record_regenerate(state, *, camera, key, ray_ids, cfg, **_):
-    """The pool recorder's regeneration, in place, from the pass record
-    ``record_shade`` wrote: launches K13 for a CUDA pool (a float32 camera
-    on its device) and runs ``record_regenerate_plain`` for a CPU one;
-    bit-equal either way."""
+def record_shade(state, prim, hit, *, scene, camera, key, ray_ids, cfg):
+    """The pool recorder's pass past its closest hit ``(prim, hit)``, in
+    place, on ``record_pool_state``'s state: the tape's entries, the
+    survivors compacted, the pass record, the tail refilled from the
+    stream and the cursor advanced.  Launches K12 in pool mode (K13 folded
+    in) for a CUDA pool (a float32 camera on its device) and runs
+    ``record_shade_plain`` then ``record_regenerate_plain`` for a CPU one;
+    bit-equal either way (but for the flat tape's last entry, which nothing
+    reads)."""
     dev = state["alive"].device
     if dev.type == "cpu":
+        record_shade_plain(state, prim, hit, scene=scene, key=key,
+                           ray_ids=ray_ids, cfg=cfg)
         return record_regenerate_plain(state, camera=camera, key=key,
                                        ray_ids=ray_ids, cfg=cfg)
     if dev.type != "cuda":
-        raise ValueError(f"no regeneration kernel for device {dev}")
-    return _launch_regenerate(state, camera=camera, key=key,
-                              ray_ids=ray_ids, cfg=cfg)
+        raise ValueError(f"no recorder kernel for device {dev}")
+    return _launch_shade(state, prim, hit, scene=scene, camera=camera,
+                         key=key, ray_ids=ray_ids, cfg=cfg)
 
 
-record_regenerate.launches = 0  # K13 launches (CUDA path only)
+# K12 launches in pool mode (CUDA path only), and K13's, folded into them:
+# the launches that refilled the tail.
+record_shade.launches = 0
+record_shade.refill_launches = 0

@@ -10,7 +10,7 @@ equation, not the traversal), so the pass splits in two:
    recorder, ``record_paths_pool`` a compacted regenerating pool with the
    same tape, both with the integrator's pluggable closest hit
    (``intersect_fn`` on ``accel``) and, past it, ``diff/record_pass.py``
-   (K12 and K13 on the card); ``kernels/record_mega.py`` records it on the
+   (K12, with K13 folded in, on the card); ``kernels/record_mega.py`` records it on the
    GPU in one kernel.  Both recorders are the JAX package's
    ``while_loop``s: a state of fixed shape (``record_state``,
    ``record_pool_state``) advanced in place by a body that reads nothing
@@ -48,9 +48,8 @@ from ..materials.scatter import scatter_from_params
 from ..render.camera import camera_rays
 from ..render.integrator import (UP, RenderConfig, closest_hit,
                                  default_intersect, sky_color)
-from ..render.wavefront_pass import pool_scratch
 from ..scene.textures import texture_from_params
-from .record_pass import record_regenerate, record_shade, record_step
+from .record_pass import record_scratch, record_shade, record_step
 
 __all__ = ["record_paths", "record_camera_paths", "record_paths_pool",
            "record_state", "camera_record_state", "record_bounce",
@@ -61,13 +60,16 @@ __all__ = ["record_paths", "record_camera_paths", "record_paths_pool",
 def record_state(origin, direction, *, cfg, tape=True, **_):
     """The lockstep recorder's state before its first bounce: the rays
     ``o`` and ``dr`` (copies), ``alive``, the bounce counter ``d`` (a 0-d
-    int64 tensor on the rays' device) and, with ``tape``, the int32 tape
-    of -1s with one scratch row past the ``max_depth + 1`` it returns,
-    which the inert passes past the last bounce write."""
+    int64 tensor on the rays' device), K12's arrival word ``arrivals`` (0-d
+    int64, zero between bounces: the blocks of a launch arrive on it and
+    the last one advances ``d``) and, with ``tape``, the int32 tape of -1s
+    with one scratch row past the ``max_depth + 1`` it returns, which the
+    inert passes past the last bounce write."""
     R, dev = origin.shape[0], origin.device
     state = dict(o=origin.clone(), dr=direction.clone(),
                  alive=torch.ones((R,), dtype=torch.bool, device=dev),
-                 d=torch.zeros((), dtype=torch.int64, device=dev))
+                 d=torch.zeros((), dtype=torch.int64, device=dev),
+                 arrivals=torch.zeros((), dtype=torch.int64, device=dev))
     if tape:
         state["tape"] = torch.full((cfg.max_depth + 2, R), -1,
                                    dtype=torch.int32, device=dev)
@@ -88,14 +90,13 @@ def record_bounce(state, *, scene, accel, key, ray_ids, cfg, intersect_fn,
     package's ``while_loop`` (``diff/replay.py:71-115`` there), with its
     test ``(d <= max_depth) & any(alive)`` folded into ``alive``.  The
     closest hit, then ``diff.record_pass.record_step`` (K12 on a CUDA
-    device, ``record_step_plain`` on the CPU), then the counter's add.  No
-    host read and no tensor from host data; a pass after the last bounce
-    changes nothing but the scratch row."""
+    device, ``record_step_plain`` on the CPU), which also advances the
+    counter.  No host read and no tensor from host data; a pass after the
+    last bounce changes nothing but the scratch row and the counter."""
     prim, _, hit = closest_hit(intersect_fn, scene, accel, state["o"],
                                state["dr"], cfg.t_min, state["alive"])
     record_step(state, prim, hit, scene=scene, key=key, ray_ids=ray_ids,
                 cfg=cfg)
-    state["d"].add_(1)
 
 
 def _lockstep(init, inputs, cfg, intersect_fn, graphed):
@@ -152,7 +153,7 @@ def record_pool_state(camera, key, ray_ids, *, cfg, pool_size, **_):
     stream's ``cursor`` (0-d int64), the flat tape of -1s, (D * R + 1,)
     with D = max_depth + 1 (its last entry takes the plain pass's lanes
     that write nothing), and the pass record and K12's scan words
-    (``render.wavefront_pass.pool_scratch``)."""
+    (``diff.record_pass.record_scratch``)."""
     C, R, dev = pool_size, ray_ids.shape[0], ray_ids.device
     slot = torch.arange(C, dtype=torch.int64, device=dev)
     col = slot.clamp(max=max(R - 1, 0))
@@ -164,7 +165,7 @@ def record_pool_state(camera, key, ray_ids, *, cfg, pool_size, **_):
                 cursor=torch.full((), n0, dtype=torch.int64, device=dev),
                 tape=torch.full(((cfg.max_depth + 1) * R + 1,), -1,
                                 dtype=torch.int32, device=dev),
-                **pool_scratch(C, dev))
+                **record_scratch(C, dev))
 
 
 @torch.no_grad()
@@ -172,17 +173,15 @@ def record_pool_pass(state, *, scene, camera, accel, key, ray_ids, cfg,
                      intersect_fn, **_):
     """One pass of the pool recorder, in place (the JAX package's loop
     body, ``diff/replay.py:167-206`` there): no host read, every shape
-    fixed.  The closest hit, then ``diff.record_pass.record_shade`` (the
-    hits to the flat tape, the survivors moved in order to the front: K12
-    on a CUDA device) and ``record_regenerate`` (every slot past them takes
-    the stream's next ray: K13).  Once every slot is dead and the stream
-    is spent it changes nothing the tape returns."""
+    fixed.  The closest hit, then ``diff.record_pass.record_shade``: the
+    hits to the flat tape, the survivors moved in order to the front, and
+    every slot past them given the stream's next ray (one launch of K12,
+    K13 folded in, on a CUDA device).  Once every slot is dead and the
+    stream is spent it changes nothing the tape returns."""
     prim, _, hit = closest_hit(intersect_fn, scene, accel, state["o"],
                                state["d"], cfg.t_min, state["alive"])
-    record_shade(state, prim, hit, scene=scene, key=key, ray_ids=ray_ids,
-                 cfg=cfg)
-    record_regenerate(state, camera=camera, key=key, ray_ids=ray_ids,
-                      cfg=cfg)
+    record_shade(state, prim, hit, scene=scene, camera=camera, key=key,
+                 ray_ids=ray_ids, cfg=cfg)
 
 
 @torch.no_grad()

@@ -85,23 +85,50 @@
 // device forms of diff/record_pass.py's plain seams, which replace the
 // recorders' loop bodies that XLA fused (first_raytracer_tpu/diff/
 // replay.py:92-110 lockstep, :155-206 pool, utils/metrics.py:29 the
-// occupancy scan).  K12 (`record_step_kernel`, `record_pool_kernel`) shades
-// a live ray with K9's shade_slot at bounce d (+1 for the draw's domain):
-//   - lockstep mode writes tape row min(d, max_depth + 1) whole (the
-//     winner where the ray was alive within the depth cap and the recompute
-//     hit, else -1) and moves a continuing ray's o and dr in place; the
-//     bounce counter d is a 0-d tensor it only reads (the torch add after
-//     it moves it, so no block reads a moved counter);
-//   - length mode writes no tape and adds one to a live ray's length;
-//   - pool mode writes a hit's flat tape entry depth * R + col (live slots
-//     hold distinct columns) and compacts the survivors' o, d, id, column
-//     and depth + 1 in place through K9's scan (take_ticket, compact_slot:
-//     its own pool's status words and pass record).
-// K13 (`record_regenerate_kernel`) is K10 for the recorder's pool: the tail
-// [n_alive, C) from the pass record, each slot's id gathered from the
-// stream (ray_ids[clamp(cursor + g)]), its camera ray, column, depth 0 and
-// liveness, and the cursor written by thread 0.  Both are bound by bytes,
-// as K9 and K10 are (utils/roofline.py).
+// occupancy scan).  K12 shades a live ray with K9's shade_slot at bounce d
+// (+1 for the draw's domain).
+//   - Lockstep and length modes (`record_step_kernel`) run every ray of the
+//     recorder's state at every bounce, most of them dead past the first two
+//     (3% live or less over the last ~40 of a direct step's bounces).  So a
+//     block takes a window of kStepWindow rays, reads its liveness four bytes
+//     a thread, packs the live rays' places in order into shared memory
+//     (ballots for a lane's rank in its warp, each warp's rays in a segment of
+//     its own, so the block meets at one barrier) and shades only them,
+//     kStepRays a thread, in full warps: a dead ray's state and closest hit
+//     are never read, and a warp with no live entry shades nothing.  Lockstep
+//     mode writes tape row min(d, max_depth + 1) whole (the winner where the
+//     ray was alive within the depth cap and the recompute hit, else -1): a
+//     dead ray's entry from the thread that read its liveness, four in one
+//     store where it can, a live ray's from the thread that shades it; length
+//     mode adds one to a live ray's length; a continuing ray's o and dr move
+//     in place.  The bounce counter d (0-d) is advanced by the launch itself:
+//     every block reads it, then arrives on an arrival word, and the last to
+//     arrive adds one and clears the word, so no graph needs a node for the
+//     add or a memset, and no block reads a moved counter.
+//   - Pool mode (`record_pool_kernel`) writes a hit's flat tape entry depth
+//     * R + col (live slots hold distinct columns), compacts the survivors'
+//     o, d, id, column and depth + 1 in place through K9's scan
+//     (look_back; its own status words, a tile of kRecordTile slots each),
+//     and then, with K13 folded into the same launch, refills the tail
+//     [n_alive, C): each slot's id gathered from the stream
+//     (ray_ids[clamp(cursor + g)]), its camera ray (camera_rays.cuh), its
+//     column, depth 0 and liveness; the cursor advances.  The grid is
+//     persistent (at most the blocks the card holds at once) and a block
+//     takes tiles by ticket in a loop (take_tile), so a look-back waits only
+//     on tiles whose blocks are running; a pass takes one ticket a tile and
+//     one a block that finds the tiles gone, and the epoch of its status
+//     words is its ticket over that.  The last tile writes the pass record
+//     (n_alive, the cursor as the pass found it) before it publishes its
+//     inclusive prefix, which is n_alive, with release; every block waits
+//     for that word of this pass's epoch, then reads the record and
+//     refills its share of the tail.  The in-place writes stay safe: a
+//     survivor goes to a slot below n_alive, as in K9 (below), so a tail
+//     slot is never a compaction destination; and a tile publishes only
+//     after it has read all of its slots, so once the last tile's inclusive
+//     prefix is out (it follows every tile's aggregate: the look-backs'
+//     acquire reads chain back to each), every slot has been read, and the
+//     tail's writes overwrite nothing still to be read.
+// All three are bound by bytes, as K9 and K10 are (utils/roofline.py).
 //
 // Bit-equality.  Each operation rounds as torch rounds it on the device the
 // kernel runs on (probes/torch_arith.py): torch.sum over a row of three
@@ -771,59 +798,226 @@ __global__ void __launch_bounds__(kThreads)
 
 // K12, lockstep and length modes (record_step_kernel): the recorders' state
 // (diff/replay.py::record_state): the rays o, dr (n, 3) and alive (n,) bool,
-// updated in place, the ray ids (n,) int64 and the bounce counter d (0-d
-// int64, read only: the torch op after the launch adds to it); the tape
-// (max_depth + 2, n) int32 whose row min(d, max_depth + 1) the launch
-// writes whole, or null; the lengths (n,) int64, or null.
+// updated in place, the ray ids (n,) int64, the bounce counter d (0-d int64)
+// and the launch's arrival word (0-d, zero between launches); the tape
+// (max_depth + 2, n) int32 whose row min(d, max_depth + 1) the launch writes
+// whole, or null; the lengths (n,) int64, or null.
 struct StepArgs {
   float* o;
   float* dr;
   uint8_t* alive;
   const int64_t* ray_ids;
-  const int64_t* d;  // 0-d
+  int64_t* d;      // 0-d, advanced by the launch's last block
+  Word* arrivals;  // 0-d
   int* tape;
   int64_t* length;
 };
 
-__global__ void __launch_bounds__(kThreads)
-    record_step_kernel(SceneArgs sc, PassArgs a, StepArgs q) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= a.n) return;
-  // The ray's state and closest hit, in one step.
-  const bool was = q.alive[i] != 0;
-  const int64_t d = __ldg(q.d);
-  const V3 o = state3(q.o, i), dr = state3(q.dr, i);
-  const int64_t id = __ldg(q.ray_ids + i);
-  const int prim = __ldg(a.prim + i);
-  const bool hit_in = __ldg(a.hit + i) != 0;
-  if (q.length && was) q.length[i] += 1;  // entered this bounce alive
-  int entry = -1;
-  if (was && d <= a.max_depth) {
-    const Shaded s = shade_slot(
-        sc, o, dr, prim, hit_in, static_cast<uint32_t>(__ldg(a.key)),
-        static_cast<uint32_t>(__ldg(a.key + 1)), static_cast<uint32_t>(id),
-        static_cast<uint32_t>(d + 1), a.t_min);
-    if (s.hit) entry = prim;
-    const bool cont = s.hit && s.ok && d < a.max_depth;
-    if (cont) {
-      store3(q.o, i, s.p);
-      store3(q.dr, i, s.dir);
+// A block's window: kStepWindow consecutive rays, their liveness read four
+// bytes a thread by the first kStepWords threads, the live ones packed in
+// order and shaded by kStepThreads threads, at most kStepRays each
+// (probes/k12_grid.py: one a thread in windows of 256 was the fastest all
+// live, and no window or rays a thread moved the sum over the direct
+// step's bounces past the spread between calls).
+constexpr int kStepWindow = 256;
+constexpr int kStepRays = 1;
+constexpr int kStepThreads = kStepWindow / kStepRays;
+constexpr int kStepWords = kStepWindow / 4;
+constexpr int kWordWarps = (kStepWords + 31) / 32;
+constexpr int kWarpRays = 4 * 32;  // the rays of a warp's words
+static_assert(kStepWords <= kStepThreads, "a thread reads at most a word");
+static_assert(kStepRays == 1 || kStepRays == 2, "one or two rays a thread");
+
+// A block's shared memory in lockstep and length modes (dynamic, so that
+// the host emulation gives each block its own).
+struct StepShared {
+  int64_t d;                  // the bounce counter as the launch found it
+  int warp_live[kWordWarps];  // the live rays of each warp's words
+  int list[kStepWindow];      // warp w's live rays' places, in order, from
+                              // w kWarpRays on
+};
+
+__device__ __forceinline__ int64_t read_counter(const int64_t* p) {
+  return *reinterpret_cast<const volatile int64_t*>(p);
+}
+
+// A block's arrival on the launch's arrival word, with acquire and release
+// semantics at the scope of the device (so the block's read of the counter
+// before it is ordered before every later arrival, and the last block's
+// write of the counter after every earlier one); returns the blocks that
+// arrived before it.
+__device__ __forceinline__ Word arrive(Word* p) {
+#if defined(__CUDA_ARCH__)
+  Word old;
+  asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], 1;"
+               : "=l"(old)
+               : "l"(p)
+               : "memory");
+  return old;
+#else
+  return atomicAdd(p, 1ull);
+#endif
+}
+
+// The place in the window of the live ray at entry e of the packed list:
+// the warps' segments in order.
+__device__ __forceinline__ int packed(const StepShared& sh, int e) {
+  int w = 0;
+  for (; w < kWordWarps - 1 && e >= sh.warp_live[w]; ++w)
+    e -= sh.warp_live[w];
+  return sh.list[w * kWarpRays + e];
+}
+
+// Chains 0 .. K - 1 of this thread: the live rays at list entries
+// threadIdx.x + k kStepThreads, each clamped to the last live entry (so
+// that every chain runs and the compiler may interleave them) and written
+// only when it is live.  Below the depth cap a ray is shaded at bounce d
+// (+1 for the draw's domain) from its state and closest hit, read here and
+// nowhere else; at or past it, it only ends.  A ray's length counts the
+// bounce, its tape entry (in the row the launch writes) is the winner
+// where the recompute hit, and it goes on with its next o, dr if it hit,
+// scattered and is within the cap.
+template <int K>
+__device__ __forceinline__ void shade_rays(const SceneArgs& sc,
+                                           const PassArgs& a,
+                                           const StepArgs& q,
+                                           const StepShared& sh,
+                                           int64_t base, int live,
+                                           int64_t d, int* row) {
+  int e[K];
+  int64_t i[K];
+  V3 o[K], dr[K];
+  int64_t id[K];
+  int prim[K];
+  bool hit_in[K];
+  const bool shade = d <= a.max_depth;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    e[k] = threadIdx.x + k * kStepThreads;
+    i[k] = base + packed(sh, e[k] < live ? e[k] : live - 1);
+    if (shade) {
+      o[k] = state3(q.o, i[k]);
+      dr[k] = state3(q.dr, i[k]);
+      id[k] = __ldg(q.ray_ids + i[k]);
+      prim[k] = __ldg(a.prim + i[k]);
+      hit_in[k] = __ldg(a.hit + i[k]) != 0;
     }
-    q.alive[i] = cont;
-  } else if (was) {
-    q.alive[i] = 0;  // past the depth cap
   }
-  if (q.tape) {
-    const int64_t row = d < a.max_depth + 1 ? d : a.max_depth + 1;
-    q.tape[row * a.n + i] = entry;
+  const uint32_t k0 = static_cast<uint32_t>(__ldg(a.key));
+  const uint32_t k1 = static_cast<uint32_t>(__ldg(a.key + 1));
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    int entry = -1;
+    bool cont = false;
+    Shaded s{};
+    if (shade) {
+      s = shade_slot(sc, o[k], dr[k], prim[k], hit_in[k], k0, k1,
+                     static_cast<uint32_t>(id[k]),
+                     static_cast<uint32_t>(d + 1), a.t_min);
+      if (s.hit) entry = prim[k];
+      cont = s.hit && s.ok && d < a.max_depth;
+    }
+    if (e[k] >= live) continue;
+    if (q.length) q.length[i[k]] += 1;  // entered this bounce alive
+    if (cont) {
+      store3(q.o, i[k], s.p);
+      store3(q.dr, i[k], s.dir);
+    }
+    q.alive[i[k]] = cont;
+    if (row) row[i[k]] = entry;
   }
 }
 
-// K12, pool mode (record_pool_kernel): the pool recorder's state
-// (diff/replay.py::record_pool_state): o, d (C, 3), ids, col, depth (C,)
-// int64 and alive (C,) bool, compacted in place; the flat tape (D * R + 1,)
-// int32 of the stream's R rays, D = max_depth + 1; the cursor (read), the
-// pass record (written) and the scan's ticket and status words.
+__global__ void __launch_bounds__(kStepThreads)
+    record_step_kernel(SceneArgs sc, PassArgs a, StepArgs q) {
+  extern __shared__ Word step_shared[];
+  StepShared& sh = *reinterpret_cast<StepShared*>(step_shared);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kStepWindow;
+
+  // The window's liveness, four rays a word, and (thread 0) the counter,
+  // both in flight at once.
+  unsigned m = 0;
+  const int64_t i4 = base + 4 * t;  // the first ray of this thread's word
+  const bool whole = i4 + 4 <= a.n;
+  if (t < kStepWords) {
+    if (whole && (reinterpret_cast<uintptr_t>(q.alive + i4) & 3) == 0) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(q.alive + i4);
+      for (int j = 0; j < 4; ++j) m |= ((w >> (8 * j)) & 0xffu ? 1u : 0u) << j;
+    } else {
+      for (int j = 0; j < 4; ++j)
+        if (i4 + j < a.n && q.alive[i4 + j] != 0) m |= 1u << j;
+    }
+  }
+  int64_t d = 0;
+  if (t == 0) d = read_counter(q.d);
+
+  // The live rays packed in order, each warp's into its own segment: the
+  // ballots of a word's four bytes give a lane its rank in its warp.  One
+  // barrier; the warps' counts then give an entry's segment (packed).
+  const unsigned below = (1u << lane) - 1u;
+  int rank = 0, count = 0;
+  for (int j = 0; j < 4; ++j) {
+    const unsigned b = __ballot_sync(kFullMask, (m >> j) & 1u);
+    rank += __popc(b & below);
+    count += __popc(b);
+  }
+  if (t < kStepWords) {
+    for (int j = 0; j < 4; ++j)
+      if ((m >> j) & 1u) sh.list[warp * kWarpRays + rank++] = 4 * t + j;
+    if (lane == 0) sh.warp_live[warp] = count;
+  }
+  // The block arrives once it has read the counter; the last block to
+  // arrive advances it and clears the arrival word for the next launch, at
+  // the end, where the arrival's answer is first waited for.  Every block
+  // read d before it arrived, so none reads a moved counter.
+  Word arrived = 0;
+  if (t == 0) {
+    sh.d = d;
+    arrived = arrive(q.arrivals);
+  }
+  __syncthreads();
+  int live = 0;
+  for (int w = 0; w < kWordWarps; ++w) live += sh.warp_live[w];
+  d = sh.d;
+
+  // The tape's row: a dead ray's -1 from the thread that read its
+  // liveness (a word of four in one 16-byte store where the row is
+  // aligned), a live ray's entry from the thread that shades it.
+  int* row = nullptr;
+  if (q.tape) {
+    row = q.tape + (d < a.max_depth + 1 ? d : a.max_depth + 1) * a.n;
+    if (t < kStepWords) {
+      int* dst = row + i4;
+      if (m == 0 && whole && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        *reinterpret_cast<int4*>(dst) = make_int4(-1, -1, -1, -1);
+      } else {
+        for (int j = 0; j < 4; ++j)
+          if (!((m >> j) & 1u) && i4 + j < a.n) dst[j] = -1;
+      }
+    }
+  }
+
+  // The live rays in full warps: a warp runs the chains that hold a live
+  // entry of its lanes.
+  if (kStepRays == 2 && warp * 32 + kStepThreads < live)
+    shade_rays<kStepRays>(sc, a, q, sh, base, live, d, row);
+  else if (warp * 32 < live)
+    shade_rays<1>(sc, a, q, sh, base, live, d, row);
+
+  if (t == 0 && arrived == gridDim.x - 1) {
+    *q.arrivals = 0;
+    *reinterpret_cast<volatile int64_t*>(q.d) = d + 1;
+  }
+}
+
+// K12, pool mode with K13 folded in (record_pool_kernel): the pool
+// recorder's state (diff/replay.py::record_pool_state): o, d (C, 3), ids,
+// col, depth (C,) int64 and alive (C,) bool, compacted and refilled in
+// place; the flat tape (D * R + 1,) int32 of the stream's R rays (ray_ids
+// (R,) int64), D = max_depth + 1; the cursor (read and advanced), the pass
+// record (written) and the scan's ticket and status words; the camera
+// and image size of the tail's camera rays.
 struct RecordPoolArgs {
   float* o;
   float* d;
@@ -832,109 +1026,188 @@ struct RecordPoolArgs {
   int64_t* depth;
   uint8_t* alive;
   int* tape;
-  int64_t num_rays;  // R
-  const int64_t* cursor;  // 0-d
-  int64_t* record;        // (2,)
-  Word* scan;             // (1 + blocks,)
-};
-
-__global__ void __launch_bounds__(kThreads)
-    record_pool_kernel(SceneArgs sc, PassArgs a, RecordPoolArgs q) {
-  extern __shared__ Word record_shared[];
-  PoolShared& sh = *reinterpret_cast<PoolShared*>(record_shared);
-  const Ticket tk = take_ticket(sh, q.scan);
-  const int64_t i = static_cast<int64_t>(tk.tile) * kThreads + threadIdx.x;
-  // The slot's state and closest hit, in one step.
-  bool live = false, hit_in = false;
-  V3 o{}, d{};
-  int64_t id = 0, col = 0, depth = 0;
-  int prim = 0;
-  if (i < a.n) {
-    live = q.alive[i] != 0;
-    o = state3(q.o, i);
-    d = state3(q.d, i);
-    id = q.ids[i];
-    col = q.col[i];
-    depth = q.depth[i];
-    prim = __ldg(a.prim + i);
-    hit_in = __ldg(a.hit + i) != 0;
-  }
-  bool write = false, cont = false;
-  V3 p{}, dir{};
-  if (live) {
-    const Shaded s = shade_slot(
-        sc, o, d, prim, hit_in, static_cast<uint32_t>(__ldg(a.key)),
-        static_cast<uint32_t>(__ldg(a.key + 1)), static_cast<uint32_t>(id),
-        static_cast<uint32_t>(depth + 1), a.t_min);
-    write = s.hit;
-    cont = s.hit && s.ok && depth < a.max_depth;
-    p = s.p;
-    dir = s.dir;
-  }
-  const int64_t dest = compact_slot(sh, q.scan, tk, cont, q.record,
-                                    q.cursor);
-  // The hit's tape entry (live slots hold distinct columns); a depth past
-  // the tape's rows, which the recorder never gives, writes nothing.
-  if (write && depth >= 0 && depth <= a.max_depth)
-    q.tape[depth * q.num_rays + col] = prim;
-  if (cont) {  // straight to its compacted slot
-    store3(q.o, dest, p);
-    store3(q.d, dest, dir);
-    q.ids[dest] = id;
-    q.col[dest] = col;
-    q.depth[dest] = depth + 1;
-    q.alive[dest] = 1;
-  }
-}
-
-// K13 (record_regenerate_kernel): the pool recorder's tail refilled from
-// K12's pass record, with the stream's ids gathered (ray_ids (R,) int64),
-// and the cursor advanced.
-struct RecordRegenArgs {
-  const int64_t* key;  // (2,)
+  const int64_t* ray_ids;  // (R,)
+  int64_t num_rays;        // R
+  int64_t* cursor;         // 0-d
+  int64_t* record;         // (2,)
+  Word* scan;              // (1 + tiles,)
   CameraFields<float> cam;
   int64_t nx, ny, spp;
-  float* o;
-  float* d;
-  int64_t* ids;
-  int64_t* col;
-  int64_t* depth;
-  uint8_t* alive;
-  const int64_t* record;   // (2,): n_alive, the cursor K12 found
-  const int64_t* ray_ids;  // (R,)
-  int64_t* cursor;         // 0-d, written
-  int64_t num_rays;        // R
-  int64_t n;               // slots
 };
 
-__global__ void __launch_bounds__(kThreads)
-    record_regenerate_kernel(RecordRegenArgs a) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t n_alive = __ldg(a.record);
-  const int64_t cursor = __ldg(a.record + 1);
-  if (g == 0) {
-    const int64_t left = a.num_rays - cursor;
-    const int64_t room = a.n - n_alive;
-    *a.cursor = cursor + (room < (left < 0 ? 0 : left)
-                              ? room
-                              : (left < 0 ? 0 : left));
+// Slots a tile of the pool mode's scan, a thread each (probes/k12_grid.py).
+constexpr int kRecordTile = 256;
+constexpr int kRecordWarps = kRecordTile / 32;
+
+// A block's shared memory in pool mode.
+struct RecordShared {
+  Word ticket;
+  int64_t prefix;   // the tile's exclusive prefix
+  int64_t n_alive;  // the pass's survivors
+  int64_t cursor;   // the cursor as the pass found it
+  int warp_counts[kRecordWarps];
+};
+
+// The persistent loop's ticket, beside take_ticket: a pass hands out one
+// ticket a tile and then one a block, which finds the tiles gone (its tile
+// is -1); so a pass takes tiles + gridDim.x tickets and the epoch is the
+// ticket over that.
+__device__ __forceinline__ Ticket take_tile(Word& slot, Word* scan,
+                                            int tiles) {
+  if (threadIdx.x == 0) slot = atomicAdd(scan, 1ull);
+  __syncthreads();
+  const Word per_pass = static_cast<Word>(tiles) + gridDim.x;
+  const Word local = slot % per_pass;
+  return Ticket{local < static_cast<Word>(tiles) ? static_cast<int>(local)
+                                                 : -1,
+                (slot / per_pass) & kEpochMask};
+}
+
+// compact_slot for the pool recorder's tiles: the same scan, but the last
+// tile (tiles - 1) writes the pass record (n_alive, the cursor as the pass
+// found it) before it publishes its inclusive prefix, whose release the
+// other blocks wait on; then it advances the cursor, which no other block
+// reads.  Tile 0 publishes its inclusive prefix at once unless it is the
+// last.
+__device__ __forceinline__ int64_t compact_tile(RecordShared& sh,
+                                                const RecordPoolArgs& q,
+                                                Ticket tk, int tiles,
+                                                int64_t n, bool cont) {
+  Word* status = q.scan + 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool last = tk.tile == tiles - 1;
+  const unsigned ballot = __ballot_sync(kFullMask, cont);
+  if (lane == 0) sh.warp_counts[warp] = __popc(ballot);
+  __syncthreads();  // every slot of the tile has been read
+  int64_t before = 0, aggregate = 0;
+  for (int w = 0; w < kRecordWarps; ++w) {
+    aggregate += sh.warp_counts[w];
+    if (w < warp) before += sh.warp_counts[w];
   }
-  const int64_t s = n_alive + g;
-  if (s >= a.n) return;  // a survivor's slot, or past the pool
-  const int64_t fresh = cursor + g;
-  const int64_t idx =
-      fresh < 0 ? 0 : (fresh > a.num_rays - 1 ? a.num_rays - 1 : fresh);
-  const int64_t id = __ldg(a.ray_ids + idx);
-  float o[3], d[3];
-  frt::torch_camera_ray<float>(static_cast<uint32_t>(__ldg(a.key)),
-                               static_cast<uint32_t>(__ldg(a.key + 1)), id,
-                               a.nx, a.ny, a.spp, a.cam, o, d);
-  store3(a.o, s, V3{o[0], o[1], o[2]});
-  store3(a.d, s, V3{d[0], d[1], d[2]});
-  a.ids[s] = id;
-  a.col[s] = idx;
-  a.depth[s] = 0;
-  a.alive[s] = fresh < a.num_rays;
+  if (warp == 1 && lane == 0 && (tk.tile > 0 || !last))
+    publish(status + tk.tile, (tk.epoch << kEpochShift) |
+                                  (tk.tile > 0 ? kAggregate : kPrefix) |
+                                  static_cast<Word>(aggregate));
+  int64_t found = 0;  // the cursor (lane 0 of warp 0 of the last tile)
+  if (warp == 0) {
+    const int64_t prefix =
+        tk.tile > 0 ? look_back(status, tk.tile, tk.epoch) : 0;
+    if (lane == 0) {
+      sh.prefix = prefix;
+      if (last) {
+        found = read_counter(q.cursor);
+        q.record[0] = prefix + aggregate;
+        q.record[1] = found;
+      }
+    }
+  }
+  __syncthreads();
+  if (warp == 0 && lane == 0 && (tk.tile > 0 || last)) {
+    const int64_t n_alive = sh.prefix + aggregate;
+    publish(status + tk.tile,
+            (tk.epoch << kEpochShift) | kPrefix | static_cast<Word>(n_alive));
+    if (last) {
+      const int64_t left = q.num_rays - found;
+      const int64_t room = n - n_alive;
+      *q.cursor = found + (room < (left < 0 ? 0 : left)
+                               ? room
+                               : (left < 0 ? 0 : left));
+    }
+  }
+  return sh.prefix + before + __popc(ballot & ((1u << lane) - 1u));
+}
+
+__global__ void __launch_bounds__(kRecordTile)
+    record_pool_kernel(SceneArgs sc, PassArgs a, RecordPoolArgs q) {
+  extern __shared__ Word record_shared[];
+  RecordShared& sh = *reinterpret_cast<RecordShared*>(record_shared);
+  const int tiles = static_cast<int>((a.n + kRecordTile - 1) / kRecordTile);
+  const uint32_t k0 = static_cast<uint32_t>(__ldg(a.key));
+  const uint32_t k1 = static_cast<uint32_t>(__ldg(a.key + 1));
+  Word epoch = 0;
+  for (;;) {
+    const Ticket tk = take_tile(sh.ticket, q.scan, tiles);
+    epoch = tk.epoch;
+    if (tk.tile < 0) break;
+    const int64_t i = static_cast<int64_t>(tk.tile) * kRecordTile +
+                      threadIdx.x;
+    // The slot's state and closest hit, in one step.
+    bool live = false, hit_in = false;
+    V3 o{}, d{};
+    int64_t id = 0, col = 0, depth = 0;
+    int prim = 0;
+    if (i < a.n) {
+      live = q.alive[i] != 0;
+      o = state3(q.o, i);
+      d = state3(q.d, i);
+      id = q.ids[i];
+      col = q.col[i];
+      depth = q.depth[i];
+      prim = __ldg(a.prim + i);
+      hit_in = __ldg(a.hit + i) != 0;
+    }
+    bool write = false, cont = false;
+    V3 p{}, dir{};
+    if (live) {
+      const Shaded s = shade_slot(sc, o, d, prim, hit_in, k0, k1,
+                                  static_cast<uint32_t>(id),
+                                  static_cast<uint32_t>(depth + 1), a.t_min);
+      write = s.hit;
+      cont = s.hit && s.ok && depth < a.max_depth;
+      p = s.p;
+      dir = s.dir;
+    }
+    const int64_t dest = compact_tile(sh, q, tk, tiles, a.n, cont);
+    // The hit's tape entry (live slots hold distinct columns); a depth past
+    // the tape's rows, which the recorder never gives, writes nothing.
+    if (write && depth >= 0 && depth <= a.max_depth)
+      q.tape[depth * q.num_rays + col] = prim;
+    if (cont) {  // straight to its compacted slot
+      store3(q.o, dest, p);
+      store3(q.d, dest, dir);
+      q.ids[dest] = id;
+      q.col[dest] = col;
+      q.depth[dest] = depth + 1;
+      q.alive[dest] = 1;
+    }
+  }
+
+  // K13: the tail [n_alive, C), once the last tile's inclusive prefix (the
+  // pass's n_alive) is published, and the pass record with it; block b
+  // refills tail slots b kRecordTile + threadIdx.x, a grid's threads apart.
+  if (threadIdx.x == 0) {
+    const Word* status = q.scan + tiles;  // the last tile's word
+    Word w;
+    for (;;) {
+      w = peek(status);
+      if ((w >> kEpochShift) == epoch && (w & kFlagMask) == kPrefix) break;
+      __nanosleep(32);
+    }
+    __threadfence();  // the read above becomes an acquire read
+    sh.n_alive = static_cast<int64_t>(w & kCountMask);
+    sh.cursor = read_counter(q.record + 1);
+  }
+  __syncthreads();
+  const int64_t n_alive = sh.n_alive, cursor = sh.cursor;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRecordTile;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kRecordTile +
+                   threadIdx.x;
+       n_alive + g < a.n; g += stride) {
+    const int64_t s = n_alive + g;
+    const int64_t fresh = cursor + g;
+    const int64_t idx =
+        fresh < 0 ? 0 : (fresh > q.num_rays - 1 ? q.num_rays - 1 : fresh);
+    const int64_t id = __ldg(q.ray_ids + idx);
+    float ro[3], rd[3];
+    frt::torch_camera_ray<float>(k0, k1, id, q.nx, q.ny, q.spp, q.cam, ro,
+                                 rd);
+    store3(q.o, s, V3{ro[0], ro[1], ro[2]});
+    store3(q.d, s, V3{rd[0], rd[1], rd[2]});
+    q.ids[s] = id;
+    q.col[s] = idx;
+    q.depth[s] = 0;
+    q.alive[s] = fresh < q.num_rays;
+  }
 }
 
 int blocks_for(int64_t n) {
@@ -1059,9 +1332,10 @@ int frt_regenerate(const int64_t* key, const float* cam_origin,
 // Launches K12 in lockstep or length mode on `stream` over n rays (module
 // comment): the key, the scene as for K9, the rays o, dr (n, 3) and alive
 // (n,) bool, updated in place, the ray ids (n,) int64, the bounce counter
-// (0-d int64, read), the closest hit, the tape ((max_depth + 2) x n int32,
-// or null) and the lengths ((n,) int64, or null).  Launches nothing for
-// n = 0.
+// (0-d int64, advanced by one), the arrival word (0-d int64, zero between
+// launches), the closest hit, the tape ((max_depth + 2) x n int32, or
+// null) and the lengths ((n,) int64, or null).  Launches one block for
+// n = 0, which advances the counter.
 int frt_record_step(const int64_t* key, const float* sph_center,
                     const float* sph_radius, const int* sph_mat,
                     const float* tri_v0, const float* tri_v1,
@@ -1070,29 +1344,34 @@ int frt_record_step(const int64_t* key, const float* sph_center,
                     const float* albedo, const float* albedo2,
                     const float* tex_scale, const float* fuzz,
                     const float* ref_idx, int nm, float* o, float* dr,
-                    uint8_t* alive, const int64_t* ray_ids, const int64_t* d,
-                    const int* prim, const uint8_t* hit, int* tape,
-                    int64_t* length, int max_depth, float t_min, int64_t n,
-                    void* stream) {
-  if (n > 0) {
-    const SceneArgs sc = scene_args(sph_center, sph_radius, sph_mat, tri_v0,
-                                    tri_v1, tri_v2, tri_mat, ns, nt,
-                                    mat_type, tex_type, albedo, albedo2,
-                                    tex_scale, fuzz, ref_idx, nm);
-    const PassArgs a{key, prim, hit, n, max_depth, t_min};
-    const StepArgs q{o, dr, alive, ray_ids, d, tape, length};
-    record_step_kernel<<<blocks_for(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(sc, a, q);
-  }
+                    uint8_t* alive, const int64_t* ray_ids, int64_t* d,
+                    Word* arrivals, const int* prim, const uint8_t* hit,
+                    int* tape, int64_t* length, int max_depth, float t_min,
+                    int64_t n, void* stream) {
+  const SceneArgs sc = scene_args(sph_center, sph_radius, sph_mat, tri_v0,
+                                  tri_v1, tri_v2, tri_mat, ns, nt, mat_type,
+                                  tex_type, albedo, albedo2, tex_scale, fuzz,
+                                  ref_idx, nm);
+  const PassArgs a{key, prim, hit, n, max_depth, t_min};
+  const StepArgs q{o, dr, alive, ray_ids, d, arrivals, tape, length};
+  const int64_t windows = (n + kStepWindow - 1) / kStepWindow;
+  const int blocks = static_cast<int>(windows > 0 ? windows : 1);
+  record_step_kernel<<<blocks, kStepThreads, sizeof(StepShared),
+                       static_cast<cudaStream_t>(stream)>>>(sc, a, q);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches K12 in pool mode on `stream` over the pool's n slots (module
-// comment): the key, the scene as for K9, the pool's state o, d (n, 3),
-// ids, col, depth (n,) int64, alive (n,) bool, compacted in place; the
-// closest hit; the flat tape ((max_depth + 1) * num_rays + 1 int32); the
-// cursor (0-d int64, read), the pass record (2,) int64 (written) and the
-// scan's words as for K9.  Launches nothing for n = 0.
+// Launches K12 in pool mode, K13 folded in, on `stream` over the pool's n
+// slots (module comment): the key, the scene as for K9, the pool's state
+// o, d (n, 3), ids, col, depth (n,) int64, alive (n,) bool, compacted and
+// refilled in place; the closest hit; the flat tape ((max_depth + 1) *
+// num_rays + 1 int32); the stream's ray ids (num_rays,) int64; the cursor
+// (0-d int64, advanced), the pass record (2,) int64 (written) and the
+// scan's words (1 + one a tile of kRecordTile slots, uint64; zeroed once
+// when the pool is made, then left to the kernel: a pass takes tiles +
+// blocks tickets); the camera's seven float32 fields and the image's size
+// (nx, ny, spp).  A persistent grid: at most the blocks the card holds at
+// once.  Launches nothing for n = 0.
 int frt_record_pool(const int64_t* key, const float* sph_center,
                     const float* sph_radius, const int* sph_mat,
                     const float* tri_v0, const float* tri_v1,
@@ -1103,51 +1382,41 @@ int frt_record_pool(const int64_t* key, const float* sph_center,
                     const float* ref_idx, int nm, float* o, float* d,
                     int64_t* ids, int64_t* col, int64_t* depth,
                     uint8_t* alive, const int* prim, const uint8_t* hit,
-                    int* tape, int64_t num_rays, int max_depth, float t_min,
-                    const int64_t* cursor, int64_t* record, Word* scan,
-                    int64_t n, void* stream) {
-  if (n > 0) {
-    const SceneArgs sc = scene_args(sph_center, sph_radius, sph_mat, tri_v0,
-                                    tri_v1, tri_v2, tri_mat, ns, nt,
-                                    mat_type, tex_type, albedo, albedo2,
-                                    tex_scale, fuzz, ref_idx, nm);
-    const PassArgs a{key, prim, hit, n, max_depth, t_min};
-    const RecordPoolArgs q{o,    d,        ids,    col,    depth, alive,
-                           tape, num_rays, cursor, record, scan};
-    record_pool_kernel<<<blocks_for(n), kThreads, sizeof(PoolShared),
-                         static_cast<cudaStream_t>(stream)>>>(sc, a, q);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches K13 on `stream` over the pool's n slots (module comment): the
-// key, the camera's seven float32 fields, the image's size (nx, ny, spp),
-// the pool's state o, d (n, 3), ids, col, depth (n,) int64, alive (n,)
-// bool (its tail written), K12's pass record (2,) int64, the stream's ray
-// ids (num_rays,) int64 and the cursor (0-d int64, written).  Launches
-// nothing for n = 0.
-int frt_record_regenerate(const int64_t* key, const float* cam_origin,
-                          const float* cam_lower_left,
-                          const float* cam_horizontal,
-                          const float* cam_vertical, const float* cam_u,
-                          const float* cam_v, const float* cam_lens_radius,
-                          int64_t nx, int64_t ny, int64_t spp, float* o,
-                          float* d, int64_t* ids, int64_t* col,
-                          int64_t* depth, uint8_t* alive,
-                          const int64_t* record, const int64_t* ray_ids,
-                          int64_t* cursor, int64_t num_rays, int64_t n,
-                          void* stream) {
-  if (n > 0) {
-    const CameraFields<float> cam{cam_origin, cam_lower_left, cam_horizontal,
-                                  cam_vertical, cam_u,      cam_v,
-                                  cam_lens_radius};
-    const RecordRegenArgs a{key,   cam,    nx,      ny,     spp,
-                            o,     d,      ids,     col,    depth,
-                            alive, record, ray_ids, cursor, num_rays,
-                            n};
-    record_regenerate_kernel<<<blocks_for(n), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(a);
-  }
+                    int* tape, const int64_t* ray_ids, int64_t num_rays,
+                    int max_depth, float t_min, int64_t* cursor,
+                    int64_t* record, Word* scan, const float* cam_origin,
+                    const float* cam_lower_left, const float* cam_horizontal,
+                    const float* cam_vertical, const float* cam_u,
+                    const float* cam_v, const float* cam_lens_radius,
+                    int64_t nx, int64_t ny, int64_t spp, int64_t n,
+                    void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaGetLastError();
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, record_pool_kernel, kRecordTile, sizeof(RecordShared));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = (n + kRecordTile - 1) / kRecordTile;
+  const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 1 ? per_sm
+                                                                   : 1);
+  const SceneArgs sc = scene_args(sph_center, sph_radius, sph_mat, tri_v0,
+                                  tri_v1, tri_v2, tri_mat, ns, nt, mat_type,
+                                  tex_type, albedo, albedo2, tex_scale, fuzz,
+                                  ref_idx, nm);
+  const PassArgs a{key, prim, hit, n, max_depth, t_min};
+  const CameraFields<float> cam{cam_origin, cam_lower_left, cam_horizontal,
+                                cam_vertical, cam_u,      cam_v,
+                                cam_lens_radius};
+  const RecordPoolArgs q{o,        d,      ids,    col,  depth, alive,
+                         tape,     ray_ids, num_rays, cursor, record, scan,
+                         cam,      nx,     ny,     spp};
+  const int blocks = static_cast<int>(tiles < resident ? tiles : resident);
+  record_pool_kernel<<<blocks, kRecordTile, sizeof(RecordShared),
+                       static_cast<cudaStream_t>(stream)>>>(sc, a, q);
   return static_cast<int>(cudaGetLastError());
 }
 

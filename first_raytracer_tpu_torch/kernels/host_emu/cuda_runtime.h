@@ -63,6 +63,10 @@ struct float4 {
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
 }
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;

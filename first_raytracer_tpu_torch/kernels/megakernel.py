@@ -350,8 +350,8 @@ def bind_dense_hit(lib):
 
 
 def bind_wavefront_pass(lib):
-    """Declares K9's, K10's, K12's and K13's C entry points' argument and
-    result types on ``lib`` (also a host build of ``wavefront_pass.cu``
+    """Declares K9's, K10's and K12's (K13 folded into its pool mode) C
+    entry points' argument and result types on ``lib`` (also a host build of ``wavefront_pass.cu``
     alone)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     f32 = ctypes.c_float
@@ -368,14 +368,12 @@ def bind_wavefront_pass(lib):
         [ptr] * 8 + [i64] * 3 + [ptr] * 9 + [i64] * 2 + [ptr])
     lib.frt_regenerate.restype = i32
     lib.frt_record_step.argtypes = (
-        scene + [ptr] * 9 + [i32, f32, i64, ptr])
+        scene + [ptr] * 10 + [i32, f32, i64, ptr])
     lib.frt_record_step.restype = i32
     lib.frt_record_pool.argtypes = (
-        scene + [ptr] * 9 + [i64, i32, f32] + [ptr] * 3 + [i64, ptr])
+        scene + [ptr] * 10 + [i64, i32, f32] + [ptr] * 10 + [i64] * 4
+        + [ptr])
     lib.frt_record_pool.restype = i32
-    lib.frt_record_regenerate.argtypes = (
-        [ptr] * 8 + [i64] * 3 + [ptr] * 9 + [i64] * 2 + [ptr])
-    lib.frt_record_regenerate.restype = i32
     return lib
 
 

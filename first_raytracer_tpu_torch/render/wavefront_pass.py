@@ -29,9 +29,9 @@ the tail), drawing through the plain Threefry and camera rays.  A tensor
 on any other device is refused; a failed build or launch raises, and
 nothing falls back.
 
-The recorders and the occupancy scan run K12 and K13, modes of the same
-source (``diff/record_pass.py``), whose plain versions share
-``shade_slots``.  The differentiable ``_bounce`` (autograd,
+The recorders and the occupancy scan run K12 (K13 folded into its pool
+mode), from the same source (``diff/record_pass.py``), whose plain versions
+share ``shade_slots``.  The differentiable ``_bounce`` (autograd,
 ``method="scan"``), the replays and the pool's init keep their torch
 bodies.
 """

@@ -50,12 +50,11 @@ def _length_pass(state, *, scene, accel, key, ray_ids, cfg, intersect_fn,
     """One bounce of the recorder, counting the rays that enter it alive:
     the body of the JAX package's ``_occupancy_scan``.  The closest hit,
     then ``diff.record_pass.record_step`` in its length mode (K12 on a
-    CUDA device), then the counter's add."""
+    CUDA device), which also advances the counter."""
     prim, _, hit = closest_hit(intersect_fn, scene, accel, state["o"],
                                state["dr"], cfg.t_min, state["alive"])
     record_step(state, prim, hit, scene=scene, key=key, ray_ids=ray_ids,
                 cfg=cfg)
-    state["d"].add_(1)
 
 
 @torch.no_grad()

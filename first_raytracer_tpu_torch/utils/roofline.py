@@ -73,16 +73,18 @@ differently.  The operations are counted from the CUDA sources:
   launch, 24 bytes in a live ray, the mask's byte and 9 bytes out every
   ray.  Bound by operations unless almost every ray is dead.
 - K12 (the recorders' pass, ``wavefront_pass.cu``): K9's draw and shading
-  operations for each ray or slot it shades; bytes as K9's rows count
-  them: lockstep and length modes read every ray's liveness, rays, id and
-  closest hit (38), write a tape entry a ray (4, lockstep) or read and
-  write a live ray's length (16, length mode), a live ray's liveness (1)
-  and a continuing ray's rays (24); pool mode reads every slot's
-  liveness, rays, id, column, depth and closest hit (54), writes a hit's
-  tape entry (4) and a survivor's next state (49), with K9's scan words,
-  ticket and pass record.  Bound by bytes.
-- K13 (the pool recorder's regeneration): K10's, with a tail slot's id
-  read from the stream (8) and its state written (49).  Bound by bytes.
+  operations for each ray or slot it shades; bytes counted as the inputs
+  need them, not as a kernel might read them: a dead ray or slot needs its
+  liveness byte (and, in lockstep mode, its tape entry); lockstep and
+  length modes read a live ray's rays, id and closest hit (37) and write
+  its liveness (1), write a tape entry a ray (4, lockstep) or read and
+  write a live ray's length (16, length mode), and a continuing ray's rays
+  (24); pool mode reads a live slot's rays, id, column, depth and closest
+  hit (53), writes a hit's tape entry (4) and a survivor's next state
+  (49), with the scan's words, ticket and pass record, and refills the
+  tail with K13, folded into the same launch: K10's operations for a tail
+  slot's camera ray, its id read from the stream (8) and its state written
+  (49).  Bound by bytes.
 """
 from __future__ import annotations
 
@@ -94,8 +96,7 @@ __all__ = ["PEAK_FP32", "PEAK_BYTES", "FP32_PEAKS", "SPHERE_OPS",
            "intersect_bound", "tensor_bytes", "k4_bound", "k5_bound",
            "k6_bound", "fp32_peak", "PEAK_INT32", "THREEFRY_INT_OPS",
            "THREEFRY_FP32_OPS", "CAMERA_RAY_OPS", "SHADE_OPS", "k7_bound",
-           "k8_bound", "k9_bound", "k10_bound", "k11_bound", "k12_bound",
-           "k13_bound"]
+           "k8_bound", "k9_bound", "k10_bound", "k11_bound", "k12_bound"]
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores,
 # and HBM3 bandwidth.
@@ -322,33 +323,28 @@ def k11_bound(scene, rays, live=None, launches=1):
 
 
 def k12_bound(scene, slots, live, cont, hits, mode="lockstep",
-              launches=1):
+              launches=1, tile=256):
     """K12's bound over ``launches`` launches of ``slots`` rays or slots in
     all, of which ``live`` were shaded (alive, and within the depth cap in
     the lockstep modes), ``cont`` went on and ``hits`` were live and hit.
     ``mode``: "lockstep" (a tape entry a ray), "length" (a live ray's
-    length read and written) or "pool" (the module docstring).  The scene
-    is read once a launch, with the key and the bounce counter or cursor.
-    Operations: the draw and the shading of each live ray or slot."""
+    length read and written) or "pool" (a status word a ``tile`` of slots,
+    and K13's refill of the tail, the slots that did not go on).  A dead
+    ray or slot counts its liveness byte only (and its tape entry in
+    lockstep mode).  The scene is read once a launch, with the key and the
+    bounce counter or cursor.  Operations: the draw and the shading of each
+    live ray or slot, and in pool mode a tail slot's draw and camera
+    ray."""
+    fp32 = (THREEFRY_FP32_OPS + SHADE_OPS) * live
+    ints = THREEFRY_INT_OPS * live
     if mode == "pool":
-        nbytes = (54 * slots + 4 * hits + 49 * cont
-                  + 24 * -(-slots // 256) + launches * (16 + 24))
+        tail = slots - cont
+        nbytes = (slots + 53 * live + 4 * hits + 49 * cont + 57 * tail
+                  + 24 * -(-slots // tile) + launches * (16 + 24 + 76))
+        fp32 += (THREEFRY_FP32_OPS + CAMERA_RAY_OPS) * tail
+        ints += THREEFRY_INT_OPS * tail
     else:
-        nbytes = 38 * slots + live + 24 * cont + (
+        nbytes = slots + 38 * live + 24 * cont + (
             4 * slots if mode == "lockstep" else 16 * live)
     nbytes += launches * (scene_bytes(scene) + 16 + 8)
-    return roofline((THREEFRY_FP32_OPS + SHADE_OPS) * live, nbytes,
-                    THREEFRY_INT_OPS * live)
-
-
-def k13_bound(slots, survivors, launches=1):
-    """K13's bound over ``launches`` launches of ``slots`` slots in all,
-    ``survivors`` of them left as K12 compacted them and the rest given
-    the stream's next camera rays: a tail slot reads its id (8 bytes) and
-    writes its state (49); the pass record (16), the key (16) and the
-    camera (19 floats) are read and the cursor written (8) once a
-    launch."""
-    tail = slots - survivors
-    nbytes = 57 * tail + launches * (16 + 16 + 76 + 8)
-    return roofline((THREEFRY_FP32_OPS + CAMERA_RAY_OPS) * tail, nbytes,
-                    THREEFRY_INT_OPS * tail)
+    return roofline(fp32, nbytes, ints)

@@ -26,6 +26,14 @@ call); K11 (``dense_hit``) on the 2^17 camera rays with liveness masks
 of live shares 1, 0.1 and 0.01 (20 calls a CUDA graph, the median of 5
 replays; a checkout whose ``dense_hit`` takes no mask sweeps every ray)
 and its bound from the rays it swept (``utils/roofline.py::k11_bound``);
+K12 (``record_step``) in lockstep and length modes at the first bounce of
+the 2^17 camera rays with masks of live shares 1, 0.1 and 0.01, and in
+lockstep mode summed over the direct step's bounces (each bounce's state
+and closest hit copied into a ``StateClock``: 20 calls a CUDA graph, each
+restoring the rays, liveness and counter it moves, the restores' own
+graph taken off; each bounce's live rays and ms listed too), and the pool pass past its closest hit (K12's pool mode
+with K13, one launch where K13 is folded in and two in a checkout before
+that) after one pass at 2^14 slots over 2^17 ids and at 2^17 over 2^19;
 the final scene's pool frame (2^17 slots) and chunked frame (chunks of
 2^17) without an accel, graphed (s, the median of 3 after a warm call),
 and K11's part of each: the same loop stepped op by op, each pass's K11
@@ -136,6 +144,98 @@ class K11Clock:
         self.calls += 1
 
 
+def capture(torch, fn, inner):
+    """A CUDA graph of ``inner`` calls of ``fn`` (after a warm call)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return graph
+
+
+def replay_ms(torch, graph, repeats):
+    """Median ms of a replay of ``graph``."""
+    graph.replay()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+class StateClock:
+    """``call(work, *args)`` timed on copies of a state it moves: ``inner``
+    calls, each after the keys ``moved`` of ``work`` are restored from a
+    source copy, captured once in a CUDA graph beside a graph of the
+    restores alone.  ``ms(state, args)`` copies ``state``'s keys and the
+    arguments in and returns one call's ms, the restore's taken off
+    (medians of ``repeats`` replays)."""
+
+    def __init__(self, torch, call, state, args, moved, inner=20):
+        self.torch, self.inner = torch, inner
+        self.src = {k: v.clone() for k, v in state.items()}
+        self.work = {k: v.clone() for k, v in state.items()}
+        self.args = [a.clone() for a in args]
+
+        def restore():
+            for k in moved:
+                self.work[k].copy_(self.src[k])
+
+        def both():
+            restore()
+            call(self.work, *self.args)
+        self.graphs = (capture(torch, both, inner),
+                       capture(torch, restore, inner))
+
+    def ms(self, state, args, repeats=5):
+        for k, v in state.items():
+            self.src[k].copy_(v)
+        for a, b in zip(self.args, args):
+            a.copy_(b)
+        both, restore = (replay_ms(self.torch, g, repeats)
+                         for g in self.graphs)
+        return (both - restore) / self.inner
+
+
+def live_mask(torch, n, share, dev, seed=7):
+    """(n,) bool on ``dev``, each entry live with probability ``share``
+    (numpy's generator from ``seed``)."""
+    import numpy as np
+    return torch.from_numpy(np.random.default_rng(seed).random(n)
+                            < share).to(dev)
+
+
+def step_moved(state):
+    """The keys of a lockstep or length state that K12 moves (``d`` too: a
+    checkout whose K12 leaves it is restored all the same)."""
+    return [k for k in ("o", "dr", "alive", "d", "arrivals", "length")
+            if k in state]
+
+
+def direct_bounces(torch, rrep, dh, intersect_fn, scene, cfg, key, o, d):
+    """The lockstep recorder's bounces on the rays (o, d), as the direct
+    step runs them: each bounce's (o, dr, alive, d) and the closest hit
+    (prim, hit) K11 gives it."""
+    ids = torch.arange(o.shape[0], device=o.device)
+    state = rrep.record_state(o, d, cfg=cfg)
+    out = []
+    while bool(state["alive"].any()):
+        prim, _, hit = dh.dense_hit(scene, state["o"], state["dr"],
+                                    cfg.t_min, state["alive"])
+        out.append(({k: state[k].clone() for k in ("o", "dr", "alive",
+                                                  "d")}, (prim, hit)))
+        rrep.record_bounce(state, scene=scene, accel=None, key=key,
+                           ray_ids=ids, cfg=cfg, intersect_fn=intersect_fn)
+    return out
+
+
 def k11_parts(torch, dh, scene, cam, cfg, key, masked):
     """K11's part of the final scene's pool frame (2^17 slots) and chunked
     frame (chunks of 2^17) without an accel: each loop stepped op by op
@@ -234,6 +334,56 @@ def turns(checkout):
             fparams, fs, fc, fcfg, key, ids, target, pack5)}
     secs = {k: host_s(torch, f) for k, f in runs.items()}
 
+    # K12: lockstep and length modes at the first bounce of the camera
+    # rays with masks of live shares 1, 0.1 and 0.01, lockstep mode summed
+    # over the direct step's bounces, and the pool pass past its closest
+    # hit (K12's pool mode and K13: one launch where K13 is folded in, two
+    # before) after a pass at 2^14 slots over 2^17 ids and at 2^17 over
+    # 2^19; each through StateClock.
+    from first_raytracer_tpu_torch.diff import record_pass as rpass
+    kw = dict(scene=scene, key=key, ray_ids=ids, cfg=cfg)
+    fused = "camera" in inspect.signature(rpass.record_shade).parameters
+    prim, _, hit = dh.dense_hit(scene, o, d, cfg.t_min)
+    k12_ms = {}
+    for mode in ("lockstep", "length"):
+        first = rrep.record_state(o, d, cfg=cfg, tape=mode == "lockstep")
+        if mode == "length":
+            first["length"] = torch.zeros((R,), dtype=torch.int64,
+                                          device=dev)
+        clock = StateClock(torch, lambda w, p, h: rpass.record_step(
+            w, p, h, **kw), first, (prim, hit), step_moved(first))
+        for share in (1.0, 0.1, 0.01):
+            k12_ms[f"{mode} {share}"] = clock.ms(
+                dict(first, alive=live_mask(torch, R, share, dev)),
+                (prim, hit))
+    bounces = direct_bounces(torch, rrep, dh, default_intersect, scene, cfg,
+                             key, o, d)
+    lock = rrep.record_state(o, d, cfg=cfg)
+    clock = StateClock(torch, lambda w, p, h: rpass.record_step(
+        w, p, h, **kw), lock, bounces[0][1], step_moved(lock))
+    per_bounce = [clock.ms(b, hits, repeats=3) for b, hits in bounces]
+    k12_ms["direct step's bounces"] = sum(per_bounce)
+
+    def pool_call(work, p, h, ray_ids):
+        pkw = dict(kw, ray_ids=ray_ids)
+        if fused:
+            rpass.record_shade(work, p, h, camera=cam, **pkw)
+        else:
+            rpass.record_shade(work, p, h, **pkw)
+            rpass.record_regenerate(work, camera=cam, **pkw)
+    for slots, n_ids in ((pool, R), (R, 4 * R)):
+        pids = torch.arange(n_ids, device=dev)
+        pstate = rrep.record_pool_state(cam, key, pids, cfg=cfg,
+                                        pool_size=slots)
+        rrep.record_pool_pass(pstate, camera=cam, accel=None, **dict(
+            kw, ray_ids=pids), intersect_fn=default_intersect)
+        pprim, _, phit = dh.dense_hit(scene, pstate["o"], pstate["d"],
+                                      cfg.t_min, pstate["alive"])
+        clock = StateClock(
+            torch, lambda w, p, h, pids=pids: pool_call(w, p, h, pids),
+            pstate, (pprim, phit), tuple(rpass.RECORD_ROWS) + ("cursor",))
+        k12_ms[f"pool {slots}"] = clock.ms(pstate, (pprim, phit))
+
     # K11 with masks (a checkout without them sweeps every ray), and the
     # frames without an accel.
     masked = "alive" in inspect.signature(dh.dense_hit).parameters
@@ -266,6 +416,11 @@ def turns(checkout):
     print(json.dumps({"checkout": checkout, "card": card, "nodes": nodes,
                       "body_ms": body_ms, "s": secs, "k11_masked": masked,
                       "k11_live": k11_live, "k11_ms": k11_ms,
+                      "k12_fused": fused, "k12_ms": k12_ms,
+                      "k12_direct_bounces": len(bounces),
+                      "k12_bounce_live": [int(b["alive"].sum())
+                                          for b, _ in bounces],
+                      "k12_bounce_ms": per_bounce,
                       "k11_bound_ms": k11_bound_ms,
                       "frames_s": frames, "k11_part_ms": parts}),
           flush=True)

@@ -16,13 +16,14 @@ the recorders and the occupancy scan that run through them.
   lowest id wins); K12 bounce by bounce against ``record_step_plain`` in
   lockstep mode (the tape) and length mode (the lengths), through the last
   live bounce and inert bounces past the depth cap, and at a bounce
-  counter past ``max_depth`` (the scratch row); K12 in pool mode and K13
-  pass by pass against ``record_shade_plain`` and
-  ``record_regenerate_plain`` (the flat tape's last entry aside, which the
-  plain pass scatters its non-writing lanes to and nothing reads), over
-  pools of 1 and 3 blocks with 4 blocks in flight (``frt_emu_interleave``)
-  and inert passes after the stream ends, K12's scan words checked, and
-  over 40 blocks all in flight with stale status words of an earlier pass.
+  counter past ``max_depth`` (the scratch row), the counter advanced once
+  a bounce; K12's pool launch, K13 folded in, pass by pass against
+  ``record_shade_plain`` then ``record_regenerate_plain`` (the flat tape's
+  last entry aside, which the plain pass scatters its non-writing lanes to
+  and nothing reads), over pools of 1 and 3 tiles with 4 blocks in flight
+  (``frt_emu_interleave``) and inert passes after the stream ends, K12's
+  scan words checked, and over 40 tiles with every block in flight and
+  stale status words of an earlier pass.
   The plain versions' bare ``torch.sqrt`` and ``torch.sin`` run as the card
   and the emulation round them (``test_torch_wavefront_pass._card_rounding``).
 - The split plain versions compose to the pool recorder's pass as it was
@@ -36,9 +37,10 @@ the recorders and the occupancy scan that run through them.
   packages' tapes without a kernel part; occupancy: the counts equal), and
   ``torch.equal`` to the same loops on the plain versions.
 - The wrappers refuse what their kernels do not take, launch nothing for
-  no rays, raise when the library fails to build, leave the CPU on the
-  plain versions, and the graph caches count K11's, K12's and K13's
-  launches per replay.
+  no rays (but K12's lockstep mode, whose one block advances the counter),
+  raise when the library fails to build, leave the CPU on the plain
+  versions, and the graph caches count K11's, K12's and K13's launches per
+  replay.
 
 The JAX package is imported inside the test that compares with it.
 """
@@ -66,7 +68,7 @@ from first_raytracer_tpu_torch.render.integrator import (UP, intersect_brute,
                                                          recompute_hit)
 from first_raytracer_tpu_torch.scene.builders import build_preset
 from test_torch_wavefront_pass import (_LAUNCH_ENTRY, _card_rounding,
-                                       _clone, _interleaved, _scan_words)
+                                       _clone, _interleaved)
 
 SETS = ("random-spheres", "triangles-only", "triangle-mesh",
         "camera-effects", "field1100", "mixed-field")
@@ -229,8 +231,8 @@ def _lockstep(host_lib, scene, cfg, key, o, d, mode, extra=2):
                                  ray_ids=ids, cfg=cfg)
         bad = [k for k in want if not torch.equal(got[k], want[k])]
         assert not bad, (mode, bounces, bad)
+        assert int(got["d"]) == int(state["d"]) + 1  # advanced once
         state = want
-        state["d"].add_(1)
         bounces += 1
     return bounces, state
 
@@ -365,48 +367,91 @@ def test_split_plain_composes_to_the_pass_before(name):
     assert passes > 4 and int(state["cursor"]) == ray_ids.shape[0]
 
 
-def _pool_passes(host_lib, scene, cam, cfg, key, ray_ids, pool, extra=2):
+# Blocks the emulation's card holds at once (host_emu/cuda_runtime.h: two
+# multiprocessors of two blocks), the most K12's persistent pool grid has.
+EMU_RESIDENT = 4
+
+
+def _record_scan_words(what, got, want, passes):
+    """K12's pool-mode scan words (``got``) after ``passes`` passes on
+    them: the ticket at passes x (tiles + the grid's blocks), and every
+    tile's word an inclusive prefix of this pass (epoch passes - 1),
+    nondecreasing by at most a tile from tile to tile, the last the plain
+    record's survivors.  Then hands them to ``want``: the plain version
+    keeps none."""
+    scan = got["scan"]
+    tiles = scan.numel() - 1
+    words = scan[1:]
+    counts = words & 0xFFFFFFFF
+    flags = (words >> 32) & 3
+    epochs = words >> 34
+    assert int(scan[0]) == passes * (tiles + min(tiles, EMU_RESIDENT)), what
+    assert bool((flags == 2).all()), (what, flags)
+    assert bool((epochs == passes - 1).all()), (what, epochs)
+    steps = torch.diff(counts, prepend=counts.new_zeros(1))
+    assert bool(((steps >= 0) & (steps <= rp.RECORD_TILE)).all()), what
+    assert int(counts[-1]) == int(want["record"][0]), what
+    want["scan"] = scan
+
+
+def _fused_vs_plain(what, state, prim, hit, *, scene, cam, key, ray_ids,
+                    cfg, passes):
+    """K12's pool launch (K13 folded in) on a clone of ``state`` against
+    ``record_shade_plain`` then ``record_regenerate_plain`` on another,
+    bit for bit but for the flat tape's last entry, its scan words checked
+    as the ``passes``-th pass on them; its launch counters move once.
+    Returns the plain state."""
+    got, want = _clone(state), _clone(state)
+    before = rp.record_shade.launches, rp.record_shade.refill_launches
+    rp._launch_shade(got, prim, hit, scene=scene, camera=cam, key=key,
+                     ray_ids=ray_ids, cfg=cfg)
+    assert (rp.record_shade.launches, rp.record_shade.refill_launches) \
+        == (before[0] + 1, before[1] + 1)
+    with _card_rounding():
+        rp.record_shade_plain(want, prim, hit, scene=scene, key=key,
+                              ray_ids=ray_ids, cfg=cfg)
+        rp.record_regenerate_plain(want, camera=cam, key=key,
+                                   ray_ids=ray_ids, cfg=cfg)
+    _record_scan_words(what, got, want, passes)
+    assert int(got["tape"][-1]) == int(state["tape"][-1])
+    want["tape"][-1] = got["tape"][-1]  # the plain pass's scratch entry
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    assert not bad, (what, bad)
+    return want
+
+
+def _pool_passes(host_lib, scene, cam, cfg, key, ray_ids, pool, extra=2,
+                 stale=0):
     """Every pass of the pool recorder over ``ray_ids`` and ``extra`` inert
-    passes after: K12 in pool mode against ``record_shade_plain`` (its scan
-    words checked and handed on) and K13 against
-    ``record_regenerate_plain``, on clones of the same state, bit for bit
-    but for the flat tape's last entry.  Returns (passes, survivors)."""
+    passes after: K12's pool launch, K13 folded in, against
+    ``record_shade_plain`` then ``record_regenerate_plain`` (its scan
+    words checked and handed on), on clones of the same state, bit for bit
+    but for the flat tape's last entry; with ``stale``, on scan words as
+    that many earlier passes left them (the last one's words inclusive
+    prefixes of garbage counts).  Returns (passes, survivors)."""
     state = trp.record_pool_state(cam, key, ray_ids, cfg=cfg,
                                   pool_size=pool)
+    if stale:
+        tiles = state["scan"].numel() - 1
+        state["scan"][0] = stale * (tiles + min(tiles, EMU_RESIDENT))
+        words = torch.arange(tiles, dtype=torch.int64)
+        state["scan"][1:] = ((stale - 1) << 34) | (2 << 32) | (977 * words
+                                                               + 5)
     passes = survivors = inert = 0
     while inert < extra:
         inert += not bool(state["alive"].any())
         prim, _, hit = _brute(scene, state["o"], state["d"], cfg.t_min)
-        got, want = _clone(state), _clone(state)
-        before = rp.record_shade.launches, rp.record_regenerate.launches
-        rp._launch_shade(got, prim, hit, scene=scene, key=key,
-                         ray_ids=ray_ids, cfg=cfg)
-        with _card_rounding():
-            rp.record_shade_plain(want, prim, hit, scene=scene, key=key,
-                                  ray_ids=ray_ids, cfg=cfg)
-        launches = int(state["scan"][0]) // (state["scan"].numel() - 1) + 1
-        _scan_words(f"K12, pass {passes}", got, want, launches)
-        assert int(got["tape"][-1]) == int(state["tape"][-1])
-        want["tape"][-1] = got["tape"][-1]  # the plain pass's scratch entry
-        bad = [k for k in want if not torch.equal(got[k], want[k])]
-        assert not bad, ("K12", passes, bad)
-        survivors += int(want["record"][0])
-        rp._launch_regenerate(got, camera=cam, key=key, ray_ids=ray_ids,
-                              cfg=cfg)
-        with _card_rounding():
-            rp.record_regenerate_plain(want, camera=cam, key=key,
-                                       ray_ids=ray_ids, cfg=cfg)
-        assert (rp.record_shade.launches, rp.record_regenerate.launches) \
-            == (before[0] + 1, before[1] + 1)
-        bad = [k for k in want if not torch.equal(got[k], want[k])]
-        assert not bad, ("K13", passes, bad)
-        state = want
+        state = _fused_vs_plain(f"K12 and K13, pass {passes}", state, prim,
+                                hit, scene=scene, cam=cam, key=key,
+                                ray_ids=ray_ids, cfg=cfg,
+                                passes=stale + passes + 1)
+        survivors += int(state["record"][0])
         passes += 1
     assert int(state["cursor"]) == ray_ids.shape[0]
     return passes, survivors
 
 
-# Pools of 1 block (partial) and 3 blocks (the last partial).
+# Pools of 1 tile (partial) and 3 tiles (the last partial).
 POOLS = {"1block": 200, "3blocks": 2 * 256 + 88}
 
 
@@ -416,8 +461,8 @@ POOLS = {"1block": 200, "3blocks": 2 * 256 + 88}
 def test_pool_passes_equal_plain(host_lib, name, depth, pool):
     """Every pass of the pool recorder over a stream of scattered ray ids
     that ends inside a pass, and two inert passes after it, with 4 blocks
-    in flight: K12 in pool mode and K13 against their plain versions, bit
-    for bit."""
+    in flight: K12's pool launch, K13 folded in, against the plain versions,
+    bit for bit."""
     scene, cam, cfg = _scene(name)
     cfg = dataclasses.replace(cfg, max_depth=depth)
     ray_ids = torch.randperm(cfg.num_rays,
@@ -431,35 +476,29 @@ def test_pool_passes_equal_plain(host_lib, name, depth, pool):
 
 
 def test_pool_at_the_depth_cap_and_stale_words(host_lib):
-    """A pool of 40 blocks, all in flight, whose scan words hold a word of
-    the last pass for every tile (an inclusive prefix of garbage counts),
-    with a dead slot in every five and a slot at the depth cap in every
-    three: bit-equal to the plain versions, nothing past the cap goes on,
-    the stale words are never taken for this pass's."""
+    """A pool of 40 tiles, every block of the grid in flight, whose scan
+    words hold a word of the last pass for every tile (an inclusive prefix
+    of garbage counts), with a dead slot in every five and a slot at the
+    depth cap in every three: K12's pool launch bit-equal to the plain
+    versions, nothing past the cap goes on, the stale words are never
+    taken for this pass's."""
     scene, cam, cfg = build_preset("random-spheres", nx=64, ny=32, spp=8)
     cfg = dataclasses.replace(cfg, max_depth=5)
-    C = 40 * 256 - 17
+    C = 40 * rp.RECORD_TILE - 17
     key, ray_ids = rng.base_key(6), torch.arange(cfg.num_rays)
     state = trp.record_pool_state(cam, key, ray_ids, cfg=cfg, pool_size=C)
     state["alive"][::5] = False
     state["depth"][1::3] = cfg.max_depth
-    blocks = state["scan"].numel() - 1
-    state["scan"][0] = 2 * blocks
-    tiles = torch.arange(blocks, dtype=torch.int64)
-    state["scan"][1:] = (1 << 34) | (2 << 32) | (977 * tiles + 5)
+    tiles = state["scan"].numel() - 1
+    state["scan"][0] = 2 * (tiles + EMU_RESIDENT)
+    words = torch.arange(tiles, dtype=torch.int64)
+    state["scan"][1:] = (1 << 34) | (2 << 32) | (977 * words + 5)
     prim, _, hit = _brute(scene, state["o"], state["d"], cfg.t_min)
-    got, want = _clone(state), _clone(state)
     with _interleaved(host_lib, 64, seed=3) as seen:
-        rp._launch_shade(got, prim, hit, scene=scene, key=key,
-                         ray_ids=ray_ids, cfg=cfg)
+        got = _fused_vs_plain("K12 and K13", state, prim, hit, scene=scene,
+                              cam=cam, key=key, ray_ids=ray_ids, cfg=cfg,
+                              passes=3)
         assert seen()[0] > 0  # look-backs waited on fresh words
-    with _card_rounding():
-        rp.record_shade_plain(want, prim, hit, scene=scene, key=key,
-                              ray_ids=ray_ids, cfg=cfg)
-    _scan_words("K12", got, want, 3)
-    want["tape"][-1] = got["tape"][-1]
-    bad = [k for k in want if not torch.equal(got[k], want[k])]
-    assert not bad, bad
     n_alive = int(got["record"][0])
     assert 0 < n_alive and bool((got["depth"][:n_alive] <= 5).all())
     capped = state["alive"] & (state["depth"] == cfg.max_depth)
@@ -478,8 +517,7 @@ def _through_host_build(monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(dh, "dense_hit_plain", dh._launch_cuda)
         m.setattr(rp, "record_step_plain", rp._launch_step)
-        m.setattr(rp, "record_shade_plain", rp._launch_shade)
-        m.setattr(rp, "record_regenerate_plain", rp._launch_regenerate)
+        m.setattr(trp, "record_shade", rp._launch_shade)
         yield
 
 
@@ -542,7 +580,7 @@ def test_recorders_through_kernels_match_jax(host_lib, monkeypatch, name,
     counters = ((dh.dense_hit, "launches"), (rp.record_step, "launches"),
                 (rp.record_step, "length_launches"),
                 (rp.record_shade, "launches"),
-                (rp.record_regenerate, "launches"))
+                (rp.record_shade, "refill_launches"))
     before = [getattr(f, a) for f, a in counters]
     with _through_host_build(monkeypatch), _card_rounding():
         lock, pool, occ = loops()
@@ -563,9 +601,11 @@ def test_recorders_through_kernels_match_jax(host_lib, monkeypatch, name,
 
 def test_wrappers_refuse_what_kernels_do_not_take(host_lib):
     """A float64 ray or state, a tensor ``t_min``, a scene without a
-    primitive, a misshapen tape, record or scan, a camera that carries a
-    gradient and an empty stream are refused before the launch; no rays
-    launch nothing; another device has no kernel."""
+    primitive, a misshapen tape, record or scan, a state without its
+    arrival word, a camera that carries a gradient and an empty stream are
+    refused before the launch; no rays launch nothing but K12's lockstep
+    mode, whose one block still advances the counter; another device has
+    no kernel."""
     scene, cam, cfg = _scene("random-spheres")
     key, ids = rng.base_key(0), torch.arange(64)
     o, d = camera_rays_plain(cam, cfg.nx, cfg.ny, cfg.spp, key, ids)
@@ -589,34 +629,39 @@ def test_wrappers_refuse_what_kernels_do_not_take(host_lib):
         rp._launch_step(dict(step, o=step["o"].double()), prim, hit, **kw)
     with pytest.raises(ValueError, match="'tape'"):
         rp._launch_step(dict(step, tape=step["tape"][:-1]), prim, hit, **kw)
+    with pytest.raises(ValueError, match="'arrivals'"):
+        rp._launch_step(dict(step, arrivals=step["arrivals"][None]), prim,
+                        hit, **kw)
     pool = trp.record_pool_state(cam, key, ids, cfg=cfg, pool_size=64)
+    pkw = dict(kw, camera=cam)
     with pytest.raises(ValueError, match="'scan'"):
-        rp._launch_shade(dict(pool, scan=pool["scan"][:1]), prim, hit, **kw)
+        rp._launch_shade(dict(pool, scan=pool["scan"][:1]), prim, hit, **pkw)
     with pytest.raises(ValueError, match="'record'"):
-        rp._launch_regenerate(dict(pool, record=pool["record"][:1]),
-                              camera=cam, key=key, ray_ids=ids, cfg=cfg)
+        rp._launch_shade(dict(pool, record=pool["record"][:1]), prim, hit,
+                         **pkw)
     lens = dataclasses.replace(cam, u=cam.u.clone().requires_grad_(True))
     with pytest.raises(ValueError, match="requires grad"):
-        rp._launch_regenerate(pool, camera=lens, key=key, ray_ids=ids,
-                              cfg=cfg)
+        rp._launch_shade(pool, prim, hit, **dict(pkw, camera=lens))
     with pytest.raises(ValueError, match="stream"):
-        rp._launch_regenerate(pool, camera=cam, key=key, ray_ids=ids[:0],
-                              cfg=cfg)
-    before = dh.dense_hit.launches, rp.record_step.launches
+        rp._launch_shade(pool, prim, hit, **dict(pkw, ray_ids=ids[:0]))
+    before = (dh.dense_hit.launches, rp.record_step.launches,
+              rp.record_shade.launches)
     dh._launch_cuda(scene, o[:0], d[:0], 1e-3)
-    rp._launch_step(trp.record_state(o[:0], d[:0], cfg=cfg), prim[:0],
-                    hit[:0], **dict(kw, ray_ids=ids[:0]))
-    assert (dh.dense_hit.launches, rp.record_step.launches) == before
+    empty = trp.record_state(o[:0], d[:0], cfg=cfg)
+    rp._launch_step(empty, prim[:0], hit[:0], **dict(kw, ray_ids=ids[:0]))
+    empty_pool = trp.record_pool_state(cam, key, ids, cfg=cfg, pool_size=0)
+    rp._launch_shade(empty_pool, prim[:0], hit[:0], **pkw)
+    assert (dh.dense_hit.launches, rp.record_step.launches,
+            rp.record_shade.launches) == (before[0], before[1] + 1,
+                                          before[2])
+    assert int(empty["d"]) == 1 and int(empty["arrivals"]) == 0
     meta = {k: v.to("meta") for k, v in step.items()}
     with pytest.raises(ValueError, match="device"):
         dh.dense_hit(scene, o.to("meta"), d.to("meta"), 1e-3)
     with pytest.raises(ValueError, match="device"):
         rp.record_step(meta, prim.to("meta"), hit.to("meta"), **kw)
     with pytest.raises(ValueError, match="device"):
-        rp.record_shade(meta, prim.to("meta"), hit.to("meta"), **kw)
-    with pytest.raises(ValueError, match="device"):
-        rp.record_regenerate(meta, camera=cam, key=key, ray_ids=ids,
-                             cfg=cfg)
+        rp.record_shade(meta, prim.to("meta"), hit.to("meta"), **pkw)
 
 
 def test_failed_build_raises(monkeypatch):
@@ -635,14 +680,13 @@ def test_failed_build_raises(monkeypatch):
     kw = dict(scene=scene, key=key, ray_ids=ids, cfg=cfg)
     counters = ((dh.dense_hit, "launches"), (rp.record_step, "launches"),
                 (rp.record_shade, "launches"),
-                (rp.record_regenerate, "launches"))
+                (rp.record_shade, "refill_launches"))
     before = [getattr(f, a) for f, a in counters]
     for launch in (lambda: dh._launch_cuda(scene, o, d, 1e-3),
                    lambda: rp._launch_step(trp.record_state(o, d, cfg=cfg),
                                            prim, hit, **kw),
-                   lambda: rp._launch_shade(pool, prim, hit, **kw),
-                   lambda: rp._launch_regenerate(pool, camera=cam, key=key,
-                                                 ray_ids=ids, cfg=cfg)):
+                   lambda: rp._launch_shade(pool, prim, hit, camera=cam,
+                                            **kw)):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             launch()
     assert [getattr(f, a) for f, a in counters] == before
@@ -666,31 +710,34 @@ def test_cpu_recorders_run_the_plain_versions(monkeypatch):
     pool = trp.record_pool_state(**inputs, pool_size=32, **static)
     length = metrics._length_state(**inputs, **static)
     for mod, name in ((dh, "_launch_cuda"), (rp, "_launch_step"),
-                      (rp, "_launch_shade"), (rp, "_launch_regenerate"),
-                      (rng, "uniforms"), (rcam, "_launch_cuda")):
+                      (rp, "_launch_shade"), (rng, "uniforms"),
+                      (rcam, "_launch_cuda")):
         monkeypatch.setattr(mod, name, refused)
     trp.record_bounce(lock, **inputs, **static)
     trp.record_pool_pass(pool, **inputs, **static)
     metrics._length_pass(length, **inputs, **static)
-    assert int(lock["d"]) == 1 and int(length["length"].sum()) == 64
+    assert int(lock["d"]) == 1 and int(length["d"]) == 1
+    assert int(length["length"].sum()) == 64
     assert int(pool["record"][1]) == 32 and int(pool["cursor"]) >= 32
 
 
 def test_graph_caches_count_k11_to_k13():
-    """K11's, K12's (each mode) and K13's counters are among those the
-    graph caches take off a capture and add back per replay."""
+    """K11's, K12's (each mode) and K13's (its refills, folded into K12's
+    pool launch) counters are among those the graph caches take off a
+    capture and add back per replay."""
     counters = dgraphed.launch_counters()
     for c in ((dh.dense_hit, "launches"), (rp.record_step, "launches"),
               (rp.record_step, "length_launches"),
               (rp.record_shade, "launches"),
-              (rp.record_regenerate, "launches")):
+              (rp.record_shade, "refill_launches")):
         assert c in counters
     before = dgraphed.launches_now()
     dh.dense_hit.launches += 3
     rp.record_step.length_launches += 2
-    rp.record_regenerate.launches += 1
+    rp.record_shade.refill_launches += 1
     made = dgraphed.take_launches(before)
     assert dgraphed.launches_now() == before
     assert sorted((fn.__name__, attr, n) for fn, attr, n in made) == [
-        ("dense_hit", "launches", 3), ("record_regenerate", "launches", 1),
+        ("dense_hit", "launches", 3),
+        ("record_shade", "refill_launches", 1),
         ("record_step", "length_launches", 2)]
