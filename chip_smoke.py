@@ -9,9 +9,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. Device: a CUDA GPU must be present; prints its name and the
    ``nvidia-smi`` name and power limit.
 2. Build: compiles K1, K2, K2b, K3, K3t, K4, K5, K6, K7, K8, K9, K10,
-   K11, K12 and K13 (kernels/csrc/megakernel.cu, megakernel_clustered.cu,
-   intersect.cu, bvh_walk.cu, rng_rays.cu, wavefront_pass.cu and
-   dense_hit.cu, one nvcc a source, all at once) for
+   K11, K12, K13, K14 and K15 (kernels/csrc/megakernel.cu,
+   megakernel_clustered.cu, intersect.cu, bvh_walk.cu, rng_rays.cu,
+   wavefront_pass.cu, dense_hit.cu and replay.cu, one nvcc a source, all
+   at once) for
    sm_90a; prints ptxas's registers and spills of every kernel, each on a
    line of its own.
 3. K1 vs plain: K1 and its plain PyTorch version on the same card and
@@ -292,7 +293,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the final scene through K4, graphed: K8 once for the init (and once a
    warm-up), K7 never (its passes draw inside K12 and K13, phase 22), its
    tape ``torch.equal`` to the same recorder op by op; the graphed replay
-   of its tape: K7 once a row, K8 once.  Bit-equal to their plain versions
+   of its tape: K8 once, K7 never (it draws inside K14 and K15, phase 23),
+   K14 and K15 once each; K7's own path since then, the differentiable
+   scan (``method="scan"``) at 2^14 rays: K7 once a trip.  Bit-equal to
+   their plain versions
    (``rng.uniforms_plain``, ``camera.camera_rays_plain``: torch ops) on the
    card: K7's camera draw at 2^17 final-scene ids, its bounce draw at a
    0-d depth, at per-ray depths 0-50 and at the ids and depths of the
@@ -370,17 +374,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
    each (K11 once a pass, with the pool's or the chunk's mask), their
    radiance sums within 1% of ``bench_golden.json``, and their seconds
    twice after that first frame.
+23. K14 and K15, the tape replay's value and gradient
+   (``diff.replay_pass``).  On 2^17 camera rays of the final scene, on
+   K2b's tape and on JAX's golden tape, and of field5000 on K3t's: K14's
+   float32 radiance ``torch.equal`` to the plain loop's
+   (``replay_plain``, torch ops, on the card) and K15's float64 gradients
+   of the mean squared radiance within a relative L2 error of 1e-8 per
+   field of the plain loop's autograd (the CPU tests' bound), the float32
+   ones logged beside.  The main path, counters reset before and read
+   after each: the direct step (K14 and K15 once) and the bucketed step
+   (once each a bucket), its gradients finite.  K14 (with and without the
+   scratch) and K15 alone, each call in a CUDA graph (median of 5), the
+   plain loop's forward and backward eager (median of 3), their bounds
+   from this run's rows visited and shaded, rays that add radiance and
+   bounces swept back; the whole-tape replay's graph nodes
+   (``cuGraphGetNodes``) through the kernels and on the plain loop; the
+   graphed replay, the direct step and the bucketed step through the
+   kernels in turns with the same bodies graphed on the plain loop
+   (``plain_replay``), beside their times before (``EARLIER_REPLAY``).
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements (``sharded_launches``: the launches of phases 14 and 15;
 ``bench_launches``: phase 17's, by run; ``direct_step_launches``: phase
 18's, K4 on the final scene and K5 on field5000; K6's ``entry_launches``:
-phase 19's ``entry()`` forward; K7's ``launches``: phase 20's replay,
-K8's: its pool recorder's init, ``frame_launches``: phase 12's frames;
-K9's and K10's: phase 21's pool frame, ``frame_launches``: its frames;
-K11's and K12's lockstep mode: phase 22's direct step, K12's length mode:
-its occupancy scan, K12's pool mode and K13, folded into it: its pool
-recorder) and
+phase 19's ``entry()`` forward; K7's ``launches``: phase 20's
+differentiable scan, K8's: its pool recorder's init, ``frame_launches``:
+phase 12's frames; K9's and K10's: phase 21's pool frame,
+``frame_launches``: its frames; K11's and K12's lockstep mode: phase 22's
+direct step, K12's length mode: its occupancy scan, K12's pool mode and
+K13, folded into it: its pool recorder; K14's and K15's: phase 23's direct
+step, ``bucketed_launches``: its bucketed step) and
 the result line ``{"ok": true, "device": {...}}``.  This
 script imports no JAX.  Bounds count FP32 operations from the sources
 (``first_raytracer_tpu_torch/utils/roofline.py``, which ``bench_torch.py``'s
@@ -402,10 +425,14 @@ to its compacted slot, the scan's status words, ticket and pass record;
 K10 a tail slot's state written.  K11 (kernels/csrc/dense_hit.cu) counts
 K4's 16 a (ray, sphere) and 46 a (ray, triangle) pair; K12 and K13
 (wavefront_pass.cu) count K9's and K10's operations and the bytes their
-inputs need (a dead ray's liveness byte, a live one's state).
+inputs need (a dead ray's liveness byte, a live one's state); K14 and K15
+(replay.cu) count K9's draw and shading a shaded bounce (and K15 120
+operations of its adjoint) and the bytes of the rays, tape entries,
+scratch rows and tables they read and write.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -428,6 +455,7 @@ from first_raytracer_tpu_torch.core import rng
 from first_raytracer_tpu_torch.diff import grad as dg
 from first_raytracer_tpu_torch.diff import record_pass as rpass
 from first_raytracer_tpu_torch.diff import replay as rrep
+from first_raytracer_tpu_torch.diff import replay_pass as rreplay
 from first_raytracer_tpu_torch.diff.replay import (plan_buckets,
                                                    record_paths,
                                                    record_paths_pool,
@@ -466,7 +494,8 @@ from first_raytracer_tpu_torch.utils.roofline import (bound,
                                                       k6_bound, k7_bound,
                                                       k8_bound, k9_bound,
                                                       k10_bound, k11_bound,
-                                                      k12_bound)
+                                                      k12_bound, k14_bound,
+                                                      k15_bound)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_KEY = "radiance_sum_mega_1200x800_10spp"
@@ -494,7 +523,10 @@ KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("regenerate_kernel", "K10"),
                   ("dense_hit_kernel", "K11"),
                   ("record_step_kernel", "K12 (lockstep, length)"),
-                  ("record_pool_kernel", "K12 (pool) and K13"))
+                  ("record_pool_kernel", "K12 (pool) and K13"),
+                  ("replay_forward_kernel", "K14"),
+                  ("replay_backward_kernel", "K15"),
+                  ("round_kernel", "K15 (its rounding)"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
 # Phases 8 and 10: the small scenes.
@@ -855,6 +887,8 @@ def reset_counts():
     rpass.record_step.length_launches = 0
     rpass.record_shade.launches = 0
     rpass.record_shade.refill_launches = 0
+    rreplay.replay.launches = 0
+    rreplay.replay.backward_launches = 0
     graphed.LOOPS.reset_counts()
 
 
@@ -946,7 +980,7 @@ def tape_agreement(what, got, want, floor):
 
 
 def build():
-    """Phase 2: the one library of K1-K13."""
+    """Phase 2: the one library of K1-K15."""
     _, info = mk.load_mega_library()
     log(f"build: {os.path.relpath(info.path, ROOT)} (nvcc "
         f"{info.seconds:.2f} s, cached={info.cached})")
@@ -959,7 +993,7 @@ def build():
 
 def ptxas_kernels(text):
     """(label, function, registers, spill line) of each entry in ptxas -v
-    output, labelled K1-K13."""
+    output, labelled K1-K15."""
     out, entry, spills = [], None, ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -3183,7 +3217,9 @@ def rng_rays_path(dev, key, card, frame_draws):
     # after: the pool recorder over 2^17 rays of the final scene through
     # K4, graphed, whose init makes its camera rays through K8 (its passes
     # draw and make rays inside K12 and K13, phase 22), and the replay of
-    # its tape, which draws through K7 a row (and K8 for its rays).
+    # its tape, which makes its rays through K8 and draws inside K14 and
+    # K15 (phase 23).  K7's own path since then: the differentiable scan
+    # (``method="scan"``), a draw a trip.
     def recorder(graphed_=None):
         return record_paths_pool(scene, cam, cfg, key, ids, pack,
                                  ip.intersect_pallas, pool_size=1 << 14,
@@ -3212,13 +3248,26 @@ def rng_rays_path(dev, key, card, frame_draws):
     dg.render_loss_and_grads_tape(params, scene, cam, cfg, key, ids, target,
                                   tape)
     torch.cuda.synchronize()
-    n7, n8r = rng.uniforms.launches, rcam.camera_rays.launches
+    n7r, n8r = rng.uniforms.launches, rcam.camera_rays.launches
+    n14, n15 = rreplay.replay.launches, rreplay.replay.backward_launches
     log(f"  the replay of its {tape.shape[0]} rows, graphed: K7 launches "
-        f"{n7}, K8 launches {n8r}")
-    if not (n7 == tape.shape[0] and n8r == 1):
-        raise AssertionError(f"the replay's K7 and K8 launches {n7}, {n8r} "
-                             "are not one a row and one")
+        f"{n7r}, K8 {n8r}, K14 {n14}, K15 {n15}")
+    if not (n7r == 0 and n8r == 1 and n14 == n15 == 1):
+        raise AssertionError(f"the replay's K7, K8, K14 and K15 launches "
+                             f"{n7r}, {n8r}, {n14}, {n15} are not 0, 1, 1, 1")
     del tape
+    scan_ids = ids[:1 << 14]
+    reset_counts()
+    loss_s, _ = dg.render_loss_and_grads(params, scene, cam, cfg, key,
+                                         scan_ids, target[:1 << 14],
+                                         method="scan")
+    torch.cuda.synchronize()
+    n7 = rng.uniforms.launches
+    log(f"  the differentiable scan (method=\"scan\") at {len(scan_ids)} "
+        f"rays: K7 launches {n7} (a draw a trip), loss {float(loss_s):.9g}")
+    if not (n7 == cfg.max_depth + 1 and bool(torch.isfinite(loss_s))):
+        raise AssertionError(f"the scan's K7 launches {n7} are not one a "
+                             "trip, or its loss is not finite")
 
     # K7 and K8 against their plain versions on the card, bit for bit.
     draws = [("the camera draw at 2^17 ids", ids, 0, 0),
@@ -4331,6 +4380,268 @@ def record_pass_path(dev, key, card):
             "launches": n_pool["K13"]})]
 
 
+# Phase 23: K14 and K15, the tape replay on the device.  K15's float64
+# gradients against the plain loop's autograd, relative L2 per field: the
+# CPU tests' bound (tests/test_torch_replay_pass.py).
+REPLAY_F64_BOUND = 1e-8
+# The replay and the steps before K14 and K15 (PERF.md section 5, PRs
+# 19-21; an NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
+EARLIER_REPLAY = {"nodes": "~30,000 (585.6 a row)",
+                  "graphed replay": "0.082-0.090 s",
+                  "direct step": "0.0921-0.0934 s",
+                  "bucketed step": "0.099-0.110 s"}
+# The graphs of the bodies on the plain loop, kept apart from ``dg.GRAPHS``.
+PLAIN_GRAPHS = dg.GraphCache(maxsize=4)
+
+
+@contextlib.contextmanager
+def plain_replay():
+    """The plain loop in place of K14 and K15 in ``trace_rays_replay``,
+    the bodies' graphs in ``PLAIN_GRAPHS``: the card's yardstick."""
+    saved = rrep.replay, dg.GRAPHS
+    rrep.replay, dg.GRAPHS = rreplay.replay_plain, PLAIN_GRAPHS
+    try:
+        yield
+    finally:
+        rrep.replay, dg.GRAPHS = saved
+
+
+def replay_sets(dev, key):
+    """Phase 23's sets: (label, scene, camera, cfg, o, d, tape) of 2^17
+    camera rays, the final scene on K2b's tape and on JAX's golden tape,
+    field5000 on K3t's."""
+    R = GRAD_RAYS
+    ids = torch.arange(R, device=dev)
+    scene, cam, cfg = build_preset("random-spheres", device=dev)
+    o, d = rcam.camera_rays(cam, cfg.nx, cfg.ny, cfg.spp, key, ids)
+    tape_b = rm.record_paths_mega(mk.pack_scene_mega(scene), cam, cfg, key,
+                                  num_rays=R)
+    with np.load(GRAD_GOLDEN_TAPE) as saved:
+        jax_tape = torch.from_numpy(saved["tape"].astype(np.int32)).to(dev)
+    f5, cam5, cfg5 = build_preset("sphere-field", device=dev, n=5000)
+    o5, d5 = rcam.camera_rays(cam5, cfg5.nx, cfg5.ny, cfg5.spp, key, ids)
+    tape5 = rm.record_paths_mega_clustered(
+        mc.pack_scene_mega_clustered(f5, cam5), cam5, cfg5, key, num_rays=R)
+    return ids, [("final scene, K2b's tape", scene, cam, cfg, o, d, tape_b),
+                 ("final scene, JAX's tape", scene, cam, cfg, o, d,
+                  jax_tape),
+                 ("field5000, K3t's tape", f5, cam5, cfg5, o5, d5, tape5)]
+
+
+def replay_loss(fn, scene, o, d, ids, key, cfg, tape):
+    """The mean squared radiance (a zero target) of the replay ``fn`` as a
+    function of the params."""
+    return lambda p: torch.mean(fn(dg.merge_params(scene, p), o, d, ids,
+                                   key, cfg, tape) ** 2)
+
+
+def replay_vs_plain(label, scene, cfg, o, d, ids, key, tape):
+    """K14's float32 radiance ``torch.equal`` to the plain loop's; K15's
+    float64 gradients within ``REPLAY_F64_BOUND`` of the plain loop's
+    autograd, its float32 ones logged beside.  Returns the largest float64
+    |a - b| and relative error."""
+    with torch.no_grad():
+        got = rreplay.replay_kernels(scene, o, d, ids, key, cfg, tape)
+        want = rreplay.replay_plain(scene, o, d, ids, key, cfg, tape)
+    bit_equal(f"K14 float32 radiance, {label}", [got], [want])
+    worst = {}
+    for dtype in ("float32", "float64"):
+        sc = scene if dtype == "float32" else to_f64(scene)
+        o_, d_ = (o, d) if dtype == "float32" else (o.double(), d.double())
+        params, _ = dg.split_params(sc)
+        loss_k, gk = dg.value_and_grad(replay_loss(
+            rreplay.replay_kernels, sc, o_, d_, ids, key, cfg, tape), params)
+        loss_p, gp = dg.value_and_grad(replay_loss(
+            rreplay.replay_plain, sc, o_, d_, ids, key, cfg, tape), params)
+        errs = {k: rel_err(gk[k], gp[k]) for k in gp}
+        abs_err = max(float((gk[k].double() - gp[k].double()).abs().max())
+                      if gp[k].numel() else 0.0 for k in gp)
+        log(f"    K15 {dtype} gradients, {label}: loss {float(loss_k):.17g} "
+            f"vs plain {float(loss_p):.17g}; relative L2 error by field "
+            + ", ".join(f"{k} {e[0]:.3e}" if e[0] is not None else
+                        f"{k} (zero; port norm {e[1]:.3e})"
+                        for k, e in errs.items())
+            + f"; largest |a - b| {abs_err:.3e}"
+            + (f" (bound {REPLAY_F64_BOUND:g})" if dtype == "float64"
+               else " (logged)"))
+        if dtype == "float64":
+            bad = [k for k, (e, n) in errs.items()
+                   if (n != 0.0 if e is None else not e <= REPLAY_F64_BOUND)]
+            dl = abs(float(loss_k) - float(loss_p)) / float(loss_p)
+            if bad or not dl <= REPLAY_F64_BOUND:
+                raise AssertionError(f"K15's float64 gradients off the plain "
+                                     f"loop's on {label}: {bad}")
+            worst = dict(abs=abs_err, rel=max(
+                (e for e, _ in errs.values() if e is not None), default=0.0))
+    return worst
+
+
+def replay_turns(fns, plain_fns, card):
+    """Seconds of each step through K14 and K15 and through the plain
+    loop's graph, in turns (kernels, plain, plain, kernels, kernels,
+    plain) after a warm call of each; logs and returns the medians."""
+    times = {k: {"kernels": [], "plain": []} for k in fns}
+    for k in fns:
+        fns[k]()
+        with plain_replay():
+            plain_fns[k]()
+        for route in ("kernels", "plain", "plain", "kernels", "kernels",
+                      "plain"):
+            if route == "kernels":
+                times[k][route].append(host_s(fns[k])[0])
+            else:
+                with plain_replay():
+                    times[k][route].append(host_s(plain_fns[k])[0])
+    log("  graphed, in turns (kernels, plain, plain, kernels, kernels, "
+        "plain), s: " + "; ".join(
+            f"{k}: K14/K15 {', '.join(f'{t:.4f}' for t in v['kernels'])}, "
+            f"plain loop {', '.join(f'{t:.4f}' for t in v['plain'])} "
+            f"(before: {EARLIER_REPLAY[k]})" for k, v in times.items())
+        + f"; on {card}")
+    return {k: {r: statistics.median(t) for r, t in v.items()}
+            for k, v in times.items()}
+
+
+def replay_pass_path(dev, key, card):
+    """Phase 23.  Returns K14's and K15's entries of the kernels line."""
+    R = GRAD_RAYS
+    key = key.to(dev)
+    ids, sets = replay_sets(dev, key)
+    worst = {"abs": 0.0, "rel": 0.0}
+    for label, sc, _, cf, o, d, tape in sets:
+        w = replay_vs_plain(label, sc, cf, o, d, ids, key, tape)
+        worst = {k: max(worst[k], w[k]) for k in worst}
+    label, scene, cam, cfg, o, d, tape = sets[0]
+    del sets
+    torch.cuda.empty_cache()
+    target = torch.zeros((R, 3), device=dev)
+    params, _ = dg.split_params(scene)
+
+    # The main path, the counters reset just before each run and read just
+    # after: the direct step (the whole tape's value and gradient, one K14
+    # and one K15 a replay of its graph) and the bucketed step (one each a
+    # bucket).
+    dg.render_loss_and_grads(params, scene, cam, cfg, key, ids, target)
+    reset_counts()
+    loss, grads = dg.render_loss_and_grads(params, scene, cam, cfg, key,
+                                           ids, target)
+    torch.cuda.synchronize()
+    n14, n15 = rreplay.replay.launches, rreplay.replay.backward_launches
+    record = dg.tape_recorder(scene, cam, cfg, ids, dev)
+    plan = plan_buckets(record(scene, key))
+
+    def bucketed():
+        tape_ = record(scene, key)
+        return dg.render_loss_and_grads_bucketed(
+            params, scene, cam, cfg, key, ids, target, tape_,
+            plan=plan_buckets(tape_))
+    bucketed()
+    reset_counts()
+    bucketed()
+    torch.cuda.synchronize()
+    m14, m15 = rreplay.replay.launches, rreplay.replay.backward_launches
+    log(f"  the main path, counters reset: the direct step at {R} rays: K14 "
+        f"{n14}, K15 {n15} (loss {float(loss):.9g}); the bucketed step "
+        f"({len(plan[1])} buckets {plan[1]}): K14 {m14}, K15 {m15}")
+    if not (n14 == n15 == 1 and m14 == m15 == len(plan[1])):
+        raise AssertionError("the steps did not launch K14 and K15 once a "
+                             "replay of each bucket")
+    for k, g in grads.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite gradient {k}")
+
+    # K14 and K15 alone at 2^17 rays on K2b's tape (each call in a CUDA
+    # graph, its replays timed by events, median of 5), and the plain
+    # loop's forward and backward eager (median of 3).
+    sph, tri = (t if t is None else t.detach()
+                for t in rreplay._payload_tables(scene))
+    k = rng.device_key(key, dev)
+    fwd_args = (sph, tri, o, d, ids, k, tape, cfg.max_depth, cfg.t_min)
+    rad, save, end = rreplay.launch_forward(*fwd_args)
+    g_rad = 2.0 * rad / rad.numel()
+
+    def k14():
+        return rreplay.launch_forward(*fwd_args)
+
+    def k15():
+        return rreplay.launch_backward(sph, tri, ids, k, tape, cfg.max_depth,
+                                       cfg.t_min, save, end, g_rad)
+    ms14, ms15 = graph_ms(k14, 5), graph_ms(k15, 5)
+    ms14_nograd = graph_ms(lambda: rreplay.launch_forward(
+        *fwd_args, grads=False), 5)
+    fwd_s, bwd_s = [], []
+    for _ in range(3):
+        leaves = {n: v.detach().requires_grad_(True)
+                  for n, v in params.items()}
+        with torch.enable_grad():
+            t_f, out = host_s(lambda: torch.mean(rreplay.replay_plain(
+                dg.merge_params(scene, leaves), o, d, ids, key, cfg,
+                tape) ** 2))
+            t_b, _ = host_s(lambda: torch.autograd.grad(
+                out, list(leaves.values()), allow_unused=True))
+        fwd_s.append(t_f)
+        bwd_s.append(t_b)
+    plain_fwd_ms = statistics.median(fwd_s) * 1e3
+    plain_bwd_ms = statistics.median(bwd_s) * 1e3
+
+    # Bounds from this run's rays: the rows each visited and shaded, the
+    # rays that added radiance and the bounces K15 swept back.
+    contributing = int((end >= 0).sum())
+    swept = int(end.clamp(min=0).long().sum())
+    lead = (tape >= 0).int().cumprod(0).sum(0).long()
+    visits = int(torch.where(end >= 0, end.long() + 1, lead).sum())
+    shaded = int(torch.where(end >= 0, end.long(), lead).sum())
+    values = sum(t.numel() for t in (sph, tri) if t is not None)
+    b14 = k14_bound(values, R, visits, shaded)
+    b15 = k15_bound(values, R, contributing, swept)
+    scratch = rreplay.scratch_bytes(tape.shape[0], R)
+    log(f"  K14 at {R} rays, {tape.shape[0]} rows: {ms14:.4f} ms with the "
+        f"scratch ({scratch / 1e6:.1f} MB, {visits} rows visited, {shaded} "
+        f"shaded), {ms14_nograd:.4f} ms without (bound {b14[0]:.5f} ms, "
+        f"{b14[1]}); K15 {ms15:.4f} ms ({contributing} rays add radiance, "
+        f"{swept} bounces swept back; bound {b15[0]:.5f} ms, {b15[1]}); "
+        f"the plain loop eager: forward {plain_fwd_ms:.1f} ms, backward "
+        f"{plain_bwd_ms:.1f} ms (median of 3); on {card}")
+
+    # The replay's graph, and the steps graphed through the kernels in
+    # turns with the same bodies graphed on the plain loop.
+    def replay_body():
+        return dg.tape_loss_and_grads(params, scene, cam, key, ids, target,
+                                      tape, cfg=cfg)
+    nodes = graph_nodes(replay_body)
+    with plain_replay():
+        plain_nodes = graph_nodes(replay_body)
+    log(f"  the whole-tape replay's graph ({tape.shape[0]} rows): {nodes} "
+        f"nodes through K14 and K15, {plain_nodes} on the plain loop "
+        f"(before: {EARLIER_REPLAY['nodes']})")
+
+    def step_fns():
+        return {
+            "graphed replay": lambda: dg.render_loss_and_grads_tape(
+                params, scene, cam, cfg, key, ids, target, tape),
+            "direct step": lambda: dg.render_loss_and_grads(
+                params, scene, cam, cfg, key, ids, target),
+            "bucketed step": bucketed}
+    turns = replay_turns(step_fns(), step_fns(), card)
+    src = "first_raytracer_tpu_torch/kernels/csrc/replay.cu"
+    common = {"route": "cuda", "source": src, "replaces": rreplay.REPLACES,
+              "library_ms": None, "nodes": nodes, "plain_nodes": plain_nodes,
+              "steps_s": turns}
+    return [dict(common, **{
+        "name": "K14 tape replay forward (diff.replay_pass.replay), 2^17 "
+                "rays of the final scene on K2b's tape, with the scratch",
+        "launches": n14, "bucketed_launches": m14, "max_abs_err": 0.0,
+        "ms": ms14, "ms_without_scratch": ms14_nograd,
+        "plain_ms": plain_fwd_ms, "bound_ms": b14[0], "bound_by": b14[1],
+        "scratch_bytes": scratch}), dict(common, **{
+        "name": "K15 tape replay backward (diff.replay_pass.replay), 2^17 "
+                "rays of the final scene on K2b's tape",
+        "launches": n15, "bucketed_launches": m15,
+        "max_abs_err": worst["abs"], "max_rel_err_f64": worst["rel"],
+        "ms": ms15, "plain_ms": plain_bwd_ms, "bound_ms": b15[0],
+        "bound_by": b15[1]})]
+
+
 def bench_runs(card):
     """Phase 17: ``python3 bench_torch.py`` in subprocesses, one for each
     of ``BENCH_RUNS``.  Each must exit 0 with one JSON line without an
@@ -4440,6 +4751,9 @@ def main():
     torch.cuda.empty_cache()
     log("K11, K12 and K13, the recorders on the device:")
     k11_13 = record_pass_path(dev, key, card)  # 22.
+    torch.cuda.empty_cache()
+    log("K14 and K15, the tape replay on the device:")
+    k14_15 = replay_pass_path(dev, key, card)  # 23.
     k6["bench_launches"] = bench["K6"]
     k4["direct_step_launches"] = direct["launches"]["K4"]
     k5["direct_step_launches"] = direct["launches"]["K5"]
@@ -4488,7 +4802,7 @@ def main():
         "plain_ms": t10["plain_ms"], "bound_ms": t10["bound"][0],
         "bound_by": t10["bound"][1], "library_ms": None,
         "bench_launches": bench["K3t"]}, k4, k5, k6, k7, k8, k9, k10,
-        *k11_13]}))
+        *k11_13, *k14_15]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

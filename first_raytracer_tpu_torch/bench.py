@@ -73,7 +73,7 @@ from .accel import traverse
 from .core import rng
 from .diff import grad as dg
 from .diff.replay import live_trips, plan_buckets, record_paths_pool
-from .diff import record_pass
+from .diff import record_pass, replay_pass
 from .kernels import dense_hit
 from .kernels import intersect_clustered as ic
 from .kernels import intersect_pallas as ip
@@ -126,7 +126,9 @@ COUNTERS = (("K1", mk.render_pixels_mega, "launches"),
             ("K12", record_pass.record_step, "launches"),
             ("K12 (length)", record_pass.record_step, "length_launches"),
             ("K12 (pool)", record_pass.record_shade, "launches"),
-            ("K13", record_pass.record_shade, "refill_launches"))
+            ("K13", record_pass.record_shade, "refill_launches"),
+            ("K14", replay_pass.replay, "launches"),
+            ("K15", replay_pass.replay, "backward_launches"))
 # The closest-hit kernel and wrapper of each BENCH_INTERSECT (the dense
 # sweep is K11, ``default_intersect``'s).
 INTERSECT_KERNEL = {"pallas": "K4", "clustered": "K5", "bvh": "K6",

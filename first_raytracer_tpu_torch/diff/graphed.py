@@ -80,13 +80,14 @@ def _map(fn, obj):
 
 def launch_counters():
     """(wrapper, attribute) of the launch counters a graphed body can move:
-    K4's, K5's, K6's, K7's, K8's, K9's, K10's, K11's, K12's (each mode)
-    and K13's (its refills, folded into K12's pool launch)."""
+    K4's, K5's, K6's, K7's, K8's, K9's, K10's, K11's, K12's (each mode),
+    K13's (its refills, folded into K12's pool launch), K14's and K15's
+    (the tape replay's value and gradient)."""
     from ..accel import traverse
     from ..core import rng
     from ..kernels import dense_hit, intersect_clustered, intersect_pallas
     from ..render import camera, wavefront_pass
-    from . import record_pass
+    from . import record_pass, replay_pass
     return ((intersect_pallas.intersect_pallas, "launches"),
             (intersect_clustered.intersect_clustered, "launches"),
             (traverse.intersect_bvh, "launches"),
@@ -98,7 +99,9 @@ def launch_counters():
             (record_pass.record_step, "launches"),
             (record_pass.record_step, "length_launches"),
             (record_pass.record_shade, "launches"),
-            (record_pass.record_shade, "refill_launches"))
+            (record_pass.record_shade, "refill_launches"),
+            (replay_pass.replay, "launches"),
+            (replay_pass.replay, "backward_launches"))
 
 
 def launches_now():

@@ -18,16 +18,24 @@ equation, not the traversal), so the pass splits in two:
    survivor count and the stream's cursor on the device, run through
    ``render.graphed.run_loop`` (CUDA graphs on the card, one read of
    "any ray alive" per block of passes).
-2. **Replay** (differentiated by ``torch.autograd``): a Python loop over the
-   tape's rows in which each bounce recomputes the hit record from the
-   recorded id and shades.  No intersection appears in the autograd graph.
+2. **Replay** (``trace_rays_replay``, differentiated): each bounce
+   recomputes the hit record from the recorded id and shades.  No
+   intersection appears in the gradient.  On a CUDA device it is two
+   kernels behind one ``torch.autograd.Function``
+   (``diff/replay_pass.py``): K14 walks each ray's tape column and keeps
+   each live bounce's (o, dr, throughput), a dense (rows, R, 9) scratch
+   (2^17 rays x 51 rows: 241 MB in float32), and K15 sweeps each ray's
+   bounces back and sums the payload tables' gradients in float64.  On the
+   CPU the plain loop over the tape's rows runs under autograd.
 
 The winner's geometry and material come from per-primitive payload tables
-by an exact ``index_select``, whose backward is an ``index_add``.  The JAX
-package extracts them with a one-hot matmul on the TPU's matrix unit and
-switches to a gather above 4096 primitives; on a GPU the gather is exact
-and cheap at every size, so there is one path.  No checkpointing: at 2^17
-rays and 51 trips the saved activations are about 1.6 GB.
+(``replay_pass._payload_tables``).  The plain loop gathers them by an
+exact ``index_select``, whose backward is an ``index_add`` in float64.
+The JAX package extracts them with a one-hot matmul on the TPU's matrix
+unit and switches to a gather above 4096 primitives; on a GPU the gather
+is exact and cheap at every size, so there is one path.  The JAX
+package's ``jax.checkpoint`` bounds its replay's memory on the TPU; the
+port keeps the few bounces a ray lives instead.
 
 ``live_trips`` and ``plan_buckets`` are host NumPy, copied: they trim the
 all-dead rows of a tape and sort rays into depth buckets so that each
@@ -40,16 +48,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..core import rng
-from ..core.vecmath import constant, point_at
-from ..geometry.sphere import BIG, sphere_hit_one, sphere_normal
-from ..geometry.triangle import triangle_hit_one, triangle_normal
-from ..materials.scatter import scatter_from_params
 from ..render.camera import camera_rays
-from ..render.integrator import (UP, RenderConfig, closest_hit,
-                                 default_intersect, sky_color)
-from ..scene.textures import texture_from_params
+from ..render.integrator import RenderConfig, closest_hit, default_intersect
 from .record_pass import record_scratch, record_shade, record_step
+from .replay_pass import replay
 
 __all__ = ["record_paths", "record_camera_paths", "record_paths_pool",
            "record_state", "camera_record_state", "record_bounce",
@@ -293,140 +295,15 @@ def plan_buckets(tape, max_groups: int = 6, quantum: int = 1024):
             tuple(tuple(g) for g in groups))
 
 
-def _mat_block(scene, mat_ids):
-    """(N, 11) f32 material payload rows for per-primitive material ids:
-    mtype, fuzz, ref_idx, albedo (3), albedo2 (3), tex_scale, tex_type.
-    The integer types ride as f32 (exact) and are cast back on use."""
-    m = mat_ids.long()
-    return torch.cat([
-        scene.mat_type[m].to(torch.float32)[:, None],
-        scene.fuzz[m][:, None],
-        scene.ref_idx[m][:, None],
-        scene.albedo[m],
-        scene.albedo2[m],
-        scene.tex_scale[m][:, None],
-        scene.tex_type[m].to(torch.float32)[:, None],
-    ], dim=1)
-
-
-def _payload_tables(scene):
-    """Per-primitive payload tables: (Ns, 4 + 11) spheres, (Nt, 9 + 11)
-    triangles; geometry and the material row in one table, differentiable
-    in every scene leaf."""
-    sph = tri = None
-    if scene.num_spheres:
-        sph = torch.cat([scene.sphere_center, scene.sphere_radius[:, None],
-                         _mat_block(scene, scene.sphere_mat)], dim=1)
-    if scene.num_triangles:
-        tri = torch.cat([scene.tri_v0, scene.tri_v1, scene.tri_v2,
-                         _mat_block(scene, scene.tri_mat)], dim=1)
-    return sph, tri
-
-
-class _Extract(torch.autograd.Function):
-    """Payload rows ``table[idx]``: an exact gather forward, an
-    ``index_add`` into a float64 buffer backward.
-
-    The backward sums each row's gradient over the rays that read it in
-    float64 and rounds it once: a row that many rays read (the ground
-    sphere's, a hundred thousand at 2^17 rays) otherwise accumulates
-    float32 rounding in proportion to their count, 3e-4 of the final
-    scene's largest albedo gradient at 2^17 rays, so that the same rays
-    summed in another grouping (the sharded step's ranks) gave another
-    gradient.  The forward gathers in the table's own type."""
-
-    @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.rows = table.shape[0]
-        return table.index_select(0, idx)
-
-    @staticmethod
-    def backward(ctx, grad):
-        idx, = ctx.saved_tensors
-        acc = grad.new_zeros((ctx.rows, grad.shape[1]), dtype=torch.float64)
-        return acc.index_add_(0, idx, grad.double()).to(grad.dtype), None
-
-
-_extract = _Extract.apply
-
-
-def _resolve_from_tape(scene, sph_t, tri_t, o, dr, rec, t_min):
-    """Differentiable hit record and material payload from recorded ids.
-
-    Mirrors ``render.integrator.recompute_hit`` branch for branch (clamped
-    ids, masked mixed select).  Returns ``(t, p, n, mat_payload)``, the
-    payload being the (R, 11) material block.
-    """
-    ns, nt = scene.num_spheres, scene.num_triangles
-    rec0 = rec.long().clamp(min=0)
-    if nt == 0:
-        pay = _extract(sph_t, rec0.clamp(max=ns - 1))
-        c, r = pay[:, 0:3], pay[:, 3]
-        t = sphere_hit_one(o, dr, c, r, t_min, BIG)
-        p, n = sphere_normal(o, dr, t, c, r)
-        return t, p, n, pay[:, 4:]
-    if ns == 0:
-        pay = _extract(tri_t, rec0.clamp(max=nt - 1))
-        v0, v1, v2 = pay[:, 0:3], pay[:, 3:6], pay[:, 6:9]
-        t = triangle_hit_one(o, dr, v0, v1, v2, t_min, BIG)
-        return t, point_at(o, dr, t), triangle_normal(v0, v1, v2), pay[:, 9:]
-    is_sph = rec0 < ns
-    pay_s = _extract(sph_t, rec0.clamp(0, ns - 1))
-    pay_t = _extract(tri_t, (rec0 - ns).clamp(0, nt - 1))
-    c, r = pay_s[:, 0:3], pay_s[:, 3]
-    v0, v1, v2 = pay_t[:, 0:3], pay_t[:, 3:6], pay_t[:, 6:9]
-    t_s = sphere_hit_one(o, dr, c, r, t_min, BIG)
-    t_t = triangle_hit_one(o, dr, v0, v1, v2, t_min, BIG)
-    t = torch.where(is_sph, t_s, t_t)
-    p = point_at(o, dr, t)
-    _, n_s = sphere_normal(o, dr, t, c, r)
-    n = torch.where(is_sph[:, None], n_s, triangle_normal(v0, v1, v2))
-    mat = torch.where(is_sph[:, None], pay_s[:, 4:], pay_t[:, 9:])
-    return t, p, n, mat
-
-
 def trace_rays_replay(scene, origin, direction, ray_ids, key,
                       cfg: RenderConfig, tape):
     """Differentiable (R, 3) radiance from a recorded primitive tape.
 
     The masked math of ``trace_rays`` with the intersector replaced by a
     tape lookup; one trip per tape row (slice the tape with ``live_trips``
-    to skip all-dead rows).  Dead and missing lanes get sanitized hit data
-    before shading, so their t = BIG points feed no Inf or NaN into the
-    gradients.
+    to skip all-dead rows).  On a CUDA device K14 computes it and K15 its
+    gradient with respect to the scene's payload tables, behind one
+    ``torch.autograd.Function``; on the CPU the plain op-by-op loop runs
+    under autograd (``diff/replay_pass.py``).
     """
-    dev = origin.device
-    R = origin.shape[0]
-    sph_t, tri_t = _payload_tables(scene)
-    up = constant(UP, torch.float32, dev)
-    o, dr = origin, direction
-    throughput = torch.ones((R, 3), dtype=torch.float32, device=dev)
-    radiance = torch.zeros((R, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones((R,), dtype=torch.bool, device=dev)
-    for d in range(tape.shape[0]):
-        rec = tape[d]
-        t, p, n, matp = _resolve_from_tape(scene, sph_t, tri_t, o, dr, rec,
-                                           cfg.t_min)
-        hit = (rec >= 0) & (t < BIG)
-        p = torch.where(hit[:, None], p, 0.0)
-        n = torch.where(hit[:, None], n, up)
-
-        miss_now = alive & ~hit
-        radiance = radiance + torch.where(
-            miss_now[:, None], throughput * sky_color(dr), 0.0)
-
-        uniforms = rng.bounce_uniforms(key, ray_ids, d)
-        tex = texture_from_params(matp[:, 10].to(torch.int32), matp[:, 3:6],
-                                  matp[:, 6:9], matp[:, 9], p)
-        new_dir, attenuation, scattered_ok = scatter_from_params(
-            matp[:, 0].to(torch.int32), matp[:, 1], matp[:, 2], tex, dr, p,
-            n, uniforms)
-        cont = alive & hit & scattered_ok & (d < cfg.max_depth)
-
-        throughput = torch.where(cont[:, None], throughput * attenuation,
-                                 throughput)
-        o = torch.where(cont[:, None], p, o)
-        dr = torch.where(cont[:, None], new_dir, dr)
-        alive = cont
-    return radiance
+    return replay(scene, origin, direction, ray_ids, key, cfg, tape)

@@ -168,6 +168,7 @@
 
 #include "camera_rays.cuh"
 #include "mega_common.cuh"
+#include "shade.cuh"
 #include "torch_hits.cuh"
 
 namespace {
@@ -180,10 +181,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kBig = 1e30f;
-constexpr float kNormEps = 1e-20f;
-constexpr int kMetal = 1;
-constexpr int kDielectric = 2;
-constexpr int kChecker = 1;
 
 // A status word of the look-back: the count in bits 0-31, the flag in bits
 // 32-33 (0: not this pass's yet), the pass's epoch in bits 34-63.
@@ -194,24 +191,6 @@ constexpr Word kAggregate = 1ull << 32;
 constexpr Word kPrefix = 2ull << 32;
 constexpr int kEpochShift = 34;
 constexpr Word kEpochMask = (1ull << 30) - 1;
-
-// torch.prod over a row of three, in the order of the device it runs on.
-__device__ __forceinline__ float prod3(float x, float y, float z) {
-#if defined(__CUDA_ARCH__)
-  return (x * z) * y;
-#else
-  return (x * y) * z;
-#endif
-}
-
-// vecmath.normalize(v, eps): the squared length floored at eps (a NaN
-// kept), then v * (1 / sqrt(n2)) where n2 > 0, else 0.
-__device__ __forceinline__ V3 normalize(V3 v, float eps) {
-  float n2 = dot(v, v);
-  if (eps > 0.0f) n2 = n2 < eps ? eps : n2;
-  const float inv = n2 > 0.0f ? 1.0f / sqrtf(n2) : 0.0f;
-  return scale(inv, v);
-}
 
 // The scene's tensors (scene/soa.py::Scene), each its own.
 struct SceneArgs {
@@ -232,12 +211,9 @@ struct SceneArgs {
   int ns, nt, nm;
 };
 
-// The winning primitive's rows: a sphere's centre and radius in a and r, or
-// a triangle's three vertices, and its material id.
-struct Prim {
-  bool sphere;
-  V3 a, b, c;
-  float r;
+// The winning primitive's rows: its geometry (shade.cuh::Geom) and its
+// material id.
+struct Prim : Geom<float> {
   int m;
 };
 
@@ -271,26 +247,19 @@ __device__ __forceinline__ Prim gather_prim(const SceneArgs& sc, int prim) {
   return g;
 }
 
-// A material's row (materials/scatter.py, scene/textures.py), every field
-// in one step.
-struct Material {
-  int type, tex;
-  V3 albedo, albedo2;
-  float tex_scale, fuzz, ref_idx;
-};
-
-__device__ __forceinline__ Material gather_material(const SceneArgs& sc,
-                                                    int m) {
+// A material's row (shade.cuh::Material), every field in one step.
+__device__ __forceinline__ Material<float> gather_material(
+    const SceneArgs& sc, int m) {
 #if defined(FRT_K9_CONST_GATHERS)
   (void)sc;
   (void)m;
-  return Material{0, 0, V3{0.5f, 0.5f, 0.5f}, V3{0.5f, 0.5f, 0.5f}, 1.0f,
-                  0.0f, 1.5f};
+  return Material<float>{0, 0, V3{0.5f, 0.5f, 0.5f}, V3{0.5f, 0.5f, 0.5f},
+                         1.0f, 0.0f, 1.5f};
 #else
-  return Material{__ldg(sc.mat_type + m), __ldg(sc.tex_type + m),
-                  load3(sc.albedo, m),    load3(sc.albedo2, m),
-                  __ldg(sc.tex_scale + m), __ldg(sc.fuzz + m),
-                  __ldg(sc.ref_idx + m)};
+  return Material<float>{__ldg(sc.mat_type + m), __ldg(sc.tex_type + m),
+                         load3(sc.albedo, m),    load3(sc.albedo2, m),
+                         __ldg(sc.tex_scale + m), __ldg(sc.fuzz + m),
+                         __ldg(sc.ref_idx + m)};
 #endif
 }
 
@@ -321,85 +290,23 @@ __device__ __forceinline__ Shaded shade_slot(const SceneArgs& sc, V3 o,
 #else
   frt::draws4(k0, k1, id, dom, u);
 #endif
-  const float z = 1.0f - 2.0f * u[0];
-  const float rr = 1.0f - z * z;
-  const float r = sqrtf(rr < 0.0f ? 0.0f : rr);
-  const float phi = frt::kTwoPi * u[1];
-  const float radius = static_cast<float>(
-      pow(static_cast<double>(u[2]), 1.0 / 3.0));
-  const V3 ball{radius * (r * cosf(phi)), radius * (r * sinf(phi)),
-                radius * z};
+  const V3 ball = ball_sample(u);
 
   // render/integrator.py::recompute_hit.
-  float t;
-  V3 p, n;
-  if (g.sphere) {
-    t = sphere_t(o, d, g.a, g.r, t_min);
-    p = add(o, scale(t, d));
-    const V3 pc = sub(p, g.a);
-    n = V3{pc.x / g.r, pc.y / g.r, pc.z / g.r};
-  } else {
-    const V3 e1 = sub(g.b, g.a);
-    const V3 e2 = sub(g.c, g.a);
-    t = triangle_t(o, d, g.a, e1, e2, t_min);
-    p = add(o, scale(t, d));
-    n = normalize(cross(e1, e2), 0.0f);
-  }
-  const Material mt = gather_material(sc, g.m);
+  const Surface<float> h = recompute<float>(g, o, d, t_min);
+  const Material<float> mt = gather_material(sc, g.m);
   // Dead and missing lanes get sanitised hit data.
   Shaded s;
-  s.hit = hit_in && t < kBig;
-  if (!s.hit) {
-    p = V3{0.0f, 0.0f, 0.0f};
-    n = V3{0.0f, 0.0f, 1.0f};
-  }
+  s.hit = hit_in && h.t < kBig;
+  const V3 p = s.hit ? h.p : V3{0.0f, 0.0f, 0.0f};
+  const V3 n = s.hit ? h.n : V3{0.0f, 0.0f, 1.0f};
   s.p = p;
 
   // materials/scatter.py::scatter_from_params, the material's branch only.
-  if (mt.type == kDielectric) {
-    const float ref = mt.ref_idx;
-    const float dn = dot(d, n);
-    const V3 reflected = sub(d, scale(2.0f * dn, n));
-    const bool outside = dn > 0.0f;
-    const V3 on = outside ? V3{-n.x, -n.y, -n.z} : n;
-    const float ni = outside ? ref : 1.0f / ref;
-    const float cosine = outside ? ref * dn : -dn;
-    // vecmath.refract(d, on, ni).
-    const V3 uv = normalize(d, 0.0f);
-    const float dt = dot(uv, on);
-    const float disc = 1.0f - ni * ni * (1.0f - dt * dt);
-    const bool can = disc > 0.0f;
-    const float sq = sqrtf(can ? disc : 0.0f);
-    const V3 refr = can ? sub(scale(ni, sub(uv, scale(dt, on))), scale(sq, on))
-                        : V3{0.0f, 0.0f, 0.0f};
-    // vecmath.schlick(cosine, ref).
-    float r0 = (1.0f - ref) / (1.0f + ref);
-    r0 = r0 * r0;
-    const float one_minus = 1.0f - cosine;
-    const float prob = can ? r0 + (1.0f - r0) * powf(one_minus, 5.0f) : 1.0f;
-    s.dir = normalize(u[3] < prob ? reflected : refr, kNormEps);
-    s.att = V3{1.0f, 1.0f, 1.0f};
-    s.ok = true;
-    return s;
-  }
-  // scene/textures.py::texture_from_params.
-  V3 tex = mt.albedo;
-  if (mt.tex == kChecker) {
-    const float sc_ = mt.tex_scale;
-    const float sines =
-        prod3(sinf(sc_ * p.x), sinf(sc_ * p.y), sinf(sc_ * p.z));
-    if (sines < 0.0f) tex = mt.albedo2;
-  }
-  s.att = tex;
-  if (mt.type == kMetal) {
-    const V3 reflected = sub(d, scale(2.0f * dot(d, n), n));
-    const V3 raw = add(reflected, scale(mt.fuzz, ball));
-    s.ok = dot(raw, n) > 0.0f;
-    s.dir = normalize(raw, kNormEps);
-  } else {
-    s.ok = true;
-    s.dir = normalize(add(n, ball), kNormEps);
-  }
+  const Scattered<float> sc_ = scatter(mt, d, p, n, ball, u[3]);
+  s.ok = sc_.ok;
+  s.dir = sc_.dir;
+  s.att = sc_.att;
   return s;
 }
 
@@ -414,14 +321,6 @@ __device__ __forceinline__ void index_add(float* p, float v) {
 #else
   *p += v;
 #endif
-}
-
-// render/integrator.py::sky_color, times the throughput.
-__device__ __forceinline__ V3 sky(V3 tp, V3 d) {
-  const float t = 0.5f * (d.y + 1.0f);
-  const float w = 1.0f - t;
-  return mul(tp, V3{w * 1.0f + t * 0.5f, w * 1.0f + t * 0.7f,
-                    w * 1.0f + t * 1.0f});
 }
 
 // A status word published with release semantics, and read relaxed (a

@@ -159,6 +159,12 @@ inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
+// A fiber is never switched inside an add: a plain one is atomic here.
+inline double atomicAdd(double* p, double v) {
+  const double old = *p;
+  *p = old + v;
+  return old;
+}
 inline void __threadfence() {}
 
 namespace frt_emu {
@@ -431,6 +437,16 @@ inline T __shfl_sync(unsigned, T v, int src) {
   T all[frt_emu::kWarp];
   frt_emu::exchange<T>(v, all);
   return all[src & (frt_emu::kWarp - 1)];
+}
+// The lanes of `mask` whose `v` equals the calling lane's.
+template <class T>
+inline unsigned __match_any_sync(unsigned mask, T v) {
+  T all[frt_emu::kWarp];
+  frt_emu::exchange<T>(v, all);
+  unsigned out = 0;
+  for (int l = 0; l < frt_emu::kWarp; ++l)
+    if (((mask >> l) & 1u) && all[l] == v) out |= 1u << l;
+  return out;
 }
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {

@@ -61,8 +61,9 @@ KERNEL_SOURCE = "megakernel.cu"
 # K3 and K3t (the clustered megakernel), K4 and K5 (the wavefront closest
 # hits), K6 (the flat-BVH walk), K7 and K8 (the wavefront paths' Threefry
 # draws and camera rays), K9 and K10 (the wavefront pass's shading and
-# regeneration), K11 (the dense closest hit) and K12 and K13 (the
-# recorders' pass and regeneration) build into the same library.
+# regeneration), K11 (the dense closest hit), K12 and K13 (the
+# recorders' pass and regeneration) and K14 and K15 (the tape replay's
+# value and gradient) build into the same library.
 CLUSTERED_SOURCE = "megakernel_clustered.cu"
 INTERSECT_SOURCE = "intersect.cu"
 BVH_SOURCE = "bvh_walk.cu"
@@ -72,6 +73,8 @@ RNG_RAYS_SOURCE = "rng_rays.cu"
 WAVEFRONT_PASS_SOURCE = "wavefront_pass.cu"
 # K11 (the dense closest hit on the scene's own tensors).
 DENSE_HIT_SOURCE = "dense_hit.cu"
+# K14 and K15 (the tape replay's value and gradient).
+REPLAY_SOURCE = "replay.cu"
 REPLACES = "first_raytracer_tpu/kernels/megakernel.py:306"
 
 
@@ -257,8 +260,8 @@ NVCC_EXTRA_FLAGS = ("--fmad=false",)
 @functools.lru_cache(maxsize=None)
 def load_mega_library():
     """Build (once per source and flags) and load the shared library of K1,
-    K2, K2b, K3, K3t, K4, K5, K6, K7, K8, K9, K10, K11, K12 and K13: one
-    nvcc a source, all at once.
+    K2, K2b, K3, K3t, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14 and
+    K15: one nvcc a source, all at once.
 
     Returns ``(ctypes.CDLL, BuildInfo)``.
     """
@@ -267,7 +270,8 @@ def load_mega_library():
     lib, info = build_library(
         "frt_mega",
         [KERNEL_SOURCE, CLUSTERED_SOURCE, INTERSECT_SOURCE, BVH_SOURCE,
-         RNG_RAYS_SOURCE, WAVEFRONT_PASS_SOURCE, DENSE_HIT_SOURCE],
+         RNG_RAYS_SOURCE, WAVEFRONT_PASS_SOURCE, DENSE_HIT_SOURCE,
+         REPLAY_SOURCE],
         NVCC_EXTRA_FLAGS)
     return bind(lib), info
 
@@ -288,6 +292,7 @@ def bind(lib):
     bind_rng_rays(lib)
     bind_wavefront_pass(lib)
     bind_dense_hit(lib)
+    bind_replay(lib)
     # The clustered tables: 12 pointers, then ns, nt, the two supergroup
     # counts and the two column counts.
     tables = [ptr] * 12 + [i32] * 6
@@ -346,6 +351,25 @@ def bind_dense_hit(lib):
         [ptr] * 5 + [i32] * 2 + [ptr] * 3 + [i64, ctypes.c_float]
         + [ptr] * 4)
     lib.frt_dense_hit.restype = i32
+    return lib
+
+
+def bind_replay(lib):
+    """Declares K14's and K15's C entry points' argument and result types
+    on ``lib`` (also a host build of ``replay.cu`` alone)."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    f64 = ctypes.c_double
+    # The tables and their rows, then the ids, key and tape, its row
+    # stride, rows, the depth cap, t_min and the rays.
+    head = [ptr, i64, ptr, i64]
+    tail = [ptr] * 3 + [i64, i32, i32, f64, i64]
+    for t in ("f32", "f64"):
+        fwd = getattr(lib, f"frt_replay_forward_{t}")
+        fwd.argtypes = head + [ptr] * 2 + tail + [ptr] * 4
+        fwd.restype = i32
+        bwd = getattr(lib, f"frt_replay_backward_{t}")
+        bwd.argtypes = head + tail + [ptr] * 7
+        bwd.restype = i32
     return lib
 
 

@@ -31,9 +31,10 @@ nothing falls back.
 
 The recorders and the occupancy scan run K12 (K13 folded into its pool
 mode), from the same source (``diff/record_pass.py``), whose plain versions
-share ``shade_slots``.  The differentiable ``_bounce`` (autograd,
-``method="scan"``), the replays and the pool's init keep their torch
-bodies.
+share ``shade_slots``; the tape replays run K14 and K15
+(``diff/replay_pass.py``), whose bounce is K9's (``kernels/csrc/
+shade.cuh``).  The differentiable ``_bounce`` (autograd,
+``method="scan"``) and the pool's init keep their torch bodies.
 """
 from __future__ import annotations
 

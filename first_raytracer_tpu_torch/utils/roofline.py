@@ -85,6 +85,22 @@ differently.  The operations are counted from the CUDA sources:
   tail with K13, folded into the same launch: K10's operations for a tail
   slot's camera ray, its id read from the stream (8) and its state written
   (49).  Bound by bytes.
+- K14 (``kernels/csrc/replay.cu``, the tape replay's forward): K9's draw
+  and shading operations for each bounce it shades (a recorded id whose
+  hit re-solves), and the sky's 8 for each miss; bytes as the inputs need
+  them: a ray's camera ray, id and radiance (and, for a gradient, its end
+  row: 4), a tape entry a row it visits, the scratch row (o, dr,
+  throughput) of each visited row for a gradient, the payload tables once.
+  Bound by bytes.
+- K15 (the tape replay's backward): each bounce a ray sweeps back re-shaded
+  as K14 shaded it, plus its adjoint, ``ADJOINT_OPS`` = 120 FP32
+  operations on the cheapest path (a lambertian scatter's normalization 30,
+  a sphere's recompute 85, the throughput 6); the sky's seed (20) a
+  contributing ray.  Bytes: every ray's end row, a contributing ray's
+  upstream gradient, id and its miss row's scratch (dr, throughput), each
+  swept bounce's scratch row and tape entry, the tables read once and
+  their gradients written once, and the float64 sum zeroed, added and
+  read once (24 bytes a value).  Bound by bytes on the final scene.
 """
 from __future__ import annotations
 
@@ -96,7 +112,8 @@ __all__ = ["PEAK_FP32", "PEAK_BYTES", "FP32_PEAKS", "SPHERE_OPS",
            "intersect_bound", "tensor_bytes", "k4_bound", "k5_bound",
            "k6_bound", "fp32_peak", "PEAK_INT32", "THREEFRY_INT_OPS",
            "THREEFRY_FP32_OPS", "CAMERA_RAY_OPS", "SHADE_OPS", "k7_bound",
-           "k8_bound", "k9_bound", "k10_bound", "k11_bound", "k12_bound"]
+           "k8_bound", "k9_bound", "k10_bound", "k11_bound", "k12_bound",
+           "ADJOINT_OPS", "k14_bound", "k15_bound"]
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores,
 # and HBM3 bandwidth.
@@ -120,6 +137,7 @@ OC_SPHERE_OPS, MT_TRIANGLE_OPS = 16, 46
 WALK_BOX_OPS, WALK_SPHERE_OPS, WALK_TRIANGLE_OPS = 25, 20, 52
 THREEFRY_INT_OPS, THREEFRY_FP32_OPS, CAMERA_RAY_OPS = 164, 8, 63
 SHADE_OPS = 60
+ADJOINT_OPS = 120
 
 
 def fp32_peak(name: str) -> float:
@@ -348,3 +366,42 @@ def k12_bound(scene, slots, live, cont, hits, mode="lockstep",
             4 * slots if mode == "lockstep" else 16 * live)
     nbytes += launches * (scene_bytes(scene) + 16 + 8)
     return roofline(fp32, nbytes, ints)
+
+
+def k14_bound(table_values, rays, visits, shaded, itemsize=4,
+              grads=True, launches=1):
+    """K14's bound over ``launches`` launches of ``rays`` rays in all that
+    visited ``visits`` tape rows and shaded ``shaded`` of them (the rest
+    missed), on payload tables of ``table_values`` values, in the rays'
+    type of ``itemsize`` bytes: a ray's camera ray (6 values) and radiance
+    (3) and its id (8), a tape entry a visit (4) and, with ``grads``, the
+    scratch row a visit (9 values) and the ray's end row (4); the tables,
+    the key read once a launch.  Operations: the draw and the shading of
+    each shaded bounce, the sky of each miss."""
+    nbytes = (9 * itemsize + 8) * rays + 4 * visits + launches * (
+        itemsize * table_values + 16)
+    if grads:
+        nbytes += 9 * itemsize * visits + 4 * rays
+    misses = visits - shaded
+    return roofline((THREEFRY_FP32_OPS + SHADE_OPS) * shaded + 8 * misses,
+                    nbytes, THREEFRY_INT_OPS * shaded)
+
+
+def k15_bound(table_values, rays, contributing, bounces, itemsize=4,
+              launches=1):
+    """K15's bound over ``launches`` launches of ``rays`` rays in all, of
+    which ``contributing`` added radiance, sweeping back ``bounces``
+    bounces in all, on payload tables of ``table_values`` values: every
+    ray's end row (4), a contributing ray's gradient (3 values), id (8)
+    and miss row's scratch (6 values); each bounce's scratch row (9) and
+    tape entry (4); the tables read and their gradients written once, in
+    the rays' type, and the float64 sum zeroed, added and read once (24
+    bytes a value), once a launch.  Operations: each bounce re-shaded
+    (K9's draw and shading) and its adjoint, the sky's seed a contributing
+    ray."""
+    nbytes = (4 * rays + (9 * itemsize + 8) * contributing
+              + (9 * itemsize + 4) * bounces
+              + launches * (table_values * (2 * itemsize + 24) + 16))
+    ops = ((THREEFRY_FP32_OPS + SHADE_OPS + ADJOINT_OPS) * bounces
+           + 20 * contributing)
+    return roofline(ops, nbytes, THREEFRY_INT_OPS * bounces)

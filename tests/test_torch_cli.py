@@ -167,7 +167,7 @@ def test_cli_fit(tmp_path, fast):
                                        "K6": 0, "K7": 0, "K8": 0, "K9": 0,
                                        "K10": 0, "K11": 0, "K12": 0,
                                        "K12 (length)": 0, "K12 (pool)": 0,
-                                       "K13": 0}
+                                       "K13": 0, "K14": 0, "K15": 0}
     # The CPU runs the replay's value and gradient eagerly: no graph.
     assert last["graphs"] == {"captures": 0, "replays": 0}
     want = _jax_fit_first_loss("random-spheres", ("albedo", "fuzz"), 0,
@@ -178,7 +178,7 @@ def test_cli_fit(tmp_path, fast):
 
 
 def test_cli_fit_line_reads_every_kernel_counter(monkeypatch, capsys):
-    """``fit``'s ``kernel_launches`` is ``bench.COUNTERS``' table: K1-K13,
+    """``fit``'s ``kernel_launches`` is ``bench.COUNTERS``' table: K1-K15,
     each its wrapper's counter (set here, since the CPU's plain versions
     count nothing), K6-K13 among them on a ``--bvh`` fit."""
     from first_raytracer_tpu_torch import bench, cli
@@ -193,7 +193,7 @@ def test_cli_fit_line_reads_every_kernel_counter(monkeypatch, capsys):
     want = {k: 100 + i for i, (k, _, _) in enumerate(bench.COUNTERS)}
     assert last["kernel_launches"] == want
     assert {"K6", "K7", "K8", "K9", "K10", "K11", "K12", "K12 (length)",
-            "K12 (pool)", "K13"} <= set(want)
+            "K12 (pool)", "K13", "K14", "K15"} <= set(want)
 
 
 def test_cli_fit_large_scene_takes_the_clustered_recorder():
