@@ -526,6 +526,7 @@ KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("record_pool_kernel", "K12 (pool) and K13"),
                   ("replay_forward_kernel", "K14"),
                   ("replay_backward_kernel", "K15"),
+                  ("replay_order_kernel", "K15 (its order)"),
                   ("round_kernel", "K15 (its rounding)"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
@@ -4384,12 +4385,13 @@ def record_pass_path(dev, key, card):
 # gradients against the plain loop's autograd, relative L2 per field: the
 # CPU tests' bound (tests/test_torch_replay_pass.py).
 REPLAY_F64_BOUND = 1e-8
-# The replay and the steps before K14 and K15 (PERF.md section 5, PRs
-# 19-21; an NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's.
-EARLIER_REPLAY = {"nodes": "~30,000 (585.6 a row)",
-                  "graphed replay": "0.082-0.090 s",
-                  "direct step": "0.0921-0.0934 s",
-                  "bucketed step": "0.099-0.110 s"}
+# The replay, the steps and K14 and K15 in their first design (PERF.md
+# section 5; an NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+# run's.
+EARLIER_REPLAY = {"nodes": "58", "graphed replay": "0.0010-0.0024 s",
+                  "direct step": "0.0040-0.0069 s",
+                  "bucketed step": "0.043-0.116 s",
+                  "K14": "0.0845-0.0961 ms", "K15": "0.3984-0.4123 ms"}
 # The graphs of the bodies on the plain loop, kept apart from ``dg.GRAPHS``.
 PLAIN_GRAPHS = dg.GraphCache(maxsize=4)
 
@@ -4557,7 +4559,7 @@ def replay_pass_path(dev, key, card):
                 for t in rreplay._payload_tables(scene))
     k = rng.device_key(key, dev)
     fwd_args = (sph, tri, o, d, ids, k, tape, cfg.max_depth, cfg.t_min)
-    rad, save, end = rreplay.launch_forward(*fwd_args)
+    rad, save, end, hist = rreplay.launch_forward(*fwd_args)
     g_rad = 2.0 * rad / rad.numel()
 
     def k14():
@@ -4565,7 +4567,7 @@ def replay_pass_path(dev, key, card):
 
     def k15():
         return rreplay.launch_backward(sph, tri, ids, k, tape, cfg.max_depth,
-                                       cfg.t_min, save, end, g_rad)
+                                       cfg.t_min, save, end, hist, g_rad)
     ms14, ms15 = graph_ms(k14, 5), graph_ms(k15, 5)
     ms14_nograd = graph_ms(lambda: rreplay.launch_forward(
         *fwd_args, grads=False), 5)
@@ -4595,13 +4597,25 @@ def replay_pass_path(dev, key, card):
     b14 = k14_bound(values, R, visits, shaded)
     b15 = k15_bound(values, R, contributing, swept)
     scratch = rreplay.scratch_bytes(tape.shape[0], R)
+    # The deepest rays' rows (K14 walks a ray cut at the cap to the end of
+    # the tape; K15 sweeps from a miss), the deep rays that take a K15 warp
+    # each, and the grids (the blocks the card holds at once).
+    walked = int(torch.where(end >= 0, end.long() + 1, lead).max())
+    deepest = int(end.max())
+    deep = int((end >= rreplay.DEEP_ROWS).sum())
+    grids = {k: rreplay.resident_blocks(k == "K15", torch.float32)
+             for k in ("K14", "K15")}
     log(f"  K14 at {R} rays, {tape.shape[0]} rows: {ms14:.4f} ms with the "
         f"scratch ({scratch / 1e6:.1f} MB, {visits} rows visited, {shaded} "
-        f"shaded), {ms14_nograd:.4f} ms without (bound {b14[0]:.5f} ms, "
-        f"{b14[1]}); K15 {ms15:.4f} ms ({contributing} rays add radiance, "
-        f"{swept} bounces swept back; bound {b15[0]:.5f} ms, {b15[1]}); "
-        f"the plain loop eager: forward {plain_fwd_ms:.1f} ms, backward "
-        f"{plain_bwd_ms:.1f} ms (median of 3); on {card}")
+        f"shaded, the deepest ray {walked} rows), {ms14_nograd:.4f} ms "
+        f"without (bound {b14[0]:.5f} ms, {b14[1]}; before: "
+        f"{EARLIER_REPLAY['K14']}); K15 {ms15:.4f} ms ({contributing} rays "
+        f"add radiance, {swept} bounces swept back, the deepest from row "
+        f"{deepest}, {deep} rays of {rreplay.DEEP_ROWS} rows or more a warp "
+        f"each; bound {b15[0]:.5f} ms, {b15[1]}; before: "
+        f"{EARLIER_REPLAY['K15']}); resident blocks {grids}; the plain loop "
+        f"eager: forward {plain_fwd_ms:.1f} ms, backward {plain_bwd_ms:.1f} "
+        f"ms (median of 3); on {card}")
 
     # The replay's graph, and the steps graphed through the kernels in
     # turns with the same bodies graphed on the plain loop.
@@ -4633,13 +4647,15 @@ def replay_pass_path(dev, key, card):
         "launches": n14, "bucketed_launches": m14, "max_abs_err": 0.0,
         "ms": ms14, "ms_without_scratch": ms14_nograd,
         "plain_ms": plain_fwd_ms, "bound_ms": b14[0], "bound_by": b14[1],
-        "scratch_bytes": scratch}), dict(common, **{
+        "scratch_bytes": scratch, "deepest_rows": walked,
+        "resident_blocks": grids["K14"]}), dict(common, **{
         "name": "K15 tape replay backward (diff.replay_pass.replay), 2^17 "
                 "rays of the final scene on K2b's tape",
         "launches": n15, "bucketed_launches": m15,
         "max_abs_err": worst["abs"], "max_rel_err_f64": worst["rel"],
         "ms": ms15, "plain_ms": plain_bwd_ms, "bound_ms": b15[0],
-        "bound_by": b15[1]})]
+        "bound_by": b15[1], "deepest_rows": deepest, "deep_rays": deep,
+        "resident_blocks": grids["K15"]})]
 
 
 def bench_runs(card):

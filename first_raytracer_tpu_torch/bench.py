@@ -38,9 +38,9 @@ Packs, plans and scenes are built outside the timed loop.  The timed
 ``wavefront`` and ``regenerative`` runs replay the loops' CUDA graphs
 (``render/graphed.py``); their warm run counts through a
 ``CountedIntersect`` and so runs eagerly, by ``graphed=False``.
-After an untimed warm run (instrumented: segments and work) and one
-untimed run (the graphs' capture, for those modes) that
-sets how many runs each repeat queues back to back to last about
+After an untimed warm run (instrumented: segments and work) and up to
+three untimed runs (the graphs' capture, for those modes), the fastest of
+which sets how many runs each repeat queues back to back to last about
 ``MIN_REPEAT_S`` (one synchronize at its end), each repeat's time over its
 runs is one sample; ``seconds`` is the median sample, the time of one run
 (a frame, or ``BENCH_GRAD_PIPELINE`` steps).  Result guards: the samples
@@ -101,8 +101,16 @@ MAX_REPEAT_SPREAD = 3.0
 # Each timed repeat runs the mode's work back to back until it lasts about
 # this long (one synchronize at its end): a 2 ms frame timed alone on the
 # host clock moved 11x between repeats on the H100 (PERF.md, PR 9), a
-# host stall of the machine's shared cores, not the card's time.
-MIN_REPEAT_S = 0.25
+# host stall of the machine's shared cores, not the card's time.  A
+# gradient step whose host feeds the card slower than the card works (the
+# final scene's, since its replay takes less card time than its graph
+# launch and input copies take host time) queues no work ahead, so every
+# stall of the host shows whole in its repeat: stalls of 0.05-0.7 s were
+# read in repeats of 0.25 s on the H100 (PERF.md, section 6).
+MIN_REPEAT_S = 1.0
+# Untimed runs of which the fastest sizes a repeat: one run that met a
+# stall would shorten every repeat.
+SIZING_RUNS = 3
 # The implied FP32 rate may reach this share of the card's peak: the
 # counts are lower bounds of the work, so an honest run stays below 1.
 MAX_PEAK_SHARE = 1.05
@@ -586,11 +594,16 @@ def _sync(dev):
 
 def runs_per_repeat(run, fn, dev):
     """How many runs a timed repeat queues back to back to last
-    ``MIN_REPEAT_S``, from the host-clock time of one untimed run."""
-    t0 = time.perf_counter()
-    run(fn)
-    _sync(dev)
-    once = time.perf_counter() - t0
+    ``MIN_REPEAT_S``, from the host-clock time of the fastest of up to
+    ``SIZING_RUNS`` untimed runs (one that lasts a repeat ends them)."""
+    once = math.inf
+    for _ in range(SIZING_RUNS):
+        t0 = time.perf_counter()
+        run(fn)
+        _sync(dev)
+        once = min(once, time.perf_counter() - t0)
+        if once >= MIN_REPEAT_S:
+            break
     return max(1, math.ceil(MIN_REPEAT_S / max(once, 1e-9)))
 
 

@@ -13,10 +13,16 @@ it with ``jax.value_and_grad``.
   yardstick for the kernels.
 - ``replay`` runs it on the CPU and launches the kernels on a CUDA device:
   K14 (``kernels/csrc/replay.cu``, forward) walks each ray's tape column
-  in registers and, when a gradient will be taken, keeps each bounce's
-  (o, dr, throughput) in a dense (rows, R, 9) scratch; K15 (backward)
-  takes the radiance's adjoint and sums the payload tables' gradients in
-  float64 over the rays, rounded once to the tables' type, as
+  in registers, the next row's loads issued ahead, and, when a gradient
+  will be taken, keeps each bounce's (o, dr, throughput) in a dense
+  (rows, R, 9) scratch, each ray's miss row and a (rows,) count of the
+  rays by miss row; K15 (backward) orders the rays by miss row, deepest
+  first (one launch, a counting sort over that count), gives a ray of
+  ``DEEP_ROWS`` rows or more a warp of its own (its rows re-shaded by the
+  lanes at once, the adjoint carried down them) and 32 shallower rays to a
+  warp, takes the radiance's adjoint and sums the payload tables'
+  gradients in float64 over the rays (a row's lanes by shuffles, the
+  ground's into warp-shared rows), rounded once to the tables' type, as
   ``_Extract`` does.  The gradient then flows from the tables to the
   scene's leaves through ``_payload_tables``' torch ops.  K14's float32
   radiance is bit-equal to the plain loop's as torch runs it on the card;
@@ -44,11 +50,19 @@ from ..render.wavefront_pass import _check
 from ..scene.textures import texture_from_params
 
 __all__ = ["replay", "replay_plain", "replay_kernels", "launch_forward",
-           "launch_backward", "REPLACES", "SAVE_COLS", "scratch_bytes"]
+           "launch_backward", "launch_order", "REPLACES", "SAVE_COLS",
+           "HOT_PEERS", "DEEP_ROWS", "scratch_bytes",
+           "resident_blocks"]
 
 REPLACES = "first_raytracer_tpu/diff/replay.py:392"
 # Values K14 keeps of a bounce for K15: o, dr and the throughput.
 SAVE_COLS = 9
+# Lanes of a K15 warp on one payload row from which the warp sums that row
+# in shared memory (replay.cu's kHotPeers); fewer add into the global sum.
+HOT_PEERS = 4
+# Rows to sweep from which a ray takes a K15 warp of its own (replay.cu's
+# kDeepRows).
+DEEP_ROWS = 12
 
 
 def _mat_block(scene, mat_ids):
@@ -193,9 +207,10 @@ def replay_plain(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
 
 def scratch_bytes(rows, num_rays, dtype=torch.float32):
     """Bytes of the scratch K14 keeps for K15: (rows, R, 9) of the rays'
-    type, and the (R,) int32 rows of the rays' misses."""
+    type, the (R,) int32 rows of the rays' misses and the (rows,) int32
+    count of the rays by miss row."""
     size = torch.tensor([], dtype=dtype).element_size()
-    return rows * num_rays * SAVE_COLS * size + 4 * num_rays
+    return rows * num_rays * SAVE_COLS * size + 4 * num_rays + 4 * rows
 
 
 def _ptr(t):
@@ -215,53 +230,91 @@ def launch_forward(sph, tri, origin, direction, ray_ids, key, tape,
     """K14 once over the rays, on checked inputs (``replay_kernels``): the
     payload tables ``sph`` and ``tri`` (None where the scene has none), the
     rays, their ids, the key on their device and the tape.  Returns the
-    (R, 3) radiance and, with ``grads``, the scratch (rows, R, 9) and the
-    (R,) int32 row of each ray's miss (-1: no radiance) that K15 reads;
-    else None for both."""
+    (R, 3) radiance and, with ``grads``, what K15 reads: the scratch
+    (rows, R, 9), the (R,) int32 row of each ray's miss (-1: no radiance)
+    and the (rows,) int32 count of the rays by miss row; else None for the
+    three."""
     from ..kernels import megakernel
 
     dev, dtype = origin.device, origin.dtype
     R, rows = origin.shape[0], tape.shape[0]
     radiance = torch.empty((R, 3), dtype=dtype, device=dev)
-    save = end = None
+    save = end = hist = None
     if grads:
         save = torch.empty((rows, R, SAVE_COLS), dtype=dtype, device=dev)
         end = torch.empty((R,), dtype=torch.int32, device=dev)
+        hist = torch.empty((rows,), dtype=torch.int32, device=dev)
     megakernel.launch_entry(
         dev, f"frt_replay_forward_{_suffix(dtype)}", _ptr(sph),
         _rows(sph), _ptr(tri), _rows(tri), origin.data_ptr(),
         direction.data_ptr(), ray_ids.data_ptr(), key.data_ptr(),
         tape.data_ptr(), tape.stride(0), rows, int(max_depth),
-        float(t_min), R, radiance.data_ptr(), _ptr(save), _ptr(end))
+        float(t_min), R, radiance.data_ptr(), _ptr(save), _ptr(end),
+        _ptr(hist))
     if R:
         replay.launches += 1
-    return radiance, save, end
+    return radiance, save, end, hist
 
 
 def launch_backward(sph, tri, ray_ids, key, tape, max_depth, t_min, save,
-                    end, grad):
+                    end, hist, grad):
     """K15 once: the payload tables' gradients (None where the scene has
-    no such table) from ``launch_forward``'s scratch and ``end`` and the
-    radiance's adjoint ``grad`` (R, 3)."""
+    no such table) from ``launch_forward``'s scratch, ``end`` and ``hist``
+    and the radiance's adjoint ``grad`` (R, 3).  The launch orders the rays
+    by miss row (K15's order, into a (R,) int32 buffer), sweeps them back
+    into a float64 sum and rounds it; the sum's buffer also holds the
+    order's cursors and K15's ticket, zeroed with it."""
     from ..kernels import megakernel
 
     dev, dtype = save.device, save.dtype
-    R, rows = end.shape[0], tape.shape[0]
+    R, rows = grad.shape[0], tape.shape[0]
     ns, nt = _rows(sph), _rows(tri)
     grad = grad.to(dtype).contiguous()
-    total = torch.empty((ns * 15 + nt * 20,), dtype=torch.float64,
-                        device=dev)
+    work = torch.empty((ns * 15 + nt * 20 + (rows + 2) // 2,),
+                       dtype=torch.float64, device=dev)
+    perm = torch.empty((R,), dtype=torch.int32, device=dev)
     g_sph = None if sph is None else torch.empty_like(sph)
     g_tri = None if tri is None else torch.empty_like(tri)
     megakernel.launch_entry(
         dev, f"frt_replay_backward_{_suffix(dtype)}", _ptr(sph), ns,
         _ptr(tri), nt, ray_ids.data_ptr(), key.data_ptr(), tape.data_ptr(),
         tape.stride(0), rows, int(max_depth), float(t_min), R,
-        save.data_ptr(), end.data_ptr(), grad.data_ptr(), total.data_ptr(),
-        _ptr(g_sph), _ptr(g_tri))
+        save.data_ptr(), end.data_ptr(), hist.data_ptr(), grad.data_ptr(),
+        work.data_ptr(), perm.data_ptr(), _ptr(g_sph), _ptr(g_tri))
     if R:
         replay.backward_launches += 1
     return g_sph, g_tri
+
+
+def launch_order(end, hist):
+    """K15's order alone: the indices of the rays with a miss row
+    (``end >= 0``), deepest first, from ``launch_forward``'s ``end`` and
+    ``hist`` (int32 on one device); within a row in no fixed order."""
+    from ..kernels import megakernel
+
+    rows, R = hist.shape[0], end.shape[0]
+    cursor = torch.zeros((rows,), dtype=torch.int32, device=end.device)
+    perm = torch.full((R,), -1, dtype=torch.int32, device=end.device)
+    megakernel.launch_entry(end.device, "frt_replay_order", end.data_ptr(),
+                            hist.data_ptr(), rows, R, cursor.data_ptr(),
+                            perm.data_ptr())
+    return perm[:int(hist.sum())]
+
+
+def resident_blocks(backward, dtype):
+    """The blocks of K15 (``backward``) or of K14 the current card holds at
+    once, for rays of ``dtype``: K15's grid, K14's first wave."""
+    import ctypes
+
+    from ..kernels import megakernel
+
+    lib, _ = megakernel.load_mega_library()
+    out = ctypes.c_int(0)
+    err = lib.frt_replay_blocks(int(backward), int(dtype == torch.float64),
+                                ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"frt_replay_blocks failed ({err})")
+    return out.value
 
 
 class _Replay(torch.autograd.Function):
@@ -273,20 +326,21 @@ class _Replay(torch.autograd.Function):
     def forward(ctx, sph, tri, origin, direction, ray_ids, key, tape,
                 max_depth, t_min):
         grads = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        radiance, save, end = launch_forward(
+        radiance, save, end, hist = launch_forward(
             sph, tri, origin, direction, ray_ids, key, tape, max_depth,
             t_min, grads)
         if grads:
-            ctx.save_for_backward(sph, tri, ray_ids, key, tape, save, end)
+            ctx.save_for_backward(sph, tri, ray_ids, key, tape, save, end,
+                                  hist)
             ctx.scalars = (max_depth, t_min)
         return radiance
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        sph, tri, ray_ids, key, tape, save, end = ctx.saved_tensors
+        sph, tri, ray_ids, key, tape, save, end, hist = ctx.saved_tensors
         g_sph, g_tri = launch_backward(sph, tri, ray_ids, key, tape,
-                                       *ctx.scalars, save, end, grad)
+                                       *ctx.scalars, save, end, hist, grad)
         return g_sph, g_tri, None, None, None, None, None, None, None
 
 

@@ -5,20 +5,31 @@
 // replay.py:392 `trace_rays_replay`, a lax.scan over the tape with
 // jax.checkpoint, differentiated by jax.value_and_grad in diff/grad.py).
 //
-// K14 (`replay_forward_kernel`): one thread a ray walks the ray's tape
-// column from its camera ray.  At each row it gathers the recorded
-// primitive's payload row (diff/replay.py::_payload_tables: a sphere's
-// centre and radius or a triangle's vertices, then its material's 11
-// values), re-solves the hit from it (shade.cuh::recompute), draws the
-// bounce's uniforms (mega_common.cuh::draws4 in domain 1 + row, the key
-// read from its device tensor on every launch, so a captured graph follows
-// the key) and scatters (shade.cuh::scatter), as the plain loop does.  A
-// ray adds radiance at most once: at its first miss (no id recorded, or a
-// re-hit that fails), throughput x sky, where it stops.  It stops without
+// K14 (`replay_forward_kernel`): a lane walks a ray's tape column from its
+// camera ray.  At each row it gathers the recorded primitive's payload row
+// (diff/replay.py::_payload_tables: a sphere's centre and radius or a
+// triangle's vertices, then its material's 11 values), re-solves the hit
+// from it (shade.cuh::recompute), draws the bounce's uniforms
+// (mega_common.cuh::draws4 in domain 1 + row, the key read from its device
+// tensor on every launch, so a captured graph follows the key) and
+// scatters (shade.cuh::scatter), as the plain loop does.  A ray adds
+// radiance at most once: at its first miss (no id recorded, or a re-hit
+// that fails), throughput x sky, where it stops.  It stops without
 // radiance where a metal absorbs it or at the depth cap.  It writes the
 // (n, 3) radiance and, when a gradient will be taken, each bounce's (o,
-// dr, throughput) into a dense (rows, n, 9) scratch and the row of its
-// miss (or -1: no radiance) into `end`.
+// dr, throughput) into a dense (rows, n, 9) scratch, the row of its miss
+// (or -1: no radiance) into `end`, and counts the rays by miss row into a
+// histogram of `rows` bins (a warp's lanes on one row matched by
+// __match_any_sync, one add each).  Row r + 1's payload row and row r + 2's
+// tape entry are issued before row r's recompute and scatter, so the chain
+// waits on no load; the draw stays in the row (issued a row ahead it is
+// work thrown away for most rays, which end at row 1 or 2, and it measured
+// no faster).  The launch is bound by the instructions its warps issue
+// over their rows (a warp runs until its deepest lane's ray ends, so at
+// the final scene's skewed depths most of its lanes idle) and by its
+// deepest ray's chain of rows; a persistent grid whose lanes took the next
+// ray as theirs ended waited on each new ray's loads and was slower
+// (PERF.md section 5).
 //
 // K15 (`replay_backward_kernel`): the reverse-mode derivative of K14 with
 // respect to the payload tables, derived from the port's plain math
@@ -32,32 +43,55 @@
 // flip, total internal reflection and coin, the checker's colour) is the
 // forward's.  The attenuation depends on albedo or albedo2 only; the
 // checker's sign, the coin, Schlick's weight and the texture point carry
-// no gradient; the camera ray is no parameter.  A warp sweeps its rows
-// together, from its deepest ray's k down, so that its lanes meet at each
-// row: the lanes that add to the same payload row (__match_any_sync on it)
-// are summed by their lowest lane, in lane order, and that lane adds the
-// sum.  The sums are float64 (diff/replay.py::_Extract's contract: a row
-// that a hundred thousand rays read, the final scene's ground, would
-// otherwise gather float32 rounding in proportion): into a shared-memory
-// copy of both tables when they fit in kSharedTableBytes (the final scene,
-// 486 x 15 x 8 B), which each block then adds to the global sum, else
-// straight into the global sum (the fields).  A last launch rounds the
-// global float64 sum once to the tables' type.  The order of the float64
-// additions (the atomics of warps and blocks) changes from run to run:
-// the sum moves by a few float64 ulps, so a float32 gradient may differ by
-// one float32 ulp between runs of the same inputs, and a float64 one by a
-// few ulps of its summands' scale.
+// no gradient; the camera ray is no parameter.
+//
+// The sweep's order.  `replay_order_kernel` sorts the rays with a miss
+// (end >= 0) by it, deepest first: a counting sort over K14's histogram
+// (each block sums the bins deeper than each row and takes one run a row
+// after that row's cursor).  K15 is a persistent grid of the blocks the
+// card holds at once; each warp takes the next work of the order by an
+// atomic ticket, so the deepest rays start at once and the shallow ones
+// fill in behind them.  A ray of kDeepRows rows or more takes a warp of its
+// own: its rows' re-shades do not depend on the adjoint, so lane l
+// re-shades row top - 1 - l of 32 at a time, and every lane then carries
+// the adjoint down those rows (each row's bounce shuffled from its lane),
+// so that the chain holds only the adjoint's arithmetic.  The other rays go
+// 32 to a warp, their lanes within a row or two of each other in depth,
+// and sweep their rows together from the warp's deepest miss down, so that
+// the lanes meet at each row; each row's saved state, tape entry, payload
+// row and draw for the row below are issued before the row's re-shade and
+// adjoint.  The ticket and the cursors live beside the float64 sum, zeroed
+// with it by the launch's memset, so a captured graph replays them from
+// zero and the bucketed step's launches never read each other's.
+//
+// The sum.  The lanes that add to one payload row (__match_any_sync on it)
+// are summed in log2 steps of shuffles, rank r taking rank r + 2^j's
+// partial, all of a row's 18 gradient values at once, and the lowest adds
+// the totals.  The totals are float64 (diff/replay.py::_Extract's
+// contract: a row that a hundred thousand rays read, the final scene's
+// ground, would otherwise gather float32 rounding in proportion): where
+// kHotPeers lanes or more met on the row (the ground) into one of the
+// warp's kHotRows shared rows (claimed by atomicCAS on its tag, then plain
+// adds: only that lane of that warp writes it), added to the global sum
+// when the warp ends; else straight into the global sum.  A last launch
+// rounds the global float64 sum once to the tables' type.  The order of
+// the float64 additions (the tree, the atomics of warps) changes from run
+// to run: the sum moves by a few float64 ulps, so a float32 gradient may
+// differ by one float32 ulp between runs of the same inputs, and a float64
+// one by a few ulps of its summands' scale.
 //
 // Bit-equality.  K14's float32 radiance equals the plain loop's as torch
 // runs it on the same device: the same forms as K9 (torch_hits.cuh,
-// shade.cuh), the plain loop's gather exact.  The float64 instances
+// shade.cuh), the plain loop's gather exact, each ray's arithmetic and
+// its order the same whichever lane or warp runs it.  The float64 instances
 // round as float64 torch does but for the order of torch's own reductions,
 // and are held to the plain loop within a relative L2 error of 1e-8.
 //
 // Bounds on an H100 (utils/roofline.py::k14_bound, k15_bound): K14 reads
 // a ray's camera ray, id and tape entries and a payload row and writes its
 // scratch row a live bounce; K15 reads them back.  Both are bound by
-// bytes at the final scene's few bounces a ray, as K9 is.
+// bytes at the final scene's few bounces a ray, and both wait on their
+// deepest ray's chain of rows.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -74,14 +108,21 @@ using frt::root;
 using namespace frt::th;
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kSphereCols = 15;  // centre (3), radius, the material (11)
 constexpr int kTriCols = 20;     // v0, v1, v2 (9), the material (11)
 constexpr int kSaveCols = 9;     // o, dr, throughput
-// The shared-memory copy of the tables' float64 sum, at most: past it K15
-// adds straight into the global sum.
-constexpr int64_t kSharedTableBytes = 64 * 1024;
+constexpr int kWarps = kThreads / 32;
+// K15: a warp's shared rows of the float64 sum, the lanes of one row that
+// claim one, a row's gradient values (RowGrad's fields), and the rows to
+// sweep from which a ray takes a warp of its own.
+constexpr int kHotRows = 4;
+constexpr int kHotPeers = 4;
+constexpr int kFields = 18;
+constexpr int kDeepRows = 12;
+// Rays a thread of the order's launch.
+constexpr int kOrderRays = 4;
+constexpr unsigned long long kNoRow = ~0ull;
 
 template <class T>
 struct ReplayArgs {
@@ -150,8 +191,42 @@ __device__ __forceinline__ Row<T> gather_row(const ReplayArgs<T>& a,
   return w;
 }
 
+// Ray i's tape entry at `row`, -1 past the tape.
+template <class T>
+__device__ __forceinline__ int tape_at(const ReplayArgs<T>& a, int row,
+                                       int64_t i) {
+  return row < a.rows ? __ldg(a.tape + static_cast<int64_t>(row) * a.stride +
+                              i)
+                      : -1;
+}
+
+// What a row needs that does not depend on the row before it: the tape
+// entry, its payload row and the bounce's draw (the ball and the coin),
+// issued a row ahead of the chain.
+template <class T>
+struct Ahead {
+  int rec;
+  Row<T> w;
+  V3 ball;
+  float coin;
+};
+
+template <class T>
+__device__ __forceinline__ Ahead<T> ahead(const ReplayArgs<T>& a, int rec,
+                                          uint32_t k0, uint32_t k1,
+                                          uint32_t id, int row) {
+  Ahead<T> x;
+  x.rec = rec;
+  x.w = gather_row(a, rec);
+  float u[4];
+  frt::draws4(k0, k1, id, static_cast<uint32_t>(row + 1), u);
+  x.ball = ball_sample(u);
+  x.coin = u[3];
+  return x;
+}
+
 // One row of a live ray past its recorded id: the hit re-solved from the
-// payload row, and where it holds, the bounce's draw and scatter.
+// payload row, and where it holds, the bounce's scatter.
 template <class T>
 struct Bounce {
   Row<T> w;
@@ -162,18 +237,15 @@ struct Bounce {
 
 // False where the row is a miss: no id, or a re-hit that fails.
 template <class T>
-__device__ __forceinline__ bool shade_row(const ReplayArgs<T>& a, int rec,
-                                          Vec3<T> o, Vec3<T> d, uint32_t k0,
-                                          uint32_t k1, uint32_t id, int row,
-                                          Bounce<T>& b) {
-  if (rec < 0) return false;
-  b.w = gather_row(a, rec);
+__device__ __forceinline__ bool shade_row(const ReplayArgs<T>& a,
+                                          const Ahead<T>& x, Vec3<T> o,
+                                          Vec3<T> d, Bounce<T>& b) {
+  if (x.rec < 0) return false;
+  b.w = x.w;
   b.h = recompute(b.w.g, o, d, a.t_min);
   if (!(b.h.t < Lim<T>::big)) return false;
-  float u[4];
-  frt::draws4(k0, k1, id, static_cast<uint32_t>(row + 1), u);
-  b.ball = ball_sample(u);
-  b.s = scatter(b.w.m, d, b.h.p, b.h.n, b.ball, u[3]);
+  b.ball = x.ball;
+  b.s = scatter(b.w.m, d, b.h.p, b.h.n, b.ball, x.coin);
   return true;
 }
 
@@ -185,36 +257,60 @@ __device__ __forceinline__ T* save_row(const ReplayArgs<T>& a, int row,
 
 template <class T>
 __global__ void __launch_bounds__(kThreads)
-    replay_forward_kernel(ReplayArgs<T> a, T* radiance) {
+    replay_forward_kernel(ReplayArgs<T> a, T* radiance, int* hist) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= a.n) return;
-  const uint32_t k0 = static_cast<uint32_t>(__ldg(a.key));
-  const uint32_t k1 = static_cast<uint32_t>(__ldg(a.key + 1));
-  const uint32_t id = static_cast<uint32_t>(__ldg(a.ray_ids + i));
-  Vec3<T> o = load3(a.origin, i), d = load3(a.direction, i);
-  Vec3<T> tp{T(1), T(1), T(1)}, rad{T(0), T(0), T(0)};
   int end = -1;
-  for (int row = 0; row < a.rows; ++row) {
-    if (a.save != nullptr) {
-      T* s = save_row(a, row, i);
-      store3(s, 0, o);
-      store3(s, 1, d);
-      store3(s, 2, tp);
+  if (i < a.n) {
+    const uint32_t k0 = static_cast<uint32_t>(__ldg(a.key));
+    const uint32_t k1 = static_cast<uint32_t>(__ldg(a.key + 1));
+    const uint32_t id = static_cast<uint32_t>(__ldg(a.ray_ids + i));
+    Vec3<T> o = load3(a.origin, i), d = load3(a.direction, i);
+    Vec3<T> tp{T(1), T(1), T(1)}, rad{T(0), T(0), T(0)};
+    // The row's tape entry and payload row, the next row's tape entry.
+    int rec = tape_at(a, 0, i), rec_next = tape_at(a, 1, i);
+    Row<T> w = gather_row(a, rec);
+    for (int row = 0; row < a.rows; ++row) {
+      if (a.save != nullptr) {
+        T* s = save_row(a, row, i);
+        store3(s, 0, o);
+        store3(s, 1, d);
+        store3(s, 2, tp);
+      }
+      // Row + 1's payload row and row + 2's tape entry, ahead of this row's
+      // chain.
+      const int rec_after = tape_at(a, row + 2, i);
+      const Row<T> w_next = gather_row(a, rec_next);
+      Ahead<T> x;
+      x.rec = rec;
+      x.w = w;
+      float u[4];
+      frt::draws4(k0, k1, id, static_cast<uint32_t>(row + 1), u);
+      x.ball = ball_sample(u);
+      x.coin = u[3];
+      Bounce<T> b;
+      if (!shade_row(a, x, o, d, b)) {
+        rad = sky(tp, d);
+        end = row;
+        break;
+      }
+      if (!b.s.ok || row >= a.max_depth) break;
+      tp = mul(tp, b.s.att);
+      o = b.h.p;
+      d = b.s.dir;
+      rec = rec_next;
+      rec_next = rec_after;
+      w = w_next;
     }
-    const int rec = __ldg(a.tape + row * a.stride + i);
-    Bounce<T> b;
-    if (!shade_row(a, rec, o, d, k0, k1, id, row, b)) {
-      rad = sky(tp, d);
-      end = row;
-      break;
-    }
-    if (!b.s.ok || row >= a.max_depth) break;
-    tp = mul(tp, b.s.att);
-    o = b.h.p;
-    d = b.s.dir;
+    store3(radiance, i, rad);
+    if (a.save != nullptr) a.end[i] = end;
   }
-  store3(radiance, i, rad);
-  if (a.save != nullptr) a.end[i] = end;
+  if (hist != nullptr) {
+    // The rays by miss row: the lowest lane of each row's lanes adds them.
+    const unsigned peers = __match_any_sync(kFullMask, end);
+    const int lane = threadIdx.x & 31;
+    if (end >= 0 && lane == __ffs(static_cast<int>(peers)) - 1)
+      atomicAdd(hist + end, __popc(peers));
+  }
 }
 
 // The adjoint of vecmath.normalize(v, eps) at v for the output's adjoint
@@ -397,120 +493,389 @@ __device__ __forceinline__ void bounce_adjoint(const ReplayArgs<T>& a,
   gd = gdi;
 }
 
-// The value of column `c` of a row's gradient (the material's type,
-// texture scale and texture type take none).
-template <class T>
-__device__ __forceinline__ T grad_col(const RowGrad<T>& g, bool sphere,
-                                      int c) {
-  const int m = c - (sphere ? 4 : 9);  // the material block's column
-  if (sphere) {
-    if (c < 3) return c == 0 ? g.a.x : (c == 1 ? g.a.y : g.a.z);
-    if (c == 3) return g.r;
-  } else if (c < 9) {
-    const Vec3<T> v = c < 3 ? g.a : (c < 6 ? g.b : g.c);
-    const int k = c % 3;
-    return k == 0 ? v.x : (k == 1 ? v.y : v.z);
-  }
-  switch (m) {
-    case 1: return g.fuzz;
-    case 2: return g.ref;
-    case 3: return g.albedo.x;
-    case 4: return g.albedo.y;
-    case 5: return g.albedo.z;
-    case 6: return g.albedo2.x;
-    case 7: return g.albedo2.y;
-    case 8: return g.albedo2.z;
-    default: return T(0);
-  }
-}
-
-// The sum's offset of a row, and its columns.
+// The sum's offset of a row.
 __device__ __forceinline__ int64_t row_offset(int64_t key, int64_t ns) {
   return key < ns ? key * kSphereCols : ns * kSphereCols +
                                             (key - ns) * kTriCols;
 }
 
+// A row's gradient as kFields float64 values: a (3), b (3), c (3), r,
+// fuzz, ref_idx, albedo (3), albedo2 (3).
 template <class T>
-__global__ void __launch_bounds__(kThreads)
-    replay_backward_kernel(ReplayArgs<T> a, const T* grad, double* sum,
-                           int shared_table) {
-  extern __shared__ double smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  double* stage = smem + warp * 32;
-  const int64_t cols = a.ns * kSphereCols + a.nt * kTriCols;
-  double* table = shared_table ? smem + kThreads : sum;
-  if (shared_table) {
-    for (int64_t j = threadIdx.x; j < cols; j += kThreads) table[j] = 0.0;
-    __syncthreads();
+__device__ __forceinline__ void row_fields(const RowGrad<T>& g,
+                                           double (&f)[kFields]) {
+  const T v[kFields] = {g.a.x,      g.a.y,      g.a.z,      g.b.x,
+                        g.b.y,      g.b.z,      g.c.x,      g.c.y,
+                        g.c.z,      g.r,        g.fuzz,     g.ref,
+                        g.albedo.x, g.albedo.y, g.albedo.z, g.albedo2.x,
+                        g.albedo2.y, g.albedo2.z};
+#pragma unroll
+  for (int q = 0; q < kFields; ++q) f[q] = static_cast<double>(v[q]);
+}
+
+// The column of field q in a sphere's row or a triangle's, -1 where that
+// table has none (a sphere's b and c, a triangle's r); the material's
+// type, texture scale and texture type take no gradient.
+__device__ __forceinline__ int field_col(int q, bool sphere) {
+  if (q < 3) return q;
+  if (q < 9) return sphere ? -1 : q;
+  if (q == 9) return sphere ? 3 : -1;
+  return (sphere ? kSphereCols - 11 : kTriCols - 11) + q - 9;
+}
+
+// The lane of the k-th (from 0) set bit of m, which has more than k.
+__device__ __forceinline__ int nth_lane(unsigned m, int k) {
+  int lane = 0;
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) {
+    const unsigned low = m & ((1u << w) - 1u);
+    const int c = __popc(low);
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      lane += w;
+    } else {
+      m = low;
+    }
   }
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int k = i < a.n ? a.end[i] : -1;
+  return lane;
+}
+
+// K15's shared memory: each warp's shared rows of the float64 sum (a
+// row's tag, its key or kNoRow, and its fields), and the order's rays and
+// deep rays (K14's histogram summed).
+struct Shared {
+  unsigned long long tag[kWarps][kHotRows];
+  double sum[kWarps][kHotRows][kFields];
+  int rays, deep;
+};
+
+// A shared row of warp w for `key`, found or claimed, or null: the warp's
+// rows are taken.
+__device__ __forceinline__ double* hot_row(Shared& sh, int w, int64_t key) {
+  const unsigned long long tag = static_cast<unsigned long long>(key);
+#pragma unroll
+  for (int s = 0; s < kHotRows; ++s) {
+    unsigned long long was =
+        *static_cast<volatile unsigned long long*>(&sh.tag[w][s]);
+    if (was == kNoRow) was = atomicCAS(&sh.tag[w][s], kNoRow, tag);
+    if (was == kNoRow || was == tag) return sh.sum[w][s];
+  }
+  return nullptr;
+}
+
+// One row's gradients summed over the warp's lanes (a collective of the
+// whole warp): `key` is the lane's payload row, -1 where it adds nothing.
+// The lanes of one row are summed in log2 steps of shuffles (rank r takes
+// rank r + 2^j's partial when r is a multiple of 2^(j+1)), all fields at
+// once; rank 0 adds the totals: into a shared row of its warp where
+// kHotPeers lanes or more met on the row (the ground), else into the
+// global sum.
+template <class T>
+__device__ __forceinline__ void add_row(Shared& sh, int w, double* sum,
+                                        int64_t ns, int64_t key, bool sphere,
+                                        const RowGrad<T>& gr, int lane) {
+  const bool on = key >= 0;
+  const unsigned peers = __match_any_sync(kFullMask, key);
+  const int rank = __popc(peers & ((1u << lane) - 1u));
+  const int size = __popc(peers);
+  const bool tri = __any_sync(kFullMask, on && !sphere);
+  const bool sph = __any_sync(kFullMask, on && sphere);
+  double f[kFields];
+  row_fields(gr, f);
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    if (!__any_sync(kFullMask, on && size > (1 << j))) break;
+    const bool take =
+        on && (rank & ((2 << j) - 1)) == 0 && rank + (1 << j) < size;
+    const int src = take ? nth_lane(peers, rank + (1 << j)) : lane;
+#pragma unroll
+    for (int q = 0; q < kFields; ++q) {
+      if ((q >= 3 && q < 9 && !tri) || (q == 9 && !sph)) continue;
+      const double v = __shfl_sync(kFullMask, f[q], src);
+      if (take) f[q] += v;
+    }
+  }
+  if (!on || rank != 0) return;
+  double* hot = size >= kHotPeers ? hot_row(sh, w, key) : nullptr;
+  double* row = sum + row_offset(key, ns);
+#pragma unroll
+  for (int q = 0; q < kFields; ++q) {
+    const int c = field_col(q, sphere);
+    if (c < 0 || f[q] == 0.0) continue;
+    if (hot != nullptr) {
+      hot[q] += f[q];
+    } else {
+      atomicAdd(row + c, f[q]);
+    }
+  }
+}
+
+// Warp w's shared rows added into the global sum.
+__device__ __forceinline__ void flush_rows(Shared& sh, int w, double* sum,
+                                           int64_t ns, int lane) {
+  __syncwarp();
+  for (int e = lane; e < kHotRows * kFields; e += 32) {
+    const unsigned long long tag = sh.tag[w][e / kFields];
+    const int q = e % kFields;
+    if (tag == kNoRow) continue;
+    const int64_t key = static_cast<int64_t>(tag);
+    const int c = field_col(q, key < ns);
+    const double v = sh.sum[w][e / kFields][q];
+    if (c >= 0 && v != 0.0) atomicAdd(sum + row_offset(key, ns) + c, v);
+  }
+}
+
+// The order of the rays with a miss row (end >= 0), deepest first: each
+// block, kOrderRays rays a thread, sums K14's bins deeper than each row,
+// counts its own rays by row in shared memory (a warp's lanes on one row
+// with one add; a ray's count before it is its place in the block's run),
+// and takes one run a row after that row's cursor with one atomic.  Few
+// blocks, so that few atomics queue on the cursors of the crowded rows.
+__global__ void __launch_bounds__(kThreads)
+    replay_order_kernel(const int* end, const int* hist, int rows, int64_t n,
+                        int* cursor, int* order) {
+  extern __shared__ int runs[];  // (3, rows): deeper, the block's, its base
+  int* deeper = runs;
+  int* count = runs + rows;
+  int* base = runs + 2 * rows;
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    int s = 0;
+    for (int e = r + 1; e < rows; ++e) s += __ldg(hist + e);
+    deeper[r] = s;
+    count[r] = 0;
+  }
+  const int lane = threadIdx.x & 31;
+  const int64_t first =
+      static_cast<int64_t>(blockIdx.x) * kOrderRays * kThreads + threadIdx.x;
+  int e[kOrderRays], rank[kOrderRays];
+#pragma unroll
+  for (int j = 0; j < kOrderRays; ++j) {
+    const int64_t i = first + j * kThreads;
+    e[j] = i < n ? __ldg(end + i) : -1;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kOrderRays; ++j) {
+    const unsigned peers = __match_any_sync(kFullMask, e[j]);
+    const int leader = __ffs(static_cast<int>(peers)) - 1;
+    int at = 0;
+    if (e[j] >= 0 && lane == leader)
+      at = atomicAdd(count + e[j], __popc(peers));
+    rank[j] = __shfl_sync(kFullMask, at, leader) +
+              __popc(peers & ((1u << lane) - 1u));
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < rows; r += kThreads)
+    base[r] = count[r] > 0 ? atomicAdd(cursor + r, count[r]) : 0;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kOrderRays; ++j)
+    if (e[j] >= 0)
+      order[deeper[e[j]] + base[e[j]] + rank[j]] =
+          static_cast<int>(first + j * kThreads);
+}
+
+// The seed of ray i's adjoint at its miss row k: radiance = tp * sky(dr),
+// sky's colour linear in dr.y with slope (blue - white) / 2.
+template <class T>
+__device__ __forceinline__ void seed(const ReplayArgs<T>& a, const T* grad,
+                                     int64_t i, int k, Vec3<T>& gd,
+                                     Vec3<T>& gtp) {
+  const T* s = save_row(a, k, i);
+  const Vec3<T> dk = load3(s, 1), tpk = load3(s, 2);
+  const Vec3<T> g = load3(grad, i);
+  gtp = mul(g, sky_color(dk));
+  const T half = T(0.5);
+  gd.y = g.x * tpk.x * (half * (T(0.5f) - T(1))) +
+         g.y * tpk.y * (half * (T(0.7f) - T(1))) +
+         g.z * tpk.z * (half * (T(1.0f) - T(1)));
+}
+
+// One warp's sweep back over the rays of its 32 places of the order (ray
+// i, or -1 past the order's end), all lanes at one row.
+template <class T>
+__device__ __forceinline__ void sweep(const ReplayArgs<T>& a, const T* grad,
+                                      Shared& sh, int w, double* sum,
+                                      int64_t i, int lane) {
+  const int k = i >= 0 ? __ldg(a.end + i) : -1;
   int deepest = k;
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     deepest = max(deepest, __shfl_xor_sync(kFullMask, deepest, off));
-
-  // The miss row: radiance = tp * sky(dr), sky's colour linear in dr.y
-  // with slope (blue - white) / 2.
   Vec3<T> go{T(0), T(0), T(0)}, gd = go, gtp = go;
   uint32_t k0 = 0, k1 = 0, id = 0;
   if (k >= 0) {
     k0 = static_cast<uint32_t>(__ldg(a.key));
     k1 = static_cast<uint32_t>(__ldg(a.key + 1));
     id = static_cast<uint32_t>(__ldg(a.ray_ids + i));
-    const T* s = save_row(a, k, i);
-    const Vec3<T> dk = state3(s, 1), tpk = state3(s, 2);
-    const Vec3<T> g = load3(grad, i);
-    gtp = mul(g, sky_color(dk));
-    const T half = T(0.5);
-    gd.y = g.x * tpk.x * (half * (T(0.5f) - T(1))) +
-           g.y * tpk.y * (half * (T(0.7f) - T(1))) +
-           g.z * tpk.z * (half * (T(1.0f) - T(1)));
+    seed(a, grad, i, k, gd, gtp);
   }
 
-  for (int row = deepest - 1; row >= 0; --row) {
-    const bool on = row < k;
-    RowGrad<T> gr;
+  // The top row's saved state and inputs, and the tape entry below it.
+  int row = deepest - 1;
+  Ahead<T> x{};
+  Vec3<T> o{}, d{}, tp{};
+  if (row >= 0 && row < k) {
+    const T* s = save_row(a, row, i);
+    o = load3(s, 0);
+    d = load3(s, 1);
+    tp = load3(s, 2);
+    x = ahead(a, tape_at(a, row, i), k0, k1, id, row);
+  }
+  int rec_next = row >= 1 && row - 1 < k ? tape_at(a, row - 1, i) : -1;
+  for (; row >= 0; --row) {
+    // The row below's saved state and inputs, and the tape entry below
+    // that, issued before this row's re-shade and adjoint.
+    Ahead<T> xn{};
+    Vec3<T> o_next{}, d_next{}, tp_next{};
+    if (row >= 1 && row - 1 < k) {
+      const T* s = save_row(a, row - 1, i);
+      o_next = load3(s, 0);
+      d_next = load3(s, 1);
+      tp_next = load3(s, 2);
+      xn = ahead(a, rec_next, k0, k1, id, row - 1);
+    }
+    const int rec_after =
+        row >= 2 && row - 2 < k ? tape_at(a, row - 2, i) : -1;
+    RowGrad<T> gr{};
     int64_t key = -1;
     bool sphere = true;
-    if (on) {
-      const T* s = save_row(a, row, i);
-      const Vec3<T> o = state3(s, 0), d = state3(s, 1), tp = state3(s, 2);
-      const int rec = __ldg(a.tape + row * a.stride + i);
+    if (row < k) {
       Bounce<T> b;
-      shade_row(a, rec, o, d, k0, k1, id, row, b);
+      shade_row(a, x, o, d, b);
       bounce_adjoint(a, b, o, d, tp, go, gd, gtp, gr);
       key = b.w.key;
       sphere = b.w.g.sphere;
     }
-    // The lanes of this row's payload row, summed by the lowest of them in
-    // lane order, a column at a time through the warp's stage.
-    const unsigned peers = __match_any_sync(kFullMask, key);
-    const bool lead = on && lane == __ffs(static_cast<int>(peers)) - 1;
-    double* dst = table + (on ? row_offset(key, a.ns) : 0);
-    const int ncols = sphere ? kSphereCols : kTriCols;
-#pragma unroll
-    for (int c = 0; c < kTriCols; ++c) {
-      stage[lane] = on && c < ncols ? static_cast<double>(
-                                          grad_col(gr, sphere, c))
-                                    : 0.0;
-      __syncwarp();
-      if (lead && c < ncols) {
-        double total = 0.0;
-        for (unsigned m = peers; m != 0; m &= m - 1)
-          total += stage[__ffs(static_cast<int>(m)) - 1];
-        if (total != 0.0) atomicAdd(dst + c, total);
-      }
-      __syncwarp();
-    }
+    add_row(sh, w, sum, a.ns, key, sphere, gr, lane);
+    x = xn;
+    o = o_next;
+    d = d_next;
+    tp = tp_next;
+    rec_next = rec_after;
   }
+}
 
-  if (shared_table) {
-    __syncthreads();
-    for (int64_t j = threadIdx.x; j < cols; j += kThreads) {
-      const double v = table[j];
-      if (v != 0.0) atomicAdd(sum + j, v);
-    }
+template <class T>
+__device__ __forceinline__ Vec3<T> shfl3(Vec3<T> v, int src) {
+  return Vec3<T>{__shfl_sync(kFullMask, v.x, src),
+                 __shfl_sync(kFullMask, v.y, src),
+                 __shfl_sync(kFullMask, v.z, src)};
+}
+
+// Lane src's bounce, as far as bounce_adjoint and the sum read it.
+template <class T>
+__device__ __forceinline__ Bounce<T> shfl_bounce(const Bounce<T>& b,
+                                                 int src) {
+  Bounce<T> out{};
+  const int flags = (b.w.g.sphere ? 1 : 0) | (b.s.alt ? 2 : 0) |
+                    (b.s.outside ? 4 : 0) | (b.s.reflected ? 8 : 0);
+  const int f = __shfl_sync(kFullMask, flags, src);
+  out.w.g.sphere = (f & 1) != 0;
+  out.s.alt = (f & 2) != 0;
+  out.s.outside = (f & 4) != 0;
+  out.s.reflected = (f & 8) != 0;
+  out.w.g.a = shfl3(b.w.g.a, src);
+  out.w.g.r = __shfl_sync(kFullMask, b.w.g.r, src);
+  if (!out.w.g.sphere) {
+    out.w.g.b = shfl3(b.w.g.b, src);
+    out.w.g.c = shfl3(b.w.g.c, src);
   }
+  out.w.m.type = __shfl_sync(kFullMask, b.w.m.type, src);
+  out.w.m.fuzz = __shfl_sync(kFullMask, b.w.m.fuzz, src);
+  out.w.m.ref_idx = __shfl_sync(kFullMask, b.w.m.ref_idx, src);
+  out.w.key = __shfl_sync(kFullMask, b.w.key, src);
+  out.h.t = __shfl_sync(kFullMask, b.h.t, src);
+  out.h.p = shfl3(b.h.p, src);
+  out.h.n = shfl3(b.h.n, src);
+  out.ball = shfl3(b.ball, src);
+  out.s.att = shfl3(b.s.att, src);
+  return out;
+}
+
+// A deep ray's sweep (end >= kDeepRows), a whole warp on it: 32 rows at a
+// time, lane l re-shades row top - 1 - l from the saved state, then every
+// lane carries the adjoint down those rows (the same values in each lane,
+// each row's bounce shuffled from its lane), and lane l keeps row top - 1
+// - l's gradient; the warp adds the 32 rows' gradients at once.
+template <class T>
+__device__ __forceinline__ void sweep_deep(const ReplayArgs<T>& a,
+                                           const T* grad, Shared& sh, int w,
+                                           double* sum, int64_t i, int lane) {
+  const int k = __ldg(a.end + i);
+  const uint32_t k0 = static_cast<uint32_t>(__ldg(a.key));
+  const uint32_t k1 = static_cast<uint32_t>(__ldg(a.key + 1));
+  const uint32_t id = static_cast<uint32_t>(__ldg(a.ray_ids + i));
+  Vec3<T> go{T(0), T(0), T(0)}, gd = go, gtp = go;
+  seed(a, grad, i, k, gd, gtp);
+  for (int top = k; top > 0; top -= 32) {
+    const int r = top - 1 - lane;
+    Bounce<T> b{};
+    Vec3<T> o{}, d{}, tp{};
+    if (r >= 0) {
+      const T* s = save_row(a, r, i);
+      o = load3(s, 0);
+      d = load3(s, 1);
+      tp = load3(s, 2);
+      shade_row(a, ahead(a, tape_at(a, r, i), k0, k1, id, r), o, d, b);
+    }
+    RowGrad<T> mine{};
+    int64_t key = -1;
+    bool sphere = true;
+    const int rows = top < 32 ? top : 32;
+    for (int j = 0; j < rows; ++j) {
+      const Bounce<T> bj = shfl_bounce(b, j);
+      const Vec3<T> oj = shfl3(o, j), dj = shfl3(d, j), tpj = shfl3(tp, j);
+      RowGrad<T> gr;
+      bounce_adjoint(a, bj, oj, dj, tpj, go, gd, gtp, gr);
+      if (lane == j) {
+        mine = gr;
+        key = bj.w.key;
+        sphere = bj.w.g.sphere;
+      }
+    }
+    add_row(sh, w, sum, a.ns, key, sphere, mine, lane);
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+    replay_backward_kernel(ReplayArgs<T> a, const T* grad, const int* hist,
+                           const int* order, int* ticket, double* sum) {
+  extern __shared__ double smem[];  // Shared
+  Shared& sh = *reinterpret_cast<Shared*>(smem);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  for (int e = lane; e < kHotRows * kFields; e += 32)
+    sh.sum[w][e / kFields][e % kFields] = 0.0;
+  if (lane < kHotRows) sh.tag[w][lane] = kNoRow;
+  if (threadIdx.x == 0) {
+    int rays = 0, deep = 0;
+    for (int r = 0; r < a.rows; ++r) {
+      const int c = __ldg(hist + r);
+      rays += c;
+      deep += r >= kDeepRows ? c : 0;
+    }
+    sh.rays = rays;
+    sh.deep = deep;
+  }
+  __syncthreads();
+  const int rays = sh.rays, deep = sh.deep;
+  for (;;) {
+    int g = 0;
+    if (lane == 0) g = atomicAdd(ticket, 1);
+    g = __shfl_sync(kFullMask, g, 0);
+    if (g < deep) {
+      sweep_deep(a, grad, sh, w, sum, __ldg(order + g), lane);
+      continue;
+    }
+    const int64_t first = deep + static_cast<int64_t>(g - deep) * 32;
+    if (first >= rays) break;
+    const int64_t place = first + lane;
+    sweep(a, grad, sh, w, sum, place < rays ? __ldg(order + place) : -1,
+          lane);
+  }
+  flush_rows(sh, w, sum, a.ns, lane);
 }
 
 // The float64 sums rounded once to the tables' type.
@@ -528,6 +893,21 @@ __global__ void __launch_bounds__(kThreads)
 
 int blocks_for(int64_t n) {
   return static_cast<int>((n + kThreads - 1) / kThreads);
+}
+
+// The blocks of `kernel` the card holds at once, `bytes` of dynamic shared
+// memory each.
+template <class K>
+cudaError_t resident_blocks(K kernel, int bytes, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, bytes);
+  *blocks = per_sm * sms > 0 ? per_sm * sms : 1;
+  return err;
 }
 
 template <class T>
@@ -548,15 +928,42 @@ int forward(const T* sph, int64_t ns, const T* tri, int64_t nt,
             const T* origin, const T* direction, const int64_t* ray_ids,
             const int64_t* key, const int* tape, int64_t stride, int rows,
             int max_depth, double t_min, int64_t n, T* radiance, T* save,
-            int* end, void* stream) {
+            int* end, int* hist, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && hist != nullptr && rows > 0)
+    err = cudaMemsetAsync(hist, 0, rows * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (n > 0) {
     const ReplayArgs<T> a =
         replay_args(sph, ns, tri, nt, origin, direction, ray_ids, key, tape,
                     stride, rows, max_depth, t_min, n, save, end);
-    replay_forward_kernel<T><<<blocks_for(n), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(a,
-                                                                    radiance);
+    replay_forward_kernel<T><<<blocks_for(n), kThreads, 0, s>>>(a, radiance,
+                                                                 hist);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K15's grid: the blocks the card holds at once.
+template <class T>
+int backward_grid(int* blocks) {
+  return static_cast<int>(
+      resident_blocks(replay_backward_kernel<T>, sizeof(Shared), blocks));
+}
+
+int order(const int* end, const int* hist, int rows, int64_t n, int* cursor,
+          int* out, cudaStream_t s) {
+  const int bytes = static_cast<int>(3 * rows * sizeof(int));
+  cudaError_t err = cudaSuccess;
+  if (bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(replay_order_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>(
+      (n + kOrderRays * kThreads - 1) / (kOrderRays * kThreads));
+  replay_order_kernel<<<blocks, kThreads, bytes, s>>>(end, hist, rows, n,
+                                                      cursor, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -564,33 +971,37 @@ template <class T>
 int backward(const T* sph, int64_t ns, const T* tri, int64_t nt,
              const int64_t* ray_ids, const int64_t* key, const int* tape,
              int64_t stride, int rows, int max_depth, double t_min,
-             int64_t n, const T* save, const int* end, const T* grad,
-             double* sum, T* grad_sph, T* grad_tri, void* stream) {
+             int64_t n, const T* save, const int* end, const int* hist,
+             const T* grad, double* work, int* perm, T* grad_sph,
+             T* grad_tri, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t sph_cols = ns * kSphereCols, cols = sph_cols + nt * kTriCols;
+  // The float64 sum, then the order's cursors (rows) and K15's ticket.
+  int* cursor = reinterpret_cast<int*>(work + cols);
+  int* ticket = cursor + rows;
   cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && cols > 0)
-    err = cudaMemsetAsync(sum, 0, cols * sizeof(double), s);
+    err = cudaMemsetAsync(work, 0, cols * sizeof(double) +
+                                       (rows + 1) * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n > 0 && cols > 0) {
+  if (n > 0 && cols > 0 && rows > 0) {
+    int e = order(end, hist, rows, n, cursor, perm, s);
+    if (e != 0) return e;
+    int grid = 1;
+    e = backward_grid<T>(&grid);
+    if (e != 0) return e;
+    if (grid > blocks_for(n)) grid = blocks_for(n);
     const ReplayArgs<T> a = replay_args(
         sph, ns, tri, nt, static_cast<const T*>(nullptr),
         static_cast<const T*>(nullptr), ray_ids, key, tape, stride, rows,
         max_depth, t_min, n, const_cast<T*>(save), const_cast<int*>(end));
-    const bool shared = cols * static_cast<int64_t>(sizeof(double)) <=
-                        kSharedTableBytes;
-    const int bytes = static_cast<int>(
-        (kThreads + (shared ? cols : 0)) * sizeof(double));
-    err = cudaFuncSetAttribute(replay_backward_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    replay_backward_kernel<T><<<blocks_for(n), kThreads, bytes, s>>>(
-        a, grad, sum, shared ? 1 : 0);
+    replay_backward_kernel<T><<<grid, kThreads, sizeof(Shared), s>>>(
+        a, grad, hist, perm, ticket, work);
   }
   if (cols > 0)
-    round_kernel<T><<<blocks_for(cols), kThreads, 0, s>>>(sum, sph_cols, cols,
-                                                          grad_sph, grad_tri);
+    round_kernel<T><<<blocks_for(cols), kThreads, 0, s>>>(work, sph_cols,
+                                                          cols, grad_sph,
+                                                          grad_tri);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -603,18 +1014,19 @@ extern "C" {
 // the ray ids (n,) int64, the key (2,) int64 on the device, the tape (rows
 // of int32, row r of ray i at tape[r * stride + i]), the depth cap, t_min,
 // and the outputs: the radiance (n, 3) and, where save is not null, the
-// scratch (rows, n, 9) and end (n,) int32 that K15 reads.  Launches
-// nothing for n = 0.
+// scratch (rows, n, 9), end (n,) int32 and the histogram hist (rows,)
+// int32 (zeroed here) that K15 reads.  Launches nothing but the zeroing
+// for n = 0.
 int frt_replay_forward_f32(const float* sph, int64_t ns, const float* tri,
                            int64_t nt, const float* origin,
                            const float* direction, const int64_t* ray_ids,
                            const int64_t* key, const int* tape,
                            int64_t stride, int rows, int max_depth,
                            double t_min, int64_t n, float* radiance,
-                           float* save, int* end, void* stream) {
+                           float* save, int* end, int* hist, void* stream) {
   return forward<float>(sph, ns, tri, nt, origin, direction, ray_ids, key,
                         tape, stride, rows, max_depth, t_min, n, radiance,
-                        save, end, stream);
+                        save, end, hist, stream);
 }
 
 int frt_replay_forward_f64(const double* sph, int64_t ns, const double* tri,
@@ -623,26 +1035,29 @@ int frt_replay_forward_f64(const double* sph, int64_t ns, const double* tri,
                            const int64_t* key, const int* tape,
                            int64_t stride, int rows, int max_depth,
                            double t_min, int64_t n, double* radiance,
-                           double* save, int* end, void* stream) {
+                           double* save, int* end, int* hist, void* stream) {
   return forward<double>(sph, ns, tri, nt, origin, direction, ray_ids, key,
                          tape, stride, rows, max_depth, t_min, n, radiance,
-                         save, end, stream);
+                         save, end, hist, stream);
 }
 
 // Launches K15 on `stream` (module comment): the forward's tables, ids,
-// key, tape and scalars, its scratch and end, the radiance's adjoint grad
-// (n, 3); zeroes the float64 sum (ns * 15 + nt * 20), adds into it and
-// rounds it into grad_sph (ns, 15) and grad_tri (nt, 20).
+// key, tape and scalars, its scratch, end and hist, the radiance's adjoint
+// grad (n, 3); work, float64 of ns * 15 + nt * 20 + (rows + 2) / 2 (the
+// sum, then the order's cursors and ticket as int32), and perm (n,) int32
+// (the order); zeroes work, orders the rays, adds into the sum and rounds
+// it into grad_sph (ns, 15) and grad_tri (nt, 20).
 int frt_replay_backward_f32(const float* sph, int64_t ns, const float* tri,
                             int64_t nt, const int64_t* ray_ids,
                             const int64_t* key, const int* tape,
                             int64_t stride, int rows, int max_depth,
                             double t_min, int64_t n, const float* save,
-                            const int* end, const float* grad, double* sum,
+                            const int* end, const int* hist,
+                            const float* grad, double* work, int* perm,
                             float* grad_sph, float* grad_tri, void* stream) {
   return backward<float>(sph, ns, tri, nt, ray_ids, key, tape, stride, rows,
-                         max_depth, t_min, n, save, end, grad, sum, grad_sph,
-                         grad_tri, stream);
+                         max_depth, t_min, n, save, end, hist, grad, work,
+                         perm, grad_sph, grad_tri, stream);
 }
 
 int frt_replay_backward_f64(const double* sph, int64_t ns, const double* tri,
@@ -650,12 +1065,36 @@ int frt_replay_backward_f64(const double* sph, int64_t ns, const double* tri,
                             const int64_t* key, const int* tape,
                             int64_t stride, int rows, int max_depth,
                             double t_min, int64_t n, const double* save,
-                            const int* end, const double* grad, double* sum,
+                            const int* end, const int* hist,
+                            const double* grad, double* work, int* perm,
                             double* grad_sph, double* grad_tri,
                             void* stream) {
   return backward<double>(sph, ns, tri, nt, ray_ids, key, tape, stride, rows,
-                          max_depth, t_min, n, save, end, grad, sum,
-                          grad_sph, grad_tri, stream);
+                          max_depth, t_min, n, save, end, hist, grad, work,
+                          perm, grad_sph, grad_tri, stream);
+}
+
+// K15's order alone (the tests'): the rays of end (n,) with a miss row,
+// deepest first, into perm from K14's hist (rows,); cursor (rows,) int32
+// zeroed by the caller.
+int frt_replay_order(const int* end, const int* hist, int rows, int64_t n,
+                     int* cursor, int* perm, void* stream) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n == 0 || rows == 0) return 0;
+  return order(end, hist, rows, n, cursor, perm,
+               static_cast<cudaStream_t>(stream));
+}
+
+// The blocks the card holds at once of K15 (backward = 1) or of K14
+// (backward = 0), for float32 rays (f64 = 0) or float64 (1), into *blocks:
+// K15's grid; K14's first wave.
+int frt_replay_blocks(int backward, int f64, int* blocks) {
+  if (backward)
+    return f64 ? backward_grid<double>(blocks) : backward_grid<float>(blocks);
+  return static_cast<int>(
+      f64 ? resident_blocks(replay_forward_kernel<double>, 0, blocks)
+          : resident_blocks(replay_forward_kernel<float>, 0, blocks));
 }
 
 }  // extern "C"

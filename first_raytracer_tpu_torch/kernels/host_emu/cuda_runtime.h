@@ -165,6 +165,14 @@ inline double atomicAdd(double* p, double v) {
   *p = old + v;
   return old;
 }
+// Writes v where *p is cmp; returns what *p was (a plain one, as above).
+inline unsigned long long atomicCAS(unsigned long long* p,
+                                    unsigned long long cmp,
+                                    unsigned long long v) {
+  const unsigned long long old = *p;
+  if (old == cmp) *p = v;
+  return old;
+}
 inline void __threadfence() {}
 
 namespace frt_emu {

@@ -365,11 +365,15 @@ def bind_replay(lib):
     tail = [ptr] * 3 + [i64, i32, i32, f64, i64]
     for t in ("f32", "f64"):
         fwd = getattr(lib, f"frt_replay_forward_{t}")
-        fwd.argtypes = head + [ptr] * 2 + tail + [ptr] * 4
+        fwd.argtypes = head + [ptr] * 2 + tail + [ptr] * 5
         fwd.restype = i32
         bwd = getattr(lib, f"frt_replay_backward_{t}")
-        bwd.argtypes = head + tail + [ptr] * 7
+        bwd.argtypes = head + tail + [ptr] * 9
         bwd.restype = i32
+    lib.frt_replay_order.argtypes = [ptr] * 2 + [i32, i64] + [ptr] * 3
+    lib.frt_replay_order.restype = i32
+    lib.frt_replay_blocks.argtypes = [i32] * 2 + [ctypes.POINTER(i32)]
+    lib.frt_replay_blocks.restype = i32
     return lib
 
 

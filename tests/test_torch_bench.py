@@ -12,6 +12,7 @@ scenes cut to a few hundred rays where a whole frame is timed.
 import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -375,15 +376,33 @@ def test_entry_script_without_gpu_exits_2(tmp_path):
 
 
 def test_repeats_queue_runs_to_last_the_minimum(monkeypatch):
-    # A run of about 1 ms is queued about 250 times a repeat: a host stall
-    # of the 2 ms K3 frames' size no longer decides the spread guard.
+    # A run of about 1 ms is queued about 1000 times a repeat: a host stall
+    # of the 2 ms K3 frames' size, or of a host-bound gradient step's, no
+    # longer decides the spread guard.
     calls = []
     monkeypatch.setattr(bench.time, "perf_counter",
                         lambda: 0.001 * len(calls))
     n = bench.runs_per_repeat(lambda fn: calls.append(fn), None,
                               torch.device("cpu"))
-    assert calls == [None] and n == 250
+    assert calls == [None] * bench.SIZING_RUNS and n == 1000
+    # A run that lasts a repeat is the only sizing run.
+    del calls[:]
     monkeypatch.setattr(bench.time, "perf_counter",
                         lambda: 30.0 * len(calls))
     assert bench.runs_per_repeat(lambda fn: calls.append(fn), None,
                                  torch.device("cpu")) == 1
+    assert calls == [None]
+
+
+def test_a_stalled_sizing_run_does_not_shorten_the_repeats(monkeypatch):
+    # The first untimed run meets a 250 ms stall of the host, the others
+    # take 1/64 s: the repeats are sized by the 1/64 s.
+    clock, calls = [0.0], []
+
+    def run(fn):
+        calls.append(fn)
+        clock[0] += 0.25 + 2.0 ** -6 if len(calls) == 1 else 2.0 ** -6
+    monkeypatch.setattr(bench.time, "perf_counter", lambda: clock[0])
+    n = bench.runs_per_repeat(run, None, torch.device("cpu"))
+    assert len(calls) == bench.SIZING_RUNS
+    assert n == math.ceil(bench.MIN_REPEAT_S * 64)

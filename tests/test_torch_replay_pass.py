@@ -34,7 +34,9 @@ The JAX package is imported by ``tests/test_torch_replay.py``'s setup.
 """
 import torch_cpu  # noqa: F401  (torch threads per xdist worker)
 import dataclasses
+import functools
 import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -423,10 +425,204 @@ def test_failed_build_raises(monkeypatch):
         rp.replay_kernels(*args)
     sph, tri = rp._payload_tables(p["scene"])
     end = torch.zeros((o.shape[0],), dtype=torch.int32)
+    hist = torch.zeros((p["tape"].shape[0],), dtype=torch.int32)
     save = torch.zeros((p["tape"].shape[0], o.shape[0], rp.SAVE_COLS))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         rp.launch_backward(sph.detach(), None, p["ids"],
                            rng.device_key(p["key"], o.device), p["tape"],
                            p["cfg"].max_depth, p["cfg"].t_min, save, end,
-                           torch.ones_like(o))
+                           hist, torch.ones_like(o))
     assert (rp.replay.launches, rp.replay.backward_launches) == (n14, n15)
+
+
+# K15's order and sum on chosen rays of a recorded pool: the rays each case
+# selects (by their miss row under K14, or their first hit), replayed
+# through K14 and K15 against the plain loop.
+POOL_RAYS = dict(nx=32, ny=16, spp=2)
+
+
+@functools.lru_cache(maxsize=None)
+def _pool(name):
+    """(scene, cfg, o, d, ids, key, tape, end) of a pool of recorded rays:
+    the final scene's sphere grid (random-spheres), or a field of 600
+    spheres (a row apiece for most rays); ``end`` is K14's miss row of each
+    ray on the host build."""
+    if name == "field":
+        scene, cam, cfg = build_preset("sphere-field", n=600, nx=32, ny=16,
+                                       spp=2)
+    else:
+        scene, cam, cfg = build_preset("random-spheres", **POOL_RAYS)
+    o, d, ids, key, tape = _own_case(scene, cam, cfg, seed=4)
+    return scene, cfg, o, d, ids, key, tape
+
+
+@functools.lru_cache(maxsize=None)
+def _mirrors():
+    """Rays between two facing mirrors (metal spheres of radius 1000, their
+    caps at y = -1 and 1) at 1.2-1.5 rad from the plane: 23-50 bounces
+    before they leave, so that most sweeps pass 32 rows (two of a deep
+    warp's rounds), and a few rays cut at the depth cap."""
+    from first_raytracer_tpu_torch.render.integrator import RenderConfig
+    from first_raytracer_tpu_torch.scene.builders import SceneBuilder
+    b = SceneBuilder()
+    mirror = b.metal((0.9, 0.85, 0.8), fuzz=0.02)
+    b.sphere((0.0, -1001.0, 0.0), 1000.0, mirror)
+    b.sphere((0.0, 1001.0, 0.0), 1000.0, mirror)
+    b.sphere((0.0, 0.0, 0.0), 0.3, b.lambertian((0.5, 0.5, 0.5)))
+    scene = b.build("cpu")
+    r = np.random.RandomState(0)
+    n = 64
+    ang, up = r.uniform(0, 2 * np.pi, n), r.uniform(2, 10, n)
+    d = np.stack([np.cos(ang), up, np.sin(ang)], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = 0.5 * np.stack([np.cos(ang), np.zeros(n), np.sin(ang)], 1)
+    o, d = (torch.tensor(v, dtype=torch.float32) for v in (o, d))
+    cfg = RenderConfig(nx=8, ny=8, spp=1, max_depth=50)
+    ids, key = torch.arange(n), rng.base_key(3)
+    tape = trp.record_paths(scene, o, d, ids, key, cfg)
+    return scene, cfg, o, d, ids, key, tape[:trp.live_trips(tape)]
+
+
+def _end_of(host_lib, scene, o, d, ids, key, cfg, tape):
+    """K14's end rows and histogram of the rays (the host build)."""
+    sph, tri = rp._payload_tables(scene)
+    _, _, end, hist = rp.launch_forward(
+        None if sph is None else sph.detach(),
+        None if tri is None else tri.detach(), o, d, ids,
+        rng.device_key(key, o.device), tape, cfg.max_depth, cfg.t_min)
+    return end, hist
+
+
+def _select(host_lib, case):
+    """(scene, cfg, o, d, ids, key, tape) of the case's rays."""
+    if case == "deep rays":
+        return _mirrors()
+    scene, cfg, o, d, ids, key, tape = _pool(
+        "field" if case == "global rows" else "grid")
+    end, _ = _end_of(host_lib, scene, o, d, ids, key, cfg, tape)
+    r = np.random.RandomState(9)
+    if case == "one deep ray":
+        # The deepest ray among 63 that miss by row 2, placed mid-warp.
+        shallow = torch.nonzero((end >= 0) & (end <= 2))[:, 0].numpy()
+        pick = list(r.choice(shallow, 63, replace=False))
+        pick.insert(37, int(torch.argmax(end)))
+    elif case == "ground":
+        # Rays whose first hit is the ground sphere: a block's lanes on one
+        # payload row at row 0.
+        ground = int(torch.argmax(scene.sphere_radius))
+        pick = torch.nonzero(tape[0] == ground)[:, 0].numpy()[:300]
+    elif case == "spread":
+        # Up to 6 rays of each miss row, 0 to the deepest.
+        pick = []
+        for e in range(int(end.max()) + 1):
+            at = torch.nonzero(end == e)[:, 0].numpy()
+            pick += list(r.permutation(at)[:6])
+        r.shuffle(pick)
+    elif case == "absorbed and cut":
+        # The depth cap at 3 on the full tape: rays alive past it are cut
+        # (no radiance), beside rays absorbed by metals and rays that miss.
+        cfg = dataclasses.replace(cfg, max_depth=3)
+        pick = list(range(0, o.shape[0], 3))
+    elif case == "bucket slice":
+        order, groups = trp.plan_buckets(tape, 4)
+        g0, n, trips = max(groups, key=lambda g: g[2])
+        pick = order[g0:g0 + n]
+        sl = tape.index_select(1, order)[:trips, g0:g0 + n]
+        return scene, cfg, o[pick], d[pick], ids[pick], key, sl
+    else:  # global rows
+        pick = list(range(o.shape[0]))
+    pick = torch.as_tensor(np.asarray(pick, dtype=np.int64))
+    return (scene, cfg, o[pick], d[pick], ids[pick], key,
+            tape[:, pick].contiguous())
+
+
+ORDER_CASES = ["one deep ray", "ground", "spread", "absorbed and cut",
+               "bucket slice", "global rows", "deep rays"]
+
+
+@pytest.mark.parametrize("case", ORDER_CASES)
+def test_sweep_cases_equal_plain(host_lib, case):
+    """K14 ``torch.equal`` to the plain loop and K15's float64 gradients
+    within 1e-8 of its autograd on rays chosen to load the order and the
+    sum: one deep ray among shallow ones, every lane on the ground's row,
+    miss rows spread over 0 to the deepest, rays cut at the cap or
+    absorbed (end = -1), a bucket's column slice of the sorted tape, a
+    field whose rows take the global sum, and rays between two mirrors
+    whose sweeps pass 32 rows (a deep warp's second round)."""
+    scene, cfg, o, d, ids, key, tape = _select(host_lib, case)
+    end, _ = _end_of(host_lib, scene, o, d, ids, key, cfg, tape)
+    if case == "one deep ray":
+        assert int(end.max()) >= 8 and int((end > 2).sum()) == 1
+    elif case == "ground":
+        assert o.shape[0] >= 256
+    elif case == "spread":
+        assert int(end.max()) >= 8 and len(set(end.tolist())) >= 8
+    elif case == "absorbed and cut":
+        assert int((end < 0).sum()) >= 10 and int((end >= 0).sum()) >= 10
+    elif case == "bucket slice":
+        assert tape.stride(0) > tape.shape[1] and tape.shape[1] >= 32
+    elif case == "deep rays":
+        assert int((end > 32).sum()) >= 32 and int((end < 0).sum()) >= 1
+    else:
+        # Most rows are hit by fewer rays than claim a shared row.
+        _, hits = torch.unique(tape[tape >= 0], return_counts=True)
+        assert int((hits < rp.HOT_PEERS).sum()) > 128
+    _radiance_equal(scene, o, d, ids, key, cfg, tape)
+    _f64_grads_equal(scene, o, d, ids, key, cfg, tape)
+
+
+@pytest.mark.parametrize("case", ORDER_CASES)
+def test_order_is_deepest_first(host_lib, case):
+    """K14's histogram counts the rays by miss row, and K15's order is a
+    permutation of the rays with a miss row (end >= 0), deepest first."""
+    scene, cfg, o, d, ids, key, tape = _select(host_lib, case)
+    end, hist = _end_of(host_lib, scene, o, d, ids, key, cfg, tape)
+    hit = end[end >= 0].long()
+    assert torch.equal(hist.long(), torch.bincount(
+        hit, minlength=tape.shape[0]))
+    perm = rp.launch_order(end, hist).long()
+    assert torch.equal(torch.sort(perm).values,
+                       torch.nonzero(end >= 0)[:, 0])
+    depth = end[perm]
+    assert bool((depth[:-1] >= depth[1:]).all())
+
+
+@pytest.mark.parametrize("n", [1500, 5000])
+def test_order_across_blocks(host_lib, n):
+    """K15's order of more rays than one block of the order's launch takes
+    (1024): each block's runs land after the cursors' earlier ones, the
+    whole a permutation of the rays with a miss row, deepest first."""
+    r = np.random.RandomState(n)
+    end = torch.from_numpy(np.where(r.rand(n) < 0.1, -1,
+                                    r.geometric(0.4, n) - 1).clip(max=50)
+                           .astype(np.int32))
+    hist = torch.bincount(end[end >= 0].long(), minlength=51).int()
+    perm = rp.launch_order(end, hist).long()
+    assert torch.equal(torch.sort(perm).values,
+                       torch.nonzero(end >= 0)[:, 0])
+    depth = end[perm]
+    assert bool((depth[:-1] >= depth[1:]).all())
+
+
+def test_emulated_atomic_cas(tmp_path):
+    """The host emulation's atomicCAS (K15's claim of a shared row):
+    swaps only where the word holds the expected value, and returns what
+    it held."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the emulation")
+    from first_raytracer_tpu_torch.kernels.host_emu.build import HERE
+    src = tmp_path / "cas.cc"
+    src.write_text("""
+#include <cuda_runtime.h>
+int main() {
+  unsigned long long w = ~0ull;
+  if (atomicCAS(&w, ~0ull, 7ull) != ~0ull || w != 7ull) return 1;
+  if (atomicCAS(&w, ~0ull, 9ull) != 7ull || w != 7ull) return 2;
+  if (atomicCAS(&w, 7ull, 3ull) != 7ull || w != 3ull) return 3;
+  return 0;
+}
+""")
+    exe = tmp_path / "cas"
+    subprocess.run(["g++", "-std=c++20", "-I", HERE, "-o", str(exe),
+                    str(src)], check=True)
+    assert subprocess.run([str(exe)]).returncode == 0
