@@ -301,10 +301,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    card: K7's camera draw at 2^17 final-scene ids, its bounce draw at a
    0-d depth, at per-ray depths 0-50 and at the ids and depths of the
    pool frame's last pass (the frame run op by op); K8 at 2^17 ids, at the
-   last pass's ids, with a float64 camera and on camera-effects' lens.
-   Times at 2^17 rays, each kernel's 20 calls in a CUDA graph, the plain
-   versions one call a graph and one eager call; bounds from
-   ``utils/roofline.py``.
+   last pass's ids, with a float64 camera, on camera-effects' lens, at ids
+   on both sides of 2^32 - 1 (its 32-bit decode and its int64 one) and on
+   the last chunk of a frame at the default chunk, padded with its last
+   id.  Times at 32, 1024, 2^15 and 2^17 rays, each kernel's 20 calls in a
+   CUDA graph beside a graph of 20 one-element fills (a launch's floor),
+   the plain versions at 2^17, one call a graph and one eager call; bounds
+   and the term that binds them from ``utils/roofline.py``.
 21. K9 and K10, the wavefront pass's shading and compaction and the pool's
    regeneration (``render.wavefront_pass``).  Pass by pass, ``torch.equal``
    to their plain versions (``shade_plain``, ``regenerate_plain``: torch
@@ -471,7 +474,8 @@ from first_raytracer_tpu_torch.parallel.mesh import (TILE_AXIS,
                                                      make_render_mesh)
 from first_raytracer_tpu_torch.render import graphed
 from first_raytracer_tpu_torch.render import wavefront_pass as wp
-from first_raytracer_tpu_torch.render.api import (batch_state,
+from first_raytracer_tpu_torch.render.api import (DEFAULT_CHUNK,
+                                                  batch_state,
                                                   render_image,
                                                   render_ray_batch)
 from first_raytracer_tpu_torch.render import camera as rcam
@@ -530,6 +534,8 @@ KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("round_kernel", "K15 (its rounding)"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
+# Phase 20: K7 and K8 timed at these ray counts beside a launch's floor.
+RNG_RAYS_SIZES = (32, 1024, 1 << 15, 1 << 17)
 # Phases 8 and 10: the small scenes.
 CLUSTER_CASES = [
     ("three-spheres", dict(nx=64, ny=32, spp=2)),
@@ -3287,12 +3293,25 @@ def rng_rays_path(dev, key, card, frame_draws):
         bit_equal(f"K7 {label}", [got], [rng.uniforms_plain(key, i,
                                                             dom + off)])
     lens, lcam, lcfg = build_preset("camera-effects", device=dev)
+    # K8 decodes ids below 2^32 in 32 bits and the rest through int64:
+    # ids on both sides of 2^32 - 1; and the last chunk of a frame at the
+    # default chunk, padded with its last id (render/api.py::render_rays).
+    edge = torch.arange((1 << 32) - 4096, (1 << 32) + 4096, device=dev)
+    chunk = DEFAULT_CHUNK
+    tail = torch.arange(cfg.num_rays // chunk * chunk, cfg.num_rays,
+                        device=dev)
+    padded = torch.cat([tail, tail[-1:].expand(chunk - tail.shape[0])])
     rays = [("final scene, 2^17 ids", cam, cfg, ids),
             ("final scene, the pool frame's last pass", cam, cfg, last_ids),
             ("final scene, float64 camera, 2^17 ids", to_f64(cam), cfg,
              ids),
             (f"camera-effects (lens radius {float(lcam.lens_radius)}), "
-             "2^17 ids", lcam, lcfg, ids)]
+             "2^17 ids", lcam, lcfg, ids),
+            (f"final scene, ids {int(edge[0])}-{int(edge[-1])} around "
+             "2^32 - 1", cam, cfg, edge),
+            ("camera-effects, ids around 2^32 - 1", lcam, lcfg, edge),
+            (f"final scene, the last chunk of {chunk} ({tail.shape[0]} ids "
+             f"and {chunk - tail.shape[0]} of padding)", cam, cfg, padded)]
     for label, cm, cf, i in rays:
         before = rcam.camera_rays.launches
         got = rcam.camera_rays(cm, cf.nx, cf.ny, cf.spp, key, i)
@@ -3303,22 +3322,37 @@ def rng_rays_path(dev, key, card, frame_draws):
             cm, cf.nx, cf.ny, cf.spp, key, i))
     del lens
 
-    # Times at 2^17 rays, each call in a CUDA graph (20 calls a graph for
-    # the kernels; the plain versions one call a graph, as they ran in the
+    # Times at 32 to 2^17 rays, each call in a CUDA graph (20 calls a graph
+    # for the kernels and for a one-element fill, a launch's floor; the
+    # plain versions at 2^17, one call a graph, as they ran in the
     # wavefront graphs before, and one eager call).
-    def k7():
-        return rng.uniforms(key, ids, depths, offset=1)
+    one = torch.empty(1, device=dev)
+    sized = {}
+    for n in RNG_RAYS_SIZES:
+        i, dep = ids[:n], depths[:n].contiguous()
+        floor = graph_ms(one.zero_, 7, 20)
+        row = {"floor": floor}
+        for name, fn, b in (
+                ("K7", lambda: rng.uniforms(key, i, dep, offset=1),
+                 k7_bound(n, True)),
+                ("K7 camera draw", lambda: rng.camera_uniforms(key, i),
+                 k7_bound(n)),
+                ("K8", lambda: rcam.camera_rays(cam, cfg.nx, cfg.ny,
+                                                cfg.spp, key, i),
+                 k8_bound(n))):
+            ms = graph_ms(fn, 7, 20)
+            row[name] = ms
+            log(f"  {name} at {n} rays: {ms:.5f} ms, {ms - floor:+.5f} "
+                f"above the floor {floor:.5f} (bound {b[0]:.6f} ms by "
+                f"{b[1]})")
+        sized[n] = row
+    ms7, cam_ms, ms8 = (sized[R][k] for k in ("K7", "K7 camera draw", "K8"))
 
     def plain7():
         return rng.uniforms_plain(key, ids, depths + 1)
 
-    def k8():
-        return rcam.camera_rays(cam, cfg.nx, cfg.ny, cfg.spp, key, ids)
-
     def plain8():
         return rcam.camera_rays_plain(cam, cfg.nx, cfg.ny, cfg.spp, key, ids)
-    ms7, ms8 = graph_ms(k7, 5, 20), graph_ms(k8, 5, 20)
-    cam_ms = graph_ms(lambda: rng.camera_uniforms(key, ids), 5, 20)
     plain7_ms, plain8_ms = graph_ms(plain7, 5), graph_ms(plain8, 5)
     eager7_s, eager8_s = host_s(plain7)[0], host_s(plain8)[0]
     b7, b7c, b8 = k7_bound(R, True), k7_bound(R), k8_bound(R)
@@ -3339,13 +3373,18 @@ def rng_rays_path(dev, key, card, frame_draws):
         "frame_launches": {m: v[0] for m, v in frame_draws.items()},
         "ms": ms7, "plain_ms": plain7_ms, "plain_eager_ms": eager7_s * 1e3,
         "bound_ms": b7[0], "bound_by": b7[1], "camera_draw_ms": cam_ms,
-        "camera_draw_bound_ms": b7c[0]}), dict(common, **{
+        "camera_draw_bound_ms": b7c[0],
+        "ms_by_rays": {n: {k: row[k] for k in ("floor", "K7",
+                                               "K7 camera draw")}
+                       for n, row in sized.items()}}), dict(common, **{
         "name": "K8 camera rays (render.camera.camera_rays), 2^17 rays of "
                 "the final scene",
         "replaces": rcam.REPLACES, "launches": n8,
         "frame_launches": {m: v[1] for m, v in frame_draws.items()},
         "ms": ms8, "plain_ms": plain8_ms, "plain_eager_ms": eager8_s * 1e3,
-        "bound_ms": b8[0], "bound_by": b8[1]})]
+        "bound_ms": b8[0], "bound_by": b8[1],
+        "ms_by_rays": {n: {k: row[k] for k in ("floor", "K8")}
+                       for n, row in sized.items()}})]
 
 
 # Phase 21: the pool's slots and ray ids, and where its range starts; the

@@ -19,8 +19,9 @@ of a word scaled by 2^-24.
 
 ``uniforms`` dispatches by the ids' device.  On a CUDA device it launches
 K7 (``kernels/csrc/rng_rays.cu``): one thread draws one ray's four
-uniforms, the key read from its device tensor, so a draw is one node of a
-CUDA graph where the plain version is ~350.  On the CPU it runs
+uniforms and writes them as one 16-byte row, the key read from its device
+tensor, so a draw is one node of a CUDA graph where the plain version is
+~350.  On the CPU it runs
 ``uniforms_plain``, the Threefry of int64 torch ops; K7 is bit-equal to it.
 A failed build or launch raises; nothing falls back.
 """
@@ -152,6 +153,9 @@ def _launch_cuda(key, ids, domain, offset):
         offset += int(domain)
     ids = ids.to(torch.int64).contiguous()
     out = torch.empty(ids.shape + (4,), dtype=torch.float32, device=dev)
+    if out.data_ptr() % 16:
+        raise RuntimeError("K7 writes a row as one 16-byte store; its output "
+                           f"at {out.data_ptr():#x} is not 16-byte aligned")
     n = ids.numel()
     megakernel.launch_entry(
         dev, "frt_uniforms", k.data_ptr(), ids.data_ptr(),

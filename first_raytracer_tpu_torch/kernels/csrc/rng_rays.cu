@@ -23,13 +23,27 @@
 // first_raytracer_tpu/render/camera.py:71 (no Pallas kernel either).  It is
 // bit-equal to generate_rays as torch runs it on the same device; the ray's
 // arithmetic, torch's rounding and the host build's are camera_rays.cuh's,
-// which K10 (wavefront_pass.cu) shares for the pool's fresh rays.
+// which K10 and K12's pool mode (wavefront_pass.cu) share for the pool's
+// fresh rays.
 //
-// Both are bound by bytes on an H100: K7 reads an 8-byte id (and an 8-byte
-// depth when it has one per ray) and writes 16 bytes a ray, against ~250
-// integer operations (utils/roofline.py); K8 reads 8 and writes 24 (float32)
-// or 48 (float64).  One thread a ray with coalesced loads and stores, no
-// shared memory.  The file is built with --fmad=false like the others.
+// On an H100 both are one wave or less on the main paths (2^17 rays: 512
+// blocks of 256, every block resident at once), so a launch takes the
+// launch's floor (~0.0014 ms in a CUDA graph) plus each SM's issue of its
+// ~1,000 rays.  Their bound is the Threefry's integer operations at the
+// INT32 rate (utils/roofline.py counts 164 a draw: 0.00129 ms at 2^17
+// rays, above the 24-32 bytes a ray K7 moves and the 32-56 of K8), and K7
+// runs at the floor plus that bound (PERF.md section 5).  So the design
+// cuts issued instructions: K7 reads the id's and the domain's low words
+// only (their high halves never reach a counter) and writes a ray's four
+// uniforms as one 16-byte store; K8 decodes the pixel of an id below 2^32
+// by two 32-bit multiply-highs (camera_rays.cuh), where torch's int64
+// floor divisions called the card's 64-bit division routine (84
+// instructions) twice and a 32-bit `/` was no faster, and takes the sine
+// and cosine from one range reduction.  One thread a ray, coalesced loads
+// and stores, no shared memory: the camera staged in it, the rows staged
+// for 16-byte stores, two rays a thread and other block sizes were no
+// faster (probes/rng_rays.py --variants).  The file is built with
+// --fmad=false like the others.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -44,40 +58,39 @@ using frt::CameraFields;
 
 constexpr int kThreads = 256;
 
+// The low 32-bit word of p[i] (little-endian: the word that comes first).
+__device__ __forceinline__ uint32_t low_word(const int64_t* p, int64_t i) {
+  return __ldg(reinterpret_cast<const uint32_t*>(p + i));
+}
+
 __global__ void __launch_bounds__(kThreads)
     uniforms_kernel(const int64_t* __restrict__ key,
                     const int64_t* __restrict__ ids,
                     const int64_t* __restrict__ domain,
                     int64_t domain_stride, int64_t domain_offset, int64_t n,
-                    float* __restrict__ out) {
+                    float4* __restrict__ out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
-  const uint32_t k0 = static_cast<uint32_t>(__ldg(key));
-  const uint32_t k1 = static_cast<uint32_t>(__ldg(key + 1));
-  const int64_t dom =
-      (domain != nullptr ? __ldg(domain + i * domain_stride) : 0) +
-      domain_offset;
+  // Only the low 32 bits of the id and of domain + offset reach the
+  // counters (id, 2 dom) and (id, 2 dom + 1).
+  uint32_t dom = static_cast<uint32_t>(domain_offset);
+  if (domain != nullptr) dom += low_word(domain, i * domain_stride);
   float u[4];
-  frt::draws4(k0, k1, static_cast<uint32_t>(__ldg(ids + i)),
-              static_cast<uint32_t>(dom), u);
-  out[4 * i] = u[0];
-  out[4 * i + 1] = u[1];
-  out[4 * i + 2] = u[2];
-  out[4 * i + 3] = u[3];
+  frt::draws4(low_word(key, 0), low_word(key, 1), low_word(ids, i), dom, u);
+  out[i] = make_float4(u[0], u[1], u[2], u[3]);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     camera_rays_kernel(const int64_t* __restrict__ key,
-                       const int64_t* __restrict__ ids, int64_t n, int64_t nx,
-                       int64_t ny, int64_t spp, CameraFields<T> cam,
+                       const int64_t* __restrict__ ids, int64_t n,
+                       frt::PixelDecode px, CameraFields<T> cam,
                        T* __restrict__ origin, T* __restrict__ direction) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   T o[3], dir[3];
-  frt::torch_camera_ray<T>(static_cast<uint32_t>(__ldg(key)),
-                           static_cast<uint32_t>(__ldg(key + 1)),
-                           __ldg(ids + i), nx, ny, spp, cam, o, dir);
+  frt::torch_camera_ray<T>(low_word(key, 0), low_word(key, 1),
+                           __ldg(ids + i), px, cam, o, dir);
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     origin[3 * i + c] = o[c];
@@ -101,7 +114,8 @@ int launch_camera_rays(const int64_t* key, const int64_t* ids, int64_t n,
                               u,      v,          lens_radius};
     camera_rays_kernel<T><<<blocks_for(n), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-        key, ids, n, nx, ny, spp, cam, out_origin, out_direction);
+        key, ids, n, frt::pixel_decode(nx, ny, spp), cam, out_origin,
+        out_direction);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -113,14 +127,16 @@ extern "C" {
 // Launches K7 on `stream`: out (n, 4) f32 = the uniforms of ray ids `ids`
 // (n,) int64 in domain (domain[i * domain_stride] if `domain` is not null,
 // else 0) + domain_offset, keyed by `key` (2,) int64.  Launches nothing for
-// n = 0.  Returns cudaGetLastError() after the launch (0 = launched).
+// n = 0.  `out` is 16-byte aligned (a row is one float4 store).  Returns
+// cudaGetLastError() after the launch (0 = launched).
 int frt_uniforms(const int64_t* key, const int64_t* ids,
                  const int64_t* domain, int64_t domain_stride,
                  int64_t domain_offset, int64_t n, float* out, void* stream) {
   if (n > 0) {
     uniforms_kernel<<<blocks_for(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        key, ids, domain, domain_stride, domain_offset, n, out);
+        key, ids, domain, domain_stride, domain_offset, n,
+        reinterpret_cast<float4*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -649,7 +649,8 @@ __global__ void __launch_bounds__(kThreads)
 struct RegenArgs {
   const int64_t* key;  // (2,)
   CameraFields<float> cam;
-  int64_t nx, ny, spp, image_rays;  // the image's rays (fresh ids clamp)
+  frt::PixelDecode px;  // the image (camera_rays.cuh)
+  int64_t image_rays;   // its rays (fresh ids clamp)
   float* o;
   float* d;
   float* tp;
@@ -686,7 +687,7 @@ __global__ void __launch_bounds__(kThreads)
   float o[3], d[3];
   frt::torch_camera_ray<float>(static_cast<uint32_t>(__ldg(a.key)),
                                static_cast<uint32_t>(__ldg(a.key + 1)),
-                               cam_id, a.nx, a.ny, a.spp, a.cam, o, d);
+                               cam_id, a.px, a.cam, o, d);
   store3(a.o, s, V3{o[0], o[1], o[2]});
   store3(a.d, s, V3{d[0], d[1], d[2]});
   store3(a.tp, s, V3{1.0f, 1.0f, 1.0f});
@@ -931,7 +932,7 @@ struct RecordPoolArgs {
   int64_t* record;         // (2,)
   Word* scan;              // (1 + tiles,)
   CameraFields<float> cam;
-  int64_t nx, ny, spp;
+  frt::PixelDecode px;  // the image (camera_rays.cuh)
 };
 
 // Slots a tile of the pool mode's scan, a thread each (probes/k12_grid.py).
@@ -1098,8 +1099,7 @@ __global__ void __launch_bounds__(kRecordTile)
         fresh < 0 ? 0 : (fresh > q.num_rays - 1 ? q.num_rays - 1 : fresh);
     const int64_t id = __ldg(q.ray_ids + idx);
     float ro[3], rd[3];
-    frt::torch_camera_ray<float>(k0, k1, id, q.nx, q.ny, q.spp, q.cam, ro,
-                                 rd);
+    frt::torch_camera_ray<float>(k0, k1, id, q.px, q.cam, ro, rd);
     store3(q.o, s, V3{ro[0], ro[1], ro[2]});
     store3(q.d, s, V3{rd[0], rd[1], rd[2]});
     q.ids[s] = id;
@@ -1218,10 +1218,11 @@ int frt_regenerate(const int64_t* key, const float* cam_origin,
     const CameraFields<float> cam{cam_origin, cam_lower_left, cam_horizontal,
                                   cam_vertical, cam_u,      cam_v,
                                   cam_lens_radius};
-    const RegenArgs a{key,   cam,    nx,     ny,       spp,
-                      nx * ny * spp, o,      d,        tp,
-                      ids,   depth,  alive,  record,   start_id,
-                      cursor, num_rays, n};
+    const RegenArgs a{key,      cam,   frt::pixel_decode(nx, ny, spp),
+                      nx * ny * spp, o,  d,
+                      tp,       ids,   depth,
+                      alive,    record, start_id,
+                      cursor,   num_rays, n};
     regenerate_kernel<<<blocks_for(n), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(a);
   }
@@ -1312,7 +1313,7 @@ int frt_record_pool(const int64_t* key, const float* sph_center,
                                 cam_lens_radius};
   const RecordPoolArgs q{o,        d,      ids,    col,  depth, alive,
                          tape,     ray_ids, num_rays, cursor, record, scan,
-                         cam,      nx,     ny,     spp};
+                         cam,      frt::pixel_decode(nx, ny, spp)};
   const int blocks = static_cast<int>(tiles < resident ? tiles : resident);
   record_pool_kernel<<<blocks, kRecordTile, sizeof(RecordShared),
                        static_cast<cudaStream_t>(stream)>>>(sc, a, q);

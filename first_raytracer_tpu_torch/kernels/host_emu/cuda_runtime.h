@@ -123,9 +123,15 @@ inline float frt_emu_sinf(float x) {
 inline float frt_emu_cosf(float x) {
   return static_cast<float>(std::cos(static_cast<double>(x)));
 }
+// One range reduction on the card; rounded here as sinf and cosf are.
+inline void frt_emu_sincosf(float x, float* s, float* c) {
+  *s = frt_emu_sinf(x);
+  *c = frt_emu_cosf(x);
+}
 #define sqrtf frt_emu_sqrtf
 #define sinf frt_emu_sinf
 #define cosf frt_emu_cosf
+#define sincosf frt_emu_sincosf
 
 template <class T>
 inline T __ldg(const T* p) {
@@ -150,6 +156,10 @@ inline unsigned __float_as_uint(float x) {
 }
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// The high 32 bits of the 64-bit product.
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return static_cast<unsigned>((static_cast<uint64_t>(a) * b) >> 32);
+}
 inline int __ffs(int x) { return __builtin_ffs(x); }
 
 inline int atomicAdd(int* p, int v) {

@@ -14,7 +14,15 @@ wrappers that route the wavefront paths through them.
   and the emulation round it, correctly (numpy's): torch's float32 and
   float64 ``sqrt`` on this CPU are vectorised approximations an ulp off on
   a fraction of inputs.  The origins, which take no such root, are held to
-  the unchanged plain version too.
+  the unchanged plain version too.  K8's pixel decode (32-bit multiply-highs
+  by the launcher's reciprocals below 2^32, int64 floor divisions past it)
+  bit-equal to ``camera_rays_plain`` with nx and spp each 1, 2, 3, 7, 10,
+  1200 and 4095 and with divisors of 2^32 and more, on ids at 0, the
+  image's last ray, pixel and row boundaries, 2^31 - 1, 2^32 - 1 and past
+  2^32, and on a last chunk padded with its last id, in float32 and
+  float64 on the four presets' cameras; K7's row, one 16-byte store, at
+  ray counts of partial blocks with ids and domains whose high words are
+  set, and its refusal of an output that is not 16-byte aligned.
 - ``camera_rays`` on the CPU against the JAX package's
   ``rng.camera_uniforms`` and ``generate_rays``: the uniforms bit-equal, the
   directions within 2e-7 absolute, the origins within 2e-7 absolute or one
@@ -168,6 +176,109 @@ def test_k8_equals_generate_rays(host_lib, monkeypatch, preset, f64):
                                           ids)
         assert torch.equal(o, wo) and torch.equal(d, wd)
         assert float((d.norm(dim=1) - 1).abs().max()) < 1e-6
+
+
+# Divisors of K8's 32-bit pixel decode (nx and spp each take every one),
+# and the ids at its edges: 0, the image's last and first-past ray,
+# 2^31 - 1, the last ids below 2^32, and ids past 2^32 (the int64 path).
+DIVISORS = (1, 2, 3, 7, 10, 1200, 4095)
+EDGE_IDS = (0, (1 << 31) - 1, (1 << 31), (1 << 32) - 2, (1 << 32) - 1,
+            1 << 32, (1 << 32) + 5, (1 << 33) + (1 << 31) - 1,
+            (1 << 40) + 12345)
+
+
+def _decode_ids(nx, ny, spp):
+    """Ids at the decode's edges for an nx x ny image at spp: ``EDGE_IDS``,
+    the image's last ray and the next, the ids on both sides of a pixel's,
+    a row's and a multiple of 2^32's boundary, and random ids below
+    2^32."""
+    r = np.random.RandomState(nx * 7919 + spp)
+    per_row = nx * spp
+    near = [k * m + e for m in (spp, per_row) for k in (1, 2, 97, 4093)
+            for e in (-1, 0, 1)]
+    top = [(1 << 32) - 1 - k * spp for k in range(3)] + [
+        ((1 << 32) - 1) // per_row * per_row + e for e in (-1, 0, 1)]
+    ids = np.concatenate([EDGE_IDS, [nx * ny * spp - 1, nx * ny * spp],
+                          near, top, r.randint(0, 1 << 32, 96,
+                                               dtype=np.int64)])
+    return torch.from_numpy(ids[ids >= 0].astype(np.int64))
+
+
+def _k8_against_plain(monkeypatch, cam, nx, ny, spp, ids, seed=0):
+    """K8 through the host build against ``camera_rays_plain`` with the
+    card's square root, origin and direction bit for bit."""
+    key = rng.base_key(seed)
+    o, d = cm._launch_cuda(cam, nx, ny, spp, key, ids)
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sqrt", _ieee_sqrt)
+        wo, wd = cm.camera_rays_plain(cam, nx, ny, spp, key, ids)
+    assert o.dtype == d.dtype == cam.origin.dtype
+    assert torch.equal(o, wo) and torch.equal(d, wd)
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+@pytest.mark.parametrize("k", range(len(DIVISORS)))
+def test_k8_pixel_decode_divisors(host_lib, monkeypatch, k, f64):
+    """K8's 32-bit decode (a multiply-high by the launcher's reciprocal)
+    and its int64 one bit-equal to ``generate_rays``' floor divisions, with
+    nx and spp each taking every divisor of ``DIVISORS``, on ids at the
+    decode's edges, in float32 and float64 on the four presets' cameras."""
+    nx, spp = DIVISORS[k], DIVISORS[(k + 3) % len(DIVISORS)]
+    ny = 1 + DIVISORS[(k + 5) % len(DIVISORS)] % 13
+    cam, _ = _camera(PRESETS[k % len(PRESETS)], f64)
+    _k8_against_plain(monkeypatch, cam, nx, ny, spp, _decode_ids(nx, ny,
+                                                                 spp))
+
+
+@pytest.mark.parametrize("f64", [False, True], ids=["float32", "float64"])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_k8_edge_ids(host_lib, monkeypatch, preset, f64):
+    """K8 on each preset's own image at the decode's edge ids (2^31 - 1,
+    2^32 - 1 and past 2^32) and on the last chunk of a frame of that image
+    padded with its last id, as ``render_rays`` pads it."""
+    cam, cfg = _camera(preset, f64)
+    tail = torch.arange(cfg.num_rays - 5, cfg.num_rays)
+    ids = torch.cat([torch.tensor(EDGE_IDS), tail, tail[-1:].expand(11)])
+    for seed in (0, -1):
+        _k8_against_plain(monkeypatch, cam, cfg.nx, cfg.ny, cfg.spp, ids,
+                          seed)
+
+
+def test_k8_divisors_past_32_bits(host_lib, monkeypatch):
+    """A divisor of 2^32 or more takes every id down the int64 path."""
+    cam, _ = _camera("random-spheres")
+    ids = torch.tensor(EDGE_IDS)
+    for nx, spp in (((1 << 32) + 3, 2), (3, (1 << 32) + 1), (1 << 32, 1)):
+        _k8_against_plain(monkeypatch, cam, nx, 4, spp, ids)
+
+
+@pytest.mark.parametrize("n", [1, 3, 255, 256, 257, 1000])
+def test_k7_row_is_one_float4(host_lib, n):
+    """K7's row, written as one 16-byte store, holds the four uniforms in
+    the plain version's order at every ray count of a partial block; the
+    ids' and domains' high words never reach the draw."""
+    ids = torch.arange(n, dtype=torch.int64) * 40503 + (7 << 32)
+    depth = torch.arange(n, dtype=torch.int64) % 51 - (3 << 32)
+    key = rng.base_key(11)
+    for dom, off in ((depth, 1), (torch.tensor(5 << 33), 2), (3, 0)):
+        got = rng._launch_cuda(key, ids, dom, off)
+        assert got.shape == (n, 4)
+        assert torch.equal(got, rng.uniforms_plain(key, ids, dom + off))
+
+
+def test_k7_refuses_an_unaligned_row(host_lib, monkeypatch):
+    """K7 stores a row as one float4: an output that is not 16-byte
+    aligned raises before the launch."""
+    real = torch.empty
+
+    def shifted(*args, **kwargs):
+        return real(int(np.prod(args[0])) + 1, dtype=kwargs["dtype"],
+                    device=kwargs["device"])[1:].view(args[0])
+    monkeypatch.setattr(rng.torch, "empty", shifted)
+    before = rng.uniforms.launches
+    with pytest.raises(RuntimeError, match="16-byte"):
+        rng._launch_cuda(rng.base_key(0), torch.arange(8), 0, 0)
+    assert rng.uniforms.launches == before
 
 
 @pytest.mark.parametrize("preset", ["three-spheres", "random-spheres",
