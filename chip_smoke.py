@@ -206,10 +206,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    the ranks' tapes equal to phase 6's and its loss and gradients within
    ``rtol=1e-4, atol=1e-7`` of phase 6's step (each rank replays its own
    graph of the value and gradient, the all-reduce outside it); the
-   autograd training step on random-spheres 24x12 @ 2 within the same
-   bound of one process's.  K1, K3, K4 and K2b must each launch on every
-   rank, and each rank's replay step must replay its graph.  A rank that fails
-   fails the phase.
+   training step, the sharded direct step
+   (``render_loss_and_grads_sharded``: each rank records its block of
+   2^16 of the final scene's first 2^17 rays at depth 50 and replays its
+   graph of the value and gradient over the whole batch's count, the
+   fields of JAX's ``train_step``), has the ranks' tapes concatenated
+   ``torch.equal`` to one process's and its loss and gradients within the
+   same bound of one process's direct step; each rank's training step is
+   timed op by op and graphed (median of 3 after a warm run).  K1, K3, K4
+   and K2b must each launch on every rank, and each rank's replay and
+   training steps must replay their graphs.  A rank that fails fails the
+   phase.
 16. ``python -m first_raytracer_tpu_torch.cli occupancy`` in subprocesses:
    on the final scene at full size its megakernel ``lane_occupancy``
    within 1e-3 of phase 4's lane efficiency (the warps' steps follow the
@@ -295,7 +302,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
    tape ``torch.equal`` to the same recorder op by op; the graphed replay
    of its tape: K8 once, K7 never (it draws inside K14 and K15, phase 23),
    K14 and K15 once each; K7's own path since then, the differentiable
-   scan (``method="scan"``) at 2^14 rays: K7 once a trip.  Bit-equal to
+   scan (``method="scan"``, ``scan_path``) at 2^17 rays of the final
+   scene, depth 50, every DIFF_FIELDS leaf, zero target, a replay of its
+   captured graph (``dg.SCAN_GRAPHS``; warm-up and capture seconds, pool
+   bytes, peak memory): K8 once, K7 and K11 once a trip, every K11 launch
+   given the liveness mask; the graph against the eager body
+   (``scan_loss_and_grads``; the loss within one float32 ulp, gradients
+   within ``rtol=1e-6``) and against phase 18's replay step on the same
+   rays (loss ``rtol=1e-6``, gradients ``rtol=2e-3, atol=1e-7``:
+   ``test_replay_matches_scan``'s bounds); eager and graphed in turns
+   (eager, graphed, graphed, eager) with each one's peak memory.  Bit-equal to
    their plain versions
    (``rng.uniforms_plain``, ``camera.camera_rays_plain``: torch ops) on the
    card: K7's camera draw at 2^17 final-scene ids, its bounce draw at a
@@ -401,7 +417,8 @@ measurements (``sharded_launches``: the launches of phases 14 and 15;
 ``bench_launches``: phase 17's, by run; ``direct_step_launches``: phase
 18's, K4 on the final scene and K5 on field5000; K6's ``entry_launches``:
 phase 19's ``entry()`` forward; K7's ``launches``: phase 20's
-differentiable scan, K8's: its pool recorder's init, ``frame_launches``:
+differentiable scan (``scan``: its readings), K8's: its pool recorder's
+init, ``frame_launches``:
 phase 12's frames; K9's and K10's: phase 21's pool frame,
 ``frame_launches``: its frames; K11's and K12's lockstep mode: phase 22's
 direct step, K12's length mode: its occupancy scan, K12's pool mode and
@@ -890,6 +907,7 @@ def reset_counts():
     wp.shade.launches = 0
     wp.regenerate.launches = 0
     dh.dense_hit.launches = 0
+    dh.dense_hit.masked_launches = 0
     rpass.record_step.launches = 0
     rpass.record_step.length_launches = 0
     rpass.record_shade.launches = 0
@@ -2472,27 +2490,54 @@ def two_processes(dev, card, final_img, field_img, step_single,
     bit_equal("  the ranks' K2b tapes, concatenated", (got_tape,), (tape,),
               "phase 6's tape")
     kb = launched("replay", "K2b")
-    graphs = [i["graphs"] for i in infos]
-    log(f"  the ranks' value and gradient: graphs {graphs}")
-    if dev.type == "cuda" and not all(g["replays"] for g in graphs):
-        raise AssertionError("phase 15: a rank's replay step did not "
-                             "replay its graph")
+
+    def replayed(step):
+        graphs = [i["graphs"][step] for i in infos]
+        log(f"  the ranks' value and gradient in the {step} step: graphs "
+            f"{graphs}")
+        if dev.type == "cuda" and not all(g["replays"] for g in graphs):
+            raise AssertionError(f"phase 15: a rank's {step} step did not "
+                                 "replay its graph")
+    replayed("replay")
     grads = {k: g.numpy() for k, g in grads.items()}
     for i, r in enumerate(ranks):
         check_step(f"rank {i} record->replay step", r, "replay", loss,
                    grads)
-    # The training step (autograd through the wavefront), against one
-    # process on the same rays.
+    # The training step (the sharded direct step: each rank records its
+    # block and replays its graph of the value and gradient), against one
+    # process's direct step on the same rays.
     scene, cam, cfg = dryrun.build("train", size, dev)
     cfg = dataclasses.replace(cfg, differentiable=True)
     params, _ = dg.split_params(scene, fields=dryrun.TRAIN_FIELDS)
+    rays = dryrun.REPLAY_RAYS[size] or cfg.num_rays
+    ids = torch.arange(rays, device=dev)
     loss, grads = dg.render_loss_and_grads(
-        params, scene, cam, cfg, rng.base_key(0),
-        torch.arange(cfg.num_rays, device=dev),
-        torch.zeros((cfg.num_rays, 3), device=dev))
+        params, scene, cam, cfg, rng.base_key(0), ids,
+        torch.zeros((rays, 3), device=dev))
+    tape = dg.record_tape(params, scene, cam, cfg, rng.base_key(0), ids)
+    got_tape = torch.from_numpy(np.concatenate(
+        [r["train_tape"] for r in ranks], axis=1))
+    log(f"  the training step: {rays} rays of {cfg.nx}x{cfg.ny}@{cfg.spp}, "
+        f"depth {cfg.max_depth}, fields {dryrun.TRAIN_FIELDS}, "
+        f"{rays // 2} a rank")
+    bit_equal("  the ranks' training-step tapes, concatenated",
+              (got_tape,), (tape.cpu(),), "one process's tape")
+    replayed("train")
     grads = {k: g.cpu().numpy() for k, g in grads.items()}
     for i, r in enumerate(ranks):
         check_step(f"rank {i} training step", r, "train", loss, grads)
+    if dev.type == "cuda":
+        for i, r in enumerate(ranks):
+            eager, graphed_s = (statistics.median(r[k]) for k in
+                                ("train_eager_s", "train_s"))
+            log(f"  rank {i} training step, 2 ranks sharing the card "
+                f"(median of 3 after a warm run; all 3): op by op "
+                f"{eager * 1e3:.1f} ms ("
+                f"{', '.join(f'{t * 1e3:.1f}' for t in r['train_eager_s'])}"
+                f"), graphed {graphed_s * 1e3:.1f} ms ("
+                f"{', '.join(f'{t * 1e3:.1f}' for t in r['train_s'])}), "
+                f"{eager / graphed_s:.2f}x; the all-reduce outside the "
+                f"graphs, gloo via host tensors; on {card}")
     return {"K2b": kb, "K4": k4}
 
 
@@ -2681,7 +2726,8 @@ def direct_step_path(dev, key, card):
     """Phase 18.  The direct gradient step (``cli fit`` without
     ``--fast``, JAX's jitted ``render_loss_and_grads``) at 2^17 rays.
     Returns K4's and K5's launches on it for the kernels line, and the
-    final scene's dense-sweep tape (phase 19 holds K6's to it)."""
+    final scene's dense-sweep tape (phase 19 holds K6's to it) and its
+    step's loss and gradients (phase 20 holds the scan to them)."""
     R = GRAD_RAYS
     ids = torch.arange(R, device=dev)
     target = torch.zeros((R, 3), device=dev)
@@ -2775,7 +2821,7 @@ def direct_step_path(dev, key, card):
     log("  the pool recorder through K4 (2^14 slots): tape equal to the "
         "lockstep recorder's")
     k4_launches = d4["launches"]["K4"]
-    dense_tape = tape
+    dense_tape, dense_step = tape, (d["loss"], d["grads"])
     del d, d4, pool4, tape, fns, pack4, jax_tape
     torch.cuda.empty_cache()
 
@@ -2811,6 +2857,7 @@ def direct_step_path(dev, key, card):
     if not (k4_launches > 0 and d5["launches"]["K5"] > 0):
         raise AssertionError("the direct step did not launch K4 or K5")
     return dict(times=times, times5=times5, peaks=peaks, tape=dense_tape,
+                step=dense_step,
                 launches={"K4": k4_launches, "K5": d5["launches"]["K5"]})
 
 
@@ -3203,9 +3250,121 @@ def last_pool_pass(scene, cam, cfg, key, pack):
     return (*last, passes)
 
 
-def rng_rays_path(dev, key, card, frame_draws):
+def scan_turns(fns, card):
+    """Seconds of the eager and the graphed scan in turns, eager, graphed,
+    graphed, eager, and the peak memory allocated in one call of each;
+    logs and returns both."""
+    times = {k: [] for k in fns}
+    for k in ("eager scan", "graphed scan", "graphed scan", "eager scan"):
+        times[k].append(host_s(fns[k])[0])
+    peaks = {}
+    for k in fns:
+        torch.cuda.reset_peak_memory_stats()
+        host_s(fns[k])
+        peaks[k] = torch.cuda.max_memory_allocated()
+    speedup = (statistics.mean(times["eager scan"])
+               / statistics.mean(times["graphed scan"]))
+    log(f"  the scan in turns (eager, graphed, graphed, eager): "
+        + "; ".join(f"{k} {', '.join(f'{t * 1e3:.1f}' for t in v)} ms"
+                    for k, v in times.items())
+        + f" ({speedup:.2f}x); peak memory allocated in a call: "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in peaks.items())
+        + f"; on {card}")
+    return times, peaks
+
+
+def scan_path(params, scene, cam, cfg, key, ids, target, replay_step, card):
+    """The differentiable scan (``method="scan"``, the JAX package's jitted
+    ``render_loss_and_grads`` with ``method`` static) through the user's
+    entry point, a replay of its captured graph (``dg.SCAN_GRAPHS``):
+    captured on its first call (warm-up and capture seconds, pool bytes,
+    the peak memory allocated meanwhile); counters reset just before its
+    second call and read just after: K8 once, K7 (the draw) and K11 (the
+    closest hit, given the rays' liveness mask) once a trip.  Held to the
+    eager body (``scan_loss_and_grads``) on the same inputs, the loss
+    within one float32 ulp and every gradient within ``rtol=1e-6``, every
+    gradient finite; and to ``replay_step`` (the replay's (loss, grads) on
+    the same rays) within tests/test_torch_replay.py's
+    ``test_replay_matches_scan`` bounds: loss ``rtol=1e-6``, gradients
+    ``rtol=2e-3, atol=1e-7``.  Then timed in turns with the eager body.
+    Returns K7's launches and the readings."""
+    def graphed_scan():
+        return dg.render_loss_and_grads(params, scene, cam, cfg, key, ids,
+                                        target, method="scan")
+
+    def eager_scan():
+        return dg.scan_loss_and_grads(params, scene, cam, key, ids, target,
+                                      None, cfg=cfg,
+                                      intersect_fn=default_intersect)
+
+    R, trips = ids.shape[0], cfg.max_depth + 1
+    captures = dg.SCAN_GRAPHS.captures
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    first_s = host_s(graphed_scan)[0]
+    capture_peak = torch.cuda.max_memory_allocated() - base
+    if dg.SCAN_GRAPHS.captures != captures + 1:
+        raise AssertionError("the scan's first call did not capture")
+    cap = dg.SCAN_GRAPHS.last
+    reset_counts()
+    loss, grads = graphed_scan()
+    torch.cuda.synchronize()
+    n7, n8 = rng.uniforms.launches, rcam.camera_rays.launches
+    n11, n11m = dh.dense_hit.launches, dh.dense_hit.masked_launches
+    log(f"  the differentiable scan (method=\"scan\") at {R} rays, "
+        f"depth {cfg.max_depth}, graphed: first call {first_s:.3f} s "
+        f"(warm-up {cap['warmup_s']:.3f} s, capture {cap['capture_s']:.3f}"
+        f" s, pool {cap['pool_bytes']} bytes, peak memory allocated "
+        f"{capture_peak} bytes above the {base} before it); a replay: K7 "
+        f"launches {n7}, K8 {n8}, K11 {n11} ({n11m} given the liveness "
+        f"mask), {dg.SCAN_GRAPHS.replays} replays so far; loss "
+        f"{float(loss):.9g}")
+    if not (n7 == n11 == n11m == trips and n8 == 1):
+        raise AssertionError(f"the scan's K7, K8, K11 and masked K11 "
+                             f"launches {n7}, {n8}, {n11}, {n11m} are not "
+                             f"{trips}, 1, {trips}, {trips}")
+    for k, g in grads.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"the scan's gradient {k} is not finite")
+    if not float(grads["albedo"].abs().max()) > 0.0:
+        raise AssertionError("the scan's albedo gradient is zero")
+    loss_e, grads_e = eager_scan()
+    ulp = float(np.spacing(np.float32(abs(float(loss_e)))))
+    dl = abs(float(loss) - float(loss_e))
+    ratio = max(float(((g - grads_e[k]).abs()
+                       / (1e-6 * grads_e[k].abs())).nan_to_num(0.0).max())
+                for k, g in grads.items() if g.numel())
+    log(f"  graph against the eager body: loss {float(loss):.9g} vs "
+        f"{float(loss_e):.9g} (|a - b| {dl:.3g}, one ulp {ulp:.3g}); "
+        f"gradients' largest |a - b| / (1e-6 |b|) {ratio:.4g} (bound 1)")
+    if not (dl <= ulp and ratio <= 1.0):
+        raise AssertionError("the graphed scan is off its eager body")
+    del loss_e, grads_e
+    loss_r, grads_r = replay_step
+    ratios = {k: float(((grads_r[k] - g).abs()
+                        / (1e-7 + 2e-3 * g.abs())).max())
+              for k, g in grads.items() if g.numel()}
+    rl = abs(float(loss_r) - float(loss)) / abs(float(loss))
+    log(f"  against the replay's step on the same rays: loss "
+        f"{float(loss_r):.9g} vs the scan's {float(loss):.9g} (rel "
+        f"{rl:.3e}, bound 1e-6); per field the largest |replay - scan| / "
+        f"(1e-7 + 2e-3 |scan|) {ratios} (bound 1)")
+    if not (rl <= 1e-6 and max(ratios.values()) <= 1.0):
+        raise AssertionError("the scan is off the replay's step")
+    times, peaks = scan_turns({"eager scan": eager_scan,
+                               "graphed scan": graphed_scan}, card)
+    return dict(launches=n7, k11=n11, k11_masked=n11m, rays=R,
+                first_s=first_s, capture=cap, capture_peak=capture_peak,
+                times=times, peaks=peaks, loss_ulps=dl / ulp,
+                grad_ratio=ratio, replay_ratios=ratios, replay_loss_rel=rl)
+
+
+def rng_rays_path(dev, key, card, frame_draws, replay_step):
     """Phase 20.  ``frame_draws``: K7's and K8's launches over phase 12's
-    frames, by mode.  Returns K7's and K8's entries of the kernels line."""
+    frames, by mode; ``replay_step``: phase 18's (loss, grads) of the
+    final scene's direct step at ``GRAD_RAYS`` rays.  Returns K7's and
+    K8's entries of the kernels line."""
     scene, cam, cfg = build_preset("random-spheres", device=dev)
     pack = ip.pack_scene_pallas(scene)
     key = key.to(dev)
@@ -3263,18 +3422,10 @@ def rng_rays_path(dev, key, card, frame_draws):
         raise AssertionError(f"the replay's K7, K8, K14 and K15 launches "
                              f"{n7r}, {n8r}, {n14}, {n15} are not 0, 1, 1, 1")
     del tape
-    scan_ids = ids[:1 << 14]
-    reset_counts()
-    loss_s, _ = dg.render_loss_and_grads(params, scene, cam, cfg, key,
-                                         scan_ids, target[:1 << 14],
-                                         method="scan")
-    torch.cuda.synchronize()
-    n7 = rng.uniforms.launches
-    log(f"  the differentiable scan (method=\"scan\") at {len(scan_ids)} "
-        f"rays: K7 launches {n7} (a draw a trip), loss {float(loss_s):.9g}")
-    if not (n7 == cfg.max_depth + 1 and bool(torch.isfinite(loss_s))):
-        raise AssertionError(f"the scan's K7 launches {n7} are not one a "
-                             "trip, or its loss is not finite")
+    scan = scan_path(params, scene, cam, cfg, key, ids[:GRAD_RAYS],
+                     target[:GRAD_RAYS], replay_step, card)
+    n7 = scan["launches"]
+    dg.SCAN_GRAPHS.clear()
 
     # K7 and K8 against their plain versions on the card, bit for bit.
     draws = [("the camera draw at 2^17 ids", ids, 0, 0),
@@ -3369,7 +3520,7 @@ def rng_rays_path(dev, key, card, frame_draws):
     return [dict(common, **{
         "name": "K7 Threefry draw (core.rng.uniforms), 2^17 bounce draws "
                 "at per-ray depths",
-        "replaces": rng.REPLACES, "launches": n7,
+        "replaces": rng.REPLACES, "launches": n7, "scan": scan,
         "frame_launches": {m: v[0] for m, v in frame_draws.items()},
         "ms": ms7, "plain_ms": plain7_ms, "plain_eager_ms": eager7_s * 1e3,
         "bound_ms": b7[0], "bound_by": b7[1], "camera_draw_ms": cam_ms,
@@ -4791,7 +4942,8 @@ def main():
     k6 = bvh_walk_path(dev, key, card, direct.pop("tape"))  # 19.
     torch.cuda.empty_cache()
     log("K7 and K8, the Threefry draw and the camera rays:")
-    k7, k8 = rng_rays_path(dev, key, card, k4["draw_launches"])  # 20.
+    k7, k8 = rng_rays_path(dev, key, card, k4["draw_launches"],
+                           direct.pop("step"))  # 20.
     k7["bench_launches"] = bench.get("K7", {})
     k8["bench_launches"] = bench.get("K8", {})
     torch.cuda.empty_cache()

@@ -437,7 +437,8 @@ def _plan_grad(env, scene_sel, scene, cam, cfg, key, isect, chunk):
         def run(fn):
             return dg.render_loss_and_grads(params, scene, cam, cfg, key,
                                             ids, target, accel,
-                                            intersect_fn=fn, method="scan")
+                                            intersect_fn=fn, method="scan",
+                                            graphed=_graphed(fn))
 
         def count(_):
             return (_segments_pass(scene, cam, cfg, key, R, chunk, accel),

@@ -12,8 +12,9 @@ function returns ``(loss, grads)`` with ``grads`` a dict of the same keys.
 Two equivalent radiance paths: ``method="replay"`` (default) records the
 primitive tape outside autograd and differentiates the tape replay
 (``diff/replay.py``); ``method="scan"`` differentiates the wavefront
-integrator's fixed-trip loop directly, kept as the equivalence oracle, and
-runs eagerly.
+integrator's fixed-trip loop directly, kept as the equivalence oracle: its
+value and gradient (``scan_loss_and_grads``) replay one CUDA graph per
+static signature on the card (``SCAN_GRAPHS``), as JAX jits it.
 
 The direct step (``render_loss_and_grads``, ``sgd_step``,
 ``make_fit_step``) is the JAX package's jitted one: the recorder's loop
@@ -21,8 +22,8 @@ The direct step (``render_loss_and_grads``, ``sgd_step``,
 the card, the bounce counter on the device) and then the value and
 gradient of the replay over the whole tape, a replay of the CUDA graph of
 ``tape_loss_and_grads`` (``GRAPHS``).  Its ``graphed`` argument is the
-recorder's (``render.graphed.graphed_route``: ``graphed=False`` runs the
-recorder op by op).
+recorder's route (``render.graphed.graphed_route``) and the body's:
+``graphed=False`` runs both op by op.
 
 The fit steps update the parameters in place through a ``torch.optim``
 optimizer built over them (``make_optimizer``), where the JAX package
@@ -39,7 +40,7 @@ import torch
 from ..kernels.megakernel import DENSE_MAX
 from ..kernels.record_mega import MAX_RAY_ID
 from ..render.camera import camera_rays
-from ..render.integrator import RenderConfig, trace_rays
+from ..render.integrator import RenderConfig, default_intersect, trace_rays
 from .graphed import GraphCache
 from .replay import (plan_buckets, record_camera_paths, record_paths_pool,
                      trace_rays_replay)
@@ -47,8 +48,9 @@ from .replay import (plan_buckets, record_camera_paths, record_paths_pool,
 __all__ = ["DIFF_FIELDS", "split_params", "merge_params", "ray_radiance",
            "record_tape", "render_loss", "render_loss_and_grads",
            "render_loss_and_grads_tape", "render_loss_and_grads_bucketed",
-           "tape_loss_and_grads", "bucketed_loss_and_grads", "GRAPHS",
-           "value_and_grad",
+           "render_loss_and_grads_scan", "tape_loss_and_grads",
+           "bucketed_loss_and_grads", "scan_loss_and_grads", "GRAPHS",
+           "SCAN_GRAPHS", "value_and_grad",
            "sgd_step", "make_optimizer", "apply_grads", "make_fit_step",
            "tape_recorder", "render_loss_and_grads_recorded",
            "make_fit_step_replay"]
@@ -99,9 +101,10 @@ def ray_radiance(params, scene, camera, cfg: RenderConfig, key, ray_ids,
     (``record_tape``: the lockstep recorder, or the pool recorder with
     ``record_pool`` slots; ``graphed`` is its route), then replay it.
     ``method="scan"``: the wavefront integrator with
-    ``differentiable=True``, eagerly.  The closest hit is ``intersect_fn``
-    on ``accel`` (``render.integrator.default_intersect`` by default); an
-    accel built from other parameters than ``params`` is used as it is.
+    ``differentiable=True``, eagerly (the result stays attached to
+    autograd).  The closest hit is ``intersect_fn`` on ``accel``
+    (``render.integrator.default_intersect`` by default); an accel built
+    from other parameters than ``params`` is used as it is.
     """
     if method == "replay":
         tape = record_tape(params, scene, camera, cfg, key, ray_ids, accel,
@@ -117,6 +120,14 @@ def ray_radiance(params, scene, camera, cfg: RenderConfig, key, ray_ids,
                       accel=accel, intersect_fn=intersect_fn)
 
 
+def _squared_error(rad, target, num_values=None):
+    """The mean of ``(rad - target) ** 2``, or with ``num_values`` its sum
+    over that count (a rank of a sharded step passes the whole batch's)."""
+    if num_values is None:
+        return torch.mean((rad - target) ** 2)
+    return torch.sum((rad - target) ** 2) / num_values
+
+
 def render_loss(params, scene, camera, cfg, key, ray_ids, target,
                 accel=None, intersect_fn: Optional[Callable] = None,
                 method: str = "replay", record_pool: int = 0,
@@ -125,7 +136,7 @@ def render_loss(params, scene, camera, cfg, key, ray_ids, target,
     rad = ray_radiance(params, scene, camera, cfg, key, ray_ids, accel,
                        intersect_fn, method=method, record_pool=record_pool,
                        graphed=graphed)
-    return torch.mean((rad - target) ** 2)
+    return _squared_error(rad, target)
 
 
 def value_and_grad(loss_fn, params):
@@ -151,30 +162,53 @@ def render_loss_and_grads(params, scene, camera, cfg, key, ray_ids, target,
     ``render.graphed.run_loop``, ``graphed`` its route), then the value and
     gradient of the replay over the whole (max_depth + 1, R) tape,
     ``render_loss_and_grads_tape`` (on a CUDA device a replay of its CUDA
-    graph), as JAX replays every row.  ``method="scan"`` differentiates
-    ``render_loss`` eagerly."""
+    graph unless ``graphed=False``), as JAX replays every row.
+    ``method="scan"``: ``render_loss_and_grads_scan`` (on a CUDA device a
+    replay of its CUDA graph unless ``graphed=False``)."""
     if method == "replay":
         tape = record_tape(params, scene, camera, cfg, key, ray_ids, accel,
                            intersect_fn, record_pool, graphed)
         return render_loss_and_grads_tape(params, scene, camera, cfg, key,
-                                          ray_ids, target, tape)
-    return value_and_grad(
-        lambda p: render_loss(p, scene, camera, cfg, key, ray_ids, target,
-                              accel, intersect_fn, method=method,
-                              record_pool=record_pool),
-        params)
+                                          ray_ids, target, tape,
+                                          graphed=graphed)
+    if method != "scan":
+        raise ValueError(f"unknown method {method!r}")
+    return render_loss_and_grads_scan(params, scene, camera, cfg, key,
+                                      ray_ids, target, accel, intersect_fn,
+                                      graphed=graphed)
 
 
 def tape_loss_and_grads(params, scene, camera, key, ray_ids, target, tape,
-                        *, cfg):
+                        *, cfg, num_values=None):
     """The eager body of ``render_loss_and_grads_tape``: a plain function
-    that the CPU runs and a CUDA device captures."""
+    that the CPU runs and a CUDA device captures.  The loss is the mean,
+    or with ``num_values`` the sum of squares over that count."""
     o, d = _rays(camera, cfg, key, ray_ids)
 
     def loss(p):
         rad = trace_rays_replay(merge_params(scene, p), o, d, ray_ids, key,
                                 cfg, tape)
-        return torch.mean((rad - target) ** 2)
+        return _squared_error(rad, target, num_values)
+
+    return value_and_grad(loss, params)
+
+
+def scan_loss_and_grads(params, scene, camera, key, ray_ids, target, accel,
+                        *, cfg, intersect_fn, num_values=None):
+    """The eager body of ``render_loss_and_grads_scan``: the camera rays
+    (K8), the differentiable wavefront (``trace_rays`` with
+    ``differentiable=True``: ``max_depth + 1`` trips unrolled, each a
+    closest hit by ``intersect_fn`` on ``accel`` given the rays' liveness,
+    a draw (K7) and the shading in torch ops), the loss (the mean, or the
+    sum of squares over ``num_values``) and ``torch.autograd.grad``.  A
+    plain function that the CPU runs and a CUDA device captures."""
+    o, d = _rays(camera, cfg, key, ray_ids)
+    cfg = dataclasses.replace(cfg, differentiable=True)
+
+    def loss(p):
+        rad = trace_rays(merge_params(scene, p), o, d, ray_ids, key, cfg,
+                         accel=accel, intersect_fn=intersect_fn)
+        return _squared_error(rad, target, num_values)
 
     return value_and_grad(loss, params)
 
@@ -203,21 +237,59 @@ def bucketed_loss_and_grads(params, scene, camera, key, ray_ids, target,
     return value_and_grad(loss, params)
 
 
-# The CUDA graphs of the two bodies above, by static signature: the
+# The CUDA graphs of the replay's bodies above, by static signature: the
 # counterpart of the JAX package's jit cache, which retraces once per
 # bucket-shape combination; a plan that changes every step captures every
 # step.  On the CPU the bodies run eagerly on its static buffers.
 GRAPHS = GraphCache(maxsize=4)
+# The scan's graphs, kept apart: a capture holds every trip's saved tensors
+# in its pool (at 2^17 rays of the final scene a few GB, PERF.md section
+# 5), so only the most recent signature is kept.
+SCAN_GRAPHS = GraphCache(maxsize=1)
 
 
 def render_loss_and_grads_tape(params, scene, camera, cfg, key, ray_ids,
-                               target, tape):
+                               target, tape,
+                               num_values: Optional[int] = None,
+                               graphed: Optional[bool] = None):
     """(loss, grads) for a recorded (possibly ``live_trips``-trimmed)
-    primitive tape: only the replay is differentiated.  On a CUDA device
-    a replay of the body's CUDA graph (``tape_loss_and_grads``)."""
-    return GRAPHS.run(tape_loss_and_grads, dict(cfg=cfg), dict(
-        params=params, scene=scene, camera=camera, key=key,
-        ray_ids=ray_ids, target=target, tape=tape), target.device)
+    primitive tape: only the replay is differentiated.  The body
+    (``tape_loss_and_grads``) goes through ``GRAPHS``, on a CUDA device a
+    replay of its CUDA graph, unless ``graphed=False``, which runs it op by
+    op.  With ``num_values`` (static) the loss is the sum of squares over
+    that count."""
+    static = dict(cfg=cfg, num_values=num_values)
+    inputs = dict(params=params, scene=scene, camera=camera, key=key,
+                  ray_ids=ray_ids, target=target, tape=tape)
+    if graphed is False:
+        return tape_loss_and_grads(**inputs, **static)
+    return GRAPHS.run(tape_loss_and_grads, static, inputs, target.device)
+
+
+def render_loss_and_grads_scan(params, scene, camera, cfg, key, ray_ids,
+                               target, accel=None,
+                               intersect_fn: Optional[Callable] = None,
+                               graphed: Optional[bool] = None,
+                               num_values: Optional[int] = None):
+    """(loss, grads) of the differentiable scan (``method="scan"``): the
+    JAX package's jitted ``render_loss_and_grads`` with ``method`` static.
+    The body (``scan_loss_and_grads``) goes through ``SCAN_GRAPHS``, which
+    on a CUDA device captures it once per static signature (``cfg``,
+    ``intersect_fn``, ``num_values``, the shapes) and replays it on this
+    call's parameters, scene, camera, key, ray ids, target and accel.
+    ``graphed`` is the route of ``render.graphed.graphed_route``: a Python
+    ``intersect_fn`` of the caller's needs it, and ``graphed=False`` runs
+    the body op by op."""
+    from ..render.graphed import graphed_route
+    if intersect_fn is None:
+        intersect_fn = default_intersect
+    static = dict(cfg=cfg, intersect_fn=intersect_fn, num_values=num_values)
+    inputs = dict(params=params, scene=scene, camera=camera, key=key,
+                  ray_ids=ray_ids, target=target, accel=accel)
+    if graphed_route(target.device, accel, intersect_fn, graphed):
+        return SCAN_GRAPHS.run(scan_loss_and_grads, static, inputs,
+                               target.device)
+    return scan_loss_and_grads(**inputs, **static)
 
 
 def render_loss_and_grads_bucketed(params, scene, camera, cfg, key,
@@ -302,7 +374,8 @@ def make_fit_step(scene, camera, cfg, ray_ids, target, optimizer,
 
     Returns ``step(params, key) -> loss``: the gradient of the MSE loss
     (``render_loss_and_grads``, closest hit by ``intersect_fn`` on
-    ``accel``, ``graphed`` the recorder's route) followed by
+    ``accel``, ``graphed`` the route of the recorder and of the tape's
+    value and gradient) followed by
     ``optimizer.step()`` outside the graphs, which updates ``params`` in
     place; the optimizer must have been built over ``params``' tensors,
     which live on ``device``.  The scene, camera, accel, ray ids and target

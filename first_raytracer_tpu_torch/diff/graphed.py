@@ -80,9 +80,10 @@ def _map(fn, obj):
 
 def launch_counters():
     """(wrapper, attribute) of the launch counters a graphed body can move:
-    K4's, K5's, K6's, K7's, K8's, K9's, K10's, K11's, K12's (each mode),
-    K13's (its refills, folded into K12's pool launch), K14's and K15's
-    (the tape replay's value and gradient)."""
+    K4's, K5's, K6's, K7's, K8's, K9's, K10's, K11's (and those of its
+    launches given a liveness mask), K12's (each mode), K13's (its
+    refills, folded into K12's pool launch), K14's and K15's (the tape
+    replay's value and gradient)."""
     from ..accel import traverse
     from ..core import rng
     from ..kernels import dense_hit, intersect_clustered, intersect_pallas
@@ -96,6 +97,7 @@ def launch_counters():
             (wavefront_pass.shade, "launches"),
             (wavefront_pass.regenerate, "launches"),
             (dense_hit.dense_hit, "launches"),
+            (dense_hit.dense_hit, "masked_launches"),
             (record_pass.record_step, "launches"),
             (record_pass.record_step, "length_launches"),
             (record_pass.record_shade, "launches"),
@@ -173,6 +175,7 @@ class GraphCache:
     ``warmups`` and ``replays`` count them; ``last`` holds the latest
     capture's warm-up seconds (about 0 where it had none), its capture
     seconds and its pool's bytes (the memory reserved during the capture).
+    ``clear()`` drops every signature and so frees their pools.
     """
 
     def __init__(self, maxsize: int = 4):
@@ -183,6 +186,9 @@ class GraphCache:
         self.warmups = 0
         self.replays = 0
         self.last = None
+
+    def clear(self):
+        self.entries.clear()
 
     def run(self, body, static, inputs, device):
         device = torch.device(device)

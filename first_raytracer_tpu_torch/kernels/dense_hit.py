@@ -83,6 +83,8 @@ def _launch_cuda(scene, origin, direction, t_min, alive=None):
         hit.data_ptr())
     if R:
         dense_hit.launches += 1
+        if alive is not None:
+            dense_hit.masked_launches += 1
     return prim, t, hit
 
 
@@ -102,3 +104,4 @@ def dense_hit(scene, origin, direction, t_min, alive=None):
 
 
 dense_hit.launches = 0  # K11 launches (CUDA path only)
+dense_hit.masked_launches = 0  # those of them given a liveness mask

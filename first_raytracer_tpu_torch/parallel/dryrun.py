@@ -8,8 +8,9 @@ ranks of the group that ``torchrun`` (or any launcher that sets ``RANK``,
 1. the wavefront render, ``render_image_distributed`` with the dense
    closest hit K4 (``accel=pack_scene_pallas(scene)``), pixels split over
    the ranks (tiles, 1), then samples split over them (1, spp);
-2. a training step: ``render_loss_and_grads_sharded`` (autograd through
-   the wavefront integrator) and an SGD update;
+2. a training step: ``render_loss_and_grads_sharded`` (each rank records
+   its block's tape and replays the CUDA graph of its value and gradient,
+   then the sum over the ranks) and an SGD update;
 3. the sharded megakernel, ``render_image_mega_sharded`` (K1);
 4. the ring-sharded scene, ``render_image_ring``, and the global ids of
    the closest hits of each rank's camera rays (``ring_closest_hit``);
@@ -23,12 +24,14 @@ Run it as
     torchrun --nproc-per-node 2 -m first_raytracer_tpu_torch.parallel.dryrun \\
         --out out/dryrun
 
-Each rank writes ``rank<r>.npz`` into ``--out``: every image, loss and
-gradient, the kernels' launch counts of each step, the transports its
-collectives took, the CUDA graphs the replay's value and gradient captured
-and replayed (``diff.grad.GRAPHS``), and for the megakernel frames the
-seconds of three timed frames after a warm one and of an all-gather of
-the frame's shape alone (the gather's share).  ``--size small`` renders
+Each rank writes ``rank<r>.npz`` into ``--out``: every image, loss,
+gradient and tape, the kernels' launch counts of each step, the transports
+its collectives took, the CUDA graphs the training and replay steps
+captured and replayed (``diff.grad.GRAPHS``, by step), and for the
+megakernel frames the seconds of three timed frames after a warm one and
+of an all-gather of the frame's shape alone (the gather's share); on a
+CUDA device also the training step's seconds, op by op and graphed.
+``--size small`` renders
 small scenes (the CPU tests' size); ``--size chip`` the configurations of
 the package's H100 checks (``chip_smoke.py`` phase 15).  One process (no
 ``WORLD_SIZE``) runs the same steps without collectives.  It imports no
@@ -72,7 +75,9 @@ SIZES = {
     },
     "chip": {
         "wavefront": ("random-spheres", dict(nx=120, ny=80, spp=4), None),
-        "train": ("random-spheres", dict(nx=24, ny=12, spp=2), 6),
+        # JAX's train_step fields over ray ids [0, 2^17) of the final
+        # scene at its depth of 50, 2^16 a rank on two.
+        "train": ("random-spheres", {}, None),
         "mega": ("random-spheres", {}, None),
         "ring": ("random-spheres", dict(nx=64, ny=32, spp=2), None),
         # bench.py's grad configuration: ray ids [0, 2^17) of the final
@@ -81,6 +86,8 @@ SIZES = {
         "clustered": ("sphere-field", dict(n=20000), None),
     },
 }
+# The ray ids [0, n) of the training and replay steps (None: every ray of
+# the frame).
 REPLAY_RAYS = {"small": None, "chip": 1 << 17}
 TRAIN_FIELDS = ("albedo", "sphere_center", "sphere_radius", "fuzz",
                 "ref_idx")
@@ -140,13 +147,16 @@ def run(size, device):
     world = make_render_mesh()
     n = world.size
     spp_mesh = make_render_mesh(1, n)
-    out, launches = {}, {}
+    out, launches, graphs = {}, {}, {}
 
     def step(name, fn):
         reset_counts()
+        before = (dg.GRAPHS.captures, dg.GRAPHS.replays)
         result = fn()
         _sync(device)
         launches[name] = counts()
+        graphs[name] = {"captures": dg.GRAPHS.captures - before[0],
+                        "replays": dg.GRAPHS.replays - before[1]}
         return result
 
     # 1. The wavefront render with K4, pixels split, then samples split.
@@ -159,20 +169,34 @@ def run(size, device):
         shard.render_image_distributed(scene, cam, cfg, spp_mesh,
                                        accel=accel, device=device)))
 
-    # 2. A training step: sharded rays, gradients summed over the ranks,
-    # SGD.
+    # 2. A training step: sharded rays, each rank's value and gradient a
+    # replay of its graph, summed over the ranks, SGD.
     scene, cam, cfg = build("train", size, device)
     cfg = dataclasses.replace(cfg, differentiable=True)
+    rays = REPLAY_RAYS[size] or cfg.num_rays
     params, _ = dg.split_params(scene, fields=TRAIN_FIELDS)
-    ids = torch.arange(cfg.num_rays, device=device)
-    target = torch.zeros((cfg.num_rays, 3), device=device)
-    loss, grads = step("train", lambda: shard.render_loss_and_grads_sharded(
-        params, scene, cam, cfg, rng.base_key(0), ids, target, world))
+    ids = torch.arange(rays, device=device)
+    target = torch.zeros((rays, 3), device=device)
+
+    def train(graphed=None):
+        return shard.render_loss_and_grads_sharded(
+            params, scene, cam, cfg, rng.base_key(0), ids, target, world,
+            graphed=graphed)
+
+    loss, grads = step("train", train)
     out["train_loss"] = loss.cpu().numpy()
+    lo, hi = world.ray_block(rays)
+    out["train_tape"] = dg.record_tape(params, scene, cam, cfg,
+                                       rng.base_key(0), ids[lo:hi]
+                                       ).cpu().numpy()
     for k, g in grads.items():
         out[f"train_grad_{k}"] = g.cpu().numpy()
         out[f"train_param_{k}"] = (params[k] - 0.05 * g).detach().cpu(
         ).numpy()
+    if device.type == "cuda":
+        out["train_eager_s"] = np.array(_seconds(lambda: train(False),
+                                                 device))
+        out["train_s"] = np.array(_seconds(train, device))
 
     # 3. The sharded megakernel (K1).
     scene, cam, cfg = build("mega", size, device)
@@ -230,8 +254,7 @@ def run(size, device):
     out["info"] = np.array(json.dumps({
         "rank": world.rank, "world": n, "device": str(device),
         "launches": launches, "transports": transports,
-        "graphs": {"captures": dg.GRAPHS.captures,
-                   "replays": dg.GRAPHS.replays}}))
+        "graphs": graphs}))
     return out
 
 

@@ -121,23 +121,39 @@ def render_image_auto(scene, camera, cfg: RenderConfig, mesh, seed: int = 0,
 def render_loss_and_grads_sharded(params, scene, camera, cfg, key, ray_ids,
                                   target, mesh, accel=None,
                                   intersect_fn: Optional[Callable] = None,
-                                  method: str = "replay"):
+                                  method: str = "replay",
+                                  graphed: Optional[bool] = None):
     """``diff.grad.render_loss_and_grads`` with the rays split over all the
     mesh's ranks: each rank differentiates the sum of squares of its block
     of ``ray_ids`` over the whole batch's value count, then the loss and
     every gradient are summed over the ranks, so that every rank holds the
     single-process loss and gradients (up to f32 summation order).  The
-    tensors stay on their device."""
+    tensors stay on their device.
+
+    ``method="replay"``: the block's tape is recorded outside autograd
+    (``diff.grad.record_tape``), then its value and gradient replay one
+    CUDA graph a rank on the card (``render_loss_and_grads_tape`` with the
+    count static).  ``method="scan"``: the differentiable scan's graph
+    (``render_loss_and_grads_scan``).  ``graphed`` goes to the recorder and
+    the body, or to the scan: ``graphed=False`` runs the step op by op.
+    The sum over the ranks stays outside the graphs (a gloo collective
+    stages through host tensors)."""
     lo, hi = mesh.ray_block(ray_ids.shape[0])
     ids, tgt = ray_ids[lo:hi], target[lo:hi]
     count = target.shape[0] * target.shape[1]
-
-    def loss_fn(p):
-        rad = dg.ray_radiance(p, scene, camera, cfg, key, ids, accel,
-                              intersect_fn, method=method)
-        return torch.sum((rad - tgt) ** 2) / count
-
-    return mesh.sum_over_ranks(*dg.value_and_grad(loss_fn, params))
+    if method == "replay":
+        tape = dg.record_tape(params, scene, camera, cfg, key, ids, accel,
+                              intersect_fn, graphed=graphed)
+        loss, grads = dg.render_loss_and_grads_tape(
+            params, scene, camera, cfg, key, ids, tgt, tape,
+            num_values=count, graphed=graphed)
+    elif method == "scan":
+        loss, grads = dg.render_loss_and_grads_scan(
+            params, scene, camera, cfg, key, ids, tgt, accel, intersect_fn,
+            graphed=graphed, num_values=count)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return mesh.sum_over_ranks(loss, grads)
 
 
 def render_loss_and_grads_replay_sharded(params, scene, camera, cfg, key,

@@ -31,7 +31,9 @@ trips; on a CUDA device the blocks replay as a CUDA graph
 (``render/graphed.py``).  Past its closest hit a trip is
 ``render/wavefront_pass.shade``: K9, one kernel, on a CUDA device, and
 ``_bounce``'s body (``shade_carry``) on the CPU.  The differentiable
-path, ``resolve_fn`` and ``sync_axis`` run one trip at a time, eagerly.
+path, ``resolve_fn`` and ``sync_axis`` run one trip at a time, eagerly;
+the differentiable path's value and gradient is captured whole as a CUDA
+graph by ``diff.grad.render_loss_and_grads_scan``.
 """
 from __future__ import annotations
 
@@ -118,10 +120,11 @@ default_intersect.takes_alive = True
 def closest_hit(intersect_fn, scene, accel, origin, direction, t_min,
                 alive):
     """A loop body's closest hit through ``intersect_fn``: one marked
-    ``takes_alive`` (``default_intersect``) also gets the rays' liveness,
-    so that K11 sweeps only the live rays and gives the others the miss;
-    any other is called with its five arguments.  The bodies that call it
-    read a dead ray's (prim, hit) only under ``alive``."""
+    ``takes_alive`` (``default_intersect``, the scan's ``_resolver``) also
+    gets the rays' liveness, so that K11 sweeps only the live rays and
+    gives the others the miss; any other is called with its five
+    arguments.  The bodies that call it read a dead ray's (prim, hit) only
+    under ``alive``."""
     if getattr(intersect_fn, "takes_alive", False):
         return intersect_fn(scene, accel, origin, direction, t_min,
                             alive=alive)
@@ -191,12 +194,14 @@ def _any_alive(alive, sync_axis):
 
 def _resolver(intersect_fn):
     """``resolve_fn`` from an ``intersect_fn``: the closest hit without
-    autograd, then the hit record recomputed from its primitive."""
-    def resolve_fn(scene, accel, origin, direction, t_min):
+    autograd (``closest_hit``, given the rays' liveness), then the hit
+    record recomputed from its primitive."""
+    def resolve_fn(scene, accel, origin, direction, t_min, alive):
         with torch.no_grad():
-            prim, _, hit = intersect_fn(scene, accel, origin, direction,
-                                        t_min)
+            prim, _, hit = closest_hit(intersect_fn, scene, accel, origin,
+                                       direction, t_min, alive)
         return (*recompute_hit(scene, origin, direction, prim, t_min), hit)
+    resolve_fn.takes_alive = True
     return resolve_fn
 
 
@@ -207,8 +212,11 @@ _CARRY = ("origin", "direction", "throughput", "radiance", "alive",
 def _bounce(scene, accel, resolve_fn, key, ray_ids, cfg, d, carry):
     """One trip of every ray at depth ``d`` (a Python int or a 0-d device
     tensor): the carry ``_CARRY`` in, the next carry out.  A trip in which
-    every ray is dead changes nothing."""
-    resolved = resolve_fn(scene, accel, carry[0], carry[1], cfg.t_min)
+    every ray is dead changes nothing.  ``_resolver``'s ``resolve_fn`` is
+    given the carry's ``alive`` (K11 then sweeps only the live rays and
+    gives the dead ones the miss); a caller's keeps its five arguments."""
+    resolved = closest_hit(resolve_fn, scene, accel, carry[0], carry[1],
+                           cfg.t_min, carry[4])
     return shade_carry(scene, cfg, d, carry, resolved,
                        rng.bounce_uniforms(key, ray_ids, d))
 
@@ -301,7 +309,9 @@ def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
     ``torch.autograd`` differentiates the result through the hit
     recompute, the scatter and the shading; primitive selection (the
     sweep) is not differentiated.  ``cfg.differentiable`` runs all
-    ``max_depth + 1`` trips, eagerly.
+    ``max_depth + 1`` trips, unrolled with the depth a Python int (so the
+    draw's domain is a launch argument), eagerly; each trip's closest hit
+    is given the rays' liveness (``closest_hit``).
     """
     if intersect_fn is None:
         intersect_fn = default_intersect

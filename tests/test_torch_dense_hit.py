@@ -174,12 +174,15 @@ def _mask(n, share, seed):
 def _k11_equal(what, scene, o, d, alive, t_min=1e-3):
     """K11 (the host build) against ``dense_hit_plain`` on the rays (o, d)
     and the mask, prim, t and hit of every ray ``torch.equal``; returns
-    the plain (prim, t, hit)."""
-    before = dh.dense_hit.launches
+    the plain (prim, t, hit).  The launch counts once, and once more
+    among the masked launches where it was given a mask."""
+    before = (dh.dense_hit.launches, dh.dense_hit.masked_launches)
     got = dh._launch_cuda(scene, o, d, t_min, alive)
     with _card_rounding():
         want = dh.dense_hit_plain(scene, o, d, t_min, alive)
-    assert dh.dense_hit.launches == before + (1 if o.shape[0] else 0)
+    n = 1 if o.shape[0] else 0
+    assert (dh.dense_hit.launches, dh.dense_hit.masked_launches) == (
+        before[0] + n, before[1] + (n if alive is not None else 0))
     for name, a, b in zip(("prim", "t", "hit"), got, want):
         assert a.dtype == b.dtype and torch.equal(a, b), (what, name)
     return want

@@ -54,7 +54,8 @@ def test_both_processes_agree(ranks):
     of its timed frames and gathers its own)."""
     a, b = ranks
     for k in a:
-        if k not in ("info", "replay_tape", "ring_gid", "mega_s",
+        if k not in ("info", "train_tape", "replay_tape", "ring_gid",
+                     "mega_s",
                      "mega_gather_s", "clustered_s", "clustered_gather_s"):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
@@ -93,14 +94,20 @@ def test_two_process_ring(ranks):
 
 
 def test_two_process_training_step(ranks):
-    """The autograd step's loss and gradients equal the single-process
-    ones, and the SGD update with them."""
+    """The sharded direct step's loss and gradients equal the
+    single-process ones, and the SGD update with them; each rank's tape is
+    its half of the single-process tape."""
     scene, cam, cfg = _build("train")
     cfg = dataclasses.replace(cfg, differentiable=True)
     params, _ = dg.split_params(scene, fields=dryrun.TRAIN_FIELDS)
+    ids = torch.arange(cfg.num_rays)
     loss, grads = dg.render_loss_and_grads(
-        params, scene, cam, cfg, rng.base_key(0), torch.arange(cfg.num_rays),
+        params, scene, cam, cfg, rng.base_key(0), ids,
         torch.zeros((cfg.num_rays, 3)))
+    np.testing.assert_array_equal(
+        np.concatenate([r["train_tape"] for r in ranks], axis=1),
+        dg.record_tape(params, scene, cam, cfg, rng.base_key(0),
+                       ids).numpy())
     for r in ranks:
         np.testing.assert_allclose(r["train_loss"], float(loss), rtol=1e-4,
                                    atol=1e-7)
@@ -141,8 +148,11 @@ def test_info_names_the_transport(ranks):
         info = json.loads(str(r["info"]))
         assert info["rank"] == i and info["world"] == 2
         assert info["transports"] == ["gloo on cpu tensors"]
-        # The plain versions ran: no kernel launched on the CPU.
+        # The plain versions ran: no kernel launched on the CPU, and no
+        # graph was captured or replayed there.
         assert all(not any(c.values()) for c in info["launches"].values())
+        assert all(not any(g.values()) for g in info["graphs"].values())
+        assert {"train", "replay"} <= set(info["graphs"])
 
 
 @pytest.mark.parametrize("mode", ["mega", "wavefront", "ring"])

@@ -106,11 +106,13 @@ def test_bench_slice_modules_are_scanned(name):
                                   os.path.join("probes", "grad_syncs.py"),
                                   os.path.join("probes", "bench_spread.py"),
                                   os.path.join("probes", "rng_rays.py"),
+                                  os.path.join("probes", "scan_graph.py"),
                                   os.path.join("tests",
                                                "torch_dist_worker.py")])
 def test_scripts_import_no_jax(path):
     """The card's smoke script, the bench entry, the grad step's sync
-    probe, the bench's spread probe, K7's and K8's probe and the
-    multi-process tests' worker import neither JAX nor the JAX package."""
+    probe, the bench's spread probe, K7's and K8's probe, the scan's probe
+    and the multi-process tests' worker import neither JAX nor the JAX
+    package."""
     roots = set(_imported_roots(os.path.join(REPO, path)))
     assert not roots & set(FORBIDDEN)

@@ -722,22 +722,24 @@ def test_cpu_recorders_run_the_plain_versions(monkeypatch):
 
 
 def test_graph_caches_count_k11_to_k13():
-    """K11's, K12's (each mode) and K13's (its refills, folded into K12's
-    pool launch) counters are among those the graph caches take off a
-    capture and add back per replay."""
+    """K11's (all, and those given a liveness mask), K12's (each mode) and
+    K13's (its refills, folded into K12's pool launch) counters are among
+    those the graph caches take off a capture and add back per replay."""
     counters = dgraphed.launch_counters()
-    for c in ((dh.dense_hit, "launches"), (rp.record_step, "launches"),
+    for c in ((dh.dense_hit, "launches"), (dh.dense_hit, "masked_launches"),
+              (rp.record_step, "launches"),
               (rp.record_step, "length_launches"),
               (rp.record_shade, "launches"),
               (rp.record_shade, "refill_launches")):
         assert c in counters
     before = dgraphed.launches_now()
     dh.dense_hit.launches += 3
+    dh.dense_hit.masked_launches += 2
     rp.record_step.length_launches += 2
     rp.record_shade.refill_launches += 1
     made = dgraphed.take_launches(before)
     assert dgraphed.launches_now() == before
     assert sorted((fn.__name__, attr, n) for fn, attr, n in made) == [
-        ("dense_hit", "launches", 3),
+        ("dense_hit", "launches", 3), ("dense_hit", "masked_launches", 2),
         ("record_shade", "refill_launches", 1),
         ("record_step", "length_launches", 2)]

@@ -183,6 +183,46 @@ def test_sharded_replay_grads_match_single_process(ranks):
                                           ranks[0][f"replay_{k}"])
 
 
+@pytest.fixture(scope="module")
+def step_ranks(tmp_path_factory):
+    """The sharded direct step's results on each of 2 gloo ranks."""
+    return torch_dist_worker.launch(
+        2, ["step"], str(tmp_path_factory.mktemp("step")))
+
+
+@pytest.mark.parametrize("method", ["replay", "scan"])
+def test_sharded_step_matches_single_process(step_ranks, method):
+    """``render_loss_and_grads_sharded`` on 2 ranks (each rank's block
+    through the replay's or the scan's graph body, over the whole batch's
+    count, then summed over the ranks) against one process's
+    ``render_loss_and_grads`` with the same ``method``: every
+    ``DIFF_FIELDS`` gradient of three-spheres 16x8 @ 2 at depth 8 within
+    ``rtol=1e-4, atol=1e-7``, the same on both ranks; the ranks' tapes
+    concatenated equal one process's."""
+    scene, cam, cfg = _three(nx=16, ny=8, spp=2)
+    cfg = dataclasses.replace(cfg, max_depth=8)
+    key, ids = rng.base_key(0), torch.arange(cfg.num_rays)
+    target = torch.from_numpy(np.random.RandomState(0).rand(
+        cfg.num_rays, 3).astype(np.float32))
+    params, _ = dg.split_params(scene)
+    loss, grads = dg.render_loss_and_grads(params, scene, cam, cfg, key,
+                                           ids, target, method=method)
+    for r in step_ranks:
+        np.testing.assert_allclose(r[f"{method}_loss"], float(loss),
+                                   rtol=1e-4, atol=1e-7)
+        for k, g in grads.items():
+            np.testing.assert_allclose(r[f"{method}_{k}"], g.numpy(),
+                                       rtol=1e-4, atol=1e-7, err_msg=k)
+            np.testing.assert_array_equal(r[f"{method}_{k}"],
+                                          step_ranks[0][f"{method}_{k}"])
+    assert float(grads["albedo"].abs().max()) > 0.0
+    if method == "replay":
+        tape = dg.record_tape(params, scene, cam, cfg, key, ids)
+        np.testing.assert_array_equal(
+            np.concatenate([r["replay_tape"] for r in step_ranks], axis=1),
+            tape.numpy())
+
+
 def test_sharded_fit_step_keeps_ranks_equal(ranks):
     """Two SGD steps of ``make_fit_step_replay`` on a mesh leave identical
     parameters on every rank, equal to the single-process

@@ -145,6 +145,38 @@ def sharding_suite():
     return out
 
 
+def step_suite():
+    """tests/test_torch_sharding.py's sharded direct step on a 2-rank
+    group: ``render_loss_and_grads_sharded`` with each method, every
+    ``DIFF_FIELDS`` leaf of three-spheres 16x8 @ 2 at depth 8, a seeded
+    target."""
+    import torch
+
+    from first_raytracer_tpu_torch.core import rng
+    from first_raytracer_tpu_torch.diff import grad as dg
+    from first_raytracer_tpu_torch.parallel import shard
+    from first_raytracer_tpu_torch.parallel.mesh import make_render_mesh
+
+    scene, cam, cfg = _build("three-spheres", depth=8, nx=16, ny=8, spp=2)
+    mesh = make_render_mesh()
+    ids = torch.arange(cfg.num_rays)
+    target = torch.from_numpy(np.random.RandomState(0).rand(
+        cfg.num_rays, 3).astype(np.float32))
+    params, _ = dg.split_params(scene)
+    lo, hi = mesh.ray_block(cfg.num_rays)
+    out = {"replay_tape": dg.record_tape(params, scene, cam, cfg,
+                                         rng.base_key(0), ids[lo:hi]
+                                         ).numpy()}
+    for method in ("replay", "scan"):
+        params, _ = dg.split_params(scene)
+        loss, grads = shard.render_loss_and_grads_sharded(
+            params, scene, cam, cfg, rng.base_key(0), ids, target, mesh,
+            method=method)
+        out[f"{method}_loss"] = loss.numpy()
+        out.update({f"{method}_{k}": g.numpy() for k, g in grads.items()})
+    return out
+
+
 def ring_suite():
     """tests/test_torch_ring.py's cases on a 4-rank group."""
     import torch
@@ -203,7 +235,8 @@ def ring_suite():
     return out
 
 
-SUITES = {"sharding": sharding_suite, "ring": ring_suite}
+SUITES = {"sharding": sharding_suite, "step": step_suite,
+          "ring": ring_suite}
 
 
 def main():
