@@ -9,10 +9,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. Device: a CUDA GPU must be present; prints its name and the
    ``nvidia-smi`` name and power limit.
 2. Build: compiles K1, K2, K2b, K3, K3t, K4, K5, K6, K7, K8, K9, K10,
-   K11, K12, K13, K14 and K15 (kernels/csrc/megakernel.cu,
+   K11, K12, K13, K14, K15, K16 and K17 (kernels/csrc/megakernel.cu,
    megakernel_clustered.cu, intersect.cu, bvh_walk.cu, rng_rays.cu,
-   wavefront_pass.cu, dense_hit.cu and replay.cu, one nvcc a source, all
-   at once) for
+   wavefront_pass.cu, dense_hit.cu, replay.cu and gather_rows.cu, one
+   nvcc a source, all at once) for
    sm_90a; prints ptxas's registers and spills of every kernel, each on a
    line of its own.
 3. K1 vs plain: K1 and its plain PyTorch version on the same card and
@@ -305,12 +305,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
    scan (``method="scan"``, ``scan_path``) at 2^17 rays of the final
    scene, depth 50, every DIFF_FIELDS leaf, zero target, a replay of its
    captured graph (``dg.SCAN_GRAPHS``; warm-up and capture seconds, pool
-   bytes, peak memory): K8 once, K7 and K11 once a trip, every K11 launch
-   given the liveness mask; the graph against the eager body
+   bytes, peak memory): K8 once, K7, K11 and K16 once a trip, K17 once a
+   trip but the last (whose rows reach no output), every K11 launch given
+   the liveness mask; the graph against the eager body
    (``scan_loss_and_grads``; the loss within one float32 ulp, gradients
    within ``rtol=1e-6``) and against phase 18's replay step on the same
    rays (loss ``rtol=1e-6``, gradients ``rtol=2e-3, atol=1e-7``:
-   ``test_replay_matches_scan``'s bounds); eager and graphed in turns
+   ``test_replay_matches_scan``'s bounds); the eager body bit-equal in the
+   loss and every field to the same body whose closest hit takes five
+   arguments (K11 sweeping every ray, so dead rays read other rows: K17's
+   sum does not move); the eager body's kernels by device time
+   (``torch.profiler``, the top 8 logged), none of them torch's
+   ``indexing_backward_kernel``; eager and graphed in turns
    (eager, graphed, graphed, eager) with each one's peak memory.  Bit-equal to
    their plain versions
    (``rng.uniforms_plain``, ``camera.camera_rays_plain``: torch ops) on the
@@ -411,6 +417,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
    graphed replay, the direct step and the bucketed step through the
    kernels in turns with the same bodies graphed on the plain loop
    (``plain_replay``), beside their times before (``EARLIER_REPLAY``).
+24. K16 and K17, the differentiable scan's row gathers and their sums
+   (``kernels.gather_rows``).  On the scan's real trips (an eager scan's
+   ``integrator.gather_rows`` wrapped to keep each trip's tables, indices
+   and the gradients of its rows) at 2^17 rays of the final scene (the
+   spheres' and materials' tables, every trip with a gradient), the same
+   cast to float64 (every fifth trip) and triangle-mesh (spheres,
+   triangles and materials: three tables): K16 ``torch.equal`` to
+   ``index_select``; K17 bit-equal to ``row_sum_plain`` (torch ops on the
+   card) and the same bits over 3 launches, and within its bound of a
+   float64 ``index_add_`` (``row_sum_bound``, plus that sum's own error,
+   n_row 2^-52 times the sum of magnitudes, plus two units in the last
+   place of the table's type).  Times at the first trip (the ground's row
+   read by most rays) and the second, in float64 and on triangle-mesh,
+   each call in a CUDA graph: K16 beside ``index_select`` (its plain
+   version and the library call), K17 beside its plain version, torch's
+   indexing backward (``index_put_`` accumulating: the route before K17)
+   and ``index_add_`` into float64; bounds from ``utils/roofline.py``
+   (bytes: the tables, a ray's index and row or gradient).  The main
+   path's launches are phase 20's scan's.
 
 The last two lines of standard output are a JSON object with the kernels'
 measurements (``sharded_launches``: the launches of phases 14 and 15;
@@ -423,7 +448,8 @@ phase 12's frames; K9's and K10's: phase 21's pool frame,
 ``frame_launches``: its frames; K11's and K12's lockstep mode: phase 22's
 direct step, K12's length mode: its occupancy scan, K12's pool mode and
 K13, folded into it: its pool recorder; K14's and K15's: phase 23's direct
-step, ``bucketed_launches``: its bucketed step) and
+step, ``bucketed_launches``: its bucketed step; K16's and K17's: phase
+20's scan) and
 the result line ``{"ok": true, "device": {...}}``.  This
 script imports no JAX.  Bounds count FP32 operations from the sources
 (``first_raytracer_tpu_torch/utils/roofline.py``, which ``bench_torch.py``'s
@@ -448,7 +474,9 @@ K4's 16 a (ray, sphere) and 46 a (ray, triangle) pair; K12 and K13
 inputs need (a dead ray's liveness byte, a live one's state); K14 and K15
 (replay.cu) count K9's draw and shading a shaded bounce (and K15 120
 operations of its adjoint) and the bytes of the rays, tape entries,
-scratch rows and tables they read and write.
+scratch rows and tables they read and write; K16 and K17
+(gather_rows.cu) the bytes of the tables, a ray's index and its row or
+gradient.
 """
 from __future__ import annotations
 
@@ -481,6 +509,7 @@ from first_raytracer_tpu_torch.diff.replay import (plan_buckets,
                                                    record_paths_pool,
                                                    trace_rays_replay)
 from first_raytracer_tpu_torch.kernels import dense_hit as dh
+from first_raytracer_tpu_torch.kernels import gather_rows as gr
 from first_raytracer_tpu_torch.kernels import intersect_clustered as ic
 from first_raytracer_tpu_torch.kernels import intersect_pallas as ip
 from first_raytracer_tpu_torch.kernels import megakernel as mk
@@ -499,6 +528,7 @@ from first_raytracer_tpu_torch.render import camera as rcam
 from first_raytracer_tpu_torch.render.camera import generate_rays
 from first_raytracer_tpu_torch.entry import entry
 from first_raytracer_tpu_torch.materials.scatter import scatter
+from first_raytracer_tpu_torch.render import integrator as tint
 from first_raytracer_tpu_torch.render.integrator import (default_intersect,
                                                          intersect_brute,
                                                          recompute_hit, trip)
@@ -516,7 +546,8 @@ from first_raytracer_tpu_torch.utils.roofline import (bound,
                                                       k8_bound, k9_bound,
                                                       k10_bound, k11_bound,
                                                       k12_bound, k14_bound,
-                                                      k15_bound)
+                                                      k15_bound,
+                                                      gather_rows_bound)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_KEY = "radiance_sum_mega_1200x800_10spp"
@@ -548,6 +579,10 @@ KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("replay_forward_kernel", "K14"),
                   ("replay_backward_kernel", "K15"),
                   ("replay_order_kernel", "K15 (its order)"),
+                  ("row_gather_kernel", "K16"),
+                  ("row_exponent_kernel", "K17 (exponents)"),
+                  ("row_accumulate_kernel", "K17 (sums)"),
+                  ("row_round_kernel", "K17 (conversion)"),
                   ("round_kernel", "K15 (its rounding)"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
@@ -914,6 +949,8 @@ def reset_counts():
     rpass.record_shade.refill_launches = 0
     rreplay.replay.launches = 0
     rreplay.replay.backward_launches = 0
+    gr.gather_rows.launches = 0
+    gr.gather_rows.backward_launches = 0
     graphed.LOOPS.reset_counts()
 
 
@@ -1005,7 +1042,7 @@ def tape_agreement(what, got, want, floor):
 
 
 def build():
-    """Phase 2: the one library of K1-K15."""
+    """Phase 2: the one library of K1-K17."""
     _, info = mk.load_mega_library()
     log(f"build: {os.path.relpath(info.path, ROOT)} (nvcc "
         f"{info.seconds:.2f} s, cached={info.cached})")
@@ -1018,7 +1055,7 @@ def build():
 
 def ptxas_kernels(text):
     """(label, function, registers, spill line) of each entry in ptxas -v
-    output, labelled K1-K15."""
+    output, labelled K1-K17."""
     out, entry, spills = [], None, ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -3312,18 +3349,22 @@ def scan_path(params, scene, cam, cfg, key, ids, target, replay_step, card):
     torch.cuda.synchronize()
     n7, n8 = rng.uniforms.launches, rcam.camera_rays.launches
     n11, n11m = dh.dense_hit.launches, dh.dense_hit.masked_launches
+    n16, n17 = gr.gather_rows.launches, gr.gather_rows.backward_launches
     log(f"  the differentiable scan (method=\"scan\") at {R} rays, "
         f"depth {cfg.max_depth}, graphed: first call {first_s:.3f} s "
         f"(warm-up {cap['warmup_s']:.3f} s, capture {cap['capture_s']:.3f}"
         f" s, pool {cap['pool_bytes']} bytes, peak memory allocated "
         f"{capture_peak} bytes above the {base} before it); a replay: K7 "
         f"launches {n7}, K8 {n8}, K11 {n11} ({n11m} given the liveness "
-        f"mask), {dg.SCAN_GRAPHS.replays} replays so far; loss "
-        f"{float(loss):.9g}")
-    if not (n7 == n11 == n11m == trips and n8 == 1):
-        raise AssertionError(f"the scan's K7, K8, K11 and masked K11 "
-                             f"launches {n7}, {n8}, {n11}, {n11m} are not "
-                             f"{trips}, 1, {trips}, {trips}")
+        f"mask), K16 {n16}, K17 {n17}, {dg.SCAN_GRAPHS.replays} replays so "
+        f"far; loss {float(loss):.9g}")
+    # K17 once a trip but the last, whose rows reach no output.
+    if not (n7 == n11 == n11m == n16 == trips and n8 == 1
+            and n17 == trips - 1):
+        raise AssertionError(f"the scan's K7, K8, K11, masked K11, K16 and "
+                             f"K17 launches {n7}, {n8}, {n11}, {n11m}, "
+                             f"{n16}, {n17} are not {trips}, 1, {trips}, "
+                             f"{trips}, {trips}, {trips - 1}")
     for k, g in grads.items():
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"the scan's gradient {k} is not finite")
@@ -3340,7 +3381,24 @@ def scan_path(params, scene, cam, cfg, key, ids, target, replay_step, card):
         f"gradients' largest |a - b| / (1e-6 |b|) {ratio:.4g} (bound 1)")
     if not (dl <= ulp and ratio <= 1.0):
         raise AssertionError("the graphed scan is off its eager body")
-    del loss_e, grads_e
+    # The five-argument route (K11 sweeps every ray, so a dead ray reads
+    # the rows of whatever it finds, with a zero gradient): K17's sums are
+    # the same bits.
+    loss_f, grads_f = dg.scan_loss_and_grads(
+        params, scene, cam, key, ids, target, None, cfg=cfg,
+        intersect_fn=five_arguments)
+    same = [k for k, g in grads_e.items()
+            if not torch.equal(g, grads_f[k])]
+    log(f"  the masked scan against the five-argument route, eager: loss "
+        f"{float(loss_e):.9g} vs {float(loss_f):.9g}, every field "
+        f"bit-equal {not same} (differing: {same})")
+    if not (torch.equal(loss_e, loss_f) and not same):
+        raise AssertionError("the masked scan is off the five-argument "
+                             "route")
+    del loss_e, grads_e, loss_f, grads_f
+    kernels, device_ms = scan_profile(eager_scan, card)
+    if any("indexing_backward" in name for _, _, name in kernels):
+        raise AssertionError("torch's indexing backward runs in the scan")
     loss_r, grads_r = replay_step
     ratios = {k: float(((grads_r[k] - g).abs()
                         / (1e-7 + 2e-3 * g.abs())).max())
@@ -3354,10 +3412,43 @@ def scan_path(params, scene, cam, cfg, key, ids, target, replay_step, card):
         raise AssertionError("the scan is off the replay's step")
     times, peaks = scan_turns({"eager scan": eager_scan,
                                "graphed scan": graphed_scan}, card)
-    return dict(launches=n7, k11=n11, k11_masked=n11m, rays=R,
-                first_s=first_s, capture=cap, capture_peak=capture_peak,
-                times=times, peaks=peaks, loss_ulps=dl / ulp,
-                grad_ratio=ratio, replay_ratios=ratios, replay_loss_rel=rl)
+    return dict(launches=n7, k11=n11, k11_masked=n11m, k16=n16, k17=n17,
+                rays=R, first_s=first_s, capture=cap,
+                capture_peak=capture_peak, times=times, peaks=peaks,
+                loss_ulps=dl / ulp, grad_ratio=ratio, replay_ratios=ratios,
+                replay_loss_rel=rl, device_ms=device_ms, top=kernels[:8])
+
+
+def five_arguments(scene, accel, origin, direction, t_min):
+    """The dense closest hit without the liveness mask: every ray swept."""
+    return default_intersect(scene, accel, origin, direction, t_min)
+
+
+def scan_profile(body, card, top=8):
+    """The card's kernels of one call of ``body`` under ``torch.profiler``,
+    by device time: logs the ``top`` and returns them all ((ms, calls,
+    name) each) and the total device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        body()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    log(f"  the eager scan under torch.profiler: {sum(r[1] for r in rows)} "
+        f"device events, {total:.2f} ms of device time; on {card}")
+    for t, n, name in rows[:top]:
+        log(f"    {t:10.3f} ms {t / max(total, 1e-30) * 100:5.1f}% {n:7d}x "
+            f"{name[:110]}")
+    return rows, total
 
 
 def rng_rays_path(dev, key, card, frame_draws, replay_step):
@@ -4848,6 +4939,171 @@ def replay_pass_path(dev, key, card):
         "resident_blocks": grids["K15"]})]
 
 
+def recorded_trips(params, scene, cam, cfg, key, ids):
+    """One eager scan (zero target) with ``integrator.gather_rows``
+    wrapped: each trip's tables, indices and, from hooks on its rows, the
+    gradients that its K17 launch sums, for the trips whose rows reach the
+    loss (all but the last)."""
+    trips = []
+    real = tint.gather_rows
+
+    def recording(table, idx):
+        out = real(table, idx)
+        entry = [tuple(t.detach() for t in table), tuple(idx),
+                 [None] * len(out)]
+        trips.append(entry)
+        for k, o in enumerate(out):
+            if o.requires_grad:
+                o.register_hook(
+                    lambda g, k=k, e=entry: e[2].__setitem__(k, g))
+        return out
+    tint.gather_rows = recording
+    try:
+        dg.scan_loss_and_grads(params, scene, cam, key, ids,
+                               torch.zeros((ids.shape[0], 3),
+                                           device=ids.device),
+                               None, cfg=cfg, intersect_fn=default_intersect)
+    finally:
+        tint.gather_rows = real
+    return [(t, i, g) for t, i, g in trips if None not in g]
+
+
+def rows_vs_plain(label, trips, card):
+    """K16 ``torch.equal`` to ``index_select`` and K17 bit-equal to its
+    plain version (torch ops on the card) and the same bits over 3
+    launches, on every trip of ``trips``; K17 within its bound of a float64
+    sum (``index_add_`` into float64): ``row_sum_bound``, plus that sum's
+    own error (n_row 2^-52 times the sum of magnitudes), plus two units in
+    the last place of the table's type.  Returns the largest |K17 - f64|
+    over that bound."""
+    worst = 0.0
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}
+    for tables, idxs, grads in trips:
+        rows = gr.launch_gather(tables, idxs)
+        if not all(torch.equal(a, t.index_select(0, i))
+                   for a, t, i in zip(rows, tables, idxs)):
+            raise AssertionError(f"{label}: K16 differs from index_select")
+        shapes = [tuple(t.shape) for t in tables]
+        sums = [gr.launch_row_sum(grads, idxs, shapes) for _ in range(3)]
+        for k, (g, i, sh) in enumerate(zip(grads, idxs, shapes)):
+            plain = gr.row_sum_plain(g, i, sh[0])
+            b = bits[plain.dtype]
+            if not all(torch.equal(x[k].view(b), plain.view(b))
+                       for x in sums):
+                raise AssertionError(f"{label}: K17 differs from its plain "
+                                     "version or between launches")
+            f64 = torch.zeros(sh, dtype=torch.float64, device=g.device)
+            f64.index_add_(0, i, g.double())
+            mags = torch.zeros_like(f64).index_add_(0, i, g.double().abs())
+            count = torch.bincount(i, minlength=sh[0]).double()[:, None]
+            ref = f64.to(g.dtype).abs()
+            ulp = (torch.nextafter(ref, torch.full_like(ref, float("inf")))
+                   - ref).double()
+            bound = (gr.row_sum_bound(g, i, sh[0]) + count * 2.0 ** -52
+                     * mags + 2 * ulp)
+            worst = max(worst, float(((sums[0][k].double() - f64).abs()
+                                      / bound.clamp_min(1e-300)).max()))
+    log(f"  {label}: {len(trips)} trips, K16 torch.equal to index_select, "
+        f"K17 bit-equal to its plain version and over 3 launches; K17 "
+        f"against the float64 sum: largest |a - b| / bound {worst:.4g} "
+        f"(bound 1)")
+    if worst > 1.0:
+        raise AssertionError(f"{label}: K17 is off the float64 sum")
+    return worst
+
+
+def rows_times(tables, idxs, grads, card):
+    """K16 and K17 at one trip's tables, indices and gradients, each call
+    in a CUDA graph (20 a graph, median of 5), beside their plain versions
+    and the library calls: ``index_select`` for K16; for K17 torch's
+    indexing backward (``index_put_`` accumulating, what autograd runs for
+    ``table[idx]``) and ``index_add_`` into float64, each table once."""
+    shapes = [tuple(t.shape) for t in tables]
+    zeros = [torch.zeros(sh, dtype=t.dtype, device=t.device)
+             for sh, t in zip(shapes, tables)]
+    zeros64 = [z.double() for z in zeros]
+
+    def indexing_backward():
+        for z, g, i in zip(zeros, grads, idxs):
+            z.zero_().index_put_((i,), g, accumulate=True)
+
+    def index_add_f64():
+        for z, g, i in zip(zeros64, grads, idxs):
+            z.zero_().index_add_(0, i, g.double())
+    ms = {"K16": graph_ms(lambda: gr.launch_gather(tables, idxs), 5, 20),
+          "K16 plain (index_select)": graph_ms(
+              lambda: gr.gather_plain(tables, idxs), 5, 20),
+          "K17": graph_ms(lambda: gr.launch_row_sum(grads, idxs, shapes),
+                          5, 20),
+          "K17 plain": graph_ms(lambda: [
+              gr.row_sum_plain(g, i, sh[0])
+              for g, i, sh in zip(grads, idxs, shapes)], 5),
+          "indexing backward": graph_ms(indexing_backward, 5),
+          "index_add_ float64": graph_ms(index_add_f64, 5, 20)}
+    R = idxs[0].shape[0]
+    bound = gather_rows_bound(shapes, R, tables[0].element_size())
+    live = int((grads[0] != 0).any(1).sum())
+    log(f"  one trip, {R} rays, tables {shapes} ({live} rays with a "
+        f"nonzero gradient on the first): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f"; bound {bound[0]:.5f} ms ({bound[1]}); on {card}")
+    return ms, bound
+
+
+def gather_rows_path(dev, key, card, scan):
+    """Phase 24.  ``scan``: phase 20's readings of the differentiable
+    scan (its K16 and K17 launches a replay).  Returns K16's and K17's
+    entries of the kernels line."""
+    key = key.to(dev)
+    ids = torch.arange(GRAD_RAYS, device=dev)
+    scene, cam, cfg = build_preset("random-spheres", device=dev)
+    params, _ = dg.split_params(scene)
+    trips = recorded_trips(params, scene, cam, cfg, key, ids)
+    hot = trips[0][1][0]
+    log(f"  the final scene's scan at {GRAD_RAYS} rays: {len(trips)} trips "
+        f"with a gradient; the first trip's hottest sphere row read by "
+        f"{int(torch.bincount(hot).max())} rays")
+    worst = rows_vs_plain("the final scene (spheres, materials), float32",
+                          trips, card)
+    f64 = [(tuple(t.double() for t in ts), i, tuple(g.double() for g in gs))
+           for ts, i, gs in trips[::5]]
+    worst = max(worst, rows_vs_plain("the final scene, float64 (every 5th "
+                                     "trip)", f64, card))
+    timed = {"float32 trip 0": rows_times(*trips[0], card),
+             "float32 trip 1": rows_times(*trips[1], card),
+             "float64 trip 0": rows_times(*f64[0], card)}
+    del f64, trips
+    tm, tcam, tcfg = build_preset("triangle-mesh", device=dev)
+    tparams, _ = dg.split_params(tm)
+    ttrips = recorded_trips(tparams, tm, tcam, tcfg, key, ids)
+    worst = max(worst, rows_vs_plain(
+        "triangle-mesh (spheres, triangles, materials), float32", ttrips,
+        card))
+    timed["triangle-mesh trip 0"] = rows_times(*ttrips[0], card)
+    del ttrips
+    torch.cuda.empty_cache()
+    ms, bound = timed["float32 trip 0"]
+    src = "first_raytracer_tpu_torch/kernels/csrc/gather_rows.cu"
+    by_set = {k: {n: v for n, v in m.items()} | {"bound_ms": b[0]}
+              for k, (m, b) in timed.items()}
+    common = {"route": "cuda", "source": src, "bound_ms": bound[0],
+              "bound_by": bound[1], "by_set": by_set}
+    return [dict(common, **{
+        "name": "K16 row gather (kernels.gather_rows), the first trip of "
+                "the final scene's scan at 2^17 rays",
+        "replaces": gr.REPLACES, "launches": scan["k16"],
+        "max_abs_err": 0.0, "ms": ms["K16"],
+        "plain_ms": ms["K16 plain (index_select)"],
+        "library_ms": ms["K16 plain (index_select)"]}), dict(common, **{
+        "name": "K17 deterministic row sum (kernels.gather_rows backward), "
+                "the first trip of the final scene's scan at 2^17 rays",
+        "replaces": gr.REPLACES_BACKWARD, "launches": scan["k17"],
+        "max_abs_err": 0.0, "f64_err_over_bound": worst, "ms": ms["K17"],
+        "plain_ms": ms["K17 plain"],
+        "library_ms": ms["indexing backward"],
+        "index_add_f64_ms": ms["index_add_ float64"]})]
+
+
 def bench_runs(card):
     """Phase 17: ``python3 bench_torch.py`` in subprocesses, one for each
     of ``BENCH_RUNS``.  Each must exit 0 with one JSON line without an
@@ -4887,7 +5143,17 @@ def bench_runs(card):
     return launches
 
 
+STARTED = 0.0  # main's start, on the host's clock
+
+
+def phase_done(n):
+    """Logs the seconds since the script started, after phase ``n``."""
+    log(f"[phase {n} done at {time.perf_counter() - STARTED:.1f} s]")
+
+
 def main():
+    global STARTED
+    STARTED = time.perf_counter()
     # 1. Device.
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; nothing was run")
@@ -4899,51 +5165,69 @@ def main():
     log(card)
 
     build()  # 2.
+    phase_done(2)
     key = rng.base_key(0)
     k1, scene, cam, cfg, pack, final_img, k1_steps, k1_segs = render_path(
         dev, key, card)  # 3, 4.
+    phase_done(4)
     log("K2 and K2b vs plain:")
     k2_launches = tape_kernels_vs_plain(dev, key, card, scene, cam, cfg,
                                         pack, k1_segs)  # 5.
+    phase_done(5)
     del k1_segs
     g = grad_path(dev, key, card, scene, cam, cfg, pack)  # 6.
+    phase_done(6)
     fit_cli(card)  # 7.
+    phase_done(7)
     del scene, pack
     torch.cuda.empty_cache()
     log("K3 vs plain:")
     clustered_vs_plain(dev, key, card)  # 8.
+    phase_done(8)
     k3_launches, fields, scenes = large_scene_path(dev, key, card)  # 9.
+    phase_done(9)
     log("K3t and the clustered fit step:")
     t10 = clustered_tapes_and_step(dev, key, card, scenes)  # 10.
+    phase_done(10)
     del scenes
     torch.cuda.empty_cache()
     log("K4 and K5 vs plain:")
     err4, err5 = intersect_vs_plain(dev, key)  # 11.
+    phase_done(11)
     k4 = dense_wavefront_path(dev, key, card)  # 12.
+    phase_done(12)
     k5, err4_fields = clustered_wavefront_path(dev, key, card)  # 13.
+    phase_done(13)
     k4["max_abs_err"] = max(err4, err4_fields)
     k5["max_abs_err"] = max(err5, k5["max_abs_err"])
     torch.cuda.empty_cache()
     log("The sharded megakernels in one process (NCCL, world size 1):")
     f20_img = fields["field20000"]["img"]
     slice14 = sharded_one_process(dev, key, card, final_img, f20_img)  # 14.
+    phase_done(14)
     torch.cuda.empty_cache()
     log("Two processes on the one card (parallel.dryrun, gloo):")
     slice15 = two_processes(dev, card, final_img, f20_img, g["step"])  # 15.
+    phase_done(15)
     log("cli occupancy:")
     occupancy_cli(dev, key, card, *k1_steps)  # 16.
+    phase_done(16)
     log("bench_torch.py:")
     bench = bench_runs(card)  # 17.
+    phase_done(17)
     torch.cuda.empty_cache()
     log("The direct gradient step:")
     direct = direct_step_path(dev, key, card)  # 18.
+    phase_done(18)
     torch.cuda.empty_cache()
     log("K6, the flat-BVH walk:")
     k6 = bvh_walk_path(dev, key, card, direct.pop("tape"))  # 19.
+    phase_done(19)
     torch.cuda.empty_cache()
     log("K7 and K8, the Threefry draw and the camera rays:")
     k7, k8 = rng_rays_path(dev, key, card, k4["draw_launches"],
                            direct.pop("step"))  # 20.
+    phase_done(20)
     k7["bench_launches"] = bench.get("K7", {})
     k8["bench_launches"] = bench.get("K8", {})
     torch.cuda.empty_cache()
@@ -4953,14 +5237,21 @@ def main():
     frames["field20000 chunks"] = k5["frame_s"]["graphed"]
     frames["bvh pool frame"] = k6["frame_s"]["K6"]
     k9, k10 = wavefront_pass_path(dev, key, card, frames)  # 21.
+    phase_done(21)
     k9["bench_launches"] = bench.get("K9", {})
     k10["bench_launches"] = bench.get("K10", {})
     torch.cuda.empty_cache()
     log("K11, K12 and K13, the recorders on the device:")
     k11_13 = record_pass_path(dev, key, card)  # 22.
+    phase_done(22)
     torch.cuda.empty_cache()
     log("K14 and K15, the tape replay on the device:")
     k14_15 = replay_pass_path(dev, key, card)  # 23.
+    phase_done(23)
+    torch.cuda.empty_cache()
+    log("K16 and K17, the scan's row gathers and their sums:")
+    k16_17 = gather_rows_path(dev, key, card, k7["scan"])  # 24.
+    phase_done(24)
     k6["bench_launches"] = bench["K6"]
     k4["direct_step_launches"] = direct["launches"]["K4"]
     k5["direct_step_launches"] = direct["launches"]["K5"]
@@ -5009,7 +5300,7 @@ def main():
         "plain_ms": t10["plain_ms"], "bound_ms": t10["bound"][0],
         "bound_by": t10["bound"][1], "library_ms": None,
         "bench_launches": bench["K3t"]}, k4, k5, k6, k7, k8, k9, k10,
-        *k11_13, *k14_15]}))
+        *k11_13, *k14_15, *k16_17]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

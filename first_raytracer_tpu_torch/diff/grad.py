@@ -199,9 +199,11 @@ def scan_loss_and_grads(params, scene, camera, key, ray_ids, target, accel,
     (K8), the differentiable wavefront (``trace_rays`` with
     ``differentiable=True``: ``max_depth + 1`` trips unrolled, each a
     closest hit by ``intersect_fn`` on ``accel`` given the rays' liveness,
-    a draw (K7) and the shading in torch ops), the loss (the mean, or the
-    sum of squares over ``num_values``) and ``torch.autograd.grad``.  A
-    plain function that the CPU runs and a CUDA device captures."""
+    its rows gathered from the scene's row tables (K16; their gradient
+    K17), a draw (K7) and the shading in torch ops), the loss (the mean,
+    or the sum of squares over ``num_values``) and
+    ``torch.autograd.grad``.  A plain function that the CPU runs and a
+    CUDA device captures."""
     o, d = _rays(camera, cfg, key, ray_ids)
     cfg = dataclasses.replace(cfg, differentiable=True)
 

@@ -83,10 +83,12 @@ def launch_counters():
     K4's, K5's, K6's, K7's, K8's, K9's, K10's, K11's (and those of its
     launches given a liveness mask), K12's (each mode), K13's (its
     refills, folded into K12's pool launch), K14's and K15's (the tape
-    replay's value and gradient)."""
+    replay's value and gradient), K16's and K17's (the scan's row gathers
+    and their sums)."""
     from ..accel import traverse
     from ..core import rng
-    from ..kernels import dense_hit, intersect_clustered, intersect_pallas
+    from ..kernels import (dense_hit, gather_rows, intersect_clustered,
+                           intersect_pallas)
     from ..render import camera, wavefront_pass
     from . import record_pass, replay_pass
     return ((intersect_pallas.intersect_pallas, "launches"),
@@ -103,7 +105,9 @@ def launch_counters():
             (record_pass.record_shade, "launches"),
             (record_pass.record_shade, "refill_launches"),
             (replay_pass.replay, "launches"),
-            (replay_pass.replay, "backward_launches"))
+            (replay_pass.replay, "backward_launches"),
+            (gather_rows.gather_rows, "launches"),
+            (gather_rows.gather_rows, "backward_launches"))
 
 
 def launches_now():

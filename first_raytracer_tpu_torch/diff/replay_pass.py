@@ -44,10 +44,10 @@ from ..core import rng
 from ..core.vecmath import constant, point_at
 from ..geometry.sphere import BIG, sphere_hit_one, sphere_normal
 from ..geometry.triangle import triangle_hit_one, triangle_normal
-from ..materials.scatter import scatter_from_params
+from ..materials.scatter import scatter_rows
 from ..render.integrator import UP, RenderConfig, sky_color
 from ..render.wavefront_pass import _check
-from ..scene.textures import texture_from_params
+from ..scene.payload import payload_tables as _payload_tables
 
 __all__ = ["replay", "replay_plain", "replay_kernels", "launch_forward",
            "launch_backward", "launch_order", "REPLACES", "SAVE_COLS",
@@ -63,36 +63,6 @@ HOT_PEERS = 4
 # Rows to sweep from which a ray takes a K15 warp of its own (replay.cu's
 # kDeepRows).
 DEEP_ROWS = 12
-
-
-def _mat_block(scene, mat_ids):
-    """(N, 11) f32 material payload rows for per-primitive material ids:
-    mtype, fuzz, ref_idx, albedo (3), albedo2 (3), tex_scale, tex_type.
-    The integer types ride as f32 (exact) and are cast back on use."""
-    m = mat_ids.long()
-    return torch.cat([
-        scene.mat_type[m].to(torch.float32)[:, None],
-        scene.fuzz[m][:, None],
-        scene.ref_idx[m][:, None],
-        scene.albedo[m],
-        scene.albedo2[m],
-        scene.tex_scale[m][:, None],
-        scene.tex_type[m].to(torch.float32)[:, None],
-    ], dim=1)
-
-
-def _payload_tables(scene):
-    """Per-primitive payload tables: (Ns, 4 + 11) spheres, (Nt, 9 + 11)
-    triangles; geometry and the material row in one table, differentiable
-    in every scene leaf."""
-    sph = tri = None
-    if scene.num_spheres:
-        sph = torch.cat([scene.sphere_center, scene.sphere_radius[:, None],
-                         _mat_block(scene, scene.sphere_mat)], dim=1)
-    if scene.num_triangles:
-        tri = torch.cat([scene.tri_v0, scene.tri_v1, scene.tri_v2,
-                         _mat_block(scene, scene.tri_mat)], dim=1)
-    return sph, tri
 
 
 class _Extract(torch.autograd.Function):
@@ -189,12 +159,8 @@ def replay_plain(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
         radiance = radiance + torch.where(
             miss_now[:, None], throughput * sky_color(dr), 0.0)
 
-        uniforms = rng.bounce_uniforms(key, ray_ids, d)
-        tex = texture_from_params(matp[:, 10].to(torch.int32), matp[:, 3:6],
-                                  matp[:, 6:9], matp[:, 9], p)
-        new_dir, attenuation, scattered_ok = scatter_from_params(
-            matp[:, 0].to(torch.int32), matp[:, 1], matp[:, 2], tex, dr, p,
-            n, uniforms)
+        new_dir, attenuation, scattered_ok = scatter_rows(
+            matp, dr, p, n, rng.bounce_uniforms(key, ray_ids, d))
         cont = alive & hit & scattered_ok & (d < cfg.max_depth)
 
         throughput = torch.where(cont[:, None], throughput * attenuation,

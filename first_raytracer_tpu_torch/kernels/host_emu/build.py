@@ -99,7 +99,9 @@ def build_host_library(gxx="g++", units=None):
     tag = digest.hexdigest()[:12]
     out = os.path.join(BUILD_DIR, f"libfrt_host_emu_{tag}.so")
     if not os.path.exists(out):
-        src = os.path.join(BUILD_DIR, f"host_emu_{tag}")
+        # A directory of this process's own: test workers that build the
+        # same library at once never read each other's half-written copies.
+        src = os.path.join(BUILD_DIR, f"host_emu_{tag}.{os.getpid()}")
         os.makedirs(src, exist_ok=True)
         units = []
         for n in names:
@@ -122,6 +124,7 @@ def build_host_library(gxx="g++", units=None):
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed:\n{proc.stderr[-6000:]}")
         os.replace(tmp, out)
+        shutil.rmtree(src, ignore_errors=True)
     lib = ctypes.CDLL(out)
     lib.frt_emu_interleave.argtypes = [ctypes.c_int, ctypes.c_ulonglong]
     lib.frt_emu_interleave.restype = None

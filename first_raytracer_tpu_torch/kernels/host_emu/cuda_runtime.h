@@ -76,6 +76,7 @@ struct dim3 {
 using cudaStream_t = void*;
 using cudaError_t = int;
 constexpr cudaError_t cudaSuccess = 0;
+constexpr cudaError_t cudaErrorInvalidValue = 1;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
@@ -183,7 +184,33 @@ inline unsigned long long atomicCAS(unsigned long long* p,
   if (old == cmp) *p = v;
   return old;
 }
+inline int atomicMax(int* p, int v) {
+  const int old = *p;
+  if (v > old) *p = v;
+  return old;
+}
+inline int atomicOr(int* p, int v) {
+  const int old = *p;
+  *p = old | v;
+  return old;
+}
 inline void __threadfence() {}
+
+// Reinterpretations and conversions of 64-bit values, rounded to nearest
+// even as the card's _rn intrinsics round (the host's default mode).
+inline long long __double_as_longlong(double x) {
+  long long i;
+  std::memcpy(&i, &x, sizeof i);
+  return i;
+}
+inline double __longlong_as_double(long long x) {
+  double d;
+  std::memcpy(&d, &x, sizeof d);
+  return d;
+}
+inline long long __double2ll_rn(double x) { return std::llrint(x); }
+inline double __ll2double_rn(long long x) { return static_cast<double>(x); }
+inline float __double2float_rn(double x) { return static_cast<float>(x); }
 
 namespace frt_emu {
 

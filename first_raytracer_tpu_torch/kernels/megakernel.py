@@ -62,8 +62,9 @@ KERNEL_SOURCE = "megakernel.cu"
 # hits), K6 (the flat-BVH walk), K7 and K8 (the wavefront paths' Threefry
 # draws and camera rays), K9 and K10 (the wavefront pass's shading and
 # regeneration), K11 (the dense closest hit), K12 and K13 (the
-# recorders' pass and regeneration) and K14 and K15 (the tape replay's
-# value and gradient) build into the same library.
+# recorders' pass and regeneration), K14 and K15 (the tape replay's
+# value and gradient) and K16 and K17 (the differentiable scan's row
+# gathers and their sums) build into the same library.
 CLUSTERED_SOURCE = "megakernel_clustered.cu"
 INTERSECT_SOURCE = "intersect.cu"
 BVH_SOURCE = "bvh_walk.cu"
@@ -75,6 +76,8 @@ WAVEFRONT_PASS_SOURCE = "wavefront_pass.cu"
 DENSE_HIT_SOURCE = "dense_hit.cu"
 # K14 and K15 (the tape replay's value and gradient).
 REPLAY_SOURCE = "replay.cu"
+# K16 and K17 (the differentiable scan's row gathers and their sums).
+GATHER_ROWS_SOURCE = "gather_rows.cu"
 REPLACES = "first_raytracer_tpu/kernels/megakernel.py:306"
 
 
@@ -271,7 +274,7 @@ def load_mega_library():
         "frt_mega",
         [KERNEL_SOURCE, CLUSTERED_SOURCE, INTERSECT_SOURCE, BVH_SOURCE,
          RNG_RAYS_SOURCE, WAVEFRONT_PASS_SOURCE, DENSE_HIT_SOURCE,
-         REPLAY_SOURCE],
+         REPLAY_SOURCE, GATHER_ROWS_SOURCE],
         NVCC_EXTRA_FLAGS)
     return bind(lib), info
 
@@ -293,6 +296,7 @@ def bind(lib):
     bind_wavefront_pass(lib)
     bind_dense_hit(lib)
     bind_replay(lib)
+    bind_gather_rows(lib)
     # The clustered tables: 12 pointers, then ns, nt, the two supergroup
     # counts and the two column counts.
     tables = [ptr] * 12 + [i32] * 6
@@ -374,6 +378,22 @@ def bind_replay(lib):
     lib.frt_replay_order.restype = i32
     lib.frt_replay_blocks.argtypes = [i32] * 2 + [ctypes.POINTER(i32)]
     lib.frt_replay_blocks.restype = i32
+    return lib
+
+
+def bind_gather_rows(lib):
+    """Declares K16's and K17's C entry points' argument and result types
+    on ``lib`` (also a host build of ``gather_rows.cu`` alone)."""
+    desc, i32, i64 = ctypes.POINTER(ctypes.c_int64), ctypes.c_int, \
+        ctypes.c_int64
+    ptr = ctypes.c_void_p
+    for t in ("f32", "f64"):
+        fwd = getattr(lib, f"frt_gather_rows_{t}")
+        fwd.argtypes = [desc, i32, i64, ptr]
+        fwd.restype = i32
+        bwd = getattr(lib, f"frt_row_sum_{t}")
+        bwd.argtypes = [desc, i32, i64, ptr, ptr]
+        bwd.restype = i32
     return lib
 
 

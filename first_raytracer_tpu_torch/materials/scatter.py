@@ -19,9 +19,9 @@ import torch
 from ..core.rng import unit_ball_sample
 from ..core.vecmath import dot, normalize, reflect, refract, schlick
 from ..scene.soa import MAT_DIELECTRIC, MAT_METAL
-from ..scene.textures import texture_value
+from ..scene.textures import texture_from_params, texture_value
 
-__all__ = ["scatter", "scatter_from_params"]
+__all__ = ["scatter", "scatter_from_params", "scatter_rows"]
 
 _NORM_EPS = 1e-20
 
@@ -43,6 +43,17 @@ def scatter(scene, mat_id, direction, hit_p, hit_n, uniforms):
     return scatter_from_params(
         scene.mat_type[m], scene.fuzz[m], scene.ref_idx[m],
         texture_value(scene, m, hit_p), direction, hit_p, hit_n, uniforms)
+
+
+def scatter_rows(rows, direction, hit_p, hit_n, uniforms):
+    """``scatter`` with each ray's (R, 11) material row given
+    (``scene/payload.py``: mtype, fuzz, ref_idx, albedo, albedo2,
+    tex_scale, tex_type, the types as floats)."""
+    tex = texture_from_params(rows[:, 10].to(torch.int32), rows[:, 3:6],
+                              rows[:, 6:9], rows[:, 9], hit_p)
+    return scatter_from_params(rows[:, 0].to(torch.int32), rows[:, 1],
+                               rows[:, 2], tex, direction, hit_p, hit_n,
+                               uniforms)
 
 
 def scatter_from_params(mtype, fuzz, ref_idx, tex, direction, hit_p, hit_n,

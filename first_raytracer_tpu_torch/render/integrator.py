@@ -33,7 +33,11 @@ trips; on a CUDA device the blocks replay as a CUDA graph
 ``_bounce``'s body (``shade_carry``) on the CPU.  The differentiable
 path, ``resolve_fn`` and ``sync_axis`` run one trip at a time, eagerly;
 the differentiable path's value and gradient is captured whole as a CUDA
-graph by ``diff.grad.render_loss_and_grads_scan``.
+graph by ``diff.grad.render_loss_and_grads_scan``.  Its trips re-solve
+their hits from the scene's row tables (``scene/payload.py::row_tables``,
+built once a call; ``recompute_hit_rows``), whose rows a trip gathers in
+one ``kernels.gather_rows`` call: K16 on a CUDA device, and K17, a row sum
+in a fixed order, for their gradient.
 """
 from __future__ import annotations
 
@@ -48,10 +52,13 @@ from ..geometry.sphere import (BIG, sphere_hit_all, sphere_hit_one,
                                sphere_normal)
 from ..geometry.triangle import (triangle_hit_all, triangle_hit_one,
                                  triangle_normal)
-from ..materials.scatter import scatter
+from ..kernels.gather_rows import gather_rows
+from ..materials.scatter import scatter, scatter_rows
+from ..scene.payload import row_tables
 
 __all__ = ["RenderConfig", "default_intersect", "forward_trips",
-           "intersect_brute", "recompute_hit", "shade_carry", "sky_color",
+           "intersect_brute", "recompute_hit", "recompute_hit_rows",
+           "shade_carry", "sky_color",
            "trace_rays", "trace_state", "trip"]
 
 
@@ -150,38 +157,80 @@ def intersect_brute(scene, origin, direction, t_min):
     return prim.to(torch.int32), t, t < BIG
 
 
-def recompute_hit(scene, origin, direction, prim, t_min):
-    """Hit record ``(t, p, n, mat_id)`` re-solved from the primitive id."""
+def _prim_ids(scene, prim):
+    """The clamped sphere and triangle ids of ``prim`` (None where the
+    scene has no such primitive), whether each hit is a sphere's (None
+    unless the scene has both) and its material id."""
     ns, nt = scene.num_spheres, scene.num_triangles
     prim = prim.long()
+    si = torch.clamp(prim, 0, ns - 1) if ns else None
+    ti = torch.clamp(prim - ns, 0, nt - 1) if nt else None
     if nt == 0:
-        si = torch.clamp(prim, 0, ns - 1)
-        c = scene.sphere_center[si]
-        r = scene.sphere_radius[si]
+        return si, None, None, scene.sphere_mat[si]
+    if ns == 0:
+        return None, ti, None, scene.tri_mat[ti]
+    is_sph = prim < ns
+    return si, ti, is_sph, torch.where(is_sph, scene.sphere_mat[si],
+                                       scene.tri_mat[ti])
+
+
+def _hit_record(origin, direction, t_min, is_sph, sphere, triangle):
+    """(t, p, n) re-solved on each ray's gathered sphere ``(c, r)`` or
+    triangle ``(v0, v1, v2)`` (None where the scene has none), picked by
+    ``is_sph`` where it has both."""
+    if triangle is None:
+        c, r = sphere
         t = sphere_hit_one(origin, direction, c, r, t_min, BIG)
         p, n = sphere_normal(origin, direction, t, c, r)
-        return t, p, n, scene.sphere_mat[si]
-    if ns == 0:
-        ti = torch.clamp(prim, 0, nt - 1)
-        v0, v1, v2 = scene.tri_v0[ti], scene.tri_v1[ti], scene.tri_v2[ti]
-        t = triangle_hit_one(origin, direction, v0, v1, v2, t_min, BIG)
-        p = point_at(origin, direction, t)
-        return t, p, triangle_normal(v0, v1, v2), scene.tri_mat[ti]
-
-    is_sph = prim < ns
-    si = torch.clamp(prim, 0, ns - 1)
-    ti = torch.clamp(prim - ns, 0, nt - 1)
-    c = scene.sphere_center[si]
-    r = scene.sphere_radius[si]
-    t_s = sphere_hit_one(origin, direction, c, r, t_min, BIG)
-    v0, v1, v2 = scene.tri_v0[ti], scene.tri_v1[ti], scene.tri_v2[ti]
+        return t, p, n
+    v0, v1, v2 = triangle
     t_t = triangle_hit_one(origin, direction, v0, v1, v2, t_min, BIG)
+    if sphere is None:
+        return (t_t, point_at(origin, direction, t_t),
+                triangle_normal(v0, v1, v2))
+    c, r = sphere
+    t_s = sphere_hit_one(origin, direction, c, r, t_min, BIG)
     t = torch.where(is_sph, t_s, t_t)
     p = point_at(origin, direction, t)
     _, n_s = sphere_normal(origin, direction, t, c, r)
     n = torch.where(is_sph[:, None], n_s, triangle_normal(v0, v1, v2))
-    mat = torch.where(is_sph, scene.sphere_mat[si], scene.tri_mat[ti])
-    return t, p, n, mat
+    return t, p, n
+
+
+def recompute_hit(scene, origin, direction, prim, t_min):
+    """Hit record ``(t, p, n, mat_id)`` re-solved from the primitive id."""
+    si, ti, is_sph, mat = _prim_ids(scene, prim)
+    sphere = triangle = None
+    if si is not None:
+        sphere = scene.sphere_center[si], scene.sphere_radius[si]
+    if ti is not None:
+        triangle = scene.tri_v0[ti], scene.tri_v1[ti], scene.tri_v2[ti]
+    return (*_hit_record(origin, direction, t_min, is_sph, sphere,
+                         triangle), mat)
+
+
+def recompute_hit_rows(scene, tables, origin, direction, prim, t_min):
+    """``recompute_hit`` on the scene's row tables
+    (``scene/payload.py::row_tables``): ``(t, p, n, rows)``, ``rows`` the
+    hits' (R, 11) material rows, the same values.  The rays' sphere,
+    triangle and material rows come from one ``kernels.gather_rows`` call
+    (K16 on a CUDA device), whose backward sums each table row's gradient
+    over the rays that read it in a fixed order (K17)."""
+    si, ti, is_sph, mat = _prim_ids(scene, prim)
+    sph, tri, mats = tables
+    picked = [(t, i) for t, i in ((sph, si), (tri, ti), (mats, mat.long()))
+              if i is not None]
+    rows = list(gather_rows(tuple(t for t, _ in picked),
+                            tuple(i for _, i in picked)))
+    sphere = triangle = None
+    if si is not None:
+        g = rows.pop(0)
+        sphere = g[:, 0:3], g[:, 3]
+    if ti is not None:
+        g = rows.pop(0)
+        triangle = g[:, 0:3], g[:, 3:6], g[:, 6:9]
+    return (*_hit_record(origin, direction, t_min, is_sph, sphere,
+                         triangle), rows[0])
 
 
 def _any_alive(alive, sync_axis):
@@ -192,15 +241,22 @@ def _any_alive(alive, sync_axis):
     return int(sync_axis.all_reduce(count)) > 0
 
 
-def _resolver(intersect_fn):
+def _resolver(intersect_fn, tables=None):
     """``resolve_fn`` from an ``intersect_fn``: the closest hit without
     autograd (``closest_hit``, given the rays' liveness), then the hit
-    record recomputed from its primitive."""
+    record recomputed from its primitive: from the scene's tensors, or with
+    ``tables`` (``scene/payload.py::row_tables``) from their rows
+    (``recompute_hit_rows``, the material as its row)."""
     def resolve_fn(scene, accel, origin, direction, t_min, alive):
         with torch.no_grad():
             prim, _, hit = closest_hit(intersect_fn, scene, accel, origin,
                                        direction, t_min, alive)
-        return (*recompute_hit(scene, origin, direction, prim, t_min), hit)
+        if tables is None:
+            record = recompute_hit(scene, origin, direction, prim, t_min)
+        else:
+            record = recompute_hit_rows(scene, tables, origin, direction,
+                                        prim, t_min)
+        return (*record, hit)
     resolve_fn.takes_alive = True
     return resolve_fn
 
@@ -223,8 +279,10 @@ def _bounce(scene, accel, resolve_fn, key, ray_ids, cfg, d, carry):
 
 def shade_carry(scene, cfg, d, carry, resolved, uniforms):
     """``_bounce`` past its closest hit: the carry ``_CARRY`` at depth
-    ``d``, the hit record ``resolved`` (t, p, n, mat, hit) and the bounce's
-    (R, 4) uniforms in, the next carry out."""
+    ``d``, the hit record ``resolved`` (t, p, n, mat, hit; ``mat`` the
+    (R,) material ids, or the hits' (R, 11) material rows of
+    ``recompute_hit_rows``) and the bounce's (R, 4) uniforms in, the next
+    carry out."""
     origin, direction, throughput, radiance, alive, segments = carry
     segments = segments + alive.to(torch.int32)
     t, p, n, mat, hit = resolved
@@ -239,8 +297,12 @@ def shade_carry(scene, cfg, d, carry, resolved, uniforms):
     radiance = radiance + torch.where(
         miss_now[:, None], throughput * sky_color(direction), 0.0)
 
-    new_dir, attenuation, scattered_ok = scatter(
-        scene, mat, direction, p, n, uniforms)
+    if mat.dim() == 2:
+        new_dir, attenuation, scattered_ok = scatter_rows(
+            mat, direction, p, n, uniforms)
+    else:
+        new_dir, attenuation, scattered_ok = scatter(
+            scene, mat, direction, p, n, uniforms)
     cont = alive & hit & scattered_ok & (d < cfg.max_depth)
 
     throughput = torch.where(cont[:, None], throughput * attenuation,
@@ -311,7 +373,9 @@ def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
     sweep) is not differentiated.  ``cfg.differentiable`` runs all
     ``max_depth + 1`` trips, unrolled with the depth a Python int (so the
     draw's domain is a launch argument), eagerly; each trip's closest hit
-    is given the rays' liveness (``closest_hit``).
+    is given the rays' liveness (``closest_hit``), and without a
+    ``resolve_fn`` its hit record and material come from the scene's row
+    tables (``recompute_hit_rows``: K16, and K17 for the gradient).
     """
     if intersect_fn is None:
         intersect_fn = default_intersect
@@ -322,7 +386,10 @@ def trace_rays(scene, origin, direction, ray_ids, key, cfg: RenderConfig,
             graphed)
         return out if return_stats else out[0]
     if resolve_fn is None:
-        resolve_fn = _resolver(intersect_fn)
+        # The differentiable trips take their rows from the tables, built
+        # once a call, so that their gathers' gradient is K17's sum.
+        resolve_fn = _resolver(intersect_fn, row_tables(scene)
+                               if cfg.differentiable else None)
     R = origin.shape[0]
     dev = origin.device
     carry = (origin, direction,

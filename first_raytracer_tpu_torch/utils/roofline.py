@@ -113,7 +113,8 @@ __all__ = ["PEAK_FP32", "PEAK_BYTES", "FP32_PEAKS", "SPHERE_OPS",
            "k6_bound", "fp32_peak", "PEAK_INT32", "THREEFRY_INT_OPS",
            "THREEFRY_FP32_OPS", "CAMERA_RAY_OPS", "SHADE_OPS", "k7_bound",
            "k8_bound", "k9_bound", "k10_bound", "k11_bound", "k12_bound",
-           "ADJOINT_OPS", "k14_bound", "k15_bound"]
+           "ADJOINT_OPS", "k14_bound", "k15_bound",
+           "gather_rows_bound"]
 
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores,
 # and HBM3 bandwidth.
@@ -405,3 +406,17 @@ def k15_bound(table_values, rays, contributing, bounces, itemsize=4,
     ops = ((THREEFRY_FP32_OPS + SHADE_OPS + ADJOINT_OPS) * bounces
            + 20 * contributing)
     return roofline(ops, nbytes, THREEFRY_INT_OPS * bounces)
+
+
+
+def gather_rows_bound(tables, rays, itemsize=4):
+    """K16's and K17's bound over one launch of ``rays`` rays on tables of
+    ``tables`` ((rows, cols) each), the same bytes for both: K16 reads each
+    table once and a ray's int64 index into it and writes its (cols,) row;
+    K17 reads a ray's (cols,) gradient and index and writes each table's
+    gradient once.  K16 does no arithmetic, K17 a few operations a byte
+    read (two float64 products and a rounding a value, integer work on the
+    exponents and sums), far under the card's rates: bound by bytes."""
+    nbytes = sum(itemsize * r * c + (8 + itemsize * c) * rays
+                 for r, c in tables)
+    return roofline(0, nbytes)

@@ -21,8 +21,14 @@ arguments (K11 sweeping every ray, dead or alive): seconds in turns
 (masked, five, five, masked) after a capture each, in a cache that keeps
 both graphs, and whether the two routes' results are ``torch.equal``.
 
+``--rows``: then ``chip_smoke.py`` phase 24 (K16 and K17 on the scan's
+real trips at 2^17 rays against their plain versions, timed beside their
+bounds and the library calls), its launches those of the last ray count's
+scan.
+
     python probes/scan_graph.py --rays 16384 131072
     python probes/scan_graph.py --rays 16384 --profile
+    python probes/scan_graph.py --rays 16384 131072 --profile --rows
 """
 import argparse
 import json
@@ -37,6 +43,7 @@ def main():
     ap.add_argument("--rays", type=int, nargs="+", default=[1 << 17])
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--rows", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -64,14 +71,15 @@ def main():
         if args.profile:
             profile(cs, torch, params, scene, cam, cfg, key, ids, target,
                     args.top, card)
+    if args.rows:
+        rows = cs.gather_rows_path(dev, key, card, scan)
+        print(json.dumps({"kernels": rows, "card": card}), flush=True)
 
 
 def profile(cs, torch, params, scene, cam, cfg, key, ids, target, top,
             card):
     """The eager scan's kernels by device time, its graph's nodes, and the
     graphed scan with and without the liveness mask in turns."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     dkey = key.to(ids.device)  # a capture copies nothing from the host
 
     def eager():
@@ -80,36 +88,16 @@ def profile(cs, torch, params, scene, cam, cfg, key, ids, target, top,
             intersect_fn=cs.default_intersect)
 
     eager()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eager()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = e.cuda_time_total
-        if t > 0:
-            rows.append((t, e.count, e.key))
-    rows.sort(reverse=True)
-    total = sum(r[0] for r in rows)
-    cs.log(f"  the eager scan at {ids.shape[0]} rays under torch.profiler: "
-           f"{sum(r[1] for r in rows)} device events, {total / 1e3:.2f} ms "
-           f"of device time; on {card}")
-    for t, n, name in rows[:top]:
-        cs.log(f"    {t / 1e3:10.3f} ms {t / total * 100:5.1f}% {n:7d}x "
-               f"{name[:110]}")
+    rows, total = cs.scan_profile(eager, card, top)
     nodes = cs.graph_nodes(eager)
     cs.log(f"  the scan's graph: {nodes} nodes")
-
-    def five(scene_, accel, o, d, t_min):
-        return cs.default_intersect(scene_, accel, o, d, t_min)
 
     fns = {
         "masked": lambda: cs.dg.render_loss_and_grads(
             params, scene, cam, cfg, key, ids, target, method="scan"),
         "five arguments": lambda: cs.dg.render_loss_and_grads(
-            params, scene, cam, cfg, key, ids, target, intersect_fn=five,
+            params, scene, cam, cfg, key, ids, target,
+            intersect_fn=cs.five_arguments,
             method="scan", graphed=True),
     }
     kept, cs.dg.SCAN_GRAPHS = cs.dg.SCAN_GRAPHS, cs.dg.GraphCache(2)
@@ -137,9 +125,8 @@ def profile(cs, torch, params, scene, cam, cfg, key, ids, target, top,
                                   f" s" for k, v in times.items())
            + f"; results torch.equal {same}; on {card}")
     print(json.dumps({"rays": int(ids.shape[0]), "nodes": nodes,
-                      "device_ms": total / 1e3,
-                      "top": [[t / 1e3, n, name] for t, n, name in
-                              rows[:top]],
+                      "device_ms": total,
+                      "top": [list(r) for r in rows[:top]],
                       "mask_turns": times, "mask_equal": same,
                       "mask_loss_ulps": ulps, "mask_spread": spread,
                       "card": card}), flush=True)

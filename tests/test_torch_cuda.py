@@ -7,7 +7,9 @@ the dense sweep, K4 and K5, and the occupancy scan, against the same
 bodies op by op: tapes and lengths ``torch.equal``, the loss within one
 float32 ulp and the gradients within ``rtol=1e-6``; the flat-BVH walk
 (K6) graphed in the recorders and the direct step, equal to the same bodies
-run op by op and to the dense sweep's tape.
+run op by op and to the dense sweep's tape.  K16 and K17 (the scan's row
+gathers and their sums) against their plain versions bit for bit, the
+same bits over three launches and with the rays permuted.
 
 Marked ``cuda``; skipped where ``torch.cuda.is_available()`` is False.
 This file imports neither JAX nor the JAX package, so it also runs on a GPU
@@ -712,3 +714,38 @@ def test_sharded_megakernels_in_one_process(cuda_device):
     assert torch.equal(
         mc.render_image_mega_clustered_sharded(scene, cam, cfg, mesh),
         mc.render_image_mega_clustered(scene, cam, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_row_gathers_match_plain(cuda_device, dtype):
+    """K16 ``torch.equal`` to ``index_select`` and K17 bit-equal to
+    ``row_sum_plain`` on three tables, most rays on row 0 and a quarter
+    with zero gradients; K17 the same bits over three launches and with
+    the rays permuted."""
+    from first_raytracer_tpu_torch.kernels import gather_rows as gr
+
+    g = torch.Generator().manual_seed(0)
+    R, shapes = 1 << 14, [(486, 4), (40, 9), (486, 11)]
+    tables = [torch.randn(sh, generator=g, dtype=dtype).to(cuda_device)
+              for sh in shapes]
+    idxs, grads = [], []
+    for rows, cols in shapes:
+        i = torch.randint(0, rows, (R,), generator=g)
+        i[torch.rand(R, generator=g) < 0.7] = 0
+        x = torch.randn((R, cols), generator=g, dtype=dtype)
+        x[torch.rand(R, generator=g) < 0.25] = 0.0
+        idxs.append(i.to(cuda_device))
+        grads.append(x.to(cuda_device))
+    rows = gr.launch_gather(tables, idxs)
+    assert all(torch.equal(a, b)
+               for a, b in zip(rows, gr.gather_plain(tables, idxs)))
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    want = [gr.row_sum_plain(x, i, sh[0]).view(bits)
+            for x, i, sh in zip(grads, idxs, shapes)]
+    perm = torch.randperm(R, generator=g).to(cuda_device)
+    runs = [(grads, idxs)] * 3 + [([x[perm] for x in grads],
+                                   [i[perm] for i in idxs])]
+    for xs, ids in runs:
+        got = gr.launch_row_sum(xs, ids, shapes)
+        assert all(torch.equal(a.view(bits), b) for a, b in zip(got, want))

@@ -19,7 +19,14 @@ K11 sweeps only the live rays and gives the dead ones the miss.
   packages' tapes are recorded first and shown equal (the same selection);
   then the loss within ``rtol=1e-5`` and every gradient within
   ``rtol=1e-4, atol=1e-6``, the bounds at which tests/test_torch_replay.py
-  holds the port's replay to JAX's.  triangle-mesh is left out: 5 of its
+  holds the port's replay to JAX's.  random-spheres 16x8 @ 2 at depth 50,
+  whose ground row most rays read (K17's sum on its hot row): its tapes
+  agree on all but 3 of 5120 entries (one ray trapped between the ground
+  and a sphere, rows 16-18), and it takes test_torch_replay.py's bounds
+  for this scene (the loss ``rtol=1e-4``, each gradient's cosine at least
+  0.999 and its norm within 3%): at the shallow presets' bounds it fails
+  on the route before K16 and K17 as well (the loss 1.2e-5 apart, the
+  geometry gradients up to 145 times the bound).  triangle-mesh is left out: 5 of its
   144 rays meet the edge that two floor triangles share, where the two
   packages' Moller-Trumbore distances differ by an ulp (or tie in one
   package and not in the other), so the winner flips on 6 tape entries and
@@ -109,8 +116,11 @@ def test_scan_graph_body_equals_eager(name):
 def _jax_scan(name):
     """JAX's differentiable scan on ``_case(name)``'s preset, seed, fields
     and zero target: (loss, grads)."""
-    js, jc, cfg = jb.build_preset(name, nx=12, ny=6, spp=2)
-    cfg = dataclasses.replace(cfg, max_depth=8)
+    if name == "random-spheres":
+        js, jc, cfg = jb.random_scene(nx=16, ny=8, spp=2)
+    else:
+        js, jc, cfg = jb.build_preset(name, nx=12, ny=6, spp=2)
+        cfg = dataclasses.replace(cfg, max_depth=8)
     ids = jnp.arange(cfg.num_rays, dtype=jnp.int32)
     params, _ = jax_split(js)
     loss, grads = jax_loss_grads(params, js, jc, cfg, jrng.base_key(1), ids,
@@ -119,24 +129,47 @@ def _jax_scan(name):
     return float(loss), {k: np.asarray(v) for k, v in grads.items()}
 
 
-@pytest.mark.parametrize("name", ["three-spheres", "camera-effects"])
+@pytest.mark.parametrize("name", ["three-spheres", "camera-effects",
+                                  "random-spheres"])
 def test_scan_matches_jax_scan(name):
     p, _ = _case(name)
-    # The same selection: the port's tape of its rays equals JAX's.
+    # The same selection: the port's tape of its rays equals JAX's (on
+    # random-spheres at depth 50 per entry above 0.999).
     o, d = _port_rays(p)
     tape = trp.record_paths(p["scene"], o, d, p["ids"], p["key"], p["cfg"])
     tape = tape[:trp.live_trips(tape)]
-    assert torch.equal(tape, p["tape"])
+    if name != "random-spheres":
+        assert torch.equal(tape, p["tape"])
+    else:
+        assert tape.shape == p["tape"].shape
+        assert float((tape == p["tape"]).double().mean()) > 0.999
     loss, grads = tg.render_loss_and_grads(params_from_numpy(p["params"]),
                                            *_args(p), p["target"],
                                            method="scan")
     want_loss, want_grads = _jax_scan(name)
-    np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
     got = params_to_numpy(grads)
     assert set(got) == set(want_grads)
+    if name != "random-spheres":
+        np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
+        for k, g in want_grads.items():
+            np.testing.assert_allclose(got[k], g, rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+        return
+    # The final scene's float32 gradients are ill-conditioned between
+    # the packages (grazing rays): tests/test_torch_replay.py's bounds for
+    # this scene, the loss rtol=1e-4, each gradient's cosine with JAX's at
+    # least 0.999 and its norm within 3% (measured 1.2e-5; 1 - 1.2e-4 and
+    # 1.1%, both on sphere_radius).
+    np.testing.assert_allclose(float(loss), want_loss, rtol=1e-4)
     for k, g in want_grads.items():
-        np.testing.assert_allclose(got[k], g, rtol=1e-4, atol=1e-6,
-                                   err_msg=k)
+        a, b = g.ravel(), got[k].ravel()
+        assert a.shape == b.shape and np.isfinite(b).all(), k
+        na, nb = np.linalg.norm(a), np.linalg.norm(b)
+        if na == 0.0:
+            assert nb == 0.0, k
+            continue
+        assert a @ b / (na * nb) >= 0.999, k
+        assert abs(nb / na - 1.0) <= 0.03, k
 
 
 def _five_arguments(scene, accel, origin, direction, t_min):
