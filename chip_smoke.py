@@ -434,7 +434,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    version and the library call), K17 beside its plain version, torch's
    indexing backward (``index_put_`` accumulating: the route before K17)
    and ``index_add_`` into float64; bounds from ``utils/roofline.py``
-   (bytes: the tables, a ray's index and row or gradient).  The main
+   (bytes: the tables, a ray's index and row or gradient).  K17's path
+   on the final scene's tables (shared: a block's table of every entry in
+   shared memory) and its resident blocks; K16's and K17's graph nodes a
+   call (``cuGraphGetNodes``: K16 one, K17 at most ``MAX_ROW_SUM_NODES``,
+   the memset and one kernel); and K17's global path (the first trip with
+   its material table padded with rows no ray reads, past the shared
+   budget) held and timed as above.  The main
    path's launches are phase 20's scan's.
 
 The last two lines of standard output are a JSON object with the kernels'
@@ -579,10 +585,12 @@ KERNEL_ENTRIES = (("mega_kernelILb0", "K1"), ("mega_kernelILb1", "K2"),
                   ("replay_forward_kernel", "K14"),
                   ("replay_backward_kernel", "K15"),
                   ("replay_order_kernel", "K15 (its order)"),
-                  ("row_gather_kernel", "K16"),
-                  ("row_exponent_kernel", "K17 (exponents)"),
-                  ("row_accumulate_kernel", "K17 (sums)"),
-                  ("row_round_kernel", "K17 (conversion)"),
+                  ("row_tile_kernel", "K16"),
+                  ("row_gather_kernel", "K16 (int64 path)"),
+                  ("row_sum_kernelIfLb1", "K17 (shared path)"),
+                  ("row_sum_kernelIdLb1", "K17 (shared path)"),
+                  ("row_sum_kernelIfLb0", "K17 (global path)"),
+                  ("row_sum_kernelIdLb0", "K17 (global path)"),
                   ("round_kernel", "K15 (its rounding)"))
 # Phases 12 and 13: the pool and the chunk of the wavefront renders.
 WAVE_RAYS = 1 << 17
@@ -3636,6 +3644,9 @@ STRESS_POOL, STRESS_RAYS = 1 << 21, 1 << 22
 # The graphed pass and trip before K9 and K10 (PERF.md section 5).
 NODES_BEFORE = {"pool pass": 267, "trip": 259}
 MAX_PASS_NODES = 4
+# K17 a call on the card: the scratch's memset and one kernel (its
+# earlier design took a memset and three kernels).
+MAX_ROW_SUM_NODES = 2
 # K9's and K10's readings before their redesign (PERF.md section 5, the
 # proof run after review; an NVIDIA H100 80GB HBM3 at 700.00 W), printed
 # beside this run's.
@@ -5050,6 +5061,55 @@ def rows_times(tables, idxs, grads, card):
     return ms, bound
 
 
+def rows_paths(trip, card):
+    """K17's path and resident blocks on ``trip`` (the final scene's first,
+    float32), its and K16's graph nodes a call (K17 at most
+    ``MAX_ROW_SUM_NODES``: the memset and one kernel), and K17's global
+    path on the same trip, its material table padded with rows no ray
+    reads past the shared budget: bit-equal to its plain version and over 3
+    launches, and timed.  Returns them, with ``worst`` (``rows_vs_plain``)
+    and ``timed`` (``rows_times``) of the global path."""
+    tables, idxs, grads = trip
+    shapes = [tuple(t.shape) for t in tables]
+    lib, _ = mk.load_mega_library()
+
+    def path(shapes):
+        entries = sum(r * c for r, c in shapes)
+        return {"path": "shared" if lib.frt_row_sum_shared(entries)
+                else "global",
+                "resident blocks": lib.frt_row_sum_resident(entries, 0)}
+    info = dict(path(shapes), **{
+        "K17 nodes a call": graph_nodes(
+            lambda: gr.launch_row_sum(grads, idxs, shapes)),
+        "K16 nodes a call": graph_nodes(
+            lambda: gr.launch_gather(tables, idxs))})
+    last, pad = tables[-1], tables[-1].shape[0]
+    while path(shapes[:-1] + [(last.shape[0] + pad, last.shape[1])]
+               )["path"] == "shared":
+        pad *= 2
+    big = tables[:-1] + (torch.cat([last, last.new_zeros((pad,
+                                                          last.shape[1]))]),)
+    big_shapes = [tuple(t.shape) for t in big]
+    info["global path"] = dict(path(big_shapes), **{
+        "tables": big_shapes,
+        "K17 nodes a call": graph_nodes(
+            lambda: gr.launch_row_sum(grads, idxs, big_shapes))})
+    log(f"  K17's path on the final scene's tables {shapes}: {info['path']}"
+        f", {info['resident blocks']} resident blocks; graph nodes a call: "
+        f"K17 {info['K17 nodes a call']}, K16 {info['K16 nodes a call']}; "
+        f"the global path, the material table padded to {big_shapes[-1]}: "
+        f"{info['global path']}")
+    if info["path"] != "shared" or info["global path"]["path"] != "global":
+        raise AssertionError(f"K17's paths: {info}")
+    if max(info["K17 nodes a call"], info["global path"]["K17 nodes a call"]
+           ) > MAX_ROW_SUM_NODES or info["K16 nodes a call"] != 1:
+        raise AssertionError(f"K16's or K17's graph nodes: {info}")
+    info["worst"] = rows_vs_plain("the final scene's first trip, K17's "
+                                  "global path", [(big, idxs, grads)], card)
+    info["timed"] = rows_times(big, idxs, grads, card)
+    return info
+
+
 def gather_rows_path(dev, key, card, scan):
     """Phase 24.  ``scan``: phase 20's readings of the differentiable
     scan (its K16 and K17 launches a replay).  Returns K16's and K17's
@@ -5072,6 +5132,7 @@ def gather_rows_path(dev, key, card, scan):
     timed = {"float32 trip 0": rows_times(*trips[0], card),
              "float32 trip 1": rows_times(*trips[1], card),
              "float64 trip 0": rows_times(*f64[0], card)}
+    trips0 = trips[0]
     del f64, trips
     tm, tcam, tcfg = build_preset("triangle-mesh", device=dev)
     tparams, _ = dg.split_params(tm)
@@ -5081,13 +5142,17 @@ def gather_rows_path(dev, key, card, scan):
         card))
     timed["triangle-mesh trip 0"] = rows_times(*ttrips[0], card)
     del ttrips
+    info = rows_paths(trips0, card)
+    worst = max(worst, info.pop("worst"))
+    timed["float32 trip 0, the global path"] = info.pop("timed")
+    del trips0
     torch.cuda.empty_cache()
     ms, bound = timed["float32 trip 0"]
     src = "first_raytracer_tpu_torch/kernels/csrc/gather_rows.cu"
     by_set = {k: {n: v for n, v in m.items()} | {"bound_ms": b[0]}
               for k, (m, b) in timed.items()}
     common = {"route": "cuda", "source": src, "bound_ms": bound[0],
-              "bound_by": bound[1], "by_set": by_set}
+              "bound_by": bound[1], "by_set": by_set, "paths": info}
     return [dict(common, **{
         "name": "K16 row gather (kernels.gather_rows), the first trip of "
                 "the final scene's scan at 2^17 rays",

@@ -28,6 +28,20 @@ one after another: the ground sphere's row, which most rays read, made it
 - ``gather_rows_kernels``: the kernels' route on the tensors' device,
   whatever it is (the card; the tests' host build on the CPU).
 
+K16 writes a tile of 256 rays a block, 16 bytes a thread, with 32-bit
+index arithmetic where the launch allows it (else one thread an element in
+int64).  K17 is one launch of at most the resident blocks: the rays' ranges
+taken by ticket, a warp's lanes on one row reduced together (the largest
+group by a full-warp redux, the rest by a shuffle tree), the hot rows then
+summed in each block's table in shared memory and flushed to the launch's
+table once a block a step (in step 2 once a range), two waits on counters
+of the ranges done (deadlock-free without co-resident blocks:
+``kernels/csrc/gather_rows.cu``) and the conversion shared out by ticket;
+its scratch (``row_sum_words``) is zeroed by a memset, so a call is two
+graph nodes.  Tables whose entries overflow a block's shared-memory
+budget take its global path (``frt_row_sum_shared`` names it), the same
+launch with the warps' atomics on the global table.
+
 K17's sum: for each (row, column), E the largest exponent field of the
 float64 values added (a zero adds nothing), each value rounded to a
 multiple of 2^(E - 1023 - F), F = ``FRAC_BITS`` = 61 fraction bits under
@@ -50,7 +64,7 @@ import torch
 
 __all__ = ["gather_rows", "gather_rows_plain", "gather_rows_kernels",
            "gather_plain", "row_sum_plain", "launch_gather",
-           "launch_row_sum", "row_sum_bound", "REPLACES",
+           "launch_row_sum", "row_sum_bound", "row_sum_words", "REPLACES",
            "REPLACES_BACKWARD", "MAX_TABLES", "FRAC_BITS"]
 
 # The JAX scan's row gathers (recompute_hit) and the transposes that
@@ -59,6 +73,7 @@ REPLACES = "first_raytracer_tpu/render/integrator.py:155"
 REPLACES_BACKWARD = "first_raytracer_tpu/diff/grad.py:107"
 MAX_TABLES = 3  # gather_rows.cu's kMaxSegments
 FRAC_BITS = 61  # gather_rows.cu's kFracBits
+ROW_SUM_COUNTERS = 5  # gather_rows.cu's kCounters: K17's, after its table
 
 
 def gather_plain(tables, idxs):
@@ -140,6 +155,14 @@ def _desc(parts):
     return (ctypes.c_int64 * len(flat))(*flat)
 
 
+def row_sum_words(shapes):
+    """K17's scratch for tables of ``shapes``, in int64 words: two sums and
+    an (E, flags) pair an entry, then the counters (the launcher refuses
+    fewer)."""
+    entries = sum(r * c for r, c in shapes)
+    return 3 * entries + ROW_SUM_COUNTERS if entries else 0
+
+
 def launch_gather(tables, idxs):
     """K16 once over the tables (checked: ``gather_rows_kernels``): the
     (R, cols) rows of each table at its indices."""
@@ -170,10 +193,10 @@ def launch_row_sum(grads, idxs, shapes):
     outs = tuple(torch.empty(s, dtype=dtype, device=dev) for s in shapes)
     desc = _desc([(g.data_ptr(), i.data_ptr(), o.data_ptr(), *s)
                   for g, i, o, s in zip(grads, idxs, outs, shapes)])
-    words = sum(3 * r * c for r, c in shapes)
+    words = row_sum_words(shapes)
     work = torch.empty((words,), dtype=torch.int64, device=dev)
     megakernel.launch_entry(dev, f"frt_row_sum_{_suffix(dtype)}", desc,
-                            len(grads), n, work.data_ptr())
+                            len(grads), n, work.data_ptr(), words)
     if words:
         gather_rows.backward_launches += 1
     return outs

@@ -63,6 +63,10 @@ struct float4 {
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
 }
+struct alignas(16) double2 {
+  double x, y;
+};
+inline double2 make_double2(double x, double y) { return double2{x, y}; }
 struct alignas(16) int4 {
   int x, y, z, w;
 };
@@ -138,6 +142,11 @@ template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
+// A load past L1 (cache global): memory is one here.
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
 
 // Reinterpretations of a 32-bit word, as the card's intrinsics.
 inline float __int_as_float(int x) {
@@ -164,6 +173,9 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
 inline int __ffs(int x) { return __builtin_ffs(x); }
 
 inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
 inline unsigned long long atomicAdd(unsigned long long* p,
@@ -492,6 +504,41 @@ inline unsigned __match_any_sync(unsigned mask, T v) {
   for (int l = 0; l < frt_emu::kWarp; ++l)
     if (((mask >> l) & 1u) && all[l] == v) out |= 1u << l;
   return out;
+}
+// redux.sync: the sum, maximum or OR of `v` over the lanes of `mask` (the
+// calling lane among them; the lanes of a warp may pass disjoint masks).
+namespace frt_emu {
+template <class T, class Op>
+inline T reduce_lanes(unsigned mask, T v, Op op) {
+  T all[kWarp];
+  exchange<T>(v, all);
+  bool first = true;
+  T out{};
+  for (int l = 0; l < kWarp; ++l)
+    if ((mask >> l) & 1u) {
+      out = first ? all[l] : op(out, all[l]);
+      first = false;
+    }
+  return out;
+}
+}  // namespace frt_emu
+inline int __reduce_add_sync(unsigned mask, int v) {
+  return frt_emu::reduce_lanes(mask, v, [](int a, int b) {
+    return static_cast<int>(static_cast<unsigned>(a) +
+                            static_cast<unsigned>(b));
+  });
+}
+inline unsigned __reduce_add_sync(unsigned mask, unsigned v) {
+  return frt_emu::reduce_lanes(mask, v,
+                               [](unsigned a, unsigned b) { return a + b; });
+}
+inline unsigned __reduce_max_sync(unsigned mask, unsigned v) {
+  return frt_emu::reduce_lanes(
+      mask, v, [](unsigned a, unsigned b) { return a > b ? a : b; });
+}
+inline unsigned __reduce_or_sync(unsigned mask, unsigned v) {
+  return frt_emu::reduce_lanes(mask, v,
+                               [](unsigned a, unsigned b) { return a | b; });
 }
 template <class T>
 inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {

@@ -392,8 +392,14 @@ def bind_gather_rows(lib):
         fwd.argtypes = [desc, i32, i64, ptr]
         fwd.restype = i32
         bwd = getattr(lib, f"frt_row_sum_{t}")
-        bwd.argtypes = [desc, i32, i64, ptr, ptr]
+        bwd.argtypes = [desc, i32, i64, ptr, i64, ptr]
         bwd.restype = i32
+    lib.frt_gather_rows_bits.argtypes = [desc, i32, i64]
+    lib.frt_gather_rows_bits.restype = i32
+    lib.frt_row_sum_shared.argtypes = [i64]
+    lib.frt_row_sum_shared.restype = i32
+    lib.frt_row_sum_resident.argtypes = [i64, i32]
+    lib.frt_row_sum_resident.restype = i32
     return lib
 
 

@@ -749,3 +749,40 @@ def test_row_gathers_match_plain(cuda_device, dtype):
     for xs, ids in runs:
         got = gr.launch_row_sum(xs, ids, shapes)
         assert all(torch.equal(a.view(bits), b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_row_sum_global_path_and_k16_int64_path(cuda_device):
+    """K17's global path (a table past its shared-memory budget)
+    bit-equal to ``row_sum_plain``, over two launches; K16's int64 path
+    (taken for outputs 8 bytes off 16) ``torch.equal`` to
+    ``index_select``."""
+    from first_raytracer_tpu_torch.kernels import gather_rows as gr
+    from first_raytracer_tpu_torch.kernels import megakernel as mk
+
+    g = torch.Generator().manual_seed(1)
+    R, shapes = 1 << 14, [(486, 4), (1500, 11)]
+    lib, _ = mk.load_mega_library()
+    assert not lib.frt_row_sum_shared(sum(r * c for r, c in shapes))
+    tables = [torch.randn(sh, generator=g).to(cuda_device) for sh in shapes]
+    idxs, grads = [], []
+    for rows, cols in shapes:
+        i = torch.randint(0, rows, (R,), generator=g)
+        i[torch.rand(R, generator=g) < 0.7] = 0
+        idxs.append(i.to(cuda_device))
+        grads.append(torch.randn((R, cols), generator=g).to(cuda_device))
+    want = [gr.row_sum_plain(x, i, sh[0]).view(torch.int32)
+            for x, i, sh in zip(grads, idxs, shapes)]
+    for _ in range(2):
+        got = gr.launch_row_sum(grads, idxs, shapes)
+        assert all(torch.equal(a.view(torch.int32), b)
+                   for a, b in zip(got, want))
+    outs = [torch.empty(R * t.shape[1] + 2, device=cuda_device)[2:].view(
+        R, t.shape[1]) for t in tables]
+    desc = gr._desc([(t.data_ptr(), i.data_ptr(), o.data_ptr(), *t.shape)
+                     for t, i, o in zip(tables, idxs, outs)])
+    assert lib.frt_gather_rows_bits(desc, len(tables), R) == 64
+    mk.launch_entry(cuda_device, "frt_gather_rows_f32", desc, len(tables),
+                    R)
+    assert all(torch.equal(o, t.index_select(0, i))
+               for o, t, i in zip(outs, tables, idxs))

@@ -35,6 +35,7 @@ the CPU (``first_raytracer_tpu_torch/kernels/gather_rows.py``).
   versions.
 """
 import torch_cpu  # noqa: F401  (torch threads per xdist worker)
+import contextlib
 import dataclasses
 import shutil
 
@@ -416,3 +417,217 @@ def test_scan_rows_route_against_the_scene_route(name):
         assert bool(torch.isfinite(got[1][k]).all()), k
         np.testing.assert_allclose(got[1][k].numpy(), g.numpy(), rtol=1e-5,
                                    atol=1e-7, err_msg=k)
+
+
+# --------------------------------------------------------------------------
+# K17's single launch: ranges by ticket, the block's table in shared memory
+# or the global one, the waits, the conversion shared out; K16's tiles.
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _interleaved(lib, resident, seed):
+    """The emulation's launches with ``resident`` blocks in flight at once
+    (0: one after another), their fibers swept in orders drawn from
+    ``seed``; yields a function that returns the spin-waits since."""
+    lib.frt_emu_interleave(resident, seed)
+    try:
+        yield lambda: int(lib.frt_emu_spins())
+    finally:
+        lib.frt_emu_interleave(0, 0)
+
+
+def _sum_case(rs, shapes, R, dtype):
+    cases = [_rows_case(rs, R, r, c, dtype) for r, c in shapes]
+    return [c[0] for c in cases], [c[1] for c in cases]
+
+
+def _path(lib, shapes):
+    """The path K17's launcher takes for tables of ``shapes``."""
+    entries = sum(r * c for r, c in shapes)
+    return "shared" if lib.frt_row_sum_shared(entries) else "global"
+
+
+def _same_sums(grads, idxs, shapes):
+    got = gr.launch_row_sum(grads, idxs, shapes)
+    want = [gr.row_sum_plain(g, i, s[0])
+            for g, i, s in zip(grads, idxs, shapes)]
+    return all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+# The emulation reports 2 x 2 resident blocks: 4100 rays are 5 ranges of
+# at most 1024 (a thread's one ray; the last range 4), 2049 rays 3 ranges
+# of 683, 1025 rays 2 ranges of 513 (the last partial).  In flight: one
+# after another (a block takes every range), two of the four, all four,
+# more than the grid.
+SHARED_TABLES = [(41, 4), (7, 9), (12, 11)]
+GLOBAL_TABLES = [(900, 4), (40, 9), (900, 11)]  # 14,860 entries
+
+
+@pytest.mark.parametrize("resident,seed", [(0, 0), (2, 1), (4, 2), (4, 7),
+                                           (9, 3)])
+@pytest.mark.parametrize("path", ["shared", "global"])
+def test_host_k17_interleaved_bit_equal(host_lib, path, resident, seed):
+    shapes = SHARED_TABLES if path == "shared" else GLOBAL_TABLES
+    assert _path(host_lib, shapes) == path
+    rs = np.random.RandomState(100 * resident + seed)
+    for count, dtype, R in ((3, torch.float32, 4100), (2, torch.float64, 2049),
+                            (1, torch.float32, 1025)):
+        idxs, grads = _sum_case(rs, shapes[:count], R, dtype)
+        with _interleaved(host_lib, resident, seed) as spins:
+            assert _same_sums(grads, idxs, shapes[:count])
+            if resident > 1 and R == 4100:  # a block waited on the others
+                assert spins() > 0
+
+
+@pytest.mark.parametrize("path", ["shared", "global"])
+def test_host_k17_order_and_dead_rays_interleaved(host_lib, path):
+    """The same bits with the rays permuted, the dead rays moved and dead
+    rays added, with four blocks in flight."""
+    shapes = SHARED_TABLES if path == "shared" else GLOBAL_TABLES
+    rs = np.random.RandomState(17)
+    R = 2600
+    idxs, grads = _sum_case(rs, shapes, R, torch.float32)
+    want = [gr.row_sum_plain(g, i, s[0])
+            for g, i, s in zip(grads, idxs, shapes)]
+    perm = torch.from_numpy(rs.permutation(R))
+    dead = [(g == 0).all(1) for g in grads]
+    away = [torch.where(z, torch.from_numpy(rs.randint(0, s[0], R)), i)
+            for z, i, s in zip(dead, idxs, shapes)]
+    more = [torch.cat([i, torch.zeros(1000, dtype=torch.int64)])
+            for i in idxs]
+    zeros = [torch.cat([g, torch.zeros((1000, g.shape[1]))]) for g in grads]
+    with _interleaved(host_lib, 4, 5):
+        for gs, ids in ((grads, idxs),
+                        ([g[perm] for g in grads], [i[perm] for i in idxs]),
+                        (grads, away), (zeros, more)):
+            got = gr.launch_row_sum(gs, ids, shapes)
+            assert all(torch.equal(_bits(a), _bits(b))
+                       for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("R", [0, 1, 31, 1023, 1024, 1025, 4097])
+def test_host_k17_ray_counts(host_lib, R):
+    """No rays (zeros), one, less than a warp, around a block's 1024
+    threads and past the four ranges' multiple, on both paths, with the
+    blocks interleaved."""
+    rs = np.random.RandomState(R)
+    for shapes in (SHARED_TABLES[:2], GLOBAL_TABLES[:1]):
+        idxs, grads = _sum_case(rs, shapes, R, torch.float64)
+        with _interleaved(host_lib, 3, R):
+            assert _same_sums(grads, idxs, shapes)
+
+
+def test_host_k17_paths_and_scratch(host_lib):
+    """The launcher's path: shared for the final scene's tables (486
+    spheres and materials) and triangle-mesh's, global past a block's
+    budget, one boundary between; the wrapper's scratch taken and a word
+    less refused."""
+    assert _path(host_lib, [(486, 4), (486, 11)]) == "shared"
+    assert _path(host_lib, [(2, 4), (10, 9), (4, 11)]) == "shared"
+    assert _path(host_lib, [(5000, 4), (5000, 11)]) == "global"
+    shared = [bool(host_lib.frt_row_sum_shared(e)) for e in
+              range(1, 20001, 7)]
+    assert shared[0] and not shared[-1]
+    assert shared == sorted(shared, reverse=True)
+    rs = np.random.RandomState(5)
+    shapes = [(41, 4), (12, 11)]
+    idxs, grads = _sum_case(rs, shapes, 300, torch.float32)
+    assert gr.row_sum_words(shapes) == 3 * (41 * 4 + 12 * 11) + 5
+    outs = [torch.empty(s) for s in shapes]
+    desc = gr._desc([(g.data_ptr(), i.data_ptr(), o.data_ptr(), *s)
+                     for g, i, o, s in zip(grads, idxs, outs, shapes)])
+    words = gr.row_sum_words(shapes)
+    work = torch.empty(words, dtype=torch.int64)
+    assert host_lib.frt_row_sum_f32(desc, 2, 300, work.data_ptr(),
+                                    words - 1, None) != 0
+    assert host_lib.frt_row_sum_f32(desc, 2, 300, work.data_ptr(), words,
+                                    None) == 0
+    assert all(torch.equal(_bits(o), _bits(gr.row_sum_plain(g, i, s[0])))
+               for o, g, i, s in zip(outs, grads, idxs, shapes))
+
+
+def _gather_desc(tables, idxs, outs):
+    return gr._desc([(t.data_ptr(), i.data_ptr(), o.data_ptr(), t.shape[0],
+                      t.shape[1]) for t, i, o in zip(tables, idxs, outs)])
+
+
+def _host_gather(lib, tables, idxs, bits, R):
+    """K16 through the host build into outputs 16-byte aligned (``bits``
+    32: the launcher's 32-bit path) or 8 bytes off (64: its int64 path);
+    the launcher's choice checked, then its error code and the outputs."""
+    off = 0 if bits == 32 else 8 // tables[0].element_size()
+    outs = [torch.full((R * t.shape[1] + off,), float("nan"),
+                       dtype=t.dtype)[off:].view(R, t.shape[1])
+            for t in tables]
+    desc = _gather_desc(tables, idxs, outs)
+    assert lib.frt_gather_rows_bits(desc, len(tables), R) == bits
+    name = "frt_gather_rows_" + ("f32" if tables[0].dtype == torch.float32
+                                 else "f64")
+    return getattr(lib, name)(desc, len(tables), R, None), outs
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_host_k16_paths_equal_index_select(host_lib, dtype, bits):
+    """K16 on its 32-bit path (tiles of 256 rays written 16 bytes a thread,
+    cut mid-row at 9 and 11 columns and at a partial last tile) and its
+    int64 path, ``torch.equal`` to ``index_select``, indices out of range
+    clamped, with the blocks one after another and interleaved."""
+    rs = np.random.RandomState(bits + len(str(dtype)))
+    shapes = [(41, 4), (7, 9), (12, 11)]
+    for R in (1, 255, 256, 1000):
+        tables = [torch.from_numpy(rs.randn(*s)).to(dtype) for s in shapes]
+        idxs = [torch.from_numpy(rs.randint(-2, s[0] + 2, R)) for s in shapes]
+        err, outs = _host_gather(host_lib, tables, idxs, bits, R)
+        assert err == 0
+        for o, t, i in zip(outs, tables, idxs):
+            assert torch.equal(o, t.index_select(0, i.clamp(0, t.shape[0] - 1)))
+    with _interleaved(host_lib, 4, bits):
+        err, outs = _host_gather(host_lib, tables, idxs, bits, R)
+    assert err == 0 and all(torch.equal(o, t.index_select(0, i.clamp(
+        0, t.shape[0] - 1))) for o, t, i in zip(outs, tables, idxs))
+
+
+@pytest.mark.parametrize("cols", [1, 2, 3, 5, 16, 37, 4095])
+def test_host_k16_tile_columns(host_lib, cols):
+    """The 32-bit path's tile at column counts up to its largest, 4095."""
+    rs = np.random.RandomState(cols)
+    R = 300 if cols < 100 else 40
+    table = torch.from_numpy(rs.randn(17, cols).astype(np.float32))
+    idx = torch.from_numpy(rs.randint(0, 17, R))
+    err, (out,) = _host_gather(host_lib, [table], [idx], 32, R)
+    assert err == 0 and torch.equal(out, table.index_select(0, idx))
+
+
+def test_k16_tile_division_is_exact():
+    """The 32-bit path's ray and column of a tile element, the high word of
+    e (2^32 // cols + 1), equal e // cols for every tile element at every
+    column count it takes (checked where floor(e / cols) steps)."""
+    ks = np.arange(1, 257, dtype=np.uint64)
+    for cols in range(1, 4096):
+        magic = np.uint64(0xFFFFFFFF // cols + 1)
+        c = np.uint64(cols)
+        e = np.concatenate([ks * c - np.uint64(1), ks * c])
+        e = e[e < np.uint64(256 * cols)]
+        assert np.array_equal((e * magic) >> np.uint64(32), e // c), cols
+
+
+def test_host_k16_launcher_choice(host_lib):
+    """The index width K16's launcher takes: 32 bits where every segment's
+    n cols and rows cols are under 2^31, its cols under 4096 and its output
+    16-byte aligned; 64 bits otherwise."""
+    def bits(n, rows, cols, out=1 << 12):
+        desc = gr._desc([(1 << 12, 1 << 12, out, rows, cols)])
+        return host_lib.frt_gather_rows_bits(desc, 1, n)
+    assert bits(1 << 17, 486, 11) == 32
+    assert bits((1 << 31) // 11, 486, 11) == 32
+    assert bits((1 << 31) // 11 + 1, 486, 11) == 64
+    assert bits(10, (1 << 31) // 9 + 1, 9) == 64
+    assert bits(10, 3, 4095) == 32 and bits(10, 3, 4096) == 64
+    assert bits(10, 3, 4, out=(1 << 12) + 8) == 64
+    assert bits(0, 3, 4) == 32
+    # Two segments: one that needs 64 bits takes the launch there.
+    two = gr._desc([(1 << 12, 1 << 12, 1 << 12, 3, 4),
+                    (1 << 12, 1 << 12, (1 << 12) + 4, 3, 4)])
+    assert host_lib.frt_gather_rows_bits(two, 2, 10) == 64
+    assert host_lib.frt_gather_rows_bits(two, 1, 10) == 32
